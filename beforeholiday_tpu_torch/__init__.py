@@ -4,21 +4,33 @@ for NVIDIA Hopper (H100).
 It mirrors the JAX package's module paths and is held against it by the
 ``tests/test_torch_*.py`` parity tests. Every TPU kernel on a ported path is
 a hand-written Hopper kernel beside a plain PyTorch version of the same
-function. Ported so far (slice 1, serving):
+function. Ported so far (slice 1, serving; slice 2, the O5 training step):
 
-- ``beforeholiday_tpu_torch.ops``     — LayerNorm/RMSNorm forward (kernel K1,
-  Triton), flash-attention forward (kernel K2, CUDA C++), dense/MLP blocks.
+- ``beforeholiday_tpu_torch.ops``     — LayerNorm/RMSNorm forward and backward
+  (kernels K1/K3, Triton), flash attention forward and backward (K2/K4, CUDA
+  C++), dense/MLP blocks, flat arenas, the unscale and fused-Adam arena
+  kernels (K5/K6, Triton).
+- ``beforeholiday_tpu_torch.amp``     — opt levels O0/O5, device-side loss
+  scaling, ``scaled_value_and_grad``.
+- ``beforeholiday_tpu_torch.optimizers`` — ``FusedAdam`` and ``MasterWeights``.
 - ``beforeholiday_tpu_torch.infer``   — paged KV cache, bucketed inference
   engine, continuous batching.
 - ``beforeholiday_tpu_torch.monitor`` — the strict bucket-signature gate.
-- ``beforeholiday_tpu_torch.testing`` — the dense eval-mode GPT.
+- ``beforeholiday_tpu_torch.testing`` — the dense GPT, its loss and batches.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"`` or
 hands them CPU tensors; with no card and no CPU request they raise.
 """
 
-from beforeholiday_tpu_torch import infer, monitor, ops, testing  # noqa: F401
+from beforeholiday_tpu_torch import (  # noqa: F401
+    amp,
+    infer,
+    monitor,
+    ops,
+    optimizers,
+    testing,
+)
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-__all__ = ["infer", "monitor", "ops", "testing"]
+__all__ = ["amp", "infer", "monitor", "ops", "optimizers", "testing"]

@@ -1,0 +1,283 @@
+"""amp frontend — opt levels and ``initialize`` for functional models;
+counterpart of ``beforeholiday_tpu/amp/frontend.py``.
+
+The same policy as the JAX package, as explicit dataflow: ``initialize``
+returns cast params (norm leaves kept fp32 under ``keep_batchnorm_fp32``),
+an ``apply`` wrapper that casts floating inputs to the compute dtype and
+outputs to ``cast_model_outputs``, a master-weight optimizer wrapper, and
+one :class:`LossScaler` per loss. :func:`scaled_value_and_grad` is the
+functional ``amp.scale_loss``: ``(loss, grads, found_inf, new_scaler_state)``
+with no host sync.
+
+Ported opt levels: O0 (fp32) and O5 (bf16 storage, fp32 masters, static
+loss scale 1.0), both with ``arena_native``. O1 and O4 need the autocast
+scope, O2 and O3 fp16 kernels, and O6 the quantized fp8 tier; none is
+ported, so they raise ``NotImplementedError``, as does ``tuned=True`` (the
+autotuner is not ported). Not ported either: ``has_state`` models,
+``arena_masters`` (the optimizer's view path), and ``scaled_value_and_grad``'s
+``has_aux`` and ``reduce_grads`` (DDP, a later slice).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from beforeholiday_tpu_torch.amp.scaler import LossScaler
+from beforeholiday_tpu_torch.ops._autocast import cast_floats as _cast_floats
+from beforeholiday_tpu_torch.ops.arena import (
+    PackedParams,
+    tree_flatten,
+    tree_paths,
+    tree_unflatten,
+)
+from beforeholiday_tpu_torch.optimizers.fused import MasterWeights
+
+
+@dataclasses.dataclass(frozen=True)
+class Properties:
+    """Opt-level property set."""
+
+    enabled: bool = True
+    opt_level: str = "O0"
+    cast_model_type: Optional[torch.dtype] = None  # storage dtype for params
+    patch_torch_functions: bool = False  # compute-dtype casting w/ fp32 storage
+    patch_torch_functions_type: Optional[torch.dtype] = None
+    keep_batchnorm_fp32: Optional[bool] = None
+    master_weights: Optional[bool] = None
+    loss_scale: Any = 1.0  # "dynamic" | float
+    quantized: bool = False  # O6
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """dtype arithmetic runs in: patched-functions type, else storage type."""
+        if self.patch_torch_functions and self.patch_torch_functions_type is not None:
+            return self.patch_torch_functions_type
+        return self.cast_model_type or torch.float32
+
+
+opt_levels: Dict[str, Properties] = {
+    "O0": Properties(opt_level="O0", cast_model_type=torch.float32,
+                     master_weights=False, loss_scale=1.0),
+    "O1": Properties(opt_level="O1", patch_torch_functions=True,
+                     patch_torch_functions_type=torch.float16,
+                     loss_scale="dynamic"),
+    "O2": Properties(opt_level="O2", cast_model_type=torch.float16,
+                     keep_batchnorm_fp32=True, master_weights=True,
+                     loss_scale="dynamic"),
+    "O3": Properties(opt_level="O3", cast_model_type=torch.float16,
+                     keep_batchnorm_fp32=False, master_weights=False,
+                     loss_scale=1.0),
+    "O4": Properties(opt_level="O4", patch_torch_functions=True,
+                     patch_torch_functions_type=torch.bfloat16, loss_scale=1.0),
+    "O5": Properties(opt_level="O5", cast_model_type=torch.bfloat16,
+                     keep_batchnorm_fp32=True, master_weights=True,
+                     loss_scale=1.0),
+    "O6": Properties(opt_level="O6", cast_model_type=torch.bfloat16,
+                     keep_batchnorm_fp32=True, master_weights=True,
+                     loss_scale="dynamic", quantized=True),
+}
+
+# what each unported level needs before it can run
+_UNPORTED = {
+    "O1": "the autocast scope (the per-op cast policy of O1/O4)",
+    "O2": "fp16 kernels (K1-K6 take fp32 and bf16 on the path)",
+    "O3": "fp16 kernels (K1-K6 take fp32 and bf16 on the path)",
+    "O4": "the autocast scope (the per-op cast policy of O1/O4)",
+    "O6": "the quantized fp8 tier (ops.quantized and the amax history)",
+}
+
+
+def _default_keep_fp32(path: Tuple[Any, ...]) -> bool:
+    """``keep_batchnorm_fp32`` by name: norm-layer parameters stay fp32
+    (``ln1_scale``, ``lnf_bias``, ``*norm*``, ``bn*``)."""
+    for part in path:
+        low = str(part).lower()
+        if ("norm" in low or low.startswith("bn") or low.endswith("bn")
+                or low.startswith("ln")):
+            return True
+    return False
+
+
+def _cast_params(params, policy: Properties, keep_fp32_mask):
+    if policy.cast_model_type is None:
+        return params
+    keep = keep_fp32_mask if keep_fp32_mask is not None else _default_keep_fp32
+    leaves, treedef = tree_flatten(params)
+    out = []
+    for path, leaf in zip(tree_paths(params), leaves):
+        if not (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()):
+            out.append(leaf)
+        elif policy.keep_batchnorm_fp32 and keep(path):
+            out.append(leaf.to(torch.float32))
+        else:
+            out.append(leaf.to(policy.cast_model_type))
+    return tree_unflatten(treedef, out)
+
+
+@dataclasses.dataclass
+class AmpModel:
+    """What ``initialize`` returns: the functional (model, optimizer) pair."""
+
+    policy: Properties
+    apply: Callable  # wrapped apply: casts inputs/outputs per policy
+    params: Any  # storage-dtype params (a PackedParams when arena_native)
+    optimizer: Any  # possibly MasterWeights-wrapped
+    scaler: LossScaler  # scalers[0]
+    scalers: Tuple[LossScaler, ...] = ()  # one per loss
+
+    def __post_init__(self):
+        if not self.scalers:
+            self.scalers = (self.scaler,)
+
+    def state_dict(self, scaler_state) -> Dict[str, Any]:
+        """Scaler checkpoint, one ``loss_scaler{i}`` entry per loss. Reads
+        the scaler state back to the host: call it outside the step."""
+        states = (list(scaler_state) if isinstance(scaler_state, (list, tuple))
+                  else [scaler_state])
+        if len(states) != len(self.scalers):
+            raise ValueError(
+                f"expected {len(self.scalers)} scaler states, got {len(states)}"
+            )
+        return {f"loss_scaler{i}": s.state_dict(st)
+                for i, (s, st) in enumerate(zip(self.scalers, states))}
+
+    def load_state_dict(self, state_dict, device=None):
+        """Inverse of :meth:`state_dict`: the single scaler state, or the
+        list of per-loss states."""
+        out = [s.load_state_dict(state_dict[f"loss_scaler{i}"], device=device)
+               for i, s in enumerate(self.scalers)]
+        return out[0] if len(out) == 1 else out
+
+
+def initialize(
+    apply_fn: Callable,
+    params: Any,
+    optimizer: Any = None,
+    opt_level: Optional[str] = None,
+    *,
+    tuned: bool = False,
+    cast_model_outputs: Optional[torch.dtype] = torch.float32,
+    keep_batchnorm_fp32: Optional[bool] = None,
+    master_weights: Optional[bool] = None,
+    loss_scale: Optional[Any] = None,
+    keep_fp32_mask: Optional[Callable] = None,
+    num_losses: int = 1,
+    arena_native: bool = False,
+) -> AmpModel:
+    """Apply an opt-level policy to ``(apply_fn, params, optimizer)``.
+
+    ``keep_batchnorm_fp32``/``master_weights``/``loss_scale`` override the
+    level's defaults. ``arena_native=True`` stores the cast params as
+    :class:`PackedParams` (one flat arena per dtype): ``apply`` unpacks
+    views, :func:`scaled_value_and_grad` returns gradient arenas, and the
+    master-weight step runs one fused kernel per arena with no packing."""
+    if tuned:
+        raise NotImplementedError(
+            "tuned=True needs the autotuner (beforeholiday_tpu.tune), which "
+            "is not ported yet; pass opt_level explicitly")
+    if opt_level is None:
+        opt_level = "O5"
+    if opt_level not in opt_levels:
+        raise RuntimeError(
+            f"Unexpected optimization level {opt_level}. Options are 'O0', "
+            "'O1', 'O2', 'O3', 'O4', 'O5', 'O6'."
+        )
+    if opt_level in _UNPORTED:
+        raise NotImplementedError(
+            f"amp opt level {opt_level} needs {_UNPORTED[opt_level]}, which is "
+            "not ported yet; O0 and O5 are")
+    policy = opt_levels[opt_level]
+    overrides = {}
+    if keep_batchnorm_fp32 is not None:
+        overrides["keep_batchnorm_fp32"] = keep_batchnorm_fp32
+    if master_weights is not None:
+        overrides["master_weights"] = master_weights
+    if loss_scale is not None:
+        overrides["loss_scale"] = loss_scale
+    if overrides:
+        policy = dataclasses.replace(policy, **overrides)
+
+    cast_params = _cast_params(params, policy, keep_fp32_mask)
+    if arena_native:
+        if optimizer is not None and not policy.master_weights:
+            raise ValueError(
+                "arena_native requires a master-weights opt level (O5, or "
+                f"master_weights=True); {policy.opt_level} with "
+                f"master_weights={policy.master_weights} would hand "
+                "PackedParams to the raw optimizer"
+            )
+        cast_params = PackedParams.pack(cast_params)
+    amp_apply = make_apply(policy, apply_fn,
+                           cast_model_outputs=cast_model_outputs)
+    opt = optimizer
+    if opt is not None and policy.master_weights:
+        opt = MasterWeights(opt)
+    if num_losses < 1:
+        raise ValueError(f"num_losses must be >= 1, got {num_losses}")
+    scalers = tuple(LossScaler(loss_scale=policy.loss_scale)
+                    for _ in range(num_losses))
+    return AmpModel(policy=policy, apply=amp_apply, params=cast_params,
+                    optimizer=opt, scaler=scalers[0], scalers=scalers)
+
+
+def make_apply(policy: Properties, apply_fn: Callable, *,
+               cast_model_outputs: Optional[torch.dtype] = torch.float32
+               ) -> Callable:
+    """Wrap ``apply_fn`` with the policy's input and output casts (the
+    params are used as given: they are already in storage dtype)."""
+    if policy.patch_torch_functions or policy.quantized:
+        raise NotImplementedError(
+            f"{policy.opt_level}'s apply needs the autocast scope or the "
+            "quantized tier, which are not ported yet")
+    compute_dtype = policy.compute_dtype
+
+    def amp_apply(p, *inputs, **kwinputs):
+        if isinstance(p, PackedParams):
+            p = p.unpack()  # views of the arenas, no copy
+        inputs = _cast_floats(inputs, compute_dtype)
+        kwinputs = _cast_floats(kwinputs, compute_dtype)
+        out = apply_fn(p, *inputs, **kwinputs)
+        if cast_model_outputs is not None:
+            out = _cast_floats(out, cast_model_outputs)
+        return out
+
+    return amp_apply
+
+
+def scaled_value_and_grad(loss_fn: Callable, scaler: LossScaler, *,
+                          impl=None):
+    """The functional ``amp.scale_loss``. Returns ``f(params, scaler_state,
+    *args) -> (loss, grads, found_inf, new_scaler_state)``: autograd of
+    ``scale * loss``, grads unscaled to fp32 by K5 with its overflow flag,
+    and the scaler state advanced. Thread ``found_inf`` into
+    ``optimizer.step`` for the skip step.
+
+    At a :class:`PackedParams` argument the grads are born flat: the model
+    reads leaf views whose ``.grad`` are views of one zeroed gradient arena
+    per dtype (:meth:`PackedParams.grad_leaves`), and the returned grads are
+    a :class:`PackedParams` of fp32 arenas. Any other params tree gets a
+    tree of fp32 grads. Nothing here reads a device value back to the host.
+    """
+
+    def wrapped(params, scaler_state, *args, **kw):
+        if isinstance(params, PackedParams):
+            grads = params.zeros_like()
+            loss = loss_fn(params.grad_leaves(grads), *args, **kw)
+            scaler.scale_loss(loss, scaler_state).backward()
+        else:
+            leaves, treedef = tree_flatten(params)
+            leaves = [x.detach().requires_grad_(True) for x in leaves]
+            loss = loss_fn(tree_unflatten(treedef, leaves), *args, **kw)
+            got = torch.autograd.grad(scaler.scale_loss(loss, scaler_state),
+                                      leaves, allow_unused=True)
+            grads = tree_unflatten(treedef, [
+                torch.zeros_like(x) if g is None else g
+                for x, g in zip(leaves, got)])
+        grads, found_inf = scaler.unscale(grads, scaler_state, impl=impl)
+        new_state = scaler.update(scaler_state, found_inf)
+        return loss.detach(), grads, found_inf, new_state
+
+    return wrapped

@@ -35,15 +35,12 @@
 // cp.async/TMA pipelining of the tile loads, wgmma, and reading the paged
 // cache in place instead of a gathered copy.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e30f;  // mask fill: large negative keeps exp/max NaN-free
 constexpr int kWarps = 4;
 constexpr int kRows = 4;              // query rows per warp
 constexpr int kBQ = kWarps * kRows;   // query rows per block
@@ -52,23 +49,6 @@ constexpr int kDecodeRows = 16;       // fewer query rows than this: decode kern
 constexpr int kMmaWarps = 4;
 constexpr int kMmaBQ = 16 * kMmaWarps;  // query rows per tensor-core block
 constexpr int kMmaBK = 64;              // keys per tensor-core tile
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -176,25 +156,6 @@ flash_fwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 
-// 8 consecutive elements as floats, from a 16-byte-aligned address
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -290,25 +251,6 @@ flash_fwd_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (col < D) store(&o[orow * D + col], nonempty ? out[c] / lt : 0.f);
   }
   if (lane == 0) lse[orow] = nonempty ? mt + logf(lt) : kNeg;
-}
-
-// D(16x8, fp32) += A(16x16, bf16, row-major) * B(16x8, bf16, "col": B^T rows)
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): A holds rows g and

@@ -1,15 +1,25 @@
 """Kernel-backed ops — counterpart of ``beforeholiday_tpu/ops``.
 
-* ``normalization`` — LayerNorm / RMSNorm forward on kernel K1 (Triton).
-* ``attention`` — flash-attention forward on kernel K2 (CUDA C++).
+* ``normalization`` — LayerNorm / RMSNorm on kernels K1/K3 (Triton).
+* ``attention`` — flash attention on kernels K2/K4 (CUDA C++).
 * ``dense`` — dense and MLP blocks on library GEMMs.
-* ``arena`` — the flat-buffer carving the paged KV cache uses.
+* ``arena`` — flat arenas and ``PackedParams``.
+* ``multi_tensor`` — unscale and fused Adam over arenas, K5/K6 (Triton).
 
 On a CUDA tensor a kernel-backed op launches its kernel or raises; on a CPU
 tensor it runs the kernel's plain PyTorch version.
 """
 
-from .arena import ArenaSpec, make_spec, unflatten  # noqa: F401
+from .arena import (  # noqa: F401
+    ArenaSpec,
+    PackedLayout,
+    PackedParams,
+    bucket_by_dtype,
+    flatten,
+    make_spec,
+    unflatten,
+    views_to_arena,
+)
 from .attention import (  # noqa: F401
     flash_attention,
     flash_attention_with_lse,
@@ -23,8 +33,22 @@ from .normalization import (  # noqa: F401
     mixed_dtype_fused_rms_norm,
 )
 
+from .multi_tensor import (  # noqa: F401
+    adam_flat,
+    multi_tensor_adam,
+    multi_tensor_scale,
+)
+
 __all__ = [
     "ArenaSpec",
+    "PackedLayout",
+    "PackedParams",
+    "adam_flat",
+    "bucket_by_dtype",
+    "flatten",
+    "multi_tensor_adam",
+    "multi_tensor_scale",
+    "views_to_arena",
     "flash_attention",
     "flash_attention_with_lse",
     "fused_dense",

@@ -1,15 +1,20 @@
-"""Standalone GPT language model — the dense, eval-mode path of
-``beforeholiday_tpu/testing/gpt.py``.
+"""Standalone GPT language model — the dense path of
+``beforeholiday_tpu/testing/gpt.py``, for serving and for training.
 
 A pure function over a parameter dict with the reference's layout: the block
 weights are stacked along a leading layer axis, and :func:`forward` loops
-over layers in Python where the JAX model scans. The MoE, dropout, sequence
+over layers in Python where the JAX model scans. :func:`layer_params` also
+takes the block weights as a tuple of per-layer tensors, which is how
+``PackedParams.grad_leaves`` hands them out so that each layer's gradient
+lands in its own slice of the gradient arena. The forward is differentiable
+(K1/K3 and K2/K4 carry their own backward). The MoE, dropout, sequence
 parallel and remat fields of :class:`GPTConfig` are accepted for parity but
 must stay at their defaults: those paths belong to later slices.
 
 :func:`init` draws from the same distributions as the reference (different
-numbers); :func:`params_from_numpy` takes the reference's own parameters as
-numpy arrays, so both packages can compute the same model.
+numbers); :func:`params_from_numpy` and :func:`state_from_numpy` take the
+reference's own parameters and optimizer/scaler state as numpy arrays, so
+both packages can compute, and continue, the same training run.
 """
 
 from __future__ import annotations
@@ -50,6 +55,8 @@ class GPTConfig:
     sequence_parallel: bool = False
     use_flash_attention: bool = True
     attention_impl: Optional[str] = None  # None | "kernel" | "torch"
+    # port only: the LayerNorm's impl (K1/K3 or their plain version)
+    norm_impl: Optional[str] = None
     dropout_rate: float = 0.0
     attention_dropout: float = 0.0
     remat_policy: Optional[str] = None
@@ -128,11 +135,36 @@ def params_from_numpy(tree, device=None):
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree)).to(device)
+    return _tensor(tree, device)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array (bf16 ones as the reference stores them, through
+    ml_dtypes) as a tensor of the same dtype on ``device``."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def state_from_numpy(tree, device=None):
+    """The reference's optimizer or scaler state as numpy (``jax.tree.map(
+    np.asarray, state)``: nested dicts, tuples and lists of arrays and
+    0-d counters) turned into this package's tensors on ``device``, the
+    structure kept. A JAX ``MasterWeights`` state over ``PackedParams``
+    (``{"inner": ({"exp_avg", "exp_avg_sq", "step"}, ...), "master": (...)}``)
+    becomes the port's, so a JAX run can be continued here."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: state_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(state_from_numpy(v, device) for v in tree)
+    return _tensor(tree, device)
 
 
 def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked block weights."""
+    """Layer ``i``'s slice of the block weights (stacked tensors, or tuples
+    of per-layer tensors)."""
     return {k: v[i] for k, v in params["blocks"].items()}
 
 
@@ -144,7 +176,7 @@ def _heads(t, n_heads):
 def _attn_sublayer(cfg: GPTConfig, x, lp):
     """ln1 + causal attention + residual. x: (B, S, D)."""
     B, S, D = x.shape
-    h = _layernorm(x, lp["ln1_scale"], lp["ln1_bias"])
+    h = _layernorm(x, lp["ln1_scale"], lp["ln1_bias"], impl=cfg.norm_impl)
     qkv = fused_dense(h, lp["wqkv"].to(h.dtype), lp["bqkv"].to(h.dtype))
     q, k, v = (_heads(t, cfg.n_heads) for t in qkv.chunk(3, dim=-1))
     ctx = flash_attention(q, k, v, causal=True, scale=1.0 / math.sqrt(cfg.head_dim),
@@ -156,7 +188,7 @@ def _attn_sublayer(cfg: GPTConfig, x, lp):
 def _block(cfg: GPTConfig, x, lp):
     """One dense transformer block. x: (B, S, D)."""
     x = _attn_sublayer(cfg, x, lp)
-    h = _layernorm(x, lp["ln2_scale"], lp["ln2_bias"])
+    h = _layernorm(x, lp["ln2_scale"], lp["ln2_bias"], impl=cfg.norm_impl)
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(fused_dense(h, lp["wi"].to(h.dtype), lp["bi"].to(h.dtype)),
                approximate="tanh")
@@ -164,11 +196,41 @@ def _block(cfg: GPTConfig, x, lp):
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
-    """tokens (B, S) integer → logits (B, S, V) fp32 (eval mode)."""
+    """tokens (B, S) integer → logits (B, S, V) fp32 (no dropout)."""
     S = tokens.shape[1]
     x = params["tok_embed"][tokens] + params["pos_embed"][:S]
     x = x.to(cfg.dtype)
     for i in range(cfg.n_layers):
         x = _block(cfg, x, layer_params(params, i))
-    x = _layernorm(x, params["lnf_scale"], params["lnf_bias"])
+    x = _layernorm(x, params["lnf_scale"], params["lnf_bias"],
+                   impl=cfg.norm_impl)
     return _vocab_head_matmul(x, params["tok_embed"])
+
+
+def _cross_entropy(logits, targets):
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets[..., None])[..., 0]
+    return (logz - tgt).mean()
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: GPTConfig, forward_fn=None) -> torch.Tensor:
+    """Mean next-token cross entropy. ``forward_fn(params, tokens)``
+    overrides the plain forward (e.g. an amp-wrapped apply) while keeping
+    one loss definition."""
+    if forward_fn is None:
+        logits = forward(params, tokens, cfg)
+    else:
+        logits = forward_fn(params, tokens)
+    return _cross_entropy(logits, targets)
+
+
+def synthetic_batch(cfg: GPTConfig, batch: int, *, generator: torch.Generator,
+                    device=None):
+    """``(tokens, targets)``: uniform random tokens drawn on ``generator``'s
+    device, moved to ``device``; targets are the tokens shifted by one."""
+    device = resolve_device(device)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.seq_len),
+                           generator=generator, device=generator.device)
+    tokens = tokens.to(device)
+    return tokens, torch.roll(tokens, -1, dims=-1)

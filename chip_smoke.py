@@ -12,27 +12,45 @@ Phases, each printing one line (any failure exits non-zero):
 2. build: every CUDA source compiled by nvcc (in parallel) plus the Triton
    compile of K1, from the sources in the checkout;
 3. K1 (LayerNorm forward, Triton) against its plain version at the engine's
-   shapes, timed beside its bound and ``F.layer_norm``;
+   and the training step's shapes, timed beside its bound and
+   ``F.layer_norm``;
 4. K2 (flash-attention forward, CUDA C++) against its plain version at the
-   prefill and decode shapes, timed beside its bound and
+   prefill, decode and training shapes, timed beside its bound and
    ``F.scaled_dot_product_attention``;
-5. engine parity: the full-width bf16 GPT engine on the kernels against the
+5. K3-K6 (LayerNorm backward and unscale and fused Adam, Triton; flash
+   attention backward, CUDA C++) against their plain versions at the
+   training shapes and at awkward ones, each timed beside its bound and a
+   library call;
+6. engine parity: the full-width bf16 GPT engine on the kernels against the
    same engine on the plain path, and paged decode against the contiguous
    forward;
-6. serving: seeded requests through ``ContinuousBatcher.run()``, with bucket
+7. serving: seeded requests through ``ContinuousBatcher.run()``, with bucket
    padding and preemption, the kernels' launch counts reset just before and
    read just after; then the same mix again under ``torch.profiler`` for the
    device time by layer and the device's idle share;
-7. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
+8. step parity: one full-width amp O5 arena-native FusedAdam step at batch 2
+   on the kernels against the same step on the plain path;
+9. skip step: an overflowing step leaves the state bitwise unchanged and
+   halves the dynamic loss scale;
+10. training: the flagship (``bench.py`` ``make_gpt_rung``) at batch 16 on
+    one fixed batch, 2 warm-up and 10 timed steps with the launch counts reset
+    just before and read just after, under ``set_sync_debug_mode("warn")``;
+    then one step under ``torch.profiler``;
+11. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
 
-``F.layer_norm`` and ``F.scaled_dot_product_attention`` are timed here only,
-as yardsticks (``library_ms``); the port never calls them.
+``F.layer_norm``, ``F.scaled_dot_product_attention``, their backwards,
+``torch._amp_foreach_non_finite_check_and_unscale_`` and
+``torch._fused_adamw_`` are timed here only, as yardsticks
+(``library_ms``); the port never calls them.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -54,6 +72,17 @@ ENGINE = dict(max_seq_len=1024, page_size=16, num_pages=2049,
 # never exhaust 2048 usable pages, so the run uses 768 to force preemption
 SERVE_PAGES = 769
 N_REQUESTS = 32
+# the training step (bench.py make_gpt_rung: FusedAdam(lr=1e-4), batch 16)
+TRAIN_BATCH = 16
+PARITY_BATCH = 2
+LR = 1e-4
+WARMUP_STEPS, TIMED_STEPS = 2, 10
+# the model's kernel launches per training step: 2 LayerNorms per layer plus
+# the final one, one attention per layer, one unscale and one Adam pass per
+# arena (bf16 and fp32)
+STEP_LAUNCHES = {"layer_norm_fwd": 17, "layer_norm_bwd": 17, "flash_fwd": 8,
+                 "flash_bwd": 8, "unscale": 2, "adam": 2}
+PEAK_BF16 = 989e12
 
 # tolerances (PERF.md explains each)
 BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -8)
@@ -112,6 +141,7 @@ def k1_phase(norm):
     """Check K1 everywhere, time it at the engine's two shapes."""
     g = gen(1)
     checks = [  # rows, hidden, in dtype, rms, out dtype
+        (16384, 1024, torch.bfloat16, False, torch.bfloat16),
         (8192, 1024, torch.bfloat16, False, torch.bfloat16),
         (32, 1024, torch.bfloat16, False, torch.bfloat16),
         (8192, 1024, torch.float32, False, torch.float32),
@@ -122,8 +152,10 @@ def k1_phase(norm):
     rows_out = {}
     for rows, hidden, dt, rms, out_dt in checks:
         x = (torch.randn(rows, hidden, generator=g, device="cuda") * 2 + .5).to(dt)
-        w = (1 + .1 * torch.randn(hidden, generator=g, device="cuda")).to(dt)
-        b = None if rms else (.1 * torch.randn(hidden, generator=g, device="cuda")).to(dt)
+        # the training step's LayerNorms keep fp32 gamma/beta (amp O5)
+        pdt = torch.float32 if rows == 16384 else dt
+        w = (1 + .1 * torch.randn(hidden, generator=g, device="cuda")).to(pdt)
+        b = None if rms else (.1 * torch.randn(hidden, generator=g, device="cuda")).to(pdt)
         args = (x, w, b, 1e-5, rms, out_dt)
         got = norm.ln_fwd_kernel(*args)
         ref = norm.ln_fwd_torch(*args)
@@ -135,12 +167,14 @@ def k1_phase(norm):
         if dt == torch.bfloat16 and hidden == 1024 and not rms:
             nbytes = 2 * x.numel() * x.element_size() + 2 * hidden * w.element_size()
             bms, by = bound_ms(nbytes, 8 * x.numel(), torch.float32)
+            wl, bl = w.to(dt), b.to(dt)
             fields.update(
                 ms=time_ms(lambda: norm.ln_fwd_kernel(*args)),
                 plain_ms=time_ms(lambda: norm.ln_fwd_torch(*args)),
-                library_ms=time_ms(lambda: F.layer_norm(x, (hidden,), w, b, 1e-5)),
+                library_ms=time_ms(lambda: F.layer_norm(x, (hidden,), wl, bl, 1e-5)),
                 bound_ms=bms, bound_by=by)
-            rows_out["prefill" if rows > 32 else "decode"] = (tag, fields)
+            rows_out[{16384: "train", 8192: "prefill"}.get(rows, "decode")] = (
+                tag, fields)
         line("K1", shape=tag, **fields)
     return rows_out
 
@@ -164,6 +198,7 @@ def k2_flops_bytes(q, k, lens, causal):
 
 def k2_phase(attn):
     checks = [  # BH, Sq, Sk, D, causal, dtype
+        (256, 1024, 1024, 64, True, torch.bfloat16),
         (128, 1024, 1024, 64, True, torch.bfloat16),
         (512, 1, 1024, 64, False, torch.bfloat16),
         (128, 1024, 1024, 64, True, torch.float32),
@@ -181,13 +216,15 @@ def k2_phase(attn):
                    for s in (Sq, Sk, Sk))
         lens_np = rng.integers(0, Sk + 1, BH)
         lens_np[:2] = (0, Sk)  # a fully masked row and a full one
+        if BH == 256:
+            lens_np[:] = Sk  # training: every sequence full
         lens = torch.tensor(lens_np, dtype=torch.int32, device="cuda")
         args = (q, k, v, lens, causal, D ** -0.5)
         o, lse = attn.flash_fwd_kernel(*args)
         ro, rlse = attn.flash_fwd_torch(*args)
         torch.cuda.synchronize()
         tag = f"BH{BH} Sq{Sq} Sk{Sk} D{D}{' causal' if causal else ''} {str(dt)[6:]}"
-        if not (torch.all(o[0] == 0) and torch.all(lse[0] == -1e30)):
+        if BH != 256 and not (torch.all(o[0] == 0) and torch.all(lse[0] == -1e30)):
             raise AssertionError(f"K2 {tag}: a lens-0 row is not exactly 0")
         err = check_close(f"K2 {tag}", o, ro,
                           BF16_TOL if dt == torch.bfloat16 else FP32_TOL)
@@ -206,8 +243,267 @@ def k2_phase(attn):
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=keep, scale=D ** -0.5)),
                 bound_ms=bms, bound_by=by)
-            rows_out["prefill" if causal else "decode"] = (tag, fields)
+            rows_out["train" if BH == 256 else "prefill" if causal else "decode"] = (
+                tag, fields)
         line("K2", shape=tag, **fields)
+    return rows_out
+
+
+# ---------------------------------------------------------------- K3-K6
+
+
+def grad_ms(fn, inputs, grad_out):
+    """Device time of the backward alone: ``fn`` runs once, then its graph
+    is replayed for the gradients of ``inputs``."""
+    out = fn()
+    return time_ms(lambda: torch.autograd.grad(out, inputs, grad_out,
+                                               retain_graph=True))
+
+
+def k3_phase(norm):
+    """LayerNorm backward: the training shape (O5 mix) and awkward ones."""
+    g = gen(21)
+    checks = [  # rows, hidden, x/dy dtype, w dtype, rms, bias
+        (16384, 1024, torch.bfloat16, torch.float32, False, True),
+        (16384, 1024, torch.float32, torch.float32, False, True),
+        (77, 1000, torch.float32, torch.float32, False, True),
+        (77, 1000, torch.float32, torch.float32, True, False),
+        (64, 1000, torch.bfloat16, torch.float32, True, False),
+        (5, 48, torch.bfloat16, torch.bfloat16, False, True),
+    ]
+    rows_out = {}
+    for rows, hidden, dt, wdt, rms, bias in checks:
+        x = (torch.randn(rows, hidden, generator=g, device="cuda") * 2 + .5).to(dt)
+        dy = torch.randn(rows, hidden, generator=g, device="cuda").to(dt)
+        w = (1 + .1 * torch.randn(hidden, generator=g, device="cuda")).to(wdt)
+        args = (x, w, dy, 1e-5, rms)
+        dx, dw, db = norm.ln_bwd_kernel(*args, bias)
+        rdx, rdw, rdb = norm.ln_bwd_torch(*args)
+        torch.cuda.synchronize()
+        tag = (f"{rows}x{hidden} {str(dt)[6:]}/w {str(wdt)[6:]}"
+               f"{' rms' if rms else ''}{'' if bias else ' no-bias'}")
+        err = check_close(f"K3 dx {tag}", dx, rdx,
+                          BF16_TOL if dt == torch.bfloat16 else FP32_TOL)
+        # dgamma/dbeta: fp32 sums over every row in another order
+        err_w = check_close(f"K3 dw {tag}", dw.float(), rdw,
+                            dict(rtol=1e-4, atol=1e-3 if wdt == torch.float32 else 0.05))
+        if bias:
+            check_close(f"K3 db {tag}", db.float(), rdb,
+                        dict(rtol=1e-4, atol=1e-3 if wdt == torch.float32 else 0.05))
+        fields = dict(max_abs_err=err, dw_max_abs_err=err_w)
+        if rows == 16384 and dt == torch.bfloat16:
+            nbytes = (3 * x.numel() * x.element_size()
+                      + 3 * hidden * w.element_size())
+            bms, by = bound_ms(nbytes, 11 * x.numel(), torch.float32)
+            xl = x.clone().requires_grad_(True)
+            wl = w.to(dt).requires_grad_(True)
+            bl = torch.zeros(hidden, device="cuda", dtype=dt, requires_grad=True)
+            fields.update(
+                ms=time_ms(lambda: norm.ln_bwd_kernel(*args, bias)),
+                plain_ms=time_ms(lambda: norm.ln_bwd_torch(*args)),
+                library_ms=grad_ms(lambda: F.layer_norm(xl, (hidden,), wl, bl, 1e-5),
+                                   (xl, wl, bl), dy),
+                bound_ms=bms, bound_by=by)
+            rows_out["train"] = (tag, fields)
+        line("K3", shape=tag, **fields)
+    return rows_out
+
+
+def k4_flops_bytes(q, k, lens, causal):
+    """Operations and bytes of one flash backward: five products over the
+    live (query, key) pairs; q, k, v, o, do and lse read once, dq, dk, dv
+    written once."""
+    flops, _ = k2_flops_bytes(q, k, lens, causal)  # 4 * pairs * D
+    BH, Sq, D = q.shape
+    es = q.element_size()
+    nbytes = 4 * q.numel() * es + BH * Sq * 4 + 4 * k.numel() * es
+    return flops * 10 // 4, nbytes
+
+
+def k4_phase(attn):
+    checks = [  # BH, Sq, Sk, D, causal, dtype, dlse
+        (256, 1024, 1024, 64, True, torch.bfloat16, False),
+        (8, 70, 70, 48, True, torch.bfloat16, True),
+        (8, 100, 100, 80, True, torch.bfloat16, False),
+        (8, 64, 200, 128, False, torch.bfloat16, True),
+        (16, 256, 256, 64, True, torch.float32, False),
+        (8, 70, 70, 48, True, torch.float32, True),
+        (8, 100, 100, 80, False, torch.float32, True),
+        (8, 33, 70, 128, False, torch.float32, False),
+    ]
+    rng = np.random.default_rng(22)
+    rows_out = {}
+    for i, (BH, Sq, Sk, D, causal, dt, with_dlse) in enumerate(checks):
+        g = gen(30 + i)
+        q, k, v = (torch.randn(BH, s, D, generator=g, device="cuda").to(dt)
+                   for s in (Sq, Sk, Sk))
+        lens_np = (np.full(BH, Sk) if BH == 256 else rng.integers(0, Sk + 1, BH))
+        if BH != 256:
+            lens_np[:2] = (0, Sk)  # a fully masked row and a full one
+        lens = torch.tensor(lens_np, dtype=torch.int32, device="cuda")
+        scale = D ** -0.5
+        o, lse = attn.flash_fwd_torch(q, k, v, lens, causal, scale)
+        do = torch.randn(o.shape, generator=g, device="cuda").to(dt)
+        dlse = (torch.randn(lse.shape, generator=g, device="cuda")
+                if with_dlse else None)
+        args = (q, k, v, o, do, lse, dlse, lens, causal, scale)
+        got = attn.flash_bwd_kernel(*args)
+        ref = attn.flash_bwd_torch(*args)
+        torch.cuda.synchronize()
+        tag = (f"BH{BH} Sq{Sq} Sk{Sk} D{D}{' causal' if causal else ''} "
+               f"{str(dt)[6:]}{' dlse' if with_dlse else ''}")
+        if BH != 256 and not all(torch.all(t[0] == 0) for t in got):
+            raise AssertionError(f"K4 {tag}: a lens-0 row is not exactly 0")
+        errs = []
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"K4 {name} {tag}: non-finite")
+            # bf16: the tensor-core kernel rounds p and ds to bf16 for its
+            # products (as the TPU kernel does), the plain version keeps fp32
+            tol = (dict(rtol=2e-2, atol=2e-2 * float(b.float().abs().max()))
+                   if dt == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4))
+            errs.append(check_close(f"K4 {name} {tag}", a, b, tol))
+        fields = dict(max_abs_err=max(errs))
+        if BH == 256:
+            flops, nbytes = k4_flops_bytes(q, k, lens, causal)
+            bms, by = bound_ms(nbytes, flops, dt)
+            B, H = TRAIN_BATCH, BH // TRAIN_BATCH
+            ql, kl, vl = (t.reshape(B, H, -1, D).clone().requires_grad_(True)
+                          for t in (q, k, v))
+            fields.update(
+                ms=time_ms(lambda: attn.flash_bwd_kernel(*args)),
+                plain_ms=time_ms(lambda: attn.flash_bwd_torch(*args), iters=5),
+                library_ms=grad_ms(
+                    lambda: F.scaled_dot_product_attention(ql, kl, vl,
+                                                           is_causal=True),
+                    (ql, kl, vl), do.reshape(B, H, Sq, D)),
+                bound_ms=bms, bound_by=by)
+            rows_out["train"] = (tag, fields)
+        line("K4", shape=tag, **fields)
+    return rows_out
+
+
+def arena_len(params, dtype):
+    """Padded length of the flagship's arena of ``dtype`` under amp O5."""
+    from beforeholiday_tpu_torch.amp.frontend import _cast_params, opt_levels
+    from beforeholiday_tpu_torch.ops.arena import PackedParams
+
+    cast = _cast_params(params, opt_levels["O5"], None)
+    packed = PackedParams.pack(cast)
+    return {a.dtype: a.numel() for a in packed.arenas}[dtype]
+
+
+def k5_phase(mt, n_bf16, n_fp32):
+    """Unscale with the non-finite flag: the flagship's two gradient arenas,
+    inf and NaN placed in them, and an output that overflows."""
+    g = gen(40)
+    rows_out = {}
+    checks = [  # n, dtype, poison
+        (n_bf16, torch.bfloat16, None),
+        (n_fp32, torch.float32, None),
+        (n_bf16, torch.bfloat16, float("inf")),
+        (n_fp32, torch.float32, float("nan")),
+        (100003, torch.float32, 3e38),  # finite input, output overflows
+    ]
+    for n, dt, poison in checks:
+        x = (1e-3 * torch.randn(n, generator=g, device="cuda")).to(dt)
+        if poison is not None:
+            x[n // 3] = poison
+        inv = torch.full((), 2.0 if poison == 3e38 else 1 / 1024, device="cuda")
+        y, flag = mt.scale_kernel(x, inv, torch.float32)
+        ry, rflag = mt.scale_torch(x, inv, torch.float32)
+        torch.cuda.synchronize()
+        tag = f"{n} {str(dt)[6:]}->float32{'' if poison is None else f' with {poison}'}"
+        if bool(flag) != bool(rflag) or bool(flag) != (poison is not None):
+            raise AssertionError(f"K5 {tag}: flag {bool(flag)}, plain {bool(rflag)}")
+        if poison is None and not torch.equal(y, ry):
+            raise AssertionError(f"K5 {tag}: values differ from the plain version")
+        fields = dict(found_inf=bool(flag), max_abs_err=max_err(y, ry)
+                      if poison is None else 0.0)
+        if n == n_bf16 and poison is None:
+            bms, by = bound_ms(n * (x.element_size() + 4), n, torch.float32)
+            found = torch.zeros(1, device="cuda")
+            one = torch.ones(1, device="cuda")
+            # PyTorch's unscale takes no bf16 on CUDA: it runs in place on
+            # the same gradient widened to fp32 (8 B/element, not 6)
+            x32 = x.float()
+            fields.update(
+                ms=time_ms(lambda: mt.scale_kernel(x, inv, torch.float32)),
+                plain_ms=time_ms(lambda: mt.scale_torch(x, inv, torch.float32)),
+                library_ms=time_ms(
+                    lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+                        [x32], found, one)),
+                bound_ms=bms, bound_by=by)
+            rows_out["train"] = (tag, fields)
+        line("K5", shape=tag, **fields)
+    return rows_out
+
+
+def k6_phase(mt, n_bf16, n_fp32):
+    """Fused AdamW over the flagship's arenas (bf16 copy for the bf16 one),
+    L2 mode, no bias correction, an odd length, and a skipped step that
+    must leave everything bitwise unchanged."""
+    rows_out = {}
+    checks = [  # n, copy dtype, adam_w_mode, bias_correction, skip
+        (n_bf16, torch.bfloat16, True, True, False),
+        (n_fp32, torch.float32, True, True, False),
+        (100003, None, False, True, False),
+        (100003, torch.bfloat16, True, False, False),
+        (n_bf16, torch.bfloat16, True, True, True),
+    ]
+    hyper = dict(lr=LR, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+                 grad_scale=1.0)
+    for n, copy_dt, adam_w, bc, skip in checks:
+        g = gen(50)
+        grad = 1e-3 * torch.randn(n, generator=g, device="cuda")
+        p = 0.02 * torch.randn(n, generator=g, device="cuda")
+        m = 1e-4 * torch.randn(n, generator=g, device="cuda")
+        v = 1e-8 * torch.rand(n, generator=g, device="cuda")
+        step = torch.full((), 4, dtype=torch.int32, device="cuda")
+        found = torch.full((), skip, dtype=torch.bool, device="cuda")
+        bc1, bc2 = mt._bias_corrections(bc, step, 0.9, 0.999)
+        outs = {}
+        for fn in (mt.adam_kernel, mt.adam_torch):
+            st = (p.clone(), m.clone(), v.clone())
+            cp = None if copy_dt is None else p.to(copy_dt, copy=True)
+            fn(grad, *st, bc1=bc1, bc2=bc2, adam_w_mode=adam_w, found_inf=found,
+               copy_out=cp, **hyper)
+            outs[fn] = (*st, cp)
+        torch.cuda.synchronize()
+        tag = (f"{n} {'adamw' if adam_w else 'l2'}{'' if bc else ' no-bc'}"
+               f"{'' if copy_dt is None else f' copy {str(copy_dt)[6:]}'}"
+               f"{' skip' if skip else ''}")
+        got, ref = outs[mt.adam_kernel], outs[mt.adam_torch]
+        if skip:
+            before = (p, m, v, None if copy_dt is None else p.to(copy_dt))
+            if not all(a is None or torch.equal(a, b) for a, b in zip(got, before)):
+                raise AssertionError(f"K6 {tag}: a skipped step changed state")
+            err = 0.0
+        else:
+            # one ulp where the compiler contracts a multiply-add
+            err = max(check_close(f"K6 {tag}", a, b, dict(rtol=1e-6, atol=1e-10))
+                      for a, b in zip(got[:3], ref[:3]))
+            if copy_dt is not None and not torch.equal(got[3], got[0].to(copy_dt)):
+                raise AssertionError(f"K6 {tag}: copy is not the new params")
+        fields = dict(max_abs_err=err)
+        if n == n_bf16 and not skip:
+            bms, by = bound_ms(n * 30, 20 * n, torch.float32)
+            st, cp = (p.clone(), m.clone(), v.clone()), p.to(copy_dt)
+            not_found = torch.zeros((), dtype=torch.bool, device="cuda")
+            kw = dict(bc1=bc1, bc2=bc2, adam_w_mode=True, found_inf=not_found,
+                      copy_out=cp, **hyper)
+            steps = [torch.full((), 4.0, device="cuda")]
+            fields.update(
+                ms=time_ms(lambda: mt.adam_kernel(grad, *st, **kw)),
+                plain_ms=time_ms(lambda: mt.adam_torch(grad, *st, **kw), iters=5),
+                # the same fp32 arenas, no bf16 copy
+                library_ms=time_ms(lambda: torch._fused_adamw_(
+                    [st[0]], [grad], [st[1]], [st[2]], [], steps, lr=LR,
+                    beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8,
+                    amsgrad=False, maximize=False)),
+                bound_ms=bms, bound_by=by)
+            rows_out["train"] = (tag, fields)
+        line("K6", shape=tag, **fields)
     return rows_out
 
 
@@ -327,7 +623,7 @@ def serving_phase(infer, params, cfg, norm, attn, card):
 # kernel-name fragments -> the layer of the serving path they belong to
 KERNEL_GROUPS = (("K1 layer_norm_fwd", ("_ln_fwd",)),
                  ("K2 flash_fwd", ("flash_fwd_",)),
-                 ("gemm", ("gemm", "sm90_", "cutlass", "xmma", "cublas")),
+                 ("gemm", ("gemm", "sm90_", "cutlass", "xmma", "cublas", "nvjet")),
                  ("gather/scatter", ("index", "gather", "scatter")))
 
 
@@ -345,24 +641,11 @@ def profile_phase(infer, eng, cfg):
         bat.run(max_steps=10000)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name = {}  # device kernels only: an op's row repeats its kernels' time
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3
+    by_name, groups = device_ms_by_group(prof, KERNEL_GROUPS)
     busy = sum(by_name.values())
     if busy == 0:
         line("profile", device_time="not measured (no CUDA events in the trace)")
         return
-    groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
-    groups["other"] = 0.0
-    for key, ms in by_name.items():
-        g = next((g for g, frags in KERNEL_GROUPS
-                  if any(f in key for f in frags)), "other")
-        groups[g] += ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print("profile: " + json.dumps({
         "wall_ms": wall_ms, "device_busy_ms": busy,
@@ -371,14 +654,263 @@ def profile_phase(infer, eng, cfg):
         "top_kernels_ms": {k[:90]: v for k, v in top}}), flush=True)
 
 
+# -------------------------------------------------------------- training
+
+
+def make_trainer(amp, gpt, fused_adam, params, cfg, impl=None,
+                 loss_scale=None, loss_weight=None):
+    """The flagship step as ``bench.py`` ``make_gpt_rung`` builds it: amp O5,
+    arena-native PackedParams, FusedAdam(lr=1e-4). ``impl="torch"`` puts
+    every op on its plain version; ``loss_weight`` multiplies the loss."""
+    cfg = dataclasses.replace(cfg, attention_impl=impl, norm_impl=impl)
+    m = amp.initialize(lambda p, t: gpt.forward(p, t, cfg), params,
+                       fused_adam(lr=LR, impl=impl), "O5", arena_native=True,
+                       loss_scale=loss_scale)
+
+    def loss_fn(p, tok, tgt):
+        loss = gpt.loss_fn(p, tok, tgt, cfg, forward_fn=m.apply)
+        return loss if loss_weight is None else loss * loss_weight
+
+    svag = amp.scaled_value_and_grad(loss_fn, m.scaler, impl=impl)
+    state = {"opt": m.optimizer.init(m.params), "scaler": m.scaler.init()}
+
+    def step(tok, tgt):
+        loss, g, fi, state["scaler"] = svag(m.params, state["scaler"], tok, tgt)
+        m.params, state["opt"] = m.optimizer.step(m.params, g, state["opt"],
+                                                  found_inf=fi)
+        return loss, g, fi
+
+    return m, state, step
+
+
+def snapshot(m, state):
+    """Copies of everything a step may change."""
+    inner = state["opt"]["inner"]
+    return ([a.clone() for a in m.params.arenas],
+            [a.clone() for a in state["opt"]["master"]],
+            [{k: v.clone() for k, v in b.items()} for b in inner])
+
+
+def step_parity_phase(amp, gpt, fused_adam, params, cfg):
+    """One full-width step at batch 2 on the kernels and on the plain path
+    from the same weights and batch."""
+    tok, tgt = gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(60),
+                                   device="cuda")
+    res = {}
+    for impl in (None, "torch"):
+        m, state, step = make_trainer(amp, gpt, fused_adam, params, cfg, impl)
+        loss, g, fi = step(tok, tgt)
+        torch.cuda.synchronize()
+        if bool(fi):
+            raise AssertionError(f"step parity ({impl}): found_inf set")
+        model, masters, _ = snapshot(m, state)
+        for arena, master in zip(model, masters):
+            if not torch.equal(arena, master.to(arena.dtype)):
+                raise AssertionError(
+                    f"step parity ({impl}): model arena != masters.to(dtype)")
+        res[impl] = (loss.item(), [a.clone() for a in g.arenas], masters)
+        del m, state, step, g
+        torch.cuda.empty_cache()
+    (lk, gk, mk), (lp, gp, mp) = res[None], res["torch"]
+    loss_err = abs(lk - lp) / abs(lp)
+    if not (np.isfinite(lk) and loss_err < 5e-3):
+        raise AssertionError(f"step parity: loss {lk} vs plain {lp}")
+    grad_rel = [float((a - b).norm() / b.norm()) for a, b in zip(gk, gp)]
+    if max(grad_rel) > 0.05:
+        raise AssertionError(f"step parity: grad arenas differ, rel L2 {grad_rel}")
+    # from the same masters, Adam's first step moves each weight by lr times
+    # g/(|g| + eps): paths can differ by 2 lr where a gradient flips sign
+    master_err = max(max_err(a, b) for a, b in zip(mk, mp))
+    if master_err > 2 * LR + 1e-6:
+        raise AssertionError(f"step parity: masters differ by {master_err}")
+    flips = sum(int(((a - b).abs() > LR).sum()) for a, b in zip(mk, mp))
+    line("step_parity", batch=PARITY_BATCH, loss=lk, plain_loss=lp,
+         loss_rel_err=loss_err, grad_rel_l2=max(grad_rel),
+         grad_max_abs_err=max(max_err(a, b) for a, b in zip(gk, gp)),
+         master_max_abs_err=master_err, master_sign_flips=flips,
+         model_arena_is_master_cast="bitwise")
+
+
+def skip_phase(amp, gpt, fused_adam, params, cfg):
+    """An O5 step with a dynamic loss scale whose gradients overflow. bf16
+    shares fp32's exponent range and these gradients stay below 1, so no
+    finite scale overflows them (and above 2**126 the scale's inverse is
+    subnormal); the loss is multiplied by inf instead, as the JAX package's
+    amp tests do. The step must leave masters, moments, step counts and
+    model arenas bitwise unchanged and halve the scale."""
+    inf = torch.full((), float("inf"), device="cuda")
+    m, state, step = make_trainer(amp, gpt, fused_adam, params, cfg,
+                                  loss_scale="dynamic", loss_weight=inf)
+    tok, tgt = gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(61),
+                                   device="cuda")
+    before = snapshot(m, state)
+    scale0 = state["scaler"]["scale"].item()
+    _, _, fi = step(tok, tgt)
+    torch.cuda.synchronize()
+    after = snapshot(m, state)
+    if not bool(fi):
+        raise AssertionError("skip step: found_inf not set")
+    same = (all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
+            and all(torch.equal(a, b) for a, b in zip(before[1], after[1]))
+            and all(torch.equal(a[k], b[k]) for a, b in zip(before[2], after[2])
+                    for k in a))
+    if not same:
+        raise AssertionError("skip step: the state changed")
+    scale1 = state["scaler"]["scale"].item()
+    if scale1 != scale0 / 2:
+        raise AssertionError(f"skip step: scale {scale0} -> {scale1}")
+    line("skip_step", found_inf=True, state="bitwise unchanged",
+         scale_before=scale0, scale_after=scale1,
+         step_count=int(after[2][0]["step"]))
+    del m, state, step
+    torch.cuda.empty_cache()
+
+
+def launch_counters(norm, attn, mt):
+    return {"layer_norm_fwd": norm.ln_fwd_kernel,
+            "layer_norm_bwd": norm.ln_bwd_kernel,
+            "flash_fwd": attn.flash_fwd_kernel,
+            "flash_bwd": attn.flash_bwd_kernel,
+            "unscale": mt.scale_kernel, "adam": mt.adam_kernel}
+
+
+def training_phase(amp, gpt, fused_adam, params, cfg, counters, card):
+    m, state, step = make_trainer(amp, gpt, fused_adam, params, cfg)
+    tok, tgt = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70),
+                                   device="cuda")
+    for _ in range(WARMUP_STEPS):
+        step(tok, tgt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    events, losses, flags, syncs, port_syncs = [], [], [], {}, []
+
+    def record_sync(message, category, filename, lineno, file=None, line=None):
+        # where the sync came from: the warning's site, and the innermost
+        # frame of this repository that led to it
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if "beforeholiday_tpu_torch" in f.filename
+                or f.filename.endswith("chip_smoke.py")]
+        site = "/".join(filename.split("/")[-3:]) + f":{lineno}"
+        if ours:
+            site += f" <- {ours[-1].filename.split('/')[-1]}:{ours[-1].lineno}"
+            if "beforeholiday_tpu_torch" in ours[-1].filename:
+                port_syncs.append(site)
+        syncs[site] = syncs.get(site, 0) + 1
+
+    torch.cuda.set_sync_debug_mode("warn")  # warns once itself: not recorded
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record_sync
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            loss, _, fi = step(tok, tgt)
+            b.record()
+            events.append((a, b))
+            losses.append(loss)
+            flags.append(fi)
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k, per_step in STEP_LAUNCHES.items():
+        if launches[k] != per_step * TIMED_STEPS:
+            raise AssertionError(f"{k}: {launches[k]} launches in {TIMED_STEPS} "
+                                 f"steps, the model implies {per_step} per step")
+    if port_syncs:
+        raise AssertionError(f"the port's code synchronized the host: {port_syncs}")
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    first, last = losses[0].item(), losses[-1].item()
+    if not (np.isfinite(first) and np.isfinite(last) and last < first):
+        raise AssertionError(f"training: loss {first} -> {last}")
+    tokens = TRAIN_BATCH * cfg.seq_len
+    n_params = sum(spec.total for spec in m.params.layout.specs)
+    med = float(np.median(step_ms))
+    flops = 6.0 * n_params * tokens
+    line("training", steps=TIMED_STEPS, tokens_per_step=tokens,
+         median_step_ms=med, min_step_ms=min(step_ms),
+         tokens_per_s=tokens * TIMED_STEPS / wall, params=n_params,
+         model_flops_per_step=flops, mfu=flops / (med / 1e3) / PEAK_BF16,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         first_loss=first, last_loss=last,
+         skipped_steps=int(torch.stack(flags).sum()),
+         host_syncs=sum(syncs.values()), sync_sites=json.dumps(syncs),
+         launches_per_step=json.dumps(
+             {k: v // TIMED_STEPS for k, v in launches.items()}),
+         card=f"'{card}'")
+    train_profile(step, tok, tgt)
+    del m, state, step
+    return launches
+
+
+def device_ms_by_group(prof, groups):
+    """Device time per kernel name (device events only: an op's row repeats
+    its kernels' time), grouped by name fragments."""
+    by_name = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        by_name[evt.key] = by_name.get(evt.key, 0.0) + us / 1e3
+    out = {g: 0.0 for g, _ in groups}
+    out["other"] = 0.0
+    for key, ms in by_name.items():
+        g = next((g for g, frags in groups
+                  if any(f in key for f in frags)), "other")
+        out[g] += ms
+    return by_name, out
+
+
+GEMM_FRAGMENTS = ("gemm", "sm90_", "cutlass", "xmma", "cublas", "nvjet")
+TRAIN_GROUPS = (("K1 layer_norm_fwd", ("_ln_fwd",)),
+                ("K3 layer_norm_bwd", ("_ln_bwd",)),
+                ("K2 flash_fwd", ("flash_fwd_",)),
+                ("K4 flash_bwd", ("flash_bwd_",)),
+                ("K5 unscale", ("_scale_flag",)),
+                ("K6 adam", ("_adam",)),
+                ("gemm", GEMM_FRAGMENTS))
+
+
+def train_profile(step, tok, tgt):
+    """One more step under torch.profiler: device time by layer and the
+    device's idle share over the step."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(tok, tgt)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name, groups = device_ms_by_group(prof, TRAIN_GROUPS)
+    busy = sum(by_name.values())
+    if busy == 0:
+        line("train_profile", device_time="not measured (no CUDA events in the trace)")
+        return
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print("train_profile: " + json.dumps({
+        "wall_ms": wall_ms, "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / wall_ms, "by_layer_ms": groups,
+        "top_kernels_ms": {k[:90]: v for k, v in top}}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from beforeholiday_tpu_torch import _build, infer
+    from beforeholiday_tpu_torch import _build, amp, infer
     from beforeholiday_tpu_torch.ops._autocast import cast_floats
     from beforeholiday_tpu_torch.ops import attention as attn
+    from beforeholiday_tpu_torch.ops import multi_tensor as mt
     from beforeholiday_tpu_torch.ops import normalization as norm
+    from beforeholiday_tpu_torch.optimizers import FusedAdam
     from beforeholiday_tpu_torch.testing import gpt
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -399,28 +931,50 @@ def main():
     line("build", seconds=time.perf_counter() - t0, nvcc_seconds=t_nvcc,
          libraries=",".join(sorted(libs)))
 
-    k1 = k1_phase(norm)
-    k2 = k2_phase(attn)
-
     cfg = gpt.GPTConfig(**MODEL)
     params = gpt.init(cfg, gen(0), device="cuda")
+    n_bf16 = arena_len(params, torch.bfloat16)
+    n_fp32 = arena_len(params, torch.float32)
+    rows = {"layer_norm_fwd": k1_phase(norm), "flash_fwd": k2_phase(attn),
+            "layer_norm_bwd": k3_phase(norm), "flash_bwd": k4_phase(attn),
+            "unscale": k5_phase(mt, n_bf16, n_fp32),
+            "adam": k6_phase(mt, n_bf16, n_fp32)}
+    torch.cuda.empty_cache()
+
     engine_phase(infer, gpt, cast_floats, params, cfg)
     torch.cuda.empty_cache()
-    eng, launches = serving_phase(infer, params, cfg, norm, attn, card)
+    eng, serve_launches = serving_phase(infer, params, cfg, norm, attn, card)
     profile_phase(infer, eng, cfg)
+    del eng
+    torch.cuda.empty_cache()
+
+    step_parity_phase(amp, gpt, FusedAdam, params, cfg)
+    skip_phase(amp, gpt, FusedAdam, params, cfg)
+    train_launches = training_phase(amp, gpt, FusedAdam, params, cfg,
+                                    launch_counters(norm, attn, mt), card)
 
     kernels = []
-    for kname, route, source, replaces, rows in (
+    for kname, route, source, replaces in (
         ("layer_norm_fwd", "triton", "beforeholiday_tpu_torch/ops/normalization.py",
-         "beforeholiday_tpu/ops/normalization.py:55", k1),
+         "beforeholiday_tpu/ops/normalization.py:55"),
         ("flash_fwd", "cuda", "beforeholiday_tpu_torch/csrc/flash_fwd.cu",
-         "beforeholiday_tpu/ops/attention.py:152", k2),
+         "beforeholiday_tpu/ops/attention.py:152"),
+        ("layer_norm_bwd", "triton", "beforeholiday_tpu_torch/ops/normalization.py",
+         "beforeholiday_tpu/ops/normalization.py:69"),
+        ("flash_bwd", "cuda", "beforeholiday_tpu_torch/csrc/flash_bwd.cu",
+         "beforeholiday_tpu/ops/attention.py:305"),
+        ("unscale", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
+         "beforeholiday_tpu/ops/_pallas_mt.py:179"),
+        ("adam", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
+         "beforeholiday_tpu/ops/_pallas_mt.py:273"),
     ):
-        for shape in ("prefill", "decode"):
-            tag, f = rows[shape]
+        for shape, (tag, f) in rows[kname].items():
+            # launches: the serving run's for the serving shapes, the timed
+            # training run's for the training shape
+            launches = (train_launches if shape == "train" else serve_launches)[kname]
             kernels.append(dict(
                 name=f"{kname}[{shape}: {tag}]", route=route, source=source,
-                replaces=replaces, launches=launches[kname],
+                replaces=replaces, launches=launches,
                 max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
                 bound_ms=f["bound_ms"], bound_by=f["bound_by"],
                 library_ms=f["library_ms"]))

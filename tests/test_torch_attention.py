@@ -1,8 +1,9 @@
-"""Port parity: flash-attention forward (kernel K2's plain path), held against
-the JAX package on the same numpy inputs. The JAX side runs its Pallas
-kernel in interpret mode where the lengths tile by 128, and its jnp oracle
-otherwise (decode's Sq=1 included)."""
+"""Port parity: flash attention forward and backward (kernels K2/K4's plain
+paths), held against the JAX package on the same numpy inputs. The JAX side
+runs its Pallas kernels in interpret mode where the lengths tile by 128, and
+its jnp oracle otherwise (decode's Sq=1 included)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -91,12 +92,75 @@ def test_flash_checks_arguments():
         tattn.flash_attention(q, k, v, dropout_rate=0.1, dropout_key=0)
 
 
-def test_flash_backward_raises():
-    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 8, 8, 16))
-    q.requires_grad_(True)
-    o = tattn.flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError):
-        o.sum().backward()
+@pytest.mark.parametrize("case", [c for c in CASES if c != "decode_sq1"])
+def test_flash_backward_matches_jax(case):
+    """dq, dk, dv through K4's plain path against JAX's Pallas dq/dkv
+    kernels (or autodiff of its jnp oracle), fp32: atol 2e-5. Fully masked
+    rows give exact zeros."""
+    B, H, S, Sk, D, causal, lens, scale, jax_impl = CASES[case]
+    q, k, v = _qkv(B, H, S, Sk, D)
+    do = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    kw = dict(causal=causal, scale=scale)
+    jl = None if lens is None else jnp.asarray(lens, jnp.int32)
+
+    def f(q, k, v):
+        o = jattn.flash_attention(q, k, v, impl=jax_impl, kv_lens=jl, **kw)
+        return jnp.sum(o * do)
+
+    ref = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    o = tattn.flash_attention(
+        tq, tk, tv,
+        kv_lens=None if lens is None else torch.tensor(lens, dtype=torch.int32),
+        **kw)
+    (o * torch.from_numpy(do)).sum().backward()
+    for t, r in zip((tq, tk, tv), ref):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), atol=ATOL,
+                                   rtol=0)
+    if lens is not None and 0 in lens:
+        row = lens.index(0)
+        assert all(torch.all(t.grad[row] == 0) for t in (tq, tk, tv))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_lse_backward_matches_jax(causal):
+    """Differentiating through lse: the dlse term of ``_flash3_lse_bwd``."""
+    BH, S, D = 4, 128, 32
+    q, k, v = (a.reshape(BH, S, D) for a in _qkv(1, BH, S, S, D, seed=5))
+    lens = np.array([128, 50, 0, 1], np.float32)
+    rng = np.random.default_rng(8)
+    do = rng.standard_normal((BH, S, D)).astype(np.float32)
+    dl = rng.standard_normal((BH, S)).astype(np.float32)
+
+    def f(q, k, v):
+        o, lse = jattn.flash_attention_with_lse(
+            q, k, v, causal=causal, scale=0.2, kv_lens=jnp.asarray(lens))
+        return jnp.sum(o * do) + jnp.sum(jnp.where(lse > -1e29, lse, 0.0) * dl)
+
+    ref = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    o, lse = tattn.flash_attention_with_lse(tq, tk, tv, causal=causal, scale=0.2,
+                                            kv_lens=torch.from_numpy(lens))
+    live = torch.where(lse > -1e29, lse, 0.0)
+    ((o * torch.from_numpy(do)).sum() + (live * torch.from_numpy(dl)).sum()).backward()
+    for t, r in zip((tq, tk, tv), ref):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), atol=ATOL,
+                                   rtol=0)
+
+
+def test_flash_backward_without_lse_reads_no_dlse(monkeypatch):
+    """An unused lse reaches the backward as None, so K4 gets no dlse."""
+    seen = []
+    real = tattn.flash_bwd_torch
+
+    def spy(*args):
+        seen.append(args[6])
+        return real(*args)
+
+    monkeypatch.setattr(tattn, "flash_bwd_torch", spy)
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv(1, 2, 8, 8, 16))
+    tattn.flash_attention(q, k, v, causal=True).sum().backward()
+    assert seen == [None]
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -109,3 +173,6 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         tattn.flash_attention_with_lse(q, k, v, causal=True, scale=0.25,
                                        impl="kernel")
+    with pytest.raises(ValueError):
+        tattn.flash_bwd_kernel(q, k, v, q, q, lens.float()[:, None].expand(2, 8),
+                               None, lens, True, 0.25)

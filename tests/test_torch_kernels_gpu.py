@@ -1,5 +1,7 @@
-"""Kernels K1 (LayerNorm forward, Triton) and K2 (flash-attention forward,
-CUDA C++) against their plain PyTorch versions on the card.
+"""Kernels K1/K3 (LayerNorm forward/backward, Triton), K2/K4 (flash
+attention forward/backward, CUDA C++), K5 (unscale, Triton) and K6 (fused
+Adam, Triton) against their plain PyTorch versions on the card, and the
+engine and a small O5 training step on the kernels against the plain path.
 
 Marked ``gpu``: without a CUDA device every test skips (the decision is made
 inside the ``cuda`` fixture, never at import, so every pytest worker collects
@@ -15,9 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+from beforeholiday_tpu_torch import amp
 from beforeholiday_tpu_torch.infer import EngineConfig, InferenceEngine, PageAllocator, pages_for
 from beforeholiday_tpu_torch.ops import attention as tattn
+from beforeholiday_tpu_torch.ops import multi_tensor as tmt
 from beforeholiday_tpu_torch.ops import normalization as tnorm
+from beforeholiday_tpu_torch.optimizers import FusedAdam
 from beforeholiday_tpu_torch.testing import gpt
 
 pytestmark = pytest.mark.gpu
@@ -32,7 +37,7 @@ FP32_TOL = dict(rtol=1e-5, atol=2e-5)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels K1/K2 run only on the card)")
+        pytest.skip("needs a CUDA device (kernels K1-K6 run only on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -167,3 +172,199 @@ def test_engine_kernels_match_plain_path(cuda):
                                    atol=2e-2, rtol=0)
         toks = logits["kernel"].argmax(-1).tolist()
         lens = [n + 1 for n in lens]
+
+
+# ------------------------------------------------------------------- K3
+
+# dgamma/dbeta sum over every row in fp32 in another order than the plain
+# version: absolute error grows with the row count
+DW_TOL = dict(rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("rows, hidden, dtype, rms, bias", [
+    (16384, 1024, torch.bfloat16, False, True),   # the training shape (O5 mix)
+    (300, 1024, torch.float32, False, True),
+    (300, 1024, torch.float32, True, False),
+    (77, 1000, torch.float32, False, True),       # odd rows and width
+    (64, 1000, torch.bfloat16, True, False),
+    (5, 48, torch.bfloat16, False, False),
+])
+def test_k3_matches_plain(cuda, rows, hidden, dtype, rms, bias):
+    g = _gen(1)
+    x = (torch.randn(rows, hidden, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    dy = torch.randn(rows, hidden, generator=g, device=cuda).to(dtype)
+    w = 1 + 0.1 * torch.randn(hidden, generator=g, device=cuda)
+    before = tnorm.ln_bwd_kernel.launches
+    dx, dw, db = tnorm.ln_bwd_kernel(x, w, dy, 1e-5, rms, bias)
+    assert tnorm.ln_bwd_kernel.launches == before + 1
+    rdx, rdw, rdb = tnorm.ln_bwd_torch(x, w, dy, 1e-5, rms)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    torch.testing.assert_close(dx, rdx, **(BF16_TOL if dtype == torch.bfloat16
+                                           else FP32_TOL))
+    torch.testing.assert_close(dw, rdw, **DW_TOL)
+    if bias:
+        torch.testing.assert_close(db, rdb, **DW_TOL)
+    else:
+        assert db is None
+
+
+# ------------------------------------------------------------------- K4
+
+
+def _k4_tol(dtype, ref):
+    # bf16: the tensor-core kernel rounds p and ds to bf16 for its products
+    # (as the TPU kernel does); the plain version keeps them fp32
+    if dtype == torch.bfloat16:
+        return dict(rtol=2e-2, atol=2e-2 * float(ref.float().abs().max()))
+    return dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("BH, Sq, Sk, D, causal, dtype, dlse", [
+    (256, 1024, 1024, 64, True, torch.bfloat16, False),  # the training shape
+    (8, 70, 70, 48, True, torch.bfloat16, True),
+    (8, 64, 200, 128, False, torch.bfloat16, False),
+    (8, 100, 100, 80, True, torch.bfloat16, True),
+    (16, 256, 256, 64, True, torch.float32, False),
+    (8, 100, 100, 80, True, torch.float32, True),
+    (8, 33, 70, 128, False, torch.float32, True),
+    (4, 16, 16, 16, True, torch.float32, False),
+])
+def test_k4_matches_plain(cuda, BH, Sq, Sk, D, causal, dtype, dlse):
+    q, k, v, lens = _k2_inputs(BH, Sq, Sk, D, dtype, _ragged(BH, Sk), seed=3)
+    scale = D ** -0.5
+    o, lse = tattn.flash_fwd_torch(q, k, v, lens, causal, scale)
+    g = _gen(4)
+    do = torch.randn(o.shape, generator=g, device=cuda).to(dtype)
+    dl = torch.randn(lse.shape, generator=g, device=cuda) if dlse else None
+    before = tattn.flash_bwd_kernel.launches
+    got = tattn.flash_bwd_kernel(q, k, v, o, do, lse, dl, lens, causal, scale)
+    assert tattn.flash_bwd_kernel.launches == before + 1
+    ref = tattn.flash_bwd_torch(q, k, v, o, do, lse, dl, lens, causal, scale)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, **_k4_tol(dtype, b), msg=name)
+    # lens = 0: exact zeros, never NaN
+    assert all(torch.all(t[0] == 0) for t in got)
+
+
+def test_flash_autograd_runs_k4(cuda):
+    q, k, v, lens = _k2_inputs(4, 64, 64, 32, torch.bfloat16, [64, 10, 0, 64])
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    before = tattn.flash_bwd_kernel.launches
+    o, lse = tattn.flash_attention_with_lse(q, k, v, causal=True, scale=0.2,
+                                            kv_lens=lens)
+    (o.float().square().sum() + lse[:, :3].sum()).backward()
+    assert tattn.flash_bwd_kernel.launches == before + 1
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+# ------------------------------------------------------------------- K5
+
+
+@pytest.mark.parametrize("n, dtype, poison", [
+    (4 * 32768, torch.bfloat16, None),
+    (4 * 32768, torch.bfloat16, float("inf")),
+    (100003, torch.float32, float("nan")),
+    (100003, torch.float32, None),
+])
+def test_k5_matches_plain(cuda, n, dtype, poison):
+    x = torch.randn(n, generator=_gen(5), device=cuda).to(dtype)
+    if poison is not None:
+        x[n // 2] = poison
+    scale = torch.full((), 1 / 1024, device=cuda)
+    before = tmt.scale_kernel.launches
+    y, flag = tmt.scale_kernel(x, scale, torch.float32)
+    assert tmt.scale_kernel.launches == before + 1
+    ry, rflag = tmt.scale_torch(x, scale, torch.float32)
+    torch.cuda.synchronize()
+    assert bool(flag) == bool(rflag) == (poison is not None)
+    assert torch.equal(y, ry) if poison is None else torch.equal(
+        y.isnan(), ry.isnan())
+
+
+def test_k5_flags_an_overflowing_output(cuda):
+    x = torch.full((1000,), 3e38, device=cuda)
+    _, flag = tmt.scale_kernel(x, 2.0, torch.float32)
+    assert bool(flag)
+
+
+# ------------------------------------------------------------------- K6
+
+
+@pytest.mark.parametrize("n, adam_w, bc, copy, skip", [
+    (4 * 32768, True, True, torch.bfloat16, False),
+    (100003, False, True, None, False),
+    (100003, True, False, torch.float32, False),
+    (4 * 32768, True, True, torch.bfloat16, True),
+])
+def test_k6_matches_plain(cuda, n, adam_w, bc, copy, skip):
+    g = _gen(6)
+    grad = torch.randn(n, generator=g, device=cuda)
+    p = torch.randn(n, generator=g, device=cuda)
+    m = 0.1 * torch.randn(n, generator=g, device=cuda)
+    v = 0.01 * torch.rand(n, generator=g, device=cuda)
+    step = torch.full((), 3, dtype=torch.int32, device=cuda)
+    found = torch.full((), skip, dtype=torch.bool, device=cuda)
+    outs = {}
+    for impl in ("kernel", "torch"):
+        pk, mk, vk = p.clone(), m.clone(), v.clone()
+        ck = None if copy is None else torch.zeros(n, dtype=copy, device=cuda)
+        tmt.adam_flat(grad, pk, mk, vk, lr=1e-3, step=step, adam_w_mode=adam_w,
+                      bias_correction=bc, weight_decay=0.01, grad_scale=0.5,
+                      found_inf=found, model_copy=ck, impl=impl)
+        outs[impl] = (pk, mk, vk, ck)
+    torch.cuda.synchronize()
+    if skip:  # bitwise untouched
+        assert torch.equal(outs["kernel"][0], p) and torch.equal(outs["kernel"][1], m)
+        assert torch.equal(outs["kernel"][2], v)
+        if copy is not None:
+            assert torch.equal(outs["kernel"][3], torch.zeros_like(outs["kernel"][3]))
+        return
+    for a, b in zip(outs["kernel"], outs["torch"]):
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    assert torch.equal(outs["kernel"][3], outs["kernel"][0].to(copy)) \
+        if copy is not None else True
+
+
+# ------------------------------------------------------- training step
+
+
+def test_training_step_kernels_match_plain_path(cuda):
+    """One O5 arena-native step of a 2-layer bf16 GPT on K1-K6 against the
+    same step with every op on its plain version."""
+    base = dict(vocab_size=512, seq_len=128, d_model=128, n_heads=4,
+                n_layers=2, dtype=torch.bfloat16)
+    params = gpt.init(gpt.GPTConfig(**base), _gen(0), device=cuda)
+    tok, tgt = gpt.synthetic_batch(gpt.GPTConfig(**base), 2, generator=_gen(1),
+                                   device=cuda)
+    res = {}
+    for impl in ("kernel", "torch"):
+        cfg = gpt.GPTConfig(**base, attention_impl=impl, norm_impl=impl)
+        m = amp.initialize(lambda p, t, cfg=cfg: gpt.forward(p, t, cfg), params,
+                           FusedAdam(lr=1e-3, impl=impl), "O5", arena_native=True)
+        svag = amp.scaled_value_and_grad(
+            lambda p, a, b, cfg=cfg, m=m: gpt.loss_fn(p, a, b, cfg,
+                                                      forward_fn=m.apply),
+            m.scaler, impl=impl)
+        o, s = m.optimizer.init(m.params), m.scaler.init()
+        counts = (tnorm.ln_bwd_kernel.launches, tattn.flash_bwd_kernel.launches,
+                  tmt.scale_kernel.launches, tmt.adam_kernel.launches)
+        loss, g, fi, s = svag(m.params, s, tok, tgt)
+        m.params, o = m.optimizer.step(m.params, g, o, found_inf=fi)
+        torch.cuda.synchronize()
+        launched = [a - b for a, b in zip(
+            (tnorm.ln_bwd_kernel.launches, tattn.flash_bwd_kernel.launches,
+             tmt.scale_kernel.launches, tmt.adam_kernel.launches), counts)]
+        assert launched == ([5, 2, 2, 2] if impl == "kernel" else [0, 0, 0, 0])
+        res[impl] = (loss, g.arenas, o["master"], m.params.arenas)
+    (lk, gk, mk, pk), (lt, gt, mt_, pt) = res["kernel"], res["torch"]
+    torch.testing.assert_close(lk, lt, rtol=2e-3, atol=0)
+    for a, b in zip(gk, gt):
+        torch.testing.assert_close(a, b, rtol=0.05, atol=2e-2 * float(b.abs().max()))
+    for a, b in zip(mk, mt_):
+        torch.testing.assert_close(a, b, rtol=0, atol=2.5e-3)  # up to 2 lr
+    for arena, master in zip(pk, mk):
+        assert torch.equal(arena, master.to(arena.dtype))

@@ -1,6 +1,8 @@
-"""Port parity: LayerNorm/RMSNorm forward (kernel K1's plain path) and the
-dispatch helpers, held against the JAX package on the same numpy inputs."""
+"""Port parity: LayerNorm/RMSNorm forward and backward (kernels K1/K3's
+plain paths) and the dispatch helpers, held against the JAX package on the
+same numpy inputs."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -58,12 +60,69 @@ def test_norm_output_dtype_follows_contract(fn):
                                atol=tol, rtol=0)
 
 
-def test_norm_backward_raises():
-    x, w, b = (torch.from_numpy(a) for a in _inputs((4, 16)))
-    x.requires_grad_(True)
-    y = tnorm.fused_layer_norm(x, w, b)
-    with pytest.raises(NotImplementedError):
-        y.sum().backward()
+def _grads_jax(fn, x, w, b, dy, impl):
+    has_bias = "rms" not in fn
+
+    def f(x, w, b):
+        args = (x, w, b) if has_bias else (x, w)
+        y = getattr(jnorm, fn)(*args, eps=1e-5, impl=impl)
+        return jnp.sum(y.astype(jnp.float32) * dy)
+
+    g = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w),
+                                       jnp.asarray(b))
+    return [np.asarray(a) for a in (g if has_bias else g[:2])]
+
+
+def _grads_torch(fn, x, w, b, dy):
+    xt, wt, bt = (torch.from_numpy(a).requires_grad_(True) for a in (x, w, b))
+    y = _call(tnorm, fn, xt, wt, bt, None)
+    (y.float() * torch.from_numpy(dy)).sum().backward()
+    return [t.grad for t in ((xt, wt, bt) if "rms" not in fn else (xt, wt))]
+
+
+@pytest.mark.parametrize("fn", FNS)
+@pytest.mark.parametrize("shape", [(6, 32), (3, 5, 48), (7, 100)])
+@pytest.mark.parametrize("jax_impl", ["pallas", "jnp"])
+def test_norm_backward_matches_jax_fp32(fn, shape, jax_impl):
+    """dx, dgamma and dbeta through K3's plain path, fp32: atol 1e-5."""
+    x, w, b = _inputs(shape)
+    dy = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
+    ref = _grads_jax(fn, x, w, b, dy, jax_impl)
+    got = _grads_torch(fn, x, w, b, dy)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        np.testing.assert_allclose(g.numpy(), r, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("fn", ["fused_layer_norm", "fused_rms_norm"])
+def test_norm_backward_mixed_bf16_fp32(fn):
+    """The O5 mix: bf16 activations with fp32 gamma/beta. dx comes back
+    bf16 (one rounding of the same fp32 value: within one bf16 ulp) and the
+    parameter grads fp32."""
+    x, w, b = _inputs((16, 64))
+    x = x.astype(jnp.bfloat16)
+    dy = np.random.default_rng(2).standard_normal((16, 64)).astype(jnp.bfloat16)
+    ref = _grads_jax(fn, np.asarray(x), w, b, np.asarray(dy, np.float32), "jnp")
+    xt = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    wt, bt = torch.from_numpy(w), torch.from_numpy(b)
+    for t in (xt, wt, bt):
+        t.requires_grad_(True)
+    y = _call(tnorm, fn, xt, wt, bt, None)
+    assert y.dtype == torch.bfloat16
+    (y.float() * torch.from_numpy(np.asarray(dy, np.float32))).sum().backward()
+    assert xt.grad.dtype == torch.bfloat16 and wt.grad.dtype == torch.float32
+    np.testing.assert_allclose(xt.grad.float().numpy(),
+                               np.asarray(ref[0], np.float32),
+                               rtol=2 ** -7, atol=1e-5)
+    for g, r in zip((wt.grad, bt.grad), ref[1:]):
+        np.testing.assert_allclose(g.numpy(), r, atol=1e-4, rtol=1e-5)
+
+
+def test_kernel_backward_wrapper_refuses_cpu_tensors():
+    """K3's wrapper launches on CUDA tensors or raises; it never falls back."""
+    x, w, _ = (torch.from_numpy(a) for a in _inputs((4, 16)))
+    with pytest.raises(ValueError):
+        tnorm.ln_bwd_kernel(x, w, x, 1e-5, False)
 
 
 def test_norm_checks_param_shapes():

@@ -17,6 +17,7 @@ from beforeholiday_tpu.ops import dense as jdense
 from beforeholiday_tpu.ops import arena as jarena
 from beforeholiday_tpu.testing import gpt as jgpt
 from beforeholiday_tpu_torch import infer as tinfer
+from beforeholiday_tpu_torch.amp import LossScaler
 from beforeholiday_tpu_torch.monitor import BucketGateError, track_compiles
 from beforeholiday_tpu_torch.ops import arena as tarena
 from beforeholiday_tpu_torch.ops import dense as tdense
@@ -457,3 +458,9 @@ def test_entry_points_raise_without_a_card(models, monkeypatch):
     with pytest.raises(RuntimeError):
         tinfer.InferenceEngine(tparams, tcfg, tinfer.EngineConfig(**ECFG),
                                device="cuda")
+    with pytest.raises(RuntimeError):
+        LossScaler().init()
+    with pytest.raises(RuntimeError):
+        tgpt.synthetic_batch(tcfg, 2, generator=torch.Generator())
+    with pytest.raises(RuntimeError):
+        tgpt.state_from_numpy({"step": np.zeros((), np.int32)})
