@@ -4,7 +4,8 @@
 * ``attention`` — flash attention on kernels K2/K4 (CUDA C++).
 * ``dense`` — dense and MLP blocks on library GEMMs.
 * ``arena`` — flat arenas and ``PackedParams``.
-* ``multi_tensor`` — unscale and fused Adam over arenas, K5/K6 (Triton).
+* ``multi_tensor`` — unscale, fused Adam, global L2 norm and fused LAMB
+  over arenas, K5-K9 (Triton).
 
 On a CUDA tensor a kernel-backed op launches its kernel or raises; on a CPU
 tensor it runs the kernel's plain PyTorch version.
@@ -35,7 +36,10 @@ from .normalization import (  # noqa: F401
 
 from .multi_tensor import (  # noqa: F401
     adam_flat,
+    lamb_flat,
     multi_tensor_adam,
+    multi_tensor_l2norm,
+    multi_tensor_lamb,
     multi_tensor_scale,
 )
 
@@ -46,7 +50,10 @@ __all__ = [
     "adam_flat",
     "bucket_by_dtype",
     "flatten",
+    "lamb_flat",
     "multi_tensor_adam",
+    "multi_tensor_l2norm",
+    "multi_tensor_lamb",
     "multi_tensor_scale",
     "views_to_arena",
     "flash_attention",

@@ -1,1 +1,1 @@
-"""In-repo test models (the dense GPT) for the port."""
+"""In-repo test models for the port: the dense GPT and BERT."""

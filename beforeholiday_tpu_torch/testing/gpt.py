@@ -23,14 +23,17 @@ import dataclasses
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from beforeholiday_tpu_torch.ops import flash_attention, fused_dense
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device
-from beforeholiday_tpu_torch.testing._model_utils import (
+from beforeholiday_tpu_torch.testing._model_utils import (  # noqa: F401
+    _tensor,
+    layer_params,
     layernorm as _layernorm,
+    params_from_numpy,
+    state_from_numpy,
     vocab_head_matmul as _vocab_head_matmul,
 )
 
@@ -127,45 +130,6 @@ def init(cfg: GPTConfig, generator: torch.Generator, device=None) -> dict:
         "lnf_scale": const((D,), 1.0),
         "lnf_bias": const((D,), 0.0),
     }
-
-
-def params_from_numpy(tree, device=None):
-    """The reference's parameter tree, as numpy arrays (``jax.tree.map(
-    np.asarray, params)``), turned into this package's tensors on ``device``."""
-    device = resolve_device(device)
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    return _tensor(tree, device)
-
-
-def _tensor(a, device) -> torch.Tensor:
-    """A numpy array (bf16 ones as the reference stores them, through
-    ml_dtypes) as a tensor of the same dtype on ``device``."""
-    a = np.array(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
-
-
-def state_from_numpy(tree, device=None):
-    """The reference's optimizer or scaler state as numpy (``jax.tree.map(
-    np.asarray, state)``: nested dicts, tuples and lists of arrays and
-    0-d counters) turned into this package's tensors on ``device``, the
-    structure kept. A JAX ``MasterWeights`` state over ``PackedParams``
-    (``{"inner": ({"exp_avg", "exp_avg_sq", "step"}, ...), "master": (...)}``)
-    becomes the port's, so a JAX run can be continued here."""
-    device = resolve_device(device)
-    if isinstance(tree, dict):
-        return {k: state_from_numpy(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(state_from_numpy(v, device) for v in tree)
-    return _tensor(tree, device)
-
-
-def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the block weights (stacked tensors, or tuples
-    of per-layer tensors)."""
-    return {k: v[i] for k, v in params["blocks"].items()}
 
 
 def _heads(t, n_heads):

@@ -15,12 +15,13 @@ Phases, each printing one line (any failure exits non-zero):
    and the training step's shapes, timed beside its bound and
    ``F.layer_norm``;
 4. K2 (flash-attention forward, CUDA C++) against its plain version at the
-   prefill, decode and training shapes, timed beside its bound and
+   prefill, decode, GPT and BERT training shapes, timed beside its bound and
    ``F.scaled_dot_product_attention``;
-5. K3-K6 (LayerNorm backward and unscale and fused Adam, Triton; flash
-   attention backward, CUDA C++) against their plain versions at the
-   training shapes and at awkward ones, each timed beside its bound and a
-   library call;
+5. K3-K9 (LayerNorm backward, unscale, fused Adam, global sum of squares,
+   LAMB stage 1 and the trust-ratio update, Triton; flash attention
+   backward, CUDA C++) against their plain versions at the training shapes
+   and at awkward ones, each timed beside its bound and, where one PyTorch
+   call computes the same function, that call;
 6. engine parity: the full-width bf16 GPT engine on the kernels against the
    same engine on the plain path, and paged decode against the contiguous
    forward;
@@ -28,20 +29,26 @@ Phases, each printing one line (any failure exits non-zero):
    padding and preemption, the kernels' launch counts reset just before and
    read just after; then the same mix again under ``torch.profiler`` for the
    device time by layer and the device's idle share;
-8. step parity: one full-width amp O5 arena-native FusedAdam step at batch 2
-   on the kernels against the same step on the plain path;
-9. skip step: an overflowing step leaves the state bitwise unchanged and
+8. GPT step parity: one full-width amp O5 arena-native FusedAdam step at
+   batch 2 on the kernels against the same step on the plain path;
+9. GPT skip step: an overflowing step leaves the state bitwise unchanged and
    halves the dynamic loss scale;
-10. training: the flagship (``bench.py`` ``make_gpt_rung``) at batch 16 on
-    one fixed batch, 2 warm-up and 10 timed steps with the launch counts reset
-    just before and read just after, under ``set_sync_debug_mode("warn")``;
-    then one step under ``torch.profiler``;
-11. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
+10. GPT training: the flagship (``bench.py`` ``make_gpt_rung``) at batch 16
+    on one fixed batch, 2 warm-up and 10 timed steps with the launch counts
+    reset just before and read just after, under
+    ``set_sync_debug_mode("warn")``; then several steps under
+    ``torch.profiler``;
+11. BERT step parity, skip step and training: the same three phases for
+    BERT-Large (8 layers) with FusedLAMB (``bench.py`` ``make_bert_rung``,
+    ``bert_large_8layer_b128``), the parity step at batch 2 with ragged
+    sequence lengths;
+12. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
 
 ``F.layer_norm``, ``F.scaled_dot_product_attention``, their backwards,
-``torch._amp_foreach_non_finite_check_and_unscale_`` and
-``torch._fused_adamw_`` are timed here only, as yardsticks
-(``library_ms``); the port never calls them.
+``torch._amp_foreach_non_finite_check_and_unscale_``,
+``torch._fused_adamw_`` and ``torch.linalg.vector_norm`` are timed here
+only, as yardsticks (``library_ms``); the port never calls them. No single
+PyTorch call computes LAMB, so K7 and K8 have none.
 """
 
 import dataclasses
@@ -76,12 +83,30 @@ N_REQUESTS = 32
 TRAIN_BATCH = 16
 PARITY_BATCH = 2
 LR = 1e-4
-WARMUP_STEPS, TIMED_STEPS = 2, 10
-# the model's kernel launches per training step: 2 LayerNorms per layer plus
-# the final one, one attention per layer, one unscale and one Adam pass per
-# arena (bf16 and fp32)
-STEP_LAUNCHES = {"layer_norm_fwd": 17, "layer_norm_bwd": 17, "flash_fwd": 8,
-                 "flash_bwd": 8, "unscale": 2, "adam": 2}
+WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 2, 10, 3
+# BERT-Large + FusedLAMB (bench.py make_bert_rung, bert_large_8layer_b128:
+# bert_large(seq_len=128, n_layers=8, dtype=bf16), FusedLAMB(lr=1e-3,
+# weight_decay=0.01), batch 128, no dropout)
+BERT = dict(vocab_size=30522, seq_len=128, d_model=1024, n_heads=16,
+            n_layers=8, dtype=torch.bfloat16)
+BERT_BATCH = 128
+BERT_LR = 1e-3
+BERT_PARITY_LENS = (128, 77)
+# kernel launches per training step, by wrapper. GPT: 2 LayerNorms per layer
+# plus the final one, one attention per layer, one unscale and one Adam pass
+# per arena (bf16 and fp32). BERT: the embedding LayerNorm, 2 per layer and
+# the MLM head's, one attention per layer, and per arena one unscale, one
+# K9 call (the global grad norm), one K7 and one K8 pass; a K9 call is two
+# launches of its Triton kernels (partials, then the fixed-order sum) and
+# counts once, as K3's two do
+STEP_LAUNCHES = {
+    "gpt": {"layer_norm_fwd": 17, "layer_norm_bwd": 17, "flash_fwd": 8,
+            "flash_bwd": 8, "unscale": 2, "adam": 2, "l2norm": 0,
+            "lamb_stage1": 0, "scaled_update": 0},
+    "bert": {"layer_norm_fwd": 18, "layer_norm_bwd": 18, "flash_fwd": 8,
+             "flash_bwd": 8, "unscale": 2, "adam": 0, "l2norm": 2,
+             "lamb_stage1": 2, "scaled_update": 2},
+}
 PEAK_BF16 = 989e12
 
 # tolerances (PERF.md explains each)
@@ -201,6 +226,7 @@ def k2_phase(attn):
         (256, 1024, 1024, 64, True, torch.bfloat16),
         (128, 1024, 1024, 64, True, torch.bfloat16),
         (512, 1, 1024, 64, False, torch.bfloat16),
+        (2048, 128, 128, 64, False, torch.bfloat16),  # BERT, ragged lens
         (128, 1024, 1024, 64, True, torch.float32),
         (512, 1, 1024, 64, False, torch.float32),
         (8, 70, 70, 48, True, torch.float32),
@@ -243,8 +269,8 @@ def k2_phase(attn):
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=keep, scale=D ** -0.5)),
                 bound_ms=bms, bound_by=by)
-            rows_out["train" if BH == 256 else "prefill" if causal else "decode"] = (
-                tag, fields)
+            rows_out[{256: "train", 2048: "bert"}.get(
+                BH, "prefill" if causal else "decode")] = (tag, fields)
         line("K2", shape=tag, **fields)
     return rows_out
 
@@ -323,6 +349,7 @@ def k4_flops_bytes(q, k, lens, causal):
 def k4_phase(attn):
     checks = [  # BH, Sq, Sk, D, causal, dtype, dlse
         (256, 1024, 1024, 64, True, torch.bfloat16, False),
+        (2048, 128, 128, 64, False, torch.bfloat16, False),  # BERT, ragged
         (8, 70, 70, 48, True, torch.bfloat16, True),
         (8, 100, 100, 80, True, torch.bfloat16, False),
         (8, 64, 200, 128, False, torch.bfloat16, True),
@@ -364,33 +391,39 @@ def k4_phase(attn):
                    if dt == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4))
             errs.append(check_close(f"K4 {name} {tag}", a, b, tol))
         fields = dict(max_abs_err=max(errs))
-        if BH == 256:
+        if BH in (256, 2048):
             flops, nbytes = k4_flops_bytes(q, k, lens, causal)
             bms, by = bound_ms(nbytes, flops, dt)
-            B, H = TRAIN_BATCH, BH // TRAIN_BATCH
+            B = TRAIN_BATCH if causal else BERT_BATCH
+            H = BH // B
             ql, kl, vl = (t.reshape(B, H, -1, D).clone().requires_grad_(True)
                           for t in (q, k, v))
+            # the library's backward with the same key padding (a boolean
+            # mask; its fully masked rows give NaN there, which the timing
+            # does not read)
+            keep = (None if causal else
+                    (torch.arange(Sk, device="cuda")[None, None, :]
+                     < lens[:, None, None]).reshape(B, H, 1, Sk))
             fields.update(
                 ms=time_ms(lambda: attn.flash_bwd_kernel(*args)),
                 plain_ms=time_ms(lambda: attn.flash_bwd_torch(*args), iters=5),
                 library_ms=grad_ms(
-                    lambda: F.scaled_dot_product_attention(ql, kl, vl,
-                                                           is_causal=True),
+                    lambda: F.scaled_dot_product_attention(
+                        ql, kl, vl, attn_mask=keep, is_causal=causal),
                     (ql, kl, vl), do.reshape(B, H, Sq, D)),
                 bound_ms=bms, bound_by=by)
-            rows_out["train"] = (tag, fields)
+            rows_out["train" if BH == 256 else "bert"] = (tag, fields)
         line("K4", shape=tag, **fields)
     return rows_out
 
 
-def arena_len(params, dtype):
-    """Padded length of the flagship's arena of ``dtype`` under amp O5."""
+def o5_specs(params):
+    """The ``ArenaSpec`` of each arena of ``params`` under amp O5, by dtype."""
     from beforeholiday_tpu_torch.amp.frontend import _cast_params, opt_levels
     from beforeholiday_tpu_torch.ops.arena import PackedParams
 
-    cast = _cast_params(params, opt_levels["O5"], None)
-    packed = PackedParams.pack(cast)
-    return {a.dtype: a.numel() for a in packed.arenas}[dtype]
+    layout = PackedParams.pack(_cast_params(params, opt_levels["O5"], None)).layout
+    return dict(zip(layout.dtypes, layout.specs))
 
 
 def k5_phase(mt, n_bf16, n_fp32):
@@ -504,6 +537,185 @@ def k6_phase(mt, n_bf16, n_fp32):
                 bound_ms=bms, bound_by=by)
             rows_out["train"] = (tag, fields)
         line("K6", shape=tag, **fields)
+    return rows_out
+
+
+# ---------------------------------------------------------------- K7-K9
+
+
+def k9_phase(mt, n_bert):
+    """Global sum of squares with the non-finite flag: BERT's fp32 gradient
+    arena (after the unscale), with the inverse loss scale folded in, and
+    awkward lengths with inf and NaN; two calls on the same input must agree
+    bit for bit (no float atomics)."""
+    g = gen(80)
+    rows_out = {}
+    checks = [  # n, dtype, scale, poison
+        (n_bert, torch.float32, None, None),
+        (n_bert, torch.float32, 1 / 1024, None),
+        (100003, torch.float32, None, float("inf")),
+        (100003, torch.bfloat16, None, float("nan")),
+        (4099, torch.bfloat16, 0.5, None),
+    ]
+    for n, dt, scale, poison in checks:
+        x = (1e-3 * torch.randn(n, generator=g, device="cuda")).to(dt)
+        if poison is not None:
+            x[n // 3] = poison
+        s = None if scale is None else torch.full((), scale, device="cuda")
+        sq, flag = mt.l2norm_sq_kernel(x, s)
+        again, _ = mt.l2norm_sq_kernel(x, s)
+        rsq, rflag = mt.l2norm_sq_torch(x, s)
+        torch.cuda.synchronize()
+        tag = (f"{n} {str(dt)[6:]}{'' if scale is None else f' scale {scale}'}"
+               f"{'' if poison is None else f' with {poison}'}")
+        if bool(flag) != bool(rflag) or bool(flag) != (poison is not None):
+            raise AssertionError(f"K9 {tag}: flag {bool(flag)}, plain {bool(rflag)}")
+        if not torch.equal(sq, again) and poison is None:
+            raise AssertionError(f"K9 {tag}: two calls differ ({sq} vs {again})")
+        # fp32 sums of squares in another order
+        err = (check_close(f"K9 {tag}", sq, rsq, dict(rtol=1e-5, atol=0))
+               if poison is None else 0.0)
+        fields = dict(found_inf=bool(flag), max_abs_err=err, sq=float(sq),
+                      bitwise_repeat=True)
+        if n == n_bert and scale is None:
+            bms, by = bound_ms(4 * n, 2 * n, torch.float32)
+            fields.update(
+                ms=time_ms(lambda: mt.l2norm_sq_kernel(x)),
+                plain_ms=time_ms(lambda: mt.l2norm_sq_torch(x)),
+                library_ms=time_ms(lambda: torch.linalg.vector_norm(x) ** 2),
+                bound_ms=bms, bound_by=by)
+            rows_out["bert"] = (tag, fields)
+        line("K9", shape=tag, **fields)
+    return rows_out
+
+
+LAMB_HYPER = dict(beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6,
+                  weight_decay=0.01)
+
+
+def k7_phase(mt, n_bert):
+    """LAMB stage 1 over BERT's arena length (decoupled decay, the clip
+    engaged) and an awkward length in L2 mode, and a skipped step with an
+    inf in the gradient: u = 0, moments bitwise unchanged."""
+    rows_out = {}
+    checks = [  # n, mode, clip, skip
+        (n_bert, 1, 2.5, False),
+        (100003, 0, 1.0, False),
+        (100003, 1, 3.0, True),
+    ]
+    for n, mode, clip, skip in checks:
+        g = gen(81)
+        grad = 1e-3 * torch.randn(n, generator=g, device="cuda")
+        if skip:
+            grad[n // 2] = float("inf")
+        p = 0.02 * torch.randn(n, generator=g, device="cuda")
+        m = 1e-4 * torch.randn(n, generator=g, device="cuda")
+        v = 1e-8 * torch.rand(n, generator=g, device="cuda")
+        step = torch.full((), 4, dtype=torch.int32, device="cuda")
+        bc1, bc2 = mt._bias_corrections(True, step, 0.9, 0.999)
+        kw = dict(bc1=bc1, bc2=bc2, mode=mode,
+                  clip=torch.full((), clip, device="cuda"),
+                  found_inf=torch.full((), skip, dtype=torch.bool, device="cuda"),
+                  **LAMB_HYPER)
+        outs = {}
+        for fn in (mt.lamb_stage1_kernel, mt.lamb_stage1_torch):
+            st = (m.clone(), v.clone())
+            outs[fn] = (fn(grad, p, *st, **kw), *st)
+        torch.cuda.synchronize()
+        tag = (f"{n} {'decoupled' if mode else 'l2'} clip {clip}"
+               f"{' skip' if skip else ''}")
+        got, ref = outs[mt.lamb_stage1_kernel], outs[mt.lamb_stage1_torch]
+        if skip:
+            if not (torch.all(got[0] == 0) and torch.equal(got[1], m)
+                    and torch.equal(got[2], v)):
+                raise AssertionError(f"K7 {tag}: a skipped step wrote u or moments")
+            err = 0.0
+        else:
+            # a few ulp where the compiler contracts a multiply-add; where
+            # the terms of u (or of m) cancel, those ulp are the largest
+            # term's, so the absolute part scales with the array's maximum
+            err = max(check_close(f"K7 {name} {tag}", a, b,
+                                  dict(rtol=1e-5, atol=1e-6 * float(b.abs().max())))
+                      for name, a, b in zip(("u", "m", "v"), got, ref))
+        fields = dict(max_abs_err=err)
+        if n == n_bert:
+            # g, p, m, v read; u, m, v written: 28 B per fp32 element
+            bms, by = bound_ms(28 * n, 16 * n, torch.float32)
+            st = (m.clone(), v.clone())
+            fields.update(
+                ms=time_ms(lambda: mt.lamb_stage1_kernel(grad, p, *st, **kw)),
+                plain_ms=time_ms(lambda: mt.lamb_stage1_torch(grad, p, *st, **kw),
+                                 iters=5),
+                library_ms=None, bound_ms=bms, bound_by=by)
+            rows_out["bert"] = (tag, fields)
+        line("K7", shape=tag, **fields)
+    return rows_out
+
+
+def k8_phase(mt, make_spec, bert_spec):
+    """The trust-ratio update over BERT's bf16 arena layout with its bf16
+    model copy, and over an awkward layout (tensors of 1 element, tensors
+    straddling K8's blocks, a length that is no block multiple) with an fp32
+    copy, without one, and skipped. u is non-zero on the padding too: the
+    padding's ratio is 0, so p's padding must stay 0."""
+    awkward = make_spec([(1,), (4095,), (3, 5), (4097,), (70000,), (1,),
+                         (8193,), (2, 2)])
+    rows_out = {}
+    checks = [  # spec, copy dtype, skip
+        (bert_spec, torch.bfloat16, False),
+        (awkward, torch.float32, False),
+        (awkward, None, False),
+        (awkward, torch.bfloat16, True),
+    ]
+    for spec, copy_dt, skip in checks:
+        g = gen(82)
+        n = spec.padded_total
+        p = 0.02 * torch.randn(n, generator=g, device="cuda")
+        p[spec.total:] = 0
+        u = torch.randn(n, generator=g, device="cuda")
+        ratio = BERT_LR * (0.5 + torch.rand(spec.num_tensors, generator=g,
+                                            device="cuda"))
+        found = torch.full((), skip, dtype=torch.bool, device="cuda")
+        outs = {}
+        for fn in (mt.scaled_update_kernel, mt.scaled_update_torch):
+            pk = p.clone()
+            # the copy starts as the model arena does: the params' cast
+            ck = None if copy_dt is None else p.to(copy_dt, copy=True)
+            fn(pk, u, ratio, spec, found_inf=found, copy_out=ck)
+            outs[fn] = (pk, ck)
+        torch.cuda.synchronize()
+        tag = (f"{n} ({spec.num_tensors} tensors)"
+               f"{'' if copy_dt is None else f' copy {str(copy_dt)[6:]}'}"
+               f"{' skip' if skip else ''}")
+        (pk, ck), (pr, _) = outs[mt.scaled_update_kernel], outs[mt.scaled_update_torch]
+        if skip:
+            if not (torch.equal(pk, p) and torch.equal(ck, p.to(copy_dt))):
+                raise AssertionError(f"K8 {tag}: a skipped step changed state")
+            err = 0.0
+        else:
+            # one ulp where the compiler contracts p - c * u into an fma: an
+            # ulp of p or of c * u, which may nearly cancel
+            err = check_close(f"K8 {tag}", pk, pr,
+                              dict(rtol=1e-6, atol=1e-6 * float(pr.abs().max())))
+            if ck is not None and not torch.equal(ck, pk.to(copy_dt)):
+                raise AssertionError(f"K8 {tag}: copy is not the new params")
+            if not torch.all(pk[spec.total:] == 0):
+                raise AssertionError(f"K8 {tag}: the padding of p moved")
+        fields = dict(max_abs_err=err)
+        if spec is bert_spec:
+            # p, u read and p written in fp32, the bf16 copy written, one
+            # ratio per tensor read: 14 B per element
+            bms, by = bound_ms(14 * n + 4 * spec.num_tensors, 2 * n,
+                               torch.float32)
+            pk, ck = p.clone(), torch.empty(n, dtype=copy_dt, device="cuda")
+            kw = dict(found_inf=found, copy_out=ck)
+            fields.update(
+                ms=time_ms(lambda: mt.scaled_update_kernel(pk, u, ratio, spec, **kw)),
+                plain_ms=time_ms(lambda: mt.scaled_update_torch(pk, u, ratio, spec, **kw),
+                                 iters=5),
+                library_ms=None, bound_ms=bms, bound_by=by)
+            rows_out["bert"] = (tag, fields)
+        line("K8", shape=tag, **fields)
     return rows_out
 
 
@@ -657,8 +869,8 @@ def profile_phase(infer, eng, cfg):
 # -------------------------------------------------------------- training
 
 
-def make_trainer(amp, gpt, fused_adam, params, cfg, impl=None,
-                 loss_scale=None, loss_weight=None):
+def make_gpt_trainer(amp, gpt, fused_adam, params, cfg, impl=None,
+                     loss_scale=None, loss_weight=None):
     """The flagship step as ``bench.py`` ``make_gpt_rung`` builds it: amp O5,
     arena-native PackedParams, FusedAdam(lr=1e-4). ``impl="torch"`` puts
     every op on its plain version; ``loss_weight`` multiplies the loss."""
@@ -671,16 +883,40 @@ def make_trainer(amp, gpt, fused_adam, params, cfg, impl=None,
         loss = gpt.loss_fn(p, tok, tgt, cfg, forward_fn=m.apply)
         return loss if loss_weight is None else loss * loss_weight
 
+    return m, *scaled_step(amp, m, loss_fn, impl)
+
+
+def make_bert_trainer(amp, bert, fused_lamb, params, cfg, impl=None,
+                      loss_scale=None, loss_weight=None):
+    """The BERT step as ``bench.py`` ``make_bert_rung`` builds it: amp O5,
+    arena-native PackedParams, FusedLAMB(lr=1e-3, weight_decay=0.01), the
+    MLM + NSP pretraining loss; here under the amp loss scaler (K5)."""
+    cfg = dataclasses.replace(cfg, attention_impl=impl, norm_impl=impl)
+    m = amp.initialize(lambda p, t: bert.forward(p, t, cfg), params,
+                       fused_lamb(lr=BERT_LR, weight_decay=0.01, impl=impl),
+                       "O5", arena_native=True, loss_scale=loss_scale)
+
+    def loss_fn(p, tok, tgt, mask, nsp, lens):
+        loss = bert.pretrain_loss(p.unpack(), tok, tgt, mask, nsp, cfg,
+                                  seq_lens=lens)
+        return loss if loss_weight is None else loss * loss_weight
+
+    return m, *scaled_step(amp, m, loss_fn, impl)
+
+
+def scaled_step(amp, m, loss_fn, impl):
+    """``(state, step)``: ``step(*batch)`` runs one scaled forward and
+    backward and one optimizer step, in place on ``m.params`` and ``state``."""
     svag = amp.scaled_value_and_grad(loss_fn, m.scaler, impl=impl)
     state = {"opt": m.optimizer.init(m.params), "scaler": m.scaler.init()}
 
-    def step(tok, tgt):
-        loss, g, fi, state["scaler"] = svag(m.params, state["scaler"], tok, tgt)
+    def step(*batch):
+        loss, g, fi, state["scaler"] = svag(m.params, state["scaler"], *batch)
         m.params, state["opt"] = m.optimizer.step(m.params, g, state["opt"],
                                                   found_inf=fi)
         return loss, g, fi
 
-    return m, state, step
+    return state, step
 
 
 def snapshot(m, state):
@@ -691,47 +927,45 @@ def snapshot(m, state):
             [{k: v.clone() for k, v in b.items()} for b in inner])
 
 
-def step_parity_phase(amp, gpt, fused_adam, params, cfg):
+def step_parity_phase(label, trainer, batch, master_tol, why):
     """One full-width step at batch 2 on the kernels and on the plain path
-    from the same weights and batch."""
-    tok, tgt = gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(60),
-                                   device="cuda")
+    from the same weights and batch. ``master_tol`` bounds how far the two
+    paths' masters may part (``why`` says why)."""
     res = {}
     for impl in (None, "torch"):
-        m, state, step = make_trainer(amp, gpt, fused_adam, params, cfg, impl)
-        loss, g, fi = step(tok, tgt)
+        m, state, step = trainer(impl=impl)
+        loss, g, fi = step(*batch)
         torch.cuda.synchronize()
         if bool(fi):
-            raise AssertionError(f"step parity ({impl}): found_inf set")
+            raise AssertionError(f"{label} ({impl}): found_inf set")
         model, masters, _ = snapshot(m, state)
         for arena, master in zip(model, masters):
             if not torch.equal(arena, master.to(arena.dtype)):
                 raise AssertionError(
-                    f"step parity ({impl}): model arena != masters.to(dtype)")
+                    f"{label} ({impl}): model arena != masters.to(dtype)")
         res[impl] = (loss.item(), [a.clone() for a in g.arenas], masters)
         del m, state, step, g
         torch.cuda.empty_cache()
     (lk, gk, mk), (lp, gp, mp) = res[None], res["torch"]
     loss_err = abs(lk - lp) / abs(lp)
     if not (np.isfinite(lk) and loss_err < 5e-3):
-        raise AssertionError(f"step parity: loss {lk} vs plain {lp}")
+        raise AssertionError(f"{label}: loss {lk} vs plain {lp}")
     grad_rel = [float((a - b).norm() / b.norm()) for a, b in zip(gk, gp)]
     if max(grad_rel) > 0.05:
-        raise AssertionError(f"step parity: grad arenas differ, rel L2 {grad_rel}")
-    # from the same masters, Adam's first step moves each weight by lr times
-    # g/(|g| + eps): paths can differ by 2 lr where a gradient flips sign
+        raise AssertionError(f"{label}: grad arenas differ, rel L2 {grad_rel}")
     master_err = max(max_err(a, b) for a, b in zip(mk, mp))
-    if master_err > 2 * LR + 1e-6:
-        raise AssertionError(f"step parity: masters differ by {master_err}")
-    flips = sum(int(((a - b).abs() > LR).sum()) for a, b in zip(mk, mp))
-    line("step_parity", batch=PARITY_BATCH, loss=lk, plain_loss=lp,
+    if master_err > master_tol:
+        raise AssertionError(f"{label}: masters differ by {master_err} "
+                             f"> {master_tol} ({why})")
+    flips = sum(int(((a - b).abs() > master_tol / 2).sum()) for a, b in zip(mk, mp))
+    line(label, batch=PARITY_BATCH, loss=lk, plain_loss=lp,
          loss_rel_err=loss_err, grad_rel_l2=max(grad_rel),
          grad_max_abs_err=max(max_err(a, b) for a, b in zip(gk, gp)),
-         master_max_abs_err=master_err, master_sign_flips=flips,
-         model_arena_is_master_cast="bitwise")
+         master_max_abs_err=master_err, master_tol=master_tol,
+         master_sign_flips=flips, model_arena_is_master_cast="bitwise")
 
 
-def skip_phase(amp, gpt, fused_adam, params, cfg):
+def skip_phase(label, trainer, batch):
     """An O5 step with a dynamic loss scale whose gradients overflow. bf16
     shares fp32's exponent range and these gradients stay below 1, so no
     finite scale overflows them (and above 2**126 the scale's inverse is
@@ -739,27 +973,24 @@ def skip_phase(amp, gpt, fused_adam, params, cfg):
     amp tests do. The step must leave masters, moments, step counts and
     model arenas bitwise unchanged and halve the scale."""
     inf = torch.full((), float("inf"), device="cuda")
-    m, state, step = make_trainer(amp, gpt, fused_adam, params, cfg,
-                                  loss_scale="dynamic", loss_weight=inf)
-    tok, tgt = gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(61),
-                                   device="cuda")
+    m, state, step = trainer(loss_scale="dynamic", loss_weight=inf)
     before = snapshot(m, state)
     scale0 = state["scaler"]["scale"].item()
-    _, _, fi = step(tok, tgt)
+    _, _, fi = step(*batch)
     torch.cuda.synchronize()
     after = snapshot(m, state)
     if not bool(fi):
-        raise AssertionError("skip step: found_inf not set")
+        raise AssertionError(f"{label}: found_inf not set")
     same = (all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
             and all(torch.equal(a, b) for a, b in zip(before[1], after[1]))
             and all(torch.equal(a[k], b[k]) for a, b in zip(before[2], after[2])
                     for k in a))
     if not same:
-        raise AssertionError("skip step: the state changed")
+        raise AssertionError(f"{label}: the state changed")
     scale1 = state["scaler"]["scale"].item()
     if scale1 != scale0 / 2:
-        raise AssertionError(f"skip step: scale {scale0} -> {scale1}")
-    line("skip_step", found_inf=True, state="bitwise unchanged",
+        raise AssertionError(f"{label}: scale {scale0} -> {scale1}")
+    line(label, found_inf=True, state="bitwise unchanged",
          scale_before=scale0, scale_after=scale1,
          step_count=int(after[2][0]["step"]))
     del m, state, step
@@ -771,15 +1002,19 @@ def launch_counters(norm, attn, mt):
             "layer_norm_bwd": norm.ln_bwd_kernel,
             "flash_fwd": attn.flash_fwd_kernel,
             "flash_bwd": attn.flash_bwd_kernel,
-            "unscale": mt.scale_kernel, "adam": mt.adam_kernel}
+            "unscale": mt.scale_kernel, "adam": mt.adam_kernel,
+            "l2norm": mt.l2norm_sq_kernel, "lamb_stage1": mt.lamb_stage1_kernel,
+            "scaled_update": mt.scaled_update_kernel}
 
 
-def training_phase(amp, gpt, fused_adam, params, cfg, counters, card):
-    m, state, step = make_trainer(amp, gpt, fused_adam, params, cfg)
-    tok, tgt = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70),
-                                   device="cuda")
+def training_phase(label, profile_label, m, step, batch, counters, expect,
+                   seq_len, groups, card):
+    """2 warm-up and TIMED_STEPS timed steps on one fixed batch, the launch
+    counts reset just before the timed steps and read just after, under
+    ``set_sync_debug_mode("warn")``; then PROFILE_STEPS steps under
+    torch.profiler. Returns the timed steps' launch counts."""
     for _ in range(WARMUP_STEPS):
-        step(tok, tgt)
+        step(*batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -810,7 +1045,7 @@ def training_phase(amp, gpt, fused_adam, params, cfg, counters, card):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            loss, _, fi = step(tok, tgt)
+            loss, _, fi = step(*batch)
             b.record()
             events.append((a, b))
             losses.append(loss)
@@ -819,22 +1054,24 @@ def training_phase(amp, gpt, fused_adam, params, cfg, counters, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    for k, per_step in STEP_LAUNCHES.items():
+    for k, per_step in expect.items():
         if launches[k] != per_step * TIMED_STEPS:
-            raise AssertionError(f"{k}: {launches[k]} launches in {TIMED_STEPS} "
-                                 f"steps, the model implies {per_step} per step")
+            raise AssertionError(f"{label} {k}: {launches[k]} launches in "
+                                 f"{TIMED_STEPS} steps, the model implies "
+                                 f"{per_step} per step")
     if port_syncs:
-        raise AssertionError(f"the port's code synchronized the host: {port_syncs}")
+        raise AssertionError(f"{label}: the port's code synchronized the host: "
+                             f"{port_syncs}")
     step_ms = [a.elapsed_time(b) for a, b in events]
     first, last = losses[0].item(), losses[-1].item()
     if not (np.isfinite(first) and np.isfinite(last) and last < first):
-        raise AssertionError(f"training: loss {first} -> {last}")
-    tokens = TRAIN_BATCH * cfg.seq_len
+        raise AssertionError(f"{label}: loss {first} -> {last}")
+    tokens = batch[0].numel()
     n_params = sum(spec.total for spec in m.params.layout.specs)
     med = float(np.median(step_ms))
     flops = 6.0 * n_params * tokens
-    line("training", steps=TIMED_STEPS, tokens_per_step=tokens,
-         median_step_ms=med, min_step_ms=min(step_ms),
+    line(label, steps=TIMED_STEPS, batch=batch[0].shape[0], seq_len=seq_len,
+         tokens_per_step=tokens, median_step_ms=med, min_step_ms=min(step_ms),
          tokens_per_s=tokens * TIMED_STEPS / wall, params=n_params,
          model_flops_per_step=flops, mfu=flops / (med / 1e3) / PEAK_BF16,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -844,8 +1081,7 @@ def training_phase(amp, gpt, fused_adam, params, cfg, counters, card):
          launches_per_step=json.dumps(
              {k: v // TIMED_STEPS for k, v in launches.items()}),
          card=f"'{card}'")
-    train_profile(step, tok, tgt)
-    del m, state, step
+    train_profile(profile_label, step, batch, groups)
     return launches
 
 
@@ -877,28 +1113,78 @@ TRAIN_GROUPS = (("K1 layer_norm_fwd", ("_ln_fwd",)),
                 ("K5 unscale", ("_scale_flag",)),
                 ("K6 adam", ("_adam",)),
                 ("gemm", GEMM_FRAGMENTS))
+# LAMB's per-tensor norms of p and u are plain torch.dot calls (cuBLAS dot
+# and its reduction), listed before the GEMM fragments they share "cublas"
+# with
+BERT_GROUPS = (("K1 layer_norm_fwd", ("_ln_fwd",)),
+               ("K3 layer_norm_bwd", ("_ln_bwd",)),
+               ("K2 flash_fwd", ("flash_fwd_",)),
+               ("K4 flash_bwd", ("flash_bwd_",)),
+               ("K5 unscale", ("_scale_flag",)),
+               ("K9 l2norm", ("_sumsq",)),
+               ("K7 lamb_stage1", ("_lamb1",)),
+               ("K8 scaled_update", ("_scaled_update",)),
+               ("per-tensor norms", ("dot_kernel", "reduce_1Block")),
+               ("gemm", GEMM_FRAGMENTS))
 
 
-def train_profile(step, tok, tgt):
-    """One more step under torch.profiler: device time by layer and the
-    device's idle share over the step."""
+def train_profile(label, step, batch, groups):
+    """PROFILE_STEPS more steps under torch.profiler: device time by layer
+    (per step) and the device's idle share over the window."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        step(tok, tgt)
+        for _ in range(PROFILE_STEPS):
+            step(*batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name, groups = device_ms_by_group(prof, TRAIN_GROUPS)
+    by_name, by_group = device_ms_by_group(prof, groups)
     busy = sum(by_name.values())
     if busy == 0:
-        line("train_profile", device_time="not measured (no CUDA events in the trace)")
+        line(label, device_time="not measured (no CUDA events in the trace)")
         return
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    print("train_profile: " + json.dumps({
-        "wall_ms": wall_ms, "device_busy_ms": busy,
-        "idle_share": 1.0 - busy / wall_ms, "by_layer_ms": groups,
-        "top_kernels_ms": {k[:90]: v for k, v in top}}), flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    per = 1.0 / PROFILE_STEPS
+    print(f"{label}: " + json.dumps({
+        "steps": PROFILE_STEPS, "wall_ms_per_step": wall_ms * per,
+        "device_busy_ms_per_step": busy * per, "idle_share": 1.0 - busy / wall_ms,
+        "by_layer_ms_per_step": {k: v * per for k, v in by_group.items()},
+        "top_kernels_ms_per_step": {k[:90]: v * per for k, v in top}}),
+        flush=True)
+
+
+def bert_batch(bert, cfg, batch, seed, lens=None):
+    """A synthetic MLM batch on the card plus its sequence lengths (None:
+    every sequence full, as ``make_bert_rung`` trains)."""
+    tok, tgt, mask, nsp = bert.synthetic_batch(cfg, batch, generator=gen(seed),
+                                               device="cuda")
+    if lens is not None:
+        lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return tok, tgt, mask, nsp, lens
+
+
+# (kernel key, route, source, the TPU kernel it replaces)
+KERNEL_ROWS = (
+    ("layer_norm_fwd", "triton", "beforeholiday_tpu_torch/ops/normalization.py",
+     "beforeholiday_tpu/ops/normalization.py:55"),
+    ("flash_fwd", "cuda", "beforeholiday_tpu_torch/csrc/flash_fwd.cu",
+     "beforeholiday_tpu/ops/attention.py:152"),
+    ("layer_norm_bwd", "triton", "beforeholiday_tpu_torch/ops/normalization.py",
+     "beforeholiday_tpu/ops/normalization.py:69"),
+    ("flash_bwd", "cuda", "beforeholiday_tpu_torch/csrc/flash_bwd.cu",
+     "beforeholiday_tpu/ops/attention.py:305"),
+    ("unscale", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
+     "beforeholiday_tpu/ops/_pallas_mt.py:179"),
+    ("adam", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
+     "beforeholiday_tpu/ops/_pallas_mt.py:273"),
+    ("lamb_stage1", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
+     "beforeholiday_tpu/ops/_pallas_mt.py:455"),
+    ("scaled_update", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
+     "beforeholiday_tpu/ops/_pallas_mt.py:558"),
+    ("l2norm", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
+     "beforeholiday_tpu/ops/_pallas_mt.py:228"),
+)
 
 
 def main():
@@ -910,8 +1196,9 @@ def main():
     from beforeholiday_tpu_torch.ops import attention as attn
     from beforeholiday_tpu_torch.ops import multi_tensor as mt
     from beforeholiday_tpu_torch.ops import normalization as norm
-    from beforeholiday_tpu_torch.optimizers import FusedAdam
-    from beforeholiday_tpu_torch.testing import gpt
+    from beforeholiday_tpu_torch.ops.arena import make_spec
+    from beforeholiday_tpu_torch.optimizers import FusedAdam, FusedLAMB
+    from beforeholiday_tpu_torch.testing import bert, gpt
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -933,12 +1220,19 @@ def main():
 
     cfg = gpt.GPTConfig(**MODEL)
     params = gpt.init(cfg, gen(0), device="cuda")
-    n_bf16 = arena_len(params, torch.bfloat16)
-    n_fp32 = arena_len(params, torch.float32)
+    specs = o5_specs(params)
+    n_bf16 = specs[torch.bfloat16].padded_total
+    n_fp32 = specs[torch.float32].padded_total
+    bcfg = bert.BertConfig(**BERT)
+    bparams = bert.init(bcfg, gen(1), device="cuda")
+    bert_spec = o5_specs(bparams)[torch.bfloat16]
     rows = {"layer_norm_fwd": k1_phase(norm), "flash_fwd": k2_phase(attn),
             "layer_norm_bwd": k3_phase(norm), "flash_bwd": k4_phase(attn),
             "unscale": k5_phase(mt, n_bf16, n_fp32),
-            "adam": k6_phase(mt, n_bf16, n_fp32)}
+            "adam": k6_phase(mt, n_bf16, n_fp32),
+            "l2norm": k9_phase(mt, bert_spec.padded_total),
+            "lamb_stage1": k7_phase(mt, bert_spec.padded_total),
+            "scaled_update": k8_phase(mt, make_spec, bert_spec)}
     torch.cuda.empty_cache()
 
     engine_phase(infer, gpt, cast_floats, params, cfg)
@@ -948,33 +1242,54 @@ def main():
     del eng
     torch.cuda.empty_cache()
 
-    step_parity_phase(amp, gpt, FusedAdam, params, cfg)
-    skip_phase(amp, gpt, FusedAdam, params, cfg)
-    train_launches = training_phase(amp, gpt, FusedAdam, params, cfg,
-                                    launch_counters(norm, attn, mt), card)
+    counters = launch_counters(norm, attn, mt)
+    gpt_trainer = lambda **kw: make_gpt_trainer(amp, gpt, FusedAdam, params,
+                                                cfg, **kw)
+    batch = gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(60),
+                                device="cuda")
+    # Adam's first step moves each weight by lr * g / (|g| + eps): the paths
+    # can part by 2 lr where a gradient flips sign
+    step_parity_phase("step_parity", gpt_trainer, batch, 2 * LR + 1e-6,
+                      "2 lr: a gradient sign flip")
+    skip_phase("skip_step", gpt_trainer, gpt.synthetic_batch(
+        cfg, PARITY_BATCH, generator=gen(61), device="cuda"))
+    m, _, step = gpt_trainer()
+    batch = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70), device="cuda")
+    launches = {"train": training_phase(
+        "training", "train_profile", m, step, batch, counters,
+        STEP_LAUNCHES["gpt"], cfg.seq_len, TRAIN_GROUPS, card)}
+    del m, step, batch, params
+    torch.cuda.empty_cache()
+
+    bert_trainer = lambda **kw: make_bert_trainer(amp, bert, FusedLAMB, bparams,
+                                                  bcfg, **kw)
+    # LAMB's first step moves each weight by its tensor's trust ratio times
+    # u = g / (|g| + eps) + decay * p, about lr per element (lr * ||p|| /
+    # ||u||); a gradient sign flip parts the paths by twice that, and the
+    # ratio itself varies a little with ||u||
+    step_parity_phase("bert_step_parity", bert_trainer,
+                      bert_batch(bert, bcfg, PARITY_BATCH, 62, BERT_PARITY_LENS),
+                      3 * BERT_LR, "3 lr: a sign flip moves 2 lr times the trust ratio")
+    skip_phase("bert_skip_step", bert_trainer,
+               bert_batch(bert, bcfg, PARITY_BATCH, 63, BERT_PARITY_LENS))
+    m, _, step = bert_trainer()
+    launches["bert"] = training_phase(
+        "bert_training", "bert_profile", m, step,
+        bert_batch(bert, bcfg, BERT_BATCH, 71), counters, STEP_LAUNCHES["bert"],
+        bcfg.seq_len, BERT_GROUPS, card)
+    del m, step
+    torch.cuda.empty_cache()
+    launches["serving"] = serve_launches
 
     kernels = []
-    for kname, route, source, replaces in (
-        ("layer_norm_fwd", "triton", "beforeholiday_tpu_torch/ops/normalization.py",
-         "beforeholiday_tpu/ops/normalization.py:55"),
-        ("flash_fwd", "cuda", "beforeholiday_tpu_torch/csrc/flash_fwd.cu",
-         "beforeholiday_tpu/ops/attention.py:152"),
-        ("layer_norm_bwd", "triton", "beforeholiday_tpu_torch/ops/normalization.py",
-         "beforeholiday_tpu/ops/normalization.py:69"),
-        ("flash_bwd", "cuda", "beforeholiday_tpu_torch/csrc/flash_bwd.cu",
-         "beforeholiday_tpu/ops/attention.py:305"),
-        ("unscale", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
-         "beforeholiday_tpu/ops/_pallas_mt.py:179"),
-        ("adam", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
-         "beforeholiday_tpu/ops/_pallas_mt.py:273"),
-    ):
+    for kname, route, source, replaces in KERNEL_ROWS:
         for shape, (tag, f) in rows[kname].items():
-            # launches: the serving run's for the serving shapes, the timed
-            # training run's for the training shape
-            launches = (train_launches if shape == "train" else serve_launches)[kname]
+            # launches: the run of the path that gives the kernel this shape
+            # (the serving run, the GPT or the BERT training run)
+            path = shape if shape in ("train", "bert") else "serving"
             kernels.append(dict(
                 name=f"{kname}[{shape}: {tag}]", route=route, source=source,
-                replaces=replaces, launches=launches,
+                replaces=replaces, launches=launches[path][kname],
                 max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
                 bound_ms=f["bound_ms"], bound_by=f["bound_by"],
                 library_ms=f["library_ms"]))

@@ -1,7 +1,9 @@
 """Kernels K1/K3 (LayerNorm forward/backward, Triton), K2/K4 (flash
-attention forward/backward, CUDA C++), K5 (unscale, Triton) and K6 (fused
-Adam, Triton) against their plain PyTorch versions on the card, and the
-engine and a small O5 training step on the kernels against the plain path.
+attention forward/backward, CUDA C++), K5 (unscale), K6 (fused Adam), K7
+(LAMB stage 1), K8 (trust-ratio update) and K9 (global sum of squares), all
+Triton, against their plain PyTorch versions on the card, and the engine and
+small O5 GPT (FusedAdam) and BERT (FusedLAMB) training steps on the kernels
+against the plain path.
 
 Marked ``gpu``: without a CUDA device every test skips (the decision is made
 inside the ``cuda`` fixture, never at import, so every pytest worker collects
@@ -22,8 +24,9 @@ from beforeholiday_tpu_torch.infer import EngineConfig, InferenceEngine, PageAll
 from beforeholiday_tpu_torch.ops import attention as tattn
 from beforeholiday_tpu_torch.ops import multi_tensor as tmt
 from beforeholiday_tpu_torch.ops import normalization as tnorm
-from beforeholiday_tpu_torch.optimizers import FusedAdam
-from beforeholiday_tpu_torch.testing import gpt
+from beforeholiday_tpu_torch.ops.arena import make_spec
+from beforeholiday_tpu_torch.optimizers import FusedAdam, FusedLAMB
+from beforeholiday_tpu_torch.testing import bert, gpt
 
 pytestmark = pytest.mark.gpu
 
@@ -37,7 +40,7 @@ FP32_TOL = dict(rtol=1e-5, atol=2e-5)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels K1-K6 run only on the card)")
+        pytest.skip("needs a CUDA device (kernels K1-K9 run only on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -108,6 +111,7 @@ def _ragged(BH, full, seed=0):
     (8, 100, 100, 16, True, torch.bfloat16),
     (8, 64, 200, 128, False, torch.bfloat16),
     (4, 16, 16, 32, True, torch.bfloat16),
+    (2048, 128, 128, 64, False, torch.bfloat16),   # BERT-Large, key padding
     # CUDA-core fp32 kernel (fp32, Sq >= 16)
     (16, 256, 256, 64, True, torch.float32),
     (8, 100, 100, 16, True, torch.float32),
@@ -222,6 +226,7 @@ def _k4_tol(dtype, ref):
 
 @pytest.mark.parametrize("BH, Sq, Sk, D, causal, dtype, dlse", [
     (256, 1024, 1024, 64, True, torch.bfloat16, False),  # the training shape
+    (2048, 128, 128, 64, False, torch.bfloat16, False),  # BERT-Large, padding
     (8, 70, 70, 48, True, torch.bfloat16, True),
     (8, 64, 200, 128, False, torch.bfloat16, False),
     (8, 100, 100, 80, True, torch.bfloat16, True),
@@ -366,5 +371,172 @@ def test_training_step_kernels_match_plain_path(cuda):
         torch.testing.assert_close(a, b, rtol=0.05, atol=2e-2 * float(b.abs().max()))
     for a, b in zip(mk, mt_):
         torch.testing.assert_close(a, b, rtol=0, atol=2.5e-3)  # up to 2 lr
+    for arena, master in zip(pk, mk):
+        assert torch.equal(arena, master.to(arena.dtype))
+
+
+# ------------------------------------------------------------------- K9
+
+
+@pytest.mark.parametrize("n, dtype, scale, poison", [
+    (4 * 32768, torch.float32, None, None),
+    (100003, torch.float32, 1 / 1024, None),
+    (4099, torch.bfloat16, None, None),
+    (100003, torch.float32, None, float("inf")),
+    (4097, torch.bfloat16, 0.5, float("nan")),
+    (1, torch.float32, None, None),
+])
+def test_k9_matches_plain(cuda, n, dtype, scale, poison):
+    x = torch.randn(n, generator=_gen(9), device=cuda).to(dtype)
+    if poison is not None:
+        x[n // 2] = poison
+    s = None if scale is None else torch.full((), scale, device=cuda)
+    before = tmt.l2norm_sq_kernel.launches
+    sq, flag = tmt.l2norm_sq_kernel(x, s)
+    assert tmt.l2norm_sq_kernel.launches == before + 1
+    rsq, rflag = tmt.l2norm_sq_torch(x, s)
+    torch.cuda.synchronize()
+    assert sq.shape == () and sq.dtype == torch.float32
+    assert bool(flag) == bool(rflag) == (poison is not None)
+    if poison is None:
+        torch.testing.assert_close(sq, rsq, rtol=1e-5, atol=0)
+
+
+def test_k9_is_bitwise_reproducible(cuda):
+    """Two-stage reduction, no float atomics: the same input gives the same
+    bits on every call."""
+    x = torch.randn(3 * 1024 * 4096 + 7, generator=_gen(10), device=cuda)
+    first, _ = tmt.l2norm_sq_kernel(x)
+    for _ in range(3):
+        again, _ = tmt.l2norm_sq_kernel(x)
+        assert torch.equal(first, again)
+
+
+# ------------------------------------------------------------------- K7
+
+
+@pytest.mark.parametrize("n, mode, clip, skip", [
+    (4 * 32768, 1, 2.5, False),
+    (100003, 0, 1.0, False),
+    (100003, 1, 3.0, True),
+    (5, 0, 1.0, False),
+])
+def test_k7_matches_plain(cuda, n, mode, clip, skip):
+    g = _gen(7)
+    grad = torch.randn(n, generator=g, device=cuda)
+    if skip:
+        grad[n // 2] = float("inf")
+    p = torch.randn(n, generator=g, device=cuda)
+    m = 0.1 * torch.randn(n, generator=g, device=cuda)
+    v = 0.01 * torch.rand(n, generator=g, device=cuda)
+    step = torch.full((), 3, dtype=torch.int32, device=cuda)
+    bc1, bc2 = tmt._bias_corrections(True, step, 0.9, 0.999)
+    kw = dict(beta1=0.9, beta2=0.999, beta3=0.1, bc1=bc1, bc2=bc2, eps=1e-6,
+              weight_decay=0.01, clip=torch.full((), clip, device=cuda),
+              mode=mode,
+              found_inf=torch.full((), skip, dtype=torch.bool, device=cuda))
+    outs = {}
+    for fn in (tmt.lamb_stage1_kernel, tmt.lamb_stage1_torch):
+        mk, vk = m.clone(), v.clone()
+        outs[fn] = (fn(grad, p, mk, vk, **kw), mk, vk)
+    torch.cuda.synchronize()
+    got, ref = outs[tmt.lamb_stage1_kernel], outs[tmt.lamb_stage1_torch]
+    if skip:  # u = 0, moments bitwise held
+        assert torch.all(got[0] == 0)
+        assert torch.equal(got[1], m) and torch.equal(got[2], v)
+        return
+    # a few ulp where the compiler contracts a multiply-add; where the terms
+    # of u (or of m) cancel, those ulp are the largest term's
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-6 * float(b.abs().max()))
+
+
+# ------------------------------------------------------------------- K8
+
+
+AWKWARD = [(1,), (4095,), (3, 5), (4097,), (70000,), (1,), (8193,), (2, 2)]
+
+
+@pytest.mark.parametrize("copy, skip", [
+    (torch.bfloat16, False), (torch.float32, False), (None, False),
+    (torch.bfloat16, True),
+])
+def test_k8_matches_plain(cuda, copy, skip):
+    spec = make_spec(AWKWARD)
+    n = spec.padded_total
+    g = _gen(8)
+    p = torch.randn(n, generator=g, device=cuda)
+    p[spec.total:] = 0
+    u = torch.randn(n, generator=g, device=cuda)  # non-zero on the padding
+    ratio = 1e-3 * (0.5 + torch.rand(spec.num_tensors, generator=g, device=cuda))
+    found = torch.full((), skip, dtype=torch.bool, device=cuda)
+    outs = {}
+    for fn in (tmt.scaled_update_kernel, tmt.scaled_update_torch):
+        pk = p.clone()
+        ck = None if copy is None else p.to(copy, copy=True)
+        fn(pk, u, ratio, spec, found_inf=found, copy_out=ck)
+        outs[fn] = (pk, ck)
+    torch.cuda.synchronize()
+    (pk, ck), (pr, _) = outs[tmt.scaled_update_kernel], outs[tmt.scaled_update_torch]
+    if skip:
+        assert torch.equal(pk, p) and torch.equal(ck, p.to(copy))
+        return
+    # one ulp where the compiler contracts p - c * u into an fma: an ulp of
+    # p or of c * u, which may nearly cancel
+    torch.testing.assert_close(pk, pr, rtol=1e-6, atol=1e-6 * float(pr.abs().max()))
+    assert torch.all(pk[spec.total:] == 0)  # the padding's ratio is 0
+    if copy is not None:
+        assert torch.equal(ck, pk.to(copy))
+
+
+def test_k8_refuses_a_ratio_per_layer(cuda):
+    """One ratio per spec tensor, never per layer view."""
+    spec = make_spec(AWKWARD)
+    p = torch.zeros(spec.padded_total, device=cuda)
+    with pytest.raises(ValueError):
+        tmt.scaled_update_kernel(p, p, torch.ones(spec.num_tensors + 1, device=cuda),
+                                 spec, found_inf=None, copy_out=None)
+
+
+# ------------------------------------------------- BERT + LAMB step
+
+
+def test_bert_lamb_step_kernels_match_plain_path(cuda):
+    """One O5 arena-native FusedLAMB step of a 2-layer bf16 BERT with
+    ragged sequence lengths on K1-K5 and K7-K9 against the same step with
+    every op on its plain version."""
+    base = dict(vocab_size=512, seq_len=128, d_model=128, n_heads=4,
+                n_layers=2, dtype=torch.bfloat16)
+    params = bert.init(bert.BertConfig(**base), _gen(0), device=cuda)
+    tok, tgt, mask, nsp = bert.synthetic_batch(bert.BertConfig(**base), 2,
+                                               generator=_gen(1), device=cuda)
+    lens = torch.tensor([128, 77], dtype=torch.int32, device=cuda)
+    counters = (tmt.l2norm_sq_kernel, tmt.lamb_stage1_kernel,
+                tmt.scaled_update_kernel, tattn.flash_bwd_kernel)
+    res = {}
+    for impl in ("kernel", "torch"):
+        cfg = bert.BertConfig(**base, attention_impl=impl, norm_impl=impl)
+        m = amp.initialize(lambda p, t, cfg=cfg: bert.forward(p, t, cfg), params,
+                           FusedLAMB(lr=1e-3, weight_decay=0.01, impl=impl),
+                           "O5", arena_native=True)
+        svag = amp.scaled_value_and_grad(
+            lambda p, cfg=cfg: bert.pretrain_loss(p.unpack(), tok, tgt, mask,
+                                                  nsp, cfg, seq_lens=lens),
+            m.scaler, impl=impl)
+        o, s = m.optimizer.init(m.params), m.scaler.init()
+        before = [fn.launches for fn in counters]
+        loss, g, fi, s = svag(m.params, s)
+        m.params, o = m.optimizer.step(m.params, g, o, found_inf=fi)
+        torch.cuda.synchronize()
+        launched = [fn.launches - b for fn, b in zip(counters, before)]
+        assert launched == ([2, 2, 2, 2] if impl == "kernel" else [0, 0, 0, 0])
+        res[impl] = (loss, g.arenas, o["master"], m.params.arenas)
+    (lk, gk, mk, pk), (lt, gt, mt_, pt) = res["kernel"], res["torch"]
+    torch.testing.assert_close(lk, lt, rtol=2e-3, atol=0)
+    for a, b in zip(gk, gt):
+        torch.testing.assert_close(a, b, rtol=0.05, atol=2e-2 * float(b.abs().max()))
+    for a, b in zip(mk, mt_):
+        torch.testing.assert_close(a, b, rtol=0, atol=3e-3)  # up to 3 lr
     for arena, master in zip(pk, mk):
         assert torch.equal(arena, master.to(arena.dtype))
