@@ -13,9 +13,11 @@ Ported opt levels: O0 (fp32) and O5 (bf16 storage, fp32 masters, static
 loss scale 1.0), both with ``arena_native``. O1 and O4 need the autocast
 scope, O2 and O3 fp16 kernels, and O6 the quantized fp8 tier; none is
 ported, so they raise ``NotImplementedError``, as does ``tuned=True`` (the
-autotuner is not ported). Not ported either: ``has_state`` models,
-``arena_masters`` (the optimizer's view path), and ``scaled_value_and_grad``'s
-``has_aux`` and ``reduce_grads`` (DDP, a later slice).
+autotuner is not ported). ``has_state`` models (ResNet's BN running stats)
+pass their state through uncast in both directions, and
+``scaled_value_and_grad(has_aux=True)`` returns the loss function's aux
+output. Not ported either: ``arena_masters`` (the optimizer's view path) and
+``scaled_value_and_grad``'s ``reduce_grads`` (DDP, a later slice).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from beforeholiday_tpu_torch.ops._autocast import cast_floats as _cast_floats
 from beforeholiday_tpu_torch.ops.arena import (
     PackedParams,
     tree_flatten,
+    tree_map,
     tree_paths,
     tree_unflatten,
 )
@@ -164,6 +167,7 @@ def initialize(
     master_weights: Optional[bool] = None,
     loss_scale: Optional[Any] = None,
     keep_fp32_mask: Optional[Callable] = None,
+    has_state: bool = False,
     num_losses: int = 1,
     arena_native: bool = False,
 ) -> AmpModel:
@@ -173,7 +177,11 @@ def initialize(
     level's defaults. ``arena_native=True`` stores the cast params as
     :class:`PackedParams` (one flat arena per dtype): ``apply`` unpacks
     views, :func:`scaled_value_and_grad` returns gradient arenas, and the
-    master-weight step runs one fused kernel per arena with no packing."""
+    master-weight step runs one fused kernel per arena with no packing.
+
+    ``has_state=True`` declares ``apply_fn(params, model_state, *inputs) ->
+    (out, new_model_state)``: model buffers such as BN running stats, passed
+    through uncast in both directions."""
     if tuned:
         raise NotImplementedError(
             "tuned=True needs the autotuner (beforeholiday_tpu.tune), which "
@@ -211,7 +219,8 @@ def initialize(
             )
         cast_params = PackedParams.pack(cast_params)
     amp_apply = make_apply(policy, apply_fn,
-                           cast_model_outputs=cast_model_outputs)
+                           cast_model_outputs=cast_model_outputs,
+                           has_state=has_state)
     opt = optimizer
     if opt is not None and policy.master_weights:
         opt = MasterWeights(opt)
@@ -224,10 +233,13 @@ def initialize(
 
 
 def make_apply(policy: Properties, apply_fn: Callable, *,
-               cast_model_outputs: Optional[torch.dtype] = torch.float32
-               ) -> Callable:
+               cast_model_outputs: Optional[torch.dtype] = torch.float32,
+               has_state: bool = False) -> Callable:
     """Wrap ``apply_fn`` with the policy's input and output casts (the
-    params are used as given: they are already in storage dtype)."""
+    params are used as given: they are already in storage dtype), for
+    example an eval-mode forward sharing an ``AmpModel``'s params. With
+    ``has_state`` the model state (the first input) and the new state in
+    the output pass through uncast."""
     if policy.patch_torch_functions or policy.quantized:
         raise NotImplementedError(
             f"{policy.opt_level}'s apply needs the autocast scope or the "
@@ -237,23 +249,30 @@ def make_apply(policy: Properties, apply_fn: Callable, *,
     def amp_apply(p, *inputs, **kwinputs):
         if isinstance(p, PackedParams):
             p = p.unpack()  # views of the arenas, no copy
+        if has_state:
+            model_state, *inputs = inputs
         inputs = _cast_floats(inputs, compute_dtype)
         kwinputs = _cast_floats(kwinputs, compute_dtype)
-        out = apply_fn(p, *inputs, **kwinputs)
+        if has_state:
+            out, new_state = apply_fn(p, model_state, *inputs, **kwinputs)
+        else:
+            out = apply_fn(p, *inputs, **kwinputs)
         if cast_model_outputs is not None:
             out = _cast_floats(out, cast_model_outputs)
-        return out
+        return (out, new_state) if has_state else out
 
     return amp_apply
 
 
 def scaled_value_and_grad(loss_fn: Callable, scaler: LossScaler, *,
-                          impl=None):
+                          has_aux: bool = False, impl=None):
     """The functional ``amp.scale_loss``. Returns ``f(params, scaler_state,
     *args) -> (loss, grads, found_inf, new_scaler_state)``: autograd of
     ``scale * loss``, grads unscaled to fp32 by K5 with its overflow flag,
     and the scaler state advanced. Thread ``found_inf`` into
-    ``optimizer.step`` for the skip step.
+    ``optimizer.step`` for the skip step. With ``has_aux`` the loss function
+    returns ``(loss, aux)`` and ``f`` returns ``(loss, aux, grads,
+    found_inf, new_scaler_state)``, the aux tensors detached.
 
     At a :class:`PackedParams` argument the grads are born flat: the model
     reads leaf views whose ``.grad`` are views of one zeroed gradient arena
@@ -262,15 +281,18 @@ def scaled_value_and_grad(loss_fn: Callable, scaler: LossScaler, *,
     tree of fp32 grads. Nothing here reads a device value back to the host.
     """
 
+    def split(res):
+        return res if has_aux else (res, None)
+
     def wrapped(params, scaler_state, *args, **kw):
         if isinstance(params, PackedParams):
             grads = params.zeros_like()
-            loss = loss_fn(params.grad_leaves(grads), *args, **kw)
+            loss, aux = split(loss_fn(params.grad_leaves(grads), *args, **kw))
             scaler.scale_loss(loss, scaler_state).backward()
         else:
             leaves, treedef = tree_flatten(params)
             leaves = [x.detach().requires_grad_(True) for x in leaves]
-            loss = loss_fn(tree_unflatten(treedef, leaves), *args, **kw)
+            loss, aux = split(loss_fn(tree_unflatten(treedef, leaves), *args, **kw))
             got = torch.autograd.grad(scaler.scale_loss(loss, scaler_state),
                                       leaves, allow_unused=True)
             grads = tree_unflatten(treedef, [
@@ -278,6 +300,10 @@ def scaled_value_and_grad(loss_fn: Callable, scaler: LossScaler, *,
                 for x, g in zip(leaves, got)])
         grads, found_inf = scaler.unscale(grads, scaler_state, impl=impl)
         new_state = scaler.update(scaler_state, found_inf)
+        if has_aux:
+            aux = tree_map(lambda t: t.detach() if isinstance(t, torch.Tensor)
+                           else t, aux)
+            return loss.detach(), aux, grads, found_inf, new_state
         return loss.detach(), grads, found_inf, new_state
 
     return wrapped

@@ -17,6 +17,8 @@ from typing import Callable
 
 import torch
 
+from beforeholiday_tpu_torch.ops.arena import is_namedtuple
+
 
 def cast_floats(tree, dtype: torch.dtype):
     """Cast every floating tensor in a nest of dicts, lists and tuples to
@@ -24,7 +26,8 @@ def cast_floats(tree, dtype: torch.dtype):
     if isinstance(tree, dict):
         return {k: cast_floats(v, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(cast_floats(v, dtype) for v in tree)
+        vals = [cast_floats(v, dtype) for v in tree]
+        return type(tree)(*vals) if is_namedtuple(tree) else type(tree)(vals)
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
         return tree.to(dtype)
     return tree

@@ -122,8 +122,13 @@ def is_arena(t: torch.Tensor) -> bool:
 # ----------------------------------------------------------------- trees
 #
 # A parameter tree is a nest of dicts (keys visited in sorted order, as
-# jax.tree_util flattens a dict), lists and tuples with tensor leaves. Paths
-# are tuples of dict keys and sequence indices.
+# jax.tree_util flattens a dict), lists, tuples and namedtuples (fields in
+# their declared order, the type kept, as JAX keeps it) with tensor leaves.
+# Paths are tuples of dict keys, namedtuple field names and sequence indices.
+
+
+def is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(type(x), "_fields")
 
 
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
@@ -135,14 +140,14 @@ def tree_flatten(tree) -> Tuple[List[Any], Any]:
             sub, d = tree_flatten(tree[k])
             leaves += sub
             defs.append(d)
-        return leaves, ("dict", tuple(keys), tuple(defs))
+        return leaves, (dict, tuple(keys), tuple(defs))
     if isinstance(tree, (list, tuple)):
         leaves, defs = [], []
         for v in tree:
             sub, d = tree_flatten(v)
             leaves += sub
             defs.append(d)
-        return leaves, (type(tree).__name__, len(tree), tuple(defs))
+        return leaves, (type(tree), len(tree), tuple(defs))
     return [tree], None
 
 
@@ -153,10 +158,12 @@ def tree_unflatten(treedef, leaves: Sequence[Any]):
         if d is None:
             return next(it)
         kind, keys, subs = d
-        if kind == "dict":
+        if kind is dict:
             return {k: build(s) for k, s in zip(keys, subs)}
         vals = [build(s) for s in subs]
-        return vals if kind == "list" else tuple(vals)
+        if kind is list:
+            return vals
+        return kind(*vals) if hasattr(kind, "_fields") else kind(vals)
 
     out = build(treedef)
     if next(it, None) is not None:
@@ -168,6 +175,9 @@ def tree_paths(tree, prefix=()) -> List[Tuple[Any, ...]]:
     """The path of every leaf, in :func:`tree_flatten` order."""
     if isinstance(tree, dict):
         return [p for k in sorted(tree) for p in tree_paths(tree[k], prefix + (k,))]
+    if is_namedtuple(tree):
+        return [p for k, v in zip(type(tree)._fields, tree)
+                for p in tree_paths(v, prefix + (k,))]
     if isinstance(tree, (list, tuple)):
         return [p for i, v in enumerate(tree) for p in tree_paths(v, prefix + (i,))]
     return [prefix]

@@ -1,6 +1,6 @@
 """Fused optimizers — counterpart of ``beforeholiday_tpu/optimizers/fused.py``
-(the part the O5 training steps run: ``FusedAdam``, ``FusedLAMB``,
-``MasterWeights`` and ``FusedMixedPrecisionLamb``).
+(the part the training steps run: ``FusedAdam``, ``FusedLAMB``,
+``FusedSGD``, ``MasterWeights`` and ``FusedMixedPrecisionLamb``).
 
 The state API is the JAX one::
 
@@ -11,7 +11,7 @@ The state API is the JAX one::
 with one difference the port makes on purpose: the arena-resident path
 (:meth:`FusedAdam.step_flat`, :meth:`MasterWeights.step` on
 :class:`PackedParams`) updates the master, moment and model arenas IN PLACE
-through kernel K6 (Adam) or K7-K9 (LAMB), so the returned arenas are the
+through kernel K6 (Adam), K7-K9 (LAMB) or K10 (SGD), so the returned arenas are the
 ones passed in and the old state is consumed (the JAX package aliases its
 TPU kernel's buffers the same way). The list API (:meth:`FusedAdam.step` on a tree) packs, updates the
 packed copies and returns new tensors. The step count is a device tensor
@@ -308,6 +308,90 @@ class FusedLAMB(_FusedOptimizer):
         return outs[0], new_state, outs[3]
 
 
+class FusedSGD(_FusedOptimizer):
+    """Fused SGD with momentum, dampening and Nesterov on kernel K10
+    (``ops.multi_tensor.sgd_flat``). The first step (the device step count
+    at 0) seeds the momentum buffer with the gradient, as torch's SGD does;
+    the kernel reads that flag from device memory. ``impl``: None (kernel
+    on CUDA tensors, plain version on CPU ones), ``"kernel"`` or
+    ``"torch"``."""
+
+    def __init__(self, lr: float, momentum: float = 0.0, dampening: float = 0.0,
+                 *, weight_decay: float = 0.0, nesterov: bool = False,
+                 wd_after_momentum: bool = False,
+                 no_weight_decay_mask: Mask = None, impl: Optional[str] = None):
+        if nesterov and (momentum <= 0 or dampening != 0):
+            raise ValueError("Nesterov momentum requires a momentum and zero dampening")
+        super().__init__(no_weight_decay_mask=no_weight_decay_mask)
+        self.lr, self.momentum, self.dampening = lr, momentum, dampening
+        self.weight_decay, self.nesterov = weight_decay, nesterov
+        self.wd_after_momentum = wd_after_momentum
+        self.impl = impl
+
+    def _state_keys(self):
+        return ("momentum_buffer",)
+
+    def _hyper(self, lr):
+        return dict(lr=self.lr if lr is None else lr, momentum=self.momentum,
+                    dampening=self.dampening, nesterov=self.nesterov,
+                    wd_after_momentum=self.wd_after_momentum, impl=self.impl)
+
+    def step(self, params, grads, state, *, found_inf=None, grad_scale=1.0,
+             lr=None):
+        """List API: one fused call per (param dtype, grad dtype, decay)
+        bucket, which packs its lists into new arenas and unpacks the
+        result, as the JAX package does; returns new params and state
+        trees. ``lr`` (this step's, from the host schedule) overrides the
+        constructor's."""
+        pleaves, treedef = tree_flatten(params)
+        gleaves = tree_flatten(grads)[0]
+        bleaves = tree_flatten(state["momentum_buffer"])[0]
+        nowd = _leaf_flags(self.no_weight_decay_mask, params)
+        first_run = state["step"] == 0
+        step_no = self._next_step(state, found_inf)
+        new_p, new_b = list(pleaves), list(bleaves)
+        for (_, _, no_decay), idx in _buckets(pleaves, gleaves, nowd).items():
+            p2, b2 = mt.multi_tensor_sgd(
+                _gather(gleaves, idx), _gather(pleaves, idx),
+                _gather(bleaves, idx),
+                weight_decay=0.0 if no_decay else self.weight_decay,
+                first_run=first_run, scale=grad_scale, found_inf=found_inf,
+                **self._hyper(lr))
+            _scatter(new_p, idx, p2)
+            _scatter(new_b, idx, b2)
+
+        def unflat(leaves):
+            return tree_unflatten(treedef, leaves)
+
+        return unflat(new_p), {"momentum_buffer": unflat(new_b), "step": step_no}
+
+    def step_flat(self, flat_params, flat_grads, state, *, spec=None,
+                  found_inf=None, grad_scale=1.0, lr=None,
+                  model_copy_dtype=None, model_copy=None):
+        """One K10 pass over pre-flattened arenas, in place on
+        ``flat_params`` and the momentum buffer. ``model_copy`` (or a new
+        arena of ``model_copy_dtype``) receives the new params in the same
+        pass; ``spec`` is accepted and unused (SGD has no per-tensor term).
+        Returns ``(flat_params, state)`` or ``(flat_params, state,
+        model_copy)``. A list of gradient views (the JAX package's view
+        path, ``_step_views``) is not ported yet."""
+        if isinstance(flat_grads, (list, tuple)):
+            raise NotImplementedError(
+                "FusedSGD's view path (a list of gradient views) is not "
+                "ported yet; pass one flat gradient arena")
+        first_run = state["step"] == 0
+        step_no = self._next_step(state, found_inf)
+        outs = mt.sgd_flat(
+            flat_grads, flat_params, state["momentum_buffer"],
+            weight_decay=self.weight_decay, first_run=first_run,
+            scale=grad_scale, model_copy_dtype=model_copy_dtype,
+            found_inf=found_inf, model_copy=model_copy, **self._hyper(lr))
+        new_state = {"momentum_buffer": outs[1], "step": step_no}
+        if len(outs) == 2:
+            return outs[0], new_state
+        return outs[0], new_state, outs[2]
+
+
 def supports_flat_step(opt) -> bool:
     """True when ``opt`` can run the arena-resident flat path: it overrides
     ``step_flat`` and carries no per-leaf decay mask."""
@@ -325,7 +409,8 @@ class MasterWeights:
     the masters with fp32 grads and writes each model leaf's dtype back. On
     :class:`PackedParams` (``amp.initialize(..., arena_native=True)``) the
     masters and the inner state are one flat arena per model dtype, and one
-    K6 pass per arena updates master and moments in place and writes the
+    fused pass per arena (K6, K7-K9 or K10) updates master and state in
+    place and writes the
     model copy straight into the model arena the forward reads. Any other
     params tree keeps tree-shaped masters and state (the list API)."""
 

@@ -1,7 +1,8 @@
 """Shared helpers for the in-repo test models (GPT, BERT) — counterpart of
 ``beforeholiday_tpu/testing/_model_utils.py`` (the mesh-constraint helpers
 have no single-device counterpart and are not ported), plus the numpy
-loaders both models use to take the reference's own parameters and state."""
+loaders the models (GPT, BERT, ``models/resnet.py``) use to take the
+reference's own parameters and state."""
 
 from __future__ import annotations
 
@@ -12,6 +13,15 @@ import torch
 
 from beforeholiday_tpu_torch.ops import fused_layer_norm
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device
+from beforeholiday_tpu_torch.ops.arena import is_namedtuple
+from beforeholiday_tpu_torch.parallel.sync_batch_norm import (
+    BatchNormParams,
+    BatchNormState,
+)
+
+# this package's namedtuples, by class name: ``jax.tree.map`` keeps the
+# reference's classes, which this package cannot import
+_NAMEDTUPLES = {c.__name__: c for c in (BatchNormParams, BatchNormState)}
 
 
 def layernorm(x, scale, bias, impl: Optional[str] = None):
@@ -37,12 +47,26 @@ def layer_params(params: dict, i: int) -> dict:
     return {k: v[i] for k, v in params["blocks"].items()}
 
 
+def _port_namedtuple(tree):
+    """This package's namedtuple class for one of the reference's: the same
+    class name and fields."""
+    cls = _NAMEDTUPLES.get(type(tree).__name__)
+    if cls is None or cls._fields != type(tree)._fields:
+        raise ValueError(f"no counterpart here for the namedtuple "
+                         f"{type(tree).__name__}{type(tree)._fields}")
+    return cls
+
+
 def params_from_numpy(tree, device=None):
     """The reference's parameter tree, as numpy arrays (``jax.tree.map(
-    np.asarray, params)``), turned into this package's tensors on ``device``."""
+    np.asarray, params)``: dicts and namedtuples of arrays), turned into this
+    package's tensors on ``device``; a namedtuple becomes this package's
+    class of the same name and fields."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if is_namedtuple(tree):
+        return _port_namedtuple(tree)(*(params_from_numpy(v, device) for v in tree))
     return _tensor(tree, device)
 
 
@@ -58,13 +82,17 @@ def _tensor(a, device) -> torch.Tensor:
 def state_from_numpy(tree, device=None):
     """The reference's optimizer or scaler state as numpy (``jax.tree.map(
     np.asarray, state)``: nested dicts, tuples and lists of arrays and
-    0-d counters) turned into this package's tensors on ``device``, the
-    structure kept. A JAX ``MasterWeights`` state over ``PackedParams``
-    (``{"inner": ({"exp_avg", "exp_avg_sq", "step"}, ...), "master": (...)}``)
-    becomes the port's, so a JAX run can be continued here."""
+    0-d counters; or a model state such as ResNet's BN running stats, whose
+    namedtuples become this package's classes) turned into this package's
+    tensors on ``device``, the structure kept. A JAX ``MasterWeights`` state
+    over ``PackedParams`` (``{"inner": ({"exp_avg", "exp_avg_sq", "step"},
+    ...), "master": (...)}``) becomes the port's, so a JAX run can be
+    continued here."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: state_from_numpy(v, device) for k, v in tree.items()}
+    if is_namedtuple(tree):
+        return _port_namedtuple(tree)(*(state_from_numpy(v, device) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(state_from_numpy(v, device) for v in tree)
     return _tensor(tree, device)

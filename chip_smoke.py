@@ -17,11 +17,11 @@ Phases, each printing one line (any failure exits non-zero):
 4. K2 (flash-attention forward, CUDA C++) against its plain version at the
    prefill, decode, GPT and BERT training shapes, timed beside its bound and
    ``F.scaled_dot_product_attention``;
-5. K3-K9 (LayerNorm backward, unscale, fused Adam, global sum of squares,
-   LAMB stage 1 and the trust-ratio update, Triton; flash attention
-   backward, CUDA C++) against their plain versions at the training shapes
-   and at awkward ones, each timed beside its bound and, where one PyTorch
-   call computes the same function, that call;
+5. K3-K10 (LayerNorm backward, unscale, fused Adam, global sum of squares,
+   LAMB stage 1, the trust-ratio update and fused SGD, Triton; flash
+   attention backward, CUDA C++) against their plain versions at the
+   training shapes and at awkward ones, each timed beside its bound and,
+   where one PyTorch call computes the same function, that call;
 6. engine parity: the full-width bf16 GPT engine on the kernels against the
    same engine on the plain path, and paged decode against the contiguous
    forward;
@@ -42,13 +42,20 @@ Phases, each printing one line (any failure exits non-zero):
     BERT-Large (8 layers) with FusedLAMB (``bench.py`` ``make_bert_rung``,
     ``bert_large_8layer_b128``), the parity step at batch 2 with ragged
     sequence lengths;
-12. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
+12. ResNet-50 (``bench.py`` ``make_resnet_rung``, the ``examples/imagenet``
+    trainer with FusedSGD): one full-width O5 step at batch 2 on K5/K10
+    against the plain path, an inf-weighted step that must change nothing,
+    and the O5 and O0 trainers at batch 128 on one fixed batch (10 timed
+    steps with the launch counts held, then 3 profiled ones), MFU from the
+    convolutions' and ``fc``'s shapes;
+13. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
 
 ``F.layer_norm``, ``F.scaled_dot_product_attention``, their backwards,
 ``torch._amp_foreach_non_finite_check_and_unscale_``,
-``torch._fused_adamw_`` and ``torch.linalg.vector_norm`` are timed here
-only, as yardsticks (``library_ms``); the port never calls them. No single
-PyTorch call computes LAMB, so K7 and K8 have none.
+``torch._fused_adamw_``, ``torch.linalg.vector_norm`` and
+``torch._fused_sgd_`` are timed here only, as yardsticks (``library_ms``);
+the port never calls them. No single PyTorch call computes LAMB, so K7 and
+K8 have none.
 """
 
 import dataclasses
@@ -99,15 +106,30 @@ BERT_PARITY_LENS = (128, 77)
 # K9 call (the global grad norm), one K7 and one K8 pass; a K9 call is two
 # launches of its Triton kernels (partials, then the fixed-order sum) and
 # counts once, as K3's two do
+# ResNet-50 (bench.py make_resnet_rung): one unscale and one SGD pass per
+# arena at O5 (bf16 convs and fc, fp32 BN); at O0 one fp32 bucket, so one
+# of each on the list path
+_NO_LAUNCH = {"layer_norm_fwd": 0, "layer_norm_bwd": 0, "flash_fwd": 0,
+              "flash_bwd": 0, "unscale": 0, "adam": 0, "l2norm": 0,
+              "lamb_stage1": 0, "scaled_update": 0, "sgd": 0}
 STEP_LAUNCHES = {
-    "gpt": {"layer_norm_fwd": 17, "layer_norm_bwd": 17, "flash_fwd": 8,
-            "flash_bwd": 8, "unscale": 2, "adam": 2, "l2norm": 0,
-            "lamb_stage1": 0, "scaled_update": 0},
-    "bert": {"layer_norm_fwd": 18, "layer_norm_bwd": 18, "flash_fwd": 8,
-             "flash_bwd": 8, "unscale": 2, "adam": 0, "l2norm": 2,
+    "gpt": {**_NO_LAUNCH, "layer_norm_fwd": 17, "layer_norm_bwd": 17,
+            "flash_fwd": 8, "flash_bwd": 8, "unscale": 2, "adam": 2},
+    "bert": {**_NO_LAUNCH, "layer_norm_fwd": 18, "layer_norm_bwd": 18,
+             "flash_fwd": 8, "flash_bwd": 8, "unscale": 2, "l2norm": 2,
              "lamb_stage1": 2, "scaled_update": 2},
+    "resnet_o5": {**_NO_LAUNCH, "unscale": 2, "sgd": 2},
+    "resnet_o0": {**_NO_LAUNCH, "unscale": 1, "sgd": 1},
 }
 PEAK_BF16 = 989e12
+# the ImageNet ResNet-50 step (bench.py make_resnet_rung: examples/imagenet
+# build_trainer("resnet50", global_batch=128), 224x224 uint8 images,
+# FusedSGD(0.1 * 128 / 256, momentum 0.9, weight_decay 1e-4)); the parity
+# and skip steps at batch 2
+RESNET_BATCH = 128
+RESNET_IMAGE = 224
+RESNET_LR = 0.1 * RESNET_BATCH / 256
+RESNET_WD = 1e-4
 
 # tolerances (PERF.md explains each)
 BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -8)
@@ -719,6 +741,105 @@ def k8_phase(mt, make_spec, bert_spec):
     return rows_out
 
 
+# ------------------------------------------------------------------ K10
+
+SGD_VARIANTS = {  # name -> the hyperparameters besides lr and weight decay
+    "plain": dict(momentum=0.9, dampening=0.0, nesterov=False,
+                  wd_after_momentum=False),
+    "nesterov": dict(momentum=0.9, dampening=0.0, nesterov=True,
+                     wd_after_momentum=False),
+    "damp_wd_after": dict(momentum=0.9, dampening=0.1, nesterov=False,
+                          wd_after_momentum=True),
+    "no_momentum": dict(momentum=0.0, dampening=0.0, nesterov=False,
+                        wd_after_momentum=False),
+}
+
+
+def k10_phase(mt, arenas):
+    """Fused SGD over ResNet-50's arenas (``arenas``: name -> (spec, copy
+    dtype)): the O5 bf16 arena with its bf16 model copy and the fp32 one
+    with an fp32 copy, the O0 list path's arena without a copy, each at the
+    first step (the momentum seeded with g) and a later one; Nesterov,
+    dampening with decay after momentum, and no momentum at an awkward
+    length with a gradient scale; and a skipped step that must leave p, m
+    and the copy bitwise unchanged. The padding is 0 and must stay 0."""
+    arenas = {**arenas, "awkward": (None, torch.bfloat16)}
+    checks = [  # arena, first_run, skip, variant
+        ("resnet_o5", False, False, "plain"),
+        ("resnet_o5", True, False, "plain"),
+        ("resnet_o5_fp32", False, False, "plain"),
+        ("resnet_o0", False, False, "plain"),
+        ("resnet_o0", True, False, "plain"),
+        ("awkward", False, False, "nesterov"),
+        ("awkward", True, False, "damp_wd_after"),
+        ("awkward", False, False, "no_momentum"),
+        ("resnet_o5", False, True, "plain"),
+    ]
+    rows_out = {}
+    for key, first_run, skip, variant in checks:
+        spec, copy_dt = arenas[key]
+        n, total = (100003, 100003) if spec is None else (spec.padded_total, spec.total)
+        g = gen(90)
+        grad = 1e-3 * torch.randn(n, generator=g, device="cuda")
+        p = 0.02 * torch.randn(n, generator=g, device="cuda")
+        m = 1e-3 * torch.randn(n, generator=g, device="cuda")
+        for t in (grad, p, m):
+            t[total:] = 0
+        scale = (torch.full((), 0.5, device="cuda") if spec is None else 1.0)
+        kw = dict(lr=RESNET_LR, weight_decay=RESNET_WD, scale=scale,
+                  first_run=torch.full((), first_run, dtype=torch.bool, device="cuda"),
+                  found_inf=torch.full((), skip, dtype=torch.bool, device="cuda"),
+                  **SGD_VARIANTS[variant])
+        outs = {}
+        for fn in (mt.sgd_kernel, mt.sgd_torch):
+            pk, mk = p.clone(), m.clone()
+            # the copy starts as the model arena does: the params' cast
+            ck = None if copy_dt is None else p.to(copy_dt, copy=True)
+            fn(grad, pk, mk, copy_out=ck, **kw)
+            outs[fn] = (pk, mk, ck)
+        torch.cuda.synchronize()
+        tag = (f"{n} {key} {variant}{' first' if first_run else ''}"
+               f"{'' if copy_dt is None else f' copy {str(copy_dt)[6:]}'}"
+               f"{' skip' if skip else ''}")
+        (pk, mk, ck), (pr, mr, _) = outs[mt.sgd_kernel], outs[mt.sgd_torch]
+        if skip:
+            if not (torch.equal(pk, p) and torch.equal(mk, m)
+                    and torch.equal(ck, p.to(copy_dt))):
+                raise AssertionError(f"K10 {tag}: a skipped step changed state")
+            err = 0.0
+        else:
+            # one ulp where the compiler contracts a multiply-add; where the
+            # terms cancel, the ulp is the largest term's
+            err = max(check_close(f"K10 {name} {tag}", a, b,
+                                  dict(rtol=1e-6, atol=1e-6 * float(b.abs().max())))
+                      for name, a, b in (("p", pk, pr), ("m", mk, mr)))
+            if ck is not None and not torch.equal(ck, pk.to(copy_dt)):
+                raise AssertionError(f"K10 {tag}: copy is not the new params")
+            if not (torch.all(pk[total:] == 0) and torch.all(mk[total:] == 0)):
+                raise AssertionError(f"K10 {tag}: the padding moved")
+        fields = dict(max_abs_err=err)
+        if key in ("resnet_o5", "resnet_o0") and not (first_run or skip):
+            # g read; p and m read and written in fp32; the copy written
+            per = 20 + (0 if copy_dt is None else torch.finfo(copy_dt).bits // 8)
+            bms, by = bound_ms(per * n, 8 * n, torch.float32)
+            st = (p.clone(), m.clone())
+            cp = None if copy_dt is None else p.to(copy_dt)
+            kwt = dict(kw, first_run=torch.zeros((), dtype=torch.bool, device="cuda"))
+            fields.update(
+                ms=time_ms(lambda: mt.sgd_kernel(grad, *st, copy_out=cp, **kwt)),
+                plain_ms=time_ms(lambda: mt.sgd_torch(grad, *st, copy_out=cp, **kwt),
+                                 iters=5),
+                # the same fp32 arenas, no model copy
+                library_ms=time_ms(lambda: torch._fused_sgd_(
+                    [st[0]], [grad], [st[1]], weight_decay=RESNET_WD,
+                    momentum=0.9, lr=RESNET_LR, dampening=0.0, nesterov=False,
+                    maximize=False, is_first_step=False)),
+                bound_ms=bms, bound_by=by)
+            rows_out[key] = (tag, fields)
+        line("K10", shape=tag, **fields)
+    return rows_out
+
+
 # ---------------------------------------------------------------- engine
 
 
@@ -1004,15 +1125,17 @@ def launch_counters(norm, attn, mt):
             "flash_bwd": attn.flash_bwd_kernel,
             "unscale": mt.scale_kernel, "adam": mt.adam_kernel,
             "l2norm": mt.l2norm_sq_kernel, "lamb_stage1": mt.lamb_stage1_kernel,
-            "scaled_update": mt.scaled_update_kernel}
+            "scaled_update": mt.scaled_update_kernel, "sgd": mt.sgd_kernel}
 
 
-def training_phase(label, profile_label, m, step, batch, counters, expect,
-                   seq_len, groups, card):
+def training_phase(label, profile_label, step, batch, counters, expect,
+                   groups, card, *, unit, units, flops, peak, **fields):
     """2 warm-up and TIMED_STEPS timed steps on one fixed batch, the launch
     counts reset just before the timed steps and read just after, under
     ``set_sync_debug_mode("warn")``; then PROFILE_STEPS steps under
-    torch.profiler. Returns the timed steps' launch counts."""
+    torch.profiler. ``units`` (tokens or images) and ``flops`` are one
+    step's work, ``peak`` the FLOP/s the MFU is taken against; ``fields``
+    are printed as they are. Returns the timed steps' launch counts."""
     for _ in range(WARMUP_STEPS):
         step(*batch)
     torch.cuda.synchronize()
@@ -1066,14 +1189,12 @@ def training_phase(label, profile_label, m, step, batch, counters, expect,
     first, last = losses[0].item(), losses[-1].item()
     if not (np.isfinite(first) and np.isfinite(last) and last < first):
         raise AssertionError(f"{label}: loss {first} -> {last}")
-    tokens = batch[0].numel()
-    n_params = sum(spec.total for spec in m.params.layout.specs)
     med = float(np.median(step_ms))
-    flops = 6.0 * n_params * tokens
-    line(label, steps=TIMED_STEPS, batch=batch[0].shape[0], seq_len=seq_len,
-         tokens_per_step=tokens, median_step_ms=med, min_step_ms=min(step_ms),
-         tokens_per_s=tokens * TIMED_STEPS / wall, params=n_params,
-         model_flops_per_step=flops, mfu=flops / (med / 1e3) / PEAK_BF16,
+    line(label, steps=TIMED_STEPS, batch=batch[0].shape[0], **fields,
+         **{f"{unit}_per_step": units}, median_step_ms=med,
+         min_step_ms=min(step_ms),
+         **{f"{unit}_per_s": units * TIMED_STEPS / wall},
+         model_flops_per_step=flops, mfu=flops / (med / 1e3) / peak,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          first_loss=first, last_loss=last,
          skipped_steps=int(torch.stack(flags).sum()),
@@ -1083,6 +1204,15 @@ def training_phase(label, profile_label, m, step, batch, counters, expect,
          card=f"'{card}'")
     train_profile(profile_label, step, batch, groups)
     return launches
+
+
+def lm_work(m, batch):
+    """One language-model step's work: its tokens, and 6 N FLOPs per token
+    against the bf16 peak."""
+    tokens = batch[0].numel()
+    n_params = sum(spec.total for spec in m.params.layout.specs)
+    return dict(unit="tokens", units=tokens, flops=6.0 * n_params * tokens,
+                peak=PEAK_BF16, params=n_params)
 
 
 def device_ms_by_group(prof, groups):
@@ -1164,6 +1294,176 @@ def bert_batch(bert, cfg, batch, seed, lens=None):
     return tok, tgt, mask, nsp, lens
 
 
+# ---------------------------------------------------------------- ResNet
+
+
+def resnet_batch(cfg, batch, seed):
+    """Seeded uint8 NHWC images and labels on the card, as the trainer
+    takes them."""
+    g = gen(seed)
+    images = torch.randint(0, 256, (batch, RESNET_IMAGE, RESNET_IMAGE, 3),
+                           generator=g, device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=g,
+                           device="cuda")
+    return images, labels
+
+
+def resnet_trainer(main_amp, cfg, weights, opt_level, batch, **kw):
+    """``examples/imagenet`` ``build_trainer`` for ``cfg`` from the given
+    ``(params, bn_state)``, as ``bench.py`` ``make_resnet_rung`` builds it."""
+    params, bn_state = weights
+    return main_amp.build_trainer(cfg=cfg, opt_level=opt_level,
+                                  global_batch=batch, params=params,
+                                  bn_state=bn_state, **kw)
+
+
+def resnet_state(tr):
+    """Copies of the arena-native state a step may change: model arenas,
+    masters, momentum buffers and step counts."""
+    inner = tr.opt_state["inner"]
+    return ([a.clone() for a in tr.params.arenas],
+            [a.clone() for a in tr.opt_state["master"]],
+            [b["momentum_buffer"].clone() for b in inner],
+            [int(b["step"]) for b in inner])
+
+
+def resnet_step_parity_phase(main_amp, fused_sgd, tree_flatten, cfg, weights):
+    """One full-width O5 step at batch 2 on K5 and K10 against the same step
+    with both on their plain versions, from the same weights and batch. The
+    convolutions (cuDNN) and BatchNorm (plain torch) are the same on both
+    paths; cuDNN's weight gradients may sum in another order from run to
+    run, so the gradients are held to a relative L2 bound and the masters
+    and momentum to what those gradient differences move: one SGD step from
+    the same masters moves the masters by lr·g and seeds the momentum with
+    g + decay·p."""
+    images, labels = resnet_batch(cfg, PARITY_BATCH, 64)
+    res = {}
+    for impl in (None, "torch"):
+        grads = []
+
+        class RecordingSGD(fused_sgd):
+            """FusedSGD that keeps a copy of each gradient arena it is given."""
+
+            def step_flat(self, flat_params, flat_grads, state, **kw):
+                grads.append(flat_grads.clone())
+                return super().step_flat(flat_params, flat_grads, state, **kw)
+
+        opt = RecordingSGD(RESNET_LR, 0.9, weight_decay=RESNET_WD, impl=impl)
+        tr = resnet_trainer(main_amp, cfg, weights, "O5", PARITY_BATCH,
+                            fused_optimizer=opt, impl=impl)
+        met = tr.step(images, labels, RESNET_LR)
+        torch.cuda.synchronize()
+        if bool(met["found_inf"]):
+            raise AssertionError(f"resnet_step_parity ({impl}): found_inf set")
+        model, masters, moms, steps = resnet_state(tr)
+        for arena, master in zip(model, masters):
+            if not torch.equal(arena, master.to(arena.dtype)):
+                raise AssertionError(
+                    f"resnet_step_parity ({impl}): model arena != masters.to(dtype)")
+        if steps != [1, 1]:
+            raise AssertionError(f"resnet_step_parity ({impl}): step counts {steps}")
+        res[impl] = (met["loss"].item(), grads, masters, moms,
+                     [t.clone() for t in tree_flatten(tr.bn_state)[0]])
+        del tr, opt
+        torch.cuda.empty_cache()
+    (lk, gk, mk, bk, sk), (lp, gp, mp, bp, sp) = res[None], res["torch"]
+    loss_err = abs(lk - lp) / abs(lp)
+    if not (np.isfinite(lk) and loss_err < 1e-5):
+        raise AssertionError(f"resnet_step_parity: loss {lk} vs plain {lp}")
+    grad_rel = [float((a - b).norm() / b.norm()) for a, b in zip(gk, gp)]
+    if max(grad_rel) > 0.05:
+        raise AssertionError(f"resnet_step_parity: grad arenas differ, rel L2 {grad_rel}")
+    worst = {}
+    for name, got, ref, coef in (("master", mk, mp, RESNET_LR), ("momentum", bk, bp, 1.0)):
+        for a, b, ga, gb in zip(got, ref, gk, gp):
+            dg = max_err(ga, gb)
+            # what the gradients' difference moves, plus an ulp of the value
+            tol = coef * dg + 2 ** -22 * float(b.abs().max())
+            err = max_err(a, b)
+            if err > tol:
+                raise AssertionError(f"resnet_step_parity: {name} differs by "
+                                     f"{err} > {tol} (grads differ by {dg})")
+            worst[name] = max(worst.get(name, 0.0), err)
+    bn_err = max(check_close("resnet_step_parity BN state", a, b,
+                             dict(rtol=1e-5, atol=1e-6)) for a, b in zip(sk, sp))
+    line("resnet_step_parity", batch=PARITY_BATCH, image=RESNET_IMAGE, loss=lk,
+         plain_loss=lp, loss_rel_err=loss_err, grad_rel_l2=max(grad_rel),
+         grad_max_abs_err=max(max_err(a, b) for a, b in zip(gk, gp)),
+         master_max_abs_err=worst["master"],
+         momentum_max_abs_err=worst["momentum"], bn_state_max_abs_err=bn_err,
+         model_arena_is_master_cast="bitwise")
+
+
+def resnet_skip_phase(main_amp, cfg, weights):
+    """An O5 step whose loss is weighted by inf (the trainer's static loss
+    scale set to inf: bf16 gradients cannot overflow from a finite scale
+    here, as the GPT skip step explains): model arenas, masters, momentum
+    and step counts stay bitwise unchanged."""
+    tr = resnet_trainer(main_amp, cfg, weights, "O5", PARITY_BATCH,
+                        loss_scale=float("inf"))
+    before = resnet_state(tr)
+    met = tr.step(*resnet_batch(cfg, PARITY_BATCH, 65), RESNET_LR)
+    torch.cuda.synchronize()
+    after = resnet_state(tr)
+    if not bool(met["found_inf"]):
+        raise AssertionError("resnet_skip_step: found_inf not set")
+    same = all(torch.equal(a, b) for xs, ys in zip(before[:3], after[:3])
+               for a, b in zip(xs, ys))
+    if not same or after[3] != [0, 0]:
+        raise AssertionError(f"resnet_skip_step: the state changed (steps {after[3]})")
+    line("resnet_skip_step", found_inf=True, state="bitwise unchanged",
+         step_count=after[3][0])
+    del tr
+    torch.cuda.empty_cache()
+
+
+def resnet_flops_per_image(resnet, cfg, weights):
+    """Training FLOPs of one image from the convolutions' and ``fc``'s
+    shapes: PyTorch's FLOP counter over a one-image forward (2 per
+    multiply-add, BatchNorm and pooling not counted), times 3 for the
+    forward and the backward."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    x = torch.zeros(1, RESNET_IMAGE, RESNET_IMAGE, 3, device="cuda")
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        resnet.forward(*weights, x, cfg, training=False)
+    return 3 * counter.get_total_flops()
+
+
+# convolutions are cuDNN's (implicit-GEMM kernels) and fc cuBLAS's; torch's
+# casts and the conv weights' permutes run copy kernels; BatchNorm, ReLU,
+# the residual adds and the loss run torch's elementwise and reduction
+# kernels
+RESNET_GROUPS = (("K10 sgd", ("_sgd",)),
+                 ("K5 unscale", ("_scale_flag",)),
+                 ("copies and casts", ("copy",)),
+                 ("convs and fc", ("conv", "cudnn", "implicit", "fprop", "dgrad",
+                                   "wgrad", "nhwc", *GEMM_FRAGMENTS)),
+                 ("elementwise and reductions (BN, ReLU, residual, loss)",
+                  ("elementwise", "reduce")))
+
+
+def resnet_training_phase(label, profile_label, main_amp, cfg, weights,
+                          opt_level, counters, expect, flops_per_image, peak,
+                          n_params, card):
+    """The trainer at batch 128 on one fixed batch (``training_phase``)."""
+    tr = resnet_trainer(main_amp, cfg, weights, opt_level, RESNET_BATCH)
+
+    def step(images, labels):
+        met = tr.step(images, labels, RESNET_LR)
+        return met["loss"], None, met["found_inf"]
+
+    launches = training_phase(
+        label, profile_label, step, resnet_batch(cfg, RESNET_BATCH, 72),
+        counters, expect, RESNET_GROUPS, card, unit="images",
+        units=RESNET_BATCH, flops=RESNET_BATCH * flops_per_image, peak=peak,
+        opt_level=opt_level, image=RESNET_IMAGE, params=n_params,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
 # (kernel key, route, source, the TPU kernel it replaces)
 KERNEL_ROWS = (
     ("layer_norm_fwd", "triton", "beforeholiday_tpu_torch/ops/normalization.py",
@@ -1184,6 +1484,8 @@ KERNEL_ROWS = (
      "beforeholiday_tpu/ops/_pallas_mt.py:558"),
     ("l2norm", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
      "beforeholiday_tpu/ops/_pallas_mt.py:228"),
+    ("sgd", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
+     "beforeholiday_tpu/ops/_pallas_mt.py:376"),
 )
 
 
@@ -1196,8 +1498,10 @@ def main():
     from beforeholiday_tpu_torch.ops import attention as attn
     from beforeholiday_tpu_torch.ops import multi_tensor as mt
     from beforeholiday_tpu_torch.ops import normalization as norm
-    from beforeholiday_tpu_torch.ops.arena import make_spec
-    from beforeholiday_tpu_torch.optimizers import FusedAdam, FusedLAMB
+    from beforeholiday_tpu_torch.examples.imagenet import main_amp
+    from beforeholiday_tpu_torch.models import resnet
+    from beforeholiday_tpu_torch.ops.arena import make_spec, tree_flatten
+    from beforeholiday_tpu_torch.optimizers import FusedAdam, FusedLAMB, FusedSGD
     from beforeholiday_tpu_torch.testing import bert, gpt
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1226,13 +1530,21 @@ def main():
     bcfg = bert.BertConfig(**BERT)
     bparams = bert.init(bcfg, gen(1), device="cuda")
     bert_spec = o5_specs(bparams)[torch.bfloat16]
+    rcfg = resnet.resnet50()
+    rweights = resnet.init(rcfg, gen(2), device="cuda")
+    rspecs = o5_specs(rweights[0])
+    o0_spec = make_spec(tree_flatten(rweights[0])[0])
     rows = {"layer_norm_fwd": k1_phase(norm), "flash_fwd": k2_phase(attn),
             "layer_norm_bwd": k3_phase(norm), "flash_bwd": k4_phase(attn),
             "unscale": k5_phase(mt, n_bf16, n_fp32),
             "adam": k6_phase(mt, n_bf16, n_fp32),
             "l2norm": k9_phase(mt, bert_spec.padded_total),
             "lamb_stage1": k7_phase(mt, bert_spec.padded_total),
-            "scaled_update": k8_phase(mt, make_spec, bert_spec)}
+            "scaled_update": k8_phase(mt, make_spec, bert_spec),
+            "sgd": k10_phase(mt, {
+                "resnet_o5": (rspecs[torch.bfloat16], torch.bfloat16),
+                "resnet_o5_fp32": (rspecs[torch.float32], torch.float32),
+                "resnet_o0": (o0_spec, None)})}
     torch.cuda.empty_cache()
 
     engine_phase(infer, gpt, cast_floats, params, cfg)
@@ -1256,8 +1568,9 @@ def main():
     m, _, step = gpt_trainer()
     batch = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70), device="cuda")
     launches = {"train": training_phase(
-        "training", "train_profile", m, step, batch, counters,
-        STEP_LAUNCHES["gpt"], cfg.seq_len, TRAIN_GROUPS, card)}
+        "training", "train_profile", step, batch, counters,
+        STEP_LAUNCHES["gpt"], TRAIN_GROUPS, card, seq_len=cfg.seq_len,
+        **lm_work(m, batch))}
     del m, step, batch, params
     torch.cuda.empty_cache()
 
@@ -1273,20 +1586,36 @@ def main():
     skip_phase("bert_skip_step", bert_trainer,
                bert_batch(bert, bcfg, PARITY_BATCH, 63, BERT_PARITY_LENS))
     m, _, step = bert_trainer()
+    batch = bert_batch(bert, bcfg, BERT_BATCH, 71)
     launches["bert"] = training_phase(
-        "bert_training", "bert_profile", m, step,
-        bert_batch(bert, bcfg, BERT_BATCH, 71), counters, STEP_LAUNCHES["bert"],
-        bcfg.seq_len, BERT_GROUPS, card)
+        "bert_training", "bert_profile", step, batch, counters,
+        STEP_LAUNCHES["bert"], BERT_GROUPS, card, seq_len=bcfg.seq_len,
+        **lm_work(m, batch))
     del m, step
     torch.cuda.empty_cache()
+
+    resnet_step_parity_phase(main_amp, FusedSGD, tree_flatten, rcfg, rweights)
+    resnet_skip_phase(main_amp, rcfg, rweights)
+    flops_per_image = resnet_flops_per_image(resnet, rcfg, rweights)
+    n_params = o0_spec.total
+    launches["resnet_o5"] = resnet_training_phase(
+        "resnet_training", "resnet_profile", main_amp, rcfg, rweights, "O5",
+        counters, STEP_LAUNCHES["resnet_o5"], flops_per_image, PEAK_BF16,
+        n_params, card)
+    # O0's convolutions run in fp32 here (cudnn.allow_tf32 is off above), so
+    # its MFU is taken against the fp32 peak
+    launches["resnet_o0"] = resnet_training_phase(
+        "resnet_o0_training", "resnet_o0_profile", main_amp, rcfg, rweights,
+        "O0", counters, STEP_LAUNCHES["resnet_o0"], flops_per_image,
+        PEAK_FLOPS[torch.float32], n_params, card)
     launches["serving"] = serve_launches
 
     kernels = []
     for kname, route, source, replaces in KERNEL_ROWS:
         for shape, (tag, f) in rows[kname].items():
             # launches: the run of the path that gives the kernel this shape
-            # (the serving run, the GPT or the BERT training run)
-            path = shape if shape in ("train", "bert") else "serving"
+            # (the serving run, or the GPT, BERT or ResNet training run)
+            path = shape if shape in launches else "serving"
             kernels.append(dict(
                 name=f"{kname}[{shape}: {tag}]", route=route, source=source,
                 replaces=replaces, launches=launches[path][kname],

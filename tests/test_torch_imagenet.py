@@ -1,0 +1,384 @@
+"""Port parity: the ImageNet ResNet trainer (``examples/imagenet/main_amp.py``)
+at amp O0 (the FusedSGD list path) and O5 (arena-native, fp32 masters),
+held against the JAX trainer (``build_trainer(cfg=tiny_test_config(),
+global_batch=16, num_classes=10, distributed=False)``) from the same initial
+params and BN state on the same synthetic batches, plus the amp
+``has_state``/``has_aux`` pieces the trainer uses and the options that are
+not ported.
+
+Two comparisons (tolerances and measured values in PERF.md):
+
+* free-running, three steps: each side from its own state. A ReLU whose
+  input sits within rounding of 0 may take the other side in the two
+  packages (XLA and PyTorch's native CPU convolutions round differently);
+  at this size one such element moves a whole tensor's gradient by a few
+  percent, so the momentum buffers, which are gradients, are held to a
+  relative L2 bound there, and the loss, params and BN state (which one
+  element moves by lr times as much) stay tight;
+* one step from the JAX state before each step, loaded through the numpy
+  loaders (namedtuples and the O5 arenas included): both sides start from
+  the same bits, with the same tolerances.
+"""
+
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples", "imagenet"))
+
+import main_amp as jmain  # noqa: E402
+
+from beforeholiday_tpu import amp as jamp  # noqa: E402
+from beforeholiday_tpu.models import resnet as jres  # noqa: E402
+from beforeholiday_tpu_torch import amp as tamp  # noqa: E402
+from beforeholiday_tpu_torch.examples.imagenet import main_amp as tmain  # noqa: E402
+from beforeholiday_tpu_torch.models import resnet as tres  # noqa: E402
+from beforeholiday_tpu_torch.ops.arena import PackedParams, tree_flatten  # noqa: E402
+
+BATCH, HW, CLASSES, STEPS = 16, 16, 10, 3
+LR = 0.1 * BATCH / 256
+LEVELS = ("O0", "O5")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _native_cpu_convs():
+    """PyTorch's CPU oneDNN convolution backward frees memory twice on a
+    1x1 stride-2 channels-last convolution (ResNet's downsample) in the
+    CPU build these tests run on; they take PyTorch's native CPU
+    convolutions instead."""
+    with torch.backends.mkldnn.flags(enabled=False):
+        yield
+
+
+def _batches():
+    return list(jmain.synthetic_batches(BATCH, HW, CLASSES, STEPS, seed=7))
+
+
+def _f32(a):
+    return np.array(a, np.float32)
+
+
+def _jax_run(level):
+    """Three JAX trainer steps; each state as numpy, both raw (to load into
+    the port) and as flat lists (to compare)."""
+    tr = jmain.build_trainer(cfg=jres.tiny_test_config(), opt_level=level,
+                             global_batch=BATCH, num_classes=CLASSES,
+                             distributed=False, devices=jax.devices()[:1])
+
+    def snap():
+        raw = jax.tree.map(np.array, {
+            "params": tr.params.arenas if level == "O5" else tr.params,
+            "opt": tr.opt_state, "bn": tr.bn_state, "scaler": tr.scaler_state})
+        inner = raw["opt"]["inner"] if level == "O5" else (raw["opt"],)
+        return raw, {
+            "params": [_f32(a) for a in jax.tree.leaves(raw["params"])],
+            "mom": [_f32(a) for b in inner for a in jax.tree.leaves(b["momentum_buffer"])],
+            "steps": [int(b["step"]) for b in inner],
+            "bn": [_f32(a) for a in jax.tree.leaves(raw["bn"])],
+            "masters": [_f32(a) for a in raw["opt"].get("master", ())]}
+
+    raws, states, metrics = [], [], []
+    for images, labels in [(None, None)] + _batches():
+        if images is not None:
+            m = tr.step(*tr.shard_batch(images, labels), LR)
+            metrics.append({k: float(v) for k, v in m.items()})
+        raw, state = snap()
+        raws.append(raw)
+        states.append(state)
+    return raws, states, metrics
+
+
+def _port_trainer(level, raw=None, **kw):
+    """The port's trainer from the JAX init, or loaded with a JAX
+    snapshot (``raw``)."""
+    p, s = jres.init(jax.random.PRNGKey(0), jres.tiny_test_config())
+    p, s = jax.tree.map(np.asarray, (p, s))
+    tr = tmain.build_trainer(
+        cfg=tres.tiny_test_config(), opt_level=level, global_batch=BATCH,
+        num_classes=CLASSES, params=tres.params_from_numpy(p, device="cpu"),
+        bn_state=tres.state_from_numpy(s, device="cpu"), device="cpu", **kw)
+    if raw is not None:
+        if level == "O5":
+            for a, b in zip(tr.params.arenas, tres.state_from_numpy(
+                    raw["params"], device="cpu")):
+                a.copy_(b)
+        else:
+            tr.params = tres.params_from_numpy(raw["params"], device="cpu")
+        tr.opt_state = tres.state_from_numpy(raw["opt"], device="cpu")
+        tr.bn_state = tres.state_from_numpy(raw["bn"], device="cpu")
+        tr.scaler_state = tres.state_from_numpy(raw["scaler"], device="cpu")
+    return tr
+
+
+def _port_snap(tr, level):
+    """The port trainer's state as the flat lists of ``_jax_run``."""
+    f = lambda t: t.float().numpy().copy()  # noqa: E731
+    inner = tr.opt_state["inner"] if level == "O5" else (tr.opt_state,)
+    params = tr.params.arenas if level == "O5" else tree_flatten(tr.params)[0]
+    state = {"params": [f(t) for t in params],
+             "mom": [f(a) for b in inner for a in tree_flatten(b["momentum_buffer"])[0]],
+             "steps": [int(b["step"]) for b in inner],
+             "bn": [f(t) for t in tree_flatten(tr.bn_state)[0]],
+             "masters": [f(t) for t in tr.opt_state.get("master", ())]}
+    if level == "O5":
+        # the model arena is the masters' cast, bit for bit
+        state["model_is_master_cast"] = all(
+            torch.equal(a, m.to(a.dtype))
+            for a, m in zip(tr.params.arenas, tr.opt_state["master"]))
+    return state
+
+
+@pytest.fixture(scope="module", params=LEVELS)
+def runs(request):
+    level = request.param
+    raws, jstates, jmetrics = _jax_run(level)
+    tr = _port_trainer(level)
+    tstates, tmetrics = [], []
+    for images, labels in _batches():
+        m = tr.step(*tr.shard_batch(images, labels), LR)
+        tmetrics.append({k: float(v) for k, v in m.items()})
+        tstates.append(_port_snap(tr, level))
+    return level, raws, jstates, jmetrics, tstates, tmetrics
+
+
+# O0: fp32 throughout. O5: bf16 convolutions and activations, rounded at
+# other places by XLA and PyTorch: the bf16 model arenas one bf16 ulp apart,
+# the masters by lr times the momentum's difference. The momentum (a sum of
+# gradients) of either level to a relative L2 bound: one ReLU input on the
+# other side of 0 moves a gradient by a few percent here (module docstring)
+TOL = {
+    "O0": dict(loss=1e-5, params=1e-5, masters=0.0, bn=1e-5, mom_l2=3e-2),
+    "O5": dict(loss=1e-3, params=2 ** -7, masters=LR * 5e-2, bn=2e-3, mom_l2=1e-1),
+}
+
+
+def _check_state(t, j, tol):
+    for a, b in zip(t["params"], j["params"]):
+        np.testing.assert_allclose(a, b, rtol=tol["params"], atol=tol["params"])
+    for a, b in zip(t["masters"], j["masters"]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol["masters"])
+    for a, b in zip(t["mom"], j["mom"]):
+        assert np.linalg.norm(a - b) <= tol["mom_l2"] * np.linalg.norm(b)
+    for a, b in zip(t["bn"], j["bn"]):
+        np.testing.assert_allclose(a, b, rtol=tol["bn"], atol=tol["bn"] * np.abs(b).max())
+    assert t["steps"] == j["steps"]
+    for key in ("params", "masters", "mom", "bn"):
+        assert len(t[key]) == len(j[key])
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+def test_trainer_matches_jax_free_running(runs, step):
+    """Loss, found_inf, accuracy, params (O5: the model arenas; the masters
+    are their cast), momentum, step counts and BN state after each of three
+    steps."""
+    level, _, jstates, jmetrics, tstates, tmetrics = runs
+    tol = TOL[level]
+    t, j = tstates[step], jstates[step + 1]
+    jm, tm = jmetrics[step], tmetrics[step]
+    np.testing.assert_allclose(tm["loss"], jm["loss"], rtol=tol["loss"])
+    assert tm["found_inf"] == jm["found_inf"] == 0.0
+    assert abs(tm["prec1"] - jm["prec1"]) <= 100.0 / BATCH
+    assert t["steps"] == [step + 1] * len(t["steps"])
+    _check_state(t, j, tol)
+    if level == "O5":
+        assert t["model_is_master_cast"]
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+def test_one_step_from_jax_state(runs, step):
+    """The port's trainer loaded with the JAX trainer's state before step
+    ``step`` (through the numpy loaders) lands on the JAX state after it:
+    loss, params, masters, momentum, step counts and BN state."""
+    level, raws, jstates, jmetrics, _, _ = runs
+    tol = TOL[level]
+    tr = _port_trainer(level, raws[step])
+    images, labels = _batches()[step]
+    m = tr.step(*tr.shard_batch(images, labels), LR)
+    np.testing.assert_allclose(m["loss"].item(), jmetrics[step]["loss"],
+                               rtol=tol["loss"])
+    _check_state(_port_snap(tr, level), jstates[step + 1], tol)
+
+
+def test_loss_falls(runs):
+    losses = [m["loss"] for m in runs[5]]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def test_o5_keeps_bn_fp32_and_casts_convs_and_fc():
+    tr = _port_trainer("O5")
+    assert isinstance(tr.params, PackedParams)
+    p = tr.params.unpack()
+    assert p["conv1"].dtype == torch.bfloat16
+    assert p["fc"]["w"].dtype == p["fc"]["b"].dtype == torch.bfloat16
+    assert p["bn1"].scale.dtype == torch.float32
+    assert p["layer2"]["0"]["downsample_bn"].bias.dtype == torch.float32
+    assert [m.dtype for m in tr.opt_state["master"]] == [torch.float32] * 2
+    assert tr.bn_state["bn1"].running_mean.dtype == torch.float32
+    o0 = _port_trainer("O0")
+    assert not isinstance(o0.params, PackedParams) and "master" not in o0.opt_state
+
+
+@pytest.mark.parametrize("level", LEVELS)
+def test_skip_step_holds_params_and_advances_bn(level):
+    """A loss weighted by inf (a static loss scale of inf): found_inf, the
+    params (O5: model arenas and masters), momentum and step counts
+    unchanged; the BN running stats advance all the same, as in the JAX
+    trainer."""
+    tr = _port_trainer(level, loss_scale=float("inf"))
+    before = _port_snap(tr, level)
+    images, labels = _batches()[0]
+    m = tr.step(*tr.shard_batch(images, labels), LR)
+    after = _port_snap(tr, level)
+    assert bool(m["found_inf"])
+    for key in ("params", "mom") + (("masters",) if level == "O5" else ()):
+        for a, b in zip(after[key], before[key]):
+            np.testing.assert_array_equal(a, b)
+    assert after["steps"] == [0] * len(after["steps"])
+    assert not np.array_equal(after["bn"][0], before["bn"][0])
+
+
+def test_eval_step_matches_jax():
+    jtr = jmain.build_trainer(cfg=jres.tiny_test_config(), opt_level="O0",
+                              global_batch=BATCH, num_classes=CLASSES,
+                              distributed=False, devices=jax.devices()[:1])
+    ttr = _port_trainer("O0")
+    images, labels = _batches()[0]
+    jm = jtr.evaluate(*jtr.shard_batch(images, labels))
+    tm = ttr.evaluate(*ttr.shard_batch(images, labels))
+    np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]), rtol=1e-5)
+    for k in ("prec1", "prec5"):
+        assert tm[k].item() == pytest.approx(float(jm[k]))
+
+
+def test_loss_and_accuracy_helpers_match_jax():
+    rng = np.random.default_rng(1)
+    logits = rng.standard_normal((32, 10)).astype(np.float32)
+    labels = rng.integers(0, 10, 32)
+    jl = jmain.softmax_cross_entropy(jnp.asarray(logits), jnp.asarray(labels))
+    tl = tmain.softmax_cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels))
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-6)
+    ja = jmain.topk_accuracy(jnp.asarray(logits), jnp.asarray(labels))
+    ta = tmain.topk_accuracy(torch.from_numpy(logits), torch.from_numpy(labels))
+    assert {k: v.item() for k, v in ta.items()} == pytest.approx(
+        {k: float(v) for k, v in ja.items()})
+
+
+def test_schedule_and_batches_match_jax():
+    for epoch, step in ((0, 0), (2, 7), (4, 9), (30, 1), (61, 0), (90, 3)):
+        assert tmain.adjust_learning_rate(0.05, epoch, step, 10) == \
+            jmain.adjust_learning_rate(0.05, epoch, step, 10)
+    for (a, b), (c, d) in zip(tmain.synthetic_batches(4, 8, 10, 2),
+                              jmain.synthetic_batches(4, 8, 10, 2)):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, d)
+
+
+def test_train_loop_prints_and_returns_speed(capsys):
+    tr = _port_trainer("O5")
+    speed = tmain.train(tr, iters=2, image_size=HW, base_lr=0.1, print_freq=1)
+    out = capsys.readouterr().out
+    assert speed > 0 and out.count("Epoch: [0]") == 2 and "Loss" in out
+
+
+def test_main_runs_on_the_cpu(capsys):
+    best = tmain.main(["-a", "resnet18", "-b", "2", "--image-size", "16",
+                       "--num-classes", "10", "--iters", "1", "--opt-level", "O5",
+                       "--deterministic", "--device", "cpu"])
+    assert best > 0 and "peak speed" in capsys.readouterr().out
+
+
+# ------------------------------------------------------ amp has_state / has_aux
+
+
+def _toy(p, state, x):
+    """A model with state: y = x @ w, the state counting calls, uncast."""
+    assert state["count"].dtype == torch.float32
+    return x @ p["w"], {"count": state["count"] + 1}
+
+
+def test_make_apply_passes_state_uncast():
+    policy = tamp.opt_levels["O5"]
+    apply = tamp.make_apply(policy, _toy, has_state=True)
+    p = {"w": torch.ones(3, 2, dtype=torch.bfloat16)}
+    out, new = apply(p, {"count": torch.zeros((), dtype=torch.float32)},
+                     torch.ones(4, 3))
+    assert out.dtype == torch.float32 and new["count"].dtype == torch.float32
+    assert new["count"].item() == 1 and torch.equal(out, torch.full((4, 2), 3.0))
+    m = tamp.initialize(_toy, p, None, "O5", has_state=True)
+    out2, _ = m.apply(m.params, {"count": torch.zeros(())}, torch.ones(4, 3))
+    assert torch.equal(out2, out)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_scaled_value_and_grad_has_aux_matches_jax(packed):
+    """``(loss, aux, grads, found_inf, new_state)``, the aux detached; the
+    same loss, aux and grads as the JAX function on the same inputs."""
+    rng = np.random.default_rng(2)
+    w = rng.standard_normal((3, 2)).astype(np.float32)
+    x = rng.standard_normal((4, 3)).astype(np.float32)
+
+    def jloss(p, x):
+        y = x @ p["w"]
+        return jnp.mean(y * y), {"y": y}
+
+    def tloss(p, x):
+        if isinstance(p, PackedParams):
+            p = p.unpack()
+        y = x @ p["w"]
+        return (y * y).mean(), {"y": y}
+
+    jscaler = jamp.LossScaler(loss_scale=4.0)
+    jl, jaux, jg, jfi, _ = jamp.scaled_value_and_grad(jloss, jscaler, has_aux=True)(
+        {"w": jnp.asarray(w)}, jscaler.init(), jnp.asarray(x))
+    tscaler = tamp.LossScaler(loss_scale=4.0)
+    params = {"w": torch.from_numpy(w)}
+    if packed:
+        params = PackedParams.pack(params)
+    tl, taux, tg, tfi, tstate = tamp.scaled_value_and_grad(
+        tloss, tscaler, has_aux=True)(params, tscaler.init(device="cpu"),
+                                      torch.from_numpy(x))
+    assert not taux["y"].requires_grad and not bool(tfi)
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-6)
+    np.testing.assert_allclose(taux["y"].numpy(), np.asarray(jaux["y"]), rtol=1e-6)
+    grad = tg.unpack()["w"] if packed else tg["w"]
+    np.testing.assert_allclose(grad.numpy(), np.asarray(jg["w"]), rtol=1e-6, atol=1e-7)
+    assert tstate["scale"].item() == 4.0
+
+
+# ------------------------------------------------------------ not ported
+
+
+@pytest.mark.parametrize("kw", [
+    dict(distributed=True), dict(sync_bn=True), dict(use_larc=True),
+    dict(bucket_bytes=1 << 20), dict(compress=True), dict(overlap_backward=True),
+])
+def test_unported_options_raise(kw):
+    with pytest.raises(NotImplementedError):
+        tmain.build_trainer(cfg=tres.tiny_test_config(), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("flag", ["--profile-dir", "--flight-recorder"])
+def test_unported_cli_flags_raise(flag, tmp_path):
+    with pytest.raises(NotImplementedError):
+        tmain.main([flag, str(tmp_path / "x"), "--device", "cpu"])
+
+
+def test_unported_flight_recorder_and_half_weights_raise():
+    tr = _port_trainer("O0")
+    with pytest.raises(NotImplementedError):
+        tmain.train(tr, iters=1, image_size=HW, flight=object())
+    with pytest.raises(ValueError):
+        tmain.build_trainer(cfg=tres.tiny_test_config(), device="cpu",
+                            params=tr.params)
+
+
+def test_trainer_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        tmain.build_trainer(cfg=tres.tiny_test_config())
+    assert tmain.build_trainer(cfg=tres.tiny_test_config(), device="cpu").device.type == "cpu"

@@ -1,9 +1,9 @@
 """Kernels K1/K3 (LayerNorm forward/backward, Triton), K2/K4 (flash
 attention forward/backward, CUDA C++), K5 (unscale), K6 (fused Adam), K7
-(LAMB stage 1), K8 (trust-ratio update) and K9 (global sum of squares), all
-Triton, against their plain PyTorch versions on the card, and the engine and
-small O5 GPT (FusedAdam) and BERT (FusedLAMB) training steps on the kernels
-against the plain path.
+(LAMB stage 1), K8 (trust-ratio update), K9 (global sum of squares) and K10
+(fused SGD), all Triton, against their plain PyTorch versions on the card,
+and the engine and small O5 GPT (FusedAdam), BERT (FusedLAMB) and ResNet
+(FusedSGD) training steps on the kernels against the plain path.
 
 Marked ``gpu``: without a CUDA device every test skips (the decision is made
 inside the ``cuda`` fixture, never at import, so every pytest worker collects
@@ -40,7 +40,7 @@ FP32_TOL = dict(rtol=1e-5, atol=2e-5)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels K1-K9 run only on the card)")
+        pytest.skip("needs a CUDA device (kernels K1-K10 run only on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -540,3 +540,91 @@ def test_bert_lamb_step_kernels_match_plain_path(cuda):
         torch.testing.assert_close(a, b, rtol=0, atol=3e-3)  # up to 3 lr
     for arena, master in zip(pk, mk):
         assert torch.equal(arena, master.to(arena.dtype))
+
+
+# ------------------------------------------------------------------ K10
+
+
+@pytest.mark.parametrize("n, copy, first, skip, variant", [
+    (4 * 32768, torch.bfloat16, False, False, "plain"),
+    (4 * 32768, torch.bfloat16, True, False, "plain"),
+    (100003, None, False, False, "nesterov"),
+    (100003, torch.float32, True, False, "damp_wd_after"),
+    (4099, torch.bfloat16, False, False, "no_momentum"),
+    (4 * 32768, torch.bfloat16, False, True, "plain"),
+])
+def test_k10_matches_plain(cuda, n, copy, first, skip, variant):
+    hyper = {"plain": dict(momentum=0.9, dampening=0.0, nesterov=False,
+                           wd_after_momentum=False),
+             "nesterov": dict(momentum=0.9, dampening=0.0, nesterov=True,
+                              wd_after_momentum=False),
+             "damp_wd_after": dict(momentum=0.9, dampening=0.1, nesterov=False,
+                                   wd_after_momentum=True),
+             "no_momentum": dict(momentum=0.0, dampening=0.0, nesterov=False,
+                                 wd_after_momentum=False)}[variant]
+    g = _gen(10)
+    grad = torch.randn(n, generator=g, device=cuda)
+    p = torch.randn(n, generator=g, device=cuda)
+    m = 0.1 * torch.randn(n, generator=g, device=cuda)
+    kw = dict(lr=0.05, weight_decay=1e-4, scale=torch.full((), 0.5, device=cuda),
+              first_run=torch.full((), first, dtype=torch.bool, device=cuda),
+              found_inf=torch.full((), skip, dtype=torch.bool, device=cuda), **hyper)
+    outs = {}
+    for impl in ("kernel", "torch"):
+        pk, mk = p.clone(), m.clone()
+        ck = None if copy is None else p.to(copy, copy=True)
+        before = tmt.sgd_kernel.launches
+        tmt.sgd_flat(grad, pk, mk, model_copy=ck, impl=impl, **kw)
+        assert tmt.sgd_kernel.launches - before == (impl == "kernel")
+        outs[impl] = (pk, mk, ck)
+    torch.cuda.synchronize()
+    (pk, mk, ck), (pt, mt_, _) = outs["kernel"], outs["torch"]
+    if skip:  # bitwise untouched
+        assert torch.equal(pk, p) and torch.equal(mk, m) and torch.equal(ck, p.to(copy))
+        return
+    for a, b in ((pk, pt), (mk, mt_)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
+    if copy is not None:
+        assert torch.equal(ck, pk.to(copy))
+
+
+def test_resnet_step_kernels_match_plain_path(cuda):
+    """One O5 arena-native FusedSGD step of a small bottleneck ResNet
+    through the ImageNet trainer on K5 and K10 against the same step with
+    both on their plain versions; the model arenas are the masters' cast."""
+    from beforeholiday_tpu_torch.examples.imagenet import main_amp
+    from beforeholiday_tpu_torch.models import resnet
+
+    cfg = resnet.ResNetConfig(block="bottleneck", layers=(1, 1), width=16,
+                              num_classes=10)
+    weights = resnet.init(cfg, _gen(0), device=cuda)
+    g = _gen(1)
+    images = torch.randint(0, 256, (8, 32, 32, 3), generator=g, device=cuda,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 10, (8,), generator=g, device=cuda)
+    res = {}
+    for impl in ("kernel", "torch"):
+        tr = main_amp.build_trainer(cfg=cfg, opt_level="O5", global_batch=8,
+                                    params=weights[0], bn_state=weights[1],
+                                    impl=None if impl == "kernel" else "torch")
+        before = (tmt.scale_kernel.launches, tmt.sgd_kernel.launches)
+        met = tr.step(images, labels, 0.05)
+        torch.cuda.synchronize()
+        launched = [tmt.scale_kernel.launches - before[0],
+                    tmt.sgd_kernel.launches - before[1]]
+        assert launched == ([2, 2] if impl == "kernel" else [0, 0])
+        assert not bool(met["found_inf"])
+        for arena, master in zip(tr.params.arenas, tr.opt_state["master"]):
+            assert torch.equal(arena, master.to(arena.dtype))
+        res[impl] = (met["loss"], tr.opt_state["master"],
+                     [b["momentum_buffer"] for b in tr.opt_state["inner"]])
+    (lk, mk, bk), (lt, mt_, bt) = res["kernel"], res["torch"]
+    torch.testing.assert_close(lk, lt, rtol=1e-5, atol=0)
+    # cuDNN may sum the weight gradients in another order from run to run
+    for a, b in zip(bk, bt):
+        torch.testing.assert_close(a, b, rtol=0.05, atol=2e-2 * float(b.abs().max()))
+    for a, b, m in zip(mk, mt_, bt):
+        # one step from the same masters: they part by lr times the
+        # momentum's difference
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=0.05 * 2e-2 * float(m.abs().max()) + 1e-7)
