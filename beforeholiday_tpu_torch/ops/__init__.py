@@ -4,8 +4,10 @@
 * ``attention`` — flash attention on kernels K2/K4 (CUDA C++).
 * ``dense`` — dense and MLP blocks on library GEMMs.
 * ``arena`` — flat arenas and ``PackedParams``.
-* ``multi_tensor`` — unscale, fused Adam, global L2 norm and fused LAMB
-  over arenas, K5-K9 (Triton).
+* ``multi_tensor`` — unscale, fused Adam, global L2 norm, fused LAMB and
+  fused SGD over arenas, K5-K10 (Triton).
+* ``softmax`` — the scaled / masked / causal softmax family on kernels
+  K11/K12 (Triton).
 
 On a CUDA tensor a kernel-backed op launches its kernel or raises; on a CPU
 tensor it runs the kernel's plain PyTorch version.
@@ -34,6 +36,12 @@ from .normalization import (  # noqa: F401
     mixed_dtype_fused_rms_norm,
 )
 
+from .softmax import (  # noqa: F401
+    generic_scaled_masked_softmax,
+    scaled_masked_softmax,
+    scaled_softmax,
+    scaled_upper_triang_masked_softmax,
+)
 from .multi_tensor import (  # noqa: F401
     adam_flat,
     lamb_flat,
@@ -62,10 +70,14 @@ __all__ = [
     "fused_dense_gelu_dense",
     "fused_layer_norm",
     "fused_rms_norm",
+    "generic_scaled_masked_softmax",
     "is_flash_available",
     "make_spec",
     "mixed_dtype_fused_layer_norm",
     "mixed_dtype_fused_rms_norm",
     "mlp",
+    "scaled_masked_softmax",
+    "scaled_softmax",
+    "scaled_upper_triang_masked_softmax",
     "unflatten",
 ]

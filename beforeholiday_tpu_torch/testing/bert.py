@@ -8,9 +8,13 @@ loops over layers in Python where the JAX model scans, and
 :func:`~beforeholiday_tpu_torch.testing._model_utils.layer_params` also takes
 the per-layer tuples that ``PackedParams.grad_leaves`` hands out. Post-LN
 blocks (``LN(x + sublayer(x))``, cast back to the activation dtype),
-bidirectional attention with key padding through flash attention's
-``kv_lens`` (kernels K2/K4, non-causal), the MLM head (dense, tanh-GELU,
+bidirectional attention with key padding, the MLM head (dense, tanh-GELU,
 LayerNorm, then the tied decoder) and the NSP head off the pooled [CLS].
+Attention runs through flash attention's ``kv_lens`` (kernels K2/K4,
+non-causal) or, with ``use_flash_attention=False``, the unfused path:
+materialized scores, ``scaled_masked_softmax`` with the (B, 1, 1, S)
+key-padding mask built on the device from the lengths (K11/K12), then
+``probs @ v``.
 
 The dtypes follow the JAX model under amp O5: the three embedding lookups
 are added in bf16 in JAX's order, the MLM transform is a plain bf16
@@ -18,8 +22,7 @@ are added in bf16 in JAX's order, the MLM transform is a plain bf16
 bf16 output bias is added in fp32, and NSP multiplies in fp32.
 
 Not ported: dropout (``dropout_key`` raises; attention dropout has no kernel
-yet), the unfused scaled-masked-softmax path (``use_flash_attention=False``
-needs kernels 12/13), sequence parallelism and remat. :func:`init` draws
+yet), sequence parallelism and remat. :func:`init` draws
 from the reference's distributions (different numbers);
 ``params_from_numpy`` takes the reference's own parameters.
 """
@@ -33,7 +36,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from beforeholiday_tpu_torch.ops import flash_attention, fused_dense
+from beforeholiday_tpu_torch.ops import (
+    flash_attention,
+    fused_dense,
+    scaled_masked_softmax,
+)
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device
 from beforeholiday_tpu_torch.testing._model_utils import (  # noqa: F401
     layer_params,
@@ -44,7 +51,7 @@ from beforeholiday_tpu_torch.testing._model_utils import (  # noqa: F401
 
 # fields whose non-default values select paths this slice does not port (the
 # dropout rates act only with a dropout_key, which forward refuses)
-_UNPORTED_FIELDS = ("sequence_parallel", "use_flash_attention", "remat_policy")
+_UNPORTED_FIELDS = ("sequence_parallel", "remat_policy")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +66,10 @@ class BertConfig:
     dtype: torch.dtype = torch.float32  # activation/compute dtype
     sequence_parallel: bool = False
     use_flash_attention: bool = True
-    attention_impl: Optional[str] = None  # None | "kernel" | "torch"
+    # None | "kernel" | "torch": flash attention's impl (K2/K4 or their plain
+    # version), or with use_flash_attention=False the softmax's (K11/K12 or
+    # theirs)
+    attention_impl: Optional[str] = None
     # port only: the LayerNorm's impl (K1/K3 or their plain version)
     norm_impl: Optional[str] = None
     dropout_rate: float = 0.0
@@ -149,15 +159,27 @@ def _heads(t, n_heads):
     return t.reshape(B, S, n_heads, D // n_heads).transpose(1, 2)
 
 
+def _attention(cfg: BertConfig, q, k, v, lens):
+    """Bidirectional attention with key-padding lengths; q, k, v (B, H, S,
+    hd) → (B, H, S, hd)."""
+    S = q.shape[2]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    if cfg.use_flash_attention:
+        return flash_attention(q, k, v, causal=False, scale=scale,
+                               kv_lens=lens, impl=cfg.attention_impl)
+    scores = q @ k.transpose(-1, -2)
+    mask = (torch.arange(S, device=lens.device)[None, :] >= lens[:, None])
+    probs = scaled_masked_softmax(scores, mask[:, None, None, :], scale,
+                                  impl=cfg.attention_impl).to(q.dtype)
+    return probs @ v
+
+
 def _block(cfg: BertConfig, x, lens, lp):
     """One post-LN encoder block. x: (B, S, D); lens: (B,) key lengths."""
     B, S, D = x.shape
     qkv = fused_dense(x, lp["wqkv"].to(x.dtype), lp["bqkv"].to(x.dtype))
     q, k, v = (_heads(t, cfg.n_heads) for t in qkv.chunk(3, dim=-1))
-    ctx = flash_attention(q, k, v, causal=False,
-                          scale=1.0 / math.sqrt(cfg.head_dim), kv_lens=lens,
-                          impl=cfg.attention_impl)
-    ctx = ctx.transpose(1, 2).reshape(B, S, D)
+    ctx = _attention(cfg, q, k, v, lens).transpose(1, 2).reshape(B, S, D)
     attn_out = fused_dense(ctx, lp["wo"].to(x.dtype), lp["bo"].to(x.dtype))
     x = _layernorm(x + attn_out, lp["ln1_scale"], lp["ln1_bias"],
                    impl=cfg.norm_impl).to(x.dtype)

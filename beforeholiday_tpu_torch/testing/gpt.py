@@ -7,9 +7,12 @@ over layers in Python where the JAX model scans. :func:`layer_params` also
 takes the block weights as a tuple of per-layer tensors, which is how
 ``PackedParams.grad_leaves`` hands them out so that each layer's gradient
 lands in its own slice of the gradient arena. The forward is differentiable
-(K1/K3 and K2/K4 carry their own backward). The MoE, dropout, sequence
-parallel and remat fields of :class:`GPTConfig` are accepted for parity but
-must stay at their defaults: those paths belong to later slices.
+(K1/K3, K2/K4 and K11/K12 carry their own backward). Attention runs through
+flash attention (K2/K4) or, with ``use_flash_attention=False``, the unfused
+path: materialized bf16 scores, the causal scaled softmax (K11/K12), then
+``probs @ v``. The MoE, dropout, sequence parallel and remat fields of
+:class:`GPTConfig` are accepted for parity but must stay at their defaults:
+those paths belong to later slices.
 
 :func:`init` draws from the same distributions as the reference (different
 numbers); :func:`params_from_numpy` and :func:`state_from_numpy` take the
@@ -26,7 +29,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from beforeholiday_tpu_torch.ops import flash_attention, fused_dense
+from beforeholiday_tpu_torch.ops import (
+    flash_attention,
+    fused_dense,
+    scaled_upper_triang_masked_softmax,
+)
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device
 from beforeholiday_tpu_torch.testing._model_utils import (  # noqa: F401
     _tensor,
@@ -39,7 +46,7 @@ from beforeholiday_tpu_torch.testing._model_utils import (  # noqa: F401
 
 # fields whose non-default values select paths this slice does not port
 _UNPORTED_FIELDS = (
-    "sequence_parallel", "use_flash_attention", "dropout_rate",
+    "sequence_parallel", "dropout_rate",
     "attention_dropout", "remat_policy", "moe_every", "moe_experts",
     "moe_top_k", "moe_capacity_factor", "moe_aux_weight", "moe_z_weight",
     "moe_expert_axis", "moe_tensor_axis", "moe_hierarchical",
@@ -57,7 +64,10 @@ class GPTConfig:
     dtype: torch.dtype = torch.float32  # activation/compute dtype
     sequence_parallel: bool = False
     use_flash_attention: bool = True
-    attention_impl: Optional[str] = None  # None | "kernel" | "torch"
+    # None | "kernel" | "torch": flash attention's impl (K2/K4 or their plain
+    # version), or with use_flash_attention=False the softmax's (K11/K12 or
+    # theirs)
+    attention_impl: Optional[str] = None
     # port only: the LayerNorm's impl (K1/K3 or their plain version)
     norm_impl: Optional[str] = None
     dropout_rate: float = 0.0
@@ -143,8 +153,17 @@ def _attn_sublayer(cfg: GPTConfig, x, lp):
     h = _layernorm(x, lp["ln1_scale"], lp["ln1_bias"], impl=cfg.norm_impl)
     qkv = fused_dense(h, lp["wqkv"].to(h.dtype), lp["bqkv"].to(h.dtype))
     q, k, v = (_heads(t, cfg.n_heads) for t in qkv.chunk(3, dim=-1))
-    ctx = flash_attention(q, k, v, causal=True, scale=1.0 / math.sqrt(cfg.head_dim),
-                          impl=cfg.attention_impl)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    if cfg.use_flash_attention:
+        # no (B*H, S, S) score tensor in HBM
+        ctx = flash_attention(q, k, v, causal=True, scale=scale,
+                              impl=cfg.attention_impl)
+    else:
+        # the scores stay in the activation dtype, as JAX's product does
+        scores = (q @ k.transpose(-1, -2)).reshape(B * cfg.n_heads, S, S)
+        probs = scaled_upper_triang_masked_softmax(
+            scores, scale, impl=cfg.attention_impl).to(x.dtype)
+        ctx = probs.reshape(B, cfg.n_heads, S, S) @ v
     ctx = ctx.transpose(1, 2).reshape(B, S, D)
     return x + fused_dense(ctx, lp["wo"].to(x.dtype), lp["bo"].to(x.dtype))
 

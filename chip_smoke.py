@@ -17,11 +17,14 @@ Phases, each printing one line (any failure exits non-zero):
 4. K2 (flash-attention forward, CUDA C++) against its plain version at the
    prefill, decode, GPT and BERT training shapes, timed beside its bound and
    ``F.scaled_dot_product_attention``;
-5. K3-K10 (LayerNorm backward, unscale, fused Adam, global sum of squares,
-   LAMB stage 1, the trust-ratio update and fused SGD, Triton; flash
-   attention backward, CUDA C++) against their plain versions at the
-   training shapes and at awkward ones, each timed beside its bound and,
-   where one PyTorch call computes the same function, that call;
+5. K3-K12 (LayerNorm backward, unscale, fused Adam, global sum of squares,
+   LAMB stage 1, the trust-ratio update, fused SGD and the scaled masked
+   softmax forward and backward, Triton; flash attention backward, CUDA
+   C++) against their plain versions at the training shapes and at awkward
+   ones (for K11/K12: sk not a power of two, sq not a multiple of 128, sk =
+   16384, fp32 and fp16, fully masked rows), each timed beside its bound
+   and a library call: the same function where one PyTorch call computes
+   it, else the same traffic;
 6. engine parity: the full-width bf16 GPT engine on the kernels against the
    same engine on the plain path, and paged decode against the contiguous
    forward;
@@ -38,24 +41,32 @@ Phases, each printing one line (any failure exits non-zero):
     reset just before and read just after, under
     ``set_sync_debug_mode("warn")``; then several steps under
     ``torch.profiler``;
-11. BERT step parity, skip step and training: the same three phases for
+11. GPT with unfused attention (``use_flash_attention=False``: materialized
+    scores, K11/K12, ``probs @ v``): the parity step, the unfused logits
+    and loss against flash attention's on the same weights and batch, and
+    the training phase;
+12. BERT step parity, skip step and training: the same three phases for
     BERT-Large (8 layers) with FusedLAMB (``bench.py`` ``make_bert_rung``,
     ``bert_large_8layer_b128``), the parity step at batch 2 with ragged
-    sequence lengths;
-12. ResNet-50 (``bench.py`` ``make_resnet_rung``, the ``examples/imagenet``
+    sequence lengths; then BERT with unfused attention as in 11, the
+    key-padding mask built on the card from the lengths;
+13. ResNet-50 (``bench.py`` ``make_resnet_rung``, the ``examples/imagenet``
     trainer with FusedSGD): one full-width O5 step at batch 2 on K5/K10
     against the plain path, an inf-weighted step that must change nothing,
     and the O5 and O0 trainers at batch 128 on one fixed batch (10 timed
     steps with the launch counts held, then 3 profiled ones), MFU from the
     convolutions' and ``fc``'s shapes;
-13. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
+14. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
 
 ``F.layer_norm``, ``F.scaled_dot_product_attention``, their backwards,
 ``torch._amp_foreach_non_finite_check_and_unscale_``,
-``torch._fused_adamw_``, ``torch.linalg.vector_norm`` and
-``torch._fused_sgd_`` are timed here only, as yardsticks (``library_ms``);
-the port never calls them. No single PyTorch call computes LAMB, so K7 and
-K8 have none.
+``torch._fused_adamw_``, ``torch.linalg.vector_norm``,
+``torch._fused_sgd_``, ``torch.softmax`` and
+``torch._softmax_backward_data`` are timed here only, as yardsticks
+(``library_ms``); the port never calls them. No single PyTorch call
+computes LAMB, so K7 and K8 have none; the library softmax applies no scale
+and no mask, so K11's and K12's measure the same traffic, not the same
+function.
 """
 
 import dataclasses
@@ -108,16 +119,23 @@ BERT_PARITY_LENS = (128, 77)
 # counts once, as K3's two do
 # ResNet-50 (bench.py make_resnet_rung): one unscale and one SGD pass per
 # arena at O5 (bf16 convs and fc, fp32 BN); at O0 one fp32 bucket, so one
-# of each on the list path
+# of each on the list path. Unfused attention: one softmax forward and one
+# backward per layer in place of the flash pair
 _NO_LAUNCH = {"layer_norm_fwd": 0, "layer_norm_bwd": 0, "flash_fwd": 0,
               "flash_bwd": 0, "unscale": 0, "adam": 0, "l2norm": 0,
-              "lamb_stage1": 0, "scaled_update": 0, "sgd": 0}
+              "lamb_stage1": 0, "scaled_update": 0, "sgd": 0,
+              "softmax_fwd": 0, "softmax_bwd": 0}
+_GPT_STEP = {"layer_norm_fwd": 17, "layer_norm_bwd": 17, "unscale": 2,
+             "adam": 2}
+_BERT_STEP = {"layer_norm_fwd": 18, "layer_norm_bwd": 18, "unscale": 2,
+              "l2norm": 2, "lamb_stage1": 2, "scaled_update": 2}
+_FLASH = {"flash_fwd": 8, "flash_bwd": 8}
+_UNFUSED = {"softmax_fwd": 8, "softmax_bwd": 8}
 STEP_LAUNCHES = {
-    "gpt": {**_NO_LAUNCH, "layer_norm_fwd": 17, "layer_norm_bwd": 17,
-            "flash_fwd": 8, "flash_bwd": 8, "unscale": 2, "adam": 2},
-    "bert": {**_NO_LAUNCH, "layer_norm_fwd": 18, "layer_norm_bwd": 18,
-             "flash_fwd": 8, "flash_bwd": 8, "unscale": 2, "l2norm": 2,
-             "lamb_stage1": 2, "scaled_update": 2},
+    "gpt": {**_NO_LAUNCH, **_GPT_STEP, **_FLASH},
+    "bert": {**_NO_LAUNCH, **_BERT_STEP, **_FLASH},
+    "gpt_unfused": {**_NO_LAUNCH, **_GPT_STEP, **_UNFUSED},
+    "bert_unfused": {**_NO_LAUNCH, **_BERT_STEP, **_UNFUSED},
     "resnet_o5": {**_NO_LAUNCH, "unscale": 2, "sgd": 2},
     "resnet_o0": {**_NO_LAUNCH, "unscale": 1, "sgd": 1},
 }
@@ -135,6 +153,19 @@ RESNET_WD = 1e-4
 BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -8)
 FP32_TOL = dict(rtol=1e-5, atol=2e-5)
 LOGIT_TOL = 0.1
+# unfused against flash loss, relative: about 10 times the larger reading
+UNFUSED_LOSS_TOL = 2e-4
+# K11's probabilities: relative, since at sk 1024 most lie far below 2^-8;
+# half types one rounding apart, fp32 exp and row sums in another order
+PROB_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-8),
+            torch.bfloat16: dict(rtol=2 ** -7, atol=1e-6),
+            torch.float16: dict(rtol=2 ** -9, atol=1e-7)}
+# K12's gradients: rtol (one rounding in half types) plus SUM_TOL times
+# scale |y| sum|dy y|, which bounds the row sum's error in another order where
+# dy - sum cancels; it follows each element, so a wrong row of small
+# gradients fails
+GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7, torch.float16: 2 ** -9}
+SUM_TOL = 1e-5
 
 
 def line(phase, **fields):
@@ -179,6 +210,21 @@ def max_err(a, b):
 def check_close(name, got, ref, tol):
     torch.testing.assert_close(got, ref, **tol, msg=lambda m: f"{name}: {m}")
     return max_err(got, ref)
+
+
+def check_softmax_grad(name, dx, ref, y, dy, scale, rtol):
+    """K12's check: ``|dx - ref| <= rtol |ref| + SUM_TOL scale |y|
+    sum|dy y|`` everywhere."""
+    y, dy = y.float(), dy.float()
+    bound = SUM_TOL * scale * y.abs() * (y * dy).abs().sum(-1, keepdim=True)
+    bound += rtol * ref.float().abs()
+    err = (dx.float() - ref.float()).abs()
+    bad = err > bound
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} of {bad.numel()} elements "
+                             f"out of tolerance, first at "
+                             f"{bad.nonzero()[0].tolist()}")
+    return float(err.max())
 
 
 # ------------------------------------------------------------------- K1
@@ -840,6 +886,136 @@ def k10_phase(mt, arenas):
     return rows_out
 
 
+# -------------------------------------------------------------- K11-K12
+
+SOFTMAX_SCALE = 1 / 8  # 1/sqrt(head dim 64), both models
+
+
+def softmax_checks():
+    """(B, H, sq, sk, dtype, mask kind, row key): the GPT causal and BERT
+    key-padding training shapes (timed), then awkward ones."""
+    H = MODEL["n_heads"]
+    return [
+        (TRAIN_BATCH, H, MODEL["seq_len"], MODEL["seq_len"], torch.bfloat16,
+         "causal", "gpt_unfused"),
+        (BERT_BATCH, BERT["n_heads"], BERT["seq_len"], BERT["seq_len"],
+         torch.bfloat16, "keys", "bert_unfused"),
+        (8, 1, 1000, 1000, torch.bfloat16, "causal", None),
+        (16, 1, 96, 96, torch.float32, "causal", None),
+        (4, 2, 33, 77, torch.float32, "full", None),
+        (4, 2, 33, 77, torch.bfloat16, "full", None),
+        (2, 1, 4, 16384, torch.float32, "full", None),
+        (3, 2, 5, 77, torch.float16, None, None),
+    ]
+
+
+def softmax_inputs(B, H, sq, sk, dtype, kind, seed):
+    """Scores (scaled by 3 so the softmax is not nearly uniform), the mask
+    as stored (None; a (B, 1, 1, sk) key-padding mask from ragged lengths
+    with a length-0 row; or a (B, 1, sq, sk) mask with a fully masked row)
+    and that mask expanded to the scores' shape as a view."""
+    g = gen(seed)
+    x = (3 * torch.randn(B, H, sq, sk, generator=g, device="cuda")).to(dtype)
+    if kind in (None, "causal"):
+        return x, None, None
+    if kind == "keys":
+        lens = np.random.default_rng(seed).integers(0, sk + 1, B)
+        lens[:2] = (0, sk)
+        lens = torch.tensor(lens, device="cuda")
+        mask = (torch.arange(sk, device="cuda")[None, :] >= lens[:, None])
+        mask = mask[:, None, None, :]
+    else:
+        mask = torch.rand(B, 1, sq, sk, generator=g, device="cuda") > 0.7
+        mask[0, 0, 1] = True
+    return x, mask, mask.expand(x.shape)
+
+
+def softmax_tag(B, H, sq, sk, dtype, kind):
+    return f"B{B} H{H} sq{sq} sk{sk} {str(dtype)[6:]} {kind or 'scale-only'}"
+
+
+def k11_phase(sm):
+    """K11 against its plain version: the probabilities in x's dtype and,
+    with a mask, the fp32 ones the backward reads; a fully masked row must
+    come out uniform 1/sk."""
+    rows_out = {}
+    for i, (B, H, sq, sk, dt, kind, key) in enumerate(softmax_checks()):
+        x, mask, m4 = softmax_inputs(B, H, sq, sk, dt, kind, 110 + i)
+        args = (x, SOFTMAX_SCALE, kind == "causal", m4)
+        y, y32 = sm.softmax_fwd_kernel(*args)
+        ry, ry32 = sm.softmax_fwd_torch(*args)
+        torch.cuda.synchronize()
+        tag = softmax_tag(B, H, sq, sk, dt, kind)
+        fields = dict(max_abs_err=check_close(f"K11 {tag}", y, ry, PROB_TOL[dt]),
+                      **PROB_TOL[dt])
+        if m4 is not None:
+            fields["fp32_max_abs_err"] = check_close(
+                f"K11 fp32 y {tag}", y32, ry32, PROB_TOL[torch.float32])
+            if not torch.equal(y, y32.to(dt)):
+                raise AssertionError(f"K11 {tag}: y is not the fp32 y's cast")
+            row = y32[0, 0, 0] if kind == "keys" else y32[0, 0, 1]
+            check_close(f"K11 fully masked row {tag}", row,
+                        torch.full_like(row, 1 / sk), PROB_TOL[torch.float32])
+        if key is not None:
+            # x read once; y and, with a mask, the fp32 y written once; the
+            # mask read as stored
+            outs = [y] if y32 is None or y32 is y else [y, y32]
+            nbytes = sum(t.numel() * t.element_size() for t in (x, *outs))
+            nbytes += 0 if mask is None else mask.numel() * mask.element_size()
+            bms, by = bound_ms(nbytes, 6 * x.numel(), torch.float32)
+            fields.update(
+                ms=time_ms(lambda: sm.softmax_fwd_kernel(*args)),
+                plain_ms=time_ms(lambda: sm.softmax_fwd_torch(*args), iters=5),
+                library_ms=time_ms(lambda: torch.softmax(x, -1)),
+                bound_ms=bms, bound_by=by)
+            rows_out[key] = (tag, fields)
+        line("K11", shape=tag, **fields)
+        del x, mask, m4, y, y32, ry, ry32
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def k12_phase(sm):
+    """K12 against its plain version on what the forward saved (y in x's
+    dtype, or with a mask the fp32 y); masked slots must get exactly 0."""
+    rows_out = {}
+    for i, (B, H, sq, sk, dt, kind, key) in enumerate(softmax_checks()):
+        x, mask, m4 = softmax_inputs(B, H, sq, sk, dt, kind, 120 + i)
+        y, y32 = sm.softmax_fwd_torch(x, SOFTMAX_SCALE, kind == "causal", m4)
+        saved = y if m4 is None else y32
+        dy = torch.randn(x.shape, generator=gen(130 + i), device="cuda").to(dt)
+        del x, y32
+        args = (saved, dy, SOFTMAX_SCALE, m4)
+        dx = sm.softmax_bwd_kernel(*args)
+        rdx = sm.softmax_bwd_torch(*args)
+        torch.cuda.synchronize()
+        tag = softmax_tag(B, H, sq, sk, dt, kind)
+        fields = dict(max_abs_err=check_softmax_grad(
+            f"K12 {tag}", dx, rdx, saved, dy, SOFTMAX_SCALE, GRAD_RTOL[dt]),
+                      rtol=GRAD_RTOL[dt], sum_tol=SUM_TOL)
+        if m4 is not None and not torch.all(dx[m4] == 0):
+            raise AssertionError(f"K12 {tag}: a masked slot has a gradient")
+        if key is not None:
+            nbytes = saved.numel() * (saved.element_size() + dy.element_size()
+                                      + dx.element_size())
+            nbytes += 0 if mask is None else mask.numel() * mask.element_size()
+            bms, by = bound_ms(nbytes, 5 * saved.numel(), torch.float32)
+            # the library's softmax backward over bf16 y and dy
+            yl = saved.to(dt)
+            fields.update(
+                ms=time_ms(lambda: sm.softmax_bwd_kernel(*args)),
+                plain_ms=time_ms(lambda: sm.softmax_bwd_torch(*args), iters=5),
+                library_ms=time_ms(lambda: torch._softmax_backward_data(
+                    dy, yl, -1, dt)),
+                bound_ms=bms, bound_by=by)
+            rows_out[key] = (tag, fields)
+            del yl
+        line("K12", shape=tag, **fields)
+        del mask, m4, saved, dy, dx, rdx, y
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 # ---------------------------------------------------------------- engine
 
 
@@ -1118,14 +1294,38 @@ def skip_phase(label, trainer, batch):
     torch.cuda.empty_cache()
 
 
-def launch_counters(norm, attn, mt):
+def launch_counters(norm, attn, mt, sm):
     return {"layer_norm_fwd": norm.ln_fwd_kernel,
             "layer_norm_bwd": norm.ln_bwd_kernel,
             "flash_fwd": attn.flash_fwd_kernel,
             "flash_bwd": attn.flash_bwd_kernel,
             "unscale": mt.scale_kernel, "adam": mt.adam_kernel,
             "l2norm": mt.l2norm_sq_kernel, "lamb_stage1": mt.lamb_stage1_kernel,
-            "scaled_update": mt.scaled_update_kernel, "sgd": mt.sgd_kernel}
+            "scaled_update": mt.scaled_update_kernel, "sgd": mt.sgd_kernel,
+            "softmax_fwd": sm.softmax_fwd_kernel,
+            "softmax_bwd": sm.softmax_bwd_kernel}
+
+
+def unfused_vs_flash_phase(label, forward, batch):
+    """The port's own version of ``tests/test_gpt_flagship.py``
+    ``test_flash_matches_unfused`` at full width on the card: ``forward(
+    flash, batch)`` returns ``(logits, loss)``; the unfused path (K11 and
+    the bf16 score products) against flash attention (K2), both on the
+    kernels, on the same weights and batch. Both round the probabilities to
+    bf16 before their product with v, in other places."""
+    with torch.no_grad():
+        (lf, loss_f), (lu, loss_u) = forward(True, batch), forward(False, batch)
+    torch.cuda.synchronize()
+    if not torch.isfinite(lu).all():
+        raise AssertionError(f"{label}: non-finite unfused logits")
+    err = max_err(lu, lf)
+    rel = abs(loss_u.item() - loss_f.item()) / abs(loss_f.item())
+    if err > LOGIT_TOL or rel > UNFUSED_LOSS_TOL:
+        raise AssertionError(f"{label}: logits differ by {err} (tol {LOGIT_TOL}), "
+                             f"loss {loss_u.item()} vs flash {loss_f.item()}")
+    line(label, batch=batch[0].shape[0], unfused_loss=loss_u.item(),
+         flash_loss=loss_f.item(), loss_rel_err=rel, loss_tol=UNFUSED_LOSS_TOL,
+         logits_max_abs_err=err, logits_tol=LOGIT_TOL)
 
 
 def training_phase(label, profile_label, step, batch, counters, expect,
@@ -1242,6 +1442,8 @@ TRAIN_GROUPS = (("K1 layer_norm_fwd", ("_ln_fwd",)),
                 ("K4 flash_bwd", ("flash_bwd_",)),
                 ("K5 unscale", ("_scale_flag",)),
                 ("K6 adam", ("_adam",)),
+                ("K11 softmax_fwd", ("_softmax_fwd",)),
+                ("K12 softmax_bwd", ("_softmax_bwd",)),
                 ("gemm", GEMM_FRAGMENTS))
 # LAMB's per-tensor norms of p and u are plain torch.dot calls (cuBLAS dot
 # and its reduction), listed before the GEMM fragments they share "cublas"
@@ -1254,6 +1456,8 @@ BERT_GROUPS = (("K1 layer_norm_fwd", ("_ln_fwd",)),
                ("K9 l2norm", ("_sumsq",)),
                ("K7 lamb_stage1", ("_lamb1",)),
                ("K8 scaled_update", ("_scaled_update",)),
+               ("K11 softmax_fwd", ("_softmax_fwd",)),
+               ("K12 softmax_bwd", ("_softmax_bwd",)),
                ("per-tensor norms", ("dot_kernel", "reduce_1Block")),
                ("gemm", GEMM_FRAGMENTS))
 
@@ -1486,6 +1690,10 @@ KERNEL_ROWS = (
      "beforeholiday_tpu/ops/_pallas_mt.py:228"),
     ("sgd", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
      "beforeholiday_tpu/ops/_pallas_mt.py:376"),
+    ("softmax_fwd", "triton", "beforeholiday_tpu_torch/ops/softmax.py",
+     "beforeholiday_tpu/ops/softmax.py:48"),
+    ("softmax_bwd", "triton", "beforeholiday_tpu_torch/ops/softmax.py",
+     "beforeholiday_tpu/ops/softmax.py:63"),
 )
 
 
@@ -1498,6 +1706,7 @@ def main():
     from beforeholiday_tpu_torch.ops import attention as attn
     from beforeholiday_tpu_torch.ops import multi_tensor as mt
     from beforeholiday_tpu_torch.ops import normalization as norm
+    from beforeholiday_tpu_torch.ops import softmax as sm
     from beforeholiday_tpu_torch.examples.imagenet import main_amp
     from beforeholiday_tpu_torch.models import resnet
     from beforeholiday_tpu_torch.ops.arena import make_spec, tree_flatten
@@ -1544,7 +1753,8 @@ def main():
             "sgd": k10_phase(mt, {
                 "resnet_o5": (rspecs[torch.bfloat16], torch.bfloat16),
                 "resnet_o5_fp32": (rspecs[torch.float32], torch.float32),
-                "resnet_o0": (o0_spec, None)})}
+                "resnet_o0": (o0_spec, None)}),
+            "softmax_fwd": k11_phase(sm), "softmax_bwd": k12_phase(sm)}
     torch.cuda.empty_cache()
 
     engine_phase(infer, gpt, cast_floats, params, cfg)
@@ -1554,7 +1764,7 @@ def main():
     del eng
     torch.cuda.empty_cache()
 
-    counters = launch_counters(norm, attn, mt)
+    counters = launch_counters(norm, attn, mt, sm)
     gpt_trainer = lambda **kw: make_gpt_trainer(amp, gpt, FusedAdam, params,
                                                 cfg, **kw)
     batch = gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(60),
@@ -1571,6 +1781,31 @@ def main():
         "training", "train_profile", step, batch, counters,
         STEP_LAUNCHES["gpt"], TRAIN_GROUPS, card, seq_len=cfg.seq_len,
         **lm_work(m, batch))}
+    del m, step
+    torch.cuda.empty_cache()
+
+    # GPT with unfused attention: materialized scores, K11/K12
+    ucfg = dataclasses.replace(cfg, use_flash_attention=False)
+    unfused_trainer = lambda **kw: make_gpt_trainer(amp, gpt, FusedAdam, params,
+                                                    ucfg, **kw)
+    step_parity_phase("gpt_unfused_step_parity", unfused_trainer,
+                      gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(60),
+                                          device="cuda"),
+                      2 * LR + 1e-6, "2 lr: a gradient sign flip")
+    bf16_params = cast_floats(params, torch.bfloat16)
+
+    def gpt_forward(flash, b):
+        c = dataclasses.replace(cfg, use_flash_attention=flash)
+        logits = gpt.forward(bf16_params, b[0], c)
+        return logits, gpt._cross_entropy(logits, b[1])
+
+    unfused_vs_flash_phase("gpt_unfused_vs_flash", gpt_forward, batch)
+    del bf16_params
+    m, _, step = unfused_trainer()
+    launches["gpt_unfused"] = training_phase(
+        "gpt_unfused_training", "gpt_unfused_profile", step, batch, counters,
+        STEP_LAUNCHES["gpt_unfused"], TRAIN_GROUPS, card, seq_len=cfg.seq_len,
+        attention="unfused", **lm_work(m, batch))
     del m, step, batch, params
     torch.cuda.empty_cache()
 
@@ -1594,6 +1829,33 @@ def main():
     del m, step
     torch.cuda.empty_cache()
 
+    # BERT with unfused attention: the key-padding mask built on the card
+    # from the lengths, K11/K12
+    ubcfg = dataclasses.replace(bcfg, use_flash_attention=False)
+    unfused_bert = lambda **kw: make_bert_trainer(amp, bert, FusedLAMB, bparams,
+                                                  ubcfg, **kw)
+    step_parity_phase("bert_unfused_step_parity", unfused_bert,
+                      bert_batch(bert, bcfg, PARITY_BATCH, 62, BERT_PARITY_LENS),
+                      3 * BERT_LR, "3 lr: a sign flip moves 2 lr times the trust ratio")
+    bf16_bparams = cast_floats(bparams, torch.bfloat16)
+
+    def bert_forward(flash, b):
+        c = dataclasses.replace(bcfg, use_flash_attention=flash)
+        mlm, nsp = bert.forward(bf16_bparams, b[0], c, seq_lens=b[4])
+        return mlm, bert.pretrain_loss(bf16_bparams, *b[:4], c, seq_lens=b[4])
+
+    ragged = np.random.default_rng(64).integers(1, bcfg.seq_len + 1, 16)
+    unfused_vs_flash_phase("bert_unfused_vs_flash", bert_forward,
+                           bert_batch(bert, bcfg, 16, 64, ragged.tolist()))
+    del bf16_bparams
+    m, _, step = unfused_bert()
+    launches["bert_unfused"] = training_phase(
+        "bert_unfused_training", "bert_unfused_profile", step, batch, counters,
+        STEP_LAUNCHES["bert_unfused"], BERT_GROUPS, card, seq_len=bcfg.seq_len,
+        attention="unfused", **lm_work(m, batch))
+    del m, step
+    torch.cuda.empty_cache()
+
     resnet_step_parity_phase(main_amp, FusedSGD, tree_flatten, rcfg, rweights)
     resnet_skip_phase(main_amp, rcfg, rweights)
     flops_per_image = resnet_flops_per_image(resnet, rcfg, rweights)
@@ -1614,7 +1876,8 @@ def main():
     for kname, route, source, replaces in KERNEL_ROWS:
         for shape, (tag, f) in rows[kname].items():
             # launches: the run of the path that gives the kernel this shape
-            # (the serving run, or the GPT, BERT or ResNet training run)
+            # (the serving run, or the GPT, BERT or ResNet training run, with
+            # flash or unfused attention)
             path = shape if shape in launches else "serving"
             kernels.append(dict(
                 name=f"{kname}[{shape}: {tag}]", route=route, source=source,

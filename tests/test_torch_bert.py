@@ -122,10 +122,14 @@ def test_init_matches_the_reference_distributions():
 
 
 def test_unported_paths_raise():
-    """Dropout rates are accepted (they act only with a dropout key, as in
-    JAX); a dropout key and the unfused softmax path raise."""
-    with pytest.raises(NotImplementedError):
-        tbert.BertConfig(**SMALL, use_flash_attention=False)
+    """The unfused softmax path builds and runs; dropout rates are accepted
+    (they act only with a dropout key, as in JAX); a dropout key raises."""
+    unfused = tbert.BertConfig(**SMALL, use_flash_attention=False)
+    up = tbert.init(unfused, torch.Generator().manual_seed(0), device="cpu")
+    mlm, nsp = tbert.forward(up, _port_batch()[0], unfused,
+                             seq_lens=_port_batch()[4])
+    assert mlm.shape == (2, SMALL["seq_len"], SMALL["vocab_size"])
+    assert torch.isfinite(mlm).all() and torch.isfinite(nsp).all()
     cfg = tbert.BertConfig(**SMALL, dropout_rate=0.1, attention_dropout=0.1)
     tp = tbert.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     mlm, _ = tbert.forward(tp, _port_batch()[0], cfg)

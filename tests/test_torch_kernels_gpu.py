@@ -1,9 +1,11 @@
 """Kernels K1/K3 (LayerNorm forward/backward, Triton), K2/K4 (flash
 attention forward/backward, CUDA C++), K5 (unscale), K6 (fused Adam), K7
-(LAMB stage 1), K8 (trust-ratio update), K9 (global sum of squares) and K10
-(fused SGD), all Triton, against their plain PyTorch versions on the card,
-and the engine and small O5 GPT (FusedAdam), BERT (FusedLAMB) and ResNet
-(FusedSGD) training steps on the kernels against the plain path.
+(LAMB stage 1), K8 (trust-ratio update), K9 (global sum of squares), K10
+(fused SGD) and K11/K12 (scaled masked softmax forward/backward), all
+Triton, against their plain PyTorch versions on the card, and the engine
+and small O5 GPT (FusedAdam; flash and unfused attention), BERT (FusedLAMB;
+both attentions) and ResNet (FusedSGD) training steps on the kernels
+against the plain path.
 
 Marked ``gpu``: without a CUDA device every test skips (the decision is made
 inside the ``cuda`` fixture, never at import, so every pytest worker collects
@@ -15,6 +17,8 @@ the same tests). Run on an H100 with::
 does not need.) Tolerances, and why, are tabulated in PERF.md.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +28,7 @@ from beforeholiday_tpu_torch.infer import EngineConfig, InferenceEngine, PageAll
 from beforeholiday_tpu_torch.ops import attention as tattn
 from beforeholiday_tpu_torch.ops import multi_tensor as tmt
 from beforeholiday_tpu_torch.ops import normalization as tnorm
+from beforeholiday_tpu_torch.ops import softmax as tsm
 from beforeholiday_tpu_torch.ops.arena import make_spec
 from beforeholiday_tpu_torch.optimizers import FusedAdam, FusedLAMB
 from beforeholiday_tpu_torch.testing import bert, gpt
@@ -40,7 +45,7 @@ FP32_TOL = dict(rtol=1e-5, atol=2e-5)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels K1-K10 run only on the card)")
+        pytest.skip("needs a CUDA device (kernels K1-K12 run only on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -628,3 +633,187 @@ def test_resnet_step_kernels_match_plain_path(cuda):
         # momentum's difference
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=0.05 * 2e-2 * float(m.abs().max()) + 1e-7)
+
+
+# ------------------------------------------------------------- K11, K12
+
+
+def _softmax_inputs(B, H, sq, sk, dtype, mask_kind, seed=0):
+    """Scores (scaled by 3 so the softmax is not nearly uniform) and the
+    mask: None, causal, a (B, 1, 1, sk) key-padding mask from ragged
+    lengths (a length-0 row fully masked), or a (B, 1, sq, sk) mask with a
+    fully masked row; both expanded to the scores' shape as views."""
+    g = _gen(seed)
+    x = (3 * torch.randn(B, H, sq, sk, generator=g, device="cuda")).to(dtype)
+    if mask_kind in (None, "causal"):
+        return x, None
+    if mask_kind == "keys":
+        lens = torch.tensor(_ragged(B, sk, seed), device="cuda")
+        mask = (torch.arange(sk, device="cuda")[None, :] >= lens[:, None])
+        mask = mask[:, None, None, :]
+    else:
+        mask = torch.rand(B, 1, sq, sk, generator=g, device="cuda") > 0.7
+        mask[0, 0, 1] = True
+    return x, mask.expand(x.shape)
+
+
+SOFTMAX_CASES = [  # B, H, sq, sk, dtype, mask kind
+    (256, 1, 1024, 1024, torch.bfloat16, "causal"),   # GPT-unfused training
+    (128, 16, 128, 128, torch.bfloat16, "keys"),      # BERT-unfused training
+    (8, 1, 1000, 1000, torch.bfloat16, "causal"),     # sk no power of two
+    (16, 1, 96, 96, torch.float32, "causal"),         # sq % 128 != 0
+    (4, 2, 33, 77, torch.float32, "full"),
+    (4, 2, 33, 77, torch.bfloat16, "full"),
+    (2, 1, 4, 16384, torch.float32, "full"),          # the widest row
+    (3, 2, 5, 77, torch.float16, None),               # scale only
+]
+
+
+def _softmax_tag(case):
+    B, H, sq, sk, dt, kind = case
+    return f"{B}x{H}x{sq}x{sk}-{str(dt)[6:]}-{kind}"
+
+
+# K11's probabilities: relative, since at sk 1024 most lie far below 2^-8;
+# half types one rounding apart, fp32 exp and row sums in another order
+PROB_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-8),
+            torch.bfloat16: dict(rtol=2 ** -7, atol=1e-6),
+            torch.float16: dict(rtol=2 ** -9, atol=1e-7)}
+# K12's gradients: rtol (one rounding in half types) plus SUM_TOL times
+# scale |y| sum|dy y|, which bounds the row sum's error in another order where
+# dy - sum cancels; it follows each element, so a wrong row of small
+# gradients fails
+GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7, torch.float16: 2 ** -9}
+SUM_TOL = 1e-5
+
+
+def _assert_softmax_grad_close(dx, ref, y, dy, scale, rtol):
+    y, dy = y.float(), dy.float()
+    bound = SUM_TOL * scale * y.abs() * (y * dy).abs().sum(-1, keepdim=True)
+    bound += rtol * ref.float().abs()
+    bad = (dx.float() - ref.float()).abs() > bound
+    assert not bad.any(), (f"{int(bad.sum())} of {bad.numel()} elements out of "
+                           f"tolerance, first at {bad.nonzero()[0].tolist()}")
+
+
+@pytest.mark.parametrize("case", SOFTMAX_CASES, ids=_softmax_tag)
+def test_k11_matches_plain(cuda, case):
+    B, H, sq, sk, dtype, kind = case
+    x, mask = _softmax_inputs(B, H, sq, sk, dtype, kind)
+    args = (x, 0.125, kind == "causal", mask)
+    before = tsm.softmax_fwd_kernel.launches
+    y, y32 = tsm.softmax_fwd_kernel(*args)
+    assert tsm.softmax_fwd_kernel.launches == before + 1
+    ry, ry32 = tsm.softmax_fwd_torch(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ry, **PROB_TOL[dtype])
+    if mask is None:
+        assert y32 is None
+        return
+    torch.testing.assert_close(y32, ry32, **PROB_TOL[torch.float32])
+    assert torch.equal(y, y32.to(dtype))
+    # a fully masked row: uniform 1/sk (-10000, not -inf)
+    row = y32[0, 0, 0] if kind == "keys" else y32[0, 0, 1]
+    torch.testing.assert_close(row, torch.full_like(row, 1 / sk),
+                               **PROB_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("case", SOFTMAX_CASES, ids=_softmax_tag)
+def test_k12_matches_plain(cuda, case):
+    B, H, sq, sk, dtype, kind = case
+    x, mask = _softmax_inputs(B, H, sq, sk, dtype, kind)
+    # the backward reads what the forward saved: the fp32 y with a mask,
+    # y in x's dtype without one
+    y, y32 = tsm.softmax_fwd_torch(x, 0.125, kind == "causal", mask)
+    saved = y if mask is None else y32
+    dy = torch.randn(x.shape, generator=_gen(1), device="cuda").to(dtype)
+    before = tsm.softmax_bwd_kernel.launches
+    dx = tsm.softmax_bwd_kernel(saved, dy, 0.125, mask)
+    assert tsm.softmax_bwd_kernel.launches == before + 1
+    rdx = tsm.softmax_bwd_torch(saved, dy, 0.125, mask)
+    torch.cuda.synchronize()
+    assert dx.dtype == rdx.dtype == dtype
+    _assert_softmax_grad_close(dx, rdx, saved, dy, 0.125, GRAD_RTOL[dtype])
+    if mask is not None:
+        assert torch.all(dx[mask] == 0)
+
+
+def test_softmax_public_path_launches(cuda):
+    """impl=None on a CUDA tensor launches K11 forward and K12 backward,
+    one each, for every public variant."""
+    x = torch.randn(2, 4, 64, 64, device=cuda, dtype=torch.bfloat16)
+    mask = torch.rand(2, 1, 1, 64, device=cuda) > 0.5
+    calls = [lambda a: tsm.scaled_softmax(a, 0.5),
+             lambda a: tsm.scaled_masked_softmax(a, mask, 0.5),
+             lambda a: tsm.generic_scaled_masked_softmax(a, mask, 0.5),
+             lambda a: tsm.scaled_upper_triang_masked_softmax(a[0], 0.5)]
+    for fn in calls:
+        xa = x.clone().requires_grad_(True)
+        before = (tsm.softmax_fwd_kernel.launches, tsm.softmax_bwd_kernel.launches)
+        y = fn(xa)
+        assert tsm.softmax_fwd_kernel.launches == before[0] + 1
+        y.float().sum().backward()
+        assert tsm.softmax_bwd_kernel.launches == before[1] + 1
+        assert y.dtype == xa.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("what", ["too_wide", "fp64", "strided", "mask_shape"])
+def test_k11_refuses_what_it_does_not_take(cuda, what):
+    x = torch.zeros(1, 1, 4, 16385 if what == "too_wide" else 64, device=cuda,
+                    dtype=torch.float64 if what == "fp64" else torch.float32)
+    mask = None
+    if what == "strided":
+        x = x.transpose(-1, -2)
+    if what == "mask_shape":
+        mask = torch.zeros(1, 1, 1, 64, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        tsm.softmax_fwd_kernel(x, 1.0, False, mask)
+
+
+@pytest.mark.parametrize("model", ["gpt", "bert"])
+def test_unfused_step_kernels_match_plain_path(cuda, model):
+    """One O5 arena-native step of a small bf16 model with unfused
+    attention on K11/K12 (and K1/K3, K5 and the optimizer kernels) against
+    the same step with every op on its plain version."""
+    base = dict(vocab_size=512, seq_len=128, d_model=128, n_heads=4,
+                n_layers=2, dtype=torch.bfloat16, use_flash_attention=False)
+    mod, opt = (gpt, lambda impl: FusedAdam(lr=1e-3, impl=impl)) if model == "gpt" \
+        else (bert, lambda impl: FusedLAMB(lr=1e-3, weight_decay=0.01, impl=impl))
+    cfg0 = (gpt.GPTConfig if model == "gpt" else bert.BertConfig)(**base)
+    params = mod.init(cfg0, _gen(0), device=cuda)
+    if model == "gpt":
+        batch = gpt.synthetic_batch(cfg0, 2, generator=_gen(1), device=cuda)
+    else:
+        batch = (*bert.synthetic_batch(cfg0, 2, generator=_gen(1), device=cuda),
+                 torch.tensor([128, 77], dtype=torch.int32, device=cuda))
+    res = {}
+    for impl in ("kernel", "torch"):
+        cfg = dataclasses.replace(cfg0, attention_impl=impl, norm_impl=impl)
+        m = amp.initialize(lambda p, t, cfg=cfg: mod.forward(p, t, cfg), params,
+                           opt(impl), "O5", arena_native=True)
+        if model == "gpt":
+            loss_fn = (lambda p, a, b, cfg=cfg, m=m:
+                       gpt.loss_fn(p, a, b, cfg, forward_fn=m.apply))
+        else:
+            loss_fn = (lambda p, tok, tgt, mask, nsp, lens, cfg=cfg:
+                       bert.pretrain_loss(p.unpack(), tok, tgt, mask, nsp, cfg,
+                                          seq_lens=lens))
+        svag = amp.scaled_value_and_grad(loss_fn, m.scaler, impl=impl)
+        o, s = m.optimizer.init(m.params), m.scaler.init()
+        counters = (tsm.softmax_fwd_kernel, tsm.softmax_bwd_kernel,
+                    tattn.flash_fwd_kernel, tattn.flash_bwd_kernel)
+        counts = [fn.launches for fn in counters]
+        loss, g, fi, s = svag(m.params, s, *batch)
+        m.params, o = m.optimizer.step(m.params, g, o, found_inf=fi)
+        torch.cuda.synchronize()
+        launched = [fn.launches - c for fn, c in zip(counters, counts)]
+        assert launched == ([2, 2, 0, 0] if impl == "kernel" else [0, 0, 0, 0])
+        res[impl] = (loss, g.arenas, o["master"], m.params.arenas)
+    (lk, gk, mk, pk), (lt, gt, mt_, pt) = res["kernel"], res["torch"]
+    torch.testing.assert_close(lk, lt, rtol=2e-3, atol=0)
+    for a, b in zip(gk, gt):
+        torch.testing.assert_close(a, b, rtol=0.05, atol=2e-2 * float(b.abs().max()))
+    for a, b in zip(mk, mt_):
+        torch.testing.assert_close(a, b, rtol=0, atol=3.5e-3)  # up to 3 lr
+    for arena, master in zip(pk, mk):
+        assert torch.equal(arena, master.to(arena.dtype))

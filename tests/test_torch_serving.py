@@ -89,12 +89,22 @@ def test_gpt_init_shapes_match_jax(models):
 
 @pytest.mark.parametrize("field, value", [
     ("moe_every", 1), ("dropout_rate", 0.1), ("sequence_parallel", True),
-    ("remat_policy", "full"), ("use_flash_attention", False),
-    ("moe_experts", 8),
+    ("remat_policy", "full"), ("moe_experts", 8),
 ])
 def test_gpt_config_rejects_unported_paths(field, value):
     with pytest.raises(NotImplementedError):
         tgpt.GPTConfig(**TINY, **{field: value})
+
+
+def test_gpt_unfused_config_builds_and_runs(models):
+    """The unfused attention (``use_flash_attention=False``) builds and its
+    forward runs."""
+    cfg = tgpt.GPTConfig(**TINY, use_flash_attention=False)
+    tokens = torch.randint(0, TINY["vocab_size"], (2, 16),
+                           generator=torch.Generator().manual_seed(0))
+    logits = tgpt.forward(models[3], tokens, cfg)
+    assert logits.shape == (2, 16, TINY["vocab_size"])
+    assert torch.isfinite(logits).all()
 
 
 @pytest.mark.parametrize("act", ["none", "relu", "sigmoid"])
