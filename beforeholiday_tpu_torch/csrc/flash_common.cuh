@@ -1,6 +1,7 @@
 // Device helpers shared by the flash-attention kernels K2 (flash_fwd.cu) and
-// K4 (flash_bwd.cu): dtype conversion, warp reductions, 16-byte loads and the
-// bf16 tensor-core product mma.sync m16n8k16 with its fragment packing.
+// K4 (flash_bwd.cu): dtype conversion, warp reductions, 16-byte loads, the
+// bf16 tensor-core product mma.sync m16n8k16 with its fragment packing, and
+// the dynamic shared memory of the CUDA-core row kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +15,12 @@ constexpr float kNeg = -1e30f;  // mask fill: large negative keeps exp/max NaN-f
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+// x rounded to T's precision and back: identity for fp32, one bf16 rounding
+// for bf16 (the tensor-core kernels round p and ds so for their products)
+__device__ __forceinline__ float round_to(float x, float*) { return x; }
+__device__ __forceinline__ float round_to(float x, __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -81,6 +88,21 @@ __device__ __forceinline__ void pack_c_as_a(uint32_t (&a)[4], const float (&lo)[
   a[1] = pack_bf16x2(lo[2], lo[3]);
   a[2] = pack_bf16x2(hi[0], hi[1]);
   a[3] = pack_bf16x2(hi[2], hi[3]);
+}
+
+// the column count a lane of the row kernels owns for head dim d: the row
+// kernels are built for 1, 2, 4, 8 and 16 (d up to 512) and mask the rest
+__host__ __device__ constexpr int cols_for(int d) {
+  return d <= 32 ? 1 : d <= 64 ? 2 : d <= 128 ? 4 : d <= 256 ? 8 : 16;
+}
+
+// a launch of a row kernel with `bytes` of dynamic shared memory: above the
+// default 48 KB the kernel must be allowed more first (up to 227 KB on H100)
+template <typename Kernel>
+__host__ int allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
 """Kernel-backed ops — counterpart of ``beforeholiday_tpu/ops``.
 
 * ``normalization`` — LayerNorm / RMSNorm on kernels K1/K3 (Triton).
-* ``attention`` — flash attention on kernels K2/K4 (CUDA C++).
+* ``attention`` — flash attention on kernels K2/K4 with in-kernel dropout,
+  ``self_attention``, and the dropout keep mask on kernel K13 (CUDA C++).
 * ``dense`` — dense and MLP blocks on library GEMMs.
 * ``arena`` — flat arenas and ``PackedParams``.
 * ``multi_tensor`` — unscale, fused Adam, global L2 norm, fused LAMB and
@@ -24,9 +25,11 @@ from .arena import (  # noqa: F401
     views_to_arena,
 )
 from .attention import (  # noqa: F401
+    dropout_keep_mask,
     flash_attention,
     flash_attention_with_lse,
     is_flash_available,
+    self_attention,
 )
 from .dense import fused_dense, fused_dense_gelu_dense, mlp  # noqa: F401
 from .normalization import (  # noqa: F401
@@ -64,6 +67,7 @@ __all__ = [
     "multi_tensor_lamb",
     "multi_tensor_scale",
     "views_to_arena",
+    "dropout_keep_mask",
     "flash_attention",
     "flash_attention_with_lse",
     "fused_dense",
@@ -79,5 +83,6 @@ __all__ = [
     "scaled_masked_softmax",
     "scaled_softmax",
     "scaled_upper_triang_masked_softmax",
+    "self_attention",
     "unflatten",
 ]

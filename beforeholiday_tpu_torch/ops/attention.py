@@ -1,14 +1,27 @@
 """Flash attention on kernels K2 (forward) and K4 (backward), CUDA C++
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``).
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), and the dropout keep mask on
+kernel K13 (``csrc/dropout_mask.cu``).
 
 K2 replaces ``beforeholiday_tpu/ops/attention.py:152`` ``_fa_fwd_kernel``
-(mask predicate ``:119``, launched at ``:244``); K4 replaces ``_fa_dq_kernel``
-(``:305``) and ``_fa_dkv_kernel`` (``:342``) with their recompute
-``_block_p_ds`` (``:265``), launched by ``_fa_bwd_pallas`` (``:389``). Each
-source's header states its bound on an H100 and what the design does about
-it. Unlike the TPU kernels, which need both sequence lengths to tile by 128,
-K2 and K4 take every shape: decode's ``Sq=1`` against the whole gathered
-cache included.
+(mask predicate ``:119``, dropout ``_keep_mask`` ``:130``, launched at
+``:244``); K4 replaces ``_fa_dq_kernel`` (``:305``) and ``_fa_dkv_kernel``
+(``:342``) with their recompute ``_block_p_ds`` (``:265``), launched by
+``_fa_bwd_pallas`` (``:389``); K13 replaces ``testing/tpu_checks.py:84``
+``mask_kernel``. Each source's header states its bound on an H100 and what
+the design does about it. Unlike the TPU kernels, which need both sequence
+lengths to tile by 128, K2 and K4 take every shape, decode's ``Sq=1``
+against the whole gathered cache included, and every head dim 8..512 that
+:func:`is_flash_available` admits.
+
+Dropout draws its keep mask from a counter-based hash: Philox4x32-10
+(``csrc/philox.cuh``) keyed on a dropout key (two 32-bit words) and counted
+on the absolute coordinate ``(bh, row, col)``, one hash call per 2x2 tile
+of (row, col), one 32-bit word per element; an element is kept when its
+top 24 bits fall below ``round((1 - rate) * 2**24)``, compared as
+integers. K2, K4 and K13 include the same header, and
+:func:`philox4x32` repeats it in torch integer ops, so the kernels, their
+plain versions and :func:`dropout_keep_mask` draw the same mask bit for bit,
+whatever tiles each one walks.
 
 The wrappers keep the JAX module's layout at the public functions:
 :func:`flash_attention` takes ``(B, H, S, D)`` and per-sequence ``kv_lens``,
@@ -16,26 +29,33 @@ The wrappers keep the JAX module's layout at the public functions:
 returns ``lse`` as ``(BH, S)``. Both are differentiable: the forward saves
 ``(q, k, v, lens, o, lse)`` and the backward runs K4, with the ``dlse`` term
 of ``_flash3_lse_bwd`` (``:503``) when the caller differentiates through
-``lse``; without it K4 reads no dlse operand. Dropout is not ported and
-raises ``NotImplementedError``.
+``lse``; without it K4 reads no dlse operand.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from beforeholiday_tpu_torch import _build
 from beforeholiday_tpu_torch.ops._dispatch import resolve_impl
+from beforeholiday_tpu_torch.ops.dense import fused_dense
 
 _NEG = -1e30  # mask fill; large-negative (not -inf) keeps exp/max NaN-free
 _MIN_BLOCK = 128
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIMS = tuple(range(16, 129, 16))
+# every head dim the gate admits: the tensor-core kernels take 16..128 in
+# steps of 16, the CUDA-core row kernels the rest
+_KERNEL_HEAD_DIMS = range(8, 513)
 _MAX_GRID_Y = 65535
+
+# Philox4x32-10's multipliers and key increments (Random123)
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 
 def _block_size(seq_len: int, head_dim: int = 64) -> int:
@@ -50,8 +70,144 @@ def _block_size(seq_len: int, head_dim: int = 64) -> int:
 
 def is_flash_available(seq_len: int, head_dim: int) -> bool:
     """The TPU kernel's shape gate, with the JAX semantics (API parity). K2
-    itself takes any length and head dims 16..128 in steps of 16."""
+    and K4 themselves take any length and every head dim 8..512."""
     return seq_len % _MIN_BLOCK == 0 and 8 <= head_dim <= 512
+
+
+# ------------------------------------------------------------------ dropout
+
+
+def _mulhilo(a, m: int):
+    """``(hi, lo)``, the 32-bit halves of ``a * m`` for ``a`` in [0, 2**32)
+    (an int64 tensor or an int) and a 32-bit constant ``m``. The product
+    overflows int64, so ``a`` multiplies m's 16-bit halves (each partial
+    product stays below 2**48)."""
+    t = a * (m & 0xFFFF)
+    u = a * (m >> 16)
+    t = t + ((u & 0xFFFF) << 16)
+    return (u >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 (Random123's ``philox4x32``) of the counter ``(c0, c1,
+    c2, c3)`` under the key ``(k0, k1)``: four 32-bit words as int64. Each
+    argument is an int64 tensor of values in [0, 2**32) or an int; tensors
+    broadcast. The twin of ``csrc/philox.cuh``, bit for bit, on any device."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _MASK32
+            k1 = (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def keep_threshold(rate: float) -> int:
+    """An element is kept when the top 24 bits of its hash word are below
+    this: ``round((1 - rate) * 2**24)``."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    return round((1.0 - rate) * (1 << 24))
+
+
+def _check_key(key, device=None):
+    if not (isinstance(key, torch.Tensor) and key.dtype == torch.int64
+            and key.shape == (2,)):
+        raise ValueError(
+            "a dropout key is an int64 tensor of shape (2,) (see "
+            "transformer.tensor_parallel.random.make_key), got "
+            f"{getattr(key, 'dtype', type(key))} "
+            f"{tuple(getattr(key, 'shape', ()))}")
+    if device is not None and key.device != device:
+        raise ValueError(f"the dropout key lies on {key.device}, the data on "
+                         f"{device}")
+
+
+def dropout_keep_mask_torch(key: torch.Tensor, shape: Sequence[int],
+                            rate: float) -> torch.Tensor:
+    """Plain PyTorch version of K13: the bool keep mask of the ``(BH, rows,
+    cols)`` coordinate block, on the key's device. Element ``(b, r, c)``
+    reads word ``2 (r % 2) + c % 2`` of the hash of counter ``(c // 2,
+    r // 2, b, 0)``."""
+    BH, R, C = shape
+    thr = keep_threshold(rate)
+    rp, cp = (R + 1) // 2, (C + 1) // 2
+    ar = functools.partial(torch.arange, dtype=torch.int64, device=key.device)
+    words = philox4x32(ar(cp)[None, None, :], ar(rp)[None, :, None],
+                       ar(BH)[:, None, None], 0, key[0], key[1])
+    keep = [(w.expand(BH, rp, cp) >> 8) < thr for w in words]
+    even = torch.stack(keep[:2], -1).reshape(BH, rp, 2 * cp)
+    odd = torch.stack(keep[2:], -1).reshape(BH, rp, 2 * cp)
+    mask = torch.stack((even, odd), 2).reshape(BH, 2 * rp, 2 * cp)
+    return mask[:, :R, :C].contiguous()
+
+
+@functools.cache
+def _mask_lib():
+    fn = _build.load("dropout_mask").dropout_mask
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, ctypes.c_uint, p, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dropout_keep_mask_kernel(key: torch.Tensor, shape: Sequence[int],
+                             rate: float) -> torch.Tensor:
+    """Launch K13 on the key's CUDA device; returns the bool keep mask of
+    the ``(BH, rows, cols)`` coordinate block."""
+    if not key.is_cuda:
+        raise ValueError("K13 takes a dropout key on a CUDA device")
+    _check_key(key)
+    BH, R, C = shape
+    if max(BH, R, C) >= 2 ** 31:
+        raise ValueError(f"K13 indexes each dim in int32, got {tuple(shape)}")
+    thr = keep_threshold(rate)
+    out = torch.empty((BH, R, C), dtype=torch.uint8, device=key.device)
+    if out.numel() == 0:
+        return out.view(torch.bool)
+    fn = _mask_lib()
+    with torch.cuda.device(key.device):
+        stream = torch.cuda.current_stream(key.device).cuda_stream
+        rc = fn(key.contiguous().data_ptr(), thr, out.data_ptr(), BH, R, C,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"K13 (dropout_mask) launch failed with CUDA error {rc}")
+    dropout_keep_mask_kernel.launches += 1
+    return out.view(torch.bool)
+
+
+dropout_keep_mask_kernel.launches = 0
+
+
+def dropout_keep_mask(key: torch.Tensor, shape: Sequence[int], rate: float, *,
+                      impl: Optional[str] = None) -> torch.Tensor:
+    """The dropout keep mask (bool) of the ``(BH, rows, cols)`` coordinate
+    block under ``key`` at ``rate``: the very bits K2 and K4 draw in-kernel
+    for attention probabilities at ``(bh, query, key)``. K13 for a key on a
+    CUDA device, the plain version for one on the CPU."""
+    _check_key(key)
+    impl = resolve_impl(impl, key)
+    shape = tuple(int(n) for n in shape)
+    if len(shape) != 3:
+        raise ValueError(f"the mask's block is (BH, rows, cols), got {shape}")
+    fn = dropout_keep_mask_kernel if impl == "kernel" else dropout_keep_mask_torch
+    return fn(key, shape, rate)
+
+
+def _drop_args(rate: float, key, device):
+    """The C interface's dropout operands: key pointer, keep threshold and
+    1 / (1 - rate); a null key at rate 0."""
+    if rate == 0.0:
+        return None, 0, 1.0
+    thr = keep_threshold(rate)
+    _check_key(key, device)
+    if not key.is_contiguous():
+        raise ValueError("the dropout key must be contiguous")
+    return key.data_ptr(), thr, 1.0 / (1.0 - rate)
+
+
+# ------------------------------------------------------------------ K2
 
 
 def _masked(q, k, lens, causal):
@@ -63,10 +219,14 @@ def _masked(q, k, lens, causal):
     return masked
 
 
-def flash_fwd_torch(q, k, v, lens, causal: bool, scale: float):
+def flash_fwd_torch(q, k, v, lens, causal: bool, scale: float,
+                    rate: float = 0.0, key: Optional[torch.Tensor] = None):
     """Plain PyTorch version of K2: ``(o, lse)`` for ``q (BH, Sq, D)``,
     ``k, v (BH, Sk, D)`` and integer ``lens (BH,)``. Computes in fp32 and
-    returns ``o`` in q's dtype (the JAX oracle's contract)."""
+    returns ``o`` in q's dtype (the JAX oracle's contract). At ``rate > 0``
+    the probabilities are dropped after the softmax with the keep mask of
+    ``key`` at ``(bh, query, key)`` and the survivors scaled by
+    ``1 / (1 - rate)``; ``lse`` stays the undropped one."""
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     masked = _masked(q, k, lens, causal)
     s = s.masked_fill(masked, _NEG)
@@ -78,6 +238,9 @@ def flash_fwd_torch(q, k, v, lens, causal: bool, scale: float):
     nonempty = l > 0.0
     safe_l = torch.where(nonempty, l, 1.0)
     p = torch.where(nonempty, e / safe_l, 0.0)
+    if rate > 0.0:
+        keep = dropout_keep_mask_torch(key, p.shape, rate)
+        p = torch.where(keep, p / (1.0 - rate), 0.0)
     o = torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
     lse = torch.where(nonempty, m + torch.log(safe_l), _NEG)[..., 0]
     return o, lse
@@ -86,8 +249,8 @@ def flash_fwd_torch(q, k, v, lens, causal: bool, scale: float):
 @functools.cache
 def _flash_lib():
     fn = _build.load("flash_fwd").flash_fwd
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, f, i, p, ctypes.c_uint, f, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -110,7 +273,7 @@ def _check_qkv(name, q, k, v, lens):
     if lens.dtype != torch.int32:
         raise ValueError(f"{name} takes int32 lens, got {lens.dtype}")
     if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name} takes head dims {_KERNEL_HEAD_DIMS}, got {D}")
+        raise ValueError(f"{name} takes head dims 8..512, got {D}")
     if BH > _MAX_GRID_Y:
         raise ValueError(f"{name} grids BH on y: {BH} > {_MAX_GRID_Y}")
     if not all(t.is_contiguous() for t in tensors):
@@ -119,10 +282,13 @@ def _check_qkv(name, q, k, v, lens):
         raise ValueError(f"{name} reads q, k, v in 16-byte vectors: align them")
 
 
-def flash_fwd_kernel(q, k, v, lens, causal: bool, scale: float):
+def flash_fwd_kernel(q, k, v, lens, causal: bool, scale: float,
+                     rate: float = 0.0, key: Optional[torch.Tensor] = None):
     """Launch K2 on CUDA tensors; returns ``(o, lse)``. Checks device, dtype,
-    shape and layout and raises on anything the kernel does not take."""
+    shape and layout and raises on anything the kernel does not take.
+    ``rate > 0`` drops in-kernel with ``key``'s mask (read on the card)."""
     _check_qkv("K2", q, k, v, lens)
+    kptr, thr, inv = _drop_args(rate, key, q.device)
     BH, Sq, D = q.shape
     Sk = k.shape[1]
     o = torch.empty_like(q)
@@ -134,7 +300,8 @@ def flash_fwd_kernel(q, k, v, lens, causal: bool, scale: float):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), lens.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                BH, Sq, Sk, D, float(scale), int(bool(causal)), stream)
+                BH, Sq, Sk, D, float(scale), int(bool(causal)), kptr, thr,
+                inv, stream)
     if rc != 0:
         raise RuntimeError(f"K2 (flash_fwd) launch failed with CUDA error {rc}")
     flash_fwd_kernel.launches += 1
@@ -144,41 +311,55 @@ def flash_fwd_kernel(q, k, v, lens, causal: bool, scale: float):
 flash_fwd_kernel.launches = 0
 
 
+# ------------------------------------------------------------------ K4
+
+
 def flash_bwd_torch(q, k, v, o, do, lse, dlse, lens, causal: bool,
-                    scale: float):
+                    scale: float, rate: float = 0.0,
+                    key: Optional[torch.Tensor] = None):
     """Plain PyTorch version of K4: ``(dq, dk, dv)`` in the inputs' dtypes,
     recomputing p from ``lse`` in fp32 as ``_block_p_ds`` does. ``dlse``
-    (BH, Sq) or None."""
+    (BH, Sq) or None. With dropout, dv takes the dropped probabilities
+    ``z = keep p / (1 - rate)`` and dp becomes ``keep dp / (1 - rate)``;
+    ds keeps the undropped p and delta stays ``rowsum(do o)``."""
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     masked = _masked(q, k, lens, causal)
     p = torch.where(masked, 0.0,
                     torch.exp(s.masked_fill(masked, _NEG) - lse[..., None]))
     dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    z = p
+    if rate > 0.0:
+        keep = dropout_keep_mask_torch(key, p.shape, rate)
+        z = torch.where(keep, p / (1.0 - rate), 0.0)
+        dp = torch.where(keep, dp / (1.0 - rate), 0.0)
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
     extra = dlse[..., None] if dlse is not None else 0.0
     ds = p * (dp - delta + extra) * scale
     dq = torch.einsum("bqk,bkd->bqd", ds, k.float())
     dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
-    dv = torch.einsum("bqk,bqd->bkd", p, do.float())
+    dv = torch.einsum("bqk,bqd->bkd", z, do.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 @functools.cache
 def _flash_bwd_lib():
     fn = _build.load("flash_bwd").flash_bwd
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
-                   ctypes.c_float, i, p]
+                   f, i, p, ctypes.c_uint, f, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def flash_bwd_kernel(q, k, v, o, do, lse, dlse, lens, causal: bool,
-                     scale: float):
+                     scale: float, rate: float = 0.0,
+                     key: Optional[torch.Tensor] = None):
     """Launch K4 on CUDA tensors; returns ``(dq, dk, dv)``. Checks device,
     dtype, shape and layout and raises on anything the kernel does not
-    take. ``dlse`` None reads no dlse operand."""
+    take. ``dlse`` None reads no dlse operand; ``rate > 0`` regenerates the
+    forward's keep mask from ``key``."""
     _check_qkv("K4", q, k, v, lens)
+    kptr, thr, inv = _drop_args(rate, key, q.device)
     BH, Sq, D = q.shape
     Sk = k.shape[1]
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
@@ -204,7 +385,8 @@ def flash_bwd_kernel(q, k, v, o, do, lse, dlse, lens, causal: bool,
                 v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 None if dlse is None else dlse.data_ptr(), lens.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dd.data_ptr(),
-                BH, Sq, Sk, D, float(scale), int(bool(causal)), stream)
+                BH, Sq, Sk, D, float(scale), int(bool(causal)), kptr, thr,
+                inv, stream)
     if rc != 0:
         raise RuntimeError(f"K4 (flash_bwd) launch failed with CUDA error {rc}")
     flash_bwd_kernel.launches += 1
@@ -216,11 +398,12 @@ flash_bwd_kernel.launches = 0
 
 class _FlashForward(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, lens, causal, scale, impl):
+    def forward(ctx, q, k, v, lens, key, causal, scale, rate, impl):
         fn = flash_fwd_kernel if impl == "kernel" else flash_fwd_torch
-        o, lse = fn(q, k, v, lens, causal, scale)
+        o, lse = fn(q, k, v, lens, causal, scale, rate, key)
         ctx.save_for_backward(q, k, v, lens, o, lse)
         ctx.causal, ctx.scale, ctx.impl = causal, scale, impl
+        ctx.rate, ctx.key = rate, key  # the key is a value: K4 replays the mask
         # an unused lse gets a None cotangent, so K4 reads no dlse operand
         ctx.set_materialize_grads(False)
         return o, lse
@@ -233,8 +416,8 @@ class _FlashForward(torch.autograd.Function):
         fn = flash_bwd_kernel if ctx.impl == "kernel" else flash_bwd_torch
         dq, dk, dv = fn(q, k, v, o, do.contiguous(), lse,
                         None if dlse is None else dlse.contiguous(), lens,
-                        ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None, None, None
+                        ctx.causal, ctx.scale, ctx.rate, ctx.key)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _lens_int32(kv_lens, n: int, default: int, device) -> torch.Tensor:
@@ -257,8 +440,8 @@ def flash_attention_with_lse(q3: torch.Tensor, k3: torch.Tensor,
     impl = resolve_impl(impl, q3)
     lens = _lens_int32(kv_lens, q3.shape[0], k3.shape[1], q3.device)
     return _FlashForward.apply(q3.contiguous(), k3.contiguous(),
-                               v3.contiguous(), lens.contiguous(),
-                               bool(causal), float(scale), impl)
+                               v3.contiguous(), lens.contiguous(), None,
+                               bool(causal), float(scale), 0.0, impl)
 
 
 def flash_attention(
@@ -270,7 +453,7 @@ def flash_attention(
     scale: Optional[float] = None,
     kv_lens: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
-    dropout_key=None,
+    dropout_key: Optional[torch.Tensor] = None,
     impl: Optional[str] = None,
 ) -> torch.Tensor:
     """Fused scaled-dot-product attention over ``(B, H, S, D)`` inputs.
@@ -278,7 +461,13 @@ def flash_attention(
     ``kv_lens``: optional ``(B,)`` key lengths; keys at index ``>= len`` are
     masked out. Returns ``(B, H, S, D)`` in q's dtype with fp32 accumulation.
     On CUDA tensors q, k and v must share a dtype; the plain path (CPU, or
-    ``impl="torch"``) also takes mixed dtypes and computes in fp32."""
+    ``impl="torch"``) also takes mixed dtypes and computes in fp32.
+
+    ``dropout_rate``/``dropout_key``: attention-probability dropout in
+    softmax -> dropout -> ``@ v`` order, inside K2 and K4; the key is an
+    int64 ``(2,)`` tensor on q's device
+    (:func:`~beforeholiday_tpu_torch.transformer.tensor_parallel.random.make_key`).
+    A rate with no key raises; rate 0 ignores the key."""
     if q.ndim != 4:
         raise ValueError(f"expected (B, H, S, D) inputs, got {tuple(q.shape)}")
     B, H, S, D = q.shape
@@ -291,14 +480,52 @@ def flash_attention(
             f"causal attention needs matching q/k lengths, got {S} vs {Sk}"
         )
     scale = float(scale) if scale is not None else 1.0 / (D ** 0.5)
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout is training-only and not ported yet"
-        )
+    rate = float(dropout_rate)
+    if rate > 0.0 and dropout_key is None:
+        raise ValueError("dropout_rate > 0 requires a dropout_key")
+    keep_threshold(rate)  # validates the rate
+    key = dropout_key if rate > 0.0 else None
+    if key is not None:
+        _check_key(key, q.device)
+    impl = resolve_impl(impl, q)
     lens = _lens_int32(kv_lens, B, Sk, q.device).repeat_interleave(H)
-    o, _ = flash_attention_with_lse(
-        q.reshape(B * H, S, D), k.reshape(B * H, Sk, D),
-        v.reshape(B * H, Sk, D), causal=causal, scale=scale, kv_lens=lens,
-        impl=impl,
-    )
+    o, _ = _FlashForward.apply(
+        q.reshape(B * H, S, D).contiguous(), k.reshape(B * H, Sk, D).contiguous(),
+        v.reshape(B * H, Sk, D).contiguous(), lens.contiguous(), key,
+        bool(causal), scale, rate, impl)
     return o.reshape(B, H, S, D)
+
+
+def self_attention(
+    x: torch.Tensor,
+    w_qkv: torch.Tensor,
+    b_qkv: Optional[torch.Tensor],
+    w_out: torch.Tensor,
+    b_out: Optional[torch.Tensor],
+    n_heads: int,
+    *,
+    causal: bool = False,
+    kv_lens: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_key: Optional[torch.Tensor] = None,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Self-attention block: QKV projection, flash attention, output
+    projection, both projections on :func:`fused_dense` (one rounding of
+    product plus bias). x: (B, S, D) -> (B, S, D) in x's dtype."""
+    B, S, D = x.shape
+    hd = D // n_heads
+    if hd * n_heads != D:
+        raise ValueError(f"d_model {D} not divisible by n_heads {n_heads}")
+
+    def cast(b):
+        return None if b is None else b.to(x.dtype)
+
+    qkv = fused_dense(x, w_qkv.to(x.dtype), cast(b_qkv))
+    q, k, v = (t.reshape(B, S, n_heads, hd).transpose(1, 2)
+               for t in qkv.chunk(3, dim=-1))
+    ctx = flash_attention(q, k, v, causal=causal, kv_lens=kv_lens,
+                          dropout_rate=dropout_rate, dropout_key=dropout_key,
+                          impl=impl)
+    ctx = ctx.transpose(1, 2).reshape(B, S, D)
+    return fused_dense(ctx, w_out.to(x.dtype), cast(b_out))

@@ -1,13 +1,16 @@
 """Dense and MLP blocks — counterpart of ``beforeholiday_tpu/ops/dense.py``.
 
 The JAX package leaves these products to XLA outside any Pallas kernel, so
-here they are library GEMMs through ``torch.matmul`` (cuBLAS on the card).
+here they are library GEMMs (cuBLAS on the card).
 
-Rounding differs from the JAX contract in one place: JAX multiplies with an
-fp32 accumulator, adds the bias in fp32 and rounds once to the input dtype.
-A bf16 ``torch.matmul`` rounds its product to bf16 before the bias add, so a
-bf16 output can differ by one more bf16 rounding (relative 2**-8 of the
-output); fp32 inputs round identically.
+Rounding follows the JAX contract: the product of bf16 (or fp16) operands
+is kept in fp32 (``preferred_element_type``), the bias is added in fp32 and
+the sum is rounded once to the input dtype. On the card the product and
+the bias are one cuBLAS bf16 x bf16 -> fp32 GEMM (``torch.addmm(bias, x, w,
+out_dtype=torch.float32)``, or ``torch.mm`` without a bias); on the CPU the
+operands are widened to fp32 first, which is exact, since a bf16 x bf16
+product fits in fp32. The backward keeps the half-precision
+products (the output's cotangent is a bf16 value, as in JAX).
 """
 
 from __future__ import annotations
@@ -18,12 +21,41 @@ import torch
 import torch.nn.functional as F
 
 
+class _HalfDense32(torch.autograd.Function):
+    """``x2 @ w + bias32`` for 2-D half-precision operands and an optional
+    fp32 bias, with an fp32 result. The card's bf16 x bf16 -> fp32 GEMM has
+    no derivative in PyTorch, so the backward is written here."""
+
+    @staticmethod
+    def forward(ctx, x2, w, bias32):
+        ctx.save_for_backward(x2, w)
+        ctx.has_bias = bias32 is not None
+        if not x2.is_cuda:
+            y = x2.float() @ w.float()
+            return y if bias32 is None else y + bias32
+        if bias32 is None:
+            return torch.mm(x2, w, out_dtype=torch.float32)
+        return torch.addmm(bias32, x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w = ctx.saved_tensors
+        g = dy.to(x2.dtype)  # a half-precision value: the output's cotangent
+        dx = g @ w.t() if ctx.needs_input_grad[0] else None
+        dw = x2.t() @ g if ctx.needs_input_grad[1] else None
+        db = dy.sum(0) if ctx.has_bias and ctx.needs_input_grad[2] else None
+        return dx, dw, db
+
+
 def _linear32(x, weight, bias):
-    """Product in x's dtype, bias epilogue in fp32; returns fp32."""
-    y = torch.matmul(x, weight.to(x.dtype)).float()
-    if bias is not None:
-        y = y + bias.float()
-    return y
+    """Product with an fp32 result, bias added in fp32; returns fp32."""
+    w = weight.to(x.dtype)
+    b32 = None if bias is None else bias.float()
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        y = torch.matmul(x, w)
+        return y if b32 is None else y + b32
+    y = _HalfDense32.apply(x.reshape(-1, x.shape[-1]), w, b32)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def fused_dense(x: torch.Tensor, weight: torch.Tensor,

@@ -18,6 +18,10 @@ from beforeholiday_tpu_torch.parallel.sync_batch_norm import (
     BatchNormParams,
     BatchNormState,
 )
+from beforeholiday_tpu_torch.transformer.tensor_parallel.random import (
+    fold_in,
+    split,
+)
 
 # this package's namedtuples, by class name: ``jax.tree.map`` keeps the
 # reference's classes, which this package cannot import
@@ -39,6 +43,25 @@ def vocab_head_matmul(x: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
     bf16 ``torch.matmul`` would add (which flips greedy argmax ties)."""
     w = embedding.to(x.dtype).float()
     return torch.matmul(x.float(), w.t())
+
+
+def dropout_keys(dropout_key: Optional[torch.Tensor], n_layers: int,
+                 n_sites: int = 3):
+    """The model's dropout keys as JAX's models derive them one by one:
+    ``(embedding key, site keys)`` with the embedding's ``fold_in(key,
+    0x7FFFFFFF)`` and an ``(n_layers, n_sites, 2)`` tensor of ``fold_in(
+    split(key, n_layers)[i], site)`` for sites 0 (the attention
+    probabilities), 1 and 2. Two batched hash evaluations, so a step
+    launches a few hundred small integer ops on the device rather than
+    thousands. No key (eval) gives ``(None, [None] * n_layers)``."""
+    if dropout_key is None:
+        return None, [None] * n_layers
+    parents = torch.cat((dropout_key[None], split(dropout_key, n_layers)))
+    data = torch.arange(n_sites, dtype=torch.int64, device=dropout_key.device)
+    data = data.expand(n_layers + 1, n_sites).clone()
+    data[0] = 0x7FFFFFFF
+    keys = fold_in(parents[:, None], data)
+    return keys[0, 0], keys[1:]
 
 
 def layer_params(params: dict, i: int) -> dict:

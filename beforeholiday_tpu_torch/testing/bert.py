@@ -21,8 +21,12 @@ are added in bf16 in JAX's order, the MLM transform is a plain bf16
 ``x @ w + b``, the tied decoder returns unrounded fp32 logits to which the
 bf16 output bias is added in fp32, and NSP multiplies in fp32.
 
-Not ported: dropout (``dropout_key`` raises; attention dropout has no kernel
-yet), sequence parallelism and remat. :func:`init` draws
+Dropout follows the JAX model: with a ``dropout_key`` the embedding site
+draws from ``fold_in(key, 0x7FFFFFFF)``, layer i from ``split(key,
+n_layers)[i]``, and within a layer the attention probabilities from
+``fold_in(layer_key, 0)`` (inside K2/K4, or on the unfused path's bf16
+probabilities through K13's mask), the attention output from site 1 and
+the MLP output from site 2. Not ported: sequence parallelism and remat. :func:`init` draws
 from the reference's distributions (different numbers);
 ``params_from_numpy`` takes the reference's own parameters.
 """
@@ -42,15 +46,16 @@ from beforeholiday_tpu_torch.ops import (
     scaled_masked_softmax,
 )
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device
+from beforeholiday_tpu_torch.transformer.tensor_parallel.random import dropout
 from beforeholiday_tpu_torch.testing._model_utils import (  # noqa: F401
     layer_params,
+    dropout_keys,
     layernorm as _layernorm,
     params_from_numpy,
     vocab_head_matmul as _vocab_head_matmul,
 )
 
-# fields whose non-default values select paths this slice does not port (the
-# dropout rates act only with a dropout_key, which forward refuses)
+# fields whose non-default values select paths this slice does not port
 _UNPORTED_FIELDS = ("sequence_parallel", "remat_policy")
 
 
@@ -72,6 +77,9 @@ class BertConfig:
     attention_impl: Optional[str] = None
     # port only: the LayerNorm's impl (K1/K3 or their plain version)
     norm_impl: Optional[str] = None
+    # port only: the dropout masks' impl outside flash attention (K13 or its
+    # plain version)
+    dropout_impl: Optional[str] = None
     dropout_rate: float = 0.0
     attention_dropout: float = 0.0
     remat_policy: Optional[str] = None
@@ -159,47 +167,62 @@ def _heads(t, n_heads):
     return t.reshape(B, S, n_heads, D // n_heads).transpose(1, 2)
 
 
-def _attention(cfg: BertConfig, q, k, v, lens):
+def _attention(cfg: BertConfig, q, k, v, lens, attn_key=None):
     """Bidirectional attention with key-padding lengths; q, k, v (B, H, S,
-    hd) → (B, H, S, hd)."""
+    hd) → (B, H, S, hd). ``attn_key``: the probabilities' dropout key (None
+    = eval)."""
     S = q.shape[2]
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    rate = cfg.attention_dropout if attn_key is not None else 0.0
     if cfg.use_flash_attention:
         return flash_attention(q, k, v, causal=False, scale=scale,
-                               kv_lens=lens, impl=cfg.attention_impl)
+                               kv_lens=lens, dropout_rate=rate,
+                               dropout_key=attn_key, impl=cfg.attention_impl)
     scores = q @ k.transpose(-1, -2)
     mask = (torch.arange(S, device=lens.device)[None, :] >= lens[:, None])
     probs = scaled_masked_softmax(scores, mask[:, None, None, :], scale,
                                   impl=cfg.attention_impl).to(q.dtype)
+    if rate > 0.0:
+        probs = dropout(attn_key, probs, rate, impl=cfg.dropout_impl)
     return probs @ v
 
 
-def _block(cfg: BertConfig, x, lens, lp):
-    """One post-LN encoder block. x: (B, S, D); lens: (B,) key lengths."""
+def _block(cfg: BertConfig, x, lens, lp, keys=None):
+    """One post-LN encoder block. x: (B, S, D); lens: (B,) key lengths;
+    ``keys``: the layer's site keys, JAX's ``fold_in(layer_key, site)``
+    (None = eval)."""
     B, S, D = x.shape
+
+    def drop(t, site):
+        if keys is None or cfg.dropout_rate == 0.0:
+            return t
+        return dropout(keys[site], t, cfg.dropout_rate, impl=cfg.dropout_impl)
+
     qkv = fused_dense(x, lp["wqkv"].to(x.dtype), lp["bqkv"].to(x.dtype))
     q, k, v = (_heads(t, cfg.n_heads) for t in qkv.chunk(3, dim=-1))
-    ctx = _attention(cfg, q, k, v, lens).transpose(1, 2).reshape(B, S, D)
-    attn_out = fused_dense(ctx, lp["wo"].to(x.dtype), lp["bo"].to(x.dtype))
+    attn_key = (keys[0]
+                if keys is not None and cfg.attention_dropout > 0.0 else None)
+    ctx = _attention(cfg, q, k, v, lens, attn_key).transpose(1, 2).reshape(B, S, D)
+    attn_out = drop(
+        fused_dense(ctx, lp["wo"].to(x.dtype), lp["bo"].to(x.dtype)), 1)
     x = _layernorm(x + attn_out, lp["ln1_scale"], lp["ln1_bias"],
                    impl=cfg.norm_impl).to(x.dtype)
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(fused_dense(x, lp["wi"].to(x.dtype), lp["bi"].to(x.dtype)),
                approximate="tanh")
-    mlp_out = fused_dense(h, lp["wo2"].to(x.dtype), lp["bo2"].to(x.dtype))
+    mlp_out = drop(
+        fused_dense(h, lp["wo2"].to(x.dtype), lp["bo2"].to(x.dtype)), 2)
     return _layernorm(x + mlp_out, lp["ln2_scale"], lp["ln2_bias"],
                       impl=cfg.norm_impl).to(x.dtype)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: BertConfig,
             token_types: Optional[torch.Tensor] = None,
-            seq_lens: Optional[torch.Tensor] = None, dropout_key=None):
+            seq_lens: Optional[torch.Tensor] = None,
+            dropout_key: Optional[torch.Tensor] = None):
     """tokens (B, S) integer → ``(mlm_logits (B, S, V) fp32, nsp_logits
-    (B, 2) fp32)``. ``seq_lens`` (B,) masks keys at index >= length."""
-    if dropout_key is not None:
-        raise NotImplementedError(
-            "BERT dropout (and attention dropout's in-kernel mask) is not "
-            "ported yet; call forward without dropout_key")
+    (B, 2) fp32)``. ``seq_lens`` (B,) masks keys at index >= length;
+    ``dropout_key`` switches the cfg dropout sites on (None = eval)."""
     B, S = tokens.shape
     lens = (seq_lens if seq_lens is not None else
             torch.full((B,), S, dtype=torch.int32, device=tokens.device))
@@ -211,8 +234,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg: BertConfig,
     x = _layernorm(x, params["embed_ln_scale"], params["embed_ln_bias"],
                    impl=cfg.norm_impl)
     x = x.to(cfg.dtype)
+    emb_key, keys = dropout_keys(dropout_key, cfg.n_layers)
+    if emb_key is not None and cfg.dropout_rate > 0.0:
+        x = dropout(emb_key, x, cfg.dropout_rate, impl=cfg.dropout_impl)
     for i in range(cfg.n_layers):
-        x = _block(cfg, x, lens, layer_params(params, i))
+        x = _block(cfg, x, lens, layer_params(params, i), keys[i])
 
     # MLM head: dense + GELU + LN in the activation dtype, then the tied
     # decoder's unrounded fp32 logits plus the output bias
@@ -231,10 +257,13 @@ def forward(params: dict, tokens: torch.Tensor, cfg: BertConfig,
 
 
 def pretrain_loss(params, tokens, mlm_targets, mlm_mask, nsp_labels,
-                  cfg: BertConfig, seq_lens=None) -> torch.Tensor:
+                  cfg: BertConfig, seq_lens=None,
+                  dropout_key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """MLM cross entropy over the masked positions only (divided by
-    ``max(sum(mask), 1)``) plus the mean NSP cross entropy."""
-    mlm, nsp = forward(params, tokens, cfg, seq_lens=seq_lens)
+    ``max(sum(mask), 1)``) plus the mean NSP cross entropy. The port's
+    ``dropout_key`` (not in JAX's signature) trains with dropout."""
+    mlm, nsp = forward(params, tokens, cfg, seq_lens=seq_lens,
+                       dropout_key=dropout_key)
     logz = torch.logsumexp(mlm, dim=-1)
     tgt = mlm.gather(-1, mlm_targets[..., None].long())[..., 0]
     mask = mlm_mask.float()

@@ -10,9 +10,19 @@ lands in its own slice of the gradient arena. The forward is differentiable
 (K1/K3, K2/K4 and K11/K12 carry their own backward). Attention runs through
 flash attention (K2/K4) or, with ``use_flash_attention=False``, the unfused
 path: materialized bf16 scores, the causal scaled softmax (K11/K12), then
-``probs @ v``. The MoE, dropout, sequence parallel and remat fields of
-:class:`GPTConfig` are accepted for parity but must stay at their defaults:
-those paths belong to later slices.
+``probs @ v``.
+
+Dropout follows the JAX model: the rates act only when :func:`forward` gets
+a ``dropout_key``. The embedding site draws from ``fold_in(key,
+0x7FFFFFFF)``, layer i from ``split(key, n_layers)[i]``, and within a layer
+the attention probabilities from ``fold_in(layer_key, 0)`` (inside K2/K4,
+or through :func:`~beforeholiday_tpu_torch.transformer.tensor_parallel.random.dropout`
+on the unfused path's bf16 probabilities), the attention output from site
+1 and the MLP output from site 2. The hidden sites and the unfused
+probabilities draw their masks from K13. The keys are the port's own, so
+the two packages draw different masks from one seed. The MoE, sequence
+parallel and remat fields of :class:`GPTConfig` are accepted for parity but
+must stay at their defaults: those paths belong to later slices.
 
 :func:`init` draws from the same distributions as the reference (different
 numbers); :func:`params_from_numpy` and :func:`state_from_numpy` take the
@@ -35,9 +45,11 @@ from beforeholiday_tpu_torch.ops import (
     scaled_upper_triang_masked_softmax,
 )
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device
+from beforeholiday_tpu_torch.transformer.tensor_parallel.random import dropout
 from beforeholiday_tpu_torch.testing._model_utils import (  # noqa: F401
     _tensor,
     layer_params,
+    dropout_keys,
     layernorm as _layernorm,
     params_from_numpy,
     state_from_numpy,
@@ -46,8 +58,7 @@ from beforeholiday_tpu_torch.testing._model_utils import (  # noqa: F401
 
 # fields whose non-default values select paths this slice does not port
 _UNPORTED_FIELDS = (
-    "sequence_parallel", "dropout_rate",
-    "attention_dropout", "remat_policy", "moe_every", "moe_experts",
+    "sequence_parallel", "remat_policy", "moe_every", "moe_experts",
     "moe_top_k", "moe_capacity_factor", "moe_aux_weight", "moe_z_weight",
     "moe_expert_axis", "moe_tensor_axis", "moe_hierarchical",
 )
@@ -70,8 +81,12 @@ class GPTConfig:
     attention_impl: Optional[str] = None
     # port only: the LayerNorm's impl (K1/K3 or their plain version)
     norm_impl: Optional[str] = None
-    dropout_rate: float = 0.0
-    attention_dropout: float = 0.0
+    # port only: the dropout masks' impl outside flash attention (K13 or its
+    # plain version)
+    dropout_impl: Optional[str] = None
+    # active only when forward() gets a dropout_key
+    dropout_rate: float = 0.0          # embedding + post-attn + post-MLP
+    attention_dropout: float = 0.0     # softmax-probs dropout
     remat_policy: Optional[str] = None
     moe_every: int = 0
     moe_experts: int = 4
@@ -147,53 +162,96 @@ def _heads(t, n_heads):
     return t.reshape(B, S, n_heads, D // n_heads).transpose(1, 2)
 
 
-def _attn_sublayer(cfg: GPTConfig, x, lp):
-    """ln1 + causal attention + residual. x: (B, S, D)."""
+def _drop(cfg: GPTConfig, keys, t, site, rate):
+    """Dropout with the key of a numbered site (``keys[site]``, JAX's
+    ``fold_in(layer_key, site)``); no keys (eval) or rate 0 is the
+    identity."""
+    if keys is None or rate == 0.0:
+        return t
+    return dropout(keys[site], t, rate, impl=cfg.dropout_impl)
+
+
+def _attn_sublayer(cfg: GPTConfig, x, lp, keys=None):
+    """ln1 + causal attention + residual. x: (B, S, D); ``keys``: the
+    layer's site keys (None = eval)."""
     B, S, D = x.shape
     h = _layernorm(x, lp["ln1_scale"], lp["ln1_bias"], impl=cfg.norm_impl)
     qkv = fused_dense(h, lp["wqkv"].to(h.dtype), lp["bqkv"].to(h.dtype))
     q, k, v = (_heads(t, cfg.n_heads) for t in qkv.chunk(3, dim=-1))
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    attn_rate = cfg.attention_dropout if keys is not None else 0.0
+    attn_key = keys[0] if attn_rate > 0.0 else None
     if cfg.use_flash_attention:
-        # no (B*H, S, S) score tensor in HBM
+        # no (B*H, S, S) score tensor in HBM; dropout inside K2/K4
         ctx = flash_attention(q, k, v, causal=True, scale=scale,
+                              dropout_rate=attn_rate, dropout_key=attn_key,
                               impl=cfg.attention_impl)
     else:
         # the scores stay in the activation dtype, as JAX's product does
         scores = (q @ k.transpose(-1, -2)).reshape(B * cfg.n_heads, S, S)
         probs = scaled_upper_triang_masked_softmax(
             scores, scale, impl=cfg.attention_impl).to(x.dtype)
-        ctx = probs.reshape(B, cfg.n_heads, S, S) @ v
+        probs = probs.reshape(B, cfg.n_heads, S, S)
+        if attn_rate > 0.0:
+            probs = dropout(attn_key, probs, attn_rate, impl=cfg.dropout_impl)
+        ctx = probs @ v
     ctx = ctx.transpose(1, 2).reshape(B, S, D)
-    return x + fused_dense(ctx, lp["wo"].to(x.dtype), lp["bo"].to(x.dtype))
+    attn_out = fused_dense(ctx, lp["wo"].to(x.dtype), lp["bo"].to(x.dtype))
+    return x + _drop(cfg, keys, attn_out, 1, cfg.dropout_rate)
 
 
-def _block(cfg: GPTConfig, x, lp):
-    """One dense transformer block. x: (B, S, D)."""
-    x = _attn_sublayer(cfg, x, lp)
+def _block(cfg: GPTConfig, x, lp, keys=None):
+    """One dense transformer block. x: (B, S, D); ``keys``: the layer's
+    site keys (None = eval)."""
+    x = _attn_sublayer(cfg, x, lp, keys)
     h = _layernorm(x, lp["ln2_scale"], lp["ln2_bias"], impl=cfg.norm_impl)
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(fused_dense(h, lp["wi"].to(h.dtype), lp["bi"].to(h.dtype)),
                approximate="tanh")
-    return x + fused_dense(h, lp["wo2"].to(x.dtype), lp["bo2"].to(x.dtype))
+    mlp_out = fused_dense(h, lp["wo2"].to(x.dtype), lp["bo2"].to(x.dtype))
+    return x + _drop(cfg, keys, mlp_out, 2, cfg.dropout_rate)
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
-    """tokens (B, S) integer → logits (B, S, V) fp32 (no dropout)."""
+_MOE_AUX_KEYS = ("moe_aux_loss", "moe_z_loss", "moe_drop_fraction")
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: GPTConfig,
+            dropout_key: Optional[torch.Tensor] = None,
+            return_aux: bool = False):
+    """tokens (B, S) integer → logits (B, S, V) fp32. ``dropout_key``
+    switches the cfg dropout sites on (None = eval: identity).
+    ``return_aux=True`` also returns the MoE aux dict, all zeros for the
+    dense model."""
     S = tokens.shape[1]
     x = params["tok_embed"][tokens] + params["pos_embed"][:S]
     x = x.to(cfg.dtype)
+    emb_key, keys = dropout_keys(dropout_key, cfg.n_layers)
+    if emb_key is not None and cfg.dropout_rate > 0.0:
+        x = dropout(emb_key, x, cfg.dropout_rate, impl=cfg.dropout_impl)
     for i in range(cfg.n_layers):
-        x = _block(cfg, x, layer_params(params, i))
+        x = _block(cfg, x, layer_params(params, i), keys[i])
     x = _layernorm(x, params["lnf_scale"], params["lnf_bias"],
                    impl=cfg.norm_impl)
-    return _vocab_head_matmul(x, params["tok_embed"])
+    logits = _vocab_head_matmul(x, params["tok_embed"])
+    if return_aux:
+        return logits, {k: torch.zeros((), dtype=torch.float32,
+                                       device=logits.device)
+                        for k in _MOE_AUX_KEYS}
+    return logits
 
 
 def _cross_entropy(logits, targets):
     logz = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, targets[..., None])[..., 0]
     return (logz - tgt).mean()
+
+
+def loss_and_aux(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
+                 cfg: GPTConfig, dropout_key: Optional[torch.Tensor] = None):
+    """``(loss, aux)``: the next-token cross entropy (with dropout when a
+    key is given) and the MoE aux dict, all zeros for the dense model."""
+    logits, aux = forward(params, tokens, cfg, dropout_key, return_aux=True)
+    return _cross_entropy(logits, targets), aux
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, targets: torch.Tensor,

@@ -50,13 +50,27 @@ Phases, each printing one line (any failure exits non-zero):
     ``bert_large_8layer_b128``), the parity step at batch 2 with ragged
     sequence lengths; then BERT with unfused attention as in 11, the
     key-padding mask built on the card from the lengths;
-13. ResNet-50 (``bench.py`` ``make_resnet_rung``, the ``examples/imagenet``
+13. dropout (slice 6): K13 (the keep mask, CUDA C++) bitwise against its
+    twin at the attention and hidden shapes, with the kept fraction within
+    6 sigma of binomial; K2/K4 with in-kernel dropout against their plain
+    versions fed the same key (the GPT and BERT shapes, fp32, and head dims
+    8, 40, 256 and 512 with and without dropout, which only the CUDA-core
+    row kernels take), K2, K4 and K13 dropping the same slots, and the laws
+    of ``testing/tpu_checks.py`` ``check_flash_dropout``; the
+    ``bench.py`` ``make_flash_dropout_rungs`` rung (causal, rate 0.1, B 2,
+    H 16, S 4096, D 64, forward and backward) against the materialized
+    plain path and ``F.scaled_dot_product_attention(dropout_p=0.1)``;
+    then the GPT and BERT steps at dropout 0.1/0.1 with a per-step key
+    folded from the device step count, flash and unfused: the parity step
+    (same key, so the same masks), the skip step, flash against unfused on
+    one key, and the timed and profiled run with K13's launches counted;
+14. ResNet-50 (``bench.py`` ``make_resnet_rung``, the ``examples/imagenet``
     trainer with FusedSGD): one full-width O5 step at batch 2 on K5/K10
     against the plain path, an inf-weighted step that must change nothing,
     and the O5 and O0 trainers at batch 128 on one fixed batch (10 timed
     steps with the launch counts held, then 3 profiled ones), MFU from the
     convolutions' and ``fc``'s shapes;
-14. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
+15. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
 
 ``F.layer_norm``, ``F.scaled_dot_product_attention``, their backwards,
 ``torch._amp_foreach_non_finite_check_and_unscale_``,
@@ -66,7 +80,9 @@ Phases, each printing one line (any failure exits non-zero):
 (``library_ms``); the port never calls them. No single PyTorch call
 computes LAMB, so K7 and K8 have none; the library softmax applies no scale
 and no mask, so K11's and K12's measure the same traffic, not the same
-function.
+function. No PyTorch call computes K13's hash, so it has none; the
+library's attention dropout draws other random bits, so K2's and K4's
+dropout rows time the same work, not the same function.
 """
 
 import dataclasses
@@ -85,6 +101,13 @@ import torch.nn.functional as F
 # FLOP/s for bf16 tensor cores and fp32 outside them
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the dropout hash's 32-bit integer work, counted against the table's 67 T/s
+# for 32-bit operations outside the tensor cores: Philox4x32-10 is ten rounds
+# of two 32x32 multiplies (high and low words), four xors and (nine times)
+# two key additions, then a shift and a compare a word, 106 operations for
+# the four words of a call: 26.5 an element
+PEAK_INT32 = 67e12
+PHILOX_OPS_PER_ELEMENT = 106 / 4
 
 # the flagship GPT (bench.py make_gpt_rung) and its serving geometry
 MODEL = dict(vocab_size=32000, seq_len=1024, d_model=1024, n_heads=16,
@@ -110,6 +133,11 @@ BERT = dict(vocab_size=30522, seq_len=128, d_model=1024, n_heads=16,
 BERT_BATCH = 128
 BERT_LR = 1e-3
 BERT_PARITY_LENS = (128, 77)
+# dropout as the published configurations train (GPT-2: resid_pdrop and
+# attn_pdrop 0.1; BERT: hidden_dropout_prob and attention_probs_dropout_prob
+# 0.1); the base key of the dropout steps
+DROPOUT = dict(dropout_rate=0.1, attention_dropout=0.1)
+DROPOUT_SEED = 2024
 # kernel launches per training step, by wrapper. GPT: 2 LayerNorms per layer
 # plus the final one, one attention per layer, one unscale and one Adam pass
 # per arena (bf16 and fp32). BERT: the embedding LayerNorm, 2 per layer and
@@ -124,18 +152,28 @@ BERT_PARITY_LENS = (128, 77)
 _NO_LAUNCH = {"layer_norm_fwd": 0, "layer_norm_bwd": 0, "flash_fwd": 0,
               "flash_bwd": 0, "unscale": 0, "adam": 0, "l2norm": 0,
               "lamb_stage1": 0, "scaled_update": 0, "sgd": 0,
-              "softmax_fwd": 0, "softmax_bwd": 0}
+              "softmax_fwd": 0, "softmax_bwd": 0, "dropout_mask": 0}
 _GPT_STEP = {"layer_norm_fwd": 17, "layer_norm_bwd": 17, "unscale": 2,
              "adam": 2}
 _BERT_STEP = {"layer_norm_fwd": 18, "layer_norm_bwd": 18, "unscale": 2,
               "l2norm": 2, "lamb_stage1": 2, "scaled_update": 2}
 _FLASH = {"flash_fwd": 8, "flash_bwd": 8}
 _UNFUSED = {"softmax_fwd": 8, "softmax_bwd": 8}
+# dropout: K13 draws the embedding site's mask and two hidden sites' a layer
+# (17), and on the unfused path each layer's probabilities' too (25); K2/K4
+# drop in-kernel; nothing regenerates a mask in the backward (no remat)
+_HIDDEN_DROP = {"dropout_mask": 17}
+_UNFUSED_DROP = {"dropout_mask": 25}
 STEP_LAUNCHES = {
     "gpt": {**_NO_LAUNCH, **_GPT_STEP, **_FLASH},
     "bert": {**_NO_LAUNCH, **_BERT_STEP, **_FLASH},
     "gpt_unfused": {**_NO_LAUNCH, **_GPT_STEP, **_UNFUSED},
     "bert_unfused": {**_NO_LAUNCH, **_BERT_STEP, **_UNFUSED},
+    "gpt_dropout": {**_NO_LAUNCH, **_GPT_STEP, **_FLASH, **_HIDDEN_DROP},
+    "gpt_unfused_dropout": {**_NO_LAUNCH, **_GPT_STEP, **_UNFUSED, **_UNFUSED_DROP},
+    "bert_dropout": {**_NO_LAUNCH, **_BERT_STEP, **_FLASH, **_HIDDEN_DROP},
+    "bert_unfused_dropout": {**_NO_LAUNCH, **_BERT_STEP, **_UNFUSED,
+                             **_UNFUSED_DROP},
     "resnet_o5": {**_NO_LAUNCH, "unscale": 2, "sgd": 2},
     "resnet_o0": {**_NO_LAUNCH, "unscale": 1, "sgd": 1},
 }
@@ -198,8 +236,12 @@ def time_ms(fn, iters=20):
     return float(np.median(times))
 
 
-def bound_ms(nbytes, flops, dtype):
-    t_bytes, t_ops = nbytes / HBM_BPS, flops / PEAK_FLOPS[dtype]
+def bound_ms(nbytes, flops, dtype, int_ops=0):
+    """The least time: bytes over the memory rate, or the operations of each
+    type over its peak (float on ``dtype``'s, the dropout hash's 32-bit
+    integer work on PEAK_INT32), whichever is larger."""
+    t_bytes = nbytes / HBM_BPS
+    t_ops = max(flops / PEAK_FLOPS[dtype], int_ops / PEAK_INT32)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -210,6 +252,23 @@ def max_err(a, b):
 def check_close(name, got, ref, tol):
     torch.testing.assert_close(got, ref, **tol, msg=lambda m: f"{name}: {m}")
     return max_err(got, ref)
+
+
+def check_dropped_pv(name, o, ref, ref_abs):
+    """K2's bf16 output with dropout: ``|o - ref| <= 2^-7 |ref| + 2^-8
+    ref_abs`` everywhere, ``ref_abs`` the plain version's sum of dropped p
+    times |v| in fp32. The kernel rounds each kept p / (1 - rate) to bf16
+    for its product with v (relative 2^-9), so the sum may part from the
+    fp32 one by 2^-9 ref_abs where its terms cancel; the bound is twice that
+    plus one bf16 rounding of the output, and follows each element."""
+    bound = 2 ** -7 * ref.float().abs() + 2 ** -8 * ref_abs
+    err = (o.float() - ref.float()).abs()
+    bad = err > bound
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} of {bad.numel()} elements "
+                             f"out of tolerance, first at "
+                             f"{bad.nonzero()[0].tolist()}")
+    return float(err.max())
 
 
 def check_softmax_grad(name, dx, ref, y, dy, scale, rtol):
@@ -275,36 +334,74 @@ def k1_phase(norm):
 # ------------------------------------------------------------------- K2
 
 
-def k2_flops_bytes(q, k, lens, causal):
+def live_pairs(q, k, lens, causal):
+    """The (query, key) pairs a flash call computes: keys below each
+    sequence's length, and at or before the query when causal."""
     BH, Sq, D = q.shape
     lens = lens.clamp(0, k.shape[1]).long().cpu()
     if causal:
         rows = torch.arange(Sq)
-        pairs = int(torch.minimum(lens[:, None], rows[None, :] + 1).sum())
-    else:
-        pairs = int(lens.sum()) * Sq
+        return int(torch.minimum(lens[:, None], rows[None, :] + 1).sum())
+    return int(lens.sum()) * Sq
+
+
+def k2_flops_bytes(q, k, lens, causal):
+    BH, Sq, D = q.shape
+    pairs = live_pairs(q, k, lens, causal)
     es = q.element_size()
+    lens = lens.clamp(0, k.shape[1]).long().cpu()
     nbytes = (2 * q.numel() * es + BH * Sq * 4 + BH * 4
               + 2 * int(lens.sum()) * D * es)
     return 4 * pairs * D, nbytes
 
 
+def flash_key():
+    from beforeholiday_tpu_torch.transformer.tensor_parallel.random import make_key
+
+    return make_key(DROPOUT_SEED, device="cuda")
+
+
+def sdpa_mask(lens, Sk, causal):
+    """The boolean key mask of a flash call for the library's attention."""
+    kj = torch.arange(Sk, device="cuda")
+    keep = kj[None, None, :] < lens[:, None, None]
+    if causal:
+        keep = keep & (kj[None, :] <= kj[:, None])
+    return keep
+
+
 def k2_phase(attn):
-    checks = [  # BH, Sq, Sk, D, causal, dtype
-        (256, 1024, 1024, 64, True, torch.bfloat16),
-        (128, 1024, 1024, 64, True, torch.bfloat16),
-        (512, 1, 1024, 64, False, torch.bfloat16),
-        (2048, 128, 128, 64, False, torch.bfloat16),  # BERT, ragged lens
-        (128, 1024, 1024, 64, True, torch.float32),
-        (512, 1, 1024, 64, False, torch.float32),
-        (8, 70, 70, 48, True, torch.float32),
-        (8, 33, 200, 128, False, torch.float32),
-        (8, 70, 70, 48, True, torch.bfloat16),
-        (8, 5, 5, 80, True, torch.bfloat16),
+    """K2 against its plain version; with dropout (``rate``) both fed the
+    same key. Head dims 8, 40, 256 and 512 take the CUDA-core row kernel."""
+    checks = [  # BH, Sq, Sk, D, causal, dtype, rate
+        (256, 1024, 1024, 64, True, torch.bfloat16, 0.0),
+        (128, 1024, 1024, 64, True, torch.bfloat16, 0.0),
+        (512, 1, 1024, 64, False, torch.bfloat16, 0.0),
+        (2048, 128, 128, 64, False, torch.bfloat16, 0.0),  # BERT, ragged lens
+        (128, 1024, 1024, 64, True, torch.float32, 0.0),
+        (512, 1, 1024, 64, False, torch.float32, 0.0),
+        (8, 70, 70, 48, True, torch.float32, 0.0),
+        (8, 33, 200, 128, False, torch.float32, 0.0),
+        (8, 70, 70, 48, True, torch.bfloat16, 0.0),
+        (8, 5, 5, 80, True, torch.bfloat16, 0.0),
+        # dropout: the GPT and BERT training shapes, decode, fp32
+        (256, 1024, 1024, 64, True, torch.bfloat16, 0.1),
+        (2048, 128, 128, 64, False, torch.bfloat16, 0.1),
+        (16, 5, 300, 64, False, torch.bfloat16, 0.1),
+        (8, 70, 70, 48, True, torch.float32, 0.1),
+        # head dims only the row kernels take, with and without dropout
+        (8, 100, 100, 8, True, torch.bfloat16, 0.1),
+        (8, 100, 100, 40, False, torch.bfloat16, 0.0),
+        (8, 100, 100, 40, True, torch.float32, 0.1),
+        (8, 130, 130, 256, True, torch.bfloat16, 0.1),
+        (8, 64, 64, 256, False, torch.float32, 0.0),
+        (8, 100, 100, 512, True, torch.bfloat16, 0.0),
+        (8, 70, 90, 512, False, torch.float32, 0.1),
     ]
     rng = np.random.default_rng(2)
+    key = flash_key()
     rows_out = {}
-    for i, (BH, Sq, Sk, D, causal, dt) in enumerate(checks):
+    for i, (BH, Sq, Sk, D, causal, dt, rate) in enumerate(checks):
         g = gen(10 + i)
         q, k, v = (torch.randn(BH, s, D, generator=g, device="cuda").to(dt)
                    for s in (Sq, Sk, Sk))
@@ -313,32 +410,40 @@ def k2_phase(attn):
         if BH == 256:
             lens_np[:] = Sk  # training: every sequence full
         lens = torch.tensor(lens_np, dtype=torch.int32, device="cuda")
-        args = (q, k, v, lens, causal, D ** -0.5)
+        args = (q, k, v, lens, causal, D ** -0.5, rate, key if rate else None)
         o, lse = attn.flash_fwd_kernel(*args)
         ro, rlse = attn.flash_fwd_torch(*args)
         torch.cuda.synchronize()
-        tag = f"BH{BH} Sq{Sq} Sk{Sk} D{D}{' causal' if causal else ''} {str(dt)[6:]}"
+        tag = (f"BH{BH} Sq{Sq} Sk{Sk} D{D}{' causal' if causal else ''} "
+               f"{str(dt)[6:]}{f' dropout {rate}' if rate else ''}")
         if BH != 256 and not (torch.all(o[0] == 0) and torch.all(lse[0] == -1e30)):
             raise AssertionError(f"K2 {tag}: a lens-0 row is not exactly 0")
-        err = check_close(f"K2 {tag}", o, ro,
-                          BF16_TOL if dt == torch.bfloat16 else FP32_TOL)
+        if dt == torch.bfloat16 and rate:
+            ref_abs = attn.flash_fwd_torch(q.float(), k.float(), v.float().abs(),
+                                           *args[3:])[0]
+            err = check_dropped_pv(f"K2 {tag}", o, ro, ref_abs)
+            del ref_abs
+        else:
+            err = check_close(f"K2 {tag}", o, ro,
+                              BF16_TOL if dt == torch.bfloat16 else FP32_TOL)
         check_close(f"K2 lse {tag}", lse, rlse, dict(rtol=1e-5, atol=1e-4))
         fields = dict(max_abs_err=err)
-        if dt == torch.bfloat16 and BH >= 128:
+        if dt == torch.bfloat16 and BH >= 128 and D == 64:
             flops, nbytes = k2_flops_bytes(q, k, lens, causal)
-            bms, by = bound_ms(nbytes, flops, dt)
-            kj = torch.arange(Sk, device="cuda")
-            keep = kj[None, None, :] < lens[:, None, None]
-            if causal:
-                keep = keep & (kj[None, :] <= torch.arange(Sq, device="cuda")[:, None])
+            int_ops = PHILOX_OPS_PER_ELEMENT * live_pairs(q, k, lens, causal) if rate else 0
+            bms, by = bound_ms(nbytes, flops, dt, int_ops)
+            keep = sdpa_mask(lens, Sk, causal)
             fields.update(
                 ms=time_ms(lambda: attn.flash_fwd_kernel(*args)),
                 plain_ms=time_ms(lambda: attn.flash_fwd_torch(*args), iters=5),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=keep, scale=D ** -0.5)),
+                    q, k, v, attn_mask=keep, scale=D ** -0.5, dropout_p=rate)),
                 bound_ms=bms, bound_by=by)
-            rows_out[{256: "train", 2048: "bert"}.get(
-                BH, "prefill" if causal else "decode")] = (tag, fields)
+            name = {256: "train", 2048: "bert"}.get(
+                BH, "prefill" if causal else "decode")
+            if rate:
+                name = {"train": "gpt_dropout", "bert": "bert_dropout"}[name]
+            rows_out[name] = (tag, fields)
         line("K2", shape=tag, **fields)
     return rows_out
 
@@ -415,20 +520,35 @@ def k4_flops_bytes(q, k, lens, causal):
 
 
 def k4_phase(attn):
-    checks = [  # BH, Sq, Sk, D, causal, dtype, dlse
-        (256, 1024, 1024, 64, True, torch.bfloat16, False),
-        (2048, 128, 128, 64, False, torch.bfloat16, False),  # BERT, ragged
-        (8, 70, 70, 48, True, torch.bfloat16, True),
-        (8, 100, 100, 80, True, torch.bfloat16, False),
-        (8, 64, 200, 128, False, torch.bfloat16, True),
-        (16, 256, 256, 64, True, torch.float32, False),
-        (8, 70, 70, 48, True, torch.float32, True),
-        (8, 100, 100, 80, False, torch.float32, True),
-        (8, 33, 70, 128, False, torch.float32, False),
+    """K4 against its plain version; with dropout (``rate``) both fed the
+    forward's key."""
+    checks = [  # BH, Sq, Sk, D, causal, dtype, dlse, rate
+        (256, 1024, 1024, 64, True, torch.bfloat16, False, 0.0),
+        (2048, 128, 128, 64, False, torch.bfloat16, False, 0.0),  # BERT, ragged
+        (8, 70, 70, 48, True, torch.bfloat16, True, 0.0),
+        (8, 100, 100, 80, True, torch.bfloat16, False, 0.0),
+        (8, 64, 200, 128, False, torch.bfloat16, True, 0.0),
+        (16, 256, 256, 64, True, torch.float32, False, 0.0),
+        (8, 70, 70, 48, True, torch.float32, True, 0.0),
+        (8, 100, 100, 80, False, torch.float32, True, 0.0),
+        (8, 33, 70, 128, False, torch.float32, False, 0.0),
+        # dropout: the GPT and BERT training shapes, fp32
+        (256, 1024, 1024, 64, True, torch.bfloat16, False, 0.1),
+        (2048, 128, 128, 64, False, torch.bfloat16, False, 0.1),
+        (8, 70, 70, 48, True, torch.float32, True, 0.1),
+        # head dims only the row kernels take, with and without dropout
+        (8, 100, 100, 8, True, torch.bfloat16, False, 0.1),
+        (8, 100, 100, 40, False, torch.bfloat16, True, 0.0),
+        (8, 100, 100, 40, True, torch.float32, False, 0.1),
+        (8, 130, 130, 256, True, torch.bfloat16, False, 0.1),
+        (8, 64, 64, 256, False, torch.float32, True, 0.0),
+        (8, 100, 100, 512, True, torch.bfloat16, False, 0.0),
+        (8, 70, 90, 512, False, torch.float32, False, 0.1),
     ]
     rng = np.random.default_rng(22)
+    key = flash_key()
     rows_out = {}
-    for i, (BH, Sq, Sk, D, causal, dt, with_dlse) in enumerate(checks):
+    for i, (BH, Sq, Sk, D, causal, dt, with_dlse, rate) in enumerate(checks):
         g = gen(30 + i)
         q, k, v = (torch.randn(BH, s, D, generator=g, device="cuda").to(dt)
                    for s in (Sq, Sk, Sk))
@@ -437,16 +557,18 @@ def k4_phase(attn):
             lens_np[:2] = (0, Sk)  # a fully masked row and a full one
         lens = torch.tensor(lens_np, dtype=torch.int32, device="cuda")
         scale = D ** -0.5
-        o, lse = attn.flash_fwd_torch(q, k, v, lens, causal, scale)
+        drop = (rate, key if rate else None)
+        o, lse = attn.flash_fwd_torch(q, k, v, lens, causal, scale, *drop)
         do = torch.randn(o.shape, generator=g, device="cuda").to(dt)
         dlse = (torch.randn(lse.shape, generator=g, device="cuda")
                 if with_dlse else None)
-        args = (q, k, v, o, do, lse, dlse, lens, causal, scale)
+        args = (q, k, v, o, do, lse, dlse, lens, causal, scale, *drop)
         got = attn.flash_bwd_kernel(*args)
         ref = attn.flash_bwd_torch(*args)
         torch.cuda.synchronize()
         tag = (f"BH{BH} Sq{Sq} Sk{Sk} D{D}{' causal' if causal else ''} "
-               f"{str(dt)[6:]}{' dlse' if with_dlse else ''}")
+               f"{str(dt)[6:]}{' dlse' if with_dlse else ''}"
+               f"{f' dropout {rate}' if rate else ''}")
         if BH != 256 and not all(torch.all(t[0] == 0) for t in got):
             raise AssertionError(f"K4 {tag}: a lens-0 row is not exactly 0")
         errs = []
@@ -461,7 +583,8 @@ def k4_phase(attn):
         fields = dict(max_abs_err=max(errs))
         if BH in (256, 2048):
             flops, nbytes = k4_flops_bytes(q, k, lens, causal)
-            bms, by = bound_ms(nbytes, flops, dt)
+            int_ops = PHILOX_OPS_PER_ELEMENT * live_pairs(q, k, lens, causal) if rate else 0
+            bms, by = bound_ms(nbytes, flops, dt, int_ops)
             B = TRAIN_BATCH if causal else BERT_BATCH
             H = BH // B
             ql, kl, vl = (t.reshape(B, H, -1, D).clone().requires_grad_(True)
@@ -477,12 +600,169 @@ def k4_phase(attn):
                 plain_ms=time_ms(lambda: attn.flash_bwd_torch(*args), iters=5),
                 library_ms=grad_ms(
                     lambda: F.scaled_dot_product_attention(
-                        ql, kl, vl, attn_mask=keep, is_causal=causal),
+                        ql, kl, vl, attn_mask=keep, is_causal=causal,
+                        dropout_p=rate),
                     (ql, kl, vl), do.reshape(B, H, Sq, D)),
                 bound_ms=bms, bound_by=by)
-            rows_out["train" if BH == 256 else "bert"] = (tag, fields)
+            name = "train" if BH == 256 else "bert"
+            if rate:
+                name = {"train": "gpt_dropout", "bert": "bert_dropout"}[name]
+            rows_out[name] = (tag, fields)
         line("K4", shape=tag, **fields)
     return rows_out
+
+
+# ------------------------------------------------------------- dropout
+
+
+def k13_phase(attn):
+    """K13 bitwise against its twin at the attention and hidden shapes of
+    the dropout steps and at awkward ones; the kept fraction within 6 sigma
+    of binomial. Returns the timed rows of the main paths' shapes, by path."""
+    key = flash_key()
+    checks = [  # shape, rate, the path that gives K13 this shape
+        ((256, 1024, 1024), 0.1, "gpt_unfused_dropout"),  # GPT probabilities
+        ((256, 1024, 1024), 0.3, None),
+        ((1, 16384, 1024), 0.1, None),
+        ((1, 16384, 1024), 0.3, None),
+        ((16, 1024, 1024), 0.1, "gpt_dropout"),           # GPT hidden states
+        ((128, 128, 1024), 0.1, "bert_dropout"),          # BERT hidden states
+        ((2048, 128, 128), 0.1, "bert_unfused_dropout"),  # BERT probabilities
+        ((3, 7, 13), 0.5, None),
+        ((2, 1, 1), 0.3, None),
+    ]
+    rows_out = {}
+    for shape, rate, path in checks:
+        mask = attn.dropout_keep_mask_kernel(key, shape, rate)
+        ref = attn.dropout_keep_mask_torch(key, shape, rate)
+        torch.cuda.synchronize()
+        tag = f"{shape} rate {rate}"
+        if mask.dtype != torch.bool or not torch.equal(mask, ref):
+            raise AssertionError(f"K13 {tag}: differs from its twin in "
+                                 f"{int((mask != ref).sum())} slots")
+        n, keep = mask.numel(), 1.0 - rate
+        kept = int(mask.sum())
+        sigma = (n * keep * rate) ** 0.5
+        if abs(kept - n * keep) > 6 * sigma + 1:
+            raise AssertionError(f"K13 {tag}: kept {kept} of {n}, expected "
+                                 f"{n * keep} +- 6 x {sigma}")
+        del ref
+        fields = dict(max_abs_err=0.0, kept_fraction=kept / n,
+                      sigmas=(kept - n * keep) / max(sigma, 1e-30))
+        if path is not None:
+            bms, by = bound_ms(n + 16, 0, torch.float32,
+                               PHILOX_OPS_PER_ELEMENT * n)
+            fields.update(
+                ms=time_ms(lambda: attn.dropout_keep_mask_kernel(key, shape, rate)),
+                plain_ms=time_ms(lambda: attn.dropout_keep_mask_torch(key, shape, rate),
+                                 iters=5),
+                library_ms=None, bound_ms=bms, bound_by=by)
+            rows_out[path] = (tag, fields)
+        line("K13", shape=tag, **fields)
+        del mask
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def flash_dropout_laws_phase(attn):
+    """``testing/tpu_checks.py`` ``check_flash_dropout`` on the card: rate 0
+    is the no-dropout kernel bitwise, the key decides the mask, the mean of
+    v = 1 stays 1 and its variance follows (rate/keep) sum p^2, K2, K4 and
+    K13 drop the same slots, keys past kv_lens do not leak, and S 8192
+    stays finite forward and backward."""
+    from beforeholiday_tpu_torch.transformer.tensor_parallel.random import make_key
+
+    key, other = flash_key(), make_key(42, device="cuda")
+    g = gen(80)
+    B, H, S, D = 2, 4, 512, 64
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device="cuda") for _ in range(3))
+    fl = attn.flash_attention
+    plain = fl(q, k, v)
+    res = {"rate0_exact": torch.equal(plain, fl(q, k, v, dropout_rate=0.0,
+                                                 dropout_key=key))}
+    a = fl(q, k, v, dropout_rate=0.25, dropout_key=key)
+    res["deterministic"] = torch.equal(a, fl(q, k, v, dropout_rate=0.25,
+                                             dropout_key=key))
+    res["key_sensitive"] = not torch.equal(a, fl(q, k, v, dropout_rate=0.25,
+                                                 dropout_key=other))
+    res["active"] = not torch.equal(a, plain)
+    ones = fl(q, k, torch.ones_like(v), dropout_rate=0.25, dropout_key=key).double()
+    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q, k) / D ** 0.5, -1)
+    pred = (0.25 / 0.75) * float((p * p).sum(-1).mean())
+    mean, ratio = float(ones.mean()), float(ones.var()) / pred
+    res["mean_preserved"] = abs(mean - 1.0) < 0.01
+    res["variance_law"] = 0.5 < ratio < 2.0
+    # v = I makes o the dropped probabilities, do = I makes dv their
+    # transpose: zero exactly where K13 drops
+    BH, n = 8, 64
+    q2, k2 = (torch.randn(BH, n, n, generator=g, device="cuda") for _ in range(2))
+    eye = torch.eye(n, device="cuda").expand(BH, n, n).contiguous()
+    lens = torch.full((BH,), n, dtype=torch.int32, device="cuda")
+    o, lse = attn.flash_fwd_kernel(q2, k2, eye, lens, False, 0.125, 0.3, key)
+    _, _, dv = attn.flash_bwd_kernel(q2, k2, eye, o, eye, lse, None, lens, False,
+                                     0.125, 0.3, key)
+    drop = ~attn.dropout_keep_mask_kernel(key, (BH, n, n), 0.3)
+    res["k2_k4_k13_same_slots"] = (torch.equal(o == 0, drop)
+                                   and torch.equal(dv.transpose(1, 2) == 0, drop))
+    lens2 = torch.tensor([300, 500], dtype=torch.int32, device="cuda")
+    v2 = v.clone()
+    v2[0, :, 300:] = 99.0
+    res["kv_lens_respected"] = torch.equal(
+        fl(q, k, v, kv_lens=lens2, dropout_rate=0.25, dropout_key=key)[0],
+        fl(q, k, v2, kv_lens=lens2, dropout_rate=0.25, dropout_key=key)[0])
+    ql, kl, vl = (torch.randn(1, 8, 8192, 64, generator=g, device="cuda")
+                  .bfloat16().requires_grad_(True) for _ in range(3))
+    out = fl(ql, kl, vl, causal=True, dropout_rate=0.1, dropout_key=key)
+    gq, gk, gv = torch.autograd.grad(out.float().sum(), (ql, kl, vl))
+    res["s8192_fwd_bwd"] = bool(torch.isfinite(out).all()) and all(
+        bool(torch.isfinite(t).all()) for t in (gq, gk, gv))
+    torch.cuda.synchronize()
+    failed = [name for name, ok in res.items() if not ok]
+    if failed:
+        raise AssertionError(f"flash dropout laws failed: {failed} (mean {mean}, "
+                             f"variance ratio {ratio})")
+    line("flash_dropout_laws", **{k_: "pass" for k_ in res}, mean=mean,
+         variance_ratio=ratio)
+
+
+def flash_dropout_rung_phase(attn):
+    """``bench.py`` ``make_flash_dropout_rungs``: causal attention at rate
+    0.1, B 2, H 16, S 4096, D 64, bf16, forward and backward, on K2/K4
+    against the materialized plain path (``impl="torch"``), and
+    ``F.scaled_dot_product_attention(dropout_p=0.1, is_causal=True)`` as the
+    library's time (other random bits: the same work, not the same
+    function). Printed under ``bench.py``'s names."""
+    B, H, S, D = 2, 16, 4096, 64
+    g = gen(81)
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device="cuda").bfloat16()
+               .requires_grad_(True) for _ in range(3))
+    key = flash_key()
+
+    def fwdbwd(impl):
+        def run():
+            o = attn.flash_attention(q, k, v, causal=True, scale=D ** -0.5,
+                                     dropout_rate=0.1, dropout_key=key, impl=impl)
+            return torch.autograd.grad(o.float().sum(), (q, k, v))
+        return run
+
+    def library():
+        o = F.scaled_dot_product_attention(q, k, v, dropout_p=0.1, is_causal=True)
+        return torch.autograd.grad(o.float().sum(), (q, k, v))
+
+    got, ref = fwdbwd("kernel")(), fwdbwd("torch")()
+    torch.cuda.synchronize()
+    errs = [check_close(f"rung d{n}", a, b,
+                        dict(rtol=2e-2, atol=2e-2 * float(b.float().abs().max())))
+            for n, a, b in zip("qkv", got, ref)]
+    del got, ref
+    torch.cuda.empty_cache()
+    flash_ms = time_ms(fwdbwd("kernel"), iters=10)
+    plain_ms = time_ms(fwdbwd("torch"), iters=3)
+    library_ms = time_ms(library, iters=10)
+    line("flash_dropout_rung", shape=f"B{B} H{H} S{S} D{D} causal bf16 dropout 0.1",
+         flash_dropout_s4096_fwdbwd_ms=flash_ms,
+         flash_dropout_vs_unfused=plain_ms / flash_ms, unfused_fwdbwd_ms=plain_ms,
+         library_fwdbwd_ms=library_ms, grad_max_abs_err=max(errs))
 
 
 def o5_specs(params):
@@ -1170,17 +1450,21 @@ def make_gpt_trainer(amp, gpt, fused_adam, params, cfg, impl=None,
                      loss_scale=None, loss_weight=None):
     """The flagship step as ``bench.py`` ``make_gpt_rung`` builds it: amp O5,
     arena-native PackedParams, FusedAdam(lr=1e-4). ``impl="torch"`` puts
-    every op on its plain version; ``loss_weight`` multiplies the loss."""
-    cfg = dataclasses.replace(cfg, attention_impl=impl, norm_impl=impl)
-    m = amp.initialize(lambda p, t: gpt.forward(p, t, cfg), params,
-                       fused_adam(lr=LR, impl=impl), "O5", arena_native=True,
-                       loss_scale=loss_scale)
+    every op on its plain version; ``loss_weight`` multiplies the loss. A
+    config with dropout rates trains with a per-step key (see
+    :func:`scaled_step`)."""
+    cfg = dataclasses.replace(cfg, attention_impl=impl, norm_impl=impl,
+                              dropout_impl=impl)
+    m = amp.initialize(lambda p, t, key: gpt.forward(p, t, cfg, dropout_key=key),
+                       params, fused_adam(lr=LR, impl=impl), "O5",
+                       arena_native=True, loss_scale=loss_scale)
 
-    def loss_fn(p, tok, tgt):
-        loss = gpt.loss_fn(p, tok, tgt, cfg, forward_fn=m.apply)
+    def loss_fn(p, tok, tgt, key):
+        loss = gpt.loss_fn(p, tok, tgt, cfg,
+                           forward_fn=lambda pp, t: m.apply(pp, t, key))
         return loss if loss_weight is None else loss * loss_weight
 
-    return m, *scaled_step(amp, m, loss_fn, impl)
+    return m, *scaled_step(amp, m, loss_fn, impl, has_dropout(cfg))
 
 
 def make_bert_trainer(amp, bert, fused_lamb, params, cfg, impl=None,
@@ -1188,27 +1472,39 @@ def make_bert_trainer(amp, bert, fused_lamb, params, cfg, impl=None,
     """The BERT step as ``bench.py`` ``make_bert_rung`` builds it: amp O5,
     arena-native PackedParams, FusedLAMB(lr=1e-3, weight_decay=0.01), the
     MLM + NSP pretraining loss; here under the amp loss scaler (K5)."""
-    cfg = dataclasses.replace(cfg, attention_impl=impl, norm_impl=impl)
+    cfg = dataclasses.replace(cfg, attention_impl=impl, norm_impl=impl,
+                              dropout_impl=impl)
     m = amp.initialize(lambda p, t: bert.forward(p, t, cfg), params,
                        fused_lamb(lr=BERT_LR, weight_decay=0.01, impl=impl),
                        "O5", arena_native=True, loss_scale=loss_scale)
 
-    def loss_fn(p, tok, tgt, mask, nsp, lens):
+    def loss_fn(p, tok, tgt, mask, nsp, lens, key):
         loss = bert.pretrain_loss(p.unpack(), tok, tgt, mask, nsp, cfg,
-                                  seq_lens=lens)
+                                  seq_lens=lens, dropout_key=key)
         return loss if loss_weight is None else loss * loss_weight
 
-    return m, *scaled_step(amp, m, loss_fn, impl)
+    return m, *scaled_step(amp, m, loss_fn, impl, has_dropout(cfg))
 
 
-def scaled_step(amp, m, loss_fn, impl):
+def has_dropout(cfg):
+    return cfg.dropout_rate > 0.0 or cfg.attention_dropout > 0.0
+
+
+def scaled_step(amp, m, loss_fn, impl, dropout=False):
     """``(state, step)``: ``step(*batch)`` runs one scaled forward and
-    backward and one optimizer step, in place on ``m.params`` and ``state``."""
+    backward and one optimizer step, in place on ``m.params`` and ``state``.
+    The loss function's last argument is the step's dropout key: with
+    ``dropout``, DROPOUT_SEED's key folded with the optimizer's step count,
+    on the card (no host sync), else None."""
+    from beforeholiday_tpu_torch.transformer.tensor_parallel.random import fold_in
+
     svag = amp.scaled_value_and_grad(loss_fn, m.scaler, impl=impl)
     state = {"opt": m.optimizer.init(m.params), "scaler": m.scaler.init()}
+    base = flash_key() if dropout else None
 
     def step(*batch):
-        loss, g, fi, state["scaler"] = svag(m.params, state["scaler"], *batch)
+        key = None if base is None else fold_in(base, state["opt"]["inner"][0]["step"])
+        loss, g, fi, state["scaler"] = svag(m.params, state["scaler"], *batch, key)
         m.params, state["opt"] = m.optimizer.step(m.params, g, state["opt"],
                                                   found_inf=fi)
         return loss, g, fi
@@ -1303,7 +1599,8 @@ def launch_counters(norm, attn, mt, sm):
             "l2norm": mt.l2norm_sq_kernel, "lamb_stage1": mt.lamb_stage1_kernel,
             "scaled_update": mt.scaled_update_kernel, "sgd": mt.sgd_kernel,
             "softmax_fwd": sm.softmax_fwd_kernel,
-            "softmax_bwd": sm.softmax_bwd_kernel}
+            "softmax_bwd": sm.softmax_bwd_kernel,
+            "dropout_mask": attn.dropout_keep_mask_kernel}
 
 
 def unfused_vs_flash_phase(label, forward, batch):
@@ -1326,6 +1623,40 @@ def unfused_vs_flash_phase(label, forward, batch):
     line(label, batch=batch[0].shape[0], unfused_loss=loss_u.item(),
          flash_loss=loss_f.item(), loss_rel_err=rel, loss_tol=UNFUSED_LOSS_TOL,
          logits_max_abs_err=err, logits_tol=LOGIT_TOL)
+
+
+def dropout_flash_vs_unfused_phase(label, gpt, bert, params, bparams, mcfg,
+                                   model, bcfg):
+    """Flash against unfused attention at dropout 0.1/0.1 on one key, both
+    on the kernels, forward: K2's in-kernel mask and K13's mask on the
+    unfused probabilities are drawn at the same (b H + h, query, key), so
+    the two paths drop the same probabilities. GPT at batch 16, BERT at
+    batch 128 with ragged lengths."""
+    from beforeholiday_tpu_torch.ops._autocast import cast_floats
+
+    key = flash_key()
+    if model == "gpt":
+        p16 = cast_floats(params, torch.bfloat16)
+        batch = gpt.synthetic_batch(mcfg, TRAIN_BATCH, generator=gen(73),
+                                    device="cuda")
+
+        def forward(flash, b):
+            c = dataclasses.replace(mcfg, use_flash_attention=flash)
+            logits = gpt.forward(p16, b[0], c, dropout_key=key)
+            return logits, gpt._cross_entropy(logits, b[1])
+    else:
+        p16 = cast_floats(bparams, torch.bfloat16)
+        ragged = np.random.default_rng(74).integers(1, mcfg.seq_len + 1, BERT_BATCH)
+        batch = bert_batch(bert, bcfg, BERT_BATCH, 74, ragged.tolist())
+
+        def forward(flash, b):
+            c = dataclasses.replace(mcfg, use_flash_attention=flash)
+            mlm, _ = bert.forward(p16, b[0], c, seq_lens=b[4], dropout_key=key)
+            return mlm, bert.pretrain_loss(p16, *b[:4], c, seq_lens=b[4],
+                                           dropout_key=key)
+    unfused_vs_flash_phase(label, forward, batch)
+    del p16
+    torch.cuda.empty_cache()
 
 
 def training_phase(label, profile_label, step, batch, counters, expect,
@@ -1444,6 +1775,7 @@ TRAIN_GROUPS = (("K1 layer_norm_fwd", ("_ln_fwd",)),
                 ("K6 adam", ("_adam",)),
                 ("K11 softmax_fwd", ("_softmax_fwd",)),
                 ("K12 softmax_bwd", ("_softmax_bwd",)),
+                ("K13 dropout_mask", ("dropout_mask_kernel",)),
                 ("gemm", GEMM_FRAGMENTS))
 # LAMB's per-tensor norms of p and u are plain torch.dot calls (cuBLAS dot
 # and its reduction), listed before the GEMM fragments they share "cublas"
@@ -1458,6 +1790,7 @@ BERT_GROUPS = (("K1 layer_norm_fwd", ("_ln_fwd",)),
                ("K8 scaled_update", ("_scaled_update",)),
                ("K11 softmax_fwd", ("_softmax_fwd",)),
                ("K12 softmax_bwd", ("_softmax_bwd",)),
+               ("K13 dropout_mask", ("dropout_mask_kernel",)),
                ("per-tensor norms", ("dot_kernel", "reduce_1Block")),
                ("gemm", GEMM_FRAGMENTS))
 
@@ -1694,6 +2027,8 @@ KERNEL_ROWS = (
      "beforeholiday_tpu/ops/softmax.py:48"),
     ("softmax_bwd", "triton", "beforeholiday_tpu_torch/ops/softmax.py",
      "beforeholiday_tpu/ops/softmax.py:63"),
+    ("dropout_mask", "cuda", "beforeholiday_tpu_torch/csrc/dropout_mask.cu",
+     "beforeholiday_tpu/testing/tpu_checks.py:84"),
 )
 
 
@@ -1754,7 +2089,11 @@ def main():
                 "resnet_o5": (rspecs[torch.bfloat16], torch.bfloat16),
                 "resnet_o5_fp32": (rspecs[torch.float32], torch.float32),
                 "resnet_o0": (o0_spec, None)}),
-            "softmax_fwd": k11_phase(sm), "softmax_bwd": k12_phase(sm)}
+            "softmax_fwd": k11_phase(sm), "softmax_bwd": k12_phase(sm),
+            "dropout_mask": k13_phase(attn)}
+    torch.cuda.empty_cache()
+    flash_dropout_laws_phase(attn)
+    flash_dropout_rung_phase(attn)
     torch.cuda.empty_cache()
 
     engine_phase(infer, gpt, cast_floats, params, cfg)
@@ -1854,6 +2193,54 @@ def main():
         STEP_LAUNCHES["bert_unfused"], BERT_GROUPS, card, seq_len=bcfg.seq_len,
         attention="unfused", **lm_work(m, batch))
     del m, step
+    torch.cuda.empty_cache()
+
+    # dropout 0.1/0.1 with a per-step key, flash and unfused: the parity
+    # step at batch 2 (one key, so the kernels and the plain path draw the
+    # same masks), the skip step, flash against unfused on one key, and the
+    # timed run
+    dcfg = dataclasses.replace(cfg, **DROPOUT)
+    dbcfg = dataclasses.replace(bcfg, **DROPOUT)
+    params = gpt.init(cfg, gen(0), device="cuda")
+    gpt_batch = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70),
+                                    device="cuda")
+    bert_train_batch = bert_batch(bert, bcfg, BERT_BATCH, 71)
+    dropout_steps = (
+        ("gpt_dropout", "gpt", dcfg, True), ("gpt_unfused_dropout", "gpt", dcfg, False),
+        ("bert_dropout", "bert", dbcfg, True),
+        ("bert_unfused_dropout", "bert", dbcfg, False))
+    for label, model, mcfg, flash in dropout_steps:
+        mcfg = dataclasses.replace(mcfg, use_flash_attention=flash)
+        if model == "gpt":
+            trainer = (lambda mcfg=mcfg, **kw: make_gpt_trainer(
+                amp, gpt, FusedAdam, params, mcfg, **kw))
+            parity = [gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(s_),
+                                          device="cuda") for s_ in (60, 61)]
+            tol, why = 2 * LR + 1e-6, "2 lr: a gradient sign flip"
+            batch, groups = gpt_batch, TRAIN_GROUPS
+        else:
+            trainer = (lambda mcfg=mcfg, **kw: make_bert_trainer(
+                amp, bert, FusedLAMB, bparams, mcfg, **kw))
+            parity = [bert_batch(bert, bcfg, PARITY_BATCH, s_, BERT_PARITY_LENS)
+                      for s_ in (62, 63)]
+            tol, why = 3 * BERT_LR, "3 lr: a sign flip moves 2 lr times the trust ratio"
+            batch, groups = bert_train_batch, BERT_GROUPS
+        step_parity_phase(f"{label}_step_parity", trainer, parity[0], tol, why)
+        skip_phase(f"{label}_skip_step", trainer, parity[1])
+        if flash:
+            dropout_flash_vs_unfused_phase(f"{model}_dropout_unfused_vs_flash",
+                                           gpt, bert, params, bparams, mcfg, model,
+                                           bcfg)
+        m, _, step = trainer()
+        launches[label] = training_phase(
+            f"{label}_training", f"{label}_profile", step, batch, counters,
+            STEP_LAUNCHES[label], groups, card, seq_len=mcfg.seq_len,
+            attention="flash" if flash else "unfused",
+            dropout=f"{mcfg.dropout_rate}/{mcfg.attention_dropout}",
+            **lm_work(m, batch))
+        del m, step
+        torch.cuda.empty_cache()
+    del params, gpt_batch, bert_train_batch
     torch.cuda.empty_cache()
 
     resnet_step_parity_phase(main_amp, FusedSGD, tree_flatten, rcfg, rweights)

@@ -88,8 +88,13 @@ def test_flash_checks_arguments():
         tattn.flash_attention(q[0], k[0], v[0])
     with pytest.raises(ValueError):  # k/v mismatch
         tattn.flash_attention(q, k, v[:, :, :4])
-    with pytest.raises(NotImplementedError):  # dropout is training-only
+    with pytest.raises(ValueError):  # a dropout rate needs a key
+        tattn.flash_attention(q, k, v, dropout_rate=0.1)
+    with pytest.raises(ValueError):  # a key is an int64 (2,) tensor
         tattn.flash_attention(q, k, v, dropout_rate=0.1, dropout_key=0)
+    with pytest.raises(ValueError):  # rates lie in [0, 1)
+        tattn.flash_attention(q, k, v, dropout_rate=1.0,
+                              dropout_key=torch.zeros(2, dtype=torch.int64))
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if c != "decode_sq1"])
@@ -176,3 +181,31 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         tattn.flash_bwd_kernel(q, k, v, q, q, lens.float()[:, None].expand(2, 8),
                                None, lens, True, 0.25)
+
+
+@pytest.mark.parametrize("D", [8, 40, 256, 512])
+def test_every_gated_head_dim_matches_jax(D):
+    """Head dims the gate admits beyond the tensor-core kernels' 16..128
+    (K2/K4's CUDA-core row kernels take them on the card): the plain path
+    against JAX's Pallas kernels (interpret mode), forward and backward,
+    fp32."""
+    assert tattn.is_flash_available(128, D) and jattn.is_flash_available(128, D)
+    q, k, v = _qkv(1, 2, 128, 128, D, seed=D)
+    do = np.random.default_rng(D).standard_normal(q.shape).astype(np.float32)
+    lens = [128]
+
+    def f(q, k, v):
+        o = jattn.flash_attention(q, k, v, causal=True, impl="pallas",
+                                  kv_lens=jnp.asarray(lens, jnp.int32))
+        return jnp.sum(o * do), o
+
+    (_, ref), grads = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    o = tattn.flash_attention(tq, tk, tv, causal=True,
+                              kv_lens=torch.tensor(lens, dtype=torch.int32))
+    (o * torch.from_numpy(do)).sum().backward()
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+    for t, r in zip((tq, tk, tv), grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), atol=1e-4,
+                                   rtol=1e-5)

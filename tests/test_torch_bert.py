@@ -32,6 +32,7 @@ from beforeholiday_tpu_torch import amp as tamp
 from beforeholiday_tpu_torch.ops.arena import tree_flatten, tree_paths
 from beforeholiday_tpu_torch.optimizers import FusedLAMB as TFusedLAMB
 from beforeholiday_tpu_torch.testing import bert as tbert
+from beforeholiday_tpu_torch.transformer.tensor_parallel.random import make_key
 
 SMALL = dict(vocab_size=512, seq_len=128, d_model=64, n_heads=4, n_layers=2)
 LENS = [128, 77]
@@ -123,7 +124,8 @@ def test_init_matches_the_reference_distributions():
 
 def test_unported_paths_raise():
     """The unfused softmax path builds and runs; dropout rates are accepted
-    (they act only with a dropout key, as in JAX); a dropout key raises."""
+    (they act only with a dropout key, as in JAX); a forward with a dropout
+    key runs and drops."""
     unfused = tbert.BertConfig(**SMALL, use_flash_attention=False)
     up = tbert.init(unfused, torch.Generator().manual_seed(0), device="cpu")
     mlm, nsp = tbert.forward(up, _port_batch()[0], unfused,
@@ -134,8 +136,9 @@ def test_unported_paths_raise():
     tp = tbert.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     mlm, _ = tbert.forward(tp, _port_batch()[0], cfg)
     assert torch.isfinite(mlm).all()
-    with pytest.raises(NotImplementedError):
-        tbert.forward(tp, _port_batch()[0], cfg, dropout_key=0)
+    key = make_key(0, device="cpu")
+    dropped, _ = tbert.forward(tp, _port_batch()[0], cfg, dropout_key=key)
+    assert torch.isfinite(dropped).all() and not torch.equal(dropped, mlm)
 
 
 def test_synthetic_batch_masks_with_the_mask_token():
@@ -236,8 +239,9 @@ TOL = {
     "fp32_act": dict(loss=1e-5, grad_atol=(1e-6, 1e-4), grad_rtol=BF16_ULP,
                      master=1e-4, sq_atol=1e-6),
     # bf16 activations: every layer rounds to bf16 at other places in the
-    # two frameworks
-    "bf16_act": dict(loss=1e-3, grad_atol=(2e-2, 2e-2), grad_rtol=BF16_ULP,
+    # two frameworks; the dense layers round once, as in JAX (the atol is
+    # about twice the worst measured, 1.8e-3 at step 1, 2.1e-3 by step 3)
+    "bf16_act": dict(loss=1e-3, grad_atol=(5e-3, 5e-3), grad_rtol=BF16_ULP,
                      master=3 * LR, sq_atol=1e-5),
 }
 

@@ -1,11 +1,12 @@
 """Kernels K1/K3 (LayerNorm forward/backward, Triton), K2/K4 (flash
-attention forward/backward, CUDA C++), K5 (unscale), K6 (fused Adam), K7
-(LAMB stage 1), K8 (trust-ratio update), K9 (global sum of squares), K10
-(fused SGD) and K11/K12 (scaled masked softmax forward/backward), all
-Triton, against their plain PyTorch versions on the card, and the engine
-and small O5 GPT (FusedAdam; flash and unfused attention), BERT (FusedLAMB;
-both attentions) and ResNet (FusedSGD) training steps on the kernels
-against the plain path.
+attention forward/backward with dropout, CUDA C++), K5 (unscale), K6 (fused
+Adam), K7 (LAMB stage 1), K8 (trust-ratio update), K9 (global sum of
+squares), K10 (fused SGD) and K11/K12 (scaled masked softmax
+forward/backward), all Triton, and K13 (the dropout keep mask, CUDA C++),
+against their plain PyTorch versions on the card, and the engine and small
+O5 GPT (FusedAdam; flash and unfused attention, with and without dropout),
+BERT (FusedLAMB; both attentions, with and without dropout) and ResNet
+(FusedSGD) training steps on the kernels against the plain path.
 
 Marked ``gpu``: without a CUDA device every test skips (the decision is made
 inside the ``cuda`` fixture, never at import, so every pytest worker collects
@@ -138,7 +139,7 @@ def test_k2_matches_plain(cuda, BH, Sq, Sk, D, causal, dtype):
 
 
 @pytest.mark.parametrize("D, dtypes", [
-    (72, (torch.float32,) * 3),                                  # head dim
+    (4, (torch.float32,) * 3),                                   # head dim
     (64, (torch.bfloat16, torch.float32, torch.float32)),        # mixed
     (64, (torch.float16,) * 3),                                  # dtype
 ])
@@ -808,6 +809,200 @@ def test_unfused_step_kernels_match_plain_path(cuda, model):
         torch.cuda.synchronize()
         launched = [fn.launches - c for fn, c in zip(counters, counts)]
         assert launched == ([2, 2, 0, 0] if impl == "kernel" else [0, 0, 0, 0])
+        res[impl] = (loss, g.arenas, o["master"], m.params.arenas)
+    (lk, gk, mk, pk), (lt, gt, mt_, pt) = res["kernel"], res["torch"]
+    torch.testing.assert_close(lk, lt, rtol=2e-3, atol=0)
+    for a, b in zip(gk, gt):
+        torch.testing.assert_close(a, b, rtol=0.05, atol=2e-2 * float(b.abs().max()))
+    for a, b in zip(mk, mt_):
+        torch.testing.assert_close(a, b, rtol=0, atol=3.5e-3)  # up to 3 lr
+    for arena, master in zip(pk, mk):
+        assert torch.equal(arena, master.to(arena.dtype))
+
+
+# ------------------------------------------------------------ dropout (K13)
+
+
+def _key(seed):
+    from beforeholiday_tpu_torch.transformer.tensor_parallel.random import make_key
+
+    return make_key(seed, device="cuda")
+
+
+@pytest.mark.parametrize("shape, rate", [
+    ((256, 1024, 1024), 0.1), ((1, 16384, 1024), 0.3), ((3, 7, 13), 0.5),
+    ((16, 1024, 1024), 0.1), ((2, 5, 9), 0.0),
+])
+def test_k13_matches_its_twin_bitwise(cuda, shape, rate):
+    key = _key(sum(shape))
+    before = tattn.dropout_keep_mask_kernel.launches
+    mask = tattn.dropout_keep_mask(key, shape, rate)
+    assert tattn.dropout_keep_mask_kernel.launches == before + 1
+    ref = tattn.dropout_keep_mask_torch(key, shape, rate)
+    torch.cuda.synchronize()
+    assert mask.dtype == torch.bool and torch.equal(mask, ref)
+    n, p = mask.numel(), 1.0 - rate
+    assert abs(float(mask.sum()) - n * p) <= 6 * (n * p * (1 - p)) ** 0.5 + 1e-9
+
+
+# (BH, Sq, Sk, D, causal, dtype): the tensor-core, decode and CUDA-core
+# kernels, and head dims only the row kernels take
+DROPOUT_SHAPES = [
+    (64, 1024, 1024, 64, True, torch.bfloat16),
+    (256, 128, 128, 64, False, torch.bfloat16),
+    (16, 5, 70, 64, False, torch.bfloat16),
+    (8, 100, 100, 80, True, torch.float32),
+    (4, 100, 100, 8, True, torch.bfloat16),
+    (4, 100, 100, 40, False, torch.float32),
+    (4, 100, 100, 256, True, torch.bfloat16),
+    (4, 70, 90, 512, False, torch.float32),
+    (4, 64, 64, 512, True, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("BH, Sq, Sk, D, causal, dtype", DROPOUT_SHAPES)
+def test_k2_k4_with_dropout_match_plain(cuda, BH, Sq, Sk, D, causal, dtype):
+    q, k, v, lens = _k2_inputs(BH, Sq, Sk, D, dtype, _ragged(BH, Sk), seed=5)
+    scale, key, rate = D ** -0.5, _key(D), 0.1
+    o, lse = tattn.flash_fwd_kernel(q, k, v, lens, causal, scale, rate, key)
+    ro, rlse = tattn.flash_fwd_torch(q, k, v, lens, causal, scale, rate, key)
+    do = torch.randn(o.shape, generator=_gen(6), device=cuda).to(dtype)
+    got = tattn.flash_bwd_kernel(q, k, v, ro, do, rlse, None, lens, causal, scale,
+                                 rate, key)
+    ref = tattn.flash_bwd_torch(q, k, v, ro, do, rlse, None, lens, causal, scale,
+                                rate, key)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        # each kept p / (1 - rate) rounds to bf16 for its product with v:
+        # within 2^-8 of sum p |v| where the terms cancel (chip_smoke.py
+        # check_dropped_pv, PERF.md)
+        ref_abs = tattn.flash_fwd_torch(q.float(), k.float(), v.float().abs(), lens,
+                                        causal, scale, rate, key)[0]
+        assert bool(((o.float() - ro.float()).abs()
+                     <= 2 ** -7 * ro.float().abs() + 2 ** -8 * ref_abs).all())
+    else:
+        torch.testing.assert_close(o, ro, **FP32_TOL)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, **_k4_tol(dtype, b), msg=name)
+    assert all(torch.all(t[0] == 0) for t in got)  # lens 0
+
+
+def test_k2_k4_and_k13_drop_the_same_slots(cuda):
+    """v = I makes o the dropped probabilities (o[b, i, j] = z[b, i, j]) and
+    do = I makes dv their transpose: both are 0 exactly where K13 drops."""
+    BH, S = 8, 64
+    g = _gen(7)
+    q, k = (torch.randn(BH, S, S, generator=g, device=cuda) for _ in range(2))
+    eye = torch.eye(S, device=cuda).expand(BH, S, S).contiguous()
+    lens = torch.full((BH,), S, dtype=torch.int32, device=cuda)
+    key = _key(3)
+    o, lse = tattn.flash_fwd_kernel(q, k, eye, lens, False, 0.125, 0.3, key)
+    _, _, dv = tattn.flash_bwd_kernel(q, k, eye, o, eye, lse, None, lens, False,
+                                      0.125, 0.3, key)
+    drop = ~tattn.dropout_keep_mask(key, (BH, S, S), 0.3)
+    torch.cuda.synchronize()
+    assert torch.equal(o == 0, drop)
+    assert torch.equal(dv.transpose(1, 2) == 0, drop)
+
+
+def test_flash_dropout_laws_on_the_card(cuda):
+    """Rate 0 is the no-dropout kernel bitwise, the same key repeats and
+    another differs, the mean of v = 1 stays 1, and a long causal sequence
+    stays finite forward and backward."""
+    q, k, v, lens = _k2_inputs(8, 256, 256, 64, torch.bfloat16, [256] * 8)
+    o0, _ = tattn.flash_fwd_kernel(q, k, v, lens, False, 0.125)
+    assert torch.equal(o0, tattn.flash_fwd_kernel(q, k, v, lens, False, 0.125,
+                                                  0.0, _key(1))[0])
+    a, _ = tattn.flash_fwd_kernel(q, k, v, lens, False, 0.125, 0.25, _key(1))
+    assert torch.equal(a, tattn.flash_fwd_kernel(q, k, v, lens, False, 0.125,
+                                                 0.25, _key(1))[0])
+    assert not torch.equal(a, tattn.flash_fwd_kernel(q, k, v, lens, False, 0.125,
+                                                     0.25, _key(2))[0])
+    ones, _ = tattn.flash_fwd_kernel(q, k, torch.ones_like(v), lens, False, 0.125,
+                                     0.25, _key(3))
+    assert abs(float(ones.float().mean()) - 1.0) < 0.02
+    g = _gen(8)
+    ql, kl, vl = (torch.randn(1, 8, 8192, 64, generator=g, device=cuda)
+                  .bfloat16().requires_grad_(True) for _ in range(3))
+    out = tattn.flash_attention(ql, kl, vl, causal=True, dropout_rate=0.1,
+                                dropout_key=_key(4))
+    out.float().sum().backward()
+    assert torch.isfinite(out).all() and torch.isfinite(ql.grad).all()
+
+
+def test_dense_bf16_rounds_once_on_the_card(cuda):
+    """fused_dense's bf16 output: cuBLAS's fp32 product plus the fp32 bias
+    rounded once, within one bf16 ulp of the exact sum rounded once."""
+    from beforeholiday_tpu_torch.ops import fused_dense
+
+    g = _gen(9)
+    x = torch.randn(512, 1024, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(1024, 1024, generator=g, device=cuda) * 0.03).bfloat16()
+    b = torch.randn(1024, generator=g, device=cuda).bfloat16()
+    y = fused_dense(x, w, b).float()
+    exact = (x.double() @ w.double() + b.double()).to(torch.bfloat16).float()
+    # one bf16 ulp, plus the fp32 sums' rounding where the bias cancels the
+    # product (as tests/test_torch_dropout.py holds the CPU path)
+    bound = (torch.maximum(y.abs(), exact.abs()) * 2.0 ** -7
+             + 2.0 ** -20 * (x.float().abs() @ w.float().abs()))
+    assert bool(((y - exact).abs() <= bound).all())
+    xg = x.clone().requires_grad_(True)
+    fused_dense(xg, w, b).float().sum().backward()
+    assert xg.grad.dtype == torch.bfloat16 and torch.isfinite(xg.grad.float()).all()
+
+
+@pytest.mark.parametrize("model, flash", [("gpt", True), ("gpt", False),
+                                          ("bert", True), ("bert", False)])
+def test_dropout_step_kernels_match_plain_path(cuda, model, flash):
+    """One O5 step of a small bf16 model at dropout 0.1/0.1 with one key, on
+    K2/K4 (or K11/K12) with in-kernel dropout and K13's masks, against the
+    same step on the plain path drawing the twin's masks."""
+    from beforeholiday_tpu_torch.transformer.tensor_parallel.random import fold_in
+
+    base = dict(vocab_size=512, seq_len=128, d_model=128, n_heads=4, n_layers=2,
+                dtype=torch.bfloat16, use_flash_attention=flash,
+                dropout_rate=0.1, attention_dropout=0.1)
+    mod, opt = (gpt, lambda impl: FusedAdam(lr=1e-3, impl=impl)) if model == "gpt" \
+        else (bert, lambda impl: FusedLAMB(lr=1e-3, weight_decay=0.01, impl=impl))
+    cfg0 = (gpt.GPTConfig if model == "gpt" else bert.BertConfig)(**base)
+    params = mod.init(cfg0, _gen(0), device=cuda)
+    if model == "gpt":
+        batch = gpt.synthetic_batch(cfg0, 2, generator=_gen(1), device=cuda)
+    else:
+        batch = (*bert.synthetic_batch(cfg0, 2, generator=_gen(1), device=cuda),
+                 torch.tensor([128, 77], dtype=torch.int32, device=cuda))
+    base_key = _key(5)
+    res = {}
+    for impl in ("kernel", "torch"):
+        cfg = dataclasses.replace(cfg0, attention_impl=impl, norm_impl=impl,
+                                  dropout_impl=impl)
+        apply_fn = (lambda p, t, key, cfg=cfg: gpt.forward(p, t, cfg, dropout_key=key)) \
+            if model == "gpt" else (lambda p, t, cfg=cfg: bert.forward(p, t, cfg))
+        m = amp.initialize(apply_fn, params, opt(impl), "O5", arena_native=True)
+        o, s = m.optimizer.init(m.params), m.scaler.init()
+        key = fold_in(base_key, o["inner"][0]["step"])
+        if model == "gpt":
+            loss_fn = (lambda p, a, b, cfg=cfg, m=m: gpt.loss_fn(
+                p, a, b, cfg, forward_fn=lambda pp, t: m.apply(pp, t, key)))
+        else:
+            loss_fn = (lambda p, tok, tgt, mask, nsp, lens, cfg=cfg:
+                       bert.pretrain_loss(p.unpack(), tok, tgt, mask, nsp, cfg,
+                                          seq_lens=lens, dropout_key=key))
+        svag = amp.scaled_value_and_grad(loss_fn, m.scaler, impl=impl)
+        counters = (tattn.dropout_keep_mask_kernel, tattn.flash_fwd_kernel,
+                    tattn.flash_bwd_kernel, tsm.softmax_fwd_kernel)
+        counts = [fn.launches for fn in counters]
+        loss, g, fi, s = svag(m.params, s, *batch)
+        m.params, o = m.optimizer.step(m.params, g, o, found_inf=fi)
+        torch.cuda.synchronize()
+        launched = [fn.launches - c for fn, c in zip(counters, counts)]
+        # K13: the embedding site and two hidden sites a layer, plus the
+        # probabilities of each layer on the unfused path
+        want = [5 + (0 if flash else 2), 2 if flash else 0, 2 if flash else 0,
+                0 if flash else 2]
+        assert launched == (want if impl == "kernel" else [0, 0, 0, 0])
         res[impl] = (loss, g.arenas, o["master"], m.params.arenas)
     (lk, gk, mk, pk), (lt, gt, mt_, pt) = res["kernel"], res["torch"]
     torch.testing.assert_close(lk, lt, rtol=2e-3, atol=0)

@@ -88,12 +88,26 @@ def test_gpt_init_shapes_match_jax(models):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("moe_every", 1), ("dropout_rate", 0.1), ("sequence_parallel", True),
+    ("moe_every", 1), ("sequence_parallel", True),
     ("remat_policy", "full"), ("moe_experts", 8),
 ])
 def test_gpt_config_rejects_unported_paths(field, value):
     with pytest.raises(NotImplementedError):
         tgpt.GPTConfig(**TINY, **{field: value})
+
+
+@pytest.mark.parametrize("field", ["dropout_rate", "attention_dropout"])
+def test_gpt_config_accepts_dropout_rates(models, field):
+    """The dropout rates build, and without a dropout key the forward is
+    JAX's no-key forward (the rates act only with a key, as in JAX)."""
+    jcfg, jparams, _, tparams = models
+    tcfg = tgpt.GPTConfig(**TINY, **{field: 0.1})
+    tokens = np.random.default_rng(5).integers(0, TINY["vocab_size"],
+                                               (2, 20)).astype(np.int32)
+    ref = jgpt.forward(jparams, jnp.asarray(tokens),
+                       jgpt.GPTConfig(**TINY, dtype=jnp.float32, **{field: 0.1}))
+    got = tgpt.forward(tparams, torch.from_numpy(tokens).long(), tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
 
 
 def test_gpt_unfused_config_builds_and_runs(models):

@@ -125,8 +125,9 @@ TOL = {
     "fp32_act": dict(loss=1e-5, grad_atol=(1e-6, 1e-4), grad_rtol=BF16_ULP,
                      master=1e-4, sq_atol=1e-6),
     # bf16 activations: every layer rounds to bf16 at other places in the
-    # two frameworks
-    "bf16_act": dict(loss=1e-3, grad_atol=(2e-2, 2e-2), grad_rtol=BF16_ULP,
+    # two frameworks; the dense layers round once, as in JAX (the atol is
+    # about twice the worst measured, 6.8e-4 at step 1, 4.3e-3 by step 3)
+    "bf16_act": dict(loss=1e-3, grad_atol=(2e-3, 1e-2), grad_rtol=BF16_ULP,
                      master=3 * LR, sq_atol=1e-5),
 }
 

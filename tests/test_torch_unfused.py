@@ -47,12 +47,13 @@ BF16_ULP = 2.0 ** -7
 ACT = {"fp32_act": (jnp.float32, torch.float32),
        "bf16_act": (jnp.bfloat16, torch.bfloat16)}
 
-# per activation dtype, the bounds of test_torch_training.py and
-# test_torch_bert.py (PERF.md's tolerance table has the measured values)
+# per activation dtype (PERF.md's tolerance table has the measured values);
+# bf16: about twice the worst measured, GPT 6.3e-4 at step 1 and 4.1e-3 by
+# step 3, the BERT step 2.7e-3
 TOL = {
     "fp32_act": dict(loss=1e-5, grad_atol=(1e-6, 1e-4), grad_rtol=BF16_ULP,
                      master=1e-4, sq_atol=1e-6),
-    "bf16_act": dict(loss=1e-3, grad_atol=(2e-2, 2e-2), grad_rtol=BF16_ULP,
+    "bf16_act": dict(loss=1e-3, grad_atol=(6e-3, 1e-2), grad_rtol=BF16_ULP,
                      master=3e-3, sq_atol=1e-5),
 }
 
