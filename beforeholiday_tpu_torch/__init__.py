@@ -7,13 +7,16 @@ a hand-written Hopper kernel beside a plain PyTorch version of the same
 function. Ported so far (slice 1, serving; slice 2, the O5 GPT training
 step; slice 3, the O5 BERT + FusedLAMB pretraining step; slice 4, the
 ImageNet ResNet-50 training step at O5 and O0 with FusedSGD; slice 5, the
-unfused-attention GPT and BERT steps):
+unfused-attention GPT and BERT steps; slice 6, dropout; slice 7, the fused
+label-smoothing cross entropy):
 
 - ``beforeholiday_tpu_torch.ops``     — LayerNorm/RMSNorm forward and backward
   (kernels K1/K3, Triton), flash attention forward and backward (K2/K4, CUDA
   C++), dense/MLP blocks, flat arenas, the unscale, fused-Adam, LAMB,
   global-norm and fused-SGD arena kernels (K5-K10, Triton), the scaled /
   masked / causal softmax family (K11/K12, Triton).
+- ``beforeholiday_tpu_torch.contrib`` — ``softmax_cross_entropy_loss``, the
+  fused label-smoothing cross entropy (kernels K14/K15, Triton).
 - ``beforeholiday_tpu_torch.amp``     — opt levels O0/O5, device-side loss
   scaling, ``scaled_value_and_grad``.
 - ``beforeholiday_tpu_torch.optimizers`` — ``FusedAdam``, ``FusedLAMB``,
@@ -36,6 +39,7 @@ hands them CPU tensors; with no card and no CPU request they raise.
 
 from beforeholiday_tpu_torch import (  # noqa: F401
     amp,
+    contrib,
     infer,
     models,
     monitor,
@@ -48,5 +52,5 @@ from beforeholiday_tpu_torch import (  # noqa: F401
 
 __version__ = "0.5.0"
 
-__all__ = ["amp", "infer", "models", "monitor", "ops", "optimizers",
+__all__ = ["amp", "contrib", "infer", "models", "monitor", "ops", "optimizers",
            "parallel", "testing", "transformer"]

@@ -64,19 +64,36 @@ Phases, each printing one line (any failure exits non-zero):
     folded from the device step count, flash and unfused: the parity step
     (same key, so the same masks), the skip step, flash against unfused on
     one key, and the timed and profiled run with K13's launches counted;
-14. ResNet-50 (``bench.py`` ``make_resnet_rung``, the ``examples/imagenet``
+14. the fused label-smoothing cross entropy (slice 7): K14 and K15
+    (``contrib/xentropy.py``, Triton) against their plain versions at the
+    GPT head's shape (16,384 x 32,000, fp32 and bf16), BERT's (V 30,522),
+    V 50,257 in bf16 and N 11 x V 96 in fp16, each timed beside its bound
+    and ``F.cross_entropy``; the public ``softmax_cross_entropy_loss`` on
+    the card with padded rows (loss and gradient exactly 0 there) and
+    ``half_to_float``; then the flagship GPT step with this loss as a user
+    script writes it (smoothing 0.1, padding index 0, the first 32 targets
+    padded, the sum over the unpadded count) and the BERT step with its MLM
+    term (padding index [MASK] over the unmasked positions, smoothing 0):
+    the parity step, the skip step, BERT-xent against the ``pretrain_loss``
+    step on the same weights and batch, and the timed and profiled run with
+    K14's and K15's launches counted and the loss's device ms in its own
+    column (the other steps' loss: ``logsumexp``, ``gather`` and their
+    backward);
+15. ResNet-50 (``bench.py`` ``make_resnet_rung``, the ``examples/imagenet``
     trainer with FusedSGD): one full-width O5 step at batch 2 on K5/K10
     against the plain path, an inf-weighted step that must change nothing,
     and the O5 and O0 trainers at batch 128 on one fixed batch (10 timed
     steps with the launch counts held, then 3 profiled ones), MFU from the
     convolutions' and ``fc``'s shapes;
-15. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
+16. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
 
 ``F.layer_norm``, ``F.scaled_dot_product_attention``, their backwards,
 ``torch._amp_foreach_non_finite_check_and_unscale_``,
 ``torch._fused_adamw_``, ``torch.linalg.vector_norm``,
-``torch._fused_sgd_``, ``torch.softmax`` and
-``torch._softmax_backward_data`` are timed here only, as yardsticks
+``torch._fused_sgd_``, ``torch.softmax``,
+``torch._softmax_backward_data`` and ``F.cross_entropy(x, y,
+reduction="none", label_smoothing=s, ignore_index=padding_idx)`` with its
+autograd backward are timed here only, as yardsticks
 (``library_ms``); the port never calls them. No single PyTorch call
 computes LAMB, so K7 and K8 have none; the library softmax applies no scale
 and no mask, so K11's and K12's measure the same traffic, not the same
@@ -152,7 +169,8 @@ DROPOUT_SEED = 2024
 _NO_LAUNCH = {"layer_norm_fwd": 0, "layer_norm_bwd": 0, "flash_fwd": 0,
               "flash_bwd": 0, "unscale": 0, "adam": 0, "l2norm": 0,
               "lamb_stage1": 0, "scaled_update": 0, "sgd": 0,
-              "softmax_fwd": 0, "softmax_bwd": 0, "dropout_mask": 0}
+              "softmax_fwd": 0, "softmax_bwd": 0, "dropout_mask": 0,
+              "xent_fwd": 0, "xent_bwd": 0}
 _GPT_STEP = {"layer_norm_fwd": 17, "layer_norm_bwd": 17, "unscale": 2,
              "adam": 2}
 _BERT_STEP = {"layer_norm_fwd": 18, "layer_norm_bwd": 18, "unscale": 2,
@@ -164,6 +182,8 @@ _UNFUSED = {"softmax_fwd": 8, "softmax_bwd": 8}
 # drop in-kernel; nothing regenerates a mask in the backward (no remat)
 _HIDDEN_DROP = {"dropout_mask": 17}
 _UNFUSED_DROP = {"dropout_mask": 25}
+# the fused cross entropy as the loss: one K14 and one K15 a step
+_XENT = {"xent_fwd": 1, "xent_bwd": 1}
 STEP_LAUNCHES = {
     "gpt": {**_NO_LAUNCH, **_GPT_STEP, **_FLASH},
     "bert": {**_NO_LAUNCH, **_BERT_STEP, **_FLASH},
@@ -174,6 +194,8 @@ STEP_LAUNCHES = {
     "bert_dropout": {**_NO_LAUNCH, **_BERT_STEP, **_FLASH, **_HIDDEN_DROP},
     "bert_unfused_dropout": {**_NO_LAUNCH, **_BERT_STEP, **_UNFUSED,
                              **_UNFUSED_DROP},
+    "gpt_xent": {**_NO_LAUNCH, **_GPT_STEP, **_FLASH, **_XENT},
+    "bert_xent": {**_NO_LAUNCH, **_BERT_STEP, **_FLASH, **_XENT},
     "resnet_o5": {**_NO_LAUNCH, "unscale": 2, "sgd": 2},
     "resnet_o0": {**_NO_LAUNCH, "unscale": 1, "sgd": 1},
 }
@@ -204,6 +226,17 @@ PROB_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-8),
 # gradients fails
 GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7, torch.float16: 2 ** -9}
 SUM_TOL = 1e-5
+# K14's loss and lse: |d| <= XENT_LOSS_TOL (|ref| + |lse|), since lse - x[label]
+# cancels for rows that are confidently right; K15's dx: |d| <= GRAD_RTOL |ref|
+# + XENT_P_TOL |dy| (p + s/V) (plus fp16's subnormal step), since p - s/V
+# cancels; padded rows exactly 0
+XENT_LOSS_TOL = 1e-5
+XENT_P_TOL = 1e-6
+# the GPT-xent step: the Transformer's label smoothing (Vaswani et al. 2017,
+# 5.4), Apex's default padding index 0, and that many targets at the batch's
+# start set to it so that padded rows are really exercised
+XENT_SMOOTHING = 0.1
+XENT_PADDED = 32
 
 
 def line(phase, **fields):
@@ -1296,6 +1329,186 @@ def k12_phase(sm):
     return rows_out
 
 
+# -------------------------------------------------------------- K14-K15
+
+
+def xent_checks():
+    """(N, V, dtype, smoothing, padding index, key, path): the GPT and BERT
+    heads' shapes (on the GPT-xent and BERT-xent paths), then the GPT shape
+    in bf16, V 50,257 in bf16 and N 11 x V 96 in fp16, each timed; ``path``
+    names the run whose launches those rows report."""
+    n, nb = TRAIN_BATCH * MODEL["seq_len"], BERT_BATCH * BERT["seq_len"]
+    V, VB = MODEL["vocab_size"], BERT["vocab_size"]
+    return [
+        (n, V, torch.float32, XENT_SMOOTHING, 0, "gpt_xent", None),
+        (nb, VB, torch.float32, 0.0, VB - 1, "bert_xent", None),
+        (n, V, torch.bfloat16, XENT_SMOOTHING, 0, "gpt_xent_bf16", "gpt_xent"),
+        (n, 50257, torch.bfloat16, XENT_SMOOTHING, 0, "v50257_bf16", "gpt_xent"),
+        (11, 96, torch.float16, XENT_SMOOTHING, 0, "n11_v96_fp16", "gpt_xent"),
+    ]
+
+
+def xent_inputs(N, V, dtype, pad, seed):
+    """Logits (std 2) and labels as the steps give them: with padding index
+    0 random labels and the first XENT_PADDED set to 0; with BERT's [MASK]
+    (V - 1) a target on 15% of the rows and [MASK] on the rest."""
+    g = gen(seed)
+    x = (2 * torch.randn(N, V, generator=g, device="cuda")).to(dtype)
+    if pad == 0:
+        lab = torch.randint(0, V, (N,), generator=g, device="cuda")
+        lab[:XENT_PADDED] = 0
+    else:
+        lab = torch.randint(0, V - 1, (N,), generator=g, device="cuda")
+        lab = torch.where(torch.rand(N, generator=g, device="cuda") < 0.15, lab, pad)
+    return x, lab
+
+
+def xent_tag(N, V, dtype, s, pad):
+    return f"{N}x{V} {str(dtype)[6:]} s{s} pad{pad}"
+
+
+def check_xent_loss(name, loss, lse, rloss, rlse):
+    """K14's check: ``|loss - ref| <= XENT_LOSS_TOL (|ref| + |lse|)`` and
+    ``|lse - ref| <= XENT_LOSS_TOL |lse|`` on every row."""
+    bad = ((loss - rloss).abs() > XENT_LOSS_TOL * (rloss.abs() + rlse.abs())) | (
+        (lse - rlse).abs() > XENT_LOSS_TOL * rlse.abs())
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} of {bad.numel()} rows "
+                             f"out of tolerance, first {bad.nonzero()[0].item()}")
+    return max_err(loss, rloss)
+
+
+def check_xent_grad(name, dx, ref, x, lse, dy, s, lse_err=None):
+    """K15's check: ``|dx - ref| <= GRAD_RTOL |ref| + XENT_P_TOL |dy| (p +
+    s/V)`` everywhere (plus fp16's subnormal step), p the softmax from the
+    same lse. Where the two sides took their lse from K14 and from its plain
+    version, ``lse_err`` (per row) adds what it moves: ``|dy| p lse_err``."""
+    bad = 0
+    for r in range(0, x.shape[0], 2048):  # row blocks: fp32 temporaries
+        sl = slice(r, r + 2048)
+        p = torch.exp(x[sl].float() - lse[sl, None])
+        slack = XENT_P_TOL * (p + s / x.shape[1])
+        if lse_err is not None:
+            slack += p * lse_err[sl, None]
+        bound = GRAD_RTOL[x.dtype] * ref[sl].float().abs() + dy[sl, None].abs() * slack
+        if x.dtype == torch.float16:
+            bound += 2 ** -24
+        bad += int(((dx[sl].float() - ref[sl].float()).abs() > bound).sum())
+    if bad:
+        raise AssertionError(f"{name}: {bad} of {dx.numel()} elements out of "
+                             f"tolerance")
+    return max_err(dx, ref)
+
+
+def k14_phase(xent):
+    """K14 against its plain version on every shape of ``xent_checks``,
+    each timed beside its bound and ``F.cross_entropy``."""
+    rows_out = {}
+    for i, (N, V, dt, s, pad, key, path) in enumerate(xent_checks()):
+        x, lab = xent_inputs(N, V, dt, pad, 140 + i)
+        loss, lse = xent.xent_fwd_kernel(x, lab, s)
+        rloss, rlse = xent.xent_fwd_torch(x, lab, s)
+        torch.cuda.synchronize()
+        tag = xent_tag(N, V, dt, s, pad)
+        fields = dict(max_abs_err=check_xent_loss(f"K14 {tag}", loss, lse, rloss, rlse),
+                      lse_max_abs_err=max_err(lse, rlse), tol=XENT_LOSS_TOL)
+        # the logits and labels read once, loss and lse written once; max,
+        # subtract, exp, rescale and the sum of x per element
+        nbytes = x.numel() * x.element_size() + N * (lab.element_size() + 8)
+        bms, by = bound_ms(nbytes, 6 * x.numel(), torch.float32)
+        fields.update(
+            ms=time_ms(lambda: xent.xent_fwd_kernel(x, lab, s)),
+            plain_ms=time_ms(lambda: xent.xent_fwd_torch(x, lab, s), iters=5),
+            library_ms=time_ms(lambda: F.cross_entropy(
+                x, lab, reduction="none", label_smoothing=s, ignore_index=pad)),
+            bound_ms=bms, bound_by=by, **({} if path is None else dict(path=path)))
+        rows_out[key] = (tag, fields)
+        line("K14", shape=tag, **fields)
+        del x, lab, loss, lse, rloss, rlse
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def k15_phase(xent):
+    """K15 against its plain version on the same lse and dy (0 on the padded
+    rows, as the wrapper hands it), which must get exactly 0; each shape
+    timed beside its bound and ``F.cross_entropy``'s backward."""
+    rows_out = {}
+    for i, (N, V, dt, s, pad, key, path) in enumerate(xent_checks()):
+        x, lab = xent_inputs(N, V, dt, pad, 150 + i)
+        _, lse = xent.xent_fwd_torch(x, lab, s)
+        dy = torch.randn(N, generator=gen(160 + i), device="cuda")
+        dy = torch.where(lab == pad, 0.0, dy)
+        dx = xent.xent_bwd_kernel(x, lab, lse, dy, s)
+        rdx = xent.xent_bwd_torch(x, lab, lse, dy, s)
+        torch.cuda.synchronize()
+        tag = xent_tag(N, V, dt, s, pad)
+        fields = dict(max_abs_err=check_xent_grad(f"K15 {tag}", dx, rdx, x, lse, dy, s),
+                      rtol=GRAD_RTOL[dt], p_tol=XENT_P_TOL)
+        if not torch.all(dx[lab == pad] == 0):
+            raise AssertionError(f"K15 {tag}: a padded row has a gradient")
+        del rdx
+        # the logits read and dx written once, the per-row vectors read once;
+        # subtract, exp, compare, multiply-add, subtract, multiply per element
+        nbytes = x.numel() * 2 * x.element_size() + N * (lab.element_size() + 8)
+        bms, by = bound_ms(nbytes, 6 * x.numel(), torch.float32)
+        xl = x.clone().requires_grad_(True)
+        fields.update(
+            ms=time_ms(lambda: xent.xent_bwd_kernel(x, lab, lse, dy, s)),
+            plain_ms=time_ms(lambda: xent.xent_bwd_torch(x, lab, lse, dy, s), iters=5),
+            library_ms=grad_ms(lambda: F.cross_entropy(
+                xl, lab, reduction="none", label_smoothing=s, ignore_index=pad),
+                (xl,), dy.to(dt)),
+            bound_ms=bms, bound_by=by, **({} if path is None else dict(path=path)))
+        rows_out[key] = (tag, fields)
+        line("K15", shape=tag, **fields)
+        del x, xl, lab, lse, dy, dx
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def xent_function_phase(xent):
+    """``softmax_cross_entropy_loss`` on the card at the GPT head's shape,
+    fp32 and bf16 with ``half_to_float``, forward and backward on K14/K15
+    against the plain path: the losses in the dtype asked for, the padded
+    rows' loss and gradient exactly 0, the rest within K14's and K15's
+    bounds."""
+    n, V = TRAIN_BATCH * MODEL["seq_len"], MODEL["vocab_size"]
+    for dt, h2f in ((torch.float32, False), (torch.bfloat16, True)):
+        x, lab = xent_inputs(n, V, dt, 0, 170)
+        w = torch.randn(n, generator=gen(171), device="cuda")
+        out = {}
+        for impl in (None, "torch"):
+            xl = x.clone().requires_grad_(True)
+            loss = xent.softmax_cross_entropy_loss(
+                xl, lab, smoothing=XENT_SMOOTHING, padding_idx=0,
+                half_to_float=h2f, impl=impl)
+            (loss.float() * w).sum().backward()
+            torch.cuda.synchronize()
+            if loss.dtype != (torch.float32 if h2f else dt) or xl.grad.dtype != dt:
+                raise AssertionError(f"xent_function ({impl}): dtypes "
+                                     f"{loss.dtype}, {xl.grad.dtype}")
+            pad = lab == 0
+            if not (torch.all(loss[pad] == 0) and torch.all(xl.grad[pad] == 0)):
+                raise AssertionError(f"xent_function ({impl}): a padded row has "
+                                     f"a loss or a gradient")
+            out[impl] = (loss.detach().float(), xl.grad)
+            del xl
+        _, klse = xent.xent_fwd_kernel(x, lab, XENT_SMOOTHING)
+        _, rlse = xent.xent_fwd_torch(x, lab, XENT_SMOOTHING)
+        tag = xent_tag(n, V, dt, XENT_SMOOTHING, 0)
+        (lk, gk), (lt, gt) = out[None], out["torch"]
+        loss_err = check_xent_loss(f"xent_function {tag}", lk, klse, lt, rlse)
+        dy = torch.where(lab == 0, 0.0, w)
+        grad_err = check_xent_grad(f"xent_function {tag}", gk, gt, x, rlse, dy,
+                                   XENT_SMOOTHING, lse_err=(klse - rlse).abs())
+        line("xent_function", shape=tag, half_to_float=h2f,
+             padded_rows=int((lab == 0).sum()), loss_max_abs_err=loss_err,
+             grad_max_abs_err=grad_err, padded="loss and gradient exactly 0")
+        del x, lab, w, out, lk, gk, lt, gt, klse, rlse, dy
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- engine
 
 
@@ -1447,12 +1660,13 @@ def profile_phase(infer, eng, cfg):
 
 
 def make_gpt_trainer(amp, gpt, fused_adam, params, cfg, impl=None,
-                     loss_scale=None, loss_weight=None):
+                     loss_scale=None, loss_weight=None, loss=None):
     """The flagship step as ``bench.py`` ``make_gpt_rung`` builds it: amp O5,
     arena-native PackedParams, FusedAdam(lr=1e-4). ``impl="torch"`` puts
-    every op on its plain version; ``loss_weight`` multiplies the loss. A
-    config with dropout rates trains with a per-step key (see
-    :func:`scaled_step`)."""
+    every op on its plain version; ``loss_weight`` multiplies the loss;
+    ``loss(logits, targets, impl)`` replaces ``gpt.loss_fn``'s cross
+    entropy, as a user script passes its own loss. A config with dropout
+    rates trains with a per-step key (see :func:`scaled_step`)."""
     cfg = dataclasses.replace(cfg, attention_impl=impl, norm_impl=impl,
                               dropout_impl=impl)
     m = amp.initialize(lambda p, t, key: gpt.forward(p, t, cfg, dropout_key=key),
@@ -1460,18 +1674,23 @@ def make_gpt_trainer(amp, gpt, fused_adam, params, cfg, impl=None,
                        arena_native=True, loss_scale=loss_scale)
 
     def loss_fn(p, tok, tgt, key):
-        loss = gpt.loss_fn(p, tok, tgt, cfg,
-                           forward_fn=lambda pp, t: m.apply(pp, t, key))
-        return loss if loss_weight is None else loss * loss_weight
+        fwd = lambda pp, t: m.apply(pp, t, key)
+        if loss is None:
+            value = gpt.loss_fn(p, tok, tgt, cfg, forward_fn=fwd)
+        else:
+            value = loss(fwd(p, tok), tgt, impl)
+        return value if loss_weight is None else value * loss_weight
 
     return m, *scaled_step(amp, m, loss_fn, impl, has_dropout(cfg))
 
 
 def make_bert_trainer(amp, bert, fused_lamb, params, cfg, impl=None,
-                      loss_scale=None, loss_weight=None):
+                      loss_scale=None, loss_weight=None, loss=None):
     """The BERT step as ``bench.py`` ``make_bert_rung`` builds it: amp O5,
     arena-native PackedParams, FusedLAMB(lr=1e-3, weight_decay=0.01), the
-    MLM + NSP pretraining loss; here under the amp loss scaler (K5)."""
+    MLM + NSP pretraining loss; here under the amp loss scaler (K5).
+    ``loss(mlm, nsp, targets, mask, nsp_labels, impl)`` replaces
+    ``pretrain_loss``'s objective on the model's two heads."""
     cfg = dataclasses.replace(cfg, attention_impl=impl, norm_impl=impl,
                               dropout_impl=impl)
     m = amp.initialize(lambda p, t: bert.forward(p, t, cfg), params,
@@ -1479,11 +1698,58 @@ def make_bert_trainer(amp, bert, fused_lamb, params, cfg, impl=None,
                        "O5", arena_native=True, loss_scale=loss_scale)
 
     def loss_fn(p, tok, tgt, mask, nsp, lens, key):
-        loss = bert.pretrain_loss(p.unpack(), tok, tgt, mask, nsp, cfg,
-                                  seq_lens=lens, dropout_key=key)
-        return loss if loss_weight is None else loss * loss_weight
+        if loss is None:
+            value = bert.pretrain_loss(p.unpack(), tok, tgt, mask, nsp, cfg,
+                                       seq_lens=lens, dropout_key=key)
+        else:
+            mlm, nsp_logits = bert.forward(p.unpack(), tok, cfg, seq_lens=lens,
+                                           dropout_key=key)
+            value = loss(mlm, nsp_logits, tgt, mask, nsp, impl)
+        return value if loss_weight is None else value * loss_weight
 
     return m, *scaled_step(amp, m, loss_fn, impl, has_dropout(cfg))
+
+
+def gpt_xent_loss(xent):
+    """The GPT-xent step's loss as a user script writes it: Apex's fused
+    cross entropy over the flattened logits with label smoothing
+    XENT_SMOOTHING and padding index 0, summed and divided by the number of
+    unpadded targets (at least 1), on the card with no host sync."""
+    def loss(logits, tgt, impl):
+        t = tgt.reshape(-1)
+        per = xent.softmax_cross_entropy_loss(
+            logits.reshape(-1, logits.shape[-1]), t, smoothing=XENT_SMOOTHING,
+            padding_idx=0, impl=impl)
+        return per.sum() / torch.clamp((t != 0).sum(), min=1)
+
+    return loss
+
+
+def bert_xent_loss(xent, mask_id):
+    """The BERT-xent step's loss: the MLM term through the fused cross
+    entropy over ``where(mask, targets, [MASK])`` with padding index [MASK]
+    (never a target) and no smoothing, summed and divided by ``max(sum(mask),
+    1)``; the NSP term as in ``pretrain_loss``. This is ``pretrain_loss``'s
+    objective."""
+    def loss(mlm, nsp, tgt, mask, nsp_labels, impl):
+        labels = torch.where(mask > 0, tgt, mask_id).reshape(-1)
+        per = xent.softmax_cross_entropy_loss(
+            mlm.reshape(-1, mlm.shape[-1]), labels, padding_idx=mask_id, impl=impl)
+        mlm_loss = per.sum() / torch.clamp(mask.sum(), min=1.0)
+        nsp_logz = torch.logsumexp(nsp, dim=-1)
+        nsp_tgt = nsp.gather(-1, nsp_labels[:, None].long())[:, 0]
+        return mlm_loss + (nsp_logz - nsp_tgt).mean()
+
+    return loss
+
+
+def xent_batch(batch):
+    """The GPT batch with its first XENT_PADDED targets set to the padding
+    index 0 (``testing/tpu_checks.py`` forces padded rows the same way)."""
+    tok, tgt = batch
+    tgt = tgt.clone()
+    tgt.view(-1)[:XENT_PADDED] = 0
+    return tok, tgt
 
 
 def has_dropout(cfg):
@@ -1520,31 +1786,37 @@ def snapshot(m, state):
             [{k: v.clone() for k, v in b.items()} for b in inner])
 
 
-def step_parity_phase(label, trainer, batch, master_tol, why):
+def step_parity_phase(label, trainer, batch, master_tol, why, ref=None,
+                      ref_name="plain", loss_tol=5e-3, grad_tol=0.05):
     """One full-width step at batch 2 on the kernels and on the plain path
-    from the same weights and batch. ``master_tol`` bounds how far the two
-    paths' masters may part (``why`` says why)."""
+    from the same weights and batch; or, with ``ref`` (a trainer on the
+    kernels too, named ``ref_name``), against ``ref``'s step. ``master_tol``
+    bounds how far the two paths' masters may part (``why`` says why),
+    ``loss_tol`` their losses (relative), ``grad_tol`` their gradient arenas
+    (relative L2)."""
     res = {}
-    for impl in (None, "torch"):
-        m, state, step = trainer(impl=impl)
+    makers = {"kernels": trainer,
+              "ref": ref or (lambda **kw: trainer(impl="torch", **kw))}
+    for name, make in makers.items():
+        m, state, step = make()
         loss, g, fi = step(*batch)
         torch.cuda.synchronize()
         if bool(fi):
-            raise AssertionError(f"{label} ({impl}): found_inf set")
+            raise AssertionError(f"{label} ({name}): found_inf set")
         model, masters, _ = snapshot(m, state)
         for arena, master in zip(model, masters):
             if not torch.equal(arena, master.to(arena.dtype)):
                 raise AssertionError(
-                    f"{label} ({impl}): model arena != masters.to(dtype)")
-        res[impl] = (loss.item(), [a.clone() for a in g.arenas], masters)
+                    f"{label} ({name}): model arena != masters.to(dtype)")
+        res[name] = (loss.item(), [a.clone() for a in g.arenas], masters)
         del m, state, step, g
         torch.cuda.empty_cache()
-    (lk, gk, mk), (lp, gp, mp) = res[None], res["torch"]
+    (lk, gk, mk), (lp, gp, mp) = res["kernels"], res["ref"]
     loss_err = abs(lk - lp) / abs(lp)
-    if not (np.isfinite(lk) and loss_err < 5e-3):
-        raise AssertionError(f"{label}: loss {lk} vs plain {lp}")
+    if not (np.isfinite(lk) and loss_err < loss_tol):
+        raise AssertionError(f"{label}: loss {lk} vs reference {lp}")
     grad_rel = [float((a - b).norm() / b.norm()) for a, b in zip(gk, gp)]
-    if max(grad_rel) > 0.05:
+    if max(grad_rel) > grad_tol:
         raise AssertionError(f"{label}: grad arenas differ, rel L2 {grad_rel}")
     master_err = max(max_err(a, b) for a, b in zip(mk, mp))
     if master_err > master_tol:
@@ -1552,7 +1824,9 @@ def step_parity_phase(label, trainer, batch, master_tol, why):
                              f"> {master_tol} ({why})")
     flips = sum(int(((a - b).abs() > master_tol / 2).sum()) for a, b in zip(mk, mp))
     line(label, batch=PARITY_BATCH, loss=lk, plain_loss=lp,
-         loss_rel_err=loss_err, grad_rel_l2=max(grad_rel),
+         reference=ref_name,
+         loss_rel_err=loss_err, loss_tol=loss_tol, grad_rel_l2=max(grad_rel),
+         grad_tol=grad_tol,
          grad_max_abs_err=max(max_err(a, b) for a, b in zip(gk, gp)),
          master_max_abs_err=master_err, master_tol=master_tol,
          master_sign_flips=flips, model_arena_is_master_cast="bitwise")
@@ -1590,7 +1864,7 @@ def skip_phase(label, trainer, batch):
     torch.cuda.empty_cache()
 
 
-def launch_counters(norm, attn, mt, sm):
+def launch_counters(norm, attn, mt, sm, xent):
     return {"layer_norm_fwd": norm.ln_fwd_kernel,
             "layer_norm_bwd": norm.ln_bwd_kernel,
             "flash_fwd": attn.flash_fwd_kernel,
@@ -1600,7 +1874,8 @@ def launch_counters(norm, attn, mt, sm):
             "scaled_update": mt.scaled_update_kernel, "sgd": mt.sgd_kernel,
             "softmax_fwd": sm.softmax_fwd_kernel,
             "softmax_bwd": sm.softmax_bwd_kernel,
-            "dropout_mask": attn.dropout_keep_mask_kernel}
+            "dropout_mask": attn.dropout_keep_mask_kernel,
+            "xent_fwd": xent.xent_fwd_kernel, "xent_bwd": xent.xent_bwd_kernel}
 
 
 def unfused_vs_flash_phase(label, forward, batch):
@@ -1776,6 +2051,8 @@ TRAIN_GROUPS = (("K1 layer_norm_fwd", ("_ln_fwd",)),
                 ("K11 softmax_fwd", ("_softmax_fwd",)),
                 ("K12 softmax_bwd", ("_softmax_bwd",)),
                 ("K13 dropout_mask", ("dropout_mask_kernel",)),
+                ("K14 xent_fwd", ("_xent_fwd",)),
+                ("K15 xent_bwd", ("_xent_bwd",)),
                 ("gemm", GEMM_FRAGMENTS))
 # LAMB's per-tensor norms of p and u are plain torch.dot calls (cuBLAS dot
 # and its reduction), listed before the GEMM fragments they share "cublas"
@@ -1791,13 +2068,39 @@ BERT_GROUPS = (("K1 layer_norm_fwd", ("_ln_fwd",)),
                ("K11 softmax_fwd", ("_softmax_fwd",)),
                ("K12 softmax_bwd", ("_softmax_bwd",)),
                ("K13 dropout_mask", ("dropout_mask_kernel",)),
+               ("K14 xent_fwd", ("_xent_fwd",)),
+               ("K15 xent_bwd", ("_xent_bwd",)),
                ("per-tensor norms", ("dot_kernel", "reduce_1Block")),
                ("gemm", GEMM_FRAGMENTS))
 
 
+# the library cross entropy's ops (``gpt._cross_entropy``, ``pretrain_loss``):
+# their device time with their children's, the backward nodes' with the
+# engine's sum of the two logits gradients that it runs inside them
+LOSS_OPS = ("aten::logsumexp", "aten::gather",
+            "autograd::engine::evaluate_function: LogsumexpBackward0",
+            "autograd::engine::evaluate_function: GatherBackward0")
+
+
+def loss_ops_ms(prof):
+    """Device ms of the outermost LOSS_OPS events of a profile."""
+    total = 0.0
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU or evt.name not in LOSS_OPS:
+            continue
+        parent = evt.cpu_parent
+        while parent is not None and parent.name not in LOSS_OPS:
+            parent = parent.cpu_parent
+        if parent is None:
+            total += evt.device_time_total / 1e3
+    return total
+
+
 def train_profile(label, step, batch, groups):
     """PROFILE_STEPS more steps under torch.profiler: device time by layer
-    (per step) and the device's idle share over the window."""
+    (per step), the library cross entropy's device time (LOSS_OPS; the
+    fused one is K14 + K15 in the layers) and the device's idle share over
+    the window."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -1817,6 +2120,7 @@ def train_profile(label, step, batch, groups):
         "steps": PROFILE_STEPS, "wall_ms_per_step": wall_ms * per,
         "device_busy_ms_per_step": busy * per, "idle_share": 1.0 - busy / wall_ms,
         "by_layer_ms_per_step": {k: v * per for k, v in by_group.items()},
+        "loss_ops_ms_per_step": loss_ops_ms(prof) * per,
         "top_kernels_ms_per_step": {k[:90]: v * per for k, v in top}}),
         flush=True)
 
@@ -2029,6 +2333,10 @@ KERNEL_ROWS = (
      "beforeholiday_tpu/ops/softmax.py:63"),
     ("dropout_mask", "cuda", "beforeholiday_tpu_torch/csrc/dropout_mask.cu",
      "beforeholiday_tpu/testing/tpu_checks.py:84"),
+    ("xent_fwd", "triton", "beforeholiday_tpu_torch/contrib/xentropy.py",
+     "beforeholiday_tpu/contrib/xentropy.py:48"),
+    ("xent_bwd", "triton", "beforeholiday_tpu_torch/contrib/xentropy.py",
+     "beforeholiday_tpu/contrib/xentropy.py:64"),
 )
 
 
@@ -2037,6 +2345,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from beforeholiday_tpu_torch import _build, amp, infer
+    from beforeholiday_tpu_torch.contrib import xentropy as xent
     from beforeholiday_tpu_torch.ops._autocast import cast_floats
     from beforeholiday_tpu_torch.ops import attention as attn
     from beforeholiday_tpu_torch.ops import multi_tensor as mt
@@ -2090,8 +2399,10 @@ def main():
                 "resnet_o5_fp32": (rspecs[torch.float32], torch.float32),
                 "resnet_o0": (o0_spec, None)}),
             "softmax_fwd": k11_phase(sm), "softmax_bwd": k12_phase(sm),
-            "dropout_mask": k13_phase(attn)}
+            "dropout_mask": k13_phase(attn),
+            "xent_fwd": k14_phase(xent), "xent_bwd": k15_phase(xent)}
     torch.cuda.empty_cache()
+    xent_function_phase(xent)
     flash_dropout_laws_phase(attn)
     flash_dropout_rung_phase(attn)
     torch.cuda.empty_cache()
@@ -2103,7 +2414,7 @@ def main():
     del eng
     torch.cuda.empty_cache()
 
-    counters = launch_counters(norm, attn, mt, sm)
+    counters = launch_counters(norm, attn, mt, sm, xent)
     gpt_trainer = lambda **kw: make_gpt_trainer(amp, gpt, FusedAdam, params,
                                                 cfg, **kw)
     batch = gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(60),
@@ -2240,7 +2551,51 @@ def main():
             **lm_work(m, batch))
         del m, step
         torch.cuda.empty_cache()
-    del params, gpt_batch, bert_train_batch
+
+    # the fused label-smoothing cross entropy as the loss of the flash GPT
+    # and BERT steps, passed in as a user script passes its loss: the parity
+    # step, the skip step, BERT-xent against the pretrain_loss step, and the
+    # timed run with K14 and K15 counted
+    gpt_xent = (lambda **kw: make_gpt_trainer(amp, gpt, FusedAdam, params, cfg,
+                                              loss=gpt_xent_loss(xent), **kw))
+    step_parity_phase("gpt_xent_step_parity", gpt_xent, xent_batch(
+        gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(60), device="cuda")),
+        2 * LR + 1e-6, "2 lr: a gradient sign flip")
+    skip_phase("gpt_xent_skip_step", gpt_xent, xent_batch(
+        gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(61), device="cuda")))
+    m, _, step = gpt_xent()
+    batch = xent_batch(gpt_batch)
+    launches["gpt_xent"] = training_phase(
+        "gpt_xent_training", "gpt_xent_profile", step, batch, counters,
+        STEP_LAUNCHES["gpt_xent"], TRAIN_GROUPS, card, seq_len=cfg.seq_len,
+        loss_fn=f"'softmax_cross_entropy_loss smoothing {XENT_SMOOTHING} "
+                f"padding_idx 0'", padded_targets=int((batch[1] == 0).sum()),
+        **lm_work(m, batch))
+    del m, step, batch
+    torch.cuda.empty_cache()
+    bert_xent = (lambda **kw: make_bert_trainer(
+        amp, bert, FusedLAMB, bparams, bcfg,
+        loss=bert_xent_loss(xent, bert.mask_token_id(bcfg)), **kw))
+    lamb_tol, lamb_why = 3 * BERT_LR, "3 lr: a sign flip moves 2 lr times the trust ratio"
+    parity = bert_batch(bert, bcfg, PARITY_BATCH, 62, BERT_PARITY_LENS)
+    step_parity_phase("bert_xent_step_parity", bert_xent, parity, lamb_tol, lamb_why)
+    # at smoothing 0 the objective is pretrain_loss's: both steps on the
+    # kernels, the same forward, two losses (the gradients 1.7e-7 apart in
+    # relative L2 on an H100 80GB HBM3 at 700 W; the masters still part by
+    # 2 lr where a gradient near 0 flips sign)
+    step_parity_phase("bert_xent_vs_pretrain_loss", bert_xent, parity, lamb_tol,
+                      lamb_why, ref=bert_trainer, ref_name="pretrain_loss",
+                      loss_tol=1e-5, grad_tol=1e-4)
+    skip_phase("bert_xent_skip_step", bert_xent,
+               bert_batch(bert, bcfg, PARITY_BATCH, 63, BERT_PARITY_LENS))
+    m, _, step = bert_xent()
+    launches["bert_xent"] = training_phase(
+        "bert_xent_training", "bert_xent_profile", step, bert_train_batch,
+        counters, STEP_LAUNCHES["bert_xent"], BERT_GROUPS, card,
+        seq_len=bcfg.seq_len,
+        loss_fn="'softmax_cross_entropy_loss smoothing 0.0 padding_idx [MASK]'",
+        **lm_work(m, bert_train_batch))
+    del m, step, params, gpt_batch, bert_train_batch, parity
     torch.cuda.empty_cache()
 
     resnet_step_parity_phase(main_amp, FusedSGD, tree_flatten, rcfg, rweights)
@@ -2264,8 +2619,8 @@ def main():
         for shape, (tag, f) in rows[kname].items():
             # launches: the run of the path that gives the kernel this shape
             # (the serving run, or the GPT, BERT or ResNet training run, with
-            # flash or unfused attention)
-            path = shape if shape in launches else "serving"
+            # flash or unfused attention), or the run a row names
+            path = f.get("path", shape if shape in launches else "serving")
             kernels.append(dict(
                 name=f"{kname}[{shape}: {tag}]", route=route, source=source,
                 replaces=replaces, launches=launches[path][kname],

@@ -2,11 +2,13 @@
 attention forward/backward with dropout, CUDA C++), K5 (unscale), K6 (fused
 Adam), K7 (LAMB stage 1), K8 (trust-ratio update), K9 (global sum of
 squares), K10 (fused SGD) and K11/K12 (scaled masked softmax
-forward/backward), all Triton, and K13 (the dropout keep mask, CUDA C++),
+forward/backward), all Triton, K13 (the dropout keep mask, CUDA C++) and
+K14/K15 (the fused label-smoothing cross entropy forward/backward, Triton),
 against their plain PyTorch versions on the card, and the engine and small
-O5 GPT (FusedAdam; flash and unfused attention, with and without dropout),
-BERT (FusedLAMB; both attentions, with and without dropout) and ResNet
-(FusedSGD) training steps on the kernels against the plain path.
+O5 GPT (FusedAdam; flash and unfused attention, with and without dropout,
+and with the fused cross entropy as its loss), BERT (FusedLAMB; both
+attentions, with and without dropout) and ResNet (FusedSGD) training steps
+on the kernels against the plain path.
 
 Marked ``gpu``: without a CUDA device every test skips (the decision is made
 inside the ``cuda`` fixture, never at import, so every pytest worker collects
@@ -25,6 +27,8 @@ import pytest
 import torch
 
 from beforeholiday_tpu_torch import amp
+from beforeholiday_tpu_torch.contrib import softmax_cross_entropy_loss
+from beforeholiday_tpu_torch.contrib import xentropy as txent
 from beforeholiday_tpu_torch.infer import EngineConfig, InferenceEngine, PageAllocator, pages_for
 from beforeholiday_tpu_torch.ops import attention as tattn
 from beforeholiday_tpu_torch.ops import multi_tensor as tmt
@@ -46,7 +50,7 @@ FP32_TOL = dict(rtol=1e-5, atol=2e-5)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels K1-K12 run only on the card)")
+        pytest.skip("needs a CUDA device (kernels K1-K15 run only on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -1012,3 +1016,141 @@ def test_dropout_step_kernels_match_plain_path(cuda, model, flash):
         torch.testing.assert_close(a, b, rtol=0, atol=3.5e-3)  # up to 3 lr
     for arena, master in zip(pk, mk):
         assert torch.equal(arena, master.to(arena.dtype))
+
+
+# --------------------------------------------------------------- K14/K15
+#
+# loss and lse: |d| <= 1e-5 (|ref| + |lse|), since lse - x[label] cancels for
+# rows that are confidently right; dx: |d| <= rtol |ref| + 1e-6 |dy| (p + s/V),
+# rtol 1e-5 in fp32 and one rounding in half types (plus fp16's subnormal
+# step), since p - s/V cancels
+XENT_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7, torch.float16: 2 ** -9}
+XENT_ATOL = {torch.float32: 0.0, torch.bfloat16: 0.0, torch.float16: 2 ** -24}
+
+
+def _xent_inputs(N, V, dtype, pad, seed=0):
+    g = _gen(seed)
+    x = (2 * torch.randn(N, V, generator=g, device="cuda")).to(dtype)
+    lab = torch.randint(0, V, (N,), generator=g, device="cuda")
+    lab[:pad] = 0
+    return x, lab
+
+
+def _assert_xent_close(loss, lse, dx, ref, x, dy, s):
+    rloss, rlse, rdx = ref
+    assert bool(((loss - rloss).abs() <= 1e-5 * (rloss.abs() + rlse.abs())).all())
+    assert bool(((lse - rlse).abs() <= 1e-5 * rlse.abs()).all())
+    p = torch.exp(x.float() - rlse[:, None])
+    bound = (XENT_RTOL[x.dtype] * rdx.float().abs() + XENT_ATOL[x.dtype]
+             + 1e-6 * dy.abs()[:, None] * (p + s / x.shape[1]))
+    assert bool(((dx.float() - rdx.float()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("N, V, dtype, s", [
+    (11, 96, torch.float16, 0.1),          # JAX's ragged-rows shape
+    (64, 50257, torch.bfloat16, 0.1),      # a tail of 1105 columns in bf16
+    (300, 30522, torch.float32, 0.0),      # BERT's vocabulary
+    (128, 32000, torch.float32, 0.1),      # the flagship's
+    (128, 32000, torch.bfloat16, 0.2),
+])
+def test_k14_k15_match_plain(cuda, N, V, dtype, s):
+    x, lab = _xent_inputs(N, V, dtype, pad=3)
+    dy = torch.randn(N, generator=_gen(1), device=cuda)
+    dy[:3] = 0  # what the wrapper hands K15 for padded rows
+    before = (txent.xent_fwd_kernel.launches, txent.xent_bwd_kernel.launches)
+    loss, lse = txent.xent_fwd_kernel(x, lab, s)
+    dx = txent.xent_bwd_kernel(x, lab, lse, dy, s)
+    assert (txent.xent_fwd_kernel.launches, txent.xent_bwd_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    rloss, rlse = txent.xent_fwd_torch(x, lab, s)
+    rdx = txent.xent_bwd_torch(x, lab, lse, dy, s)
+    torch.cuda.synchronize()
+    assert loss.dtype == lse.dtype == torch.float32 and dx.dtype == dtype
+    _assert_xent_close(loss, lse, dx, (rloss, rlse, rdx), x, dy, s)
+    assert bool((dx[:3] == 0).all())
+
+
+@pytest.mark.parametrize("dtype, half_to_float", [
+    (torch.float32, False), (torch.bfloat16, True), (torch.bfloat16, False)])
+def test_xent_autograd_on_the_card(cuda, dtype, half_to_float):
+    """The public function on CUDA tensors launches K14 and K15 once each,
+    matches the plain path on the card, and gives the padded rows loss 0
+    and gradient 0 exactly."""
+    x, lab = _xent_inputs(96, 32000, dtype, pad=32, seed=2)
+    w = torch.randn(96, generator=_gen(3), device=cuda)
+    out = {}
+    for impl in ("kernel", "torch"):
+        xl = x.clone().requires_grad_(True)
+        before = (txent.xent_fwd_kernel.launches, txent.xent_bwd_kernel.launches)
+        loss = softmax_cross_entropy_loss(xl, lab.int(), smoothing=0.1,
+                                          half_to_float=half_to_float,
+                                          impl=None if impl == "kernel" else impl)
+        (loss.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        launched = (txent.xent_fwd_kernel.launches - before[0],
+                    txent.xent_bwd_kernel.launches - before[1])
+        assert launched == ((1, 1) if impl == "kernel" else (0, 0))
+        assert loss.dtype == (torch.float32 if half_to_float else dtype)
+        assert bool((loss[:32] == 0).all()) and bool((xl.grad[:32] == 0).all())
+        out[impl] = (loss.float(), xl.grad)
+    (lk, gk), (lt, gt) = out["kernel"], out["torch"]
+    tol = XENT_RTOL[torch.float32 if half_to_float else dtype]
+    torch.testing.assert_close(lk, lt, rtol=tol, atol=1e-5)
+    torch.testing.assert_close(gk.float(), gt.float(), rtol=XENT_RTOL[dtype],
+                               atol=1e-6 * float(gt.float().abs().max()))
+
+
+@pytest.mark.parametrize("what", ["float64", "labels_float", "strided", "cpu_labels"])
+def test_k14_refuses_what_it_does_not_take(cuda, what):
+    x, lab = _xent_inputs(8, 100, torch.float32, pad=0)
+    if what == "float64":
+        x = x.double()
+    elif what == "labels_float":
+        lab = lab.float()
+    elif what == "strided":
+        x = x[:, ::2]
+    else:
+        lab = lab.cpu()
+    with pytest.raises(ValueError, match="K14"):
+        txent.xent_fwd_kernel(x, lab, 0.1)
+
+
+def test_gpt_xent_step_kernels_match_plain_path(cuda):
+    """One O5 step of a small bf16 GPT whose loss is the fused cross entropy
+    (smoothing 0.1, padding index 0, the first 32 targets padded), on K14
+    and K15, against the same step on the plain path."""
+    cfg0 = gpt.GPTConfig(vocab_size=512, seq_len=128, d_model=128, n_heads=4,
+                         n_layers=2, dtype=torch.bfloat16)
+    params = gpt.init(cfg0, _gen(0), device=cuda)
+    tok, tgt = gpt.synthetic_batch(cfg0, 2, generator=_gen(1), device=cuda)
+    tgt = tgt.clone()
+    tgt.view(-1)[:32] = 0
+    res = {}
+    for impl in ("kernel", "torch"):
+        cfg = dataclasses.replace(cfg0, attention_impl=impl, norm_impl=impl)
+        m = amp.initialize(lambda p, t, cfg=cfg: gpt.forward(p, t, cfg), params,
+                           FusedAdam(lr=1e-3, impl=impl), "O5", arena_native=True)
+
+        def loss_fn(p, a, b, m=m, impl=impl):
+            logits = m.apply(p, a)
+            per = softmax_cross_entropy_loss(
+                logits.reshape(-1, logits.shape[-1]), b.reshape(-1),
+                smoothing=0.1, padding_idx=0, impl=None if impl == "kernel" else impl)
+            return per.sum() / torch.clamp((b != 0).sum(), min=1)
+
+        svag = amp.scaled_value_and_grad(loss_fn, m.scaler, impl=impl)
+        o, s = m.optimizer.init(m.params), m.scaler.init()
+        before = (txent.xent_fwd_kernel.launches, txent.xent_bwd_kernel.launches)
+        loss, g, fi, s = svag(m.params, s, tok, tgt)
+        m.params, o = m.optimizer.step(m.params, g, o, found_inf=fi)
+        torch.cuda.synchronize()
+        launched = (txent.xent_fwd_kernel.launches - before[0],
+                    txent.xent_bwd_kernel.launches - before[1])
+        assert launched == ((1, 1) if impl == "kernel" else (0, 0))
+        res[impl] = (loss, g.arenas, o["master"])
+    (lk, gk, mk), (lt, gt, mt_) = res["kernel"], res["torch"]
+    torch.testing.assert_close(lk, lt, rtol=2e-3, atol=0)
+    for a, b in zip(gk, gt):
+        torch.testing.assert_close(a, b, rtol=0.05, atol=2e-2 * float(b.abs().max()))
+    for a, b in zip(mk, mt_):
+        torch.testing.assert_close(a, b, rtol=0, atol=2.5e-3)  # up to 2 lr
