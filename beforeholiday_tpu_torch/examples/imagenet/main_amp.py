@@ -13,15 +13,21 @@ fp32 parameter, gradient and momentum trees into arenas and unpacks them
 every step, as the JAX trainer's ``FusedSGD.step`` does. The step reads
 nothing back to the host: its metrics stay on the device.
 
+``fused_optimizer`` swaps in another fused optimizer (FusedAdagrad on K17,
+FusedNovoGrad on K18, FusedLARS on K10 after its trust ratios) and
+``use_larc`` wraps the optimizer in LARC, as in the JAX trainer. None of
+those has a flat step, so they keep the list path at every level (at O5
+over tree-shaped fp32 masters).
+
 Precision at O0: the convolutions are cuDNN's in fp32 tensors, and cuDNN
 runs fp32 convolutions in TF32 while ``torch.backends.cudnn.allow_tf32`` is
 True (PyTorch's default). This module leaves that global as the caller set
 it.
 
 Not ported yet, and raising ``NotImplementedError``: ``distributed``,
-``sync_bn``, ``use_larc``, ``bucket_bytes``, ``compress`` and
-``overlap_backward`` (the DDP slice), the flight recorder and the profile
-directory (the monitor port).
+``sync_bn``, ``bucket_bytes``, ``compress`` and ``overlap_backward`` (the
+DDP slice), the flight recorder and the profile directory (the monitor
+port).
 
 Run::
 
@@ -43,6 +49,7 @@ from beforeholiday_tpu_torch import amp
 from beforeholiday_tpu_torch.models import resnet
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device
 from beforeholiday_tpu_torch.optimizers import FusedSGD, supports_flat_step
+from beforeholiday_tpu_torch.parallel import LARC
 
 # ImageNet channel stats, in 0-255 space like the reference prefetcher
 _MEAN = np.array([0.485, 0.456, 0.406], np.float32) * 255.0
@@ -127,8 +134,10 @@ def build_trainer(
     impl: Optional[str] = None,
 ) -> Trainer:
     """Model, amp and optimizer, in the reference's setup order: model, the
-    learning rate scaled by ``global_batch / 256``, FusedSGD,
-    ``amp.initialize``.
+    learning rate scaled by ``global_batch / 256``, FusedSGD (or
+    ``fused_optimizer``), LARC around it with ``use_larc``,
+    ``amp.initialize``. LARC refuses an inner decay, so ``use_larc`` raises
+    ``ValueError`` unless ``weight_decay`` is 0, as in the JAX trainer.
 
     ``params`` and ``bn_state`` (both or neither) start the trainer from
     given weights, for example the JAX model's through
@@ -141,8 +150,6 @@ def build_trainer(
         _not_ported("distributed training", "DDP (the DDP slice)")
     if sync_bn:
         _not_ported("sync_bn", "the cross-device SyncBN merge (the DDP slice)")
-    if use_larc:
-        _not_ported("use_larc", "LARC (parallel/LARC.py)")
     if bucket_bytes is not None or compress or overlap_backward:
         _not_ported("bucket_bytes, compress and overlap_backward",
                     "DDP's gradient reduction (the DDP slice)")
@@ -159,6 +166,8 @@ def build_trainer(
     lr = lr * float(global_batch) / 256.0
     opt = fused_optimizer or FusedSGD(lr, momentum, weight_decay=weight_decay,
                                       impl=impl)
+    if use_larc:
+        opt = LARC(opt)
 
     def apply_train(p, bn, images):
         return resnet.forward(p, bn, images, cfg, training=True)

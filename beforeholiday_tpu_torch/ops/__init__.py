@@ -5,8 +5,9 @@
   ``self_attention``, and the dropout keep mask on kernel K13 (CUDA C++).
 * ``dense`` — dense and MLP blocks on library GEMMs.
 * ``arena`` — flat arenas and ``PackedParams``.
-* ``multi_tensor`` — unscale, fused Adam, global L2 norm, fused LAMB and
-  fused SGD over arenas, K5-K10 (Triton).
+* ``multi_tensor`` — unscale, fused Adam, global L2 norm, fused LAMB,
+  fused SGD, axpby, fused Adagrad and fused NovoGrad over arenas, K5-K10
+  and K16-K18 (Triton), and fused LARS (per-tensor norms, then K10).
 * ``softmax`` — the scaled / masked / causal softmax family on kernels
   K11/K12 (Triton).
 
@@ -48,9 +49,13 @@ from .softmax import (  # noqa: F401
 from .multi_tensor import (  # noqa: F401
     adam_flat,
     lamb_flat,
+    multi_tensor_adagrad,
     multi_tensor_adam,
+    multi_tensor_axpby,
     multi_tensor_l2norm,
     multi_tensor_lamb,
+    multi_tensor_lars,
+    multi_tensor_novograd,
     multi_tensor_scale,
 )
 
@@ -62,9 +67,13 @@ __all__ = [
     "bucket_by_dtype",
     "flatten",
     "lamb_flat",
+    "multi_tensor_adagrad",
     "multi_tensor_adam",
+    "multi_tensor_axpby",
     "multi_tensor_l2norm",
     "multi_tensor_lamb",
+    "multi_tensor_lars",
+    "multi_tensor_novograd",
     "multi_tensor_scale",
     "views_to_arena",
     "dropout_keep_mask",

@@ -1,7 +1,7 @@
 """Multi-tensor ops over flat arenas — counterpart of
 ``beforeholiday_tpu/ops/multi_tensor.py`` (the reference's ``amp_C``).
 
-Six kernels, all Triton, all streaming passes over flat arenas:
+Nine kernels, all Triton, all streaming passes over flat arenas:
 
 * K5, :func:`scale_kernel`, replaces ``beforeholiday_tpu/ops/_pallas_mt.py:179``
   ``_scale_kernel`` (launched through ``ew_call`` at ``:138``): ``y = x * s``
@@ -64,17 +64,48 @@ Six kernels, all Triton, all streaming passes over flat arenas:
   0.168 ms for ResNet-50's bf16 arena (25,526,272 elements); 20 B without
   a copy (0.153 ms for the O0 list path's 25,559,040).
 
+* K16, :func:`axpby_kernel`, replaces ``_pallas_mt.py:195`` ``_axpby_kernel``
+  (launched from ``axpby`` at ``:209``): ``out = a * x + b * y`` in fp32,
+  stored in any float dtype, with K5's non-finite flag over x, y or both
+  (``arg_to_check``). ``a`` and ``b`` are read from device memory. Bound:
+  bytes, 12 B per element for fp32 in and out: 0.0914 ms for ResNet-50's
+  bf16-parameter arena (25,526,272 elements) of unscaled fp32 gradients.
+* K17, :func:`adagrad_kernel`, replaces ``_pallas_mt.py:343``
+  ``_adagrad_kernel`` (launched from ``adagrad`` at ``:358``): ``h += g*g``,
+  ``p -= lr * g / (sqrt(h) + eps)``, the decay folded into g (mode 0) or
+  added to the update (mode 1), p and h in place and every load and store
+  masked off on ``found_inf``. It contracts no multiply-add: on the first
+  step ``g / (sqrt(g*g) + eps)`` is a sign, and where the decayed gradient
+  cancels to near eps one ulp of it moves p visibly, so K17 rounds each
+  operation as :func:`adagrad_torch` does. Bound: bytes, 20 B per element
+  (g read, p and h read and written): 0.153 ms for ResNet-50's fp32 master
+  arena on the list path (25,559,040 elements).
+* K18, :func:`novograd_kernel`, replaces ``_pallas_mt.py:514``
+  ``_novograd_kernel`` (launched from ``novograd_ew`` at ``:536``):
+  NovoGrad's elementwise phase, in place on p and m, masked off on
+  ``found_inf``. The TPU kernel reads a per-element denominator arena that
+  ``_segment_coef`` spreads from the per-tensor values; K18 reads the
+  per-tensor values through K8's per-block segment table instead, which
+  saves that arena's write and read (8 B per element). The padding's
+  denominator is 1, so the padding of p and m stays 0 (``_segment_coef``'s
+  0 there would make it 0/0). Bound: bytes, 20 B per element: 0.153 ms for
+  ResNet-50's master arena.
+
 Each has its plain PyTorch version beside it (:func:`scale_torch`,
 :func:`adam_torch`, :func:`l2norm_sq_torch`, :func:`lamb_stage1_torch`,
-:func:`scaled_update_torch`, :func:`sgd_torch`), the CPU path and the
+:func:`scaled_update_torch`, :func:`sgd_torch`, :func:`axpby_torch`,
+:func:`adagrad_torch`, :func:`novograd_torch`), the CPU path and the
 kernels' yardstick on the card. The list APIs (:func:`multi_tensor_scale`,
 :func:`multi_tensor_adam`, :func:`multi_tensor_l2norm`,
-:func:`multi_tensor_lamb`, :func:`multi_tensor_sgd`) pack their lists
+:func:`multi_tensor_lamb`, :func:`multi_tensor_sgd`,
+:func:`multi_tensor_axpby`, :func:`multi_tensor_adagrad`,
+:func:`multi_tensor_novograd`, :func:`multi_tensor_lars`) pack their lists
 into a new arena first, as the JAX package does; a list holding one arena
-already padded to ``TILE`` is used as it is by the first and third. The
-per-tensor sums of squares that LAMB's trust ratios need
-(:func:`per_tensor_sumsq`) are plain PyTorch, as the JAX package computes
-them in jnp outside any kernel.
+already padded to ``TILE`` is used as it is by the scale, axpby and L2
+norm. The per-tensor sums of squares that the LAMB, LARS and NovoGrad
+terms need (:func:`per_tensor_sumsq`) are plain PyTorch, as the JAX
+package computes them in jnp outside any kernel; LARS has no kernel of its
+own (its trust ratios in plain PyTorch, then K10).
 """
 
 from __future__ import annotations
@@ -182,6 +213,104 @@ def multi_tensor_scale(src: Sequence[torch.Tensor], scale, *, out_dtype=None,
     out_dtype = out_dtype or flat.dtype
     fn = scale_kernel if impl == "kernel" else scale_torch
     out, flag = fn(flat, scale, out_dtype)
+    return ([out] if spec is None else unflatten(out, spec)), flag
+
+
+# ----------------------------------------------------------------- K16
+
+
+def axpby_torch(x: torch.Tensor, y: torch.Tensor, a, b, out_dtype,
+                arg_to_check: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K16: ``(a * x + b * y in out_dtype,
+    found_inf)`` in fp32, the flag set when a checked input (-1 both, 0 x,
+    1 y) holds a non-finite element."""
+    xf, yf = x.float(), y.float()
+    out = _as_float(a) * xf + _as_float(b) * yf
+    checked = {-1: (xf, yf), 0: (xf,), 1: (yf,)}[arg_to_check]
+    flag = torch.stack([~torch.isfinite(t).all() for t in checked]).any()
+    return out.to(out_dtype), flag
+
+
+@functools.cache
+def _axpby_triton():
+    global tl
+    triton = _triton()
+    import triton.language as tl
+
+    @triton.jit
+    def _axpby_flag(X, Y, OUT, SCAL, FLAG, n, CHECK: tl.constexpr,
+                    BLOCK: tl.constexpr):
+        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n
+        x = tl.load(X + offs, mask=mask, other=0.0).to(tl.float32)
+        y = tl.load(Y + offs, mask=mask, other=0.0).to(tl.float32)
+        out = tl.load(SCAL) * x + tl.load(SCAL + 1) * y
+        tl.store(OUT + offs, out.to(OUT.dtype.element_ty), mask=mask)
+        # |v| < inf is false exactly for inf and NaN
+        if CHECK == 0:
+            finite = tl.abs(x) < float("inf")
+        elif CHECK == 1:
+            finite = tl.abs(y) < float("inf")
+        else:
+            finite = (tl.abs(x) < float("inf")) & (tl.abs(y) < float("inf"))
+        bad = tl.max(tl.where(mask & ~finite, 1, 0), axis=0)
+        tl.atomic_max(FLAG, bad)
+
+    return triton, _axpby_flag
+
+
+def axpby_kernel(x: torch.Tensor, y: torch.Tensor, a, b, out_dtype,
+                 arg_to_check: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K16 on two 1-D contiguous CUDA tensors of one length; returns
+    ``(out, found_inf)`` with ``found_inf`` a 0-d bool device tensor. ``a``
+    and ``b`` may be numbers or device scalars."""
+    for t in (x, y):
+        if not t.is_cuda or t.device != x.device or t.ndim != 1 \
+                or not t.is_contiguous() or t.numel() != x.numel():
+            raise ValueError("K16 takes 1-D contiguous CUDA tensors of one "
+                             f"length on one device; got {tuple(t.shape)} "
+                             f"on {t.device}")
+        if not t.is_floating_point():
+            raise ValueError(f"K16 takes floating inputs, got {t.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"K16 writes fp32, bf16 or fp16, got {out_dtype}")
+    if arg_to_check not in (-1, 0, 1):
+        raise ValueError(f"arg_to_check must be -1, 0 or 1, got {arg_to_check}")
+    triton, kernel = _axpby_triton()
+    scal = torch.cat([_device_scalar(a, x), _device_scalar(b, x)])
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    flag = torch.zeros(1, dtype=torch.int32, device=x.device)
+    n = x.numel()
+    if n:
+        kernel[(triton.cdiv(n, _BLOCK),)](x, y, out, scal, flag, n,
+                                          CHECK=arg_to_check, BLOCK=_BLOCK,
+                                          num_warps=8)
+        axpby_kernel.launches += 1
+    return out, flag[0] != 0
+
+
+axpby_kernel.launches = 0
+
+
+def multi_tensor_axpby(x: Sequence[torch.Tensor], y: Sequence[torch.Tensor],
+                       a, b, *, out_dtype=None, arg_to_check: int = -1,
+                       impl: Optional[str] = None
+                       ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``out[i] = a * x[i] + b * y[i]`` in fp32, stored in ``out_dtype``
+    (``x``'s by default); returns ``(outs, found_inf)``, the flag set when a
+    non-finite element is found in x and y (``arg_to_check`` -1), x alone
+    (0) or y alone (1). Two lists each holding one arena already padded to
+    ``TILE`` (a ``PackedParams`` gradient arena) are used as they are."""
+    impl = resolve_impl(impl, x[0])
+    if (len(x) == len(y) == 1 and is_arena(x[0]) and is_arena(y[0])
+            and x[0].numel() == y[0].numel()):
+        xf, yf, spec = x[0], y[0], None
+    else:
+        xf, spec = flatten(x)
+        yf, _ = flatten(y)
+    out_dtype = out_dtype or xf.dtype
+    fn = axpby_kernel if impl == "kernel" else axpby_torch
+    out, flag = fn(xf, yf, a, b, out_dtype, arg_to_check)
     return ([out] if spec is None else unflatten(out, spec)), flag
 
 
@@ -348,6 +477,106 @@ def multi_tensor_adam(grads, params, exp_avgs, exp_avg_sqs, *, lr,
     return unflatten(pf, spec), unflatten(mf, spec), unflatten(vf, spec)
 
 
+# ----------------------------------------------------------------- K17
+
+
+def adagrad_torch(g, p, h, *, lr, eps, weight_decay, mode, found_inf):
+    """Plain PyTorch version of K17, in place on ``p`` and ``h``, with the
+    same fp32 arithmetic: ``h += g*g``, ``p -= lr * g / (sqrt(h) + eps)``,
+    the decay folded into g (mode 0) or added to the update (mode 1)."""
+    gf, pf, hf = g.float(), p.float(), h.float()
+    if mode == 0:
+        gf = gf + weight_decay * pf
+        h_new = hf + gf * gf
+        p_new = pf - _as_float(lr) * (gf / (torch.sqrt(h_new) + eps))
+    else:
+        h_new = hf + gf * gf
+        p_new = pf - _as_float(lr) * (gf / (torch.sqrt(h_new) + eps)
+                                      + weight_decay * pf)
+    if found_inf is not None:
+        skip = torch.as_tensor(found_inf, device=p.device) != 0
+        p_new = torch.where(skip, pf, p_new)
+        h_new = torch.where(skip, hf, h_new)
+    p.copy_(p_new)
+    h.copy_(h_new)
+
+
+@functools.cache
+def _adagrad_triton():
+    global tl
+    triton = _triton()
+    import triton.language as tl
+
+    @triton.jit
+    def _adagrad(G, P, H, LR, FI, n, eps, decay, MODE: tl.constexpr,
+                 BLOCK: tl.constexpr):
+        offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+        # found_inf masks every load and store: a skipped step touches nothing
+        mask = (offs < n) & (tl.load(FI) == 0)
+        lr = tl.load(LR)
+        g = tl.load(G + offs, mask=mask, other=0.0).to(tl.float32)
+        p = tl.load(P + offs, mask=mask, other=0.0)
+        h = tl.load(H + offs, mask=mask, other=0.0)
+        if MODE == 0:  # L2: decay folded into the gradient
+            g = g + decay * p
+        h_new = h + g * g
+        update = tl.div_rn(g, tl.sqrt_rn(h_new) + eps)
+        if MODE == 1:  # decoupled decay added to the update
+            update = update + decay * p
+        tl.store(P + offs, p - lr * update, mask=mask)
+        tl.store(H + offs, h_new, mask=mask)
+
+    return triton, _adagrad
+
+
+def adagrad_kernel(g, p, h, *, lr, eps, weight_decay, mode, found_inf):
+    """Launch K17 on flat CUDA arenas: fp32 ``p`` and ``h`` updated in
+    place, ``g`` fp32/bf16/fp16; ``lr`` a number or a device scalar,
+    ``found_inf`` read from device memory by the kernel."""
+    n = p.numel()
+    for t in (g, p, h):
+        if not t.is_cuda or t.device != p.device or t.ndim != 1 \
+                or not t.is_contiguous() or t.numel() != n:
+            raise ValueError("K17 takes 1-D contiguous CUDA arenas of one "
+                             f"length on one device; got {tuple(t.shape)} "
+                             f"on {t.device}")
+    if not (p.dtype == h.dtype == torch.float32):
+        raise ValueError(f"K17 updates fp32 p/h, got {p.dtype}/{h.dtype}")
+    if not g.is_floating_point():
+        raise ValueError(f"K17 takes a floating gradient, got {g.dtype}")
+    triton, kernel = _adagrad_triton()
+    lr_t = _device_scalar(lr, p)
+    fi = (torch.zeros(1, dtype=torch.int32, device=p.device) if found_inf is None
+          else _device_scalar(found_inf, p, torch.int32))
+    if n:
+        # no multiply-add contraction: where g + decay * p cancels to near
+        # eps, g / (sqrt(h) + eps) turns one ulp of it into a visible step,
+        # so K17 rounds each operation as the plain version does
+        kernel[(triton.cdiv(n, _BLOCK),)](
+            g, p, h, lr_t, fi, n, float(eps), float(weight_decay),
+            MODE=mode, BLOCK=_BLOCK, num_warps=8, enable_fp_fusion=False)
+        adagrad_kernel.launches += 1
+
+
+adagrad_kernel.launches = 0
+
+
+def multi_tensor_adagrad(grads, params, state_sums, *, lr, eps: float = 1e-10,
+                         weight_decay: float = 0.0, mode: int = 0,
+                         found_inf=None, impl: Optional[str] = None):
+    """Fused Adagrad over tensor lists; returns new ``(params, state_sums)``
+    lists (views of freshly packed arenas — the inputs are not modified).
+    ``found_inf`` turns the whole update into the identity."""
+    gf, spec = flatten(grads)
+    pf, _ = flatten(params)
+    hf, _ = flatten(state_sums)
+    impl = resolve_impl(impl, pf)
+    fn = adagrad_kernel if impl == "kernel" else adagrad_torch
+    fn(gf, pf, hf, lr=lr, eps=eps, weight_decay=weight_decay, mode=mode,
+       found_inf=found_inf)
+    return unflatten(pf, spec), unflatten(hf, spec)
+
+
 # ------------------------------------------------------------------ K9
 
 
@@ -458,21 +687,30 @@ def per_tensor_sumsq(flat: torch.Tensor, spec: ArenaSpec, segment_ids=None,
     ])
 
 
+@functools.lru_cache(maxsize=64)
+def _segment_reps(spec: ArenaSpec, device: torch.device) -> torch.Tensor:
+    """Each tensor's element count, then the padding's (when there is
+    any), on ``device``: built once per spec and device, so expanding a
+    per-tensor value copies nothing from the host."""
+    sizes = [math.prod(s) for s in spec.shapes]
+    pad = spec.padded_total - spec.total
+    return torch.tensor(sizes + ([pad] if pad else []), device=device)
+
+
 def _segment_coef(values_per_tensor: torch.Tensor, spec: ArenaSpec,
-                  segment_ids=None) -> torch.Tensor:
+                  segment_ids=None, pad_value: float = 0.0) -> torch.Tensor:
     """A per-tensor value expanded to a per-element arena vector of
-    ``spec.padded_total``, 0 on the padding (what the plain scaled update
-    multiplies by)."""
+    ``spec.padded_total``, ``pad_value`` (0, as the JAX package's) on the
+    padding (what the plain scaled update multiplies by)."""
     if segment_ids is not None:
         raise NotImplementedError(
             "_segment_coef's segment ids belong to ZeRO, not ported yet")
-    sizes = [math.prod(s) for s in spec.shapes]
     pad = spec.padded_total - spec.total
     vals = torch.cat([values_per_tensor,
-                      values_per_tensor.new_zeros(1 if pad else 0)])
-    reps = torch.tensor(sizes + ([pad] if pad else []),
-                        device=values_per_tensor.device)
-    return torch.repeat_interleave(vals, reps, output_size=spec.padded_total)
+                      values_per_tensor.new_full((1 if pad else 0,), pad_value)])
+    return torch.repeat_interleave(
+        vals, _segment_reps(spec, values_per_tensor.device),
+        output_size=spec.padded_total)
 
 
 def multi_tensor_l2norm(tensors: Sequence[torch.Tensor], *,
@@ -953,3 +1191,177 @@ def multi_tensor_sgd(grads, params, momentums, *, lr, weight_decay: float = 0.0,
                     scale=scale, model_copy_dtype=model_copy_dtype,
                     found_inf=found_inf, impl=impl)
     return tuple(unflatten(o, spec) for o in outs)
+
+
+# ----------------------------------------------------------------- LARS
+
+
+def multi_tensor_lars(grads, params, momentums, *, lr,
+                      trust_coefficient: float = 0.001, epsilon: float = 0.0,
+                      weight_decay: float = 0.0, momentum: float = 0.0,
+                      dampening: float = 0.0, nesterov: bool = False,
+                      first_run=False, wd_after_momentum: bool = False,
+                      scale=1.0, found_inf=None, impl: Optional[str] = None):
+    """Fused LARS over tensor lists; returns new ``(params, momentums)``
+    lists. The per-tensor trust ratio ``tc·‖p‖ / (‖g‖ + wd·‖p‖ + eps)``
+    (1 where either norm is 0) scales the whole step, decay included:
+    ``g' = trust·(scale·g + wd·p)`` in plain PyTorch, then K10 runs on g'
+    with no decay and no scale. With the decay folded in before momentum,
+    ``wd_after_momentum`` has nothing left to act on and is dropped, as in
+    the JAX package."""
+    del wd_after_momentum
+    gf, spec = flatten(grads)
+    pf, _ = flatten(params)
+    mf, _ = flatten(momentums)
+    g_norm = torch.sqrt(per_tensor_sumsq(gf, spec)) * _as_float(scale)
+    p_norm = torch.sqrt(per_tensor_sumsq(pf, spec))
+    trust = torch.where((g_norm != 0.0) & (p_norm != 0.0),
+                        trust_coefficient * p_norm
+                        / (g_norm + weight_decay * p_norm + epsilon), 1.0)
+    g_eff = _segment_coef(trust, spec) * (gf.float() * _as_float(scale)
+                                          + weight_decay * pf.float())
+    sgd_flat(g_eff.to(gf.dtype), pf, mf, lr=lr, weight_decay=0.0,
+             momentum=momentum, dampening=dampening, nesterov=nesterov,
+             first_run=first_run, wd_after_momentum=False, scale=1.0,
+             found_inf=found_inf, impl=impl)
+    return unflatten(pf, spec), unflatten(mf, spec)
+
+
+# ----------------------------------------------------------------- K18
+
+
+def novograd_torch(g, p, m, denom, spec: ArenaSpec, *, beta1, beta3, bc1, lr,
+                   weight_decay, mode, found_inf):
+    """Plain PyTorch version of K18, in place on ``p`` and ``m`` (arenas of
+    ``spec.padded_total``), with the same fp32 arithmetic. ``denom`` holds
+    one value per spec tensor, expanded over the arena by
+    :func:`_segment_coef` with 1 on the padding, so the padding stays 0."""
+    gf, pf, mf = g.float(), p.float(), m.float()
+    d = _segment_coef(denom.float(), spec, pad_value=1.0)
+    if mode == 0:
+        m_new = beta1 * mf + beta3 * (gf / d + weight_decay * pf)
+        p_new = pf - _as_float(lr) * (m_new / _as_float(bc1))
+    else:
+        m_new = beta1 * mf + beta3 * gf
+        p_new = pf - _as_float(lr) * ((m_new / _as_float(bc1)) / d
+                                      + weight_decay * pf)
+    if found_inf is not None:
+        skip = torch.as_tensor(found_inf, device=p.device) != 0
+        p_new = torch.where(skip, pf, p_new)
+        m_new = torch.where(skip, mf, m_new)
+    p.copy_(p_new)
+    m.copy_(m_new)
+
+
+@functools.cache
+def _novograd_triton():
+    global tl
+    triton = _triton()
+    import triton.language as tl
+
+    @triton.jit
+    def _novograd(G, P, M, DENOM, FIRST, SPAN, STARTS, SCAL, FI, n, beta1,
+                  beta3, decay, MODE: tl.constexpr, BLOCK: tl.constexpr):
+        pid = tl.program_id(0)
+        offs = pid.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+        # found_inf masks every load and store: a skipped step touches nothing
+        mask = (offs < n) & (tl.load(FI) == 0)
+        # each element's tensor, found as K8 finds it: the block's first
+        # tensor, plus one for every tensor start inside the block at or
+        # before the element
+        first = tl.load(FIRST + pid)
+        seg = tl.zeros([BLOCK], dtype=tl.int32) + first
+        for j in range(0, tl.load(SPAN + pid)):
+            seg += (offs >= tl.load(STARTS + first + 1 + j)).to(tl.int32)
+        d = tl.load(DENOM + seg, mask=mask, other=1.0)
+        bc1 = tl.load(SCAL)
+        lr = tl.load(SCAL + 1)
+        g = tl.load(G + offs, mask=mask, other=0.0).to(tl.float32)
+        p = tl.load(P + offs, mask=mask, other=0.0)
+        m = tl.load(M + offs, mask=mask, other=0.0)
+        if MODE == 0:  # the decay inside the moment
+            m_new = beta1 * m + beta3 * (tl.div_rn(g, d) + decay * p)
+            update = tl.div_rn(m_new, bc1)
+        else:  # the decay added to the update
+            m_new = beta1 * m + beta3 * g
+            update = tl.div_rn(tl.div_rn(m_new, bc1), d) + decay * p
+        tl.store(P + offs, p - lr * update, mask=mask)
+        tl.store(M + offs, m_new, mask=mask)
+
+    return triton, _novograd
+
+
+def novograd_kernel(g, p, m, denom, spec: ArenaSpec, *, beta1, beta3, bc1, lr,
+                    weight_decay, mode, found_inf):
+    """Launch K18 on flat CUDA arenas of ``spec.padded_total`` elements:
+    fp32 ``p`` and ``m`` updated in place, ``g`` of any float dtype,
+    ``denom`` one fp32 value per spec tensor on the card, read through K8's
+    per-block segment table (the padding's denominator is 1). ``bc1`` and
+    ``lr`` may be numbers or device scalars."""
+    n = spec.padded_total
+    for t in (g, p, m):
+        if not t.is_cuda or t.device != p.device or t.ndim != 1 \
+                or not t.is_contiguous() or t.numel() != n:
+            raise ValueError(f"K18 takes 1-D contiguous CUDA arenas of the "
+                             f"spec's {n} elements on one device; got "
+                             f"{tuple(t.shape)} on {t.device}")
+    if not (p.dtype == m.dtype == torch.float32):
+        raise ValueError(f"K18 updates fp32 p/m, got {p.dtype}/{m.dtype}")
+    if not g.is_floating_point():
+        raise ValueError(f"K18 takes a floating gradient, got {g.dtype}")
+    if denom.shape != (spec.num_tensors,) or denom.device != p.device:
+        raise ValueError(f"K18 takes one denominator per spec tensor "
+                         f"({spec.num_tensors},) on {p.device}, got "
+                         f"{tuple(denom.shape)} on {denom.device}")
+    triton, kernel = _novograd_triton()
+    first, span, starts = _segment_tables(spec, p.device)
+    denom_ext = torch.cat([denom.float(), denom.new_ones(1, dtype=torch.float32)])
+    scal = torch.cat([_device_scalar(bc1, p), _device_scalar(lr, p)])
+    fi = (torch.zeros(1, dtype=torch.int32, device=p.device) if found_inf is None
+          else _device_scalar(found_inf, p, torch.int32))
+    kernel[(triton.cdiv(n, _BLOCK),)](
+        g, p, m, denom_ext, first, span, starts, scal, fi, n, float(beta1),
+        float(beta3), float(weight_decay), MODE=mode, BLOCK=_BLOCK,
+        num_warps=8)
+    novograd_kernel.launches += 1
+
+
+novograd_kernel.launches = 0
+
+
+def multi_tensor_novograd(grads, params, exp_avgs, grad_norms: torch.Tensor, *,
+                          lr, beta1: float = 0.95, beta2: float = 0.98,
+                          eps: float = 1e-8, step=1, bias_correction: bool = True,
+                          weight_decay: float = 0.0, grad_averaging: bool = True,
+                          moment_mode: int = 0, found_inf=None,
+                          impl: Optional[str] = None):
+    """Fused NovoGrad over tensor lists. ``grad_norms`` is the per-tensor
+    second moment v (one fp32 value per tensor); returns new ``(params, m,
+    v)``, the lists views of freshly packed arenas. As the reference
+    launcher: v = ‖g‖² on step 1, else β2·v + (1−β2)·‖g‖², held on
+    ``found_inf``; denom = √v / bc2 + eps with bc2 = √(1−β2ᵗ). ``step`` may
+    be a device tensor. The per-tensor sums of squares are plain PyTorch,
+    as the JAX package computes them in jnp."""
+    gf, spec = flatten(grads)
+    pf, _ = flatten(params)
+    mf, _ = flatten(exp_avgs)
+    impl = resolve_impl(impl, pf)
+    step_f = _device_scalar(step, pf).reshape(())
+    if bias_correction:
+        bc1 = 1.0 - torch.pow(beta1, step_f)
+        bc2 = torch.sqrt(1.0 - torch.pow(beta2, step_f))
+    else:
+        bc1, bc2 = 1.0, 1.0
+    beta3 = (1.0 - beta1) if grad_averaging else 1.0
+    v = grad_norms.float()
+    gnorm_sq = per_tensor_sumsq(gf, spec)
+    v_new = torch.where(step_f <= 1.0, gnorm_sq,
+                        beta2 * v + (1.0 - beta2) * gnorm_sq)
+    if found_inf is not None:
+        v_new = torch.where(torch.as_tensor(found_inf, device=pf.device) != 0,
+                            v, v_new)
+    denom = torch.sqrt(v_new) / _as_float(bc2) + eps
+    fn = novograd_kernel if impl == "kernel" else novograd_torch
+    fn(gf, pf, mf, denom, spec, beta1=beta1, beta3=beta3, bc1=bc1, lr=lr,
+       weight_decay=weight_decay, mode=moment_mode, found_inf=found_inf)
+    return unflatten(pf, spec), unflatten(mf, spec), v_new

@@ -1,6 +1,7 @@
-"""Fused optimizers — counterpart of ``beforeholiday_tpu/optimizers/fused.py``
-(the part the training steps run: ``FusedAdam``, ``FusedLAMB``,
-``FusedSGD``, ``MasterWeights`` and ``FusedMixedPrecisionLamb``).
+"""Fused optimizers — counterpart of ``beforeholiday_tpu/optimizers/fused.py``:
+``FusedAdam``, ``FusedLAMB``, ``FusedSGD``, ``FusedAdagrad``,
+``FusedNovoGrad``, ``FusedLARS``, ``MasterWeights`` and
+``FusedMixedPrecisionLamb``.
 
 The state API is the JAX one::
 
@@ -11,16 +12,18 @@ The state API is the JAX one::
 with one difference the port makes on purpose: the arena-resident path
 (:meth:`FusedAdam.step_flat`, :meth:`MasterWeights.step` on
 :class:`PackedParams`) updates the master, moment and model arenas IN PLACE
-through kernel K6 (Adam), K7-K9 (LAMB) or K10 (SGD), so the returned arenas are the
-ones passed in and the old state is consumed (the JAX package aliases its
-TPU kernel's buffers the same way). The list API (:meth:`FusedAdam.step` on a tree) packs, updates the
-packed copies and returns new tensors. The step count is a device tensor
-and ``found_inf`` holds it, so a skipped step changes nothing and no value
-is read back to the host.
+through kernel K6 (Adam), K7-K9 (LAMB) or K10 (SGD), so the returned arenas
+are the ones passed in and the old state is consumed (the JAX package
+aliases its TPU kernel's buffers the same way). The list API
+(:meth:`FusedAdam.step` on a tree) packs, updates the packed copies and
+returns new tensors; Adagrad (K17), NovoGrad (K18) and LARS (K10) have only
+the list API, as in the JAX package. The step count is a device tensor and
+``found_inf`` holds it, so a skipped step changes nothing and no value is
+read back to the host.
 
-State is fp32 (the kernels update fp32 arenas). Not ported yet: the other
-optimizers, the view path (``_step_views``, ``MasterWeights(arena=True)`` on
-a tree, so ``arena_masters``), ``step_in_backward`` and ``state_dtype``.
+State is fp32 (the kernels update fp32 arenas). Not ported yet: the view
+path (``_step_views``, ``MasterWeights(arena=True)`` on a tree, so
+``arena_masters``), ``step_in_backward`` and ``state_dtype``.
 """
 
 from __future__ import annotations
@@ -390,6 +393,163 @@ class FusedSGD(_FusedOptimizer):
         if len(outs) == 2:
             return outs[0], new_state
         return outs[0], new_state, outs[2]
+
+
+class FusedAdagrad(_FusedOptimizer):
+    """Fused Adagrad on kernel K17 (``ops.multi_tensor.multi_tensor_adagrad``),
+    list API only, as in the JAX package: one fused call per (param dtype,
+    grad dtype, decay) bucket. ``adagrad_w_mode`` adds the decay to the
+    update instead of the gradient. ``impl``: None (kernel on CUDA tensors,
+    plain version on CPU ones), ``"kernel"`` or ``"torch"``."""
+
+    def __init__(self, lr: float = 1e-2, eps: float = 1e-10, *,
+                 weight_decay: float = 0.0, adagrad_w_mode: bool = False,
+                 no_weight_decay_mask: Mask = None, impl: Optional[str] = None):
+        super().__init__(no_weight_decay_mask=no_weight_decay_mask)
+        self.lr, self.eps, self.weight_decay = lr, eps, weight_decay
+        self.adagrad_w_mode = adagrad_w_mode
+        self.impl = impl
+
+    def _state_keys(self):
+        return ("sum",)
+
+    def step(self, params, grads, state, *, found_inf=None, grad_scale=1.0,
+             lr=None):
+        """Returns new params and state trees; ``lr`` (this step's)
+        overrides the constructor's."""
+        lr = self.lr if lr is None else lr
+        pleaves, treedef = tree_flatten(params)
+        hleaves = tree_flatten(state["sum"])[0]
+        nowd = _leaf_flags(self.no_weight_decay_mask, params)
+        step_no = self._next_step(state, found_inf)
+        # grad_scale may be a device scalar: folded in unconditionally
+        gleaves = [g.float() * mt._as_float(grad_scale)
+                   for g in tree_flatten(grads)[0]]
+        new_p, new_h = list(pleaves), list(hleaves)
+        for (_, _, no_decay), idx in _buckets(pleaves, gleaves, nowd).items():
+            p2, h2 = mt.multi_tensor_adagrad(
+                _gather(gleaves, idx), _gather(pleaves, idx),
+                _gather(hleaves, idx), lr=lr, eps=self.eps,
+                weight_decay=0.0 if no_decay else self.weight_decay,
+                mode=1 if self.adagrad_w_mode else 0, found_inf=found_inf,
+                impl=self.impl)
+            _scatter(new_p, idx, p2)
+            _scatter(new_h, idx, h2)
+        return tree_unflatten(treedef, new_p), {
+            "sum": tree_unflatten(treedef, new_h), "step": step_no}
+
+
+class FusedNovoGrad(_FusedOptimizer):
+    """Fused NovoGrad on kernel K18 (``ops.multi_tensor.multi_tensor_novograd``),
+    list API only: per-tensor second moments, one fp32 scalar a leaf
+    (``v_per_tensor``), and per-element first moments. ``impl``: None
+    (kernel on CUDA tensors, plain version on CPU ones), ``"kernel"`` or
+    ``"torch"``."""
+
+    def __init__(self, lr: float = 1e-3, betas: Tuple[float, float] = (0.95, 0.98),
+                 eps: float = 1e-8, *, weight_decay: float = 0.0,
+                 bias_correction: bool = True, grad_averaging: bool = True,
+                 moment_mode: int = 0, no_weight_decay_mask: Mask = None,
+                 impl: Optional[str] = None):
+        super().__init__(no_weight_decay_mask=no_weight_decay_mask)
+        self.lr, self.betas, self.eps = lr, betas, eps
+        self.weight_decay = weight_decay
+        self.bias_correction = bias_correction
+        self.grad_averaging = grad_averaging
+        self.moment_mode = moment_mode
+        self.impl = impl
+
+    def _state_keys(self):
+        return ("exp_avg",)
+
+    def init(self, params) -> Dict[str, Any]:
+        """The per-element first moments and step count of
+        ``_FusedOptimizer.init``, and one zero fp32 second moment a leaf."""
+        state = super().init(params)
+        state["v_per_tensor"] = tree_map(
+            lambda p: torch.zeros((), dtype=torch.float32, device=p.device), params)
+        return state
+
+    def step(self, params, grads, state, *, found_inf=None, grad_scale=1.0,
+             lr=None):
+        """Returns new params and state trees; ``lr`` (this step's)
+        overrides the constructor's."""
+        lr = self.lr if lr is None else lr
+        pleaves, treedef = tree_flatten(params)
+        mleaves = tree_flatten(state["exp_avg"])[0]
+        vleaves = tree_flatten(state["v_per_tensor"])[0]
+        nowd = _leaf_flags(self.no_weight_decay_mask, params)
+        step_no = self._next_step(state, found_inf)
+        # grad_scale may be a device scalar: folded in unconditionally
+        gleaves = [g.float() * mt._as_float(grad_scale)
+                   for g in tree_flatten(grads)[0]]
+        new_p, new_m, new_v = list(pleaves), list(mleaves), list(vleaves)
+        for (_, _, no_decay), idx in _buckets(pleaves, gleaves, nowd).items():
+            p2, m2, v2 = mt.multi_tensor_novograd(
+                _gather(gleaves, idx), _gather(pleaves, idx),
+                _gather(mleaves, idx), torch.stack(_gather(vleaves, idx)),
+                lr=lr, beta1=self.betas[0], beta2=self.betas[1], eps=self.eps,
+                step=step_no, bias_correction=self.bias_correction,
+                weight_decay=0.0 if no_decay else self.weight_decay,
+                grad_averaging=self.grad_averaging,
+                moment_mode=self.moment_mode, found_inf=found_inf,
+                impl=self.impl)
+            _scatter(new_p, idx, p2)
+            _scatter(new_m, idx, m2)
+            _scatter(new_v, idx, list(v2.unbind()))
+        return tree_unflatten(treedef, new_p), {
+            "exp_avg": tree_unflatten(treedef, new_m),
+            "v_per_tensor": tree_unflatten(treedef, new_v), "step": step_no}
+
+
+class FusedLARS(_FusedOptimizer):
+    """Fused LARS (``ops.multi_tensor.multi_tensor_lars``): per-tensor trust
+    ratios in plain PyTorch, then kernel K10. List API only; the first step
+    (the device step count at 0) seeds the momentum buffer. ``impl``: None
+    (kernel on CUDA tensors, plain version on CPU ones), ``"kernel"`` or
+    ``"torch"``."""
+
+    def __init__(self, lr: float, momentum: float = 0.0, dampening: float = 0.0,
+                 *, weight_decay: float = 0.0, nesterov: bool = False,
+                 trust_coefficient: float = 0.001, epsilon: float = 0.0,
+                 wd_after_momentum: bool = False,
+                 no_weight_decay_mask: Mask = None, impl: Optional[str] = None):
+        super().__init__(no_weight_decay_mask=no_weight_decay_mask)
+        self.lr, self.momentum, self.dampening = lr, momentum, dampening
+        self.weight_decay, self.nesterov = weight_decay, nesterov
+        self.trust_coefficient, self.epsilon = trust_coefficient, epsilon
+        self.wd_after_momentum = wd_after_momentum
+        self.impl = impl
+
+    def _state_keys(self):
+        return ("momentum_buffer",)
+
+    def step(self, params, grads, state, *, found_inf=None, grad_scale=1.0,
+             lr=None):
+        """Returns new params and state trees; ``lr`` (this step's)
+        overrides the constructor's."""
+        lr = self.lr if lr is None else lr
+        pleaves, treedef = tree_flatten(params)
+        gleaves = tree_flatten(grads)[0]
+        bleaves = tree_flatten(state["momentum_buffer"])[0]
+        nowd = _leaf_flags(self.no_weight_decay_mask, params)
+        first_run = state["step"] == 0
+        step_no = self._next_step(state, found_inf)
+        new_p, new_b = list(pleaves), list(bleaves)
+        for (_, _, no_decay), idx in _buckets(pleaves, gleaves, nowd).items():
+            p2, b2 = mt.multi_tensor_lars(
+                _gather(gleaves, idx), _gather(pleaves, idx),
+                _gather(bleaves, idx), lr=lr,
+                trust_coefficient=self.trust_coefficient, epsilon=self.epsilon,
+                weight_decay=0.0 if no_decay else self.weight_decay,
+                momentum=self.momentum, dampening=self.dampening,
+                nesterov=self.nesterov, first_run=first_run,
+                wd_after_momentum=self.wd_after_momentum, scale=grad_scale,
+                found_inf=found_inf, impl=self.impl)
+            _scatter(new_p, idx, p2)
+            _scatter(new_b, idx, b2)
+        return tree_unflatten(treedef, new_p), {
+            "momentum_buffer": tree_unflatten(treedef, new_b), "step": step_no}
 
 
 def supports_flat_step(opt) -> bool:

@@ -1,7 +1,8 @@
 """Data-parallel building blocks — counterpart of ``beforeholiday_tpu/parallel``
-(the single-device BatchNorm that ResNet runs; DDP, LARC and the
-cross-device SyncBN merge belong to a later slice)."""
+(the single-device BatchNorm that ResNet runs and the LARC wrapper; DDP and
+the cross-device SyncBN merge belong to a later slice)."""
 
+from beforeholiday_tpu_torch.parallel.larc import LARC  # noqa: F401
 from beforeholiday_tpu_torch.parallel.sync_batch_norm import (  # noqa: F401
     BatchNormParams,
     BatchNormState,
@@ -9,5 +10,5 @@ from beforeholiday_tpu_torch.parallel.sync_batch_norm import (  # noqa: F401
     sync_batch_norm,
 )
 
-__all__ = ["BatchNormParams", "BatchNormState", "init_batch_norm",
+__all__ = ["BatchNormParams", "BatchNormState", "LARC", "init_batch_norm",
            "sync_batch_norm"]

@@ -10,7 +10,8 @@ Phases, each printing one line (any failure exits non-zero):
 
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
 2. build: every CUDA source compiled by nvcc (in parallel) plus the Triton
-   compile of K1, from the sources in the checkout;
+   compile of K1, from the sources in the checkout (the other Triton
+   kernels compile at their first launch);
 3. K1 (LayerNorm forward, Triton) against its plain version at the engine's
    and the training step's shapes, timed beside its bound and
    ``F.layer_norm``;
@@ -85,21 +86,36 @@ Phases, each printing one line (any failure exits non-zero):
     and the O5 and O0 trainers at batch 128 on one fixed batch (10 timed
     steps with the launch counts held, then 3 profiled ones), MFU from the
     convolutions' and ``fc``'s shapes;
-16. the ``kernels`` JSON line, the card line, and the final ``ok`` line.
+16. slice 8, the last three TPU kernels: K16 (axpby with its non-finite
+    flag), K17 (Adagrad) and K18 (NovoGrad, the per-tensor denominators
+    read through K8's segment table), all Triton, against their plain
+    versions at ResNet-50's arenas, odd lengths, both modes, bf16 and fp32,
+    each ``arg_to_check`` and skipped steps, the padding held at 0; then
+    five O5 ResNet-50 paths at batch 128: the FusedSGD trainer accumulating
+    two micro-batches of 64 (Apex's ``unscale_with_stashed`` form on K16),
+    and the trainer with FusedAdagrad, FusedNovoGrad, FusedLARS and
+    ``use_larc`` (LARC around FusedSGD, at weight decay 0) on the list
+    path. Each: the parity step at batch 2 with cuDNN deterministic (the
+    gradients bitwise, masters and state within an ulp), the skip step, and
+    the timed and profiled run with the optimizer step's own device ms;
+17. the total seconds, the ``kernels`` JSON line, the card line, and the
+    final ``ok`` line.
 
 ``F.layer_norm``, ``F.scaled_dot_product_attention``, their backwards,
 ``torch._amp_foreach_non_finite_check_and_unscale_``,
 ``torch._fused_adamw_``, ``torch.linalg.vector_norm``,
 ``torch._fused_sgd_``, ``torch.softmax``,
-``torch._softmax_backward_data`` and ``F.cross_entropy(x, y,
+``torch._softmax_backward_data``, ``F.cross_entropy(x, y,
 reduction="none", label_smoothing=s, ignore_index=padding_idx)`` with its
-autograd backward are timed here only, as yardsticks
-(``library_ms``); the port never calls them. No single PyTorch call
-computes LAMB, so K7 and K8 have none; the library softmax applies no scale
-and no mask, so K11's and K12's measure the same traffic, not the same
-function. No PyTorch call computes K13's hash, so it has none; the
-library's attention dropout draws other random bits, so K2's and K4's
-dropout rows time the same work, not the same function.
+autograd backward, ``Tensor.bernoulli_``, ``torch.add(x, y, alpha=b)`` and
+``torch.optim.Adagrad(foreach=True).step`` are timed here only, as
+yardsticks (``library_ms``); the port never calls them. No single PyTorch
+call computes LAMB or NovoGrad, so K7, K8 and K18 have none; the library
+softmax applies no scale and no mask, so K11's and K12's measure the same
+traffic, not the same function, as ``torch.add`` does for K16 (no flag, a
+of 1). No PyTorch call computes K13's hash: ``bernoulli_`` on a bool
+tensor does the same work with other random bits, as the library's
+attention dropout does for K2's and K4's dropout rows.
 """
 
 import dataclasses
@@ -164,13 +180,18 @@ DROPOUT_SEED = 2024
 # counts once, as K3's two do
 # ResNet-50 (bench.py make_resnet_rung): one unscale and one SGD pass per
 # arena at O5 (bf16 convs and fc, fp32 BN); at O0 one fp32 bucket, so one
-# of each on the list path. Unfused attention: one softmax forward and one
+# of each on the list path. Slice 8: accumulating two micro-batches
+# unscales each (two arenas each) and adds them per arena (K16) before the
+# SGD passes; the list-path optimizers at O5 unscale the bf16 and fp32
+# gradient buckets and update the one fp32 master bucket in one pass (K17,
+# K18, or K10 for LARS and LARC). Unfused attention: one softmax forward and one
 # backward per layer in place of the flash pair
 _NO_LAUNCH = {"layer_norm_fwd": 0, "layer_norm_bwd": 0, "flash_fwd": 0,
               "flash_bwd": 0, "unscale": 0, "adam": 0, "l2norm": 0,
               "lamb_stage1": 0, "scaled_update": 0, "sgd": 0,
               "softmax_fwd": 0, "softmax_bwd": 0, "dropout_mask": 0,
-              "xent_fwd": 0, "xent_bwd": 0}
+              "xent_fwd": 0, "xent_bwd": 0, "axpby": 0, "adagrad": 0,
+              "novograd": 0}
 _GPT_STEP = {"layer_norm_fwd": 17, "layer_norm_bwd": 17, "unscale": 2,
              "adam": 2}
 _BERT_STEP = {"layer_norm_fwd": 18, "layer_norm_bwd": 18, "unscale": 2,
@@ -198,6 +219,11 @@ STEP_LAUNCHES = {
     "bert_xent": {**_NO_LAUNCH, **_BERT_STEP, **_FLASH, **_XENT},
     "resnet_o5": {**_NO_LAUNCH, "unscale": 2, "sgd": 2},
     "resnet_o0": {**_NO_LAUNCH, "unscale": 1, "sgd": 1},
+    "resnet_o5_accum": {**_NO_LAUNCH, "unscale": 4, "axpby": 2, "sgd": 2},
+    "resnet_o5_adagrad": {**_NO_LAUNCH, "unscale": 2, "adagrad": 1},
+    "resnet_o5_novograd": {**_NO_LAUNCH, "unscale": 2, "novograd": 1},
+    "resnet_o5_lars": {**_NO_LAUNCH, "unscale": 2, "sgd": 1},
+    "resnet_o5_larc": {**_NO_LAUNCH, "unscale": 2, "sgd": 1},
 }
 PEAK_BF16 = 989e12
 # the ImageNet ResNet-50 step (bench.py make_resnet_rung: examples/imagenet
@@ -685,11 +711,16 @@ def k13_phase(attn):
         if path is not None:
             bms, by = bound_ms(n + 16, 0, torch.float32,
                                PHILOX_OPS_PER_ELEMENT * n)
+            # the library: the same work, one bool a slot kept with
+            # probability 1 - rate, from other random bits
+            lib = torch.empty(shape, dtype=torch.bool, device="cuda")
             fields.update(
                 ms=time_ms(lambda: attn.dropout_keep_mask_kernel(key, shape, rate)),
                 plain_ms=time_ms(lambda: attn.dropout_keep_mask_torch(key, shape, rate),
                                  iters=5),
-                library_ms=None, bound_ms=bms, bound_by=by)
+                library_ms=time_ms(lambda: lib.bernoulli_(1.0 - rate)),
+                bound_ms=bms, bound_by=by)
+            del lib
             rows_out[path] = (tag, fields)
         line("K13", shape=tag, **fields)
         del mask
@@ -1196,6 +1227,212 @@ def k10_phase(mt, arenas):
                 bound_ms=bms, bound_by=by)
             rows_out[key] = (tag, fields)
         line("K10", shape=tag, **fields)
+    return rows_out
+
+
+# ------------------------------------------------------------- K16-K18
+
+
+def check_optimizer_arenas(name, tag, got, ref, total):
+    """K17/K18's check: one ulp where the compiler contracts a multiply-add
+    (relative 1e-6, and 1e-6 of the arena's largest value where terms
+    cancel); the padding (past ``total``) stays 0."""
+    err = 0.0
+    for what, a, b in zip(("p", "state"), got, ref):
+        err = max(err, check_close(f"{name} {what} {tag}", a, b,
+                                   dict(rtol=1e-6, atol=1e-6 * float(b.abs().max()))))
+        if a[total:].any():
+            raise AssertionError(f"{name} {tag}: the padding of {what} moved")
+    return err
+
+
+def k16_phase(mt, rspecs):
+    """axpby with its non-finite flag: the accumulation path's two fp32
+    gradient arenas (a = b = 0.5, the new gradients checked), bf16 and fp32
+    inputs and outputs at an odd length and at length 1 with each
+    ``arg_to_check``, and inf and NaN placed in x or y, flagged only where
+    checked."""
+    n_bf16, n_fp32 = (rspecs[dt].padded_total for dt in (torch.bfloat16, torch.float32))
+    f32, bf16 = torch.float32, torch.bfloat16
+    checks = [  # n, input dtype, output dtype, arg_to_check, poison (x or y, value)
+        (n_bf16, f32, f32, 0, None),
+        (n_fp32, f32, f32, 0, None),
+        (100003, bf16, bf16, -1, None),
+        (100003, bf16, f32, 1, None),
+        (100003, f32, bf16, 0, None),
+        (1, f32, f32, -1, None),
+        (100003, bf16, bf16, -1, ("x", float("nan"))),
+        (100003, bf16, bf16, 1, ("x", float("nan"))),
+        (100003, f32, f32, 0, ("y", float("inf"))),
+        (100003, f32, f32, 1, ("y", float("inf"))),
+        (n_bf16, f32, f32, 0, ("x", float("inf"))),
+    ]
+    rows_out = {}
+    for n, dt, out_dt, check, poison in checks:
+        g = gen(100)
+        x = (1e-3 * torch.randn(n, generator=g, device="cuda")).to(dt)
+        y = (1e-3 * torch.randn(n, generator=g, device="cuda")).to(dt)
+        if poison is not None:
+            (x if poison[0] == "x" else y)[n // 3] = poison[1]
+        a, b = torch.full((), 0.5, device="cuda"), 0.5
+        out, flag = mt.axpby_kernel(x, y, a, b, out_dt, check)
+        ref, rflag = mt.axpby_torch(x, y, a, b, out_dt, check)
+        torch.cuda.synchronize()
+        expect = poison is not None and check in (-1, "xy".index(poison[0]))
+        tag = (f"{n} {str(dt)[6:]}->{str(out_dt)[6:]} check {check}"
+               f"{'' if poison is None else f' {poison[1]} in {poison[0]}'}")
+        if bool(flag) != bool(rflag) or bool(flag) != expect:
+            raise AssertionError(f"K16 {tag}: flag {bool(flag)}, plain "
+                                 f"{bool(rflag)}, expected {expect}")
+        # one ulp where the compiler contracts a x + b y into an fma (and
+        # then one ulp of a half output); where the terms cancel, the
+        # ulp is the larger term's
+        rtol = 1e-6 if out_dt == f32 else 2 ** -7
+        fin = torch.isfinite(ref)
+        err = check_close(f"K16 {tag}", out[fin], ref[fin],
+                          dict(rtol=rtol, atol=1e-6 * float(ref[fin].abs().max())))
+        if not torch.equal(torch.isfinite(out), fin):
+            raise AssertionError(f"K16 {tag}: non-finite elements differ")
+        fields = dict(found_inf=bool(flag), max_abs_err=err)
+        if n == n_bf16 and poison is None:
+            # x and y read, out written, fp32: 12 B per element
+            bms, by = bound_ms(12 * n, 3 * n, torch.float32)
+            fields.update(
+                ms=time_ms(lambda: mt.axpby_kernel(x, y, a, b, out_dt, check)),
+                plain_ms=time_ms(lambda: mt.axpby_torch(x, y, a, b, out_dt, check),
+                                 iters=5),
+                # the same traffic: x + 0.5 y, no flag
+                library_ms=time_ms(lambda: torch.add(x, y, alpha=0.5)),
+                bound_ms=bms, bound_by=by)
+            rows_out["resnet_o5_accum"] = (tag, fields)
+        line("K16", shape=tag, **fields)
+    return rows_out
+
+
+def k17_phase(mt, spec):
+    """Adagrad over the list path's fp32 master arena of ResNet-50 (``spec``)
+    in both modes, a bf16 gradient at an odd length, a length of 1, and a
+    skipped step with an inf in the gradient that must leave p and h
+    bitwise unchanged. The padding is 0 and must stay 0."""
+    checks = [  # n (None: the spec's), gradient dtype, mode, skip
+        (None, torch.float32, 0, False),
+        (None, torch.float32, 1, False),
+        (100003, torch.bfloat16, 0, False),
+        (1, torch.float32, 1, False),
+        (None, torch.float32, 0, True),
+    ]
+    rows_out = {}
+    for n, gdt, mode, skip in checks:
+        n, total = (spec.padded_total, spec.total) if n is None else (n, n)
+        g = gen(101)
+        grad = 1e-3 * torch.randn(n, generator=g, device="cuda")
+        p = 0.02 * torch.randn(n, generator=g, device="cuda")
+        h = 1e-6 * torch.rand(n, generator=g, device="cuda")
+        for t in (grad, p, h):
+            t[total:] = 0
+        if skip:
+            grad[n // 2] = float("inf")
+        grad = grad.to(gdt)
+        kw = dict(lr=torch.full((), RESNET_LR, device="cuda"), eps=1e-10,
+                  weight_decay=RESNET_WD, mode=mode,
+                  found_inf=torch.full((), skip, dtype=torch.bool, device="cuda"))
+        outs = {}
+        for fn in (mt.adagrad_kernel, mt.adagrad_torch):
+            pk, hk = p.clone(), h.clone()
+            fn(grad, pk, hk, **kw)
+            outs[fn] = (pk, hk)
+        torch.cuda.synchronize()
+        tag = (f"{n} {'decoupled' if mode else 'l2'} g {str(gdt)[6:]}"
+               f"{' skip' if skip else ''}")
+        got, ref = outs[mt.adagrad_kernel], outs[mt.adagrad_torch]
+        if skip:
+            if not (torch.equal(got[0], p) and torch.equal(got[1], h)):
+                raise AssertionError(f"K17 {tag}: a skipped step changed state")
+            err = 0.0
+        else:
+            err = check_optimizer_arenas("K17", tag, got, ref, total)
+        fields = dict(max_abs_err=err)
+        if n == spec.padded_total and mode == 0 and not skip:
+            # g read; p and h read and written: 20 B per fp32 element
+            bms, by = bound_ms(20 * n, 7 * n, torch.float32)
+            st = (p.clone(), h.clone())
+            param = torch.nn.Parameter(p.clone())
+            param.grad = grad.clone()
+            # the same function: mode 0, no lr decay, initial sums 0
+            adagrad = torch.optim.Adagrad([param], lr=RESNET_LR, eps=1e-10,
+                                          weight_decay=RESNET_WD, foreach=True)
+            fields.update(
+                ms=time_ms(lambda: mt.adagrad_kernel(grad, *st, **kw)),
+                plain_ms=time_ms(lambda: mt.adagrad_torch(grad, *st, **kw), iters=5),
+                library_ms=time_ms(adagrad.step),
+                bound_ms=bms, bound_by=by)
+            rows_out["resnet_o5_adagrad"] = (tag, fields)
+        line("K17", shape=tag, **fields)
+    return rows_out
+
+
+def k18_phase(mt, make_spec, spec):
+    """NovoGrad's elementwise phase over the list path's master arena of
+    ResNet-50 (``spec``, 161 tensors) in both modes, over an awkward layout
+    (tensors of 1 element, tensors straddling K18's blocks, a length that is
+    no block multiple) with bf16 and fp32 gradients, and a skipped step that
+    must leave p and m bitwise unchanged. The per-tensor denominators are
+    read through the segment table, and the padding (the gradient's is 0)
+    must stay 0: the plain version's padding denominator is 1, as K18's."""
+    awkward = make_spec([(1,), (4095,), (3, 5), (4097,), (70000,), (1,),
+                         (8193,), (2, 2)])
+    checks = [  # spec, gradient dtype, mode, skip
+        (spec, torch.float32, 0, False),
+        (spec, torch.float32, 1, False),
+        (awkward, torch.bfloat16, 0, False),
+        (awkward, torch.float32, 1, False),
+        (awkward, torch.float32, 0, True),
+    ]
+    rows_out = {}
+    for sp, gdt, mode, skip in checks:
+        g = gen(102)
+        n = sp.padded_total
+        grad = 1e-3 * torch.randn(n, generator=g, device="cuda")
+        p = 0.02 * torch.randn(n, generator=g, device="cuda")
+        m = 1e-4 * torch.randn(n, generator=g, device="cuda")
+        for t in (grad, p, m):
+            t[sp.total:] = 0
+        if skip:
+            grad[n // 3] = float("inf")
+        grad = grad.to(gdt)
+        denom = 0.5 + torch.rand(sp.num_tensors, generator=g, device="cuda")
+        step = torch.full((), 4.0, device="cuda")
+        kw = dict(beta1=0.95, beta3=0.05, bc1=1.0 - torch.pow(0.95, step),
+                  lr=torch.full((), RESNET_LR, device="cuda"),
+                  weight_decay=RESNET_WD, mode=mode,
+                  found_inf=torch.full((), skip, dtype=torch.bool, device="cuda"))
+        outs = {}
+        for fn in (mt.novograd_kernel, mt.novograd_torch):
+            pk, mk = p.clone(), m.clone()
+            fn(grad, pk, mk, denom, sp, **kw)
+            outs[fn] = (pk, mk)
+        torch.cuda.synchronize()
+        tag = (f"{n} ({sp.num_tensors} tensors) mode {mode} g {str(gdt)[6:]}"
+               f"{' skip' if skip else ''}")
+        got, ref = outs[mt.novograd_kernel], outs[mt.novograd_torch]
+        if skip:
+            if not (torch.equal(got[0], p) and torch.equal(got[1], m)):
+                raise AssertionError(f"K18 {tag}: a skipped step changed state")
+            err = 0.0
+        else:
+            err = check_optimizer_arenas("K18", tag, got, ref, sp.total)
+        fields = dict(max_abs_err=err, padding="0")
+        if sp is spec and mode == 0:
+            # g read; p and m read and written; one denominator per tensor
+            bms, by = bound_ms(20 * n + 4 * sp.num_tensors, 8 * n, torch.float32)
+            st = (p.clone(), m.clone())
+            fields.update(
+                ms=time_ms(lambda: mt.novograd_kernel(grad, *st, denom, sp, **kw)),
+                plain_ms=time_ms(lambda: mt.novograd_torch(grad, *st, denom, sp, **kw),
+                                 iters=5),
+                library_ms=None, bound_ms=bms, bound_by=by)
+            rows_out["resnet_o5_novograd"] = (tag, fields)
+        line("K18", shape=tag, **fields)
     return rows_out
 
 
@@ -1875,7 +2112,9 @@ def launch_counters(norm, attn, mt, sm, xent):
             "softmax_fwd": sm.softmax_fwd_kernel,
             "softmax_bwd": sm.softmax_bwd_kernel,
             "dropout_mask": attn.dropout_keep_mask_kernel,
-            "xent_fwd": xent.xent_fwd_kernel, "xent_bwd": xent.xent_bwd_kernel}
+            "xent_fwd": xent.xent_fwd_kernel, "xent_bwd": xent.xent_bwd_kernel,
+            "axpby": mt.axpby_kernel, "adagrad": mt.adagrad_kernel,
+            "novograd": mt.novograd_kernel}
 
 
 def unfused_vs_flash_phase(label, forward, batch):
@@ -2026,7 +2265,8 @@ def device_ms_by_group(prof, groups):
     its kernels' time), grouped by name fragments."""
     by_name = {}
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # OPT_RANGE's device-side span is a range, not a kernel
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key == OPT_RANGE:
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -2096,11 +2336,22 @@ def loss_ops_ms(prof):
     return total
 
 
+def range_kernels_ms(prof, name):
+    """Device ms of the kernels that run inside the device-side spans of the
+    profiler range ``name`` (the span of the kernels launched inside it)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda]
+    spans = [(e.time_range.start, e.time_range.end) for e in events if e.name == name]
+    return sum(e.time_range.elapsed_us() for e in events if e.name != name
+               and any(a <= e.time_range.start < b for a, b in spans)) / 1e3
+
+
 def train_profile(label, step, batch, groups):
     """PROFILE_STEPS more steps under torch.profiler: device time by layer
     (per step), the library cross entropy's device time (LOSS_OPS; the
-    fused one is K14 + K15 in the layers) and the device's idle share over
-    the window."""
+    fused one is K14 + K15 in the layers), the optimizer step's where it
+    runs in the OPT_RANGE range (``wrap_optimizer``) and the device's idle
+    share over the window."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -2116,11 +2367,13 @@ def train_profile(label, step, batch, groups):
         return
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     per = 1.0 / PROFILE_STEPS
+    opt_ms = range_kernels_ms(prof, OPT_RANGE)
     print(f"{label}: " + json.dumps({
         "steps": PROFILE_STEPS, "wall_ms_per_step": wall_ms * per,
         "device_busy_ms_per_step": busy * per, "idle_share": 1.0 - busy / wall_ms,
         "by_layer_ms_per_step": {k: v * per for k, v in by_group.items()},
         "loss_ops_ms_per_step": loss_ops_ms(prof) * per,
+        **({"optimizer_ms_per_step": opt_ms * per} if opt_ms else {}),
         "top_kernels_ms_per_step": {k[:90]: v * per for k, v in top}}),
         flush=True)
 
@@ -2159,13 +2412,21 @@ def resnet_trainer(main_amp, cfg, weights, opt_level, batch, **kw):
 
 
 def resnet_state(tr):
-    """Copies of the arena-native state a step may change: model arenas,
-    masters, momentum buffers and step counts."""
+    """Copies of the state a step may change, as flat lists: the model's
+    arenas (arena-native) or leaves (the list path), the masters, every
+    optimizer state tensor but the step counts, and the step counts (one
+    per arena, or one)."""
+    from beforeholiday_tpu_torch.ops.arena import PackedParams, tree_flatten
+
+    params = (tr.params.arenas if isinstance(tr.params, PackedParams)
+              else tree_flatten(tr.params)[0])
     inner = tr.opt_state["inner"]
-    return ([a.clone() for a in tr.params.arenas],
-            [a.clone() for a in tr.opt_state["master"]],
-            [b["momentum_buffer"].clone() for b in inner],
-            [int(b["step"]) for b in inner])
+    inners = inner if isinstance(inner, tuple) else (inner,)
+    state = [t for b in inners for k in sorted(b) if k != "step"
+             for t in tree_flatten(b[k])[0]]
+    return ([a.clone() for a in params],
+            [a.clone() for a in tree_flatten(tr.opt_state["master"])[0]],
+            [t.clone() for t in state], [int(b["step"]) for b in inners])
 
 
 def resnet_step_parity_phase(main_amp, fused_sgd, tree_flatten, cfg, weights):
@@ -2277,32 +2538,210 @@ def resnet_flops_per_image(resnet, cfg, weights):
 # kernels
 RESNET_GROUPS = (("K10 sgd", ("_sgd",)),
                  ("K5 unscale", ("_scale_flag",)),
+                 ("K16 axpby", ("_axpby_flag",)),
+                 ("K17 adagrad", ("_adagrad",)),
+                 ("K18 novograd", ("_novograd",)),
+                 ("per-tensor norms", ("dot_kernel", "reduce_1Block")),
                  ("copies and casts", ("copy",)),
                  ("convs and fc", ("conv", "cudnn", "implicit", "fprop", "dgrad",
                                    "wgrad", "nhwc", *GEMM_FRAGMENTS)),
                  ("elementwise and reductions (BN, ReLU, residual, loss)",
                   ("elementwise", "reduce")))
+# the profiler range around a ResNet trainer's optimizer step (wrap_optimizer)
+OPT_RANGE = "optimizer_step"
 
 
-def resnet_training_phase(label, profile_label, main_amp, cfg, weights,
-                          opt_level, counters, expect, flops_per_image, peak,
-                          n_params, card):
-    """The trainer at batch 128 on one fixed batch (``training_phase``)."""
-    tr = resnet_trainer(main_amp, cfg, weights, opt_level, RESNET_BATCH)
+def wrap_optimizer(tr, grads=None):
+    """Wrap the trainer's optimizer step (an attribute set on its instance,
+    which the train step looks up on each call) in the OPT_RANGE profiler
+    range; with a list ``grads``, append copies of the gradients each step
+    is given."""
+    from beforeholiday_tpu_torch.ops.arena import PackedParams, tree_flatten
 
+    opt = tr.amp_model.optimizer
+    inner = opt.step
+
+    def step(params, g, state, **kw):
+        if grads is not None:
+            leaves = g.arenas if isinstance(g, PackedParams) else tree_flatten(g)[0]
+            grads.append([t.clone() for t in leaves])
+        with torch.profiler.record_function(OPT_RANGE):
+            return inner(params, g, state, **kw)
+
+    opt.step = step
+
+
+def trainer_step(tr):
+    """``step(images, labels) -> (loss, None, found_inf)``: the trainer's own
+    train step at RESNET_LR."""
     def step(images, labels):
         met = tr.step(images, labels, RESNET_LR)
         return met["loss"], None, met["found_inf"]
 
-    launches = training_phase(
-        label, profile_label, step, resnet_batch(cfg, RESNET_BATCH, 72),
+    return step
+
+
+def resnet_training_phase(label, profile_label, tr, step, counters, expect,
+                          flops_per_image, peak, n_params, card, **fields):
+    """The trainer ``tr`` at batch 128 on one fixed batch, driven by
+    ``step`` (``training_phase``), its optimizer step in the OPT_RANGE
+    profiler range."""
+    wrap_optimizer(tr)
+    return training_phase(
+        label, profile_label, step, resnet_batch(tr.cfg, RESNET_BATCH, 72),
         counters, expect, RESNET_GROUPS, card, unit="images",
         units=RESNET_BATCH, flops=RESNET_BATCH * flops_per_image, peak=peak,
-        opt_level=opt_level, image=RESNET_IMAGE, params=n_params,
-        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
-    del tr
+        image=RESNET_IMAGE, params=n_params,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32, **fields)
+
+
+# ------------------------------------------------- ResNet-50, slice 8 paths
+
+
+def resnet_paths(opt):
+    """The five paths of slice 8, all O5: label -> (the trainer's options
+    for an ``impl``, micro-batches a step). ``opt`` is the port's
+    ``optimizers``. The optimizers' other hyperparameters are the JAX
+    defaults; lr is what the step passes (RESNET_LR)."""
+    return {
+        # the arena-native FusedSGD trainer, accumulating two micro-batches
+        "resnet_o5_accum": (lambda impl: {}, 2),
+        "resnet_o5_adagrad": (lambda impl: dict(fused_optimizer=opt.FusedAdagrad(
+            weight_decay=RESNET_WD, impl=impl)), 1),
+        "resnet_o5_novograd": (lambda impl: dict(fused_optimizer=opt.FusedNovoGrad(
+            weight_decay=RESNET_WD, impl=impl)), 1),
+        "resnet_o5_lars": (lambda impl: dict(fused_optimizer=opt.FusedLARS(
+            RESNET_LR, momentum=0.9, weight_decay=RESNET_WD,
+            trust_coefficient=0.001, impl=impl)), 1),
+        # LARC(FusedSGD), as the JAX trainer builds it; LARC refuses an
+        # inner decay, so it runs only at weight_decay 0
+        "resnet_o5_larc": (lambda impl: dict(use_larc=True, weight_decay=0.0), 1),
+    }
+
+
+def accum_step(amp, main_amp, mt, tr, impl=None):
+    """The O5 arena-native FusedSGD step over two micro-batches, as a user
+    script accumulates gradients when a batch does not fit: the scaled
+    forward and backward of each half (K5 unscales each), then per gradient
+    arena Apex's ``unscale_with_stashed`` form ``multi_tensor_axpby([g2],
+    [g1], 0.5, 0.5, arg_to_check=0)`` (K16: the mean of the two halves'
+    gradients, the new ones checked), its flag ORed with both unscale flags
+    into ``found_inf``, then one K10 pass per arena. BN's running stats
+    advance once a micro-batch. Returns ``step(images, labels) -> (loss,
+    None, found_inf)``, the loss the mean of the two halves'."""
+    m = tr.amp_model
+    mean = torch.from_numpy(main_amp._MEAN).to(tr.device)
+    std = torch.from_numpy(main_amp._STD).to(tr.device)
+
+    def loss_fn(p, images, labels, bn):
+        logits, new_bn = m.apply(p, bn, (images.float() - mean) / std)
+        return main_amp.softmax_cross_entropy(logits, labels), new_bn
+
+    svag = amp.scaled_value_and_grad(loss_fn, m.scaler, has_aux=True, impl=impl)
+
+    def step(images, labels):
+        losses, grads, found = [], [], None
+        for x, y in zip(images.chunk(2), labels.chunk(2)):
+            loss, tr.bn_state, g, fi, tr.scaler_state = svag(
+                tr.params, tr.scaler_state, x, y, tr.bn_state)
+            losses.append(loss)
+            grads.append(g)
+            found = fi if found is None else found | fi
+        acc = []
+        for g2, g1 in zip(grads[1].arenas, grads[0].arenas):
+            (out,), flag = mt.multi_tensor_axpby([g2], [g1], 0.5, 0.5,
+                                                 arg_to_check=0, impl=impl)
+            acc.append(out)
+            found = found | flag
+        tr.params, tr.opt_state = m.optimizer.step(
+            tr.params, grads[0].replace_arenas(acc), tr.opt_state,
+            found_inf=found, lr=RESNET_LR)
+        return (losses[0] + losses[1]) / 2, None, found
+
+    return step
+
+
+def resnet_path(paths, label, amp, main_amp, mt, cfg, weights, batch,
+                impl=None, **kw):
+    """Path ``label``'s trainer at ``batch`` images a step (from the shared
+    weights) and its ``step``."""
+    options, micro = paths[label]
+    tr = resnet_trainer(main_amp, cfg, weights, "O5", batch, impl=impl,
+                        **options(impl), **kw)
+    step = accum_step(amp, main_amp, mt, tr, impl) if micro == 2 else trainer_step(tr)
+    return tr, step
+
+
+def resnet_path_parity_phase(label, make, micro, cfg):
+    """One full-width step of a path at batch 2 (two micro-batches of 2 when
+    it accumulates) on the kernels against the same step on the plain path,
+    from the same weights and batch. cuDNN is held to its deterministic
+    algorithms here, so the two paths' convolutions give the same bits: the
+    loss, the gradients the optimizer is given, and the BN state must agree
+    bitwise, and the masters and optimizer state within one ulp of the
+    optimizer's arithmetic (relative 1e-6, and 1e-6 of each tensor's
+    largest value where terms cancel); the model is the masters' cast."""
+    from beforeholiday_tpu_torch.ops.arena import tree_flatten
+
+    images, labels = resnet_batch(cfg, PARITY_BATCH * micro, 66)
+    torch.backends.cudnn.deterministic = True
+    res = {}
+    for impl in (None, "torch"):
+        tr, step = make(PARITY_BATCH * micro, impl)
+        grads = []
+        wrap_optimizer(tr, grads)
+        loss, _, fi = step(images, labels)
+        torch.cuda.synchronize()
+        if bool(fi):
+            raise AssertionError(f"{label}_step_parity ({impl}): found_inf set")
+        model, masters, state, steps = resnet_state(tr)
+        for arena, master in zip(model, masters):
+            if not torch.equal(arena, master.to(arena.dtype)):
+                raise AssertionError(f"{label}_step_parity ({impl}): the model "
+                                     "is not the masters' cast")
+        if steps != [1] * len(steps):
+            raise AssertionError(f"{label}_step_parity ({impl}): step counts {steps}")
+        res[impl] = (loss.item(), grads[0], masters, state,
+                     [t.clone() for t in tree_flatten(tr.bn_state)[0]])
+        del tr, step
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    (lk, gk, mk, sk, bk), (lp, gp, mp, sp, bp) = res[None], res["torch"]
+    same = (lk == lp and all(torch.equal(a, b) for a, b in zip(gk, gp))
+            and all(torch.equal(a, b) for a, b in zip(bk, bp)))
+    if not same:
+        raise AssertionError(f"{label}_step_parity: loss, gradients or BN state "
+                             f"differ (loss {lk} vs {lp})")
+    worst = {}
+    for name, got, ref in (("master", mk, mp), ("state", sk, sp)):
+        worst[name] = max(check_close(f"{label}_step_parity {name}", a, b,
+                                      dict(rtol=1e-6, atol=1e-6 * float(b.abs().max())))
+                          for a, b in zip(got, ref))
+    line(f"{label}_step_parity", batch=PARITY_BATCH * micro, micro_batches=micro,
+         image=RESNET_IMAGE, loss=lk, plain_loss=lp, grads="bitwise",
+         bn_state="bitwise", master_max_abs_err=worst["master"],
+         state_max_abs_err=worst["state"], model_is_master_cast="bitwise")
+
+
+def resnet_path_skip_phase(label, make, micro, cfg):
+    """A step whose loss is weighted by inf (a static loss scale of inf):
+    the model, masters, optimizer state and step counts stay bitwise
+    unchanged."""
+    tr, step = make(PARITY_BATCH * micro, None, loss_scale=float("inf"))
+    before = resnet_state(tr)
+    _, _, fi = step(*resnet_batch(cfg, PARITY_BATCH * micro, 67))
+    torch.cuda.synchronize()
+    after = resnet_state(tr)
+    if not bool(fi):
+        raise AssertionError(f"{label}_skip_step: found_inf not set")
+    same = all(torch.equal(a, b) for xs, ys in zip(before[:3], after[:3])
+               for a, b in zip(xs, ys))
+    if not same or any(after[3]):
+        raise AssertionError(f"{label}_skip_step: the state changed (steps {after[3]})")
+    line(f"{label}_skip_step", found_inf=True, state="bitwise unchanged",
+         step_count=after[3][0])
+    del tr, step
     torch.cuda.empty_cache()
-    return launches
 
 
 # (kernel key, route, source, the TPU kernel it replaces)
@@ -2337,14 +2776,21 @@ KERNEL_ROWS = (
      "beforeholiday_tpu/contrib/xentropy.py:48"),
     ("xent_bwd", "triton", "beforeholiday_tpu_torch/contrib/xentropy.py",
      "beforeholiday_tpu/contrib/xentropy.py:64"),
+    ("axpby", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
+     "beforeholiday_tpu/ops/_pallas_mt.py:195"),
+    ("adagrad", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
+     "beforeholiday_tpu/ops/_pallas_mt.py:343"),
+    ("novograd", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
+     "beforeholiday_tpu/ops/_pallas_mt.py:514"),
 )
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from beforeholiday_tpu_torch import _build, amp, infer
+    from beforeholiday_tpu_torch import _build, amp, infer, optimizers
     from beforeholiday_tpu_torch.contrib import xentropy as xent
     from beforeholiday_tpu_torch.ops._autocast import cast_floats
     from beforeholiday_tpu_torch.ops import attention as attn
@@ -2400,7 +2846,9 @@ def main():
                 "resnet_o0": (o0_spec, None)}),
             "softmax_fwd": k11_phase(sm), "softmax_bwd": k12_phase(sm),
             "dropout_mask": k13_phase(attn),
-            "xent_fwd": k14_phase(xent), "xent_bwd": k15_phase(xent)}
+            "xent_fwd": k14_phase(xent), "xent_bwd": k15_phase(xent),
+            "axpby": k16_phase(mt, rspecs), "adagrad": k17_phase(mt, o0_spec),
+            "novograd": k18_phase(mt, make_spec, o0_spec)}
     torch.cuda.empty_cache()
     xent_function_phase(xent)
     flash_dropout_laws_phase(attn)
@@ -2602,16 +3050,38 @@ def main():
     resnet_skip_phase(main_amp, rcfg, rweights)
     flops_per_image = resnet_flops_per_image(resnet, rcfg, rweights)
     n_params = o0_spec.total
-    launches["resnet_o5"] = resnet_training_phase(
-        "resnet_training", "resnet_profile", main_amp, rcfg, rweights, "O5",
-        counters, STEP_LAUNCHES["resnet_o5"], flops_per_image, PEAK_BF16,
-        n_params, card)
     # O0's convolutions run in fp32 here (cudnn.allow_tf32 is off above), so
     # its MFU is taken against the fp32 peak
-    launches["resnet_o0"] = resnet_training_phase(
-        "resnet_o0_training", "resnet_o0_profile", main_amp, rcfg, rweights,
-        "O0", counters, STEP_LAUNCHES["resnet_o0"], flops_per_image,
-        PEAK_FLOPS[torch.float32], n_params, card)
+    for key, label, level, peak in (
+            ("resnet_o5", "resnet", "O5", PEAK_BF16),
+            ("resnet_o0", "resnet_o0", "O0", PEAK_FLOPS[torch.float32])):
+        tr = resnet_trainer(main_amp, rcfg, rweights, level, RESNET_BATCH)
+        launches[key] = resnet_training_phase(
+            f"{label}_training", f"{label}_profile", tr, trainer_step(tr),
+            counters, STEP_LAUNCHES[key], flops_per_image, peak, n_params,
+            card, opt_level=level)
+        del tr
+        torch.cuda.empty_cache()
+
+    # slice 8: the O5 FusedSGD trainer accumulating two micro-batches (K16),
+    # and the list path with FusedAdagrad (K17), FusedNovoGrad (K18),
+    # FusedLARS and LARC(FusedSGD) (K10 after their per-tensor terms)
+    paths = resnet_paths(optimizers)
+    for label, (_, micro) in paths.items():
+        def make(batch, impl=None, **kw):
+            return resnet_path(paths, label, amp, main_amp, mt, rcfg, rweights,
+                               batch, impl, **kw)
+
+        resnet_path_parity_phase(label, make, micro, rcfg)
+        resnet_path_skip_phase(label, make, micro, rcfg)
+        tr, step = make(RESNET_BATCH)
+        launches[label] = resnet_training_phase(
+            f"{label}_training", f"{label}_profile", tr, step, counters,
+            STEP_LAUNCHES[label], flops_per_image, PEAK_BF16, n_params, card,
+            opt_level="O5", micro_batches=micro,
+            optimizer=f"'{type(tr.amp_model.optimizer.inner).__name__}'")
+        del tr, step
+        torch.cuda.empty_cache()
     launches["serving"] = serve_launches
 
     kernels = []
@@ -2627,6 +3097,7 @@ def main():
                 max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
                 bound_ms=f["bound_ms"], bound_by=f["bound_by"],
                 library_ms=f["library_ms"]))
+    line("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 at amp O0 (the FusedSGD list path) and O5 (arena-native, fp32 masters),
 held against the JAX trainer (``build_trainer(cfg=tiny_test_config(),
 global_batch=16, num_classes=10, distributed=False)``) from the same initial
-params and BN state on the same synthetic batches, plus the amp
-``has_state``/``has_aux`` pieces the trainer uses and the options that are
-not ported.
+params and BN state on the same synthetic batches, the same with
+FusedAdagrad, FusedNovoGrad, FusedLARS and LARC (the list path at both
+levels), plus the amp ``has_state``/``has_aux`` pieces the trainer uses and
+the options that are not ported.
 
 Two comparisons (tolerances and measured values in PERF.md):
 
@@ -34,11 +35,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples", "im
 import main_amp as jmain  # noqa: E402
 
 from beforeholiday_tpu import amp as jamp  # noqa: E402
+from beforeholiday_tpu import optimizers as jopt  # noqa: E402
 from beforeholiday_tpu.models import resnet as jres  # noqa: E402
 from beforeholiday_tpu_torch import amp as tamp  # noqa: E402
+from beforeholiday_tpu_torch import optimizers as topt  # noqa: E402
 from beforeholiday_tpu_torch.examples.imagenet import main_amp as tmain  # noqa: E402
 from beforeholiday_tpu_torch.models import resnet as tres  # noqa: E402
 from beforeholiday_tpu_torch.ops.arena import PackedParams, tree_flatten  # noqa: E402
+from beforeholiday_tpu_torch.parallel import LARC  # noqa: E402
 
 BATCH, HW, CLASSES, STEPS = 16, 16, 10, 3
 LR = 0.1 * BATCH / 256
@@ -350,11 +354,124 @@ def test_scaled_value_and_grad_has_aux_matches_jax(packed):
     assert tstate["scale"].item() == 4.0
 
 
+# ------------------------------------------ other fused optimizers and LARC
+
+
+# name -> (JAX optimizer, the port's, the options both trainers get): the
+# optimizers' defaults, lr from the trainer's step
+OPTIMIZERS = {
+    "adagrad": (lambda: jopt.FusedAdagrad(weight_decay=1e-4),
+                lambda: topt.FusedAdagrad(weight_decay=1e-4), {}),
+    "novograd": (lambda: jopt.FusedNovoGrad(weight_decay=1e-4),
+                 lambda: topt.FusedNovoGrad(weight_decay=1e-4), {}),
+    "lars": (lambda: jopt.FusedLARS(LR, momentum=0.9, weight_decay=1e-4),
+             lambda: topt.FusedLARS(LR, momentum=0.9, weight_decay=1e-4), {}),
+    "larc": (lambda: None, lambda: None, dict(use_larc=True, weight_decay=0.0)),
+}
+# (max |param| difference, each optimizer state leaf's relative L2 bound)
+# by optimizer and level, three free-running steps; PERF.md gives the
+# measured values. Adagrad's first step moves each weight by lr·g/|g|, so a
+# gradient whose sign differs (a ReLU input within rounding of 0; bf16
+# rounded at other places at O5) parts the two by 2·lr a step. The others
+# scale the gradient by per-tensor norms: about 5 times the worst measured.
+# The states are held leaf by leaf (the FusedSGD bounds above are over
+# whole arenas), and this width-8 net's small leaves part most: at O5 their
+# bf16 gradients differ by up to 19% on the first step; squares (Adagrad's
+# sums, NovoGrad's v) double the gradients' relative difference
+OPT_TOL = {
+    ("adagrad", "O0"): (3 * 2 * LR + 1e-6, 6e-2),
+    ("adagrad", "O5"): (3 * 2 * LR + 1e-6, 4e-1),
+    ("novograd", "O0"): (1e-4, 6e-2),
+    ("novograd", "O5"): (1e-3, 4e-1),
+    ("lars", "O0"): (1e-5, 3e-2),
+    ("lars", "O5"): (1e-4, 3e-1),
+    ("larc", "O0"): (3e-5, 3e-2),
+    ("larc", "O5"): (3e-4, 3e-1),
+}
+
+
+def _optimizer_runs(name, level):
+    """Both trainers with optimizer ``name`` from the same initial weights
+    for STEPS steps on the same batches; yields, after each step, the two
+    losses and the two sides' (master) params, optimizer state leaves by
+    key, and step counts, as numpy."""
+    make_j, make_t, kw = OPTIMIZERS[name]
+    jtr = jmain.build_trainer(cfg=jres.tiny_test_config(), opt_level=level,
+                              global_batch=BATCH, num_classes=CLASSES,
+                              distributed=False, devices=jax.devices()[:1],
+                              fused_optimizer=make_j(), **kw)
+    ttr = _port_trainer(level, fused_optimizer=make_t(), **kw)
+
+    def snap(tr, leaves):
+        inner = tr.opt_state["inner"] if level == "O5" else tr.opt_state
+        params = tr.opt_state["master"] if level == "O5" else tr.params
+        return (leaves(params),
+                {k: leaves(v) for k, v in inner.items() if k != "step"},
+                int(inner["step"]))
+
+    jleaves = lambda t: [_f32(a) for a in jax.tree.leaves(t)]  # noqa: E731
+    tleaves = lambda t: [a.float().numpy() for a in tree_flatten(t)[0]]  # noqa: E731
+    for images, labels in _batches():
+        jm = jtr.step(*jtr.shard_batch(images, labels), LR)
+        tm = ttr.step(*ttr.shard_batch(images, labels), LR)
+        yield (float(jm["loss"]), float(tm["loss"]), snap(jtr, jleaves),
+               snap(ttr, tleaves))
+
+
+@pytest.mark.parametrize("level", LEVELS)
+@pytest.mark.parametrize("name", list(OPTIMIZERS))
+def test_trainer_with_optimizer_matches_jax(name, level):
+    """``build_trainer(fused_optimizer=FusedAdagrad / FusedNovoGrad /
+    FusedLARS(...))`` and ``build_trainer(use_larc=True,
+    weight_decay=0.0)`` (LARC around FusedSGD) at O0 and O5, the list path
+    over fp32 masters, against the JAX trainer, three steps: the loss, the
+    step count, every (master) param and every optimizer state leaf
+    (``OPT_TOL``)."""
+    params_tol, state_l2 = OPT_TOL[name, level]
+    for i, (jloss, tloss, jstate, tstate) in enumerate(_optimizer_runs(name, level)):
+        np.testing.assert_allclose(tloss, jloss, rtol=TOL[level]["loss"])
+        assert tstate[2] == jstate[2] == i + 1
+        assert len(tstate[0]) == len(jstate[0])
+        for a, b in zip(tstate[0], jstate[0]):
+            np.testing.assert_allclose(a, b, rtol=0, atol=params_tol)
+        assert tstate[1].keys() == jstate[1].keys()
+        for key, refs in jstate[1].items():
+            assert len(tstate[1][key]) == len(refs)
+            for a, b in zip(tstate[1][key], refs):
+                assert a.shape == b.shape
+                assert np.linalg.norm(a - b) <= state_l2 * np.linalg.norm(b)
+
+
+def test_larc_refuses_an_inner_decay():
+    """As the JAX trainer: ``use_larc`` wraps FusedSGD(weight_decay=...)
+    in LARC, which refuses an inner decay, so the default decay raises; the
+    CLI's ``--larc`` likewise, and runs with ``--wd 0``."""
+    with pytest.raises(ValueError, match="weight decay"):
+        jmain.build_trainer(cfg=jres.tiny_test_config(), use_larc=True,
+                            distributed=False, devices=jax.devices()[:1])
+    with pytest.raises(ValueError, match="weight decay"):
+        tmain.build_trainer(cfg=tres.tiny_test_config(), use_larc=True,
+                            device="cpu")
+    with pytest.raises(ValueError, match="weight decay"):
+        tmain.main(["--larc", "-a", "resnet18", "--device", "cpu"])
+    tr = tmain.build_trainer(cfg=tres.tiny_test_config(), use_larc=True,
+                             weight_decay=0.0, device="cpu")
+    assert isinstance(tr.amp_model.optimizer, LARC)
+    assert not isinstance(tr.params, PackedParams)
+
+
+def test_main_runs_with_larc_on_the_cpu(capsys):
+    best = tmain.main(["-a", "resnet18", "-b", "2", "--image-size", "16",
+                       "--num-classes", "10", "--iters", "1", "--opt-level", "O5",
+                       "--larc", "--wd", "0", "--deterministic", "--device", "cpu"])
+    assert best > 0 and "peak speed" in capsys.readouterr().out
+
+
 # ------------------------------------------------------------ not ported
 
 
 @pytest.mark.parametrize("kw", [
-    dict(distributed=True), dict(sync_bn=True), dict(use_larc=True),
+    dict(distributed=True), dict(sync_bn=True),
     dict(bucket_bytes=1 << 20), dict(compress=True), dict(overlap_backward=True),
 ])
 def test_unported_options_raise(kw):

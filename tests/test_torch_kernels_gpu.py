@@ -3,12 +3,14 @@ attention forward/backward with dropout, CUDA C++), K5 (unscale), K6 (fused
 Adam), K7 (LAMB stage 1), K8 (trust-ratio update), K9 (global sum of
 squares), K10 (fused SGD) and K11/K12 (scaled masked softmax
 forward/backward), all Triton, K13 (the dropout keep mask, CUDA C++) and
-K14/K15 (the fused label-smoothing cross entropy forward/backward, Triton),
-against their plain PyTorch versions on the card, and the engine and small
-O5 GPT (FusedAdam; flash and unfused attention, with and without dropout,
-and with the fused cross entropy as its loss), BERT (FusedLAMB; both
-attentions, with and without dropout) and ResNet (FusedSGD) training steps
-on the kernels against the plain path.
+K14/K15 (the fused label-smoothing cross entropy forward/backward, Triton)
+and K16-K18 (axpby, Adagrad, NovoGrad; Triton) against their plain PyTorch
+versions on the card, and the engine and small O5 GPT (FusedAdam; flash and
+unfused attention, with and without dropout, and with the fused cross
+entropy as its loss), BERT (FusedLAMB; both attentions, with and without
+dropout) and ResNet (FusedSGD, and FusedAdagrad, FusedNovoGrad, FusedLARS
+and LARC on the list path) training steps on the kernels against the plain
+path.
 
 Marked ``gpu``: without a CUDA device every test skips (the decision is made
 inside the ``cuda`` fixture, never at import, so every pytest worker collects
@@ -34,8 +36,14 @@ from beforeholiday_tpu_torch.ops import attention as tattn
 from beforeholiday_tpu_torch.ops import multi_tensor as tmt
 from beforeholiday_tpu_torch.ops import normalization as tnorm
 from beforeholiday_tpu_torch.ops import softmax as tsm
-from beforeholiday_tpu_torch.ops.arena import make_spec
-from beforeholiday_tpu_torch.optimizers import FusedAdam, FusedLAMB
+from beforeholiday_tpu_torch.ops.arena import make_spec, tree_flatten
+from beforeholiday_tpu_torch.optimizers import (
+    FusedAdagrad,
+    FusedAdam,
+    FusedLAMB,
+    FusedLARS,
+    FusedNovoGrad,
+)
 from beforeholiday_tpu_torch.testing import bert, gpt
 
 pytestmark = pytest.mark.gpu
@@ -50,7 +58,7 @@ FP32_TOL = dict(rtol=1e-5, atol=2e-5)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels K1-K15 run only on the card)")
+        pytest.skip("needs a CUDA device (kernels K1-K18 run only on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -638,6 +646,183 @@ def test_resnet_step_kernels_match_plain_path(cuda):
         # momentum's difference
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=0.05 * 2e-2 * float(m.abs().max()) + 1e-7)
+
+
+# ------------------------------------------------------------- K16-K18
+
+
+@pytest.mark.parametrize("n, dtype, out_dtype, check, poison", [
+    (4 * 32768, torch.float32, torch.float32, 0, None),
+    (100003, torch.bfloat16, torch.bfloat16, -1, None),
+    (100003, torch.bfloat16, torch.float32, 1, None),
+    (100003, torch.float32, torch.bfloat16, 0, None),
+    (1, torch.float32, torch.float32, -1, None),
+    (100003, torch.bfloat16, torch.bfloat16, -1, ("x", float("nan"))),
+    (100003, torch.bfloat16, torch.bfloat16, 1, ("x", float("nan"))),
+    (100003, torch.float32, torch.float32, 0, ("y", float("inf"))),
+    (100003, torch.float32, torch.float32, 1, ("y", float("inf"))),
+])
+def test_k16_matches_plain(cuda, n, dtype, out_dtype, check, poison):
+    """out = a x + b y and the flag of the checked inputs: fp32 outputs to
+    one ulp (an fma), half outputs one ulp of theirs; non-finite outputs in
+    the same places."""
+    g = _gen(16)
+    x = torch.randn(n, generator=g, device=cuda).to(dtype)
+    y = torch.randn(n, generator=g, device=cuda).to(dtype)
+    if poison is not None:
+        (x if poison[0] == "x" else y)[n // 3] = poison[1]
+    a = torch.full((), 0.75, device=cuda)
+    outs = {}
+    for impl in ("kernel", "torch"):
+        before = tmt.axpby_kernel.launches
+        (out,), flag = tmt.multi_tensor_axpby([x], [y], a, -1.5, out_dtype=out_dtype,
+                                              arg_to_check=check, impl=impl)
+        assert tmt.axpby_kernel.launches - before == (impl == "kernel")
+        outs[impl] = (out, flag)
+    torch.cuda.synchronize()
+    (out, flag), (ref, rflag) = outs["kernel"], outs["torch"]
+    expect = poison is not None and check in (-1, "xy".index(poison[0]))
+    assert bool(flag) == bool(rflag) == expect
+    assert out.dtype == out_dtype and out.shape == (n,)
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(out), fin)
+    rtol = 1e-6 if out_dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(out[fin], ref[fin], rtol=rtol,
+                               atol=1e-6 * float(ref[fin].abs().max()))
+
+
+@pytest.mark.parametrize("n, gdt, mode, skip", [
+    (4 * 32768, torch.float32, 0, False),
+    (4 * 32768, torch.float32, 1, False),
+    (100003, torch.bfloat16, 0, False),
+    (1, torch.float32, 1, False),
+    (4 * 32768, torch.float32, 0, True),
+])
+def test_k17_matches_plain(cuda, n, gdt, mode, skip):
+    g = _gen(17)
+    grad = torch.randn(n, generator=g, device=cuda)
+    if skip:
+        grad[n // 2] = float("inf")
+    grad = grad.to(gdt)
+    p = torch.randn(n, generator=g, device=cuda)
+    h = 0.1 * torch.rand(n, generator=g, device=cuda)
+    kw = dict(lr=torch.full((), 0.05, device=cuda), eps=1e-10, weight_decay=1e-2,
+              mode=mode, found_inf=torch.full((), skip, dtype=torch.bool, device=cuda))
+    outs = {}
+    for fn in (tmt.adagrad_kernel, tmt.adagrad_torch):
+        pk, hk = p.clone(), h.clone()
+        fn(grad, pk, hk, **kw)
+        outs[fn] = (pk, hk)
+    torch.cuda.synchronize()
+    got, ref = outs[tmt.adagrad_kernel], outs[tmt.adagrad_torch]
+    if skip:  # bitwise untouched
+        assert torch.equal(got[0], p) and torch.equal(got[1], h)
+        return
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("gdt, mode, skip", [
+    (torch.float32, 0, False), (torch.float32, 1, False),
+    (torch.bfloat16, 0, False), (torch.float32, 1, True),
+])
+def test_k18_matches_plain(cuda, gdt, mode, skip):
+    """The per-tensor denominators through the segment table over the
+    awkward layout; the padding (the gradient's is 0) stays 0."""
+    spec = make_spec(AWKWARD)
+    n = spec.padded_total
+    g = _gen(18)
+    grad = torch.randn(n, generator=g, device=cuda)
+    p = torch.randn(n, generator=g, device=cuda)
+    m = 0.1 * torch.randn(n, generator=g, device=cuda)
+    for t in (grad, p, m):
+        t[spec.total:] = 0
+    if skip:
+        grad[n // 3] = float("inf")
+    grad = grad.to(gdt)
+    denom = 0.5 + torch.rand(spec.num_tensors, generator=g, device=cuda)
+    kw = dict(beta1=0.95, beta3=0.05, bc1=torch.full((), 0.185, device=cuda),
+              lr=0.05, weight_decay=1e-2, mode=mode,
+              found_inf=torch.full((), skip, dtype=torch.bool, device=cuda))
+    outs = {}
+    for fn in (tmt.novograd_kernel, tmt.novograd_torch):
+        pk, mk = p.clone(), m.clone()
+        fn(grad, pk, mk, denom, spec, **kw)
+        outs[fn] = (pk, mk)
+    torch.cuda.synchronize()
+    got, ref = outs[tmt.novograd_kernel], outs[tmt.novograd_torch]
+    if skip:
+        assert torch.equal(got[0], p) and torch.equal(got[1], m)
+        return
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
+        assert not a[spec.total:].any()
+
+
+def test_k18_refuses_a_denominator_per_layer(cuda):
+    spec = make_spec(AWKWARD)
+    p = torch.zeros(spec.padded_total, device=cuda)
+    with pytest.raises(ValueError):
+        tmt.novograd_kernel(p, p, p.clone(), torch.ones(spec.num_tensors + 1, device=cuda),
+                            spec, beta1=0.95, beta3=0.05, bc1=1.0, lr=0.1,
+                            weight_decay=0.0, mode=0, found_inf=None)
+
+
+# the list-path optimizers of slice 8: options of build_trainer, and the
+# kernel each launches once a step (at O5, over the one fp32 master bucket)
+LIST_PATHS = {
+    "adagrad": (lambda impl: dict(fused_optimizer=FusedAdagrad(weight_decay=1e-4, impl=impl)),
+                tmt.adagrad_kernel),
+    "novograd": (lambda impl: dict(fused_optimizer=FusedNovoGrad(weight_decay=1e-4, impl=impl)),
+                 tmt.novograd_kernel),
+    "lars": (lambda impl: dict(fused_optimizer=FusedLARS(0.05, momentum=0.9, weight_decay=1e-4,
+                                                         impl=impl)), tmt.sgd_kernel),
+    "larc": (lambda impl: dict(use_larc=True, weight_decay=0.0), tmt.sgd_kernel),
+}
+
+
+@pytest.mark.parametrize("name", list(LIST_PATHS))
+def test_resnet_list_path_kernels_match_plain_path(cuda, name):
+    """One O5 step of a small bottleneck ResNet through the ImageNet trainer
+    with FusedAdagrad, FusedNovoGrad, FusedLARS or LARC (the list path) on
+    K5 and the optimizer's kernel against the same step on the plain
+    versions, cuDNN held to deterministic algorithms so both get the same
+    gradients: the loss bitwise, the masters and state to one ulp; the
+    model is the masters' cast."""
+    from beforeholiday_tpu_torch.examples.imagenet import main_amp
+    from beforeholiday_tpu_torch.models import resnet
+
+    options, kernel = LIST_PATHS[name]
+    cfg = resnet.ResNetConfig(block="bottleneck", layers=(1, 1), width=16,
+                              num_classes=10)
+    weights = resnet.init(cfg, _gen(0), device=cuda)
+    g = _gen(1)
+    images = torch.randint(0, 256, (8, 32, 32, 3), generator=g, device=cuda,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 10, (8,), generator=g, device=cuda)
+    res = {}
+    for impl in ("kernel", "torch"):
+        plain = None if impl == "kernel" else "torch"
+        tr = main_amp.build_trainer(cfg=cfg, opt_level="O5", global_batch=8,
+                                    params=weights[0], bn_state=weights[1],
+                                    impl=plain, **options(plain))
+        before = (tmt.scale_kernel.launches, kernel.launches)
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True):
+            met = tr.step(images, labels, 0.05)
+        torch.cuda.synchronize()
+        launched = [tmt.scale_kernel.launches - before[0], kernel.launches - before[1]]
+        assert launched == ([2, 1] if impl == "kernel" else [0, 0])
+        assert not bool(met["found_inf"]) and int(tr.opt_state["inner"]["step"]) == 1
+        masters = tree_flatten(tr.opt_state["master"])[0]
+        for p, m in zip(tree_flatten(tr.params)[0], masters):
+            assert torch.equal(p, m.to(p.dtype))
+        state = [x for k, v in sorted(tr.opt_state["inner"].items()) if k != "step"
+                 for x in tree_flatten(v)[0]]
+        res[impl] = (met["loss"], masters, state)
+    (lk, mk, sk), (lt, mt_, st) = res["kernel"], res["torch"]
+    assert torch.equal(lk, lt)
+    for a, b in zip(mk + sk, mt_ + st):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
 
 
 # ------------------------------------------------------------- K11, K12

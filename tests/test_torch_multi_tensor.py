@@ -1,6 +1,6 @@
 """Port parity: flat arenas, ``PackedParams``, ``multi_tensor_scale`` (kernel
-K5's plain path) and ``adam_flat``/``multi_tensor_adam`` (kernel K6's plain
-path), held against the JAX package on the same numpy inputs. The JAX side
+K5's plain path), ``adam_flat``/``multi_tensor_adam`` (kernel K6's plain
+path) and ``multi_tensor_axpby`` (kernel K16's plain path), held against the JAX package on the same numpy inputs. The JAX side
 runs its Pallas arena kernels in interpret mode (``impl="pallas"``) and its
 jnp path (``impl="jnp"``)."""
 
@@ -250,8 +250,66 @@ def test_multi_tensor_adam_matches_jax(jax_impl):
         np.testing.assert_array_equal(a.numpy(), b)
 
 
+# ------------------------------------------------- multi_tensor_axpby (K16)
+
+
+AXPBY_POISON = {  # case -> (list, tensor, element, value)
+    "clean": None,
+    "nan_in_x": (0, 1, 2, np.nan),
+    "inf_in_y": (1, 3, 999, np.inf),
+}
+
+
+@pytest.mark.parametrize("case", list(AXPBY_POISON))
+@pytest.mark.parametrize("arg_to_check", [-1, 0, 1])
+@pytest.mark.parametrize("dtype, out_dtype", [
+    (np.float32, None), (jnp.bfloat16, None), (jnp.bfloat16, "float32"),
+    (np.float32, "bfloat16")])
+@pytest.mark.parametrize("jax_impl", JAX_IMPLS)
+def test_multi_tensor_axpby_matches_jax(case, arg_to_check, dtype, out_dtype,
+                                        jax_impl):
+    """out = a x + b y in fp32, stored in out_dtype: fp32 outputs within
+    rtol 1e-6 (a multiply-add may round once or twice), half outputs the
+    same fp32 value rounded once (one ulp); the same flag for each
+    ``arg_to_check``."""
+    xs = [_tensors(SHAPES, seed=s) for s in (11, 12)]
+    poison = AXPBY_POISON[case]
+    if poison is not None:
+        lst, i, j, val = poison
+        xs[lst][i].reshape(-1)[j] = val
+    xs = [[x.astype(dtype) for x in lst] for lst in xs]
+    jout_dt = None if out_dtype is None else getattr(jnp, out_dtype)
+    tout_dt = None if out_dtype is None else getattr(torch, out_dtype)
+    ref, rflag = jmt.multi_tensor_axpby(
+        *[[jnp.asarray(x) for x in lst] for lst in xs], 0.75, -1.5,
+        out_dtype=jout_dt, arg_to_check=arg_to_check, impl=jax_impl)
+    got, flag = tmt.multi_tensor_axpby(
+        *[[tgpt._tensor(x, "cpu") for x in lst] for lst in xs], 0.75,
+        torch.tensor(-1.5), out_dtype=tout_dt, arg_to_check=arg_to_check)
+    expect = poison is not None and arg_to_check in (-1, poison[0])
+    assert bool(flag) == bool(rflag) == expect
+    rtol = 1e-6 if got[0].dtype == torch.float32 else 2 ** -7
+    for g, r in zip(got, ref):
+        assert g.dtype == (tout_dt or tgpt._tensor(xs[0][0], "cpu").dtype)
+        assert tuple(g.shape) == r.shape
+        np.testing.assert_allclose(_np(g), np.asarray(r, np.float32), rtol=rtol,
+                                   atol=1e-6, equal_nan=True)
+
+
+def test_multi_tensor_axpby_uses_arenas_as_they_are():
+    """A gradient arena pair goes in without a flatten copy: one output of
+    the arena's length, the padding 0."""
+    x, y = torch.randn(tarena.TILE), torch.randn(tarena.TILE)
+    x[-5:] = 0
+    y[-5:] = 0
+    (out,), flag = tmt.multi_tensor_axpby([x], [y], 0.5, 0.5, arg_to_check=0)
+    assert out.shape == x.shape and not bool(flag)
+    assert torch.equal(out, 0.5 * x + 0.5 * y) and not out[-5:].any()
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
-    """K5 and K6 launch on CUDA tensors or raise; they never fall back."""
+    """K5, K6 and K16 launch on CUDA tensors or raise; they never fall
+    back."""
     x = torch.zeros(8)
     with pytest.raises(ValueError):
         tmt.scale_kernel(x, 1.0, torch.float32)
@@ -261,3 +319,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                         grad_scale=1.0, found_inf=None, copy_out=None)
     with pytest.raises(ValueError):
         tmt.multi_tensor_scale([x], 1.0, impl="kernel")
+    with pytest.raises(ValueError):
+        tmt.axpby_kernel(x, x, 1.0, 1.0, torch.float32)
+    with pytest.raises(ValueError):
+        tmt.multi_tensor_axpby([x], [x], 1.0, 1.0, impl="kernel")
