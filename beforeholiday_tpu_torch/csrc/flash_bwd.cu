@@ -20,30 +20,46 @@
 // ds.k, ds^T.q, p^T.do) make 10 * pairs * D = 86.0 GFLOP, 0.087 ms at the
 // 989 TFLOP/s bf16 tensor-core peak, against 268 MB of q, k, v, o, do in and
 // dq, dk, dv out (0.080 ms). The backward is on the line between the two.
-// With dropout both the dq and the dk/dv pass hash every live pair (about
-// 26.5 integer operations a pair counted once, 53 us at 67 Tops/s).
+// With dropout the hash counts about 26.5 integer operations a live pair
+// once (53 us at 67 Tops/s).
 //
 // Three launches, all deterministic (no atomics):
 // * flash_bwd_delta_kernel: one warp per query row writes dd = delta - dlse
 //   in fp32. The TPU recomputes delta in every block (:298); a pre-pass reads
 //   do and o once. dlse is read here only, and only when it is given.
-// * dq: one block per 64 query rows (bf16, mma.sync) or 8 rows (CUDA cores)
-//   walks the key tiles up to the block's last causal diagonal, recomputes p
-//   and ds in registers and accumulates ds k in fp32.
-// * dk/dv: one block per 64 keys (bf16, mma.sync) or 8 keys (CUDA cores)
-//   walks the query tiles from its first causal diagonal, and accumulates
-//   p^T do and ds^T q. Both skip dead tiles (the TPU's :323 and :362) and
-//   keys past lens give exact zeros.
-// The tensor-core kernels (bf16, D in 16..128 step 16) round p and ds to
-// bf16 for their products, as the TPU kernel rounds them to the operand
-// dtype; sums stay fp32. The CUDA-core row kernels take fp32 at every head
-// dim and bf16 at the others (8..512): a lane owns output columns lane +
-// 32 c, c < kCols = 1, 2, 4, 8 or 16 by head dim, with the ragged last one
-// masked, the tiles sit in dynamic shared memory (164 KB at D 512), and the
-// bf16 variant rounds p and ds as the tensor-core kernels do. Rows with
-// lens = 0 (lse = -1e30) never reach an exp: their key range is empty, so
-// their gradients are exact zeros, never NaN. Still open (later work):
-// cp.async/TMA pipelining, wgmma, and register tiling for D = 128.
+// * dq: one block per 128 query rows (bf16) or 8 rows (CUDA cores) walks
+//   the key tiles up to the block's last causal diagonal, recomputes p and
+//   ds in registers and accumulates ds k in fp32. Recomputing s and dp here
+//   instead of adding dq across the dk/dv blocks with atomics costs two of
+//   the five products again (7/5 of the bound's operations) and keeps two
+//   calls bitwise equal.
+// * dk/dv: one block per 64 keys (bf16) or 8 keys (CUDA cores) walks the
+//   query tiles from its first causal diagonal, and accumulates p^T do and
+//   ds^T q. Both skip dead tiles (the TPU's :323 and :362) and keys past lens
+//   give exact zeros.
+// The tensor-core kernels (bf16, D in 16..128 step 16) keep both units busy,
+// as the bound asks: tiles arrive by TMA (3-D tensor maps over (D, S, BH):
+// a ragged edge reads zeros, never the next head's rows) into a ring of
+// shared-memory stages, the next tile landing while this one computes, in
+// the 128-byte-swizzled layout that wgmma reads straight from shared memory;
+// every product is a wgmma, the transposed operands (K in ds.k, Q and dO in
+// ds^T.q and p^T.do) read through its transpose bit, so nothing is
+// transposed or staged twice; p is one FFMA and one ex2 an element; the
+// mask runs only on the diagonal, lens and sq tiles; causal dq blocks launch
+// heaviest first; and with dropout the two lanes that share a 2x2 hash tile
+// split its Philox call (keep_tiles_shared), so each pass hashes each live
+// pair once, while the tile's s and dp are still on the tensor cores. They
+// round p and ds to bf16 for their products, as the TPU kernel rounds them
+// to the operand dtype; sums stay fp32. The CUDA-core
+// row kernels take fp32 at every head dim and bf16 at the others (8..512): a
+// lane owns output columns lane + 32 c, c < kCols = 1, 2, 4, 8 or 16 by head
+// dim, with the ragged last one masked, the tiles sit in dynamic shared
+// memory (164 KB at D 512), and the bf16 variant rounds p and ds as the
+// tensor-core kernels do. Rows with lens = 0 (lse = -1e30) never reach an
+// exp: their key range is empty, so their gradients are exact zeros, never
+// NaN. Still open (later work): overlapping one tile's softmax with the
+// next tile's wgmma (two consumer warpgroups taking turns), and reading the
+// models' (B, S, H, D) projections in place through 4-D tensor maps.
 
 #include <type_traits>
 
@@ -57,8 +73,23 @@ constexpr int kDeltaRows = 8;          // query rows per block of the pre-pass
 constexpr int kRowsB = 2;              // rows kernels: query rows (dq) or keys (dkv) per warp
 constexpr int kBlkB = kWarps * kRowsB; // rows kernels: rows or keys per block
 constexpr int kTile = 32;              // rows kernels: keys (dq) or queries (dkv) per tile
-constexpr int kMmaBlk = 16 * kWarps;   // bf16: query rows (dq) or keys (dkv) per block
-constexpr int kMmaTile = 32;           // bf16: keys (dq) or queries (dkv) per tile
+constexpr int kStages = 2;             // bf16: tiles in flight in the ring
+constexpr int kDqWarps = 8;
+constexpr int kDqBQ = 16 * kDqWarps;   // bf16 dq: query rows per block
+constexpr int kDkvWarps = 4;
+constexpr int kDkvBK = 16 * kDkvWarps; // bf16 dk/dv: keys per block
+// keys per tile of dq and queries per tile of dk/dv, by head dim: the
+// accumulators of a 16-row slice grow with D, the tile's scores shrink
+template <int D>
+__host__ __device__ constexpr int dq_bk() { return D <= 64 ? 64 : 32; }
+template <int D>
+__host__ __device__ constexpr int dkv_bq() { return D <= 64 ? 64 : 32; }
+// a stage of the dk/dv ring: Q and dO tiles, then the tile's lse and dd,
+// padded so the next stage's tiles start on 1024 bytes
+template <int D>
+__host__ __device__ constexpr int dkv_stage() {
+  return 2 * sw_bytes<dkv_bq<D>(), D>() + (8 * dkv_bq<D>() + 1023) / 1024 * 1024;
+}
 
 // dd[row] = sum_d do*o - dlse[row] (dlse may be null); the head dim is kD,
 // or d at run time where kD is 0
@@ -315,135 +346,142 @@ flash_bwd_dkv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------- bf16 (tensor cores)
 
-// a warp's 16 rows of a (rows, D) bf16 matrix as m16n8k16 A fragments; rows
-// at or past n read as zero
-template <int D>
-__device__ __forceinline__ void load_a_rows(uint32_t (&f)[D / 16][4],
-                                            const __nv_bfloat16* base, int r0,
-                                            int n, int t) {
-  const int r1 = r0 + 8;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int c = kc * 16 + 2 * t;
-    f[kc][0] = r0 < n ? ld32(base + (size_t)r0 * D + c) : 0u;
-    f[kc][1] = r1 < n ? ld32(base + (size_t)r1 * D + c) : 0u;
-    f[kc][2] = r0 < n ? ld32(base + (size_t)r0 * D + c + 8) : 0u;
-    f[kc][3] = r1 < n ? ld32(base + (size_t)r1 * D + c + 8) : 0u;
-  }
-}
+// The tensor-core kernels stream tiles through a ring of kStages shared-
+// memory stages filled by TMA (tile i + kStages - 1 loads while tile i
+// computes; thread 0 starts a stage's copies and every thread waits on its
+// mbarrier), in wgmma's 128-byte swizzled layout (flash_common.cuh), and run
+// every product as a wgmma m64nNk16 of one warpgroup over 64 rows: the two
+// recomputed products (s and dp) read both operands from shared memory, the
+// gradient products take ds or p from registers (the accumulators rounded
+// to bf16 in place) and read the other operand MN-major from the one
+// row-major tile through the transpose bit. p = 2^(s scale log2(e) - lse
+// log2(e)): one FFMA and one ex2. Only a warp's tiles that hold the causal
+// diagonal, lens[bh] or (dk/dv) the query edge sq evaluate the mask (to
+// -inf, whose ex2 is 0).
 
-// stage rows [r0, r0 + kMmaTile) of two (n, D) bf16 matrices into shared
-// memory, row-major (a, b) and transposed (at, bt); rows at or past n are 0
-template <int D, int kDS, int kTS>
-__device__ __forceinline__ void stage_tile(
-    const __nv_bfloat16* a, const __nv_bfloat16* b, int r0, int n,
-    __nv_bfloat16 (*as)[kDS], __nv_bfloat16 (*bs)[kDS],
-    __nv_bfloat16 (*at)[kTS], __nv_bfloat16 (*bt)[kTS]) {
-  for (int i = threadIdx.x; i < kMmaTile * D / 8; i += blockDim.x) {
-    const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-    uint4 av = make_uint4(0u, 0u, 0u, 0u), bv = av;
-    if (r0 + r < n) {
-      av = *reinterpret_cast<const uint4*>(a + (size_t)(r0 + r) * D + c8);
-      bv = *reinterpret_cast<const uint4*>(b + (size_t)(r0 + r) * D + c8);
-    }
-    if (as != nullptr) *reinterpret_cast<uint4*>(&as[r][c8]) = av;
-    if (bs != nullptr) *reinterpret_cast<uint4*>(&bs[r][c8]) = bv;
-    const __nv_bfloat16* ae = reinterpret_cast<const __nv_bfloat16*>(&av);
-    const __nv_bfloat16* be = reinterpret_cast<const __nv_bfloat16*>(&bv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      if (at != nullptr) at[c8 + e][r] = ae[e];
-      if (bt != nullptr) bt[c8 + e][r] = be[e];
-    }
-  }
-}
-
-// a thread owns query rows r0, r1 = r0 + 8 and keys 2t, 2t+1 of each 8-key
-// block: the two keys of a row share one hash tile
+// dq: a block owns kDqBQ = 128 query rows, two warpgroups of 64, 16 per warp
+// (rows r0 = g, r1 = g + 8, keys 2t, 2t+1 of each 8-key block, as K2). Q and
+// dO stay in shared memory for the whole walk; K and V tiles of dq_bk<D>()
+// keys stream through the ring. Causal blocks launch heaviest first.
 template <int D, bool kDrop>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kDqWarps * 32, D <= 64 ? 2 : 1)
+flash_bwd_dq_mma_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap domap,
                         const float* __restrict__ lse, const float* __restrict__ dd,
                         const int* __restrict__ lens, __nv_bfloat16* __restrict__ dq,
                         int sq, int sk, float scale, int causal, DropArgs drop) {
-  constexpr int kDS = D + 8;         // padded rows: fragment loads hit distinct banks
-  constexpr int kTS = kMmaTile + 8;  // padded rows of the transposed tile
-  __shared__ __align__(16) __nv_bfloat16 ks[kMmaTile][kDS];
-  __shared__ __align__(16) __nv_bfloat16 vs[kMmaTile][kDS];
-  __shared__ __align__(16) __nv_bfloat16 kt[D][kTS];
+  constexpr int kBK = dq_bk<D>();
+  constexpr int kTile = sw_bytes<kBK, D>();  // one K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t bars[kStages + 1];  // a barrier a stage, then Q's and dO's
+  char* qs = reinterpret_cast<char*>(smem_raw) + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  char* dos = qs + sw_bytes<kDqBQ, D>();
+  char* ring = dos + sw_bytes<kDqBQ, D>();  // [kStages][K tile, V tile]
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kMmaBlk;
+  const int bh = blockIdx.x;
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;  // heavy first
+  const int q0 = qb * kDqBQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const size_t qoff = (size_t)bh * sq * D, koff = (size_t)bh * sk * D;
+  const int w0 = q0 + warp * 16;
+  const int m0 = (warp >> 2) * 64;  // the warpgroup's first row in the block
+  const int r0 = w0 + g, r1 = r0 + 8;
+  const size_t qoff = (size_t)bh * sq * D;
   const int len = min(max(lens[bh], 0), sk);
-  const int kend = causal ? min(len, min(q0 + kMmaBlk, sq)) : len;
+  const int kend = causal ? min(len, min(q0 + kDqBQ, sq)) : len;
+  const int gend = causal ? min(kend, q0 + m0 + 64) : kend;
+  const int ntiles = (kend + kBK - 1) / kBK;
+  const float sl2 = scale * kLog2e;
   DropKey dkey{};
   if constexpr (kDrop) dkey = load_drop_key(drop);
 
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  load_a_rows<D>(qf, q + qoff, r0, sq, t);
-  load_a_rows<D>(df, dout + qoff, r0, sq, t);
-  const float l0 = r0 < sq ? lse[(size_t)bh * sq + r0] : 0.f;
-  const float l1 = r1 < sq ? lse[(size_t)bh * sq + r1] : 0.f;
+  auto load_kv = [&](int i) {  // thread 0 starts tile i's copies
+    if (i < ntiles && threadIdx.x == 0) {
+      char* st = ring + (i % kStages) * 2 * kTile;
+      uint64_t* bar = &bars[i % kStages];
+      mbar_expect(bar, 2 * kTile);
+      tma_load_tile<kBK, D>(st, &kmap, bar, i * kBK, bh);
+      tma_load_tile<kBK, D>(st + kTile, &vmap, bar, i * kBK, bh);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i <= kStages; ++i) mbar_init(&bars[i]);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (ntiles > 0 && threadIdx.x == 0) {
+    mbar_expect(&bars[kStages], 2 * sw_bytes<kDqBQ, D>());
+    tma_load_tile<kDqBQ, D>(qs, &qmap, &bars[kStages], q0, bh);
+    tma_load_tile<kDqBQ, D>(dos, &domap, &bars[kStages], q0, bh);
+  }
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) load_kv(i);
+  // lse in base 2 and dd of the thread's two rows (rows past sq are never stored)
+  const float l0 = r0 < sq ? lse[(size_t)bh * sq + r0] * kLog2e : 0.f;
+  const float l1 = r1 < sq ? lse[(size_t)bh * sq + r1] * kLog2e : 0.f;
   const float d0 = r0 < sq ? dd[(size_t)bh * sq + r0] : 0.f;
   const float d1 = r1 < sq ? dd[(size_t)bh * sq + r1] : 0.f;
 
   float acc[D / 8][4];
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  if (ntiles > 0) mbar_wait(&bars[kStages], 0);
 
-  for (int t0 = 0; t0 < kend; t0 += kMmaTile) {
-    __syncthreads();  // the previous tile is consumed
-    stage_tile<D, kDS, kTS>(k + koff, v + koff, t0, sk, ks, vs, kt, nullptr);
+  for (int it = 0; it < ntiles; ++it) {
+    load_kv(it + kStages - 1);
+    mbar_wait(&bars[it % kStages], (it / kStages) & 1);
+    const int t0 = it * kBK;
+    const char* ks = ring + (it % kStages) * 2 * kTile;
+    const char* vs = ks + kTile;
+    if (t0 < gend) {
+      float s[kBK / 8][4], dp[kBK / 8][4];
+      wgmma_ss_rows<D, kDqBQ, kBK>(s, qs, m0, ks);
+      wgmma_ss_rows<D, kDqBQ, kBK>(dp, dos, m0, vs);
+      uint32_t keep[kBK / 32];  // the dropout hash, while the products run
+      if constexpr (kDrop) keep_bits<kBK / 8>(keep, dkey, bh, r0, t0 + 2 * t, lane, false);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      if (t0 + kBK > len || (causal && t0 + kBK - 1 > w0)) {
+#pragma unroll
+        for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = t0 + nt * 8 + 2 * t + (e & 1);
+            if (key >= len || (causal && key > (e < 2 ? r0 : r1))) s[nt][e] = -INFINITY;
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < kBK / 8; ++nt) {
+        const int key0 = t0 + nt * 8 + 2 * t;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2_approx(fmaf(s[nt][e], sl2, -(e < 2 ? l0 : l1)));
+          float dpe = dp[nt][e];
+          if constexpr (kDrop) {
+            dpe = kept(keep_tile_of<kBK / 8>(keep, nt, e >> 1), e < 2 ? r0 : r1, key0 + (e & 1))
+                      ? dpe * drop.inv_keep
+                      : 0.f;
+          }
+          s[nt][e] = p * (dpe - (e < 2 ? d0 : d1)) * scale;  // ds
+        }
+      }
+      uint32_t a[kBK / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < kBK / 16; ++kc) pack_c_as_a(a[kc], s[2 * kc], s[2 * kc + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kBK / 16; ++kc) wgmma_rs_cols<D, kBK>(acc, a[kc], ks, kc);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
     __syncthreads();
-
-    float s[kMmaTile / 8][4], dp[kMmaTile / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kMmaTile / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const __nv_bfloat16* kp = &ks[nt * 8 + g][kc * 16 + 2 * t];
-        const __nv_bfloat16* vp = &vs[nt * 8 + g][kc * 16 + 2 * t];
-        mma16816(s[nt], qf[kc], ld32(kp), ld32(kp + 8));
-        mma16816(dp[nt], df[kc], ld32(vp), ld32(vp + 8));
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kMmaTile / 8; ++nt) {
-      const int key0 = t0 + nt * 8 + 2 * t;
-      uint32_t tiles[2] = {0u, 0u};
-      if constexpr (kDrop) {
-        tiles[0] = keep_tile(dkey, bh, r0, key0);
-        tiles[1] = keep_tile(dkey, bh, r1, key0);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        const bool masked = key >= len || row >= sq || (causal && key > row);
-        const float p = masked ? 0.f : expf(s[nt][e] * scale - (e < 2 ? l0 : l1));
-        float dpe = dp[nt][e];
-        if constexpr (kDrop) dpe = kept(tiles[e >> 1], row, key) ? dpe * drop.inv_keep : 0.f;
-        s[nt][e] = p * (dpe - (e < 2 ? d0 : d1)) * scale;  // ds
-      }
-    }
-#pragma unroll
-    for (int kc = 0; kc < kMmaTile / 16; ++kc) {
-      uint32_t a[4];
-      pack_c_as_a(a, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* kp = &kt[dt * 8 + g][kc * 16 + 2 * t];
-        mma16816(acc[dt], a, ld32(kp), ld32(kp + 8));
-      }
-    }
   }
 
 #pragma unroll
@@ -457,111 +495,160 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// The dk/dv kernel works on the transposed problem: a warp owns 16 keys and
-// computes S^T = K Q^T and dP^T = V dO^T for a tile of queries, so its C
-// tiles hold (key, query) pairs and become the A fragments of P^T dO and
-// dS^T Q in place. A thread owns keys key0, key1 = key0 + 8 and queries 2t,
-// 2t+1 of each 8-query block: the two queries of a key share one hash tile,
-// the same tile that K2 and the dq kernel read at (query, key).
+// dk/dv works on the transposed problem: a block owns kDkvBK = 64 keys, one
+// warpgroup, 16 keys per warp, and computes S^T = K Q^T and dP^T = V dO^T
+// for a tile of dkv_bq<D>() queries, so its accumulators hold (key, query)
+// pairs and become the register A operands of P^T dO and dS^T Q in place. A
+// thread owns keys g, g + 8 of its warp's 16 and queries 2t, 2t+1 of each
+// 8-query block: the keys g and g ^ 1 share a hash tile, the tile that K2
+// and dq read at (query, key). K and V sit in shared memory for the whole
+// walk; Q, dO and their rows' lse and dd stream through the ring. Causal
+// blocks of early keys, which see the most queries, have the lowest index
+// and launch first.
 template <int D, bool kDrop>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__(kDkvWarps * 32, D <= 64 ? 3 : 2)
+flash_bwd_dkv_mma_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const __grid_constant__ CUtensorMap domap,
                          const float* __restrict__ lse, const float* __restrict__ dd,
                          const int* __restrict__ lens, __nv_bfloat16* __restrict__ dk,
                          __nv_bfloat16* __restrict__ dv, int sq, int sk, float scale,
                          int causal, DropArgs drop) {
-  constexpr int kDS = D + 8;
-  constexpr int kTS = kMmaTile + 8;
-  __shared__ __align__(16) __nv_bfloat16 qs[kMmaTile][kDS];
-  __shared__ __align__(16) __nv_bfloat16 dos[kMmaTile][kDS];
-  __shared__ __align__(16) __nv_bfloat16 qt[D][kTS];
-  __shared__ __align__(16) __nv_bfloat16 dot[D][kTS];
-  __shared__ float ls[kMmaTile], dds[kMmaTile];
+  constexpr int kBQ = dkv_bq<D>();
+  constexpr int kThreads = kDkvWarps * 32;
+  constexpr int kTile = sw_bytes<kBQ, D>();  // one Q or dO tile
+  constexpr int kStage = dkv_stage<D>();     // Q tile, dO tile, lse, dd
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t bars[kStages + 1];  // a barrier a stage, then K's and V's
+  char* kss = reinterpret_cast<char*>(smem_raw) + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  char* vss = kss + sw_bytes<kDkvBK, D>();
+  char* ring = vss + sw_bytes<kDkvBK, D>();  // [kStages][kStage]
 
-  const int bh = blockIdx.y, k0 = blockIdx.x * kMmaBlk;
+  const int bh = blockIdx.x, k0 = blockIdx.y * kDkvBK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
-  const size_t qoff = (size_t)bh * sq * D, koff = (size_t)bh * sk * D;
+  const int wk0 = k0 + warp * 16;  // the warp's first key
+  const int key0 = wk0 + g, key1 = key0 + 8;
+  const size_t koff = (size_t)bh * sk * D;
   const int len = min(max(lens[bh], 0), sk);
+  const float sl2 = scale * kLog2e;
   DropKey dkey{};
   if constexpr (kDrop) dkey = load_drop_key(drop);
 
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a_rows<D>(kf, k + koff, key0, sk, t);
-  load_a_rows<D>(vf, v + koff, key0, sk, t);
+  // keys at or past len get no gradient; causal: no query before k0 sees them
+  const int qbeg = causal ? (k0 / kBQ) * kBQ : 0;
+  const int qend = k0 < len ? sq : 0;
+  const int ntiles = qend > qbeg ? (qend - qbeg + kBQ - 1) / kBQ : 0;
+
+  // tile i: Q and dO by TMA (thread 0), their rows' lse and dd by cp.async
+  // (rows of a (BH, Sq) fp32 array need not start on 16 bytes)
+  auto load_q = [&](int i) {
+    if (i < ntiles) {
+      const int t0 = qbeg + i * kBQ;
+      char* st = ring + (i % kStages) * kStage;
+      if (threadIdx.x == 0) {
+        uint64_t* bar = &bars[i % kStages];
+        mbar_expect(bar, 2 * kTile);
+        tma_load_tile<kBQ, D>(st, &qmap, bar, t0, bh);
+        tma_load_tile<kBQ, D>(st + kTile, &domap, bar, t0, bh);
+      }
+      float* vec = reinterpret_cast<float*>(st + 2 * kTile);
+      load_vec_async<kBQ, kThreads>(vec, lse + (size_t)bh * sq, t0, sq);
+      load_vec_async<kBQ, kThreads>(vec + kBQ, dd + (size_t)bh * sq, t0, sq);
+    }
+    cp_async_commit();
+  };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i <= kStages; ++i) mbar_init(&bars[i]);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (ntiles > 0 && threadIdx.x == 0) {
+    mbar_expect(&bars[kStages], 2 * sw_bytes<kDkvBK, D>());
+    tma_load_tile<kDkvBK, D>(kss, &kmap, &bars[kStages], k0, bh);
+    tma_load_tile<kDkvBK, D>(vss, &vmap, &bars[kStages], k0, bh);
+  }
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) load_q(i);
+  if (ntiles > 0) mbar_wait(&bars[kStages], 0);
+
   float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
 
-  // keys at or past len get no gradient; causal: no query before k0 sees them
-  const int qbeg = causal ? (k0 / kMmaTile) * kMmaTile : 0;
-  const int qend = k0 < len ? sq : 0;
-  for (int t0 = qbeg; t0 < qend; t0 += kMmaTile) {
-    __syncthreads();
-    stage_tile<D, kDS, kTS>(q + qoff, dout + qoff, t0, sq, qs, dos, qt, dot);
-    if (threadIdx.x < kMmaTile) {
-      const int row = t0 + threadIdx.x;
-      ls[threadIdx.x] = row < sq ? lse[(size_t)bh * sq + row] : 0.f;
-      dds[threadIdx.x] = row < sq ? dd[(size_t)bh * sq + row] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kMmaTile / 8][4], dp[kMmaTile / 8][4];
+  for (int it = 0; it < ntiles; ++it) {
+    load_q(it + kStages - 1);
+    mbar_wait(&bars[it % kStages], (it / kStages) & 1);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();  // every thread's lse and dd of tile it have landed
+    const int t0 = qbeg + it * kBQ;
+    const char* qs = ring + (it % kStages) * kStage;
+    const char* dos = qs + kTile;
+    const float* ls = reinterpret_cast<const float*>(dos + kTile);
+    const float* dds = ls + kBQ;
+    // (causal) a tile whose queries all precede the block's keys adds nothing
+    if (!(causal && t0 + kBQ - 1 < k0)) {
+      float s[kBQ / 8][4], dp[kBQ / 8][4];
+      wgmma_ss_rows<D, kDkvBK, kBQ>(s, kss, 0, qs);
+      wgmma_ss_rows<D, kDkvBK, kBQ>(dp, vss, 0, dos);
+      uint32_t keep[kBQ / 32];  // the dropout hash, while the products run
+      if constexpr (kDrop) keep_bits<kBQ / 8>(keep, dkey, bh, key0, t0 + 2 * t, lane, true);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      if ((causal && t0 < wk0 + 15) || wk0 + 16 > len || t0 + kBQ > sq) {
 #pragma unroll
-    for (int nt = 0; nt < kMmaTile / 8; ++nt) {
+        for (int nt = 0; nt < kBQ / 8; ++nt) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const __nv_bfloat16* qp = &qs[nt * 8 + g][kc * 16 + 2 * t];
-        const __nv_bfloat16* dp_ = &dos[nt * 8 + g][kc * 16 + 2 * t];
-        mma16816(s[nt], kf[kc], ld32(qp), ld32(qp + 8));
-        mma16816(dp[nt], vf[kc], ld32(dp_), ld32(dp_ + 8));
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kMmaTile / 8; ++nt) {
-      const int qa = t0 + nt * 8 + 2 * t;
-      uint32_t tiles[2] = {0u, 0u};
-      if constexpr (kDrop) {
-        tiles[0] = keep_tile(dkey, bh, qa, key0);
-        tiles[1] = keep_tile(dkey, bh, qa, key1);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = nt * 8 + 2 * t + (e & 1), qi = t0 + ql;
-        const int key = e < 2 ? key0 : key1;
-        const bool masked = key >= len || qi >= sq || (causal && key > qi);
-        const float p = masked ? 0.f : expf(s[nt][e] * scale - ls[ql]);
-        float z = p, dpe = dp[nt][e];
-        if constexpr (kDrop) {
-          const bool keep = kept(tiles[e >> 1], qi, key);
-          z = keep ? p * drop.inv_keep : 0.f;
-          dpe = keep ? dpe * drop.inv_keep : 0.f;
+          for (int e = 0; e < 4; ++e) {
+            const int qi = t0 + nt * 8 + 2 * t + (e & 1);
+            const int key = e < 2 ? key0 : key1;
+            if (key >= len || qi >= sq || (causal && key > qi)) s[nt][e] = -INFINITY;
+          }
         }
-        s[nt][e] = z;
-        dp[nt][e] = p * (dpe - dds[ql]) * scale;  // ds, with the undropped p
       }
-    }
 #pragma unroll
-    for (int kc = 0; kc < kMmaTile / 16; ++kc) {
-      uint32_t ap[4], ads[4];
-      pack_c_as_a(ap, s[2 * kc], s[2 * kc + 1]);
-      pack_c_as_a(ads, dp[2 * kc], dp[2 * kc + 1]);
+      for (int nt = 0; nt < kBQ / 8; ++nt) {
+        const int ql = nt * 8 + 2 * t, qa = t0 + ql;
+        const float la[2] = {ls[ql] * kLog2e, ls[ql + 1] * kLog2e};
+        const float da[2] = {dds[ql], dds[ql + 1]};
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* op = &dot[dt * 8 + g][kc * 16 + 2 * t];
-        const __nv_bfloat16* qp = &qt[dt * 8 + g][kc * 16 + 2 * t];
-        mma16816(dva[dt], ap, ld32(op), ld32(op + 8));
-        mma16816(dka[dt], ads, ld32(qp), ld32(qp + 8));
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2_approx(fmaf(s[nt][e], sl2, -la[e & 1]));
+          float z = p, dpe = dp[nt][e];
+          if constexpr (kDrop) {
+            const bool kp =
+                kept(keep_tile_of<kBQ / 8>(keep, nt, e >> 1), qa + (e & 1), e < 2 ? key0 : key1);
+            z = kp ? p * drop.inv_keep : 0.f;
+            dpe = kp ? dpe * drop.inv_keep : 0.f;
+          }
+          s[nt][e] = z;
+          dp[nt][e] = p * (dpe - da[e & 1]) * scale;  // ds, with the undropped p
+        }
       }
+      uint32_t ap[kBQ / 16][4], ads[kBQ / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < kBQ / 16; ++kc) {
+        pack_c_as_a(ap[kc], s[2 * kc], s[2 * kc + 1]);
+        pack_c_as_a(ads[kc], dp[2 * kc], dp[2 * kc + 1]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kBQ / 16; ++kc) {
+        wgmma_rs_cols<D, kBQ>(dva, ap[kc], dos, kc);
+        wgmma_rs_cols<D, kBQ>(dka, ads[kc], qs, kc);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
     }
+    __syncthreads();
   }
 
 #pragma unroll
@@ -577,6 +664,18 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
           __floats2bfloat162_rn(dva[dt][2 * h], dva[dt][2 * h + 1]);
     }
   }
+}
+
+// dynamic shared memory (each with room to align to 1024 bytes): dq's Q, dO
+// and ring; dk/dv's K, V and ring
+template <int D>
+constexpr size_t dq_smem() {
+  return 2 * sw_bytes<kDqBQ, D>() + kStages * 2 * sw_bytes<dq_bk<D>(), D>() + 1024;
+}
+
+template <int D>
+constexpr size_t dkv_smem() {
+  return 2 * sw_bytes<kDkvBK, D>() + kStages * dkv_stage<D>() + 1024;
 }
 
 struct Args {
@@ -647,16 +746,31 @@ int launch_mma(const Args& a) {
   const B* k = static_cast<const B*>(a.k);
   const B* v = static_cast<const B*>(a.v);
   const B* dout = static_cast<const B*>(a.dout);
-  flash_bwd_dq_mma_kernel<D, kDrop><<<dim3((a.sq + kMmaBlk - 1) / kMmaBlk, a.bh), kWarps * 32,
-                                      0, a.stream>>>(q, k, v, dout, a.lse, a.dd, a.lens,
-                                                     static_cast<B*>(a.dq), a.sq, a.sk,
-                                                     a.scale, a.causal, a.drop);
+  auto dq_kernel = flash_bwd_dq_mma_kernel<D, kDrop>;
+  auto dkv_kernel = flash_bwd_dkv_mma_kernel<D, kDrop>;
+  constexpr size_t dq_bytes = dq_smem<D>(), dkv_bytes = dkv_smem<D>();
+  // the maps of each kernel's boxes: dq's 128 query rows and dq_bk<D>()
+  // keys, dk/dv's 64 keys and dkv_bq<D>() query rows
+  CUtensorMap q1, do1, k1, v1, q2, do2, k2, v2;
+  err = allow_smem(dq_kernel, dq_bytes);
+  if (!err) err = allow_smem(dkv_kernel, dkv_bytes);
+  if (!err) err = make_tile_map(&q1, q, a.bh, a.sq, D, kDqBQ);
+  if (!err) err = make_tile_map(&do1, dout, a.bh, a.sq, D, kDqBQ);
+  if (!err) err = make_tile_map(&k1, k, a.bh, a.sk, D, dq_bk<D>());
+  if (!err) err = make_tile_map(&v1, v, a.bh, a.sk, D, dq_bk<D>());
+  if (!err) err = make_tile_map(&q2, q, a.bh, a.sq, D, dkv_bq<D>());
+  if (!err) err = make_tile_map(&do2, dout, a.bh, a.sq, D, dkv_bq<D>());
+  if (!err) err = make_tile_map(&k2, k, a.bh, a.sk, D, kDkvBK);
+  if (!err) err = make_tile_map(&v2, v, a.bh, a.sk, D, kDkvBK);
+  if (err) return err;
+  dq_kernel<<<dim3(a.bh, (a.sq + kDqBQ - 1) / kDqBQ), kDqWarps * 32, dq_bytes, a.stream>>>(
+      q1, k1, v1, do1, a.lse, a.dd, a.lens, static_cast<B*>(a.dq), a.sq, a.sk, a.scale,
+      a.causal, a.drop);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  flash_bwd_dkv_mma_kernel<D, kDrop><<<dim3((a.sk + kMmaBlk - 1) / kMmaBlk, a.bh),
-                                       kWarps * 32, 0, a.stream>>>(
-      q, k, v, dout, a.lse, a.dd, a.lens, static_cast<B*>(a.dk), static_cast<B*>(a.dv), a.sq,
-      a.sk, a.scale, a.causal, a.drop);
+  dkv_kernel<<<dim3(a.bh, (a.sk + kDkvBK - 1) / kDkvBK), kDkvWarps * 32, dkv_bytes,
+               a.stream>>>(q2, k2, v2, do2, a.lse, a.dd, a.lens, static_cast<B*>(a.dk),
+                           static_cast<B*>(a.dv), a.sq, a.sk, a.scale, a.causal, a.drop);
   return static_cast<int>(cudaGetLastError());
 }
 

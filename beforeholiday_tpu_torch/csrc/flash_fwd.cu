@@ -12,16 +12,16 @@
 // the product with v, while l sums the undropped p: o = softmax -> dropout
 // -> @ v, the TPU kernel's order (:188-197).
 //
-// Bound on an H100: at the serving shapes both calls are bound by bytes.
-// Causal prefill BH=128, S=1024, D=64 in bf16 moves 67.1 MB (q, k, v read
-// once, o written once; 20.0 us at 3.35 TB/s) for 17.2 GFLOP (17.4 us at the
-// 989 TFLOP/s bf16 tensor-core peak). Decode BH=512, Sq=1, Sk=1024 reads
-// 134 MB of K/V (40 us) for 0.27 GFLOP. With dropout the hash adds about
-// 26.5 32-bit integer operations a live (query, key) pair (a quarter of one
-// Philox4x32-10 call), 3.6 G at the causal training shape BH 256, S 1024:
-// 53 us at 67 Tops/s, above the bytes and the products, so the dropout
-// kernel is bound by its integer work. Each thread hashes the 2x2 tiles its
-// scores touch and uses half of each call.
+// Bound on an H100 (bytes at 3.35 TB/s, products at the 989 TFLOP/s bf16
+// tensor-core peak, the hash at 67 T integer operations/s): the causal
+// training shape BH 256, S 1024, D 64 in bf16 moves 134 MB (q, k, v read
+// once, o written once: 40.1 us) for 34.4 GFLOP over its 134.3M live pairs
+// (34.8 us), so it is bound by bytes and close to the line; prefill BH 128
+// the same at half the size. Decode BH=512, Sq=1, Sk=1024 reads 134 MB of K/V
+// (40 us) for 0.27 GFLOP. With dropout the hash adds about 26.5 32-bit
+// integer operations a live (query, key) pair (a quarter of one
+// Philox4x32-10 call), 3.6 G at the training shape: 53 us, above the bytes
+// and the products, so the dropout kernel is bound by its integer work.
 //
 // Three kernels, chosen by shape, dtype and head dim in launch():
 // * flash_fwd_decode_kernel (Sq < 16, decode; D in 16..128 step 16): one
@@ -30,25 +30,36 @@
 //   row, and the warps merge their (m, l, acc) through shared memory at the
 //   end. Decode is a stream over K/V: the split keeps 4x more loads in
 //   flight than one warp per row.
-// * flash_fwd_mma_kernel (bf16, Sq >= 16, D in 16..128 step 16, prefill):
-//   tensor cores through mma.sync m16n8k16 with fp32 accumulation. A block
-//   owns 64 query rows (16 per warp, Q fragments held in registers) and
-//   walks 64-key tiles of K and transposed V staged in padded shared memory
-//   (conflict-free fragment loads). The scores stay in registers; p is
-//   rounded to bf16 for the p.v product, as the TPU kernel rounds p to v's
-//   dtype, while the normaliser l sums the fp32 p.
+// * flash_fwd_mma_kernel (bf16, Sq >= 16, D in 16..128 step 16: training
+//   and prefill): near the line between bytes and products, so it keeps
+//   both units busy at once. Its 128 query rows a block (two warpgroups)
+//   read each K/V tile once for 128 rows; the tiles stream by TMA (3-D
+//   tensor maps over (D, S, BH): a ragged edge reads zeros, never the next
+//   head's rows) through a ring of shared-memory stages, the next tile
+//   landing while this one computes; both products run on wgmma (Hopper's warpgroup tensor-core
+//   instruction) straight from the 128-byte-swizzled tiles, V through the
+//   transpose bit, so nothing is transposed or staged twice; the softmax is
+//   one FFMA and one ex2 an element, the mask predicate runs only on the
+//   tiles that hold the diagonal or lens[bh], and causal blocks launch
+//   heaviest first. With dropout the two lanes that share a 2x2 hash tile
+//   split its Philox call (keep_tiles_shared), halving the integer work
+//   that bounds it, and the hash runs while the tile's scores are still on
+//   the tensor cores. p is rounded to bf16 for the p.v product, as the TPU
+//   kernel rounds p to v's dtype, while the normaliser l sums the fp32 p.
 // * flash_fwd_rows_kernel (fp32 at every head dim; bf16 at the head dims the
 //   tensor-core kernels do not take, 8..512): CUDA cores in fp32, 16 query
 //   rows per block (4 per warp), 32-key tiles staged in dynamic shared memory
 //   (163 KB at D 512, allowed above the default 48 KB), lane j scores key j
 //   and owns output columns lane + 32 c, c < kCols = 1, 2, 4, 8 or 16 by
 //   head dim, the ragged last one masked. The bf16 variant rounds p to bf16
-//   for p.v as the mma path does. fp32 is the exact path the card-side checks
-//   compare tightly.
+//   for p.v as the tensor-core path does. fp32 is the exact path the
+//   card-side checks compare tightly.
 // All three skip tiles wholly past lens or past the block's last causal
 // diagonal and mask the ragged edge themselves. Still open (later work):
-// cp.async/TMA pipelining of the tile loads, wgmma, and reading the paged
-// cache in place instead of a gathered copy.
+// overlapping one tile's softmax with the next tile's wgmma (two consumer
+// warpgroups taking turns), reading the models' (B, S, H, D) projections in
+// place through 4-D tensor maps, and reading the paged cache in place
+// instead of a gathered copy.
 
 #include <type_traits>
 
@@ -62,9 +73,10 @@ constexpr int kRows = 4;              // query rows per warp
 constexpr int kBQ = kWarps * kRows;   // query rows per block
 constexpr int kBK = 32;               // keys per tile: lane j owns key j
 constexpr int kDecodeRows = 16;       // fewer query rows than this: decode kernel
-constexpr int kMmaWarps = 4;
+constexpr int kMmaWarps = 8;
 constexpr int kMmaBQ = 16 * kMmaWarps;  // query rows per tensor-core block
 constexpr int kMmaBK = 64;              // keys per tensor-core tile
+constexpr int kStages = 2;              // K/V tiles in flight
 
 // shared memory of the row kernel: q (kBQ x d), k (kBK x (d + 1): lane j reads
 // row j at column c, distinct banks) and v (kBK x d), in fp32
@@ -290,140 +302,159 @@ flash_fwd_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (lane == 0) lse[orow] = nonempty ? mt + logf(lt) : kNeg;
 }
 
-// Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): A holds rows g and
-// g + 8 at columns 2t, 2t+1 (regs 0, 1) and 2t+8, 2t+9 (regs 2, 3); B holds
-// column g at rows 2t, 2t+1 and 2t+8, 2t+9; C holds rows g (0, 1) and g + 8
-// (2, 3) at columns 2t, 2t+1. So a thread owns query rows r0 = g and r1 = g+8
-// of its warp's 16, and S's accumulators become P's A fragments in place. Its
-// two keys 2t, 2t+1 of a row share one hash tile.
+// The tensor-core kernel. A block owns kMmaBQ = 128 query rows: two
+// warpgroups of 64, each warp 16 (g = lane / 4, t = lane % 4: a thread owns
+// rows r0 = g and r1 = g + 8 of its warp's 16 and keys 2t, 2t+1 of each
+// 8-key block of a tile; see pack_c_as_a). Q arrives once by TMA; K and V
+// tiles of kMmaBK keys stream through a ring of kStages shared-memory stages,
+// tile i + kStages - 1 loading while tile i computes, all in wgmma's 128-byte
+// swizzled layout: thread 0 starts a stage's copies, and every thread waits
+// on the stage's mbarrier. S = Q K^T is one wgmma m64n64k16 a 16-column
+// step of the head, A and B read from shared memory; O += P V is a wgmma
+// with P from registers (S's accumulators rounded to bf16 in place,
+// pack_c_as_a) and V read MN-major through the transpose bit. The softmax runs in base 2: m is
+// kept as max(s) scale log2(e), and p = 2^(s scale log2(e) - m) is one FFMA
+// and one ex2. Only a warp's tiles that hold the causal diagonal or
+// lens[bh] evaluate the mask (to -inf, whose ex2 is 0); a warpgroup skips
+// tiles wholly past its last causal key. Causal blocks launch heaviest first.
 template <int D, bool kDrop>
-__global__ void __launch_bounds__(kMmaWarps * 32)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kMmaWarps * 32, D <= 64 ? 2 : 1)
+flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
                      const int* __restrict__ lens, __nv_bfloat16* __restrict__ o,
                      float* __restrict__ lse, int sq, int sk, float scale,
                      int causal, DropArgs drop) {
-  constexpr int kDS = D + 8;       // padded K row: fragment loads hit distinct banks
-  constexpr int kKS = kMmaBK + 8;  // padded row of transposed V, same reason
-  __shared__ __align__(16) __nv_bfloat16 ks[kMmaBK][kDS];
-  __shared__ __align__(16) __nv_bfloat16 vt[D][kKS];
+  constexpr int kTile = sw_bytes<kMmaBK, D>();  // one K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t bars[kStages + 1];  // a barrier a stage, then Q's
+  char* qs = reinterpret_cast<char*>(smem_raw) + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  char* ring = qs + sw_bytes<kMmaBQ, D>();  // [kStages][K tile, V tile]
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kMmaBQ;
+  const int bh = blockIdx.x;
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;  // heavy first
+  const int q0 = qb * kMmaBQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const size_t qoff = (size_t)bh * sq * D, koff = (size_t)bh * sk * D;
+  const int w0 = q0 + warp * 16;               // the warp's first row
+  const int m0 = (warp >> 2) * 64;             // the warpgroup's first row in the block
+  const int r0 = w0 + g, r1 = r0 + 8;
+  const size_t qoff = (size_t)bh * sq * D;
   const int len = min(max(lens[bh], 0), sk);
-  const int kend = causal ? min(len, min(q0 + kMmaBQ, sq)) : len;
+  const int kend = causal ? min(len, min(q0 + kMmaBQ, sq)) : len;  // keys the block sees
+  const int gend = causal ? min(kend, q0 + m0 + 64) : kend;         // keys the warpgroup sees
+  const int ntiles = (kend + kMmaBK - 1) / kMmaBK;
+  const float sl2 = scale * kLog2e;
   DropKey dk{};
   if constexpr (kDrop) dk = load_drop_key(drop);
 
-  uint32_t qf[D / 16][4];
+  auto load_kv = [&](int i) {  // thread 0 starts tile i's copies
+    if (i < ntiles && threadIdx.x == 0) {
+      char* st = ring + (i % kStages) * 2 * kTile;
+      uint64_t* bar = &bars[i % kStages];
+      mbar_expect(bar, 2 * kTile);
+      tma_load_tile<kMmaBK, D>(st, &kmap, bar, i * kMmaBK, bh);
+      tma_load_tile<kMmaBK, D>(st + kTile, &vmap, bar, i * kMmaBK, bh);
+    }
+  };
+
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int c = kc * 16 + 2 * t;
-    qf[kc][0] = r0 < sq ? ld32(q + qoff + (size_t)r0 * D + c) : 0u;
-    qf[kc][1] = r1 < sq ? ld32(q + qoff + (size_t)r1 * D + c) : 0u;
-    qf[kc][2] = r0 < sq ? ld32(q + qoff + (size_t)r0 * D + c + 8) : 0u;
-    qf[kc][3] = r1 < sq ? ld32(q + qoff + (size_t)r1 * D + c + 8) : 0u;
+    for (int i = 0; i <= kStages; ++i) mbar_init(&bars[i]);
+    mbar_init_fence();
   }
+  __syncthreads();
+  if (ntiles > 0 && threadIdx.x == 0) {
+    mbar_expect(&bars[kStages], sw_bytes<kMmaBQ, D>());
+    tma_load_tile<kMmaBQ, D>(qs, &qmap, &bars[kStages], q0, bh);
+  }
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) load_kv(i);
+  if (ntiles > 0) mbar_wait(&bars[kStages], 0);
 
   float oacc[D / 8][4];
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) oacc[dt][0] = oacc[dt][1] = oacc[dt][2] = oacc[dt][3] = 0.f;
-  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // m in base-2 units
 
-  for (int t0 = 0; t0 < kend; t0 += kMmaBK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kMmaBK * D / 8; i += blockDim.x) {
-      const int r = i / (D / 8), c8 = (i % (D / 8)) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (t0 + r < sk) {
-        const size_t gofs = koff + (size_t)(t0 + r) * D + c8;
-        kv = *reinterpret_cast<const uint4*>(k + gofs);
-        vv = *reinterpret_cast<const uint4*>(v + gofs);
+  for (int it = 0; it < ntiles; ++it) {
+    load_kv(it + kStages - 1);  // into the stage that tile it - 1 freed
+    mbar_wait(&bars[it % kStages], (it / kStages) & 1);  // tile it has landed
+    const int t0 = it * kMmaBK;
+    const char* ks = ring + (it % kStages) * 2 * kTile;
+    const char* vs = ks + kTile;
+    if (t0 < gend) {
+      float s[kMmaBK / 8][4];
+      wgmma_ss_rows<D, kMmaBQ, kMmaBK>(s, qs, m0, ks);
+      uint32_t keep[kMmaBK / 32];  // the dropout hash, while the product runs
+      if constexpr (kDrop) keep_bits<kMmaBK / 8>(keep, dk, bh, r0, t0 + 2 * t, lane, false);
+      wgmma_wait<0>();
+      fence_regs(s);
+      // the mask only where the tile holds lens[bh] or this warp's diagonal
+      if (t0 + kMmaBK > len || (causal && t0 + kMmaBK - 1 > w0)) {
+#pragma unroll
+        for (int nt = 0; nt < kMmaBK / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = t0 + nt * 8 + 2 * t + (e & 1);
+            if (key >= len || (causal && key > (e < 2 ? r0 : r1))) s[nt][e] = -INFINITY;
+          }
+        }
       }
-      *reinterpret_cast<uint4*>(&ks[r][c8]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int e = 0; e < 8; ++e) vt[c8 + e][r] = ve[e];
-    }
-    __syncthreads();
-
-    float s[kMmaBK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kMmaBK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const __nv_bfloat16* kp = &ks[nt * 8 + g][kc * 16 + 2 * t];
-        mma16816(s[nt], qf[kc], ld32(kp), ld32(kp + 8));
+      for (int nt = 0; nt < kMmaBK / 8; ++nt) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
       }
-    }
-
-    float mx[2] = {kNeg, kNeg};
+      float alpha[2], ps[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nt = 0; nt < kMmaBK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = t0 + nt * 8 + 2 * t + (e & 1);
-        const bool masked = key >= len || (causal && key > (e < 2 ? r0 : r1));
-        s[nt][e] = masked ? kNeg : s[nt][e] * scale;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    }
-    float alpha[2], ps[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // a row's 8 keys of a tile sit on 4 lanes
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
-      alpha[h] = expf(m[h] - m_new);
-      m[h] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kMmaBK / 8; ++nt) {
-      const int key0 = t0 + nt * 8 + 2 * t;
-      uint32_t tiles[2];
-      if constexpr (kDrop) {
-        tiles[0] = keep_tile(dk, bh, r0, key0);
-        tiles[1] = keep_tile(dk, bh, r1, key0);
+      for (int h = 0; h < 2; ++h) {  // a row's 8 keys of a block sit on 4 lanes
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h] * sl2);  // finite: m starts at kNeg
+        alpha[h] = exp2_approx(m[h] - m_new);
+        m[h] = m_new;
       }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + (e & 1), row = e < 2 ? r0 : r1;
-        const bool masked = key >= len || (causal && key > row);
-        // explicit zero: on a fully masked row s == m and exp would be 1
-        float p = masked ? 0.f : expf(s[nt][e] - m[e >> 1]);
-        ps[e >> 1] += p;  // l sums the undropped p
-        if constexpr (kDrop) p = kept(tiles[e >> 1], row, key) ? p * drop.inv_keep : 0.f;
-        s[nt][e] = p;
+      for (int nt = 0; nt < kMmaBK / 8; ++nt) {
+        const int key0 = t0 + nt * 8 + 2 * t;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2_approx(fmaf(s[nt][e], sl2, -m[e >> 1]));  // 0 where masked
+          ps[e >> 1] += p;  // l sums the undropped p
+          if constexpr (kDrop) {
+            p = kept(keep_tile_of<kMmaBK / 8>(keep, nt, e >> 1), e < 2 ? r0 : r1, key0 + (e & 1))
+                    ? p * drop.inv_keep
+                    : 0.f;
+          }
+          s[nt][e] = p;
+        }
       }
-    }
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 1);
-      ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 2);
-      l[h] = alpha[h] * l[h] + ps[h];
-    }
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      oacc[dt][0] *= alpha[0];
-      oacc[dt][1] *= alpha[0];
-      oacc[dt][2] *= alpha[1];
-      oacc[dt][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kc = 0; kc < kMmaBK / 16; ++kc) {
-      uint32_t a[4];
-      pack_c_as_a(a, s[2 * kc], s[2 * kc + 1]);
+      for (int h = 0; h < 2; ++h) {
+        ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 1);
+        ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 2);
+        l[h] = alpha[h] * l[h] + ps[h];
+      }
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* vp = &vt[dt * 8 + g][kc * 16 + 2 * t];
-        mma16816(oacc[dt], a, ld32(vp), ld32(vp + 8));
+        oacc[dt][0] *= alpha[0];
+        oacc[dt][1] *= alpha[0];
+        oacc[dt][2] *= alpha[1];
+        oacc[dt][3] *= alpha[1];
       }
+      uint32_t pa[kMmaBK / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < kMmaBK / 16; ++kc) pack_c_as_a(pa[kc], s[2 * kc], s[2 * kc + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kMmaBK / 16; ++kc) wgmma_rs_cols<D, kMmaBK>(oacc, pa[kc], vs, kc);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(oacc);
     }
+    __syncthreads();  // every warpgroup is done with this stage before it refills
   }
 
 #pragma unroll
@@ -431,15 +462,20 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = h ? r1 : r0;
     if (row >= sq) continue;
     const bool nonempty = l[h] > 0.f;
+    const float inv = nonempty ? 1.f / l[h] : 0.f;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
-      const float lo = nonempty ? oacc[dt][2 * h] / l[h] : 0.f;
-      const float hi = nonempty ? oacc[dt][2 * h + 1] / l[h] : 0.f;
       *reinterpret_cast<__nv_bfloat162*>(o + qoff + (size_t)row * D + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(lo, hi);
+          __floats2bfloat162_rn(oacc[dt][2 * h] * inv, oacc[dt][2 * h + 1] * inv);
     }
-    if (t == 0) lse[(size_t)bh * sq + row] = nonempty ? m[h] + logf(l[h]) : kNeg;
+    if (t == 0) lse[(size_t)bh * sq + row] = nonempty ? m[h] * kLn2 + logf(l[h]) : kNeg;
   }
+}
+
+// dynamic shared memory: Q, the ring, and room to align to 1024 bytes
+template <int D>
+constexpr size_t mma_smem() {
+  return sw_bytes<kMmaBQ, D>() + kStages * 2 * sw_bytes<kMmaBK, D>() + 1024;
 }
 
 struct Args {
@@ -488,9 +524,16 @@ int launch_dim(const Args& a) {
     flash_fwd_decode_kernel<T, D, kDrop><<<dim3(a.sq, a.bh), kWarps * 32, 0, a.stream>>>(
         qt, kt, vt, a.lens, ot, a.lse, a.sq, a.sk, a.scale, a.causal, a.drop);
   } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    flash_fwd_mma_kernel<D, kDrop><<<dim3((a.sq + kMmaBQ - 1) / kMmaBQ, a.bh), kMmaWarps * 32,
-                                     0, a.stream>>>(qt, kt, vt, a.lens, ot, a.lse, a.sq, a.sk,
-                                                    a.scale, a.causal, a.drop);
+    auto kernel = flash_fwd_mma_kernel<D, kDrop>;
+    constexpr size_t smem = mma_smem<D>();
+    CUtensorMap qmap, kmap, vmap;
+    int err = allow_smem(kernel, smem);
+    if (!err) err = make_tile_map(&qmap, a.q, a.bh, a.sq, D, kMmaBQ);
+    if (!err) err = make_tile_map(&kmap, a.k, a.bh, a.sk, D, kMmaBK);
+    if (!err) err = make_tile_map(&vmap, a.v, a.bh, a.sk, D, kMmaBK);
+    if (err) return err;
+    kernel<<<dim3(a.bh, (a.sq + kMmaBQ - 1) / kMmaBQ), kMmaWarps * 32, smem, a.stream>>>(
+        qmap, kmap, vmap, a.lens, ot, a.lse, a.sq, a.sk, a.scale, a.causal, a.drop);
   } else {
     return launch_rows<T, cols_for(D), kDrop>(a);
   }

@@ -16,14 +16,17 @@ Phases, each printing one line (any failure exits non-zero):
    and the training step's shapes, timed beside its bound and
    ``F.layer_norm``;
 4. K2 (flash-attention forward, CUDA C++) against its plain version at the
-   prefill, decode, GPT and BERT training shapes, timed beside its bound and
-   ``F.scaled_dot_product_attention``;
+   prefill, decode, GPT and BERT training shapes and at lengths off its
+   tiles, timed beside its bound and ``F.scaled_dot_product_attention``
+   (``is_causal`` on (B, H, S, D) with no mask where every length is full,
+   the boolean mask where lengths are ragged);
 5. K3-K12 (LayerNorm backward, unscale, fused Adam, global sum of squares,
    LAMB stage 1, the trust-ratio update, fused SGD and the scaled masked
    softmax forward and backward, Triton; flash attention backward, CUDA
-   C++) against their plain versions at the training shapes and at awkward
-   ones (for K11/K12: sk not a power of two, sq not a multiple of 128, sk =
-   16384, fp32 and fp16, fully masked rows), each timed beside its bound
+   C++, called twice and held bitwise equal) against their plain versions
+   at the training shapes and at awkward ones (for K11/K12: sk not a power
+   of two, sq not a multiple of 128, sk = 16384, fp32 and fp16, fully
+   masked rows; for K4: lengths off its tiles), each timed beside its bound
    and a library call: the same function where one PyTorch call computes
    it, else the same traffic;
 6. engine parity: the full-width bf16 GPT engine on the kernels against the
@@ -456,6 +459,11 @@ def k2_phase(attn):
         (8, 64, 64, 256, False, torch.float32, 0.0),
         (8, 100, 100, 512, True, torch.bfloat16, 0.0),
         (8, 70, 90, 512, False, torch.float32, 0.1),
+        # the tensor-core kernel off its 128-row and 64-key tiles
+        (8, 17, 17, 16, True, torch.bfloat16, 0.0),
+        (8, 129, 129, 64, True, torch.bfloat16, 0.0),
+        (8, 200, 1000, 96, False, torch.bfloat16, 0.0),
+        (8, 1000, 1000, 112, True, torch.bfloat16, 0.1),
     ]
     rng = np.random.default_rng(2)
     key = flash_key()
@@ -491,12 +499,22 @@ def k2_phase(attn):
             flops, nbytes = k2_flops_bytes(q, k, lens, causal)
             int_ops = PHILOX_OPS_PER_ELEMENT * live_pairs(q, k, lens, causal) if rate else 0
             bms, by = bound_ms(nbytes, flops, dt, int_ops)
-            keep = sdpa_mask(lens, Sk, causal)
+            # every length full: (B, H, S, D) with is_causal and no mask, the
+            # call PyTorch routes to its flash backend (as k4_phase's);
+            # ragged lengths need the mask
+            full = bool((lens == Sk).all())
+            if full:
+                B = TRAIN_BATCH if causal else BERT_BATCH
+                ql, kl, vl = (t.reshape(B, BH // B, -1, D) for t in (q, k, v))
+                keep = None
+            else:
+                ql, kl, vl, keep = q, k, v, sdpa_mask(lens, Sk, causal)
             fields.update(
                 ms=time_ms(lambda: attn.flash_fwd_kernel(*args)),
                 plain_ms=time_ms(lambda: attn.flash_fwd_torch(*args), iters=5),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=keep, scale=D ** -0.5, dropout_p=rate)),
+                    ql, kl, vl, attn_mask=keep, is_causal=full and causal,
+                    scale=D ** -0.5, dropout_p=rate)),
                 bound_ms=bms, bound_by=by)
             name = {256: "train", 2048: "bert"}.get(
                 BH, "prefill" if causal else "decode")
@@ -603,6 +621,11 @@ def k4_phase(attn):
         (8, 64, 64, 256, False, torch.float32, True, 0.0),
         (8, 100, 100, 512, True, torch.bfloat16, False, 0.0),
         (8, 70, 90, 512, False, torch.float32, False, 0.1),
+        # the tensor-core kernels off their 128-row, 32- and 64-key tiles
+        (8, 17, 17, 16, True, torch.bfloat16, False, 0.0),
+        (8, 129, 129, 64, True, torch.bfloat16, True, 0.0),
+        (8, 200, 1000, 96, False, torch.bfloat16, False, 0.0),
+        (8, 1000, 1000, 112, True, torch.bfloat16, True, 0.1),
     ]
     rng = np.random.default_rng(22)
     key = flash_key()
@@ -623,6 +646,7 @@ def k4_phase(attn):
                 if with_dlse else None)
         args = (q, k, v, o, do, lse, dlse, lens, causal, scale, *drop)
         got = attn.flash_bwd_kernel(*args)
+        again = attn.flash_bwd_kernel(*args)
         ref = attn.flash_bwd_torch(*args)
         torch.cuda.synchronize()
         tag = (f"BH{BH} Sq{Sq} Sk{Sk} D{D}{' causal' if causal else ''} "
@@ -630,6 +654,10 @@ def k4_phase(attn):
                f"{f' dropout {rate}' if rate else ''}")
         if BH != 256 and not all(torch.all(t[0] == 0) for t in got):
             raise AssertionError(f"K4 {tag}: a lens-0 row is not exactly 0")
+        # deterministic: no atomics, so a second call is bitwise the first
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K4 {tag}: two calls differ")
+        del again
         errs = []
         for name, a, b in zip(("dq", "dk", "dv"), got, ref):
             if not torch.isfinite(a).all():
@@ -639,7 +667,7 @@ def k4_phase(attn):
             tol = (dict(rtol=2e-2, atol=2e-2 * float(b.float().abs().max()))
                    if dt == torch.bfloat16 else dict(rtol=1e-4, atol=1e-4))
             errs.append(check_close(f"K4 {name} {tag}", a, b, tol))
-        fields = dict(max_abs_err=max(errs))
+        fields = dict(max_abs_err=max(errs), repeat="bitwise")
         if BH in (256, 2048):
             flops, nbytes = k4_flops_bytes(q, k, lens, causal)
             int_ops = PHILOX_OPS_PER_ELEMENT * live_pairs(q, k, lens, causal) if rate else 0

@@ -1121,6 +1121,107 @@ def test_flash_dropout_laws_on_the_card(cuda):
     assert torch.isfinite(out).all() and torch.isfinite(ql.grad).all()
 
 
+# ------------------------------------------- K2/K4 tensor-core tiles (bf16)
+
+
+def _k2_k4_against_plain(BH, Sq, Sk, D, causal, dlse, rate, lens, seed):
+    """K2 and K4 on their tensor-core paths against the plain versions, K4
+    twice bitwise, and exact zeros for a sequence of length 0. K2's output is
+    held to check_dropped_pv's bound at every rate: the kernel rounds each p
+    to bf16 for its product with v, with or without dropout, and where the
+    terms cancel that parts from the fp32 sum by up to 2^-9 sum p|v|, which
+    BF16_TOL does not follow (on some seeds one element of the BERT shape's
+    16.7M misses it; PERF.md). K4 at _k4_tol."""
+    q, k, v, lens = _k2_inputs(BH, Sq, Sk, D, torch.bfloat16, lens, seed=seed)
+    scale, key = D ** -0.5, (_key(seed) if rate else None)
+    o, lse = tattn.flash_fwd_kernel(q, k, v, lens, causal, scale, rate, key)
+    ro, rlse = tattn.flash_fwd_torch(q, k, v, lens, causal, scale, rate, key)
+    g = _gen(seed + 1)
+    do = torch.randn(o.shape, generator=g, device="cuda").bfloat16()
+    dl = torch.randn(lse.shape, generator=g, device="cuda") if dlse else None
+    args = (q, k, v, ro, do, rlse, dl, lens, causal, scale, rate, key)
+    got = tattn.flash_bwd_kernel(*args)
+    again = tattn.flash_bwd_kernel(*args)
+    ref = tattn.flash_bwd_torch(*args)
+    ref_abs = tattn.flash_fwd_torch(q.float(), k.float(), v.float().abs(), lens,
+                                    causal, scale, rate, key)[0]
+    torch.cuda.synchronize()
+    assert bool(((o.float() - ro.float()).abs()
+                 <= 2 ** -7 * ro.float().abs() + 2 ** -8 * ref_abs).all())
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, ref, again):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, **_k4_tol(torch.bfloat16, b), msg=name)
+        assert torch.equal(a, c), f"{name}: two calls differ"
+    if int(lens[0]) == 0:
+        assert torch.all(o[0] == 0) and torch.all(lse[0] == -1e30)
+        assert all(torch.all(t[0] == 0) for t in got)
+
+
+@pytest.mark.parametrize("D", range(16, 129, 16))
+@pytest.mark.parametrize("causal", [True, False])
+def test_k2_k4_tensor_core_head_dims(cuda, D, causal):
+    """Every head dim the tensor-core kernels take, ragged lengths, dlse on
+    the causal cases and off the others."""
+    _k2_k4_against_plain(4, 200, 200, D, causal, causal, 0.0, _ragged(4, 200, D), D)
+
+
+@pytest.mark.parametrize("Sq, Sk, causal", [
+    (17, 17, True), (70, 70, True), (129, 129, True), (200, 200, True),
+    (1000, 1000, True), (70, 200, False), (129, 70, False), (200, 1000, False),
+    (1000, 1000, False),
+])
+@pytest.mark.parametrize("dlse", [False, True])
+def test_k2_k4_off_the_tiles(cuda, Sq, Sk, causal, dlse):
+    """Lengths off the 128-row, 64-key and 32-row tiles, lengths that end
+    mid-tile, Sq != Sk without causal, dlse given or absent; D 64 and 128,
+    the second with dropout."""
+    lens = _ragged(6, Sk, Sq + Sk)
+    _k2_k4_against_plain(6, Sq, Sk, 64, causal, dlse, 0.0, lens, Sq)
+    _k2_k4_against_plain(6, Sq, Sk, 128, causal, dlse, 0.1, lens, Sk + 1)
+
+
+@pytest.mark.parametrize("BH, S, causal, full", [
+    (256, 1024, True, True),    # the GPT training shape
+    (2048, 128, False, False),  # BERT-Large, key padding
+])
+def test_k2_k4_dropout_at_the_training_shapes(cuda, BH, S, causal, full):
+    lens = [S] * BH if full else _ragged(BH, S, 11)
+    _k2_k4_against_plain(BH, S, S, 64, causal, False, 0.1, lens, 12)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_k4_is_bitwise_deterministic(cuda, rate):
+    """No atomics: two K4 calls at the GPT shape give the same bits."""
+    q, k, v, lens = _k2_inputs(64, 1024, 1024, 64, torch.bfloat16, [1024] * 64, seed=13)
+    key = _key(13) if rate else None
+    o, lse = tattn.flash_fwd_kernel(q, k, v, lens, True, 0.125, rate, key)
+    do = torch.randn(o.shape, generator=_gen(14), device=cuda).bfloat16()
+    args = (q, k, v, o, do, lse, None, lens, True, 0.125, rate, key)
+    a, b = tattn.flash_bwd_kernel(*args), tattn.flash_bwd_kernel(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("S", [64, 128])
+def test_tensor_core_k2_k4_and_k13_drop_the_same_slots(cuda, S):
+    """As test_k2_k4_and_k13_drop_the_same_slots, in bf16 on the tensor-core
+    kernels (head dim S): o = z through v = I, dv = z^T through do = I."""
+    BH = 8
+    g = _gen(15)
+    q, k = (torch.randn(BH, S, S, generator=g, device=cuda).bfloat16() for _ in range(2))
+    eye = torch.eye(S, device=cuda).bfloat16().expand(BH, S, S).contiguous()
+    lens = torch.full((BH,), S, dtype=torch.int32, device=cuda)
+    key = _key(S)
+    o, lse = tattn.flash_fwd_kernel(q, k, eye, lens, False, 0.125, 0.3, key)
+    _, _, dv = tattn.flash_bwd_kernel(q, k, eye, o, eye, lse, None, lens, False,
+                                      0.125, 0.3, key)
+    drop = ~tattn.dropout_keep_mask(key, (BH, S, S), 0.3)
+    torch.cuda.synchronize()
+    assert torch.equal(o == 0, drop)
+    assert torch.equal(dv.transpose(1, 2) == 0, drop)
+
+
 def test_dense_bf16_rounds_once_on_the_card(cuda):
     """fused_dense's bf16 output: cuBLAS's fp32 product plus the fp32 bias
     rounded once, within one bf16 ulp of the exact sum rounded once."""
