@@ -9,15 +9,32 @@
 // every dropout site that random.dropout applies outside attention (the
 // hidden states, the unfused path's probabilities).
 //
-// Bound on an H100: a thread hashes a 2-row by 8-column patch (four calls,
-// every word used) and stores 8 bytes to each of its two rows. It reads
-// nothing but the 16-byte key and writes 1 byte an element, so the bytes
-// bound is 1 B / 3.35 TB/s an element; Philox4x32-10 spends about 106
-// 32-bit integer operations a call (ten rounds of two 32x32 multiplies,
-// high and low words, four xors and two key additions, then four shifts and
-// compares), 26.5 an element, which at the 67 Tops/s of 32-bit work outside
-// the tensor cores is the larger of the two: the kernel is bound by its
-// integer work.
+// Bound on an H100: integer instructions. The kernel reads the 16-byte key
+// and writes 1 byte an element (1 B / 3.35 TB/s), while a Philox4x32-10
+// call, four elements, needs 20 IMAD.WIDE.U32 (both words of the ten rounds'
+// two multiplies) on the FMA-heavy pipe and, on the ALU pipe, 20 LOP3 (the
+// rounds' three-way xors), 4 ISETP (the threshold compares), 4 SEL (a byte
+// an element) and a LOP3 merging the bytes: 7.25 ALU instructions an
+// element against 5.5 on the FMA pipe (with the packing's two IMAD.SHL),
+// each pipe retiring 64 instructions a clock on an SM. chip_smoke.py's
+// PHILOX_OPS_PER_ELEMENT and PEAK_INT32 hold that count and rate. An
+// IMAD.WIDE appears to hold the FMA-heavy pipe for two issue slots (moving
+// the compares onto it as wide multiply-adds made the kernel 16% slower), so
+// the FMA pipe, at about 10 slots an element, is what this kernel meets.
+//
+// Design: what bounds the kernel is the instruction count, so everything
+// that is not the hash leaves the hot loop. A thread owns one 2-row by
+// 16-column patch of a (rows, cols) plane, found with one 32-bit division
+// when it starts, and walks the planes bh = blockIdx.y, + gridDim.y, ...:
+// no 64-bit division, no per-element index arithmetic, and gridDim.y stays
+// under 65,536 for any BH. The grid is one wave of resident blocks
+// (dropout_mask_blocks_per_sm), so each thread amortizes its start (the key
+// load, its round keys, and the multiplies of its eight calls' first two
+// rounds that do not depend on bh, kept in registers) over several planes.
+// A patch is
+// eight calls, every word used, packed into bytes in registers and written
+// as one 16-byte store a row; a row width that is not a multiple of 16
+// takes a masked byte path.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,40 +44,65 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCols = 8;  // columns a thread writes in each of its two rows
+constexpr int kPatchCols = 16;  // columns a thread writes in each of its two rows
+constexpr int kCalls = kPatchCols / 2;
 
 __global__ void __launch_bounds__(kThreads)
-dropout_mask_kernel(DropArgs args, uint8_t* __restrict__ out, int bh, int rows, int cols,
-                    long long items) {
-  const long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-  if (i >= items) return;
-  const int groups = (cols + kCols - 1) / kCols, pairs = (rows + 1) / 2;
-  const int c0 = static_cast<int>(i % groups) * kCols;
-  const long long rest = i / groups;
-  const int r0 = static_cast<int>(rest % pairs) * 2;
-  const int b = static_cast<int>(rest / pairs);
-  const DropKey d = load_drop_key(args);
-
-  uint32_t tiles[kCols / 2];
+dropout_mask_kernel(const long long* __restrict__ key, uint32_t lim, bool any,
+                    uint8_t* __restrict__ out, int bh, int rows, int cols, int groups,
+                    int patches) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= patches) return;
+  const int pair = p / groups;
+  const int g = p - pair * groups;
+  const int r0 = 2 * pair, c0 = kPatchCols * g;
+  const bool second = r0 + 1 < rows;
+  const bool vec = (cols % kPatchCols) == 0;  // every patch full and 16-byte aligned
+  const PhiloxKeys k = philox_keys(static_cast<uint32_t>(__ldg(key)),
+                                   static_cast<uint32_t>(__ldg(key + 1)));
+  const size_t plane = static_cast<size_t>(rows) * cols;
+  uint8_t* dst = out + static_cast<size_t>(blockIdx.y) * plane +
+                 static_cast<size_t>(r0) * cols + c0;
+  const size_t step = static_cast<size_t>(gridDim.y) * plane;
+  const uint32_t ccol = static_cast<uint32_t>(c0 >> 1);
+  for (int b = blockIdx.y; b < bh; b += gridDim.y, dst += step) {
+    // bytes of the patch: row r0 from words x, y of each call, row r0 + 1
+    // from z, w; call j covers columns c0 + 2j and c0 + 2j + 1
+    uint32_t even[kCalls / 2], odd[kCalls / 2];
 #pragma unroll
-  for (int j = 0; j < kCols / 2; ++j) tiles[j] = keep_tile(d, b, r0, c0 + 2 * j);
+    for (int j = 0; j < kCalls; ++j) {
+      const Philox4 w = philox4x32_10(ccol + j, static_cast<uint32_t>(pair),
+                                      static_cast<uint32_t>(b), 0u, k);
+      const uint32_t e = static_cast<uint32_t>(any && w.x <= lim) |
+                         (static_cast<uint32_t>(any && w.y <= lim) << 8);
+      const uint32_t o = static_cast<uint32_t>(any && w.z <= lim) |
+                         (static_cast<uint32_t>(any && w.w <= lim) << 8);
+      if (j & 1) {
+        even[j >> 1] += e * 65536u;
+        odd[j >> 1] += o * 65536u;
+      } else {
+        even[j >> 1] = e;
+        odd[j >> 1] = o;
+      }
+    }
+    if (vec) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + h;
-    if (row >= rows) break;
-    uint8_t* dst = out + (static_cast<long long>(b) * rows + row) * cols + c0;
-    uint8_t m[kCols];
-#pragma unroll
-    for (int e = 0; e < kCols; ++e) m[e] = kept(tiles[e >> 1], row, c0 + e);
-    if (c0 + kCols <= cols && (reinterpret_cast<uintptr_t>(dst) & 7) == 0) {
-      uint2 v;
-      v.x = m[0] | (m[1] << 8) | (m[2] << 16) | (static_cast<uint32_t>(m[3]) << 24);
-      v.y = m[4] | (m[5] << 8) | (m[6] << 16) | (static_cast<uint32_t>(m[7]) << 24);
-      *reinterpret_cast<uint2*>(dst) = v;
+      for (int q = 0; q < kCalls / 2; q += 4) {
+        *reinterpret_cast<uint4*>(dst + 4 * q) =
+            make_uint4(even[q], even[q + 1], even[q + 2], even[q + 3]);
+        if (second)
+          *reinterpret_cast<uint4*>(dst + cols + 4 * q) =
+              make_uint4(odd[q], odd[q + 1], odd[q + 2], odd[q + 3]);
+      }
     } else {
+      const int n = min(kPatchCols, cols - c0);
 #pragma unroll
-      for (int e = 0; e < kCols; ++e)
-        if (c0 + e < cols) dst[e] = m[e];
+      for (int c = 0; c < kPatchCols; ++c) {
+        if (c < n) {
+          dst[c] = static_cast<uint8_t>(even[c >> 2] >> (8 * (c & 3)));
+          if (second) dst[cols + c] = static_cast<uint8_t>(odd[c >> 2] >> (8 * (c & 3)));
+        }
+      }
     }
   }
 }
@@ -68,18 +110,33 @@ dropout_mask_kernel(DropArgs args, uint8_t* __restrict__ out, int bh, int rows, 
 }  // namespace
 
 // key: int64 (2,) on the card; out: uint8 (bh, rows, cols), contiguous.
-// Keeps where the hash word's top 24 bits are below threshold. Returns the
-// CUDA error of the launch (0 on success).
+// Keeps where the hash word's top 24 bits are below threshold. The grid
+// (ops/attention.py dropout_mask_geometry): grid_x blocks of kThreads over
+// the plane's ceil(rows / 2) x groups patches, grid_y <= 65,535 planes at a
+// time. Returns the CUDA error of the launch (0 on success).
 extern "C" int dropout_mask(const long long* key, unsigned threshold, void* out, int bh,
-                            int rows, int cols, void* stream) {
+                            int rows, int cols, int groups, int patches, int grid_x,
+                            int grid_y, void* stream) {
   if (bh <= 0 || rows <= 0 || cols <= 0) return 0;
-  const long long items = static_cast<long long>(bh) * ((rows + 1) / 2) *
-                          ((cols + kCols - 1) / kCols);
-  const long long blocks = (items + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  DropArgs args{key, threshold, 1.f};
-  dropout_mask_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+  if (grid_x <= 0 || grid_y <= 0 || grid_y > 65535 ||
+      static_cast<long long>(grid_x) * kThreads < patches)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  // (word >> 8) < threshold, as one compare: word <= threshold * 256 - 1,
+  // which for threshold 2^24 (rate 0) keeps every word; threshold 0 keeps none
+  const uint32_t lim =
+      static_cast<uint32_t>(static_cast<unsigned long long>(threshold) * 256u - 1u);
+  dropout_mask_kernel<<<dim3(grid_x, grid_y), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      args, static_cast<uint8_t*>(out), bh, rows, cols, items);
+      key, lim, threshold > 0, static_cast<uint8_t*>(out), bh, rows, cols, groups, patches);
   return static_cast<int>(cudaGetLastError());
+}
+
+// resident blocks of the kernel an SM holds (the wrapper sizes the grid to
+// one wave of them); 0 if the query fails
+extern "C" int dropout_mask_blocks_per_sm() {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dropout_mask_kernel, kThreads, 0) !=
+      cudaSuccess)
+    return 0;
+  return n;
 }

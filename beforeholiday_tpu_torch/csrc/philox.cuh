@@ -40,23 +40,40 @@ struct Philox4 {
   uint32_t x, y, z, w;
 };
 
-__device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1, uint32_t c2,
-                                                 uint32_t c3, uint32_t k0, uint32_t k1) {
+// the ten round keys of a key: a thread that makes many calls under one key
+// (K13) computes them once and keeps them in registers
+struct PhiloxKeys {
+  uint32_t k0[10], k1[10];
+};
+
+__device__ __forceinline__ PhiloxKeys philox_keys(uint32_t k0, uint32_t k1) {
+  PhiloxKeys k;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
+    k.k0[r] = k0 + static_cast<uint32_t>(r) * 0x9E3779B9u;
+    k.k1[r] = k1 + static_cast<uint32_t>(r) * 0xBB67AE85u;
+  }
+  return k;
+}
+
+__device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1, uint32_t c2,
+                                                 uint32_t c3, const PhiloxKeys& k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
     const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
     const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    const uint32_t n0 = hi1 ^ c1 ^ k.k0[r], n2 = hi0 ^ c3 ^ k.k1[r];
     c0 = n0;
     c1 = lo1;
     c2 = n2;
     c3 = lo0;
   }
   return {c0, c1, c2, c3};
+}
+
+__device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1, uint32_t c2,
+                                                 uint32_t c3, uint32_t k0, uint32_t k1) {
+  return philox4x32_10(c0, c1, c2, c3, philox_keys(k0, k1));
 }
 
 // the keep bits of the 2x2 tile holding (row, col): bit 2 (row % 2) + col % 2

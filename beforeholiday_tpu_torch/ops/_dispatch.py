@@ -14,6 +14,7 @@ not ported): on a CUDA tensor a wrapper launches its kernel or raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -51,6 +52,13 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is unavailable")
     return device
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``: the persistent kernels size
+    their grids from it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def pad_rows(x: torch.Tensor, block_rows: int) -> Tuple[torch.Tensor, int]:

@@ -41,7 +41,7 @@ from typing import Optional, Sequence
 import torch
 
 from beforeholiday_tpu_torch import _build
-from beforeholiday_tpu_torch.ops._dispatch import resolve_impl
+from beforeholiday_tpu_torch.ops._dispatch import resolve_impl, sm_count
 from beforeholiday_tpu_torch.ops.dense import fused_dense
 
 _NEG = -1e30  # mask fill; large-negative (not -inf) keeps exp/max NaN-free
@@ -143,13 +143,46 @@ def dropout_keep_mask_torch(key: torch.Tensor, shape: Sequence[int],
     return mask[:, :R, :C].contiguous()
 
 
+# K13's launch: a thread owns a 2-row by 16-column patch of a (rows, cols)
+# plane and walks the planes bh = blockIdx.y, + grid_y, ...
+MASK_THREADS = 256
+MASK_PATCH = (2, 16)
+
+
+def dropout_mask_geometry(shape: Sequence[int], sms: int,
+                          blocks_per_sm: int) -> dict:
+    """K13's launch geometry for a ``(BH, rows, cols)`` block on a card of
+    ``sms`` SMs that each hold ``blocks_per_sm`` of its blocks: the
+    patches of one plane (``pairs`` x ``groups``), the grid ``(grid_x,
+    grid_y)``, at most one wave of resident blocks where the planes allow,
+    and the planes a thread walks (``per_thread``, at most, balanced across
+    the grid). Block ``(bx, by)``'s thread ``t`` owns patch ``p = bx *
+    MASK_THREADS + t`` (row pair ``p // groups``, column group ``p %
+    groups``) of planes ``by, by + grid_y, ...``: every element once."""
+    BH, R, C = (int(n) for n in shape)
+    pr, pc = MASK_PATCH
+    pairs, groups = -(-R // pr), -(-C // pc)
+    patches = pairs * groups
+    if patches >= 2 ** 31:
+        raise ValueError(f"K13 indexes a plane's patches in int32, got "
+                         f"{tuple(shape)}")
+    grid_x = -(-patches // MASK_THREADS)
+    wave = max(1, sms * blocks_per_sm // grid_x)
+    per_thread = -(-BH // min(BH, _MAX_GRID_Y, wave))
+    grid_y = -(-BH // per_thread)
+    return dict(pairs=pairs, groups=groups, patches=patches, grid_x=grid_x,
+                grid_y=grid_y, per_thread=per_thread)
+
+
 @functools.cache
 def _mask_lib():
-    fn = _build.load("dropout_mask").dropout_mask
+    lib = _build.load("dropout_mask")
+    fn = lib.dropout_mask
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, ctypes.c_uint, p, i, i, i, p]
+    fn.argtypes = [p, ctypes.c_uint, p, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
-    return fn
+    lib.dropout_mask_blocks_per_sm.restype = ctypes.c_int
+    return fn, max(1, lib.dropout_mask_blocks_per_sm())
 
 
 def dropout_keep_mask_kernel(key: torch.Tensor, shape: Sequence[int],
@@ -166,10 +199,13 @@ def dropout_keep_mask_kernel(key: torch.Tensor, shape: Sequence[int],
     out = torch.empty((BH, R, C), dtype=torch.uint8, device=key.device)
     if out.numel() == 0:
         return out.view(torch.bool)
-    fn = _mask_lib()
+    fn, blocks_per_sm = _mask_lib()
+    geo = dropout_mask_geometry(shape, sm_count(key.device.index or 0),
+                                blocks_per_sm)
     with torch.cuda.device(key.device):
         stream = torch.cuda.current_stream(key.device).cuda_stream
         rc = fn(key.contiguous().data_ptr(), thr, out.data_ptr(), BH, R, C,
+                geo["groups"], geo["patches"], geo["grid_x"], geo["grid_y"],
                 stream)
     if rc != 0:
         raise RuntimeError(f"K13 (dropout_mask) launch failed with CUDA error {rc}")

@@ -1,5 +1,5 @@
-"""Fused LayerNorm / RMSNorm on kernels K1 (forward) and K3 (backward),
-both Triton.
+"""Fused LayerNorm / RMSNorm on kernels K1 (forward, Triton) and K3
+(backward, CUDA C++ in ``csrc/layer_norm_bwd.cu``).
 
 K1 replaces ``beforeholiday_tpu/ops/normalization.py:55`` ``_ln_fwd_kernel``
 (launched at ``:112``). It computes the same function: per row the mean and
@@ -16,31 +16,28 @@ read once and written once. ``rms`` and the bias are compile-time switches;
 ``eps`` is a runtime scalar.
 
 K3 replaces ``_ln_bwd_kernel`` (``:69``, launched by ``_ln_bwd_pallas`` at
-``:134``): dx in closed form from (mean, invvar) recomputed from x, as the
-TPU kernel does (``:185-210``), and dgamma/dbeta summed over rows. The TPU
-sums dgamma/dbeta across its sequential grid in one VMEM block; a GPU grid
-runs in no order, so K3 is two launches: a fixed number of programs each walk
-a strided set of row blocks (whole rows in registers, K1's design) and write
-one fp32 partial row of dgamma and dbeta, then a second program per column
-block sums the partials in a fixed order. No atomics, so the result does not
-depend on the schedule. It takes the O5 mix (bf16 x and dy, fp32 w): dx comes
-back in x's dtype, dgamma/dbeta in w's. Bound at the training shape
-(16384 x 1024, bf16 x/dy/dx, fp32 w): 100.7 MB, 0.030 ms at 3.35 TB/s.
+``:134``); its source states its bound and design. :func:`ln_bwd_geometry`
+sizes its persistent grid, the team of warps that owns a row and the stages
+of its ring from the card's SM count.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
 import torch
 
+from beforeholiday_tpu_torch import _build
 from beforeholiday_tpu_torch.ops._autocast import float_function
-from beforeholiday_tpu_torch.ops._dispatch import resolve_impl
+from beforeholiday_tpu_torch.ops._dispatch import resolve_impl, sm_count
 
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the dtypes K1 and K3 take, by K3's C interface code
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # widest row K1 keeps in registers (BLOCK elements x ROWS rows per program)
-_MAX_BLOCK = 16384
+# and K3 stages in shared memory
+_MAX_HIDDEN = 16384
 
 
 def ln_fwd_torch(x2d, w, b, eps: float, rms: bool, out_dtype):
@@ -119,8 +116,8 @@ def ln_fwd_kernel(x2d, w, b, eps: float, rms: bool, out_dtype):
         raise ValueError("K1 needs unit-stride rows and contiguous params")
     triton, kernel = _ln_fwd_triton()
     block = triton.next_power_of_2(hidden)
-    if block > _MAX_BLOCK:
-        raise ValueError(f"hidden {hidden} exceeds K1's widest row {_MAX_BLOCK}")
+    if block > _MAX_HIDDEN:
+        raise ValueError(f"hidden {hidden} exceeds K1's widest row {_MAX_HIDDEN}")
     n_rows = max(1, 4096 // block)
     y = torch.empty((rows, hidden), dtype=out_dtype, device=x2d.device)
     if rows:
@@ -157,121 +154,110 @@ def ln_bwd_torch(x2d, w, dy, eps: float, rms: bool):
     return dx.to(x2d.dtype), (dyf * xhat).sum(0), dyf.sum(0)
 
 
-# programs of K3's first stage: each walks a strided set of row blocks, so
-# the partial buffer is at most this many rows whatever the row count
-_BWD_PROGRAMS = 512
-_REDUCE_COLS = 64
+# K3's blocks: 8 warps; a team of 1-8 of them owns a row, each lane 4
+# consecutive elements a unit, at most _LN_UNITS units a lane (twice that
+# above hidden 8192, at one block an SM)
+_LN_WARPS = 8
+_LN_UNITS = 8
+# shared memory a block of an H100 may use, and what the SM keeps of each
+# resident block for itself
+_SMEM_PER_SM = 228 * 1024
+_SMEM_PER_BLOCK = 227 * 1024
+_SMEM_RESERVED = 1024
+_LN_RED_BYTES = 2 * _LN_WARPS * 4 * 4  # two passes' cross-warp sums
+
+
+def _up16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def ln_bwd_geometry(rows: int, hidden: int, x_size: int, dy_size: int,
+                    sms: int) -> dict:
+    """K3's launch for ``rows`` x ``hidden`` with x and dy of ``x_size`` and
+    ``dy_size`` bytes an element on a card of ``sms`` SMs:
+    ``team_warps`` (the warps that own a row), ``nu`` (units of 4 elements a
+    lane), ``blocks`` (persistent, also the partial rows of dgamma/dbeta),
+    ``stages`` of the cp.async ring and the dynamic shared memory ``smem``."""
+    if not 0 < hidden <= _MAX_HIDDEN:
+        raise ValueError(f"K3 takes hidden widths 1..{_MAX_HIDDEN}, got {hidden}")
+    units = -(-hidden // 4)
+    team_warps = next((t for t in (1, 2, 4, 8) if units <= 32 * t * _LN_UNITS), 8)
+    nu = _LN_UNITS if units <= 32 * team_warps * _LN_UNITS else 2 * _LN_UNITS
+    teams = _LN_WARPS // team_warps
+    per_sm = 2 if nu == _LN_UNITS else 1
+    row_bytes = _up16(hidden * x_size) + _up16(hidden * dy_size)
+    head = _up16(4 * hidden) + _LN_RED_BYTES  # fp32 w, then the reductions
+    acc = teams * 2 * 4 * (-(-hidden // 4) * 4)  # the teams' dgamma/dbeta rows
+    budget = min(_SMEM_PER_BLOCK, _SMEM_PER_SM // per_sm - _SMEM_RESERVED) - head
+    stages = min(3, budget // (teams * row_bytes))
+    if stages < 1 or acc > budget:
+        raise ValueError(f"K3 has no shared-memory plan for hidden {hidden}")
+    smem = head + max(stages * teams * row_bytes, acc)
+    blocks = max(1, min(sms * per_sm, -(-rows // teams)))
+    return dict(team_warps=team_warps, nu=nu, teams=teams, stages=stages,
+                blocks=blocks, smem=smem)
 
 
 @functools.cache
-def _ln_bwd_triton():
-    global tl
-    from beforeholiday_tpu_torch._build import triton_cache_env
+def _ln_bwd_lib():
+    fn = _build.load("layer_norm_bwd").ln_bwd
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, p, p, p, p, p, p, i, i, ll, ll, i, i, i, i, i,
+                   ctypes.c_float, i, i, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
 
-    triton_cache_env()
-    import triton
-    import triton.language as tl
 
-    @triton.jit
-    def _ln_bwd(X, W, DY, DX, PW, PB, n_rows, n_cols, stride_x, stride_dy,
-                stride_dx, eps, RMS: tl.constexpr, HAS_BIAS: tl.constexpr,
-                BLOCK: tl.constexpr, ROWS: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK)
-        cmask = cols < n_cols
-        w = tl.load(W + cols, mask=cmask, other=0.0).to(tl.float32)
-        dw_acc = tl.zeros([BLOCK], dtype=tl.float32)
-        db_acc = tl.zeros([BLOCK], dtype=tl.float32)
-        for blk in range(pid, tl.cdiv(n_rows, ROWS), tl.num_programs(0)):
-            rows = blk * ROWS + tl.arange(0, ROWS)
-            mask = (rows < n_rows)[:, None] & cmask[None, :]
-            rows64 = rows.to(tl.int64)[:, None]
-            x = tl.load(X + rows64 * stride_x + cols[None, :], mask=mask,
-                        other=0.0).to(tl.float32)
-            dy = tl.load(DY + rows64 * stride_dy + cols[None, :], mask=mask,
-                         other=0.0).to(tl.float32)
-            dyw = dy * w[None, :]
-            if RMS:
-                r = tl.rsqrt(tl.sum(x * x, axis=1) / n_cols + eps)
-                xhat = x * r[:, None]
-                m2 = tl.sum(dyw * xhat, axis=1) / n_cols
-                dx = r[:, None] * (dyw - xhat * m2[:, None])
-            else:
-                mean = tl.sum(x, axis=1) / n_cols
-                xc = tl.where(mask, x - mean[:, None], 0.0)
-                r = tl.rsqrt(tl.sum(xc * xc, axis=1) / n_cols + eps)
-                xhat = xc * r[:, None]
-                m1 = tl.sum(dyw, axis=1) / n_cols
-                m2 = tl.sum(dyw * xhat, axis=1) / n_cols
-                dx = r[:, None] * (dyw - m1[:, None] - xhat * m2[:, None])
-            tl.store(DX + rows64 * stride_dx + cols[None, :],
-                     dx.to(DX.dtype.element_ty), mask=mask)
-            dw_acc += tl.sum(dy * xhat, axis=0)
-            if HAS_BIAS:
-                db_acc += tl.sum(dy, axis=0)
-        tl.store(PW + pid * n_cols + cols, dw_acc, mask=cmask)
-        if HAS_BIAS:
-            tl.store(PB + pid * n_cols + cols, db_acc, mask=cmask)
-
-    @triton.jit
-    def _ln_bwd_reduce(PW, PB, DW, DB, n_part, n_cols, HAS_BIAS: tl.constexpr,
-                       BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < n_cols
-        dw = tl.zeros([BLOCK_C], dtype=tl.float32)
-        db = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for r0 in range(0, n_part, BLOCK_R):
-            rows = r0 + tl.arange(0, BLOCK_R)
-            mask = (rows < n_part)[:, None] & cmask[None, :]
-            offs = rows[:, None] * n_cols + cols[None, :]
-            dw += tl.sum(tl.load(PW + offs, mask=mask, other=0.0), axis=0)
-            if HAS_BIAS:
-                db += tl.sum(tl.load(PB + offs, mask=mask, other=0.0), axis=0)
-        tl.store(DW + cols, dw.to(DW.dtype.element_ty), mask=cmask)
-        if HAS_BIAS:
-            tl.store(DB + cols, db.to(DB.dtype.element_ty), mask=cmask)
-
-    return triton, _ln_bwd, _ln_bwd_reduce
+def _aligned_rows(t: torch.Tensor) -> bool:
+    """Whether every row of ``t`` is a whole number of 16-byte chunks on a
+    16-byte boundary: K3 then stages it by cp.async."""
+    size = t.element_size()
+    return (t.data_ptr() % 16 == 0 and (t.stride(0) * size) % 16 == 0
+            and (t.shape[1] * size) % 16 == 0)
 
 
 def ln_bwd_kernel(x2d, w, dy, eps: float, rms: bool, has_bias: bool = True):
     """Launch K3 on CUDA tensors: ``(dx in x's dtype, dw, db in w's dtype)``,
     ``db`` None without a bias. Checks device, dtype, shape and layout and
     raises on anything the kernel does not take."""
-    if x2d.ndim != 2 or not x2d.is_cuda:
-        raise ValueError(f"K3 takes a 2-D CUDA tensor, got {tuple(x2d.shape)} "
-                         f"on {x2d.device}")
+    if x2d.ndim != 2:
+        raise ValueError(f"K3 takes a 2-D x, got {tuple(x2d.shape)}")
     rows, hidden = x2d.shape
+    if hidden > _MAX_HIDDEN:
+        raise ValueError(f"hidden {hidden} exceeds K3's widest row {_MAX_HIDDEN}")
+    for dt in (x2d.dtype, dy.dtype, w.dtype):
+        if dt not in _KERNEL_DTYPES:
+            raise ValueError(f"K3 does not take dtype {dt}")
+    if not x2d.is_cuda:
+        raise ValueError(f"K3 takes CUDA tensors, got x on {x2d.device}")
     if dy.shape != x2d.shape or dy.device != x2d.device:
         raise ValueError(f"K3 dy must match x {tuple(x2d.shape)} on "
                          f"{x2d.device}, got {tuple(dy.shape)} on {dy.device}")
     if w.device != x2d.device or w.shape != (hidden,):
         raise ValueError(f"K3 weight must be ({hidden},) on {x2d.device}")
-    for dt in (x2d.dtype, dy.dtype, w.dtype):
-        if dt not in _KERNEL_DTYPES:
-            raise ValueError(f"K3 does not take dtype {dt}")
     if x2d.stride(1) != 1 or dy.stride(1) != 1 or not w.is_contiguous():
         raise ValueError("K3 needs unit-stride rows and a contiguous weight")
-    triton, kernel, reduce = _ln_bwd_triton()
-    block = triton.next_power_of_2(hidden)
-    if block > _MAX_BLOCK:
-        raise ValueError(f"hidden {hidden} exceeds K3's widest row {_MAX_BLOCK}")
-    n_rows = max(1, 2048 // block)
-    dx = torch.empty((rows, hidden), dtype=x2d.dtype, device=x2d.device)
-    dw = torch.empty((hidden,), dtype=w.dtype, device=x2d.device)
-    db = torch.empty((hidden,), dtype=w.dtype, device=x2d.device) if has_bias else None
-    progs = max(1, min(_BWD_PROGRAMS, triton.cdiv(rows, n_rows)))
-    pw = torch.empty((progs, hidden), dtype=torch.float32, device=x2d.device)
-    pb = torch.empty_like(pw) if has_bias else pw
-    kernel[(progs,)](
-        x2d, w, dy, dx, pw, pb, rows, hidden, x2d.stride(0), dy.stride(0),
-        dx.stride(0), float(eps), RMS=rms, HAS_BIAS=has_bias, BLOCK=block,
-        ROWS=n_rows, num_warps=4 if block * n_rows <= 2048 else 8,
-    )
-    reduce[(triton.cdiv(hidden, _REDUCE_COLS),)](
-        pw, pb, dw, dw if db is None else db, progs, hidden, HAS_BIAS=has_bias,
-        BLOCK_R=32, BLOCK_C=_REDUCE_COLS, num_warps=4,
-    )
+    dev = x2d.device
+    geo = ln_bwd_geometry(rows, hidden, x2d.element_size(), dy.element_size(),
+                          sm_count(dev.index or 0))
+    dx = torch.empty((rows, hidden), dtype=x2d.dtype, device=dev)
+    dw = torch.empty((hidden,), dtype=w.dtype, device=dev)
+    db = torch.empty((hidden,), dtype=w.dtype, device=dev) if has_bias else None
+    partial = torch.empty((2 if has_bias else 1) * geo["blocks"] * hidden,
+                          dtype=torch.float32, device=dev)
+    fn = _ln_bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(x2d.data_ptr(), dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
+                dw.data_ptr(), db.data_ptr() if has_bias else None,
+                partial.data_ptr(), rows, hidden, x2d.stride(0), dy.stride(0),
+                _KERNEL_DTYPES[x2d.dtype], _KERNEL_DTYPES[dy.dtype],
+                _KERNEL_DTYPES[w.dtype],
+                int(rms), int(has_bias), float(eps), geo["team_warps"],
+                geo["nu"], geo["stages"], geo["blocks"], geo["smem"],
+                int(_aligned_rows(x2d) and _aligned_rows(dy)), stream)
+    if rc != 0:
+        raise RuntimeError(f"K3 (layer_norm_bwd) launch failed with CUDA error {rc}")
     ln_bwd_kernel.launches += 1
     return dx, dw, db
 

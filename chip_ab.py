@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Time one checkout of the PyTorch/CUDA port against another on one NVIDIA
-GPU: K2 and K4 (flash attention forward and backward, no dropout) at the GPT
-and BERT training shapes, and the flagship GPT and BERT-Large O5 training
-steps at full width (the shapes, batches and optimizers of
+GPU: K2 and K4 (flash attention forward and backward) at the GPT and BERT
+training shapes, without dropout and at the GPT shape with it, K3
+(LayerNorm backward) at the training shape, K13 (the dropout keep mask) at
+the dropout steps' four shapes, and the flagship GPT and BERT-Large O5
+training steps at full width (the shapes, batches and optimizers of
 ``chip_smoke.py``), with no dropout, so that any two checkouts of the port
 run the same work.
 
@@ -16,20 +18,89 @@ Each run imports ``beforeholiday_tpu_torch`` from ``--root`` only, builds
 its kernels there, and prints one JSON line: the root, the card's name and
 power limit, the kernels' median CUDA-event times (L2 flushed before each
 call) and the steps' median CUDA-event step times over 10 steps after 2
-warm-up steps. It exits non-zero without a CUDA device.
+warm-up steps. With ``--sass`` it also prints K13's instruction mix: the
+SASS of the loop that hashes a thread's patch (``cuobjdump -sass`` on the
+built library), counted by opcode and by pipe, per element; with
+``--ptxas NAME ...`` the registers, spills and shared memory that ``nvcc
+-Xptxas -v`` reports for each kernel of ``csrc/NAME.cu``. It exits non-zero
+without a CUDA device.
 """
 
 import argparse
+import collections
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+
+# SASS opcodes by the pipe that issues them on Hopper: integer multiplies on
+# the FMA-heavy pipe, logic, compares, selects and shifts on the ALU pipe
+FMA_OPS = ("IMAD",)
+ALU_OPS = ("LOP3", "ISETP", "SEL", "IADD3", "SHF", "PRMT", "LEA", "IABS",
+           "VIMNMX", "PLOP3")
+# elements a K13 thread writes in one trip of its loop: a 2 x 16 patch
+K13_PATCH = 32
+
+
+def k13_sass_mix(lib_path):
+    """K13's hashing loop in the SASS of ``lib_path``: the backward branch
+    whose body holds the 16-byte stores, its opcodes counted, and the
+    instructions per element on the FMA and ALU pipes."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    ins = [(int(m.group(1), 16), m.group(2), m.group(3)) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", sass)]
+    loops = []  # (target, branch) of each backward branch
+    for addr, op, rest in ins:
+        t = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if t and int(t.group(1), 16) < addr:
+            loops.append((int(t.group(1), 16), addr))
+    for lo, hi in loops:
+        body = [op for addr, op, _ in ins if lo <= addr <= hi]
+        if "STG.E.128" in body:
+            ops = collections.Counter(body)
+            per = lambda names: sum(n for op, n in ops.items()
+                                    if op.split(".")[0] in names) / K13_PATCH
+            return {"opcodes": dict(ops.most_common()),
+                    "fma_per_element": per(FMA_OPS), "alu_per_element": per(ALU_OPS),
+                    "all_per_element": len(body) / K13_PATCH}
+    raise RuntimeError("no loop with 16-byte stores in K13's SASS")
+
+
+def ptxas_usage(build, name):
+    """``nvcc -Xptxas -v`` on ``csrc/<name>.cu`` with the package's flags:
+    each kernel's registers, spill bytes and shared memory, by mangled
+    name."""
+    out = build.BUILD_DIR / f"ptxas-{name}.so"
+    log = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                          str(out), str(build.sources()[name])],
+                         check=True, capture_output=True, text=True).stderr
+    usage, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and fn:
+            usage.setdefault(fn, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", ln)
+        if m and fn:
+            usage.setdefault(fn, {})["registers"] = int(m.group(1))
+            usage[fn]["static_smem"] = int(m.group(2) or 0)
+    return usage
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True,
                     help="the checkout whose beforeholiday_tpu_torch to time")
+    ap.add_argument("--sass", action="store_true",
+                    help="also print K13's instruction mix")
+    ap.add_argument("--ptxas", nargs="*", default=[], metavar="NAME",
+                    help="also print ptxas's resource use for csrc/NAME.cu")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -41,6 +112,7 @@ def main():
         return 1
     from beforeholiday_tpu_torch import _build, amp
     from beforeholiday_tpu_torch.ops import attention as attn
+    from beforeholiday_tpu_torch.ops import normalization as norm
     from beforeholiday_tpu_torch.optimizers import FusedAdam, FusedLAMB
     from beforeholiday_tpu_torch.testing import bert, gpt
 
@@ -82,7 +154,35 @@ def main():
         out[f"k4_{name}_ms"] = time_ms(
             lambda: attn.flash_bwd_kernel(q, k, v, o, do, lse, None, lens, causal,
                                           0.125))
+        if causal:  # with dropout: the hash inside the products
+            key = torch.tensor([1234, 5678], dtype=torch.int64, device="cuda")
+            od, lsed = attn.flash_fwd_kernel(q, k, v, lens, causal, 0.125, 0.1, key)
+            out[f"k2_{name}_dropout_ms"] = time_ms(
+                lambda: attn.flash_fwd_kernel(q, k, v, lens, causal, 0.125, 0.1, key))
+            out[f"k4_{name}_dropout_ms"] = time_ms(
+                lambda: attn.flash_bwd_kernel(q, k, v, od, do, lsed, None, lens, causal,
+                                              0.125, 0.1, key))
+            del od, lsed
         del q, k, v, do, o, lse
+
+    g = gen(2)
+    x = (torch.randn(16384, 1024, generator=g, device="cuda") * 2 + 0.5).bfloat16()
+    dy = torch.randn(16384, 1024, generator=g, device="cuda").bfloat16()
+    w = 1 + 0.1 * torch.randn(1024, generator=g, device="cuda")
+    out["k3_train_ms"] = time_ms(lambda: norm.ln_bwd_kernel(x, w, dy, 1e-5, False, True))
+    del x, dy, w
+    key = torch.tensor([1234, 5678], dtype=torch.int64, device="cuda")
+    for name, shape in (("gpt_probs", (256, 1024, 1024)),
+                        ("gpt_hidden", (16, 1024, 1024)),
+                        ("bert_hidden", (128, 128, 1024)),
+                        ("bert_probs", (2048, 128, 128))):
+        out[f"k13_{name}_ms"] = time_ms(
+            lambda: attn.dropout_keep_mask_kernel(key, shape, 0.1))
+    if args.sass:
+        out["k13_sass"] = k13_sass_mix(_build.lib_path("dropout_mask"))
+    for name in args.ptxas:
+        out[f"ptxas_{name}"] = ptxas_usage(_build, name)
+    torch.cuda.empty_cache()
 
     def steps_ms(m, loss_fn, batch):
         svag = amp.scaled_value_and_grad(loss_fn, m.scaler)

@@ -119,6 +119,40 @@ def test_rate_zero_keeps_everything_and_bad_rates_raise():
         tattn.dropout_keep_mask(torch.zeros(3, dtype=torch.int64), (1, 2, 2), 0.1)
 
 
+@pytest.mark.parametrize("shape", [(3, 7, 13), (2, 1, 1), (70000, 3, 5), (5, 33, 70),
+                                   (16, 1024, 1024), (256, 1024, 1024),
+                                   (2048, 128, 128), (1, 16384, 1024), (66000, 4, 32)])
+@pytest.mark.parametrize("sm_count, blocks_per_sm", [(132, 5), (132, 8), (7, 1)])
+def test_k13_patches_tile_each_element_once(shape, sm_count, blocks_per_sm):
+    """K13's launch geometry, walked as the kernel walks it: thread ``p``
+    of block ``bx`` owns patch ``bx * MASK_THREADS + p`` of a plane (2 rows
+    by 16 columns, clipped at the edges) and block row ``by`` the planes
+    ``by, by + grid_y, ...``. Every element of the block is written once,
+    and the grid stays inside CUDA's limits."""
+    BH, R, C = shape
+    geo = tattn.dropout_mask_geometry(shape, sm_count, blocks_per_sm)
+    pr, pc = tattn.MASK_PATCH
+    assert 1 <= geo["grid_y"] <= 65535 and geo["grid_x"] < 2 ** 31
+    if geo["grid_x"] <= sm_count * blocks_per_sm and BH <= 65535:
+        # one wave of resident blocks: no block waits for another to finish
+        assert geo["grid_x"] * geo["grid_y"] <= sm_count * blocks_per_sm
+    p = np.arange(geo["grid_x"] * tattn.MASK_THREADS)
+    p = p[p < geo["patches"]]
+    pair, g = p // geo["groups"], p % geo["groups"]
+    plane = np.zeros((pr * geo["pairs"], pc * geo["groups"]), np.int64)
+    for dr in range(pr):
+        for dc in range(pc):
+            np.add.at(plane, (pr * pair + dr, pc * g + dc), 1)
+    assert (plane == 1).all()  # the clipped parts lie outside (R, C)
+    assert plane.shape[0] - R < pr and plane.shape[1] - C < pc
+    visits = np.zeros(BH, np.int64)
+    walks = [np.arange(by, BH, geo["grid_y"]) for by in range(geo["grid_y"])]
+    for planes in walks:
+        visits[planes] += 1
+    assert (visits == 1).all()
+    assert max(len(w) for w in walks) == geo["per_thread"]
+
+
 # ------------------------------------------------------------- the keys
 
 

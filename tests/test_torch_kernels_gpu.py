@@ -1,7 +1,7 @@
-"""Kernels K1/K3 (LayerNorm forward/backward, Triton), K2/K4 (flash
-attention forward/backward with dropout, CUDA C++), K5 (unscale), K6 (fused
-Adam), K7 (LAMB stage 1), K8 (trust-ratio update), K9 (global sum of
-squares), K10 (fused SGD) and K11/K12 (scaled masked softmax
+"""Kernels K1 (LayerNorm forward, Triton), K3 (LayerNorm backward, CUDA
+C++), K2/K4 (flash attention forward/backward with dropout, CUDA C++), K5
+(unscale), K6 (fused Adam), K7 (LAMB stage 1), K8 (trust-ratio update), K9
+(global sum of squares), K10 (fused SGD) and K11/K12 (scaled masked softmax
 forward/backward), all Triton, K13 (the dropout keep mask, CUDA C++) and
 K14/K15 (the fused label-smoothing cross entropy forward/backward, Triton)
 and K16-K18 (axpby, Adagrad, NovoGrad; Triton) against their plain PyTorch
@@ -210,8 +210,17 @@ DW_TOL = dict(rtol=1e-4, atol=1e-3)
     (77, 1000, torch.float32, False, True),       # odd rows and width
     (64, 1000, torch.bfloat16, True, False),
     (5, 48, torch.bfloat16, False, False),
+    (2048, 768, torch.bfloat16, False, True),     # the widths a team of warps takes
+    (2048, 768, torch.float32, False, True),
+    (1024, 4096, torch.bfloat16, False, True),
+    (1024, 4096, torch.float32, True, False),
+    (128, 16384, torch.bfloat16, False, True),
+    (128, 16384, torch.float32, False, True),
+    (33, 77, torch.float32, False, True),         # rows not 16-byte aligned
 ])
 def test_k3_matches_plain(cuda, rows, hidden, dtype, rms, bias):
+    """dx within one rounding, dgamma/dbeta within the fp32 sums' order; a
+    second call gives the same bits (no atomics)."""
     g = _gen(1)
     x = (torch.randn(rows, hidden, generator=g, device=cuda) * 2 + 0.5).to(dtype)
     dy = torch.randn(rows, hidden, generator=g, device=cuda).to(dtype)
@@ -219,6 +228,9 @@ def test_k3_matches_plain(cuda, rows, hidden, dtype, rms, bias):
     before = tnorm.ln_bwd_kernel.launches
     dx, dw, db = tnorm.ln_bwd_kernel(x, w, dy, 1e-5, rms, bias)
     assert tnorm.ln_bwd_kernel.launches == before + 1
+    dx2, dw2, db2 = tnorm.ln_bwd_kernel(x, w, dy, 1e-5, rms, bias)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert not bias or torch.equal(db, db2)
     rdx, rdw, rdb = tnorm.ln_bwd_torch(x, w, dy, 1e-5, rms)
     torch.cuda.synchronize()
     assert dx.dtype == dtype and dw.dtype == torch.float32
@@ -1020,7 +1032,8 @@ def _key(seed):
 
 @pytest.mark.parametrize("shape, rate", [
     ((256, 1024, 1024), 0.1), ((1, 16384, 1024), 0.3), ((3, 7, 13), 0.5),
-    ((16, 1024, 1024), 0.1), ((2, 5, 9), 0.0),
+    ((16, 1024, 1024), 0.1), ((2, 5, 9), 0.0), ((70000, 3, 5), 0.2),
+    ((2048, 128, 128), 0.1), ((5, 33, 70), 0.999999999),
 ])
 def test_k13_matches_its_twin_bitwise(cuda, shape, rate):
     key = _key(sum(shape))

@@ -125,6 +125,56 @@ def test_kernel_backward_wrapper_refuses_cpu_tensors():
         tnorm.ln_bwd_kernel(x, w, x, 1e-5, False)
 
 
+@pytest.mark.parametrize("hidden", [1, 6, 48, 768, 1000, 1024, 1025, 4096, 8192,
+                                    8193, 16384])
+@pytest.mark.parametrize("x_size, dy_size", [(2, 2), (4, 4), (2, 4), (4, 2)])
+def test_k3_geometry_fits_an_h100(hidden, x_size, dy_size):
+    """K3's launch from ``ln_bwd_geometry``: every unit of 4 columns has a
+    lane, the teams fill a block of 8 warps, each persistent block (one
+    partial row of dgamma/dbeta) has a row to start on, and the shared
+    memory (fp32 w, the reductions, the ring or the teams' dgamma/dbeta
+    rows) fits the blocks an SM is meant to hold."""
+    up16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    for rows in (1, 5, 2113, 16384):
+        geo = tnorm.ln_bwd_geometry(rows, hidden, x_size, dy_size, 132)
+        team, nu, teams = geo["team_warps"], geo["nu"], geo["teams"]
+        assert team in (1, 2, 4, 8) and team * teams == 8
+        assert -(-hidden // 4) <= 32 * team * nu
+        per_sm = 2 if nu == 8 else 1
+        assert 1 <= geo["blocks"] <= 132 * per_sm
+        assert (geo["blocks"] - 1) * teams < max(rows, 1)
+        assert 1 <= geo["stages"] <= 3
+        head = up16(4 * hidden) + 2 * 8 * 4 * 4
+        row = up16(hidden * x_size) + up16(hidden * dy_size)
+        ring = geo["stages"] * teams * row
+        acc = teams * 2 * 4 * -(-hidden // 4) * 4
+        assert geo["smem"] == head + max(ring, acc)
+        assert geo["smem"] <= 227 * 1024
+        assert per_sm * (geo["smem"] + 1024) <= 228 * 1024
+
+
+def _k3_refusals():
+    x, w, _ = (torch.from_numpy(a) for a in _inputs((4, 16)))
+    wide = torch.zeros(2, 16385)
+    return {
+        "wide": ((wide, torch.ones(16385), wide), "widest row"),
+        "dtype": ((x.double(), w, x.double()), "dtype"),
+        "int_w": ((x, w.int(), x), "dtype"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_k3_refusals()))
+def test_k3_wrapper_refuses_what_it_does_not_take(case):
+    """K3 refuses, before it looks at the device, a width past 16,384 and a
+    dtype outside fp32/bf16/fp16 (a CPU tensor: the test above)."""
+    (x, w, dy), match = _k3_refusals()[case]
+    with pytest.raises(ValueError, match=match):
+        tnorm.ln_bwd_kernel(x, w, dy, 1e-5, False)
+    if case == "wide":
+        with pytest.raises(ValueError):
+            tnorm.ln_bwd_geometry(4, 16385, 2, 2, 132)
+
+
 def test_norm_checks_param_shapes():
     x, w, b = (torch.from_numpy(a) for a in _inputs((4, 16)))
     with pytest.raises(ValueError):
