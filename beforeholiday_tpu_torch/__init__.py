@@ -8,7 +8,8 @@ function. Ported so far (slice 1, serving; slice 2, the O5 GPT training
 step; slice 3, the O5 BERT + FusedLAMB pretraining step; slice 4, the
 ImageNet ResNet-50 training step at O5 and O0 with FusedSGD; slice 5, the
 unfused-attention GPT and BERT steps; slice 6, dropout; slice 7, the fused
-label-smoothing cross entropy):
+label-smoothing cross entropy; slice 8, the rest of the optimizer family;
+slice 11, the guarded data-parallel ResNet step):
 
 - ``beforeholiday_tpu_torch.ops``     — LayerNorm/RMSNorm forward and backward
   (kernels K1/K3, Triton), flash attention forward and backward (K2/K4, CUDA
@@ -22,14 +23,19 @@ label-smoothing cross entropy):
 - ``beforeholiday_tpu_torch.optimizers`` — ``FusedAdam``, ``FusedLAMB``,
   ``FusedSGD``, ``MasterWeights`` and ``FusedMixedPrecisionLamb``.
 - ``beforeholiday_tpu_torch.models``  — the ResNet family.
-- ``beforeholiday_tpu_torch.parallel`` — single-device BatchNorm.
+- ``beforeholiday_tpu_torch.parallel`` — process-group state, DDP (bucketed,
+  compressed, backward-time hooks) over ``torch.distributed``, SyncBN, LARC.
+- ``beforeholiday_tpu_torch.guard``   — ``StepGuard``, the device-side skip,
+  sentinel and rollback state machine.
+- ``beforeholiday_tpu_torch.tune``    — knob resolution (``UNSET``).
 - ``beforeholiday_tpu_torch.examples.imagenet`` — the ImageNet ResNet
   trainer (``main_amp``).
 - ``beforeholiday_tpu_torch.infer``   — paged KV cache, bucketed inference
   engine, continuous batching.
-- ``beforeholiday_tpu_torch.monitor`` — the strict bucket-signature gate.
+- ``beforeholiday_tpu_torch.monitor`` — the strict bucket-signature gate,
+  trace spans and the collective-traffic ledger.
 - ``beforeholiday_tpu_torch.testing`` — the dense GPT and BERT (flash or
-  unfused attention), their losses and batches.
+  unfused attention), their losses and batches, and fault injectors.
 - ``beforeholiday_tpu_torch.transformer`` — the enums and
   ``functional.FusedScaleMaskSoftmax``.
 
@@ -40,6 +46,7 @@ hands them CPU tensors; with no card and no CPU request they raise.
 from beforeholiday_tpu_torch import (  # noqa: F401
     amp,
     contrib,
+    guard,
     infer,
     models,
     monitor,
@@ -48,9 +55,10 @@ from beforeholiday_tpu_torch import (  # noqa: F401
     parallel,
     testing,
     transformer,
+    tune,
 )
 
 __version__ = "0.5.0"
 
-__all__ = ["amp", "contrib", "infer", "models", "monitor", "ops", "optimizers",
-           "parallel", "testing", "transformer"]
+__all__ = ["amp", "contrib", "guard", "infer", "models", "monitor", "ops",
+           "optimizers", "parallel", "testing", "transformer", "tune"]

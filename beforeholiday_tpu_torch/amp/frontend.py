@@ -16,8 +16,9 @@ ported, so they raise ``NotImplementedError``, as does ``tuned=True`` (the
 autotuner is not ported). ``has_state`` models (ResNet's BN running stats)
 pass their state through uncast in both directions, and
 ``scaled_value_and_grad(has_aux=True)`` returns the loss function's aux
-output. Not ported either: ``arena_masters`` (the optimizer's view path) and
-``scaled_value_and_grad``'s ``reduce_grads`` (DDP, a later slice).
+output, and ``reduce_grads`` (DDP's reduction) runs on the still-scaled
+grads before the unscale. Not ported either: ``arena_masters`` (the
+optimizer's view path).
 """
 
 from __future__ import annotations
@@ -137,21 +138,43 @@ class AmpModel:
 
     def state_dict(self, scaler_state) -> Dict[str, Any]:
         """Scaler checkpoint, one ``loss_scaler{i}`` entry per loss. Reads
-        the scaler state back to the host: call it outside the step."""
+        the scaler state back to the host: call it outside the step.
+
+        A ``guard.StepGuard`` state (recognized by its ``health`` key) may
+        stand in for a scaler state: its scaler serializes as
+        ``loss_scaler{i}`` and its health counters ride along as
+        ``health{i}``. The rollback snapshot is not serialized (it is
+        model-sized; ``StepGuard.load_state_dict`` re-seeds it)."""
         states = (list(scaler_state) if isinstance(scaler_state, (list, tuple))
                   else [scaler_state])
         if len(states) != len(self.scalers):
             raise ValueError(
                 f"expected {len(self.scalers)} scaler states, got {len(states)}"
             )
-        return {f"loss_scaler{i}": s.state_dict(st)
-                for i, (s, st) in enumerate(zip(self.scalers, states))}
+        out: Dict[str, Any] = {}
+        for i, (s, st) in enumerate(zip(self.scalers, states)):
+            if isinstance(st, dict) and "health" in st:
+                out[f"loss_scaler{i}"] = s.state_dict(st["scaler"])
+                out[f"health{i}"] = {k: int(v) for k, v in st["health"].items()}
+            else:
+                out[f"loss_scaler{i}"] = s.state_dict(st)
+        return out
 
     def load_state_dict(self, state_dict, device=None):
         """Inverse of :meth:`state_dict`: the single scaler state, or the
-        list of per-loss states."""
-        out = [s.load_state_dict(state_dict[f"loss_scaler{i}"], device=device)
-               for i, s in enumerate(self.scalers)]
+        list of per-loss states. An entry saved with a ``health{i}`` sibling
+        comes back guard-shaped (``{"scaler": ..., "health": ...}``, no
+        snapshot)."""
+        out = []
+        for i, s in enumerate(self.scalers):
+            sstate = s.load_state_dict(state_dict[f"loss_scaler{i}"], device=device)
+            if f"health{i}" in state_dict:
+                dev = sstate["scale"].device
+                out.append({"scaler": sstate, "health": {
+                    k: torch.tensor(int(v), dtype=torch.int32, device=dev)
+                    for k, v in state_dict[f"health{i}"].items()}})
+            else:
+                out.append(sstate)
         return out[0] if len(out) == 1 else out
 
 
@@ -264,8 +287,53 @@ def make_apply(policy: Properties, apply_fn: Callable, *,
     return amp_apply
 
 
+def differentiate(objective: Callable, params) -> Tuple[Any, Any]:
+    """Autograd of ``objective(p) -> (value, out)`` with respect to
+    ``params``; returns ``(out, grads)``. At a :class:`PackedParams` the
+    grads are born flat: the objective reads leaf views whose ``.grad`` are
+    views of one zeroed gradient arena per dtype
+    (:meth:`PackedParams.grad_leaves`), and ``grads`` is a
+    :class:`PackedParams` of those arenas. Any other tree gets a tree of
+    grads (zeros for a leaf the objective does not use)."""
+    if isinstance(params, PackedParams):
+        grads = params.zeros_like()
+        value, out = objective(params.grad_leaves(grads))
+        value.backward()
+        return out, grads
+    leaves, treedef = tree_flatten(params)
+    leaves = [x.detach().requires_grad_(True) for x in leaves]
+    value, out = objective(tree_unflatten(treedef, leaves))
+    got = torch.autograd.grad(value, leaves, allow_unused=True)
+    return out, tree_unflatten(treedef, [
+        torch.zeros_like(x) if g is None else g for x, g in zip(leaves, got)])
+
+
+def detach_tree(tree):
+    return tree_map(lambda t: t.detach() if isinstance(t, torch.Tensor) else t,
+                    tree)
+
+
+def scaled_grads(loss_fn: Callable, scaler: LossScaler, params, scaler_state,
+                 args, kw, *, has_aux: bool = False,
+                 reduce_grads: Optional[Callable] = None):
+    """The scaled backward shared by :func:`scaled_value_and_grad` and
+    ``guard.StepGuard.value_and_grad``: ``(loss, aux, grads)`` with the
+    grads of ``scale * loss`` still scaled, ``reduce_grads`` applied."""
+
+    def objective(p):
+        res = loss_fn(p, *args, **kw)
+        loss, aux = res if has_aux else (res, None)
+        return scaler.scale_loss(loss, scaler_state), (loss, aux)
+
+    (loss, aux), grads = differentiate(objective, params)
+    if reduce_grads is not None:
+        grads = reduce_grads(grads)
+    return loss.detach(), detach_tree(aux), grads
+
+
 def scaled_value_and_grad(loss_fn: Callable, scaler: LossScaler, *,
-                          has_aux: bool = False, impl=None):
+                          has_aux: bool = False, impl=None,
+                          reduce_grads: Optional[Callable] = None):
     """The functional ``amp.scale_loss``. Returns ``f(params, scaler_state,
     *args) -> (loss, grads, found_inf, new_scaler_state)``: autograd of
     ``scale * loss``, grads unscaled to fp32 by K5 with its overflow flag,
@@ -274,36 +342,25 @@ def scaled_value_and_grad(loss_fn: Callable, scaler: LossScaler, *,
     returns ``(loss, aux)`` and ``f`` returns ``(loss, aux, grads,
     found_inf, new_scaler_state)``, the aux tensors detached.
 
-    At a :class:`PackedParams` argument the grads are born flat: the model
-    reads leaf views whose ``.grad`` are views of one zeroed gradient arena
-    per dtype (:meth:`PackedParams.grad_leaves`), and the returned grads are
-    a :class:`PackedParams` of fp32 arenas. Any other params tree gets a
-    tree of fp32 grads. Nothing here reads a device value back to the host.
+    ``reduce_grads`` (``DistributedDataParallel.reduce``) runs on the
+    still-scaled grads before K5's unscale, as in the JAX package, so the
+    overflow flag sees the reduced grads and every rank takes the same skip
+    decision.
+
+    At a :class:`PackedParams` argument the grads are born flat (see
+    :func:`differentiate`) and come back a :class:`PackedParams` of fp32
+    arenas. Any other params tree gets a tree of fp32 grads. Nothing here
+    reads a device value back to the host.
     """
 
-    def split(res):
-        return res if has_aux else (res, None)
-
     def wrapped(params, scaler_state, *args, **kw):
-        if isinstance(params, PackedParams):
-            grads = params.zeros_like()
-            loss, aux = split(loss_fn(params.grad_leaves(grads), *args, **kw))
-            scaler.scale_loss(loss, scaler_state).backward()
-        else:
-            leaves, treedef = tree_flatten(params)
-            leaves = [x.detach().requires_grad_(True) for x in leaves]
-            loss, aux = split(loss_fn(tree_unflatten(treedef, leaves), *args, **kw))
-            got = torch.autograd.grad(scaler.scale_loss(loss, scaler_state),
-                                      leaves, allow_unused=True)
-            grads = tree_unflatten(treedef, [
-                torch.zeros_like(x) if g is None else g
-                for x, g in zip(leaves, got)])
+        loss, aux, grads = scaled_grads(loss_fn, scaler, params, scaler_state,
+                                        args, kw, has_aux=has_aux,
+                                        reduce_grads=reduce_grads)
         grads, found_inf = scaler.unscale(grads, scaler_state, impl=impl)
         new_state = scaler.update(scaler_state, found_inf)
         if has_aux:
-            aux = tree_map(lambda t: t.detach() if isinstance(t, torch.Tensor)
-                           else t, aux)
-            return loss.detach(), aux, grads, found_inf, new_state
-        return loss.detach(), grads, found_inf, new_state
+            return loss, aux, grads, found_inf, new_state
+        return loss, grads, found_inf, new_state
 
     return wrapped

@@ -1,17 +1,29 @@
-"""ImageNet ResNet trainer — counterpart of ``examples/imagenet/main_amp.py``
-for one device.
+"""ImageNet ResNet trainer — counterpart of ``examples/imagenet/main_amp.py``.
 
-The same recipe as the JAX trainer (the reference's amp + FusedSGD ImageNet
-example): the ResNet forward with BN running stats threaded as uncast model
-state (``amp.initialize(..., has_state=True)``), the images normalized on
-the device inside the step, the scaled loss's gradients unscaled with the
-overflow flag (K5), and FusedSGD (K10), which skips the step on overflow.
-At O2/O5 the params live in per-dtype arenas (``arena_native``): one K10
-pass per arena updates the fp32 masters and the momentum in place and
-writes the bf16 model arena the forward reads. At O0 the list path packs the
-fp32 parameter, gradient and momentum trees into arenas and unpacks them
-every step, as the JAX trainer's ``FusedSGD.step`` does. The step reads
-nothing back to the host: its metrics stay on the device.
+The same recipe as the JAX trainer (the reference's amp + FusedSGD + DDP +
+SyncBN ImageNet example): the ResNet forward with BN running stats threaded
+as uncast model state (``amp.initialize(..., has_state=True)``), the images
+normalized on the device inside the step, the scaled loss's gradients
+unscaled with the overflow flag (K5), and FusedSGD (K10), which skips the
+step on overflow. At O2/O5 the params live in per-dtype arenas
+(``arena_native``): one K10 pass per arena updates the fp32 masters and the
+momentum in place and writes the bf16 model arena the forward reads. At O0
+the list path packs the fp32 parameter, gradient and momentum trees into
+arenas and unpacks them every step, as the JAX trainer's ``FusedSGD.step``
+does. The step reads nothing back to the host: its metrics stay on the
+device.
+
+Data parallel (``distributed``): one process per rank, in a
+``torch.distributed`` world the caller initializes (NCCL on the card; gloo
+on the CPU). Where the JAX trainer runs the step inside ``shard_map`` over a
+``("data",)`` mesh, here every rank runs it on its slice of the global
+batch (:meth:`Trainer.shard_batch` cuts it as the mesh shards it) with
+``DistributedDataParallel``'s reduction of the still-scaled gradients
+before K5 (``bucket_bytes``, ``compress``), or its backward-time hooks
+(``overlap_backward``); the metrics are averaged across ranks, and the BN
+state too when BN is not synchronized (``sync_bn`` makes every BN a SyncBN
+over the data axis). A distributed trainer without an initialized process
+group raises.
 
 ``fused_optimizer`` swaps in another fused optimizer (FusedAdagrad on K17,
 FusedNovoGrad on K18, FusedLARS on K10 after its trust ratios) and
@@ -24,12 +36,12 @@ runs fp32 convolutions in TF32 while ``torch.backends.cudnn.allow_tf32`` is
 True (PyTorch's default). This module leaves that global as the caller set
 it.
 
-Not ported yet, and raising ``NotImplementedError``: ``distributed``,
-``sync_bn``, ``bucket_bytes``, ``compress`` and ``overlap_backward`` (the
-DDP slice), the flight recorder and the profile directory (the monitor
-port).
+Not ported yet, and raising ``NotImplementedError``: the flight recorder and
+the profile directory (the monitor port).
 
-Run::
+Run (one process, or one a rank under ``torchrun --nproc_per_node=N``,
+whose ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` ``main`` reads; without
+them it trains a world of one)::
 
     python -m beforeholiday_tpu_torch.examples.imagenet.main_amp -a resnet50 \\
         -b 128 --opt-level O5 --iters 50
@@ -39,17 +51,22 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from beforeholiday_tpu_torch import amp
 from beforeholiday_tpu_torch.models import resnet
+from beforeholiday_tpu_torch.monitor import comms
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device
+from beforeholiday_tpu_torch.ops.arena import tree_flatten, tree_unflatten
 from beforeholiday_tpu_torch.optimizers import FusedSGD, supports_flat_step
-from beforeholiday_tpu_torch.parallel import LARC
+from beforeholiday_tpu_torch.parallel import DistributedDataParallel, LARC
+from beforeholiday_tpu_torch.parallel.parallel_state import DATA_AXIS, get_group
 
 # ImageNet channel stats, in 0-255 space like the reference prefetcher
 _MEAN = np.array([0.485, 0.456, 0.406], np.float32) * 255.0
@@ -90,6 +107,8 @@ class Trainer:
     distributed: bool
     global_batch: int
     device: torch.device
+    rank: int = 0
+    world: int = 1
 
     def step(self, images, labels, lr):
         """One training step on device tensors; returns the metrics dict
@@ -102,10 +121,18 @@ class Trainer:
     def evaluate(self, images, labels):
         return self.eval_step(self.params, self.bn_state, images, labels)
 
-    def shard_batch(self, images: np.ndarray, labels: np.ndarray):
-        """A host batch (NHWC uint8 images, int labels) on the device."""
-        return (torch.from_numpy(np.ascontiguousarray(images)).to(self.device),
-                torch.from_numpy(np.asarray(labels)).long().to(self.device))
+    def shard_batch(self, images, labels):
+        """This rank's slice of a global batch (NHWC uint8 images, int
+        labels; numpy arrays or tensors) on the device: rows ``[rank * b,
+        (rank + 1) * b)``, ``b = global_batch / world``, as the JAX
+        trainer's mesh shards the batch over ``data``."""
+        b = len(labels) // self.world
+        rows = slice(self.rank * b, (self.rank + 1) * b)
+        images, labels = images[rows], labels[rows]
+        if isinstance(images, np.ndarray):
+            images = torch.from_numpy(np.ascontiguousarray(images))
+            labels = torch.from_numpy(np.asarray(labels))
+        return images.to(self.device), labels.long().to(self.device)
 
 
 def build_trainer(
@@ -145,16 +172,29 @@ def build_trainer(
     ``resnet.init`` draws them from ``seed``. ``device``: ``cuda`` unless
     the caller asks for another one. ``impl="torch"`` puts the unscale and
     the optimizer on their plain versions (the card-side yardstick); None
-    runs the kernels on CUDA tensors."""
-    if distributed:
-        _not_ported("distributed training", "DDP (the DDP slice)")
-    if sync_bn:
-        _not_ported("sync_bn", "the cross-device SyncBN merge (the DDP slice)")
-    if bucket_bytes is not None or compress or overlap_backward:
-        _not_ported("bucket_bytes, compress and overlap_backward",
-                    "DDP's gradient reduction (the DDP slice)")
+    runs the kernels on CUDA tensors.
+
+    ``distributed`` (default: a ``torch.distributed`` world of more than
+    one rank is initialized) trains data-parallel over the data axis's
+    group, each rank on its ``global_batch / world`` slice; ``sync_bn``,
+    ``bucket_bytes``, ``compress`` and ``overlap_backward`` are DDP's and
+    SyncBN's (the module docstring). Every rank must draw the same initial
+    weights (the same ``seed``, or the same ``params``)."""
     if (params is None) != (bn_state is None):
         raise ValueError("pass both params and bn_state, or neither")
+    if distributed is None:
+        distributed = dist.is_initialized() and dist.get_world_size() > 1
+    rank, world = 0, 1
+    if distributed:
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "distributed=True needs an initialized torch.distributed "
+                "process group (dist.init_process_group)")
+        group = get_group(DATA_AXIS)
+        rank, world = dist.get_rank(group), dist.get_world_size(group)
+        if global_batch % world != 0:
+            raise ValueError(f"global batch {global_batch} not divisible by "
+                             f"{world} ranks")
     device = resolve_device(device)
     if cfg is None:
         cfg = resnet.CONFIGS[arch](num_classes=num_classes)
@@ -169,8 +209,11 @@ def build_trainer(
     if use_larc:
         opt = LARC(opt)
 
+    bn_axis = DATA_AXIS if (sync_bn and distributed) else None
+
     def apply_train(p, bn, images):
-        return resnet.forward(p, bn, images, cfg, training=True)
+        return resnet.forward(p, bn, images, cfg, training=True,
+                              axis_name=bn_axis)
 
     def apply_eval(p, bn, images):
         return resnet.forward(p, bn, images, cfg, training=False)
@@ -188,16 +231,35 @@ def build_trainer(
     optimizer, scaler = amp_model.optimizer, amp_model.scaler
     mean = torch.from_numpy(_MEAN).to(device)
     std = torch.from_numpy(_STD).to(device)
+    ddp = (DistributedDataParallel(bucket_bytes=bucket_bytes, compress=compress,
+                                   overlap_backward=overlap_backward)
+           if distributed else None)
 
     def normalize(images):
         # the reference prefetcher's sub_(mean).div_(std), inside the step
         return (images.float() - mean) / std
 
     def loss_fn(p, x, labels, bn):
+        if ddp is not None and ddp.overlap_backward:
+            # the backward-time reduction: each bucket's all-reduce is
+            # issued inside the backward as its gradients land
+            p = ddp.hook(p)
         logits, new_bn = amp_model.apply(p, bn, x)
         return softmax_cross_entropy(logits, labels), (new_bn, logits)
 
-    svag = amp.scaled_value_and_grad(loss_fn, scaler, has_aux=True, impl=impl)
+    svag = amp.scaled_value_and_grad(
+        loss_fn, scaler, has_aux=True, impl=impl,
+        reduce_grads=(ddp.reduce if ddp is not None and not ddp.overlap_backward
+                      else None))
+
+    def pmean_metrics(metrics):
+        # the metrics averaged across ranks, in one collective (the JAX
+        # trainer's pmean); found_inf is the same on every rank already
+        keys = [k for k in metrics if k != "found_inf"]
+        stacked = torch.stack([metrics[k].float() for k in keys])
+        avg = comms.psum(stacked, DATA_AXIS, site="trainer.metrics",
+                         inplace=True) / world
+        return {**metrics, **dict(zip(keys, avg.unbind(0)))}
 
     def train_step(params, opt_state, scaler_state, bn_state, images, labels, lr):
         # BN's running stats advance even on a step the optimizer skips
@@ -208,20 +270,30 @@ def build_trainer(
         metrics = {"loss": loss, "found_inf": found_inf,
                    "scale": new_scaler_state["scale"],
                    **topk_accuracy(logits, labels)}
+        if ddp is not None:
+            metrics = pmean_metrics(metrics)
+            if bn_axis is None:
+                # unsynchronized BN keeps per-rank statistics; the trainer
+                # keeps one copy, their average across ranks, as JAX does
+                leaves, treedef = tree_flatten(new_bn)
+                summed = comms.psum(leaves, DATA_AXIS, site="trainer.bn_state")
+                new_bn = tree_unflatten(treedef, [t / world for t in summed])
         return new_params, new_opt_state, new_scaler_state, new_bn, metrics
 
     @torch.no_grad()
     def eval_step(params, bn_state, images, labels):
         logits, _ = eval_apply(params, bn_state, normalize(images))
-        return {"loss": softmax_cross_entropy(logits, labels),
-                **topk_accuracy(logits, labels)}
+        m = {"loss": softmax_cross_entropy(logits, labels),
+             **topk_accuracy(logits, labels)}
+        return pmean_metrics(m) if ddp is not None else m
 
     return Trainer(
         cfg=cfg, amp_model=amp_model, train_step=train_step,
         eval_step=eval_step, params=amp_model.params,
         opt_state=optimizer.init(amp_model.params),
         scaler_state=scaler.init(device=device), bn_state=bn_state,
-        distributed=False, global_batch=global_batch, device=device,
+        distributed=bool(distributed), global_batch=global_batch, device=device,
+        rank=rank, world=world,
     )
 
 
@@ -328,23 +400,42 @@ def main(argv=None):
     print(f"opt_level = {args.opt_level}")
     print(f"keep_batchnorm_fp32 = {args.keep_batchnorm_fp32}")
     print(f"loss_scale = {args.loss_scale}")
+    seed = 0 if args.deterministic else int(time.time()) % (2**31)
+    launched = "WORLD_SIZE" in os.environ  # torchrun sets RANK, WORLD_SIZE, ...
+    if launched:
+        device = torch.device(args.device or "cuda")
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                rank=int(os.environ["RANK"]),
+                                world_size=int(os.environ["WORLD_SIZE"]))
+        # every rank starts from rank 0's weights
+        box = [seed]
+        dist.broadcast_object_list(box, src=0)
+        seed = box[0]
+        args.device = device
     trainer = build_trainer(
         args.arch, opt_level=args.opt_level, lr=args.lr, momentum=args.momentum,
         weight_decay=args.weight_decay, loss_scale=args.loss_scale,
         keep_batchnorm_fp32=args.keep_batchnorm_fp32, sync_bn=args.sync_bn,
         use_larc=args.larc, global_batch=args.batch_size,
-        num_classes=args.num_classes,
-        seed=0 if args.deterministic else int(time.time()) % (2**31),
+        num_classes=args.num_classes, seed=seed,
         bucket_bytes=args.bucket_bytes, compress=args.compress,
         overlap_backward=args.overlap_backward, device=args.device,
     )
-    print(f"device: {trainer.device}  distributed: {trainer.distributed}")
+    print(f"device: {trainer.device}  distributed: {trainer.distributed}  "
+          f"rank {trainer.rank} of {trainer.world}")
     best = 0.0
-    for epoch in range(args.epochs):
-        best = max(best, train(
-            trainer, iters=args.iters, image_size=args.image_size,
-            base_lr=args.lr, print_freq=args.print_freq, epoch=epoch,
-        ))
+    try:
+        for epoch in range(args.epochs):
+            best = max(best, train(
+                trainer, iters=args.iters, image_size=args.image_size,
+                base_lr=args.lr, print_freq=args.print_freq, epoch=epoch,
+            ))
+    finally:
+        if launched:
+            dist.destroy_process_group()
     print(f"peak speed: {best:.1f} img/s")
     return best
 

@@ -231,8 +231,8 @@ def forward(
     axis_name: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Any]:
     """x: (N, H, W, C) NHWC. Returns ``(logits in x's dtype, new_bn_state)``.
-    ``axis_name`` (SyncBN across devices) raises ``NotImplementedError``:
-    it belongs to the DDP slice."""
+    ``axis_name`` (an axis name or a ``ProcessGroup``) makes every
+    BatchNorm a SyncBN across that group (``parallel.sync_batch_norm``)."""
     y = x.permute(0, 3, 1, 2)  # logical NCHW, channels-last memory
     new_s: Dict[str, Any] = {}
     y = _conv(y, params["conv1"], cfg.stem_stride)

@@ -285,29 +285,43 @@ class PackedParams:
         The arenas must be zero (or hold what the backward should add to)."""
         if grads.layout != self.layout:
             raise ValueError("params/grads PackedParams layouts differ")
-        leaves = []
-        for stacked, p, g in zip(self.layout.stacked, self._leaves(self.arenas),
-                                 self._leaves(grads.arenas)):
+        leaves, pieces_at = [], []
+        where = {}  # leaf index -> (arena, offset)
+        for b, (idx, spec) in enumerate(zip(self.layout.indices, self.layout.specs)):
+            for i, off in zip(idx, spec.offsets):
+                where[i] = (b, off)
+        for i, (stacked, p, g) in enumerate(zip(
+                self.layout.stacked, self._leaves(self.arenas),
+                self._leaves(grads.arenas))):
             pieces = (list(zip(p.unbind(0), g.unbind(0))) if stacked
                       else [(p, g)])
+            b, off = where[i]
             out = []
             for pv, gv in pieces:
                 leaf = pv.detach().requires_grad_(True)
                 leaf.grad = gv
                 out.append(leaf)
+                pieces_at.append((b, off, gv.numel(), leaf))
+                off += gv.numel()
             leaves.append(tuple(out) if stacked else out[0])
-        return _GradPacked(self, tree_unflatten(self.layout.treedef, leaves))
+        return _GradPacked(self, tree_unflatten(self.layout.treedef, leaves),
+                           grads, tuple(pieces_at))
 
 
 class _GradPacked(PackedParams):
     """What :meth:`PackedParams.grad_leaves` returns: the same arenas, with
-    an :meth:`unpack` that hands out the gradient-accumulating leaves."""
+    an :meth:`unpack` that hands out the gradient-accumulating leaves.
+    ``grads`` is the gradient PackedParams the leaves accumulate into, and
+    ``pieces`` lists each leaf as ``(arena index, offset, numel, leaf)``
+    (the backward-time reduction hooks use them)."""
 
-    __slots__ = ("_tree",)
+    __slots__ = ("_tree", "grads", "pieces")
 
-    def __init__(self, base: PackedParams, tree):
+    def __init__(self, base: PackedParams, tree, grads, pieces):
         super().__init__(base.arenas, base.layout)
         self._tree = tree
+        self.grads = grads
+        self.pieces = pieces
 
     def unpack(self) -> Any:
         return self._tree

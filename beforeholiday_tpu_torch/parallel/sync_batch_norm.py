@@ -1,12 +1,12 @@
-"""BatchNorm — counterpart of ``beforeholiday_tpu/parallel/sync_batch_norm.py``
-for one device.
+"""(Sync)BatchNorm — counterpart of
+``beforeholiday_tpu/parallel/sync_batch_norm.py``.
 
 The JAX function is plain jnp (no Pallas kernel), and so is this one: the
 same statistics in fp32 whatever the activations' dtype, the same two
 ``stats`` modes, the unbiased running variance, ``fuse_relu``, ``residual``
 and the diagnostics flag. ``F.batch_norm`` is not used: it takes its
-moments another way (Welford), and the default mode here takes them around
-the running mean in one pass, as the JAX package does.
+moments another way (Welford), and the default mode on one device takes
+them around the running mean in one pass, as the JAX package does.
 
 Training mode runs through :class:`_BatchNormTrain`, whose backward is the
 BatchNorm gradient derived by hand (``dx = scale * inv * (g - mean(g) -
@@ -17,8 +17,14 @@ input and the output in their own dtype and the per-channel vectors, and
 recomputes ``xhat`` in the backward. In exact arithmetic it is the gradient
 JAX's autodiff takes of the same forward (the shift is a constant there).
 
-The cross-device merge (``axis_name``, the reference's SyncBN) belongs to the
-DDP slice and raises ``NotImplementedError``.
+With ``axis_name`` (the reference's SyncBN) the batch statistics are merged
+across the group it names (``parallel_state.get_group``; NCCL on the card,
+gloo on the CPU) in the two-pass form: one all-reduce of the per-channel
+sums with the element count, the global mean, then one all-reduce of the
+centred squares (site ``sync_bn.stats``). The backward all-reduces the
+reference's pair (sum_dy, sum_dy_xmu) in one collective (site
+``sync_bn.backward``) for the input's gradient; the scale and bias
+gradients stay local, for DDP to reduce, as autodiff leaves them in JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from beforeholiday_tpu_torch.monitor import comms
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device
 
 # the envelope of one_pass_shifted: the batch mean may sit this many sigma
@@ -72,16 +79,29 @@ class _BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, shift, residual, c_axis, eps, fuse_relu,
-                two_pass):
+                two_pass, sync):
         reduce_axes = tuple(i for i in range(x.ndim) if i != c_axis)
         shape_bc = [1] * x.ndim
         shape_bc[c_axis] = x.shape[c_axis]
         count = math.prod(x.shape[i] for i in reduce_axes)
         xf = x.float()
+        n = count
         if two_pass:
-            # global mean first, then the centred second moment
-            mean = xf.sum(reduce_axes) / count
-            var = torch.square(xf - mean.reshape(shape_bc)).sum(reduce_axes) / count
+            # global mean first, then the centred second moment; across the
+            # group, the per-channel sums and the element count in one
+            # all-reduce, then the centred squares in another
+            sums = xf.sum(reduce_axes)
+            if sync is not None:
+                both = comms.psum(torch.cat([sums, sums.new_full((1,), count)]),
+                                  sync[0], site="sync_bn.stats",
+                                  axis_index_groups=sync[1], inplace=True)
+                sums, n = both[:-1], both[-1]
+            mean = sums / n
+            sq = torch.square(xf - mean.reshape(shape_bc)).sum(reduce_axes)
+            if sync is not None:
+                sq = comms.psum(sq, sync[0], site="sync_bn.stats",
+                                axis_index_groups=sync[1], inplace=True)
+            var = sq / n
             shift_dominated = torch.zeros((), dtype=torch.int32, device=x.device)
         else:
             # one read: both moments around the running mean (a constant)
@@ -96,16 +116,24 @@ class _BatchNormTrain(torch.autograd.Function):
         inv = torch.rsqrt(var + eps)
         out = _affine(xf, mean, inv, scale, bias, residual, fuse_relu,
                       shape_bc).to(x.dtype)
-        ctx.save_for_backward(x, scale, mean, inv, out if fuse_relu else None)
+        # the running variance is the unbiased one (torch semantics), from
+        # the global count
+        if sync is None:
+            unbiased = var * count / max(count - 1.0, 1.0)
+        else:
+            unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+        ctx.save_for_backward(x, scale, mean, inv, out if fuse_relu else None,
+                              n if sync is not None else None)
         ctx.meta = (reduce_axes, shape_bc, count, fuse_relu,
-                    None if residual is None else residual.dtype, bias.dtype)
-        ctx.mark_non_differentiable(mean, var, shift_dominated)
-        return out, mean, var, shift_dominated
+                    None if residual is None else residual.dtype, bias.dtype, sync)
+        ctx.mark_non_differentiable(mean, unbiased, shift_dominated)
+        return out, mean, unbiased, shift_dominated
 
     @staticmethod
-    def backward(ctx, dy, _dmean, _dvar, _dflag):
-        x, scale, mean, inv, out = ctx.saved_tensors
-        reduce_axes, shape_bc, count, fuse_relu, res_dtype, bias_dtype = ctx.meta
+    def backward(ctx, dy, _dmean, _dunbiased, _dflag):
+        x, scale, mean, inv, out, count_t = ctx.saved_tensors
+        (reduce_axes, shape_bc, count, fuse_relu, res_dtype, bias_dtype,
+         sync) = ctx.meta
         g = dy.float()
         if fuse_relu:
             # relu(y) > 0 exactly where y > 0 (a positive fp32 stays positive
@@ -114,12 +142,20 @@ class _BatchNormTrain(torch.autograd.Function):
         xhat = (x.float() - mean.reshape(shape_bc)) * inv.reshape(shape_bc)
         dbias = g.sum(reduce_axes)
         dscale = (g * xhat).sum(reduce_axes)
+        sum_dy, sum_dy_xmu, n = dbias, dscale, count
+        if sync is not None:
+            # the reference's (sum_dy, sum_dy_xmu) pair over the group, in
+            # one collective; the parameter gradients stay local
+            axis_name, groups = sync
+            both = comms.psum(torch.stack([dbias, dscale]), axis_name,
+                              site="sync_bn.backward", axis_index_groups=groups)
+            sum_dy, sum_dy_xmu, n = both[0], both[1], count_t
         coef = scale.float() * inv
-        dx = (g - (dbias / count).reshape(shape_bc)
-              - xhat * (dscale / count).reshape(shape_bc)) * coef.reshape(shape_bc)
+        dx = (g - (sum_dy / n).reshape(shape_bc)
+              - xhat * (sum_dy_xmu / n).reshape(shape_bc)) * coef.reshape(shape_bc)
         dres = None if res_dtype is None else g.to(res_dtype)
         return (dx.to(x.dtype), dscale.to(scale.dtype), dbias.to(bias_dtype),
-                None, dres, None, None, None, None)
+                None, dres, None, None, None, None, None)
 
 
 def sync_batch_norm(
@@ -147,31 +183,31 @@ def sync_batch_norm(
     ``y`` has ``x``'s dtype; the statistics and the running state are fp32.
     ``residual`` is added before the ReLU of ``fuse_relu``.
 
-    ``stats``: ``"one_pass_shifted"`` (what ``"auto"`` means on one device)
-    takes both moments around the running mean in one read;
-    ``"two_pass"`` takes the global mean first, then the centred second
-    moment. The JAX docstring states the accuracy envelope of the first.
-    ``diagnostics["bn_shift_dominated"]`` is a device int32, 1 when a channel
-    left that envelope (always 0 for two_pass and eval).
+    ``stats``: ``"one_pass_shifted"`` (what ``"auto"`` means without
+    ``axis_name``) takes both moments around the running mean in one read;
+    ``"two_pass"`` (what it means with one) takes the global mean first,
+    then the centred second moment. The JAX docstring states the accuracy
+    envelope of the first. ``diagnostics["bn_shift_dominated"]`` is a
+    device int32, 1 when a channel left that envelope (always 0 for
+    two_pass and eval).
 
-    ``axis_name``/``axis_index_groups`` (the cross-device SyncBN) raise
-    ``NotImplementedError``: they belong to the DDP slice."""
-    if axis_name is not None or axis_index_groups is not None:
-        raise NotImplementedError(
-            "SyncBN across devices (axis_name) belongs to the DDP slice, "
-            "which is not ported yet; one device needs no axis")
+    ``axis_name`` (an axis name or a ``ProcessGroup``) merges the training
+    statistics across that group (the module docstring);
+    ``axis_index_groups`` restricts the merge to subgroups of it."""
     if stats == "auto":
-        stats = "one_pass_shifted"
+        stats = "two_pass" if axis_name is not None else "one_pass_shifted"
     if stats not in ("two_pass", "one_pass_shifted"):
         raise ValueError(f"stats must be auto|two_pass|one_pass_shifted, got {stats!r}")
+    if stats == "one_pass_shifted" and axis_name is not None:
+        raise ValueError(
+            "one_pass_shifted is single-device only; the cross-device merge "
+            "uses the two-pass form")
     c_axis = x.ndim - 1 if channel_last else 1
     if training:
-        y, mean, var, flag = _BatchNormTrain.apply(
+        sync = None if axis_name is None else (axis_name, axis_index_groups)
+        y, mean, unbiased, flag = _BatchNormTrain.apply(
             x, params.scale, params.bias, state.running_mean, residual, c_axis,
-            eps, fuse_relu, stats == "two_pass")
-        count = math.prod(s for i, s in enumerate(x.shape) if i != c_axis)
-        # running stats take the unbiased variance (torch semantics)
-        unbiased = var * count / max(count - 1.0, 1.0)
+            eps, fuse_relu, stats == "two_pass", sync)
         new_state = BatchNormState(
             (1.0 - momentum) * state.running_mean + momentum * mean,
             (1.0 - momentum) * state.running_var + momentum * unbiased,

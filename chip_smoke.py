@@ -102,7 +102,22 @@ Phases, each printing one line (any failure exits non-zero):
     path. Each: the parity step at batch 2 with cuDNN deterministic (the
     gradients bitwise, masters and state within an ulp), the skip step, and
     the timed and profiled run with the optimizer step's own device ms;
-17. the total seconds, the ``kernels`` JSON line, the card line, and the
+17. slice 11, data parallel over ``torch.distributed`` (K5 also at
+    ResNet-50's bf16 gradient arena above): a one-rank NCCL world through a
+    FileStore in a temporary directory; ``ddp_world1_parity`` (ResNet-50
+    at batch 2, cuDNN deterministic: the distributed O5 step with
+    unsynchronized BN bitwise the one-device step, with one collective an
+    arena, 4 MiB buckets and the backward-time hooks; the compressed
+    reduction within its bound; SyncBN on K5/K10 against the plain path,
+    and at O0 against the one-device step; one step's ledger);
+    ``ddp_two_rank_card`` (two spawned processes on the one card, gloo on
+    CUDA tensors, SyncBN, 4 MiB buckets, against one rank at the whole
+    batch; O5, O5 with the hooks, O0); ``ddp_guard`` (the guarded world-1
+    step: skip reasons, bitwise skips, rollback, the health state dict);
+    and the batch-128 SyncBN step timed and profiled after the gradients,
+    with the backward-time hooks and guarded (collectives a step from the
+    ledger, NCCL's device ms among the profile's columns);
+18. the total seconds, the ``kernels`` JSON line, the card line, and the
     final ``ok`` line.
 
 ``F.layer_norm``, ``F.scaled_dot_product_attention``, their backwards,
@@ -124,8 +139,10 @@ attention dropout does for K2's and K4's dropout rows.
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -233,6 +250,9 @@ STEP_LAUNCHES = {
     "resnet_o5_novograd": {**_NO_LAUNCH, "unscale": 2, "novograd": 1},
     "resnet_o5_lars": {**_NO_LAUNCH, "unscale": 2, "sgd": 1},
     "resnet_o5_larc": {**_NO_LAUNCH, "unscale": 2, "sgd": 1},
+    # slice 11: the data-parallel step reduces the still-scaled gradient
+    # arenas, then unscales and updates each as the one-device step does
+    "ddp_resnet": {**_NO_LAUNCH, "unscale": 2, "sgd": 2},
 }
 PEAK_BF16 = 989e12
 # the ImageNet ResNet-50 step (bench.py make_resnet_rung: examples/imagenet
@@ -323,12 +343,13 @@ def check_close(name, got, ref, tol):
 
 
 def check_dropped_pv(name, o, ref, ref_abs):
-    """K2's bf16 output with dropout: ``|o - ref| <= 2^-7 |ref| + 2^-8
-    ref_abs`` everywhere, ``ref_abs`` the plain version's sum of dropped p
-    times |v| in fp32. The kernel rounds each kept p / (1 - rate) to bf16
-    for its product with v (relative 2^-9), so the sum may part from the
-    fp32 one by 2^-9 ref_abs where its terms cancel; the bound is twice that
-    plus one bf16 rounding of the output, and follows each element."""
+    """K2's bf16 output, at every dropout rate: ``|o - ref| <= 2^-7 |ref| +
+    2^-8 ref_abs`` everywhere, ``ref_abs`` the plain version's sum of
+    (dropped) p times |v| in fp32. The kernel rounds each kept p / (1 -
+    rate) to bf16 for its product with v (relative 2^-9), so the sum may
+    part from the fp32 one by 2^-9 ref_abs where its terms cancel; the
+    bound is twice that plus one bf16 rounding of the output, and follows
+    each element."""
     bound = 2 ** -7 * ref.float().abs() + 2 ** -8 * ref_abs
     err = (o.float() - ref.float()).abs()
     bad = err > bound
@@ -491,7 +512,9 @@ def k2_phase(attn):
                f"{str(dt)[6:]}{f' dropout {rate}' if rate else ''}")
         if BH != 256 and not (torch.all(o[0] == 0) and torch.all(lse[0] == -1e30)):
             raise AssertionError(f"K2 {tag}: a lens-0 row is not exactly 0")
-        if dt == torch.bfloat16 and rate:
+        if dt == torch.bfloat16:
+            # K2 rounds each p to bf16 for its product with v at every
+            # rate, so bf16 is held to the per-element bound everywhere
             ref_abs = attn.flash_fwd_torch(q.float(), k.float(), v.float().abs(),
                                            *args[3:])[0]
             err = check_dropped_pv(f"K2 {tag}", o, ro, ref_abs)
@@ -896,14 +919,16 @@ def o5_specs(params):
     return dict(zip(layout.dtypes, layout.specs))
 
 
-def k5_phase(mt, n_bf16, n_fp32):
-    """Unscale with the non-finite flag: the flagship's two gradient arenas,
-    inf and NaN placed in them, and an output that overflows."""
+def k5_phase(mt, n_bf16, n_fp32, n_resnet):
+    """Unscale with the non-finite flag: the flagship's two gradient arenas
+    and ResNet-50's bf16 one (the data-parallel step's), inf and NaN placed
+    in them, and an output that overflows."""
     g = gen(40)
     rows_out = {}
     checks = [  # n, dtype, poison
         (n_bf16, torch.bfloat16, None),
         (n_fp32, torch.float32, None),
+        (n_resnet, torch.bfloat16, None),
         (n_bf16, torch.bfloat16, float("inf")),
         (n_fp32, torch.float32, float("nan")),
         (100003, torch.float32, 3e38),  # finite input, output overflows
@@ -923,7 +948,7 @@ def k5_phase(mt, n_bf16, n_fp32):
             raise AssertionError(f"K5 {tag}: values differ from the plain version")
         fields = dict(found_inf=bool(flag), max_abs_err=max_err(y, ry)
                       if poison is None else 0.0)
-        if n == n_bf16 and poison is None:
+        if n in (n_bf16, n_resnet) and dt == torch.bfloat16 and poison is None:
             bms, by = bound_ms(n * (x.element_size() + 4), n, torch.float32)
             found = torch.zeros(1, device="cuda")
             one = torch.ones(1, device="cuda")
@@ -937,7 +962,7 @@ def k5_phase(mt, n_bf16, n_fp32):
                     lambda: torch._amp_foreach_non_finite_check_and_unscale_(
                         [x32], found, one)),
                 bound_ms=bms, bound_by=by)
-            rows_out["train"] = (tag, fields)
+            rows_out["train" if n == n_bf16 else "ddp_resnet"] = (tag, fields)
         line("K5", shape=tag, **fields)
     return rows_out
 
@@ -2300,6 +2325,7 @@ def training_phase(label, profile_label, step, batch, counters, expect,
          model_flops_per_step=flops, mfu=flops / (med / 1e3) / peak,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          first_loss=first, last_loss=last,
+         losses=json.dumps([round(x.item(), 4) for x in losses]),
          skipped_steps=int(torch.stack(flags).sum()),
          host_syncs=sum(syncs.values()), sync_sites=json.dumps(syncs),
          launches_per_step=json.dumps(
@@ -2594,7 +2620,8 @@ def resnet_flops_per_image(resnet, cfg, weights):
 # casts and the conv weights' permutes run copy kernels; BatchNorm, ReLU,
 # the residual adds and the loss run torch's elementwise and reduction
 # kernels
-RESNET_GROUPS = (("K10 sgd", ("_sgd",)),
+RESNET_GROUPS = (("NCCL collectives", ("nccl",)),
+                 ("K10 sgd", ("_sgd",)),
                  ("K5 unscale", ("_scale_flag",)),
                  ("K16 axpby", ("_axpby_flag",)),
                  ("K17 adagrad", ("_adagrad",)),
@@ -2802,6 +2829,442 @@ def resnet_path_skip_phase(label, make, micro, cfg):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------- slice 11: data-parallel ResNet-50 O5
+
+# the reference's DDP defaults: SyncBN over the data axis, and gradient
+# buckets of parallel.bucketing.DEFAULT_BUCKET_BYTES (4 MiB)
+DDP_BUCKET_BYTES = 4 << 20
+DDP_KW = dict(distributed=True, sync_bn=True, bucket_bytes=DDP_BUCKET_BYTES)
+# the two-rank check: two processes on the one card, gloo on CUDA tensors,
+# TWO_RANK_BATCH images each, held against one rank at twice that
+TWO_RANK_BATCH = 2
+TWO_RANK_TIMEOUT = 600
+# (run, opt level, extra trainer options); O5 is the slice's path, O0 holds
+# the ranks to fp32 rounding (see ddp_world1_parity_phase)
+TWO_RANK_RUNS = (("o5_bucketed", "O5", {}),
+                 ("o5_overlap", "O5", dict(overlap_backward=True)),
+                 ("o0_bucketed", "O0", {}))
+# PERF.md's full-width ResNet-50 row: loss relative error, gradients'
+# relative L2; masters, momentum and BN state as ratios to their bounds
+ROW_BOUNDS = dict(loss_rel_err=1e-5, grad_rel_l2=0.05, masters_err_over_tol=1.0,
+                  moms_err_over_tol=1.0, bn_err_over_tol=1.0)
+# fp32 (O0): the one-pass moments of the one-device step and SyncBN's
+# two-pass ones part by fp32 rounding that 53 layers accumulate, a few times
+# the row's BN-state bound (PERF.md's tolerance table has the reading): the
+# BN state is held at rtol 1e-4, atol 1e-5, 10 times the row's
+O0_BOUNDS = dict(ROW_BOUNDS, bn_err_over_tol=10.0)
+# bf16 (O5): the same rounding moves bf16 activations across their rounding
+# boundaries layer after layer, so two correct computations of one step
+# part far beyond the row (PERF.md). An O5 run is held to the row or to
+# SPREAD_FACTOR times the spread measured in the same run between the
+# one-device step and the world-1 SyncBN step, whichever is larger
+SPREAD_FACTOR = 4.0
+
+
+def init_nccl(store_dir):
+    """A one-rank NCCL world through a FileStore in ``store_dir`` (no TCP
+    port). A failed init raises, and so fails the run."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{store_dir}/nccl_store",
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    return dist.get_backend()
+
+
+def one_step(main_amp, cfg, weights, images, labels, level="O5", impl=None, **kw):
+    """One ImageNet trainer step (``build_trainer(**kw)`` at the batch's
+    size, this rank's slice of it): the loss, copies of the gradients the
+    optimizer was given (arenas at O5, leaves at O0), the model, the fp32
+    masters (at O0 the params themselves), the momentum and the BN state
+    after it."""
+    from beforeholiday_tpu_torch.ops.arena import tree_flatten
+
+    tr = resnet_trainer(main_amp, cfg, weights, level, len(labels), impl=impl, **kw)
+    grads = []
+    wrap_optimizer(tr, grads)
+    met = tr.step(*tr.shard_batch(images, labels), RESNET_LR)
+    if level == "O5":
+        model, masters, moms, steps = resnet_state(tr)
+    else:
+        model = [t.clone() for t in tree_flatten(tr.params)[0]]
+        masters = model
+        moms = [t.clone() for t in tree_flatten(tr.opt_state["momentum_buffer"])[0]]
+        steps = [int(tr.opt_state["step"])]
+    out = dict(loss=met["loss"].item(), found_inf=bool(met["found_inf"]),
+               grads=grads[0], model=model, masters=masters, moms=moms,
+               bn=[t.clone() for t in tree_flatten(tr.bn_state)[0]], steps=steps)
+    del tr
+    torch.cuda.empty_cache()
+    if out["found_inf"] or set(steps) != {1}:
+        raise AssertionError(f"one_step {level} {kw}: found_inf {out['found_inf']}, "
+                             f"steps {steps}")
+    return out
+
+
+def host_copy(res):
+    """A ``one_step`` result with its tensors on the host."""
+    return {k: ([t.cpu() if isinstance(t, torch.Tensor) else t for t in v]
+                if isinstance(v, list) else v) for k, v in res.items()}
+
+
+def resnet_row_errors(got, ref):
+    """``got`` against ``ref`` in PERF.md's full-width ResNet-50 row's
+    terms (ROW_BOUNDS): loss relative error, the gradients' worst relative
+    L2, the masters' and momentum's worst error over what the gradients'
+    difference moves (one SGD step moves a master by lr g and seeds the
+    momentum with g + decay p; plus an ulp of the value), the BN state's
+    worst error over rtol 1e-5, atol 1e-6."""
+    out = dict(loss_rel_err=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+               grad_rel_l2=max(float((a - b).norm() / b.norm())
+                               for a, b in zip(got["grads"], ref["grads"])))
+    for name, coef in (("masters", RESNET_LR), ("moms", 1.0)):
+        worst = 0.0
+        for a, b, ga, gb in zip(got[name], ref[name], got["grads"], ref["grads"]):
+            tol = coef * max_err(ga, gb) + 2 ** -22 * float(b.abs().max())
+            worst = max(worst, max_err(a, b) / tol)
+        out[f"{name}_err_over_tol"] = worst
+    out["bn_err_over_tol"] = max(
+        float(((a - b).abs() / (1e-6 + 1e-5 * b.abs())).max())
+        for a, b in zip(got["bn"], ref["bn"]))
+    return out
+
+
+def out_of_bounds(errs, bounds):
+    return {k: v for k, v in errs.items() if not v <= bounds[k]}
+
+
+def bitwise_equal(a, b):
+    return (a["loss"] == b["loss"] and all(
+        all(torch.equal(x, y) for x, y in zip(a[k], b[k]))
+        for k in ("grads", "model", "masters", "moms", "bn")))
+
+
+def expected_step_ledger(weights, metrics=True):
+    """The collectives of one world-1 step with SyncBN, by site: the
+    gradient arenas (padded) at ``ddp.*``; per BatchNorm of C channels, the
+    sums with the count (4 C + 4 bytes) and the centred squares (4 C) in the
+    forward, (sum_dy, sum_dy_xmu) (8 C) in the backward; the trainer's
+    metrics (16 bytes), unless ``metrics`` is off."""
+    from beforeholiday_tpu_torch.ops.arena import tree_flatten
+
+    means = tree_flatten(weights[1])[0][0::2]  # running_mean, running_var pairs
+    chans = sum(t.numel() for t in means)
+    specs = o5_specs(weights[0])
+    want = {"arena_bytes": sum(s.padded_total * torch.finfo(dt).bits // 8
+                               for dt, s in specs.items()),
+            "sync_bn.stats": (2 * len(means), 8 * chans + 4 * len(means)),
+            "sync_bn.backward": (len(means), 8 * chans)}
+    if metrics:
+        want["trainer.metrics"] = (1, 16)
+    return want
+
+
+def check_step_ledger(label, records, weights, metrics=True):
+    """One bucketed step's ledger against :func:`expected_step_ledger`;
+    returns the collectives and bytes a step."""
+    want = expected_step_ledger(weights, metrics)
+    sites = {}
+    for r in records:
+        calls, nbytes = sites.get(r["site"], (0, 0))
+        sites[r["site"]] = (calls + r["calls"], nbytes + r["bytes"])
+    grad = sites.pop("ddp.bucketed_reduce", None) or sites.pop("ddp.overlap_hook:ddp",
+                                                               (0, 0))
+    if grad[1] != want.pop("arena_bytes") or sites != want:
+        raise AssertionError(f"{label}: the ledger {records} is not one step's "
+                             f"collectives {want}")
+    every = (grad, *sites.values())
+    return sum(c for c, _ in every), sum(b for _, b in every)
+
+
+def ddp_world1_parity_phase(main_amp, bucketing, comms, cfg, weights):
+    """NCCL at world 1, full-width ResNet-50 at batch 2, cuDNN
+    deterministic. O5 with unsynchronized BN: the distributed step (one
+    collective a gradient arena, 4 MiB buckets, the backward-time hooks) is
+    the one-device step bitwise (an all-reduce over one rank and a division
+    by 1 are exact). O5 with SyncBN: the step on K5/K10 against the same
+    step on their plain versions at PERF.md's row, and its ledger; its
+    distance from the one-device step (two-pass against one-pass moments)
+    is the O5 rounding spread the two-rank check scales. O0 with SyncBN
+    against the one-device O0 step at O0_BOUNDS. Compressed, every gradient
+    element within ``compression_error_bound`` of the uncompressed one.
+    Returns the O5 spread."""
+    images, labels = resnet_batch(cfg, PARITY_BATCH, 80)
+    step = lambda **kw: one_step(main_amp, cfg, weights, images, labels, **kw)  # noqa: E731
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = step(distributed=False)
+        exact = {}
+        for name, kw in (("unbucketed", {}),
+                         ("bucketed", dict(bucket_bytes=DDP_BUCKET_BYTES)),
+                         ("overlap", dict(bucket_bytes=DDP_BUCKET_BYTES,
+                                          overlap_backward=True))):
+            exact[name] = bitwise_equal(step(distributed=True, **kw), ref)
+        comp = step(distributed=True, compress=True, bucket_bytes=DDP_BUCKET_BYTES)
+        comp_worst = max(float(((a - b).abs() / bucketing.compression_error_bound(
+            b.abs()).clamp_min(1e-30)).max()) for a, b in zip(comp["grads"], ref["grads"]))
+        comms.reset_comms_ledger()
+        sync_k = step(**DDP_KW)
+        records = comms.comms_records()
+        sync_p = step(impl="torch", **DDP_KW)
+        o0 = resnet_row_errors(step(level="O0", **DDP_KW),
+                               step(level="O0", distributed=False))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    kernels = resnet_row_errors(sync_k, sync_p)
+    spread = resnet_row_errors(sync_k, ref)
+    calls, nbytes = check_step_ledger("ddp_world1_parity", records, weights)
+    line("ddp_world1_parity", backend="nccl", world=1, batch=PARITY_BATCH,
+         image=RESNET_IMAGE, **{f"bitwise_{k}": v for k, v in exact.items()},
+         compressed_err_over_bound=comp_worst,
+         o5_syncbn_kernels_vs_plain=json.dumps(kernels),
+         o5_syncbn_vs_one_device_spread=json.dumps(spread),
+         o0_syncbn_vs_one_device=json.dumps(o0), collectives_per_step=calls,
+         collective_bytes_per_step=nbytes)
+    if not all(exact.values()):
+        raise AssertionError(f"ddp_world1_parity: not bitwise the one-device step: {exact}")
+    if comp_worst > 1.0:
+        raise AssertionError(f"ddp_world1_parity: compressed grads off the bound "
+                             f"({comp_worst} of it)")
+    for name, errs, bounds in (("O5 kernels vs plain", kernels, ROW_BOUNDS),
+                               ("O0 SyncBN vs one device", o0, O0_BOUNDS)):
+        if out_of_bounds(errs, bounds):
+            raise AssertionError(f"ddp_world1_parity {name}: {out_of_bounds(errs, bounds)}")
+    return spread
+
+
+def two_rank_worker(rank, store, out_dir, batch_seed, cfg):
+    """One rank of the two-rank check (a spawned process): gloo on CUDA
+    tensors, the SyncBN trainer with 4 MiB buckets on ``cfg`` from the
+    parent's seeded weights, each run of TWO_RANK_RUNS one step on this
+    rank's half of the global batch, cuDNN deterministic."""
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=2)
+        from beforeholiday_tpu_torch.examples.imagenet import main_amp
+        from beforeholiday_tpu_torch.models import resnet
+
+        weights = resnet.init(cfg, gen(2), device="cuda")
+        images, labels = resnet_batch(cfg, 2 * TWO_RANK_BATCH, batch_seed)
+        out = {name: host_copy(one_step(main_amp, cfg, weights, images, labels,
+                                        level=level, **DDP_KW, **kw))
+               for name, level, kw in TWO_RANK_RUNS}
+        torch.save(out, f"{out_dir}/rank{rank}.pt")
+        dist.destroy_process_group()
+    except BaseException:
+        with open(f"{out_dir}/rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def ddp_two_rank_card_phase(main_amp, cfg, weights, tmp, spread):
+    """Two processes on the one card, gloo on CUDA tensors (NCCL refuses two
+    ranks on one device), SyncBN and 4 MiB buckets, uncompressed, batch
+    2 x TWO_RANK_BATCH, cuDNN deterministic. The ranks against each other
+    (bitwise: reduced gradients, replicated state), and each run against a
+    one-rank NCCL world at the whole batch: O0 at O0_BOUNDS, O5 (after the
+    gradients, and with the backward-time hooks, where a bucket read before
+    its all-reduce finished would show) at the row or SPREAD_FACTOR times
+    the O5 ``spread`` of ddp_world1_parity_phase."""
+    import multiprocessing as mp
+
+    seed = 81
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=two_rank_worker,
+                         args=(r, f"{tmp}/gloo_store", tmp, seed, cfg))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(1.0, TWO_RANK_TIMEOUT - (time.perf_counter() - t0)))
+    if any(p.is_alive() for p in procs):
+        for p in procs:
+            p.kill()
+            p.join(10)
+        raise AssertionError(f"ddp_two_rank_card: the world did not finish in "
+                             f"{TWO_RANK_TIMEOUT} s; its processes were killed")
+    if any(p.exitcode != 0 for p in procs):
+        errors = [open(f"{tmp}/rank{r}.err").read() for r in range(2)
+                  if os.path.exists(f"{tmp}/rank{r}.err")]
+        raise AssertionError(f"ddp_two_rank_card: exit codes "
+                             f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
+    ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(2)]
+    images, labels = resnet_batch(cfg, 2 * TWO_RANK_BATCH, seed)
+    torch.backends.cudnn.deterministic = True
+    try:
+        refs = {level: host_copy(one_step(main_amp, cfg, weights, images, labels,
+                                          level=level, **DDP_KW))
+                for level in ("O5", "O0")}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    o5_bounds = {k: max(v, SPREAD_FACTOR * spread[k]) for k, v in ROW_BOUNDS.items()}
+    fields, failures = {}, []
+    for name, level, _ in TWO_RANK_RUNS:
+        a, b = ranks[0][name], ranks[1][name]
+        same = all(torch.equal(x, y) for k in ("grads", "model", "masters", "moms", "bn")
+                   for x, y in zip(a[k], b[k]))
+        errs = resnet_row_errors(a, refs[level])
+        bad = out_of_bounds(errs, O0_BOUNDS if level == "O0" else o5_bounds)
+        fields[name] = dict(ranks_bitwise=same, loss=a["loss"],
+                            one_rank_loss=refs[level]["loss"], **errs)
+        if not same or bad:
+            failures.append(f"{name}: ranks bitwise {same}, out of bounds {bad}")
+    line("ddp_two_rank_card", backend="gloo", world=2, device="'one card'",
+         batch_per_rank=TWO_RANK_BATCH, bucket_bytes=DDP_BUCKET_BYTES,
+         o5_bounds=json.dumps(o5_bounds), seconds=time.perf_counter() - t0,
+         **{k: json.dumps(v) for k, v in fields.items()})
+    if failures:
+        raise AssertionError("ddp_two_rank_card: " + "; ".join(failures))
+
+
+def guarded_step(main_amp, faults, tr, guard, ddp):
+    """The O5 trainer's step under ``guard`` with ``ddp``'s reduction,
+    driving ``tr``'s state: ``step(images, labels, weight=None,
+    poison=False) -> (loss, None, skip)``. ``weight`` multiplies the loss (a
+    device scalar: NaN makes it non-finite); ``poison`` NaNs one element of
+    the reduced gradients (``faults.poison_grads``). The guard state is
+    ``step.gstate``."""
+    m = tr.amp_model
+    mean = torch.from_numpy(main_amp._MEAN).to(tr.device)
+    std = torch.from_numpy(main_amp._STD).to(tr.device)
+    one = torch.ones((), device=tr.device)
+
+    def loss_fn(p, x, labels, bn, weight):
+        logits, new_bn = m.apply(p, bn, x)
+        return main_amp.softmax_cross_entropy(logits, labels) * weight, new_bn
+
+    def poisoned(g):
+        return faults.poison_grads(ddp.reduce(g), seed=5)
+
+    def step(images, labels, weight=None, poison=False):
+        vg = guard.value_and_grad(loss_fn, has_aux=True,
+                                  reduce_grads=poisoned if poison else ddp.reduce)
+        loss, new_bn, grads, verdict = vg(tr.params, step.gstate,
+                                          (images.float() - mean) / std, labels,
+                                          tr.bn_state, one if weight is None else weight)
+        tr.params, tr.opt_state, step.gstate = guard.apply_update(
+            m.optimizer, tr.params, grads, tr.opt_state, step.gstate, verdict,
+            lr=RESNET_LR)
+        tr.bn_state = new_bn
+        return loss, None, verdict["grad_overflow"] | verdict["loss_nonfinite"]
+
+    step.gstate = guard.init(tr.params)
+    return step
+
+
+def ddp_guard_phase(main_amp, amp, guard_mod, faults, parallel, cfg, weights):
+    """The world-1 NCCL DDP step (SyncBN, 4 MiB buckets) under
+    ``StepGuard(LossScaler(init_scale=2, min_loss_scale=1), rollback_after=2,
+    check_params=True)``: a clean step; a non-finite loss skips with reason
+    2 (the scale 2 -> 1, its floor); a clean step; a poisoned gradient skips
+    with reason 1, the model arenas, masters and momentum bitwise unchanged;
+    a second one, the scale at its floor, rolls the (deliberately drifted)
+    model arena back to the snapshot bitwise, reason 4; the health
+    round-trips through ``AmpModel.state_dict``."""
+    tr = resnet_trainer(main_amp, cfg, weights, "O5", PARITY_BATCH, **DDP_KW)
+    guard = guard_mod.StepGuard(amp.LossScaler(init_scale=2.0, min_loss_scale=1.0),
+                                rollback_after=2, check_params=True)
+    ddp = parallel.DistributedDataParallel(bucket_bytes=DDP_BUCKET_BYTES)
+    step = guarded_step(main_amp, faults, tr, guard, ddp)
+    images, labels = resnet_batch(cfg, PARITY_BATCH, 82)
+    nan = torch.full((), float("nan"), device="cuda")
+
+    def health():
+        return {k: int(v) for k, v in step.gstate["health"].items()}
+
+    def unchanged(before):
+        return all(torch.equal(a, b) for xs, ys in zip(before, resnet_state(tr)[:3])
+                   for a, b in zip(xs, ys))
+
+    reasons = []
+    step(images, labels)
+    before = resnet_state(tr)[:3]
+    step(images, labels, weight=nan)
+    reasons.append(health()["last_skip_reason"])
+    loss_skip_unchanged = unchanged(before)
+    scale_after = float(step.gstate["scaler"]["scale"])
+    step(images, labels)
+    snap = [a.clone() for a in tr.params.arenas]
+    before = resnet_state(tr)[:3]
+    step(images, labels, poison=True)
+    reasons.append(health()["last_skip_reason"])
+    grad_skip_unchanged = unchanged(before)
+    tr.params.arenas[0].add_(1.0)  # a drift the rollback must undo
+    step(images, labels, poison=True)
+    reasons.append(health()["last_skip_reason"])
+    rolled_back = all(torch.equal(a, b) for a, b in zip(tr.params.arenas, snap))
+    h = health()
+    sd = tr.amp_model.state_dict(step.gstate)
+    restored = tr.amp_model.load_state_dict(sd)
+    round_trip = ({k: int(v) for k, v in restored["health"].items()} == h
+                  and float(restored["scaler"]["scale"]) == float(
+                      step.gstate["scaler"]["scale"]))
+    line("ddp_guard", backend="nccl", world=1, reasons=reasons, health=json.dumps(h),
+         loss_skip_bitwise=loss_skip_unchanged, grad_skip_bitwise=grad_skip_unchanged,
+         scale_after_first_skip=scale_after, rolled_back_bitwise=rolled_back,
+         health_round_trip=round_trip)
+    want = dict(consecutive_overflows=0, skipped_total=3, last_skip_reason=4,
+                rollbacks_total=1)
+    if not (reasons == [2, 1, 4] and loss_skip_unchanged and grad_skip_unchanged
+            and scale_after == 1.0 and rolled_back and round_trip and h == want):
+        raise AssertionError(f"ddp_guard: reasons {reasons}, health {h}")
+    del tr, step
+    torch.cuda.empty_cache()
+
+
+def ddp_training_phases(main_amp, amp, guard_mod, faults, parallel, comms, cfg,
+                        weights, counters, flops_per_image, n_params, card):
+    """The batch-128 O5 step at world 1 on NCCL with SyncBN and 4 MiB
+    buckets, timed and profiled as the one-device O5 step is: after the
+    gradients, then with the backward-time hooks, then guarded (StepGuard
+    with rollback and the parameter sentinel). Each: one step's collectives
+    from the ledger first (held to what one step must issue), then
+    ``resnet_training_phase`` (0 host syncs, K5 and K10 launches held).
+    Returns each run's launch counts."""
+    launches = {}
+    for label, kw, guarded in (("ddp_resnet", {}, False),
+                               ("ddp_resnet_overlap", dict(overlap_backward=True), False),
+                               ("ddp_resnet_guarded", {}, True)):
+        def make():
+            tr = resnet_trainer(main_amp, cfg, weights, "O5", RESNET_BATCH, **DDP_KW,
+                                **kw)
+            if not guarded:
+                return tr, trainer_step(tr)
+            guard = guard_mod.StepGuard(amp.LossScaler(loss_scale=1.0),
+                                        rollback_after=2, check_params=True)
+            return tr, guarded_step(main_amp, faults, tr, guard,
+                                    parallel.DistributedDataParallel(
+                                        bucket_bytes=DDP_BUCKET_BYTES))
+
+        # one step's collectives, on a trainer of its own (the timed one
+        # starts from the weights, as the one-device step's does)
+        tr, step = make()
+        comms.reset_comms_ledger()
+        step(*resnet_batch(cfg, RESNET_BATCH, 72))
+        torch.cuda.synchronize()
+        # the guarded step reduces no metrics
+        calls, nbytes = check_step_ledger(label, comms.comms_records(), weights,
+                                          metrics=not guarded)
+        del tr, step
+        tr, step = make()
+        launches[label] = resnet_training_phase(
+            f"{label}_training", f"{label}_profile", tr, step, counters,
+            STEP_LAUNCHES["ddp_resnet"], flops_per_image, PEAK_BF16, n_params,
+            card, opt_level="O5", backend="nccl", world=1, sync_bn=True,
+            bucket_bytes=DDP_BUCKET_BYTES,
+            overlap_backward=bool(kw.get("overlap_backward")), guarded=guarded,
+            collectives_per_step=calls, collective_bytes_per_step=nbytes)
+        del tr, step
+        torch.cuda.empty_cache()
+    return launches
+
+
 # (kernel key, route, source, the TPU kernel it replaces)
 KERNEL_ROWS = (
     ("layer_norm_fwd", "triton", "beforeholiday_tpu_torch/ops/normalization.py",
@@ -2893,7 +3356,7 @@ def main():
     o0_spec = make_spec(tree_flatten(rweights[0])[0])
     rows = {"layer_norm_fwd": k1_phase(norm), "flash_fwd": k2_phase(attn),
             "layer_norm_bwd": k3_phase(norm), "flash_bwd": k4_phase(attn),
-            "unscale": k5_phase(mt, n_bf16, n_fp32),
+            "unscale": k5_phase(mt, n_bf16, n_fp32, rspecs[torch.bfloat16].padded_total),
             "adam": k6_phase(mt, n_bf16, n_fp32),
             "l2norm": k9_phase(mt, bert_spec.padded_total),
             "lamb_stage1": k7_phase(mt, bert_spec.padded_total),
@@ -3140,6 +3603,30 @@ def main():
             optimizer=f"'{type(tr.amp_model.optimizer.inner).__name__}'")
         del tr, step
         torch.cuda.empty_cache()
+
+    # slice 11: data parallel over torch.distributed (NCCL at world 1 on the
+    # card; two gloo ranks on CUDA tensors for the two-rank check)
+    import torch.distributed as dist
+    from beforeholiday_tpu_torch import guard as guard_mod, parallel
+    from beforeholiday_tpu_torch.monitor import comms
+    from beforeholiday_tpu_torch.parallel import bucketing
+    from beforeholiday_tpu_torch.testing import faults
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init_nccl(tmp)
+        try:
+            spread = ddp_world1_parity_phase(main_amp, bucketing, comms, rcfg,
+                                             rweights)
+            ddp_two_rank_card_phase(main_amp, rcfg, rweights, tmp, spread)
+            ddp_guard_phase(main_amp, amp, guard_mod, faults, parallel, rcfg,
+                            rweights)
+            launches.update(ddp_training_phases(
+                main_amp, amp, guard_mod, faults, parallel, comms, rcfg, rweights,
+                counters, flops_per_image, n_params, card))
+        finally:
+            dist.destroy_process_group()
+    # the same K10 launches as the one-device O5 row, counted on this path
+    rows["sgd"]["ddp_resnet"] = rows["sgd"]["resnet_o5"]
     launches["serving"] = serve_launches
 
     kernels = []

@@ -475,8 +475,12 @@ def test_main_runs_with_larc_on_the_cpu(capsys):
     dict(bucket_bytes=1 << 20), dict(compress=True), dict(overlap_backward=True),
 ])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        tmain.build_trainer(cfg=tres.tiny_test_config(), device="cpu", **kw)
+    """The data-parallel options are ported (tests/test_torch_ddp.py); a
+    distributed trainer with no initialized process group raises instead
+    of quietly training on one rank."""
+    with pytest.raises(RuntimeError, match="process group"):
+        tmain.build_trainer(cfg=tres.tiny_test_config(), device="cpu",
+                            **{"distributed": True, **kw})
 
 
 @pytest.mark.parametrize("flag", ["--profile-dir", "--flight-recorder"])

@@ -145,8 +145,16 @@ def test_k2_matches_plain(cuda, BH, Sq, Sk, D, causal, dtype):
     ro, rlse = tattn.flash_fwd_torch(q, k, v, lens, causal, scale)
     torch.cuda.synchronize()
     assert torch.all(o[0] == 0) and torch.all(lse[0] == -1e30)  # lens 0
-    torch.testing.assert_close(o, ro, **(BF16_TOL if dtype == torch.bfloat16
-                                         else FP32_TOL))
+    if dtype == torch.bfloat16:
+        # K2 rounds each p to bf16 for its product with v: where the terms
+        # cancel, that parts from the fp32 sum by up to 2^-9 sum p|v|, which
+        # BF16_TOL does not follow (chip_smoke.py check_dropped_pv, PERF.md)
+        ref_abs = tattn.flash_fwd_torch(q.float(), k.float(), v.float().abs(),
+                                        lens, causal, scale)[0]
+        assert bool(((o.float() - ro.float()).abs()
+                     <= 2 ** -7 * ro.float().abs() + 2 ** -8 * ref_abs).all())
+    else:
+        torch.testing.assert_close(o, ro, **FP32_TOL)
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
 
 

@@ -323,11 +323,17 @@ def test_init_batch_norm_and_unported_axis():
     for a, b in zip((*params, *state), (*jparams, *jstate)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     x = torch.zeros(2, 6, 3, 3)
-    with pytest.raises(NotImplementedError):
+    # the cross-device merge is ported (tests/test_torch_ddp.py); without a
+    # process group the data axis names no group, and one_pass_shifted
+    # refuses an axis, as in JAX
+    with pytest.raises(RuntimeError, match="not initialized"):
         tbn.sync_batch_norm(x, params, state, axis_name="data")
+    with pytest.raises(ValueError):
+        tbn.sync_batch_norm(x, params, state, axis_name="data",
+                            stats="one_pass_shifted")
     with pytest.raises(ValueError):
         tbn.sync_batch_norm(x, params, state, stats="welford")
     cfg = tres.tiny_test_config()
     p, s = tres.init(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="not initialized"):
         tres.forward(p, s, torch.zeros(2, 16, 16, 3), cfg, axis_name="data")
