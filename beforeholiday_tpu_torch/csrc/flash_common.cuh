@@ -1,6 +1,7 @@
 // Device helpers shared by the flash-attention kernels K2 (flash_fwd.cu) and
-// K4 (flash_bwd.cu): dtype conversion, warp reductions, 16-byte loads, the
-// tensor-core fragments and their reuse as A operands, 4-byte cp.async, the
+// K4 (flash_bwd.cu): dtype conversion, warp reductions, the tensor-core
+// fragments and their reuse as A operands, 4-byte cp.async, the decode
+// kernel's bulk row copies and programmatic dependent launch, the
 // tensor-core kernels' TMA tile loads (tensor maps, mbarriers) into wgmma's
 // swizzled layout, the wgmma descriptors, fences and products, exp2, the
 // dropout hash shared by the two lanes of a 2x2 tile, and the dynamic shared
@@ -40,25 +41,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-// 8 consecutive elements as floats, from a 16-byte-aligned address
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -238,6 +220,29 @@ __device__ __forceinline__ void tma_load(char* dst, const CUtensorMap* map, uint
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c), "r"(r), "r"(h)
       : "memory");
+}
+
+// `bytes` contiguous bytes from global memory into shared memory by the bulk
+// copy engine (TMA's 1-D form), reporting them to `bar`: both addresses and
+// the size multiples of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// programmatic dependent launch: a kernel launched with programmatic stream
+// serialization may start before the one it follows ends; it waits here
+// until that one has finished and its writes are visible, and the earlier
+// kernel lets it start once every block has called launch_dependents (or
+// exited)
+__device__ __forceinline__ void griddep_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // rows [r0, r0 + kRows) of head h, every 64-column atom of D, into a

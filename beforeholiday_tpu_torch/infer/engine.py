@@ -14,8 +14,15 @@ gate still catches a bucket table and a scheduler that disagree, and keeps
 The forward mirrors ``testing/gpt.py`` (a Python loop over layers), re-derived
 for incremental decode. LayerNorm runs on kernel K1 and attention on kernel
 K2 when the engine lives on the card; ``impl="torch"`` selects their plain
-versions (the CPU path, and the card-side yardstick). The page pools are
-updated in place. The JAX engine's timeline span is not ported yet.
+versions (the CPU path, and the card-side yardstick). Decode on the kernels
+reads each layer's fp32 page pools in place through the page table (K2's
+paged mode, ``ops.attention._paged_decode_kernel``) at the head dims K2's
+decode path is built for (``DECODE_HEAD_DIMS``); at other head dims, and on
+the plain path, it gathers the pages, narrows them to the compute dtype and
+runs the contiguous attention (K2's row kernel, or its plain version), the
+same function as the JAX engine's gather followed by ``flash_attention``.
+The page pools are updated in place. The JAX engine's timeline span is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -34,6 +41,13 @@ from beforeholiday_tpu_torch.monitor.compile import track_compiles
 from beforeholiday_tpu_torch.ops import flash_attention, fused_dense, fused_layer_norm
 from beforeholiday_tpu_torch.ops._autocast import cast_floats
 from beforeholiday_tpu_torch.ops._dispatch import IMPLS, resolve_device
+from beforeholiday_tpu_torch.ops.attention import (
+    DECODE_HEAD_DIMS,
+    _decode_gathered,
+    _paged_decode_kernel,
+    _paged_decode_torch,
+    flash_fwd_kernel,
+)
 
 __all__ = ["EngineConfig", "InferenceEngine", "pick_bucket"]
 
@@ -169,6 +183,13 @@ class InferenceEngine:
         if impl == "kernel" and self.device.type != "cuda":
             raise ValueError("impl='kernel' needs a CUDA device")
         self._impl = impl
+        on_kernels = (impl or ("kernel" if self.device.type == "cuda"
+                               else "torch")) == "kernel"
+        # decode reads the pools in place where attention runs on K2 at a
+        # head dim its decode path is built for; elsewhere on K2 it runs the
+        # contiguous kernel on a gathered copy (a choice by shape)
+        self._paged = on_kernels and model_cfg.head_dim in DECODE_HEAD_DIMS
+        self._gathered_on_k2 = on_kernels and not self._paged
         self.cfg = cfg
         self.model_cfg = model_cfg
         compute = cfg.compute_dtype or cfg.weights_dtype
@@ -225,14 +246,34 @@ class InferenceEngine:
         mc = self.model_cfg
         return t.reshape(B, S, mc.n_heads, mc.head_dim).transpose(1, 2)
 
-    def _attend_and_mlp(self, lp, x, q, k, v, *, causal, kv_lens):
+    @property
+    def _scale(self) -> float:
+        return 1.0 / math.sqrt(self.model_cfg.head_dim)
+
+    def _attention(self, q, k, v, *, causal, kv_lens):
+        """(B, S, H*hd) q, k, v -> the (B, S, H*hd) attention context."""
         ctx = flash_attention(
             self._heads(q), self._heads(k), self._heads(v), causal=causal,
-            scale=1.0 / math.sqrt(self.model_cfg.head_dim), kv_lens=kv_lens,
-            impl=self._impl,
+            scale=self._scale, kv_lens=kv_lens, impl=self._impl,
         )
         B, H, S, hd = ctx.shape
-        ctx = ctx.transpose(1, 2).reshape(B, S, H * hd)
+        return ctx.transpose(1, 2).reshape(B, S, H * hd)
+
+    def _decode_attention(self, q, kp, vp, page_table, kv_lens, kv_max):
+        """One query row a sequence against one layer's pools: K2 reading the
+        pages in place (no more than ``kv_max`` keys a sequence), or a
+        gathered copy narrowed to q's dtype (exact: the fp32 pools hold
+        compute-dtype values write_token widened) on K2's contiguous mode or
+        the plain version."""
+        args = (q, kp, vp, page_table, kv_lens, self.model_cfg.n_heads,
+                self._scale)
+        if self._paged:
+            return _paged_decode_kernel(*args, kv_max=kv_max)[0]
+        if self._gathered_on_k2:
+            return _decode_gathered(flash_fwd_kernel, *args)[0]
+        return _paged_decode_torch(*args)[0]
+
+    def _out_and_mlp(self, lp, x, ctx):
         x = x + fused_dense(ctx, lp["wo"].to(x.dtype), lp["bo"].to(x.dtype))
         h = self._ln(x, lp["ln2_scale"], lp["ln2_bias"])
         # jax.nn.gelu defaults to the tanh approximation
@@ -257,30 +298,30 @@ class InferenceEngine:
             q, k, v = self._qkv(lp, x)
             kvcache.write_prefill(self._cache.k[i], page_table, k)
             kvcache.write_prefill(self._cache.v[i], page_table, v)
-            x = self._attend_and_mlp(lp, x, q, k, v, causal=True, kv_lens=lens)
+            x = self._out_and_mlp(
+                lp, x, self._attention(q, k, v, causal=True, kv_lens=lens))
         last = (lens.long() - 1).clamp(0, S - 1)
         return self._final_logits(x[torch.arange(B, device=self.device), last])
 
-    def _decode_fn(self, tokens, lens, page_table):
+    def _decode_fn(self, tokens, lens, page_table, lens_host):
         """One incremental token. tokens (B,) = the last sampled token per
         row, lens (B,) = tokens already cached (the fed token's position);
         inactive rows carry lens == 0 and a null page table and are fully
-        masked. Returns (next_tokens (B,), logits (B, V) fp32)."""
+        masked. lens_host: lens as a host array, which bounds the keys the
+        paged kernel reads. Returns (next_tokens (B,), logits (B, V) fp32)."""
         x = self._embed(tokens, lens)[:, None, :]  # (B, 1, D)
         kv_lens = torch.where(lens > 0, lens + 1, 0)
+        longest = int(lens_host.max(initial=0))
+        kv_max = longest + 1 if longest > 0 else 0
         for i in range(self.model_cfg.n_layers):
             lp = self._layer(i)
             q, k, v = self._qkv(lp, x)
             kp, vp = self._cache.k[i], self._cache.v[i]
             kvcache.write_token(kp, page_table, lens, k[:, 0, :])
             kvcache.write_token(vp, page_table, lens, v[:, 0, :])
-            # the fp32 pools hold compute-dtype values widened exactly by
-            # write_token, so narrowing the gathered view back to q's dtype
-            # is exact and K2 sees one dtype
-            kc = kvcache.gather_pages(kp, page_table).to(q.dtype)
-            vc = kvcache.gather_pages(vp, page_table).to(q.dtype)
-            x = self._attend_and_mlp(lp, x, q, kc, vc, causal=False,
-                                     kv_lens=kv_lens)
+            x = self._out_and_mlp(
+                lp, x, self._decode_attention(q, kp, vp, page_table, kv_lens,
+                                              kv_max))
         return self._final_logits(x[:, 0, :])
 
     def _copy_fn(self, src, dst):
@@ -322,7 +363,7 @@ class InferenceEngine:
         return torch.from_numpy(a).to(self.device)
 
     def _pad_tables(self, page_tables: Sequence[Sequence[int]], B: int):
-        pt = np.zeros((B, self.cfg.n_slots), np.int64)
+        pt = np.zeros((B, self.cfg.n_slots), np.int32)  # the kernel's table
         for i, row in enumerate(page_tables):
             if len(row) > self.cfg.n_slots:
                 raise ValueError(
@@ -361,13 +402,13 @@ class InferenceEngine:
             raise ValueError("tokens/lens/page_tables length mismatch")
         B = pick_bucket(n, self.cfg.decode_buckets)
         tok = np.zeros((B,), np.int64)
-        ln = np.zeros((B,), np.int64)
+        ln = np.zeros((B,), np.int32)  # kv_lens, as the paged kernel takes them
         tok[:n] = tokens
         ln[:n] = lens
         if ln[:n].max() >= self.cfg.max_seq_len:
             raise ValueError(f"decode past max_seq_len {self.cfg.max_seq_len}")
         return (self._tensor(tok), self._tensor(ln),
-                self._pad_tables(page_tables, B))
+                self._pad_tables(page_tables, B), ln)
 
     def decode(self, tokens: Sequence[int], lens: Sequence[int],
                page_tables: Sequence[Sequence[int]]) -> np.ndarray:

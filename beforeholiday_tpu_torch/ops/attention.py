@@ -10,8 +10,12 @@ K2 replaces ``beforeholiday_tpu/ops/attention.py:152`` ``_fa_fwd_kernel``
 ``mask_kernel``. Each source's header states its bound on an H100 and what
 the design does about it. Unlike the TPU kernels, which need both sequence
 lengths to tile by 128, K2 and K4 take every shape, decode's ``Sq=1``
-against the whole gathered cache included, and every head dim 8..512 that
-:func:`is_flash_available` admits.
+included, and every head dim 8..512 that :func:`is_flash_available` admits.
+K2's decode path (``Sq < 16``) also has a paged mode,
+:func:`_paged_decode_kernel`, private to the serving engine: one query row
+a sequence read against one layer's fp32 page pools in place through the
+page table, bit for bit what the contiguous mode computes on the gathered,
+narrowed copy (:func:`_paged_decode_torch`).
 
 Dropout draws its keep mask from a counter-based hash: Philox4x32-10
 (``csrc/philox.cuh``) keyed on a dropout key (two 32-bit words) and counted
@@ -51,6 +55,10 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # steps of 16, the CUDA-core row kernels the rest
 _KERNEL_HEAD_DIMS = range(8, 513)
 _MAX_GRID_Y = 65535
+# the head dims K2's decode path (``csrc/flash_fwd.cu``
+# flash_decode_chunk_kernel) and so its paged mode are built for; the rest
+# decode on the row kernel
+DECODE_HEAD_DIMS = range(16, 129, 16)
 
 # Philox4x32-10's multipliers and key increments (Random123)
 _MASK32 = 0xFFFFFFFF
@@ -284,11 +292,28 @@ def flash_fwd_torch(q, k, v, lens, causal: bool, scale: float,
 
 @functools.cache
 def _flash_lib():
-    fn = _build.load("flash_fwd").flash_fwd
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, f, i, p, ctypes.c_uint, f, p]
+    lib = _build.load("flash_fwd")
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    fn = lib.flash_fwd
+    fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, f, i, p, ctypes.c_uint, f,
+                   p, ll, p]
     fn.restype = ctypes.c_int
-    return fn
+    paged = lib.flash_decode_paged
+    paged.argtypes = [i, p, ll, ll, p, p, p, p, p, p, p, ll, i, i, i, i, i, i,
+                      f, p]
+    paged.restype = ctypes.c_int
+    ws = lib.flash_fwd_decode_ws_floats
+    ws.argtypes = [i, i, i, i]
+    ws.restype = ll
+    return fn, paged, ws
+
+
+def decode_workspace_floats(bh: int, sq: int, sk: int, d: int) -> int:
+    """The fp32 workspace K2 needs for a call of these sizes, as the kernel
+    source sizes it: a partial ``(m, l, acc[d])`` for each (bh, query row,
+    chunk of keys) of its decode path; 0 for a call that takes another
+    kernel or whose keys fit one chunk. Builds the kernel library."""
+    return int(_flash_lib()[2](bh, sq, sk, d))
 
 
 def _check_qkv(name, q, k, v, lens):
@@ -331,13 +356,15 @@ def flash_fwd_kernel(q, k, v, lens, causal: bool, scale: float,
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
     if BH == 0 or Sq == 0:
         return o, lse
-    fn = _flash_lib()
+    ws = torch.empty(decode_workspace_floats(BH, Sq, Sk, D), dtype=torch.float32,
+                     device=q.device)
+    fn = _flash_lib()[0]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), lens.data_ptr(), o.data_ptr(), lse.data_ptr(),
                 BH, Sq, Sk, D, float(scale), int(bool(causal)), kptr, thr,
-                inv, stream)
+                inv, ws.data_ptr() if ws.numel() else None, ws.numel(), stream)
     if rc != 0:
         raise RuntimeError(f"K2 (flash_fwd) launch failed with CUDA error {rc}")
     flash_fwd_kernel.launches += 1
@@ -345,6 +372,140 @@ def flash_fwd_kernel(q, k, v, lens, causal: bool, scale: float,
 
 
 flash_fwd_kernel.launches = 0
+
+
+# ------------------------------------------------- K2's paged decode mode
+
+
+def _paged_heads(q, k_pool, n_heads):
+    if q.ndim != 3 or k_pool.ndim != 3 or q.shape[2] != k_pool.shape[2]:
+        raise ValueError(f"paged decode takes q (B, Sq, H*D) and pools (n_pages, "
+                         f"page_size, H*D); got {tuple(q.shape)}/"
+                         f"{tuple(k_pool.shape)}")
+    HD = q.shape[2]
+    if n_heads < 1 or HD % n_heads:
+        raise ValueError(f"width {HD} does not split into {n_heads} heads")
+    return HD // n_heads
+
+
+def _decode_gathered(fwd, q, k_pool, v_pool, page_table, kv_lens,
+                     n_heads: int, scale: float):
+    """Decode on a copy: each sequence's pages gathered
+    (``infer.kvcache.gather_pages``), narrowed to q's dtype, and ``fwd``
+    (:func:`flash_fwd_torch` or :func:`flash_fwd_kernel`) over the heads.
+    Arguments and results as :func:`_paged_decode_torch`'s."""
+    from beforeholiday_tpu_torch.infer.kvcache import gather_pages
+
+    D = _paged_heads(q, k_pool, n_heads)
+    B, Sq, HD = q.shape
+
+    def heads(t):  # (B, S, H*D) -> (B*H, S, D)
+        return t.reshape(B, t.shape[1], n_heads, D).transpose(1, 2).reshape(
+            B * n_heads, t.shape[1], D).contiguous()
+
+    kc = gather_pages(k_pool, page_table).to(q.dtype)
+    vc = gather_pages(v_pool, page_table).to(q.dtype)
+    lens = kv_lens.to(device=q.device, dtype=torch.int32).repeat_interleave(n_heads)
+    o, lse = fwd(heads(q), heads(kc), heads(vc), lens, False, scale)
+    return o.reshape(B, n_heads, Sq, D).transpose(1, 2).reshape(B, Sq, HD), lse
+
+
+def _paged_decode_torch(q, k_pool, v_pool, page_table, kv_lens, n_heads: int,
+                        scale: float, kv_max: Optional[int] = None):
+    """Plain PyTorch version of K2's paged decode mode: :func:`_decode_gathered`
+    on :func:`flash_fwd_torch`. ``q (B, Sq, H*D)``, one layer's pools
+    ``(n_pages, page_size, H*D)``, ``page_table (B, n_slots)`` and ``kv_lens
+    (B,)``; a sequence attends to at most ``kv_max`` keys. Returns ``o (B,
+    Sq, H*D)`` in q's dtype and ``lse (B*H, Sq)``."""
+    if kv_max is not None:
+        kv_lens = kv_lens.clamp(max=_kv_max(kv_max))
+    return _decode_gathered(flash_fwd_torch, q, k_pool, v_pool, page_table,
+                            kv_lens, n_heads, scale)
+
+
+def _kv_max(kv_max) -> int:
+    kv_max = int(kv_max)
+    if kv_max < 0:
+        raise ValueError(f"kv_max must be >= 0, got {kv_max}")
+    return kv_max
+
+
+def _paged_decode_kernel(q, k_pool, v_pool, page_table, kv_lens, n_heads: int,
+                         scale: float, kv_max: Optional[int] = None):
+    """Launch K2's decode path in paged mode on CUDA tensors: one query row a
+    sequence reads one layer's fp32 pools in place through ``page_table``,
+    only the pages below ``kv_lens``. Same arguments and results as
+    :func:`_paged_decode_torch`, which it computes exactly (the gathered,
+    narrowed copy's contiguous K2, bit for bit). ``kv_max``, a bound on
+    ``kv_lens`` the caller knows on the host (default: the whole table),
+    sizes the grid: the kernel launches a block for each chunk of keys below
+    it, not for each of the table's. q may be a strided view (the QKV
+    projection's chunk) with unit column stride; the pools, table and lens
+    are contiguous. Checks device, dtype, shape and layout and raises on
+    anything the kernel does not take."""
+    tensors = (q, k_pool, v_pool, page_table, kv_lens)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("paged decode takes q, the pools, the table and the "
+                         "lengths on one CUDA device")
+    D = _paged_heads(q, k_pool, n_heads)
+    B, Sq, HD = q.shape
+    if Sq != 1:
+        raise ValueError(f"paged decode takes one query row a sequence, got {Sq}")
+    if q.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"paged decode takes q in {list(_KERNEL_DTYPES)}, got "
+                         f"{q.dtype}")
+    if q.stride(2) != 1:
+        raise ValueError("paged decode reads q's columns at unit stride")
+    if D not in DECODE_HEAD_DIMS:
+        raise ValueError(f"paged decode takes head dims 16..128 in steps of 16, "
+                         f"got {D}")
+    if v_pool.shape != k_pool.shape or not (
+            k_pool.dtype == v_pool.dtype == torch.float32):
+        raise ValueError(f"paged decode takes two fp32 pools of one shape, got "
+                         f"{k_pool.dtype} {tuple(k_pool.shape)}/{v_pool.dtype} "
+                         f"{tuple(v_pool.shape)}")
+    n_slots = page_table.shape[-1]
+    if page_table.shape != (B, n_slots) or kv_lens.shape != (B,):
+        raise ValueError(f"paged decode takes page_table (B, n_slots) and kv_lens "
+                         f"(B,) for B {B}; got {tuple(page_table.shape)}/"
+                         f"{tuple(kv_lens.shape)}")
+    if page_table.dtype != torch.int32 or kv_lens.dtype != torch.int32:
+        raise ValueError(f"paged decode takes an int32 table and lengths, got "
+                         f"{page_table.dtype}/{kv_lens.dtype}")
+    if not all(t.is_contiguous() for t in tensors[1:]):
+        raise ValueError("paged decode takes contiguous pools, table and lengths")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged decode copies pool rows in 16-byte units: align "
+                         "the pools")
+    page_size = k_pool.shape[1]
+    sk = n_slots * page_size
+    if kv_max is not None:
+        sk = min(sk, _kv_max(kv_max))
+    o = torch.empty((B, 1, HD), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B * n_heads, 1), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return o, lse
+    floats = decode_workspace_floats(B * n_heads, 1, sk, D)
+    if floats > B * n_heads * (D + 2) * _MAX_GRID_Y:
+        raise ValueError(f"paged decode grids the chunks of {sk} keys on y: at "
+                         f"most {_MAX_GRID_Y}")
+    ws = torch.empty(floats, dtype=torch.float32, device=q.device)
+    fn = _flash_lib()[1]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(_KERNEL_DTYPES[q.dtype], q.data_ptr(), q.stride(0), q.stride(1),
+                k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
+                kv_lens.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                ws.data_ptr() if floats else None, floats, B, n_heads, D,
+                n_slots, page_size, sk, float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"K2 (flash_decode_paged) launch failed with CUDA "
+                           f"error {rc}")
+    _paged_decode_kernel.launches += 1
+    return o, lse
+
+
+_paged_decode_kernel.launches = 0
 
 
 # ------------------------------------------------------------------ K4

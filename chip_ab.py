@@ -22,12 +22,20 @@ warm-up steps. With ``--sass`` it also prints K13's instruction mix: the
 SASS of the loop that hashes a thread's patch (``cuobjdump -sass`` on the
 built library), counted by opcode and by pipe, per element; with
 ``--ptxas NAME ...`` the registers, spills and shared memory that ``nvcc
--Xptxas -v`` reports for each kernel of ``csrc/NAME.cu``. It exits non-zero
-without a CUDA device.
+-Xptxas -v`` reports for each kernel of ``csrc/NAME.cu``. With ``--decode``
+it times the serving engine instead, and nothing else: ``chip_smoke.py``'s
+``decode_profile`` (the flagship GPT's decode step at the largest decode
+bucket, 32 sequences of about 500 cached tokens: wall ms, tokens/s, device
+busy ms and idle share, device ms by layer and by page op: gathers, casts,
+copies, scatters), its serving mix through ``ContinuousBatcher.run()``
+(tokens/s, then the same mix under torch.profiler), and K2 at the engine's
+decode shape at three length patterns and in paged mode, each kernel's own
+device time beside the call's. It exits non-zero without a CUDA device.
 """
 
 import argparse
 import collections
+import importlib.util
 import json
 import os
 import re
@@ -93,6 +101,111 @@ def ptxas_usage(build, name):
     return usage
 
 
+def chip_smoke_module():
+    """chip_smoke.py beside this script (not one under ``--root``)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def decode_kernel_split(torch, np, attn, cs):
+    """K2 at the engine's decode shape (BH 512, Sq 1, Sk 1024, D 64, bf16)
+    at three length patterns (uniform 0..1024 as chip_smoke.py's decode row,
+    all 1024, all 32), and the paged mode at chip_smoke.py's PAGED bucket,
+    its own lengths and all 32, the latter with and without the host-known
+    bound the engine passes (kv_max 32): cs.time_ms's median and each
+    kernel's device time under the profiler, the L2 flushed the same way
+    before each call."""
+    g = cs.gen(12)
+    q, k, v = (torch.randn(512, s, 64, generator=g, device="cuda").bfloat16()
+               for s in (1, 1024, 1024))
+    ragged = np.random.default_rng(2).integers(0, 1025, 512)
+    ragged[:2] = (0, 1024)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+
+    def kernels_us(fn, n=10):
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        return {e.key.split("<")[0].split("::")[-1]: e.self_device_time_total / n
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and "flash" in e.key}
+
+    out = {}
+    for name, lens in (("ragged", ragged), ("full", np.full(512, 1024)),
+                       ("32", np.full(512, 32))):
+        a = (q, k, v, torch.tensor(lens, dtype=torch.int32, device="cuda"), False, 0.125)
+        fn = lambda: attn.flash_fwd_kernel(*a)
+        out[name] = {"ms": cs.time_ms(fn), "kernels_us": kernels_us(fn)}
+    if hasattr(attn, "_paged_decode_kernel"):
+        q, kp, vp, table, lens = cs.paged_inputs(20)
+        hs = (cs.PAGED["H"], cs.PAGED["D"] ** -0.5)
+        short = torch.full_like(lens, 32)
+        for name, pa, kw in (("paged", (q, kp, vp, table, lens, *hs), {}),
+                             ("paged_32", (q, kp, vp, table, short, *hs), {}),
+                             ("paged_32_kv_max", (q, kp, vp, table, short, *hs),
+                              {"kv_max": 32})):
+            fn = lambda: attn._paged_decode_kernel(*pa, **kw)
+            out[name] = {"ms": cs.time_ms(fn), "kernels_us": kernels_us(fn)}
+    return out
+
+
+def decode_ab(torch, infer, gpt):
+    """The serving engine of the package under test: chip_smoke.py's decode
+    step profile and its serving mix, timed, then profiled; and K2's decode
+    kernels (decode_kernel_split)."""
+    import time
+
+    import numpy as np
+
+    from beforeholiday_tpu_torch.ops import attention as attn
+
+    cs = chip_smoke_module()
+    cfg = gpt.GPTConfig(**cs.MODEL)
+    params = gpt.init(cfg, cs.gen(0), device="cuda")
+    out = {"decode": cs.decode_profile(infer, params, cfg)}
+    torch.cuda.empty_cache()
+    ecfg = infer.EngineConfig(**{**cs.ENGINE, "num_pages": cs.SERVE_PAGES})
+    eng = infer.InferenceEngine(params, cfg, ecfg)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for profiled in (False, True):
+        bat = infer.ContinuousBatcher(eng)
+        for r in cs.serving_requests(infer, cfg):
+            bat.submit(r)
+        torch.cuda.synchronize()
+        prof = torch.profiler.profile(activities=acts) if profiled else None
+        if prof:
+            prof.__enter__()
+        t0 = time.perf_counter()
+        fin = bat.run(max_steps=10000)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        if prof is None:
+            tokens = sum(len(r.out) for r in fin)
+            out["serving"] = {"tokens": tokens, "wall_ms": wall_ms,
+                              "tokens_per_s": tokens / wall_ms * 1e3,
+                              "calls": eng.call_counts}
+            continue
+        prof.__exit__(None, None, None)
+        by_name, groups = cs.device_ms_by_group(prof, cs.KERNEL_GROUPS)
+        busy = sum(by_name.values())
+        out["serving_profile"] = {
+            "wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms, "by_layer_ms": groups,
+            "page_ops_ms": cs.op_groups_ms(prof, cs.PAGE_OPS)}
+    del eng
+    torch.cuda.empty_cache()
+    out["k2_decode"] = decode_kernel_split(torch, np, attn, cs)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True,
@@ -101,6 +214,9 @@ def main():
                     help="also print K13's instruction mix")
     ap.add_argument("--ptxas", nargs="*", default=[], metavar="NAME",
                     help="also print ptxas's resource use for csrc/NAME.cu")
+    ap.add_argument("--decode", action="store_true",
+                    help="time the serving engine's decode step and serving "
+                         "mix only")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -122,7 +238,13 @@ def main():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
-    _build.build()
+    _build.build(["flash_fwd"] if args.decode else None)
+    if args.decode:
+        from beforeholiday_tpu_torch import infer
+
+        print(json.dumps({"root": args.root, "card": card,
+                          **decode_ab(torch, infer, gpt)}), flush=True)
+        return 0
     gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
 

@@ -19,7 +19,13 @@ Phases, each printing one line (any failure exits non-zero):
    prefill, decode, GPT and BERT training shapes and at lengths off its
    tiles, timed beside its bound and ``F.scaled_dot_product_attention``
    (``is_causal`` on (B, H, S, D) with no mask where every length is full,
-   the boolean mask where lengths are ragged);
+   the boolean mask where lengths are ragged); its decode path (Sq < 16)
+   also at 9 and 15 query rows and at its chunks' edges, two calls bitwise
+   equal, and timed at the engine's decode shape in bf16, fp32 and with
+   dropout; then its paged mode at the engine's decode bucket (``K2_paged``:
+   against its plain version, bitwise against the contiguous mode on the
+   gathered, narrowed copies, timed beside its bound, its plain version and
+   the gather chain it replaces);
 5. K3-K12 (LayerNorm backward, CUDA C++, its dgamma/dbeta held bitwise
    equal across two calls; unscale, fused Adam, global sum of squares,
    LAMB stage 1, the trust-ratio update, fused SGD and the scaled masked
@@ -32,11 +38,16 @@ Phases, each printing one line (any failure exits non-zero):
    it, else the same traffic;
 6. engine parity: the full-width bf16 GPT engine on the kernels against the
    same engine on the plain path, and paged decode against the contiguous
-   forward;
+   forward; each decode call on the kernels launches K2's paged mode once a
+   layer, the contiguous K2 never, and gathers no page;
 7. serving: seeded requests through ``ContinuousBatcher.run()``, with bucket
    padding and preemption, the kernels' launch counts reset just before and
-   read just after; then the same mix again under ``torch.profiler`` for the
-   device time by layer and the device's idle share;
+   read just after (K2 once a layer a prefill call, its paged mode once a
+   layer a decode call); then the same mix again under ``torch.profiler``
+   for the device time by layer, by page op (gathers, casts, copies,
+   scatters) and the device's idle share; then ``decode_profile``: the
+   decode step alone at the largest bucket (32 sequences of ~500 cached
+   tokens), timed and profiled;
 8. GPT step parity: one full-width amp O5 arena-native FusedAdam step at
    batch 2 on the kernels against the same step on the plain path;
 9. GPT skip step: an overflowing step leaves the state bitwise unchanged and
@@ -217,7 +228,7 @@ _NO_LAUNCH = {"layer_norm_fwd": 0, "layer_norm_bwd": 0, "flash_fwd": 0,
               "lamb_stage1": 0, "scaled_update": 0, "sgd": 0,
               "softmax_fwd": 0, "softmax_bwd": 0, "dropout_mask": 0,
               "xent_fwd": 0, "xent_bwd": 0, "axpby": 0, "adagrad": 0,
-              "novograd": 0}
+              "novograd": 0, "paged_decode": 0}
 _GPT_STEP = {"layer_norm_fwd": 17, "layer_norm_bwd": 17, "unscale": 2,
              "adam": 2}
 _BERT_STEP = {"layer_norm_fwd": 18, "layer_norm_bwd": 18, "unscale": 2,
@@ -477,6 +488,7 @@ def k2_phase(attn):
         (256, 1024, 1024, 64, True, torch.bfloat16, 0.1),
         (2048, 128, 128, 64, False, torch.bfloat16, 0.1),
         (16, 5, 300, 64, False, torch.bfloat16, 0.1),
+        (512, 1, 1024, 64, False, torch.bfloat16, 0.1),
         (8, 70, 70, 48, True, torch.float32, 0.1),
         # head dims only the row kernels take, with and without dropout
         (8, 100, 100, 8, True, torch.bfloat16, 0.1),
@@ -486,6 +498,10 @@ def k2_phase(attn):
         (8, 64, 64, 256, False, torch.float32, 0.0),
         (8, 100, 100, 512, True, torch.bfloat16, 0.0),
         (8, 70, 90, 512, False, torch.float32, 0.1),
+        # the decode path: every row count in one block, chunk edges
+        (64, 15, 700, 128, False, torch.bfloat16, 0.0),
+        (64, 9, 9, 32, True, torch.float32, 0.0),
+        (11, 1, 1025, 16, False, torch.bfloat16, 0.0),
         # the tensor-core kernel off its 128-row and 64-key tiles
         (8, 17, 17, 16, True, torch.bfloat16, 0.0),
         (8, 129, 129, 64, True, torch.bfloat16, 0.0),
@@ -501,6 +517,8 @@ def k2_phase(attn):
                    for s in (Sq, Sk, Sk))
         lens_np = rng.integers(0, Sk + 1, BH)
         lens_np[:2] = (0, Sk)  # a fully masked row and a full one
+        if BH == 11:  # the decode path's chunk edges
+            lens_np[:] = (0, 1, 31, 32, 33, 64, 65, 512, 513, 1024, 1025)
         if BH == 256:
             lens_np[:] = Sk  # training: every sequence full
         lens = torch.tensor(lens_np, dtype=torch.int32, device="cuda")
@@ -523,8 +541,15 @@ def k2_phase(attn):
             err = check_close(f"K2 {tag}", o, ro,
                               BF16_TOL if dt == torch.bfloat16 else FP32_TOL)
         check_close(f"K2 lse {tag}", lse, rlse, dict(rtol=1e-5, atol=1e-4))
+        if Sq < 16:  # the decode path's fixed-order merge
+            o2, lse2 = attn.flash_fwd_kernel(*args)
+            torch.cuda.synchronize()
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                raise AssertionError(f"K2 {tag}: two calls differ")
+            del o2, lse2
         fields = dict(max_abs_err=err)
-        if dt == torch.bfloat16 and BH >= 128 and D == 64:
+        decode = Sq == 1 and BH == 512
+        if (dt == torch.bfloat16 and BH >= 128 and D == 64) or decode:
             flops, nbytes = k2_flops_bytes(q, k, lens, causal)
             int_ops = PHILOX_OPS_PER_ELEMENT * live_pairs(q, k, lens, causal) if rate else 0
             bms, by = bound_ms(nbytes, flops, dt, int_ops)
@@ -548,10 +573,106 @@ def k2_phase(attn):
             name = {256: "train", 2048: "bert"}.get(
                 BH, "prefill" if causal else "decode")
             if rate:
-                name = {"train": "gpt_dropout", "bert": "bert_dropout"}[name]
+                name = {"train": "gpt_dropout", "bert": "bert_dropout",
+                        "decode": "decode_dropout"}[name]
+            if dt == torch.float32:
+                name += "_fp32"
+            if decode:
+                # no main path runs the contiguous decode mode: the serving
+                # engine decodes on the paged mode, whose row counts them
+                fields.update(launches=0)
             rows_out[name] = (tag, fields)
         line("K2", shape=tag, **fields)
     return rows_out
+
+
+# the engine's decode bucket for K2's paged mode: B 32 sequences of H 16
+# heads of D 64 over one layer's fp32 pools of ENGINE's 2049 pages of 16, 64
+# slots a sequence (max_seq_len 1024)
+PAGED = dict(B=32, H=16, D=64, pages=2049, page=16, slots=64)
+
+
+def paged_inputs(seed):
+    """One layer's pools holding bf16 values (as write_token widens them), a
+    shuffled table with null slots past each sequence's pages, lengths
+    uniform in 0..1024 with one 0 and one full, and q as a (B, 1, H*D)
+    chunk of the QKV projection's (B, 1, 3*H*D) output."""
+    B, H, D, P = PAGED["B"], PAGED["H"], PAGED["D"], PAGED["page"]
+    g = gen(seed)
+    kp, vp = (torch.randn(PAGED["pages"], P, H * D, generator=g, device="cuda")
+              .bfloat16().float() for _ in range(2))
+    qkv = torch.randn(B, 1, 3 * H * D, generator=g, device="cuda").bfloat16()
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, PAGED["slots"] * P + 1, B)
+    lens[:2] = (0, PAGED["slots"] * P)
+    perm = rng.permutation(np.arange(1, PAGED["pages"]))
+    table = np.zeros((B, PAGED["slots"]), np.int32)
+    for b, n in enumerate(lens):
+        used = -(-int(n) // P)
+        table[b, :used] = perm[b * PAGED["slots"]: b * PAGED["slots"] + used]
+    return (qkv.chunk(3, dim=-1)[0], kp, vp, torch.from_numpy(table).to("cuda"),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+def paged_phase(attn, kvcache):
+    """K2's paged mode at the engine's decode bucket: against its plain
+    version (check_dropped_pv), bitwise against the contiguous mode on the
+    gathered, narrowed copies, twice bitwise, lens 0 exactly 0; timed beside
+    its bound (the live fp32 rows), the plain version and the chain the
+    gathered path runs for the same result (gather, narrow, the head split's
+    copies, K2). No single PyTorch call reads paged pools: library_ms is
+    null, and masked SDPA over the already gathered copies is printed as
+    sdpa_on_gathered_ms."""
+    B, H, D = PAGED["B"], PAGED["H"], PAGED["D"]
+    q, kp, vp, table, lens = paged_inputs(20)
+    scale = D ** -0.5
+    args = (q, kp, vp, table, lens, H, scale)
+    o, lse = attn._paged_decode_kernel(*args)
+    o2, lse2 = attn._paged_decode_kernel(*args)
+    ro, rlse = attn._paged_decode_torch(*args)
+
+    def heads(t):
+        return (t.reshape(B, t.shape[1], H, D).transpose(1, 2)
+                .reshape(B * H, t.shape[1], D).contiguous())
+
+    def chain():  # the gathered path of the engine, as it ran before
+        kc = kvcache.gather_pages(kp, table).to(q.dtype)
+        vc = kvcache.gather_pages(vp, table).to(q.dtype)
+        return attn.flash_fwd_kernel(heads(q), heads(kc), heads(vc),
+                                     lens.repeat_interleave(H), False, scale)
+
+    co, clse = chain()
+    torch.cuda.synchronize()
+    tag = (f"B{B} H{H} D{D} bf16 q, fp32 pools {PAGED['pages']}x{PAGED['page']}, "
+           f"{PAGED['slots']} slots, ragged lens")
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError("K2 paged: two calls differ")
+    if not (torch.equal(heads(o), co) and torch.equal(lse, clse)):
+        raise AssertionError("K2 paged: not bitwise the contiguous mode on the "
+                             "gathered, narrowed copies")
+    if not (torch.all(o[0] == 0) and torch.all(lse[:H] == -1e30)):
+        raise AssertionError("K2 paged: a lens-0 sequence is not exactly 0")
+    ref_abs = attn._paged_decode_torch(q.float(), kp, vp.abs(), table, lens, H,
+                                       scale)[0]
+    err = check_dropped_pv("K2 paged", o, ro, ref_abs)
+    check_close("K2 paged lse", lse, rlse, dict(rtol=1e-5, atol=1e-4))
+    live = int(lens.long().sum())
+    pages_read = int(((lens.long() + PAGED["page"] - 1) // PAGED["page"]).sum())
+    nbytes = (2 * live * H * D * 4 + 2 * q.numel() * 2 + lse.numel() * 4
+              + lens.numel() * 4 + pages_read * 4)
+    bms, by = bound_ms(nbytes, 4 * live * H * D, torch.float32)
+    kc, vc = (heads(kvcache.gather_pages(p, table).to(q.dtype)) for p in (kp, vp))
+    keep = sdpa_mask(lens.repeat_interleave(H), kc.shape[1], False)
+    fields = dict(
+        max_abs_err=err, ms=time_ms(lambda: attn._paged_decode_kernel(*args)),
+        plain_ms=time_ms(lambda: attn._paged_decode_torch(*args), iters=5),
+        library_ms=None, bound_ms=bms, bound_by=by,
+        chain_ms=time_ms(chain),
+        sdpa_on_gathered_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            heads(q), kc, vc, attn_mask=keep, scale=scale)),
+        live_keys=live, path="serving")
+    line("K2_paged", shape=tag, **fields)
+    return {"decode": (tag, fields)}
 
 
 # ---------------------------------------------------------------- K3-K6
@@ -1832,9 +1953,32 @@ def xent_function_phase(xent):
 # ---------------------------------------------------------------- engine
 
 
-def engine_phase(infer, gpt, cast_floats, params, cfg):
+class counting:
+    """``module.name`` replaced by a wrapper that counts its calls, restored
+    on exit."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def wrapper(*a, **kw):
+            self.calls += 1
+            return self.real(*a, **kw)
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def engine_phase(infer, gpt, cast_floats, params, cfg, attn):
     """The full-width bf16 engine on K1/K2 against its plain path, and paged
-    decode against the contiguous forward."""
+    decode against the contiguous forward. On the kernels each decode call
+    reads the pools in place: n_layers launches of K2's paged mode, no
+    contiguous K2 and no gathered page."""
     ecfg = infer.EngineConfig(**ENGINE)
     engines = {impl: infer.InferenceEngine(params, cfg, ecfg, impl=impl)
                for impl in ("kernel", "torch")}
@@ -1848,9 +1992,17 @@ def engine_phase(infer, gpt, cast_floats, params, cfg):
     feed, lens = toks["kernel"].tolist(), [len(p) for p in prompts]
     worst, flips = 0.0, 0
     for _ in range(4):
-        logits = {i: torch.from_numpy(e.decode_logits(feed, lens, tables))
-                  for i, e in engines.items()}
-        got, ref = logits["kernel"], logits["torch"]
+        paged, flash = attn._paged_decode_kernel.launches, attn.flash_fwd_kernel.launches
+        with counting(infer.kvcache, "gather_pages") as gathers:
+            got = torch.from_numpy(engines["kernel"].decode_logits(feed, lens, tables))
+        if (attn._paged_decode_kernel.launches - paged != cfg.n_layers
+                or attn.flash_fwd_kernel.launches != flash or gathers.calls):
+            raise AssertionError(
+                f"engine decode on the kernels: {attn._paged_decode_kernel.launches - paged} "
+                f"paged launches (n_layers {cfg.n_layers}), "
+                f"{attn.flash_fwd_kernel.launches - flash} contiguous, "
+                f"{gathers.calls} gathers")
+        ref = torch.from_numpy(engines["torch"].decode_logits(feed, lens, tables))
         if got.shape != (len(prompts), cfg.vocab_size) or not torch.isfinite(got).all():
             raise AssertionError(f"engine logits malformed: {tuple(got.shape)}")
         err = max_err(got, ref)
@@ -1882,7 +2034,8 @@ def engine_phase(infer, gpt, cast_floats, params, cfg):
     torch.cuda.synchronize()
     line("engine", kernel_vs_plain_max_abs_err=worst, tol=LOGIT_TOL,
          paged_vs_forward_max_abs_err=full_err, decode_steps=4,
-         prompts=len(prompts))
+         prompts=len(prompts), paged_launches_per_decode=cfg.n_layers,
+         gathers_on_kernel_path=0)
 
 
 # --------------------------------------------------------------- serving
@@ -1907,18 +2060,22 @@ def serving_phase(infer, params, cfg, norm, attn, card):
         bat.submit(r)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    norm.ln_fwd_kernel.launches = 0
-    attn.flash_fwd_kernel.launches = 0
+    counters = {"layer_norm_fwd": norm.ln_fwd_kernel,
+                "flash_fwd": attn.flash_fwd_kernel,
+                "paged_decode": attn._paged_decode_kernel}
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     fin = bat.run(max_steps=10000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"layer_norm_fwd": norm.ln_fwd_kernel.launches,
-                "flash_fwd": attn.flash_fwd_kernel.launches}
+    launches = {k: fn.launches for k, fn in counters.items()}
     calls = eng.call_counts
     steps = calls["prefill"] + calls["decode"]
+    # prefill attends on the contiguous K2, decode on its paged mode
     expect = {"layer_norm_fwd": (2 * cfg.n_layers + 1) * steps,
-              "flash_fwd": cfg.n_layers * steps}
+              "flash_fwd": cfg.n_layers * calls["prefill"],
+              "paged_decode": cfg.n_layers * calls["decode"]}
     if len(fin) != N_REQUESTS or any(len(r.out) != r.max_new_tokens for r in fin):
         raise AssertionError("not every request finished")
     if bat.allocator.available != ecfg.num_pages - 1:
@@ -1945,8 +2102,31 @@ def serving_phase(infer, params, cfg, norm, attn, card):
 # kernel-name fragments -> the layer of the serving path they belong to
 KERNEL_GROUPS = (("K1 layer_norm_fwd", ("_ln_fwd",)),
                  ("K2 flash_fwd", ("flash_fwd_",)),
+                 ("K2 decode", ("flash_decode_",)),
                  ("gemm", ("gemm", "sm90_", "cutlass", "xmma", "cublas", "nvjet")),
                  ("gather/scatter", ("index", "gather", "scatter")))
+# the serving path's page and layout ops, by the outermost such op on the
+# host: gathers of pages, dtype casts (the gathered pages' narrowing, the
+# scatters' widening), layout copies (reshape or contiguous of a transposed
+# view) and the scatters into the pools; each with its kernels' device ms
+PAGE_OPS = (("gathers", ("aten::index",)), ("casts", ("aten::_to_copy",)),
+            ("copies", ("aten::clone",)), ("scatters", ("aten::index_put_",)))
+
+
+def op_groups_ms(prof, ops):
+    """Device ms of the outermost events of each group of host ops in
+    ``ops``, their children's kernels included."""
+    group = {name: g for g, names in ops for name in names}
+    out = {g: 0.0 for g, _ in ops}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU or evt.name not in group:
+            continue
+        parent = evt.cpu_parent
+        while parent is not None and parent.name not in group:
+            parent = parent.cpu_parent
+        if parent is None:
+            out[group[evt.name]] += evt.device_time_total / 1e3
+    return out
 
 
 def profile_phase(infer, eng, cfg):
@@ -1972,8 +2152,66 @@ def profile_phase(infer, eng, cfg):
     print("profile: " + json.dumps({
         "wall_ms": wall_ms, "device_busy_ms": busy,
         "idle_share": 1.0 - busy / wall_ms,
-        "by_layer_ms": groups,
+        "by_layer_ms": groups, "page_ops_ms": op_groups_ms(prof, PAGE_OPS),
         "top_kernels_ms": {k[:90]: v for k, v in top}}), flush=True)
+
+
+DECODE_BATCH = 32  # ENGINE's largest decode bucket
+DECODE_CALLS = 8
+
+
+def decode_profile(infer, params, cfg, seed=5):
+    """The decode step alone at ENGINE's largest bucket: DECODE_BATCH
+    sequences of 1..1000 prompt tokens (uniform, mean ~500) prefilled, then
+    DECODE_CALLS decode calls timed on the host clock (each ends in the
+    tokens' copy to the host) and DECODE_CALLS more under torch.profiler.
+    Per call: wall ms, tokens/s, device busy ms, idle share, device ms by
+    layer (KERNEL_GROUPS) and by page op (PAGE_OPS)."""
+    ecfg = infer.EngineConfig(**ENGINE)
+    eng = infer.InferenceEngine(params, cfg, ecfg)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(1, 1001, DECODE_BATCH)]
+    alloc = infer.PageAllocator(ecfg.num_pages)
+    tables = [alloc.alloc(infer.pages_for(len(p) + 2 * DECODE_CALLS + 1,
+                                          ecfg.page_size)) for p in prompts]
+    state = {"toks": eng.prefill(prompts, tables).tolist(),
+             "lens": [len(p) for p in prompts]}
+
+    def call():
+        state["toks"] = eng.decode(state["toks"], state["lens"], tables).tolist()
+        state["lens"] = [n + 1 for n in state["lens"]]
+
+    call()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_CALLS):
+        call()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / DECODE_CALLS
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DECODE_CALLS):
+            call()
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0) / DECODE_CALLS
+    by_name, groups = device_ms_by_group(prof, KERNEL_GROUPS)
+    busy = sum(by_name.values()) / DECODE_CALLS
+    if busy == 0:
+        raise AssertionError("decode profile: no CUDA events in the trace")
+    per = 1.0 / DECODE_CALLS
+    return {"batch": DECODE_BATCH, "mean_len": float(np.mean(state["lens"])),
+            "wall_ms_per_call": wall_ms, "tokens_per_s": DECODE_BATCH / wall_ms * 1e3,
+            "profiled_wall_ms_per_call": prof_ms, "device_busy_ms_per_call": busy,
+            "idle_share": 1.0 - busy / prof_ms,
+            "by_layer_ms_per_call": {k: v * per for k, v in groups.items()},
+            "page_ops_ms_per_call": {k: v * per for k, v in
+                                     op_groups_ms(prof, PAGE_OPS).items()}}
+
+
+def decode_profile_phase(infer, params, cfg):
+    print("decode_profile: " + json.dumps(decode_profile(infer, params, cfg)),
+          flush=True)
 
 
 # -------------------------------------------------------------- training
@@ -2197,7 +2435,8 @@ def launch_counters(norm, attn, mt, sm, xent):
             "dropout_mask": attn.dropout_keep_mask_kernel,
             "xent_fwd": xent.xent_fwd_kernel, "xent_bwd": xent.xent_bwd_kernel,
             "axpby": mt.axpby_kernel, "adagrad": mt.adagrad_kernel,
-            "novograd": mt.novograd_kernel}
+            "novograd": mt.novograd_kernel,
+            "paged_decode": attn._paged_decode_kernel}
 
 
 def unfused_vs_flash_phase(label, forward, batch):
@@ -3303,6 +3542,9 @@ KERNEL_ROWS = (
      "beforeholiday_tpu/ops/_pallas_mt.py:343"),
     ("novograd", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
      "beforeholiday_tpu/ops/_pallas_mt.py:514"),
+    # K2's decode path in paged mode, reading the engine's pools in place
+    ("paged_decode", "cuda", "beforeholiday_tpu_torch/csrc/flash_fwd.cu",
+     "beforeholiday_tpu/ops/attention.py:152"),
 )
 
 
@@ -3355,6 +3597,7 @@ def main():
     rspecs = o5_specs(rweights[0])
     o0_spec = make_spec(tree_flatten(rweights[0])[0])
     rows = {"layer_norm_fwd": k1_phase(norm), "flash_fwd": k2_phase(attn),
+            "paged_decode": paged_phase(attn, infer.kvcache),
             "layer_norm_bwd": k3_phase(norm), "flash_bwd": k4_phase(attn),
             "unscale": k5_phase(mt, n_bf16, n_fp32, rspecs[torch.bfloat16].padded_total),
             "adam": k6_phase(mt, n_bf16, n_fp32),
@@ -3376,11 +3619,13 @@ def main():
     flash_dropout_rung_phase(attn)
     torch.cuda.empty_cache()
 
-    engine_phase(infer, gpt, cast_floats, params, cfg)
+    engine_phase(infer, gpt, cast_floats, params, cfg, attn)
     torch.cuda.empty_cache()
     eng, serve_launches = serving_phase(infer, params, cfg, norm, attn, card)
     profile_phase(infer, eng, cfg)
     del eng
+    torch.cuda.empty_cache()
+    decode_profile_phase(infer, params, cfg)
     torch.cuda.empty_cache()
 
     counters = launch_counters(norm, attn, mt, sm, xent)
@@ -3634,11 +3879,13 @@ def main():
         for shape, (tag, f) in rows[kname].items():
             # launches: the run of the path that gives the kernel this shape
             # (the serving run, or the GPT, BERT or ResNet training run, with
-            # flash or unfused attention), or the run a row names
+            # flash or unfused attention), the run a row names, or the count
+            # a row carries
             path = f.get("path", shape if shape in launches else "serving")
             kernels.append(dict(
                 name=f"{kname}[{shape}: {tag}]", route=route, source=source,
-                replaces=replaces, launches=launches[path][kname],
+                replaces=replaces,
+                launches=f["launches"] if "launches" in f else launches[path][kname],
                 max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
                 bound_ms=f["bound_ms"], bound_by=f["bound_by"],
                 library_ms=f["library_ms"]))

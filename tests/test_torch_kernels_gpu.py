@@ -170,6 +170,209 @@ def test_k2_refuses_what_it_does_not_take(cuda, D, dtypes):
         tattn.flash_fwd_kernel(q, k, v, lens, False, 0.1)
 
 
+# ------------------------------------------------- K2's decode path (Sq < 16)
+
+
+def _check_k2(q, k, v, lens, causal, scale, rate=0.0, key=None):
+    """K2 against its plain version: bf16 at check_dropped_pv's bound (the
+    decode path keeps p in fp32, inside it), fp32 at FP32_TOL, lse at rtol
+    1e-5, atol 1e-4; a second call bitwise the first; lens 0 exactly 0."""
+    before = tattn.flash_fwd_kernel.launches
+    o, lse = tattn.flash_fwd_kernel(q, k, v, lens, causal, scale, rate, key)
+    o2, lse2 = tattn.flash_fwd_kernel(q, k, v, lens, causal, scale, rate, key)
+    assert tattn.flash_fwd_kernel.launches == before + 2
+    ro, rlse = tattn.flash_fwd_torch(q, k, v, lens, causal, scale, rate, key)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), "two calls differ"
+    if q.dtype == torch.bfloat16:
+        ref_abs = tattn.flash_fwd_torch(q.float(), k.float(), v.float().abs(),
+                                        lens, causal, scale, rate, key)[0]
+        assert bool(((o.float() - ro.float()).abs()
+                     <= 2 ** -7 * ro.float().abs() + 2 ** -8 * ref_abs).all())
+    else:
+        torch.testing.assert_close(o, ro, **FP32_TOL)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+    for row in (lens == 0).nonzero()[:, 0].tolist():
+        assert torch.all(o[row] == 0) and torch.all(lse[row] == -1e30)
+
+
+@pytest.mark.parametrize("Sq", range(1, 16))
+@pytest.mark.parametrize("causal", [False, True])
+def test_k2_decode_every_row_count(cuda, Sq, causal):
+    """Every query-row count the decode path takes, causal and not, bf16 at
+    odd counts and fp32 at even ones, ragged lengths over 600 keys (19
+    chunks)."""
+    dtype = torch.bfloat16 if Sq % 2 else torch.float32
+    q, k, v, lens = _k2_inputs(24, Sq, 600, 64, dtype, _ragged(24, 600, Sq), seed=Sq)
+    _check_k2(q, k, v, lens, causal, 0.125)
+
+
+@pytest.mark.parametrize("Sk", [1000, 1024])
+@pytest.mark.parametrize("Sq", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k2_decode_lengths_at_the_chunk_edges(cuda, Sk, Sq, dtype):
+    """Lengths 0, 1, a tile of 16 keys, a chunk of 32, one short of it and
+    one past it, two chunks and around them, half the cache, the last key
+    and every key; the chunks' partials merge in a fixed order, so two calls
+    agree bitwise."""
+    edges = [0, 1, 16, 31, 32, 33, 63, 64, 65, 511, 512, 513, Sk - 1, Sk]
+    q, k, v, lens = _k2_inputs(len(edges), Sq, Sk, 64, dtype, edges, seed=Sk + Sq)
+    _check_k2(q, k, v, lens, False, 0.125)
+
+
+@pytest.mark.parametrize("D", range(16, 129, 16))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Sq", [1, 6])
+def test_k2_decode_head_dims_with_dropout(cuda, D, dtype, Sq):
+    """Every head dim of the decode path, dropout 0.1 at one key: the same
+    Philox bits at (bh, row, key) as the plain version's mask."""
+    q, k, v, lens = _k2_inputs(12, Sq, 530, D, dtype, _ragged(12, 530, D), seed=D)
+    _check_k2(q, k, v, lens, False, D ** -0.5, 0.1, _key(D + Sq))
+
+
+@pytest.mark.parametrize("Sk", [0, 1, 32])
+@pytest.mark.parametrize("Sq", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k2_decode_caches_of_one_chunk(cuda, Sk, Sq, dtype):
+    """A cache of no key, one key or one whole chunk: one launch of the
+    chunk kernel, no merge and no workspace; sk 0 gives o = 0 and lse =
+    -1e30 on every row."""
+    q, k, v, lens = _k2_inputs(6, Sq, Sk, 64, dtype, _ragged(6, Sk, Sk), seed=Sk)
+    assert tattn.decode_workspace_floats(6, Sq, Sk, 64) == 0
+    _check_k2(q, k, v, lens, False, 0.125)
+
+
+@pytest.mark.parametrize("bh, sq, sk, d, floats", [
+    (512, 1, 1024, 64, 512 * 32 * 66),  # the engine's decode shape
+    (512, 1, 1025, 64, 512 * 33 * 66),  # one key past a chunk
+    (16, 5, 300, 64, 16 * 5 * 10 * 66),
+    (8, 15, 33, 128, 8 * 15 * 2 * 130),
+    (8, 15, 32, 128, 0),                # one chunk writes o itself
+    (8, 1, 0, 16, 0),                   # no keys: one (empty) chunk
+    (8, 16, 64, 64, 0),                 # 16 rows take the tensor-core kernel
+    (8, 1, 64, 8, 0),                   # head dim 8 takes the row kernel
+    (8, 1, 64, 40, 0),
+])
+def test_decode_workspace_size(cuda, bh, sq, sk, d, floats):
+    """The workspace the kernel source sizes: a partial (m, l, acc[d]) for
+    each (bh, query row, chunk of 32 keys) where there is more than one
+    chunk."""
+    assert tattn.decode_workspace_floats(bh, sq, sk, d) == floats
+
+
+def _paged_pools(B, H, D, n_pages, page, slots, lens, dtype, seed):
+    """fp32 pools holding values of q's dtype (as write_token stores them),
+    a shuffled table with null slots past each sequence's pages, and q as
+    the QKV projection leaves it: a (B, 1, H*D) chunk of a (B, 1, 3*H*D)
+    tensor."""
+    g = _gen(seed)
+    pools = [torch.randn(n_pages, page, H * D, generator=g, device="cuda")
+             .to(dtype).float() for _ in range(2)]
+    qkv = torch.randn(B, 1, 3 * H * D, generator=g, device="cuda").to(dtype)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    table = torch.zeros(B, slots, dtype=torch.int32)
+    for b, n in enumerate(lens):
+        used = -(-n // page)
+        table[b, :used] = perm[b * slots: b * slots + used]
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return qkv.chunk(3, dim=-1)[0], pools[0], pools[1], table.cuda(), lens
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_equals_contiguous_mode(cuda, D, dtype):
+    """The paged mode against the contiguous mode on the gathered, narrowed
+    copies: bitwise, twice; against the plain version at K2's bounds;
+    lengths 0 exactly 0. The engine's decode shape at D 64 (B 32, H 16,
+    2049 pages of 16, 64 slots)."""
+    B, H = (32, 16) if D == 64 else (6, 4)
+    lens = _ragged(B, 1024, D)
+    lens[2:6] = [1, 16, 17, 32]
+    q, kp, vp, table, ln = _paged_pools(B, H, D, 2049, 16, 64, lens, dtype, D)
+    before = tattn._paged_decode_kernel.launches
+    o, lse = tattn._paged_decode_kernel(q, kp, vp, table, ln, H, D ** -0.5)
+    o2, lse2 = tattn._paged_decode_kernel(q, kp, vp, table, ln, H, D ** -0.5)
+    assert tattn._paged_decode_kernel.launches == before + 2
+    heads = lambda t: (t.reshape(B, t.shape[1], H, D).transpose(1, 2)
+                       .reshape(B * H, t.shape[1], D).contiguous())
+    from beforeholiday_tpu_torch.infer.kvcache import gather_pages
+    kc, vc = (heads(gather_pages(p, table).to(dtype)) for p in (kp, vp))
+    co, clse = tattn.flash_fwd_kernel(heads(q), kc, vc, ln.repeat_interleave(H),
+                                      False, D ** -0.5)
+    ro, rlse = tattn._paged_decode_torch(q, kp, vp, table, ln, H, D ** -0.5)
+    torch.cuda.synchronize()
+    assert o.shape == (B, 1, H * D) and o.dtype == dtype
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), "two calls differ"
+    assert torch.equal(heads(o), co) and torch.equal(lse, clse)
+    if dtype == torch.bfloat16:
+        ref_abs = tattn._paged_decode_torch(q.float(), kp, vp.abs(), table, ln, H,
+                                            D ** -0.5)[0]
+        assert bool(((o.float() - ro.float()).abs()
+                     <= 2 ** -7 * ro.float().abs() + 2 ** -8 * ref_abs).all())
+    else:
+        torch.testing.assert_close(o, ro, **FP32_TOL)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+    assert torch.all(o[0] == 0) and torch.all(lse[:H] == -1e30)
+
+
+@pytest.mark.parametrize("kv_max", [0, 1, 16, 32, 33, 100, 1023, 1024, 5000])
+def test_paged_decode_kv_max_sizes_the_grid(cuda, kv_max):
+    """kv_max, the engine's host-known bound on the lengths, launches the
+    chunks below it only: bitwise the whole table's grid on the lengths
+    clamped at it, and the plain version's at K2's bounds; a bound past the
+    table reads the table."""
+    B, H, D = 8, 4, 64
+    lens = [0, 1, 16, 32, 33, 100, 700, 1024]
+    q, kp, vp, table, ln = _paged_pools(B, H, D, 1 + B * 64, 16, 64, lens,
+                                        torch.bfloat16, 5)
+    o, lse = tattn._paged_decode_kernel(q, kp, vp, table, ln, H, 0.125,
+                                        kv_max=kv_max)
+    wo, wlse = tattn._paged_decode_kernel(q, kp, vp, table, ln.clamp(max=kv_max),
+                                          H, 0.125)
+    ro, rlse = tattn._paged_decode_torch(q, kp, vp, table, ln, H, 0.125,
+                                         kv_max=kv_max)
+    ref_abs = tattn._paged_decode_torch(q.float(), kp, vp.abs(), table, ln, H,
+                                        0.125, kv_max=kv_max)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(o, wo) and torch.equal(lse, wlse)
+    assert bool(((o.float() - ro.float()).abs()
+                 <= 2 ** -7 * ro.float().abs() + 2 ** -8 * ref_abs).all())
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+    if kv_max == 0:
+        assert torch.all(o == 0) and torch.all(lse == -1e30)
+
+
+def test_paged_decode_empty_table(cuda):
+    """A table of no slot (sk 0): every sequence empty, o = 0 and lse =
+    -1e30, no table entry read."""
+    q, kp, vp, table, ln = _paged_pools(3, 2, 16, 9, 4, 0, [0, 0, 0],
+                                        torch.float32, 2)
+    o, lse = tattn._paged_decode_kernel(q, kp, vp, table, ln, 2, 0.25)
+    torch.cuda.synchronize()
+    assert torch.all(o == 0) and torch.all(lse == -1e30)
+
+
+@pytest.mark.parametrize("what", ["int64_table", "fp16_q", "two_rows", "head_dim_8",
+                                  "bf16_pool", "strided_pool", "negative_kv_max"])
+def test_paged_decode_refuses_what_it_does_not_take(cuda, what):
+    H, D = 2, 8 if what == "head_dim_8" else 16
+    q, kp, vp, table, ln = _paged_pools(3, H, D, 9, 4, 2, [3, 8, 0],
+                                        torch.float32, 1)
+    kw = {"kv_max": -1} if what == "negative_kv_max" else {}
+    if what == "int64_table":
+        table = table.long()
+    elif what == "fp16_q":
+        q = q.half()
+    elif what == "two_rows":
+        q = torch.cat([q, q], 1)
+    elif what == "bf16_pool":
+        kp = kp.bfloat16()
+    elif what == "strided_pool":
+        kp = kp.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError):
+        tattn._paged_decode_kernel(q, kp, vp, table, ln, H, 0.25, **kw)
+
+
 # ------------------------------------------------------------ the engine
 
 
@@ -201,6 +404,72 @@ def test_engine_kernels_match_plain_path(cuda):
         np.testing.assert_allclose(logits["kernel"], logits["torch"],
                                    atol=2e-2, rtol=0)
         toks = logits["kernel"].argmax(-1).tolist()
+        lens = [n + 1 for n in lens]
+
+
+def test_engine_decode_reads_pages_in_place(cuda, monkeypatch):
+    """On the kernels each decode call launches the paged mode once a layer
+    and gathers no page; the plain engine gathers, narrows and runs the
+    contiguous plain path, and the two agree."""
+    from beforeholiday_tpu_torch.infer import kvcache
+
+    cfg = gpt.GPTConfig(vocab_size=512, seq_len=512, d_model=128, n_heads=2,
+                        n_layers=2, dtype=torch.bfloat16)
+    params = gpt.init(cfg, _gen(1), device=cuda)
+    ecfg = EngineConfig(max_seq_len=512, page_size=16, num_pages=97,
+                        batch_buckets=(4,), prefill_seq_buckets=(128, 512),
+                        weights_dtype="bfloat16")
+    engines = {impl: InferenceEngine(params, cfg, ecfg, impl=impl)
+               for impl in ("kernel", "torch")}
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (300, 1, 257)]
+    alloc = PageAllocator(ecfg.num_pages)
+    tables = [alloc.alloc(pages_for(len(p) + 2, 16)) for p in prompts]
+    toks = {i: e.prefill(prompts, tables) for i, e in engines.items()}
+    gathers = []
+    real_gather = kvcache.gather_pages
+    monkeypatch.setattr(kvcache, "gather_pages",
+                        lambda *a: gathers.append(1) or real_gather(*a))
+    lens = [len(p) for p in prompts]
+    paged, flash = tattn._paged_decode_kernel.launches, tattn.flash_fwd_kernel.launches
+    got = engines["kernel"].decode_logits(toks["kernel"].tolist(), lens, tables)
+    assert tattn._paged_decode_kernel.launches - paged == cfg.n_layers
+    assert tattn.flash_fwd_kernel.launches == flash and not gathers
+    ref = engines["torch"].decode_logits(toks["kernel"].tolist(), lens, tables)
+    assert len(gathers) == 2 * cfg.n_layers
+    np.testing.assert_allclose(got, ref, atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("n_heads, d_model", [(4, 32), (2, 512)])
+def test_engine_decodes_head_dims_off_the_decode_path(cuda, n_heads, d_model):
+    """Head dims 8 and 256, which K2's decode path is not built for, decode
+    on the contiguous K2 (its row kernel) over the gathered copy: one launch
+    a layer and no paged one, logits as the plain engine's."""
+    cfg = gpt.GPTConfig(vocab_size=512, seq_len=128, d_model=d_model,
+                        n_heads=n_heads, n_layers=2, dtype=torch.bfloat16)
+    params = gpt.init(cfg, _gen(2), device=cuda)
+    ecfg = EngineConfig(max_seq_len=128, page_size=16, num_pages=33,
+                        batch_buckets=(4,), prefill_seq_buckets=(32, 128),
+                        weights_dtype="bfloat16")
+    engines = {impl: InferenceEngine(params, cfg, ecfg, impl=impl)
+               for impl in ("kernel", "torch")}
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (20, 1, 90)]
+    alloc = PageAllocator(ecfg.num_pages)
+    tables = [alloc.alloc(pages_for(len(p) + 3, 16)) for p in prompts]
+    toks = engines["kernel"].prefill(prompts, tables).tolist()
+    engines["torch"].prefill(prompts, tables)
+    lens = [len(p) for p in prompts]
+    for _ in range(3):
+        paged, flash = (tattn._paged_decode_kernel.launches,
+                        tattn.flash_fwd_kernel.launches)
+        got = engines["kernel"].decode_logits(toks, lens, tables)
+        assert tattn._paged_decode_kernel.launches == paged
+        assert tattn.flash_fwd_kernel.launches - flash == cfg.n_layers
+        ref = engines["torch"].decode_logits(toks, lens, tables)
+        assert got.shape == (3, 512) and np.isfinite(got).all()
+        np.testing.assert_allclose(got, ref, atol=2e-2, rtol=0)
+        toks = got.argmax(-1).tolist()
         lens = [n + 1 for n in lens]
 
 
