@@ -9,7 +9,8 @@ step; slice 3, the O5 BERT + FusedLAMB pretraining step; slice 4, the
 ImageNet ResNet-50 training step at O5 and O0 with FusedSGD; slice 5, the
 unfused-attention GPT and BERT steps; slice 6, dropout; slice 7, the fused
 label-smoothing cross entropy; slice 8, the rest of the optimizer family;
-slice 11, the guarded data-parallel ResNet step):
+slice 11, the guarded data-parallel ResNet step; slice 13, amp O1-O4 and
+the DCGAN example):
 
 - ``beforeholiday_tpu_torch.ops``     — LayerNorm/RMSNorm forward and backward
   (kernels K1/K3, Triton), flash attention forward and backward (K2/K4, CUDA
@@ -18,8 +19,9 @@ slice 11, the guarded data-parallel ResNet step):
   masked / causal softmax family (K11/K12, Triton).
 - ``beforeholiday_tpu_torch.contrib`` — ``softmax_cross_entropy_loss``, the
   fused label-smoothing cross entropy (kernels K14/K15, Triton).
-- ``beforeholiday_tpu_torch.amp``     — opt levels O0/O5, device-side loss
-  scaling, ``scaled_value_and_grad``.
+- ``beforeholiday_tpu_torch.amp``     — opt levels O0-O5, device-side loss
+  scaling, ``scaled_value_and_grad``, the O1/O4 autocast scope and tags,
+  ``amp.functional``'s cast lists.
 - ``beforeholiday_tpu_torch.optimizers`` — ``FusedAdam``, ``FusedLAMB``,
   ``FusedSGD``, ``MasterWeights`` and ``FusedMixedPrecisionLamb``.
 - ``beforeholiday_tpu_torch.models``  — the ResNet family.
@@ -29,7 +31,7 @@ slice 11, the guarded data-parallel ResNet step):
   sentinel and rollback state machine.
 - ``beforeholiday_tpu_torch.tune``    — knob resolution (``UNSET``).
 - ``beforeholiday_tpu_torch.examples.imagenet`` — the ImageNet ResNet
-  trainer (``main_amp``).
+  trainer (``main_amp``); ``examples.dcgan`` — the multi-loss DCGAN.
 - ``beforeholiday_tpu_torch.infer``   — paged KV cache, bucketed inference
   engine, continuous batching.
 - ``beforeholiday_tpu_torch.monitor`` — the strict bucket-signature gate,

@@ -9,10 +9,14 @@ one :class:`LossScaler` per loss. :func:`scaled_value_and_grad` is the
 functional ``amp.scale_loss``: ``(loss, grads, found_inf, new_scaler_state)``
 with no host sync.
 
-Ported opt levels: O0 (fp32) and O5 (bf16 storage, fp32 masters, static
-loss scale 1.0), both with ``arena_native``. O1 and O4 need the autocast
-scope, O2 and O3 fp16 kernels, and O6 the quantized fp8 tier; none is
-ported, so they raise ``NotImplementedError``, as does ``tuned=True`` (the
+Opt levels O0-O5, as in the JAX package: O0 fp32; O2 (fp16) and O5 (bf16)
+low-precision storage with fp32 masters and norm leaves, ``arena_native``
+or on a tree; O3 fp16 storage and no masters; O1 (fp16) and O4 (bf16) fp32
+storage whose ``apply`` casts the params, norm leaves kept, to the compute
+dtype at every call and runs the model inside the ``autocast`` scope, so
+the tagged ops follow the reference's lists (``ops._autocast``). O1 and O2
+scale the loss dynamically. O6 needs the quantized fp8 tier, which is not
+ported, so it raises ``NotImplementedError``, as does ``tuned=True`` (the
 autotuner is not ported). ``has_state`` models (ResNet's BN running stats)
 pass their state through uncast in both directions, and
 ``scaled_value_and_grad(has_aux=True)`` returns the loss function's aux
@@ -23,12 +27,14 @@ optimizer's view path).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from beforeholiday_tpu_torch.amp.scaler import LossScaler
+from beforeholiday_tpu_torch.ops._autocast import autocast
 from beforeholiday_tpu_torch.ops._autocast import cast_floats as _cast_floats
 from beforeholiday_tpu_torch.ops.arena import (
     PackedParams,
@@ -86,10 +92,6 @@ opt_levels: Dict[str, Properties] = {
 
 # what each unported level needs before it can run
 _UNPORTED = {
-    "O1": "the autocast scope (the per-op cast policy of O1/O4)",
-    "O2": "fp16 kernels (K1-K6 take fp32 and bf16 on the path)",
-    "O3": "fp16 kernels (K1-K6 take fp32 and bf16 on the path)",
-    "O4": "the autocast scope (the per-op cast policy of O1/O4)",
     "O6": "the quantized fp8 tier (ops.quantized and the amax history)",
 }
 
@@ -105,20 +107,27 @@ def _default_keep_fp32(path: Tuple[Any, ...]) -> bool:
     return False
 
 
+def _cast_leaves(tree, dtype: torch.dtype, keep=None, kept=None):
+    """``tree`` with its floating leaves cast to ``dtype``, but those whose
+    path ``keep`` picks: they go to ``kept``, or stay as they are."""
+    leaves, treedef = tree_flatten(tree)
+    out = []
+    for path, leaf in zip(tree_paths(tree), leaves):
+        if not (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()):
+            out.append(leaf)
+        elif keep is not None and keep(path):
+            out.append(leaf if kept is None else leaf.to(kept))
+        else:
+            out.append(leaf.to(dtype))
+    return tree_unflatten(treedef, out)
+
+
 def _cast_params(params, policy: Properties, keep_fp32_mask):
     if policy.cast_model_type is None:
         return params
     keep = keep_fp32_mask if keep_fp32_mask is not None else _default_keep_fp32
-    leaves, treedef = tree_flatten(params)
-    out = []
-    for path, leaf in zip(tree_paths(params), leaves):
-        if not (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()):
-            out.append(leaf)
-        elif policy.keep_batchnorm_fp32 and keep(path):
-            out.append(leaf.to(torch.float32))
-        else:
-            out.append(leaf.to(policy.cast_model_type))
-    return tree_unflatten(treedef, out)
+    return _cast_leaves(params, policy.cast_model_type,
+                        keep if policy.keep_batchnorm_fp32 else None, torch.float32)
 
 
 @dataclasses.dataclass
@@ -219,7 +228,7 @@ def initialize(
     if opt_level in _UNPORTED:
         raise NotImplementedError(
             f"amp opt level {opt_level} needs {_UNPORTED[opt_level]}, which is "
-            "not ported yet; O0 and O5 are")
+            "not ported yet; O0-O5 are")
     policy = opt_levels[opt_level]
     overrides = {}
     if keep_batchnorm_fp32 is not None:
@@ -233,9 +242,12 @@ def initialize(
 
     cast_params = _cast_params(params, policy, keep_fp32_mask)
     if arena_native:
-        if optimizer is not None and not policy.master_weights:
+        if policy.patch_torch_functions or (
+                optimizer is not None and not policy.master_weights):
+            # without MasterWeights a raw optimizer would take the two
+            # arenas for two leaves, its per-tensor terms per arena
             raise ValueError(
-                "arena_native requires a master-weights opt level (O5, or "
+                "arena_native requires a master-weights opt level (O2/O5, or "
                 f"master_weights=True); {policy.opt_level} with "
                 f"master_weights={policy.master_weights} would hand "
                 "PackedParams to the raw optimizer"
@@ -243,7 +255,7 @@ def initialize(
         cast_params = PackedParams.pack(cast_params)
     amp_apply = make_apply(policy, apply_fn,
                            cast_model_outputs=cast_model_outputs,
-                           has_state=has_state)
+                           has_state=has_state, keep_fp32_mask=keep_fp32_mask)
     opt = optimizer
     if opt is not None and policy.master_weights:
         opt = MasterWeights(opt)
@@ -257,29 +269,47 @@ def initialize(
 
 def make_apply(policy: Properties, apply_fn: Callable, *,
                cast_model_outputs: Optional[torch.dtype] = torch.float32,
-               has_state: bool = False) -> Callable:
+               has_state: bool = False,
+               keep_fp32_mask: Optional[Callable] = None) -> Callable:
     """Wrap ``apply_fn`` with the policy's input and output casts (the
     params are used as given: they are already in storage dtype), for
     example an eval-mode forward sharing an ``AmpModel``'s params. With
     ``has_state`` the model state (the first input) and the new state in
-    the output pass through uncast."""
-    if policy.patch_torch_functions or policy.quantized:
+    the output pass through uncast.
+
+    At O1/O4 (``patch_torch_functions``) the fp32-stored params are cast to
+    the compute dtype at every call, the leaves ``keep_fp32_mask`` (default:
+    the norm leaves) picks kept fp32, and ``apply_fn`` runs inside
+    ``autocast(compute_dtype)``: the tagged ops then follow the reference's
+    lists (norms and losses re-promote to fp32, dense and attention stay low
+    precision)."""
+    if policy.quantized:
         raise NotImplementedError(
-            f"{policy.opt_level}'s apply needs the autocast scope or the "
-            "quantized tier, which are not ported yet")
+            f"{policy.opt_level}'s apply needs the quantized tier, which is "
+            "not ported yet")
     compute_dtype = policy.compute_dtype
+    keep = keep_fp32_mask if keep_fp32_mask is not None else _default_keep_fp32
 
     def amp_apply(p, *inputs, **kwinputs):
         if isinstance(p, PackedParams):
             p = p.unpack()  # views of the arenas, no copy
         if has_state:
             model_state, *inputs = inputs
+        if policy.patch_torch_functions:
+            # norm leaves stay fp32: O1 keeps the model's weights fp32 and
+            # the FP32_FUNCS read them uncast; casting gamma/beta down first
+            # would round them before float_function re-promotes them
+            p = _cast_leaves(p, compute_dtype, keep)
+            scope = autocast(compute_dtype)
+        else:
+            scope = contextlib.nullcontext()
         inputs = _cast_floats(inputs, compute_dtype)
         kwinputs = _cast_floats(kwinputs, compute_dtype)
-        if has_state:
-            out, new_state = apply_fn(p, model_state, *inputs, **kwinputs)
-        else:
-            out = apply_fn(p, *inputs, **kwinputs)
+        with scope:
+            if has_state:
+                out, new_state = apply_fn(p, model_state, *inputs, **kwinputs)
+            else:
+                out = apply_fn(p, *inputs, **kwinputs)
         if cast_model_outputs is not None:
             out = _cast_floats(out, cast_model_outputs)
         return (out, new_state) if has_state else out

@@ -27,17 +27,17 @@
 // * flash_bwd_delta_kernel: one warp per query row writes dd = delta - dlse
 //   in fp32. The TPU recomputes delta in every block (:298); a pre-pass reads
 //   do and o once. dlse is read here only, and only when it is given.
-// * dq: one block per 128 query rows (bf16) or 8 rows (CUDA cores) walks
+// * dq: one block per 128 query rows (bf16, fp16) or 8 rows (CUDA cores) walks
 //   the key tiles up to the block's last causal diagonal, recomputes p and
 //   ds in registers and accumulates ds k in fp32. Recomputing s and dp here
 //   instead of adding dq across the dk/dv blocks with atomics costs two of
 //   the five products again (7/5 of the bound's operations) and keeps two
 //   calls bitwise equal.
-// * dk/dv: one block per 64 keys (bf16) or 8 keys (CUDA cores) walks the
+// * dk/dv: one block per 64 keys (bf16, fp16) or 8 keys (CUDA cores) walks the
 //   query tiles from its first causal diagonal, and accumulates p^T do and
 //   ds^T q. Both skip dead tiles (the TPU's :323 and :362) and keys past lens
 //   give exact zeros.
-// The tensor-core kernels (bf16, D in 16..128 step 16) keep both units busy,
+// The tensor-core kernels (bf16 or fp16, D in 16..128 step 16) keep both units busy,
 // as the bound asks: tiles arrive by TMA (3-D tensor maps over (D, S, BH):
 // a ragged edge reads zeros, never the next head's rows) into a ring of
 // shared-memory stages, the next tile landing while this one computes, in
@@ -49,12 +49,15 @@
 // heaviest first; and with dropout the two lanes that share a 2x2 hash tile
 // split its Philox call (keep_tiles_shared), so each pass hashes each live
 // pair once, while the tile's s and dp are still on the tensor cores. They
-// round p and ds to bf16 for their products, as the TPU kernel rounds them
-// to the operand dtype; sums stay fp32. The CUDA-core
-// row kernels take fp32 at every head dim and bf16 at the others (8..512): a
+// round p and ds to the operands' type (bf16 or fp16) for their products, as
+// the TPU kernel rounds them to the operand dtype; sums stay fp32. fp16 shares
+// bf16's layouts and fragments (both 16 bits); at a large loss scale its ds
+// and its stored dq, dk, dv can overflow to inf, which the unscale's
+// overflow flag then catches, as on the TPU. The CUDA-core row kernels take
+// fp32 at every head dim and bf16 and fp16 at the others (8..512): a
 // lane owns output columns lane + 32 c, c < kCols = 1, 2, 4, 8 or 16 by head
 // dim, with the ragged last one masked, the tiles sit in dynamic shared
-// memory (164 KB at D 512), and the bf16 variant rounds p and ds as the
+// memory (164 KB at D 512), and the half variants round p and ds as the
 // tensor-core kernels do. Rows with lens = 0 (lse = -1e30) never reach an
 // exp: their key range is empty, so their gradients are exact zeros, never
 // NaN. Still open (later work): overlapping one tile's softmax with the
@@ -73,11 +76,11 @@ constexpr int kDeltaRows = 8;          // query rows per block of the pre-pass
 constexpr int kRowsB = 2;              // rows kernels: query rows (dq) or keys (dkv) per warp
 constexpr int kBlkB = kWarps * kRowsB; // rows kernels: rows or keys per block
 constexpr int kTile = 32;              // rows kernels: keys (dq) or queries (dkv) per tile
-constexpr int kStages = 2;             // bf16: tiles in flight in the ring
+constexpr int kStages = 2;             // tensor cores: tiles in flight in the ring
 constexpr int kDqWarps = 8;
-constexpr int kDqBQ = 16 * kDqWarps;   // bf16 dq: query rows per block
+constexpr int kDqBQ = 16 * kDqWarps;   // tensor-core dq: query rows per block
 constexpr int kDkvWarps = 4;
-constexpr int kDkvBK = 16 * kDkvWarps; // bf16 dk/dv: keys per block
+constexpr int kDkvBK = 16 * kDkvWarps; // tensor-core dk/dv: keys per block
 // keys per tile of dq and queries per tile of dk/dv, by head dim: the
 // accumulators of a 16-row slice grow with D, the tile's scores shrink
 template <int D>
@@ -344,7 +347,7 @@ flash_bwd_dkv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------- bf16 (tensor cores)
+// ------------------------------------------- bf16 and fp16 (tensor cores)
 
 // The tensor-core kernels stream tiles through a ring of kStages shared-
 // memory stages filled by TMA (tile i + kStages - 1 loads while tile i
@@ -353,7 +356,7 @@ flash_bwd_dkv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // every product as a wgmma m64nNk16 of one warpgroup over 64 rows: the two
 // recomputed products (s and dp) read both operands from shared memory, the
 // gradient products take ds or p from registers (the accumulators rounded
-// to bf16 in place) and read the other operand MN-major from the one
+// to T in place) and read the other operand MN-major from the one
 // row-major tile through the transpose bit. p = 2^(s scale log2(e) - lse
 // log2(e)): one FFMA and one ex2. Only a warp's tiles that hold the causal
 // diagonal, lens[bh] or (dk/dv) the query edge sq evaluate the mask (to
@@ -363,14 +366,14 @@ flash_bwd_dkv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // (rows r0 = g, r1 = g + 8, keys 2t, 2t+1 of each 8-key block, as K2). Q and
 // dO stay in shared memory for the whole walk; K and V tiles of dq_bk<D>()
 // keys stream through the ring. Causal blocks launch heaviest first.
-template <int D, bool kDrop>
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kDqWarps * 32, D <= 64 ? 2 : 1)
 flash_bwd_dq_mma_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap,
                         const __grid_constant__ CUtensorMap domap,
                         const float* __restrict__ lse, const float* __restrict__ dd,
-                        const int* __restrict__ lens, __nv_bfloat16* __restrict__ dq,
+                        const int* __restrict__ lens, T* __restrict__ dq,
                         int sq, int sk, float scale, int causal, DropArgs drop) {
   constexpr int kBK = dq_bk<D>();
   constexpr int kTile = sw_bytes<kBK, D>();  // one K or V tile
@@ -439,8 +442,8 @@ flash_bwd_dq_mma_kernel(const __grid_constant__ CUtensorMap qmap,
     const char* vs = ks + kTile;
     if (t0 < gend) {
       float s[kBK / 8][4], dp[kBK / 8][4];
-      wgmma_ss_rows<D, kDqBQ, kBK>(s, qs, m0, ks);
-      wgmma_ss_rows<D, kDqBQ, kBK>(dp, dos, m0, vs);
+      wgmma_ss_rows<T, D, kDqBQ, kBK>(s, qs, m0, ks);
+      wgmma_ss_rows<T, D, kDqBQ, kBK>(dp, dos, m0, vs);
       uint32_t keep[kBK / 32];  // the dropout hash, while the products run
       if constexpr (kDrop) keep_bits<kBK / 8>(keep, dkey, bh, r0, t0 + 2 * t, lane, false);
       wgmma_wait<0>();
@@ -473,10 +476,10 @@ flash_bwd_dq_mma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
       uint32_t a[kBK / 16][4];
 #pragma unroll
-      for (int kc = 0; kc < kBK / 16; ++kc) pack_c_as_a(a[kc], s[2 * kc], s[2 * kc + 1]);
+      for (int kc = 0; kc < kBK / 16; ++kc) pack_c_as_a<T>(a[kc], s[2 * kc], s[2 * kc + 1]);
       wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < kBK / 16; ++kc) wgmma_rs_cols<D, kBK>(acc, a[kc], ks, kc);
+      for (int kc = 0; kc < kBK / 16; ++kc) wgmma_rs_cols<T, D, kBK>(acc, a[kc], ks, kc);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -490,8 +493,7 @@ flash_bwd_dq_mma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (row >= sq) continue;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(dq + qoff + (size_t)row * D + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[dt][2 * h], acc[dt][2 * h + 1]);
+      store2(dq + qoff + (size_t)row * D + dt * 8 + 2 * t, acc[dt][2 * h], acc[dt][2 * h + 1]);
   }
 }
 
@@ -505,15 +507,15 @@ flash_bwd_dq_mma_kernel(const __grid_constant__ CUtensorMap qmap,
 // walk; Q, dO and their rows' lse and dd stream through the ring. Causal
 // blocks of early keys, which see the most queries, have the lowest index
 // and launch first.
-template <int D, bool kDrop>
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kDkvWarps * 32, D <= 64 ? 3 : 2)
 flash_bwd_dkv_mma_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap,
                          const __grid_constant__ CUtensorMap domap,
                          const float* __restrict__ lse, const float* __restrict__ dd,
-                         const int* __restrict__ lens, __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int sq, int sk, float scale,
+                         const int* __restrict__ lens, T* __restrict__ dk,
+                         T* __restrict__ dv, int sq, int sk, float scale,
                          int causal, DropArgs drop) {
   constexpr int kBQ = dkv_bq<D>();
   constexpr int kThreads = kDkvWarps * 32;
@@ -594,8 +596,8 @@ flash_bwd_dkv_mma_kernel(const __grid_constant__ CUtensorMap qmap,
     // (causal) a tile whose queries all precede the block's keys adds nothing
     if (!(causal && t0 + kBQ - 1 < k0)) {
       float s[kBQ / 8][4], dp[kBQ / 8][4];
-      wgmma_ss_rows<D, kDkvBK, kBQ>(s, kss, 0, qs);
-      wgmma_ss_rows<D, kDkvBK, kBQ>(dp, vss, 0, dos);
+      wgmma_ss_rows<T, D, kDkvBK, kBQ>(s, kss, 0, qs);
+      wgmma_ss_rows<T, D, kDkvBK, kBQ>(dp, vss, 0, dos);
       uint32_t keep[kBQ / 32];  // the dropout hash, while the products run
       if constexpr (kDrop) keep_bits<kBQ / 8>(keep, dkey, bh, key0, t0 + 2 * t, lane, true);
       wgmma_wait<0>();
@@ -634,14 +636,14 @@ flash_bwd_dkv_mma_kernel(const __grid_constant__ CUtensorMap qmap,
       uint32_t ap[kBQ / 16][4], ads[kBQ / 16][4];
 #pragma unroll
       for (int kc = 0; kc < kBQ / 16; ++kc) {
-        pack_c_as_a(ap[kc], s[2 * kc], s[2 * kc + 1]);
-        pack_c_as_a(ads[kc], dp[2 * kc], dp[2 * kc + 1]);
+        pack_c_as_a<T>(ap[kc], s[2 * kc], s[2 * kc + 1]);
+        pack_c_as_a<T>(ads[kc], dp[2 * kc], dp[2 * kc + 1]);
       }
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < kBQ / 16; ++kc) {
-        wgmma_rs_cols<D, kBQ>(dva, ap[kc], dos, kc);
-        wgmma_rs_cols<D, kBQ>(dka, ads[kc], qs, kc);
+        wgmma_rs_cols<T, D, kBQ>(dva, ap[kc], dos, kc);
+        wgmma_rs_cols<T, D, kBQ>(dka, ads[kc], qs, kc);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -658,10 +660,8 @@ flash_bwd_dkv_mma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
       const size_t o = koff + (size_t)key * D + dt * 8 + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(dk + o) =
-          __floats2bfloat162_rn(dka[dt][2 * h], dka[dt][2 * h + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o) =
-          __floats2bfloat162_rn(dva[dt][2 * h], dva[dt][2 * h + 1]);
+      store2(dk + o, dka[dt][2 * h], dka[dt][2 * h + 1]);
+      store2(dv + o, dva[dt][2 * h], dva[dt][2 * h + 1]);
     }
   }
 }
@@ -737,31 +737,30 @@ int launch_rows_any(const Args& a) {
   }
 }
 
-template <int D, bool kDrop>
+template <typename B, int D, bool kDrop>
 int launch_mma(const Args& a) {
-  using B = __nv_bfloat16;
   int err = launch_delta<B, D>(a);
   if (err) return err;
   const B* q = static_cast<const B*>(a.q);
   const B* k = static_cast<const B*>(a.k);
   const B* v = static_cast<const B*>(a.v);
   const B* dout = static_cast<const B*>(a.dout);
-  auto dq_kernel = flash_bwd_dq_mma_kernel<D, kDrop>;
-  auto dkv_kernel = flash_bwd_dkv_mma_kernel<D, kDrop>;
+  auto dq_kernel = flash_bwd_dq_mma_kernel<B, D, kDrop>;
+  auto dkv_kernel = flash_bwd_dkv_mma_kernel<B, D, kDrop>;
   constexpr size_t dq_bytes = dq_smem<D>(), dkv_bytes = dkv_smem<D>();
   // the maps of each kernel's boxes: dq's 128 query rows and dq_bk<D>()
   // keys, dk/dv's 64 keys and dkv_bq<D>() query rows
   CUtensorMap q1, do1, k1, v1, q2, do2, k2, v2;
   err = allow_smem(dq_kernel, dq_bytes);
   if (!err) err = allow_smem(dkv_kernel, dkv_bytes);
-  if (!err) err = make_tile_map(&q1, q, a.bh, a.sq, D, kDqBQ);
-  if (!err) err = make_tile_map(&do1, dout, a.bh, a.sq, D, kDqBQ);
-  if (!err) err = make_tile_map(&k1, k, a.bh, a.sk, D, dq_bk<D>());
-  if (!err) err = make_tile_map(&v1, v, a.bh, a.sk, D, dq_bk<D>());
-  if (!err) err = make_tile_map(&q2, q, a.bh, a.sq, D, dkv_bq<D>());
-  if (!err) err = make_tile_map(&do2, dout, a.bh, a.sq, D, dkv_bq<D>());
-  if (!err) err = make_tile_map(&k2, k, a.bh, a.sk, D, kDkvBK);
-  if (!err) err = make_tile_map(&v2, v, a.bh, a.sk, D, kDkvBK);
+  if (!err) err = make_tile_map<B>(&q1, q, a.bh, a.sq, D, kDqBQ);
+  if (!err) err = make_tile_map<B>(&do1, dout, a.bh, a.sq, D, kDqBQ);
+  if (!err) err = make_tile_map<B>(&k1, k, a.bh, a.sk, D, dq_bk<D>());
+  if (!err) err = make_tile_map<B>(&v1, v, a.bh, a.sk, D, dq_bk<D>());
+  if (!err) err = make_tile_map<B>(&q2, q, a.bh, a.sq, D, dkv_bq<D>());
+  if (!err) err = make_tile_map<B>(&do2, dout, a.bh, a.sq, D, dkv_bq<D>());
+  if (!err) err = make_tile_map<B>(&k2, k, a.bh, a.sk, D, kDkvBK);
+  if (!err) err = make_tile_map<B>(&v2, v, a.bh, a.sk, D, kDkvBK);
   if (err) return err;
   dq_kernel<<<dim3(a.bh, (a.sq + kDqBQ - 1) / kDqBQ), kDqWarps * 32, dq_bytes, a.stream>>>(
       q1, k1, v1, do1, a.lse, a.dd, a.lens, static_cast<B*>(a.dq), a.sq, a.sk, a.scale,
@@ -776,10 +775,10 @@ int launch_mma(const Args& a) {
 
 template <typename T, bool kDrop>
 int launch(const Args& a) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (kHalfType<T>) {
 #define FLASH_BWD_CASE(DIM) \
   case DIM:                 \
-    return launch_mma<DIM, kDrop>(a);
+    return launch_mma<T, DIM, kDrop>(a);
     switch (a.d) {
       FLASH_BWD_CASE(16)
       FLASH_BWD_CASE(32)
@@ -804,9 +803,9 @@ int launch_drop(const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q, o, dout, dq (bh, sq, d); k, v, dk, dv
-// (bh, sk, d), all contiguous and 16-byte aligned, d in 8..512; lse and dd
-// (bh, sq) fp32, dd scratch; dlse (bh, sq) fp32 or null; lens (bh,) int32.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. q, o, dout, dq (bh, sq,
+// d); k, v, dk, dv (bh, sk, d), all contiguous and 16-byte aligned, d in
+// 8..512; lse and dd (bh, sq) fp32, dd scratch; dlse (bh, sq) fp32 or null; lens (bh,) int32.
 // key: null for no dropout, else the forward's int64 (2,) key on the card,
 // with threshold = round((1 - rate) 2^24) and inv_keep = 1 / (1 - rate).
 // Returns the CUDA error of the first launch that failed (0 on success).
@@ -822,5 +821,6 @@ extern "C" int flash_bwd(int dtype, const void* q, const void* k, const void* v,
                DropArgs{key, threshold, inv_keep}, static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return launch_drop<float>(a);
   if (dtype == 1) return launch_drop<__nv_bfloat16>(a);
+  if (dtype == 2) return launch_drop<__half>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,9 +10,12 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "philox.cuh"
 
@@ -20,16 +23,28 @@ namespace {
 
 constexpr float kNeg = -1e30f;  // mask fill: large negative keeps exp/max NaN-free
 
+// the two-byte types the tensor-core kernels take (bf16 and fp16): both 16
+// bits, so the shared-memory layouts, swizzles and fragments are the same and
+// only the conversions, the tensor maps' type and wgmma's type suffix differ
+template <typename T>
+constexpr bool kHalfType =
+    std::is_same<T, __nv_bfloat16>::value || std::is_same<T, __half>::value;
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-// x rounded to T's precision and back: identity for fp32, one bf16 rounding
-// for bf16 (the tensor-core kernels round p and ds so for their products)
+// x rounded to T's precision and back: identity for fp32, one rounding for
+// bf16 or fp16 (the tensor-core kernels round p and ds so for their products)
 __device__ __forceinline__ float round_to(float x, float*) { return x; }
 __device__ __forceinline__ float round_to(float x, __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
 }
+__device__ __forceinline__ float round_to(float x, __half*) {
+  return __half2float(__float2half_rn(x));
+}
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -43,9 +58,22 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
+// two fp32 values rounded to T (bf16 or fp16) as one 32-bit pair, lo first
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+
+// the pair (lo, hi) rounded to T, stored at p (4-byte aligned)
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack2<T>(lo, hi);
 }
 
 // The tensor-core fragments, per warp (g = lane / 4, t = lane % 4): an
@@ -55,15 +83,16 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // and 2t+8, 2t+9 (regs 2, 3). wgmma keeps both layouts warp by warp (warp w
 // of a warpgroup owns rows 16 w .. 16 w + 15 of its 64), the layouts of
 // mma.sync m16n8k16. So the accumulators of two neighbouring 8-column
-// blocks, rounded to bf16 pairwise, are the A operand of the next product
-// over those 16 columns: the A fragment made of accumulator blocks lo and hi
-// (columns 0-7 and 8-15), rounded to bf16
+// blocks, rounded to T (bf16 or fp16) pairwise, are the A operand of the
+// next product over those 16 columns: the A fragment made of accumulator
+// blocks lo and hi (columns 0-7 and 8-15), rounded to T
+template <typename T>
 __device__ __forceinline__ void pack_c_as_a(uint32_t (&a)[4], const float (&lo)[4],
                                             const float (&hi)[4]) {
-  a[0] = pack_bf16x2(lo[0], lo[1]);
-  a[1] = pack_bf16x2(lo[2], lo[3]);
-  a[2] = pack_bf16x2(hi[0], hi[1]);
-  a[3] = pack_bf16x2(hi[2], hi[3]);
+  a[0] = pack2<T>(lo[0], lo[1]);
+  a[1] = pack2<T>(lo[2], lo[3]);
+  a[2] = pack2<T>(hi[0], hi[1]);
+  a[3] = pack2<T>(hi[2], hi[3]);
 }
 
 // ------------------------------------------ asynchronous vector loads
@@ -99,7 +128,7 @@ __device__ __forceinline__ void load_vec_async(float* dst, const float* src, int
   }
 }
 
-// ------------------------------------------ wgmma tiles (bf16, 128B swizzle)
+// ------------------------------------ wgmma tiles (bf16 or fp16, 128B swizzle)
 //
 // wgmma reads its shared-memory operands through a descriptor, in the
 // canonical 128-byte-swizzled layout: a (rows, D) tile is cut into atoms of
@@ -152,12 +181,17 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// the map of a contiguous (bh, rows, d) bf16 tensor in boxes of 64 columns x
-// box_rows rows (a zeroed map for an empty tensor, which no load reads);
-// cuTensorMapEncodeTiled is a driver function, reached through the runtime
-// so that the library links no libcuda
+// the map of a contiguous (bh, rows, d) tensor of T (bf16 or fp16) in boxes
+// of 64 columns x box_rows rows (a zeroed map for an empty tensor, which no
+// load reads); cuTensorMapEncodeTiled is a driver function, reached through
+// the runtime so that the library links no libcuda
+template <typename T>
 __host__ inline int make_tile_map(CUtensorMap* map, const void* base, int bh, int rows, int d,
                                   int box_rows) {
+  static_assert(kHalfType<T>, "tile maps of two-byte types");
+  constexpr CUtensorMapDataType kType = std::is_same<T, __half>::value
+                                            ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   static const EncodeTiled encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -176,7 +210,7 @@ __host__ inline int make_tile_map(CUtensorMap* map, const void* base, int bh, in
                                  static_cast<cuuint64_t>(rows) * d * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t steps[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+  const CUresult r = encode(map, kType, 3, const_cast<void*>(base),
                             dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -276,123 +310,165 @@ __device__ __forceinline__ void fence_regs(float (&d)[NT][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
 }
 
-// wgmma m64nNk16, bf16 in, fp32 accumulators d[J .. J + N/8) of a [NT][4]
+// wgmma m64nNk16, T (bf16 or fp16) in, fp32 accumulators d[J .. J + N/8) of a [NT][4]
 // array in the fragment layout above. ss: A and B K-major from shared
 // memory; rs: A from registers and B MN-major from shared memory.
-template <int J, int NT>
+template <typename T, int J, int NT>
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[NT][4], uint64_t a, uint64_t b) {
   static_assert(J + 4 <= NT, "fragment range");
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[J + 0][0]), "+f"(d[J + 0][1]), "+f"(d[J + 0][2]), "+f"(d[J + 0][3]),
-        "+f"(d[J + 1][0]), "+f"(d[J + 1][1]), "+f"(d[J + 1][2]), "+f"(d[J + 1][3]),
-        "+f"(d[J + 2][0]), "+f"(d[J + 2][1]), "+f"(d[J + 2][2]), "+f"(d[J + 2][3]),
-        "+f"(d[J + 3][0]), "+f"(d[J + 3][1]), "+f"(d[J + 3][2]), "+f"(d[J + 3][3])
+#define FLASH_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[J + 0][0]), "+f"(d[J + 0][1]), "+f"(d[J + 0][2]), "+f"(d[J + 0][3]), \
+        "+f"(d[J + 1][0]), "+f"(d[J + 1][1]), "+f"(d[J + 1][2]), "+f"(d[J + 1][3]), \
+        "+f"(d[J + 2][0]), "+f"(d[J + 2][1]), "+f"(d[J + 2][2]), "+f"(d[J + 2][3]), \
+        "+f"(d[J + 3][0]), "+f"(d[J + 3][1]), "+f"(d[J + 3][2]), "+f"(d[J + 3][3]) \
       : "l"(a), "l"(b), "r"(1));
+  if constexpr (std::is_same<T, __half>::value) {
+    FLASH_WGMMA("f16");
+  } else {
+    FLASH_WGMMA("bf16");
+  }
+#undef FLASH_WGMMA
 }
 
-template <int J, int NT>
+template <typename T, int J, int NT>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[NT][4], uint64_t a, uint64_t b) {
   static_assert(J + 8 <= NT, "fragment range");
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[J + 0][0]), "+f"(d[J + 0][1]), "+f"(d[J + 0][2]), "+f"(d[J + 0][3]),
-        "+f"(d[J + 1][0]), "+f"(d[J + 1][1]), "+f"(d[J + 1][2]), "+f"(d[J + 1][3]),
-        "+f"(d[J + 2][0]), "+f"(d[J + 2][1]), "+f"(d[J + 2][2]), "+f"(d[J + 2][3]),
-        "+f"(d[J + 3][0]), "+f"(d[J + 3][1]), "+f"(d[J + 3][2]), "+f"(d[J + 3][3]),
-        "+f"(d[J + 4][0]), "+f"(d[J + 4][1]), "+f"(d[J + 4][2]), "+f"(d[J + 4][3]),
-        "+f"(d[J + 5][0]), "+f"(d[J + 5][1]), "+f"(d[J + 5][2]), "+f"(d[J + 5][3]),
-        "+f"(d[J + 6][0]), "+f"(d[J + 6][1]), "+f"(d[J + 6][2]), "+f"(d[J + 6][3]),
-        "+f"(d[J + 7][0]), "+f"(d[J + 7][1]), "+f"(d[J + 7][2]), "+f"(d[J + 7][3])
+#define FLASH_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[J + 0][0]), "+f"(d[J + 0][1]), "+f"(d[J + 0][2]), "+f"(d[J + 0][3]), \
+        "+f"(d[J + 1][0]), "+f"(d[J + 1][1]), "+f"(d[J + 1][2]), "+f"(d[J + 1][3]), \
+        "+f"(d[J + 2][0]), "+f"(d[J + 2][1]), "+f"(d[J + 2][2]), "+f"(d[J + 2][3]), \
+        "+f"(d[J + 3][0]), "+f"(d[J + 3][1]), "+f"(d[J + 3][2]), "+f"(d[J + 3][3]), \
+        "+f"(d[J + 4][0]), "+f"(d[J + 4][1]), "+f"(d[J + 4][2]), "+f"(d[J + 4][3]), \
+        "+f"(d[J + 5][0]), "+f"(d[J + 5][1]), "+f"(d[J + 5][2]), "+f"(d[J + 5][3]), \
+        "+f"(d[J + 6][0]), "+f"(d[J + 6][1]), "+f"(d[J + 6][2]), "+f"(d[J + 6][3]), \
+        "+f"(d[J + 7][0]), "+f"(d[J + 7][1]), "+f"(d[J + 7][2]), "+f"(d[J + 7][3]) \
       : "l"(a), "l"(b), "r"(1));
+  if constexpr (std::is_same<T, __half>::value) {
+    FLASH_WGMMA("f16");
+  } else {
+    FLASH_WGMMA("bf16");
+  }
+#undef FLASH_WGMMA
 }
 
-template <int J, int NT>
+template <typename T, int J, int NT>
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[NT][4], const uint32_t (&a)[4],
                                              uint64_t b) {
   static_assert(J + 2 <= NT, "fragment range");
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[J + 0][0]), "+f"(d[J + 0][1]), "+f"(d[J + 0][2]), "+f"(d[J + 0][3]),
-        "+f"(d[J + 1][0]), "+f"(d[J + 1][1]), "+f"(d[J + 1][2]), "+f"(d[J + 1][3])
+#define FLASH_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[J + 0][0]), "+f"(d[J + 0][1]), "+f"(d[J + 0][2]), "+f"(d[J + 0][3]), \
+        "+f"(d[J + 1][0]), "+f"(d[J + 1][1]), "+f"(d[J + 1][2]), "+f"(d[J + 1][3]) \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (std::is_same<T, __half>::value) {
+    FLASH_WGMMA("f16");
+  } else {
+    FLASH_WGMMA("bf16");
+  }
+#undef FLASH_WGMMA
 }
 
-template <int J, int NT>
+template <typename T, int J, int NT>
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[NT][4], const uint32_t (&a)[4],
                                              uint64_t b) {
   static_assert(J + 4 <= NT, "fragment range");
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[J + 0][0]), "+f"(d[J + 0][1]), "+f"(d[J + 0][2]), "+f"(d[J + 0][3]),
-        "+f"(d[J + 1][0]), "+f"(d[J + 1][1]), "+f"(d[J + 1][2]), "+f"(d[J + 1][3]),
-        "+f"(d[J + 2][0]), "+f"(d[J + 2][1]), "+f"(d[J + 2][2]), "+f"(d[J + 2][3]),
-        "+f"(d[J + 3][0]), "+f"(d[J + 3][1]), "+f"(d[J + 3][2]), "+f"(d[J + 3][3])
+#define FLASH_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[J + 0][0]), "+f"(d[J + 0][1]), "+f"(d[J + 0][2]), "+f"(d[J + 0][3]), \
+        "+f"(d[J + 1][0]), "+f"(d[J + 1][1]), "+f"(d[J + 1][2]), "+f"(d[J + 1][3]), \
+        "+f"(d[J + 2][0]), "+f"(d[J + 2][1]), "+f"(d[J + 2][2]), "+f"(d[J + 2][3]), \
+        "+f"(d[J + 3][0]), "+f"(d[J + 3][1]), "+f"(d[J + 3][2]), "+f"(d[J + 3][3]) \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (std::is_same<T, __half>::value) {
+    FLASH_WGMMA("f16");
+  } else {
+    FLASH_WGMMA("bf16");
+  }
+#undef FLASH_WGMMA
 }
 
-template <int J, int NT>
+template <typename T, int J, int NT>
 __device__ __forceinline__ void wgmma_rs_n48(float (&d)[NT][4], const uint32_t (&a)[4],
                                              uint64_t b) {
   static_assert(J + 6 <= NT, "fragment range");
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-      : "+f"(d[J + 0][0]), "+f"(d[J + 0][1]), "+f"(d[J + 0][2]), "+f"(d[J + 0][3]),
-        "+f"(d[J + 1][0]), "+f"(d[J + 1][1]), "+f"(d[J + 1][2]), "+f"(d[J + 1][3]),
-        "+f"(d[J + 2][0]), "+f"(d[J + 2][1]), "+f"(d[J + 2][2]), "+f"(d[J + 2][3]),
-        "+f"(d[J + 3][0]), "+f"(d[J + 3][1]), "+f"(d[J + 3][2]), "+f"(d[J + 3][3]),
-        "+f"(d[J + 4][0]), "+f"(d[J + 4][1]), "+f"(d[J + 4][2]), "+f"(d[J + 4][3]),
-        "+f"(d[J + 5][0]), "+f"(d[J + 5][1]), "+f"(d[J + 5][2]), "+f"(d[J + 5][3])
+#define FLASH_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[J + 0][0]), "+f"(d[J + 0][1]), "+f"(d[J + 0][2]), "+f"(d[J + 0][3]), \
+        "+f"(d[J + 1][0]), "+f"(d[J + 1][1]), "+f"(d[J + 1][2]), "+f"(d[J + 1][3]), \
+        "+f"(d[J + 2][0]), "+f"(d[J + 2][1]), "+f"(d[J + 2][2]), "+f"(d[J + 2][3]), \
+        "+f"(d[J + 3][0]), "+f"(d[J + 3][1]), "+f"(d[J + 3][2]), "+f"(d[J + 3][3]), \
+        "+f"(d[J + 4][0]), "+f"(d[J + 4][1]), "+f"(d[J + 4][2]), "+f"(d[J + 4][3]), \
+        "+f"(d[J + 5][0]), "+f"(d[J + 5][1]), "+f"(d[J + 5][2]), "+f"(d[J + 5][3]) \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (std::is_same<T, __half>::value) {
+    FLASH_WGMMA("f16");
+  } else {
+    FLASH_WGMMA("bf16");
+  }
+#undef FLASH_WGMMA
 }
 
-template <int J, int NT>
+template <typename T, int J, int NT>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[NT][4], const uint32_t (&a)[4],
                                              uint64_t b) {
   static_assert(J + 8 <= NT, "fragment range");
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[J + 0][0]), "+f"(d[J + 0][1]), "+f"(d[J + 0][2]), "+f"(d[J + 0][3]),
-        "+f"(d[J + 1][0]), "+f"(d[J + 1][1]), "+f"(d[J + 1][2]), "+f"(d[J + 1][3]),
-        "+f"(d[J + 2][0]), "+f"(d[J + 2][1]), "+f"(d[J + 2][2]), "+f"(d[J + 2][3]),
-        "+f"(d[J + 3][0]), "+f"(d[J + 3][1]), "+f"(d[J + 3][2]), "+f"(d[J + 3][3]),
-        "+f"(d[J + 4][0]), "+f"(d[J + 4][1]), "+f"(d[J + 4][2]), "+f"(d[J + 4][3]),
-        "+f"(d[J + 5][0]), "+f"(d[J + 5][1]), "+f"(d[J + 5][2]), "+f"(d[J + 5][3]),
-        "+f"(d[J + 6][0]), "+f"(d[J + 6][1]), "+f"(d[J + 6][2]), "+f"(d[J + 6][3]),
-        "+f"(d[J + 7][0]), "+f"(d[J + 7][1]), "+f"(d[J + 7][2]), "+f"(d[J + 7][3])
+#define FLASH_WGMMA(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[J + 0][0]), "+f"(d[J + 0][1]), "+f"(d[J + 0][2]), "+f"(d[J + 0][3]), \
+        "+f"(d[J + 1][0]), "+f"(d[J + 1][1]), "+f"(d[J + 1][2]), "+f"(d[J + 1][3]), \
+        "+f"(d[J + 2][0]), "+f"(d[J + 2][1]), "+f"(d[J + 2][2]), "+f"(d[J + 2][3]), \
+        "+f"(d[J + 3][0]), "+f"(d[J + 3][1]), "+f"(d[J + 3][2]), "+f"(d[J + 3][3]), \
+        "+f"(d[J + 4][0]), "+f"(d[J + 4][1]), "+f"(d[J + 4][2]), "+f"(d[J + 4][3]), \
+        "+f"(d[J + 5][0]), "+f"(d[J + 5][1]), "+f"(d[J + 5][2]), "+f"(d[J + 5][3]), \
+        "+f"(d[J + 6][0]), "+f"(d[J + 6][1]), "+f"(d[J + 6][2]), "+f"(d[J + 6][3]), \
+        "+f"(d[J + 7][0]), "+f"(d[J + 7][1]), "+f"(d[J + 7][2]), "+f"(d[J + 7][3]) \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (std::is_same<T, __half>::value) {
+    FLASH_WGMMA("f16");
+  } else {
+    FLASH_WGMMA("bf16");
+  }
+#undef FLASH_WGMMA
 }
 
 
 // d[0 .. D/8) += a (64 x 16 from registers) times rows [16 kc, 16 kc + 16)
 // of a swizzled MN-major tile of D columns: one wgmma per 64-column atom
-template <int D, int kRows, int kAtom = 0>
+template <typename T, int D, int kRows, int kAtom = 0>
 __device__ __forceinline__ void wgmma_rs_cols(float (&d)[D / 8][4], const uint32_t (&a)[4],
                                               const char* tile, int kc) {
   constexpr int n = D - 64 * kAtom < 64 ? D - 64 * kAtom : 64;
   const uint64_t b = desc_mnmajor<kRows>(tile, kc, kAtom);
   if constexpr (n == 64) {
-    wgmma_rs_n64<8 * kAtom>(d, a, b);
+    wgmma_rs_n64<T, 8 * kAtom>(d, a, b);
   } else if constexpr (n == 48) {
-    wgmma_rs_n48<8 * kAtom>(d, a, b);
+    wgmma_rs_n48<T, 8 * kAtom>(d, a, b);
   } else if constexpr (n == 32) {
-    wgmma_rs_n32<8 * kAtom>(d, a, b);
+    wgmma_rs_n32<T, 8 * kAtom>(d, a, b);
   } else {
-    wgmma_rs_n16<8 * kAtom>(d, a, b);
+    wgmma_rs_n16<T, 8 * kAtom>(d, a, b);
   }
-  if constexpr (64 * (kAtom + 1) < D) wgmma_rs_cols<D, kRows, kAtom + 1>(d, a, tile, kc);
+  if constexpr (64 * (kAtom + 1) < D) wgmma_rs_cols<T, D, kRows, kAtom + 1>(d, a, tile, kc);
 }
 
 // start d (64 x N, N = 32 or 64) = A B^T over a contraction of D: A rows
@@ -400,7 +476,7 @@ __device__ __forceinline__ void wgmma_rs_cols(float (&d)[D / 8][4], const uint32
 // (N rows), both K-major. d is overwritten once the caller has waited
 // (wgmma_wait, then fence_regs); work that does not read d, such as the
 // dropout hash, runs meanwhile.
-template <int D, int kRowsA, int N>
+template <typename T, int D, int kRowsA, int N>
 __device__ __forceinline__ void wgmma_ss_rows(float (&d)[N / 8][4], const char* a, int m0,
                                               const char* b) {
 #pragma unroll
@@ -410,9 +486,9 @@ __device__ __forceinline__ void wgmma_ss_rows(float (&d)[N / 8][4], const char* 
   for (int kc = 0; kc < D / 16; ++kc) {
     const uint64_t da = desc_kmajor<kRowsA>(a, m0, kc), db = desc_kmajor<N>(b, 0, kc);
     if constexpr (N == 64) {
-      wgmma_ss_n64<0>(d, da, db);
+      wgmma_ss_n64<T, 0>(d, da, db);
     } else {
-      wgmma_ss_n32<0>(d, da, db);
+      wgmma_ss_n32<T, 0>(d, da, db);
     }
   }
   wgmma_commit();

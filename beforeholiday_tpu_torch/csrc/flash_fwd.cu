@@ -36,8 +36,8 @@
 //   one warp; then a fixed-order merge, a thread an output element. The
 //   paged mode reads
 //   the serving engine's fp32 page pools in place through the page table.
-// * flash_fwd_mma_kernel (bf16, Sq >= 16, D in 16..128 step 16: training
-//   and prefill): near the line between bytes and products, so it keeps
+// * flash_fwd_mma_kernel (bf16 or fp16, Sq >= 16, D in 16..128 step 16:
+//   training and prefill): near the line between bytes and products, so it keeps
 //   both units busy at once. Its 128 query rows a block (two warpgroups)
 //   read each K/V tile once for 128 rows; the tiles stream by TMA (3-D
 //   tensor maps over (D, S, BH): a ragged edge reads zeros, never the next
@@ -50,15 +50,19 @@
 //   heaviest first. With dropout the two lanes that share a 2x2 hash tile
 //   split its Philox call (keep_tiles_shared), halving the integer work
 //   that bounds it, and the hash runs while the tile's scores are still on
-//   the tensor cores. p is rounded to bf16 for the p.v product, as the TPU
-//   kernel rounds p to v's dtype, while the normaliser l sums the fp32 p.
-// * flash_fwd_rows_kernel (fp32 at every head dim; bf16 at the head dims the
-//   tensor-core kernels do not take, 8..512): CUDA cores in fp32, 16 query
+//   the tensor cores. p is rounded to v's dtype (bf16 or fp16) for the p.v
+//   product, as the TPU kernel rounds p to v's dtype, while the normaliser l
+//   sums the fp32 p. The two 16-bit types share the layouts and fragments;
+//   fp16 differs only in its conversions, its tensor maps' element type and
+//   wgmma's .f16 form, and keeps three more bits of p (below 2^-14 it is
+//   subnormal, where bf16 keeps its 8 bits down to 2^-126).
+// * flash_fwd_rows_kernel (fp32 at every head dim; bf16 and fp16 at the head
+//   dims the tensor-core kernels do not take, 8..512): CUDA cores in fp32, 16 query
 //   rows per block (4 per warp), 32-key tiles staged in dynamic shared memory
 //   (163 KB at D 512, allowed above the default 48 KB), lane j scores key j
 //   and owns output columns lane + 32 c, c < kCols = 1, 2, 4, 8 or 16 by
-//   head dim, the ragged last one masked. The bf16 variant rounds p to bf16
-//   for p.v as the tensor-core path does. fp32 is the exact path the
+//   head dim, the ragged last one masked. The bf16 and fp16 variants round
+//   p to their type for p.v as the tensor-core path does. fp32 is the exact path the
 //   card-side checks compare tightly.
 // All of them skip tiles wholly past lens or past the block's last causal
 // diagonal and mask the ragged edge themselves. Still open (later work):
@@ -170,7 +174,7 @@ flash_fwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
       m[r] = m_new;
       if constexpr (kDrop) p[r] = kept(tiles[r >> 1], row, key) ? p[r] * drop.inv_keep : 0.f;
-      p[r] = round_to(p[r], static_cast<T*>(nullptr));  // bf16: as the mma path
+      p[r] = round_to(p[r], static_cast<T*>(nullptr));  // half types: as the mma path
     }
 
 #pragma unroll 4
@@ -644,18 +648,18 @@ int launch_decode(const DecodeArgs& a) {
 // swizzled layout: thread 0 starts a stage's copies, and every thread waits
 // on the stage's mbarrier. S = Q K^T is one wgmma m64n64k16 a 16-column
 // step of the head, A and B read from shared memory; O += P V is a wgmma
-// with P from registers (S's accumulators rounded to bf16 in place,
-// pack_c_as_a) and V read MN-major through the transpose bit. The softmax runs in base 2: m is
+// with P from registers (S's accumulators rounded to T, bf16 or fp16, in
+// place, pack_c_as_a) and V read MN-major through the transpose bit. The softmax runs in base 2: m is
 // kept as max(s) scale log2(e), and p = 2^(s scale log2(e) - m) is one FFMA
 // and one ex2. Only a warp's tiles that hold the causal diagonal or
 // lens[bh] evaluate the mask (to -inf, whose ex2 is 0); a warpgroup skips
 // tiles wholly past its last causal key. Causal blocks launch heaviest first.
-template <int D, bool kDrop>
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kMmaWarps * 32, D <= 64 ? 2 : 1)
 flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
-                     const int* __restrict__ lens, __nv_bfloat16* __restrict__ o,
+                     const int* __restrict__ lens, T* __restrict__ o,
                      float* __restrict__ lse, int sq, int sk, float scale,
                      int causal, DropArgs drop) {
   constexpr int kTile = sw_bytes<kMmaBK, D>();  // one K or V tile
@@ -718,7 +722,7 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap qmap,
     const char* vs = ks + kTile;
     if (t0 < gend) {
       float s[kMmaBK / 8][4];
-      wgmma_ss_rows<D, kMmaBQ, kMmaBK>(s, qs, m0, ks);
+      wgmma_ss_rows<T, D, kMmaBQ, kMmaBK>(s, qs, m0, ks);
       uint32_t keep[kMmaBK / 32];  // the dropout hash, while the product runs
       if constexpr (kDrop) keep_bits<kMmaBK / 8>(keep, dk, bh, r0, t0 + 2 * t, lane, false);
       wgmma_wait<0>();
@@ -779,10 +783,10 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
       uint32_t pa[kMmaBK / 16][4];
 #pragma unroll
-      for (int kc = 0; kc < kMmaBK / 16; ++kc) pack_c_as_a(pa[kc], s[2 * kc], s[2 * kc + 1]);
+      for (int kc = 0; kc < kMmaBK / 16; ++kc) pack_c_as_a<T>(pa[kc], s[2 * kc], s[2 * kc + 1]);
       wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < kMmaBK / 16; ++kc) wgmma_rs_cols<D, kMmaBK>(oacc, pa[kc], vs, kc);
+      for (int kc = 0; kc < kMmaBK / 16; ++kc) wgmma_rs_cols<T, D, kMmaBK>(oacc, pa[kc], vs, kc);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(oacc);
@@ -798,8 +802,8 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap qmap,
     const float inv = nonempty ? 1.f / l[h] : 0.f;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(o + qoff + (size_t)row * D + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(oacc[dt][2 * h] * inv, oacc[dt][2 * h + 1] * inv);
+      store2(o + qoff + (size_t)row * D + dt * 8 + 2 * t, oacc[dt][2 * h] * inv,
+             oacc[dt][2 * h + 1] * inv);
     }
     if (t == 0) lse[(size_t)bh * sq + row] = nonempty ? m[h] * kLn2 + logf(l[h]) : kNeg;
   }
@@ -856,19 +860,23 @@ int launch_dim(const Args& a) {
   const T* vt = static_cast<const T*>(a.v);
   T* ot = static_cast<T*>(a.o);
   if (a.sq < kDecodeRows) {
-    const DecodeArgs da{qt, kt, vt, a.lens, nullptr, ot, a.lse, a.ws, a.ws_floats,
-                        a.bh, a.sq, a.sk, 1, (long long)a.sq * D, D, (long long)a.sq * D, D,
-                        0, 0, D, a.scale, a.causal, a.drop, a.stream};
-    return a.sq == 1 ? launch_decode<T, T, D, 1, kDrop, false>(da)
-                     : launch_decode<T, T, D, kDecodeRows, kDrop, false>(da);
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    auto kernel = flash_fwd_mma_kernel<D, kDrop>;
+    if constexpr (std::is_same<T, __half>::value) {
+      return static_cast<int>(cudaErrorInvalidValue);  // no fp16 decode path
+    } else {
+      const DecodeArgs da{qt, kt, vt, a.lens, nullptr, ot, a.lse, a.ws, a.ws_floats,
+                          a.bh, a.sq, a.sk, 1, (long long)a.sq * D, D, (long long)a.sq * D, D,
+                          0, 0, D, a.scale, a.causal, a.drop, a.stream};
+      return a.sq == 1 ? launch_decode<T, T, D, 1, kDrop, false>(da)
+                       : launch_decode<T, T, D, kDecodeRows, kDrop, false>(da);
+    }
+  } else if constexpr (kHalfType<T>) {
+    auto kernel = flash_fwd_mma_kernel<T, D, kDrop>;
     constexpr size_t smem = mma_smem<D>();
     CUtensorMap qmap, kmap, vmap;
     int err = allow_smem(kernel, smem);
-    if (!err) err = make_tile_map(&qmap, a.q, a.bh, a.sq, D, kMmaBQ);
-    if (!err) err = make_tile_map(&kmap, a.k, a.bh, a.sk, D, kMmaBK);
-    if (!err) err = make_tile_map(&vmap, a.v, a.bh, a.sk, D, kMmaBK);
+    if (!err) err = make_tile_map<T>(&qmap, a.q, a.bh, a.sq, D, kMmaBQ);
+    if (!err) err = make_tile_map<T>(&kmap, a.k, a.bh, a.sk, D, kMmaBK);
+    if (!err) err = make_tile_map<T>(&vmap, a.v, a.bh, a.sk, D, kMmaBK);
     if (err) return err;
     kernel<<<dim3(a.bh, (a.sq + kMmaBQ - 1) / kMmaBQ), kMmaWarps * 32, smem, a.stream>>>(
         qmap, kmap, vmap, a.lens, ot, a.lse, a.sq, a.sk, a.scale, a.causal, a.drop);
@@ -925,8 +933,9 @@ int launch_paged(const DecodeArgs& a, int d) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q (bh, sq, d), k and v (bh, sk, d), all
-// contiguous and 16-byte aligned, d in 8..512; lens (bh,) int32; o like q;
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (sq >= 16 only: the decode
+// path, sq < 16, takes fp32 and bf16). q (bh, sq, d), k and v (bh, sk, d),
+// all contiguous and 16-byte aligned, d in 8..512; lens (bh,) int32; o like q;
 // lse (bh, sq) float32. key: null for no dropout, else int64 (2,) on the
 // card, with threshold = round((1 - rate) 2^24) and inv_keep = 1 / (1 -
 // rate). ws: the decode path's fp32 workspace, flash_fwd_decode_ws_floats
@@ -944,6 +953,7 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return launch_drop<float>(a);
   if (dtype == 1) return launch_drop<__nv_bfloat16>(a);
+  if (dtype == 2 && sq >= kDecodeRows) return launch_drop<__half>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -7,11 +7,15 @@ normalized on the device inside the step, the scaled loss's gradients
 unscaled with the overflow flag (K5), and FusedSGD (K10), which skips the
 step on overflow. At O2/O5 the params live in per-dtype arenas
 (``arena_native``): one K10 pass per arena updates the fp32 masters and the
-momentum in place and writes the bf16 model arena the forward reads. At O0
-the list path packs the fp32 parameter, gradient and momentum trees into
-arenas and unpacks them every step, as the JAX trainer's ``FusedSGD.step``
-does. The step reads nothing back to the host: its metrics stay on the
-device.
+momentum in place and writes the fp16 (O2) or bf16 (O5) model arena the
+forward reads. At O0, O1, O3 and O4 the list path packs the parameter,
+gradient and momentum trees into arenas and unpacks them every step, as the
+JAX trainer's ``FusedSGD.step`` does: fp32 params at O0/O1/O4 (O1 and O4
+cast them to fp16 or bf16 at every forward, BN kept fp32, and run the model
+in the autocast scope), fp16 params with fp32 momentum at O3, one K10 pass
+a dtype bucket. O1 and O2 scale the loss dynamically from 2^16 unless
+``loss_scale`` says otherwise. The step reads nothing back to the host: its
+metrics stay on the device.
 
 Data parallel (``distributed``): one process per rank, in a
 ``torch.distributed`` world the caller initializes (NCCL on the card; gloo

@@ -20,7 +20,7 @@ The convolutions are cuDNN through ``F.conv2d`` and the pooling is
 ``F.max_pool2d``: the JAX package leaves both to XLA
 (``conv_general_dilated``, ``reduce_window``) and writes no kernel for them.
 BatchNorm is :func:`~beforeholiday_tpu_torch.parallel.sync_batch_norm`.
-``from_torch_state_dict`` is not ported yet.
+:func:`from_torch_state_dict` loads a torchvision-style ``state_dict``.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device
 from beforeholiday_tpu_torch.parallel.sync_batch_norm import (
     BatchNormParams,
+    BatchNormState,
     init_batch_norm,
     sync_batch_norm,
 )
@@ -254,3 +255,48 @@ def forward(
     y = y.mean(dim=(2, 3), dtype=torch.float32).to(y.dtype)
     logits = y @ params["fc"]["w"].to(y.dtype) + params["fc"]["b"].to(y.dtype)
     return logits, new_s
+
+
+# ------------------------------------------------- torchvision state dicts
+
+
+def from_torch_state_dict(cfg: ResNetConfig, sd: Dict[str, Any], device=None):
+    """Map a torchvision ResNet ``state_dict()`` (tensors or numpy arrays)
+    to ``(params, bn_state)`` in fp32 on ``device`` (default: ``cuda``, or
+    the CPU when asked), as the JAX package's ``from_torch_state_dict``
+    does: conv weights (O, I, H, W) -> (H, W, I, O), fc (O, I) -> (I, O).
+    Every tensor is a copy, so the module the state dict came from shares
+    no storage with the result."""
+    device = resolve_device(device)
+
+    def arr(t):
+        return torch.as_tensor(t).detach().to(device=device, dtype=torch.float32,
+                                              copy=True)
+
+    def conv_w(name):
+        return arr(sd[name + ".weight"]).permute(2, 3, 1, 0).contiguous()
+
+    def bn(name):
+        return (BatchNormParams(arr(sd[name + ".weight"]), arr(sd[name + ".bias"])),
+                BatchNormState(arr(sd[name + ".running_mean"]),
+                               arr(sd[name + ".running_var"])))
+
+    p: Dict[str, Any] = {"conv1": conv_w("conv1")}
+    s: Dict[str, Any] = {}
+    p["bn1"], s["bn1"] = bn("bn1")
+    n_convs = 2 if cfg.block == "basic" else 3
+    for i in range(len(cfg.layers)):
+        lp, ls = {}, {}
+        for j in range(cfg.layers[i]):
+            bp, bs = {}, {}
+            base = f"layer{i + 1}.{j}"
+            for c in range(1, n_convs + 1):
+                bp[f"conv{c}"] = conv_w(f"{base}.conv{c}")
+                bp[f"bn{c}"], bs[f"bn{c}"] = bn(f"{base}.bn{c}")
+            if f"{base}.downsample.0.weight" in sd:
+                bp["downsample_conv"] = conv_w(f"{base}.downsample.0")
+                bp["downsample_bn"], bs["downsample_bn"] = bn(f"{base}.downsample.1")
+            lp[str(j)], ls[str(j)] = bp, bs
+        p[f"layer{i + 1}"], s[f"layer{i + 1}"] = lp, ls
+    p["fc"] = {"w": arr(sd["fc.weight"]).t().contiguous(), "b": arr(sd["fc.bias"])}
+    return p, s

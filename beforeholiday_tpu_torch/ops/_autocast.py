@@ -1,23 +1,82 @@
-"""Dtype helpers and per-op precision tags — the part of
-``beforeholiday_tpu/ops/_autocast.py`` that the serving path and the O0/O5
-training step need.
+"""Per-op precision policy — counterpart of
+``beforeholiday_tpu/ops/_autocast.py``, the O1/O4 "patch engine".
 
-:func:`cast_floats` is the one-time weight and input cast. :func:`half_function`
-and :func:`float_function` tag an op with its amp list (the reference's
-FP16_FUNCS / FP32_FUNCS) through ``__amp_list__``. The tags are inert: they
-only act inside an ``autocast`` scope, and the scope belongs to O1/O4, which
-are not ported yet (``amp.initialize`` raises for them). So here the tags
-record the policy and call the op unchanged.
+The reference's O1 patches ``torch.*`` and ``torch.nn.functional.*`` with
+cast wrappers driven by its lists: FP16_FUNCS / BFLOAT16_FUNCS run in the
+low precision, FP32_FUNCS stay fp32, CASTS promote to the widest input and
+BANNED_FUNCS raise under fp16. The JAX package keeps that policy as an
+explicit scope plus tagged ops, and so does this module: :func:`autocast`
+sets the scope's compute dtype (fp16 for O1, bf16 for O4) in a thread-local
+that the tags read, and ``amp``'s O1/O4 ``apply`` enters it.
+``torch.autocast`` is not used: its policy is PyTorch's own op lists, and
+this one must match the JAX package's op for op. An untagged op (ResNet's
+``F.conv2d``, a residual add) runs in its inputs' dtype, as in JAX.
+
+The scope is thread-local, so autograd's backward thread does not see it:
+an activation recompute that runs there re-enters the forward's scope
+(``transformer.tensor_parallel.random.checkpoint``). O6's quantized routing
+(``quantized_compute``) is not ported and raises.
+
+:func:`cast_floats` is the one-time weight and input cast.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Callable
+import threading
+from typing import Any, Callable, Optional
 
 import torch
 
 from beforeholiday_tpu_torch.ops.arena import is_namedtuple
+
+_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
+           "float32": torch.float32}
+
+
+class _State(threading.local):
+    dtype: Optional[torch.dtype] = None
+
+
+_state = _State()
+
+
+def _as_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, str):
+        dtype = _DTYPES.get(dtype)
+    if dtype not in _DTYPES.values():
+        raise ValueError(f"autocast takes one of {sorted(_DTYPES)}, got {dtype!r}")
+    return dtype
+
+
+@contextlib.contextmanager
+def autocast(dtype, *, quantized: bool = False):
+    """Activate the per-op cast policy with ``dtype`` as the low-precision
+    compute type (fp16 for O1, bf16 for O4). Scopes nest; leaving one, by
+    an exception too, restores the enclosing one."""
+    if quantized:
+        raise NotImplementedError(
+            "autocast(quantized=True) is O6's quantized-matmul routing, which "
+            "is not ported yet")
+    prev = _state.dtype
+    _state.dtype = _as_dtype(dtype)
+    try:
+        yield
+    finally:
+        _state.dtype = prev
+
+
+def quantized_compute():
+    """O6's quantized-matmul scope: not ported yet."""
+    raise NotImplementedError(
+        "quantized_compute is O6's fp8 matmul tier (ops.quantized), which is "
+        "not ported yet")
+
+
+def autocast_dtype() -> Optional[torch.dtype]:
+    """The active low-precision dtype, or None outside autocast."""
+    return _state.dtype
 
 
 def cast_floats(tree, dtype: torch.dtype):
@@ -33,22 +92,91 @@ def cast_floats(tree, dtype: torch.dtype):
     return tree
 
 
-def _tag(fn: Callable, amp_list: str) -> Callable:
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        return fn(*args, **kwargs)
+def _float_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _float_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _float_leaves(v)
+    elif isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        yield tree
 
-    wrapped.__amp_list__ = amp_list
-    return wrapped
+
+def _widest_float(tree) -> Optional[torch.dtype]:
+    """The promotion of the floating tensors' dtypes, by jnp's rule too:
+    fp16 with bf16 promotes to fp32, not to whichever came first."""
+    widest = None
+    for leaf in _float_leaves(tree):
+        widest = (leaf.dtype if widest is None
+                  else torch.promote_types(widest, leaf.dtype))
+    return widest
 
 
 def half_function(fn: Callable) -> Callable:
     """Tag an op as low-precision under autocast (FP16_FUNCS /
-    BFLOAT16_FUNCS). Inert until O1/O4's autocast scope is ported."""
-    return _tag(fn, "half")
+    BFLOAT16_FUNCS): inside a scope its floating arguments are cast to the
+    scope's dtype."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        dt = autocast_dtype()
+        if dt is not None:
+            args, kwargs = cast_floats(args, dt), cast_floats(kwargs, dt)
+        return fn(*args, **kwargs)
+
+    wrapped.__amp_list__ = "half"
+    return wrapped
+
+
+# the bf16 tag acts the same: the scope's dtype decides
+bfloat16_function = half_function
 
 
 def float_function(fn: Callable) -> Callable:
-    """Tag an op as fp32-only under autocast (FP32_FUNCS: norms, losses,
-    transcendentals). Inert until O1/O4's autocast scope is ported."""
-    return _tag(fn, "float")
+    """Tag an op as fp32-only under autocast (FP32_FUNCS: softmax, norms,
+    losses, transcendentals): inside a scope its floating arguments are cast
+    to fp32."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        if autocast_dtype() is not None:
+            args = cast_floats(args, torch.float32)
+            kwargs = cast_floats(kwargs, torch.float32)
+        return fn(*args, **kwargs)
+
+    wrapped.__amp_list__ = "float"
+    return wrapped
+
+
+def promote_function(fn: Callable) -> Callable:
+    """Tag a multi-input op to promote every floating input to the widest
+    input dtype under autocast (the CASTS rule)."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        if autocast_dtype() is not None:
+            widest = _widest_float((args, kwargs))
+            if widest is not None:
+                args = cast_floats(args, widest)
+                kwargs = cast_floats(kwargs, widest)
+        return fn(*args, **kwargs)
+
+    wrapped.__amp_list__ = "promote"
+    return wrapped
+
+
+def banned_function(fn: Callable, name: str, reason: str) -> Callable:
+    """Tag an op as unsafe under fp16 autocast: calling it inside an fp16
+    scope raises, as the reference does for ``binary_cross_entropy``."""
+
+    @functools.wraps(fn)
+    def wrapped(*args: Any, **kwargs: Any):
+        if autocast_dtype() == torch.float16:
+            raise RuntimeError(
+                f"amp does not work out-of-the-box with `{name}` under fp16: "
+                f"{reason}")
+        return fn(*args, **kwargs)
+
+    wrapped.__amp_list__ = "banned"
+    return wrapped

@@ -10,7 +10,9 @@ K2 replaces ``beforeholiday_tpu/ops/attention.py:152`` ``_fa_fwd_kernel``
 ``mask_kernel``. Each source's header states its bound on an H100 and what
 the design does about it. Unlike the TPU kernels, which need both sequence
 lengths to tile by 128, K2 and K4 take every shape, decode's ``Sq=1``
-included, and every head dim 8..512 that :func:`is_flash_available` admits.
+included, and every head dim 8..512 that :func:`is_flash_available` admits,
+in fp32, bf16 or fp16 (amp O1/O2); K2's decode path (``Sq < 16``) and its
+paged mode take fp32 and bf16 and refuse fp16 by name.
 K2's decode path (``Sq < 16``) also has a paged mode,
 :func:`_paged_decode_kernel`, private to the serving engine: one query row
 a sequence read against one layer's fp32 page pools in place through the
@@ -45,12 +47,15 @@ from typing import Optional, Sequence
 import torch
 
 from beforeholiday_tpu_torch import _build
+from beforeholiday_tpu_torch.ops._autocast import autocast_dtype
 from beforeholiday_tpu_torch.ops._dispatch import resolve_impl, sm_count
 from beforeholiday_tpu_torch.ops.dense import fused_dense
 
 _NEG = -1e30  # mask fill; large-negative (not -inf) keeps exp/max NaN-free
 _MIN_BLOCK = 128
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# K2's decode path (Sq < 16) and its paged mode take fp32 and bf16 only
+_DECODE_DTYPES = (torch.float32, torch.bfloat16)
 # every head dim the gate admits: the tensor-core kernels take 16..128 in
 # steps of 16, the CUDA-core row kernels the rest
 _KERNEL_HEAD_DIMS = range(8, 513)
@@ -59,6 +64,7 @@ _MAX_GRID_Y = 65535
 # flash_decode_chunk_kernel) and so its paged mode are built for; the rest
 # decode on the row kernel
 DECODE_HEAD_DIMS = range(16, 129, 16)
+_CUDA_ERROR_INVALID_VALUE = 1  # what K2's C entry returns for a dtype it refuses
 
 # Philox4x32-10's multipliers and key increments (Random123)
 _MASK32 = 0xFFFFFFFF
@@ -365,6 +371,10 @@ def flash_fwd_kernel(q, k, v, lens, causal: bool, scale: float,
                 v.data_ptr(), lens.data_ptr(), o.data_ptr(), lse.data_ptr(),
                 BH, Sq, Sk, D, float(scale), int(bool(causal)), kptr, thr,
                 inv, ws.data_ptr() if ws.numel() else None, ws.numel(), stream)
+    if rc == _CUDA_ERROR_INVALID_VALUE and q.dtype == torch.float16:
+        # the C entry takes fp16 on the training kernels only
+        raise ValueError(f"K2's decode path takes {list(_DECODE_DTYPES)}, not "
+                         f"torch.float16 (q {tuple(q.shape)})")
     if rc != 0:
         raise RuntimeError(f"K2 (flash_fwd) launch failed with CUDA error {rc}")
     flash_fwd_kernel.launches += 1
@@ -451,8 +461,8 @@ def _paged_decode_kernel(q, k_pool, v_pool, page_table, kv_lens, n_heads: int,
     B, Sq, HD = q.shape
     if Sq != 1:
         raise ValueError(f"paged decode takes one query row a sequence, got {Sq}")
-    if q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"paged decode takes q in {list(_KERNEL_DTYPES)}, got "
+    if q.dtype not in _DECODE_DTYPES:
+        raise ValueError(f"paged decode takes q in {list(_DECODE_DTYPES)}, got "
                          f"{q.dtype}")
     if q.stride(2) != 1:
         raise ValueError("paged decode reads q's columns at unit stride")
@@ -664,9 +674,17 @@ def flash_attention(
     softmax -> dropout -> ``@ v`` order, inside K2 and K4; the key is an
     int64 ``(2,)`` tensor on q's device
     (:func:`~beforeholiday_tpu_torch.transformer.tensor_parallel.random.make_key`).
-    A rate with no key raises; rate 0 ignores the key."""
+    A rate with no key raises; rate 0 ignores the key.
+
+    Inside an O1/O4 autocast scope q, k and v are cast to the scope's dtype:
+    the FP16_FUNCS policy applied by hand, as in the JAX package, since
+    ``half_function`` would also cast a floating ``kv_lens``, whose lengths
+    fp16 holds exactly only to 2048 and bf16 to 256."""
     if q.ndim != 4:
         raise ValueError(f"expected (B, H, S, D) inputs, got {tuple(q.shape)}")
+    act = autocast_dtype()
+    if act is not None:
+        q, k, v = q.to(act), k.to(act), v.to(act)
     B, H, S, D = q.shape
     Sk = k.shape[2]
     if k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != D:
@@ -709,7 +727,15 @@ def self_attention(
 ) -> torch.Tensor:
     """Self-attention block: QKV projection, flash attention, output
     projection, both projections on :func:`fused_dense` (one rounding of
-    product plus bias). x: (B, S, D) -> (B, S, D) in x's dtype."""
+    product plus bias). x: (B, S, D) -> (B, S, D) in x's dtype. Inside an
+    O1/O4 autocast scope x, the weights and the biases are cast to the
+    scope's dtype first, by hand as in :func:`flash_attention` (``kv_lens``
+    is not)."""
+    act = autocast_dtype()
+    if act is not None:
+        x, w_qkv, w_out = x.to(act), w_qkv.to(act), w_out.to(act)
+        b_qkv = None if b_qkv is None else b_qkv.to(act)
+        b_out = None if b_out is None else b_out.to(act)
     B, S, D = x.shape
     hd = D // n_heads
     if hd * n_heads != D:

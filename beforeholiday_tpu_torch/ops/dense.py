@@ -9,8 +9,14 @@ the sum is rounded once to the input dtype. On the card the product and
 the bias are one cuBLAS bf16 x bf16 -> fp32 GEMM (``torch.addmm(bias, x, w,
 out_dtype=torch.float32)``, or ``torch.mm`` without a bias); on the CPU the
 operands are widened to fp32 first, which is exact, since a bf16 x bf16
-product fits in fp32. The backward keeps the half-precision
-products (the output's cotangent is a bf16 value, as in JAX).
+(or fp16 x fp16) product fits in fp32. The backward keeps the
+half-precision products (the output's cotangent is a bf16 or fp16 value,
+as in JAX; at a large loss scale an fp16 cotangent may overflow to inf,
+which the unscale's overflow flag catches).
+
+The three public functions carry the ``half_function`` tag, as in the JAX
+package: inside an O1/O4 autocast scope their floating arguments are cast to
+the scope's dtype first.
 """
 
 from __future__ import annotations
@@ -20,11 +26,14 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from beforeholiday_tpu_torch.ops._autocast import half_function
+
 
 class _HalfDense32(torch.autograd.Function):
-    """``x2 @ w + bias32`` for 2-D half-precision operands and an optional
-    fp32 bias, with an fp32 result. The card's bf16 x bf16 -> fp32 GEMM has
-    no derivative in PyTorch, so the backward is written here."""
+    """``x2 @ w + bias32`` for 2-D half-precision operands (bf16 or fp16)
+    and an optional fp32 bias, with an fp32 result. The card's half x half
+    -> fp32 GEMM has no derivative in PyTorch, so the backward is written
+    here."""
 
     @staticmethod
     def forward(ctx, x2, w, bias32):
@@ -58,6 +67,7 @@ def _linear32(x, weight, bias):
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
+@half_function
 def fused_dense(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GEMM + bias. x: (..., in); weight: (in, out); bias: (out,). Output in
@@ -65,6 +75,7 @@ def fused_dense(x: torch.Tensor, weight: torch.Tensor,
     return _linear32(x, weight, bias).to(x.dtype)
 
 
+@half_function
 def fused_dense_gelu_dense(x: torch.Tensor, weight1: torch.Tensor,
                            bias1: torch.Tensor, weight2: torch.Tensor,
                            bias2: torch.Tensor) -> torch.Tensor:
@@ -73,6 +84,7 @@ def fused_dense_gelu_dense(x: torch.Tensor, weight1: torch.Tensor,
     return _linear32(h.to(x.dtype), weight2, bias2).to(x.dtype)
 
 
+@half_function
 def mlp(x: torch.Tensor, weights: Sequence[torch.Tensor],
         biases: Sequence[torch.Tensor], activation: str = "relu") -> torch.Tensor:
     """Whole-MLP chain; the activation ('none' | 'relu' | 'sigmoid') runs

@@ -58,11 +58,14 @@ Nine kernels, all Triton, all streaming passes over flat arenas:
   gradient on the first step (``first_run``, a device flag read by the
   kernel, so ``step == 0`` is never read back), dampening and Nesterov. It
   updates p and m in place (the TPU's aliasing, ``:443``) and writes the
-  model copy in the same pass (``:409-412``). On ``found_inf`` every load
-  and store is masked off. Bound: bytes, 22 B per element with the fp32
-  gradient and a bf16 copy (g read 4, p and m read and written 16, copy 2):
-  0.168 ms for ResNet-50's bf16 arena (25,526,272 elements); 20 B without
-  a copy (0.153 ms for the O0 list path's 25,559,040).
+  model copy in the same pass (``:409-412``). p may be fp32, bf16 or fp16
+  with fp32 momentum, the math fp32 and p stored back in its own dtype
+  (``:406-411``; amp O3's list path keeps fp16 params with no masters). On
+  ``found_inf`` every load and store is masked off. Bound: bytes, 22 B per
+  element with the fp32 gradient and a bf16 copy (g read 4, p and m read
+  and written 16, copy 2): 0.168 ms for ResNet-50's bf16 arena (25,526,272
+  elements); 20 B without a copy (0.153 ms for the O0 list path's
+  25,559,040); 16 B with fp16 p (0.122 ms for O3's 25,559,040).
 
 * K16, :func:`axpby_kernel`, replaces ``_pallas_mt.py:195`` ``_axpby_kernel``
   (launched from ``axpby`` at ``:209``): ``out = a * x + b * y`` in fp32,
@@ -122,6 +125,7 @@ from beforeholiday_tpu_torch.ops.arena import ArenaSpec, flatten, is_arena, unfl
 
 # elements per Triton program of K5-K8 and K10, and per block of K9's walk
 _BLOCK = 4096
+_HALF_OR_FP32 = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _device_scalar(x, like: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -1085,7 +1089,7 @@ def _sgd_triton():
         lr = tl.load(SCAL)
         gs = tl.load(SCAL + 1)
         g = tl.load(G + offs, mask=mask, other=0.0).to(tl.float32) * gs
-        p = tl.load(P + offs, mask=mask, other=0.0)
+        p = tl.load(P + offs, mask=mask, other=0.0).to(tl.float32)
         if not WD_AFTER:  # decay folded into the gradient before momentum
             g = g + decay * p
         if HAS_MOMENTUM:
@@ -1103,7 +1107,7 @@ def _sgd_triton():
         if WD_AFTER:
             step = step + decay * p
         p_new = p - lr * step
-        tl.store(P + offs, p_new, mask=mask)
+        tl.store(P + offs, p_new.to(P.dtype.element_ty), mask=mask)
         if HAS_COPY:
             tl.store(C + offs, p_new.to(C.dtype.element_ty), mask=mask)
 
@@ -1112,8 +1116,9 @@ def _sgd_triton():
 
 def sgd_kernel(g, p, m, *, lr, weight_decay, momentum, dampening, nesterov,
                first_run, wd_after_momentum, scale, found_inf, copy_out):
-    """Launch K10 on flat CUDA arenas: fp32 ``p`` and ``m`` updated in
-    place, ``g`` fp32/bf16/fp16, optional ``copy_out`` of any float dtype.
+    """Launch K10 on flat CUDA arenas: ``p`` (fp32, bf16 or fp16) and fp32
+    ``m`` updated in place, ``g`` fp32/bf16/fp16, optional ``copy_out`` of
+    any float dtype.
     ``lr`` and ``scale`` may be numbers or device scalars; ``first_run`` and
     ``found_inf`` are read from device memory by the kernel."""
     arenas = (g, p, m) + (() if copy_out is None else (copy_out,))
@@ -1124,8 +1129,9 @@ def sgd_kernel(g, p, m, *, lr, weight_decay, momentum, dampening, nesterov,
             raise ValueError("K10 takes 1-D contiguous CUDA arenas of one "
                              f"length on one device; got {tuple(t.shape)} "
                              f"on {t.device}")
-    if not (p.dtype == m.dtype == torch.float32):
-        raise ValueError(f"K10 updates fp32 p/m, got {p.dtype}/{m.dtype}")
+    if p.dtype not in _HALF_OR_FP32 or m.dtype != torch.float32:
+        raise ValueError(f"K10 updates fp32, bf16 or fp16 p and fp32 m, got "
+                         f"{p.dtype}/{m.dtype}")
     if not g.is_floating_point():
         raise ValueError(f"K10 takes a floating gradient, got {g.dtype}")
     triton, kernel = _sgd_triton()

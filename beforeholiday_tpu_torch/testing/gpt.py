@@ -194,7 +194,10 @@ def _attn_sublayer(cfg: GPTConfig, x, lp, keys=None):
         probs = probs.reshape(B, cfg.n_heads, S, S)
         if attn_rate > 0.0:
             probs = dropout(attn_key, probs, attn_rate, impl=cfg.dropout_impl)
-        ctx = probs @ v
+        # jnp's promotion: under O1/O4 the probabilities follow the fp32
+        # residual stream while v is low precision, and the product is fp32
+        dt = torch.promote_types(probs.dtype, v.dtype)
+        ctx = probs.to(dt) @ v.to(dt)
     ctx = ctx.transpose(1, 2).reshape(B, S, D)
     attn_out = fused_dense(ctx, lp["wo"].to(x.dtype), lp["bo"].to(x.dtype))
     return x + _drop(cfg, keys, attn_out, 1, cfg.dropout_rate)

@@ -26,12 +26,14 @@ is ported.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional
 
 import torch
 import torch.utils.checkpoint
 
+from beforeholiday_tpu_torch.ops._autocast import autocast, autocast_dtype
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device, resolve_impl
 from beforeholiday_tpu_torch.ops.attention import (
     _check_key,
@@ -148,18 +150,29 @@ def checkpoint(
 ) -> Callable:
     """Activation recompute: ``fn`` wrapped so that its internals are
     recomputed in the backward (``torch.utils.checkpoint``, non-reentrant).
-    Dropout inside replays the same masks, since its keys are inputs.
-    ``prevent_cse`` and ``distribute_saved_activations`` are accepted for
-    parity and mean nothing on one device; a remat ``policy`` is not ported
-    yet."""
+    Dropout inside replays the same masks, since its keys are inputs. The
+    recompute runs inside the autocast scope of the forward (O1/O4): the
+    scope is thread-local and the backward runs outside it, often on
+    autograd's own thread, so the forward's dtype is captured and re-entered
+    there; a recompute in another dtype would not match what the forward
+    saved. ``prevent_cse`` and ``distribute_saved_activations`` are accepted
+    for parity and mean nothing on one device; a remat ``policy`` is not
+    ported yet."""
     del prevent_cse, distribute_saved_activations
     if policy is not None:
         raise NotImplementedError(
             "checkpoint policies (beforeholiday_tpu.remat) are not ported yet")
 
     def wrapped(*args, **kw):
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
-                                                 **kw)
+        dtype = autocast_dtype()
+
+        def contexts():
+            again = (contextlib.nullcontext() if dtype is None
+                     else autocast(dtype))
+            return contextlib.nullcontext(), again
+
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, context_fn=contexts, **kw)
 
     return wrapped
 

@@ -128,8 +128,23 @@ Phases, each printing one line (any failure exits non-zero):
     and the batch-128 SyncBN step timed and profiled after the gradients,
     with the backward-time hooks and guarded (collectives a step from the
     ledger, NCCL's device ms among the profile's columns);
-18. the total seconds, the ``kernels`` JSON line, the card line, and the
-    final ``ok`` line.
+18. slice 13, amp O1-O4: K2 and K4 in fp16 against their plain versions
+    (the GPT shape with and without dropout, BERT's with ragged lengths,
+    head dim 40 on the row kernels; K4 twice, bitwise), fp16 into K2's
+    decode and paged modes refused, K10 on ResNet-50's fp16 parameter arena
+    with fp32 momentum, and the launch floor (an empty kernel through the
+    same timing harness); the flagship GPT at O2 (flash and unfused), O1
+    and O4: the parity step at batch 2 (a static scale of 2^10), O2's skip
+    step, and the timed and profiled run at batch 16 with its skipped steps
+    and final loss scale; ResNet-50 at O2 (parity at batch 2 with cuDNN
+    deterministic, and a step from a dynamic scale of 2^24 that overflows,
+    changes nothing and halves the scale), then O2, O1, O3 and O4 at batch
+    128, timed and profiled; the DCGAN example at O2 (K5 and K6 on its
+    trees and one iteration on the kernels against the plain path, cuDNN
+    deterministic; then 20 iterations at batch 32, its three per-loss
+    scalers through their state dicts);
+19. the total seconds, the ``kernels`` JSON line (with ``launch_floor_ms``),
+    the card line, and the final ``ok`` line.
 
 ``F.layer_norm``, ``F.scaled_dot_product_attention``, their backwards,
 ``torch._amp_foreach_non_finite_check_and_unscale_``,
@@ -165,7 +180,7 @@ import torch.nn.functional as F
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and
 # FLOP/s for bf16 tensor cores and fp32 outside them
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 # the dropout hash's integer work, in SASS instructions of the busier of the
 # two pipes that run it (csrc/dropout_mask.cu, cuobjdump -sass on sm_90a): a
 # Philox4x32-10 call (four elements) is ten rounds of two IMAD.WIDE.U32 (both
@@ -264,7 +279,29 @@ STEP_LAUNCHES = {
     # slice 11: the data-parallel step reduces the still-scaled gradient
     # arenas, then unscales and updates each as the one-device step does
     "ddp_resnet": {**_NO_LAUNCH, "unscale": 2, "sgd": 2},
+    # slice 13, amp O1-O4: O2 as O5 (an fp16 and an fp32 arena); O1, O3 and
+    # O4 on the list path with one gradient dtype (fp32 at O1/O4, where the
+    # params are fp32; fp16 at O3, where every leaf is) and one K10 bucket
+    "resnet_o2": {**_NO_LAUNCH, "unscale": 2, "sgd": 2},
+    "resnet_o1": {**_NO_LAUNCH, "unscale": 1, "sgd": 1},
+    "resnet_o3": {**_NO_LAUNCH, "unscale": 1, "sgd": 1},
+    "resnet_o4": {**_NO_LAUNCH, "unscale": 1, "sgd": 1},
+    # the GPT: O2 as O5; O1/O4 one fp32 gradient bucket on the list path
+    # (one K5 and one K6 launch)
+    "gpt_o2": {**_NO_LAUNCH, **_GPT_STEP, **_FLASH},
+    "gpt_o2_unfused": {**_NO_LAUNCH, **_GPT_STEP, **_UNFUSED},
+    "gpt_o1": {**_NO_LAUNCH, **_GPT_STEP, "unscale": 1, "adam": 1, **_FLASH},
+    "gpt_o4": {**_NO_LAUNCH, **_GPT_STEP, "unscale": 1, "adam": 1, **_FLASH},
 }
+# the levels whose params live in arenas (MasterWeights over PackedParams)
+ARENA_LEVELS = ("O2", "O5")
+# the GPT's activation dtype by level: fp16 storage at O2; at O1/O4 the
+# residual stream stays fp32 and the autocast scope casts the dense layers
+# and attention down
+GPT_ACT = {"O5": torch.bfloat16, "O2": torch.float16, "O1": torch.float32,
+           "O4": torch.float32}
+# DCGAN (examples/dcgan: 32 x 32 images, ngf = ndf = 32) at its own batch
+DCGAN_ITERS, DCGAN_BATCH, DCGAN_LR = 20, 32, 2e-4
 PEAK_BF16 = 989e12
 # the ImageNet ResNet-50 step (bench.py make_resnet_rung: examples/imagenet
 # build_trainer("resnet50", global_batch=128), 224x224 uint8 images,
@@ -2218,18 +2255,20 @@ def decode_profile_phase(infer, params, cfg):
 
 
 def make_gpt_trainer(amp, gpt, fused_adam, params, cfg, impl=None,
-                     loss_scale=None, loss_weight=None, loss=None):
-    """The flagship step as ``bench.py`` ``make_gpt_rung`` builds it: amp O5,
-    arena-native PackedParams, FusedAdam(lr=1e-4). ``impl="torch"`` puts
-    every op on its plain version; ``loss_weight`` multiplies the loss;
-    ``loss(logits, targets, impl)`` replaces ``gpt.loss_fn``'s cross
-    entropy, as a user script passes its own loss. A config with dropout
-    rates trains with a per-step key (see :func:`scaled_step`)."""
+                     loss_scale=None, loss_weight=None, loss=None, level="O5"):
+    """The flagship step as ``bench.py`` ``make_gpt_rung`` builds it: amp O5
+    (or ``level``: O2 arena-native too; O1/O4 plain FusedAdam on the fp32
+    tree, which JAX refuses to pack), arena-native PackedParams,
+    FusedAdam(lr=1e-4). ``impl="torch"`` puts every op on its plain version;
+    ``loss_weight`` multiplies the loss; ``loss(logits, targets, impl)``
+    replaces ``gpt.loss_fn``'s cross entropy, as a user script passes its
+    own loss. A config with dropout rates trains with a per-step key (see
+    :func:`scaled_step`)."""
     cfg = dataclasses.replace(cfg, attention_impl=impl, norm_impl=impl,
                               dropout_impl=impl)
     m = amp.initialize(lambda p, t, key: gpt.forward(p, t, cfg, dropout_key=key),
-                       params, fused_adam(lr=LR, impl=impl), "O5",
-                       arena_native=True, loss_scale=loss_scale)
+                       params, fused_adam(lr=LR, impl=impl), level,
+                       arena_native=level in ARENA_LEVELS, loss_scale=loss_scale)
 
     def loss_fn(p, tok, tgt, key):
         fwd = lambda pp, t: m.apply(pp, t, key)
@@ -2336,12 +2375,27 @@ def scaled_step(amp, m, loss_fn, impl, dropout=False):
     return state, step
 
 
+def model_leaves(params):
+    """The model's arenas (arena-native) or its tree's leaves."""
+    from beforeholiday_tpu_torch.ops.arena import PackedParams, tree_flatten
+
+    return params.arenas if isinstance(params, PackedParams) else tree_flatten(params)[0]
+
+
 def snapshot(m, state):
-    """Copies of everything a step may change."""
-    inner = state["opt"]["inner"]
-    return ([a.clone() for a in m.params.arenas],
-            [a.clone() for a in state["opt"]["master"]],
-            [{k: v.clone() for k, v in b.items()} for b in inner])
+    """Copies of everything a step may change, as flat lists: the model,
+    the masters (none without MasterWeights), the optimizer's state tensors
+    but the step counts, and the step counts."""
+    from beforeholiday_tpu_torch.ops.arena import tree_flatten
+
+    opt = state["opt"]
+    inner = opt.get("inner", opt)
+    inners = inner if isinstance(inner, tuple) else (inner,)
+    moments = [t for b in inners for k in sorted(b) if k != "step"
+               for t in tree_flatten(b[k])[0]]
+    return ([a.clone() for a in model_leaves(m.params)],
+            [a.clone() for a in tree_flatten(opt.get("master", ()))[0]],
+            [t.clone() for t in moments], [int(b["step"]) for b in inners])
 
 
 def step_parity_phase(label, trainer, batch, master_tol, why, ref=None,
@@ -2361,12 +2415,15 @@ def step_parity_phase(label, trainer, batch, master_tol, why, ref=None,
         torch.cuda.synchronize()
         if bool(fi):
             raise AssertionError(f"{label} ({name}): found_inf set")
-        model, masters, _ = snapshot(m, state)
+        model, masters, _, _ = snapshot(m, state)
         for arena, master in zip(model, masters):
             if not torch.equal(arena, master.to(arena.dtype)):
                 raise AssertionError(
                     f"{label} ({name}): model arena != masters.to(dtype)")
-        res[name] = (loss.item(), [a.clone() for a in g.arenas], masters)
+        # no masters (O1/O4): the fp32 model is what Adam updates
+        res[name] = (loss.item(), [a.clone() for a in model_leaves(g)],
+                     masters or model)
+        has_masters = bool(masters)
         del m, state, step, g
         torch.cuda.empty_cache()
     (lk, gk, mk), (lp, gp, mp) = res["kernels"], res["ref"]
@@ -2387,7 +2444,8 @@ def step_parity_phase(label, trainer, batch, master_tol, why, ref=None,
          grad_tol=grad_tol,
          grad_max_abs_err=max(max_err(a, b) for a, b in zip(gk, gp)),
          master_max_abs_err=master_err, master_tol=master_tol,
-         master_sign_flips=flips, model_arena_is_master_cast="bitwise")
+         master_sign_flips=flips,
+         model_arena_is_master_cast="bitwise" if has_masters else "no masters")
 
 
 def skip_phase(label, trainer, batch):
@@ -2406,18 +2464,15 @@ def skip_phase(label, trainer, batch):
     after = snapshot(m, state)
     if not bool(fi):
         raise AssertionError(f"{label}: found_inf not set")
-    same = (all(torch.equal(a, b) for a, b in zip(before[0], after[0]))
-            and all(torch.equal(a, b) for a, b in zip(before[1], after[1]))
-            and all(torch.equal(a[k], b[k]) for a, b in zip(before[2], after[2])
-                    for k in a))
-    if not same:
+    same = all(torch.equal(a, b) for xs, ys in zip(before[:3], after[:3])
+               for a, b in zip(xs, ys))
+    if not same or after[3] != before[3]:
         raise AssertionError(f"{label}: the state changed")
     scale1 = state["scaler"]["scale"].item()
     if scale1 != scale0 / 2:
         raise AssertionError(f"{label}: scale {scale0} -> {scale1}")
     line(label, found_inf=True, state="bitwise unchanged",
-         scale_before=scale0, scale_after=scale1,
-         step_count=int(after[2][0]["step"]))
+         scale_before=scale0, scale_after=scale1, step_count=after[3][0])
     del m, state, step
     torch.cuda.empty_cache()
 
@@ -2576,9 +2631,11 @@ def training_phase(label, profile_label, step, batch, counters, expect,
 
 def lm_work(m, batch):
     """One language-model step's work: its tokens, and 6 N FLOPs per token
-    against the bf16 peak."""
+    against the bf16 (and fp16) peak."""
     tokens = batch[0].numel()
-    n_params = sum(spec.total for spec in m.params.layout.specs)
+    n_params = (sum(spec.total for spec in m.params.layout.specs)
+                if hasattr(m.params, "layout")
+                else sum(t.numel() for t in model_leaves(m.params)))
     return dict(unit="tokens", units=tokens, flops=6.0 * n_params * tokens,
                 peak=PEAK_BF16, params=n_params)
 
@@ -2739,21 +2796,15 @@ def resnet_state(tr):
     arenas (arena-native) or leaves (the list path), the masters, every
     optimizer state tensor but the step counts, and the step counts (one
     per arena, or one)."""
-    from beforeholiday_tpu_torch.ops.arena import PackedParams, tree_flatten
-
-    params = (tr.params.arenas if isinstance(tr.params, PackedParams)
-              else tree_flatten(tr.params)[0])
-    inner = tr.opt_state["inner"]
-    inners = inner if isinstance(inner, tuple) else (inner,)
-    state = [t for b in inners for k in sorted(b) if k != "step"
-             for t in tree_flatten(b[k])[0]]
-    return ([a.clone() for a in params],
-            [a.clone() for a in tree_flatten(tr.opt_state["master"])[0]],
-            [t.clone() for t in state], [int(b["step"]) for b in inners])
+    return snapshot(tr, {"opt": tr.opt_state})
 
 
-def resnet_step_parity_phase(main_amp, fused_sgd, tree_flatten, cfg, weights):
-    """One full-width O5 step at batch 2 on K5 and K10 against the same step
+def resnet_step_parity_phase(main_amp, fused_sgd, tree_flatten, cfg, weights,
+                             level="O5"):
+    """One full-width O5 (or ``level``: O2, with cuDNN held to its
+    deterministic algorithms and a static loss scale of 2^10, so that the
+    step compared is not one the dynamic scale skips) step at batch 2 on
+    K5 and K10 against the same step
     with both on their plain versions, from the same weights and batch. The
     convolutions (cuDNN) and BatchNorm (plain torch) are the same on both
     paths; cuDNN's weight gradients may sum in another order from run to
@@ -2762,6 +2813,9 @@ def resnet_step_parity_phase(main_amp, fused_sgd, tree_flatten, cfg, weights):
     the same masters moves the masters by lr·g and seeds the momentum with
     g + decay·p."""
     images, labels = resnet_batch(cfg, PARITY_BATCH, 64)
+    label = "resnet_step_parity" if level == "O5" else f"resnet_{level.lower()}_step_parity"
+    kw = {} if level == "O5" else dict(loss_scale=2.0 ** 10)
+    torch.backends.cudnn.deterministic = level != "O5"
     res = {}
     for impl in (None, "torch"):
         grads = []
@@ -2774,30 +2828,31 @@ def resnet_step_parity_phase(main_amp, fused_sgd, tree_flatten, cfg, weights):
                 return super().step_flat(flat_params, flat_grads, state, **kw)
 
         opt = RecordingSGD(RESNET_LR, 0.9, weight_decay=RESNET_WD, impl=impl)
-        tr = resnet_trainer(main_amp, cfg, weights, "O5", PARITY_BATCH,
-                            fused_optimizer=opt, impl=impl)
+        tr = resnet_trainer(main_amp, cfg, weights, level, PARITY_BATCH,
+                            fused_optimizer=opt, impl=impl, **kw)
         met = tr.step(images, labels, RESNET_LR)
         torch.cuda.synchronize()
         if bool(met["found_inf"]):
-            raise AssertionError(f"resnet_step_parity ({impl}): found_inf set")
+            raise AssertionError(f"{label} ({impl}): found_inf set")
         model, masters, moms, steps = resnet_state(tr)
         for arena, master in zip(model, masters):
             if not torch.equal(arena, master.to(arena.dtype)):
                 raise AssertionError(
-                    f"resnet_step_parity ({impl}): model arena != masters.to(dtype)")
+                    f"{label} ({impl}): model arena != masters.to(dtype)")
         if steps != [1, 1]:
-            raise AssertionError(f"resnet_step_parity ({impl}): step counts {steps}")
+            raise AssertionError(f"{label} ({impl}): step counts {steps}")
         res[impl] = (met["loss"].item(), grads, masters, moms,
                      [t.clone() for t in tree_flatten(tr.bn_state)[0]])
         del tr, opt
         torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
     (lk, gk, mk, bk, sk), (lp, gp, mp, bp, sp) = res[None], res["torch"]
     loss_err = abs(lk - lp) / abs(lp)
     if not (np.isfinite(lk) and loss_err < 1e-5):
-        raise AssertionError(f"resnet_step_parity: loss {lk} vs plain {lp}")
+        raise AssertionError(f"{label}: loss {lk} vs plain {lp}")
     grad_rel = [float((a - b).norm() / b.norm()) for a, b in zip(gk, gp)]
     if max(grad_rel) > 0.05:
-        raise AssertionError(f"resnet_step_parity: grad arenas differ, rel L2 {grad_rel}")
+        raise AssertionError(f"{label}: grad arenas differ, rel L2 {grad_rel}")
     worst = {}
     for name, got, ref, coef in (("master", mk, mp, RESNET_LR), ("momentum", bk, bp, 1.0)):
         for a, b, ga, gb in zip(got, ref, gk, gp):
@@ -2806,12 +2861,12 @@ def resnet_step_parity_phase(main_amp, fused_sgd, tree_flatten, cfg, weights):
             tol = coef * dg + 2 ** -22 * float(b.abs().max())
             err = max_err(a, b)
             if err > tol:
-                raise AssertionError(f"resnet_step_parity: {name} differs by "
+                raise AssertionError(f"{label}: {name} differs by "
                                      f"{err} > {tol} (grads differ by {dg})")
             worst[name] = max(worst.get(name, 0.0), err)
-    bn_err = max(check_close("resnet_step_parity BN state", a, b,
+    bn_err = max(check_close(f"{label} BN state", a, b,
                              dict(rtol=1e-5, atol=1e-6)) for a, b in zip(sk, sp))
-    line("resnet_step_parity", batch=PARITY_BATCH, image=RESNET_IMAGE, loss=lk,
+    line(label, batch=PARITY_BATCH, image=RESNET_IMAGE, opt_level=level, loss=lk,
          plain_loss=lp, loss_rel_err=loss_err, grad_rel_l2=max(grad_rel),
          grad_max_abs_err=max(max_err(a, b) for a, b in zip(gk, gp)),
          master_max_abs_err=worst["master"],
@@ -2819,25 +2874,39 @@ def resnet_step_parity_phase(main_amp, fused_sgd, tree_flatten, cfg, weights):
          model_arena_is_master_cast="bitwise")
 
 
-def resnet_skip_phase(main_amp, cfg, weights):
+def resnet_skip_phase(main_amp, cfg, weights, level="O5"):
     """An O5 step whose loss is weighted by inf (the trainer's static loss
     scale set to inf: bf16 gradients cannot overflow from a finite scale
     here, as the GPT skip step explains): model arenas, masters, momentum
-    and step counts stay bitwise unchanged."""
-    tr = resnet_trainer(main_amp, cfg, weights, "O5", PARITY_BATCH,
-                        loss_scale=float("inf"))
+    and step counts stay bitwise unchanged. At O2 the dynamic scale starts
+    at 2^24 instead (JAX's test_dynamic_scaler_skips_do_not_poison_params):
+    the fp16 gradients overflow, the state stays bitwise the same and the
+    scale halves."""
+    if level == "O5":
+        tr = resnet_trainer(main_amp, cfg, weights, "O5", PARITY_BATCH,
+                            loss_scale=float("inf"))
+        label = "resnet_skip_step"
+    else:
+        tr = resnet_trainer(main_amp, cfg, weights, level, PARITY_BATCH,
+                            loss_scale="dynamic")
+        tr.scaler_state["scale"].fill_(2.0 ** 24)
+        label = f"resnet_{level.lower()}_skip_step"
+    scale0 = tr.scaler_state["scale"].item()
     before = resnet_state(tr)
     met = tr.step(*resnet_batch(cfg, PARITY_BATCH, 65), RESNET_LR)
     torch.cuda.synchronize()
     after = resnet_state(tr)
     if not bool(met["found_inf"]):
-        raise AssertionError("resnet_skip_step: found_inf not set")
+        raise AssertionError(f"{label}: found_inf not set")
     same = all(torch.equal(a, b) for xs, ys in zip(before[:3], after[:3])
                for a, b in zip(xs, ys))
     if not same or after[3] != [0, 0]:
-        raise AssertionError(f"resnet_skip_step: the state changed (steps {after[3]})")
-    line("resnet_skip_step", found_inf=True, state="bitwise unchanged",
-         step_count=after[3][0])
+        raise AssertionError(f"{label}: the state changed (steps {after[3]})")
+    scale1 = tr.scaler_state["scale"].item()
+    if level != "O5" and scale1 != scale0 / 2:
+        raise AssertionError(f"{label}: scale {scale0} -> {scale1}")
+    line(label, found_inf=True, state="bitwise unchanged",
+         step_count=after[3][0], scale_before=scale0, scale_after=scale1)
     del tr
     torch.cuda.empty_cache()
 
@@ -3505,6 +3574,461 @@ def ddp_training_phases(main_amp, amp, guard_mod, faults, parallel, comms, cfg,
 
 
 # (kernel key, route, source, the TPU kernel it replaces)
+# ---------------------------------------------- slice 13: amp O1-O4, fp16
+
+
+def fp16_pv_bound(attn, q, k, v, lens, causal, scale, ro, rate, key):
+    """K2's fp16 output bound, :func:`check_dropped_pv`'s form at fp16's
+    unit roundoff (8 times finer than bf16's): 2^-10 |ref| + 2^-11 sum
+    p~|v| (each kept p rounded to fp16 for p.v, the output rounded once),
+    plus 2^-24 |v|max for each live key, for the p that fall below 2^-14,
+    where fp16 is subnormal and its step absolute (2^-24)."""
+    ref_abs = attn.flash_fwd_torch(q.float(), k.float(), v.float().abs(),
+                                   lens, causal, scale, rate, key)[0]
+    vmax = v.float().abs().amax((1, 2))[:, None, None]
+    keys = lens.float().clamp(max=k.shape[1])[:, None, None] / (1.0 - rate)
+    return 2 ** -10 * ro.float().abs() + 2 ** -11 * ref_abs + 2 ** -24 * keys * vmax
+
+
+def check_bound(name, got, ref, bound):
+    """``|got - ref| <= bound`` everywhere; returns the worst error and the
+    worst share of the bound."""
+    err = (got.float() - ref.float()).abs()
+    bad = err > bound
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} of {bad.numel()} elements "
+                             f"out of tolerance, first at {bad.nonzero()[0].tolist()}")
+    live = bound > 0  # rows of length 0 are exactly 0 on both sides
+    return float(err.max()), float((err[live] / bound[live]).max())
+
+
+# K4's fp16 tolerance: bf16's relative form (2e-2) at fp16's unit roundoff
+K4_FP16_TOL = 2.5e-3
+FP16_FLASH = [  # BH, S, D, causal, rate, row name, ragged lens
+    (256, 1024, 64, True, 0.0, "gpt_o2", False),       # the O2/O1 GPT's calls
+    (256, 1024, 64, True, 0.1, "gpt_fp16_dropout", False),
+    (2048, 128, 64, False, 0.0, "bert_fp16", True),
+    (128, 512, 40, True, 0.0, "fp16_d40", False),       # the row kernels
+]
+
+
+def launch_source(name):
+    """Where an fp16 flash row's launches come from: the GPT O2 run for its
+    training shape; no main path runs the others in fp16."""
+    return dict(path=name) if name == "gpt_o2" else dict(launches=0)
+
+
+def k2_k4_fp16_phase(attn):
+    """K2 and K4 on fp16 (amp O1/O2) against their plain versions at the GPT
+    training shape with and without dropout, BERT's with ragged lengths and
+    head dim 40 (the CUDA-core row kernels), each timed beside its bound
+    (the bf16 rows' bytes and operations; fp16 runs at bf16's tensor-core
+    rate) and the library's fp16 attention (SDPA: is_causal where every
+    length is full, the boolean mask where lengths are ragged). K4 is called
+    twice and held bitwise. fp16 q into K2's decode path and its paged mode
+    must raise. Returns the K2 and K4 rows."""
+    key = flash_key()
+    rng = np.random.default_rng(13)
+    fwd_rows, bwd_rows = {}, {}
+    for i, (BH, S, D, causal, rate, name, ragged) in enumerate(FP16_FLASH):
+        g = gen(130 + i)
+        q, k, v = (torch.randn(BH, S, D, generator=g, device="cuda").half()
+                   for _ in range(3))
+        lens_np = rng.integers(0, S + 1, BH) if ragged else np.full(BH, S)
+        if ragged:
+            lens_np[:2] = (0, S)
+        lens = torch.tensor(lens_np, dtype=torch.int32, device="cuda")
+        scale = D ** -0.5
+        drop = (rate, key if rate else None)
+        args = (q, k, v, lens, causal, scale, *drop)
+        o, lse = attn.flash_fwd_kernel(*args)
+        ro, rlse = attn.flash_fwd_torch(*args)
+        torch.cuda.synchronize()
+        tag = (f"BH{BH} Sq{S} Sk{S} D{D}{' causal' if causal else ''} float16"
+               f"{' ragged lens' if ragged else ''}{f' dropout {rate}' if rate else ''}")
+        if ragged and not (torch.all(o[0] == 0) and torch.all(lse[0] == -1e30)):
+            raise AssertionError(f"K2 {tag}: a lens-0 row is not exactly 0")
+        err, share = check_bound(f"K2 {tag}", o, ro,
+                                 fp16_pv_bound(attn, q, k, v, lens, causal, scale,
+                                               ro, *drop))
+        check_close(f"K2 lse {tag}", lse, rlse, dict(rtol=1e-5, atol=1e-4))
+        B = BH // 16
+        full = not ragged
+        ql, kl, vl = (t.reshape(B, 16, S, D) for t in (q, k, v))
+        keep = None if full else sdpa_mask(lens, S, causal).reshape(B, 16, -1, S)
+        flops, nbytes = k2_flops_bytes(q, k, lens, causal)
+        int_ops = PHILOX_OPS_PER_ELEMENT * live_pairs(q, k, lens, causal) if rate else 0
+        bms, by = bound_ms(nbytes, flops, torch.float16, int_ops)
+        fields = dict(max_abs_err=err, bound_share=share,
+                      ms=time_ms(lambda: attn.flash_fwd_kernel(*args)),
+                      plain_ms=time_ms(lambda: attn.flash_fwd_torch(*args), iters=5),
+                      library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                          ql, kl, vl, attn_mask=keep, is_causal=full and causal,
+                          scale=scale, dropout_p=rate)),
+                      bound_ms=bms, bound_by=by, **launch_source(name))
+        fwd_rows[name] = (tag, fields)
+        line("K2", shape=tag, **fields)
+
+        do = torch.randn(ro.shape, generator=g, device="cuda").half()
+        bargs = (q, k, v, ro, do, rlse, None, lens, causal, scale, *drop)
+        got = attn.flash_bwd_kernel(*bargs)
+        again = attn.flash_bwd_kernel(*bargs)
+        ref = attn.flash_bwd_torch(*bargs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K4 {tag}: two calls differ")
+        del again
+        if ragged and not all(torch.all(t[0] == 0) for t in got):
+            raise AssertionError(f"K4 {tag}: a lens-0 row is not exactly 0")
+        errs = []
+        for gname, a, b in zip(("dq", "dk", "dv"), got, ref):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"K4 {gname} {tag}: non-finite")
+            tol = dict(rtol=K4_FP16_TOL, atol=K4_FP16_TOL * float(b.float().abs().max()))
+            errs.append(check_close(f"K4 {gname} {tag}", a, b, tol))
+        flops, nbytes = k4_flops_bytes(q, k, lens, causal)
+        bms, by = bound_ms(nbytes, flops, torch.float16, int_ops)
+        qg, kg, vg = (t.reshape(B, 16, S, D).clone().requires_grad_(True)
+                      for t in (q, k, v))
+        fields = dict(max_abs_err=max(errs), repeat="bitwise",
+                      ms=time_ms(lambda: attn.flash_bwd_kernel(*bargs)),
+                      plain_ms=time_ms(lambda: attn.flash_bwd_torch(*bargs), iters=5),
+                      library_ms=grad_ms(
+                          lambda: F.scaled_dot_product_attention(
+                              qg, kg, vg, attn_mask=keep, is_causal=full and causal,
+                              scale=scale, dropout_p=rate),
+                          (qg, kg, vg), do.reshape(B, 16, S, D)),
+                      bound_ms=bms, bound_by=by, **launch_source(name))
+        bwd_rows[name] = (tag, fields)
+        line("K4", shape=tag, **fields)
+        del q, k, v, o, ro, do, got, ref, qg, kg, vg, keep
+        torch.cuda.empty_cache()
+    # no fp16 decode path: the contiguous decode mode and the paged mode raise
+    refused = []
+    q = torch.zeros(4, 1, 64, dtype=torch.float16, device="cuda")
+    for sq in (1, 15):
+        qd = torch.zeros(4, sq, 64, dtype=torch.float16, device="cuda")
+        lens = torch.full((4,), 8, dtype=torch.int32, device="cuda")
+        try:
+            attn.flash_fwd_kernel(qd, qd, qd, lens, False, 0.125)
+        except ValueError as e:
+            refused.append("float16" in str(e))
+    pool = torch.zeros(9, 4, 64, device="cuda")
+    table = torch.zeros(4, 2, dtype=torch.int32, device="cuda")
+    try:
+        attn._paged_decode_kernel(q, pool, pool, table, torch.full(
+            (4,), 8, dtype=torch.int32, device="cuda"), 1, 0.125)
+    except ValueError as e:
+        refused.append("float16" in str(e))
+    if refused != [True, True, True]:
+        raise AssertionError(f"K2: fp16 into the decode or paged mode was not "
+                             f"refused by name ({refused})")
+    line("K2_fp16_decode", contiguous_sq1="refused", contiguous_sq15="refused",
+         paged="refused")
+    return fwd_rows, bwd_rows
+
+
+def k10_half_phase(mt, spec):
+    """K10 on an fp16 parameter arena with fp32 momentum (amp O3's list path
+    over ResNet-50's 25.56M parameters) against its plain version: the fp32
+    momentum at the fp32 rows' bound, p at that bound plus one fp16
+    rounding (the two fp32 values, one of them contracted into an fma, may
+    straddle a rounding boundary; the atol, 1e-6 of the largest value,
+    also covers fp16's absolute step of 2^-24 below 2^-14); a skipped step
+    bitwise; the padding stays 0. No single PyTorch call takes fp16 params with fp32 momentum and
+    gradients, so the row has no library time."""
+    n, total = spec.padded_total, spec.total
+    g = gen(95)
+    grad = 1e-3 * torch.randn(n, generator=g, device="cuda")
+    p = (0.02 * torch.randn(n, generator=g, device="cuda")).half()
+    m = 1e-3 * torch.randn(n, generator=g, device="cuda")
+    for t in (grad, p, m):
+        t[total:] = 0
+    tag = f"{n} resnet_o3 plain p float16"
+
+    def hyper(skip):
+        return dict(lr=RESNET_LR, weight_decay=RESNET_WD, scale=1.0,
+                    first_run=torch.zeros((), dtype=torch.bool, device="cuda"),
+                    found_inf=torch.full((), skip, dtype=torch.bool, device="cuda"),
+                    copy_out=None, **SGD_VARIANTS["plain"])
+
+    out = {}
+    for skip in (False, True):
+        for fn in (mt.sgd_kernel, mt.sgd_torch):
+            pk, mk = p.clone(), m.clone()
+            fn(grad, pk, mk, **hyper(skip))
+            out[fn, skip] = (pk, mk)
+    torch.cuda.synchronize()
+    (pk, mk), (pr, mr) = out[mt.sgd_kernel, False], out[mt.sgd_torch, False]
+    err = max(check_close(f"K10 m {tag}", mk, mr,
+                          dict(rtol=1e-6, atol=1e-6 * float(mr.abs().max()))),
+              check_close(f"K10 p {tag}", pk.float(), pr.float(),
+                          dict(rtol=2 ** -10, atol=1e-6 * float(pr.float().abs().max()))))
+    if not (torch.all(pk[total:] == 0) and torch.all(mk[total:] == 0)):
+        raise AssertionError(f"K10 {tag}: the padding moved")
+    if not all(torch.equal(a, b) for a, b in zip(out[mt.sgd_kernel, True], (p, m))):
+        raise AssertionError(f"K10 {tag}: a skipped step changed state")
+    # g read in fp32, p read and written in fp16, m read and written in fp32
+    bms, by = bound_ms(16 * n, 8 * n, torch.float32)
+    st, kw = (p.clone(), m.clone()), hyper(False)  # a step that is taken
+    fields = dict(max_abs_err=err, skip="bitwise",
+                  ms=time_ms(lambda: mt.sgd_kernel(grad, *st, **kw)),
+                  plain_ms=time_ms(lambda: mt.sgd_torch(grad, *st, **kw), iters=5),
+                  library_ms=None, bound_ms=bms, bound_by=by, path="resnet_o3")
+    line("K10", shape=tag, **fields)
+    return {"resnet_o3": (tag, fields)}
+
+
+def launch_floor_phase():
+    """The least time a kernel launch costs the card: an empty Triton kernel
+    of one program, timed by :func:`time_ms` (20 launches, L2 flushed), the
+    harness every row of the kernels line uses. A row near it is a launch,
+    not its work."""
+    from beforeholiday_tpu_torch.ops.multi_tensor import _triton
+
+    triton = _triton()
+
+    @triton.jit
+    def _empty(x_ptr):
+        pass
+
+    x = torch.zeros(1, device="cuda")
+    ms = time_ms(lambda: _empty[(1,)](x))
+    line("launch_floor", kernel="'empty Triton kernel, one program'", ms=ms)
+    return ms
+
+
+def scale_line(label, scaler_state):
+    """The loss scale at the end of a timed run, and the steps since its
+    last overflow."""
+    line(label, loss_scale_end=scaler_state["scale"].item(),
+         unskipped=int(scaler_state["unskipped"]))
+
+
+def gpt_amp_phases(amp, gpt, fused_adam, cfg, counters, card):
+    """The flagship GPT at amp O2 (fp16 storage, fp32 LayerNorm leaves and
+    masters, the dynamic scale from 2^16), flash and unfused, and at O1
+    (fp16) and O4 (bf16) autocast over fp32 storage: the parity step at
+    batch 2 (flash; a static scale of 2^10, so that the step compared is
+    not one the dynamic scale skips), O2's skip step, and the timed and
+    profiled run at TRAIN_BATCH. Returns each run's launch counts."""
+    params = gpt.init(cfg, gen(0), device="cuda")
+    batch = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70), device="cuda")
+    launches = {}
+    for level, flash in (("O2", True), ("O2", False), ("O1", True), ("O4", True)):
+        key = f"gpt_{level.lower()}{'' if flash else '_unfused'}"
+        lcfg = dataclasses.replace(cfg, dtype=GPT_ACT[level],
+                                   use_flash_attention=flash)
+
+        def trainer(lcfg=lcfg, level=level, **kw):
+            return make_gpt_trainer(amp, gpt, fused_adam, params, lcfg,
+                                    level=level, **kw)
+
+        if flash:
+            step_parity_phase(
+                f"{key}_step_parity",
+                lambda **kw: trainer(**{"loss_scale": 2.0 ** 10, **kw}),
+                gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(60),
+                                    device="cuda"),
+                2 * LR + 1e-6, "2 lr: a gradient sign flip")
+        if key == "gpt_o2":
+            skip_phase("gpt_o2_skip_step", trainer, gpt.synthetic_batch(
+                cfg, PARITY_BATCH, generator=gen(61), device="cuda"))
+        m, state, step = trainer()
+        launches[key] = training_phase(
+            f"{key}_training", f"{key}_profile", step, batch, counters,
+            STEP_LAUNCHES[key], TRAIN_GROUPS, card, seq_len=cfg.seq_len,
+            opt_level=level, activations=str(GPT_ACT[level])[6:],
+            attention="flash" if flash else "unfused", **lm_work(m, batch))
+        scale_line(f"{key}_loss_scale", state["scaler"])
+        del m, state, step
+        torch.cuda.empty_cache()
+    return launches
+
+
+def resnet_amp_phases(main_amp, fused_sgd, tree_flatten, cfg, weights, counters,
+                      flops_per_image, n_params, card):
+    """ResNet-50 at amp O2 (the North star's recipe: fp16 arenas, BN fp32,
+    the dynamic scale): the parity step and the overflowing step at batch
+    2; then O2, O1 and O4 (autocast over fp32 storage, the list path) and
+    O3 (fp16 storage without masters: K10 on fp16 params) timed and
+    profiled at RESNET_BATCH. Returns each run's launch counts."""
+    resnet_step_parity_phase(main_amp, fused_sgd, tree_flatten, cfg, weights,
+                             level="O2")
+    resnet_skip_phase(main_amp, cfg, weights, level="O2")
+    launches = {}
+    for level in ("O2", "O1", "O3", "O4"):
+        key = f"resnet_{level.lower()}"
+        tr = resnet_trainer(main_amp, cfg, weights, level, RESNET_BATCH)
+        launches[key] = resnet_training_phase(
+            f"{key}_training", f"{key}_profile", tr, trainer_step(tr), counters,
+            STEP_LAUNCHES[key], flops_per_image, PEAK_BF16, n_params, card,
+            opt_level=level)
+        scale_line(f"{key}_loss_scale", tr.scaler_state)
+        del tr
+        torch.cuda.empty_cache()
+    return launches
+
+
+def check_master_cast(label, pairs):
+    """Each ``(params, optimizer state)``'s model leaves are its masters'
+    cast, bit for bit."""
+    from beforeholiday_tpu_torch.ops.arena import tree_flatten
+
+    for params, state in pairs:
+        if not all(torch.equal(p, m.to(p.dtype)) for p, m in zip(
+                tree_flatten(params)[0], tree_flatten(state["master"])[0])):
+            raise AssertionError(f"{label}: model != masters.to(fp16)")
+
+
+def dcgan_parity_phase(dcgan, amp):
+    """DCGAN O2 on the kernels against ``impl="torch"`` from the same
+    weights (``build``'s seed) and batch at DCGAN_BATCH, cuDNN
+    deterministic, so that both paths take the same gradients. First the
+    kernels alone on DCGAN's trees: K5 unscaling D's fp16 real-loss
+    gradients (bitwise, the flag clear on both), then K6 stepping D's
+    masters from those gradients (K6's row tolerance on masters and
+    moments; the fp16 model the masters' cast bitwise). Then one whole
+    iteration: errD and errG to 5e-3 relative, D's and G's masters within
+    2 lr (a gradient sign flip: G's loss reads the updated fp16 D), each
+    fp16 model the masters' cast bitwise, and the three scaler states
+    equal, no step skipped."""
+    from beforeholiday_tpu_torch.ops.arena import tree_flatten
+
+    torch.backends.cudnn.deterministic = True
+    real, z = (torch.from_numpy(a).cuda()
+               for a in next(dcgan.synthetic_batches(DCGAN_BATCH, 1)))
+    paths = {impl: dcgan.build("O2", DCGAN_LR, device="cuda", impl=impl)
+             for impl in (None, "torch")}
+    # K5 alone: D's scaled fp16 gradients, unscaled to fp32
+    grads, flags = {}, {}
+    for impl, (d, _) in paths.items():
+        svag = amp.scaled_value_and_grad(
+            lambda p, x, d=d: dcgan.bce_logits(d.apply(p, x), 1.0),
+            d.scalers[0], impl=impl)
+        scale0 = d.scalers[0].init(device="cuda")
+        _, grads[impl], flags[impl], _ = svag(d.params, scale0, real)
+    gk, gp = (tree_flatten(grads[i])[0] for i in (None, "torch"))
+    if bool(flags[None]) or bool(flags["torch"]):
+        raise AssertionError("dcgan parity: K5 flagged D's real-loss gradients")
+    if not all(torch.equal(a, b) for a, b in zip(gk, gp)):
+        raise AssertionError("dcgan parity: K5's gradients differ from the plain")
+    # K6 alone: one MasterWeights step of D from the same gradients
+    stepped = {}
+    for impl, (d, _) in paths.items():
+        state = d.optimizer.init(d.params)
+        stepped[impl] = d.optimizer.step(
+            d.params, {k: v.clone() for k, v in grads[None].items()}, state,
+            found_inf=flags[None])
+    (pk, sk), (pp, sp) = stepped[None], stepped["torch"]
+    k6_err = 0.0
+    for name in ("master", "inner"):
+        for x, y in zip(tree_flatten(sk[name])[0], tree_flatten(sp[name])[0]):
+            if x.is_floating_point():
+                k6_err = max(k6_err, check_close(f"dcgan parity: K6 {name}", x, y,
+                                                 dict(rtol=1e-6, atol=1e-10)))
+    check_master_cast("dcgan parity: K6", ((pk, sk), (pp, sp)))
+    # the whole iteration, each path from its own fresh state
+    out = {}
+    for impl, (d, g) in paths.items():
+        dp, gp = d.params, g.params
+        d_opt, g_opt = d.optimizer.init(dp), g.optimizer.init(gp)
+        scalers = tuple(s.init(device="cuda") for s in (*d.scalers, *g.scalers))
+        step = dcgan.make_train_step(d, g, impl=impl)
+        out[impl] = step(dp, gp, d_opt, g_opt, scalers, real, z)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    (dk, gk_, dok, gok, sck, mk), (dpl, gpl, dop, gop, scp, mp) = (
+        out[None], out["torch"])
+    loss_err = {k: abs(float(mk[k]) - float(mp[k])) / abs(float(mp[k]))
+                for k in ("errD", "errG")}
+    if not all(np.isfinite(float(mk[k])) and e < 5e-3 for k, e in loss_err.items()):
+        raise AssertionError(f"dcgan parity: losses {loss_err}")
+    tol = 2 * DCGAN_LR + 1e-6
+    master_err = 0.0
+    for ok, op in ((dok, dop), (gok, gop)):
+        for a, b in zip(tree_flatten(ok["master"])[0], tree_flatten(op["master"])[0]):
+            master_err = max(master_err, max_err(a, b))
+    if master_err > tol:
+        raise AssertionError(f"dcgan parity: masters differ by {master_err} > {tol} "
+                             f"(2 lr: a gradient sign flip)")
+    check_master_cast("dcgan parity", ((dk, dok), (gk_, gok), (dpl, dop), (gpl, gop)))
+    for a, b in zip(sck, scp):
+        if not all(torch.equal(a[k], b[k]) for k in b):
+            raise AssertionError(f"dcgan parity: scaler states {a} vs {b}")
+    if [int(s["unskipped"]) for s in sck] != [1, 1, 1]:
+        raise AssertionError(f"dcgan parity: a step was skipped {sck}")
+    line("dcgan_o2_parity", batch=DCGAN_BATCH, k5_grads="bitwise",
+         k6_max_abs_err=k6_err, k6_tol="'rtol 1e-6, atol 1e-10'",
+         errD=float(mk["errD"]), plain_errD=float(mp["errD"]),
+         errD_rel_err=loss_err["errD"], errG=float(mk["errG"]),
+         plain_errG=float(mp["errG"]), errG_rel_err=loss_err["errG"], loss_tol=5e-3,
+         master_max_abs_err=master_err, master_tol=tol,
+         model_is_master_cast="bitwise", scaler_states="equal")
+    del paths, out, stepped, grads
+    torch.cuda.empty_cache()
+
+
+def dcgan_phase(dcgan, counters, card):
+    """The multi-loss DCGAN example at O2 (examples/dcgan: D on two per-loss
+    dynamic scalers, G on one, MasterWeights(FusedAdam) on fp16 trees):
+    DCGAN_ITERS iterations at DCGAN_BATCH on seeded synthetic batches, each
+    timed by CUDA events, the launch counts reset before and read after (K5
+    three times and K6 twice an iteration); the losses finite, D(x)
+    reported, and the per-loss scaler states through the state dicts and
+    back."""
+    d, g = dcgan.build("O2", DCGAN_LR, device="cuda")
+    dp, gp = d.params, g.params
+    d_opt, g_opt = d.optimizer.init(dp), g.optimizer.init(gp)
+    scalers = tuple(s.init(device="cuda") for s in (*d.scalers, *g.scalers))
+    step = dcgan.make_train_step(d, g)
+    batches = [(torch.from_numpy(r).cuda(), torch.from_numpy(z).cuda())
+               for r, z in dcgan.synthetic_batches(DCGAN_BATCH, DCGAN_ITERS)]
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    events, metrics = [], []
+    t0 = time.perf_counter()
+    for real, z in batches:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        dp, gp, d_opt, g_opt, scalers, m = step(dp, gp, d_opt, g_opt, scalers, real, z)
+        b.record()
+        events.append((a, b))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    if launches != {"unscale": 3 * DCGAN_ITERS, "adam": 2 * DCGAN_ITERS}:
+        raise AssertionError(f"dcgan: launches {launches}, expected K5 3 and K6 2 "
+                             f"an iteration")
+    vals = {k: [float(m[k]) for m in metrics] for k in ("errD", "errG", "D_x")}
+    if not all(np.isfinite(v).all() for v in vals.values()):
+        raise AssertionError(f"dcgan: non-finite losses {vals}")
+    if any(t.dtype != torch.float16 for t in (*dp.values(), *gp.values())):
+        raise AssertionError("dcgan: O2's model params are not fp16")
+    sd_d, sd_g = d.state_dict(list(scalers[:2])), g.state_dict(scalers[2])
+    if set(sd_d) != {"loss_scaler0", "loss_scaler1"} or set(sd_g) != {"loss_scaler0"}:
+        raise AssertionError(f"dcgan: state dict keys {set(sd_d)}, {set(sd_g)}")
+    back = list(d.load_state_dict(sd_d, device="cuda")) + [
+        g.load_state_dict(sd_g, device="cuda")]
+    if not all(torch.equal(a[k], b[k]) for a, b in zip(back, scalers) for k in b):
+        raise AssertionError("dcgan: the scaler states did not round-trip")
+    it_ms = [a.elapsed_time(b) for a, b in events]
+    line("dcgan_o2", iterations=DCGAN_ITERS, batch=DCGAN_BATCH,
+         median_iteration_ms=float(np.median(it_ms)),
+         mean_iteration_ms=1e3 * wall / DCGAN_ITERS,
+         errD_first=vals["errD"][0], errD_last=vals["errD"][-1],
+         errG_last=vals["errG"][-1], D_x_first=vals["D_x"][0],
+         D_x_last=vals["D_x"][-1],
+         loss_scales=json.dumps([s["scale"].item() for s in scalers]),
+         unskipped=json.dumps([int(s["unskipped"]) for s in scalers]),
+         launches_per_iteration=json.dumps(
+             {k: v // DCGAN_ITERS for k, v in launches.items()}),
+         state_dict="round-trips", card=f"'{card}'")
+
+
 KERNEL_ROWS = (
     ("layer_norm_fwd", "triton", "beforeholiday_tpu_torch/ops/normalization.py",
      "beforeholiday_tpu/ops/normalization.py:55"),
@@ -3613,6 +4137,14 @@ def main():
             "xent_fwd": k14_phase(xent), "xent_bwd": k15_phase(xent),
             "axpby": k16_phase(mt, rspecs), "adagrad": k17_phase(mt, o0_spec),
             "novograd": k18_phase(mt, make_spec, o0_spec)}
+    torch.cuda.empty_cache()
+    # slice 13: K2/K4 in fp16 (amp O1/O2), K10 on fp16 params (O3), and
+    # the launch floor beside them
+    fwd16, bwd16 = k2_k4_fp16_phase(attn)
+    rows["flash_fwd"].update(fwd16)
+    rows["flash_bwd"].update(bwd16)
+    rows["sgd"].update(k10_half_phase(mt, o0_spec))
+    launch_floor = launch_floor_phase()
     torch.cuda.empty_cache()
     xent_function_phase(xent)
     flash_dropout_laws_phase(attn)
@@ -3812,6 +4344,8 @@ def main():
     del m, step, params, gpt_batch, bert_train_batch, parity
     torch.cuda.empty_cache()
 
+    launches.update(gpt_amp_phases(amp, gpt, FusedAdam, cfg, counters, card))
+
     resnet_step_parity_phase(main_amp, FusedSGD, tree_flatten, rcfg, rweights)
     resnet_skip_phase(main_amp, rcfg, rweights)
     flops_per_image = resnet_flops_per_image(resnet, rcfg, rweights)
@@ -3828,6 +4362,18 @@ def main():
             card, opt_level=level)
         del tr
         torch.cuda.empty_cache()
+
+    # slice 13: ResNet-50 at amp O2 (the North star's recipe: fp16 arenas,
+    # BN fp32, the dynamic scale), O1 and O4 (autocast over fp32 storage,
+    # the list path) and O3 (fp16 storage without masters: K10 on fp16
+    # params); then the DCGAN example at O2
+    launches.update(resnet_amp_phases(main_amp, FusedSGD, tree_flatten, rcfg,
+                                      rweights, counters, flops_per_image,
+                                      n_params, card))
+    from beforeholiday_tpu_torch.examples.dcgan import main_amp as dcgan
+    dcgan_parity_phase(dcgan, amp)
+    dcgan_phase(dcgan, counters, card)
+    torch.cuda.empty_cache()
 
     # slice 8: the O5 FusedSGD trainer accumulating two micro-batches (K16),
     # and the list path with FusedAdagrad (K17), FusedNovoGrad (K18),
@@ -3890,7 +4436,8 @@ def main():
                 bound_ms=f["bound_ms"], bound_by=f["bound_by"],
                 library_ms=f["library_ms"]))
     line("total", seconds=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "launch_floor_ms": launch_floor}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

@@ -135,6 +135,14 @@ def _ragged(BH, full, seed=0):
     (8, 100, 100, 16, True, torch.float32),
     (8, 64, 200, 128, False, torch.float32),
     (8, 33, 33, 112, True, torch.float32),
+    # fp16 (amp O1/O2): the tensor-core kernel, and the row kernel at head
+    # dims it does not take
+    (256, 1024, 1024, 64, True, torch.float16),    # the GPT training shape
+    (2048, 128, 128, 64, False, torch.float16),    # BERT-Large, key padding
+    (8, 70, 70, 48, True, torch.float16),
+    (8, 200, 1000, 96, False, torch.float16),
+    (8, 100, 100, 40, True, torch.float16),
+    (8, 64, 64, 256, False, torch.float16),
 ])
 def test_k2_matches_plain(cuda, BH, Sq, Sk, D, causal, dtype):
     q, k, v, lens = _k2_inputs(BH, Sq, Sk, D, dtype, _ragged(BH, Sk))
@@ -153,9 +161,39 @@ def test_k2_matches_plain(cuda, BH, Sq, Sk, D, causal, dtype):
                                         lens, causal, scale)[0]
         assert bool(((o.float() - ro.float()).abs()
                      <= 2 ** -7 * ro.float().abs() + 2 ** -8 * ref_abs).all())
+    elif dtype == torch.float16:
+        assert bool(((o.float() - ro.float()).abs()
+                     <= _fp16_pv_bound(q, k, v, lens, causal, scale, ro)).all())
     else:
         torch.testing.assert_close(o, ro, **FP32_TOL)
     torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+
+
+def _fp16_pv_bound(q, k, v, lens, causal, scale, ro, rate=0.0, key=None):
+    """K2's fp16 output bound, chip_smoke.py's check_dropped_pv in fp16's
+    unit roundoff: 2^-10 |ref| + 2^-11 sum p|v| (each kept p rounded to fp16
+    for p.v, the output rounded once), plus 2^-24 |v|max a live key for the
+    p that fall below 2^-14, where fp16 is subnormal (an absolute step of
+    2^-24)."""
+    ref_abs = tattn.flash_fwd_torch(q.float(), k.float(), v.float().abs(),
+                                    lens, causal, scale, rate, key)[0]
+    vmax = v.float().abs().amax((1, 2))[:, None, None]
+    keys = lens.float().clamp(max=k.shape[1])[:, None, None] / (1.0 - rate)
+    return (2 ** -10 * ro.float().abs() + 2 ** -11 * ref_abs
+            + 2 ** -24 * keys * vmax)
+
+
+def test_k2_decode_and_paged_modes_refuse_fp16(cuda):
+    """fp16 q has no decode path (Sq < 16) and no paged mode: both raise
+    with a message naming fp16, rather than falling back."""
+    for sq in (1, 5, 15):
+        q, k, v, lens = _k2_inputs(4, sq, 64, 64, torch.float16, [64, 3, 0, 64])
+        with pytest.raises(ValueError, match="float16"):
+            tattn.flash_fwd_kernel(q, k, v, lens, False, 0.125)
+    q, kp, vp, table, ln = _paged_pools(3, 2, 16, 9, 4, 2, [3, 8, 0],
+                                        torch.float32, 1)
+    with pytest.raises(ValueError, match="float16"):
+        tattn._paged_decode_kernel(q.half(), kp, vp, table, ln, 2, 0.25)
 
 
 @pytest.mark.parametrize("D, dtypes", [
@@ -525,9 +563,12 @@ def test_k3_matches_plain(cuda, rows, hidden, dtype, rms, bias):
 
 def _k4_tol(dtype, ref):
     # bf16: the tensor-core kernel rounds p and ds to bf16 for its products
-    # (as the TPU kernel does); the plain version keeps them fp32
+    # (as the TPU kernel does); the plain version keeps them fp32. fp16: the
+    # same form at fp16's unit roundoff, 8 times finer
     if dtype == torch.bfloat16:
         return dict(rtol=2e-2, atol=2e-2 * float(ref.float().abs().max()))
+    if dtype == torch.float16:
+        return dict(rtol=2.5e-3, atol=2.5e-3 * float(ref.float().abs().max()))
     return dict(rtol=1e-4, atol=1e-4)
 
 
@@ -541,6 +582,10 @@ def _k4_tol(dtype, ref):
     (8, 100, 100, 80, True, torch.float32, True),
     (8, 33, 70, 128, False, torch.float32, True),
     (4, 16, 16, 16, True, torch.float32, False),
+    (256, 1024, 1024, 64, True, torch.float16, False),  # GPT at O1/O2
+    (2048, 128, 128, 64, False, torch.float16, False),
+    (8, 70, 70, 48, True, torch.float16, True),
+    (8, 100, 100, 40, False, torch.float16, True),      # the row kernels
 ])
 def test_k4_matches_plain(cuda, BH, Sq, Sk, D, causal, dtype, dlse):
     q, k, v, lens = _k2_inputs(BH, Sq, Sk, D, dtype, _ragged(BH, Sk), seed=3)
@@ -860,7 +905,7 @@ def test_bert_lamb_step_kernels_match_plain_path(cuda):
     (4099, torch.bfloat16, False, False, "no_momentum"),
     (4 * 32768, torch.bfloat16, False, True, "plain"),
 ])
-def test_k10_matches_plain(cuda, n, copy, first, skip, variant):
+def test_k10_matches_plain(cuda, n, copy, first, skip, variant, pdt=torch.float32):
     hyper = {"plain": dict(momentum=0.9, dampening=0.0, nesterov=False,
                            wd_after_momentum=False),
              "nesterov": dict(momentum=0.9, dampening=0.0, nesterov=True,
@@ -871,7 +916,8 @@ def test_k10_matches_plain(cuda, n, copy, first, skip, variant):
                                  wd_after_momentum=False)}[variant]
     g = _gen(10)
     grad = torch.randn(n, generator=g, device=cuda)
-    p = torch.randn(n, generator=g, device=cuda)
+    # fp16 or bf16 p: amp O3's list path, fp32 momentum
+    p = torch.randn(n, generator=g, device=cuda).to(pdt)
     m = 0.1 * torch.randn(n, generator=g, device=cuda)
     kw = dict(lr=0.05, weight_decay=1e-4, scale=torch.full((), 0.5, device=cuda),
               first_run=torch.full((), first, dtype=torch.bool, device=cuda),
@@ -887,12 +933,35 @@ def test_k10_matches_plain(cuda, n, copy, first, skip, variant):
     torch.cuda.synchronize()
     (pk, mk, ck), (pt, mt_, _) = outs["kernel"], outs["torch"]
     if skip:  # bitwise untouched
-        assert torch.equal(pk, p) and torch.equal(mk, m) and torch.equal(ck, p.to(copy))
+        assert torch.equal(pk, p) and torch.equal(mk, m)
+        assert copy is None or torch.equal(ck, p.to(copy))
         return
-    for a, b in ((pk, pt), (mk, mt_)):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
-    if copy is not None:
+    torch.testing.assert_close(mk, mt_, rtol=1e-6, atol=1e-6 * float(mt_.abs().max()))
+    if pdt == torch.float32:
+        torch.testing.assert_close(pk, pt, rtol=1e-6, atol=1e-6 * float(pt.abs().max()))
+    else:
+        # the fp32 rows' bound (one of the fp32 values is contracted into an
+        # fma), then one rounding to p's type: one ulp apart where they
+        # straddle a boundary; the atol also covers fp16's absolute step of
+        # 2^-24 below 2^-14
+        ulp = 2 ** -10 if pdt == torch.float16 else 2 ** -7
+        torch.testing.assert_close(pk.float(), pt.float(), rtol=ulp,
+                                   atol=1e-6 * float(pt.float().abs().max()))
+    if copy is not None and pdt == torch.float32:
         assert torch.equal(ck, pk.to(copy))
+
+
+@pytest.mark.parametrize("pdt", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("n, first, skip, variant", [
+    (25_559_040, False, False, "plain"),   # ResNet-50 O3's list path
+    (100003, True, False, "nesterov"),
+    (4099, False, False, "no_momentum"),
+    (4 * 32768, False, True, "plain"),
+])
+def test_k10_half_params_match_plain(cuda, n, first, skip, variant, pdt):
+    """K10 on fp16 or bf16 params with fp32 momentum (amp O3's FusedSGD
+    list path): fp32 math, p stored back in its own dtype."""
+    test_k10_matches_plain(cuda, n, None, first, skip, variant, pdt)
 
 
 def test_resnet_step_kernels_match_plain_path(cuda):

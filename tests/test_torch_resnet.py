@@ -337,3 +337,62 @@ def test_init_batch_norm_and_unported_axis():
     p, s = tres.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(RuntimeError, match="not initialized"):
         tres.forward(p, s, torch.zeros(2, 16, 16, 3), cfg, axis_name="data")
+
+
+# ------------------------------------------------ torchvision state dicts
+
+
+def _torchvision_state_dict(cfg, p, s):
+    """The torchvision names and layouts of a params/BN-state tree: conv
+    weights (O, I, H, W), fc (O, I); built here, as a user's checkpoint
+    would arrive."""
+    sd = {}
+
+    def conv(name, w):
+        sd[name + ".weight"] = torch.from_numpy(np.array(w).transpose(3, 2, 0, 1).copy())
+
+    def bn(name, bp, bs):
+        for k, v in (("weight", bp.scale), ("bias", bp.bias),
+                     ("running_mean", bs.running_mean), ("running_var", bs.running_var)):
+            sd[f"{name}.{k}"] = torch.from_numpy(np.array(v))
+
+    conv("conv1", p["conv1"])
+    bn("bn1", p["bn1"], s["bn1"])
+    n_convs = 2 if cfg.block == "basic" else 3
+    for i in range(len(cfg.layers)):
+        for j in range(cfg.layers[i]):
+            bp, bs, base = p[f"layer{i + 1}"][str(j)], s[f"layer{i + 1}"][str(j)], \
+                f"layer{i + 1}.{j}"
+            for c in range(1, n_convs + 1):
+                conv(f"{base}.conv{c}", bp[f"conv{c}"])
+                bn(f"{base}.bn{c}", bp[f"bn{c}"], bs[f"bn{c}"])
+            if "downsample_conv" in bp:
+                conv(f"{base}.downsample.0", bp["downsample_conv"])
+                bn(f"{base}.downsample.1", bp["downsample_bn"], bs["downsample_bn"])
+    sd["fc.weight"] = torch.from_numpy(np.array(p["fc"]["w"]).T.copy())
+    sd["fc.bias"] = torch.from_numpy(np.array(p["fc"]["b"]))
+    return sd
+
+
+def test_from_torch_state_dict_matches_jax(model):
+    """The same torchvision-style state dict through both packages'
+    ``from_torch_state_dict``: every parameter and running statistic bit for
+    bit, the trees of the same structure, and no storage shared with the
+    state dict."""
+    (jcfg, jp, js), (tcfg, _, _), x = model
+    sd = _torchvision_state_dict(jcfg, jp, js)
+    jp2, js2 = jres.from_torch_state_dict(jcfg, sd)
+    tp2, ts2 = tres.from_torch_state_dict(tcfg, sd, device="cpu")
+    for got, ref in ((tp2, jp2), (ts2, js2)):
+        tleaves, jleaves = tree_flatten(got)[0], jax.tree.leaves(ref)
+        assert [str(a.dtype) for a in tleaves] == ["torch.float32"] * len(jleaves)
+        assert [tuple(a.shape) for a in tleaves] == [a.shape for a in jleaves]
+        for a, b in zip(tleaves, jleaves):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert tree_paths(tp2) == tree_paths(tres.params_from_numpy(
+        jax.tree.map(np.asarray, jp2), device="cpu"))
+    sd["fc.bias"].add_(1.0)
+    assert not torch.equal(tp2["fc"]["b"], sd["fc.bias"])
+    tl, _ = tres.forward(tp2, ts2, torch.from_numpy(x), tcfg, training=False)
+    jl, _ = jres.forward(jp2, js2, jnp.asarray(x), jcfg, training=False)
+    _close(tl.numpy(), jl)
