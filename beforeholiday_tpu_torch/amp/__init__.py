@@ -1,8 +1,9 @@
 """Mixed-precision policy engine — counterpart of ``beforeholiday_tpu/amp``.
 
-Opt levels O0-O5 (O6 raises ``NotImplementedError``), dynamic or static loss
-scaling carried in device state, fp32 master weights over flat arenas, and
-the per-op cast policy of O1/O4 (the autocast scope and the tags).
+Opt levels O0-O6 (O6: the fp8 GEMM tier, ``ops.quantized``, with its amax
+history in the loss scaler), dynamic or static loss scaling carried in
+device state, fp32 master weights over flat arenas, and the per-op cast
+policy of O1/O4 (the autocast scope and the tags).
 """
 
 from beforeholiday_tpu_torch.amp.frontend import (  # noqa: F401

@@ -15,9 +15,14 @@ or on a tree; O3 fp16 storage and no masters; O1 (fp16) and O4 (bf16) fp32
 storage whose ``apply`` casts the params, norm leaves kept, to the compute
 dtype at every call and runs the model inside the ``autocast`` scope, so
 the tagged ops follow the reference's lists (``ops._autocast``). O1 and O2
-scale the loss dynamically. O6 needs the quantized fp8 tier, which is not
-ported, so it raises ``NotImplementedError``, as does ``tuned=True`` (the
-autotuner is not ported). ``has_state`` models (ResNet's BN running stats)
+scale the loss dynamically. O6 is O5's storage with every ``ops.dense``
+GEMM on the fp8 tier (``ops.quantized``): its ``apply`` runs the model
+inside ``quantized_compute``, its scalers carry the amax history, and
+:func:`scaled_value_and_grad` derives the step's delayed scales from that
+history, provides them to the forward and backward through
+``quantized_scope``, and rolls the step's (params, still-scaled grads) amax
+observations back into it. ``tuned=True`` raises ``NotImplementedError``
+(the autotuner is not ported). ``has_state`` models (ResNet's BN running stats)
 pass their state through uncast in both directions, and
 ``scaled_value_and_grad(has_aux=True)`` returns the loss function's aux
 output, and ``reduce_grads`` (DDP's reduction) runs on the still-scaled
@@ -34,7 +39,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from beforeholiday_tpu_torch.amp.scaler import LossScaler
-from beforeholiday_tpu_torch.ops._autocast import autocast
+from beforeholiday_tpu_torch.ops import quantized as q8
+from beforeholiday_tpu_torch.ops._autocast import autocast, quantized_compute
 from beforeholiday_tpu_torch.ops._autocast import cast_floats as _cast_floats
 from beforeholiday_tpu_torch.ops.arena import (
     PackedParams,
@@ -88,11 +94,6 @@ opt_levels: Dict[str, Properties] = {
     "O6": Properties(opt_level="O6", cast_model_type=torch.bfloat16,
                      keep_batchnorm_fp32=True, master_weights=True,
                      loss_scale="dynamic", quantized=True),
-}
-
-# what each unported level needs before it can run
-_UNPORTED = {
-    "O6": "the quantized fp8 tier (ops.quantized and the amax history)",
 }
 
 
@@ -225,10 +226,6 @@ def initialize(
             f"Unexpected optimization level {opt_level}. Options are 'O0', "
             "'O1', 'O2', 'O3', 'O4', 'O5', 'O6'."
         )
-    if opt_level in _UNPORTED:
-        raise NotImplementedError(
-            f"amp opt level {opt_level} needs {_UNPORTED[opt_level]}, which is "
-            "not ported yet; O0-O5 are")
     policy = opt_levels[opt_level]
     overrides = {}
     if keep_batchnorm_fp32 is not None:
@@ -261,7 +258,8 @@ def initialize(
         opt = MasterWeights(opt)
     if num_losses < 1:
         raise ValueError(f"num_losses must be >= 1, got {num_losses}")
-    scalers = tuple(LossScaler(loss_scale=policy.loss_scale)
+    scalers = tuple(LossScaler(loss_scale=policy.loss_scale,
+                               quantized=policy.quantized)
                     for _ in range(num_losses))
     return AmpModel(policy=policy, apply=amp_apply, params=cast_params,
                     optimizer=opt, scaler=scalers[0], scalers=scalers)
@@ -282,11 +280,8 @@ def make_apply(policy: Properties, apply_fn: Callable, *,
     the norm leaves) picks kept fp32, and ``apply_fn`` runs inside
     ``autocast(compute_dtype)``: the tagged ops then follow the reference's
     lists (norms and losses re-promote to fp32, dense and attention stay low
-    precision)."""
-    if policy.quantized:
-        raise NotImplementedError(
-            f"{policy.opt_level}'s apply needs the quantized tier, which is "
-            "not ported yet")
+    precision). At O6 (``quantized``) ``apply_fn`` runs inside
+    ``quantized_compute``: O5's casts, the dense GEMMs on the fp8 tier."""
     compute_dtype = policy.compute_dtype
     keep = keep_fp32_mask if keep_fp32_mask is not None else _default_keep_fp32
 
@@ -300,7 +295,9 @@ def make_apply(policy: Properties, apply_fn: Callable, *,
             # the FP32_FUNCS read them uncast; casting gamma/beta down first
             # would round them before float_function re-promotes them
             p = _cast_leaves(p, compute_dtype, keep)
-            scope = autocast(compute_dtype)
+            scope = autocast(compute_dtype, quantized=policy.quantized)
+        elif policy.quantized:
+            scope = quantized_compute()
         else:
             scope = contextlib.nullcontext()
         inputs = _cast_floats(inputs, compute_dtype)
@@ -347,18 +344,32 @@ def scaled_grads(loss_fn: Callable, scaler: LossScaler, params, scaler_state,
                  args, kw, *, has_aux: bool = False,
                  reduce_grads: Optional[Callable] = None):
     """The scaled backward shared by :func:`scaled_value_and_grad` and
-    ``guard.StepGuard.value_and_grad``: ``(loss, aux, grads)`` with the
-    grads of ``scale * loss`` still scaled, ``reduce_grads`` applied."""
+    ``guard.StepGuard.value_and_grad``: ``(loss, aux, grads, amax)`` with
+    the grads of ``scale * loss`` still scaled, ``reduce_grads`` applied.
+
+    With a quantized scaler (O6) the step's delayed fp8 scales come from
+    the state's amax history and are in scope for the forward and the
+    backward; ``amax`` is then this step's (weight, grad) observation pair,
+    the params' amax (the tensors the forward quantized) and the reduced,
+    still-scaled grads' (the scaling regime the backward quantized its
+    cotangents in), for the scaler's update. Otherwise ``amax`` is None."""
 
     def objective(p):
         res = loss_fn(p, *args, **kw)
         loss, aux = res if has_aux else (res, None)
         return scaler.scale_loss(loss, scaler_state), (loss, aux)
 
-    (loss, aux), grads = differentiate(objective, params)
+    scale_w, scale_g = scaler.quantized_scales(scaler_state)
+    scope = (contextlib.nullcontext() if scale_w is None
+             else q8.quantized_scope(scale_w, scale_g))
+    with scope:
+        (loss, aux), grads = differentiate(objective, params)
     if reduce_grads is not None:
         grads = reduce_grads(grads)
-    return loss.detach(), detach_tree(aux), grads
+    amax = None
+    if scale_w is not None:
+        amax = (q8.amax_of_tree(params), q8.amax_of_tree(grads))
+    return loss.detach(), detach_tree(aux), grads, amax
 
 
 def scaled_value_and_grad(loss_fn: Callable, scaler: LossScaler, *,
@@ -375,7 +386,9 @@ def scaled_value_and_grad(loss_fn: Callable, scaler: LossScaler, *,
     ``reduce_grads`` (``DistributedDataParallel.reduce``) runs on the
     still-scaled grads before K5's unscale, as in the JAX package, so the
     overflow flag sees the reduced grads and every rank takes the same skip
-    decision.
+    decision. At O6 the step's fp8 scales and amax observations are
+    threaded as :func:`scaled_grads` says, and the observations roll into
+    the history in the new state.
 
     At a :class:`PackedParams` argument the grads are born flat (see
     :func:`differentiate`) and come back a :class:`PackedParams` of fp32
@@ -384,11 +397,11 @@ def scaled_value_and_grad(loss_fn: Callable, scaler: LossScaler, *,
     """
 
     def wrapped(params, scaler_state, *args, **kw):
-        loss, aux, grads = scaled_grads(loss_fn, scaler, params, scaler_state,
-                                        args, kw, has_aux=has_aux,
-                                        reduce_grads=reduce_grads)
+        loss, aux, grads, amax = scaled_grads(
+            loss_fn, scaler, params, scaler_state, args, kw, has_aux=has_aux,
+            reduce_grads=reduce_grads)
         grads, found_inf = scaler.unscale(grads, scaler_state, impl=impl)
-        new_state = scaler.update(scaler_state, found_inf)
+        new_state = scaler.update(scaler_state, found_inf, amax=amax)
         if has_aux:
             return loss, aux, grads, found_inf, new_state
         return loss, grads, found_inf, new_state

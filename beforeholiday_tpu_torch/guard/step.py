@@ -158,17 +158,23 @@ class StepGuard:
         verdict)`` with fp32 unscaled grads and a verdict of device bools
         (``grad_overflow``, ``loss_nonfinite``). ``reduce_grads`` runs on the
         still-scaled grads before the unscale, so every rank sees the
-        reduced grads and takes the same skip decision."""
+        reduced grads and takes the same skip decision. With a quantized
+        scaler (O6) the step's fp8 scales come from the history and the
+        verdict carries the step's amax observations (``amax``)."""
         from beforeholiday_tpu_torch.amp.frontend import scaled_grads
 
         def wrapped(params, gstate, *args, **kw):
             sstate = gstate["scaler"]
-            loss, aux, grads = scaled_grads(
+            loss, aux, grads, amax = scaled_grads(
                 loss_fn, self.scaler, params, sstate, args, kw,
                 has_aux=has_aux, reduce_grads=reduce_grads)
             grads, grad_inf = self.scaler.unscale(grads, sstate, impl=impl)
             verdict = {"grad_overflow": grad_inf != 0,
                        "loss_nonfinite": _tree_nonfinite(loss)}
+            if amax is not None:
+                # O6: the step's amax observations ride the verdict into
+                # apply_update, which owns the scale and history update
+                verdict["amax"] = amax
             if has_aux:
                 return loss, aux, grads, verdict
             return loss, grads, verdict
@@ -216,7 +222,8 @@ class StepGuard:
             _select_into(param_bad, before[1], _leaves(new_opt_state))
         skip = pre_inf | param_bad
 
-        sstate = self.scaler.update(gstate["scaler"], skip)
+        sstate = self.scaler.update(gstate["scaler"], skip,
+                                    amax=verdict.get("amax"))
         consec = sstate["consecutive_overflows"]
         reason_now = torch.where(
             verdict["loss_nonfinite"], SKIP_LOSS_NONFINITE,

@@ -21,8 +21,14 @@ decode path is built for (``DECODE_HEAD_DIMS``); at other head dims, and on
 the plain path, it gathers the pages, narrows them to the compute dtype and
 runs the contiguous attention (K2's row kernel, or its plain version), the
 same function as the JAX engine's gather followed by ``flash_attention``.
-The page pools are updated in place. The JAX engine's timeline span is not
-ported yet.
+On fp8 pages (``EngineConfig(cache_dtype="e4m3")``) prefill writes each
+page under its own scale and attends to the exact k and v, and decode
+writes the fed token under its page's scale, gathers and dequantizes the
+pages to fp32 and runs the contiguous attention in fp32 (q widened,
+exactly; K2's decode path on the kernels), as the JAX engine attends to
+the dequantized fp32 copy; the context is then rounded to the compute
+dtype. K2's paged mode reads fp32 pools only. The page pools are updated
+in place. The JAX engine's timeline span is not ported yet.
 """
 
 from __future__ import annotations
@@ -43,10 +49,12 @@ from beforeholiday_tpu_torch.ops._autocast import cast_floats
 from beforeholiday_tpu_torch.ops._dispatch import IMPLS, resolve_device
 from beforeholiday_tpu_torch.ops.attention import (
     DECODE_HEAD_DIMS,
+    _decode_contiguous,
     _decode_gathered,
     _paged_decode_kernel,
     _paged_decode_torch,
     flash_fwd_kernel,
+    flash_fwd_torch,
 )
 
 __all__ = ["EngineConfig", "InferenceEngine", "pick_bucket"]
@@ -79,7 +87,9 @@ class EngineConfig:
     # checkpoint dtype. compute dtype follows the weights unless forced.
     weights_dtype: Optional[str] = None
     compute_dtype: Optional[str] = None
-    cache_dtype: str = "float32"  # "e4m3" pages are not ported yet
+    # "float32" (default) or "e4m3": fp8 pages under per-(layer, page)
+    # scales, see infer/kvcache.py's quantized variants
+    cache_dtype: str = "float32"
     strict_buckets: bool = True
     entry_prefix: str = "infer"
 
@@ -104,8 +114,6 @@ class EngineConfig:
                 raise ValueError(
                     f"prefill bucket {s} exceeds max_seq_len {self.max_seq_len}"
                 )
-        if self.cache_dtype == "e4m3":
-            raise NotImplementedError("fp8 (e4m3) KV pages are not ported yet")
 
     @property
     def n_slots(self) -> int:
@@ -183,15 +191,23 @@ class InferenceEngine:
         if impl == "kernel" and self.device.type != "cuda":
             raise ValueError("impl='kernel' needs a CUDA device")
         self._impl = impl
-        on_kernels = (impl or ("kernel" if self.device.type == "cuda"
-                               else "torch")) == "kernel"
-        # decode reads the pools in place where attention runs on K2 at a
-        # head dim its decode path is built for; elsewhere on K2 it runs the
-        # contiguous kernel on a gathered copy (a choice by shape)
-        self._paged = on_kernels and model_cfg.head_dim in DECODE_HEAD_DIMS
-        self._gathered_on_k2 = on_kernels and not self._paged
         self.cfg = cfg
         self.model_cfg = model_cfg
+        self.layout = kvcache.PagedLayout(
+            n_layers=model_cfg.n_layers,
+            n_pages=cfg.num_pages,
+            page_size=cfg.page_size,
+            kv_dim=model_cfg.n_heads * model_cfg.head_dim,
+            dtype_name=cfg.cache_dtype,
+        )
+        on_kernels = (impl or ("kernel" if self.device.type == "cuda"
+                               else "torch")) == "kernel"
+        # decode reads fp32 pools in place where attention runs on K2 at a
+        # head dim its decode path is built for; elsewhere on K2, and on fp8
+        # pages, it runs the contiguous kernel on a gathered copy
+        self._paged = (on_kernels and model_cfg.head_dim in DECODE_HEAD_DIMS
+                       and not self.layout.quantized)
+        self._gathered_on_k2 = on_kernels and not self._paged
         compute = cfg.compute_dtype or cfg.weights_dtype
         self._compute_dtype = (
             _torch_dtype(compute) if compute is not None else model_cfg.dtype
@@ -202,13 +218,6 @@ class InferenceEngine:
         # tied vocab head, widened once: an exact copy of the compute-dtype
         # embedding, so the head's fp32 product returns UNROUNDED fp32 logits
         self._head = self._params["tok_embed"].to(self._compute_dtype).float()
-        self.layout = kvcache.PagedLayout(
-            n_layers=model_cfg.n_layers,
-            n_pages=cfg.num_pages,
-            page_size=cfg.page_size,
-            kv_dim=model_cfg.n_heads * model_cfg.head_dim,
-            dtype_name=cfg.cache_dtype,
-        )
         self._cache = kvcache.alloc_cache(self.layout, self.device)
         # the hard gate: every entry strict against its DECLARED budget
         self._prefill_gated, self._decode_gated, self._copy_gated = (
@@ -264,7 +273,15 @@ class InferenceEngine:
         pages in place (no more than ``kv_max`` keys a sequence), or a
         gathered copy narrowed to q's dtype (exact: the fp32 pools hold
         compute-dtype values write_token widened) on K2's contiguous mode or
-        the plain version."""
+        the plain version. ``kp``/``vp`` may also be the gathered,
+        dequantized fp32 copies of fp8 pages: a dequantized value is any
+        fp32 value, so attention runs in fp32 on them, q widened exactly,
+        and the context is rounded to q's dtype."""
+        if self.layout.quantized:
+            fwd = flash_fwd_kernel if self._gathered_on_k2 else flash_fwd_torch
+            o, _ = _decode_contiguous(fwd, q.float(), kp, vp, kv_lens,
+                                      self.model_cfg.n_heads, self._scale)
+            return o.to(q.dtype)
         args = (q, kp, vp, page_table, kv_lens, self.model_cfg.n_heads,
                 self._scale)
         if self._paged:
@@ -293,11 +310,18 @@ class InferenceEngine:
         Returns (next_tokens (B,), last_logits (B, V) fp32)."""
         B, S = tokens.shape
         x = self._embed(tokens, torch.arange(S, device=self.device))
+        c = self._cache
         for i in range(self.model_cfg.n_layers):
             lp = self._layer(i)
             q, k, v = self._qkv(lp, x)
-            kvcache.write_prefill(self._cache.k[i], page_table, k)
-            kvcache.write_prefill(self._cache.v[i], page_table, v)
+            # attention runs on the exact k and v either way: fp8 pages
+            # change what later decode steps read
+            if self.layout.quantized:
+                kvcache.write_prefill_quantized(c.k[i], c.k_scale[i], page_table, k)
+                kvcache.write_prefill_quantized(c.v[i], c.v_scale[i], page_table, v)
+            else:
+                kvcache.write_prefill(c.k[i], page_table, k)
+                kvcache.write_prefill(c.v[i], page_table, v)
             x = self._out_and_mlp(
                 lp, x, self._attention(q, k, v, causal=True, kv_lens=lens))
         last = (lens.long() - 1).clamp(0, S - 1)
@@ -308,17 +332,29 @@ class InferenceEngine:
         row, lens (B,) = tokens already cached (the fed token's position);
         inactive rows carry lens == 0 and a null page table and are fully
         masked. lens_host: lens as a host array, which bounds the keys the
-        paged kernel reads. Returns (next_tokens (B,), logits (B, V) fp32)."""
+        paged kernel reads. On fp8 pages the fed token is written under its
+        page's scale (a fresh one where it opens the page) and attention reads
+        the gathered, dequantized fp32 copy. Returns (next_tokens (B,),
+        logits (B, V) fp32)."""
         x = self._embed(tokens, lens)[:, None, :]  # (B, 1, D)
         kv_lens = torch.where(lens > 0, lens + 1, 0)
         longest = int(lens_host.max(initial=0))
         kv_max = longest + 1 if longest > 0 else 0
+        c = self._cache
         for i in range(self.model_cfg.n_layers):
             lp = self._layer(i)
             q, k, v = self._qkv(lp, x)
-            kp, vp = self._cache.k[i], self._cache.v[i]
-            kvcache.write_token(kp, page_table, lens, k[:, 0, :])
-            kvcache.write_token(vp, page_table, lens, v[:, 0, :])
+            kp, vp = c.k[i], c.v[i]
+            if self.layout.quantized:
+                kvcache.write_token_quantized(kp, c.k_scale[i], page_table, lens,
+                                              k[:, 0, :])
+                kvcache.write_token_quantized(vp, c.v_scale[i], page_table, lens,
+                                              v[:, 0, :])
+                kp = kvcache.gather_pages_quantized(kp, c.k_scale[i], page_table)
+                vp = kvcache.gather_pages_quantized(vp, c.v_scale[i], page_table)
+            else:
+                kvcache.write_token(kp, page_table, lens, k[:, 0, :])
+                kvcache.write_token(vp, page_table, lens, v[:, 0, :])
             x = self._out_and_mlp(
                 lp, x, self._decode_attention(q, kp, vp, page_table, kv_lens,
                                               kv_max))
@@ -326,9 +362,13 @@ class InferenceEngine:
 
     def _copy_fn(self, src, dst):
         """Whole-page duplication ``dst[i] <- src[i]`` across all layers,
-        k and v pools; 0 → 0 copies of the padding are no-ops."""
-        for pool in (self._cache.k, self._cache.v):
-            pool[:, dst] = pool[:, src]
+        k and v pools (and scale planes); 0 → 0 copies of the padding are
+        no-ops."""
+        c = self._cache
+        for pool in (c.k, c.v, c.k_scale, c.v_scale):
+            if pool is not None:
+                pool = kvcache._bytes(pool)
+                pool[:, dst] = pool[:, src]
 
     @torch.no_grad()
     def _run(self, kind, *argv):
@@ -354,8 +394,9 @@ class InferenceEngine:
         return (self._prefill_gated, self._decode_gated, self._copy_gated)
 
     def reset_cache(self) -> None:
-        """Zero the pools in place (test/bench isolation)."""
-        self._cache.flat.zero_()
+        """Zero the pools (and reset the scales) in place, for test and bench
+        isolation."""
+        self._cache.reset()
 
     # -- host surface --------------------------------------------------------
 

@@ -4,6 +4,8 @@
 * ``attention`` — flash attention on kernels K2/K4 with in-kernel dropout,
   ``self_attention``, and the dropout keep mask on kernel K13 (CUDA C++).
 * ``dense`` — dense and MLP blocks on library GEMMs.
+* ``quantized`` — the fp8 quantized matmul of amp O6 (e4m3 forward, e5m2
+  backward, per-tensor delayed scaling) on the card's fp8 GEMM.
 * ``arena`` — flat arenas and ``PackedParams``.
 * ``multi_tensor`` — unscale, fused Adam, global L2 norm, fused LAMB,
   fused SGD, axpby, fused Adagrad and fused NovoGrad over arenas, K5-K10
@@ -40,6 +42,11 @@ from .normalization import (  # noqa: F401
     mixed_dtype_fused_rms_norm,
 )
 
+from .quantized import (  # noqa: F401
+    quantized_matmul,
+    quantized_matmul_error_bound,
+    quantized_scope,
+)
 from .softmax import (  # noqa: F401
     generic_scaled_masked_softmax,
     scaled_masked_softmax,
@@ -89,6 +96,9 @@ __all__ = [
     "mixed_dtype_fused_layer_norm",
     "mixed_dtype_fused_rms_norm",
     "mlp",
+    "quantized_matmul",
+    "quantized_matmul_error_bound",
+    "quantized_scope",
     "scaled_masked_softmax",
     "scaled_softmax",
     "scaled_upper_triang_masked_softmax",

@@ -12,10 +12,12 @@ that the tags read, and ``amp``'s O1/O4 ``apply`` enters it.
 this one must match the JAX package's op for op. An untagged op (ResNet's
 ``F.conv2d``, a residual add) runs in its inputs' dtype, as in JAX.
 
-The scope is thread-local, so autograd's backward thread does not see it:
-an activation recompute that runs there re-enters the forward's scope
-(``transformer.tensor_parallel.random.checkpoint``). O6's quantized routing
-(``quantized_compute``) is not ported and raises.
+The scope also carries O6's routing flag: inside :func:`quantized_compute`
+(or ``autocast(..., quantized=True)``) every ``ops.dense`` GEMM runs through
+``ops.quantized.quantized_matmul``. The scope is thread-local, so autograd's
+backward thread does not see it: an activation recompute that runs there
+re-enters the forward's scope, flag and scales
+(``transformer.tensor_parallel.random.checkpoint``).
 
 :func:`cast_floats` is the one-time weight and input cast.
 """
@@ -37,6 +39,7 @@ _DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
 
 class _State(threading.local):
     dtype: Optional[torch.dtype] = None
+    quantized: bool = False
 
 
 _state = _State()
@@ -53,25 +56,38 @@ def _as_dtype(dtype) -> torch.dtype:
 @contextlib.contextmanager
 def autocast(dtype, *, quantized: bool = False):
     """Activate the per-op cast policy with ``dtype`` as the low-precision
-    compute type (fp16 for O1, bf16 for O4). Scopes nest; leaving one, by
-    an exception too, restores the enclosing one."""
-    if quantized:
-        raise NotImplementedError(
-            "autocast(quantized=True) is O6's quantized-matmul routing, which "
-            "is not ported yet")
-    prev = _state.dtype
+    compute type (fp16 for O1, bf16 for O4). ``quantized=True`` also turns
+    on O6's quantized-matmul routing for the scope (see
+    :func:`quantized_compute`); an enclosing scope's routing stays on.
+    Scopes nest; leaving one, by an exception too, restores the enclosing
+    one."""
+    prev, prev_q = _state.dtype, _state.quantized
     _state.dtype = _as_dtype(dtype)
+    _state.quantized = bool(quantized) or prev_q
     try:
         yield
     finally:
-        _state.dtype = prev
+        _state.dtype, _state.quantized = prev, prev_q
 
 
+@contextlib.contextmanager
 def quantized_compute():
-    """O6's quantized-matmul scope: not ported yet."""
-    raise NotImplementedError(
-        "quantized_compute is O6's fp8 matmul tier (ops.quantized), which is "
-        "not ported yet")
+    """Route every ``ops.dense`` matmul inside the scope through
+    ``ops.quantized.quantized_matmul`` (the O6 tier) without the per-op
+    cast policy: O6 keeps O5's storage casts and swaps only the GEMMs'
+    arithmetic."""
+    prev_q = _state.quantized
+    _state.quantized = True
+    try:
+        yield
+    finally:
+        _state.quantized = prev_q
+
+
+def quantized_enabled() -> bool:
+    """True inside :func:`quantized_compute` or ``autocast(...,
+    quantized=True)``: the O6 routing predicate ``ops.dense`` reads."""
+    return _state.quantized
 
 
 def autocast_dtype() -> Optional[torch.dtype]:

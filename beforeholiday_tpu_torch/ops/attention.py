@@ -406,15 +406,24 @@ def _decode_gathered(fwd, q, k_pool, v_pool, page_table, kv_lens,
     Arguments and results as :func:`_paged_decode_torch`'s."""
     from beforeholiday_tpu_torch.infer.kvcache import gather_pages
 
-    D = _paged_heads(q, k_pool, n_heads)
+    _paged_heads(q, k_pool, n_heads)
+    kc = gather_pages(k_pool, page_table).to(q.dtype)
+    vc = gather_pages(v_pool, page_table).to(q.dtype)
+    return _decode_contiguous(fwd, q, kc, vc, kv_lens, n_heads, scale)
+
+
+def _decode_contiguous(fwd, q, kc, vc, kv_lens, n_heads: int, scale: float):
+    """``fwd`` (:func:`flash_fwd_torch` or :func:`flash_fwd_kernel`) over the
+    heads of ``q (B, Sq, H*D)`` against contiguous ``kc``/``vc (B, Sk,
+    H*D)`` of q's dtype, masked by ``kv_lens (B,)``. Returns ``o (B, Sq,
+    H*D)`` and ``lse (B*H, Sq)``."""
     B, Sq, HD = q.shape
+    D = HD // n_heads
 
     def heads(t):  # (B, S, H*D) -> (B*H, S, D)
         return t.reshape(B, t.shape[1], n_heads, D).transpose(1, 2).reshape(
             B * n_heads, t.shape[1], D).contiguous()
 
-    kc = gather_pages(k_pool, page_table).to(q.dtype)
-    vc = gather_pages(v_pool, page_table).to(q.dtype)
     lens = kv_lens.to(device=q.device, dtype=torch.int32).repeat_interleave(n_heads)
     o, lse = fwd(heads(q), heads(kc), heads(vc), lens, False, scale)
     return o.reshape(B, n_heads, Sq, D).transpose(1, 2).reshape(B, Sq, HD), lse

@@ -16,7 +16,10 @@ which the unscale's overflow flag catches).
 
 The three public functions carry the ``half_function`` tag, as in the JAX
 package: inside an O1/O4 autocast scope their floating arguments are cast to
-the scope's dtype first.
+the scope's dtype first. Inside an O6 ``quantized_compute`` scope each
+product runs through ``ops.quantized.quantized_matmul`` (fp8 operands,
+fp32 result), the weight taken in its own dtype as JAX takes it; the bias is
+still added in fp32 and the sum rounded once.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from beforeholiday_tpu_torch.ops._autocast import half_function
+from beforeholiday_tpu_torch.ops._autocast import half_function, quantized_enabled
+from beforeholiday_tpu_torch.ops.quantized import quantized_matmul
 
 
 class _HalfDense32(torch.autograd.Function):
@@ -58,8 +62,11 @@ class _HalfDense32(torch.autograd.Function):
 
 def _linear32(x, weight, bias):
     """Product with an fp32 result, bias added in fp32; returns fp32."""
-    w = weight.to(x.dtype)
     b32 = None if bias is None else bias.float()
+    if quantized_enabled():
+        y = quantized_matmul(x, weight)
+        return y if b32 is None else y + b32
+    w = weight.to(x.dtype)
     if x.dtype not in (torch.bfloat16, torch.float16):
         y = torch.matmul(x, w)
         return y if b32 is None else y + b32

@@ -33,7 +33,13 @@ from typing import Callable, Optional
 import torch
 import torch.utils.checkpoint
 
-from beforeholiday_tpu_torch.ops._autocast import autocast, autocast_dtype
+from beforeholiday_tpu_torch.ops._autocast import (
+    autocast,
+    autocast_dtype,
+    quantized_compute,
+    quantized_enabled,
+)
+from beforeholiday_tpu_torch.ops.quantized import active_scales, quantized_scope
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device, resolve_impl
 from beforeholiday_tpu_torch.ops.attention import (
     _check_key,
@@ -151,25 +157,36 @@ def checkpoint(
     """Activation recompute: ``fn`` wrapped so that its internals are
     recomputed in the backward (``torch.utils.checkpoint``, non-reentrant).
     Dropout inside replays the same masks, since its keys are inputs. The
-    recompute runs inside the autocast scope of the forward (O1/O4): the
-    scope is thread-local and the backward runs outside it, often on
-    autograd's own thread, so the forward's dtype is captured and re-entered
-    there; a recompute in another dtype would not match what the forward
-    saved. ``prevent_cse`` and ``distribute_saved_activations`` are accepted
-    for parity and mean nothing on one device; a remat ``policy`` is not
-    ported yet."""
+    recompute runs inside the scopes of the forward: the autocast dtype
+    (O1/O4), O6's quantized routing and the delayed fp8 scales in scope.
+    Each is thread-local and the backward runs outside them, often on
+    autograd's own thread, so the forward's are captured and re-entered
+    there; a recompute in another dtype, or quantized otherwise, would not
+    match what the forward saved. ``prevent_cse`` and
+    ``distribute_saved_activations`` are accepted for parity and mean
+    nothing on one device; a remat ``policy`` is not ported yet."""
     del prevent_cse, distribute_saved_activations
     if policy is not None:
         raise NotImplementedError(
             "checkpoint policies (beforeholiday_tpu.remat) are not ported yet")
 
     def wrapped(*args, **kw):
-        dtype = autocast_dtype()
+        dtype, quantized, scales = (autocast_dtype(), quantized_enabled(),
+                                    active_scales())
+
+        @contextlib.contextmanager
+        def again():
+            with contextlib.ExitStack() as stack:
+                if dtype is not None:
+                    stack.enter_context(autocast(dtype))
+                if quantized:
+                    stack.enter_context(quantized_compute())
+                if scales is not None:
+                    stack.enter_context(quantized_scope(*scales))
+                yield
 
         def contexts():
-            again = (contextlib.nullcontext() if dtype is None
-                     else autocast(dtype))
-            return contextlib.nullcontext(), again
+            return contextlib.nullcontext(), again()
 
         return torch.utils.checkpoint.checkpoint(
             fn, *args, use_reentrant=False, context_fn=contexts, **kw)

@@ -143,7 +143,24 @@ Phases, each printing one line (any failure exits non-zero):
     trees and one iteration on the kernels against the plain path, cuDNN
     deterministic; then 20 iterations at batch 32, its three per-loss
     scalers through their state dicts);
-19. the total seconds, the ``kernels`` JSON line (with ``launch_floor_ms``),
+19. slice 14, amp O6 and e4m3 KV pages: the fp8 tier's parts at the
+    flagship's four block GEMM shapes and a ragged one (``o6_gemm``: the
+    e4m3 and e5m2 bytes bitwise the CPU's, each of the three products on
+    ``torch._scaled_mm`` within its bound of the plain product and timed
+    beside the O5 step's bf16 product and the fp8 bound; ``o6_quantize``:
+    the op within ``quantized_matmul_error_bound``, the quantize passes
+    timed); the engine on e4m3 pages (kernels against the plain path, K2's
+    contiguous decode path once a layer a decode call and its paged mode
+    never; against fp32 pages within ``kv_logit_error_bound``; the serving
+    mix and its profile); the flagship GPT at O6 (the parity step at batch
+    2 from a warm amax history against the plain path, its products plain
+    too, and against unfused attention's spread; the poisoned history's
+    skip through ``scaled_value_and_grad`` and ``StepGuard``; the timed and
+    profiled run at batch 16 with 32 forward and 64 backward fp8 products
+    a step, none plain, the fp8-aware MFU, the final scale and history, and
+    the profile's ``fp8_gemm`` and ``fp8_quantize`` ranges; 50 steps against
+    O5 within ``loss_parity_bound``);
+20. the total seconds, the ``kernels`` JSON line (with ``launch_floor_ms``),
     the card line, and the final ``ok`` line.
 
 ``F.layer_norm``, ``F.scaled_dot_product_attention``, their backwards,
@@ -160,9 +177,13 @@ softmax applies no scale and no mask, so K11's and K12's measure the same
 traffic, not the same function, as ``torch.add`` does for K16 (no flag, a
 of 1). No PyTorch call computes K13's hash: ``bernoulli_`` on a bool
 tensor does the same work with other random bits, as the library's
-attention dropout does for K2's and K4's dropout rows.
+attention dropout does for K2's and K4's dropout rows. ``torch._scaled_mm``
+is not a yardstick: it is the port's fp8 GEMM (``ops/quantized.py``), a
+library call, as the JAX package's fp8 ``dot_general`` is XLA's, so it
+has its own ``o6_gemm`` lines and no row on the ``kernels`` line.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -292,9 +313,13 @@ STEP_LAUNCHES = {
     "gpt_o2_unfused": {**_NO_LAUNCH, **_GPT_STEP, **_UNFUSED},
     "gpt_o1": {**_NO_LAUNCH, **_GPT_STEP, "unscale": 1, "adam": 1, **_FLASH},
     "gpt_o4": {**_NO_LAUNCH, **_GPT_STEP, "unscale": 1, "adam": 1, **_FLASH},
+    # slice 14, O6: O5's launches, and the 4 block GEMMs of each layer on
+    # the fp8 tier: one product forward, two backward (dx, dw), none plain
+    "gpt_o6": {**_NO_LAUNCH, **_GPT_STEP, **_FLASH, "fp8_forward": 32,
+               "fp8_backward": 64, "plain_forward": 0, "plain_backward": 0},
 }
 # the levels whose params live in arenas (MasterWeights over PackedParams)
-ARENA_LEVELS = ("O2", "O5")
+ARENA_LEVELS = ("O2", "O5", "O6")
 # the GPT's activation dtype by level: fp16 storage at O2; at O1/O4 the
 # residual stream stays fp32 and the autocast scope casts the dense layers
 # and attention down
@@ -303,6 +328,9 @@ GPT_ACT = {"O5": torch.bfloat16, "O2": torch.float16, "O1": torch.float32,
 # DCGAN (examples/dcgan: 32 x 32 images, ngf = ndf = 32) at its own batch
 DCGAN_ITERS, DCGAN_BATCH, DCGAN_LR = 20, 32, 2e-4
 PEAK_BF16 = 989e12
+# the fp8 tensor cores' dense peak (e4m3 and e5m2, H100 SXM data sheet):
+# twice the bf16 rate
+PEAK_FP8 = 1979e12
 # the ImageNet ResNet-50 step (bench.py make_resnet_rung: examples/imagenet
 # build_trainer("resnet50", global_batch=128), 224x224 uint8 images,
 # FusedSGD(0.1 * 128 / 256, momentum 0.9, weight_decay 1e-4)); the parity
@@ -614,9 +642,13 @@ def k2_phase(attn):
                         "decode": "decode_dropout"}[name]
             if dt == torch.float32:
                 name += "_fp32"
-            if decode:
-                # no main path runs the contiguous decode mode: the serving
-                # engine decodes on the paged mode, whose row counts them
+            if decode and dt == torch.float32 and not rate:
+                # the engine's decode over e4m3 pages runs the contiguous
+                # decode mode in fp32 on the dequantized copy: that run's
+                # decode launches
+                fields.update(path="serving_e4m3_decode")
+            elif decode:
+                # fp32 pools decode on the paged mode, whose row counts them
                 fields.update(launches=0)
             rows_out[name] = (tag, fields)
         line("K2", shape=tag, **fields)
@@ -2088,8 +2120,15 @@ def serving_requests(infer, cfg):
             for i, (n, m) in enumerate(lens)]
 
 
-def serving_phase(infer, params, cfg, norm, attn, card):
-    ecfg = infer.EngineConfig(**{**ENGINE, "num_pages": SERVE_PAGES})
+def serving_phase(infer, params, cfg, norm, attn, card, cache_dtype="float32",
+                  label="serving"):
+    """The seeded request mix through ``ContinuousBatcher.run()`` on pages of
+    ``cache_dtype``, the launch counts reset just before and read just
+    after: prefill attends on the contiguous K2; decode on K2's paged mode
+    over fp32 pages, on its contiguous decode path over the dequantized
+    copy of e4m3 pages."""
+    ecfg = infer.EngineConfig(**{**ENGINE, "num_pages": SERVE_PAGES,
+                                 "cache_dtype": cache_dtype})
     eng = infer.InferenceEngine(params, cfg, ecfg)
     reqs = serving_requests(infer, cfg)
     bat = infer.ContinuousBatcher(eng)
@@ -2109,10 +2148,9 @@ def serving_phase(infer, params, cfg, norm, attn, card):
     launches = {k: fn.launches for k, fn in counters.items()}
     calls = eng.call_counts
     steps = calls["prefill"] + calls["decode"]
-    # prefill attends on the contiguous K2, decode on its paged mode
+    paged = cfg.n_layers * calls["decode"] * (cache_dtype == "float32")
     expect = {"layer_norm_fwd": (2 * cfg.n_layers + 1) * steps,
-              "flash_fwd": cfg.n_layers * calls["prefill"],
-              "paged_decode": cfg.n_layers * calls["decode"]}
+              "flash_fwd": cfg.n_layers * steps - paged, "paged_decode": paged}
     if len(fin) != N_REQUESTS or any(len(r.out) != r.max_new_tokens for r in fin):
         raise AssertionError("not every request finished")
     if bat.allocator.available != ecfg.num_pages - 1:
@@ -2123,11 +2161,14 @@ def serving_phase(infer, params, cfg, norm, attn, card):
     if preempt < 1:
         raise AssertionError("the serving run never preempted")
     for name, n in launches.items():
-        if n <= 0 or n != expect[name]:
-            raise AssertionError(f"{name}: {n} launches, engine calls imply "
-                                 f"{expect[name]}")
+        if n != expect[name] or (n <= 0 and name != "paged_decode"):
+            raise AssertionError(f"{label} {name}: {n} launches, engine calls "
+                                 f"imply {expect[name]}")
+    if launches["paged_decode"] <= 0 and cache_dtype == "float32":
+        raise AssertionError(f"{label}: no paged decode launched")
     tokens = sum(len(r.out) for r in fin)
-    line("serving", requests=len(fin), generated_tokens=tokens,
+    line(label, requests=len(fin), generated_tokens=tokens, cache_dtype=cache_dtype,
+         launches=json.dumps(launches),
          prompt_tokens=sum(len(r.prompt) for r in reqs),
          prefill_calls=calls["prefill"], decode_calls=calls["decode"],
          preemptions=preempt, tokens_per_s=tokens / wall, wall_s=wall,
@@ -2166,7 +2207,7 @@ def op_groups_ms(prof, ops):
     return out
 
 
-def profile_phase(infer, eng, cfg):
+def profile_phase(infer, eng, cfg, label="profile"):
     """The same request mix again under torch.profiler: device time by layer
     and the device's idle share over the run (the timed run above is not
     profiled, so its wall time carries no profiler cost)."""
@@ -2183,10 +2224,10 @@ def profile_phase(infer, eng, cfg):
     by_name, groups = device_ms_by_group(prof, KERNEL_GROUPS)
     busy = sum(by_name.values())
     if busy == 0:
-        line("profile", device_time="not measured (no CUDA events in the trace)")
+        line(label, device_time="not measured (no CUDA events in the trace)")
         return
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print("profile: " + json.dumps({
+    print(f"{label}: " + json.dumps({
         "wall_ms": wall_ms, "device_busy_ms": busy,
         "idle_share": 1.0 - busy / wall_ms,
         "by_layer_ms": groups, "page_ops_ms": op_groups_ms(prof, PAGE_OPS),
@@ -2551,16 +2592,24 @@ def dropout_flash_vs_unfused_phase(label, gpt, bert, params, bparams, mcfg,
 
 
 def training_phase(label, profile_label, step, batch, counters, expect,
-                   groups, card, *, unit, units, flops, peak, **fields):
+                   groups, card, *, unit, units, flops, peak, fp8_flops=0.0,
+                   ranges=None, **fields):
     """2 warm-up and TIMED_STEPS timed steps on one fixed batch, the launch
     counts reset just before the timed steps and read just after, under
     ``set_sync_debug_mode("warn")``; then PROFILE_STEPS steps under
     torch.profiler. ``units`` (tokens or images) and ``flops`` are one
-    step's work, ``peak`` the FLOP/s the MFU is taken against; ``fields``
-    are printed as they are. Returns the timed steps' launch counts."""
-    for _ in range(WARMUP_STEPS):
+    step's work, ``peak`` the FLOP/s the MFU is taken against, and
+    ``fp8_flops`` the work that runs on the fp8 tensor cores (taken against
+    PEAK_FP8); ``fields`` are printed as they are; ``ranges`` (see
+    :func:`train_profile`) adds profiler ranges. The loss must fall: the
+    last timed step's below the loss the first warm-up step returns, which
+    no update of this phase has touched yet. Returns the timed steps'
+    launch counts."""
+    start = step(*batch)[0]
+    for _ in range(WARMUP_STEPS - 1):
         step(*batch)
     torch.cuda.synchronize()
+    start = start.item()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
@@ -2609,23 +2658,26 @@ def training_phase(label, profile_label, step, batch, counters, expect,
                              f"{port_syncs}")
     step_ms = [a.elapsed_time(b) for a, b in events]
     first, last = losses[0].item(), losses[-1].item()
-    if not (np.isfinite(first) and np.isfinite(last) and last < first):
-        raise AssertionError(f"{label}: loss {first} -> {last}")
+    if not (np.isfinite(start) and np.isfinite(last) and last < start):
+        raise AssertionError(f"{label}: loss {start} (before the phase's "
+                             f"updates) -> {last}")
     med = float(np.median(step_ms))
+    mfu = (flops / peak + fp8_flops / PEAK_FP8) / (med / 1e3)
     line(label, steps=TIMED_STEPS, batch=batch[0].shape[0], **fields,
          **{f"{unit}_per_step": units}, median_step_ms=med,
          min_step_ms=min(step_ms),
          **{f"{unit}_per_s": units * TIMED_STEPS / wall},
-         model_flops_per_step=flops, mfu=flops / (med / 1e3) / peak,
+         model_flops_per_step=flops + fp8_flops,
+         **({"fp8_flops_per_step": fp8_flops} if fp8_flops else {}), mfu=mfu,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         first_loss=first, last_loss=last,
+         start_loss=start, first_loss=first, last_loss=last,
          losses=json.dumps([round(x.item(), 4) for x in losses]),
          skipped_steps=int(torch.stack(flags).sum()),
          host_syncs=sum(syncs.values()), sync_sites=json.dumps(syncs),
          launches_per_step=json.dumps(
              {k: v // TIMED_STEPS for k, v in launches.items()}),
          card=f"'{card}'")
-    train_profile(profile_label, step, batch, groups)
+    train_profile(profile_label, step, batch, groups, ranges)
     return launches
 
 
@@ -2640,13 +2692,15 @@ def lm_work(m, batch):
                 peak=PEAK_BF16, params=n_params)
 
 
-def device_ms_by_group(prof, groups):
+def device_ms_by_group(prof, groups, ranges=()):
     """Device time per kernel name (device events only: an op's row repeats
-    its kernels' time), grouped by name fragments."""
+    its kernels' time), grouped by name fragments. The device-side spans of
+    OPT_RANGE and of the profiler ranges ``ranges`` are ranges, not
+    kernels, and are left out."""
     by_name = {}
     for evt in prof.key_averages():
-        # OPT_RANGE's device-side span is a range, not a kernel
-        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.key == OPT_RANGE:
+        if (evt.device_type != torch.autograd.DeviceType.CUDA or evt.key == OPT_RANGE
+                or evt.key in ranges):
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -2716,31 +2770,37 @@ def loss_ops_ms(prof):
     return total
 
 
-def range_kernels_ms(prof, name):
+def range_kernels_ms(prof, name, fragments=None):
     """Device ms of the kernels that run inside the device-side spans of the
-    profiler range ``name`` (the span of the kernels launched inside it)."""
+    profiler range ``name`` (the span of the kernels launched inside it);
+    with ``fragments``, of those whose name holds one of them."""
     cuda = torch.autograd.DeviceType.CUDA
     events = [e for e in prof.events() if e.device_type == cuda]
     spans = [(e.time_range.start, e.time_range.end) for e in events if e.name == name]
     return sum(e.time_range.elapsed_us() for e in events if e.name != name
+               and (fragments is None or any(f in e.name for f in fragments))
                and any(a <= e.time_range.start < b for a, b in spans)) / 1e3
 
 
-def train_profile(label, step, batch, groups):
+def train_profile(label, step, batch, groups, ranges=None):
     """PROFILE_STEPS more steps under torch.profiler: device time by layer
     (per step), the library cross entropy's device time (LOSS_OPS; the
     fused one is K14 + K15 in the layers), the optimizer step's where it
     runs in the OPT_RANGE range (``wrap_optimizer``) and the device's idle
-    share over the window."""
+    share over the window. ``ranges``, a context manager factory, opens
+    profiler ranges around parts of the step while it profiles and returns
+    their names: each range's kernels' device ms, and of them the GEMMs',
+    are reported too."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with (ranges() if ranges else contextlib.nullcontext(())) as names, \
+            torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILE_STEPS):
             step(*batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name, by_group = device_ms_by_group(prof, groups)
+    by_name, by_group = device_ms_by_group(prof, groups, names)
     busy = sum(by_name.values())
     if busy == 0:
         line(label, device_time="not measured (no CUDA events in the trace)")
@@ -2748,12 +2808,16 @@ def train_profile(label, step, batch, groups):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     per = 1.0 / PROFILE_STEPS
     opt_ms = range_kernels_ms(prof, OPT_RANGE)
+    in_ranges = {name: {"all": range_kernels_ms(prof, name) * per,
+                        "gemm": range_kernels_ms(prof, name, GEMM_FRAGMENTS) * per}
+                 for name in names}
     print(f"{label}: " + json.dumps({
         "steps": PROFILE_STEPS, "wall_ms_per_step": wall_ms * per,
         "device_busy_ms_per_step": busy * per, "idle_share": 1.0 - busy / wall_ms,
         "by_layer_ms_per_step": {k: v * per for k, v in by_group.items()},
         "loss_ops_ms_per_step": loss_ops_ms(prof) * per,
         **({"optimizer_ms_per_step": opt_ms * per} if opt_ms else {}),
+        **({"ranges_ms_per_step": in_ranges} if in_ranges else {}),
         "top_kernels_ms_per_step": {k[:90]: v * per for k, v in top}}),
         flush=True)
 
@@ -4029,6 +4093,447 @@ def dcgan_phase(dcgan, counters, card):
          state_dict="round-trips", card=f"'{card}'")
 
 
+# ------------------------------------------------------ slice 14, amp O6
+
+# the flagship's four block GEMMs at batch 16 (M = 16 x 1024 tokens; (K, N)
+# of wqkv, wo, wi, wo2), a ragged shape, padded to multiples of 16, and two
+# small ones, where the tensor cores' own accumulation shows beside K·2^-24
+O6_SHAPES = ((16384, 1024, 3072), (16384, 1024, 1024), (16384, 1024, 4096),
+             (16384, 4096, 1024), (16383, 1000, 1000), (1000, 40, 24), (33, 17, 9))
+# the card's fp8 product against its plain version, per element:
+# (FP8_SUM_C·K·2^-24 + FP8_MMA_REL)·Σ|â||b̂| times the output scale. Two fp32
+# sums of K terms in two orders part by up to 2·K·2^-24·Σ; the fp8 tensor
+# cores align each k-group's products to a narrow window before cuBLAS adds
+# it into fp32 (use_fast_accum=False), a cost that does not shrink with K:
+# at small K a K-proportional bound alone would need a c of 100 or more
+# (the o6_gemm lines' of_k_ulp_sum, PERF.md)
+FP8_SUM_C, FP8_MMA_REL = 2.0, 2.0 ** -11
+O6_GEMMS = ("wqkv", "wo", "wi", "wo2")
+O6_VS_O5_STEPS = 50
+# the O6 parity step, kernels against plain (batch 2, a warm history): the
+# GPT step rows' loss and master bounds. The gradients part further than at
+# O5: an input one rounding apart that straddles an fp8 midpoint moves a
+# whole fp8 step (2^-3 in e4m3, 2^-2 in e5m2), and 8 layers pass it on
+# (measured 0.151 in relative L2, PERF.md), so they are held at about twice
+# that and within twice the spread of two correct O6 steps (flash against
+# unfused attention, both on the kernels); the history's grad row at about
+# twice its reading (0.0197), its weight row bitwise
+O6_PARITY_TOL = dict(loss=5e-3, grad=0.3, grad_of_spread=2.0,
+                     master=2 * LR + 1e-6, history=0.05)
+
+
+def fp8_product_bound(qa, qb, inv):
+    s = (qa.float().abs() @ qb.float().abs()) * inv.abs()
+    return (FP8_SUM_C * qa.shape[1] * 2.0 ** -24 + FP8_MMA_REL) * s
+
+
+class ProductCount:
+    """A launch counter over ``ops.quantized.product_counts[key]``, for
+    :func:`training_phase`'s counters."""
+
+    def __init__(self, q8, key):
+        self.q8, self.key = q8, key
+
+    @property
+    def launches(self):
+        return self.q8.product_counts[self.key]
+
+    @launches.setter
+    def launches(self, n):
+        self.q8.product_counts[self.key] = n
+
+
+def product_counters(q8):
+    return {k: ProductCount(q8, k) for k in q8.product_counts}
+
+
+@contextlib.contextmanager
+def plain_products(q8):
+    """The plain path of the fp8 tier: ``quantized_matmul``'s products on
+    their plain version (the same fp8 values widened to fp32) where the op
+    would call the card's fp8 GEMM, so that a trainer with ``impl="torch"``
+    runs every op of the step plain."""
+    real = q8._fp8_mm
+    q8._fp8_mm = q8._plain_mm
+    try:
+        yield
+    finally:
+        q8._fp8_mm = real
+
+
+@contextlib.contextmanager
+def o6_ranges(q8):
+    """Profiler ranges around the fp8 tier's two parts while a step is
+    profiled: ``fp8_gemm`` (each product, its operands' fp8 transposes and
+    padding included) and ``fp8_quantize`` (the amax, scale, clamp and cast
+    passes, the step's amax observations included)."""
+    names = {"_fp8_mm": "fp8_gemm", "_amax": "fp8_quantize",
+             "_q_e4m3": "fp8_quantize", "_q_e5m2": "fp8_quantize"}
+    real = {n: getattr(q8, n) for n in names}
+
+    def ranged(fn, name):
+        def run(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    for n, r in names.items():
+        setattr(q8, n, ranged(real[n], r))
+    try:
+        yield ("fp8_gemm", "fp8_quantize")
+    finally:
+        for n, fn in real.items():
+            setattr(q8, n, fn)
+
+
+def o6_gemm_phase(q8):
+    """``quantized_matmul``'s parts on the card at O6_SHAPES: the quantized
+    bytes of x (e4m3), w (e4m3) and the cotangent (e5m2) bitwise the CPU's
+    quantization of the same fp32 values; the three products (forward, dx,
+    dw) on ``torch._scaled_mm`` within ``fp8_product_bound`` of their plain
+    version, each timed beside the bf16 product the O5 step runs at that
+    shape (``_HalfDense32``'s bf16 x bf16 -> fp32 forward, bf16 backward)
+    and the bound max(bytes / HBM, flops / the fp8 peak); the op within
+    ``quantized_matmul_error_bound`` of the fp32 product; the quantize
+    passes timed. Returns the rows for PERF.md's fp8 table."""
+    e4, e5 = q8.E4M3_MAX, q8.E5M2_MAX
+    for M, K, N in O6_SHAPES:
+        g = gen(80)
+        x = torch.randn(M, K, device="cuda", generator=g).bfloat16()
+        w = (torch.randn(K, N, device="cuda", generator=g) * 0.02).bfloat16()
+        dyb = torch.randn(M, N, device="cuda", generator=g).bfloat16()
+        dy = dyb.float()
+        sx, sw = (q8._jit_scale(q8._amax(t), e4) for t in (x, w))
+        sg = q8._jit_scale(q8._amax(dy), e5)
+        qx, qw, qdy = q8._q_e4m3(x, sx), q8._q_e4m3(w, sw), q8._q_e5m2(dy, sg)
+        for name, q, t, s, cast in (("x", qx, x, sx, q8._q_e4m3),
+                                    ("w", qw, w, sw, q8._q_e4m3),
+                                    ("dy", qdy, dy, sg, q8._q_e5m2)):
+            if not torch.equal(q.view(torch.uint8).cpu(),
+                               cast(t.cpu(), s.cpu()).view(torch.uint8)):
+                raise AssertionError(f"o6_gemm {M}x{K}x{N}: {name}'s fp8 bytes "
+                                     f"differ from the CPU's")
+        shape = f"{M}x{K}x{N}"
+        products = (("forward", qx, qw, q8.div(1.0, sx * sw),
+                     lambda: torch.mm(x, w, out_dtype=torch.float32)),
+                    ("dx", qdy, qw.t(), q8.div(1.0, sg * sw), lambda: dyb @ w.t()),
+                    ("dw", qx.t(), qdy, q8.div(1.0, sx * sg), lambda: x.t() @ dyb))
+        for name, a, b, inv, o5 in products:
+            got = q8._fp8_mm(a, b, inv, "forward")
+            ref = q8._plain_mm(a, b, inv, "forward")
+            sums = ((a.float().abs() @ b.float().abs()) * inv.abs()).clamp_min(1e-38)
+            bound = fp8_product_bound(a, b, inv).clamp_min(1e-38)
+            ratio = float(((got - ref).abs() / bound).max())
+            # the same difference in units of K·2^-24·Σ and of Σ
+            of_sum = float(((got - ref).abs() / sums).max())
+            if not ratio <= 1.0:
+                raise AssertionError(f"o6_gemm {shape} {name}: at {ratio} of its "
+                                     f"bound")
+            m, k, n = a.shape[0], a.shape[1], b.shape[1]
+            nbytes = m * k + k * n + 4 * m * n  # fp8 in, fp32 out
+            flops = 2.0 * m * n * k
+            line("o6_gemm", shape=shape, product=name,
+                 operands=f"'{str(a.dtype)[6:]} x {str(b.dtype)[6:]} -> fp32'",
+                 max_abs_err=float((got - ref).abs().max()), of_bound=ratio,
+                 of_k_ulp_sum=of_sum / (a.shape[1] * 2.0 ** -24), of_sum=of_sum,
+                 ms=time_ms(lambda: q8._fp8_mm(a, b, inv, "forward")),
+                 plain_ms=time_ms(lambda: q8._plain_mm(a, b, inv, "forward"), iters=5),
+                 bf16_ms=time_ms(o5),
+                 bound_ms=1e3 * max(nbytes / HBM_BPS, flops / PEAK_FP8),
+                 bound_by="bytes" if nbytes / HBM_BPS > flops / PEAK_FP8
+                 else "operations")
+            del got, ref
+        with torch.no_grad():
+            y = q8.quantized_matmul(x, w)
+            err = float((y - x.float() @ w.float()).abs().max())
+        bound = float(q8.quantized_matmul_error_bound(x, w))
+        if not err <= bound:
+            raise AssertionError(f"o6_gemm {shape}: op error {err} > {bound}")
+        line("o6_quantize", shape=shape, op_max_abs_err=err, op_bound=bound,
+             amax_ms=time_ms(lambda: q8._amax(x)),
+             e4m3_x_ms=time_ms(lambda: q8._q_e4m3(x, sx)),
+             e5m2_dy_ms=time_ms(lambda: q8._q_e5m2(dy, sg)),
+             fp8_transpose_x_ms=time_ms(lambda: qx.t().contiguous()),
+             bytes_bound_x_ms=1e3 * (2 + 1) * M * K / HBM_BPS)
+        del x, w, dy, dyb, qx, qw, qdy, y
+        torch.cuda.empty_cache()
+
+
+def o6_trainer(amp, gpt, fused_adam, params, cfg, q8):
+    """The flagship's O6 step (``bench.py`` ``make_gpt_rung("O6")``):
+    ``make_gpt_trainer`` at level O6; with ``impl="torch"`` its products
+    plain too (:func:`plain_products`, entered around each step)."""
+    def make(impl=None, **kw):
+        m, state, step = make_gpt_trainer(amp, gpt, fused_adam, params, cfg,
+                                          impl=impl, level="O6", **kw)
+        if impl != "torch":
+            return m, state, step
+
+        def plain_step(*batch):
+            with plain_products(q8):
+                return step(*batch)
+        return m, state, plain_step
+    return make
+
+
+def reset_products(q8):
+    for k in q8.product_counts:
+        q8.product_counts[k] = 0
+
+
+def gpt_o6_parity_phase(trainer, unfused, q8, batch, warm, n_layers):
+    """One full-width O6 step at batch 2 on the kernels (K1-K6, the fp8
+    GEMMs) and on the plain path, from the same weights, batch and scaler
+    state: a warm amax history (``warm``, the observations of one step on
+    the same weights), so the delayed scales are the steady state's, not
+    step 0's. Loss, gradient arenas, masters, the model arena as the
+    masters' cast, the history after the step and each path's product
+    counts. The gradients are also held against the spread of two correct
+    O6 steps: the same step on the kernels with unfused attention
+    (``unfused``), which rounds the attention at other places."""
+    res = {}
+    for name, impl, make in (("kernels", None, trainer), ("plain", "torch", trainer),
+                             ("unfused", None, unfused)):
+        m, state, step = make(impl=impl)
+        state["scaler"]["amax_history"][:, 0] = warm
+        reset_products(q8)
+        loss, g, fi = step(*batch)
+        torch.cuda.synchronize()
+        counts = dict(q8.product_counts)
+        path = "fp8" if impl is None else "plain"
+        n = len(O6_GEMMS) * n_layers
+        if counts != {**{k: 0 for k in counts}, f"{path}_forward": n,
+                      f"{path}_backward": 2 * n} or bool(fi):
+            raise AssertionError(f"gpt_o6_step_parity ({name}): products {counts}, "
+                                 f"found_inf {bool(fi)}")
+        model, masters, _, _ = snapshot(m, state)
+        for arena, master in zip(model, masters):
+            if not torch.equal(arena, master.to(arena.dtype)):
+                raise AssertionError(f"gpt_o6_step_parity ({name}): model arena "
+                                     f"!= masters.to(dtype)")
+        res[name] = (loss.item(), [a.clone() for a in model_leaves(g)], masters,
+                     state["scaler"]["amax_history"].clone())
+        del m, state, step, g
+        torch.cuda.empty_cache()
+    (lk, gk, mk, hk), (lp, gp, mp, hp) = res["kernels"], res["plain"]
+    loss_err = abs(lk - lp) / abs(lp)
+    grad_rel = [float((a - b).norm() / b.norm()) for a, b in zip(gk, gp)]
+    spread = [float((a - b).norm() / b.norm()) for a, b in zip(gk, res["unfused"][1])]
+    master_err = max(max_err(a, b) for a, b in zip(mk, mp))
+    hist_rel = float(((hk - hp).abs() / hp.abs().clamp_min(1e-30)).max())
+    tol = O6_PARITY_TOL
+    if not (np.isfinite(lk) and loss_err < tol["loss"] and max(grad_rel) < tol["grad"]
+            and all(g <= tol["grad_of_spread"] * s_ for g, s_ in zip(grad_rel, spread))
+            and master_err <= tol["master"] and hist_rel <= tol["history"]
+            and torch.equal(hk[0], hp[0]) and torch.equal(hk[:, 1:], hp[:, 1:])):
+        raise AssertionError(f"gpt_o6_step_parity: loss {lk} vs {lp}, grads rel L2 "
+                             f"{grad_rel} (flash vs unfused {spread}), masters "
+                             f"{master_err}, history {hist_rel} (tolerances {tol})")
+    line("gpt_o6_step_parity", batch=batch[0].shape[0], loss=lk, plain_loss=lp,
+         loss_rel_err=loss_err, grad_rel_l2=json.dumps(grad_rel),
+         flash_vs_unfused_grad_rel_l2=json.dumps(spread),
+         grad_max_abs_err=max(max_err(a, b) for a, b in zip(gk, gp)),
+         master_max_abs_err=master_err, history_rel_err=hist_rel,
+         history=json.dumps(hk[:, :2].tolist()), tolerances=json.dumps(tol),
+         products_a_step=n, model_arena_is_master_cast="bitwise")
+
+
+def gpt_o6_skip_phase(amp, gpt, fused_adam, guard_mod, params, cfg, batch):
+    """The grad row of the amax history poisoned (amax 1e-30, so the e5m2
+    cotangent overflows at the scale it implies), as
+    ``tests/test_quantized.py`` does: through ``scaled_value_and_grad`` and
+    through ``StepGuard``, found_inf set, masters, moments, step counts and
+    model arenas bitwise unchanged, the scale halved, the history finite
+    (the inf observation dropped)."""
+    for via in ("scaled_value_and_grad", "StepGuard"):
+        if via == "StepGuard":
+            m = amp.initialize(lambda p, t: gpt.forward(p, t, cfg), params,
+                               fused_adam(lr=LR), "O6", arena_native=True)
+            guard = guard_mod.StepGuard(m.scaler)
+            gstate = guard.init(m.params)
+            state = {"opt": m.optimizer.init(m.params), "scaler": gstate["scaler"]}
+            vg = guard.value_and_grad(
+                lambda p, tok, tgt: gpt.loss_fn(p, tok, tgt, cfg, forward_fn=m.apply))
+
+            def step(*b):
+                loss, g, verdict = vg(m.params, gstate, *b)
+                m.params, state["opt"], new = guard.apply_update(
+                    m.optimizer, m.params, g, state["opt"], gstate, verdict)
+                gstate.update(new)
+                state["scaler"] = gstate["scaler"]
+                return loss, g, verdict["grad_overflow"]
+        else:
+            m, state, step = make_gpt_trainer(amp, gpt, fused_adam, params, cfg,
+                                              level="O6")
+        state["scaler"]["amax_history"][1, 0] = 1e-30
+        before = snapshot(m, state)
+        scale0 = state["scaler"]["scale"].item()
+        _, _, fi = step(*batch)
+        torch.cuda.synchronize()
+        after = snapshot(m, state)
+        hist = state["scaler"]["amax_history"]
+        if not bool(fi):
+            raise AssertionError(f"gpt_o6_skip_step ({via}): found_inf not set")
+        same = all(torch.equal(a, b) for xs, ys in zip(before[:3], after[:3])
+                   for a, b in zip(xs, ys))
+        if not same or after[3] != before[3]:
+            raise AssertionError(f"gpt_o6_skip_step ({via}): the state changed")
+        scale1 = state["scaler"]["scale"].item()
+        if scale1 != scale0 / 2 or not torch.isfinite(hist).all():
+            raise AssertionError(f"gpt_o6_skip_step ({via}): scale {scale0} -> "
+                                 f"{scale1}, history {hist[:, :2].tolist()}")
+        line("gpt_o6_skip_step", via=via, found_inf=True, state="bitwise unchanged",
+             scale_before=scale0, scale_after=scale1,
+             history=json.dumps(hist[:, :2].tolist()), step_count=after[3][0])
+        del m, state, step
+        torch.cuda.empty_cache()
+
+
+def gpt_o6_vs_o5_phase(amp, gpt, fused_adam, q8, params, cfg, batch):
+    """``testing/quantized_bench.py``'s parity rung at full width: O6_VS_O5_STEPS
+    steps of O5 and of O6 from one init on one fixed batch, every step's
+    |loss_O6 - loss_O5| within ``loss_parity_bound(t, n_matmuls=32,
+    loss_ceiling=the largest O5 loss)``; the largest margin and the last
+    deviation printed, as the bench prints them."""
+    losses, skipped = {}, {}
+    for level in ("O5", "O6"):
+        _, _, step = make_gpt_trainer(amp, gpt, fused_adam, params, cfg, level=level)
+        ls, fs = [], []
+        for _ in range(O6_VS_O5_STEPS):
+            loss, _, fi = step(*batch)
+            ls.append(loss)
+            fs.append(fi)
+        losses[level] = torch.stack(ls).tolist()
+        skipped[level] = int(torch.stack(fs).sum())
+        del step
+        torch.cuda.empty_cache()
+    l5, l6 = losses["O5"], losses["O6"]
+    n = len(O6_GEMMS) * cfg.n_layers
+    ceiling = max(abs(v) for v in l5)
+    margins = [abs(a - b) / q8.loss_parity_bound(t, n_matmuls=n, loss_ceiling=ceiling)
+               for t, (a, b) in enumerate(zip(l5, l6))]
+    if not (all(np.isfinite(l6)) and max(margins) <= 1.0 and l6[-1] < l6[0]):
+        raise AssertionError(f"gpt_o6_vs_o5: margins up to {max(margins)}, O6 "
+                             f"losses {l6[0]} -> {l6[-1]}")
+    line("gpt_o6_vs_o5", steps=O6_VS_O5_STEPS, batch=batch[0].shape[0],
+         n_matmuls=n, loss_ceiling=ceiling, largest_margin=max(margins),
+         margin_at_step=int(np.argmax(margins)),
+         first_bound=q8.loss_parity_bound(0, n_matmuls=n, loss_ceiling=ceiling),
+         last_deviation=abs(l5[-1] - l6[-1]),
+         largest_deviation=max(abs(a - b) for a, b in zip(l5, l6)),
+         o5_final_loss=l5[-1], o6_final_loss=l6[-1], skipped=json.dumps(skipped),
+         o5_losses=json.dumps([round(x, 4) for x in l5[::7]]),
+         o6_losses=json.dumps([round(x, 4) for x in l6[::7]]))
+
+
+def gpt_o6_phases(amp, gpt, fused_adam, guard_mod, q8, cfg, counters, card):
+    """The flagship GPT at amp O6: the parity step at batch 2 from a warm
+    history, the poisoned-history skip through both entry points, the timed
+    and profiled run at TRAIN_BATCH (launches, products, host syncs,
+    skipped steps, the final scale and history, peak memory, the fp8-aware
+    MFU; the profile's fp8 GEMM and quantize ranges), and the 50-step
+    parity rung against O5. Returns the run's launch counts."""
+    params = gpt.init(cfg, gen(0), device="cuda")
+    trainer = o6_trainer(amp, gpt, fused_adam, params, cfg, q8)
+    unfused = o6_trainer(amp, gpt, fused_adam, params,
+                         dataclasses.replace(cfg, use_flash_attention=False), q8)
+    parity = gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(60), device="cuda")
+    m, state, step = trainer()
+    step(*parity)
+    warm = state["scaler"]["amax_history"][:, 0].clone()
+    del m, state, step
+    gpt_o6_parity_phase(trainer, unfused, q8, parity, warm, cfg.n_layers)
+    gpt_o6_skip_phase(amp, gpt, fused_adam, guard_mod, params, cfg,
+                      gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(61),
+                                          device="cuda"))
+    batch = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70), device="cuda")
+    m, state, step = trainer()
+    work = lm_work(m, batch)
+    n_fp8 = sum(params["blocks"][k].numel() for k in O6_GEMMS)
+    fp8_flops = 6.0 * n_fp8 * work["units"]
+    work["flops"] -= fp8_flops
+    launches = training_phase(
+        "gpt_o6_training", "gpt_o6_profile", step, batch,
+        {**counters, **product_counters(q8)}, STEP_LAUNCHES["gpt_o6"],
+        TRAIN_GROUPS, card, seq_len=cfg.seq_len, opt_level="O6",
+        fp8_flops=fp8_flops, fp8_params=n_fp8,
+        ranges=lambda: o6_ranges(q8), **work)
+    scale_line("gpt_o6_loss_scale", state["scaler"])
+    line("gpt_o6_amax_history", rows=json.dumps(
+        {r: state["scaler"]["amax_history"][i, :4].tolist()
+         for i, r in enumerate(q8.HISTORY_ROLES)}))
+    del m, state, step
+    torch.cuda.empty_cache()
+    gpt_o6_vs_o5_phase(amp, gpt, fused_adam, q8, params, cfg, batch)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serving_e4m3_phase(infer, params, cfg, attn, norm, card):
+    """The flagship engine on e4m3 pages: (a) on the kernels against
+    ``impl="torch"`` (fp32 logits within LOGIT_TOL; each decode call runs
+    K2's contiguous decode once a layer over the dequantized pages, its
+    paged mode never); (b) against fp32 pages on the same prompts, both on
+    the kernels: each decode step's logits within ``kv_logit_error_bound``,
+    the greedy tokens' agreement printed; (c) the serving mix through
+    ``ContinuousBatcher`` and its profile, and the page-bytes ratio."""
+    ecfg = infer.EngineConfig(**{**ENGINE, "cache_dtype": "e4m3"})
+    engines = {impl: infer.InferenceEngine(params, cfg, ecfg, impl=impl)
+               for impl in ("kernel", "torch")}
+    engines["fp32"] = infer.InferenceEngine(params, cfg, infer.EngineConfig(**ENGINE))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in rng.integers(64, 769, 8)]
+    alloc = infer.PageAllocator(ecfg.num_pages)
+    tables = [alloc.alloc(infer.pages_for(len(p) + 8, ecfg.page_size))
+              for p in prompts]
+    toks = {i: e.prefill(prompts, tables) for i, e in engines.items()}
+    feed, lens = toks["fp32"].tolist(), [len(p) for p in prompts]
+    worst, devs, agree = 0.0, [], []
+    for t in range(4):
+        paged, flash = attn._paged_decode_kernel.launches, attn.flash_fwd_kernel.launches
+        got = torch.from_numpy(engines["kernel"].decode_logits(feed, lens, tables))
+        if (attn.flash_fwd_kernel.launches - flash != cfg.n_layers
+                or attn._paged_decode_kernel.launches != paged):
+            raise AssertionError("serving_e4m3: decode on the kernels launched "
+                                 f"{attn.flash_fwd_kernel.launches - flash} K2, "
+                                 f"{attn._paged_decode_kernel.launches - paged} paged")
+        ref = torch.from_numpy(engines["torch"].decode_logits(feed, lens, tables))
+        f32 = torch.from_numpy(engines["fp32"].decode_logits(feed, lens, tables))
+        if not torch.isfinite(got).all() or max_err(got, ref) > LOGIT_TOL:
+            raise AssertionError(f"serving_e4m3: kernels vs plain {max_err(got, ref)}")
+        worst = max(worst, max_err(got, ref))
+        dev = max_err(got, f32)
+        bound = infer.kv_logit_error_bound(t, n_layers=cfg.n_layers,
+                                           logit_ceiling=float(f32.abs().max()))
+        if not dev <= bound:
+            raise AssertionError(f"serving_e4m3: e4m3 vs fp32 pages {dev} > {bound}")
+        devs.append((dev, bound))
+        agree.append(float((got.argmax(-1) == f32.argmax(-1)).float().mean()))
+        feed, lens = f32.argmax(-1).tolist(), [n + 1 for n in lens]
+    torch.cuda.synchronize()
+    lay = engines["kernel"].layout
+    ratio = dataclasses.replace(lay, dtype_name="float32").page_bytes / lay.page_bytes
+    if ratio < 1.8:
+        raise AssertionError(f"serving_e4m3: page bytes ratio {ratio}")
+    line("serving_e4m3_parity", kernel_vs_plain_max_abs_err=worst, tol=LOGIT_TOL,
+         vs_fp32_pages=json.dumps([[round(d, 6), round(b, 4)] for d, b in devs]),
+         greedy_agreement=json.dumps(agree), decode_steps=4, prompts=len(prompts),
+         k2_decode_launches_per_call=cfg.n_layers, paged_launches=0,
+         page_bytes_fp32_over_e4m3=ratio)
+    del engines
+    torch.cuda.empty_cache()
+    eng, launches = serving_phase(infer, params, cfg, norm, attn, card,
+                                  cache_dtype="e4m3", label="serving_e4m3")
+    # its decode calls' share of K2's launches: the contiguous decode mode
+    decode = {"flash_fwd": cfg.n_layers * eng.call_counts["decode"]}
+    profile_phase(infer, eng, cfg, label="serving_e4m3_profile")
+    del eng
+    torch.cuda.empty_cache()
+    return launches, decode
+
+
 KERNEL_ROWS = (
     ("layer_norm_fwd", "triton", "beforeholiday_tpu_torch/ops/normalization.py",
      "beforeholiday_tpu/ops/normalization.py:55"),
@@ -4083,6 +4588,7 @@ def main():
     from beforeholiday_tpu_torch.ops import attention as attn
     from beforeholiday_tpu_torch.ops import multi_tensor as mt
     from beforeholiday_tpu_torch.ops import normalization as norm
+    from beforeholiday_tpu_torch.ops import quantized as q8
     from beforeholiday_tpu_torch.ops import softmax as sm
     from beforeholiday_tpu_torch.examples.imagenet import main_amp
     from beforeholiday_tpu_torch.models import resnet
@@ -4146,6 +4652,9 @@ def main():
     rows["sgd"].update(k10_half_phase(mt, o0_spec))
     launch_floor = launch_floor_phase()
     torch.cuda.empty_cache()
+    # slice 14: the fp8 tier's parts at the flagship's block GEMM shapes
+    o6_gemm_phase(q8)
+    torch.cuda.empty_cache()
     xent_function_phase(xent)
     flash_dropout_laws_phase(attn)
     flash_dropout_rung_phase(attn)
@@ -4158,6 +4667,10 @@ def main():
     del eng
     torch.cuda.empty_cache()
     decode_profile_phase(infer, params, cfg)
+    torch.cuda.empty_cache()
+    # slice 14: the flagship engine on e4m3 pages
+    serve_e4m3_launches, e4m3_decode_launches = serving_e4m3_phase(
+        infer, params, cfg, attn, norm, card)
     torch.cuda.empty_cache()
 
     counters = launch_counters(norm, attn, mt, sm, xent)
@@ -4345,6 +4858,12 @@ def main():
     torch.cuda.empty_cache()
 
     launches.update(gpt_amp_phases(amp, gpt, FusedAdam, cfg, counters, card))
+    # slice 14: the flagship GPT at amp O6 (the fp8 tier)
+    from beforeholiday_tpu_torch import guard as guard_mod
+    launches["gpt_o6"] = gpt_o6_phases(amp, gpt, FusedAdam, guard_mod, q8, cfg,
+                                       counters, card)
+    launches["serving_e4m3"] = serve_e4m3_launches
+    launches["serving_e4m3_decode"] = e4m3_decode_launches
 
     resnet_step_parity_phase(main_amp, FusedSGD, tree_flatten, rcfg, rweights)
     resnet_skip_phase(main_amp, rcfg, rweights)

@@ -97,15 +97,6 @@ def test_scale_loss_and_checkpoint_roundtrip():
     assert all(torch.equal(back[k], st[k]) for k in st)
 
 
-def test_quantized_scaler_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tamp.LossScaler(quantized=True)
-    with pytest.raises(NotImplementedError):
-        tamp.LossScaler().load_state_dict(
-            {"loss_scale": 1.0, "unskipped": 0, "amax_history": [[0.0]]},
-            device="cpu")
-
-
 # -------------------------------------------------------------- initialize
 
 
@@ -154,12 +145,6 @@ def test_initialize_policy_matches_jax(level, kw):
     assert tm.scaler.loss_scale == jm.scaler.loss_scale
     for f in ("opt_level", "keep_batchnorm_fp32", "master_weights", "loss_scale"):
         assert getattr(tm.policy, f) == getattr(jm.policy, f)
-
-
-@pytest.mark.parametrize("level", ["O6"])
-def test_unported_levels_raise(level):
-    with pytest.raises(NotImplementedError, match=level):
-        tamp.initialize(lambda p, x: x, {"w": torch.zeros(2)}, None, level)
 
 
 def test_initialize_rejects_what_jax_rejects():

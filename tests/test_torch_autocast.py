@@ -17,6 +17,7 @@ from beforeholiday_tpu.amp import functional as JF
 from beforeholiday_tpu.ops import fused_dense as jdense
 from beforeholiday_tpu.ops import fused_layer_norm as jln
 from beforeholiday_tpu_torch import amp as tamp
+from beforeholiday_tpu_torch.ops._autocast import quantized_enabled
 from beforeholiday_tpu_torch.amp import functional as TF
 from beforeholiday_tpu_torch.ops import attention as tattn
 from beforeholiday_tpu_torch.ops import fused_dense as tdense
@@ -142,9 +143,16 @@ def test_scope_nests_and_restores_on_exceptions():
     with pytest.raises(ValueError):
         with tamp.autocast(torch.float64):
             pass
-    with pytest.raises(NotImplementedError):
-        with tamp.autocast(torch.float16, quantized=True):
-            pass
+    assert not quantized_enabled()
+    with tamp.autocast(torch.float16, quantized=True):
+        assert quantized_enabled() and tamp.autocast_dtype() == torch.float16
+        with tamp.autocast(torch.bfloat16):  # an enclosing routing stays on
+            assert quantized_enabled()
+        with pytest.raises(KeyError):
+            with tamp.autocast(torch.bfloat16, quantized=True):
+                raise KeyError("inside")
+        assert quantized_enabled() and tamp.autocast_dtype() == torch.float16
+    assert not quantized_enabled()
     assert tamp.autocast_dtype() is None
 
 

@@ -1799,3 +1799,172 @@ def test_gpt_xent_step_kernels_match_plain_path(cuda):
         torch.testing.assert_close(a, b, rtol=0.05, atol=2e-2 * float(b.abs().max()))
     for a, b in zip(mk, mt_):
         torch.testing.assert_close(a, b, rtol=0, atol=2.5e-3)  # up to 2 lr
+
+
+# ------------------------------------------------- amp O6: the fp8 tier
+
+# the card's fp8 product against its plain version (the same fp8 values
+# widened, fp32 torch.matmul), per element: (2·K·2^-24 + 2^-11)·Σ|â||b̂|
+# times the output scale. The first term is two fp32 sums of K terms in two
+# orders; the second is the fp8 tensor cores' own accumulation, which aligns
+# each k-group's products to a narrow window before cuBLAS adds it into
+# fp32, a cost that does not shrink with K (chip_smoke.py's o6_gemm lines at
+# K 17 and 40, PERF.md)
+FP8_SUM_C, FP8_MMA_REL = 2.0, 2.0 ** -11
+
+
+def fp8_product_bound(qa, qb, inv):
+    s = (qa.float().abs() @ qb.float().abs()) * inv.abs()
+    return (FP8_SUM_C * qa.shape[1] * 2.0 ** -24 + FP8_MMA_REL) * s
+
+
+@pytest.mark.parametrize("M, K, N", [(4096, 1024, 3072), (2048, 4096, 1024),
+                                     (1000, 40, 24), (33, 17, 9)])
+def test_fp8_products_match_plain(cuda, M, K, N):
+    """The three products of ``quantized_matmul`` (e4m3 x e4m3, e5m2 x e4m3,
+    e4m3 x e5m2), ragged shapes padded, on ``torch._scaled_mm`` against the
+    plain product within ``fp8_product_bound``."""
+    from beforeholiday_tpu_torch.ops import quantized as tq
+
+    g = _gen(60)
+    x = torch.randn(M, K, device=cuda, generator=g).bfloat16()
+    w = (torch.randn(K, N, device=cuda, generator=g) * 0.02).bfloat16()
+    dy = torch.randn(M, N, device=cuda, generator=g).bfloat16().float()
+    sx = tq._jit_scale(tq._amax(x), tq.E4M3_MAX)
+    sw = tq._jit_scale(tq._amax(w), tq.E4M3_MAX)
+    sg = tq._jit_scale(tq._amax(dy), tq.E5M2_MAX)
+    qx, qw, qdy = tq._q_e4m3(x, sx), tq._q_e4m3(w, sw), tq._q_e5m2(dy, sg)
+    fp8 = tq.product_counts["fp8_forward"]
+    for a, b, inv in ((qx, qw, tq.div(1.0, sx * sw)), (qdy, qw.t(), tq.div(1.0, sg * sw)),
+                      (qx.t(), qdy, tq.div(1.0, sx * sg))):
+        got = tq._fp8_mm(a, b, inv, "forward")
+        ref = tq._plain_mm(a, b, inv, "forward")
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        assert ((got - ref).abs() <= fp8_product_bound(a, b, inv)).all()
+    assert tq.product_counts["fp8_forward"] - fp8 == 3
+
+
+def test_fp8_casts_match_the_cpu(cuda):
+    """The saturating e4m3 and non-saturating e5m2 casts on the card, bit for
+    bit the CPU's (which equal JAX's, ``tests/test_torch_quantized.py``),
+    over every finite bf16 value times scales that reach ties, subnormals,
+    the largest values and overflow."""
+    from beforeholiday_tpu_torch.ops import quantized as tq
+
+    x = (torch.arange(1 << 16, dtype=torch.int32) << 16).view(torch.float32)
+    x = x[torch.isfinite(x)]
+    for s in (1.0, 448.0 / 3.7, 57344.0 / 1.3, 2.0 ** -9, 3.0e4, 1.0e30):
+        st = torch.tensor(s)
+        for cast in (tq._q_e4m3, tq._q_e5m2):
+            assert torch.equal(cast(x, st).view(torch.uint8),
+                               cast(x.to(cuda), st.to(cuda)).view(torch.uint8).cpu())
+
+
+def test_quantized_matmul_on_the_card(cuda):
+    """The op on CUDA tensors: fp8 products only (impl None), its result
+    within ``quantized_matmul_error_bound`` of the fp32 product, gradients in
+    the primal dtypes and within the product bound of the plain products
+    (``impl="torch"``) from the same quantized operands."""
+    from beforeholiday_tpu_torch.ops import quantized as tq
+
+    g = _gen(61)
+    x0 = torch.randn(2, 384, 1024, device=cuda, generator=g).bfloat16()
+    w0 = (torch.randn(1024, 1000, device=cuda, generator=g) * 0.02).bfloat16()
+    dy = torch.randn(2, 384, 1000, device=cuda, generator=g)
+    out = {}
+    for impl in (None, "torch"):
+        for k in tq.product_counts:
+            tq.product_counts[k] = 0
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        y = tq.quantized_matmul(x, w, impl=impl)
+        y.backward(dy)
+        path = "fp8" if impl is None else "plain"
+        assert tq.product_counts == {**{k: 0 for k in tq.product_counts},
+                                     f"{path}_forward": 1, f"{path}_backward": 2}
+        assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+        out[path] = (y.detach(), x.grad.float(), w.grad.float())
+    err = (out["fp8"][0] - x0.float() @ w0.float()).abs().max()
+    assert float(err) <= float(tq.quantized_matmul_error_bound(x0, w0))
+    for a, b in zip(out["fp8"], out["plain"]):
+        rel = float((a - b).norm() / b.norm())
+        assert rel < 1e-3, rel
+
+
+def test_e4m3_engine_kernels_match_plain_path(cuda):
+    """An e4m3-page engine on K1/K2 against the same weights on the plain
+    path: each decode call runs K2's contiguous decode (once a layer) on the
+    gathered, dequantized fp32 pages and never its paged mode; logits within
+    the engine's bf16 tolerance; page bytes under half the fp32 layout's."""
+    cfg = gpt.GPTConfig(vocab_size=512, seq_len=128, d_model=128, n_heads=4,
+                        n_layers=2, dtype=torch.bfloat16)
+    params = gpt.init(cfg, _gen(62), device=cuda)
+    ecfg = EngineConfig(max_seq_len=128, page_size=16, num_pages=33,
+                        batch_buckets=(2, 4), prefill_seq_buckets=(32, 64, 128),
+                        weights_dtype="bfloat16", cache_dtype="e4m3")
+    engines = {impl: InferenceEngine(params, cfg, ecfg, impl=impl)
+               for impl in ("kernel", "torch")}
+    assert engines["kernel"]._cache.k.dtype == torch.float8_e4m3fn
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (40, 7, 100)]
+    alloc = PageAllocator(ecfg.num_pages)
+    tables = [alloc.alloc(pages_for(len(p) + 20, 16)) for p in prompts]
+    first = {i: e.prefill(prompts, tables) for i, e in engines.items()}
+    toks, lens = first["kernel"].tolist(), [len(p) for p in prompts]
+    for _ in range(20):  # across a page boundary for every prompt
+        paged, flash = tattn._paged_decode_kernel.launches, tattn.flash_fwd_kernel.launches
+        logits = {i: e.decode_logits(toks, lens, tables) for i, e in engines.items()}
+        assert tattn.flash_fwd_kernel.launches - flash == cfg.n_layers
+        assert tattn._paged_decode_kernel.launches == paged
+        assert np.isfinite(logits["kernel"]).all()
+        np.testing.assert_allclose(logits["kernel"], logits["torch"], atol=2e-2, rtol=0)
+        toks = logits["kernel"].argmax(-1).tolist()
+        lens = [n + 1 for n in lens]
+    lay = engines["kernel"].layout
+    assert lay.page_bytes * 2 < dataclasses.replace(lay, dtype_name="float32").page_bytes
+
+
+def test_o6_step_kernels_match_plain_path(cuda, monkeypatch):
+    """One O6 arena-native step of a 2-layer bf16 GPT on K1-K6 and the fp8
+    GEMMs against the same step with every op on its plain version (the
+    products widened to fp32). From an empty amax history the weights
+    quantize at scale 1, coarsely, so an input one rounding apart can move
+    an fp8 value by a whole step: the gradients compare in relative L2, at
+    the bound of the CPU test against JAX (``tests/test_torch_gpt_o6.py``)."""
+    from beforeholiday_tpu_torch.ops import quantized as tq
+
+    base = dict(vocab_size=512, seq_len=128, d_model=128, n_heads=4,
+                n_layers=2, dtype=torch.bfloat16)
+    params = gpt.init(gpt.GPTConfig(**base), _gen(63), device=cuda)
+    tok, tgt = gpt.synthetic_batch(gpt.GPTConfig(**base), 2, generator=_gen(64),
+                                   device=cuda)
+    res = {}
+    for impl in ("kernel", "torch"):
+        if impl == "torch":
+            monkeypatch.setattr(tq, "_fp8_mm", tq._plain_mm)
+        cfg = gpt.GPTConfig(**base, attention_impl=impl, norm_impl=impl)
+        m = amp.initialize(lambda p, t, cfg=cfg: gpt.forward(p, t, cfg), params,
+                           FusedAdam(lr=1e-3, impl=impl), "O6", arena_native=True)
+        svag = amp.scaled_value_and_grad(
+            lambda p, a, b, cfg=cfg, m=m: gpt.loss_fn(p, a, b, cfg,
+                                                      forward_fn=m.apply),
+            m.scaler, impl=impl)
+        o, s = m.optimizer.init(m.params), m.scaler.init()
+        for k in tq.product_counts:
+            tq.product_counts[k] = 0
+        loss, g, fi, s = svag(m.params, s, tok, tgt)
+        m.params, o = m.optimizer.step(m.params, g, o, found_inf=fi)
+        torch.cuda.synchronize()
+        path = "fp8" if impl == "kernel" else "plain"
+        assert tq.product_counts[f"{path}_forward"] == 8
+        assert tq.product_counts[f"{path}_backward"] == 16
+        assert not bool(fi) and (s["amax_history"][:, 0] > 0).all()
+        res[impl] = (loss, g.arenas, o["master"], m.params.arenas, s["amax_history"])
+    (lk, gk, mk, pk, hk), (lt, gt, mt_, pt, ht) = res["kernel"], res["torch"]
+    torch.testing.assert_close(lk, lt, rtol=2e-3, atol=0)
+    for a, b in zip(gk, gt):
+        assert float((a - b).norm() / b.norm()) < 0.18
+    for a, b in zip(mk, mt_):
+        torch.testing.assert_close(a, b, rtol=0, atol=2.5e-3)  # up to 2 lr
+    for arena, master in zip(pk, mk):
+        assert torch.equal(arena, master.to(arena.dtype))
+    torch.testing.assert_close(hk, ht, rtol=0.1, atol=0)

@@ -317,14 +317,6 @@ def test_engine_config_budget_matches_jax():
         assert getattr(t, name) == getattr(j, name)
 
 
-def test_fp8_pages_not_ported():
-    with pytest.raises(NotImplementedError):
-        tinfer.EngineConfig(cache_dtype="e4m3")
-    with pytest.raises(NotImplementedError):
-        tinfer.PagedLayout(n_layers=1, n_pages=2, page_size=4, kv_dim=8,
-                           dtype_name="e4m3")
-
-
 def test_page_allocator_all_or_nothing_and_free():
     alloc = tinfer.PageAllocator(6)
     got = alloc.alloc(3)
