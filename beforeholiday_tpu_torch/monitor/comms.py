@@ -48,6 +48,7 @@ __all__ = [
     "logical",
     "pmax",
     "pmin",
+    "ppermute",
     "psum",
     "psum_scatter",
     "record",
@@ -179,7 +180,7 @@ def _all_reduce(x, axis_name, op, *, site, kind, axis_index_groups=None,
             outs.append(flat[off: off + t.numel()].view(t.shape))
             off += t.numel()
         return _finish(outs, work, async_op)
-    out = x if inplace else x.clone()
+    out = x if inplace else x.clone(memory_format=torch.contiguous_format)
     work = dist.all_reduce(out, op=op, group=group, async_op=async_op)
     return _finish(out, work, async_op)
 
@@ -210,19 +211,27 @@ def pmin(x, axis_name, *, site: str, axis_index_groups=None, tier=None,
 
 def all_gather(x, axis_name, *, site: str, axis: int = 0, tiled: bool = False,
                logical=None, tier=None, async_op: bool = False):
-    """Every rank's ``x`` stacked along a new leading axis (``tiled``:
-    concatenated along axis 0), in rank order. ``axis`` other than 0 is not
-    ported."""
-    if axis != 0:
-        raise NotImplementedError("all_gather is ported for axis=0")
+    """Every rank's ``x`` in rank order: stacked along a new axis at
+    ``axis`` (``tiled``: concatenated along ``axis``), as ``lax.all_gather``
+    lays them out. The collective gathers along a leading rank axis; another
+    ``axis`` is a local move after it (with ``async_op``, a view the caller
+    reads after waiting on the work)."""
     record("all_gather", axis_name, x, site=site, logical=logical, tier=tier)
     group = _group(axis_name)
     world = _world(group)
-    src = x.reshape(1, *x.shape) if x.ndim == 0 else x.contiguous()
+    src = x.reshape(1) if x.ndim == 0 else x.contiguous()
     out = torch.empty((world * src.shape[0], *src.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    work = dist.all_gather_into_tensor(out, src, group=group, async_op=async_op)
-    return _finish(out if tiled else out.view(world, *x.shape), work, async_op)
+    # newer PyTorch renames all_gather_into_tensor to all_gather_single
+    ag = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    work = ag(out, src, group=group, async_op=async_op)
+    stacked = out.view(world, *x.shape)
+    if tiled:
+        axis = axis % max(x.ndim, 1)
+        out = out if axis == 0 else torch.cat(stacked.unbind(0), dim=axis)
+    else:
+        out = stacked.movedim(0, axis % (x.ndim + 1))
+    return _finish(out, work, async_op)
 
 
 def psum_scatter(x, axis_name, *, site: str, scatter_dimension: int = 0,
@@ -251,6 +260,34 @@ def psum_scatter(x, axis_name, *, site: str, scatter_dimension: int = 0,
     elif scatter_dimension:
         out = out.movedim(0, scatter_dimension)
     return _finish(out, work, async_op)
+
+
+def ppermute(x, axis_name, perm, *, site: str, tier=None):
+    """``lax.ppermute``: ``perm`` lists ``(source, destination)`` pairs of
+    group-local ranks; this rank sends ``x`` to its destination and returns
+    what its source sent (zeros where no pair names it a destination). One
+    ``batch_isend_irecv`` over the group; a pair onto itself is a copy."""
+    record("ppermute", axis_name, x, site=site, tier=tier)
+    group = _group(axis_name)
+    members = dist.get_process_group_ranks(group)
+    me = members.index(dist.get_rank())
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if len(dst) > 1 or len(src) > 1:
+        raise ValueError(f"ppermute: rank {me} appears twice in {perm}")
+    src_t = x.contiguous()
+    out = torch.zeros_like(src_t)
+    ops = []
+    if dst and dst[0] == me:
+        out.copy_(src_t)
+    elif dst:
+        ops.append(dist.P2POp(dist.isend, src_t, members[dst[0]], group))
+    if src and src[0] != me:
+        ops.append(dist.P2POp(dist.irecv, out, members[src[0]], group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return out
 
 
 def all_to_all(x, axis_name, split_axis: int, concat_axis: int, *, site: str,

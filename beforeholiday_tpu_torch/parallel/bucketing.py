@@ -18,8 +18,9 @@ guarantees hold:
   per-site ``calls`` count buckets and ``bytes`` the wire payload.
 
 Uncompressed bucketing is bitwise equal to one collective per arena. The
-two-level (slice x intra) engines and the scatter/gather family (ZeRO's)
-are not ported yet and raise.
+two-level (slice x intra) engines and the bucketed scatter/gather family
+(ZeRO's) are not ported yet and raise; the chunked gather and
+reduce-scatter of the sequence-parallel mappings are.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ __all__ = [
     "bucket_slices",
     "bucketed_psum",
     "bucketed_tree_psum",
+    "chunked_all_gather",
+    "chunked_reduce_scatter",
     "compression_error_bound",
     "n_buckets",
     "partition_leaves",
@@ -170,6 +173,55 @@ def bucketed_psum(flat: torch.Tensor, axis_name: Any, *, site: str,
         if result is not view:
             view.copy_(result)
     return out
+
+
+def chunked_all_gather(x: torch.Tensor, axis_name: Any, *, site: str,
+                       dim: int = 0,
+                       chunk_bytes: int = DEFAULT_BUCKET_BYTES) -> torch.Tensor:
+    """Tiled ``all_gather`` along ``dim``, issued as independent chunks of
+    ~``chunk_bytes``: bitwise the single gather (the sequence-parallel
+    mappings' chunked form)."""
+    world = static_axis_size(axis_name)
+    dim = dim % x.ndim
+    n = x.shape[dim]
+    row_bytes = (x.numel() // n) * x.element_size()
+    slices = bucket_slices(n, row_bytes, chunk_bytes, align=1)
+    if len(slices) == 1:
+        return comms.all_gather(x, axis_name, site=site, axis=dim, tiled=True)
+    parts = []
+    for off, ln in slices:
+        g = comms.all_gather(x.narrow(dim, off, ln), axis_name, site=site,
+                             axis=dim, tiled=True)
+        parts.append(g.reshape(*g.shape[:dim], world, ln, *g.shape[dim + 1:]))
+    cat = torch.cat(parts, dim=dim + 1)
+    return cat.reshape(*cat.shape[:dim], world * n, *cat.shape[dim + 2:])
+
+
+def chunked_reduce_scatter(x: torch.Tensor, axis_name: Any, *, site: str,
+                           dim: int = 0,
+                           chunk_bytes: int = DEFAULT_BUCKET_BYTES) -> torch.Tensor:
+    """Tiled ``psum_scatter`` along ``dim``, issued as independent chunks of
+    ~``chunk_bytes``: bitwise the single reduce-scatter."""
+    world = static_axis_size(axis_name)
+    dim = dim % x.ndim
+    total = x.shape[dim]
+    if total % world:
+        raise ValueError(f"scatter dim {dim} (size {total}) not divisible by "
+                         f"world={world}")
+    n = total // world
+    row_bytes = (x.numel() // total) * x.element_size() * world
+    slices = bucket_slices(n, row_bytes, chunk_bytes, align=1)
+    if len(slices) == 1:
+        return comms.psum_scatter(x, axis_name, site=site, scatter_dimension=dim,
+                                  tiled=True)
+    x2 = x.reshape(*x.shape[:dim], world, n, *x.shape[dim + 1:])
+    parts = []
+    for off, ln in slices:
+        piece = x2.narrow(dim + 1, off, ln)
+        flat = piece.reshape(*piece.shape[:dim], world * ln, *piece.shape[dim + 2:])
+        parts.append(comms.psum_scatter(flat, axis_name, site=site,
+                                        scatter_dimension=dim, tiled=True))
+    return torch.cat(parts, dim=dim)
 
 
 def partition_leaves(leaves: Sequence[torch.Tensor],

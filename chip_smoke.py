@@ -160,7 +160,24 @@ Phases, each printing one line (any failure exits non-zero):
     a step, none plain, the fp8-aware MFU, the final scale and history, and
     the profile's ``fp8_gemm`` and ``fp8_quantize`` ranges; 50 steps against
     O5 within ``loss_parity_bound``);
-20. the total seconds, the ``kernels`` JSON line (with ``launch_floor_ms``),
+20. slice 15, Megatron tensor + pipeline parallel (BASELINE config 5):
+    ``tp_layers_world1`` (NCCL at world 1, the flagship's shapes: every TP/SP
+    mapping, the column- and row-parallel layers, the vocab-parallel
+    embedding and ``sp_fused_layer_norm`` on K1/K3 bitwise against their
+    dense counterparts, forward and backward; the vocab-parallel cross
+    entropy at smoothing 0 and 0.1 within K14's and K15's bounds);
+    ``gpt_tp_pp_world1`` (the flagship's O5 step through the TP forward at
+    tensor 1 x pipe 1 under ``forward_backward_no_pipelining`` and the 1F1B
+    engine: one microbatch at batch 2 and 4 microbatches at batch 16
+    against the one-device O5 step, then each schedule timed and profiled
+    at batch 16 beside that step's median, launches and host syncs held);
+    ``gpt_tp2_card`` (two spawned ranks on the one card over gloo on CUDA
+    tensors, tensor parallel 2, sequence parallel off and on, two O5 steps
+    each at batch 16, against the one-device step; a correctness run: gloo
+    stages through the host); and
+    the new kernel shapes (``tp_shape`` lines: K1/K3 at 8192 and 4096 rows,
+    K2/K4 at BH 128 and 64, K5/K6 at a TP 2 shard's arena);
+21. the total seconds, the ``kernels`` JSON line (with ``launch_floor_ms``),
     the card line, and the final ``ok`` line.
 
 ``F.layer_norm``, ``F.scaled_dot_product_attention``, their backwards,
@@ -317,7 +334,16 @@ STEP_LAUNCHES = {
     # the fp8 tier: one product forward, two backward (dx, dw), none plain
     "gpt_o6": {**_NO_LAUNCH, **_GPT_STEP, **_FLASH, "fp8_forward": 32,
                "fp8_backward": 64, "plain_forward": 0, "plain_backward": 0},
+    # slice 15, the O5 step over TP x PP at world 1: every one of the
+    # TP_MICRO microbatches runs the 17 LayerNorms and 8 attentions forward
+    # and backward (the 1F1B engine's forward slot on the last stage only
+    # stores its input, and the backward slot recomputes it); one unscale
+    # and one Adam pass an arena a step
+    "gpt_tp_pp_none": {**_NO_LAUNCH, "layer_norm_fwd": 17 * 4,
+                       "layer_norm_bwd": 17 * 4, "flash_fwd": 8 * 4,
+                       "flash_bwd": 8 * 4, "unscale": 2, "adam": 2},
 }
+STEP_LAUNCHES["gpt_tp_pp_1f1b"] = STEP_LAUNCHES["gpt_tp_pp_none"]
 # the levels whose params live in arenas (MasterWeights over PackedParams)
 ARENA_LEVELS = ("O2", "O5", "O6")
 # the GPT's activation dtype by level: fp16 storage at O2; at O1/O4 the
@@ -1100,12 +1126,17 @@ def flash_dropout_rung_phase(attn):
          library_fwdbwd_ms=library_ms, grad_max_abs_err=max(errs))
 
 
-def o5_specs(params):
-    """The ``ArenaSpec`` of each arena of ``params`` under amp O5, by dtype."""
+def o5_layout(params):
+    """The ``PackedLayout`` of ``params`` under amp O5 (arena-native)."""
     from beforeholiday_tpu_torch.amp.frontend import _cast_params, opt_levels
     from beforeholiday_tpu_torch.ops.arena import PackedParams
 
-    layout = PackedParams.pack(_cast_params(params, opt_levels["O5"], None)).layout
+    return PackedParams.pack(_cast_params(params, opt_levels["O5"], None)).layout
+
+
+def o5_specs(params):
+    """The ``ArenaSpec`` of each arena of ``params`` under amp O5, by dtype."""
+    layout = o5_layout(params)
     return dict(zip(layout.dtypes, layout.specs))
 
 
@@ -2662,6 +2693,7 @@ def training_phase(label, profile_label, step, batch, counters, expect,
         raise AssertionError(f"{label}: loss {start} (before the phase's "
                              f"updates) -> {last}")
     med = float(np.median(step_ms))
+    MEDIANS[label] = med
     mfu = (flops / peak + fp8_flops / PEAK_FP8) / (med / 1e3)
     line(label, steps=TIMED_STEPS, batch=batch[0].shape[0], **fields,
          **{f"{unit}_per_step": units}, median_step_ms=med,
@@ -2679,6 +2711,11 @@ def training_phase(label, profile_label, step, batch, counters, expect,
          card=f"'{card}'")
     train_profile(profile_label, step, batch, groups, ranges)
     return launches
+
+
+# each timed run's median step ms, by its line's label (for the phases that
+# put another step's time beside their own)
+MEDIANS = {}
 
 
 def lm_work(m, batch):
@@ -4534,6 +4571,650 @@ def serving_e4m3_phase(infer, params, cfg, attn, norm, card):
     return launches, decode
 
 
+# ------------------------------------------- slice 15: tensor + pipeline parallel
+# BASELINE config 5, apex.transformer's tensor + pipeline parallel GPT, driven
+# as a Megatron user script drives it. The card has one H100 and NCCL refuses
+# two ranks on one device, so what runs where is fixed here:
+# * tp_layers_world1 and gpt_tp_pp_world1: NCCL at world 1 (tensor 1 x pipe
+#   1): every collective and ring of the TP/SP mappings and the schedules
+#   runs, over one rank;
+# * gpt_tp2_card: two spawned ranks on the one card over gloo on CUDA tensors,
+#   tensor parallel 2, pipe 1, sequence parallel off and on: this PyTorch's
+#   gloo takes CUDA tensors for all-reduce (sum and max), broadcast,
+#   all-gather and reduce-scatter (a two-rank probe on the card), which is
+#   every collective of the TP and SP regions, the vocab-parallel embedding
+#   and cross entropy and the overflow flag; its point-to-point send of a
+#   CUDA tensor kills the process (gloo's TCP pair: "writev ... Bad
+#   address"), so a pipe of more than one rank runs across ranks in the CPU
+#   tests only.
+TP_MICRO = 4  # microbatches of TRAIN_BATCH // TP_MICRO in the world-1 steps
+TP_TWO_RANK_STEPS = 2
+TP_TWO_RANK_TIMEOUT = 600
+# the O5 step over TP x PP against the one-device O5 step. At one microbatch
+# only the cross entropy's formula differs: the loss agrees to 1e-5 (at world
+# 1 it is bitwise), but the logits' gradient parts by fp32 rounding (~1e-7),
+# and the bf16 backward then rounds its cotangents at other places, one bf16
+# rounding (2^-8) spread over every gradient, about 2^-8 / sqrt(3) in
+# relative L2 (a CPU rehearsal of this phase at 2 layers read 2.3e-3 on the
+# bf16 arena, and 2e-5 on the fp32-only leaves; the card at full width,
+# through K2/K4's bf16 products, 6.2e-3); so 2^-6, not the 1e-4 of the
+# BERT-xent vs pretrain_loss row, whose two losses give the same logits
+# gradient to the bit. At TP_MICRO microbatches the gradient sums run in
+# another order, and at TP 2 in two ranks' halves: the O5 row
+TP_M1_BOUNDS = dict(loss_rel_err=1e-5, grad_rel_l2=2 ** -6,
+                    master_max_abs_err=2 * LR + 1e-6)
+TP_M4_BOUNDS = dict(loss_rel_err=5e-3, grad_rel_l2=0.05, master_max_abs_err=2 * LR + 1e-6)
+TP_REPLICATED = ("pos_embed", "lnf_scale", "lnf_bias")
+TP_REPLICATED_BLOCKS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias", "bo", "bo2")
+
+
+def tp_pp_trainer(amp, gpt, fused_adam, shard, cfg, M, schedule, impl=None):
+    """The flagship's amp O5 step over this rank's (tensor, pipe) shard, as
+    a Megatron user script builds it from the port's public functions:
+    ``amp.initialize(..., "O5", arena_native=True)`` on the shard, FusedAdam
+    on its arenas, the batch split into M microbatches through
+    ``forward_backward_no_pipelining`` (``schedule="none"``) or the 1F1B
+    engine (the embedding on the first stage, the final LayerNorm and the
+    head on the last; the tied embedding's embed and head gradients, both
+    pipe-all-reduced, summed), the loss scaled by the dynamic scale, K5's
+    unscale and its overflow flag reduced over the tensor and pipe groups.
+    ``(m, state, step)``; ``step(tokens, targets)`` returns ``(loss, fp32
+    grads, found_inf)``, with no host sync."""
+    from beforeholiday_tpu_torch.parallel import parallel_state
+    from beforeholiday_tpu_torch.transformer import pipeline_parallel as pp
+    from beforeholiday_tpu_torch.transformer import reduce_found_inf
+    from beforeholiday_tpu_torch.transformer.tensor_parallel import (
+        vocab_parallel_cross_entropy,
+    )
+
+    cfg = dataclasses.replace(cfg, attention_impl=impl, norm_impl=impl)
+    m = amp.initialize(lambda p, t: gpt.forward(p, t, cfg), shard,
+                       fused_adam(lr=LR, impl=impl), "O5", arena_native=True)
+    state = {"opt": m.optimizer.init(m.params), "scaler": m.scaler.init()}
+
+    def step(tokens, targets):
+        B, S = tokens.shape
+        toks, tgts = tokens.reshape(M, B // M, S), targets.reshape(M, B // M, S)
+        scale = state["scaler"]["scale"]
+        tree = m.params.unpack()  # views of the arenas
+        blocks = {"blocks": {k: v.unbind(0) for k, v in tree["blocks"].items()}}
+        rest = {k: v for k, v in tree.items() if k != "blocks"}
+
+        def loss_fn(logits, tgt):
+            return m.scaler.scale_loss(vocab_parallel_cross_entropy(
+                logits, tgt, cfg.vocab_size).mean(), state["scaler"])
+
+        if schedule == "none":
+            loss, g = pp.forward_backward_no_pipelining(
+                lambda p, t: gpt.forward(p, t, cfg), loss_fn, {**blocks, **rest},
+                toks, tgts)
+        else:
+            tp = parallel_state.get_tensor_model_parallel_world_size()
+            shape = ((S // tp, B // M, cfg.d_model) if cfg.sequence_parallel
+                     else (B // M, S, cfg.d_model))
+            loss, pg = pp.forward_backward_pipelining_without_interleaving(
+                lambda sp, x: gpt.blocks(sp, x, cfg), loss_fn, blocks, toks, tgts,
+                embed_fn=lambda ep, t: gpt.embed(ep, t, cfg),
+                embed_params={k: rest[k] for k in ("tok_embed", "pos_embed")},
+                head_fn=lambda hp, h: gpt.head(hp, h, cfg),
+                head_params={k: rest[k] for k in ("tok_embed", "lnf_scale", "lnf_bias")},
+                tensor_shape=shape, dtype=cfg.dtype)
+            g = {**pg.stage, "pos_embed": pg.embed["pos_embed"],
+                 "tok_embed": pg.embed["tok_embed"] + pg.head["tok_embed"],
+                 "lnf_scale": pg.head["lnf_scale"], "lnf_bias": pg.head["lnf_bias"]}
+        grads = m.params.zeros_like()
+        views = grads.unpack()
+        for k, v in g.items():
+            if k == "blocks":
+                for name, per_layer in v.items():
+                    for i, gi in enumerate(per_layer):
+                        views["blocks"][name][i].copy_(gi)
+            else:
+                views[k].copy_(v)
+        grads, found = m.scaler.unscale(grads, state["scaler"], impl=impl)
+        found = reduce_found_inf(found)
+        state["scaler"] = m.scaler.update(state["scaler"], found)
+        m.params, state["opt"] = m.optimizer.step(m.params, grads, state["opt"],
+                                                  found_inf=found)
+        return loss / scale, grads, found
+
+    return m, state, step
+
+
+def step_result(m, state, res):
+    """One step's (loss, fp32 grad arenas, masters) on the host."""
+    loss, g, fi = res
+    torch.cuda.synchronize()
+    if bool(fi):
+        raise AssertionError("found_inf set")
+    return dict(loss=loss.item(), grads=[a.to("cpu", copy=True) for a in g.arenas],
+                masters=[a.to("cpu", copy=True) for a in state["opt"]["master"]])
+
+
+def step_errors(got, ref):
+    """``got`` against ``ref`` (step_result dicts): loss relative error, the
+    grad arenas' worst relative L2, the masters' largest difference."""
+    return dict(
+        loss_rel_err=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+        grad_rel_l2=max(float((a - b).norm() / b.norm())
+                        for a, b in zip(got["grads"], ref["grads"])),
+        master_max_abs_err=max(max_err(a, b)
+                               for a, b in zip(got["masters"], ref["masters"])))
+
+
+def tp_layers_world1_phase(norm, xent):
+    """At world 1 over NCCL, at the flagship's shapes (16 x 1024 tokens,
+    d_model 1024, vocab 32000, bf16): every mapping forward and backward,
+    ``column_parallel_linear`` (plain, ``gather_output``, sequence
+    parallel), ``row_parallel_linear`` (plain, input not parallel, sequence
+    parallel), ``vocab_parallel_embedding`` and ``sp_fused_layer_norm`` (K1
+    forward, K3 backward) bitwise against their dense counterparts, outputs
+    and gradients; ``vocab_parallel_cross_entropy`` at smoothing 0 and 0.1
+    against K14's and K15's plain versions within K14's and K15's row
+    bounds."""
+    from beforeholiday_tpu_torch.ops.normalization import fused_layer_norm
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+    from beforeholiday_tpu_torch.transformer import tensor_parallel as tp
+    from beforeholiday_tpu_torch.transformer.layers import sp_fused_layer_norm
+
+    t0 = time.perf_counter()
+    ps.initialize_model_parallel(1, 1)
+    g = gen(150)
+    D, V = MODEL["d_model"], MODEL["vocab_size"]
+    x = torch.randn(TRAIN_BATCH, MODEL["seq_len"], D, generator=g, device="cuda").bfloat16()
+    checks = {}
+
+    def vjp(fn, primals, dy):
+        ps_ = [p.detach().clone().requires_grad_(True) for p in primals]
+        out = fn(*ps_)
+        return out, torch.autograd.grad(out, ps_, dy)
+
+    def same(name, fn, dense, primals):
+        out, grads = vjp(fn, primals, dy_for(fn, primals))
+        rout, rgrads = vjp(dense, primals, dy_for(fn, primals))
+        checks[name] = bool(torch.equal(out, rout) and all(
+            torch.equal(a, b) for a, b in zip(grads, rgrads)))
+
+    cot = {}
+
+    def dy_for(fn, primals):
+        key = (fn, tuple(p.shape for p in primals))
+        if key not in cot:
+            with torch.no_grad():
+                shape = fn(*primals).shape
+            cot[key] = torch.randn(shape, generator=g, device="cuda").bfloat16()
+        return cot[key]
+
+    ident = lambda t: t * 1  # noqa: E731 - the dense counterpart of a region at world 1
+    for name, fn in (("copy", tp.copy_to_tensor_model_parallel_region),
+                     ("reduce", tp.reduce_from_tensor_model_parallel_region),
+                     ("scatter", tp.scatter_to_tensor_model_parallel_region),
+                     ("gather", tp.gather_from_tensor_model_parallel_region),
+                     ("sp_scatter", tp.scatter_to_sequence_parallel_region),
+                     ("sp_gather", tp.gather_from_sequence_parallel_region),
+                     ("sp_reduce_scatter", tp.reduce_scatter_to_sequence_parallel_region)):
+        same(name, fn, ident, [x])
+    w = (0.02 * torch.randn(D, 3 * D, generator=g, device="cuda")).bfloat16()
+    b = (0.1 * torch.randn(3 * D, generator=g, device="cuda")).bfloat16()
+    wo = (0.02 * torch.randn(D, D, generator=g, device="cuda")).bfloat16()
+    bo = (0.1 * torch.randn(D, generator=g, device="cuda")).bfloat16()
+    dense = lambda x_, w_, b_: x_ @ w_ + b_  # noqa: E731 - two roundings, as JAX writes it
+    xs = x.transpose(0, 1).contiguous()  # (S, B, D) for sequence parallel
+    same("column", lambda *a: tp.column_parallel_linear(*a), dense, [x, w, b])
+    same("column_gather", lambda *a: tp.column_parallel_linear(*a, gather_output=True),
+         dense, [x, w, b])
+    same("column_sp", lambda *a: tp.column_parallel_linear(*a, sequence_parallel=True),
+         dense, [xs, w, b])
+    same("row", lambda *a: tp.row_parallel_linear(*a), dense, [x, wo, bo])
+    same("row_scatter", lambda *a: tp.row_parallel_linear(*a, input_is_parallel=False),
+         dense, [x, wo, bo])
+    same("row_sp", lambda *a: tp.row_parallel_linear(*a, sequence_parallel=True),
+         dense, [xs, wo, bo])
+    tokens = torch.randint(0, V, (TRAIN_BATCH, MODEL["seq_len"]), generator=g,
+                           device="cuda")
+    table = (0.02 * torch.randn(V, D, generator=g, device="cuda")).bfloat16()
+    same("vocab_embedding", lambda t_: tp.vocab_parallel_embedding(
+        tokens, t_, vocab_size=V), lambda t_: t_[tokens], [table])
+    scale = (1 + 0.1 * torch.randn(D, generator=g, device="cuda"))
+    bias = 0.1 * torch.randn(D, generator=g, device="cuda")
+    sp_norm = lambda x_, s_, b_: sp_fused_layer_norm(  # noqa: E731
+        x_, s_, b_, sequence_parallel=True)
+    dy_for(sp_norm, [xs, scale, bias])
+    before = norm.ln_fwd_kernel.launches, norm.ln_bwd_kernel.launches
+    vjp(sp_norm, [xs, scale, bias], dy_for(sp_norm, [xs, scale, bias]))
+    ln_launches = (norm.ln_fwd_kernel.launches - before[0],
+                   norm.ln_bwd_kernel.launches - before[1])
+    same("sp_layer_norm", sp_norm, lambda x_, s_, b_: fused_layer_norm(
+        x_, s_, b_), [xs, scale, bias])
+    # the vocab-parallel cross entropy against K14/K15's plain versions: the
+    # same objective, its sums and exp in another order
+    logits = 4 * torch.randn(TRAIN_BATCH * MODEL["seq_len"], V, generator=g,
+                             device="cuda")
+    labels = torch.randint(0, V, (logits.shape[0],), generator=g, device="cuda")
+    dy = torch.rand(logits.shape[0], generator=g, device="cuda")
+    ce_err = {}
+    for s in (0.0, XENT_SMOOTHING):
+        loss, (dx,) = vjp(lambda l_: tp.vocab_parallel_cross_entropy(l_, labels, V, s),
+                          [logits], dy)
+        rloss, rlse = xent.xent_fwd_torch(logits, labels, s)
+        rdx = xent.xent_bwd_torch(logits, labels, rlse, dy, s)
+        torch.cuda.synchronize()
+        ce_err[s] = (check_xent_loss(f"tp_ce s={s}", loss, rlse, rloss, rlse),
+                     check_vocab_ce_grad(f"tp_ce dx s={s}", dx, rdx, logits, rlse,
+                                         dy, s))
+        del loss, dx, rdx
+    ps.destroy_model_parallel()
+    bad = [k for k, v in checks.items() if not v]
+    line("tp_layers_world1", backend="nccl", world=1, tensor=1, pipe=1,
+         tokens=x.shape[0] * x.shape[1], d_model=D, vocab=V,
+         bitwise=json.dumps(checks),
+         sp_layer_norm_launches=f"K1 {ln_launches[0]}, K3 {ln_launches[1]}",
+         vocab_ce_max_abs_err=json.dumps({str(k): v for k, v in ce_err.items()}),
+         seconds=time.perf_counter() - t0)
+    if bad or min(ln_launches) < 1:
+        raise AssertionError(f"tp_layers_world1: not bitwise the dense counterparts: "
+                             f"{bad}; LayerNorm launches {ln_launches}")
+    del x, xs, logits
+    torch.cuda.empty_cache()
+
+
+def check_vocab_ce_grad(name, dx, ref, x, lse, dy, s):
+    """K15's check (:func:`check_xent_grad`) plus what the two softmax forms
+    part by: the vocab-parallel cross entropy takes ``exp(x - max) / sum``,
+    K15's plain version ``exp(x - lse)``; each rounds its exponent's
+    argument once, which moves p by up to ``|x - lse| 2^-24`` relative on
+    each side, beyond K15's ``XENT_P_TOL`` once ``|x - lse|`` passes 16
+    (where p is near s/V, ``p - s/V`` cancels)."""
+    bad = 0
+    for r in range(0, x.shape[0], 2048):  # row blocks: fp32 temporaries
+        sl = slice(r, r + 2048)
+        arg = x[sl].float() - lse[sl, None]
+        p = torch.exp(arg)
+        slack = XENT_P_TOL * (p + s / x.shape[1]) + p * arg.abs() * 2 ** -23
+        bound = GRAD_RTOL[x.dtype] * ref[sl].float().abs() + dy[sl, None].abs() * slack
+        bad += int(((dx[sl].float() - ref[sl].float()).abs() > bound).sum())
+    if bad:
+        raise AssertionError(f"{name}: {bad} of {dx.numel()} elements out of "
+                             f"tolerance")
+    return max_err(dx, ref)
+
+
+def dense_reference_steps(amp, gpt, fused_adam, params, cfg, batches):
+    """The one-device O5 step (``make_gpt_trainer``, the kernels) from
+    ``params`` on each batch: its step_result. Runs before model
+    parallelism is initialized, so the GPT is the dense one."""
+    out = []
+    for batch in batches:
+        m, state, step = make_gpt_trainer(amp, gpt, fused_adam, params, cfg)
+        out.append(step_result(m, state, step(*batch)))
+        del m, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def gpt_tp_pp_world1_phase(amp, gpt, fused_adam, cfg, counters, card, params,
+                           refs, batches):
+    """The flagship O5 step through the TP forward at tensor 1 x pipe 1
+    over NCCL: under ``forward_backward_no_pipelining`` and the 1F1B engine
+    at S = 1. One microbatch at batch 2 against the one-device O5 step
+    (TP_M1_BOUNDS), TP_MICRO microbatches of 4 at batch 16 against it
+    (TP_M4_BOUNDS); then each schedule's timed and profiled run at batch
+    16, TP_MICRO microbatches, beside the one-device O5 step's median from
+    this run. Returns the timed runs' launch counts."""
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+
+    ps.initialize_model_parallel(1, 1)
+    shard = gpt.shard_params(params, cfg, 0, 1)
+    errs, launches = {}, {}
+    try:
+        for schedule in ("none", "1f1b"):
+            for M, batch, ref, bounds in ((1, batches[0], refs[0], TP_M1_BOUNDS),
+                                          (TP_MICRO, batches[1], refs[1], TP_M4_BOUNDS)):
+                m, state, step = tp_pp_trainer(amp, gpt, fused_adam, shard, cfg, M,
+                                               schedule)
+                e = step_errors(step_result(m, state, step(*batch)), ref)
+                errs[f"{schedule} M={M}"] = e
+                del m, state, step
+                torch.cuda.empty_cache()
+                if out_of_bounds(e, bounds):
+                    raise AssertionError(f"gpt_tp_pp_world1 {schedule} M={M}: "
+                                         f"{out_of_bounds(e, bounds)}")
+        line("gpt_tp_pp_world1", backend="nccl", tensor=1, pipe=1,
+             errors=json.dumps(errs), m1_bounds=json.dumps(TP_M1_BOUNDS),
+             m4_bounds=json.dumps(TP_M4_BOUNDS))
+        for schedule in ("none", "1f1b"):
+            m, _, step = tp_pp_trainer(amp, gpt, fused_adam, shard, cfg, TP_MICRO,
+                                       schedule)
+            key = f"gpt_tp_pp_{schedule}"
+            launches[key] = training_phase(
+                f"{key}_training", f"{key}_profile", step, batches[1], counters,
+                STEP_LAUNCHES[key], TRAIN_GROUPS, card, seq_len=cfg.seq_len,
+                ranges=None if schedule == "none" else pp_slot_ranges,
+                schedule=f"'{'forward_backward_no_pipelining' if schedule == 'none' else '1F1B, S 1'}'",
+                micro_batches=TP_MICRO, tensor=1, pipe=1,
+                one_device_o5_median_ms=MEDIANS.get("training"), **lm_work(m, batches[1]))
+            del m, step
+            torch.cuda.empty_cache()
+    finally:
+        ps.destroy_model_parallel()
+    return launches
+
+
+def pp_slot_ranges():
+    """The 1F1B engine's spans (``schedules.py``: each tick's forward and
+    backward slots and its ring exchange), as profiler ranges: their
+    kernels' device ms, and not their spans', in the profile."""
+    return contextlib.nullcontext(("pp_forward_slot", "pp_backward_slot",
+                                   "pp_p2p_rings"))
+
+
+TP2_RUNS = (("tp2", False), ("tp2_sp", True))  # (run, sequence parallel)
+
+
+def tp2_worker(rank, store, out_dir):
+    """One rank of the two-rank TP check (a spawned process): gloo on CUDA
+    tensors, tensor parallel 2, pipe 1, the flagship from the parent's
+    seeded weights; for each run of TP2_RUNS (sequence parallel off, on),
+    TP_TWO_RANK_STEPS O5 steps at batch 16 (one microbatch,
+    ``forward_backward_no_pipelining``) with the launch counts read. Saves
+    each step's loss, overflow flag and replicated masters, and step 1's
+    grads and masters (trees), on the host."""
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=2)
+        from beforeholiday_tpu_torch import amp
+        from beforeholiday_tpu_torch.contrib import xentropy as xent
+        from beforeholiday_tpu_torch.ops import attention as attn
+        from beforeholiday_tpu_torch.ops import multi_tensor as mt
+        from beforeholiday_tpu_torch.ops import normalization as norm
+        from beforeholiday_tpu_torch.ops import softmax as sm
+        from beforeholiday_tpu_torch.ops.arena import tree_map
+        from beforeholiday_tpu_torch.optimizers import FusedAdam
+        from beforeholiday_tpu_torch.parallel import parallel_state as ps
+        from beforeholiday_tpu_torch.testing import gpt
+
+        def host(t):
+            return t.to("cpu", copy=True)
+
+        ps.initialize_model_parallel(2, 1)
+        params = gpt.init(gpt.GPTConfig(**MODEL), gen(0), device="cuda")
+        counters = launch_counters(norm, attn, mt, sm, xent)
+        out = {}
+        for run, sp in TP2_RUNS:
+            cfg = gpt.GPTConfig(**MODEL, sequence_parallel=sp)
+            shard = gpt.shard_params(params, cfg, ps.get_tensor_model_parallel_rank(), 2)
+            batch = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70),
+                                        device="cuda")
+            m, state, step = tp_pp_trainer(amp, gpt, FusedAdam, shard, cfg, 1, "none")
+            for fn in counters.values():
+                fn.launches = 0
+            res = {"steps": []}
+            t0 = time.perf_counter()
+            for i in range(TP_TWO_RANK_STEPS):
+                loss, g, fi = step(*batch)
+                masters = m.params.replace_arenas(state["opt"]["master"]).unpack()
+                # host copies: the next step updates the arenas in place
+                rec = dict(loss=loss.item(), found_inf=bool(fi),
+                           replicated={k: host(masters[k]) for k in TP_REPLICATED},
+                           replicated_blocks={k: host(masters["blocks"][k])
+                                              for k in TP_REPLICATED_BLOCKS})
+                if i == 0:
+                    rec["grads"] = tree_map(host, g.unpack())
+                    rec["masters"] = tree_map(host, masters)
+                res["steps"].append(rec)
+            torch.cuda.synchronize()
+            res["seconds"] = time.perf_counter() - t0
+            res["launches"] = {k: fn.launches for k, fn in counters.items()}
+            out[run] = res
+            del m, state, step, shard, g, masters
+            torch.cuda.empty_cache()
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.save(out, f"{out_dir}/tp2_rank{rank}.pt")
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(f"{out_dir}/tp2_rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def gpt_tp2_card_phase(gpt, cfg, layout, ref, tmp):
+    """Two processes on the one card, gloo on CUDA tensors (NCCL refuses two
+    ranks on one device; gloo stages every collective through the host, so
+    the phase's time is a correctness run's, not a speed): the full-width
+    flagship at tensor parallel 2, pipe 1, sequence parallel off and on, two
+    O5 steps each at batch 16. Each run's reassembled step-1 loss, grads and
+    masters against the one-device O5 step at TP_M4_BOUNDS (``layout``: its
+    arenas' layout); the overflow flags and losses equal on both ranks; the
+    replicated leaves' masters bitwise equal across the ranks after each
+    step. Returns rank 0's launch counts, by run."""
+    import multiprocessing as mp
+    from beforeholiday_tpu_torch.ops.arena import tree_flatten, unflatten
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=tp2_worker, args=(r, f"{tmp}/tp2_store", tmp))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(1.0, TP_TWO_RANK_TIMEOUT - (time.perf_counter() - t0)))
+    if any(p.is_alive() for p in procs):
+        for p in procs:
+            p.kill()
+            p.join(10)
+        raise AssertionError(f"gpt_tp2_card: the world did not finish in "
+                             f"{TP_TWO_RANK_TIMEOUT} s; its processes were killed")
+    if any(p.exitcode != 0 for p in procs):
+        errors = [open(f"{tmp}/tp2_rank{r}.err").read() for r in range(2)
+                  if os.path.exists(f"{tmp}/tp2_rank{r}.err")]
+        raise AssertionError(f"gpt_tp2_card: exit codes "
+                             f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(f"{tmp}/tp2_rank{r}.pt") for r in range(2)]
+    want = dict(loss=ref["loss"])
+    for key in ("grads", "masters"):
+        want[key] = [torch.cat([t.reshape(-1) for t in unflatten(arena, spec)])
+                     for arena, spec in zip(ref[key], layout.specs)]
+    expect = {**_NO_LAUNCH, **_GPT_STEP, **_FLASH}
+    fields, failures, launches = {}, [], {}
+    for run, sp in TP2_RUNS:
+        a, b = ranks[0][run], ranks[1][run]
+        flags_equal = all(x["found_inf"] == y["found_inf"] is False
+                          for x, y in zip(a["steps"], b["steps"]))
+        losses_equal = all(x["loss"] == y["loss"] for x, y in zip(a["steps"], b["steps"]))
+        replicated_bitwise = all(
+            all(torch.equal(x[kind][k], y[kind][k]) for k in x[kind])
+            for x, y in zip(a["steps"], b["steps"])
+            for kind in ("replicated", "replicated_blocks"))
+        # the reassembled trees as the one-device step's arenas hold them:
+        # each bucket's leaves, in its order, end to end (padding left out)
+        got = dict(loss=a["steps"][0]["loss"])
+        for key in ("grads", "masters"):
+            leaves = tree_flatten(gpt.unshard_params(
+                [[a["steps"][0][key], b["steps"][0][key]]], cfg))[0]
+            got[key] = [torch.cat([leaves[i].reshape(-1) for i in idx])
+                        for idx in layout.indices]
+        errs = step_errors(got, want)
+        bad_launches = {k: v for k, v in a["launches"].items()
+                        if k in expect and v != expect[k] * TP_TWO_RANK_STEPS}
+        fields[run] = dict(sequence_parallel=sp,
+                           losses=[x["loss"] for x in a["steps"]], errors=errs,
+                           found_inf_equal=flags_equal, losses_equal=losses_equal,
+                           replicated_bitwise=replicated_bitwise,
+                           rank_seconds_per_step=a["seconds"] / TP_TWO_RANK_STEPS,
+                           launches_per_step={k: v // TP_TWO_RANK_STEPS
+                                              for k, v in a["launches"].items() if v})
+        if not (flags_equal and replicated_bitwise and losses_equal) or bad_launches \
+                or out_of_bounds(errs, TP_M4_BOUNDS):
+            failures.append(
+                f"{run}: flags equal {flags_equal}, replicated bitwise "
+                f"{replicated_bitwise}, losses equal {losses_equal}, launches "
+                f"{bad_launches}, out of bounds {out_of_bounds(errs, TP_M4_BOUNDS)}")
+        launches[run] = a["launches"]
+    line("gpt_tp2_card", backend="gloo", world=2, device="'one card'", tensor=2,
+         pipe=1, batch=TRAIN_BATCH, micro_batches=1, steps=TP_TWO_RANK_STEPS,
+         note="'gloo stages every collective through the host: a correctness run, "
+              "not a speed'",
+         one_rank_loss=ref["loss"], bounds=json.dumps(TP_M4_BOUNDS),
+         rank_peak_mem_gb=ranks[0]["peak_mem_gb"], seconds=seconds,
+         **{k: json.dumps(v) for k, v in fields.items()})
+    if failures:
+        raise AssertionError("gpt_tp2_card: " + "; ".join(failures))
+    return launches
+
+
+def tp_kernel_rows(norm, attn, mt, n_bf16):
+    """K1/K3 at 8192 rows (a tensor rank's sequence half under sequence
+    parallelism at TP 2), K2/K4 at BH 128 (8 local heads x 16, TP 2, one
+    microbatch) and at BH 64 (16 heads x 4, a microbatch of the world-1
+    steps), K1/K3 at 4096 rows (a world-1 microbatch), K5/K6 at a TP 2
+    shard's bf16 arena (``n_bf16`` elements): each against its plain version, timed beside its
+    bound and library call. Returns rows to merge, keyed by kernel."""
+    g = gen(160)
+    rows = {k: {} for k in ("layer_norm_fwd", "layer_norm_bwd", "flash_fwd",
+                            "flash_bwd", "unscale", "adam")}
+    for n_rows, key in ((8192, "tp2_sp"), (4096, "tp_world1")):
+        x = (torch.randn(n_rows, 1024, generator=g, device="cuda") * 2 + .5).bfloat16()
+        w = 1 + .1 * torch.randn(1024, generator=g, device="cuda")
+        b = .1 * torch.randn(1024, generator=g, device="cuda")
+        dy = torch.randn(n_rows, 1024, generator=g, device="cuda").bfloat16()
+        args = (x, w, b, 1e-5, False, torch.bfloat16)
+        err = check_close(f"K1 {n_rows}", norm.ln_fwd_kernel(*args),
+                          norm.ln_fwd_torch(*args), BF16_TOL)
+        bms, by = bound_ms(2 * x.numel() * 2 + 2 * 1024 * 4, 8 * x.numel(), torch.float32)
+        wl, bl = w.bfloat16(), b.bfloat16()
+        rows["layer_norm_fwd"][key] = (f"{n_rows}x1024 bfloat16, fp32 w", dict(
+            max_abs_err=err, ms=time_ms(lambda: norm.ln_fwd_kernel(*args)),
+            plain_ms=time_ms(lambda: norm.ln_fwd_torch(*args)),
+            library_ms=time_ms(lambda: F.layer_norm(x, (1024,), wl, bl, 1e-5)),
+            bound_ms=bms, bound_by=by))
+        bargs = (x, w, dy, 1e-5, False)
+        dx, dw, db = norm.ln_bwd_kernel(*bargs, True)
+        rdx, rdw, rdb = norm.ln_bwd_torch(*bargs)
+        err = check_close(f"K3 dx {n_rows}", dx, rdx, BF16_TOL)
+        check_close(f"K3 dw {n_rows}", dw.float(), rdw, dict(rtol=1e-4, atol=1e-3))
+        bms, by = bound_ms(3 * x.numel() * 2 + 3 * 1024 * 4, 11 * x.numel(),
+                           torch.float32)
+        xl = x.clone().requires_grad_(True)
+        wl = w.bfloat16().requires_grad_(True)
+        bl = b.bfloat16().requires_grad_(True)
+        rows["layer_norm_bwd"][key] = (f"{n_rows}x1024 bfloat16/w float32", dict(
+            max_abs_err=err, ms=time_ms(lambda: norm.ln_bwd_kernel(*bargs, True)),
+            plain_ms=time_ms(lambda: norm.ln_bwd_torch(*bargs)),
+            library_ms=grad_ms(lambda: F.layer_norm(xl, (1024,), wl, bl, 1e-5),
+                               (xl, wl, bl), dy),
+            bound_ms=bms, bound_by=by))
+        if key == "tp_world1":
+            for k in ("layer_norm_fwd", "layer_norm_bwd"):
+                rows[k][key][1]["path"] = "gpt_tp_pp_1f1b"
+        del x, dy, dx, rdx, xl
+    for BH, B, key in ((128, TRAIN_BATCH, "tp2"), (64, TRAIN_BATCH // TP_MICRO,
+                                                   "tp_world1")):
+        S, D = MODEL["seq_len"], 64
+        q, k, v = (torch.randn(BH, S, D, generator=g, device="cuda").bfloat16()
+                   for _ in range(3))
+        lens = torch.full((BH,), S, dtype=torch.int32, device="cuda")
+        fargs = (q, k, v, lens, True, D ** -0.5)
+        o, lse = attn.flash_fwd_kernel(*fargs)
+        ro, rlse = attn.flash_fwd_torch(*fargs)
+        ref_abs = attn.flash_fwd_torch(q.float(), k.float(), v.float().abs(), *fargs[3:])[0]
+        err = check_dropped_pv(f"K2 BH{BH}", o, ro, ref_abs)
+        check_close(f"K2 lse BH{BH}", lse, rlse, dict(rtol=1e-5, atol=1e-4))
+        del ref_abs
+        flops, nbytes = k2_flops_bytes(q, k, lens, True)
+        bms, by = bound_ms(nbytes, flops, torch.bfloat16)
+        ql, kl, vl = (t.reshape(B, BH // B, S, D) for t in (q, k, v))
+        tag = f"BH{BH} S{S} D{D} causal bfloat16"
+        rows["flash_fwd"][key] = (tag, dict(
+            max_abs_err=err, ms=time_ms(lambda: attn.flash_fwd_kernel(*fargs)),
+            plain_ms=time_ms(lambda: attn.flash_fwd_torch(*fargs), iters=5),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, is_causal=True, scale=D ** -0.5)),
+            bound_ms=bms, bound_by=by))
+        do = torch.randn(o.shape, generator=g, device="cuda").bfloat16()
+        bargs = (q, k, v, ro, do, rlse, None, lens, True, D ** -0.5)
+        got, ref = attn.flash_bwd_kernel(*bargs), attn.flash_bwd_torch(*bargs)
+        err = max(check_close(f"K4 {n} BH{BH}", a_, b_, dict(
+            rtol=2e-2, atol=2e-2 * float(b_.float().abs().max())))
+            for n, a_, b_ in zip(("dq", "dk", "dv"), got, ref))
+        flops, nbytes = k4_flops_bytes(q, k, lens, True)
+        bms, by = bound_ms(nbytes, flops, torch.bfloat16)
+        qg, kg, vg = (t.reshape(B, BH // B, S, D).clone().requires_grad_(True)
+                      for t in (q, k, v))
+        rows["flash_bwd"][key] = (tag, dict(
+            max_abs_err=err, ms=time_ms(lambda: attn.flash_bwd_kernel(*bargs)),
+            plain_ms=time_ms(lambda: attn.flash_bwd_torch(*bargs), iters=5),
+            library_ms=grad_ms(lambda: F.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=True), (qg, kg, vg), do.reshape(B, BH // B, S, D)),
+            bound_ms=bms, bound_by=by))
+        if key == "tp_world1":
+            for kk in ("flash_fwd", "flash_bwd"):
+                rows[kk][key][1]["path"] = "gpt_tp_pp_1f1b"
+        del q, k, v, o, ro, got, ref, qg, kg, vg
+        torch.cuda.empty_cache()
+    # K5 / K6 at a TP 2 shard's arenas
+    x = (1e-3 * torch.randn(n_bf16, generator=g, device="cuda")).bfloat16()
+    inv = torch.full((), 1 / 1024, device="cuda")
+    y, flag = mt.scale_kernel(x, inv, torch.float32)
+    ry, _ = mt.scale_torch(x, inv, torch.float32)
+    if not torch.equal(y, ry) or bool(flag):
+        raise AssertionError("K5 at the TP 2 shard: differs from the plain version")
+    bms, by = bound_ms(n_bf16 * 6, n_bf16, torch.float32)
+    x32 = x.float()
+    found, one = torch.zeros(1, device="cuda"), torch.ones(1, device="cuda")
+    rows["unscale"]["tp2"] = (f"{n_bf16} bfloat16->float32 (TP 2 shard)", dict(
+        max_abs_err=0.0, ms=time_ms(lambda: mt.scale_kernel(x, inv, torch.float32)),
+        plain_ms=time_ms(lambda: mt.scale_torch(x, inv, torch.float32)),
+        library_ms=time_ms(lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+            [x32], found, one)),
+        bound_ms=bms, bound_by=by))
+    del x, y, ry, x32
+    n = n_bf16
+    grad = 1e-3 * torch.randn(n, generator=g, device="cuda")
+    st = (0.02 * torch.randn(n, generator=g, device="cuda"),
+          1e-4 * torch.randn(n, generator=g, device="cuda"),
+          1e-8 * torch.rand(n, generator=g, device="cuda"))
+    step = torch.full((), 4, dtype=torch.int32, device="cuda")
+    bc1, bc2 = mt._bias_corrections(True, step, 0.9, 0.999)
+    no = torch.zeros((), dtype=torch.bool, device="cuda")
+    hyper = dict(lr=LR, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+                 grad_scale=1.0, bc1=bc1, bc2=bc2, adam_w_mode=True, found_inf=no)
+    outs = []
+    for fn in (mt.adam_kernel, mt.adam_torch):
+        s_ = tuple(t.clone() for t in st)
+        cp = s_[0].bfloat16()
+        fn(grad, *s_, copy_out=cp, **hyper)
+        outs.append(s_)
+    # the multi-tensor family's bound (PERF.md): where the update nearly
+    # cancels p, Triton's division and square root part from PyTorch's by
+    # more than K6's seeded check's atol of 1e-10
+    err = max(check_close("K6 TP 2 shard", a_, b_,
+                          dict(rtol=1e-6, atol=1e-6 * float(b_.abs().max())))
+              for a_, b_ in zip(*outs))
+    cp = st[0].bfloat16()
+    steps = [torch.full((), 4.0, device="cuda")]
+    bms, by = bound_ms(n * 30, 20 * n, torch.float32)
+    rows["adam"]["tp2"] = (f"{n} adamw copy bfloat16 (TP 2 shard)", dict(
+        max_abs_err=err, ms=time_ms(lambda: mt.adam_kernel(grad, *st, copy_out=cp, **hyper)),
+        plain_ms=time_ms(lambda: mt.adam_torch(grad, *st, copy_out=cp, **hyper), iters=5),
+        library_ms=time_ms(lambda: torch._fused_adamw_(
+            [st[0]], [grad], [st[1]], [st[2]], [], steps, lr=LR, beta1=0.9,
+            beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False)),
+        bound_ms=bms, bound_by=by))
+    for kname, r in rows.items():
+        for key, (tag, f) in r.items():
+            line(f"tp_shape {kname}", shape=tag, **{k: v for k, v in f.items()
+                                                  if k != "path"})
+    del grad, st, outs
+    torch.cuda.empty_cache()
+    return rows
+
+
 KERNEL_ROWS = (
     ("layer_norm_fwd", "triton", "beforeholiday_tpu_torch/ops/normalization.py",
      "beforeholiday_tpu/ops/normalization.py:55"),
@@ -4938,6 +5619,33 @@ def main():
     # the same K10 launches as the one-device O5 row, counted on this path
     rows["sgd"]["ddp_resnet"] = rows["sgd"]["resnet_o5"]
     launches["serving"] = serve_launches
+
+    # slice 15: tensor + pipeline parallel (BASELINE config 5). The one-device
+    # O5 steps the TP x PP steps are held against run first, while the GPT
+    # is the dense one; then NCCL at world 1 for the layers and the O5 step
+    # over TP x PP, and two gloo ranks on the one card for TP 2
+    params = gpt.init(cfg, gen(0), device="cuda")
+    tp_batches = [gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(60),
+                                      device="cuda"),
+                  gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70),
+                                      device="cuda")]
+    tp_refs = dense_reference_steps(amp, gpt, FusedAdam, params, cfg, tp_batches)
+    dense_layout = o5_layout(params)
+    n_shard = o5_specs(gpt.shard_params(params, cfg, 0, 2))[torch.bfloat16].padded_total
+    with tempfile.TemporaryDirectory() as tmp:
+        init_nccl(tmp)
+        try:
+            tp_layers_world1_phase(norm, xent)
+            launches.update(gpt_tp_pp_world1_phase(
+                amp, gpt, FusedAdam, cfg, counters, card, params, tp_refs, tp_batches))
+        finally:
+            dist.destroy_process_group()
+        del params, tp_batches
+        torch.cuda.empty_cache()
+        launches.update(gpt_tp2_card_phase(gpt, cfg, dense_layout, tp_refs[1], tmp))
+    del tp_refs
+    for kname, r in tp_kernel_rows(norm, attn, mt, n_shard).items():
+        rows[kname].update(r)
 
     kernels = []
     for kname, route, source, replaces in KERNEL_ROWS:

@@ -16,7 +16,15 @@ processes against ``shard_map`` over 4 of the 8 host devices.
   ledger cannot see (they never pass its wrappers): the SyncBN backward's
   all-reduce of (sum_dy, sum_dy_xmu), 8 bytes a channel, and the trainer's
   ``pmean`` of the metrics and the BN state; they are held to what they
-  must be.
+  must be;
+* the ledger of one TP 2 x PP 2 step (the toy stack of
+  ``tests/test_pipeline_parallel.py`` with a column-parallel stage, 1F1B
+  with embed and head stages) against one JAX trace of the same step: the
+  same sites, kinds, dtypes and scopes, and the same bytes per call. JAX
+  books the tick loop's body once per trace, the port once per tick: the
+  port's ring records are the trace's times the tick count, and the
+  stage's collectives, booked once per traced branch in JAX, are compared
+  per call.
 """
 
 import functools
@@ -37,6 +45,8 @@ import main_amp as jmain  # noqa: E402
 
 from beforeholiday_tpu.models import resnet as jres  # noqa: E402
 from beforeholiday_tpu.monitor import comms as jcomms  # noqa: E402
+from beforeholiday_tpu.transformer import pipeline_parallel as jpp  # noqa: E402
+from beforeholiday_tpu.transformer import tensor_parallel as jtp  # noqa: E402
 
 W = 4
 _shard_map = functools.partial(jax.shard_map, check_vma=False)
@@ -72,6 +82,7 @@ def world(tmp_path_factory):
     calls = [("comms_scenario", (_xs(),))]
     calls += [("trainer_ledger_scenario", (weights, level, kw, images, labels))
               for _, level, kw in TRAINERS]
+    calls.append(("tp_pp_ledger_scenario", _tp_pp_data()))
     return tw.run_world(tw.batch_scenario, W, tmp_path_factory.mktemp("comms"),
                         calls)
 
@@ -191,3 +202,71 @@ def test_one_step_ledger_matches_one_jax_trace(world, index):
             bn_bytes, bn_bytes)
     # loss, scale, prec1 and prec5 in one fp32 all-reduce
     assert port_only[("trainer.metrics", "psum", "float32", "ici", "data")] == (16, 16)
+
+
+# ------------------------------------------------------- TP 2 x PP 2 ledger
+
+H, MB, VOCAB, M = 8, 4, 12, 4
+
+
+def _tp_pp_data():
+    rng = np.random.default_rng(3)
+    f = lambda *shape: (rng.standard_normal(shape) * 0.3).astype(np.float32)  # noqa: E731
+    return ({"w": f(2, H, H), "b": f(2, H)}, f(VOCAB, H),
+            {"w": f(H, VOCAB), "b": f(VOCAB)},
+            rng.integers(0, VOCAB, (M, MB)).astype(np.int32),
+            rng.integers(0, VOCAB, (M, MB)).astype(np.int32))
+
+
+def _jax_tp_pp_ledger():
+    stacked, embed, head, tokens, labels = _tp_pp_data()
+    mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("pipe", "tensor"))
+
+    def stage(sp, x):
+        h = jtp.column_parallel_linear(x, sp["w"], sp["b"], gather_output=True,
+                                       axis_name="tensor")
+        return jax.nn.gelu(h) + x
+
+    def ce(logits, y):
+        logp = jax.nn.log_softmax(logits, axis=-1)
+        return -jnp.mean(jnp.take_along_axis(logp, y[:, None], axis=-1))
+
+    def body(st, ep, hp, tok, y):
+        tr = jax.lax.axis_index("tensor")
+        sp = jax.tree.map(lambda v: v[0], st)
+        sp = {"w": jax.lax.dynamic_slice_in_dim(sp["w"], tr * (H // 2), H // 2, axis=1),
+              "b": jax.lax.dynamic_slice_in_dim(sp["b"], tr * (H // 2), H // 2)}
+        loss, _ = jpp.forward_backward_pipelining_without_interleaving(
+            stage, ce, sp, tok, y, embed_fn=lambda e, t: e[t], embed_params=ep,
+            head_fn=lambda h_, x: x @ h_["w"] + h_["b"], head_params=hp)
+        return loss
+
+    jcomms.reset_comms_ledger()
+    jax.jit(_shard_map(body, mesh=mesh, in_specs=(P("pipe"), P(), P(), P(), P()),
+                       out_specs=P()))(jax.tree.map(jnp.asarray, stacked),
+                                       jnp.asarray(embed),
+                                       jax.tree.map(jnp.asarray, head),
+                                       jnp.asarray(tokens), jnp.asarray(labels))
+    return jcomms.comms_records()
+
+
+def test_tp_pp_step_ledger_matches_one_jax_trace(world):
+    jrec = _jax_tp_pp_ledger()
+    key = lambda r: (r["site"], r["kind"], r["dtype"], r["scope"], r["axis"])  # noqa: E731
+    theirs = {key(r): r for r in jrec}
+    for rank in range(W):
+        rec, ticks = world[rank][1 + len(TRAINERS)]
+        mine = {key(r): r for r in rec}
+        assert set(mine) == set(theirs)
+        assert ticks == M + 2 * 2 - 1
+        for k, r in theirs.items():
+            m = mine[k]
+            assert m["tier"] == r["tier"]
+            assert m["bytes"] * r["calls"] == r["bytes"] * m["calls"], k
+            if r["site"] in ("pp.fwd_ring", "pp.bwd_ring"):
+                assert (m["calls"], m["bytes"]) == (ticks * r["calls"], ticks * r["bytes"])
+            elif r["site"].startswith("pp."):
+                assert (m["calls"], m["bytes"]) == (r["calls"], r["bytes"]), k
+    sites = {r["site"] for r in jrec}
+    assert {"tp.copy_to_region.bwd", "tp.gather_from_region", "pp.fwd_ring",
+            "pp.bwd_ring", "pp.loss_allreduce", "pp.embed_head_allreduce"} <= sites

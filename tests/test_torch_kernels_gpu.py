@@ -10,7 +10,9 @@ unfused attention, with and without dropout, and with the fused cross
 entropy as its loss), BERT (FusedLAMB; both attentions, with and without
 dropout) and ResNet (FusedSGD, and FusedAdagrad, FusedNovoGrad, FusedLARS
 and LARC on the list path) training steps on the kernels against the plain
-path.
+path; K2/K4 at the TP 2 shape, and at a tensor world of one over NCCL the
+tensor-parallel regions and layers and the TP GPT forward bitwise against
+their dense counterparts.
 
 Marked ``gpu``: without a CUDA device every test skips (the decision is made
 inside the ``cuda`` fixture, never at import, so every pytest worker collects
@@ -1968,3 +1970,98 @@ def test_o6_step_kernels_match_plain_path(cuda, monkeypatch):
     for arena, master in zip(pk, mk):
         assert torch.equal(arena, master.to(arena.dtype))
     torch.testing.assert_close(hk, ht, rtol=0.1, atol=0)
+
+
+# ----------------------------------------- slice 15: tensor parallelism
+
+
+def test_k2_k4_at_the_tp2_shape(cuda):
+    """K2/K4 at a tensor rank's share of the flagship at TP 2: 8 local heads
+    x batch 16, S 1024, D 64, causal, bf16."""
+    _k2_k4_against_plain(128, 1024, 1024, 64, True, False, 0.0, [1024] * 128, 21)
+
+
+@pytest.fixture
+def nccl_world1(cuda, tmp_path):
+    """A one-rank NCCL world through a FileStore, with model parallelism
+    initialized at tensor 1 x pipe 1; destroyed after the test."""
+    import torch.distributed as dist
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    ps.initialize_model_parallel(1, 1)
+    try:
+        yield
+    finally:
+        ps.destroy_model_parallel()
+        dist.destroy_process_group()
+
+
+def _vjp_cuda(fn, primals, dy):
+    ps_ = [p.detach().clone().requires_grad_(p.is_floating_point()) for p in primals]
+    out = fn(*ps_)
+    return out, torch.autograd.grad(out, [p for p in ps_ if p.requires_grad], dy)
+
+
+def test_tp_layers_at_world1_are_bitwise_dense(nccl_world1):
+    """At a tensor world of one, over NCCL, every TP layer and region is its
+    dense counterpart bit for bit, forward and backward, and the TP GPT's
+    forward is the dense forward."""
+    from beforeholiday_tpu_torch.ops.normalization import fused_layer_norm
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+    from beforeholiday_tpu_torch.transformer import tensor_parallel as tp
+    from beforeholiday_tpu_torch.transformer.layers import sp_fused_layer_norm
+
+    g = _gen(31)
+    x = torch.randn(4, 256, 512, generator=g, device="cuda").bfloat16()
+    xs = x.transpose(0, 1).contiguous()
+    w = (0.05 * torch.randn(512, 768, generator=g, device="cuda")).bfloat16()
+    b = torch.randn(768, generator=g, device="cuda").bfloat16()
+    wo = (0.05 * torch.randn(512, 512, generator=g, device="cuda")).bfloat16()
+    bo = torch.randn(512, generator=g, device="cuda").bfloat16()
+    dense = lambda x_, w_, b_: x_ @ w_ + b_  # noqa: E731
+    cases = [
+        (lambda *a: tp.column_parallel_linear(*a), dense, [x, w, b]),
+        (lambda *a: tp.column_parallel_linear(*a, gather_output=True), dense, [x, w, b]),
+        (lambda *a: tp.column_parallel_linear(*a, sequence_parallel=True), dense, [xs, w, b]),
+        (lambda *a: tp.row_parallel_linear(*a), dense, [x, wo, bo]),
+        (lambda *a: tp.row_parallel_linear(*a, input_is_parallel=False), dense, [x, wo, bo]),
+        (lambda *a: tp.row_parallel_linear(*a, sequence_parallel=True), dense, [xs, wo, bo]),
+        (lambda x_, s_, b_: sp_fused_layer_norm(x_, s_, b_, sequence_parallel=True),
+         lambda x_, s_, b_: fused_layer_norm(x_, s_, b_),
+         [xs, torch.rand(512, device="cuda") + 0.5, torch.randn(512, device="cuda")]),
+    ]
+    for fn in (tp.copy_to_tensor_model_parallel_region,
+               tp.reduce_from_tensor_model_parallel_region,
+               tp.scatter_to_tensor_model_parallel_region,
+               tp.gather_from_tensor_model_parallel_region,
+               tp.scatter_to_sequence_parallel_region,
+               tp.gather_from_sequence_parallel_region,
+               tp.reduce_scatter_to_sequence_parallel_region):
+        cases.append((fn, lambda t: t * 1, [x]))
+    tokens = torch.randint(0, 1000, (4, 256), generator=g, device="cuda")
+    table = torch.randn(1000, 512, generator=g, device="cuda").bfloat16()
+    cases.append((lambda t_: tp.vocab_parallel_embedding(tokens, t_, vocab_size=1000),
+                  lambda t_: t_[tokens], [table]))
+    for i, (fn, ref, primals) in enumerate(cases):
+        with torch.no_grad():
+            dy = torch.randn(fn(*primals).shape, generator=g, device="cuda").bfloat16()
+        out, grads = _vjp_cuda(fn, primals, dy)
+        rout, rgrads = _vjp_cuda(ref, primals, dy)
+        torch.cuda.synchronize()
+        assert torch.equal(out, rout), f"case {i}: forward"
+        assert all(torch.equal(a, b_) for a, b_ in zip(grads, rgrads)), f"case {i}: grads"
+    # the GPT: the TP forward at world one is the dense forward
+    cfg = gpt.GPTConfig(vocab_size=512, seq_len=128, d_model=256, n_heads=4,
+                        n_layers=2, dtype=torch.bfloat16)
+    params = amp.frontend._cast_params(gpt.init(cfg, _gen(32), device="cuda"),
+                                       amp.frontend.opt_levels["O5"], None)
+    tok = torch.randint(0, 512, (2, 128), generator=_gen(33), device="cuda")
+    got = gpt.forward(params, tok, cfg)
+    got_sp = gpt.forward(params, tok, dataclasses.replace(cfg, sequence_parallel=True))
+    ps.destroy_model_parallel()
+    want = gpt.forward(params, tok, cfg)
+    ps.initialize_model_parallel(1, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_sp, want)

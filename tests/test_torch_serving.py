@@ -91,7 +91,17 @@ def test_gpt_init_shapes_match_jax(models):
     ("moe_every", 1), ("sequence_parallel", True),
     ("remat_policy", "full"), ("moe_experts", 8),
 ])
-def test_gpt_config_rejects_unported_paths(field, value):
+def test_gpt_config_rejects_unported_paths(models, field, value):
+    """The MoE and remat fields select paths not ported yet and raise.
+    ``sequence_parallel`` is ported (slice 15): it builds, and without model
+    parallelism it changes nothing, as in JAX."""
+    if field == "sequence_parallel":
+        _, _, tcfg, tparams = models
+        tokens = torch.from_numpy(np.random.default_rng(6).integers(
+            0, TINY["vocab_size"], (2, 20))).long()
+        got = tgpt.forward(tparams, tokens, tgpt.GPTConfig(**TINY, **{field: value}))
+        assert torch.equal(got, tgpt.forward(tparams, tokens, tcfg))
+        return
     with pytest.raises(NotImplementedError):
         tgpt.GPTConfig(**TINY, **{field: value})
 
