@@ -32,10 +32,14 @@ the DCGAN example):
 - ``beforeholiday_tpu_torch.tune``    — knob resolution (``UNSET``).
 - ``beforeholiday_tpu_torch.examples.imagenet`` — the ImageNet ResNet
   trainer (``main_amp``); ``examples.dcgan`` — the multi-loss DCGAN.
-- ``beforeholiday_tpu_torch.infer``   — paged KV cache, bucketed inference
-  engine, continuous batching.
-- ``beforeholiday_tpu_torch.monitor`` — the strict bucket-signature gate,
-  trace spans and the collective-traffic ledger.
+- ``beforeholiday_tpu_torch.infer``   — paged KV cache (fp32, bf16, fp16 or
+  e4m3 pages), bucketed inference engine, continuous batching, the radix
+  prefix cache, prefill/decode disaggregation and serving telemetry;
+  ``examples.serve`` — the async open-loop serving driver.
+- ``beforeholiday_tpu_torch.monitor`` — the strict bucket-signature gate and
+  its counters, trace spans, the collective-traffic ledger, the host
+  timeline (Perfetto export), latency histograms and the flight recorder.
+- ``beforeholiday_tpu_torch.utils``   — rank-annotated logging.
 - ``beforeholiday_tpu_torch.testing`` — the dense GPT and BERT (flash or
   unfused attention), their losses and batches, and fault injectors.
 - ``beforeholiday_tpu_torch.transformer`` — the enums and
@@ -58,9 +62,10 @@ from beforeholiday_tpu_torch import (  # noqa: F401
     testing,
     transformer,
     tune,
+    utils,
 )
 
 __version__ = "0.5.0"
 
 __all__ = ["amp", "contrib", "guard", "infer", "models", "monitor", "ops",
-           "optimizers", "parallel", "testing", "transformer", "tune"]
+           "optimizers", "parallel", "testing", "transformer", "tune", "utils"]

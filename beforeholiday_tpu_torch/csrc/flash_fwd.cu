@@ -25,7 +25,8 @@
 // elements of K and V read, far below the line, so it is bound by bytes. At
 // the engine's decode shape (BH 512, Sk 1024, D 64, bf16, lens uniform in
 // 0..1024) it reads 67 MB (20 us); its paged mode reads the fp32 pools, 134
-// MB (40 us), where the gathered path moved about 1.2 GB a layer.
+// MB (40 us), where the gathered path moved about 1.2 GB a layer; over bf16 or
+// fp16 pools, 67 MB (20 us).
 //
 // The kernels, chosen by shape, dtype and head dim in launch():
 // * flash_decode_chunk_kernel and flash_decode_merge_kernel (Sq < 16, D in
@@ -34,8 +35,8 @@
 //   streams even at BH 512 and ragged lens; a chunk's two tiles of 16 keys
 //   in flight at once by bulk copies on mbarriers; every query row in
 //   one warp; then a fixed-order merge, a thread an output element. The
-//   paged mode reads
-//   the serving engine's fp32 page pools in place through the page table.
+//   paged mode reads the serving engine's fp32, bf16 or fp16 page pools in
+//   place through the page table.
 // * flash_fwd_mma_kernel (bf16 or fp16, Sq >= 16, D in 16..128 step 16:
 //   training and prefill): near the line between bytes and products, so it keeps
 //   both units busy at once. Its 128 query rows a block (two warpgroups)
@@ -233,17 +234,22 @@ flash_fwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // where sk spans more than one chunk. sk 0 takes the same kernel: chunk 0's
 // warp writes o = 0 and lse = -1e30.
 //
-// The paged mode (kPaged) is the same kernel reading one layer's fp32 page
-// pools (n_pages, page_size, H D) in place through the page table (B,
-// n_slots): bh = b H + h, key j of row b at pool row table[b, j / page_size]
-// page_size + j % page_size, columns h D .. h D + D. Its sk is the caller's
-// host-known bound on the lengths (kv_max), so short sequences launch few
-// chunks. Each lane loads the page indices of its keys beside the length,
-// before it issues their copies, reads only keys below kv_lens, and narrows
-// each fp32 element to q's dtype T in registers (exact for values
-// write_token widened), so it computes exactly what the contiguous mode
-// computes on the gathered, narrowed copy. q and o are read and written
-// through their strides.
+// The paged mode (kPaged) is the same kernel reading one layer's page pools
+// (n_pages, page_size, H D) of storage type S (fp32, bf16 or fp16) in place
+// through the page table (B, n_slots): bh = b H + h, key j of row b at pool
+// row table[b, j / page_size] page_size + j % page_size, columns h D .. h D
+// + D, copied in 16-byte units (a bf16 row at D 64 is 128 bytes). Its sk is
+// the caller's host-known bound on the lengths (kv_max), so short sequences
+// launch few chunks. Each lane loads the page indices of its keys beside the
+// length, before it issues their copies, reads only keys below kv_lens, and
+// converts each element to q's dtype T in registers (load_row): exact for
+// an fp32 pool of widened bf16 values and for a bf16 pool, one rounding for
+// an fp16 pool under bf16 q. The arithmetic is a function of T alone (the
+// scoring order runs over the head's columns whatever S's vector width, and
+// p.v's column split follows T), so it computes exactly what the contiguous
+// mode computes on the gathered copy converted to T, and a bf16 pool gives
+// bitwise the output of an fp32 pool holding the same values. q and o are
+// read and written through their strides.
 
 constexpr int kDecBK = 16;                      // keys per tile: lanes j and j + 16 score key j
 constexpr int kDecTiles = 2;                    // tiles per chunk, all in flight
@@ -281,8 +287,9 @@ struct DecodeArgs {
   cudaStream_t stream;
 };
 
-// n elements of a row (shared memory) as floats, narrowed to T's precision:
-// fp32 pages read for bf16 q round once (exact for widened bf16 values)
+// n elements of a row (shared memory) as floats at T's precision: fp32 or
+// fp16 pages read for bf16 q round once (exact for widened bf16 values), 16-bit
+// pages read for fp32 q widen exactly
 template <typename T, typename S, int N>
 __device__ __forceinline__ void load_row(const S* p, float (&out)[N]) {
   if constexpr (std::is_same<S, float>::value) {
@@ -313,9 +320,17 @@ __device__ __forceinline__ void load_row(const S* p, float (&out)[N]) {
     }
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      float2 f;
+      if constexpr (std::is_same<S, __half>::value)
+        f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      else
+        f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
+    }
+    if constexpr (!std::is_same<S, T>::value) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) out[i] = round_to(out[i], static_cast<T*>(nullptr));
     }
   }
 }
@@ -911,11 +926,11 @@ int launch_drop(const Args& a) {
   return a.drop.key != nullptr ? launch<T, true>(a) : launch<T, false>(a);
 }
 
-template <typename T>
+template <typename T, typename S>
 int launch_paged(const DecodeArgs& a, int d) {
 #define PAGED_CASE(DIM) \
   case DIM:             \
-    return launch_decode<T, float, DIM, 1, false, true>(a);
+    return launch_decode<T, S, DIM, 1, false, true>(a);
   switch (d) {
     PAGED_CASE(16)
     PAGED_CASE(32)
@@ -929,6 +944,15 @@ int launch_paged(const DecodeArgs& a, int d) {
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PAGED_CASE
+}
+
+// the pools' storage type: 0 = float32, 1 = bfloat16, 2 = float16
+template <typename T>
+int launch_paged_pools(const DecodeArgs& a, int d, int pool_dtype) {
+  if (pool_dtype == 0) return launch_paged<T, float>(a, d);
+  if (pool_dtype == 1) return launch_paged<T, __nv_bfloat16>(a, d);
+  if (pool_dtype == 2) return launch_paged<T, __half>(a, d);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -966,17 +990,19 @@ extern "C" long long flash_fwd_decode_ws_floats(int bh, int sq, int sk, int d) {
 }
 
 // The paged mode of the decode path, for one query row. dtype of q and o: 0
-// = float32, 1 = bfloat16. q (b, 1, heads d) read through its strides
+// = float32, 1 = bfloat16; pool_dtype of both pools: 0 = float32, 1 =
+// bfloat16, 2 = float16. q (b, 1, heads d) read through its strides
 // (q_sb, q_sr; unit column stride); k_pool and v_pool one layer's
-// contiguous, 16-byte-aligned fp32 pools (n_pages, page_size, heads d);
+// contiguous, 16-byte-aligned pools (n_pages, page_size, heads d);
 // table (b, n_slots) int32 and lens (b,) int32, contiguous; o (b, 1, heads
 // d) contiguous; lse (b heads, 1) float32. kv_max: the most keys a
 // sequence reads, at most n_slots page_size, an upper bound of lens the
 // caller knows on the host (a length above it reads kv_max keys); the grid
 // holds its chunks, not the table's. ws as flash_fwd's at sq 1 and sk =
 // kv_max. d in 16..128 step 16.
-extern "C" int flash_decode_paged(int dtype, const void* q, long long q_sb, long long q_sr,
-                                  const float* k_pool, const float* v_pool, const int* table,
+extern "C" int flash_decode_paged(int dtype, int pool_dtype, const void* q, long long q_sb,
+                                  long long q_sr, const void* k_pool, const void* v_pool,
+                                  const int* table,
                                   const int* lens, void* o, float* lse, float* ws,
                                   long long ws_floats, int b, int heads, int d, int n_slots,
                                   int page_size, int kv_max, float scale, void* stream) {
@@ -989,7 +1015,7 @@ extern "C" int flash_decode_paged(int dtype, const void* q, long long q_sb, long
                      bh, 1, kv_max, heads, q_sb, q_sr, hd, hd,
                      n_slots, page_size, static_cast<int>(hd), scale, 0,
                      DropArgs{nullptr, 0u, 1.f}, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return launch_paged<float>(a, d);
-  if (dtype == 1) return launch_paged<__nv_bfloat16>(a, d);
+  if (dtype == 0) return launch_paged_pools<float>(a, d, pool_dtype);
+  if (dtype == 1) return launch_paged_pools<__nv_bfloat16>(a, d, pool_dtype);
   return static_cast<int>(cudaErrorInvalidValue);
 }

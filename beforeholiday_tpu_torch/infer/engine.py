@@ -15,24 +15,28 @@ The forward mirrors ``testing/gpt.py`` (a Python loop over layers), re-derived
 for incremental decode. LayerNorm runs on kernel K1 and attention on kernel
 K2 when the engine lives on the card; ``impl="torch"`` selects their plain
 versions (the CPU path, and the card-side yardstick). Decode on the kernels
-reads each layer's fp32 page pools in place through the page table (K2's
-paged mode, ``ops.attention._paged_decode_kernel``) at the head dims K2's
-decode path is built for (``DECODE_HEAD_DIMS``); at other head dims, and on
-the plain path, it gathers the pages, narrows them to the compute dtype and
-runs the contiguous attention (K2's row kernel, or its plain version), the
-same function as the JAX engine's gather followed by ``flash_attention``.
+reads each layer's page pools (fp32, bf16 or fp16: ``cache_dtype``) in place
+through the page table (K2's paged mode,
+``ops.attention._paged_decode_kernel``) at the head dims K2's decode path is
+built for (``DECODE_HEAD_DIMS``); at other head dims, and on the plain path,
+it gathers the pages, converts them to the compute dtype and runs the
+contiguous attention (K2's row kernel, or its plain version), the same
+function as the JAX engine's gather followed by ``flash_attention``.
 On fp8 pages (``EngineConfig(cache_dtype="e4m3")``) prefill writes each
 page under its own scale and attends to the exact k and v, and decode
 writes the fed token under its page's scale, gathers and dequantizes the
 pages to fp32 and runs the contiguous attention in fp32 (q widened,
 exactly; K2's decode path on the kernels), as the JAX engine attends to
 the dequantized fp32 copy; the context is then rounded to the compute
-dtype. K2's paged mode reads fp32 pools only. The page pools are updated
-in place. The JAX engine's timeline span is not ported yet.
+dtype: K2's paged mode does not read fp8 pages. The page pools are updated
+in place. While a ``monitor.timeline`` recorder is active, each host call
+(prefill, decode, copy) books a span named ``<entry_prefix>.<kind>`` with
+its bucket, the serving telemetry's engine-side track.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -44,6 +48,7 @@ import torch.nn.functional as F
 
 from beforeholiday_tpu_torch.infer import kvcache
 from beforeholiday_tpu_torch.monitor.compile import track_compiles
+from beforeholiday_tpu_torch.monitor.trace import active_recorder
 from beforeholiday_tpu_torch.ops import flash_attention, fused_dense, fused_layer_norm
 from beforeholiday_tpu_torch.ops._autocast import cast_floats
 from beforeholiday_tpu_torch.ops._dispatch import IMPLS, resolve_device
@@ -202,9 +207,9 @@ class InferenceEngine:
         )
         on_kernels = (impl or ("kernel" if self.device.type == "cuda"
                                else "torch")) == "kernel"
-        # decode reads fp32 pools in place where attention runs on K2 at a
-        # head dim its decode path is built for; elsewhere on K2, and on fp8
-        # pages, it runs the contiguous kernel on a gathered copy
+        # decode reads fp32, bf16 or fp16 pools in place where attention runs
+        # on K2 at a head dim its decode path is built for; elsewhere on K2,
+        # and on fp8 pages, it runs the contiguous kernel on a gathered copy
         self._paged = (on_kernels and model_cfg.head_dim in DECODE_HEAD_DIMS
                        and not self.layout.quantized)
         self._gathered_on_k2 = on_kernels and not self._paged
@@ -271,8 +276,8 @@ class InferenceEngine:
     def _decode_attention(self, q, kp, vp, page_table, kv_lens, kv_max):
         """One query row a sequence against one layer's pools: K2 reading the
         pages in place (no more than ``kv_max`` keys a sequence), or a
-        gathered copy narrowed to q's dtype (exact: the fp32 pools hold
-        compute-dtype values write_token widened) on K2's contiguous mode or
+        gathered copy converted to q's dtype (exact where the pools hold
+        compute-dtype values) on K2's contiguous mode or
         the plain version. ``kp``/``vp`` may also be the gathered,
         dequantized fp32 copies of fp8 pages: a dequantized value is any
         fp32 value, so attention runs in fp32 on them, q widened exactly,
@@ -400,6 +405,15 @@ class InferenceEngine:
 
     # -- host surface --------------------------------------------------------
 
+    def _host_span(self, kind: str, **args):
+        """Span one engine call's host dispatch on the active timeline
+        recorder (``<entry_prefix>.<kind>``, the chosen bucket as args); a
+        no-op when no recorder is active."""
+        rec = active_recorder()
+        if rec is None:
+            return contextlib.nullcontext()
+        return rec.span(f"{self.cfg.entry_prefix}.{kind}", args=args)
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
@@ -417,9 +431,19 @@ class InferenceEngine:
                 page_tables: Sequence[Sequence[int]]) -> np.ndarray:
         """Run ``n`` prompts through the bucketed prefill; returns the first
         generated token per request, (n,) int32 on host."""
-        n = len(prompts)
-        if n == 0:
+        if len(prompts) == 0:
             return np.zeros((0,), np.int32)
+        return self._prefill_call(prompts, page_tables, logits=False)
+
+    def prefill_logits(self, prompts: Sequence[Sequence[int]],
+                       page_tables: Sequence[Sequence[int]]) -> np.ndarray:
+        """Prefill that returns each prompt's last-position (n, V) fp32
+        logits instead of its token — the correctness-oracle surface beside
+        :meth:`decode_logits`; same signatures as :meth:`prefill`."""
+        return self._prefill_call(prompts, page_tables, logits=True)
+
+    def _prefill_call(self, prompts, page_tables, logits: bool):
+        n = len(prompts)
         if n != len(page_tables):
             raise ValueError(f"{n} prompts vs {len(page_tables)} page tables")
         B = pick_bucket(n, self.cfg.batch_buckets)
@@ -432,10 +456,11 @@ class InferenceEngine:
         for i, p in enumerate(prompts):
             tokens[i, : len(p)] = p
             lens[i] = len(p)
-        nxt, _ = self._prefill_gated(
-            self._tensor(tokens), self._tensor(lens), self._pad_tables(page_tables, B)
-        )
-        return nxt[:n].cpu().numpy()
+        with self._host_span("prefill", batch=B, seq=S):
+            out = self._prefill_gated(
+                self._tensor(tokens), self._tensor(lens),
+                self._pad_tables(page_tables, B))
+            return out[int(logits)][:n].cpu().numpy()
 
     def _decode_args(self, tokens, lens, page_tables):
         n = len(tokens)
@@ -457,8 +482,10 @@ class InferenceEngine:
         n = len(tokens)
         if n == 0:
             return np.zeros((0,), np.int32)
-        nxt, _ = self._decode_gated(*self._decode_args(tokens, lens, page_tables))
-        return nxt[:n].cpu().numpy()
+        args = self._decode_args(tokens, lens, page_tables)
+        with self._host_span("decode", batch=len(args[3])):
+            nxt, _ = self._decode_gated(*args)
+            return nxt[:n].cpu().numpy()
 
     def decode_logits(self, tokens: Sequence[int], lens: Sequence[int],
                       page_tables: Sequence[Sequence[int]]) -> np.ndarray:
@@ -485,7 +512,8 @@ class InferenceEngine:
         d = np.zeros((self.cfg.max_batch,), np.int64)
         s[:n] = src
         d[:n] = dst
-        self._copy_gated(self._tensor(s), self._tensor(d))
+        with self._host_span("copy", pages=n):
+            self._copy_gated(self._tensor(s), self._tensor(d))
 
 
 def _to_device(tree, device):

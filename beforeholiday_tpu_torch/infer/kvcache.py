@@ -6,6 +6,10 @@ host-side :class:`PageAllocator`. Page 0 is the reserved null page: padded
 table slots point at it, so writes from padding rows land there harmlessly
 and reads of padded slots are masked by ``kv_lens`` in the attention kernel.
 
+Pages store fp32, bf16 or fp16 values (``dtype_name``), written with one
+round-to-nearest cast to the page dtype and gathered in it; a 16-bit page
+holds half an fp32 page's bytes.
+
 The k and v pools of all layers are views of one flat zeroed buffer carved by
 ``ops/arena.py``. The JAX package donates that buffer through every step so
 XLA updates it in place (``remat/donation.py``, which has no counterpart
@@ -56,7 +60,8 @@ __all__ = [
 
 NULL_PAGE = 0
 
-_PAGE_DTYPES = {"float32": torch.float32}
+_PAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}
 # quantized page formats: dtype_name -> storage dtype; their scales ride in
 # (n_layers, n_pages) fp32 planes
 _KV_QUANT_DTYPES = {"e4m3": torch.float8_e4m3fn}
@@ -86,8 +91,8 @@ class PagedLayout:
             raise ValueError(f"degenerate layout: {self}")
         if self.dtype_name not in {**_PAGE_DTYPES, **_KV_QUANT_DTYPES}:
             raise NotImplementedError(
-                f"page dtype {self.dtype_name!r} is not ported (float32 and "
-                f"e4m3 only)"
+                f"page dtype {self.dtype_name!r} is not supported: one of "
+                f"{sorted({**_PAGE_DTYPES, **_KV_QUANT_DTYPES})}"
             )
 
     @property
@@ -175,7 +180,8 @@ def write_token(pages: torch.Tensor, page_table: torch.Tensor,
     being written. ``val``: (B, kv_dim). Inactive rows carry an all-null
     table, so their writes land in page 0; duplicate indices there are
     harmless because page 0 is never read unmasked. Values are stored in the
-    pool's dtype (a bf16 value widens to fp32 exactly)."""
+    pool's dtype with one round-to-nearest cast (a bf16 value widens to
+    fp32 exactly)."""
     ps = pages.shape[1]
     pos = pos.long()
     batch = torch.arange(pos.shape[0], device=pages.device)
@@ -205,7 +211,8 @@ def write_prefill(pages: torch.Tensor, page_table: torch.Tensor,
 
 def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     """Each sequence's logically contiguous K or V view: (n_pages, page_size,
-    kv_dim) gathered by (B, n_slots) → (B, n_slots * page_size, kv_dim)."""
+    kv_dim) gathered by (B, n_slots) → (B, n_slots * page_size, kv_dim), in
+    the pages' own dtype."""
     B, n_slots = page_table.shape
     ps, kv = pages.shape[1], pages.shape[2]
     return pages[page_table.long()].reshape(B, n_slots * ps, kv)

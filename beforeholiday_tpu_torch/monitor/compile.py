@@ -1,5 +1,5 @@
-"""Signature gate — the part of ``beforeholiday_tpu/monitor/compile.py`` the
-serving engine needs.
+"""Signature gate and counters — counterpart of
+``beforeholiday_tpu/monitor/compile.py``.
 
 PyTorch runs eagerly, so nothing recompiles; what stays meaningful is the
 number of distinct padded ``(kind, shapes)`` signatures an entry point has
@@ -7,19 +7,38 @@ seen. In serving, a signature outside the declared bucket set is a bug
 upstream (a bucket table and a scheduler disagreeing), so
 ``track_compiles(strict=True, max_signatures=N)`` refuses the (N+1)-th
 signature with :class:`BucketGateError` before the call runs, exactly as the
-reference does. Unlike the reference, each gated function keeps its own
-counts (no process-wide registry).
+reference does.
+
+Unlike the reference, the GATE is per gated function: each engine builds its
+own wrappers, so a second engine in one process starts with its own budget.
+The COUNTERS roll up by entry name, as the reference's do:
+:func:`compile_counts` and :func:`compile_summary` report, for each entry,
+the distinct signatures across every live wrapper of that name and their
+calls, and :func:`reset_compile_counts` clears those wrappers' signature
+sets and call counts (re-arming their gates and warnings).
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 import warnings
-from typing import Any, Dict, Optional, Tuple
+import weakref
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-__all__ = ["BucketGateError", "track_compiles"]
+__all__ = [
+    "BucketGateError",
+    "compile_counts",
+    "compile_summary",
+    "reset_compile_counts",
+    "track_compiles",
+]
+
+_LOCK = threading.Lock()
+# entry name -> the live gated wrappers of that name
+_ENTRIES: Dict[str, "weakref.WeakSet"] = {}
 
 
 class BucketGateError(RuntimeError):
@@ -81,6 +100,46 @@ def track_compiles(entry: str, *, strict: bool = False,
 
         wrapper.signatures = set()
         wrapper.calls = 0
+        with _LOCK:
+            _ENTRIES.setdefault(entry, weakref.WeakSet()).add(wrapper)
         return wrapper
 
     return deco
+
+
+def compile_counts() -> Dict[str, Dict[str, int]]:
+    """Per-entry counters: ``{entry: {"signatures": n, "calls": m}}`` over
+    every live wrapper of the entry's name (``signatures``: the distinct
+    ones among them). Entries not called since their last reset are
+    left out, as the reference leaves out entries it has not seen."""
+    with _LOCK:
+        rows = {name: list(ws) for name, ws in _ENTRIES.items()}
+    out = {}
+    for name, wrappers in rows.items():
+        calls = sum(w.calls for w in wrappers)
+        if calls:
+            sigs = set().union(*(w.signatures for w in wrappers))
+            out[name] = {"signatures": len(sigs), "calls": calls}
+    return out
+
+
+def compile_summary() -> List[Dict[str, object]]:
+    """One sorted row per called entry, ``{"entry", "signatures", "calls",
+    "recompiled"}``."""
+    return [
+        {"entry": name, "signatures": c["signatures"], "calls": c["calls"],
+         "recompiled": c["signatures"] > 1}
+        for name, c in sorted(compile_counts().items())
+    ]
+
+
+def reset_compile_counts(entry: Optional[str] = None) -> None:
+    """Clear the signature sets and call counts of every wrapper of
+    ``entry`` (all entries when None): counting restarts at the next call,
+    and a strict gate admits its declared budget afresh."""
+    with _LOCK:
+        names = [entry] if entry is not None else list(_ENTRIES)
+        wrappers = [w for n in names for w in _ENTRIES.get(n, ())]
+    for w in wrappers:
+        w.signatures.clear()
+        w.calls = 0

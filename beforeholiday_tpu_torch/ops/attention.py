@@ -15,9 +15,11 @@ in fp32, bf16 or fp16 (amp O1/O2); K2's decode path (``Sq < 16``) and its
 paged mode take fp32 and bf16 and refuse fp16 by name.
 K2's decode path (``Sq < 16``) also has a paged mode,
 :func:`_paged_decode_kernel`, private to the serving engine: one query row
-a sequence read against one layer's fp32 page pools in place through the
-page table, bit for bit what the contiguous mode computes on the gathered,
-narrowed copy (:func:`_paged_decode_torch`).
+a sequence read against one layer's page pools (fp32, bf16 or fp16) in
+place through the page table, bit for bit what the contiguous mode computes
+on the gathered copy converted to q's dtype (:func:`_paged_decode_torch`).
+The arithmetic follows q's dtype, never the pools', so a bf16 pool gives
+bitwise the output of an fp32 pool holding the same values.
 
 Dropout draws its keep mask from a counter-based hash: Philox4x32-10
 (``csrc/philox.cuh``) keyed on a dropout key (two 32-bit words) and counted
@@ -56,6 +58,8 @@ _MIN_BLOCK = 128
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # K2's decode path (Sq < 16) and its paged mode take fp32 and bf16 only
 _DECODE_DTYPES = (torch.float32, torch.bfloat16)
+# the paged mode's pool storage types, as the kernel numbers them
+_POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # every head dim the gate admits: the tensor-core kernels take 16..128 in
 # steps of 16, the CUDA-core row kernels the rest
 _KERNEL_HEAD_DIMS = range(8, 513)
@@ -305,8 +309,8 @@ def _flash_lib():
                    p, ll, p]
     fn.restype = ctypes.c_int
     paged = lib.flash_decode_paged
-    paged.argtypes = [i, p, ll, ll, p, p, p, p, p, p, p, ll, i, i, i, i, i, i,
-                      f, p]
+    paged.argtypes = [i, i, p, ll, ll, p, p, p, p, p, p, p, ll, i, i, i, i, i,
+                      i, f, p]
     paged.restype = ctypes.c_int
     ws = lib.flash_fwd_decode_ws_floats
     ws.argtypes = [i, i, i, i]
@@ -401,7 +405,7 @@ def _paged_heads(q, k_pool, n_heads):
 def _decode_gathered(fwd, q, k_pool, v_pool, page_table, kv_lens,
                      n_heads: int, scale: float):
     """Decode on a copy: each sequence's pages gathered
-    (``infer.kvcache.gather_pages``), narrowed to q's dtype, and ``fwd``
+    (``infer.kvcache.gather_pages``), converted to q's dtype, and ``fwd``
     (:func:`flash_fwd_torch` or :func:`flash_fwd_kernel`) over the heads.
     Arguments and results as :func:`_paged_decode_torch`'s."""
     from beforeholiday_tpu_torch.infer.kvcache import gather_pages
@@ -433,7 +437,8 @@ def _paged_decode_torch(q, k_pool, v_pool, page_table, kv_lens, n_heads: int,
                         scale: float, kv_max: Optional[int] = None):
     """Plain PyTorch version of K2's paged decode mode: :func:`_decode_gathered`
     on :func:`flash_fwd_torch`. ``q (B, Sq, H*D)``, one layer's pools
-    ``(n_pages, page_size, H*D)``, ``page_table (B, n_slots)`` and ``kv_lens
+    ``(n_pages, page_size, H*D)`` (fp32, bf16 or fp16; both of one dtype),
+    ``page_table (B, n_slots)`` and ``kv_lens
     (B,)``; a sequence attends to at most ``kv_max`` keys. Returns ``o (B,
     Sq, H*D)`` in q's dtype and ``lse (B*H, Sq)``."""
     if kv_max is not None:
@@ -452,10 +457,11 @@ def _kv_max(kv_max) -> int:
 def _paged_decode_kernel(q, k_pool, v_pool, page_table, kv_lens, n_heads: int,
                          scale: float, kv_max: Optional[int] = None):
     """Launch K2's decode path in paged mode on CUDA tensors: one query row a
-    sequence reads one layer's fp32 pools in place through ``page_table``,
-    only the pages below ``kv_lens``. Same arguments and results as
-    :func:`_paged_decode_torch`, which it computes exactly (the gathered,
-    narrowed copy's contiguous K2, bit for bit). ``kv_max``, a bound on
+    sequence reads one layer's fp32, bf16 or fp16 pools in place through
+    ``page_table``, only the pages below ``kv_lens``. Same arguments and
+    results as :func:`_paged_decode_torch`, which it computes exactly (the
+    contiguous K2 on the gathered copy converted to q's dtype, bit for
+    bit). ``kv_max``, a bound on
     ``kv_lens`` the caller knows on the host (default: the whole table),
     sizes the grid: the kernel launches a block for each chunk of keys below
     it, not for each of the table's. q may be a strided view (the QKV
@@ -478,10 +484,11 @@ def _paged_decode_kernel(q, k_pool, v_pool, page_table, kv_lens, n_heads: int,
     if D not in DECODE_HEAD_DIMS:
         raise ValueError(f"paged decode takes head dims 16..128 in steps of 16, "
                          f"got {D}")
-    if v_pool.shape != k_pool.shape or not (
-            k_pool.dtype == v_pool.dtype == torch.float32):
-        raise ValueError(f"paged decode takes two fp32 pools of one shape, got "
-                         f"{k_pool.dtype} {tuple(k_pool.shape)}/{v_pool.dtype} "
+    if (v_pool.shape != k_pool.shape or k_pool.dtype != v_pool.dtype
+            or k_pool.dtype not in _POOL_DTYPES):
+        raise ValueError(f"paged decode takes two pools of one shape and one "
+                         f"dtype of {list(_POOL_DTYPES)}, got {k_pool.dtype} "
+                         f"{tuple(k_pool.shape)}/{v_pool.dtype} "
                          f"{tuple(v_pool.shape)}")
     n_slots = page_table.shape[-1]
     if page_table.shape != (B, n_slots) or kv_lens.shape != (B,):
@@ -512,7 +519,8 @@ def _paged_decode_kernel(q, k_pool, v_pool, page_table, kv_lens, n_heads: int,
     fn = _flash_lib()[1]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(_KERNEL_DTYPES[q.dtype], q.data_ptr(), q.stride(0), q.stride(1),
+        rc = fn(_KERNEL_DTYPES[q.dtype], _POOL_DTYPES[k_pool.dtype], q.data_ptr(),
+                q.stride(0), q.stride(1),
                 k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
                 kv_lens.data_ptr(), o.data_ptr(), lse.data_ptr(),
                 ws.data_ptr() if floats else None, floats, B, n_heads, D,

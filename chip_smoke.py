@@ -177,8 +177,24 @@ Phases, each printing one line (any failure exits non-zero):
     stages through the host); and
     the new kernel shapes (``tp_shape`` lines: K1/K3 at 8192 and 4096 rows,
     K2/K4 at BH 128 and 64, K5/K6 at a TP 2 shard's arena);
-21. the total seconds, the ``kernels`` JSON line (with ``launch_floor_ms``),
-    the card line, and the final ``ok`` line.
+21. slice 16, the rest of the serving tier: K2's paged mode over bf16 and
+    fp16 pools at the engine's decode bucket (``K2_paged`` lines: against
+    its plain version, bitwise the contiguous mode on the gathered copy,
+    twice bitwise, bitwise the fp32 pools' launch on the same values, timed
+    beside its bound, the fp32 pools and the gather chain);
+    ``pages16_parity`` (the flagship engine on bf16 pages bitwise its fp32
+    pages' logits, fp16 pages within 0.1, paged launches and no gather; the
+    page bytes of every page dtype); the serving mix on bf16 pages (every
+    stream the fp32 pages') and fp16 pages (agreement printed);
+    ``prefix_serving`` (the driver's prefix-heavy trace through the radix
+    prefix cache against the uncached run: hits, fewer prefill tokens, radix
+    evictions, no leak, decode-extend logits against a fresh prefill);
+    ``disagg_serving`` (prefill/decode disaggregation against the unified
+    batcher: the signature gate closed, TTFT and tokens/s); ``serve_driver``
+    (the open-loop driver with telemetry, then its crash dump);
+22. the total seconds, each phase's wall seconds (``phase_seconds``), the
+    ``kernels`` JSON line (with ``launch_floor_ms``), the card line, and the
+    final ``ok`` line.
 
 ``F.layer_norm``, ``F.scaled_dot_product_attention``, their backwards,
 ``torch._amp_foreach_non_finite_check_and_unscale_``,
@@ -394,6 +410,28 @@ XENT_P_TOL = 1e-6
 # start set to it so that padded rows are really exercised
 XENT_SMOOTHING = 0.1
 XENT_PADDED = 32
+
+
+PHASE_SECONDS = {}
+_MARK = [0.0]
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Adds the block's wall seconds to PHASE_SECONDS[name]."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+        _MARK[0] = time.perf_counter()
+
+
+def mark(name):
+    """PHASE_SECONDS[name]: the wall seconds since the last phase ended."""
+    now = time.perf_counter()
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + now - _MARK[0]
+    _MARK[0] = now
 
 
 def line(phase, **fields):
@@ -768,6 +806,80 @@ def paged_phase(attn, kvcache):
         live_keys=live, path="serving")
     line("K2_paged", shape=tag, **fields)
     return {"decode": (tag, fields)}
+
+
+POOL_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
+
+
+def paged_16bit_phase(attn, kvcache):
+    """K2's paged mode over bf16 and fp16 pools at the engine's decode
+    bucket (the values of ``paged_inputs``, bf16-representable, stored in
+    the pool dtype): against its plain version (check_dropped_pv), bitwise
+    against the contiguous mode on the gathered copy converted to q's dtype,
+    twice bitwise, and bitwise the launch over fp32 pools holding the same
+    values (the arithmetic follows q's dtype alone); timed beside its bound
+    (the live rows' bytes in the pool dtype), its plain version, the fp32
+    pools' launch and the gather chain it replaces. No single PyTorch call
+    reads paged pools: library_ms is null, as for the fp32 row."""
+    B, H, D = PAGED["B"], PAGED["H"], PAGED["D"]
+    q, kp32, vp32, table, lens = paged_inputs(20)
+    scale = D ** -0.5
+
+    def heads(t):
+        return (t.reshape(B, t.shape[1], H, D).transpose(1, 2)
+                .reshape(B * H, t.shape[1], D).contiguous())
+
+    rows = {}
+    for tag_dt, dt in POOL_DTYPES.items():
+        kp, vp = kp32.to(dt), vp32.to(dt)
+        wide = (q, kp.float(), vp.float(), table, lens, H, scale)
+        args = (q, kp, vp, table, lens, H, scale)
+        o, lse = attn._paged_decode_kernel(*args)
+        o2, lse2 = attn._paged_decode_kernel(*args)
+        wo, wlse = attn._paged_decode_kernel(*wide)
+        ro, rlse = attn._paged_decode_torch(*args)
+
+        def chain(kp=kp, vp=vp):  # the gathered path on these pools
+            kc = kvcache.gather_pages(kp, table).to(q.dtype)
+            vc = kvcache.gather_pages(vp, table).to(q.dtype)
+            return attn.flash_fwd_kernel(heads(q), heads(kc), heads(vc),
+                                         lens.repeat_interleave(H), False, scale)
+
+        co, clse = chain()
+        torch.cuda.synchronize()
+        name = f"K2 paged {tag_dt} pools"
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"{name}: two calls differ")
+        if not (torch.equal(heads(o), co) and torch.equal(lse, clse)):
+            raise AssertionError(f"{name}: not bitwise the contiguous mode on the "
+                                 f"gathered copy")
+        if not (torch.equal(o, wo) and torch.equal(lse, wlse)):
+            raise AssertionError(f"{name}: not bitwise the fp32 pools' launch on "
+                                 f"the same values")
+        if not (torch.all(o[0] == 0) and torch.all(lse[:H] == -1e30)):
+            raise AssertionError(f"{name}: a lens-0 sequence is not exactly 0")
+        ref_abs = attn._paged_decode_torch(q.float(), kp, vp.abs(), table, lens, H,
+                                           scale)[0]
+        err = check_dropped_pv(name, o, ro, ref_abs)
+        check_close(f"{name} lse", lse, rlse, dict(rtol=1e-5, atol=1e-4))
+        live = int(lens.long().sum())
+        pages_read = int(((lens.long() + PAGED["page"] - 1) // PAGED["page"]).sum())
+        nbytes = (2 * live * H * D * kp.element_size() + 2 * q.numel() * 2
+                  + lse.numel() * 4 + lens.numel() * 4 + pages_read * 4)
+        bms, by = bound_ms(nbytes, 4 * live * H * D, torch.float32)
+        tag = (f"B{B} H{H} D{D} bf16 q, {tag_dt} pools {PAGED['pages']}x"
+               f"{PAGED['page']}, {PAGED['slots']} slots, ragged lens")
+        fields = dict(
+            max_abs_err=err, ms=time_ms(lambda: attn._paged_decode_kernel(*args)),
+            plain_ms=time_ms(lambda: attn._paged_decode_torch(*args), iters=5),
+            library_ms=None, bound_ms=bms, bound_by=by,
+            fp32_pools_ms=time_ms(lambda: attn._paged_decode_kernel(*wide)),
+            chain_ms=time_ms(chain), bitwise_fp32_pools=True, live_keys=live,
+            path=f"serving_{dict(bf16='bfloat16', fp16='float16')[tag_dt]}")
+        line("K2_paged", shape=tag, **fields)
+        rows[f"decode_{tag_dt}_pools"] = (tag, fields)
+        del kp, vp, wide, args
+    return rows
 
 
 # ---------------------------------------------------------------- K3-K6
@@ -2156,8 +2268,9 @@ def serving_phase(infer, params, cfg, norm, attn, card, cache_dtype="float32",
     """The seeded request mix through ``ContinuousBatcher.run()`` on pages of
     ``cache_dtype``, the launch counts reset just before and read just
     after: prefill attends on the contiguous K2; decode on K2's paged mode
-    over fp32 pages, on its contiguous decode path over the dequantized
-    copy of e4m3 pages."""
+    over fp32, bf16 and fp16 pages, on its contiguous decode path over the
+    dequantized copy of e4m3 pages. Returns the engine, the launches and
+    each request's stream."""
     ecfg = infer.EngineConfig(**{**ENGINE, "num_pages": SERVE_PAGES,
                                  "cache_dtype": cache_dtype})
     eng = infer.InferenceEngine(params, cfg, ecfg)
@@ -2179,7 +2292,8 @@ def serving_phase(infer, params, cfg, norm, attn, card, cache_dtype="float32",
     launches = {k: fn.launches for k, fn in counters.items()}
     calls = eng.call_counts
     steps = calls["prefill"] + calls["decode"]
-    paged = cfg.n_layers * calls["decode"] * (cache_dtype == "float32")
+    in_place = cache_dtype != "e4m3"  # K2's paged mode reads the pools
+    paged = cfg.n_layers * calls["decode"] * in_place
     expect = {"layer_norm_fwd": (2 * cfg.n_layers + 1) * steps,
               "flash_fwd": cfg.n_layers * steps - paged, "paged_decode": paged}
     if len(fin) != N_REQUESTS or any(len(r.out) != r.max_new_tokens for r in fin):
@@ -2195,7 +2309,7 @@ def serving_phase(infer, params, cfg, norm, attn, card, cache_dtype="float32",
         if n != expect[name] or (n <= 0 and name != "paged_decode"):
             raise AssertionError(f"{label} {name}: {n} launches, engine calls "
                                  f"imply {expect[name]}")
-    if launches["paged_decode"] <= 0 and cache_dtype == "float32":
+    if launches["paged_decode"] <= 0 and in_place:
         raise AssertionError(f"{label}: no paged decode launched")
     tokens = sum(len(r.out) for r in fin)
     line(label, requests=len(fin), generated_tokens=tokens, cache_dtype=cache_dtype,
@@ -2205,7 +2319,7 @@ def serving_phase(infer, params, cfg, norm, attn, card, cache_dtype="float32",
          preemptions=preempt, tokens_per_s=tokens / wall, wall_s=wall,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          signatures=eng.compiled_signatures, card=f"'{card}'")
-    return eng, launches
+    return eng, launches, {r.rid: r.out for r in fin}
 
 
 # kernel-name fragments -> the layer of the serving path they belong to
@@ -4561,14 +4675,368 @@ def serving_e4m3_phase(infer, params, cfg, attn, norm, card):
          page_bytes_fp32_over_e4m3=ratio)
     del engines
     torch.cuda.empty_cache()
-    eng, launches = serving_phase(infer, params, cfg, norm, attn, card,
-                                  cache_dtype="e4m3", label="serving_e4m3")
+    eng, launches, _ = serving_phase(infer, params, cfg, norm, attn, card,
+                                     cache_dtype="e4m3", label="serving_e4m3")
     # its decode calls' share of K2's launches: the contiguous decode mode
     decode = {"flash_fwd": cfg.n_layers * eng.call_counts["decode"]}
     profile_phase(infer, eng, cfg, label="serving_e4m3_profile")
     del eng
     torch.cuda.empty_cache()
     return launches, decode
+
+
+# --------------------------------------------- slice 16: the serving tier
+
+
+def page_bytes_line(infer, cfg):
+    """Device bytes of a page and of a 1024-token sequence, k and v over
+    every layer, for each page dtype of the flagship engine."""
+    out = {}
+    for dt in ("float32", "bfloat16", "float16", "e4m3"):
+        lay = infer.PagedLayout(n_layers=cfg.n_layers, n_pages=ENGINE["num_pages"],
+                                page_size=ENGINE["page_size"],
+                                kv_dim=cfg.n_heads * cfg.head_dim, dtype_name=dt)
+        out[dt] = {"page": lay.page_bytes,
+                   "sequence_1024": lay.page_bytes * (1024 // lay.page_size)}
+    return out
+
+
+def pages16_parity_phase(infer, params, cfg, attn):
+    """The flagship engine on bf16 and fp16 pages against fp32 pages, all on
+    the kernels, fed the same tokens: prefill logits (which attend to the
+    exact k and v) and four decode steps (K2's paged mode once a layer, no
+    gathered page). bf16 pages hold the bf16 k and v the fp32 pages hold, so
+    every logit is bitwise the fp32 run's; fp16 pages within LOGIT_TOL."""
+    kinds = ("float32", "bfloat16", "float16")
+    engines = {dt: infer.InferenceEngine(params, cfg, infer.EngineConfig(
+        **{**ENGINE, "cache_dtype": dt})) for dt in kinds}
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in rng.integers(64, 769, 8)]
+    alloc = infer.PageAllocator(ENGINE["num_pages"])
+    tables = [alloc.alloc(infer.pages_for(len(p) + 8, ENGINE["page_size"]))
+              for p in prompts]
+    first = {dt: e.prefill_logits(prompts, tables) for dt, e in engines.items()}
+    errs = {dt: [max_err(torch.from_numpy(first[dt]), torch.from_numpy(first["float32"]))]
+            for dt in kinds[1:]}
+    feed, lens = first["float32"].argmax(-1).tolist(), [len(p) for p in prompts]
+    agree = {dt: [] for dt in kinds[1:]}
+    for _ in range(4):
+        logits = {}
+        for dt, e in engines.items():
+            paged = attn._paged_decode_kernel.launches
+            with counting(infer.kvcache, "gather_pages") as gathers:
+                logits[dt] = torch.from_numpy(e.decode_logits(feed, lens, tables))
+            if attn._paged_decode_kernel.launches - paged != cfg.n_layers or gathers.calls:
+                raise AssertionError(f"pages16 {dt}: decode launched "
+                                     f"{attn._paged_decode_kernel.launches - paged} "
+                                     f"paged, gathered {gathers.calls}")
+        for dt in kinds[1:]:
+            if not torch.isfinite(logits[dt]).all():
+                raise AssertionError(f"pages16 {dt}: non-finite logits")
+            errs[dt].append(max_err(logits[dt], logits["float32"]))
+            agree[dt].append(float((logits[dt].argmax(-1)
+                                    == logits["float32"].argmax(-1)).float().mean()))
+        feed, lens = logits["float32"].argmax(-1).tolist(), [n + 1 for n in lens]
+    torch.cuda.synchronize()
+    if max(errs["bfloat16"]) != 0.0:
+        raise AssertionError(f"pages16: bf16 pages' logits not bitwise fp32 pages' "
+                             f"({errs['bfloat16']})")
+    if max(errs["float16"]) > LOGIT_TOL:
+        raise AssertionError(f"pages16: fp16 pages' logits {errs['float16']} > "
+                             f"{LOGIT_TOL}")
+    line("pages16_parity", bf16_vs_fp32_max_abs_err=json.dumps(errs["bfloat16"]),
+         fp16_vs_fp32_max_abs_err=json.dumps(errs["float16"]), tol=LOGIT_TOL,
+         greedy_agreement=json.dumps(agree), decode_steps=4, prompts=len(prompts),
+         paged_launches_per_decode=cfg.n_layers, gathers_on_kernel_path=0,
+         page_bytes=json.dumps(page_bytes_line(infer, cfg)))
+    del engines
+    torch.cuda.empty_cache()
+
+
+def serving_16bit_phases(infer, params, cfg, norm, attn, card, fp32_streams):
+    """The serving mix on bf16 and fp16 pages (``serving_phase``: every
+    decode call on K2's paged mode over the 16-bit pools). bf16: every
+    greedy stream identical to the fp32-pages run's. fp16: the streams'
+    token agreement with that run, printed, not gated (an fp16 page rounds
+    a bf16 value below 2^-14, which may flip a near tie)."""
+    launches = {}
+    for dt in ("bfloat16", "float16"):
+        eng, launches[f"serving_{dt}"], streams = serving_phase(
+            infer, params, cfg, norm, attn, card, cache_dtype=dt,
+            label=f"serving_{dt}")
+        del eng
+        torch.cuda.empty_cache()
+        same = sum(streams[r] == fp32_streams[r] for r in fp32_streams)
+        tokens = [a == b for r in fp32_streams
+                  for a, b in zip(streams[r], fp32_streams[r])]
+        if dt == "bfloat16" and same != len(fp32_streams):
+            raise AssertionError(f"serving_bfloat16: {len(fp32_streams) - same} "
+                                 f"streams differ from fp32 pages'")
+        line(f"serving_{dt}_vs_fp32", streams_identical=same,
+             requests=len(fp32_streams), token_agreement=float(np.mean(tokens)),
+             gated=dt == "bfloat16")
+    return launches
+
+
+# the prefix-heavy mix: the driver's synthetic_trace with four shared
+# 512-token system prompts (Zipf over families), tails of 16-128 tokens and
+# 32-128 new tokens
+PREFIX_TRACE = dict(shared_prefix_tokens=512, prefix_families=4,
+                    prompt_range=(16, 129), new_tokens_range=(32, 129))
+PREFIX_REQUESTS = 32
+
+
+def prefix_trace(driver, cfg, n=PREFIX_REQUESTS, seed=9, rate=50.0):
+    reqs = driver.synthetic_trace(n, rate, seed=seed, vocab=cfg.vocab_size,
+                                  **PREFIX_TRACE)
+    for r in reqs:
+        r.arrival = 0.0  # a closed run: every request is there at the start
+    return reqs
+
+
+def prefix_serving_phase(infer, driver, params, cfg):
+    """The prefix-heavy mix through ``ContinuousBatcher(prefix_cache=True)``
+    with ``ServingTelemetry`` on the serving pool (768 usable pages), and
+    again without the cache on the same pages. Gated: every request
+    finishes; the tree's hit rate is above 0; fewer prompt tokens go
+    through prefill than in the uncached run, and the telemetry counts
+    prefix-hit tokens; page famine evicts at least one tree leaf; no page
+    leaks, and after ``radix.clear()`` every refcount is 0 and the pool
+    full; for each prefix-hit request, the logits of its first token
+    through decode-extend lie within LOGIT_TOL of a fresh prefill of the
+    same prompt. Stream agreement with the uncached run is printed, not
+    gated: decode-extend computes the tail's k and v in GEMMs of another M
+    than prefill, which may flip a near tie in bf16."""
+    ecfg = infer.EngineConfig(**{**ENGINE, "num_pages": SERVE_PAGES})
+    eng = infer.InferenceEngine(params, cfg, ecfg)
+
+    class FirstLogits(infer.ContinuousBatcher):
+        """Records each prefix-hit request's first-token logits: on the
+        decode tick that feeds its last prompt token, the same call through
+        ``decode_logits`` first (it writes the same k and v)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.hits, self.first, self.evicted = set(), {}, 0
+            evict = self.radix.evict
+
+            def counted(n=1):
+                got = evict(n)
+                self.evicted += got
+                return got
+
+            self.radix.evict = counted
+
+        def _try_extend(self, req, now):
+            ok = super()._try_extend(req, now)
+            if ok:
+                self.hits.add(req.rid)
+            return ok
+
+        def _decode(self):
+            rows = [i for i, r in enumerate(self.active)
+                    if r.rid in self.hits and r.rid not in self.first
+                    and r.cached == len(r.prompt) - 1]
+            if rows:
+                logits = self.engine.decode_logits(
+                    [r.sequence[r.cached] for r in self.active],
+                    [r.cached for r in self.active],
+                    [r.pages for r in self.active])
+                for i in rows:
+                    self.first[self.active[i].rid] = logits[i]
+            super()._decode()
+
+    results = {}
+    for cached in (False, True):
+        eng.reset_cache()
+        tel = infer.ServingTelemetry()
+        cls = FirstLogits if cached else infer.ContinuousBatcher
+        bat = cls(eng, telemetry=tel, prefix_cache=cached)
+        reqs = prefix_trace(driver, cfg)
+        prefill_tokens = 0
+        real_prefill = eng.prefill
+
+        def prefill(prompts, tables):
+            nonlocal prefill_tokens
+            prefill_tokens += sum(len(p) for p in prompts)
+            return real_prefill(prompts, tables)
+
+        eng.prefill = prefill
+        try:
+            for r in reqs:
+                bat.submit(r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fin = bat.run(max_steps=20000)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            del eng.prefill
+        if len(fin) != PREFIX_REQUESTS or any(len(r.out) != r.max_new_tokens
+                                              for r in fin):
+            raise AssertionError(f"prefix_serving (cache {cached}): not every "
+                                 f"request finished")
+        results[cached] = dict(bat=bat, tel=tel, wall=wall, prefill_tokens=prefill_tokens,
+                               streams={r.rid: r.out for r in fin},
+                               prompts={r.rid: r.prompt for r in fin})
+    off, on = results[False], results[True]
+    bat, rep = on["bat"], on["tel"].serving_report()
+    if off["bat"].allocator.available != ecfg.num_pages - 1:
+        raise AssertionError("prefix_serving (uncached): pages leaked")
+    if not bat.radix.hit_rate > 0.0 or not rep["prefix_hit_tokens"] > 0:
+        raise AssertionError(f"prefix_serving: hit rate {bat.radix.hit_rate}, "
+                             f"hit tokens {rep['prefix_hit_tokens']}")
+    if not on["prefill_tokens"] < off["prefill_tokens"]:
+        raise AssertionError(f"prefix_serving: {on['prefill_tokens']} prompt tokens "
+                             f"through prefill, uncached {off['prefill_tokens']}")
+    if bat.evicted < 1:
+        raise AssertionError("prefix_serving: no radix eviction under page pressure")
+    held = bat.radix.pages_held
+    if bat.allocator.available + held != ecfg.num_pages - 1:
+        raise AssertionError(f"prefix_serving: {bat.allocator.available} free + "
+                             f"{held} in the tree != {ecfg.num_pages - 1}")
+    bat.radix.clear()
+    if (bat.allocator.available != ecfg.num_pages - 1
+            or any(bat.allocator.refcount(p) for p in range(ecfg.num_pages))):
+        raise AssertionError("prefix_serving: pages held after radix.clear()")
+    # each prefix-hit request's first token through decode-extend against a
+    # fresh prefill of its prompt
+    worst, checked = 0.0, sorted(bat.first)
+    if not checked:
+        raise AssertionError("prefix_serving: no prefix hit reached its first token")
+    for i in range(0, len(checked), 8):
+        rids = checked[i:i + 8]
+        prompts = [on["prompts"][r] for r in rids]
+        alloc = infer.PageAllocator(ecfg.num_pages)
+        tables = [alloc.alloc(infer.pages_for(len(p), ecfg.page_size)) for p in prompts]
+        ref = torch.from_numpy(eng.prefill_logits(prompts, tables))
+        got = torch.from_numpy(np.stack([bat.first[r] for r in rids]))
+        if not torch.isfinite(got).all():
+            raise AssertionError("prefix_serving: non-finite decode-extend logits")
+        worst = max(worst, max_err(got, ref))
+    if worst > LOGIT_TOL:
+        raise AssertionError(f"prefix_serving: decode-extend vs prefill logits {worst}")
+    same = sum(on["streams"][r] == off["streams"][r] for r in off["streams"])
+    tokens = sum(len(s) for s in on["streams"].values())
+    line("prefix_serving", requests=PREFIX_REQUESTS, hit_rate=bat.radix.hit_rate,
+         prefix_hits=rep["prefix_hits"], prefix_hit_tokens=rep["prefix_hit_tokens"],
+         prefill_prompt_tokens=on["prefill_tokens"],
+         uncached_prefill_prompt_tokens=off["prefill_tokens"],
+         radix_evictions=bat.evicted, tree_pages_at_end=held,
+         preemptions=rep["preemptions"],
+         extend_vs_prefill_max_abs_err=worst, extend_checked=len(checked),
+         tol=LOGIT_TOL, streams_equal_uncached=same,
+         tokens_per_s=tokens / on["wall"],
+         uncached_tokens_per_s=tokens / off["wall"],
+         ttft_p50_ms=rep["ttft_p50_ms"], ttft_p99_ms=rep["ttft_p99_ms"],
+         uncached_ttft_p50_ms=off["tel"].serving_report()["ttft_p50_ms"],
+         uncached_ttft_p99_ms=off["tel"].serving_report()["ttft_p99_ms"],
+         signatures=eng.compiled_signatures)
+    del eng, results, bat
+    torch.cuda.empty_cache()
+
+
+def disagg_serving_phase(infer, params, cfg):
+    """``DisaggregatedBatcher`` (prefill buckets 8 and 16, one decode bucket
+    of 32) against the unified batcher on the seeded serving mix and the
+    same 768 usable pages, each with ``ServingTelemetry``. Gated: the strict
+    signature gate stays closed (any undeclared signature raises), every
+    request finishes, no page leaks. Printed: TTFT p50/p99, tokens/s and the
+    streams' agreement."""
+    out = {}
+    for label, cls, extra in (
+            ("unified", infer.ContinuousBatcher, {}),
+            ("disagg", infer.DisaggregatedBatcher,
+             dict(batch_buckets=(8, 16), decode_batch_buckets=(32,)))):
+        ecfg = infer.EngineConfig(**{**ENGINE, "num_pages": SERVE_PAGES, **extra})
+        eng = infer.InferenceEngine(params, cfg, ecfg)
+        tel = infer.ServingTelemetry()
+        bat = cls(eng, telemetry=tel)
+        for r in serving_requests(infer, cfg):
+            bat.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fin = bat.run(max_steps=20000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if len(fin) != N_REQUESTS or any(len(r.out) != r.max_new_tokens for r in fin):
+            raise AssertionError(f"disagg_serving {label}: not every request finished")
+        if bat.allocator.available != ecfg.num_pages - 1:
+            raise AssertionError(f"disagg_serving {label}: pages leaked")
+        if eng.compiled_signatures > ecfg.declared_signatures:
+            raise AssertionError(f"disagg_serving {label}: {eng.compiled_signatures} "
+                                 f"signatures > {ecfg.declared_signatures}")
+        rep = tel.serving_report()
+        out[label] = dict(streams={r.rid: r.out for r in fin},
+                          tokens_per_s=sum(len(r.out) for r in fin) / wall,
+                          ttft_p50_ms=rep["ttft_p50_ms"], ttft_p99_ms=rep["ttft_p99_ms"],
+                          itl_p99_ms=rep["itl_p99_ms"], preemptions=rep["preemptions"],
+                          signatures=eng.compiled_signatures,
+                          declared=ecfg.declared_signatures, calls=eng.call_counts)
+        del eng, bat
+        torch.cuda.empty_cache()
+    same = sum(out["disagg"]["streams"][r] == out["unified"]["streams"][r]
+               for r in out["unified"]["streams"])
+    line("disagg_serving", requests=N_REQUESTS, streams_identical=same,
+         **{f"{k}_{f}": (json.dumps(v[f]) if isinstance(v[f], dict) else v[f])
+            for k, v in out.items() for f in v if f != "streams"})
+
+
+def serve_driver_phase(infer, driver, params, cfg, tmp):
+    """The port driver's ``serve()`` (the asyncio open loop with the armed
+    flight recorder) on the flagship engine, with ``ServingTelemetry`` and
+    the prefix cache, over an open-loop prefix trace: the report's
+    histograms filled, p99 finite, its tokens the finished requests' and no
+    flight file written. Then ``fail_after_steps=3``: the loop raises, and
+    the dump it wrote holds the JAX schema's keys and the scheduler rows."""
+    ecfg = infer.EngineConfig(**{**ENGINE, "num_pages": SERVE_PAGES})
+    eng = infer.InferenceEngine(params, cfg, ecfg)
+    trace = driver.synthetic_trace(24, 40.0, seed=3, vocab=cfg.vocab_size,
+                                   **PREFIX_TRACE)
+    tel = infer.ServingTelemetry()
+    path = os.path.join(tmp, "flight.json")
+    fin = driver.serve(trace, eng, flight_path=path, telemetry=tel, prefix_cache=True)
+    rep = tel.serving_report()
+    if len(fin) != len(trace) or rep["finished"] != len(trace):
+        raise AssertionError("serve_driver: not every request finished")
+    if not (tel.ttft.count == tel.e2e.count == len(trace) and tel.itl.count > 0):
+        raise AssertionError(f"serve_driver: histograms {tel.ttft.count}/"
+                             f"{tel.itl.count}/{tel.e2e.count}")
+    if not all(np.isfinite(rep[k]) for k in ("ttft_p99_ms", "itl_p99_ms", "e2e_p99_ms")):
+        raise AssertionError("serve_driver: a p99 is not finite")
+    if rep["tokens_delivered"] != sum(len(r.out) for r in fin):
+        raise AssertionError("serve_driver: report tokens differ from the requests'")
+    if os.path.exists(path):
+        raise AssertionError("serve_driver: a clean run wrote a flight dump")
+    eng.reset_cache()
+    crash = driver.synthetic_trace(8, 40.0, seed=4, vocab=cfg.vocab_size)
+    try:
+        driver.serve(crash, eng, flight_path=path, fail_after_steps=3)
+    except RuntimeError as e:
+        if "injected" not in str(e):
+            raise
+    else:
+        raise AssertionError("serve_driver: fail_after_steps=3 did not raise")
+    with open(path) as f:
+        dump = json.load(f)
+    schema = {"reason", "created_unix", "capacity", "last_checkpoint", "n_snapshots",
+              "snapshots", "loss_scale_trajectory", "last_health", "dispatch_summary",
+              "comms_summary", "compile_summary", "probe_failures"}
+    if set(dump) != schema or dump["reason"] != "exception:RuntimeError":
+        raise AssertionError(f"serve_driver: dump keys {sorted(dump)}, reason "
+                             f"{dump.get('reason')}")
+    if dump["n_snapshots"] != 3 or set(dump["snapshots"][-1]["metrics"]) != {
+            "active", "waiting", "finished", "free_pages", "tokens_out"}:
+        raise AssertionError("serve_driver: the dump lacks the scheduler rows")
+    line("serve_driver", requests=len(fin), tokens=rep["tokens_delivered"],
+         tokens_per_s=rep["tokens_per_s"], ttft_p50_ms=rep["ttft_p50_ms"],
+         ttft_p99_ms=rep["ttft_p99_ms"], itl_p99_ms=rep["itl_p99_ms"],
+         e2e_p99_ms=rep["e2e_p99_ms"], quantile_error_bound=rep["quantile_error_bound"],
+         prefix_hit_rate=rep["prefix_hit_rate"], preemptions=rep["preemptions"],
+         crash_dump_reason=dump["reason"], crash_dump_snapshots=dump["n_snapshots"])
+    del eng
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------- slice 15: tensor + pipeline parallel
@@ -5272,6 +5740,7 @@ def main():
     from beforeholiday_tpu_torch.ops import quantized as q8
     from beforeholiday_tpu_torch.ops import softmax as sm
     from beforeholiday_tpu_torch.examples.imagenet import main_amp
+    from beforeholiday_tpu_torch.examples.serve import driver
     from beforeholiday_tpu_torch.models import resnet
     from beforeholiday_tpu_torch.ops.arena import make_spec, tree_flatten
     from beforeholiday_tpu_torch.optimizers import FusedAdam, FusedLAMB, FusedSGD
@@ -5294,6 +5763,7 @@ def main():
     torch.cuda.synchronize()
     line("build", seconds=time.perf_counter() - t0, nvcc_seconds=t_nvcc,
          libraries=",".join(sorted(libs)))
+    PHASE_SECONDS["build"] = time.perf_counter() - t0
 
     cfg = gpt.GPTConfig(**MODEL)
     params = gpt.init(cfg, gen(0), device="cuda")
@@ -5307,6 +5777,7 @@ def main():
     rweights = resnet.init(rcfg, gen(2), device="cuda")
     rspecs = o5_specs(rweights[0])
     o0_spec = make_spec(tree_flatten(rweights[0])[0])
+    kernels_t0 = time.perf_counter()
     rows = {"layer_norm_fwd": k1_phase(norm), "flash_fwd": k2_phase(attn),
             "paged_decode": paged_phase(attn, infer.kvcache),
             "layer_norm_bwd": k3_phase(norm), "flash_bwd": k4_phase(attn),
@@ -5324,6 +5795,8 @@ def main():
             "xent_fwd": k14_phase(xent), "xent_bwd": k15_phase(xent),
             "axpby": k16_phase(mt, rspecs), "adagrad": k17_phase(mt, o0_spec),
             "novograd": k18_phase(mt, make_spec, o0_spec)}
+    # slice 16: K2's paged mode over bf16 and fp16 pools
+    rows["paged_decode"].update(paged_16bit_phase(attn, infer.kvcache))
     torch.cuda.empty_cache()
     # slice 13: K2/K4 in fp16 (amp O1/O2), K10 on fp16 params (O3), and
     # the launch floor beside them
@@ -5340,18 +5813,37 @@ def main():
     flash_dropout_laws_phase(attn)
     flash_dropout_rung_phase(attn)
     torch.cuda.empty_cache()
+    PHASE_SECONDS["kernels"] = time.perf_counter() - kernels_t0
 
-    engine_phase(infer, gpt, cast_floats, params, cfg, attn)
-    torch.cuda.empty_cache()
-    eng, serve_launches = serving_phase(infer, params, cfg, norm, attn, card)
-    profile_phase(infer, eng, cfg)
-    del eng
-    torch.cuda.empty_cache()
-    decode_profile_phase(infer, params, cfg)
-    torch.cuda.empty_cache()
+    with phase("engine"):
+        engine_phase(infer, gpt, cast_floats, params, cfg, attn)
+        torch.cuda.empty_cache()
+    with phase("serving"):
+        eng, serve_launches, fp32_streams = serving_phase(infer, params, cfg, norm,
+                                                          attn, card)
+        profile_phase(infer, eng, cfg)
+        del eng
+        torch.cuda.empty_cache()
+    with phase("decode_profile"):
+        decode_profile_phase(infer, params, cfg)
+        torch.cuda.empty_cache()
     # slice 14: the flagship engine on e4m3 pages
-    serve_e4m3_launches, e4m3_decode_launches = serving_e4m3_phase(
-        infer, params, cfg, attn, norm, card)
+    with phase("serving_e4m3"):
+        serve_e4m3_launches, e4m3_decode_launches = serving_e4m3_phase(
+            infer, params, cfg, attn, norm, card)
+        torch.cuda.empty_cache()
+    # slice 16: bf16 and fp16 pages, the prefix cache, disaggregation and
+    # the open-loop driver
+    with phase("pages16"):
+        pages16_parity_phase(infer, params, cfg, attn)
+        serve_16bit_launches = serving_16bit_phases(infer, params, cfg, norm, attn,
+                                                    card, fp32_streams)
+    with phase("prefix_serving"):
+        prefix_serving_phase(infer, driver, params, cfg)
+    with phase("disagg_serving"):
+        disagg_serving_phase(infer, params, cfg)
+    with phase("serve_driver"), tempfile.TemporaryDirectory() as tmp:
+        serve_driver_phase(infer, driver, params, cfg, tmp)
     torch.cuda.empty_cache()
 
     counters = launch_counters(norm, attn, mt, sm, xent)
@@ -5398,6 +5890,7 @@ def main():
         attention="unfused", **lm_work(m, batch))
     del m, step, batch, params
     torch.cuda.empty_cache()
+    mark("gpt_o5_and_unfused")
 
     bert_trainer = lambda **kw: make_bert_trainer(amp, bert, FusedLAMB, bparams,
                                                   bcfg, **kw)
@@ -5445,6 +5938,7 @@ def main():
         attention="unfused", **lm_work(m, batch))
     del m, step
     torch.cuda.empty_cache()
+    mark("bert_and_unfused")
 
     # dropout 0.1/0.1 with a per-step key, flash and unfused: the parity
     # step at batch 2 (one key, so the kernels and the plain path draw the
@@ -5491,6 +5985,7 @@ def main():
             **lm_work(m, batch))
         del m, step
         torch.cuda.empty_cache()
+    mark("dropout_steps")
 
     # the fused label-smoothing cross entropy as the loss of the flash GPT
     # and BERT steps, passed in as a user script passes its loss: the parity
@@ -5537,14 +6032,18 @@ def main():
         **lm_work(m, bert_train_batch))
     del m, step, params, gpt_batch, bert_train_batch, parity
     torch.cuda.empty_cache()
+    mark("xent_steps")
 
     launches.update(gpt_amp_phases(amp, gpt, FusedAdam, cfg, counters, card))
+    mark("gpt_amp")
     # slice 14: the flagship GPT at amp O6 (the fp8 tier)
     from beforeholiday_tpu_torch import guard as guard_mod
     launches["gpt_o6"] = gpt_o6_phases(amp, gpt, FusedAdam, guard_mod, q8, cfg,
                                        counters, card)
     launches["serving_e4m3"] = serve_e4m3_launches
     launches["serving_e4m3_decode"] = e4m3_decode_launches
+    launches.update(serve_16bit_launches)
+    mark("gpt_o6")
 
     resnet_step_parity_phase(main_amp, FusedSGD, tree_flatten, rcfg, rweights)
     resnet_skip_phase(main_amp, rcfg, rweights)
@@ -5562,6 +6061,7 @@ def main():
             card, opt_level=level)
         del tr
         torch.cuda.empty_cache()
+    mark("resnet")
 
     # slice 13: ResNet-50 at amp O2 (the North star's recipe: fp16 arenas,
     # BN fp32, the dynamic scale), O1 and O4 (autocast over fp32 storage,
@@ -5574,6 +6074,7 @@ def main():
     dcgan_parity_phase(dcgan, amp)
     dcgan_phase(dcgan, counters, card)
     torch.cuda.empty_cache()
+    mark("resnet_amp_and_dcgan")
 
     # slice 8: the O5 FusedSGD trainer accumulating two micro-batches (K16),
     # and the list path with FusedAdagrad (K17), FusedNovoGrad (K18),
@@ -5594,6 +6095,7 @@ def main():
             optimizer=f"'{type(tr.amp_model.optimizer.inner).__name__}'")
         del tr, step
         torch.cuda.empty_cache()
+    mark("resnet_paths")
 
     # slice 11: data parallel over torch.distributed (NCCL at world 1 on the
     # card; two gloo ranks on CUDA tensors for the two-rank check)
@@ -5619,6 +6121,7 @@ def main():
     # the same K10 launches as the one-device O5 row, counted on this path
     rows["sgd"]["ddp_resnet"] = rows["sgd"]["resnet_o5"]
     launches["serving"] = serve_launches
+    mark("ddp")
 
     # slice 15: tensor + pipeline parallel (BASELINE config 5). The one-device
     # O5 steps the TP x PP steps are held against run first, while the GPT
@@ -5646,6 +6149,7 @@ def main():
     del tp_refs
     for kname, r in tp_kernel_rows(norm, attn, mt, n_shard).items():
         rows[kname].update(r)
+    mark("tp_pp")
 
     kernels = []
     for kname, route, source, replaces in KERNEL_ROWS:
@@ -5663,6 +6167,7 @@ def main():
                 bound_ms=f["bound_ms"], bound_by=f["bound_by"],
                 library_ms=f["library_ms"]))
     line("total", seconds=time.perf_counter() - t_start)
+    print("phase_seconds: " + json.dumps(PHASE_SECONDS), flush=True)
     print(json.dumps({"kernels": kernels, "launch_floor_ms": launch_floor}),
           flush=True)
     print(card, flush=True)

@@ -300,14 +300,15 @@ def test_decode_workspace_size(cuda, bh, sq, sk, d, floats):
     assert tattn.decode_workspace_floats(bh, sq, sk, d) == floats
 
 
-def _paged_pools(B, H, D, n_pages, page, slots, lens, dtype, seed):
-    """fp32 pools holding values of q's dtype (as write_token stores them),
-    a shuffled table with null slots past each sequence's pages, and q as
-    the QKV projection leaves it: a (B, 1, H*D) chunk of a (B, 1, 3*H*D)
-    tensor."""
+def _paged_pools(B, H, D, n_pages, page, slots, lens, dtype, seed,
+                 pool_dtype=torch.float32):
+    """Pools of ``pool_dtype`` holding values of q's dtype (as write_token
+    stores them), a shuffled table with null slots past each sequence's
+    pages, and q as the QKV projection leaves it: a (B, 1, H*D) chunk of a
+    (B, 1, 3*H*D) tensor."""
     g = _gen(seed)
     pools = [torch.randn(n_pages, page, H * D, generator=g, device="cuda")
-             .to(dtype).float() for _ in range(2)]
+             .to(dtype).to(pool_dtype) for _ in range(2)]
     qkv = torch.randn(B, 1, 3 * H * D, generator=g, device="cuda").to(dtype)
     perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
     table = torch.zeros(B, slots, dtype=torch.int32)
@@ -405,7 +406,7 @@ def test_paged_decode_refuses_what_it_does_not_take(cuda, what):
         q = q.half()
     elif what == "two_rows":
         q = torch.cat([q, q], 1)
-    elif what == "bf16_pool":
+    elif what == "bf16_pool":  # beside an fp32 v pool: two dtypes
         kp = kp.bfloat16()
     elif what == "strided_pool":
         kp = kp.transpose(0, 1).contiguous().transpose(0, 1)
@@ -413,7 +414,95 @@ def test_paged_decode_refuses_what_it_does_not_take(cuda, what):
         tattn._paged_decode_kernel(q, kp, vp, table, ln, H, 0.25, **kw)
 
 
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pool_dtype", [torch.bfloat16, torch.float16])
+def test_paged_decode_on_16bit_pools(cuda, D, dtype, pool_dtype):
+    """bf16 and fp16 pools read in place: bitwise the contiguous mode on
+    the gathered copy converted to q's dtype, twice bitwise, the plain
+    version at K2's bounds, lengths 0 exactly 0; and, since the arithmetic
+    follows q's dtype alone, bitwise the launch over fp32 pools holding the
+    same values (every bf16 value, and every fp16 value read for fp32 q, is
+    an fp32 value; fp16 read for bf16 q rounds once, as the fp32 pool
+    holding the fp16 values rounds it)."""
+    B, H = (32, 16) if D == 64 else (6, 4)
+    lens = _ragged(B, 1024, D + 1)
+    lens[2:6] = [1, 16, 17, 32]
+    q, kp, vp, table, ln = _paged_pools(B, H, D, 2049, 16, 64, lens, dtype, D,
+                                        pool_dtype)
+    scale = D ** -0.5
+    before = tattn._paged_decode_kernel.launches
+    o, lse = tattn._paged_decode_kernel(q, kp, vp, table, ln, H, scale)
+    o2, lse2 = tattn._paged_decode_kernel(q, kp, vp, table, ln, H, scale)
+    wide = tattn._paged_decode_kernel(q, kp.float(), vp.float(), table, ln, H,
+                                      scale)
+    assert tattn._paged_decode_kernel.launches == before + 3
+    heads = lambda t: (t.reshape(B, t.shape[1], H, D).transpose(1, 2)
+                       .reshape(B * H, t.shape[1], D).contiguous())
+    from beforeholiday_tpu_torch.infer.kvcache import gather_pages
+    kc, vc = (heads(gather_pages(p, table).to(dtype)) for p in (kp, vp))
+    co, clse = tattn.flash_fwd_kernel(heads(q), kc, vc, ln.repeat_interleave(H),
+                                      False, scale)
+    ro, rlse = tattn._paged_decode_torch(q, kp, vp, table, ln, H, scale)
+    torch.cuda.synchronize()
+    assert o.shape == (B, 1, H * D) and o.dtype == dtype
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), "two calls differ"
+    assert torch.equal(heads(o), co) and torch.equal(lse, clse)
+    assert torch.equal(o, wide[0]) and torch.equal(lse, wide[1])
+    if dtype == torch.bfloat16:
+        ref_abs = tattn._paged_decode_torch(q.float(), kp, vp.abs(), table, ln, H,
+                                            scale)[0]
+        assert bool(((o.float() - ro.float()).abs()
+                     <= 2 ** -7 * ro.float().abs() + 2 ** -8 * ref_abs).all())
+    else:
+        torch.testing.assert_close(o, ro, **FP32_TOL)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-4)
+    assert torch.all(o[0] == 0) and torch.all(lse[:H] == -1e30)
+
+
 # ------------------------------------------------------------ the engine
+
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "float16"])
+def test_engine_16bit_pages_read_in_place(cuda, cache_dtype, monkeypatch):
+    """A bf16 engine on bf16 or fp16 pages: each decode call launches the
+    paged mode once a layer and gathers no page; on bf16 pages the logits
+    are bitwise those on fp32 pages (the pages hold the same bf16 values,
+    the kernel computes the same), on fp16 pages within 0.1."""
+    from beforeholiday_tpu_torch.infer import kvcache
+
+    cfg = gpt.GPTConfig(vocab_size=512, seq_len=256, d_model=128, n_heads=2,
+                        n_layers=2, dtype=torch.bfloat16)
+    params = gpt.init(cfg, _gen(3), device=cuda)
+    kw = dict(max_seq_len=256, page_size=16, num_pages=49, batch_buckets=(4,),
+              prefill_seq_buckets=(128, 256), weights_dtype="bfloat16")
+    engines = {d: InferenceEngine(params, cfg, EngineConfig(**kw, cache_dtype=d))
+               for d in ("float32", cache_dtype)}
+    assert (engines["float32"].layout.page_bytes
+            == 2 * engines[cache_dtype].layout.page_bytes)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (200, 1, 97)]
+    alloc = PageAllocator(kw["num_pages"])
+    tables = [alloc.alloc(pages_for(len(p) + 4, 16)) for p in prompts]
+    toks = engines["float32"].prefill(prompts, tables).tolist()
+    engines[cache_dtype].prefill(prompts, tables)
+    gathers = []
+    real_gather = kvcache.gather_pages
+    monkeypatch.setattr(kvcache, "gather_pages",
+                        lambda *a: gathers.append(1) or real_gather(*a))
+    lens = [len(p) for p in prompts]
+    for _ in range(4):
+        paged = tattn._paged_decode_kernel.launches
+        got = engines[cache_dtype].decode_logits(toks, lens, tables)
+        assert tattn._paged_decode_kernel.launches - paged == cfg.n_layers
+        ref = engines["float32"].decode_logits(toks, lens, tables)
+        assert not gathers and np.isfinite(got).all()
+        if cache_dtype == "bfloat16":
+            np.testing.assert_array_equal(got, ref)
+        else:
+            np.testing.assert_allclose(got, ref, atol=0.1, rtol=0)
+        toks = ref.argmax(-1).tolist()
+        lens = [n + 1 for n in lens]
 
 
 def test_engine_kernels_match_plain_path(cuda):

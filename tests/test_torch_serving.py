@@ -279,11 +279,6 @@ def test_submit_validation(engines, req):
         tinfer.ContinuousBatcher(engines[1]).submit(tinfer.Request(rid=0, **req))
 
 
-def test_prefix_cache_not_ported(engines):
-    with pytest.raises(NotImplementedError):
-        tinfer.ContinuousBatcher(engines[1], prefix_cache=True)
-
-
 # ------------------------------------------------------- host-side pieces
 
 
@@ -456,6 +451,16 @@ PORT_FILES = sorted(
               REPO / "chip_smoke.py"]
 )
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "beforeholiday_tpu"}
+# the serving tier's modules (and the driver) the scan must reach
+SERVING_TIER = ("infer/radix.py", "infer/batching.py", "infer/disagg.py",
+                "infer/telemetry.py", "infer/kvcache.py", "monitor/histo.py",
+                "monitor/trace.py", "monitor/flight.py", "monitor/compile.py",
+                "utils/logging.py", "examples/serve/driver.py")
+
+
+def test_scan_covers_the_serving_tier():
+    for path in SERVING_TIER:
+        assert f"beforeholiday_tpu_torch/{path}" in PORT_FILES, path
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
@@ -490,3 +495,20 @@ def test_entry_points_raise_without_a_card(models, monkeypatch):
         tgpt.synthetic_batch(tcfg, 2, generator=torch.Generator())
     with pytest.raises(RuntimeError):
         tgpt.state_from_numpy({"step": np.zeros((), np.int32)})
+
+
+def test_prefill_logits_match_jax_last_position(models, engines):
+    """``prefill_logits`` returns each prompt's last-position logits, the
+    JAX full forward's, and their argmax is ``prefill``'s token."""
+    jcfg, jparams, _, _ = models
+    _, te = engines
+    te.reset_cache()
+    prompts = [[5, 9, 2, 7, 1, 3], [11, 4, 8]]
+    tables = [[1], [2]]
+    got = te.prefill_logits(prompts, tables)
+    toks = te.prefill(prompts, tables)
+    assert got.shape == (2, TINY["vocab_size"]) and got.dtype == np.float32
+    np.testing.assert_array_equal(got.argmax(-1), toks)
+    for row, p in zip(got, prompts):
+        ref = np.asarray(jgpt.forward(jparams, jnp.asarray([p]), jcfg))[0, -1]
+        np.testing.assert_allclose(row, ref, atol=ATOL, rtol=0)
