@@ -50,7 +50,8 @@ constexpr int kCalls = kPatchCols / 2;
 __global__ void __launch_bounds__(kThreads)
 dropout_mask_kernel(const long long* __restrict__ key, uint32_t lim, bool any,
                     uint8_t* __restrict__ out, int bh, int rows, int cols, int groups,
-                    int patches) {
+                    int patches, int heads_local, int heads_total, int head0,
+                    int pair0) {
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= patches) return;
   const int pair = p / groups;
@@ -65,14 +66,15 @@ dropout_mask_kernel(const long long* __restrict__ key, uint32_t lim, bool any,
                  static_cast<size_t>(r0) * cols + c0;
   const size_t step = static_cast<size_t>(gridDim.y) * plane;
   const uint32_t ccol = static_cast<uint32_t>(c0 >> 1);
+  const uint32_t crow = static_cast<uint32_t>(pair0 + pair);  // the one-device row pair
   for (int b = blockIdx.y; b < bh; b += gridDim.y, dst += step) {
+    const uint32_t gb = place_bh(heads_local, heads_total, head0, b);
     // bytes of the patch: row r0 from words x, y of each call, row r0 + 1
     // from z, w; call j covers columns c0 + 2j and c0 + 2j + 1
     uint32_t even[kCalls / 2], odd[kCalls / 2];
 #pragma unroll
     for (int j = 0; j < kCalls; ++j) {
-      const Philox4 w = philox4x32_10(ccol + j, static_cast<uint32_t>(pair),
-                                      static_cast<uint32_t>(b), 0u, k);
+      const Philox4 w = philox4x32_10(ccol + j, crow, gb, 0u, k);
       const uint32_t e = static_cast<uint32_t>(any && w.x <= lim) |
                          (static_cast<uint32_t>(any && w.y <= lim) << 8);
       const uint32_t o = static_cast<uint32_t>(any && w.z <= lim) |
@@ -110,16 +112,23 @@ dropout_mask_kernel(const long long* __restrict__ key, uint32_t lim, bool any,
 }  // namespace
 
 // key: int64 (2,) on the card; out: uint8 (bh, rows, cols), contiguous.
-// Keeps where the hash word's top 24 bits are below threshold. The grid
+// Keeps where the hash word's top 24 bits are below threshold. The block
+// is the rank's part of the one-device block (philox.cuh DropArgs): its
+// plane b is plane place_bh(b) there and its row r row row0 + r, row0
+// even so that the rank's row pairs are the hash's; heads_local =
+// heads_total, head0 = row0 = 0 is the one-device block itself. The grid
 // (ops/attention.py dropout_mask_geometry): grid_x blocks of kThreads over
 // the plane's ceil(rows / 2) x groups patches, grid_y <= 65,535 planes at a
 // time. Returns the CUDA error of the launch (0 on success).
 extern "C" int dropout_mask(const long long* key, unsigned threshold, void* out, int bh,
                             int rows, int cols, int groups, int patches, int grid_x,
-                            int grid_y, void* stream) {
+                            int grid_y, int heads_local, int heads_total, int head0,
+                            int row0, void* stream) {
   if (bh <= 0 || rows <= 0 || cols <= 0) return 0;
   if (grid_x <= 0 || grid_y <= 0 || grid_y > 65535 ||
-      static_cast<long long>(grid_x) * kThreads < patches)
+      static_cast<long long>(grid_x) * kThreads < patches || heads_local <= 0 ||
+      heads_total < heads_local || head0 < 0 || head0 > heads_total - heads_local ||
+      row0 < 0 || (row0 & 1))
     return static_cast<int>(cudaErrorInvalidConfiguration);
   // (word >> 8) < threshold, as one compare: word <= threshold * 256 - 1,
   // which for threshold 2^24 (rate 0) keeps every word; threshold 0 keeps none
@@ -127,7 +136,8 @@ extern "C" int dropout_mask(const long long* key, unsigned threshold, void* out,
       static_cast<uint32_t>(static_cast<unsigned long long>(threshold) * 256u - 1u);
   dropout_mask_kernel<<<dim3(grid_x, grid_y), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      key, lim, threshold > 0, static_cast<uint8_t*>(out), bh, rows, cols, groups, patches);
+      key, lim, threshold > 0, static_cast<uint8_t*>(out), bh, rows, cols, groups, patches,
+      heads_local, heads_total, head0, row0 / 2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -144,7 +144,7 @@ flash_bwd_dq_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kend = causal ? min(len, min(q0 + kBlkB, sq)) : len;
   const int rbase = q0 + warp * kRowsB;  // even: its two rows share a hash tile
   DropKey dk{};
-  if constexpr (kDrop) dk = load_drop_key(drop);
+  if constexpr (kDrop) dk = load_drop_key(drop, bh);
 
   for (int i = threadIdx.x; i < kBlkB * D; i += blockDim.x) {
     const int r = i / D, c = i % D;
@@ -189,7 +189,7 @@ flash_bwd_dq_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     const int key = t0 + lane;
     uint32_t tile = 0;
-    if constexpr (kDrop) tile = keep_tile(dk, bh, rbase, key);
+    if constexpr (kDrop) tile = keep_tile(dk, rbase, key);
     float ds[kRowsB];
 #pragma unroll
     for (int r = 0; r < kRowsB; ++r) {
@@ -251,7 +251,7 @@ flash_bwd_dkv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int len = min(max(lens[bh], 0), sk);
   const int kbase = k0 + warp * kRowsB;  // even: its two keys share a hash tile
   DropKey dkey{};
-  if constexpr (kDrop) dkey = load_drop_key(drop);
+  if constexpr (kDrop) dkey = load_drop_key(drop, bh);
 
   for (int i = threadIdx.x; i < kBlkB * D; i += blockDim.x) {
     const int r = i / D, c = i % D;
@@ -284,7 +284,7 @@ flash_bwd_dkv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     const int qi = t0 + lane;
     uint32_t tile = 0;
-    if constexpr (kDrop) tile = keep_tile(dkey, bh, qi, kbase);
+    if constexpr (kDrop) tile = keep_tile(dkey, qi, kbase);
     const float* qr = qs + lane * (D + 1);
     const float* dor = dos + lane * (D + 1);
     float p[kRowsB], ds[kRowsB];
@@ -398,7 +398,7 @@ flash_bwd_dq_mma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int ntiles = (kend + kBK - 1) / kBK;
   const float sl2 = scale * kLog2e;
   DropKey dkey{};
-  if constexpr (kDrop) dkey = load_drop_key(drop);
+  if constexpr (kDrop) dkey = load_drop_key(drop, bh);
 
   auto load_kv = [&](int i) {  // thread 0 starts tile i's copies
     if (i < ntiles && threadIdx.x == 0) {
@@ -445,7 +445,7 @@ flash_bwd_dq_mma_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_ss_rows<T, D, kDqBQ, kBK>(s, qs, m0, ks);
       wgmma_ss_rows<T, D, kDqBQ, kBK>(dp, dos, m0, vs);
       uint32_t keep[kBK / 32];  // the dropout hash, while the products run
-      if constexpr (kDrop) keep_bits<kBK / 8>(keep, dkey, bh, r0, t0 + 2 * t, lane, false);
+      if constexpr (kDrop) keep_bits<kBK / 8>(keep, dkey, r0, t0 + 2 * t, lane, false);
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
@@ -536,7 +536,7 @@ flash_bwd_dkv_mma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int len = min(max(lens[bh], 0), sk);
   const float sl2 = scale * kLog2e;
   DropKey dkey{};
-  if constexpr (kDrop) dkey = load_drop_key(drop);
+  if constexpr (kDrop) dkey = load_drop_key(drop, bh);
 
   // keys at or past len get no gradient; causal: no query before k0 sees them
   const int qbeg = causal ? (k0 / kBQ) * kBQ : 0;
@@ -599,7 +599,7 @@ flash_bwd_dkv_mma_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_ss_rows<T, D, kDkvBK, kBQ>(s, kss, 0, qs);
       wgmma_ss_rows<T, D, kDkvBK, kBQ>(dp, vss, 0, dos);
       uint32_t keep[kBQ / 32];  // the dropout hash, while the products run
-      if constexpr (kDrop) keep_bits<kBQ / 8>(keep, dkey, bh, key0, t0 + 2 * t, lane, true);
+      if constexpr (kDrop) keep_bits<kBQ / 8>(keep, dkey, key0, t0 + 2 * t, lane, true);
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
@@ -807,18 +807,23 @@ int launch_drop(const Args& a) {
 // d); k, v, dk, dv (bh, sk, d), all contiguous and 16-byte aligned, d in
 // 8..512; lse and dd (bh, sq) fp32, dd scratch; dlse (bh, sq) fp32 or null; lens (bh,) int32.
 // key: null for no dropout, else the forward's int64 (2,) key on the card,
-// with threshold = round((1 - rate) 2^24) and inv_keep = 1 / (1 - rate).
+// with threshold = round((1 - rate) 2^24) and inv_keep = 1 / (1 - rate);
+// heads_local, heads_total, head0: the forward's rank place (flash_fwd).
 // Returns the CUDA error of the first launch that failed (0 on success).
 extern "C" int flash_bwd(int dtype, const void* q, const void* k, const void* v,
                          const void* o, const void* dout, const float* lse,
                          const float* dlse, const int* lens, void* dq, void* dk,
                          void* dv, float* dd, int bh, int sq, int sk, int d, float scale,
                          int causal, const long long* key, unsigned threshold,
-                         float inv_keep, void* stream) {
+                         float inv_keep, int heads_local, int heads_total, int head0,
+                         void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0) return 0;  // the caller zero-fills
-  if (bh > 65535 || d < 8 || d > 512) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (bh > 65535 || d < 8 || d > 512 || heads_local <= 0 || heads_total < heads_local ||
+      head0 < 0 || head0 > heads_total - heads_local)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   const Args a{q, k, v, o, dout, lse, dlse, lens, dq, dk, dv, dd, bh, sq, sk, d, scale, causal,
-               DropArgs{key, threshold, inv_keep}, static_cast<cudaStream_t>(stream)};
+               DropArgs{key, threshold, inv_keep, heads_local, heads_total, head0},
+               static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return launch_drop<float>(a);
   if (dtype == 1) return launch_drop<__nv_bfloat16>(a);
   if (dtype == 2) return launch_drop<__half>(a);

@@ -514,11 +514,10 @@ constexpr float kLn2 = 0.6931471805599453f;
 // rows are keys and the hash is called with the roles of row and column
 // swapped by `transposed`). Returns {tile of row0, tile of row0 + 8}.
 __device__ __forceinline__ void keep_tiles_shared(uint32_t (&tiles)[2], const DropKey& d,
-                                                  uint32_t bh, int row0, int col, int lane,
-                                                  bool transposed) {
+                                                  int row0, int col, int lane, bool transposed) {
   const bool odd = (lane >> 2) & 1;
   const int r = odd ? row0 + 8 : row0;
-  const uint32_t mine = transposed ? keep_tile(d, bh, col, r) : keep_tile(d, bh, r, col);
+  const uint32_t mine = transposed ? keep_tile(d, col, r) : keep_tile(d, r, col);
   const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 4);
   tiles[0] = odd ? other : mine;
   tiles[1] = odd ? mine : other;
@@ -530,14 +529,13 @@ __device__ __forceinline__ void keep_tiles_shared(uint32_t (&tiles)[2], const Dr
 // r0 and r0 + 8 are the C rows (transposed: keys, with the columns queries).
 template <int kNT>
 __device__ __forceinline__ void keep_bits(uint32_t (&bits)[(kNT + 3) / 4], const DropKey& d,
-                                          uint32_t bh, int row0, int col0, int lane,
-                                          bool transposed) {
+                                          int row0, int col0, int lane, bool transposed) {
 #pragma unroll
   for (int w = 0; w < (kNT + 3) / 4; ++w) bits[w] = 0u;
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt) {
     uint32_t tiles[2];
-    keep_tiles_shared(tiles, d, bh, row0, col0 + nt * 8, lane, transposed);
+    keep_tiles_shared(tiles, d, row0, col0 + nt * 8, lane, transposed);
     bits[nt >> 2] |= (tiles[0] | (tiles[1] << 4)) << ((nt & 3) * 8);
   }
 #pragma unroll

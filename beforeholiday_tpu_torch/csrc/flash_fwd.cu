@@ -115,7 +115,7 @@ flash_fwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // keys any row of this block can see
   const int kend = causal ? min(len, min(q0 + kBQ, sq)) : len;
   DropKey dk{};
-  if constexpr (kDrop) dk = load_drop_key(drop);
+  if constexpr (kDrop) dk = load_drop_key(drop, bh);
 
   for (int i = threadIdx.x; i < kBQ * D; i += blockDim.x) {
     const int r = i / D, c = i % D;
@@ -158,7 +158,7 @@ flash_fwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
     uint32_t tiles[kRows / 2];
     if constexpr (kDrop) {
 #pragma unroll
-      for (int j = 0; j < kRows / 2; ++j) tiles[j] = keep_tile(dk, bh, rbase + 2 * j, key);
+      for (int j = 0; j < kRows / 2; ++j) tiles[j] = keep_tile(dk, rbase + 2 * j, key);
     }
     float p[kRows];
 #pragma unroll
@@ -453,7 +453,7 @@ flash_decode_chunk_kernel(const DecodeArgs a) {
     for (int e = 0; e < kE; ++e) acc[r][e] = 0.f;
   }
   DropKey dk{};
-  if constexpr (kDrop) dk = load_drop_key(a.drop);
+  if constexpr (kDrop) dk = load_drop_key(a.drop, bh);
 
   for (int i = 0; i < ntiles; ++i) {
     const int t0 = c0 + i * kDecBK;
@@ -502,7 +502,7 @@ flash_decode_chunk_kernel(const DecodeArgs a) {
       for (int e = 0; e < kE; ++e) acc[r][e] *= alpha;
       m[r] = m_new;
       if constexpr (kDrop) {
-        if ((r & 1) == 0) tile = keep_tile(dk, bh, r, key);  // rows r, r + 1 share a tile
+        if ((r & 1) == 0) tile = keep_tile(dk, r, key);  // rows r, r + 1 share a tile
         if (live) pr = kept(tile, r, key) ? pr * a.drop.inv_keep : 0.f;
       }
       p[r] = pr;
@@ -698,7 +698,7 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int ntiles = (kend + kMmaBK - 1) / kMmaBK;
   const float sl2 = scale * kLog2e;
   DropKey dk{};
-  if constexpr (kDrop) dk = load_drop_key(drop);
+  if constexpr (kDrop) dk = load_drop_key(drop, bh);
 
   auto load_kv = [&](int i) {  // thread 0 starts tile i's copies
     if (i < ntiles && threadIdx.x == 0) {
@@ -739,7 +739,7 @@ flash_fwd_mma_kernel(const __grid_constant__ CUtensorMap qmap,
       float s[kMmaBK / 8][4];
       wgmma_ss_rows<T, D, kMmaBQ, kMmaBK>(s, qs, m0, ks);
       uint32_t keep[kMmaBK / 32];  // the dropout hash, while the product runs
-      if constexpr (kDrop) keep_bits<kMmaBK / 8>(keep, dk, bh, r0, t0 + 2 * t, lane, false);
+      if constexpr (kDrop) keep_bits<kMmaBK / 8>(keep, dk, r0, t0 + 2 * t, lane, false);
       wgmma_wait<0>();
       fence_regs(s);
       // the mask only where the tile holds lens[bh] or this warp's diagonal
@@ -962,18 +962,24 @@ int launch_paged_pools(const DecodeArgs& a, int d, int pool_dtype) {
 // all contiguous and 16-byte aligned, d in 8..512; lens (bh,) int32; o like q;
 // lse (bh, sq) float32. key: null for no dropout, else int64 (2,) on the
 // card, with threshold = round((1 - rate) 2^24) and inv_keep = 1 / (1 -
-// rate). ws: the decode path's fp32 workspace, flash_fwd_decode_ws_floats
-// floats (null where that is 0).
+// rate); heads_local, heads_total, head0: the rank place of the mask
+// (philox.cuh DropArgs; heads_local = heads_total, head0 = 0 on one device).
+// ws: the decode path's fp32 workspace, flash_fwd_decode_ws_floats floats
+// (null where that is 0).
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v,
                          const int* lens, void* o, float* lse, int bh, int sq,
                          int sk, int d, float scale, int causal, const long long* key,
-                         unsigned threshold, float inv_keep, float* ws,
-                         long long ws_floats, void* stream) {
+                         unsigned threshold, float inv_keep, int heads_local,
+                         int heads_total, int head0, float* ws, long long ws_floats,
+                         void* stream) {
   if (bh <= 0 || sq <= 0) return 0;
-  if (bh > 65535 || d < 8 || d > 512) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (bh > 65535 || d < 8 || d > 512 || heads_local <= 0 || heads_total < heads_local ||
+      head0 < 0 || head0 > heads_total - heads_local)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   const Args a{q, k, v, lens, o, lse, bh, sq, sk, d, scale, causal,
-               DropArgs{key, threshold, inv_keep}, ws, ws_floats,
+               DropArgs{key, threshold, inv_keep, heads_local, heads_total, head0}, ws,
+               ws_floats,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return launch_drop<float>(a);
   if (dtype == 1) return launch_drop<__nv_bfloat16>(a);

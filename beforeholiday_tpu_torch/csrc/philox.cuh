@@ -21,19 +21,32 @@
 namespace {
 
 // the dropout operands of a launch: the key lives on the card (int64 (2,),
-// low 32 bits of each), so a key derived on the device needs no host sync
+// low 32 bits of each), so a key derived on the device needs no host sync.
+// The rank place: a tensor-parallel rank holding heads head0 .. head0 +
+// heads_local of heads_total launches over its local bh = b heads_local + h
+// and draws the one-device tensor's mask at bh = b heads_total + head0 + h
+// (on one device heads_local = heads_total, head0 = 0: bh itself)
 struct DropArgs {
   const long long* key;
   uint32_t threshold;  // keep when (word >> 8) < threshold
   float inv_keep;      // 1 / (1 - rate)
+  int heads_local = 1, heads_total = 1, head0 = 0;
 };
 
+// a block's dropout state: the key, the threshold and the one-device bh
+// its hash counts with
 struct DropKey {
-  uint32_t k0, k1, threshold;
+  uint32_t k0, k1, threshold, bh;
 };
 
-__device__ __forceinline__ DropKey load_drop_key(const DropArgs& a) {
-  return {static_cast<uint32_t>(a.key[0]), static_cast<uint32_t>(a.key[1]), a.threshold};
+__device__ __forceinline__ uint32_t place_bh(int heads_local, int heads_total, int head0,
+                                             int bh) {
+  return static_cast<uint32_t>(bh + (bh / heads_local) * (heads_total - heads_local) + head0);
+}
+
+__device__ __forceinline__ DropKey load_drop_key(const DropArgs& a, int bh) {
+  return {static_cast<uint32_t>(a.key[0]), static_cast<uint32_t>(a.key[1]), a.threshold,
+          place_bh(a.heads_local, a.heads_total, a.head0, bh)};
 }
 
 struct Philox4 {
@@ -76,10 +89,10 @@ __device__ __forceinline__ Philox4 philox4x32_10(uint32_t c0, uint32_t c1, uint3
   return philox4x32_10(c0, c1, c2, c3, philox_keys(k0, k1));
 }
 
-// the keep bits of the 2x2 tile holding (row, col): bit 2 (row % 2) + col % 2
-__device__ __forceinline__ uint32_t keep_tile(const DropKey& d, uint32_t bh, uint32_t row,
-                                              uint32_t col) {
-  const Philox4 r = philox4x32_10(col >> 1, row >> 1, bh, 0u, d.k0, d.k1);
+// the keep bits of the 2x2 tile holding (row, col) of the block's plane:
+// bit 2 (row % 2) + col % 2
+__device__ __forceinline__ uint32_t keep_tile(const DropKey& d, uint32_t row, uint32_t col) {
+  const Philox4 r = philox4x32_10(col >> 1, row >> 1, d.bh, 0u, d.k0, d.k1);
   return static_cast<uint32_t>((r.x >> 8) < d.threshold) |
          (static_cast<uint32_t>((r.y >> 8) < d.threshold) << 1) |
          (static_cast<uint32_t>((r.z >> 8) < d.threshold) << 2) |

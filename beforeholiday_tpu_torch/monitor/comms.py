@@ -49,6 +49,7 @@ __all__ = [
     "pmax",
     "pmin",
     "ppermute",
+    "ppermute_differentiable",
     "psum",
     "psum_scatter",
     "record",
@@ -262,11 +263,26 @@ def psum_scatter(x, axis_name, *, site: str, scatter_dimension: int = 0,
     return _finish(out, work, async_op)
 
 
-def ppermute(x, axis_name, perm, *, site: str, tier=None):
+class _Works:
+    """The works of one ``batch_isend_irecv``, waited on together."""
+
+    def __init__(self, works):
+        self.works = works
+
+    def wait(self):
+        for work in self.works:
+            work.wait()
+        return True
+
+
+def ppermute(x, axis_name, perm, *, site: str, tier=None,
+             async_op: bool = False, tag: int = 0):
     """``lax.ppermute``: ``perm`` lists ``(source, destination)`` pairs of
     group-local ranks; this rank sends ``x`` to its destination and returns
     what its source sent (zeros where no pair names it a destination). One
-    ``batch_isend_irecv`` over the group; a pair onto itself is a copy."""
+    ``batch_isend_irecv`` over the group; a pair onto itself is a copy.
+    ``tag`` keeps exchanges in flight together apart (two rings between the
+    same two ranks)."""
     record("ppermute", axis_name, x, site=site, tier=tier)
     group = _group(axis_name)
     members = dist.get_process_group_ranks(group)
@@ -281,13 +297,35 @@ def ppermute(x, axis_name, perm, *, site: str, tier=None):
     if dst and dst[0] == me:
         out.copy_(src_t)
     elif dst:
-        ops.append(dist.P2POp(dist.isend, src_t, members[dst[0]], group))
+        ops.append(dist.P2POp(dist.isend, src_t, members[dst[0]], group, tag))
     if src and src[0] != me:
-        ops.append(dist.P2POp(dist.irecv, out, members[src[0]], group))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    return out
+        ops.append(dist.P2POp(dist.irecv, out, members[src[0]], group, tag))
+    works = _Works(dist.batch_isend_irecv(ops) if ops else [])
+    if not async_op:
+        works.wait()
+    return _finish(out, works, async_op)
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, perm, site, tier):
+        ctx.axis_name, ctx.site, ctx.tier = axis_name, site, tier
+        ctx.inverse = [(d, s) for s, d in perm]
+        return ppermute(x, axis_name, perm, site=site, tier=tier)
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = ppermute(dy, ctx.axis_name, ctx.inverse, site=f"{ctx.site}.bwd",
+                      tier=ctx.tier)
+        return dx, None, None, None, None
+
+
+def ppermute_differentiable(x, axis_name, perm, *, site: str, tier=None):
+    """:func:`ppermute` that autograd differentiates as JAX transposes
+    ``lax.ppermute``: the cotangent rides the inverse permutation back, a
+    call booked at ``site + ".bwd"`` (JAX's ledger records only the forward
+    it traced)."""
+    return _Ppermute.apply(x, axis_name, perm, site, tier)
 
 
 def all_to_all(x, axis_name, split_axis: int, concat_axis: int, *, site: str,

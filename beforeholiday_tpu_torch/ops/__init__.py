@@ -28,6 +28,7 @@ from .arena import (  # noqa: F401
     views_to_arena,
 )
 from .attention import (  # noqa: F401
+    RankPlace,
     dropout_keep_mask,
     flash_attention,
     flash_attention_with_lse,
@@ -70,6 +71,7 @@ __all__ = [
     "ArenaSpec",
     "PackedLayout",
     "PackedParams",
+    "RankPlace",
     "adam_flat",
     "bucket_by_dtype",
     "flatten",

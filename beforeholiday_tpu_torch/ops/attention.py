@@ -31,6 +31,14 @@ integers. K2, K4 and K13 include the same header, and
 plain versions and :func:`dropout_keep_mask` draw the same mask bit for bit,
 whatever tiles each one walks.
 
+Under tensor parallelism a rank holds some heads of the one-device tensor
+(and, under sequence parallelism, some of its rows), and its dropout masks
+must be the one-device masks' slices. A :class:`RankPlace` says where the
+rank's block lies; K2, K4 and K13 and their plain versions hash the
+one-device element's counter for each element of the rank's block, so a
+rank draws only its own part of the mask, and a launch without a place is
+the one-device launch, bit for bit.
+
 The wrappers keep the JAX module's layout at the public functions:
 :func:`flash_attention` takes ``(B, H, S, D)`` and per-sequence ``kv_lens``,
 :func:`flash_attention_with_lse` takes the ``(BH, S, D)`` view and also
@@ -44,7 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -121,6 +129,38 @@ def philox4x32(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
+class RankPlace(NamedTuple):
+    """Where a rank's ``(BH, rows, cols)`` dropout block lies in the
+    one-device block: the rank holds ``heads`` of the ``total_heads`` heads,
+    from ``head0`` on, so its plane ``b * heads + h`` is the one-device
+    plane ``b * total_heads + head0 + h``, and its row ``r`` is the
+    one-device row ``row0 + r``. The one-device block itself is
+    ``RankPlace(n, n)`` for any ``n``; K13 takes an even ``row0`` only."""
+
+    heads: int
+    total_heads: int
+    head0: int = 0
+    row0: int = 0
+
+    def plane(self, bh):
+        """The one-device plane of local plane ``bh`` (an int or an
+        integer tensor)."""
+        return bh + (bh // self.heads) * (self.total_heads - self.heads) + self.head0
+
+
+def _place_args(place: Optional[RankPlace], BH: int):
+    """``(heads, total_heads, head0, row0)`` of ``place`` for a block of
+    ``BH`` planes (None: the one-device block), checked."""
+    if place is None:
+        return max(BH, 1), max(BH, 1), 0, 0
+    hl, H, h0, r0 = (int(n) for n in place)
+    if hl < 1 or H < hl or not 0 <= h0 <= H - hl or r0 < 0 or BH % hl:
+        raise ValueError(f"a rank place needs 1 <= heads <= total_heads, 0 <= "
+                         f"head0 <= total_heads - heads, row0 >= 0 and the "
+                         f"block's {BH} planes a multiple of heads; got {place}")
+    return hl, H, h0, r0
+
+
 def keep_threshold(rate: float) -> int:
     """An element is kept when the top 24 bits of its hash word are below
     this: ``round((1 - rate) * 2**24)``."""
@@ -143,22 +183,27 @@ def _check_key(key, device=None):
 
 
 def dropout_keep_mask_torch(key: torch.Tensor, shape: Sequence[int],
-                            rate: float) -> torch.Tensor:
+                            rate: float,
+                            place: Optional[RankPlace] = None) -> torch.Tensor:
     """Plain PyTorch version of K13: the bool keep mask of the ``(BH, rows,
     cols)`` coordinate block, on the key's device. Element ``(b, r, c)``
     reads word ``2 (r % 2) + c % 2`` of the hash of counter ``(c // 2,
-    r // 2, b, 0)``."""
+    r // 2, b, 0)``, with ``b`` and ``r`` the one-device plane and row of
+    ``place``."""
     BH, R, C = shape
+    _, _, _, r0 = _place_args(place, BH)
     thr = keep_threshold(rate)
-    rp, cp = (R + 1) // 2, (C + 1) // 2
+    off = r0 % 2  # the rank's first row is the second of its hash tile
+    rp, cp = (off + R + 1) // 2, (C + 1) // 2
     ar = functools.partial(torch.arange, dtype=torch.int64, device=key.device)
-    words = philox4x32(ar(cp)[None, None, :], ar(rp)[None, :, None],
-                       ar(BH)[:, None, None], 0, key[0], key[1])
+    planes = ar(BH) if place is None else RankPlace(*place).plane(ar(BH))
+    words = philox4x32(ar(cp)[None, None, :], (r0 // 2 + ar(rp))[None, :, None],
+                       planes[:, None, None], 0, key[0], key[1])
     keep = [(w.expand(BH, rp, cp) >> 8) < thr for w in words]
     even = torch.stack(keep[:2], -1).reshape(BH, rp, 2 * cp)
     odd = torch.stack(keep[2:], -1).reshape(BH, rp, 2 * cp)
     mask = torch.stack((even, odd), 2).reshape(BH, 2 * rp, 2 * cp)
-    return mask[:, :R, :C].contiguous()
+    return mask[:, off:off + R, :C].contiguous()
 
 
 # K13's launch: a thread owns a 2-row by 16-column patch of a (rows, cols)
@@ -197,21 +242,27 @@ def _mask_lib():
     lib = _build.load("dropout_mask")
     fn = lib.dropout_mask
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, ctypes.c_uint, p, i, i, i, i, i, i, i, p]
+    fn.argtypes = [p, ctypes.c_uint, p, i, i, i, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     lib.dropout_mask_blocks_per_sm.restype = ctypes.c_int
     return fn, max(1, lib.dropout_mask_blocks_per_sm())
 
 
 def dropout_keep_mask_kernel(key: torch.Tensor, shape: Sequence[int],
-                             rate: float) -> torch.Tensor:
+                             rate: float,
+                             place: Optional[RankPlace] = None) -> torch.Tensor:
     """Launch K13 on the key's CUDA device; returns the bool keep mask of
-    the ``(BH, rows, cols)`` coordinate block."""
+    the ``(BH, rows, cols)`` coordinate block at ``place`` (an even
+    ``row0``)."""
     if not key.is_cuda:
         raise ValueError("K13 takes a dropout key on a CUDA device")
     _check_key(key)
     BH, R, C = shape
-    if max(BH, R, C) >= 2 ** 31:
+    hl, H, h0, r0 = _place_args(place, BH)
+    if r0 % 2:
+        raise ValueError(f"K13 draws whole row pairs: its place takes an even "
+                         f"row0, got {r0}")
+    if max(BH, R, C, r0 + R) >= 2 ** 31:
         raise ValueError(f"K13 indexes each dim in int32, got {tuple(shape)}")
     thr = keep_threshold(rate)
     out = torch.empty((BH, R, C), dtype=torch.uint8, device=key.device)
@@ -224,7 +275,7 @@ def dropout_keep_mask_kernel(key: torch.Tensor, shape: Sequence[int],
         stream = torch.cuda.current_stream(key.device).cuda_stream
         rc = fn(key.contiguous().data_ptr(), thr, out.data_ptr(), BH, R, C,
                 geo["groups"], geo["patches"], geo["grid_x"], geo["grid_y"],
-                stream)
+                hl, H, h0, r0, stream)
     if rc != 0:
         raise RuntimeError(f"K13 (dropout_mask) launch failed with CUDA error {rc}")
     dropout_keep_mask_kernel.launches += 1
@@ -235,30 +286,36 @@ dropout_keep_mask_kernel.launches = 0
 
 
 def dropout_keep_mask(key: torch.Tensor, shape: Sequence[int], rate: float, *,
-                      impl: Optional[str] = None) -> torch.Tensor:
+                      impl: Optional[str] = None,
+                      place: Optional[RankPlace] = None) -> torch.Tensor:
     """The dropout keep mask (bool) of the ``(BH, rows, cols)`` coordinate
     block under ``key`` at ``rate``: the very bits K2 and K4 draw in-kernel
-    for attention probabilities at ``(bh, query, key)``. K13 for a key on a
-    CUDA device, the plain version for one on the CPU."""
+    for attention probabilities at ``(bh, query, key)``; with ``place``, the
+    rank's part of the one-device block's mask. K13 for a key on a CUDA
+    device, the plain version for one on the CPU."""
     _check_key(key)
     impl = resolve_impl(impl, key)
     shape = tuple(int(n) for n in shape)
     if len(shape) != 3:
         raise ValueError(f"the mask's block is (BH, rows, cols), got {shape}")
     fn = dropout_keep_mask_kernel if impl == "kernel" else dropout_keep_mask_torch
-    return fn(key, shape, rate)
+    return fn(key, shape, rate, place)
 
 
-def _drop_args(rate: float, key, device):
-    """The C interface's dropout operands: key pointer, keep threshold and
-    1 / (1 - rate); a null key at rate 0."""
+def _drop_args(rate: float, key, device, place=None, BH: int = 1):
+    """The C interface's dropout operands: key pointer, keep threshold,
+    1 / (1 - rate) and the rank place's heads, total heads and first head;
+    a null key at rate 0. K2 and K4 take no row place."""
+    hl, H, h0, r0 = _place_args(place, BH)
+    if r0:
+        raise ValueError(f"K2 and K4 place a rank by heads only, got row0 {r0}")
     if rate == 0.0:
-        return None, 0, 1.0
+        return None, 0, 1.0, hl, H, h0
     thr = keep_threshold(rate)
     _check_key(key, device)
     if not key.is_contiguous():
         raise ValueError("the dropout key must be contiguous")
-    return key.data_ptr(), thr, 1.0 / (1.0 - rate)
+    return key.data_ptr(), thr, 1.0 / (1.0 - rate), hl, H, h0
 
 
 # ------------------------------------------------------------------ K2
@@ -274,13 +331,15 @@ def _masked(q, k, lens, causal):
 
 
 def flash_fwd_torch(q, k, v, lens, causal: bool, scale: float,
-                    rate: float = 0.0, key: Optional[torch.Tensor] = None):
+                    rate: float = 0.0, key: Optional[torch.Tensor] = None,
+                    place: Optional[RankPlace] = None):
     """Plain PyTorch version of K2: ``(o, lse)`` for ``q (BH, Sq, D)``,
     ``k, v (BH, Sk, D)`` and integer ``lens (BH,)``. Computes in fp32 and
     returns ``o`` in q's dtype (the JAX oracle's contract). At ``rate > 0``
     the probabilities are dropped after the softmax with the keep mask of
     ``key`` at ``(bh, query, key)`` and the survivors scaled by
-    ``1 / (1 - rate)``; ``lse`` stays the undropped one."""
+    ``1 / (1 - rate)``; ``lse`` stays the undropped one. ``place``: the
+    rank's heads in the one-device tensor, whose mask it draws."""
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     masked = _masked(q, k, lens, causal)
     s = s.masked_fill(masked, _NEG)
@@ -293,7 +352,7 @@ def flash_fwd_torch(q, k, v, lens, causal: bool, scale: float,
     safe_l = torch.where(nonempty, l, 1.0)
     p = torch.where(nonempty, e / safe_l, 0.0)
     if rate > 0.0:
-        keep = dropout_keep_mask_torch(key, p.shape, rate)
+        keep = dropout_keep_mask_torch(key, p.shape, rate, place)
         p = torch.where(keep, p / (1.0 - rate), 0.0)
     o = torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
     lse = torch.where(nonempty, m + torch.log(safe_l), _NEG)[..., 0]
@@ -306,7 +365,7 @@ def _flash_lib():
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     fn = lib.flash_fwd
     fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, f, i, p, ctypes.c_uint, f,
-                   p, ll, p]
+                   i, i, i, p, ll, p]
     fn.restype = ctypes.c_int
     paged = lib.flash_decode_paged
     paged.argtypes = [i, i, p, ll, ll, p, p, p, p, p, p, p, ll, i, i, i, i, i,
@@ -354,12 +413,14 @@ def _check_qkv(name, q, k, v, lens):
 
 
 def flash_fwd_kernel(q, k, v, lens, causal: bool, scale: float,
-                     rate: float = 0.0, key: Optional[torch.Tensor] = None):
+                     rate: float = 0.0, key: Optional[torch.Tensor] = None,
+                     place: Optional[RankPlace] = None):
     """Launch K2 on CUDA tensors; returns ``(o, lse)``. Checks device, dtype,
     shape and layout and raises on anything the kernel does not take.
-    ``rate > 0`` drops in-kernel with ``key``'s mask (read on the card)."""
+    ``rate > 0`` drops in-kernel with ``key``'s mask (read on the card), at
+    the rank's heads of ``place``."""
     _check_qkv("K2", q, k, v, lens)
-    kptr, thr, inv = _drop_args(rate, key, q.device)
+    kptr, thr, inv, hl, H, h0 = _drop_args(rate, key, q.device, place, q.shape[0])
     BH, Sq, D = q.shape
     Sk = k.shape[1]
     o = torch.empty_like(q)
@@ -374,7 +435,8 @@ def flash_fwd_kernel(q, k, v, lens, causal: bool, scale: float,
         rc = fn(_KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), lens.data_ptr(), o.data_ptr(), lse.data_ptr(),
                 BH, Sq, Sk, D, float(scale), int(bool(causal)), kptr, thr,
-                inv, ws.data_ptr() if ws.numel() else None, ws.numel(), stream)
+                inv, hl, H, h0, ws.data_ptr() if ws.numel() else None, ws.numel(),
+                stream)
     if rc == _CUDA_ERROR_INVALID_VALUE and q.dtype == torch.float16:
         # the C entry takes fp16 on the training kernels only
         raise ValueError(f"K2's decode path takes {list(_DECODE_DTYPES)}, not "
@@ -540,7 +602,8 @@ _paged_decode_kernel.launches = 0
 
 def flash_bwd_torch(q, k, v, o, do, lse, dlse, lens, causal: bool,
                     scale: float, rate: float = 0.0,
-                    key: Optional[torch.Tensor] = None):
+                    key: Optional[torch.Tensor] = None,
+                    place: Optional[RankPlace] = None):
     """Plain PyTorch version of K4: ``(dq, dk, dv)`` in the inputs' dtypes,
     recomputing p from ``lse`` in fp32 as ``_block_p_ds`` does. ``dlse``
     (BH, Sq) or None. With dropout, dv takes the dropped probabilities
@@ -553,7 +616,7 @@ def flash_bwd_torch(q, k, v, o, do, lse, dlse, lens, causal: bool,
     dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
     z = p
     if rate > 0.0:
-        keep = dropout_keep_mask_torch(key, p.shape, rate)
+        keep = dropout_keep_mask_torch(key, p.shape, rate, place)
         z = torch.where(keep, p / (1.0 - rate), 0.0)
         dp = torch.where(keep, dp / (1.0 - rate), 0.0)
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
@@ -570,20 +633,21 @@ def _flash_bwd_lib():
     fn = _build.load("flash_bwd").flash_bwd
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
-                   f, i, p, ctypes.c_uint, f, p]
+                   f, i, p, ctypes.c_uint, f, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def flash_bwd_kernel(q, k, v, o, do, lse, dlse, lens, causal: bool,
                      scale: float, rate: float = 0.0,
-                     key: Optional[torch.Tensor] = None):
+                     key: Optional[torch.Tensor] = None,
+                     place: Optional[RankPlace] = None):
     """Launch K4 on CUDA tensors; returns ``(dq, dk, dv)``. Checks device,
     dtype, shape and layout and raises on anything the kernel does not
     take. ``dlse`` None reads no dlse operand; ``rate > 0`` regenerates the
-    forward's keep mask from ``key``."""
+    forward's keep mask from ``key`` at ``place``."""
     _check_qkv("K4", q, k, v, lens)
-    kptr, thr, inv = _drop_args(rate, key, q.device)
+    kptr, thr, inv, hl, H, h0 = _drop_args(rate, key, q.device, place, q.shape[0])
     BH, Sq, D = q.shape
     Sk = k.shape[1]
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
@@ -610,7 +674,7 @@ def flash_bwd_kernel(q, k, v, o, do, lse, dlse, lens, causal: bool,
                 None if dlse is None else dlse.data_ptr(), lens.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dd.data_ptr(),
                 BH, Sq, Sk, D, float(scale), int(bool(causal)), kptr, thr,
-                inv, stream)
+                inv, hl, H, h0, stream)
     if rc != 0:
         raise RuntimeError(f"K4 (flash_bwd) launch failed with CUDA error {rc}")
     flash_bwd_kernel.launches += 1
@@ -622,12 +686,13 @@ flash_bwd_kernel.launches = 0
 
 class _FlashForward(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, lens, key, causal, scale, rate, impl):
+    def forward(ctx, q, k, v, lens, key, causal, scale, rate, impl, place=None):
         fn = flash_fwd_kernel if impl == "kernel" else flash_fwd_torch
-        o, lse = fn(q, k, v, lens, causal, scale, rate, key)
+        o, lse = fn(q, k, v, lens, causal, scale, rate, key, place)
         ctx.save_for_backward(q, k, v, lens, o, lse)
         ctx.causal, ctx.scale, ctx.impl = causal, scale, impl
-        ctx.rate, ctx.key = rate, key  # the key is a value: K4 replays the mask
+        # the key is a value: K4 replays the mask
+        ctx.rate, ctx.key, ctx.place = rate, key, place
         # an unused lse gets a None cotangent, so K4 reads no dlse operand
         ctx.set_materialize_grads(False)
         return o, lse
@@ -640,8 +705,8 @@ class _FlashForward(torch.autograd.Function):
         fn = flash_bwd_kernel if ctx.impl == "kernel" else flash_bwd_torch
         dq, dk, dv = fn(q, k, v, o, do.contiguous(), lse,
                         None if dlse is None else dlse.contiguous(), lens,
-                        ctx.causal, ctx.scale, ctx.rate, ctx.key)
-        return dq, dk, dv, None, None, None, None, None, None
+                        ctx.causal, ctx.scale, ctx.rate, ctx.key, ctx.place)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def _lens_int32(kv_lens, n: int, default: int, device) -> torch.Tensor:
@@ -665,7 +730,7 @@ def flash_attention_with_lse(q3: torch.Tensor, k3: torch.Tensor,
     lens = _lens_int32(kv_lens, q3.shape[0], k3.shape[1], q3.device)
     return _FlashForward.apply(q3.contiguous(), k3.contiguous(),
                                v3.contiguous(), lens.contiguous(), None,
-                               bool(causal), float(scale), 0.0, impl)
+                               bool(causal), float(scale), 0.0, impl, None)
 
 
 def flash_attention(
@@ -679,6 +744,7 @@ def flash_attention(
     dropout_rate: float = 0.0,
     dropout_key: Optional[torch.Tensor] = None,
     impl: Optional[str] = None,
+    dropout_place: Optional[RankPlace] = None,
 ) -> torch.Tensor:
     """Fused scaled-dot-product attention over ``(B, H, S, D)`` inputs.
 
@@ -691,7 +757,9 @@ def flash_attention(
     softmax -> dropout -> ``@ v`` order, inside K2 and K4; the key is an
     int64 ``(2,)`` tensor on q's device
     (:func:`~beforeholiday_tpu_torch.transformer.tensor_parallel.random.make_key`).
-    A rate with no key raises; rate 0 ignores the key.
+    A rate with no key raises; rate 0 ignores the key. ``dropout_place``:
+    a tensor-parallel rank's heads among the model's (:class:`RankPlace`),
+    whose one-device masks it then draws.
 
     Inside an O1/O4 autocast scope q, k and v are cast to the scope's dtype:
     the FP16_FUNCS policy applied by hand, as in the JAX package, since
@@ -724,7 +792,7 @@ def flash_attention(
     o, _ = _FlashForward.apply(
         q.reshape(B * H, S, D).contiguous(), k.reshape(B * H, Sk, D).contiguous(),
         v.reshape(B * H, Sk, D).contiguous(), lens.contiguous(), key,
-        bool(causal), scale, rate, impl)
+        bool(causal), scale, rate, impl, dropout_place)
     return o.reshape(B, H, S, D)
 
 

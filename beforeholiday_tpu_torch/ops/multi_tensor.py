@@ -691,6 +691,38 @@ def per_tensor_sumsq(flat: torch.Tensor, spec: ArenaSpec, segment_ids=None,
     ])
 
 
+def tensor_parallel_sumsq(sq: torch.Tensor, sharded, axis_name) -> torch.Tensor:
+    """Per-tensor sums of squares ``sq`` with the entries of the tensors
+    the tensor group shards (``sharded``: one bool a tensor) summed over the
+    group, one all-reduce; the replicated ones as they are. None, or no
+    sharded tensor, returns ``sq``."""
+    if sharded is None or not any(sharded):
+        return sq
+    from beforeholiday_tpu_torch.monitor import comms
+
+    mask = torch.tensor(list(sharded), dtype=torch.bool, device=sq.device)
+    total = comms.psum(torch.where(mask, sq, 0.0), axis_name,
+                       site="lamb.tensor_parallel_norms")
+    return torch.where(mask, total, sq)
+
+
+def tensor_parallel_norm_sq(total_sq, sharded_sq, axis_name) -> torch.Tensor:
+    """A global squared norm over a tensor-parallel model from this rank's
+    ``total_sq`` (every leaf it holds) and ``sharded_sq`` (the part of it
+    from leaves the tensor group shards): the sharded part summed over the
+    group, the replicated part once."""
+    from beforeholiday_tpu_torch.monitor import comms
+
+    return total_sq - sharded_sq + comms.psum(
+        sharded_sq, axis_name, site="lamb.tensor_parallel_norms")
+
+
+def sharded_sumsq(flat: torch.Tensor, spec: ArenaSpec, sharded) -> torch.Tensor:
+    """The sum of squares of the arena's tensors that ``sharded`` marks."""
+    mask = torch.tensor(list(sharded), dtype=torch.bool, device=flat.device)
+    return torch.where(mask, per_tensor_sumsq(flat, spec), 0.0).sum()
+
+
 @functools.lru_cache(maxsize=64)
 def _segment_reps(spec: ArenaSpec, device: torch.device) -> torch.Tensor:
     """Each tensor's element count, then the padding's (when there is
@@ -969,13 +1001,18 @@ def lamb_flat(gf, pf, mf, vf, spec: ArenaSpec, *, lr, beta1: float = 0.9,
               global_grad_norm=None, max_grad_norm: float = 1.0,
               use_nvlamb: bool = False, found_inf=None, model_copy_dtype=None,
               model_copy=None, impl: Optional[str] = None,
+              tensor_sharded=None, axis_name: str = "tensor",
               _sharded_norms=None):
     """Fused LAMB over flat arenas, IN PLACE on ``pf``, ``mf`` and ``vf``:
     K7 (stage 1), the per-tensor norms of p and u from ``spec``, the trust
     ratios, then K8 (stage 2) with the model copy. ``step`` and
     ``global_grad_norm`` may be device tensors; without ``global_grad_norm``
-    the norm is this arena's own (K9). Returns ``(p, m, v)`` or
-    ``(p, m, v, model_copy)``. ZeRO's ``_sharded_norms`` is not ported."""
+    the norm is this arena's own (K9). ``tensor_sharded`` (one bool a tensor
+    of ``spec``) marks the tensors sharded over the tensor group
+    ``axis_name``: their norms are the whole tensors', squares summed over
+    the group (JAX's GSPMD sees the whole tensor), and so is their part of
+    the own-arena norm. Returns ``(p, m, v)`` or ``(p, m, v, model_copy)``.
+    ZeRO's ``_sharded_norms`` is not ported."""
     if _sharded_norms is not None:
         raise NotImplementedError(
             "lamb_flat's sharded norms belong to ZeRO, not ported yet")
@@ -986,20 +1023,26 @@ def lamb_flat(gf, pf, mf, vf, spec: ArenaSpec, *, lr, beta1: float = 0.9,
     bc1, bc2 = _bias_corrections(bias_correction, step, beta1, beta2)
     beta3 = (1.0 - beta1) if grad_averaging else 1.0
     if global_grad_norm is None:
-        global_grad_norm = torch.sqrt(l2norm_sq(gf, impl=impl)[0])
+        sq = l2norm_sq(gf, impl=impl)[0]
+        if tensor_sharded is not None and any(tensor_sharded):
+            sq = tensor_parallel_norm_sq(sq, sharded_sumsq(gf, spec, tensor_sharded),
+                                         axis_name)
+        global_grad_norm = torch.sqrt(sq)
     ggn = _device_scalar(global_grad_norm, pf).reshape(())
     # NaN compares false: a NaN norm leaves the divisor at 1, as in JAX
     clipped = torch.where(ggn > max_grad_norm, ggn / max_grad_norm,
                           torch.ones((), device=pf.device))
     # per-tensor norms of p before stage 2 moves it
-    p_norm = torch.sqrt(per_tensor_sumsq(pf, spec))
+    p_norm = torch.sqrt(tensor_parallel_sumsq(per_tensor_sumsq(pf, spec),
+                                              tensor_sharded, axis_name))
     u, _, _ = lamb_stage1(gf, pf, mf, vf, beta1=beta1, beta2=beta2,
                           beta3=beta3, bias_correction1=bc1,
                           bias_correction2=bc2, eps=eps,
                           weight_decay=weight_decay,
                           clipped_global_grad_norm=clipped, mode=mode,
                           found_inf=found_inf, impl=impl)
-    u_norm = torch.sqrt(per_tensor_sumsq(u, spec))
+    u_norm = torch.sqrt(tensor_parallel_sumsq(per_tensor_sumsq(u, spec),
+                                              tensor_sharded, axis_name))
     lr_t = _device_scalar(lr, pf).reshape(())
     if use_nvlamb or weight_decay != 0.0:
         ratio = torch.where((p_norm != 0.0) & (u_norm != 0.0),
@@ -1019,11 +1062,13 @@ def multi_tensor_lamb(grads, params, exp_avgs, exp_avg_sqs, *, lr,
                       mode: int = 1, global_grad_norm=None,
                       max_grad_norm: float = 1.0, use_nvlamb: bool = False,
                       found_inf=None, impl: Optional[str] = None,
+                      tensor_sharded=None, axis_name: str = "tensor",
                       _sharded_norms=None):
     """Fused LAMB over tensor lists; returns new ``(params, m, v)`` lists
     (views of freshly packed arenas — the inputs are not modified). The
-    trust ratios are per tensor of the list; ``found_inf`` turns the whole
-    update into the identity."""
+    trust ratios are per tensor of the list (``tensor_sharded`` as
+    :func:`lamb_flat`'s); ``found_inf`` turns the whole update into the
+    identity."""
     gf, spec = flatten(grads)
     pf, _ = flatten(params)
     mf, _ = flatten(exp_avgs)
@@ -1033,7 +1078,8 @@ def multi_tensor_lamb(grads, params, exp_avgs, exp_avg_sqs, *, lr,
               weight_decay=weight_decay, grad_averaging=grad_averaging,
               mode=mode, global_grad_norm=global_grad_norm,
               max_grad_norm=max_grad_norm, use_nvlamb=use_nvlamb,
-              found_inf=found_inf, impl=impl, _sharded_norms=_sharded_norms)
+              found_inf=found_inf, impl=impl, tensor_sharded=tensor_sharded,
+              axis_name=axis_name, _sharded_norms=_sharded_norms)
     return unflatten(pf, spec), unflatten(mf, spec), unflatten(vf, spec)
 
 

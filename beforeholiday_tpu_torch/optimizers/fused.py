@@ -45,8 +45,10 @@ from beforeholiday_tpu_torch.ops.arena import (
 Mask = Union[None, Any, Callable[[Tuple[Any, ...]], bool]]
 
 
-def _leaf_flags(mask: Mask, params) -> List[bool]:
-    """Resolve a no-weight-decay mask to one bool per leaf (True = NO decay)."""
+def _leaf_flags(mask: Mask, params, name: str = "no_weight_decay_mask"
+                ) -> List[bool]:
+    """Resolve a per-leaf mask (the no-weight-decay mask: True = NO decay)
+    to one bool per leaf."""
     n = len(tree_flatten(params)[0])
     if mask is None:
         return [False] * n
@@ -55,7 +57,7 @@ def _leaf_flags(mask: Mask, params) -> List[bool]:
     flags = [bool(x) for x in tree_flatten(mask)[0]]
     if len(flags) != n:
         raise ValueError(
-            f"no_weight_decay_mask has {len(flags)} leaves but params has {n}; "
+            f"{name} has {len(flags)} leaves but params has {n}; "
             "the mask must mark every leaf (or be a callable on paths)"
         )
     return flags
@@ -213,14 +215,21 @@ class FusedLAMB(_FusedOptimizer):
     """Fused LAMB with in-step global-grad-norm clipping on kernels K7
     (stage 1), K8 (trust-ratio update) and K9 (global sum of squares), through
     ``ops.multi_tensor.lamb_flat``. ``impl``: None (kernels on CUDA tensors,
-    plain versions on CPU ones), ``"kernel"`` or ``"torch"``."""
+    plain versions on CPU ones), ``"kernel"`` or ``"torch"``.
+
+    ``tensor_sharded`` (a tree of bools like the params, or a callable on
+    paths) marks the leaves a tensor-parallel model shards over the group
+    ``axis_name``: their trust-ratio norms and their part of the clip norm
+    are the whole tensors', squares summed over the group; the replicated
+    leaves count once."""
 
     def __init__(self, lr: float = 1e-3, betas: Tuple[float, float] = (0.9, 0.999),
                  eps: float = 1e-6, *, weight_decay: float = 0.01,
                  bias_correction: bool = True, grad_averaging: bool = True,
                  adam_w_mode: bool = True, max_grad_norm: float = 1.0,
                  use_nvlamb: bool = False, no_weight_decay_mask: Mask = None,
-                 impl: Optional[str] = None):
+                 impl: Optional[str] = None, tensor_sharded: Mask = None,
+                 axis_name: str = "tensor"):
         super().__init__(no_weight_decay_mask=no_weight_decay_mask)
         self.lr, self.betas, self.eps = lr, betas, eps
         self.weight_decay = weight_decay
@@ -230,6 +239,16 @@ class FusedLAMB(_FusedOptimizer):
         self.max_grad_norm = max_grad_norm
         self.use_nvlamb = use_nvlamb
         self.impl = impl
+        self.tensor_sharded, self.axis_name = tensor_sharded, axis_name
+
+    def sharded_flags(self, params) -> Optional[List[bool]]:
+        """One bool a leaf of ``params`` (a tree, or ``PackedParams``):
+        sharded over the tensor group; None without a mask."""
+        if self.tensor_sharded is None:
+            return None
+        if isinstance(params, PackedParams):
+            params = params.unpack()
+        return _leaf_flags(self.tensor_sharded, params, "tensor_sharded")
 
     def _state_keys(self):
         return ("exp_avg", "exp_avg_sq")
@@ -257,13 +276,21 @@ class FusedLAMB(_FusedOptimizer):
         gleaves = [g.float() * mt._as_float(grad_scale)
                    for g in tree_flatten(grads)[0]]
         gnorm, _ = mt.multi_tensor_l2norm(gleaves, impl=self.impl)
+        sharded = self.sharded_flags(params)
+        if sharded is not None and any(sharded):
+            sharded_sq = sum(torch.dot(g.reshape(-1), g.reshape(-1))
+                             for g, s in zip(gleaves, sharded) if s)
+            gnorm = torch.sqrt(mt.tensor_parallel_norm_sq(
+                gnorm * gnorm, sharded_sq, self.axis_name))
         new_p, new_m, new_v = list(pleaves), list(mleaves), list(vleaves)
         for (_, _, no_decay), idx in _buckets(pleaves, gleaves, nowd).items():
             p2, m2, v2 = mt.multi_tensor_lamb(
                 _gather(gleaves, idx), _gather(pleaves, idx),
                 _gather(mleaves, idx), _gather(vleaves, idx),
                 step=step_no, weight_decay=0.0 if no_decay else self.weight_decay,
-                global_grad_norm=gnorm, found_inf=found_inf, **self._hyper(lr),
+                global_grad_norm=gnorm, found_inf=found_inf,
+                tensor_sharded=None if sharded is None else _gather(sharded, idx),
+                axis_name=self.axis_name, **self._hyper(lr),
             )
             _scatter(new_p, idx, p2)
             _scatter(new_m, idx, m2)
@@ -278,10 +305,13 @@ class FusedLAMB(_FusedOptimizer):
     def step_flat(self, flat_params, flat_grads, state, *, spec=None,
                   found_inf=None, grad_scale=1.0, lr=None,
                   model_copy_dtype=None, global_grad_norm=None,
-                  model_copy=None):
+                  model_copy=None, tensor_sharded=None):
         """One LAMB step over pre-flattened arenas, in place on
         ``flat_params`` and the moments. ``spec`` (the arena's
-        :class:`ArenaSpec`) gives the per-tensor trust ratios.
+        :class:`ArenaSpec`) gives the per-tensor trust ratios;
+        ``tensor_sharded``, one bool a tensor of it, the tensors sharded
+        over the tensor group (``MasterWeights`` passes them from the
+        ``tensor_sharded`` mask).
         ``global_grad_norm``: pass the norm over every arena when the model
         spans several (``MasterWeights`` does); the default, this arena's own
         norm, is right only when the arena is the whole model.
@@ -303,6 +333,7 @@ class FusedLAMB(_FusedOptimizer):
             step=step_no, weight_decay=self.weight_decay,
             global_grad_norm=global_grad_norm, found_inf=found_inf,
             model_copy_dtype=model_copy_dtype, model_copy=model_copy,
+            tensor_sharded=tensor_sharded, axis_name=self.axis_name,
             **self._hyper(lr),
         )
         new_state = {"exp_avg": outs[1], "exp_avg_sq": outs[2], "step": step_no}
@@ -599,21 +630,30 @@ class MasterWeights:
             treedef, [m.to(p.dtype) for m, p in zip(mleaves, pleaves)])
         return new_params, {"inner": new_inner, "master": new_master}
 
-    def _global_norm_extra(self, flat_grads, grad_scale):
+    def _global_norm_extra(self, flat_grads, grad_scale, specs=None, sharded=None):
         """Norm-clipping optimizers (LAMB) need ONE global grad norm across
         every dtype bucket: per-bucket norms would clip each bucket by its
         own magnitude. The norm is the square root of the sum of K9 over
-        each gradient arena, ``grad_scale`` folded into every element."""
+        each gradient arena, ``grad_scale`` folded into every element; with
+        ``sharded`` (per bucket, one bool a tensor) the tensor-sharded
+        tensors' part is summed over the tensor group."""
         if "global_grad_norm" not in inspect.signature(
                 self.inner.step_flat).parameters:
             return {}
         impl = getattr(self.inner, "impl", None)
         scale = None if (isinstance(grad_scale, float)
                          and grad_scale == 1.0) else grad_scale
-        total = None
-        for g in flat_grads:
+        total = sharded_sq = None
+        for b, g in enumerate(flat_grads):
             sq, _ = mt.l2norm_sq(g, scale=scale, impl=impl)
             total = sq if total is None else total + sq
+            if sharded is not None and any(sharded[b]):
+                gs = g.float() if scale is None else g.float() * mt._as_float(scale)
+                part = mt.sharded_sumsq(gs, specs[b], sharded[b])
+                sharded_sq = part if sharded_sq is None else sharded_sq + part
+        if sharded_sq is not None:
+            total = mt.tensor_parallel_norm_sq(total, sharded_sq,
+                                               self.inner.axis_name)
         return {"global_grad_norm": torch.sqrt(total)}
 
     def _step_packed(self, params, grads, state, *, found_inf=None,
@@ -631,8 +671,16 @@ class MasterWeights:
         if grads.layout != params.layout:
             raise ValueError("params/grads PackedParams layouts differ")
         masters, inners = [], []
-        extra = self._global_norm_extra(grads.arenas, grad_scale)
+        sharded = None
+        if getattr(self.inner, "tensor_sharded", None) is not None:
+            flags = self.inner.sharded_flags(params)
+            sharded = [tuple(flags[i] for i in idx) for idx in params.layout.indices]
+        extra = (self._global_norm_extra(grads.arenas, grad_scale) if sharded is None
+                 else self._global_norm_extra(grads.arenas, grad_scale,
+                                              params.layout.specs, sharded))
         for b, model_arena in enumerate(params.arenas):
+            if sharded is not None:
+                extra["tensor_sharded"] = sharded[b]
             outs = self.inner.step_flat(
                 state["master"][b], grads.arenas[b], state["inner"][b],
                 spec=params.layout.specs[b], found_inf=found_inf,

@@ -26,9 +26,29 @@ draws from ``fold_in(key, 0x7FFFFFFF)``, layer i from ``split(key,
 n_layers)[i]``, and within a layer the attention probabilities from
 ``fold_in(layer_key, 0)`` (inside K2/K4, or on the unfused path's bf16
 probabilities through K13's mask), the attention output from site 1 and
-the MLP output from site 2. Not ported: sequence parallelism and remat. :func:`init` draws
+the MLP output from site 2. Not ported: remat. :func:`init` draws
 from the reference's distributions (different numbers);
 ``params_from_numpy`` takes the reference's own parameters.
+
+Tensor parallelism (Megatron's layout, the JAX model's :func:`param_specs`,
+which JAX runs under GSPMD): once ``parallel_state.initialize_model_parallel``
+has run, the model runs on this rank's shard (:func:`shard_params`) over
+the tensor group, as the GPT does: QKV and MLP-in column-parallel, the
+attention projection and MLP-out row-parallel (the bias on tensor rank 0),
+the word embedding vocab-parallel, and the tied MLM decoder over this rank's
+vocab shard (with its shard of ``mlm_out_bias``), whose logits
+:func:`pretrain_loss` reduces with ``vocab_parallel_cross_entropy``. The
+embeddings, their LayerNorm, the MLM transform and the NSP head are
+replicated; the MLM transform's output enters the decoder through the f
+region, so every rank holds the replicated leaves' whole gradients. With
+``sequence_parallel`` the residual stream is laid out (S, B, D) and split
+along S: the post-LN LayerNorms are ``sp_fused_layer_norm`` (their
+parameter gradients all-reduced over the tensor group), the last hidden is
+gathered for the heads, and the hidden dropout sites draw the rank's rows
+of the one-device masks (the attention probabilities its heads' planes).
+At a tensor world of one the forward is the dense forward, bit for bit.
+:func:`tensor_sharded` marks the sharded leaves for ``FusedLAMB``, whose
+trust ratios and clip norm need their squares summed over the group.
 """
 
 from __future__ import annotations
@@ -46,17 +66,39 @@ from beforeholiday_tpu_torch.ops import (
     scaled_masked_softmax,
 )
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device
+from beforeholiday_tpu_torch.parallel import parallel_state
+from beforeholiday_tpu_torch.transformer.tensor_parallel import mappings as mp
+from beforeholiday_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+    vocab_parallel_cross_entropy,
+)
+from beforeholiday_tpu_torch.transformer.tensor_parallel.layers import (
+    vocab_parallel_embedding,
+)
 from beforeholiday_tpu_torch.transformer.tensor_parallel.random import dropout
 from beforeholiday_tpu_torch.testing._model_utils import (  # noqa: F401
     layer_params,
     dropout_keys,
-    layernorm as _layernorm,
+    layernorm as _dense_layernorm,
     params_from_numpy,
     vocab_head_matmul as _vocab_head_matmul,
 )
+from beforeholiday_tpu_torch.testing._tensor_parallel import (
+    TENSOR,
+    _column_input,
+    _heads,
+    _heads_place,
+    _hidden_dropout,
+    _layernorm,
+    _row_bias,
+    _row_output,
+    _seq_first,
+    _tp_world,
+    shard_tree,
+    unshard_tree,
+)
 
 # fields whose non-default values select paths this slice does not port
-_UNPORTED_FIELDS = ("sequence_parallel", "remat_policy")
+_UNPORTED_FIELDS = ("remat_policy",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,58 +204,107 @@ def init(cfg: BertConfig, generator: torch.Generator, device=None) -> dict:
     }
 
 
-def _heads(t, n_heads):
-    B, S, D = t.shape
-    return t.reshape(B, S, n_heads, D // n_heads).transpose(1, 2)
+def param_specs(cfg: BertConfig) -> dict:
+    """Which dim of each leaf the tensor group shards (``"tensor"``), as
+    the JAX model's ``PartitionSpec``s (Megatron's layout): QKV and MLP-in
+    column-parallel, the attention projection and MLP-out row-parallel, the
+    word embedding and the MLM output bias by vocab; the rest replicated.
+    The block leaves lead with the layer dim."""
+    t = TENSOR
+    return {
+        "tok_embed": (t, None), "pos_embed": (None, None),
+        "type_embed": (None, None), "embed_ln_scale": (None,),
+        "embed_ln_bias": (None,),
+        "blocks": {
+            "wqkv": (None, None, t), "bqkv": (None, t),
+            "wo": (None, t, None), "bo": (None, None),
+            "ln1_scale": (None, None), "ln1_bias": (None, None),
+            "wi": (None, None, t), "bi": (None, t),
+            "wo2": (None, t, None), "bo2": (None, None),
+            "ln2_scale": (None, None), "ln2_bias": (None, None),
+        },
+        "mlm_dense": (None, None), "mlm_bias": (None,),
+        "mlm_ln_scale": (None,), "mlm_ln_bias": (None,), "mlm_out_bias": (t,),
+        "pool_w": (None, None), "pool_b": (None,),
+        "nsp_w": (None, None), "nsp_b": (None,),
+    }
 
 
-def _attention(cfg: BertConfig, q, k, v, lens, attn_key=None):
+def tensor_sharded(cfg: BertConfig) -> dict:
+    """A tree of bools, True at the leaves the tensor group shards (for
+    ``FusedLAMB(tensor_sharded=...)``)."""
+    def mark(spec):
+        return {k: mark(v) for k, v in spec.items()} if isinstance(spec, dict) \
+            else TENSOR in spec
+    return mark(param_specs(cfg))
+
+
+def shard_params(params: dict, cfg: BertConfig, tp_rank: int, tp_size: int) -> dict:
+    """This tensor rank's shard of ``params`` (or of any tree of the same
+    layout): ``wqkv``/``bqkv`` by heads, the other sharded leaves along
+    :func:`param_specs`'s tensor dim."""
+    return shard_tree(params, param_specs(cfg), cfg, tp_rank, tp_size)
+
+
+def unshard_params(shards, cfg: BertConfig) -> dict:
+    """The whole tree from every tensor rank's :func:`shard_params`, in rank
+    order, bit for bit."""
+    return unshard_tree([list(shards)], param_specs(cfg), cfg)
+
+
+def _attention(cfg: BertConfig, q, k, v, lens, attn_key=None, place=None):
     """Bidirectional attention with key-padding lengths; q, k, v (B, H, S,
     hd) → (B, H, S, hd). ``attn_key``: the probabilities' dropout key (None
-    = eval)."""
+    = eval); ``place``: this tensor rank's heads, whose masks it draws."""
     S = q.shape[2]
     scale = 1.0 / math.sqrt(cfg.head_dim)
     rate = cfg.attention_dropout if attn_key is not None else 0.0
     if cfg.use_flash_attention:
         return flash_attention(q, k, v, causal=False, scale=scale,
                                kv_lens=lens, dropout_rate=rate,
-                               dropout_key=attn_key, impl=cfg.attention_impl)
+                               dropout_key=attn_key, impl=cfg.attention_impl,
+                               dropout_place=place)
     scores = q @ k.transpose(-1, -2)
     mask = (torch.arange(S, device=lens.device)[None, :] >= lens[:, None])
     probs = scaled_masked_softmax(scores, mask[:, None, None, :], scale,
                                   impl=cfg.attention_impl).to(q.dtype)
     if rate > 0.0:
-        probs = dropout(attn_key, probs, rate, impl=cfg.dropout_impl)
+        probs = dropout(attn_key, probs, rate, impl=cfg.dropout_impl, place=place)
     return probs @ v
 
 
 def _block(cfg: BertConfig, x, lens, lp, keys=None):
-    """One post-LN encoder block. x: (B, S, D); lens: (B,) key lengths;
-    ``keys``: the layer's site keys, JAX's ``fold_in(layer_key, site)``
-    (None = eval)."""
-    B, S, D = x.shape
+    """One post-LN encoder block. x: (B, S, D), or this rank's (S / tp, B,
+    D) under sequence parallelism; lens: (B,) key lengths; ``keys``: the
+    layer's site keys, JAX's ``fold_in(layer_key, site)`` (None = eval)."""
+    seq_first = _seq_first(cfg)
 
     def drop(t, site):
         if keys is None or cfg.dropout_rate == 0.0:
             return t
-        return dropout(keys[site], t, cfg.dropout_rate, impl=cfg.dropout_impl)
+        return _hidden_dropout(cfg, keys[site], t, cfg.dropout_rate)
 
-    qkv = fused_dense(x, lp["wqkv"].to(x.dtype), lp["bqkv"].to(x.dtype))
-    q, k, v = (_heads(t, cfg.n_heads) for t in qkv.chunk(3, dim=-1))
+    h = _column_input(x, cfg)
+    qkv = fused_dense(h, lp["wqkv"].to(x.dtype), lp["bqkv"].to(x.dtype))
+    n_heads = qkv.shape[-1] // (3 * cfg.head_dim)  # this rank's heads
+    q, k, v = (_heads(t, n_heads, seq_first) for t in qkv.chunk(3, dim=-1))
+    B, S = q.shape[0], q.shape[2]
     attn_key = (keys[0]
                 if keys is not None and cfg.attention_dropout > 0.0 else None)
-    ctx = _attention(cfg, q, k, v, lens, attn_key).transpose(1, 2).reshape(B, S, D)
-    attn_out = drop(
-        fused_dense(ctx, lp["wo"].to(x.dtype), lp["bo"].to(x.dtype)), 1)
-    x = _layernorm(x + attn_out, lp["ln1_scale"], lp["ln1_bias"],
-                   impl=cfg.norm_impl).to(x.dtype)
+    ctx = _attention(cfg, q, k, v, lens, attn_key, _heads_place(n_heads, cfg))
+    ctx = (ctx.permute(2, 0, 1, 3).reshape(S, B, -1) if seq_first
+           else ctx.transpose(1, 2).reshape(B, S, -1))
+    attn_out = _row_output(fused_dense(ctx, lp["wo"].to(x.dtype),
+                                       _row_bias(lp["bo"]).to(x.dtype)), cfg)
+    x = _layernorm(x + drop(attn_out, 1), lp["ln1_scale"], lp["ln1_bias"],
+                   cfg).to(x.dtype)
     # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(fused_dense(x, lp["wi"].to(x.dtype), lp["bi"].to(x.dtype)),
-               approximate="tanh")
-    mlp_out = drop(
-        fused_dense(h, lp["wo2"].to(x.dtype), lp["bo2"].to(x.dtype)), 2)
-    return _layernorm(x + mlp_out, lp["ln2_scale"], lp["ln2_bias"],
-                      impl=cfg.norm_impl).to(x.dtype)
+    h = F.gelu(fused_dense(_column_input(x, cfg), lp["wi"].to(x.dtype),
+                           lp["bi"].to(x.dtype)), approximate="tanh")
+    mlp_out = _row_output(fused_dense(h, lp["wo2"].to(x.dtype),
+                                      _row_bias(lp["bo2"]).to(x.dtype)), cfg)
+    return _layernorm(x + drop(mlp_out, 2), lp["ln2_scale"], lp["ln2_bias"],
+                      cfg).to(x.dtype)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: BertConfig,
@@ -221,31 +312,47 @@ def forward(params: dict, tokens: torch.Tensor, cfg: BertConfig,
             seq_lens: Optional[torch.Tensor] = None,
             dropout_key: Optional[torch.Tensor] = None):
     """tokens (B, S) integer → ``(mlm_logits (B, S, V) fp32, nsp_logits
-    (B, 2) fp32)``. ``seq_lens`` (B,) masks keys at index >= length;
-    ``dropout_key`` switches the cfg dropout sites on (None = eval)."""
+    (B, 2) fp32)``; under a tensor group the MLM logits are this rank's
+    vocab shard ``(B, S, V / tp)``. ``seq_lens`` (B,) masks keys at index
+    >= length; ``dropout_key`` switches the cfg dropout sites on (None =
+    eval)."""
     B, S = tokens.shape
     lens = (seq_lens if seq_lens is not None else
             torch.full((B,), S, dtype=torch.int32, device=tokens.device))
-    x = params["tok_embed"][tokens] + params["pos_embed"][:S]
+    if _tp_world():
+        tok = vocab_parallel_embedding(tokens, params["tok_embed"],
+                                       vocab_size=cfg.vocab_size, axis_name=TENSOR)
+    else:
+        tok = params["tok_embed"][tokens]
+    x = tok + params["pos_embed"][:S]
     if token_types is not None:
         x = x + params["type_embed"][token_types]
     else:
         x = x + params["type_embed"][0]
-    x = _layernorm(x, params["embed_ln_scale"], params["embed_ln_bias"],
-                   impl=cfg.norm_impl)
+    x = _dense_layernorm(x, params["embed_ln_scale"], params["embed_ln_bias"],
+                         impl=cfg.norm_impl)
     x = x.to(cfg.dtype)
+    if _seq_first(cfg):
+        x = mp.scatter_to_sequence_parallel_region(x.transpose(0, 1), TENSOR)
     emb_key, keys = dropout_keys(dropout_key, cfg.n_layers)
     if emb_key is not None and cfg.dropout_rate > 0.0:
-        x = dropout(emb_key, x, cfg.dropout_rate, impl=cfg.dropout_impl)
+        x = _hidden_dropout(cfg, emb_key, x, cfg.dropout_rate)
     for i in range(cfg.n_layers):
         x = _block(cfg, x, lens, layer_params(params, i), keys[i])
+    if _seq_first(cfg):
+        # the heads read the whole sequence; the MLM transform's output
+        # enters the vocab-parallel decoder through the f region below, so
+        # the gradient arriving here is whole on every rank: split it
+        x = mp.gather_from_sequence_parallel_region(x, TENSOR, False).transpose(0, 1)
 
     # MLM head: dense + GELU + LN in the activation dtype, then the tied
     # decoder's unrounded fp32 logits plus the output bias
     h = F.gelu(torch.matmul(x, params["mlm_dense"].to(x.dtype))
                + params["mlm_bias"].to(x.dtype), approximate="tanh")
-    h = _layernorm(h, params["mlm_ln_scale"], params["mlm_ln_bias"],
-                   impl=cfg.norm_impl)
+    h = _dense_layernorm(h, params["mlm_ln_scale"], params["mlm_ln_bias"],
+                         impl=cfg.norm_impl)
+    if _tp_world():
+        h = mp.copy_to_tensor_model_parallel_region(h, TENSOR)
     mlm = _vocab_head_matmul(h, params["tok_embed"]) + params["mlm_out_bias"].float()
 
     # NSP head off the pooled [CLS] (position 0); JAX promotes the fp32
@@ -264,10 +371,14 @@ def pretrain_loss(params, tokens, mlm_targets, mlm_mask, nsp_labels,
     ``dropout_key`` (not in JAX's signature) trains with dropout."""
     mlm, nsp = forward(params, tokens, cfg, seq_lens=seq_lens,
                        dropout_key=dropout_key)
-    logz = torch.logsumexp(mlm, dim=-1)
-    tgt = mlm.gather(-1, mlm_targets[..., None].long())[..., 0]
+    if _tp_world():
+        per_token = vocab_parallel_cross_entropy(mlm, mlm_targets.long(),
+                                                 cfg.vocab_size, axis_name=TENSOR)
+    else:
+        logz = torch.logsumexp(mlm, dim=-1)
+        per_token = logz - mlm.gather(-1, mlm_targets[..., None].long())[..., 0]
     mask = mlm_mask.float()
-    mlm_loss = ((logz - tgt) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    mlm_loss = (per_token * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     nsp_logz = torch.logsumexp(nsp, dim=-1)
     nsp_tgt = nsp.gather(-1, nsp_labels[:, None].long())[:, 0]
     return mlm_loss + (nsp_logz - nsp_tgt).mean()

@@ -44,8 +44,15 @@ and the LayerNorms are ``sp_fused_layer_norm``, whose parameter gradients
 are all-reduced over the tensor group. Without model parallelism
 ``sequence_parallel`` changes nothing, as in JAX. :func:`embed`,
 :func:`blocks` and :func:`head` are the forward's three parts, for the
-pipeline schedules' ``embed_fn``, ``stage_fn`` and ``head_fn``. Dropout
-under a tensor group of more than one rank is not ported (ROADMAP A15).
+pipeline schedules' ``embed_fn``, ``stage_fn`` and ``head_fn``.
+
+Dropout under a tensor group draws the one-device model's masks, as JAX's
+GSPMD model does: each rank draws only its part of them, through a rank
+place (``ops.attention.RankPlace``). The attention probabilities of its
+heads are the one-device planes ``b H + h0 + h`` (K2/K4, or K13 on the
+unfused path); under sequence parallelism the residual's hidden sites are
+its rows of the one-device ``(B, S, D)`` block; in the replicated region
+every rank draws the whole mask, which is the same on all of them.
 
 :func:`init` draws from the same distributions as the reference (different
 numbers); :func:`params_from_numpy` and :func:`state_from_numpy` take the
@@ -68,8 +75,6 @@ from beforeholiday_tpu_torch.ops import (
     scaled_upper_triang_masked_softmax,
 )
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device
-from beforeholiday_tpu_torch.parallel import parallel_state
-from beforeholiday_tpu_torch.transformer.layers.layer_norm import sp_fused_layer_norm
 from beforeholiday_tpu_torch.transformer.tensor_parallel import mappings as mp
 from beforeholiday_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
@@ -78,6 +83,20 @@ from beforeholiday_tpu_torch.transformer.tensor_parallel.layers import (
     vocab_parallel_embedding,
 )
 from beforeholiday_tpu_torch.transformer.tensor_parallel.random import dropout
+from beforeholiday_tpu_torch.testing._tensor_parallel import (  # noqa: F401
+    TENSOR,
+    _column_input,
+    _heads,
+    _heads_place,
+    _hidden_dropout,
+    _layernorm,
+    _row_bias,
+    _row_output,
+    _seq_first,
+    _tp_world,
+    shard_tree,
+    unshard_tree,
+)
 from beforeholiday_tpu_torch.testing._model_utils import (  # noqa: F401
     _tensor,
     layer_params,
@@ -188,9 +207,6 @@ def init(cfg: GPTConfig, generator: torch.Generator, device=None) -> dict:
     }
 
 
-TENSOR = parallel_state.TENSOR_AXIS
-
-
 def param_specs(cfg: GPTConfig) -> dict:
     """Which dim of each leaf the tensor group shards (``"tensor"``), as
     the JAX model's ``PartitionSpec``s: column-parallel (QKV, MLP-in) shard
@@ -214,136 +230,20 @@ def param_specs(cfg: GPTConfig) -> dict:
     }
 
 
-def _qkv_heads(t: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
-    """``wqkv``'s (..., 3D) or ``bqkv``'s (..., 3D) columns as (..., 3, H,
-    head_dim): [q | k | v], each over every head."""
-    return t.reshape(*t.shape[:-1], 3, cfg.n_heads, cfg.head_dim)
-
-
 def shard_params(params: dict, cfg: GPTConfig, tp_rank: int, tp_size: int,
                  pp_rank: int = 0, pp_size: int = 1) -> dict:
     """The shard of ``params`` (or of any tree of the same layout, such as
     gradients or masters) that tensor rank ``tp_rank`` of ``tp_size`` and
-    pipe rank ``pp_rank`` of ``pp_size`` hold: the pipe rank's layers of
-    each block leaf, cut along :func:`param_specs`'s tensor dim; the other
-    leaves whole on every pipe rank. ``wqkv``/``bqkv`` are cut by heads: a
-    rank holds its heads' q, k and v columns ([q | k | v] over its heads),
-    where a contiguous cut of the last dim would hand rank 0 all of q.
-    Copies, so the shard owns its storage."""
-    if cfg.n_heads % tp_size or cfg.vocab_size % tp_size or cfg.ff % tp_size:
-        raise ValueError(f"heads {cfg.n_heads}, vocab {cfg.vocab_size} and d_ff "
-                         f"{cfg.ff} must divide by the tensor size {tp_size}")
-    if cfg.n_layers % pp_size:
-        raise ValueError(f"n_layers {cfg.n_layers} not divisible by the pipe "
-                         f"size {pp_size}")
-    per = cfg.n_layers // pp_size
-    lo = pp_rank * per
-    hl = cfg.n_heads // tp_size
-    specs = param_specs(cfg)
-
-    def cut(name, leaf, spec):
-        if name in ("wqkv", "bqkv"):
-            heads = _qkv_heads(leaf, cfg)[..., tp_rank * hl:(tp_rank + 1) * hl, :]
-            return heads.reshape(*leaf.shape[:-1], 3 * hl * cfg.head_dim)
-        if TENSOR in spec:
-            dim = spec.index(TENSOR)
-            n = leaf.shape[dim] // tp_size
-            return leaf.narrow(dim, tp_rank * n, n)
-        return leaf
-
-    out = {k: cut(k, v, specs[k]).clone() for k, v in params.items() if k != "blocks"}
-    out["blocks"] = {k: cut(k, v[lo:lo + per], specs["blocks"][k]).clone()
-                     for k, v in params["blocks"].items()}
-    return out
+    pipe rank ``pp_rank`` of ``pp_size`` hold, cut along
+    :func:`param_specs` (``testing/_tensor_parallel.py`` ``shard_tree``)."""
+    return shard_tree(params, param_specs(cfg), cfg, tp_rank, tp_size, pp_rank,
+                      pp_size)
 
 
 def unshard_params(shards, cfg: GPTConfig) -> dict:
     """The whole tree from ``shards[pp_rank][tp_rank]`` (every rank's
-    :func:`shard_params`): the inverse of :func:`shard_params`, bit for
-    bit. Replicated leaves come from tensor rank 0 and, outside the blocks,
-    pipe rank 0."""
-    pp_size, tp_size = len(shards), len(shards[0])
-    hl = cfg.n_heads // tp_size
-    specs = param_specs(cfg)
-
-    def join(name, pieces, spec):
-        if name in ("wqkv", "bqkv"):
-            heads = [p.reshape(*p.shape[:-1], 3, hl, cfg.head_dim) for p in pieces]
-            whole = torch.cat(heads, dim=-2)
-            return whole.reshape(*whole.shape[:-3], 3 * cfg.d_model)
-        if TENSOR in spec:
-            return torch.cat(pieces, dim=spec.index(TENSOR))
-        return pieces[0]
-
-    row = shards[0]
-    out = {k: join(k, [s[k] for s in row], specs[k])
-           for k in row[0] if k != "blocks"}
-    out["blocks"] = {
-        k: torch.cat([join(k, [s["blocks"][k] for s in stage], specs["blocks"][k])
-                      for stage in shards])
-        for k in row[0]["blocks"]}
-    return out
-
-
-def _tp_world() -> int:
-    """The tensor group's size once model parallelism is initialized, else
-    0 (the dense model)."""
-    if not parallel_state.model_parallel_is_initialized():
-        return 0
-    return parallel_state.get_tensor_model_parallel_world_size()
-
-
-def _seq_first(cfg: GPTConfig) -> bool:
-    """Whether the residual stream is laid out (S, B, D) and split along S
-    over the tensor group."""
-    return cfg.sequence_parallel and _tp_world() > 0
-
-
-def _column_input(h, cfg: GPTConfig):
-    """A column-parallel GEMM's input: gathered along S under sequence
-    parallelism (the backward reduce-scatters), else through the f region
-    (the backward all-reduces)."""
-    if not _tp_world():
-        return h
-    if cfg.sequence_parallel:
-        return mp.gather_from_sequence_parallel_region(h, TENSOR, True)
-    return mp.copy_to_tensor_model_parallel_region(h, TENSOR)
-
-
-def _row_output(y, cfg: GPTConfig):
-    """A row-parallel GEMM's partial products summed over the tensor group
-    (reduce-scattered along S under sequence parallelism)."""
-    if not _tp_world():
-        return y
-    if cfg.sequence_parallel:
-        return mp.reduce_scatter_to_sequence_parallel_region(y, TENSOR)
-    return mp.reduce_from_tensor_model_parallel_region(y, TENSOR)
-
-
-def _row_bias(b):
-    """A row-parallel GEMM's bias: whole on tensor rank 0; on the others a
-    zero that carries the bias's gradient, so the sum adds it once and every
-    rank's gradient of it is whole."""
-    if _tp_world() and parallel_state.get_tensor_model_parallel_rank() != 0:
-        return b - b.detach()
-    return b
-
-
-def _layernorm(x, scale, bias, cfg: GPTConfig):
-    """Fused LN (K1/K3); fp32 gamma/beta may meet bf16 activations uncast.
-    Under sequence parallelism the parameter gradients are all-reduced over
-    the tensor group."""
-    return sp_fused_layer_norm(x, scale, bias, sequence_parallel=_seq_first(cfg),
-                               impl=cfg.norm_impl)
-
-
-def _heads(t, n_heads, seq_first=False):
-    """(B, S, D) — or (S, B, D) with ``seq_first`` — as (B, H, S, D / H)."""
-    if seq_first:
-        S, B, D = t.shape
-        return t.reshape(S, B, n_heads, D // n_heads).permute(1, 2, 0, 3)
-    B, S, D = t.shape
-    return t.reshape(B, S, n_heads, D // n_heads).transpose(1, 2)
+    :func:`shard_params`), bit for bit."""
+    return unshard_tree(shards, param_specs(cfg), cfg)
 
 
 def _drop(cfg: GPTConfig, keys, t, site, rate):
@@ -352,7 +252,7 @@ def _drop(cfg: GPTConfig, keys, t, site, rate):
     identity."""
     if keys is None or rate == 0.0:
         return t
-    return dropout(keys[site], t, rate, impl=cfg.dropout_impl)
+    return _hidden_dropout(cfg, keys[site], t, rate)
 
 
 def _attn_sublayer(cfg: GPTConfig, x, lp, keys=None):
@@ -373,7 +273,8 @@ def _attn_sublayer(cfg: GPTConfig, x, lp, keys=None):
         # no (B*H, S, S) score tensor in HBM; dropout inside K2/K4
         ctx = flash_attention(q, k, v, causal=True, scale=scale,
                               dropout_rate=attn_rate, dropout_key=attn_key,
-                              impl=cfg.attention_impl)
+                              impl=cfg.attention_impl,
+                              dropout_place=_heads_place(n_heads, cfg))
     else:
         # the scores stay in the activation dtype, as JAX's product does
         scores = (q @ k.transpose(-1, -2)).reshape(B * n_heads, S, S)
@@ -381,7 +282,8 @@ def _attn_sublayer(cfg: GPTConfig, x, lp, keys=None):
             scores, scale, impl=cfg.attention_impl).to(x.dtype)
         probs = probs.reshape(B, n_heads, S, S)
         if attn_rate > 0.0:
-            probs = dropout(attn_key, probs, attn_rate, impl=cfg.dropout_impl)
+            probs = dropout(attn_key, probs, attn_rate, impl=cfg.dropout_impl,
+                            place=_heads_place(n_heads, cfg))
         # jnp's promotion: under O1/O4 the probabilities follow the fp32
         # residual stream while v is low precision, and the product is fp32
         dt = torch.promote_types(probs.dtype, v.dtype)
@@ -424,10 +326,10 @@ def embed(params: dict, tokens: torch.Tensor, cfg: GPTConfig,
     else:
         tok = params["tok_embed"][tokens]
     x = (tok + params["pos_embed"][:S]).to(cfg.dtype)
-    if emb_key is not None and cfg.dropout_rate > 0.0:
-        x = dropout(emb_key, x, cfg.dropout_rate, impl=cfg.dropout_impl)
     if _seq_first(cfg):
         x = mp.scatter_to_sequence_parallel_region(x.transpose(0, 1), TENSOR)
+    if emb_key is not None and cfg.dropout_rate > 0.0:
+        x = _hidden_dropout(cfg, emb_key, x, cfg.dropout_rate)
     return x
 
 
@@ -464,10 +366,6 @@ def forward(params: dict, tokens: torch.Tensor, cfg: GPTConfig,
     vocab shard under a tensor group). ``dropout_key`` switches the cfg
     dropout sites on (None = eval: identity). ``return_aux=True`` also
     returns the MoE aux dict, all zeros for the dense model."""
-    if dropout_key is not None and _tp_world() > 1:
-        raise NotImplementedError(
-            "dropout under a tensor group of more than one rank is not ported "
-            "yet: ROADMAP A15")
     emb_key, keys = dropout_keys(dropout_key, cfg.n_layers)
     x = embed(params, tokens, cfg, emb_key)
     logits = head(params, blocks(params, x, cfg, keys), cfg)

@@ -7,12 +7,13 @@ entropy, data broadcast, memory buffers and the RNG discipline.
 communication. ``layers``: the sequence-parallel-aware norms.
 ``amp_grad_scaler``: the model-parallel found-inf reduction. ``functional``:
 ``FusedScaleMaskSoftmax``. ``_data``: the pretraining batch samplers.
-``parallel_state`` lives in ``beforeholiday_tpu_torch.parallel``. Context
-parallelism (``context_parallel.py``) is not ported yet (ROADMAP A15).
+``context_parallel``: ring attention over the context group.
+``parallel_state`` lives in ``beforeholiday_tpu_torch.parallel``.
 """
 
 from beforeholiday_tpu_torch.transformer import (  # noqa: F401
     _data,
+    context_parallel,
     functional,
     layers,
     pipeline_parallel,
@@ -30,5 +31,5 @@ from beforeholiday_tpu_torch.transformer.enums import (  # noqa: F401
 )
 
 __all__ = ["AttnMaskType", "AttnType", "GradScaler", "LayerType", "ModelType",
-           "functional", "layers", "pipeline_parallel", "reduce_found_inf",
+           "context_parallel", "functional", "layers", "pipeline_parallel", "reduce_found_inf",
            "tensor_parallel"]

@@ -7,6 +7,7 @@ from beforeholiday_tpu_torch.transformer.pipeline_parallel.microbatches import (
     build_num_microbatches_calculator,
 )
 from beforeholiday_tpu_torch.transformer.pipeline_parallel.schedules import (  # noqa: F401
+    EncDecPipelineGrads,
     PipelineGrads,
     activation_ring_depth,
     analytic_bubble_fraction,
@@ -21,7 +22,7 @@ from beforeholiday_tpu_torch.transformer.pipeline_parallel.schedules import (  #
 )
 
 __all__ = [
-    "ConstantNumMicroBatches", "PipelineGrads", "RampupBatchsizeNumMicroBatches",
+    "ConstantNumMicroBatches", "EncDecPipelineGrads", "PipelineGrads", "RampupBatchsizeNumMicroBatches",
     "activation_ring_depth", "analytic_bubble_fraction",
     "build_num_microbatches_calculator", "forward_backward_no_pipelining",
     "forward_backward_pipelining_encoder_decoder",

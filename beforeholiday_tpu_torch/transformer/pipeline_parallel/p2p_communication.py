@@ -59,7 +59,17 @@ def send_backward_recv_forward(dy, y, *, axis_name: str = PIPE_AXIS):
 
 
 def send_forward_recv_backward_double_buffered(pending_y, pending_dy, *,
-                                               axis_name: str = PIPE_AXIS):
+                                               axis_name: str = PIPE_AXIS,
+                                               async_op: bool = False):
     """The 1F1B pair on the previous tick's outputs (the double-buffered
-    exchange of the overlap schedules): the same exchange and sites."""
-    return send_forward_recv_backward(pending_y, pending_dy, axis_name=axis_name)
+    exchange of the overlap schedules): the same exchange and sites. With
+    ``async_op`` both rings are posted and ``((y, dy), (work_y, work_dy))``
+    returns at once; the caller computes, then waits on both works before
+    reading."""
+    if not async_op:
+        return send_forward_recv_backward(pending_y, pending_dy, axis_name=axis_name)
+    y, wy = comms.ppermute(pending_y, axis_name, _ring(axis_name, +1),
+                           site="pp.fwd_ring", async_op=True, tag=1)
+    dy, wdy = comms.ppermute(pending_dy, axis_name, _ring(axis_name, -1),
+                             site="pp.bwd_ring", async_op=True, tag=2)
+    return (y, dy), (wy, wdy)

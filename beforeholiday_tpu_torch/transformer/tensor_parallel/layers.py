@@ -8,7 +8,8 @@ tensor group ``axis_name`` names. The weight layout is (in, out), as in JAX:
 column-parallel shards ``out``, row-parallel shards ``in``. The product and
 the bias are two operations, each rounded to the activation dtype, as JAX
 writes them (the GPT's blocks keep ``ops.fused_dense``'s single rounding;
-see ``testing/gpt.py``).
+see ``testing/gpt.py``). Under sequence parallelism the gather and the GEMM
+can run as the collective matmul (``collective.py``).
 """
 
 from __future__ import annotations
@@ -20,15 +21,11 @@ import torch.distributed as dist
 
 from beforeholiday_tpu_torch.monitor.comms import ledger_scope
 from beforeholiday_tpu_torch.parallel.parallel_state import TENSOR_AXIS, get_group
+from beforeholiday_tpu_torch.transformer.tensor_parallel import collective as cm
 from beforeholiday_tpu_torch.transformer.tensor_parallel import mappings as mp
 
 __all__ = ["column_parallel_linear", "row_parallel_linear",
            "vocab_parallel_embedding", "vocab_range"]
-
-_COLLECTIVE_MATMUL = ("the collective matmul (tensor_parallel/collective.py, the "
-                      "all-gather ring overlapped with the GEMM) is not ported "
-                      "yet: ROADMAP A15")
-
 
 def column_parallel_linear(
     x: torch.Tensor,
@@ -46,18 +43,22 @@ def column_parallel_linear(
     ``sequence_parallel``: x arrives sequence-sharded (dim 0); it is
     all-gathered before the GEMM and the backward reduce-scatters.
     Otherwise x is replicated and the f-conjugate (identity forward,
-    all-reduce backward) applies. ``collective_matmul=True`` raises: the
-    collective matmul is not ported (ROADMAP A15)."""
-    if collective_matmul:
-        raise NotImplementedError(_COLLECTIVE_MATMUL)
+    all-reduce backward) applies. ``collective_matmul`` (sequence parallel
+    only; None: ``collective.collective_matmul_enabled()``, off unless set)
+    runs the gather and the GEMM as the collective matmul's ppermute ring."""
     if gather_output and sequence_parallel:
         raise ValueError("cannot gather output in sequence-parallel mode")
     with ledger_scope("column_parallel_linear"):
-        if sequence_parallel:
-            x = mp.gather_from_sequence_parallel_region(x, axis_name, True)
+        if collective_matmul is None:
+            collective_matmul = cm.collective_matmul_enabled()
+        if sequence_parallel and collective_matmul:
+            y = cm.all_gather_matmul(x, weight.to(x.dtype), axis_name)
         else:
-            x = mp.copy_to_tensor_model_parallel_region(x, axis_name)
-        y = x @ weight.to(x.dtype)
+            if sequence_parallel:
+                x = mp.gather_from_sequence_parallel_region(x, axis_name, True)
+            else:
+                x = mp.copy_to_tensor_model_parallel_region(x, axis_name)
+            y = x @ weight.to(x.dtype)
         if bias is not None:
             y = y + bias.to(y.dtype)
         if gather_output:

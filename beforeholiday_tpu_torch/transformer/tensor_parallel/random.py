@@ -19,9 +19,12 @@ probabilities ``(B, H, Sq, Sk)`` dropped here get the very mask that flash
 attention draws in-kernel at ``(b H + h, query, key)`` under the same key.
 
 Because the key is a value, :func:`checkpoint` needs no RNG state: a
-recomputed region draws the same masks again. The tensor-parallel and
-data-parallel keys need the mesh's axes and raise until tensor parallelism
-is ported.
+recomputed region draws the same masks again. :func:`model_parallel_seed`
+and :func:`data_parallel_seed` fold the rank along a ``parallel_state``
+axis into the key, as JAX folds ``axis_index``: the rank is a host int, so
+the fold runs on the device with no host sync. A tensor-parallel model that
+must draw its one-device masks instead passes :func:`dropout` a ``place``
+(``ops.attention.RankPlace``): the rank's part of the one-device block.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from beforeholiday_tpu_torch.ops._autocast import (
 from beforeholiday_tpu_torch.ops.quantized import active_scales, quantized_scope
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device, resolve_impl
 from beforeholiday_tpu_torch.ops.attention import (
+    RankPlace,
     _check_key,
     dropout_keep_mask,
     philox4x32,
@@ -53,6 +57,9 @@ _MASK32 = 0xFFFFFFFF
 # the hash counter's last two words for key derivation; masks count with
 # (col, row, bh, 0), so a key's derived keys never reuse a mask's words
 _FOLD_TAG, _SPLIT_TAG = 0x464F4C44, 0x53504C54
+# the reference's offset: tensor-parallel seed = seed + 2718 + tp_rank
+# (apex/transformer/tensor_parallel/random.py:204-234)
+_MODEL_PARALLEL_OFFSET = 2718
 
 
 def make_key(seed: Optional[int] = None, *,
@@ -100,18 +107,28 @@ def split(key: torch.Tensor, n: int) -> torch.Tensor:
     return torch.stack((w[0], w[1]), -1)
 
 
+def _axis_index(axis_name) -> int:
+    """This process's rank along ``axis_name`` (a ``parallel_state`` axis
+    or a process group), JAX's ``axis_index``; raises outside a
+    ``torch.distributed`` world, or on an axis model parallelism has not
+    bound."""
+    import torch.distributed as dist
+
+    from beforeholiday_tpu_torch.parallel.parallel_state import get_group
+
+    return dist.get_rank(get_group(axis_name))
+
+
 def model_parallel_seed(key: torch.Tensor, axis_name: str = TENSOR_AXIS):
-    """Per tensor-parallel rank key: needs the mesh (not ported yet)."""
-    raise NotImplementedError(
-        "model_parallel_seed needs the tensor-parallel mesh, which is not "
-        "ported yet")
+    """Per tensor-parallel rank key (distinct dropout masks per shard):
+    ``fold_in(key, 2718 + rank)``, the rank along ``axis_name``."""
+    return fold_in(key, _MODEL_PARALLEL_OFFSET + _axis_index(axis_name))
 
 
 def data_parallel_seed(key: torch.Tensor, axis_name: str = DATA_AXIS):
-    """Per data-parallel rank key: needs the mesh (not ported yet)."""
-    raise NotImplementedError(
-        "data_parallel_seed needs the data-parallel mesh, which is not "
-        "ported yet")
+    """Per data-parallel rank key (independent augmentation per replica):
+    ``fold_in(key, rank)``, the rank along ``axis_name``."""
+    return fold_in(key, _axis_index(axis_name))
 
 
 def dropout(
@@ -123,26 +140,29 @@ def dropout(
     axis_name: str = TENSOR_AXIS,
     deterministic: bool = False,
     impl: Optional[str] = None,
+    place: Optional[RankPlace] = None,
 ) -> torch.Tensor:
     """Inverted dropout: survivors scaled by ``1 / (1 - rate)``, where the
     rate's complement is first rounded to x's dtype as JAX rounds a Python
     scalar to a bf16 operand. Identity at rate 0 or when ``deterministic``.
-    ``impl`` picks the mask's kernel (K13) or its plain version."""
+    ``tp_distinct`` draws from :func:`model_parallel_seed` (a distinct mask
+    on every rank along ``axis_name``). ``impl`` picks the mask's kernel
+    (K13) or its plain version; ``place`` makes x's mask the rank's part of
+    the one-device tensor's (x's ``(prod(lead), rows, cols)`` block at that
+    place)."""
     if deterministic or rate == 0.0:
         return x
     if not 0.0 < rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
-    if tp_distinct:
-        raise NotImplementedError(
-            "tp_distinct dropout needs the tensor-parallel mesh, which is not "
-            "ported yet")
     if key is None:
         raise ValueError("dropout at rate > 0 needs a key")
     _check_key(key, x.device)
+    if tp_distinct:
+        key = model_parallel_seed(key, axis_name)
     shape = (1, 1, 1, *x.shape)[-3:] if x.ndim < 3 else (
         math.prod(x.shape[:-2]), *x.shape[-2:])
-    keep = dropout_keep_mask(key, shape, rate,
-                             impl=resolve_impl(impl, x)).reshape(x.shape)
+    keep = dropout_keep_mask(key, shape, rate, impl=resolve_impl(impl, x),
+                             place=place).reshape(x.shape)
     keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype).item()
     return torch.where(keep, x / keep_prob, 0.0)
 

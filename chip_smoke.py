@@ -192,7 +192,21 @@ Phases, each printing one line (any failure exits non-zero):
     ``disagg_serving`` (prefill/decode disaggregation against the unified
     batcher: the signature gate closed, TTFT and tokens/s); ``serve_driver``
     (the open-loop driver with telemetry, then its crash dump);
-22. the total seconds, each phase's wall seconds (``phase_seconds``), the
+22. slice 17, the rest of ``apex.transformer``: at world 1 over NCCL,
+    ``cp_world1`` (ring attention over a context group of one, bitwise the
+    causal flash launch, forward and gradients), ``collective_matmul_world1``
+    (the collective matmul bitwise the monolithic sequence-parallel
+    column-parallel path at the QKV shape, y and every gradient) and
+    ``bert_tp_world1`` (BERT's TP forward bitwise its dense forward, sequence
+    parallel off and on); ``gpt_tp2_card`` also runs the two ranks at
+    dropout 0.1 (sequence parallel off and on) against the one-device
+    dropout step at the same key; ``rank_place`` (K2, K4 and K13 at each TP
+    2 rank's place bitwise the one-device launch's slice) with the places'
+    timed rows; ``ring_attention`` (a context group of 8 emulated rank by
+    rank at B 1, H 16, S 16384, D 64 bf16 through the port's hops and merge,
+    K2 and K4 with dlse, against one whole-sequence launch; at S 2048 in fp32
+    against the plain versions' ring) with the hops' timed rows;
+23. the total seconds, each phase's wall seconds (``phase_seconds``), the
     ``kernels`` JSON line (with ``launch_floor_ms``), the card line, and the
     final ``ok`` line.
 
@@ -5076,7 +5090,8 @@ TP_REPLICATED = ("pos_embed", "lnf_scale", "lnf_bias")
 TP_REPLICATED_BLOCKS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias", "bo", "bo2")
 
 
-def tp_pp_trainer(amp, gpt, fused_adam, shard, cfg, M, schedule, impl=None):
+def tp_pp_trainer(amp, gpt, fused_adam, shard, cfg, M, schedule, impl=None,
+                  dropout=False):
     """The flagship's amp O5 step over this rank's (tensor, pipe) shard, as
     a Megatron user script builds it from the port's public functions:
     ``amp.initialize(..., "O5", arena_native=True)`` on the shard, FusedAdam
@@ -5086,9 +5101,13 @@ def tp_pp_trainer(amp, gpt, fused_adam, shard, cfg, M, schedule, impl=None):
     head on the last; the tied embedding's embed and head gradients, both
     pipe-all-reduced, summed), the loss scaled by the dynamic scale, K5's
     unscale and its overflow flag reduced over the tensor and pipe groups.
+    With ``dropout`` (``schedule="none"``) the forward drops under the key
+    :func:`scaled_step` derives, DROPOUT_SEED's folded with the optimizer's
+    step count, so a step draws the one-device step's masks.
     ``(m, state, step)``; ``step(tokens, targets)`` returns ``(loss, fp32
     grads, found_inf)``, with no host sync."""
     from beforeholiday_tpu_torch.parallel import parallel_state
+    from beforeholiday_tpu_torch.transformer.tensor_parallel.random import fold_in
     from beforeholiday_tpu_torch.transformer import pipeline_parallel as pp
     from beforeholiday_tpu_torch.transformer import reduce_found_inf
     from beforeholiday_tpu_torch.transformer.tensor_parallel import (
@@ -5113,9 +5132,11 @@ def tp_pp_trainer(amp, gpt, fused_adam, shard, cfg, M, schedule, impl=None):
                 logits, tgt, cfg.vocab_size).mean(), state["scaler"])
 
         if schedule == "none":
+            key = (fold_in(flash_key(), state["opt"]["inner"][0]["step"])
+                   if dropout else None)
             loss, g = pp.forward_backward_no_pipelining(
-                lambda p, t: gpt.forward(p, t, cfg), loss_fn, {**blocks, **rest},
-                toks, tgts)
+                lambda p, t: gpt.forward(p, t, cfg, dropout_key=key), loss_fn,
+                {**blocks, **rest}, toks, tgts)
         else:
             tp = parallel_state.get_tensor_model_parallel_world_size()
             shape = ((S // tp, B // M, cfg.d_model) if cfg.sequence_parallel
@@ -5376,14 +5397,17 @@ def pp_slot_ranges():
                                    "pp_p2p_rings"))
 
 
-TP2_RUNS = (("tp2", False), ("tp2_sp", True))  # (run, sequence parallel)
+# (run, sequence parallel, dropout at DROPOUT's rates)
+TP2_RUNS = (("tp2", False, False), ("tp2_sp", True, False),
+            ("tp2_dropout", False, True), ("tp2_sp_dropout", True, True))
 
 
 def tp2_worker(rank, store, out_dir):
     """One rank of the two-rank TP check (a spawned process): gloo on CUDA
     tensors, tensor parallel 2, pipe 1, the flagship from the parent's
-    seeded weights; for each run of TP2_RUNS (sequence parallel off, on),
-    TP_TWO_RANK_STEPS O5 steps at batch 16 (one microbatch,
+    seeded weights; for each run of TP2_RUNS (sequence parallel off, on;
+    without and with dropout), TP_TWO_RANK_STEPS O5 steps at batch 16 (one
+    microbatch,
     ``forward_backward_no_pipelining``) with the launch counts read. Saves
     each step's loss, overflow flag and replicated masters, and step 1's
     grads and masters (trees), on the host."""
@@ -5412,12 +5436,14 @@ def tp2_worker(rank, store, out_dir):
         params = gpt.init(gpt.GPTConfig(**MODEL), gen(0), device="cuda")
         counters = launch_counters(norm, attn, mt, sm, xent)
         out = {}
-        for run, sp in TP2_RUNS:
-            cfg = gpt.GPTConfig(**MODEL, sequence_parallel=sp)
+        for run, sp, drop in TP2_RUNS:
+            cfg = gpt.GPTConfig(**MODEL, **(DROPOUT if drop else {}),
+                                sequence_parallel=sp)
             shard = gpt.shard_params(params, cfg, ps.get_tensor_model_parallel_rank(), 2)
             batch = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70),
                                         device="cuda")
-            m, state, step = tp_pp_trainer(amp, gpt, FusedAdam, shard, cfg, 1, "none")
+            m, state, step = tp_pp_trainer(amp, gpt, FusedAdam, shard, cfg, 1, "none",
+                                           dropout=drop)
             for fn in counters.values():
                 fn.launches = 0
             res = {"steps": []}
@@ -5450,16 +5476,19 @@ def tp2_worker(rank, store, out_dir):
         raise
 
 
-def gpt_tp2_card_phase(gpt, cfg, layout, ref, tmp):
+def gpt_tp2_card_phase(gpt, cfg, layout, refs, tmp):
     """Two processes on the one card, gloo on CUDA tensors (NCCL refuses two
     ranks on one device; gloo stages every collective through the host, so
     the phase's time is a correctness run's, not a speed): the full-width
-    flagship at tensor parallel 2, pipe 1, sequence parallel off and on, two
+    flagship at tensor parallel 2, pipe 1, sequence parallel off and on,
+    without and with dropout (DROPOUT's rates, each rank drawing its part
+    of the one-device masks through the rank places of K2, K4 and K13), two
     O5 steps each at batch 16. Each run's reassembled step-1 loss, grads and
-    masters against the one-device O5 step at TP_M4_BOUNDS (``layout``: its
-    arenas' layout); the overflow flags and losses equal on both ranks; the
-    replicated leaves' masters bitwise equal across the ranks after each
-    step. Returns rank 0's launch counts, by run."""
+    masters against the one-device O5 step (``refs[dropout]``, with dropout
+    at the same key) at TP_M4_BOUNDS (``layout``: its arenas' layout); the
+    overflow flags and losses equal on both ranks; the replicated leaves'
+    masters bitwise equal across the ranks after each step. Returns rank
+    0's launch counts, by run."""
     import multiprocessing as mp
     from beforeholiday_tpu_torch.ops.arena import tree_flatten, unflatten
 
@@ -5484,13 +5513,16 @@ def gpt_tp2_card_phase(gpt, cfg, layout, ref, tmp):
                              f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
     seconds = time.perf_counter() - t0
     ranks = [torch.load(f"{tmp}/tp2_rank{r}.pt") for r in range(2)]
-    want = dict(loss=ref["loss"])
-    for key in ("grads", "masters"):
-        want[key] = [torch.cat([t.reshape(-1) for t in unflatten(arena, spec)])
-                     for arena, spec in zip(ref[key], layout.specs)]
-    expect = {**_NO_LAUNCH, **_GPT_STEP, **_FLASH}
+    wants = {}
+    for drop, ref in refs.items():
+        wants[drop] = dict(loss=ref["loss"])
+        for key in ("grads", "masters"):
+            wants[drop][key] = [torch.cat([t.reshape(-1) for t in unflatten(arena, spec)])
+                                for arena, spec in zip(ref[key], layout.specs)]
     fields, failures, launches = {}, [], {}
-    for run, sp in TP2_RUNS:
+    for run, sp, drop in TP2_RUNS:
+        want = wants[drop]
+        expect = STEP_LAUNCHES["gpt_dropout" if drop else "gpt"]
         a, b = ranks[0][run], ranks[1][run]
         flags_equal = all(x["found_inf"] == y["found_inf"] is False
                           for x, y in zip(a["steps"], b["steps"]))
@@ -5510,7 +5542,7 @@ def gpt_tp2_card_phase(gpt, cfg, layout, ref, tmp):
         errs = step_errors(got, want)
         bad_launches = {k: v for k, v in a["launches"].items()
                         if k in expect and v != expect[k] * TP_TWO_RANK_STEPS}
-        fields[run] = dict(sequence_parallel=sp,
+        fields[run] = dict(sequence_parallel=sp, dropout=drop,
                            losses=[x["loss"] for x in a["steps"]], errors=errs,
                            found_inf_equal=flags_equal, losses_equal=losses_equal,
                            replicated_bitwise=replicated_bitwise,
@@ -5528,7 +5560,8 @@ def gpt_tp2_card_phase(gpt, cfg, layout, ref, tmp):
          pipe=1, batch=TRAIN_BATCH, micro_batches=1, steps=TP_TWO_RANK_STEPS,
          note="'gloo stages every collective through the host: a correctness run, "
               "not a speed'",
-         one_rank_loss=ref["loss"], bounds=json.dumps(TP_M4_BOUNDS),
+         one_rank_loss=refs[False]["loss"], one_rank_dropout_loss=refs[True]["loss"],
+         bounds=json.dumps(TP_M4_BOUNDS),
          rank_peak_mem_gb=ranks[0]["peak_mem_gb"], seconds=seconds,
          **{k: json.dumps(v) for k, v in fields.items()})
     if failures:
@@ -5683,6 +5716,371 @@ def tp_kernel_rows(norm, attn, mt, n_bf16):
     return rows
 
 
+# ------------------------------------------------------------- slice 17
+# the rest of apex.transformer: rank places of the dropout masks, context
+# parallelism (ring attention), the collective matmul, BERT over TP
+
+# the flagship's attention width at long context, a context group of 8
+RING = dict(B=1, H=16, S=16384, D=64, cp=8)
+RING_SMALL_S = 2048  # the fp32 ring against the plain ring
+# the bf16 ring against one whole-sequence launch (PERF.md): each hop's o
+# is rounded to bf16 (2^-9 of sum over its keys of p|v|) and K2 rounds each
+# p to bf16 for p.v, as the one launch does on other values (2^-9 of sum
+# p|v| each side), and the merged o is rounded once more (2^-9 |o|): so
+# |o - ref| <= 2^-7 |ref| + 2^-7 sum p|v|, twice those. The gradients: K4's
+# bf16 row (rtol 2e-2, atol 2e-2 max|ref|) for each of the cp contributions
+# to dq (its hops) and to dk, dv (its chunk's hops on every rank), each
+# rounded to bf16 and summed in bf16 (2 cp - 1 roundings of 2^-9 of the
+# contributions' magnitudes, 0.029 at cp 8): rtol and atol 0.05
+RING_GRAD_TOL = 0.05
+
+
+def emulated_ring(cpar, q, k, v, cp, causal, scale, impl=None):
+    """The cp-rank ring of ``ring_attention``'s flash path on one device:
+    for each rank r, ``context_parallel._hop`` over the K/V chunks in the
+    order r receives them (chunk ``(r - t) mod cp`` at step t; indexed here
+    where the ring ppermutes them) merged by ``_merge_by_lse``. q, k, v
+    (B, H, S, D) whole; returns the whole (B, H, S, D) output in q's dtype,
+    differentiable through K2/K4 (or their plain versions, ``impl``)."""
+    B, H, S, D = q.shape
+    Sl = S // cp
+    qc, kc, vc = ([c.reshape(B * H, Sl, D) for c in t.chunk(cp, dim=2)]
+                  for t in (q, k, v))
+    outs = []
+    for r in range(cp):
+        o, lse = cpar._hop(qc[r], kc[r], vc[r], causal_hop=causal, kv_len=Sl,
+                           scale=scale, impl=impl)
+        for t in range(1, cp):
+            src = (r - t) % cp
+            o_t, lse_t = cpar._hop(qc[r], kc[src], vc[src], causal_hop=False,
+                                   kv_len=Sl if not causal or src < r else 0,
+                                   scale=scale, impl=impl)
+            o, lse = cpar._merge_by_lse(o, lse, o_t, lse_t)
+        outs.append(torch.where((lse > cpar._NEG / 2)[..., None], o, 0.0))
+    return torch.stack(outs, 1).reshape(B, H, S, D).to(q.dtype)
+
+
+def check_ring_grad(name, got, ref):
+    tol = RING_GRAD_TOL
+    return check_close(name, got, ref, dict(rtol=tol, atol=tol * float(ref.float().abs().max())))
+
+
+def ring_phase(attn, cpar):
+    """Ring attention as a context group of RING["cp"] ranks runs it,
+    emulated rank by rank on the one card at the flagship's heads at long
+    context (B 1, H 16, S 16384, D 64, bf16, causal; S_local 2048): the
+    forward and the gradients of sum(o w) through K2 hops and K4 with the
+    merge's dlse, the launches counted, against one whole-sequence K2/K4
+    launch (RING_GRAD_TOL, and the forward's per-element bound); at S 2048
+    in fp32 the kernels' ring against the plain versions' ring at K2's and
+    K4's fp32 rows. Then the hops' and K4-with-dlse's timed rows. Returns
+    rows to merge, keyed by kernel."""
+    g = gen(170)
+    B, H, S, D, cp = (RING[k] for k in ("B", "H", "S", "D", "cp"))
+    scale = D ** -0.5
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device="cuda").bfloat16()
+               for _ in range(3))
+    w = torch.randn(B, H, S, D, generator=g, device="cuda").bfloat16()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    attn.flash_fwd_kernel.launches = attn.flash_bwd_kernel.launches = 0
+    o = emulated_ring(cpar, *leaves, cp, True, scale, impl="kernel")
+    grads = torch.autograd.grad((o.float() * w.float()).sum(), leaves)
+    torch.cuda.synchronize()
+    launches = (attn.flash_fwd_kernel.launches, attn.flash_bwd_kernel.launches)
+    if launches != (cp * cp, cp * cp):
+        raise AssertionError(f"ring: K2/K4 launches {launches}, expected {cp * cp} each")
+    rleaves = [t.reshape(B * H, S, D).clone().requires_grad_(True) for t in (q, k, v)]
+    ro, _ = attn.flash_attention_with_lse(*rleaves, causal=True, scale=scale)
+    rgrads = torch.autograd.grad((ro.float() * w.reshape(B * H, S, D).float()).sum(),
+                                 rleaves)
+    lens = torch.full((B * H,), S, dtype=torch.int32, device="cuda")
+    ref_abs = attn.flash_fwd_kernel(q.reshape(B * H, S, D).float(),
+                                    k.reshape(B * H, S, D).float(),
+                                    v.reshape(B * H, S, D).float().abs(), lens, True,
+                                    scale)[0]
+    ro = ro.reshape(B, H, S, D)
+    bound = 2 ** -7 * ro.float().abs() + 2 ** -7 * ref_abs.reshape(B, H, S, D)
+    err = (o.float() - ro.float()).abs()
+    if (err > bound).any():
+        raise AssertionError(f"ring bf16 forward: {int((err > bound).sum())} elements "
+                             f"out of bound")
+    errs = {"o": float(err.max()), "o_of_bound": float((err / bound).max())}
+    for n, a_, b_ in zip("qkv", grads, rgrads):
+        errs[f"d{n}"] = check_ring_grad(f"ring bf16 d{n}", a_, b_.reshape(a_.shape))
+    del o, grads, ro, rgrads, ref_abs, bound, err, leaves, rleaves
+    torch.cuda.empty_cache()
+    # fp32 at a reduced S: the kernels' ring against the plain versions'
+    Ss = RING_SMALL_S
+    qs, ks, vs, ws = (torch.randn(B, H, Ss, D, generator=g, device="cuda")
+                      for _ in range(4))
+    small = {}
+    for impl in ("kernel", "torch"):
+        ls = [t.clone().requires_grad_(True) for t in (qs, ks, vs)]
+        os_ = emulated_ring(cpar, *ls, cp, True, scale, impl=impl)
+        small[impl] = (os_, torch.autograd.grad((os_ * ws).sum(), ls))
+    errs["fp32_o"] = check_close("ring fp32 o", small["kernel"][0], small["torch"][0],
+                                 FP32_TOL)
+    for n, a_, b_ in zip("qkv", small["kernel"][1], small["torch"][1]):
+        errs[f"fp32_d{n}"] = check_close(f"ring fp32 d{n}", a_, b_,
+                                         dict(rtol=1e-5, atol=1e-4))
+    del small
+    line("ring_attention", shape=f"'B{B} H{H} S{S} D{D} bfloat16 causal, cp {cp}'",
+         k2_launches=launches[0], k4_launches=launches[1],
+         grad_tol=RING_GRAD_TOL, max_abs_err=json.dumps(errs))
+    # the timed rows: one hop of the ring's shape (BH 16, S_local 2048)
+    Sl, BH = S // cp, B * H
+    q3, k3, v3 = (torch.randn(BH, Sl, D, generator=g, device="cuda").bfloat16()
+                  for _ in range(3))
+    rows = {"flash_fwd": {}, "flash_bwd": {}}
+    for key, n_keys in (("ring_full", Sl), ("ring_empty", 0)):
+        lens = torch.full((BH,), n_keys, dtype=torch.int32, device="cuda")
+        fargs = (q3, k3, v3, lens, False, scale)
+        o3, lse3 = attn.flash_fwd_kernel(*fargs)
+        ro3, rlse3 = attn.flash_fwd_torch(*fargs)
+        if n_keys:
+            ref_abs = attn.flash_fwd_torch(q3.float(), k3.float(), v3.float().abs(),
+                                           *fargs[3:])[0]
+            err = check_dropped_pv(f"K2 {key}", o3, ro3, ref_abs)
+            check_close(f"K2 lse {key}", lse3, rlse3, dict(rtol=1e-5, atol=1e-4))
+            flops, nbytes = k2_flops_bytes(q3, k3, lens, False)
+            ql, kl, vl = (t.reshape(B, H, Sl, D) for t in (q3, k3, v3))
+            library = time_ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, scale=scale))
+        else:
+            # no key: o is 0 and lse -1e30, exactly, with nothing read but
+            # the lengths
+            if not (torch.equal(o3, torch.zeros_like(o3))
+                    and bool((lse3 == -1e30).all())):
+                raise AssertionError("K2 ring_empty: not o = 0, lse = -1e30")
+            err, flops = 0.0, 0
+            nbytes = o3.numel() * o3.element_size() + lse3.numel() * 4 + BH * 4
+            library = None  # attention over no keys is no library call's function
+        bms, by = bound_ms(nbytes, flops, torch.bfloat16)
+        rows["flash_fwd"][key] = (
+            f"BH{BH} S{Sl} D{D} bfloat16, kv_lens {n_keys} (a ring hop)", dict(
+                max_abs_err=err, ms=time_ms(lambda: attn.flash_fwd_kernel(*fargs)),
+                plain_ms=time_ms(lambda: attn.flash_fwd_torch(*fargs), iters=5),
+                library_ms=library, bound_ms=bms, bound_by=by, launches=launches[0]))
+    lens = torch.full((BH,), Sl, dtype=torch.int32, device="cuda")
+    o3, lse3 = attn.flash_fwd_torch(q3, k3, v3, lens, False, scale)
+    do = torch.randn(o3.shape, generator=g, device="cuda").bfloat16()
+    dlse = torch.randn(lse3.shape, generator=g, device="cuda")
+    bargs = (q3, k3, v3, o3, do, lse3, dlse, lens, False, scale)
+    got, ref = attn.flash_bwd_kernel(*bargs), attn.flash_bwd_torch(*bargs)
+    err = max(check_close(f"K4 dlse {n}", a_, b_, dict(
+        rtol=2e-2, atol=2e-2 * float(b_.float().abs().max())))
+        for n, a_, b_ in zip(("dq", "dk", "dv"), got, ref))
+    flops, nbytes = k4_flops_bytes(q3, k3, lens, False)
+    bms, by = bound_ms(nbytes + dlse.numel() * 4, flops, torch.bfloat16)
+    rows["flash_bwd"]["ring_dlse"] = (
+        f"BH{BH} S{Sl} D{D} bfloat16, with dlse (the ring's merge)", dict(
+            max_abs_err=err, ms=time_ms(lambda: attn.flash_bwd_kernel(*bargs)),
+            plain_ms=time_ms(lambda: attn.flash_bwd_torch(*bargs), iters=5),
+            library_ms=None, bound_ms=bms, bound_by=by, launches=launches[1]))
+    for kname, r in rows.items():
+        for key, (tag, f) in r.items():
+            line(f"ring_row {kname}", shape=tag, **f)
+    del q, k, v, w, q3, k3, v3, got, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rank_place_phase(attn):
+    """K2, K4 and K13 at each TP 2 rank's place, bitwise the one-device
+    launch's slice at the flagship's shapes, dropout 0.1: K2/K4 over the
+    rank's 8 of 16 heads (BH 128 of 256, S 1024, causal bf16), K13 over its
+    heads' planes of the (256, 1024, 1024) probabilities and its rows of
+    the (16, 1024, 1024) hidden states under sequence parallelism. Then the
+    timed rows at the TP 2 runs' shapes. Returns rows to merge, keyed by
+    kernel."""
+    g = gen(180)
+    key = flash_key()
+    B, H, S, D, rate = TRAIN_BATCH, MODEL["n_heads"], MODEL["seq_len"], 64, 0.1
+    hl, scale = H // 2, D ** -0.5
+    q, k, v, do = (torch.randn(B * H, S, D, generator=g, device="cuda").bfloat16()
+                   for _ in range(4))
+    lens = torch.full((B * H,), S, dtype=torch.int32, device="cuda")
+    o, lse = attn.flash_fwd_kernel(q, k, v, lens, True, scale, rate, key)
+    grads = attn.flash_bwd_kernel(q, k, v, o, do, lse, None, lens, True, scale, rate, key)
+    hidden = attn.dropout_keep_mask_kernel(key, (B, S, MODEL["d_model"]), rate)
+    probs = attn.dropout_keep_mask_kernel(key, (B * H, S, S), rate)
+
+    def heads(t, r):
+        return t.reshape(B, H, *t.shape[1:])[:, r * hl:(r + 1) * hl].reshape(
+            B * hl, *t.shape[1:]).contiguous()
+
+    checks = {}
+    for r in range(2):
+        place = attn.RankPlace(hl, H, r * hl)
+        qr, kr, vr, dor = (heads(t, r) for t in (q, k, v, do))
+        lr = lens[:B * hl].contiguous()
+        orr, lser = attn.flash_fwd_kernel(qr, kr, vr, lr, True, scale, rate, key, place)
+        gr = attn.flash_bwd_kernel(qr, kr, vr, orr, dor, lser, None, lr, True, scale,
+                                   rate, key, place)
+        checks[f"K2 rank {r}"] = bool(torch.equal(orr, heads(o, r))
+                                      and torch.equal(lser, heads(lse, r)))
+        checks[f"K4 rank {r}"] = all(torch.equal(a_, heads(b_, r))
+                                     for a_, b_ in zip(gr, grads))
+        checks[f"K13 heads rank {r}"] = bool(torch.equal(
+            attn.dropout_keep_mask_kernel(key, (B * hl, S, S), rate, place),
+            heads(probs, r)))
+        rows_place = attn.RankPlace(1, 1, 0, r * S // 2)
+        checks[f"K13 rows rank {r}"] = bool(torch.equal(
+            attn.dropout_keep_mask_kernel(key, (B, S // 2, MODEL["d_model"]), rate,
+                                          rows_place),
+            hidden[:, r * S // 2:(r + 1) * S // 2]))
+    torch.cuda.synchronize()
+    line("rank_place", shape=f"'B{B} H{H} S{S} D{D} causal bfloat16, rate {rate}, TP 2'",
+         bitwise=json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError(f"rank places: not the one-device slices: {checks}")
+    del o, lse, grads, hidden, probs
+    torch.cuda.empty_cache()
+    # the timed rows: rank 1's place at the TP 2 runs' shapes
+    place = attn.RankPlace(hl, H, hl)
+    qr, kr, vr, dor = (heads(t, 1) for t in (q, k, v, do))
+    lr = lens[:B * hl].contiguous()
+    fargs = (qr, kr, vr, lr, True, scale, rate, key, place)
+    o, lse = attn.flash_fwd_kernel(*fargs)
+    ro, rlse = attn.flash_fwd_torch(*fargs)
+    ref_abs = attn.flash_fwd_torch(qr.float(), kr.float(), vr.float().abs(), *fargs[3:])[0]
+    err = check_dropped_pv("K2 place", o, ro, ref_abs)
+    del ref_abs
+    flops, nbytes = k2_flops_bytes(qr, kr, lr, True)
+    int_ops = PHILOX_OPS_PER_ELEMENT * live_pairs(qr, kr, lr, True)
+    bms, by = bound_ms(nbytes, flops, torch.bfloat16, int_ops)
+    tag = f"BH{B * hl} S{S} D{D} causal bfloat16, rate {rate}, heads {hl}-{H - 1} of {H}"
+    rows = {"flash_fwd": {}, "flash_bwd": {}, "dropout_mask": {}}
+    rows["flash_fwd"]["tp2_dropout"] = (tag, dict(
+        max_abs_err=err, ms=time_ms(lambda: attn.flash_fwd_kernel(*fargs)),
+        plain_ms=time_ms(lambda: attn.flash_fwd_torch(*fargs), iters=5),
+        library_ms=None, bound_ms=bms, bound_by=by))
+    bargs = (qr, kr, vr, ro, dor, rlse, None, lr, True, scale, rate, key, place)
+    got, ref = attn.flash_bwd_kernel(*bargs), attn.flash_bwd_torch(*bargs)
+    err = max(check_close(f"K4 place {n}", a_, b_, dict(
+        rtol=2e-2, atol=2e-2 * float(b_.float().abs().max())))
+        for n, a_, b_ in zip(("dq", "dk", "dv"), got, ref))
+    flops, nbytes = k4_flops_bytes(qr, kr, lr, True)
+    bms, by = bound_ms(nbytes, flops, torch.bfloat16, int_ops)
+    rows["flash_bwd"]["tp2_dropout"] = (tag, dict(
+        max_abs_err=err, ms=time_ms(lambda: attn.flash_bwd_kernel(*bargs)),
+        plain_ms=time_ms(lambda: attn.flash_bwd_torch(*bargs), iters=5),
+        library_ms=None, bound_ms=bms, bound_by=by))
+    shape, rows_place = (B, S // 2, MODEL["d_model"]), attn.RankPlace(1, 1, 0, S // 2)
+    n = B * S // 2 * MODEL["d_model"]
+    bms, by = bound_ms(n + 16, 0, torch.float32, PHILOX_OPS_PER_ELEMENT * n)
+    rows["dropout_mask"]["tp2_sp_dropout"] = (
+        f"{shape} rate {rate}, rows {S // 2}-{S - 1} (a sequence-parallel rank)", dict(
+            max_abs_err=0.0,
+            ms=time_ms(lambda: attn.dropout_keep_mask_kernel(key, shape, rate, rows_place)),
+            plain_ms=time_ms(lambda: attn.dropout_keep_mask_torch(key, shape, rate,
+                                                                  rows_place), iters=5),
+            library_ms=None, bound_ms=bms, bound_by=by))
+    for kname, r in rows.items():
+        for key_, (tag_, f) in r.items():
+            line(f"place_row {kname}", shape=tag_, **f)
+    del q, k, v, do, qr, kr, vr, dor, o, ro, got, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def cp_world1_phase(attn, cpar):
+    """``ring_attention`` over a context group of one (NCCL, world 1) at
+    the GPT's attention shape: one causal hop, bitwise the causal
+    ``flash_attention_with_lse`` launch, forward and gradients."""
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+
+    ps.initialize_model_parallel(1, 1, context_parallel_size=1)
+    try:
+        g = gen(190)
+        B, H, S, D = TRAIN_BATCH, MODEL["n_heads"], MODEL["seq_len"], 64
+        q, k, v, w = (torch.randn(B, H, S, D, generator=g, device="cuda").bfloat16()
+                      for _ in range(4))
+        ring = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = cpar.ring_attention(*ring, causal=True, scale=D ** -0.5, impl="kernel")
+        grads = torch.autograd.grad((o.float() * w.float()).sum(), ring)
+        ref = [t.reshape(B * H, S, D).clone().requires_grad_(True) for t in (q, k, v)]
+        ro, _ = attn.flash_attention_with_lse(*ref, causal=True, scale=D ** -0.5,
+                                              impl="kernel")
+        rgrads = torch.autograd.grad(
+            (ro.float() * w.reshape(B * H, S, D).float()).sum(), ref)
+        bitwise = {"o": bool(torch.equal(o.reshape(ro.shape), ro))}
+        bitwise.update({f"d{n}": bool(torch.equal(a_.reshape(b_.shape), b_))
+                        for n, a_, b_ in zip("qkv", grads, rgrads)})
+    finally:
+        ps.destroy_model_parallel()
+    line("cp_world1", backend="nccl", context=1,
+         shape=f"'B{B} H{H} S{S} D{D} causal bfloat16'", bitwise=json.dumps(bitwise))
+    if not all(bitwise.values()):
+        raise AssertionError(f"cp_world1: not the causal launch's bits: {bitwise}")
+
+
+def collective_matmul_world1_phase():
+    """The collective matmul at world 1 over NCCL at the flagship's QKV
+    shape (sequence-first 1024 x 16 x 1024 bf16, w 1024 x 3072):
+    ``column_parallel_linear(sequence_parallel=True, collective_matmul=True)``
+    bitwise its monolithic path, y and the gradients of x, w and b."""
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+    from beforeholiday_tpu_torch.transformer import tensor_parallel as tp
+
+    ps.initialize_model_parallel(1, 1)
+    try:
+        g = gen(200)
+        S, D = MODEL["seq_len"], MODEL["d_model"]
+        x = torch.randn(S, TRAIN_BATCH, D, generator=g, device="cuda").bfloat16()
+        w = (0.02 * torch.randn(D, 3 * D, generator=g, device="cuda")).bfloat16()
+        b = (0.1 * torch.randn(3 * D, generator=g, device="cuda")).bfloat16()
+        dy = torch.randn(S, TRAIN_BATCH, 3 * D, generator=g, device="cuda").bfloat16()
+        outs = {}
+        for on in (False, True):
+            leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+            y = tp.column_parallel_linear(*leaves, sequence_parallel=True,
+                                          collective_matmul=on)
+            outs[on] = [y] + list(torch.autograd.grad(y, leaves, dy))
+        bitwise = {n: bool(torch.equal(a_, b_))
+                   for n, a_, b_ in zip(("y", "dx", "dw", "db"), outs[True], outs[False])}
+    finally:
+        ps.destroy_model_parallel()
+    line("collective_matmul_world1", backend="nccl", tensor=1,
+         shape=f"'x {S}x{TRAIN_BATCH}x{D} bfloat16, w {D}x{3 * D}'",
+         bitwise=json.dumps(bitwise))
+    if not all(bitwise.values()):
+        raise AssertionError(f"collective_matmul_world1: not the monolithic bits: "
+                             f"{bitwise}")
+
+
+def bert_tp_world1_phase(bert, bcfg):
+    """BERT's TP forward at world 1 over NCCL (the 8-layer BERT-Large at
+    batch 128 x 128, bf16, ragged lengths), sequence parallel off and on,
+    bitwise the dense forward: the MLM and NSP logits."""
+    from beforeholiday_tpu_torch.ops._autocast import cast_floats
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+
+    cfg = dataclasses.replace(bcfg, dtype=torch.bfloat16)
+    params = cast_floats(bert.init(cfg, gen(1), device="cuda"), torch.bfloat16)
+    lens = [BERT["seq_len"] - (i % 50) for i in range(BERT_BATCH)]
+    tok, _, _, _, lens = bert_batch(bert, cfg, BERT_BATCH, 210, lens)
+    with torch.no_grad():
+        dense = bert.forward(params, tok, cfg, seq_lens=lens)
+        bitwise = {}
+        for sp in (False, True):
+            ps.initialize_model_parallel(1, 1)
+            try:
+                got = bert.forward(params, tok, dataclasses.replace(
+                    cfg, sequence_parallel=sp), seq_lens=lens)
+            finally:
+                ps.destroy_model_parallel()
+            bitwise[f"sp={sp}"] = all(bool(torch.equal(a_, b_))
+                                      for a_, b_ in zip(got, dense))
+            del got
+    line("bert_tp_world1", backend="nccl", tensor=1, batch=BERT_BATCH,
+         layers=cfg.n_layers, bitwise=json.dumps(bitwise))
+    if not all(bitwise.values()):
+        raise AssertionError(f"bert_tp_world1: not the dense forward's bits: {bitwise}")
+    del params, dense
+    torch.cuda.empty_cache()
+
+
 KERNEL_ROWS = (
     ("layer_norm_fwd", "triton", "beforeholiday_tpu_torch/ops/normalization.py",
      "beforeholiday_tpu/ops/normalization.py:55"),
@@ -5745,6 +6143,7 @@ def main():
     from beforeholiday_tpu_torch.ops.arena import make_spec, tree_flatten
     from beforeholiday_tpu_torch.optimizers import FusedAdam, FusedLAMB, FusedSGD
     from beforeholiday_tpu_torch.testing import bert, gpt
+    from beforeholiday_tpu_torch.transformer import context_parallel as cpar
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6133,6 +6532,10 @@ def main():
                   gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70),
                                       device="cuda")]
     tp_refs = dense_reference_steps(amp, gpt, FusedAdam, params, cfg, tp_batches)
+    # slice 17: the one-device dropout step the TP 2 dropout runs are held to
+    tp_drop_ref = dense_reference_steps(amp, gpt, FusedAdam, params,
+                                        dataclasses.replace(cfg, **DROPOUT),
+                                        tp_batches[1:])[0]
     dense_layout = o5_layout(params)
     n_shard = o5_specs(gpt.shard_params(params, cfg, 0, 2))[torch.bfloat16].padded_total
     with tempfile.TemporaryDirectory() as tmp:
@@ -6141,15 +6544,30 @@ def main():
             tp_layers_world1_phase(norm, xent)
             launches.update(gpt_tp_pp_world1_phase(
                 amp, gpt, FusedAdam, cfg, counters, card, params, tp_refs, tp_batches))
+            mark("tp_pp")
+            # slice 17 at world 1: a context group of one, the collective
+            # matmul, BERT's TP forward
+            cp_world1_phase(attn, cpar)
+            collective_matmul_world1_phase()
+            bert_tp_world1_phase(bert, bcfg)
+            mark("transformer_world1")
         finally:
             dist.destroy_process_group()
         del params, tp_batches
         torch.cuda.empty_cache()
-        launches.update(gpt_tp2_card_phase(gpt, cfg, dense_layout, tp_refs[1], tmp))
-    del tp_refs
+        launches.update(gpt_tp2_card_phase(gpt, cfg, dense_layout,
+                                           {False: tp_refs[1], True: tp_drop_ref}, tmp))
+    del tp_refs, tp_drop_ref
     for kname, r in tp_kernel_rows(norm, attn, mt, n_shard).items():
         rows[kname].update(r)
     mark("tp_pp")
+
+    # slice 17: K2, K4 and K13 at a TP 2 rank's place, and ring attention
+    # at long context, a context group emulated rank by rank on the card
+    for rows_ in (rank_place_phase(attn), ring_phase(attn, cpar)):
+        for kname, r in rows_.items():
+            rows[kname].update(r)
+    mark("transformer_slice17")
 
     kernels = []
     for kname, route, source, replaces in KERNEL_ROWS:

@@ -14,6 +14,7 @@ The scenarios return numpy arrays and plain Python values.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import pickle
@@ -533,12 +534,36 @@ def _toy_ce(logits, labels):
     return -logp.gather(-1, labels[:, None]).mean()
 
 
+def _t5_stage(sp, h, mem, is_decoder):
+    """``tests/test_pipeline_parallel.py``'s toy encoder/decoder stage."""
+    base = torch.nn.functional.gelu(h @ sp["w"] + sp["b"], approximate="tanh") + h
+    return base + is_decoder * torch.tanh(mem @ sp["wm"])
+
+
+def _encdec_case(pp, kw, s):
+    """The encoder-decoder schedule on the T5 toy of ``kw``."""
+    t = {k: _tensor(v) if not isinstance(v, dict) else
+         {kk: _tensor(vv) for kk, vv in v.items()} for k, v in kw.items()
+         if k not in ("encdec", "tensor_shape")}
+    loss, g = pp.forward_backward_pipelining_encoder_decoder(
+        _t5_stage, _toy_loss, {k: v[s] for k, v in t["stacked"].items()},
+        t["enc_in"], t["dec_in"], t["targets"], split_rank=kw["encdec"],
+        enc_embed_fn=lambda ep, x: x @ ep["we"], enc_embed_params=t["ee"],
+        dec_embed_fn=lambda ep, x: x @ ep["we"], dec_embed_params=t["de"],
+        head_fn=lambda hp, h: h @ hp["wh"], head_params=t["hp"],
+        tensor_shape=kw["tensor_shape"], dtype=torch.float32)
+    return loss, dict(stage=g.stage, enc_embed=g.enc_embed, dec_embed=g.dec_embed,
+                      head=g.head)
+
+
 def pp_scenario(rank, world, cases):
     """Each case ``(name, tp, pp, kw)``: this rank's (loss, grads) from the
-    port's schedule named by ``kw["schedule"]`` over a (tp, pp) layout of
-    the world, on the toy stage stack ``kw["stacked"]`` (this rank's pipe
-    stage, or V chunks for the interleaved schedule), and the schedule's
-    report. Also the p2p rings and the error paths."""
+    port's schedule over a (tp, pp) layout of the world, on the toy stage
+    stack ``kw["stacked"]`` (this rank's pipe stage, or V chunks for the
+    interleaved schedule; ``kw["overlap"]``: the double-buffered engine;
+    ``kw["encdec"]``: the encoder-decoder schedule at that split rank, on
+    the T5 toy), and the schedule's report. Also the p2p rings and the
+    error paths."""
     from beforeholiday_tpu_torch.parallel import parallel_state as ps
     from beforeholiday_tpu_torch.transformer import pipeline_parallel as pp
     from beforeholiday_tpu_torch.transformer import tensor_parallel as tp
@@ -554,6 +579,10 @@ def pp_scenario(rank, world, cases):
     for name, tsize, psize, kw in cases:
         ps.initialize_model_parallel(tsize, psize)
         s, tr = ps.get_pipeline_model_parallel_rank(), ps.get_tensor_model_parallel_rank()
+        if "encdec" in kw:
+            loss, g = _encdec_case(pp, kw, s)
+            out[name] = (float(loss), _np_tree(g), pp.last_schedule_report())
+            continue
         stacked = {k: _tensor(v) for k, v in kw["stacked"].items()}
         inputs, targets = _tensor(kw["inputs"]), _tensor(kw["targets"])
         if inputs.dtype == torch.int32:
@@ -566,6 +595,7 @@ def pp_scenario(rank, world, cases):
                          head_params={k: _tensor(v) for k, v in kw["head"].items()},
                          tensor_shape=kw["tensor_shape"], dtype=torch.float32)
         loss_fn = _toy_ce if "embed" in kw else _toy_loss
+        extra["overlap_p2p"] = kw.get("overlap", False)
         if V is not None:
             chunks = {k: v[s * V:(s + 1) * V] for k, v in stacked.items()}
             loss, g = pp.forward_backward_pipelining_with_interleaving(
@@ -601,10 +631,13 @@ def pp_scenario(rank, world, cases):
         lambda: pp.forward_backward_pipelining_without_interleaving(
             _toy_stage, _toy_loss, sp, x, x[:2]),
         lambda: pp.forward_backward_pipelining_without_interleaving(
-            _toy_stage, _toy_loss, sp, x, x, overlap_p2p=True),
+            _toy_stage, _toy_loss, sp, x, x[:2], overlap_p2p=True),
         lambda: pp.forward_backward_pipelining_without_interleaving(
             _toy_stage, _toy_loss, sp, x, x, remat_policy="full"),
-        lambda: pp.forward_backward_pipelining_encoder_decoder(),
+        lambda: pp.forward_backward_pipelining_encoder_decoder(
+            _t5_stage, _toy_loss, sp, x, x, x),
+        lambda: pp.forward_backward_pipelining_encoder_decoder(
+            _t5_stage, _toy_loss, sp, x, x, x, split_rank=4),
     ]
     for call in calls:
         try:
@@ -626,7 +659,7 @@ def _np_tree(tree):
 
 
 def gpt_tp_pp_o5(amp, gpt, fused_adam, shard, cfg, lr, M, schedule="1f1b",
-                 impl=None, loss_scale=None, device="cpu"):
+                 impl=None, loss_scale=None, device="cpu", dropout_key=None):
     """The flagship GPT's amp O5 step over this rank's (tensor, pipe) shard,
     as a Megatron user script builds it from the port's public functions:
     ``amp.initialize(..., "O5", arena_native=True)`` on the shard,
@@ -635,9 +668,10 @@ def gpt_tp_pp_o5(amp, gpt, fused_adam, shard, cfg, lr, M, schedule="1f1b",
     engine (embed on the first stage, head on the last; the tied
     embedding's embed and head gradients, both pipe-all-reduced, summed),
     the loss scaled by the dynamic scale, the gradients unscaled by K5 and
-    the overflow flag reduced over the tensor and pipe groups. Returns
-    ``(m, state, step)``; ``step(tokens, targets)`` returns ``(loss, fp32
-    grads, found_inf)``."""
+    the overflow flag reduced over the tensor and pipe groups. With
+    ``dropout_key`` (``schedule="none"`` only) the forward trains with
+    dropout. Returns ``(m, state, step)``; ``step(tokens, targets)`` returns
+    ``(loss, fp32 grads, found_inf)``."""
     from beforeholiday_tpu_torch.parallel import parallel_state
     from beforeholiday_tpu_torch.transformer import pipeline_parallel as pp
     from beforeholiday_tpu_torch.transformer import reduce_found_inf
@@ -660,14 +694,19 @@ def gpt_tp_pp_o5(amp, gpt, fused_adam, shard, cfg, lr, M, schedule="1f1b",
         scale = state["scaler"]["scale"]
 
         def loss_fn(logits, tgt):
+            if not parallel_state.model_parallel_is_initialized():
+                return m.scaler.scale_loss(gpt._cross_entropy(logits, tgt),
+                                           state["scaler"])
             return m.scaler.scale_loss(vocab_parallel_cross_entropy(
                 logits, tgt, cfg.vocab_size).mean(), state["scaler"])
 
         if schedule == "none":
             loss, g = pp.forward_backward_no_pipelining(
-                lambda p, t: gpt.forward(p, t, cfg), loss_fn, {**blocks, **rest},
-                toks, tgts)
+                lambda p, t: gpt.forward(p, t, cfg, dropout_key=dropout_key),
+                loss_fn, {**blocks, **rest}, toks, tgts)
         else:
+            if dropout_key is not None:
+                raise ValueError("dropout here runs without pipelining only")
             tp = parallel_state.get_tensor_model_parallel_world_size()
             shape = ((S // tp, B // M, cfg.d_model) if cfg.sequence_parallel
                      else (B // M, S, cfg.d_model))
@@ -691,7 +730,8 @@ def gpt_tp_pp_o5(amp, gpt, fused_adam, shard, cfg, lr, M, schedule="1f1b",
             else:
                 views[k].copy_(v)
         grads, found = m.scaler.unscale(grads, state["scaler"], impl=impl)
-        found = reduce_found_inf(found)
+        if parallel_state.model_parallel_is_initialized():
+            found = reduce_found_inf(found)
         state["scaler"] = m.scaler.update(state["scaler"], found)
         m.params, state["opt"] = m.optimizer.step(m.params, grads, state["opt"],
                                                   found_inf=found)
@@ -700,14 +740,97 @@ def gpt_tp_pp_o5(amp, gpt, fused_adam, shard, cfg, lr, M, schedule="1f1b",
     return m, state, step
 
 
-def gpt_tp_scenario(rank, world, cfg_kw, np_params, tokens, targets, o5_runs):
+@contextlib.contextmanager
+def recording_masks(record):
+    """Append ``(key, shape, rate, place, mask)`` to ``record`` for every
+    keep mask the plain paths draw (flash attention's plain versions and
+    ``dropout`` on the CPU), as numpy."""
+    from beforeholiday_tpu_torch.ops import attention
+
+    draw = attention.dropout_keep_mask_torch
+
+    def recorded(key, shape, rate, place=None):
+        mask = draw(key, shape, rate, place)
+        record.append((key.numpy().copy(), tuple(shape), rate,
+                       None if place is None else tuple(place), mask.numpy().copy()))
+        return mask
+
+    attention.dropout_keep_mask_torch = recorded
+    try:
+        yield record
+    finally:
+        attention.dropout_keep_mask_torch = draw
+
+
+@contextlib.contextmanager
+def same_layer_keys(on):
+    """With ``on``, every GPT layer draws from the one key (JAX's layer scan
+    traces its body once, so its layers read the same site masks)."""
+    from beforeholiday_tpu_torch.testing import _model_utils
+
+    split = _model_utils.split
+    if on:
+        _model_utils.split = lambda key, n: key.expand(n, 2)
+    try:
+        yield
+    finally:
+        _model_utils.split = split
+
+
+def gpt_o5_dropout_steps(cfg, shard, tok, tgt, key, steps, lr, M=1):
+    """``steps`` amp O5 steps with dropout under ``key`` on this rank's
+    shard (the dense model when model parallelism is not initialized):
+    each step's loss, grads and masters, and the masks the first step drew."""
+    from beforeholiday_tpu_torch import amp
+    from beforeholiday_tpu_torch.optimizers import FusedAdam
+    from beforeholiday_tpu_torch.testing import gpt
+
+    m, state, step = gpt_tp_pp_o5(amp, gpt, FusedAdam, shard, cfg, lr, M,
+                                  schedule="none", dropout_key=key)
+    runs = []
+    for i in range(steps):
+        with recording_masks([]) as masks:
+            loss, g, fi = step(tok, tgt)
+        masters = m.params.replace_arenas(state["opt"]["master"]).unpack()
+        runs.append(dict(loss=float(loss), found_inf=bool(fi),
+                         grads=_np_tree(g.unpack()), masters=_np_tree(masters),
+                         masks=masks if i == 0 else None))
+    return runs
+
+
+def dropout_keys_scenario(rank, world, seed):
+    """The per-rank keys and masks: at tensor size ``world``, this rank's
+    ``model_parallel_seed`` and its masks over ones (128,) at rate 0.5 with
+    and without ``tp_distinct``; at data size ``world``, its
+    ``data_parallel_seed``."""
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+    from beforeholiday_tpu_torch.transformer.tensor_parallel import random as trandom
+
+    key = trandom.make_key(seed, device="cpu")
+    ones = torch.ones(128)
+    ps.initialize_model_parallel(world)
+    out = {"mp_seed": _np(trandom.model_parallel_seed(key)),
+           "distinct": _np(trandom.dropout(key, ones, 0.5, tp_distinct=True) != 0),
+           "shared": _np(trandom.dropout(key, ones, 0.5) != 0)}
+    ps.initialize_model_parallel(1)
+    out["dp_seed"] = _np(trandom.data_parallel_seed(key))
+    ps.destroy_model_parallel()
+    return out
+
+
+def gpt_tp_scenario(rank, world, cfg_kw, np_params, tokens, targets, o5_runs,
+                    dropout_runs=()):
     """(a) at tensor world 1 (model parallelism initialized, tp = 1): the
     TP forward against the dense forward, fp32 and bf16, sequence parallel
     off and on; (b) at tp = 2: the fp32 loss and this rank's shard of the
     gradients, sequence parallel off and on; (c) for each ``(label, tp, pp,
     sp, M, steps, lr)`` of ``o5_runs``: the O5 step over TP x PP, each
     step's loss, flag, this rank's grads and masters (trees), and whether
-    the replicated leaves are bitwise equal across the tensor group."""
+    the replicated leaves are bitwise equal across the tensor group; (d)
+    for each ``(label, tp, sp, seed, same_keys, steps, lr, rates)`` of
+    ``dropout_runs``: :func:`gpt_o5_dropout_steps` at that tensor size (0:
+    the dense model) under the key of ``seed``, at the dropout rates of the
+    dict ``rates``."""
     from beforeholiday_tpu_torch import amp
     from beforeholiday_tpu_torch.ops._autocast import cast_floats
     from beforeholiday_tpu_torch.optimizers import FusedAdam
@@ -754,6 +877,21 @@ def gpt_tp_scenario(rank, world, cfg_kw, np_params, tokens, targets, o5_runs):
                              grads=_np_tree(g.unpack()), masters=_np_tree(masters),
                              replicated=_replicated_equal(m.params.unpack(), tsize)))
         out[label] = runs
+        ps.destroy_model_parallel()
+    # (d) the O5 step with dropout over TP
+    from beforeholiday_tpu_torch.transformer.tensor_parallel.random import make_key
+
+    for label, tsize, sp, seed, same_keys, steps, lr, rates in dropout_runs:
+        cfg = gpt.GPTConfig(**cfg_kw, **rates, dtype=torch.bfloat16,
+                            sequence_parallel=sp)
+        shard = params
+        if tsize:  # else the dense model
+            ps.initialize_model_parallel(tsize)
+            shard = gpt.shard_params(params, cfg, ps.get_tensor_model_parallel_rank(),
+                                     tsize)
+        with same_layer_keys(same_keys):
+            out[label] = gpt_o5_dropout_steps(cfg, shard, tok, tgt,
+                                              make_key(seed, device="cpu"), steps, lr)
         ps.destroy_model_parallel()
     return out
 
@@ -818,3 +956,178 @@ def tp_pp_ledger_scenario(rank, world, stacked, embed, head, tokens, labels):
     records = comms.comms_records()
     ps.destroy_model_parallel()
     return records, pp.last_schedule_report()["total_ticks"]
+
+
+# ------------------------------------------------------ context parallelism
+
+
+def cp_scenario(rank, world, cases):
+    """Each case ``(name, cp, causal, dtype, path, q, k, v, w)`` (the whole
+    ``(B, H, S, D)`` numpy tensors): over a context group of ``cp`` ranks,
+    this rank's slice of the ring attention output and of the gradients of
+    ``sum(out * w)``, by the flash hops (``path="flash"``, K2/K4's plain
+    versions) or the online-softmax hops; and the ledger of each case."""
+    from beforeholiday_tpu_torch.monitor import comms
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+    from beforeholiday_tpu_torch.transformer import context_parallel as cpar
+
+    out = {}
+    for name, cp, causal, dtype, path, *arrays in cases:
+        ps.initialize_model_parallel(1, 1, context_parallel_size=cp)
+        r = ps.get_context_parallel_rank()
+        Sl = arrays[0].shape[2] // cp
+        q, k, v, w = (_tensor(a[:, :, r * Sl:(r + 1) * Sl], getattr(torch, dtype))
+                      for a in arrays)
+        q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+        comms.reset_comms_ledger()
+        if path == "flash":
+            o = cpar._ring_attention_flash(q, k, v, causal=causal, scale=0.3,
+                                           axis_name="context", impl="torch")
+        else:
+            o = cpar.ring_attention(q, k, v, causal=causal, scale=0.3,
+                                    axis_name="context", impl="torch")
+        grads = torch.autograd.grad((o.float() * w.float()).sum(), (q, k, v))
+        out[name] = (_np(o), [_np(g) for g in grads], str(o.dtype),
+                     comms.comms_records())
+        ps.destroy_model_parallel()
+    return out
+
+
+# ------------------------------------------------------ collective matmul
+
+
+def collective_matmul_scenario(rank, world, cases):
+    """Each case ``(name, tp, x, w, b, dy, dtype)`` (whole numpy operands:
+    x sequence-sharded on dim 0, w and b column-sharded, dy the output's
+    cotangent, sharded on its last dim): the sequence-parallel
+    ``column_parallel_linear`` with the collective matmul on and off, this
+    rank's y, dx, dw, db for each, and the ledger of the collective run;
+    also the module knob driving ``collective_matmul=None``."""
+    from beforeholiday_tpu_torch.monitor import comms
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+    from beforeholiday_tpu_torch.transformer import tensor_parallel as tp
+
+    out = {}
+    for name, tsize, x, w, b, dy, dtype in cases:
+        ps.initialize_model_parallel(tsize)
+        r = ps.get_tensor_model_parallel_rank()
+        dt = getattr(torch, dtype)
+        s, n = x.shape[0] // tsize, w.shape[1] // tsize
+        xs = _tensor(x[r * s:(r + 1) * s], dt)
+        ws = _tensor(w[:, r * n:(r + 1) * n], dt)
+        bs = None if b is None else _tensor(b[r * n:(r + 1) * n], dt)
+        dys = _tensor(dy[..., r * n:(r + 1) * n], dt)
+        runs = {}
+        for collective in (False, True):
+            leaves = [t.clone().requires_grad_(True) for t in (xs, ws, bs) if t is not None]
+            comms.reset_comms_ledger()
+            y = tp.column_parallel_linear(leaves[0], leaves[1],
+                                          leaves[2] if bs is not None else None,
+                                          sequence_parallel=True,
+                                          collective_matmul=collective)
+            grads = torch.autograd.grad(y, leaves, dys)
+            runs[collective] = ([_np(y)] + [_np(g) for g in grads],
+                                comms.comms_records())
+        out[name] = runs
+        ps.destroy_model_parallel()
+    ps.initialize_model_parallel(world)
+    xs, ws = torch.ones(2, 4), torch.ones(4, 2)
+    knob = []
+    for enabled in (False, True):
+        prev = tp.set_collective_matmul(enabled)
+        comms.reset_comms_ledger()
+        tp.column_parallel_linear(xs, ws, sequence_parallel=True)
+        knob.append((prev, tp.collective_matmul_enabled(),
+                     sorted({r["site"] for r in comms.comms_records()})))
+    tp.set_collective_matmul(False)
+    out["knob"] = knob
+    ps.destroy_model_parallel()
+    return out
+
+
+# ------------------------------------------------------- BERT over TP
+
+
+def bert_o5_lamb_steps(cfg, shard, batch, steps, lr):
+    """``steps`` amp O5 arena-native FusedLAMB steps of ``pretrain_loss`` on
+    this rank's shard (the dense model when model parallelism is not
+    initialized; under TP, ``FusedLAMB(tensor_sharded=...)`` and the
+    overflow flag reduced over the tensor group): each step's loss, grads
+    and masters."""
+    from beforeholiday_tpu_torch import amp
+    from beforeholiday_tpu_torch.optimizers import FusedLAMB
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+    from beforeholiday_tpu_torch.testing import bert
+    from beforeholiday_tpu_torch.transformer import reduce_found_inf
+
+    tp = ps.model_parallel_is_initialized()
+    opt = FusedLAMB(lr=lr, weight_decay=0.01,
+                    tensor_sharded=bert.tensor_sharded(cfg) if tp else None)
+    m = amp.initialize(lambda p, t: bert.forward(p, t, cfg), shard, opt, "O5",
+                       arena_native=True)
+    tok, tgt, mask, nsp, lens = batch
+
+    def loss_fn(pk):
+        return bert.pretrain_loss(pk.unpack(), tok, tgt, mask, nsp, cfg, seq_lens=lens)
+
+    svag = amp.scaled_value_and_grad(loss_fn, m.scaler)
+    o, s = m.optimizer.init(m.params), m.scaler.init(device="cpu")
+    runs = []
+    for _ in range(steps):
+        loss, g, fi, s = svag(m.params, s)
+        if tp:
+            fi = reduce_found_inf(fi)
+        m.params, o = m.optimizer.step(m.params, g, o, found_inf=fi)
+        masters = m.params.replace_arenas(o["master"]).unpack()
+        runs.append(dict(loss=float(loss), found_inf=bool(fi), grads=_np_tree(g.unpack()),
+                         masters=_np_tree(masters)))
+    return runs
+
+
+def bert_tp_scenario(rank, world, cfg_kw, np_params, batch, o5_runs):
+    """(a) at tensor world 1: the TP forward against the dense forward, fp32
+    and bf16, sequence parallel off and on; (b) at tp = 2, fp32: the loss
+    and this rank's shard of the gradients of ``pretrain_loss``, sequence
+    parallel off and on; (c) for each ``(label, tp (0: dense), sp, steps,
+    lr)`` of ``o5_runs``: :func:`bert_o5_lamb_steps`."""
+    from beforeholiday_tpu_torch.ops._autocast import cast_floats
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+    from beforeholiday_tpu_torch.testing import bert
+
+    params = bert.params_from_numpy(np_params, device="cpu")
+    tok, tgt, mask, nsp, lens = batch
+    batch = (_tensor(tok).long(), _tensor(tgt).long(), _tensor(mask),
+             _tensor(nsp).long(), _tensor(lens))
+    tok_t, lens_t = batch[0], batch[4]
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        p = cast_floats(params, getattr(torch, dt))
+        dense = bert.forward(p, tok_t, bert.BertConfig(**cfg_kw, dtype=getattr(torch, dt)),
+                             seq_lens=lens_t)
+        for sp in (False, True):
+            ps.initialize_model_parallel(1)
+            cfg = bert.BertConfig(**cfg_kw, dtype=getattr(torch, dt), sequence_parallel=sp)
+            got = bert.forward(p, tok_t, cfg, seq_lens=lens_t)
+            ps.destroy_model_parallel()
+            out[("world1", dt, sp)] = all(torch.equal(a, b) for a, b in zip(got, dense))
+    ps.initialize_model_parallel(2)
+    tr = ps.get_tensor_model_parallel_rank()
+    for sp in (False, True):
+        cfg = bert.BertConfig(**cfg_kw, sequence_parallel=sp)
+        leaves, treedef = _flatten(bert.shard_params(params, cfg, tr, 2))
+        leaves = [x.requires_grad_(True) for x in leaves]
+        loss = bert.pretrain_loss(_unflatten(treedef, leaves), *batch[:4], cfg,
+                                  seq_lens=lens_t)
+        grads = torch.autograd.grad(loss, leaves)
+        out[("tp2", sp)] = (float(loss), _np_tree(_unflatten(treedef, list(grads))))
+    ps.destroy_model_parallel()
+    for label, tsize, sp, steps, lr in o5_runs:
+        cfg = bert.BertConfig(**cfg_kw, dtype=torch.bfloat16, sequence_parallel=sp)
+        shard = params
+        if tsize:
+            ps.initialize_model_parallel(tsize)
+            shard = bert.shard_params(params, cfg, ps.get_tensor_model_parallel_rank(),
+                                      tsize)
+        out[label] = bert_o5_lamb_steps(cfg, shard, batch, steps, lr)
+        ps.destroy_model_parallel()
+    return out

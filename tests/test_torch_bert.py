@@ -364,3 +364,128 @@ def test_skip_step_leaves_state_untouched(skipped):
     assert int(t["opt"]["inner"][0]["step"]) == 0
     assert t["scaler"]["scale"].item() == 2.0 ** 15 == j["scaler"]["scale"].item()
     assert t["scaler"]["unskipped"].item() == 0 == j["scaler"]["unskipped"].item()
+
+
+# ---------------------------------------------------- tensor parallelism
+# BERT over TP 2, sequence parallel off and on, in one gloo world of 4
+# processes (tests/_torch_world.py bert_tp_scenario), at vocab 64, seq 32,
+# d 64, 4 heads, 2 layers, batch 4 with key padding:
+# * at a tensor world of 1 the TP forward is the dense forward, bit for bit
+#   (fp32 and bf16, sequence parallel off and on);
+# * TP 2, fp32: the loss and the reassembled gradients of pretrain_loss
+#   against JAX's dense run and JAX's GSPMD run over param_specs: loss
+#   rtol 2e-5 (tests/test_bert.py:78), grads atol 1e-4, rtol 2e-3 (the GPT
+#   TP row, tests/test_gpt_flagship.py's bounds);
+# * three amp O5 FusedLAMB steps at TP 2 (tensor-sharded leaves' norms
+#   summed over the group) against the port's one-device step at the BERT
+#   bf16 row above: loss 1e-3, grads atol 5e-3 and rtol 2^-7, masters 3 lr
+#   a step.
+
+TP_SMALL = dict(vocab_size=64, seq_len=32, d_model=64, n_heads=4, n_layers=2)
+TP_LENS = [32, 21, 9, 32]
+TP_O5_RUNS = [("o5_dense", 0, False, STEPS, LR), ("o5_tp2", 2, False, STEPS, LR),
+              ("o5_tp2_sp", 2, True, STEPS, LR)]
+
+
+def _tp_batch():
+    rng = np.random.default_rng(4)
+    B, S, V = 4, TP_SMALL["seq_len"], TP_SMALL["vocab_size"]
+    targets = rng.integers(0, V - 1, (B, S))
+    mask = (rng.random((B, S)) < 0.15).astype(np.float32)
+    tokens = np.where(mask > 0, V - 1, targets)
+    return (tokens.astype(np.int32), targets.astype(np.int32), mask,
+            rng.integers(0, 2, (B,)).astype(np.int32), np.asarray(TP_LENS, np.int32))
+
+
+def _tp_params():
+    return jax.tree.map(np.asarray, jbert.init(jax.random.PRNGKey(3),
+                                               jbert.BertConfig(**TP_SMALL)))
+
+
+@pytest.fixture(scope="module")
+def tp_world(tmp_path_factory):
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import _torch_world as tw
+
+    return tw.run_world(tw.bert_tp_scenario, 4, tmp_path_factory.mktemp("bert_tp"),
+                        TP_SMALL, _tp_params(), _tp_batch(), TP_O5_RUNS)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sp", [False, True])
+def test_tp_world1_forward_is_the_dense_forward(tp_world, dt, sp):
+    for rank in range(4):
+        assert tp_world[rank][("world1", dt, sp)] is True
+
+
+def _jax_tp_runs(sp):
+    """JAX's dense and GSPMD loss and grads of pretrain_loss, fp32."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from beforeholiday_tpu.parallel import parallel_state as jps
+
+    cfg = jbert.BertConfig(**TP_SMALL, sequence_parallel=sp)
+    tok, tgt, mask, nsp, lens = (jnp.asarray(a) for a in _tp_batch())
+
+    def loss(p, *b):
+        return jbert.pretrain_loss(p, *b[:4], cfg, seq_lens=b[4])
+
+    params = jax.tree.map(jnp.asarray, _tp_params())
+    dense = jax.jit(jax.value_and_grad(loss))(params, tok, tgt, mask, nsp, lens)
+    state = jps.initialize_model_parallel(tensor_model_parallel_size=2,
+                                          pipeline_model_parallel_size=1,
+                                          devices=jax.devices())
+    try:
+        sharded = jax.tree.map(lambda x, s: jax.device_put(x, NamedSharding(state.mesh, s)),
+                               params, jbert.param_specs(cfg))
+        set_mesh = getattr(jax.sharding, "set_mesh", None) or (lambda m: m)
+        with set_mesh(state.mesh):
+            bsh = NamedSharding(state.mesh, P(jps.DATA_AXIS))
+            gspmd = jax.jit(jax.value_and_grad(loss))(
+                sharded, *(jax.device_put(a, bsh) for a in (tok, tgt, mask, nsp, lens)))
+    finally:
+        jps.destroy_model_parallel()
+    return [(float(lo), jax.tree.map(np.asarray, g)) for lo, g in (dense, gspmd)]
+
+
+def _assemble(shards):
+    cfg = tbert.BertConfig(**TP_SMALL)
+    return jax.tree.map(np.asarray, tbert.unshard_params(
+        [jax.tree.map(torch.from_numpy, s) for s in shards], cfg))
+
+
+def _assert_trees(got, ref, msg, **tol):
+    flat = jax.tree_util.tree_flatten_with_path
+    ref_leaves = {jax.tree_util.keystr(p): v for p, v in flat(ref)[0]}
+    got_leaves = {jax.tree_util.keystr(p): v for p, v in flat(got)[0]}
+    assert set(got_leaves) == set(ref_leaves)
+    for k, v in ref_leaves.items():
+        np.testing.assert_allclose(np.asarray(got_leaves[k]), np.asarray(v, np.float32),
+                                   err_msg=f"{msg} {k}", **tol)
+
+
+@pytest.mark.parametrize("sp", [False, True])
+def test_tp2_matches_jax_dense_and_gspmd(tp_world, sp):
+    (l0, g0), (l1, g1) = tp_world[0][("tp2", sp)], tp_world[1][("tp2", sp)]
+    assert l0 == l1
+    grads = _assemble([g0, g1])
+    for (ref_loss, ref_grads), name in zip(_jax_tp_runs(sp), ("dense", "gspmd")):
+        np.testing.assert_allclose(l0, ref_loss, rtol=2e-5, err_msg=name)
+        _assert_trees(grads, ref_grads, name, atol=1e-4, rtol=2e-3)
+
+
+@pytest.mark.parametrize("label", ["o5_tp2", "o5_tp2_sp"])
+@pytest.mark.parametrize("step", range(STEPS))
+def test_tp2_o5_lamb_step_matches_the_one_device_step(tp_world, label, step):
+    ref = tp_world[0]["o5_dense"][step]
+    r0, r1 = tp_world[0][label][step], tp_world[1][label][step]
+    assert not (r0["found_inf"] or r1["found_inf"] or ref["found_inf"])
+    assert r0["loss"] == r1["loss"]
+    np.testing.assert_allclose(r0["loss"], ref["loss"], rtol=1e-3)
+    _assert_trees(_assemble([r0["grads"], r1["grads"]]), ref["grads"], "grads",
+                  atol=5e-3, rtol=BF16_ULP)
+    _assert_trees(_assemble([r0["masters"], r1["masters"]]), ref["masters"], "masters",
+                  atol=3 * LR * (step + 1), rtol=0)

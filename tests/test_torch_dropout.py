@@ -9,6 +9,8 @@ Also the repair of the dense layers' double rounding (the bf16 output
 within one bf16 ulp of JAX's)."""
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -182,13 +184,43 @@ def test_keys_derive_deterministically():
 
 
 def test_unported_parallel_keys_raise():
+    """The per-rank keys read the rank along a ``parallel_state`` axis:
+    outside a ``torch.distributed`` world they raise (they raised
+    ``NotImplementedError`` before tensor parallelism was ported; the laws
+    of the ported keys are the ``_in_a_world`` test below)."""
     x = torch.ones(4, 4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="not initialized"):
         trandom.dropout(_key(0), x, 0.1, tp_distinct=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="not initialized"):
         trandom.model_parallel_seed(_key(0))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="not initialized"):
         trandom.data_parallel_seed(_key(0))
+
+
+def test_parallel_keys_in_a_world(tmp_path):
+    """In a gloo world of 4 (the laws of the JAX package's
+    tests/test_dropout.py:72-115 and tests/test_tensor_parallel.py:324):
+    ``model_parallel_seed`` is ``fold_in(key, 2718 + tensor rank)``,
+    ``data_parallel_seed`` ``fold_in(key, data rank)``; ``tp_distinct``
+    masks differ between every two tensor ranks, and without it every rank
+    draws the same mask."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    import _torch_world as tw
+
+    runs = tw.run_world(tw.dropout_keys_scenario, 4, tmp_path, 3)
+    key = _key(3)
+    for r, out in enumerate(runs):
+        np.testing.assert_array_equal(out["mp_seed"],
+                                      trandom.fold_in(key, 2718 + r).numpy())
+        np.testing.assert_array_equal(out["dp_seed"], trandom.fold_in(key, r).numpy())
+        np.testing.assert_array_equal(out["shared"], runs[0]["shared"])
+        mp_key = trandom.fold_in(key, 2718 + r)
+        np.testing.assert_array_equal(
+            out["distinct"], tattn.dropout_keep_mask(mp_key, (1, 1, 128), 0.5).numpy()[0, 0])
+    for a in range(4):
+        for b in range(a + 1, 4):
+            assert (runs[a]["distinct"] != runs[b]["distinct"]).any()
+    assert len({tuple(out["mp_seed"]) for out in runs}) == 4
 
 
 # ----------------------------------------------------- dropout against JAX

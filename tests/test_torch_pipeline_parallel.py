@@ -11,10 +11,22 @@ one gloo world of 4 processes, against the JAX package's engine under
 * ``schedule_report``, ``phase_counts``, ``activation_ring_depth`` and
   ``analytic_bubble_fraction`` equal to JAX's, exactly, for several (M, S,
   V); the run's ``last_schedule_report`` too;
+* the double-buffered engine (``overlap_p2p``: 1F1B at S = 2 and 4,
+  interleaved at S = 2, V = 2, the embed/head decoupling) against JAX's
+  overlap engine and against the port's sequential engine on the same data,
+  at ``tests/test_overlap_engine.py``'s bounds (loss rtol 1e-5, grads rtol
+  1e-4, atol 1e-5), its schedule report (``p2p_overlap``,
+  ``phase_shift_ticks``, ``overlap_total_ticks``) equal to JAX's, and
+  ``_overlap_tables`` equal to JAX's for several (M, S, V), with the
+  invariants of ``tests/test_overlap_engine.py:587``;
+* the encoder-decoder schedule (S = 4, split ranks 1, 2 and 3, the T5 toy
+  of ``tests/test_pipeline_parallel.py``) against JAX's, at that file's
+  bounds, and its report;
 * the microbatch calculators, the p2p rings, and the errors: M not
-  divisible by S when V > 1, an inputs/targets count mismatch, and the
-  pieces not ported yet (``overlap_p2p``, remat policies, the
-  encoder-decoder schedule) raising ``NotImplementedError``.
+  divisible by S when V > 1, an inputs/targets count mismatch (both
+  engines), a remat policy raising ``NotImplementedError`` (not ported
+  yet), and the encoder-decoder schedule without a split rank or with one
+  outside (0, S).
 """
 
 import functools
@@ -39,6 +51,10 @@ HIDDEN, MICRO, M, VOCAB = 8, 4, 6, 12
 WORLD = 4
 _shard_map = functools.partial(jax.shard_map, check_vma=False)
 LOSS_RTOL, GRAD_TOL = 1e-6, dict(rtol=1e-5, atol=1e-6)
+# tests/test_overlap_engine.py:525-587 and tests/test_pipeline_parallel.py's
+# encoder-decoder bounds
+OVERLAP_LOSS_RTOL, OVERLAP_GRAD_TOL = 1e-5, dict(rtol=1e-4, atol=1e-5)
+SPLITS = (1, 2, 3)
 
 
 def _stage(sp, x):
@@ -88,7 +104,7 @@ def _cases():
     inter, _ = _reorder(_stacked(4, 2), 2, 2)
     eh = _embed_head()
     inter_eh, _ = _reorder(_stacked(4, 9), 2, 2)
-    return {
+    cases = {
         "1f1b_s4": (1, 4, dict(stacked=_stacked(4, 1), inputs=x, targets=y)),
         "1f1b_s2": (1, 2, dict(stacked=_stacked(2, 1), inputs=x, targets=y)),
         "interleaved_s2_v2": (1, 2, dict(stacked=inter, inputs=x, targets=y, V=2)),
@@ -96,11 +112,36 @@ def _cases():
         "embed_head_interleaved": (1, 2, dict(stacked=inter_eh, V=2, **eh)),
         "tp2_pp2": (2, 2, dict(stacked=_stacked(2, 3), inputs=x, targets=y)),
     }
+    for name in OVERLAP_OF:
+        t, p, kw = cases[name]
+        cases[f"{name}_overlap"] = (t, p, dict(kw, overlap=True))
+    return cases
+
+
+# the cases the double-buffered engine also runs
+OVERLAP_OF = ("1f1b_s4", "1f1b_s2", "interleaved_s2_v2", "embed_head_s4")
+
+
+def _t5_case(split):
+    rng = np.random.default_rng(20 + split)
+    S, m = 4, 6
+
+    def mat(*shape):
+        return (rng.standard_normal(shape) * 0.3).astype(np.float32)
+
+    return dict(encdec=split, stacked={"w": mat(S, HIDDEN, HIDDEN),
+                                       "b": np.zeros((S, HIDDEN), np.float32),
+                                       "wm": mat(S, HIDDEN, HIDDEN)},
+                ee={"we": mat(HIDDEN, HIDDEN)}, de={"we": mat(HIDDEN, HIDDEN)},
+                hp={"wh": mat(HIDDEN, HIDDEN)},
+                enc_in=mat(m, MICRO, HIDDEN), dec_in=mat(m, MICRO, HIDDEN),
+                targets=mat(m, MICRO, HIDDEN), tensor_shape=(MICRO, HIDDEN))
 
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     cases = [(name, t, p, kw) for name, (t, p, kw) in _cases().items()]
+    cases += [(f"t5_split{k}", 1, 4, _t5_case(k)) for k in SPLITS]
     return tw.run_world(tw.pp_scenario, WORLD, tmp_path_factory.mktemp("pp"), cases)
 
 
@@ -109,6 +150,7 @@ def _jax_run(name):
     or PipelineGrads parts) and the report."""
     tsize, S, kw = _cases()[name]
     V = kw.get("V")
+    overlap = dict(overlap_p2p=kw.get("overlap", False))
     stacked = jax.tree.map(jnp.asarray, kw["stacked"])
     args = (jnp.asarray(kw["inputs"]), jnp.asarray(kw["targets"]))
     has_eh = "embed" in kw
@@ -147,12 +189,12 @@ def _jax_run(name):
         if V is not None:
             loss, g = jpp.forward_backward_pipelining_with_interleaving(
                 _stage, loss_fn, st, inputs, targets,
-                virtual_pipeline_model_parallel_size=V, **eh_)
+                virtual_pipeline_model_parallel_size=V, **eh_, **overlap)
             stage_g = g.stage if has_eh else g
         else:
             sp = jax.tree.map(lambda v: v[0], st)
             loss, g = jpp.forward_backward_pipelining_without_interleaving(
-                _stage, loss_fn, sp, inputs, targets, **eh_)
+                _stage, loss_fn, sp, inputs, targets, **eh_, **overlap)
             stage_g = jax.tree.map(lambda a: a[None], g.stage if has_eh else g)
         if has_eh:
             return loss, stage_g, g.embed, g.head
@@ -179,10 +221,14 @@ def test_schedule_matches_jax(world, name):
     tsize, S, kw = _cases()[name]
     V = kw.get("V") or 1
     ref = _jax_run(name)
+    ref_report = jpp.last_schedule_report()
     ref_loss = float(ref[0])
+    overlap = kw.get("overlap", False)
+    loss_rtol, grad_tol = ((OVERLAP_LOSS_RTOL, OVERLAP_GRAD_TOL) if overlap
+                           else (LOSS_RTOL, GRAD_TOL))
     for rank, s, tr in _ranks_of(name, tsize, S):
         loss, g, report = world[rank][0][name]
-        np.testing.assert_allclose(loss, ref_loss, rtol=LOSS_RTOL)
+        np.testing.assert_allclose(loss, ref_loss, rtol=loss_rtol)
         stage = g["stage"] if "embed" in kw else g
         for k in ("w", "b"):
             want = np.asarray(ref[1][k])
@@ -193,15 +239,115 @@ def test_schedule_matches_jax(world, name):
             else:
                 want = want[s]
             np.testing.assert_allclose(stage[k], want, err_msg=f"{name} {k} rank {rank}",
-                                       **GRAD_TOL)
+                                       **grad_tol)
         if "embed" in kw:
-            np.testing.assert_allclose(g["embed"], np.asarray(ref[2]), **GRAD_TOL)
+            np.testing.assert_allclose(g["embed"], np.asarray(ref[2]), **grad_tol)
             for k in ("w", "b"):
                 np.testing.assert_allclose(g["head"][k], np.asarray(ref[3][k]),
-                                           **GRAD_TOL)
+                                           **grad_tol)
+        if overlap:
+            assert report == ref_report
+            assert report["p2p_overlap"] is True and report["phase_shift_ticks"] > 0
+            continue
         want = jpp.schedule_report(M if "embed" not in kw else 4, S, virtual_size=V,
                                    schedule="interleaved_1f1b" if V > 1 else "1f1b")
         assert report == want
+
+
+@pytest.mark.parametrize("name", OVERLAP_OF)
+def test_overlap_matches_the_sequential_engine(world, name):
+    """The double-buffered engine against the port's sequential engine on
+    the same data, at the overlap bounds."""
+    for rank in range(WORLD):
+        seq, ovl = world[rank][0][name], world[rank][0][f"{name}_overlap"]
+        np.testing.assert_allclose(ovl[0], seq[0], rtol=OVERLAP_LOSS_RTOL)
+        for (path, a), (_, b) in zip(jax.tree_util.tree_flatten_with_path(ovl[1])[0],
+                                     jax.tree_util.tree_flatten_with_path(seq[1])[0]):
+            np.testing.assert_allclose(a, b, err_msg=f"{name} {path}", **OVERLAP_GRAD_TOL)
+        assert ovl[2]["overlap_total_ticks"] == (ovl[2]["total_ticks"]
+                                                 + ovl[2]["phase_shift_ticks"])
+
+
+@pytest.mark.parametrize("m, s, v", [(4, 2, 1), (8, 4, 1), (16, 8, 1), (4, 2, 2),
+                                     (8, 4, 2), (8, 2, 3), (6, 4, 1)])
+def test_overlap_tables_match_jax(m, s, v):
+    """The host tables equal JAX's, and hold tests/test_overlap_engine.py's
+    invariants: distance-2 dependencies, one slot a device and tick, ring
+    depths that no write clobbers before its read."""
+    from collections import Counter
+
+    from beforeholiday_tpu.transformer.pipeline_parallel.schedules import (
+        _overlap_tables as jtables,
+    )
+    from beforeholiday_tpu_torch.transformer.pipeline_parallel.schedules import (
+        _overlap_tables as ttables,
+    )
+
+    tab, ref = ttables(m, s, v), jtables(m, s, v)
+    assert set(tab) == set(ref)
+    for k, val in ref.items():
+        if isinstance(val, np.ndarray):
+            np.testing.assert_array_equal(tab[k], val, err_msg=k)
+        else:
+            assert tab[k] == val, k
+    t_F, t_B, L = tab["t_F"], tab["t_B"], v * s
+    assert len(t_F) == m * L and len(t_B) == m * L
+    for (mm, l), t in t_F.items():
+        assert l == 0 or t >= t_F[(mm, l - 1)] + 2
+        assert l == 0 or 1 <= t - (t_F[(mm, l - 1)] + 1) <= tab["r_f"]
+    for (mm, l), t in t_B.items():
+        assert t - t_F[(mm, l)] < tab["r_act"]
+        if l == L - 1:
+            assert t >= t_F[(mm, l)] + 1
+        else:
+            assert t >= t_B[(mm, l + 1)] + 2
+            assert 1 <= t - (t_B[(mm, l + 1)] + 1) <= tab["r_b"]
+    assert max(Counter((l % s, t) for (_, l), t in t_F.items()).values()) == 1
+    assert max(Counter((l % s, t) for (_, l), t in t_B.items()).values()) == 1
+    if v == 1:
+        assert tab["total_ticks"] == m + 4 * s - 3
+
+
+def _jax_t5(split):
+    """JAX's encoder-decoder schedule on the T5 toy."""
+    kw = jax.tree.map(jnp.asarray, {k: v for k, v in _t5_case(split).items()
+                                    if k not in ("encdec", "tensor_shape")})
+    mesh = Mesh(np.asarray(jax.devices()[:4]), ("pipe",))
+
+    def stage(sp, h, mem, is_decoder):
+        return jax.nn.gelu(h @ sp["w"] + sp["b"]) + h + is_decoder * jnp.tanh(mem @ sp["wm"])
+
+    def body(st, ee, de, hp, enc_in, dec_in, targets):
+        sp = jax.tree.map(lambda v: v[0], st)
+        loss, g = jpp.forward_backward_pipelining_encoder_decoder(
+            stage, _loss, sp, enc_in, dec_in, targets, split_rank=split,
+            enc_embed_fn=lambda ep, x: x @ ep["we"], enc_embed_params=ee,
+            dec_embed_fn=lambda ep, x: x @ ep["we"], dec_embed_params=de,
+            head_fn=lambda p, h: h @ p["wh"], head_params=hp)
+        return loss, jax.tree.map(lambda a: a[None], g.stage), g.enc_embed, \
+            g.dec_embed, g.head
+
+    f = _shard_map(body, mesh=mesh, in_specs=(P("pipe"),) + (P(),) * 6,
+                   out_specs=(P(), P("pipe"), P(), P(), P()))
+    out = jax.jit(f)(kw["stacked"], kw["ee"], kw["de"], kw["hp"], kw["enc_in"],
+                     kw["dec_in"], kw["targets"])
+    return out, jpp.last_schedule_report()
+
+
+@pytest.mark.parametrize("split", SPLITS)
+def test_encoder_decoder_matches_jax(world, split):
+    (loss, gs, gee, gde, ghp), report = _jax_t5(split)
+    for rank in range(WORLD):
+        tl, tg, trep = world[rank][0][f"t5_split{split}"]
+        np.testing.assert_allclose(tl, float(loss), rtol=OVERLAP_LOSS_RTOL)
+        for k in ("w", "b", "wm"):
+            np.testing.assert_allclose(tg["stage"][k], np.asarray(gs[k])[rank],
+                                       err_msg=f"stage {k} rank {rank}", **OVERLAP_GRAD_TOL)
+        for name, ref in (("enc_embed", gee), ("dec_embed", gde), ("head", ghp)):
+            for k, v in ref.items():
+                np.testing.assert_allclose(tg[name][k], np.asarray(v), err_msg=name,
+                                           **OVERLAP_GRAD_TOL)
+        assert trep == report and trep["split_rank"] == split
 
 
 @pytest.mark.parametrize("m, s, v", [(1, 1, 1), (6, 2, 1), (8, 4, 1), (4, 2, 2),
@@ -276,6 +422,7 @@ def test_errors(world):
     errors = world[0][1]
     assert errors[0].startswith("ValueError") and "divisible" in errors[0]
     assert errors[1].startswith("ValueError") and "mismatch" in errors[1]
-    for e in errors[2:]:
-        assert e.startswith("NotImplementedError") and "ROADMAP" in e
-    assert "A15" in errors[2] and "A13" in errors[3] and "A15" in errors[4]
+    assert errors[2].startswith("ValueError") and "mismatch" in errors[2]
+    assert errors[3].startswith("NotImplementedError") and "A13" in errors[3]
+    assert errors[4].startswith("ValueError") and "split_rank" in errors[4]
+    assert errors[5].startswith("ValueError") and "0 < split_rank" in errors[5]
