@@ -700,7 +700,7 @@ def tensor_parallel_sumsq(sq: torch.Tensor, sharded, axis_name) -> torch.Tensor:
         return sq
     from beforeholiday_tpu_torch.monitor import comms
 
-    mask = torch.tensor(list(sharded), dtype=torch.bool, device=sq.device)
+    mask = _flag_mask(tuple(map(bool, sharded)), sq.device)
     total = comms.psum(torch.where(mask, sq, 0.0), axis_name,
                        site="lamb.tensor_parallel_norms")
     return torch.where(mask, total, sq)
@@ -719,8 +719,15 @@ def tensor_parallel_norm_sq(total_sq, sharded_sq, axis_name) -> torch.Tensor:
 
 def sharded_sumsq(flat: torch.Tensor, spec: ArenaSpec, sharded) -> torch.Tensor:
     """The sum of squares of the arena's tensors that ``sharded`` marks."""
-    mask = torch.tensor(list(sharded), dtype=torch.bool, device=flat.device)
+    mask = _flag_mask(tuple(map(bool, sharded)), flat.device)
     return torch.where(mask, per_tensor_sumsq(flat, spec), 0.0).sum()
+
+
+@functools.lru_cache(maxsize=64)
+def _flag_mask(flags: Tuple[bool, ...], device: torch.device) -> torch.Tensor:
+    """One bool a tensor on ``device``, built once per flags and device: a
+    step copies nothing from the host, so it never waits on the host."""
+    return torch.tensor(flags, dtype=torch.bool, device=device)
 
 
 @functools.lru_cache(maxsize=64)

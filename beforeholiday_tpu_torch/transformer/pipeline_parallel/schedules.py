@@ -684,34 +684,33 @@ def forward_backward_pipelining_encoder_decoder(
         return (fn(ep, raw) if fn is not None else raw).to(hidden_dtype)
 
     def stage_pair(sp, pair):
-        """(h, memory) -> (stage(h), memory)."""
-        h = stage_fn(sp, pair[0], pair[1], is_decoder)
-        return torch.stack([h.to(hidden_dtype), pair[1]])
+        """(h, memory) -> (stage(h), memory); the last stage's h alone,
+        what its head and loss take."""
+        h = stage_fn(sp, pair[0], pair[1], is_decoder).to(hidden_dtype)
+        return h if last else torch.stack([h, pair[1]])
+
+    # the rank's own embedding, as the pair it starts: the encoder's on the
+    # first rank, the decoder's at the split rank, none elsewhere
+    fn, ep, raw_inputs = ((enc_embed_fn, enc_embed_params, enc_inputs) if first else
+                          (dec_embed_fn, dec_embed_params, dec_inputs) if boundary else
+                          (None, None, enc_inputs))
+
+    def embed_pair(p, raw):
+        return torch.stack([embed(fn, p, raw), torch.zeros_like(zero[0])])
+
+    slots = _Slots(stage_pair, loss_fn, [params], raw_inputs, targets, M, hidden_dtype,
+                   embed_pair if fn is not None else None, ep, head_fn, head_params)
 
     def x_in_of(m, fwd_pair):
         """The pair this rank's stage takes for microbatch m."""
         if first:
-            return torch.stack([embed(enc_embed_fn, enc_embed_params, enc_inputs[m]),
-                                torch.zeros_like(zero[0])])
+            return embed_pair(ep, raw_inputs[m])
         if boundary:
             # the encoder's output arrives in the hidden slot and becomes
             # the memory; the decoder stream starts from its own embedding
-            return torch.stack([embed(dec_embed_fn, dec_embed_params, dec_inputs[m]),
-                                fwd_pair[0]])
+            return torch.stack([embed(fn, ep, raw_inputs[m]), fwd_pair[0]])
         return fwd_pair
 
-    def embed_grad(fn, ep, raw, ct, acc):
-        p = _requires_grad(ep)
-        with torch.enable_grad():
-            got = torch.autograd.grad(embed(fn, p, raw), _diff_leaves(p),
-                                      grad_outputs=ct, allow_unused=True)
-        _accumulate(acc, p, got)
-
-    g_stage = tree_map(torch.zeros_like, params)
-    g_ee = tree_map(torch.zeros_like, enc_embed_params) if enc_embed_fn is not None else None
-    g_de = tree_map(torch.zeros_like, dec_embed_params) if dec_embed_fn is not None else None
-    g_head = tree_map(torch.zeros_like, head_params) if head_fn is not None else None
-    loss_acc = torch.zeros((), dtype=torch.float32, device=device)
     act_store: List[Optional[torch.Tensor]] = [None] * ring_depth
     fwd_reg = bwd_reg = zero
 
@@ -722,52 +721,41 @@ def forward_backward_pipelining_encoder_decoder(
             if 0 <= m_f < M:
                 with torch.no_grad():
                     x_in = x_in_of(m_f, fwd_reg)
-                    act_store[(m_f + rank) % ring_depth] = x_in
-                    if not last:
-                        y = stage_pair(params, x_in)
+                act_store[(m_f + rank) % ring_depth] = x_in
+                if not last:
+                    y = slots.forward(0, x_in)
 
         dx_ring = zero
         with span("ppT5_backward_slot"):
             m_b = t - S - (S - 1 - rank)
             if 0 <= m_b < M:
                 slot = (m_b + rank) % ring_depth
-                x = act_store[slot].detach().requires_grad_(True)
+                # the saved pair is the stage's input after x_in_of: its
+                # cotangent's hidden half is this rank's own embedding's at
+                # the first and the split rank (the slots replay it), and
+                # the split rank sends (d memory, 0) upstream, the encoder
+                # output's gradient
+                dx = slots.backward(0, m_b, act_store[slot], bwd_reg, last=last,
+                                    first=first or boundary)
                 act_store[slot] = None
-                sp = _requires_grad(params)
-                with torch.enable_grad():
-                    if last:
-                        hp = _requires_grad(head_params) if head_fn is not None else None
-                        out = stage_pair(sp, x)[0]
-                        if hp is not None:
-                            out = head_fn(hp, out)
-                        mb_loss = loss_fn(out, targets[m_b]) / M
-                        wrt = _diff_leaves(sp) + (_diff_leaves(hp) if hp is not None else [])
-                        got = torch.autograd.grad(mb_loss, wrt + [x], allow_unused=True)
-                        loss_acc = loss_acc + mb_loss.detach().float()
-                        if hp is not None:
-                            _accumulate(g_head, hp, got[len(_diff_leaves(sp)):-1])
-                    else:
-                        got = torch.autograd.grad(stage_pair(sp, x), _diff_leaves(sp) + [x],
-                                                  grad_outputs=bwd_reg, allow_unused=True)
-                _accumulate(g_stage, sp, got)
-                dx = zero if got[-1] is None else got[-1].to(hidden_dtype)
-                # the saved pair is the stage's input after x_in_of: dx[0]
-                # is this rank's own embedding's at the first and the split
-                # rank, and the split rank sends (d memory, 0) upstream, the
-                # encoder output's gradient
-                if first and enc_embed_fn is not None:
-                    embed_grad(enc_embed_fn, enc_embed_params, enc_inputs[m_b], dx[0], g_ee)
-                if boundary and dec_embed_fn is not None:
-                    embed_grad(dec_embed_fn, dec_embed_params, dec_inputs[m_b], dx[0], g_de)
+                dx = zero if dx is None else dx
                 dx_ring = torch.stack([dx[1], torch.zeros_like(dx[1])]) if boundary else dx
 
         with span("ppT5_p2p_rings"):
             fwd_reg, bwd_reg = p2p_communication.send_forward_recv_backward(
                 y, dx_ring, axis_name=axis_name)
 
-    loss = comms.psum(loss_acc, axis_name, site="pp.loss_allreduce")
-    g_ee, g_de, g_head = _psum_trees(axis_name, g_ee, g_de, g_head)
-    return loss, EncDecPipelineGrads(g_stage, g_ee, g_de, g_head)
+    loss = comms.psum(slots.loss, axis_name, site="pp.loss_allreduce")
+
+    def embed_grads(fn_, ep_, mine):
+        if fn_ is None:
+            return None
+        return slots.g_embed if mine else tree_map(torch.zeros_like, ep_)
+
+    g_ee, g_de, g_head = _psum_trees(
+        axis_name, embed_grads(enc_embed_fn, enc_embed_params, first),
+        embed_grads(dec_embed_fn, dec_embed_params, boundary), slots.g_head)
+    return loss, EncDecPipelineGrads(slots.g_stage[0], g_ee, g_de, g_head)
 
 
 def forward_backward_pipelining_with_interleaving(

@@ -7,11 +7,13 @@ Decomposition").
 The sequence-parallel column-parallel forward is ``all_gather(x) @ w``. As
 a ring of ``ppermute`` hops (site ``tp.collective_matmul:hop{t}``), step t
 multiplies the chunk that rank ``(rank - t) mod world`` contributed and
-writes it at that rank's offset of the gathered layout, so a GEMM can run
-while the next chunk is on the wire. Every row of the product is the
-monolithic GEMM's row; whether a GEMM library returns it bit for bit at
-another row count is the library's business (``PERF.md`` records the card's
-answer).
+writes it at that rank's offset of the gathered layout. Each hop is posted
+before the GEMM of the chunk in hand and waited on after it, so the GEMM
+runs while the next chunk is on the wire (on NCCL the transfer runs on the
+communicator's stream beside the compute stream). Every row of the product
+is the monolithic GEMM's row; whether a GEMM library returns it bit for
+bit at another row count is the library's business (``PERF.md`` records
+the card's answer).
 
 The backward is the monolithic path's: ``dx`` is the cotangent GEMM
 reduce-scattered through ``mappings``' helper (site
@@ -68,12 +70,20 @@ def _ring_gather_matmul(x, w, axis_name):
     s = x.shape[0]
     y = x.new_empty((world * s, *x.shape[1:-1], w.shape[1]))
     xg = x.new_empty((world * s, *x.shape[1:]))
+    perm = [(i, (i + 1) % world) for i in range(world)]
+
+    def post(chunk, t):
+        return comms.ppermute(chunk, axis_name, perm, async_op=True,
+                              site=f"tp.collective_matmul:hop{t}")
+
+    # hop t + 1 is posted before chunk t's GEMM and waited on after it
+    pending = post(x, 1) if world > 1 else None
     y[rank * s:(rank + 1) * s] = _mm(x, w)
     xg[rank * s:(rank + 1) * s] = x
-    perm = [(i, (i + 1) % world) for i in range(world)]
-    cur = x
     for t in range(1, world):
-        cur = comms.ppermute(cur, axis_name, perm, site=f"tp.collective_matmul:hop{t}")
+        cur, work = pending
+        work.wait()
+        pending = post(cur, t + 1) if t + 1 < world else None
         src = (rank - t) % world
         y[src * s:(src + 1) * s] = _mm(cur, w)
         xg[src * s:(src + 1) * s] = cur

@@ -2750,6 +2750,37 @@ def dropout_flash_vs_unfused_phase(label, gpt, bert, params, bparams, mcfg,
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def watch_syncs():
+    """Records every synchronizing CUDA call of the block, under
+    ``set_sync_debug_mode("warn")``: yields ``(syncs, port_syncs)``, the
+    count by site (the warning's, and the innermost frame of this
+    repository that led to it) and the sites whose frame is in the port."""
+    syncs, port_syncs = {}, []
+
+    def record_sync(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if "beforeholiday_tpu_torch" in f.filename
+                or f.filename.endswith("chip_smoke.py")]
+        site = "/".join(filename.split("/")[-3:]) + f":{lineno}"
+        if ours:
+            site += f" <- {ours[-1].filename.split('/')[-1]}:{ours[-1].lineno}"
+            if "beforeholiday_tpu_torch" in ours[-1].filename:
+                port_syncs.append(site)
+        syncs[site] = syncs.get(site, 0) + 1
+
+    torch.cuda.set_sync_debug_mode("warn")  # warns once itself: not recorded
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record_sync
+            yield syncs, port_syncs
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def training_phase(label, profile_label, step, batch, counters, expect,
                    groups, card, *, unit, units, flops, peak, fp8_flops=0.0,
                    ranges=None, **fields):
@@ -2772,27 +2803,8 @@ def training_phase(label, profile_label, step, batch, counters, expect,
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
-    events, losses, flags, syncs, port_syncs = [], [], [], {}, []
-
-    def record_sync(message, category, filename, lineno, file=None, line=None):
-        # where the sync came from: the warning's site, and the innermost
-        # frame of this repository that led to it
-        if "synchroniz" not in str(message):
-            return
-        ours = [f for f in traceback.extract_stack()[:-1]
-                if "beforeholiday_tpu_torch" in f.filename
-                or f.filename.endswith("chip_smoke.py")]
-        site = "/".join(filename.split("/")[-3:]) + f":{lineno}"
-        if ours:
-            site += f" <- {ours[-1].filename.split('/')[-1]}:{ours[-1].lineno}"
-            if "beforeholiday_tpu_torch" in ours[-1].filename:
-                port_syncs.append(site)
-        syncs[site] = syncs.get(site, 0) + 1
-
-    torch.cuda.set_sync_debug_mode("warn")  # warns once itself: not recorded
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record_sync
+    events, losses, flags = [], [], []
+    with watch_syncs() as (syncs, port_syncs):
         t0 = time.perf_counter()
         for _ in range(TIMED_STEPS):
             a = torch.cuda.Event(enable_timing=True)
@@ -2803,7 +2815,6 @@ def training_phase(label, profile_label, step, batch, counters, expect,
             events.append((a, b))
             losses.append(loss)
             flags.append(fi)
-    torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
@@ -5085,6 +5096,9 @@ TP_TWO_RANK_TIMEOUT = 600
 # another order, and at TP 2 in two ranks' halves: the O5 row
 TP_M1_BOUNDS = dict(loss_rel_err=1e-5, grad_rel_l2=2 ** -6,
                     master_max_abs_err=2 * LR + 1e-6)
+# lamb_tensor_sharded_check: masters of two FusedLAMB steps with and without
+# the tensor-sharded mask at world 1, in units of 2^-24 (|master| + lr)
+LAMB_SHARDED_ULPS = 8.0
 TP_M4_BOUNDS = dict(loss_rel_err=5e-3, grad_rel_l2=0.05, master_max_abs_err=2 * LR + 1e-6)
 TP_REPLICATED = ("pos_embed", "lnf_scale", "lnf_bias")
 TP_REPLICATED_BLOCKS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias", "bo", "bo2")
@@ -5890,9 +5904,9 @@ def rank_place_phase(attn):
     launch's slice at the flagship's shapes, dropout 0.1: K2/K4 over the
     rank's 8 of 16 heads (BH 128 of 256, S 1024, causal bf16), K13 over its
     heads' planes of the (256, 1024, 1024) probabilities and its rows of
-    the (16, 1024, 1024) hidden states under sequence parallelism. Then the
-    timed rows at the TP 2 runs' shapes. Returns rows to merge, keyed by
-    kernel."""
+    the (16, 1024, 1024) hidden states under sequence parallelism, K13 also
+    bitwise its plain version at both places. Then the timed rows at the
+    TP 2 runs' shapes. Returns rows to merge, keyed by kernel."""
     g = gen(180)
     key = flash_key()
     B, H, S, D, rate = TRAIN_BATCH, MODEL["n_heads"], MODEL["seq_len"], 64, 0.1
@@ -5921,14 +5935,17 @@ def rank_place_phase(attn):
                                       and torch.equal(lser, heads(lse, r)))
         checks[f"K4 rank {r}"] = all(torch.equal(a_, heads(b_, r))
                                      for a_, b_ in zip(gr, grads))
-        checks[f"K13 heads rank {r}"] = bool(torch.equal(
-            attn.dropout_keep_mask_kernel(key, (B * hl, S, S), rate, place),
-            heads(probs, r)))
-        rows_place = attn.RankPlace(1, 1, 0, r * S // 2)
-        checks[f"K13 rows rank {r}"] = bool(torch.equal(
-            attn.dropout_keep_mask_kernel(key, (B, S // 2, MODEL["d_model"]), rate,
-                                          rows_place),
-            hidden[:, r * S // 2:(r + 1) * S // 2]))
+        # K13 at the rank's heads and at its sequence-parallel rows: the
+        # one-device launch's slice, and its plain version at the same place
+        for what, shape_, place_, whole in (
+                ("heads", (B * hl, S, S), place, heads(probs, r)),
+                ("rows", (B, S // 2, MODEL["d_model"]), attn.RankPlace(1, 1, 0, r * S // 2),
+                 hidden[:, r * S // 2:(r + 1) * S // 2])):
+            mask = attn.dropout_keep_mask_kernel(key, shape_, rate, place_)
+            plain = attn.dropout_keep_mask_torch(key, shape_, rate, place_)
+            checks[f"K13 {what} rank {r}"] = bool(torch.equal(mask, whole))
+            checks[f"K13 {what} rank {r} plain"] = bool(torch.equal(mask, plain))
+            del mask, plain
     torch.cuda.synchronize()
     line("rank_place", shape=f"'B{B} H{H} S{S} D{D} causal bfloat16, rate {rate}, TP 2'",
          bitwise=json.dumps(checks))
@@ -5967,11 +5984,18 @@ def rank_place_phase(attn):
         plain_ms=time_ms(lambda: attn.flash_bwd_torch(*bargs), iters=5),
         library_ms=None, bound_ms=bms, bound_by=by))
     shape, rows_place = (B, S // 2, MODEL["d_model"]), attn.RankPlace(1, 1, 0, S // 2)
+    mask = attn.dropout_keep_mask_kernel(key, shape, rate, rows_place)
+    plain = attn.dropout_keep_mask_torch(key, shape, rate, rows_place)
+    err = float((mask.float() - plain.float()).abs().max())
+    if err != 0.0:
+        raise AssertionError(f"K13 place: {int((mask != plain).sum())} elements of the "
+                             f"rows place differ from the plain version")
+    del mask, plain
     n = B * S // 2 * MODEL["d_model"]
     bms, by = bound_ms(n + 16, 0, torch.float32, PHILOX_OPS_PER_ELEMENT * n)
     rows["dropout_mask"]["tp2_sp_dropout"] = (
         f"{shape} rate {rate}, rows {S // 2}-{S - 1} (a sequence-parallel rank)", dict(
-            max_abs_err=0.0,
+            max_abs_err=err,
             ms=time_ms(lambda: attn.dropout_keep_mask_kernel(key, shape, rate, rows_place)),
             plain_ms=time_ms(lambda: attn.dropout_keep_mask_torch(key, shape, rate,
                                                                   rows_place), iters=5),
@@ -6077,8 +6101,55 @@ def bert_tp_world1_phase(bert, bcfg):
          layers=cfg.n_layers, bitwise=json.dumps(bitwise))
     if not all(bitwise.values()):
         raise AssertionError(f"bert_tp_world1: not the dense forward's bits: {bitwise}")
-    del params, dense
+    del dense
+    lamb_tensor_sharded_check(bert, cfg, params)
+    del params
     torch.cuda.empty_cache()
+
+
+def lamb_tensor_sharded_check(bert, cfg, params):
+    """The TP BERT's optimizer at world 1 over NCCL: the arena-native
+    ``MasterWeights(FusedLAMB(tensor_sharded=bert.tensor_sharded(cfg)))``
+    step from random gradients. Its second step synchronizes the host
+    nowhere in the port (the first builds the cached device masks), and its
+    masters are the unmasked step's within LAMB_SHARDED_ULPS units of
+    2^-24 (|master| + lr): at world 1 only the clip norm's ``total -
+    sharded + psum(sharded)`` differs, by an ulp of the squared norm, which
+    moves an update (at most lr an element) by a few of its ulps and a
+    master's rounding by one a step."""
+    from beforeholiday_tpu_torch.ops.arena import PackedParams
+    from beforeholiday_tpu_torch.optimizers import FusedLAMB, MasterWeights
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+
+    g, lr = gen(212), 1e-3
+    base = PackedParams.pack(params)
+    grads = base.replace_arenas([1e-2 * torch.randn(a.shape, generator=g, device="cuda")
+                                 .to(a.dtype) for a in base.arenas])
+    masters, port = {}, {}
+    ps.initialize_model_parallel(1, 1)
+    try:
+        for name, mask in (("dense", None), ("tensor_sharded", bert.tensor_sharded(cfg))):
+            opt = MasterWeights(FusedLAMB(lr=lr, weight_decay=0.01, tensor_sharded=mask))
+            model = PackedParams.pack(params)
+            state = opt.init(model)
+            model, state = opt.step(model, grads, state)
+            with watch_syncs() as (_, port_syncs):
+                model, state = opt.step(model, grads, state)
+            torch.cuda.synchronize()
+            masters[name], port[name] = state["master"], port_syncs
+    finally:
+        ps.destroy_model_parallel()
+    ulps = max(float(((a - b).abs() / ((b.abs() + lr) * 2.0 ** -24)).max())
+               for a, b in zip(masters["tensor_sharded"], masters["dense"]))
+    line("lamb_tensor_sharded", backend="nccl", tensor=1, steps=2,
+         max_master_ulps=ulps, bound_ulps=LAMB_SHARDED_ULPS,
+         port_host_syncs=json.dumps(port))
+    if port["tensor_sharded"]:
+        raise AssertionError(f"lamb_tensor_sharded: the port synchronized the host: "
+                             f"{port['tensor_sharded']}")
+    if not ulps <= LAMB_SHARDED_ULPS:
+        raise AssertionError(f"lamb_tensor_sharded: masters {ulps} ulps from the "
+                             f"unmasked step's (bound {LAMB_SHARDED_ULPS})")
 
 
 KERNEL_ROWS = (

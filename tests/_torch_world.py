@@ -1084,12 +1084,35 @@ def bert_o5_lamb_steps(cfg, shard, batch, steps, lr):
     return runs
 
 
-def bert_tp_scenario(rank, world, cfg_kw, np_params, batch, o5_runs):
+def bert_lamb_fp32_step(params, grads, lamb_kw):
+    """One fp32 ``FusedLAMB(**lamb_kw)`` step from ``params`` and ``grads``
+    (this rank's shards under TP, with ``tensor_sharded`` from the BERT's
+    specs), by the arena-native path (``MasterWeights`` over
+    ``PackedParams``) and by the list path (``FusedLAMB.step`` on the
+    trees): ``{"packed": masters, "list": params}`` as numpy trees."""
+    from beforeholiday_tpu_torch.ops.arena import PackedParams
+    from beforeholiday_tpu_torch.optimizers import FusedLAMB, MasterWeights
+
+    opt = FusedLAMB(**lamb_kw)
+    mw = MasterWeights(opt)
+    model = PackedParams.pack(params)
+    state = mw.init(model)
+    model, state = mw.step(model, model.replace_arenas(PackedParams.pack(grads).arenas),
+                           state)
+    new_params, _ = opt.step(params, grads, opt.init(params))
+    return {"packed": _np_tree(model.replace_arenas(state["master"]).unpack()),
+            "list": _np_tree(new_params)}
+
+
+def bert_tp_scenario(rank, world, cfg_kw, np_params, batch, o5_runs,
+                     np_grads=None, lamb_kw=None):
     """(a) at tensor world 1: the TP forward against the dense forward, fp32
     and bf16, sequence parallel off and on; (b) at tp = 2, fp32: the loss
     and this rank's shard of the gradients of ``pretrain_loss``, sequence
     parallel off and on; (c) for each ``(label, tp (0: dense), sp, steps,
-    lr)`` of ``o5_runs``: :func:`bert_o5_lamb_steps`."""
+    lr)`` of ``o5_runs``: :func:`bert_o5_lamb_steps`; (d) with ``np_grads``:
+    :func:`bert_lamb_fp32_step` on the dense tree and at tp = 2 on this
+    rank's shards, ``tensor_sharded`` from the BERT's specs there."""
     from beforeholiday_tpu_torch.ops._autocast import cast_floats
     from beforeholiday_tpu_torch.parallel import parallel_state as ps
     from beforeholiday_tpu_torch.testing import bert
@@ -1129,5 +1152,15 @@ def bert_tp_scenario(rank, world, cfg_kw, np_params, batch, o5_runs):
             shard = bert.shard_params(params, cfg, ps.get_tensor_model_parallel_rank(),
                                       tsize)
         out[label] = bert_o5_lamb_steps(cfg, shard, batch, steps, lr)
+        ps.destroy_model_parallel()
+    if np_grads is not None:
+        cfg = bert.BertConfig(**cfg_kw)
+        grads = bert.params_from_numpy(np_grads, device="cpu")
+        out[("lamb_fp32", 1)] = bert_lamb_fp32_step(params, grads, lamb_kw)
+        ps.initialize_model_parallel(2)
+        tr = ps.get_tensor_model_parallel_rank()
+        out[("lamb_fp32", 2)] = bert_lamb_fp32_step(
+            bert.shard_params(params, cfg, tr, 2), bert.shard_params(grads, cfg, tr, 2),
+            dict(lamb_kw, tensor_sharded=bert.tensor_sharded(cfg)))
         ps.destroy_model_parallel()
     return out

@@ -379,7 +379,13 @@ def test_skip_step_leaves_state_untouched(skipped):
 # * three amp O5 FusedLAMB steps at TP 2 (tensor-sharded leaves' norms
 #   summed over the group) against the port's one-device step at the BERT
 #   bf16 row above: loss 1e-3, grads atol 5e-3 and rtol 2^-7, masters 3 lr
-#   a step.
+#   a step;
+# * one fp32 FusedLAMB step at TP 2 from the same params and gradients as
+#   the one-device step, arena-native and list paths: masters at rtol 2^-20,
+#   atol 2^-20 lr (the norms' sums in another order, a few fp32 ulps of the
+#   update). The clip at 1e-3 brings the clipped gradients to eps's size, so
+#   the clip norm shows in the update: LAMB's step is otherwise invariant to
+#   the gradients' scale.
 
 TP_SMALL = dict(vocab_size=64, seq_len=32, d_model=64, n_heads=4, n_layers=2)
 TP_LENS = [32, 21, 9, 32]
@@ -411,7 +417,17 @@ def tp_world(tmp_path_factory):
     import _torch_world as tw
 
     return tw.run_world(tw.bert_tp_scenario, 4, tmp_path_factory.mktemp("bert_tp"),
-                        TP_SMALL, _tp_params(), _tp_batch(), TP_O5_RUNS)
+                        TP_SMALL, _tp_params(), _tp_batch(), TP_O5_RUNS, _tp_grads(),
+                        TP_LAMB)
+
+
+TP_LAMB = dict(lr=LR, weight_decay=0.01, max_grad_norm=1e-3)
+
+
+def _tp_grads():
+    rng = np.random.default_rng(6)
+    return jax.tree.map(lambda p: rng.standard_normal(p.shape).astype(np.float32),
+                        _tp_params())
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
@@ -489,3 +505,10 @@ def test_tp2_o5_lamb_step_matches_the_one_device_step(tp_world, label, step):
                   atol=5e-3, rtol=BF16_ULP)
     _assert_trees(_assemble([r0["masters"], r1["masters"]]), ref["masters"], "masters",
                   atol=3 * LR * (step + 1), rtol=0)
+
+
+@pytest.mark.parametrize("path", ["packed", "list"])
+def test_tp2_lamb_fp32_step_matches_the_one_device_step(tp_world, path):
+    ref = tp_world[0][("lamb_fp32", 1)][path]
+    got = _assemble([tp_world[r][("lamb_fp32", 2)][path] for r in (0, 1)])
+    _assert_trees(got, ref, f"{path} masters", rtol=2.0 ** -20, atol=2.0 ** -20 * LR)
