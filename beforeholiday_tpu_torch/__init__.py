@@ -36,10 +36,15 @@ the DCGAN example):
   e4m3 pages), bucketed inference engine, continuous batching, the radix
   prefix cache, prefill/decode disaggregation and serving telemetry;
   ``examples.serve`` — the async open-loop serving driver.
-- ``beforeholiday_tpu_torch.monitor`` — the strict bucket-signature gate and
-  its counters, trace spans, the collective-traffic ledger, the host
-  timeline (Perfetto export), latency histograms and the flight recorder.
-- ``beforeholiday_tpu_torch.utils``   — rank-annotated logging.
+- ``beforeholiday_tpu_torch.monitor`` — device-side training metrics and
+  their one-copy export, the memory and roofline ledgers, dispatch
+  counters, spans, profiler traces and timers, the strict bucket-signature
+  gate and its counters, the collective-traffic ledger, the host timeline
+  (Perfetto export), overlap, straggler and goodput reports, latency
+  histograms and the flight recorder.
+- ``beforeholiday_tpu_torch.remat``   — named rematerialization policies
+  (``remat.apply``) and their boundary tags.
+- ``beforeholiday_tpu_torch.utils``   — rank-annotated logging, ``warn_once``.
 - ``beforeholiday_tpu_torch.testing`` — the dense GPT and BERT (flash or
   unfused attention), their losses and batches, and fault injectors.
 - ``beforeholiday_tpu_torch.transformer`` — the enums and
@@ -59,6 +64,7 @@ from beforeholiday_tpu_torch import (  # noqa: F401
     ops,
     optimizers,
     parallel,
+    remat,
     testing,
     transformer,
     tune,
@@ -68,4 +74,5 @@ from beforeholiday_tpu_torch import (  # noqa: F401
 __version__ = "0.5.0"
 
 __all__ = ["amp", "contrib", "guard", "infer", "models", "monitor", "ops",
-           "optimizers", "parallel", "testing", "transformer", "tune", "utils"]
+           "optimizers", "parallel", "remat", "testing", "transformer", "tune",
+           "utils"]

@@ -295,7 +295,7 @@ def softmax_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if logits.ndim != 2 or labels.ndim != 1 or labels.shape[0] != logits.shape[0]:
         raise ValueError(f"expected logits (N, V) and labels (N,), got "
                          f"{tuple(logits.shape)} / {tuple(labels.shape)}")
-    impl = resolve_impl(impl, logits)
+    impl = resolve_impl(impl, logits, op="softmax_cross_entropy")
     labels = labels.long().contiguous()
     not_pad = labels != padding_idx
     loss = _SoftmaxXentropy.apply(logits.contiguous(), labels, float(smoothing),

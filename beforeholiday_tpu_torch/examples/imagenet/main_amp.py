@@ -40,8 +40,10 @@ runs fp32 convolutions in TF32 while ``torch.backends.cudnn.allow_tf32`` is
 True (PyTorch's default). This module leaves that global as the caller set
 it.
 
-Not ported yet, and raising ``NotImplementedError``: the flight recorder and
-the profile directory (the monitor port).
+``--profile-dir DIR`` writes a ``torch.profiler`` trace of the first epoch
+into DIR (``monitor.spans.trace``); ``--flight-recorder PATH`` keeps a ring
+of the printed steps' metrics (``monitor.FlightRecorder``), dumped to PATH
+on a crash and at the end of the run.
 
 Run (one process, or one a rank under ``torchrun --nproc_per_node=N``,
 whose ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` ``main`` reads; without
@@ -54,6 +56,7 @@ them it trains a world of one)::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import time
@@ -65,7 +68,8 @@ import torch.distributed as dist
 
 from beforeholiday_tpu_torch import amp
 from beforeholiday_tpu_torch.models import resnet
-from beforeholiday_tpu_torch.monitor import comms
+from beforeholiday_tpu_torch.monitor import FlightRecorder, comms
+from beforeholiday_tpu_torch.monitor.spans import trace as profile_trace
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device
 from beforeholiday_tpu_torch.ops.arena import tree_flatten, tree_unflatten
 from beforeholiday_tpu_torch.optimizers import FusedSGD, supports_flat_step
@@ -90,10 +94,6 @@ def topk_accuracy(logits, labels, ks=(1, 5)):
     hit = top == labels[:, None]
     return {f"prec{q}": 100.0 * hit[:, :min(q, k)].any(dim=1).float().mean()
             for q in ks}
-
-
-def _not_ported(what: str, where: str):
-    raise NotImplementedError(f"{what} needs {where}, which is not ported yet")
 
 
 @dataclasses.dataclass
@@ -326,9 +326,8 @@ def train(trainer: Trainer, *, iters: int, image_size: int = 224,
           flight=None):
     """One synthetic 'epoch' of ``iters`` steps; prints reference-style
     lines, reading the metrics back only on the lines it prints. Returns the
-    best images/s of the printed intervals."""
-    if flight is not None:
-        _not_ported("the flight recorder", "the monitor port")
+    best images/s of the printed intervals. ``flight`` (a
+    ``monitor.FlightRecorder``) records each printed row."""
     num_classes = trainer.cfg.num_classes
     it = synthetic_batches(trainer.global_batch, image_size, num_classes, iters)
     scaled_lr = base_lr * trainer.global_batch / 256.0
@@ -352,6 +351,10 @@ def train(trainer: Trainer, *, iters: int, image_size: int = 224,
                 f"Loss {metrics['loss']:.4f}  Prec@1 {metrics['prec1']:.2f}  "
                 f"Prec@5 {metrics['prec5']:.2f}  scale {metrics['scale']:.0f}"
             )
+            if flight is not None:
+                # only the rows the print cadence already read back: the
+                # recorder adds no readback of its own
+                flight.record(epoch * iters + i + 1, metrics)
     return max(speeds) if speeds else 0.0
 
 
@@ -397,10 +400,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.profile_dir is not None:
-        _not_ported("--profile-dir", "the profiling port (utils/profiling.py)")
-    if args.flight_recorder is not None:
-        _not_ported("--flight-recorder", "the monitor port")
     print(f"opt_level = {args.opt_level}")
     print(f"keep_batchnorm_fp32 = {args.keep_batchnorm_fp32}")
     print(f"loss_scale = {args.loss_scale}")
@@ -430,13 +429,25 @@ def main(argv=None):
     )
     print(f"device: {trainer.device}  distributed: {trainer.distributed}  "
           f"rank {trainer.rank} of {trainer.world}")
+    # the context manager arms a crash dump (an uncaught exception dumps the
+    # ring to PATH) and dumps on an exception leaving the block
+    flight = (FlightRecorder(path=args.flight_recorder)
+              if args.flight_recorder else None)
     best = 0.0
     try:
-        for epoch in range(args.epochs):
-            best = max(best, train(
-                trainer, iters=args.iters, image_size=args.image_size,
-                base_lr=args.lr, print_freq=args.print_freq, epoch=epoch,
-            ))
+        with flight if flight is not None else contextlib.nullcontext():
+            for epoch in range(args.epochs):
+                # one epoch (the first) traced, as the flag promises
+                with profile_trace(args.profile_dir if epoch == 0 else None):
+                    best = max(best, train(
+                        trainer, iters=args.iters, image_size=args.image_size,
+                        base_lr=args.lr, print_freq=args.print_freq,
+                        epoch=epoch, flight=flight,
+                    ))
+        if flight is not None:
+            # a clean run still writes the ring: the flag always leaves the
+            # file it promised
+            flight.dump(reason="run_end")
     finally:
         if launched:
             dist.destroy_process_group()

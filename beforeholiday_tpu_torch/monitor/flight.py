@@ -27,8 +27,9 @@ Triggers that turn the ring into an artifact:
   (``infer.telemetry.ServingTelemetry``) dumps the active recorder once
   per breached target.
 
-The dump keeps the reference's schema key for key. ``dispatch_summary`` and
-``probe_failures`` are always empty here: they come from the reference's
+The dump keeps the reference's schema key for key. ``dispatch_summary``
+comes from ``monitor.counters`` (each op's kernel and plain-version
+choices); ``probe_failures`` is always empty: it comes from the reference's
 ``guard/dispatch.py`` (probe a kernel, degrade to the plain path on
 failure), which the port does not have by design — its wrappers launch
 their kernel or raise — so no dispatch is ever degraded or probed.
@@ -65,16 +66,17 @@ __all__ = [
 
 def _counter_totals() -> Dict[str, Any]:
     """Light per-snapshot rollup of the process-global counter state (host
-    dict arithmetic only — every value is already a Python number). The
-    dispatch counts are 0: the port has no degrading dispatch."""
+    dict arithmetic only — every value is already a Python number)."""
     from beforeholiday_tpu_torch.monitor.comms import comms_records
     from beforeholiday_tpu_torch.monitor.compile import compile_counts
+    from beforeholiday_tpu_torch.monitor.counters import dispatch_counters
 
     comms = comms_records()
     compiles = compile_counts().values()
+    disp = dispatch_counters().values()
     return {
-        "dispatch_pallas": 0,
-        "dispatch_jnp": 0,
+        "dispatch_pallas": sum(c["pallas"] for c in disp),
+        "dispatch_jnp": sum(c["jnp"] for c in disp),
         "dispatch_probes": 0,
         "comms_calls": sum(r["calls"] for r in comms),
         "comms_bytes": sum(r["bytes"] for r in comms),
@@ -189,13 +191,14 @@ class FlightRecorder:
         self, path: Optional[str] = None, *, reason: str = "manual"
     ) -> str:
         """Write the black box: ring snapshots, loss-scale trajectory, the
-        decoded last health state, and the comms and compile summaries (the
-        dispatch and probe entries empty, see the module docstring). The
+        decoded last health state, and the dispatch, comms and compile
+        summaries (the probe entry empty, see the module docstring). The
         module's one write path (host dicts only — nothing here reads a
         device value). Returns the path written."""
         from beforeholiday_tpu_torch.guard.step import health_summary
         from beforeholiday_tpu_torch.monitor.comms import comms_summary
         from beforeholiday_tpu_torch.monitor.compile import compile_summary
+        from beforeholiday_tpu_torch.monitor.counters import dispatch_summary
 
         snaps = self.snapshots()
         with self._lock:
@@ -215,7 +218,7 @@ class FlightRecorder:
             "last_health": (
                 health_summary(snaps[-1]["metrics"]) if snaps else None
             ),
-            "dispatch_summary": [],
+            "dispatch_summary": dispatch_summary(),
             "comms_summary": comms_summary(),
             "compile_summary": compile_summary(),
             "probe_failures": {},

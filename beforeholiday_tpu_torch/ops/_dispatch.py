@@ -9,32 +9,75 @@ happy: the device a tensor lives on decides.
 
 An explicit ``impl=`` is always honored, and an impossible one raises. There
 is deliberately no probe-and-downgrade (``guard/dispatch.py:checked_impl`` is
-not ported): on a CUDA tensor a wrapper launches its kernel or raises.
+not ported): on a CUDA tensor a wrapper launches its kernel or raises. Each
+choice is counted per (op, device type, dtype), the counterpart of
+``checked_impl``'s hits (``monitor.counters``); nothing is ever degraded.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+import sys
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import is_in_torch_dispatch_mode
 
 IMPLS = ("kernel", "torch")
 
 
-def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
+_COUNTS_LOCK = threading.Lock()
+# (op, device type, dtype) -> {"kernel": n, "torch": n}
+_COUNTS: Dict[Tuple[str, str, str], Dict[str, int]] = {}
+
+
+def resolve_impl(impl: Optional[str], x: torch.Tensor,
+                 op: Optional[str] = None) -> str:
     """``"kernel"`` for a CUDA tensor and ``"torch"`` for a CPU one when
-    ``impl`` is None; an explicit ``impl`` is validated and honored."""
+    ``impl`` is None; an explicit ``impl`` is validated and honored. The
+    choice is counted under ``op`` (default: the calling function's name)."""
     if impl is None:
-        return "kernel" if x.is_cuda else "torch"
-    if impl not in IMPLS:
+        impl = "kernel" if x.is_cuda else "torch"
+    elif impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if impl == "kernel" and not x.is_cuda:
+    elif impl == "kernel" and not x.is_cuda:
         raise ValueError(
             f"impl='kernel' needs CUDA tensors, got a tensor on {x.device}"
         )
+    key = (op or sys._getframe(1).f_code.co_name, x.device.type,
+           str(x.dtype).replace("torch.", ""))
+    with _COUNTS_LOCK:
+        row = _COUNTS.get(key)
+        if row is None:
+            row = _COUNTS[key] = {"kernel": 0, "torch": 0}
+        row[impl] += 1
     return impl
+
+
+def dispatch_counts() -> Dict[Tuple[str, str, str], Dict[str, int]]:
+    """Snapshot of the choices: ``{(op, device type, dtype): {"kernel": n,
+    "torch": n}}``."""
+    with _COUNTS_LOCK:
+        return {k: dict(v) for k, v in _COUNTS.items()}
+
+
+def reset_dispatch_counts() -> None:
+    with _COUNTS_LOCK:
+        _COUNTS.clear()
+
+
+def call_op(op, fn, *args):
+    """Run a kernel that is registered as the custom op ``op`` with the
+    implementation ``fn``: through ``op`` where autograd records the call
+    or a dispatch mode must see it (a selective checkpoint, a FLOP counter,
+    the memory ledger's CPU reading), else ``fn`` itself, which skips the
+    dispatcher's host cost. Both run the same code."""
+    if is_in_torch_dispatch_mode() or (torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args)):
+        return op(*args)
+    return fn(*args)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -45,21 +45,32 @@ The wrappers keep the JAX module's layout at the public functions:
 returns ``lse`` as ``(BH, S)``. Both are differentiable: the forward saves
 ``(q, k, v, lens, o, lse)`` and the backward runs K4, with the ``dlse`` term
 of ``_flash3_lse_bwd`` (``:503``) when the caller differentiates through
-``lse``; without it K4 reads no dlse operand.
+``lse``; without it K4 reads no dlse operand. The forward and backward are
+the ``torch.library`` custom ops ``beforeholiday::flash_fwd`` and
+``flash_bwd`` where autograd records the call or a dispatch mode is active
+(``_dispatch.call_op``): a selective remat policy can then save K2's
+``(o, lse)`` (tagged ``remat.TAG_ATTN_OUT`` and ``TAG_FLASH_LSE``) and skip
+it in the recompute, and ``FlopCounterMode`` books each op's closed form.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from beforeholiday_tpu_torch import _build
 from beforeholiday_tpu_torch.ops._autocast import autocast_dtype
-from beforeholiday_tpu_torch.ops._dispatch import resolve_impl, sm_count
+from beforeholiday_tpu_torch.ops._dispatch import call_op, resolve_impl, sm_count
 from beforeholiday_tpu_torch.ops.dense import fused_dense
+from beforeholiday_tpu_torch.remat.policies import (
+    TAG_ATTN_OUT,
+    TAG_FLASH_LSE,
+    tag_op,
+)
 
 _NEG = -1e30  # mask fill; large-negative (not -inf) keeps exp/max NaN-free
 _MIN_BLOCK = 128
@@ -294,7 +305,7 @@ def dropout_keep_mask(key: torch.Tensor, shape: Sequence[int], rate: float, *,
     rank's part of the one-device block's mask. K13 for a key on a CUDA
     device, the plain version for one on the CPU."""
     _check_key(key)
-    impl = resolve_impl(impl, key)
+    impl = resolve_impl(impl, key, op="dropout_mask")
     shape = tuple(int(n) for n in shape)
     if len(shape) != 3:
         raise ValueError(f"the mask's block is (BH, rows, cols), got {shape}")
@@ -684,29 +695,100 @@ def flash_bwd_kernel(q, k, v, o, do, lse, dlse, lens, causal: bool,
 flash_bwd_kernel.launches = 0
 
 
-class _FlashForward(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, lens, key, causal, scale, rate, impl, place=None):
-        fn = flash_fwd_kernel if impl == "kernel" else flash_fwd_torch
-        o, lse = fn(q, k, v, lens, causal, scale, rate, key, place)
-        ctx.save_for_backward(q, k, v, lens, o, lse)
-        ctx.causal, ctx.scale, ctx.impl = causal, scale, impl
-        # the key is a value: K4 replays the mask
-        ctx.rate, ctx.key, ctx.place = rate, key, place
-        # an unused lse gets a None cotangent, so K4 reads no dlse operand
-        ctx.set_materialize_grads(False)
-        return o, lse
+def _place_of(place: Optional[List[int]]) -> Optional[RankPlace]:
+    return None if place is None else RankPlace(*place)
 
-    @staticmethod
-    def backward(ctx, do, dlse):
-        q, k, v, lens, o, lse = ctx.saved_tensors
-        if do is None:
-            do = torch.zeros_like(o)
-        fn = flash_bwd_kernel if ctx.impl == "kernel" else flash_bwd_torch
-        dq, dk, dv = fn(q, k, v, o, do.contiguous(), lse,
-                        None if dlse is None else dlse.contiguous(), lens,
-                        ctx.causal, ctx.scale, ctx.rate, ctx.key, ctx.place)
-        return dq, dk, dv, None, None, None, None, None, None, None
+
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               lens: torch.Tensor, key: Optional[torch.Tensor], causal: bool,
+               scale: float, rate: float, impl: str,
+               place: Optional[List[int]]) -> Tuple[torch.Tensor, torch.Tensor]:
+    fn = flash_fwd_kernel if impl == "kernel" else flash_fwd_torch
+    return fn(q, k, v, lens, causal, scale, rate, key, _place_of(place))
+
+
+_flash_fwd_op = torch.library.custom_op("beforeholiday::flash_fwd",
+                                        mutates_args=())(_flash_fwd)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, lens, key, causal, scale, rate, impl, place):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
+def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+               dlse: Optional[torch.Tensor], lens: torch.Tensor,
+               key: Optional[torch.Tensor], causal: bool, scale: float,
+               rate: float, impl: str, place: Optional[List[int]]
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    fn = flash_bwd_kernel if impl == "kernel" else flash_bwd_torch
+    return fn(q, k, v, o, do.contiguous(), lse,
+              None if dlse is None else dlse.contiguous(), lens, causal, scale,
+              rate, key, _place_of(place))
+
+
+_flash_bwd_op = torch.library.custom_op("beforeholiday::flash_bwd",
+                                        mutates_args=())(_flash_bwd)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, o, do, lse, dlse, lens, key, causal, scale, rate, impl, place):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, lens, key, causal, scale, rate, impl, place = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, lens, o, lse)
+    ctx.causal, ctx.scale, ctx.impl = causal, scale, impl
+    # the key is a value: K4 replays the mask
+    ctx.rate, ctx.key, ctx.place = rate, key, place
+    # an unused lse gets a None cotangent, so K4 reads no dlse operand
+    ctx.set_materialize_grads(False)
+
+
+def _flash_backward(ctx, do, dlse):
+    q, k, v, lens, o, lse = ctx.saved_tensors
+    if do is None:
+        do = torch.zeros_like(o)
+    dq, dk, dv = call_op(_flash_bwd_op, _flash_bwd, q, k, v, o, do, lse, dlse,
+                         lens, ctx.key, ctx.causal, ctx.scale, ctx.rate,
+                         ctx.impl, ctx.place)
+    return dq, dk, dv, None, None, None, None, None, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+# the context and its lse are the values a save_boundaries policy keeps (JAX
+# tags them at ops/attention.py:472, :499 and :699): saved, the recompute
+# skips K2
+tag_op(torch.ops.beforeholiday.flash_fwd, TAG_ATTN_OUT, TAG_FLASH_LSE)
+
+
+def _pairs(q_shape, k_shape, causal: bool) -> float:
+    """The (query, key) pairs of a ``(BH, Sq, D)`` x ``(BH, Sk, D)`` call:
+    ``BH Sq Sk``, half of them when causal (at ``Sq == Sk``)."""
+    pairs = q_shape[0] * q_shape[1] * k_shape[1]
+    return pairs / 2 if causal else pairs
+
+
+@register_flop_formula(torch.ops.beforeholiday.flash_fwd)
+def _flash_fwd_flops(q_shape, k_shape, v_shape, lens_shape, key_shape, causal,
+                     *args, out_shape=None, **kwargs) -> int:
+    """K2's closed form: its two products, ``S = Q K^T`` and ``O = P V``,
+    2 flops a multiply-add: ``4 BH Sq Sk D``, halved when causal."""
+    return int(4 * _pairs(q_shape, k_shape, causal) * q_shape[2])
+
+
+@register_flop_formula(torch.ops.beforeholiday.flash_bwd)
+def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, do_shape, lse_shape,
+                     dlse_shape, lens_shape, key_shape, causal, *args,
+                     out_shape=None, **kwargs) -> int:
+    """K4's closed form, counted as the JAX package counts the dots of the
+    attention's backward: ``dP = dO V^T``, ``dQ = dS K``, ``dK = dS^T Q``
+    and ``dV = P^T dO``, ``8 BH Sq Sk D``, halved when causal (K4's
+    recompute of ``Q K^T`` is not model work)."""
+    return int(8 * _pairs(q_shape, k_shape, causal) * q_shape[2])
 
 
 def _lens_int32(kv_lens, n: int, default: int, device) -> torch.Tensor:
@@ -726,11 +808,11 @@ def flash_attention_with_lse(q3: torch.Tensor, k3: torch.Tensor,
     """``(BH, S, D)`` flash attention returning ``(o, lse (BH, S))``. Fully
     masked rows carry ``lse = -1e30`` and ``o = 0``. Differentiable in q, k,
     v and through ``lse`` (K4 adds the dlse term)."""
-    impl = resolve_impl(impl, q3)
+    impl = resolve_impl(impl, q3, op="flash_attention")
     lens = _lens_int32(kv_lens, q3.shape[0], k3.shape[1], q3.device)
-    return _FlashForward.apply(q3.contiguous(), k3.contiguous(),
-                               v3.contiguous(), lens.contiguous(), None,
-                               bool(causal), float(scale), 0.0, impl, None)
+    return call_op(_flash_fwd_op, _flash_fwd, q3.contiguous(), k3.contiguous(),
+                   v3.contiguous(), lens.contiguous(), None, bool(causal),
+                   float(scale), 0.0, impl, None)
 
 
 def flash_attention(
@@ -787,12 +869,14 @@ def flash_attention(
     key = dropout_key if rate > 0.0 else None
     if key is not None:
         _check_key(key, q.device)
-    impl = resolve_impl(impl, q)
+    impl = resolve_impl(impl, q, op="flash_attention")
     lens = _lens_int32(kv_lens, B, Sk, q.device).repeat_interleave(H)
-    o, _ = _FlashForward.apply(
+    place = None if dropout_place is None else [int(n) for n in dropout_place]
+    o, _ = call_op(
+        _flash_fwd_op, _flash_fwd,
         q.reshape(B * H, S, D).contiguous(), k.reshape(B * H, Sk, D).contiguous(),
         v.reshape(B * H, Sk, D).contiguous(), lens.contiguous(), key,
-        bool(causal), scale, rate, impl, dropout_place)
+        bool(causal), scale, rate, impl, place)
     return o.reshape(B, H, S, D)
 
 

@@ -209,7 +209,7 @@ def multi_tensor_scale(src: Sequence[torch.Tensor], scale, *, out_dtype=None,
     """``out[i] = src[i] * scale``; returns ``(outs, found_inf)``. ``found_inf``
     is set when any input or output element is non-finite (the amp unscale's
     overflow check). ``scale`` may be a device scalar tensor."""
-    impl = resolve_impl(impl, src[0])
+    impl = resolve_impl(impl, src[0], op="multi_tensor_scale")
     if len(src) == 1 and is_arena(src[0]):
         flat, spec = src[0], None
     else:
@@ -305,7 +305,7 @@ def multi_tensor_axpby(x: Sequence[torch.Tensor], y: Sequence[torch.Tensor],
     non-finite element is found in x and y (``arg_to_check`` -1), x alone
     (0) or y alone (1). Two lists each holding one arena already padded to
     ``TILE`` (a ``PackedParams`` gradient arena) are used as they are."""
-    impl = resolve_impl(impl, x[0])
+    impl = resolve_impl(impl, x[0], op="multi_tensor_axpby")
     if (len(x) == len(y) == 1 and is_arena(x[0]) and is_arena(y[0])
             and x[0].numel() == y[0].numel()):
         xf, yf, spec = x[0], y[0], None
@@ -448,7 +448,7 @@ def adam_flat(gf, pf, mf, vf, *, lr, beta1: float = 0.9, beta2: float = 0.999,
     ``model_copy`` (a tensor of ``pf``'s length) receives the new params in
     its own dtype in the same pass; ``model_copy_dtype`` allocates one.
     Returns ``(p, m, v)`` or ``(p, m, v, model_copy)``."""
-    impl = resolve_impl(impl, pf)
+    impl = resolve_impl(impl, pf, op="adam")
     if model_copy is None and model_copy_dtype is not None:
         model_copy = torch.empty(pf.shape, dtype=model_copy_dtype,
                                  device=pf.device)
@@ -574,7 +574,7 @@ def multi_tensor_adagrad(grads, params, state_sums, *, lr, eps: float = 1e-10,
     gf, spec = flatten(grads)
     pf, _ = flatten(params)
     hf, _ = flatten(state_sums)
-    impl = resolve_impl(impl, pf)
+    impl = resolve_impl(impl, pf, op="adagrad")
     fn = adagrad_kernel if impl == "kernel" else adagrad_torch
     fn(gf, pf, hf, lr=lr, eps=eps, weight_decay=weight_decay, mode=mode,
        found_inf=found_inf)
@@ -670,7 +670,7 @@ def l2norm_sq(x_flat: torch.Tensor, *, scale=None, impl: Optional[str] = None
     """Sum of squares of a flat arena (the global L2 norm's reduction) and a
     non-finite flag: ``(sq, found_inf)`` as device tensors. ``scale`` folds
     a multiplier (the inverse loss scale) into every element first."""
-    impl = resolve_impl(impl, x_flat)
+    impl = resolve_impl(impl, x_flat, op="l2norm")
     fn = l2norm_sq_kernel if impl == "kernel" else l2norm_sq_torch
     return fn(x_flat.reshape(-1), scale)
 
@@ -877,7 +877,7 @@ def lamb_stage1(g_flat, p_flat, m_flat, v_flat, *, beta1, beta2, beta3,
     """LAMB stage 1 over flat arenas: returns ``(u, m, v)``, ``m`` and ``v``
     updated in place and ``u`` a new fp32 arena (0 everywhere on
     ``found_inf``, where the moments are held)."""
-    impl = resolve_impl(impl, p_flat)
+    impl = resolve_impl(impl, p_flat, op="lamb_stage1")
     fn = lamb_stage1_kernel if impl == "kernel" else lamb_stage1_torch
     u = fn(g_flat, p_flat, m_flat, v_flat, beta1=beta1, beta2=beta2,
            beta3=beta3, bc1=bias_correction1, bc2=bias_correction2, eps=eps,
@@ -992,7 +992,7 @@ def apply_scaled_update(p_flat, u_flat, ratio, spec: ArenaSpec, *,
     in the same pass. The JAX function takes the expanded per-element
     coefficient arena; this one takes the per-tensor ``ratio`` and the spec
     (the plain version expands it with :func:`_segment_coef`)."""
-    impl = resolve_impl(impl, p_flat)
+    impl = resolve_impl(impl, p_flat, op="scaled_update")
     fn = scaled_update_kernel if impl == "kernel" else scaled_update_torch
     fn(p_flat, u_flat, ratio, spec, found_inf=found_inf, copy_out=model_copy)
     return p_flat if model_copy is None else (p_flat, model_copy)
@@ -1023,7 +1023,7 @@ def lamb_flat(gf, pf, mf, vf, spec: ArenaSpec, *, lr, beta1: float = 0.9,
     if _sharded_norms is not None:
         raise NotImplementedError(
             "lamb_flat's sharded norms belong to ZeRO, not ported yet")
-    impl = resolve_impl(impl, pf)
+    impl = resolve_impl(impl, pf, op="lamb")
     if model_copy is None and model_copy_dtype is not None:
         model_copy = torch.empty(pf.shape, dtype=model_copy_dtype,
                                  device=pf.device)
@@ -1219,7 +1219,7 @@ def sgd_flat(gf, pf, mf, *, lr, weight_decay: float = 0.0,
     length) receives the new params in its own dtype in the same pass;
     ``model_copy_dtype`` allocates one. Returns ``(params, momentums)`` or
     ``(params, momentums, model_copy)``."""
-    impl = resolve_impl(impl, pf)
+    impl = resolve_impl(impl, pf, op="sgd")
     if model_copy is None and model_copy_dtype is not None:
         model_copy = torch.empty(pf.shape, dtype=model_copy_dtype,
                                  device=pf.device)
@@ -1404,7 +1404,7 @@ def multi_tensor_novograd(grads, params, exp_avgs, grad_norms: torch.Tensor, *,
     gf, spec = flatten(grads)
     pf, _ = flatten(params)
     mf, _ = flatten(exp_avgs)
-    impl = resolve_impl(impl, pf)
+    impl = resolve_impl(impl, pf, op="novograd")
     step_f = _device_scalar(step, pf).reshape(())
     if bias_correction:
         bc1 = 1.0 - torch.pow(beta1, step_f)

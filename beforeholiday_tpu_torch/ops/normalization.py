@@ -19,19 +19,26 @@ K3 replaces ``_ln_bwd_kernel`` (``:69``, launched by ``_ln_bwd_pallas`` at
 ``:134``); its source states its bound and design. :func:`ln_bwd_geometry`
 sizes its persistent grid, the team of warps that owns a row and the stages
 of its ring from the card's SM count.
+
+The forward and backward are the ``torch.library`` custom ops
+``beforeholiday::layer_norm_fwd`` and ``layer_norm_bwd`` where autograd
+records the call or a dispatch mode is active (``_dispatch.call_op``): a
+selective remat policy can then save K1's output (``remat.TAG_NORM_OUT``)
+and skip it in the recompute.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from beforeholiday_tpu_torch import _build
 from beforeholiday_tpu_torch.ops._autocast import float_function
-from beforeholiday_tpu_torch.ops._dispatch import resolve_impl, sm_count
+from beforeholiday_tpu_torch.ops._dispatch import call_op, resolve_impl, sm_count
+from beforeholiday_tpu_torch.remat.policies import TAG_NORM_OUT, tag_op
 
 # the dtypes K1 and K3 take, by K3's C interface code
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -265,36 +272,75 @@ def ln_bwd_kernel(x2d, w, dy, eps: float, rms: bool, has_bias: bool = True):
 ln_bwd_kernel.launches = 0
 
 
-class _NormForward(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x2d, w, b, eps, rms, out_dtype, impl):
-        ctx.save_for_backward(x2d, w)
-        ctx.eps, ctx.rms, ctx.impl, ctx.has_bias = eps, rms, impl, b is not None
-        fn = ln_fwd_kernel if impl == "kernel" else ln_fwd_torch
-        return fn(x2d, w, b, eps, rms, out_dtype)
+def _ln_fwd(x2d: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+            eps: float, rms: bool, out_dtype: torch.dtype,
+            impl: str) -> torch.Tensor:
+    fn = ln_fwd_kernel if impl == "kernel" else ln_fwd_torch
+    return fn(x2d, w, b, eps, rms, out_dtype)
 
-    @staticmethod
-    def backward(ctx, dy):
-        x2d, w = ctx.saved_tensors
-        if ctx.impl == "kernel":
-            dx, dw, db = ln_bwd_kernel(x2d, w, dy.contiguous(), ctx.eps,
-                                       ctx.rms, ctx.has_bias)
-        else:
-            dx, dw, db = ln_bwd_torch(x2d, w, dy, ctx.eps, ctx.rms)
-            dw = dw.to(w.dtype)
-            db = db.to(w.dtype) if ctx.has_bias else None
-        return dx, dw, db, None, None, None, None
+
+_ln_fwd_op = torch.library.custom_op("beforeholiday::layer_norm_fwd",
+                                     mutates_args=())(_ln_fwd)
+
+
+@_ln_fwd_op.register_fake
+def _(x2d, w, b, eps, rms, out_dtype, impl):
+    return x2d.new_empty(x2d.shape, dtype=out_dtype)
+
+
+def _ln_bwd(x2d: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, eps: float,
+            rms: bool, has_bias: bool,
+            impl: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dx, dw, db)``; ``db`` is empty without a bias (an op returns
+    tensors only)."""
+    if impl == "kernel":
+        dx, dw, db = ln_bwd_kernel(x2d, w, dy.contiguous(), eps, rms, has_bias)
+    else:
+        dx, dw, db = ln_bwd_torch(x2d, w, dy, eps, rms)
+        dw = dw.to(w.dtype)
+        db = db.to(w.dtype) if has_bias else None
+    return dx, dw, db if has_bias else w.new_empty(0)
+
+
+_ln_bwd_op = torch.library.custom_op("beforeholiday::layer_norm_bwd",
+                                     mutates_args=())(_ln_bwd)
+
+
+@_ln_bwd_op.register_fake
+def _(x2d, w, dy, eps, rms, has_bias, impl):
+    return (torch.empty_like(x2d), torch.empty_like(w),
+            torch.empty_like(w) if has_bias else w.new_empty(0))
+
+
+def _ln_setup(ctx, inputs, output):
+    x2d, w, b, eps, rms, _, impl = inputs
+    ctx.save_for_backward(x2d, w)
+    ctx.eps, ctx.rms, ctx.impl, ctx.has_bias = eps, rms, impl, b is not None
+
+
+def _ln_backward(ctx, dy):
+    x2d, w = ctx.saved_tensors
+    dx, dw, db = call_op(_ln_bwd_op, _ln_bwd, x2d, w, dy, ctx.eps, ctx.rms,
+                         ctx.has_bias, ctx.impl)
+    return dx, dw, db if ctx.has_bias else None, None, None, None, None
+
+
+_ln_fwd_op.register_autograd(_ln_backward, setup_context=_ln_setup)
+# the norm output is the value a save_boundaries policy keeps (JAX tags it
+# at ops/normalization.py:294)
+tag_op(torch.ops.beforeholiday.layer_norm_fwd, TAG_NORM_OUT)
 
 
 def _norm_impl(x, weight, bias, eps, rms, out_dtype, impl):
-    impl = resolve_impl(impl, x)
+    impl = resolve_impl(impl, x, op="layer_norm")
     hidden = x.shape[-1]
     if weight.shape != (hidden,):
         raise ValueError(f"weight shape {tuple(weight.shape)} != ({hidden},)")
     if bias is not None and bias.shape != (hidden,):
         raise ValueError(f"bias shape {tuple(bias.shape)} != ({hidden},)")
     x2d = x.reshape(-1, hidden)
-    y = _NormForward.apply(x2d, weight, bias, float(eps), rms, out_dtype, impl)
+    y = call_op(_ln_fwd_op, _ln_fwd, x2d, weight, bias, float(eps), rms,
+                out_dtype, impl)
     return y.reshape(x.shape)
 
 

@@ -329,7 +329,7 @@ def quantized_matmul(x: torch.Tensor, w: torch.Tensor, *,
     if w.ndim != 2 or x.ndim < 1 or x.shape[-1] != w.shape[0]:
         raise ValueError(f"quantized_matmul expects x (..., K) and w (K, N); "
                          f"got {tuple(x.shape)} @ {tuple(w.shape)}")
-    impl = resolve_impl(impl, x)
+    impl = resolve_impl(impl, x, op="quantized_matmul")
     scales = active_scales()
     if scales is None:
         sw = sg = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -309,7 +309,7 @@ def _as4d(x):
 def scaled_softmax(x: torch.Tensor, scale: float = 1.0, *,
                    impl: Optional[str] = None) -> torch.Tensor:
     """softmax(scale*x) over the last dim (ref: scaled_softmax_cuda)."""
-    impl = resolve_impl(impl, x)
+    impl = resolve_impl(impl, x, op="scaled_softmax")
     y = _ScaledSoftmax.apply(_as4d(x.contiguous()), float(scale), False, impl)
     return y.reshape(x.shape)
 
@@ -322,7 +322,7 @@ def scaled_masked_softmax(x: torch.Tensor, mask: torch.Tensor,
     x: (b, np, sq, sk); mask: (b, 1, sq, sk) or broadcastable, nonzero =
     masked out (filled with -10000 after the scale). The kernels read the
     mask through its strides: it is never expanded per head in memory."""
-    impl = resolve_impl(impl, x)
+    impl = resolve_impl(impl, x, op="scaled_masked_softmax")
     x4 = _as4d(x.contiguous())
     mask4 = _as4d(mask.expand(x.shape))
     y = _ScaledMaskedSoftmax.apply(x4, mask4, float(scale), impl)
@@ -348,7 +348,7 @@ def scaled_upper_triang_masked_softmax(x: torch.Tensor, scale: float = 1.0, *,
 
     x: (attn_batches, sq, sk) with sq == sk (self-attention scores). The
     causal fill comes from the row index inside K11: no mask tensor."""
-    impl = resolve_impl(impl, x)
+    impl = resolve_impl(impl, x, op="scaled_upper_triang_masked_softmax")
     if x.ndim != 3:
         raise ValueError(f"causal softmax takes (attn_batches, sq, sk), got "
                          f"{tuple(x.shape)}")

@@ -26,7 +26,8 @@ draws from ``fold_in(key, 0x7FFFFFFF)``, layer i from ``split(key,
 n_layers)[i]``, and within a layer the attention probabilities from
 ``fold_in(layer_key, 0)`` (inside K2/K4, or on the unfused path's bf16
 probabilities through K13's mask), the attention output from site 1 and
-the MLP output from site 2. Not ported: remat. :func:`init` draws
+the MLP output from site 2. ``remat_policy`` wraps each encoder block as
+the GPT's does (``testing/gpt.py``). :func:`init` draws
 from the reference's distributions (different numbers);
 ``params_from_numpy`` takes the reference's own parameters.
 
@@ -54,6 +55,7 @@ trust ratios and clip norm need their squares summed over the group.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -67,6 +69,11 @@ from beforeholiday_tpu_torch.ops import (
 )
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device
 from beforeholiday_tpu_torch.parallel import parallel_state
+from beforeholiday_tpu_torch.remat.policies import (
+    TAG_BLOCK,
+    apply as remat_apply,
+    checkpoint_name,
+)
 from beforeholiday_tpu_torch.transformer.tensor_parallel import mappings as mp
 from beforeholiday_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
@@ -97,10 +104,6 @@ from beforeholiday_tpu_torch.testing._tensor_parallel import (
     unshard_tree,
 )
 
-# fields whose non-default values select paths this slice does not port
-_UNPORTED_FIELDS = ("remat_policy",)
-
-
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
     vocab_size: int = 512
@@ -127,13 +130,6 @@ class BertConfig:
     remat_policy: Optional[str] = None
 
     def __post_init__(self):
-        defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for name in _UNPORTED_FIELDS:
-            if getattr(self, name) != defaults[name]:
-                raise NotImplementedError(
-                    f"BertConfig.{name}={getattr(self, name)!r} selects a path "
-                    f"that is not ported yet (default {defaults[name]!r})"
-                )
         if self.d_model % self.n_heads:
             raise ValueError(
                 f"d_model {self.d_model} not divisible by n_heads {self.n_heads}"
@@ -303,8 +299,10 @@ def _block(cfg: BertConfig, x, lens, lp, keys=None):
                            lp["bi"].to(x.dtype)), approximate="tanh")
     mlp_out = _row_output(fused_dense(h, lp["wo2"].to(x.dtype),
                                       _row_bias(lp["bo2"]).to(x.dtype)), cfg)
-    return _layernorm(x + drop(mlp_out, 2), lp["ln2_scale"], lp["ln2_bias"],
-                      cfg).to(x.dtype)
+    x = _layernorm(x + drop(mlp_out, 2), lp["ln2_scale"], lp["ln2_bias"],
+                   cfg).to(x.dtype)
+    # remat boundary tag: one (B, S, D) residual per layer (see testing/gpt.py)
+    return checkpoint_name(x, TAG_BLOCK)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: BertConfig,
@@ -337,8 +335,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg: BertConfig,
     emb_key, keys = dropout_keys(dropout_key, cfg.n_layers)
     if emb_key is not None and cfg.dropout_rate > 0.0:
         x = _hidden_dropout(cfg, emb_key, x, cfg.dropout_rate)
+    # cfg.remat_policy wraps each encoder block (lens an explicit input, as
+    # in JAX)
+    blk = remat_apply(functools.partial(_block, cfg), cfg.remat_policy)
     for i in range(cfg.n_layers):
-        x = _block(cfg, x, lens, layer_params(params, i), keys[i])
+        x = blk(x, lens, layer_params(params, i), keys[i])
     if _seq_first(cfg):
         # the heads read the whole sequence; the MLM transform's output
         # enters the vocab-parallel decoder through the f region below, so

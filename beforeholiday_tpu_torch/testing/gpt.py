@@ -20,9 +20,15 @@ or through :func:`~beforeholiday_tpu_torch.transformer.tensor_parallel.random.dr
 on the unfused path's bf16 probabilities), the attention output from site
 1 and the MLP output from site 2. The hidden sites and the unfused
 probabilities draw their masks from K13. The keys are the port's own, so
-the two packages draw different masks from one seed. The MoE and remat
-fields of :class:`GPTConfig` are accepted for parity but must stay at their
-defaults: those paths belong to later slices.
+the two packages draw different masks from one seed. The MoE fields of
+:class:`GPTConfig` are accepted for parity but must stay at their defaults:
+that path belongs to a later slice.
+
+``remat_policy`` names a ``remat`` policy that wraps each block, as JAX
+wraps its scanned block: ``"full"`` recomputes the block in the backward
+from its input, the selective policies save what they name. The block's
+output carries ``remat.TAG_BLOCK``. Dropout inside a block replays its
+masks in the recompute, since the layer's keys are the block's inputs.
 
 Tensor parallelism (Megatron's layout, the JAX model's :func:`param_specs`):
 once ``parallel_state.initialize_model_parallel`` has run, the model runs on
@@ -63,6 +69,7 @@ both packages can compute, and continue, the same training run.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -75,6 +82,11 @@ from beforeholiday_tpu_torch.ops import (
     scaled_upper_triang_masked_softmax,
 )
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device
+from beforeholiday_tpu_torch.remat.policies import (
+    TAG_BLOCK,
+    apply as remat_apply,
+    checkpoint_name,
+)
 from beforeholiday_tpu_torch.transformer.tensor_parallel import mappings as mp
 from beforeholiday_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
@@ -108,7 +120,7 @@ from beforeholiday_tpu_torch.testing._model_utils import (  # noqa: F401
 
 # fields whose non-default values select paths this slice does not port
 _UNPORTED_FIELDS = (
-    "remat_policy", "moe_every", "moe_experts",
+    "moe_every", "moe_experts",
     "moe_top_k", "moe_capacity_factor", "moe_aux_weight", "moe_z_weight",
     "moe_expert_axis", "moe_tensor_axis", "moe_hierarchical",
 )
@@ -307,7 +319,10 @@ def _block(cfg: GPTConfig, x, lp, keys=None):
                approximate="tanh")
     mlp_out = fused_dense(h, lp["wo2"].to(x.dtype), _row_bias(lp["bo2"]).to(x.dtype))
     mlp_out = _row_output(mlp_out, cfg)
-    return x + _drop(cfg, keys, mlp_out, 2, cfg.dropout_rate)
+    x = x + _drop(cfg, keys, mlp_out, 2, cfg.dropout_rate)
+    # remat boundary tag: the residual stream between blocks is the cheapest
+    # possible save point — one (B, S, D) tensor per layer
+    return checkpoint_name(x, TAG_BLOCK)
 
 
 _MOE_AUX_KEYS = ("moe_aux_loss", "moe_z_loss", "moe_drop_fraction")
@@ -336,11 +351,13 @@ def embed(params: dict, tokens: torch.Tensor, cfg: GPTConfig,
 def blocks(params: dict, x: torch.Tensor, cfg: GPTConfig, keys=None) -> torch.Tensor:
     """The transformer blocks of ``params["blocks"]`` (stacked leaves or
     tuples of per-layer leaves; a pipeline stage's layers) on the residual
-    stream; ``keys``: per-layer site keys (None = eval)."""
+    stream, each under ``cfg.remat_policy``; ``keys``: per-layer site keys
+    (None = eval)."""
     n = len(next(iter(params["blocks"].values())))
     keys = [None] * n if keys is None else keys
+    blk = remat_apply(functools.partial(_block, cfg), cfg.remat_policy)
     for i in range(n):
-        x = _block(cfg, x, layer_params(params, i), keys[i])
+        x = blk(x, layer_params(params, i), keys[i])
     return x
 
 

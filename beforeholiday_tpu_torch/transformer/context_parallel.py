@@ -122,7 +122,8 @@ def ring_attention(
         raise ValueError(f"expected (B, H, S_local, D), got {tuple(q.shape)}")
     B, H, Sl, D = q.shape
     scale = float(scale) if scale is not None else 1.0 / (D ** 0.5)
-    if resolve_impl(impl, q) == "kernel" and is_flash_available(Sl, D):
+    if (resolve_impl(impl, q, op="ring_attention") == "kernel"
+            and is_flash_available(Sl, D)):
         return _ring_attention_flash(q, k, v, causal=causal, scale=scale,
                                      axis_name=axis_name, impl="kernel")
     cp, rank, perm = _ring(axis_name)

@@ -36,8 +36,10 @@ Eager PyTorch cannot trace the embedding for the rings' shape as
 ``jax.eval_shape`` does, so with an ``embed_fn`` the caller passes
 ``tensor_shape`` and ``dtype`` (the reference's names). Parameter trees are
 dicts, tuples and lists of tensors; the gradients come back in the params'
-dtypes, accumulated in them as JAX accumulates. Remat policies are not
-ported yet and raise.
+dtypes, accumulated in them as JAX accumulates. ``remat_policy`` wraps the
+stage function with ``remat.apply`` in every engine, as JAX does: the
+backward slot's recompute then runs under the policy, and ``"full"``
+recomputes the stage's internals once more inside the slot's backward.
 
 ``overlap_p2p=True`` runs the double-buffered engine: the rings carry the
 PREVIOUS tick's outputs, posted before the tick computes and waited on
@@ -64,6 +66,7 @@ from beforeholiday_tpu_torch.monitor import comms
 from beforeholiday_tpu_torch.monitor.spans import span
 from beforeholiday_tpu_torch.ops.arena import tree_flatten, tree_map, tree_unflatten
 from beforeholiday_tpu_torch.parallel.parallel_state import PIPE_AXIS, get_group
+from beforeholiday_tpu_torch.remat.policies import apply as remat_apply
 from beforeholiday_tpu_torch.transformer.pipeline_parallel import p2p_communication
 
 __all__ = [
@@ -80,12 +83,6 @@ __all__ = [
     "phase_counts",
     "schedule_report",
 ]
-
-def _check_remat(remat_policy):
-    if remat_policy is not None:
-        raise NotImplementedError(
-            f"remat_policy={remat_policy!r}: remat policies in the schedules "
-            "are not ported yet (ROADMAP A13)")
 
 
 def get_forward_backward_func(
@@ -134,7 +131,7 @@ def forward_backward_no_pipelining(
     """Gradient accumulation without stage parallelism (ref:
     schedules/fwd_bwd_no_pipelining.py). ``inputs``/``targets`` lead with the
     microbatch dim (M, ...). Returns (mean loss, param grads)."""
-    _check_remat(remat_policy)
+    stage_fn = remat_apply(stage_fn, remat_policy)
     M = inputs.shape[0]
     grads = tree_map(torch.zeros_like, params)
     loss_acc = torch.zeros((), dtype=torch.float32, device=inputs.device)
@@ -604,7 +601,7 @@ def forward_backward_pipelining_without_interleaving(
     loss, grads)``: this stage's grad tree without embed/head, else
     ``PipelineGrads(stage, embed, head)``. The loss is whole on every
     stage."""
-    _check_remat(remat_policy)
+    stage_fn = remat_apply(stage_fn, remat_policy)
     engine = _pipelined_fwd_bwd_overlap if overlap_p2p else _pipelined_fwd_bwd
     loss, g_stage, g_embed, g_head = engine(
         stage_fn, loss_fn, [params], inputs, targets, V=1, axis_name=axis_name,
@@ -651,7 +648,7 @@ def forward_backward_pipelining_encoder_decoder(
     and dtype: ``tensor_shape`` and ``dtype`` when an ``enc_embed_fn`` is
     given (eager PyTorch cannot trace it). The slots are the 1F1B engine's
     at V = 1. Returns ``(mean loss, EncDecPipelineGrads)``."""
-    _check_remat(remat_policy)
+    stage_fn = remat_apply(stage_fn, remat_policy)
     if split_rank is None:
         from beforeholiday_tpu_torch.parallel import parallel_state
 
@@ -783,7 +780,7 @@ def forward_backward_pipelining_with_interleaving(
     rank s is logical stage ``v*S + s``. The number of microbatches must be
     a multiple of the pipe size. Returns ``(loss, grads)`` with grads
     leading with V (or ``PipelineGrads``)."""
-    _check_remat(remat_policy)
+    stage_fn = remat_apply(stage_fn, remat_policy)
     V = virtual_pipeline_model_parallel_size
     bad = [tuple(leaf.shape) for leaf in tree_flatten(chunk_params)[0]
            if leaf.shape[0] != V]

@@ -5,7 +5,7 @@ apex/transformer/tensor_parallel/memory.py:25-146).
 One preallocated flat tensor handing out views, as the reference's, to keep
 activation-sized temporaries off the allocator. The JAX module re-exports
 ``remat.donation``'s donation helpers at this path; PyTorch updates in place,
-so they have no counterpart here (ROADMAP A13).
+so they have no counterpart here (nor in the port's ``remat``).
 """
 
 from __future__ import annotations

@@ -29,20 +29,11 @@ must draw its one-device masks instead passes :func:`dropout` a ``place``
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Callable, Optional
 
 import torch
-import torch.utils.checkpoint
 
-from beforeholiday_tpu_torch.ops._autocast import (
-    autocast,
-    autocast_dtype,
-    quantized_compute,
-    quantized_enabled,
-)
-from beforeholiday_tpu_torch.ops.quantized import active_scales, quantized_scope
 from beforeholiday_tpu_torch.ops._dispatch import resolve_device, resolve_impl
 from beforeholiday_tpu_torch.ops.attention import (
     RankPlace,
@@ -50,6 +41,7 @@ from beforeholiday_tpu_torch.ops.attention import (
     dropout_keep_mask,
     philox4x32,
 )
+from beforeholiday_tpu_torch.remat.policies import apply as remat_apply
 
 TENSOR_AXIS = "tensor"
 DATA_AXIS = "data"
@@ -161,7 +153,8 @@ def dropout(
         key = model_parallel_seed(key, axis_name)
     shape = (1, 1, 1, *x.shape)[-3:] if x.ndim < 3 else (
         math.prod(x.shape[:-2]), *x.shape[-2:])
-    keep = dropout_keep_mask(key, shape, rate, impl=resolve_impl(impl, x),
+    keep = dropout_keep_mask(key, shape, rate,
+                             impl=resolve_impl(impl, x, op="dropout"),
                              place=place).reshape(x.shape)
     keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype).item()
     return torch.where(keep, x / keep_prob, 0.0)
@@ -170,48 +163,25 @@ def dropout(
 def checkpoint(
     fn: Callable,
     *,
-    policy: Optional[Callable] = None,
+    policy=None,
     prevent_cse: bool = True,
     distribute_saved_activations: bool = False,
 ) -> Callable:
     """Activation recompute: ``fn`` wrapped so that its internals are
-    recomputed in the backward (``torch.utils.checkpoint``, non-reentrant).
-    Dropout inside replays the same masks, since its keys are inputs. The
-    recompute runs inside the scopes of the forward: the autocast dtype
-    (O1/O4), O6's quantized routing and the delayed fp8 scales in scope.
-    Each is thread-local and the backward runs outside them, often on
-    autograd's own thread, so the forward's are captured and re-entered
-    there; a recompute in another dtype, or quantized otherwise, would not
-    match what the forward saved. ``prevent_cse`` and
-    ``distribute_saved_activations`` are accepted for parity and mean
-    nothing on one device; a remat ``policy`` is not ported yet."""
+    recomputed in the backward, through ``remat.apply``
+    (``torch.utils.checkpoint``, non-reentrant). ``policy`` names a remat
+    policy (or is a ``remat.Policy``); None saves nothing, as
+    ``jax.checkpoint(policy=None)`` does. Dropout inside replays the same
+    masks, since its keys are inputs. The recompute runs inside the scopes
+    of the forward: the autocast dtype (O1/O4), O6's quantized routing and
+    the delayed fp8 scales in scope. Each is thread-local and the backward
+    runs outside them, often on autograd's own thread, so ``remat.apply``
+    captures the forward's and re-enters them there; a recompute in another
+    dtype, or quantized otherwise, would not match what the forward saved.
+    ``prevent_cse`` and ``distribute_saved_activations`` are accepted for
+    parity and mean nothing on one device."""
     del prevent_cse, distribute_saved_activations
-    if policy is not None:
-        raise NotImplementedError(
-            "checkpoint policies (beforeholiday_tpu.remat) are not ported yet")
-
-    def wrapped(*args, **kw):
-        dtype, quantized, scales = (autocast_dtype(), quantized_enabled(),
-                                    active_scales())
-
-        @contextlib.contextmanager
-        def again():
-            with contextlib.ExitStack() as stack:
-                if dtype is not None:
-                    stack.enter_context(autocast(dtype))
-                if quantized:
-                    stack.enter_context(quantized_compute())
-                if scales is not None:
-                    stack.enter_context(quantized_scope(*scales))
-                yield
-
-        def contexts():
-            return contextlib.nullcontext(), again()
-
-        return torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, context_fn=contexts, **kw)
-
-    return wrapped
+    return remat_apply(fn, "full" if policy is None else policy)
 
 
 def checkpoint_apply(fn: Callable, *args, **kw):

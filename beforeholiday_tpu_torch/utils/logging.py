@@ -6,15 +6,18 @@ group), and the (data, tensor, pipe, context) sizes of the parallel layout
 when ``parallel.parallel_state`` holds one, as the reference's
 ``RankInfoFormatter`` prefixes its rank tuple (apex/__init__.py:27-39).
 Verbosity comes from ``BEFOREHOLIDAY_TPU_LOG_LEVEL`` (default WARNING).
-The reference's ``warn_once`` has no caller in the port and is not copied.
+:func:`warn_once` rate-limits warnings by key (the metrics logger's
+overflow-streak warning).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
+from typing import Hashable, Optional
 
-__all__ = ["get_logger"]
+__all__ = ["get_logger", "reset_warn_once", "warn_once"]
 
 _LOG_ENV = "BEFOREHOLIDAY_TPU_LOG_LEVEL"
 
@@ -74,3 +77,31 @@ def get_logger(name: str = "beforeholiday_tpu_torch") -> logging.Logger:
         logger.setLevel(level)
         logger.propagate = False
     return logger
+
+
+# keyed rate limiting for warnings that fire from per-step code paths: the
+# first emission per key goes through, repeats are swallowed (process-global)
+_WARNED: set = set()
+_WARNED_LOCK = threading.Lock()
+
+
+def warn_once(key: Hashable, msg: str, *args,
+              logger: Optional[logging.Logger] = None,
+              level: int = logging.WARNING) -> bool:
+    """Log ``msg % args`` at ``level`` the first time ``key`` is seen;
+    swallow repeats. Returns True iff the record was emitted."""
+    with _WARNED_LOCK:
+        if key in _WARNED:
+            return False
+        _WARNED.add(key)
+    (logger if logger is not None else get_logger()).log(level, msg, *args)
+    return True
+
+
+def reset_warn_once(key: Optional[Hashable] = None) -> None:
+    """Forget one key (or all, when ``key`` is None) so it may warn again."""
+    with _WARNED_LOCK:
+        if key is None:
+            _WARNED.clear()
+        else:
+            _WARNED.discard(key)

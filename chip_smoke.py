@@ -53,7 +53,7 @@ Phases, each printing one line (any failure exits non-zero):
 9. GPT skip step: an overflowing step leaves the state bitwise unchanged and
    halves the dynamic loss scale;
 10. GPT training: the flagship (``bench.py`` ``make_gpt_rung``) at batch 16
-    on one fixed batch, 2 warm-up and 10 timed steps with the launch counts
+    on one fixed batch, 2 warm-up and TIMED_STEPS timed steps with the launch counts
     reset just before and read just after, under
     ``set_sync_debug_mode("warn")``; then several steps under
     ``torch.profiler``;
@@ -98,8 +98,8 @@ Phases, each printing one line (any failure exits non-zero):
 15. ResNet-50 (``bench.py`` ``make_resnet_rung``, the ``examples/imagenet``
     trainer with FusedSGD): one full-width O5 step at batch 2 on K5/K10
     against the plain path, an inf-weighted step that must change nothing,
-    and the O5 and O0 trainers at batch 128 on one fixed batch (10 timed
-    steps with the launch counts held, then 3 profiled ones), MFU from the
+    and the O5 and O0 trainers at batch 128 on one fixed batch (TIMED_STEPS
+    timed steps with the launch counts held, then PROFILE_STEPS profiled ones), MFU from the
     convolutions' and ``fc``'s shapes;
 16. slice 8, the last three TPU kernels: K16 (axpby with its non-finite
     flag), K17 (Adagrad) and K18 (NovoGrad, the per-tensor denominators
@@ -206,7 +206,25 @@ Phases, each printing one line (any failure exits non-zero):
     rank at B 1, H 16, S 16384, D 64 bf16 through the port's hops and merge,
     K2 and K4 with dlse, against one whole-sequence launch; at S 2048 in fp32
     against the plain versions' ring) with the hops' timed rows;
-23. the total seconds, each phase's wall seconds (``phase_seconds``), the
+23. slice 18, remat policies and the training monitor: at world 1 over
+    NCCL, ``remat_1f1b_world1_parity`` (the 1F1B engine with its stage under
+    "full" against the plain engine, batch 16 in TP_MICRO microbatches) and
+    its timed run (each microbatch's blocks recomputed); on the flagship O5
+    GPT step, ``remat_parity`` (each policy's step at batch 2 against the
+    "none" step, bitwise or within that step's own rerun spread) and
+    ``remat_dropout_parity`` (the dropout step under "full": K13 redraws its
+    masks in the recompute); each policy's monitored timed run (``remat:``
+    lines: ``track_costs`` and ``track_memory`` on the step, a
+    ``TrainMonitor`` updated every step, global norm on K9, a
+    ``MetricsLogger`` copying every LOG_EVERY-th step; ms, peak GB, the
+    allocator's temp_bytes, K2/K4 launches, no port sync but the logger's
+    copies, "full"'s peak below "none"'s) and the roofline ledger's MFU
+    beside 6 N's (``roofline:``); BERT-Large 8 layers with FusedLAMB under
+    "save_boundaries" (parity, timed run); ``imagenet_monitor`` (the
+    ImageNet trainer's CLI on ResNet-50 with ``--profile-dir`` and
+    ``--flight-recorder``: the trace parses and holds CUDA kernels, the
+    flight dump holds every printed step);
+24. the total seconds, each phase's wall seconds (``phase_seconds``), the
     ``kernels`` JSON line (with ``launch_floor_ms``), the card line, and the
     final ``ok`` line.
 
@@ -277,7 +295,10 @@ N_REQUESTS = 32
 TRAIN_BATCH = 16
 PARITY_BATCH = 2
 LR = 1e-4
-WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 2, 10, 3
+# ROADMAP A29, the run's time budget: 6 timed and 2 profiled steps a run and
+# 10 timed calls a kernel time (5 and 3 for the slow plain versions); they
+# were 10, 3 and 20 until the run passed 850 s of its 1200
+WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 2, 6, 2
 # BERT-Large + FusedLAMB (bench.py make_bert_rung, bert_large_8layer_b128:
 # bert_large(seq_len=128, n_layers=8, dtype=bf16), FusedLAMB(lr=1e-3,
 # weight_decay=0.01), batch 128, no dropout)
@@ -374,6 +395,22 @@ STEP_LAUNCHES = {
                        "flash_bwd": 8 * 4, "unscale": 2, "adam": 2},
 }
 STEP_LAUNCHES["gpt_tp_pp_1f1b"] = STEP_LAUNCHES["gpt_tp_pp_none"]
+# slice 18, remat: the recompute repeats the blocks' 16 LayerNorms and 8
+# attentions forward under "full" and "dots_saveable" (their outputs are not
+# dot products); "save_boundaries" saves both (the norm output, the context
+# and its lse), so nothing repeats. The monitored runs add global_norm's K9
+# over the two gradient arenas. The 1F1B engine under "full" recomputes its
+# stage (the blocks) once more in each microbatch's backward slot
+_RECOMPUTE = {"layer_norm_fwd": 16, "flash_fwd": 8}
+REMAT_POLICIES = ("none", "full", "dots_saveable", "save_boundaries")
+for _p in REMAT_POLICIES:
+    _r = _RECOMPUTE if _p in ("full", "dots_saveable") else {}
+    STEP_LAUNCHES[f"gpt_remat_{_p}"] = {
+        **STEP_LAUNCHES["gpt"], "l2norm": 2,
+        **{k: STEP_LAUNCHES["gpt"][k] + v for k, v in _r.items()}}
+STEP_LAUNCHES["gpt_tp_pp_1f1b_remat_full"] = {
+    **STEP_LAUNCHES["gpt_tp_pp_1f1b"],
+    **{k: STEP_LAUNCHES["gpt_tp_pp_1f1b"][k] + 4 * v for k, v in _RECOMPUTE.items()}}
 # the levels whose params live in arenas (MasterWeights over PackedParams)
 ARENA_LEVELS = ("O2", "O5", "O6")
 # the GPT's activation dtype by level: fp16 storage at O2; at O1/O4 the
@@ -457,7 +494,7 @@ def gen(seed):
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
-def time_ms(fn, iters=20):
+def time_ms(fn, iters=10):
     """Median CUDA-event time of one call, with L2 flushed before each. The
     device sleeps before the start event while the host enqueues the call,
     so the time is the device's, not the host's launch latency."""
@@ -5105,7 +5142,7 @@ TP_REPLICATED_BLOCKS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias", "bo", 
 
 
 def tp_pp_trainer(amp, gpt, fused_adam, shard, cfg, M, schedule, impl=None,
-                  dropout=False):
+                  dropout=False, remat=None):
     """The flagship's amp O5 step over this rank's (tensor, pipe) shard, as
     a Megatron user script builds it from the port's public functions:
     ``amp.initialize(..., "O5", arena_native=True)`` on the shard, FusedAdam
@@ -5150,7 +5187,7 @@ def tp_pp_trainer(amp, gpt, fused_adam, shard, cfg, M, schedule, impl=None,
                    if dropout else None)
             loss, g = pp.forward_backward_no_pipelining(
                 lambda p, t: gpt.forward(p, t, cfg, dropout_key=key), loss_fn,
-                {**blocks, **rest}, toks, tgts)
+                {**blocks, **rest}, toks, tgts, remat_policy=remat)
         else:
             tp = parallel_state.get_tensor_model_parallel_world_size()
             shape = ((S // tp, B // M, cfg.d_model) if cfg.sequence_parallel
@@ -5161,7 +5198,7 @@ def tp_pp_trainer(amp, gpt, fused_adam, shard, cfg, M, schedule, impl=None,
                 embed_params={k: rest[k] for k in ("tok_embed", "pos_embed")},
                 head_fn=lambda hp, h: gpt.head(hp, h, cfg),
                 head_params={k: rest[k] for k in ("tok_embed", "lnf_scale", "lnf_bias")},
-                tensor_shape=shape, dtype=cfg.dtype)
+                tensor_shape=shape, dtype=cfg.dtype, remat_policy=remat)
             g = {**pg.stage, "pos_embed": pg.embed["pos_embed"],
                  "tok_embed": pg.embed["tok_embed"] + pg.head["tok_embed"],
                  "lnf_scale": pg.head["lnf_scale"], "lnf_bias": pg.head["lnf_bias"]}
@@ -6152,6 +6189,282 @@ def lamb_tensor_sharded_check(bert, cfg, params):
                              f"unmasked step's (bound {LAMB_SHARDED_ULPS})")
 
 
+# ---------------------------------------------- slice 18: remat, the monitor
+
+LOG_EVERY = 5  # the MetricsLogger's cadence on the monitored runs
+IMAGENET_MONITOR = dict(batch=64, iters=3)  # the trainer's profiled run
+
+
+def remat_cfg(cfg, policy):
+    return dataclasses.replace(cfg, remat_policy=None if policy == "none" else policy)
+
+
+def result_diff(got, ref):
+    """The largest difference between two step_result dicts: loss, every
+    gradient arena and every master."""
+    return max([abs(got["loss"] - ref["loss"])]
+               + [max_err(a, b) for a, b in zip(got["grads"], ref["grads"])]
+               + [max_err(a, b) for a, b in zip(got["masters"], ref["masters"])])
+
+
+def remat_parity_phase(label, make, batch, policies):
+    """One step at batch 2 under each policy against the ``"none"`` step from
+    the same weights, on the kernels. A recompute runs the same kernels on
+    the same inputs, so the loss, the gradient arenas and the masters must
+    be bitwise the "none" step's. The bound is the run-to-run spread of the
+    "none" step itself, measured here by running it twice (0 where every
+    kernel of the step is deterministic)."""
+    def run(policy):
+        m, state, step = make(policy)
+        res = step_result(m, state, step(*batch))
+        del m, state, step
+        torch.cuda.empty_cache()
+        return res
+
+    ref = run("none")
+    floor = result_diff(run("none"), ref)
+    diffs = {p: result_diff(run(p), ref) for p in policies}
+    bad = {p: d for p, d in diffs.items() if d > floor}
+    if bad:
+        raise AssertionError(f"{label}: policies differ from the none step by "
+                             f"{bad}, beyond its run-to-run spread {floor}")
+    line(label, batch=batch[0].shape[0], none_rerun_max_abs_diff=floor,
+         max_abs_diff=json.dumps(diffs),
+         bitwise=all(d == 0.0 for d in diffs.values()) and floor == 0.0)
+
+
+def monitored_run(label, monitor, step, state, batch, counters, expect, entry):
+    """WARMUP_STEPS + TIMED_STEPS steps of ``step`` under the monitor, as a
+    user script runs it: ``track_costs`` and ``track_memory`` on the step,
+    a ``TrainMonitor`` updated after every step on the device (loss, the
+    gradient arenas' global norm on K9, the loss scale), its packed vector
+    handed to a ``MetricsLogger`` that copies it to the host every
+    LOG_EVERY-th step. The timed steps run under ``watch_syncs``: the
+    port's code may synchronize only in the logger's one copy a logged
+    step. Returns the run's numbers."""
+    mon = monitor.TrainMonitor()
+    fetched = []
+
+    class Logger(monitor.MetricsLogger):
+        def _fetch(self, packed):
+            fetched.append(1)
+            return super()._fetch(packed)
+
+    logger = Logger(mon, every=LOG_EVERY, warn_overflow_streak=0)
+    tracked = monitor.track_costs(entry)(monitor.track_memory(entry)(step))
+    metrics = [mon.init()]
+    rows = []
+
+    def monitored(i):
+        loss, g, _ = tracked(*batch)
+        metrics[0] = mon.update(metrics[0], loss=loss, grads=g,
+                                scaler_state=state["scaler"])
+        row = logger.log(mon.pack(metrics[0]), step=i)
+        if row is not None:
+            rows.append(row)
+        return loss
+
+    start = monitored(1)
+    for i in range(2, WARMUP_STEPS + 1):
+        monitored(i)
+    torch.cuda.synchronize()
+    start = start.item()
+    for fn in counters.values():
+        fn.launches = 0
+    del fetched[:]
+    events, losses = [], []
+    timed = range(WARMUP_STEPS + 1, WARMUP_STEPS + TIMED_STEPS + 1)
+    with watch_syncs() as (syncs, port_syncs):
+        for i in timed:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            losses.append(monitored(i))
+            b.record()
+            events.append((a, b))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()  # the last tracked step's peak
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k, per_step in expect.items():
+        if launches[k] != per_step * TIMED_STEPS:
+            raise AssertionError(f"{label} {k}: {launches[k]} launches in "
+                                 f"{TIMED_STEPS} steps, expected {per_step} a step")
+    logged = [i for i in timed if i % LOG_EVERY == 0]
+    # every sync of the port's code is the logger's copy (export.py's _fetch)
+    outside = [s for s in port_syncs if "export.py:" not in s.split("<-")[-1]]
+    if outside or len(fetched) != len(logged):
+        raise AssertionError(f"{label}: the port synchronized outside the logger's "
+                             f"copies ({outside}), or made {len(fetched)} copies in "
+                             f"{len(logged)} logged steps")
+    last = losses[-1].item()
+    if not (np.isfinite(start) and np.isfinite(last) and last < start):
+        raise AssertionError(f"{label}: loss {start} -> {last}")
+    row = rows[-1]
+    at = losses[logged[-1] - timed[0]].item()
+    if row["steps"] != logged[-1] or row["loss"] != at or not (
+            row["grad_norm"] > 0 and np.isfinite(row["grad_norm"])):
+        raise AssertionError(f"{label}: the drained row {row} disagrees with the "
+                             f"run (step {logged[-1]}, loss {at})")
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    monitor.record_wall_time(entry, sum(step_ms) / 1e3, steps=TIMED_STEPS)
+    mem = monitor.memory_records()[entry]["signatures"][0]
+    return dict(median_step_ms=float(np.median(step_ms)), peak_gb=peak / 1e9,
+                temp_bytes=mem["temp_bytes"], memory_method=mem["method"],
+                launches_per_step={k: v // TIMED_STEPS for k, v in launches.items()
+                                   if v}, host_syncs=sum(syncs.values()),
+                port_syncs=len(port_syncs), logged_steps=len(logged),
+                copies=len(fetched), start_loss=start, last_loss=last,
+                drained_row={k: row[k] for k in ("step", "steps", "loss", "loss_ema",
+                                                 "grad_norm", "loss_scale")})
+
+
+def remat_monitor_phase(amp, gpt, bert, fused_adam, fused_lamb, cfg, bcfg,
+                        counters, card):
+    """Slice 18 on the flagship O5 GPT step (bench.py make_gpt_rung, batch
+    16, full width): each remat policy's step held to the "none" step at
+    batch 2 (bitwise, or within the none step's own run-to-run spread), the
+    dropout step under "full" too (K13 redraws its masks in the
+    recompute); then each policy's monitored, timed run (``remat:`` lines:
+    ms, peak GB, the memory ledger's temp_bytes, K2/K4 launches, host
+    syncs, copies) and the roofline ledger's MFU for each (``roofline:``).
+    BERT-Large 8 layers with FusedLAMB under "save_boundaries": parity and
+    a timed run (K7, K8, K9)."""
+    from beforeholiday_tpu_torch import monitor
+
+    params = gpt.init(cfg, gen(0), device="cuda")
+    make = lambda policy, c=cfg: make_gpt_trainer(  # noqa: E731
+        amp, gpt, fused_adam, params, remat_cfg(c, policy))
+    remat_parity_phase("remat_parity", make, gpt.synthetic_batch(
+        cfg, PARITY_BATCH, generator=gen(60), device="cuda"), REMAT_POLICIES[1:])
+    dcfg = dataclasses.replace(cfg, **DROPOUT)
+    remat_parity_phase("remat_dropout_parity", lambda p: make(p, dcfg),
+                       gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(61),
+                                           device="cuda"), ("full",))
+    monitor.reset_roofline_ledger()
+    monitor.reset_memory_ledger()
+    batch = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70), device="cuda")
+    runs = {}
+    for policy in REMAT_POLICIES:
+        m, state, step = make(policy)
+        work = lm_work(m, batch)
+        r = monitored_run(f"remat_{policy}", monitor, step, state, batch, counters,
+                          STEP_LAUNCHES[f"gpt_remat_{policy}"], f"gpt_{policy}")
+        r["mfu_6n"] = work["flops"] / work["peak"] / (r["median_step_ms"] / 1e3)
+        runs[policy] = r
+        line("remat", policy=policy, batch=TRAIN_BATCH, steps=TIMED_STEPS,
+             median_step_ms=r["median_step_ms"], peak_gb=r["peak_gb"],
+             temp_bytes=r["temp_bytes"], memory_method=r["memory_method"],
+             k2_launches_per_step=r["launches_per_step"].get("flash_fwd", 0),
+             k4_launches_per_step=r["launches_per_step"].get("flash_bwd", 0),
+             launches_per_step=json.dumps(r["launches_per_step"]),
+             host_syncs=r["host_syncs"], port_syncs=r["port_syncs"],
+             logged_steps=r["logged_steps"], copies=r["copies"],
+             start_loss=r["start_loss"], last_loss=r["last_loss"],
+             drained_row=json.dumps(r["drained_row"]), card=f"'{card}'")
+        del m, state, step
+        torch.cuda.empty_cache()
+    if not runs["full"]["peak_gb"] < runs["none"]["peak_gb"]:
+        raise AssertionError(f"remat: full's peak {runs['full']['peak_gb']} GB is "
+                             f"not below none's {runs['none']['peak_gb']} GB")
+    report = monitor.perf_report()
+    rows = {r["entry"]: r for r in report["entries"]}
+    line("roofline", chip=f"'{report['chip']['name']}'",
+         peak_tflops=report["chip"]["peak_tflops"], hbm_gbs=report["chip"]["hbm_gbs"],
+         mfu=json.dumps({p: report[f"gpt_{p}_mfu"] for p in REMAT_POLICIES}),
+         mfu_6n=json.dumps({p: runs[p]["mfu_6n"] for p in REMAT_POLICIES}),
+         flops_per_step=json.dumps({p: rows[f"gpt_{p}"]["flops_per_step"]
+                                    for p in REMAT_POLICIES}),
+         by_primitive=json.dumps(monitor.roofline_records()["gpt_none"]["signatures"][0]
+                                 ["by_primitive"]),
+         bound=rows["gpt_none"]["bound"], card=f"'{card}'")
+    del params, batch
+    torch.cuda.empty_cache()
+
+    bparams = bert.init(bcfg, gen(1), device="cuda")
+    bmake = lambda policy: make_bert_trainer(  # noqa: E731
+        amp, bert, fused_lamb, bparams, remat_cfg(bcfg, policy))
+    remat_parity_phase("bert_remat_parity", bmake, bert_batch(
+        bert, bcfg, PARITY_BATCH, 62, BERT_PARITY_LENS), ("save_boundaries",))
+    m, _, step = bmake("save_boundaries")
+    batch = bert_batch(bert, bcfg, BERT_BATCH, 71)
+    launches = training_phase(
+        "bert_remat_save_boundaries_training", "bert_remat_save_boundaries_profile",
+        step, batch, counters, STEP_LAUNCHES["bert"], BERT_GROUPS, card,
+        seq_len=bcfg.seq_len, remat_policy="'save_boundaries'", **lm_work(m, batch))
+    del m, step, bparams
+    torch.cuda.empty_cache()
+    return launches
+
+
+def remat_1f1b_world1_phase(amp, gpt, fused_adam, cfg, counters, card, params,
+                            batch):
+    """The 1F1B engine at world 1 over NCCL (TP_MICRO microbatches, batch
+    16) with its stage under "full": one step bitwise (or within the plain
+    engine's run-to-run spread) the plain engine's, then the timed run,
+    each microbatch's blocks recomputed once more in its backward slot."""
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+
+    ps.initialize_model_parallel(1, 1)
+    shard = gpt.shard_params(params, cfg, 0, 1)
+    try:
+        def make(policy):
+            return tp_pp_trainer(amp, gpt, fused_adam, shard, cfg, TP_MICRO, "1f1b",
+                                 remat=None if policy == "none" else policy)
+
+        remat_parity_phase("remat_1f1b_world1_parity", make, batch, ("full",))
+        m, _, step = make("full")
+        key = "gpt_tp_pp_1f1b_remat_full"
+        launches = training_phase(
+            f"{key}_training", f"{key}_profile", step, batch, counters,
+            STEP_LAUNCHES[key], TRAIN_GROUPS, card, seq_len=cfg.seq_len,
+            ranges=pp_slot_ranges, schedule="'1F1B, S 1'", remat_policy="'full'",
+            micro_batches=TP_MICRO, one_device_o5_median_ms=MEDIANS.get("training"),
+            **lm_work(m, batch))
+        del m, step
+        torch.cuda.empty_cache()
+    finally:
+        ps.destroy_model_parallel()
+    return {key: launches}
+
+
+def imagenet_monitor_phase(main_amp, tmp):
+    """The ImageNet trainer's CLI for IMAGENET_MONITOR's iterations of
+    ResNet-50 at O5 with ``--profile-dir`` and ``--flight-recorder``: the
+    profiler trace of the epoch exists, parses and holds CUDA kernels
+    (its convolutions among them), and the flight dump holds every printed
+    step."""
+    prof_dir = os.path.join(tmp, "profile")
+    flight = os.path.join(tmp, "flight.json")
+    n = IMAGENET_MONITOR["iters"]
+    t0 = time.perf_counter()
+    best = main_amp.main(["-a", "resnet50", "-b", str(IMAGENET_MONITOR["batch"]),
+                          "--opt-level", "O5", "--iters", str(n), "--print-freq", "1",
+                          "--deterministic", "--profile-dir", prof_dir,
+                          "--flight-recorder", flight])
+    traces = [f for f in os.listdir(prof_dir) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"imagenet_monitor: {traces} in {prof_dir}")
+    path = os.path.join(prof_dir, traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    with open(flight) as f:
+        dump = json.load(f)
+    if not kernels or dump["reason"] != "run_end" or dump["n_snapshots"] != n or [
+            s["step"] for s in dump["snapshots"]] != list(range(1, n + 1)):
+        raise AssertionError(f"imagenet_monitor: {len(kernels)} CUDA kernels in the "
+                             f"trace; flight dump {dump['reason']}, "
+                             f"{dump['n_snapshots']} snapshots")
+    if not all(np.isfinite(s["metrics"]["loss"]) for s in dump["snapshots"]):
+        raise AssertionError(f"imagenet_monitor: non-finite loss in {dump['snapshots']}")
+    line("imagenet_monitor", arch="resnet50", batch=IMAGENET_MONITOR["batch"], iters=n,
+         images_per_s_best=best, trace_mb=os.path.getsize(path) / 1e6,
+         trace_events=len(events), cuda_kernel_events=len(kernels),
+         flight_snapshots=dump["n_snapshots"],
+         flight_dispatch_ops=len(dump["dispatch_summary"]),
+         seconds=time.perf_counter() - t0)
+
+
 KERNEL_ROWS = (
     ("layer_norm_fwd", "triton", "beforeholiday_tpu_torch/ops/normalization.py",
      "beforeholiday_tpu/ops/normalization.py:55"),
@@ -6622,6 +6935,10 @@ def main():
             collective_matmul_world1_phase()
             bert_tp_world1_phase(bert, bcfg)
             mark("transformer_world1")
+            # slice 18: the 1F1B engine with its stage under remat "full"
+            launches.update(remat_1f1b_world1_phase(
+                amp, gpt, FusedAdam, cfg, counters, card, params, tp_batches[1]))
+            mark("remat_1f1b")
         finally:
             dist.destroy_process_group()
         del params, tp_batches
@@ -6639,6 +6956,16 @@ def main():
         for kname, r in rows_.items():
             rows[kname].update(r)
     mark("transformer_slice17")
+
+    # slice 18: the remat policies on the flagship GPT (and BERT under
+    # save_boundaries) with the training monitor, memory and roofline
+    # ledgers on the step; the ImageNet trainer's profile and flight dump
+    with phase("remat_monitor"):
+        launches["bert_remat_save_boundaries"] = remat_monitor_phase(
+            amp, gpt, bert, FusedAdam, FusedLAMB, cfg, bcfg, counters, card)
+    with phase("imagenet_monitor"), tempfile.TemporaryDirectory() as tmp:
+        imagenet_monitor_phase(main_amp, tmp)
+        torch.cuda.empty_cache()
 
     kernels = []
     for kname, route, source, replaces in KERNEL_ROWS:

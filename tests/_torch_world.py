@@ -562,8 +562,8 @@ def pp_scenario(rank, world, cases):
     stack ``kw["stacked"]`` (this rank's pipe stage, or V chunks for the
     interleaved schedule; ``kw["overlap"]``: the double-buffered engine;
     ``kw["encdec"]``: the encoder-decoder schedule at that split rank, on
-    the T5 toy), and the schedule's report. Also the p2p rings and the
-    error paths."""
+    the T5 toy; ``kw["remat"]``: the stage's remat policy), and the
+    schedule's report. Also the p2p rings and the error paths."""
     from beforeholiday_tpu_torch.parallel import parallel_state as ps
     from beforeholiday_tpu_torch.transformer import pipeline_parallel as pp
     from beforeholiday_tpu_torch.transformer import tensor_parallel as tp
@@ -596,6 +596,7 @@ def pp_scenario(rank, world, cases):
                          tensor_shape=kw["tensor_shape"], dtype=torch.float32)
         loss_fn = _toy_ce if "embed" in kw else _toy_loss
         extra["overlap_p2p"] = kw.get("overlap", False)
+        extra["remat_policy"] = kw.get("remat")
         if V is not None:
             chunks = {k: v[s * V:(s + 1) * V] for k, v in stacked.items()}
             loss, g = pp.forward_backward_pipelining_with_interleaving(
@@ -633,7 +634,7 @@ def pp_scenario(rank, world, cases):
         lambda: pp.forward_backward_pipelining_without_interleaving(
             _toy_stage, _toy_loss, sp, x, x[:2], overlap_p2p=True),
         lambda: pp.forward_backward_pipelining_without_interleaving(
-            _toy_stage, _toy_loss, sp, x, x, remat_policy="full"),
+            _toy_stage, _toy_loss, sp, x, x, remat_policy="no_such_policy"),
         lambda: pp.forward_backward_pipelining_encoder_decoder(
             _t5_stage, _toy_loss, sp, x, x, x),
         lambda: pp.forward_backward_pipelining_encoder_decoder(
@@ -1164,3 +1165,26 @@ def bert_tp_scenario(rank, world, cfg_kw, np_params, batch, o5_runs,
             dict(lamb_kw, tensor_sharded=bert.tensor_sharded(cfg)))
         ps.destroy_model_parallel()
     return out
+
+
+# ------------------------------------------------------------ the monitor
+
+
+def monitor_scenario(rank, world, losses, gvals, skips, durations):
+    """``TrainMonitor.aggregate`` over the data group of this rank's
+    metrics (its loss, grads, scale 2**skip and skip count), packed; and
+    ``rank_skew`` of its duration with the comms ledger's records."""
+    from beforeholiday_tpu_torch import monitor
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+
+    ps.initialize_model_parallel(1)
+    monitor.reset_comms_ledger()
+    mon = monitor.TrainMonitor()
+    m = mon.update(mon.init(device="cpu"), loss=torch.tensor(float(losses[rank])),
+                   grads={"g": _tensor(gvals[rank])},
+                   scaler_state={"scale": torch.tensor(2.0 ** float(skips[rank]))},
+                   health={"skipped_total": torch.tensor(int(skips[rank]))})
+    packed = _np(mon.pack(mon.aggregate(m, "data")))
+    skew = {k: _np(v) for k, v in
+            monitor.rank_skew(torch.tensor(float(durations[rank])), "data").items()}
+    return packed, skew, monitor.comms_records()

@@ -412,7 +412,8 @@ def test_self_attention_matches_jax(monkeypatch, dtype):
 def test_checkpoint_replays_the_same_mask():
     """A checkpointed region with dropout recomputes the same masks in the
     backward: its gradients equal the uncheckpointed ones (the JAX
-    package's tests/test_dropout.py:118)."""
+    package's tests/test_dropout.py:118), under no policy, a selective
+    policy function (save every op) and a named remat policy."""
     key = _key(41)
     w = torch.randn(16, 16)
 
@@ -425,8 +426,10 @@ def test_checkpoint_replays_the_same_mask():
     (g2,) = torch.autograd.grad(out.square().sum(), x)
     assert torch.equal(g1, g2)
     assert torch.equal(trandom.checkpoint_apply(region, x), region(x))
-    with pytest.raises(NotImplementedError):
-        trandom.checkpoint(region, policy=lambda *a: True)
+    for policy in (lambda *a, **k: True, "dots_saveable"):
+        out = trandom.checkpoint(region, policy=policy)(x)
+        (g3,) = torch.autograd.grad(out.square().sum(), x)
+        assert torch.equal(g1, g3)
 
 
 # ------------------------------------------------- the models against JAX

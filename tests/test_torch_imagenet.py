@@ -23,6 +23,7 @@ Two comparisons (tolerances and measured values in PERF.md):
   the same bits, with the same tolerances.
 """
 
+import json
 import os
 import sys
 
@@ -646,15 +647,40 @@ def test_unported_options_raise(kw):
 
 
 @pytest.mark.parametrize("flag", ["--profile-dir", "--flight-recorder"])
-def test_unported_cli_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError):
-        tmain.main([flag, str(tmp_path / "x"), "--device", "cpu"])
+def test_unported_cli_flags_raise(flag, tmp_path, capsys):
+    """Both flags are ported (the monitor): ``--profile-dir`` writes a
+    profiler trace of the first epoch into its directory, and
+    ``--flight-recorder`` dumps the ring of printed steps at the end of the
+    run on the CPU."""
+    target = tmp_path / "x"
+    best = tmain.main([flag, str(target), "-a", "resnet18", "-b", "2",
+                       "--image-size", "16", "--num-classes", "10", "--iters", "2",
+                       "--print-freq", "1", "--opt-level", "O5", "--deterministic",
+                       "--device", "cpu"])
+    assert best > 0 and "peak speed" in capsys.readouterr().out
+    if flag == "--profile-dir":
+        traces = list(target.glob("*.pt.trace.json"))
+        assert len(traces) == 1
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        assert any(e.get("name") == "aten::convolution" for e in events)
+    else:
+        dump = json.loads(target.read_text())
+        assert dump["reason"] == "run_end" and dump["n_snapshots"] == 2
+        assert [s["step"] for s in dump["snapshots"]] == [1, 2]
+        assert set(dump["snapshots"][0]["metrics"]) >= {"loss", "prec1", "scale"}
 
 
-def test_unported_flight_recorder_and_half_weights_raise():
+def test_unported_flight_recorder_and_half_weights_raise(tmp_path):
+    """``train(flight=)`` records every printed row (the rows the print
+    cadence reads back anyway); half-precision weights still raise."""
+    from beforeholiday_tpu_torch.monitor import FlightRecorder
+
     tr = _port_trainer("O0")
-    with pytest.raises(NotImplementedError):
-        tmain.train(tr, iters=1, image_size=HW, flight=object())
+    fr = FlightRecorder(4, path=str(tmp_path / "f.json"))
+    tmain.train(tr, iters=3, image_size=HW, print_freq=2, flight=fr, epoch=1)
+    snaps = fr.snapshots()
+    assert [s["step"] for s in snaps] == [5, 6]
+    assert all(isinstance(v, float) for v in snaps[0]["metrics"].values())
     with pytest.raises(ValueError):
         tmain.build_trainer(cfg=tres.tiny_test_config(), device="cpu",
                             params=tr.params)

@@ -24,8 +24,7 @@ one gloo world of 4 processes, against the JAX package's engine under
   bounds, and its report;
 * the microbatch calculators, the p2p rings, and the errors: M not
   divisible by S when V > 1, an inputs/targets count mismatch (both
-  engines), a remat policy raising ``NotImplementedError`` (not ported
-  yet), and the encoder-decoder schedule without a split rank or with one
+  engines), an unknown remat policy name, and the encoder-decoder schedule without a split rank or with one
   outside (0, S).
 """
 
@@ -55,6 +54,8 @@ LOSS_RTOL, GRAD_TOL = 1e-6, dict(rtol=1e-5, atol=1e-6)
 # encoder-decoder bounds
 OVERLAP_LOSS_RTOL, OVERLAP_GRAD_TOL = 1e-5, dict(rtol=1e-4, atol=1e-5)
 SPLITS = (1, 2, 3)
+# the remat policies the 1F1B engine runs under (tests/test_remat.py's)
+REMAT = ("full", "dots_saveable", "save_boundaries")
 
 
 def _stage(sp, x):
@@ -142,6 +143,8 @@ def _t5_case(split):
 def world(tmp_path_factory):
     cases = [(name, t, p, kw) for name, (t, p, kw) in _cases().items()]
     cases += [(f"t5_split{k}", 1, 4, _t5_case(k)) for k in SPLITS]
+    t, p, kw = _cases()["1f1b_s4"]
+    cases += [(f"1f1b_s4_remat_{r}", t, p, dict(kw, remat=r)) for r in REMAT]
     return tw.run_world(tw.pp_scenario, WORLD, tmp_path_factory.mktemp("pp"), cases)
 
 
@@ -405,9 +408,12 @@ def test_no_pipelining_matches_jax():
     np.testing.assert_allclose(float(tl), float(jl), rtol=LOSS_RTOL)
     for k in ("w", "b"):
         np.testing.assert_allclose(tg[k].numpy(), np.asarray(jg[k]), **GRAD_TOL)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tpp.forward_backward_no_pipelining(tw._toy_stage, tw._toy_loss, {}, torch.zeros(1),
-                                           torch.zeros(1), remat_policy="full")
+    # remat (slice 18): the stage recomputed in the backward, bitwise
+    rl, rg = tpp.forward_backward_no_pipelining(
+        lambda sp, a: tw._toy_stage({k: v[0] for k, v in sp.items()}, a),
+        tw._toy_loss, {k: torch.from_numpy(v) for k, v in stacked.items()},
+        torch.from_numpy(x), torch.from_numpy(y), remat_policy="full")
+    assert torch.equal(rl, tl) and all(torch.equal(rg[k], tg[k]) for k in ("w", "b"))
 
 
 def test_rings(world):
@@ -423,6 +429,34 @@ def test_errors(world):
     assert errors[0].startswith("ValueError") and "divisible" in errors[0]
     assert errors[1].startswith("ValueError") and "mismatch" in errors[1]
     assert errors[2].startswith("ValueError") and "mismatch" in errors[2]
-    assert errors[3].startswith("NotImplementedError") and "A13" in errors[3]
+    assert errors[3].startswith("ValueError") and "unknown remat policy" in errors[3]
     assert errors[4].startswith("ValueError") and "split_rank" in errors[4]
     assert errors[5].startswith("ValueError") and "0 < split_rank" in errors[5]
+
+
+@pytest.mark.parametrize("policy", REMAT)
+def test_1f1b_remat_matches_jax(world, policy):
+    """Per-stage remat in the 1F1B engine (S 4) against JAX's 1F1B under
+    the same policy (``tests/test_remat.py:232``), at its bounds, and
+    bitwise the port's no-remat run of the same case."""
+    _, S, kw = _cases()["1f1b_s4"]
+    mesh = Mesh(np.asarray(jax.devices()[:S]), ("pipe",))
+
+    def body(st, inputs, targets):
+        sp = jax.tree.map(lambda v: v[0], st)
+        loss, g = jpp.forward_backward_pipelining_without_interleaving(
+            _stage, _loss, sp, inputs, targets, remat_policy=policy)
+        return loss, jax.tree.map(lambda a: a[None], g)
+
+    f = _shard_map(body, mesh=mesh, in_specs=(P("pipe"), P(), P()),
+                   out_specs=(P(), P("pipe")))
+    jl, jg = jax.jit(f)(jax.tree.map(jnp.asarray, kw["stacked"]),
+                        jnp.asarray(kw["inputs"]), jnp.asarray(kw["targets"]))
+    for rank in range(WORLD):
+        loss, g, _ = world[rank][0][f"1f1b_s4_remat_{policy}"]
+        base_loss, base_g, _ = world[rank][0]["1f1b_s4"]
+        np.testing.assert_allclose(loss, float(jl), rtol=LOSS_RTOL)
+        for k in ("w", "b"):
+            np.testing.assert_allclose(g[k], np.asarray(jg[k])[rank], **GRAD_TOL)
+            np.testing.assert_array_equal(g[k], base_g[k])
+        assert loss == base_loss

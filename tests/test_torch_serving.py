@@ -92,10 +92,12 @@ def test_gpt_init_shapes_match_jax(models):
     ("remat_policy", "full"), ("moe_experts", 8),
 ])
 def test_gpt_config_rejects_unported_paths(models, field, value):
-    """The MoE and remat fields select paths not ported yet and raise.
-    ``sequence_parallel`` is ported (slice 15): it builds, and without model
-    parallelism it changes nothing, as in JAX."""
-    if field == "sequence_parallel":
+    """The MoE fields select a path not ported yet and raise.
+    ``sequence_parallel`` (slice 15) and ``remat_policy`` (slice 18) are
+    ported: each builds, and the forward is the plain one (without model
+    parallelism SP changes nothing, as in JAX; remat changes only what the
+    backward recomputes)."""
+    if field in ("sequence_parallel", "remat_policy"):
         _, _, tcfg, tparams = models
         tokens = torch.from_numpy(np.random.default_rng(6).integers(
             0, TINY["vocab_size"], (2, 20))).long()
