@@ -17,7 +17,6 @@ choice is counted per (op, device type, dtype), the counterpart of
 from __future__ import annotations
 
 import functools
-import sys
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -33,11 +32,10 @@ _COUNTS_LOCK = threading.Lock()
 _COUNTS: Dict[Tuple[str, str, str], Dict[str, int]] = {}
 
 
-def resolve_impl(impl: Optional[str], x: torch.Tensor,
-                 op: Optional[str] = None) -> str:
+def resolve_impl(impl: Optional[str], x: torch.Tensor, op: str) -> str:
     """``"kernel"`` for a CUDA tensor and ``"torch"`` for a CPU one when
     ``impl`` is None; an explicit ``impl`` is validated and honored. The
-    choice is counted under ``op`` (default: the calling function's name)."""
+    choice is counted under ``op``."""
     if impl is None:
         impl = "kernel" if x.is_cuda else "torch"
     elif impl not in IMPLS:
@@ -46,8 +44,7 @@ def resolve_impl(impl: Optional[str], x: torch.Tensor,
         raise ValueError(
             f"impl='kernel' needs CUDA tensors, got a tensor on {x.device}"
         )
-    key = (op or sys._getframe(1).f_code.co_name, x.device.type,
-           str(x.dtype).replace("torch.", ""))
+    key = (op, x.device.type, str(x.dtype).replace("torch.", ""))
     with _COUNTS_LOCK:
         row = _COUNTS.get(key)
         if row is None:
@@ -73,7 +70,9 @@ def call_op(op, fn, *args):
     implementation ``fn``: through ``op`` where autograd records the call
     or a dispatch mode must see it (a selective checkpoint, a FLOP counter,
     the memory ledger's CPU reading), else ``fn`` itself, which skips the
-    dispatcher's host cost. Both run the same code."""
+    op's host cost on the no-grad paths, serving's decode among them
+    (measured with ``chip_ab.py --host``, PERF.md §6). Both run the same
+    code."""
     if is_in_torch_dispatch_mode() or (torch.is_grad_enabled() and any(
             isinstance(a, torch.Tensor) and a.requires_grad for a in args)):
         return op(*args)

@@ -30,7 +30,18 @@ busy ms and idle share, device ms by layer and by page op: gathers, casts,
 copies, scatters), its serving mix through ``ContinuousBatcher.run()``
 (tokens/s, then the same mix under torch.profiler), and K2 at the engine's
 decode shape at three length patterns and in paged mode, each kernel's own
-device time beside the call's. It exits non-zero without a CUDA device.
+device time beside the call's. With ``--host`` it times the host-bound
+paths instead, and nothing else (``host_ab``): the host's microseconds per
+call of ``fused_layer_norm`` and ``flash_attention`` (no grad, and forward
+plus backward), of the K1/K2 custom ops against their implementations
+where the checkout has them, the decode step (``decode_profile``, three
+times), and the flagship's O5 step at world 1 over NCCL under
+``forward_backward_no_pipelining`` and the 1F1B engine (``chip_smoke.py``'s
+``tp_pp_trainer``, 4 microbatches): median step ms, host ms per step and
+the device's idle share under torch.profiler. ``--call-op always`` routes
+every K1-K4 call of the checkout through its custom op, even where no
+autograd records it and no dispatch mode is active. It exits non-zero
+without a CUDA device.
 """
 
 import argparse
@@ -206,6 +217,132 @@ def decode_ab(torch, infer, gpt):
     return out
 
 
+def host_us(torch, fn, n=2000):
+    """The host's microseconds per call of ``fn`` over ``n`` calls after 50
+    warm-up calls: the kernels are tiny, so the host sets the pace."""
+    import time
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def call_costs(torch, norm, attn):
+    """Host microseconds per call: the public LayerNorm at the decode step's
+    rows (32 x 1024 bf16) and flash attention at a prefill's (B 1, H 16, S
+    128, D 64 bf16), with no grad and as forward plus backward; and where
+    the checkout registers K1 and K2 as custom ops, each op beside its
+    implementation called directly (no grad)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(32, 1024, generator=g, device="cuda").bfloat16()
+    w = torch.ones(1024, device="cuda")
+    b = torch.zeros(1024, device="cuda")
+    q = torch.randn(1, 16, 128, 64, generator=g, device="cuda").bfloat16()
+    xg, qg = x.clone().requires_grad_(), q.clone().requires_grad_()
+    dy, do = torch.ones_like(x), torch.ones_like(q)
+    fa = lambda t: attn.flash_attention(t, t, t, causal=True)  # noqa: E731
+    out = {}
+    with torch.no_grad():
+        out["layer_norm_no_grad"] = host_us(torch, lambda: norm.fused_layer_norm(x, w, b))
+        out["flash_attention_no_grad"] = host_us(torch, lambda: fa(q))
+    out["layer_norm_fwd_bwd"] = host_us(
+        torch, lambda: norm.fused_layer_norm(xg, w, b).backward(dy))
+    out["flash_attention_fwd_bwd"] = host_us(torch, lambda: fa(qg).backward(do))
+    if hasattr(norm, "_ln_fwd_op"):
+        ln = (x, w, b, 1e-5, False, torch.bfloat16, "kernel")
+        lens = torch.full((16,), 128, dtype=torch.int32, device="cuda")
+        q3 = q.reshape(16, 128, 64)
+        fl = (q3, q3, q3, lens, None, True, 0.125, 0.0, "kernel", None)
+        with torch.no_grad():
+            out["k1_direct"] = host_us(torch, lambda: norm._ln_fwd(*ln))
+            out["k1_op"] = host_us(torch, lambda: norm._ln_fwd_op(*ln))
+            out["k2_direct"] = host_us(torch, lambda: attn._flash_fwd(*fl))
+            out["k2_op"] = host_us(torch, lambda: attn._flash_fwd_op(*fl))
+    return out
+
+
+def step_times(torch, np, cs, step, batch, steps=10, profiled=3):
+    """2 warm-up steps, then ``steps`` timed ones (CUDA-event ms, and the
+    host's ms per step with the queue drained at the end), then
+    ``profiled`` steps under torch.profiler: the device's busy ms over the
+    wall's, as chip_smoke.py's train_profile counts them."""
+    import time
+
+    for _ in range(2):
+        step(*batch)
+    torch.cuda.synchronize()
+    events = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(*batch)
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / steps
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        for _ in range(profiled):
+            step(*batch)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t1)
+    # the 1F1B engine's slot spans show on the device as ranges, not kernels
+    with cs.pp_slot_ranges() as ranges:
+        by_name, _ = cs.device_ms_by_group(prof, cs.TRAIN_GROUPS, ranges)
+    busy = sum(by_name.values())
+    ms = [a.elapsed_time(b) for a, b in events]
+    return {"median_step_ms": float(np.median(ms)), "min_step_ms": min(ms),
+            "host_ms_per_step": wall, "profiled_wall_ms_per_step": prof_ms / profiled,
+            "device_busy_ms_per_step": busy / profiled,
+            "idle_share": 1.0 - busy / prof_ms}
+
+
+def host_ab(torch, np, amp, gpt, infer, fused_adam, norm, attn):
+    """The host-bound paths of the package under test (see ``--host``)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+
+    cs = chip_smoke_module()
+    out = {"calls_us": call_costs(torch, norm, attn)}
+    cfg = gpt.GPTConfig(**cs.MODEL)
+    params = gpt.init(cfg, cs.gen(0), device="cuda")
+    out["decode"] = []
+    for seed in (5, 6, 7):
+        d = cs.decode_profile(infer, params, cfg, seed=seed)
+        out["decode"].append({k: d[k] for k in (
+            "wall_ms_per_call", "tokens_per_s", "profiled_wall_ms_per_call",
+            "device_busy_ms_per_call", "idle_share")})
+        torch.cuda.empty_cache()
+    batch = gpt.synthetic_batch(cfg, cs.TRAIN_BATCH, generator=cs.gen(70),
+                                device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        cs.init_nccl(tmp)
+        try:
+            ps.initialize_model_parallel(1, 1)
+            shard = gpt.shard_params(params, cfg, 0, 1)
+            for schedule in ("none", "1f1b"):
+                _, _, step = cs.tp_pp_trainer(amp, gpt, fused_adam, shard, cfg,
+                                              cs.TP_MICRO, schedule)
+                out[f"gpt_tp_pp_{schedule}"] = step_times(torch, np, cs, step, batch)
+                del step
+                torch.cuda.empty_cache()
+            ps.destroy_model_parallel()
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True,
@@ -217,6 +354,10 @@ def main():
     ap.add_argument("--decode", action="store_true",
                     help="time the serving engine's decode step and serving "
                          "mix only")
+    ap.add_argument("--host", action="store_true",
+                    help="time the host-bound paths only (host_ab)")
+    ap.add_argument("--call-op", choices=("as-is", "always"), default="as-is",
+                    help="'always': every K1-K4 call through its custom op")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -239,6 +380,15 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     _build.build(["flash_fwd"] if args.decode else None)
+    if args.call_op == "always":
+        attn.call_op = norm.call_op = lambda op, fn, *a: op(*a)
+    if args.host:
+        from beforeholiday_tpu_torch import infer
+
+        print(json.dumps({"root": args.root, "card": card, "call_op": args.call_op,
+                          **host_ab(torch, np, amp, gpt, infer, FusedAdam, norm,
+                                    attn)}), flush=True)
+        return 0
     if args.decode:
         from beforeholiday_tpu_torch import infer
 

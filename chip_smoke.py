@@ -211,14 +211,17 @@ Phases, each printing one line (any failure exits non-zero):
     "full" against the plain engine, batch 16 in TP_MICRO microbatches) and
     its timed run (each microbatch's blocks recomputed); on the flagship O5
     GPT step, ``remat_parity`` (each policy's step at batch 2 against the
-    "none" step, bitwise or within that step's own rerun spread) and
+    "none" step, bitwise or within that step's own rerun spread; its GEMMs
+    counted under a dispatch mode: "dots_saveable" recomputes none, "full"
+    and "save_boundaries" some) and
     ``remat_dropout_parity`` (the dropout step under "full": K13 redraws its
     masks in the recompute); each policy's monitored timed run (``remat:``
     lines: ``track_costs`` and ``track_memory`` on the step, a
     ``TrainMonitor`` updated every step, global norm on K9, a
     ``MetricsLogger`` copying every LOG_EVERY-th step; ms, peak GB, the
     allocator's temp_bytes, K2/K4 launches, no port sync but the logger's
-    copies, "full"'s peak below "none"'s) and the roofline ledger's MFU
+    copies, "full"'s peak below "none"'s and "dots_saveable"'s) and the
+    roofline ledger's MFU
     beside 6 N's (``roofline:``); BERT-Large 8 layers with FusedLAMB under
     "save_boundaries" (parity, timed run); ``imagenet_monitor`` (the
     ImageNet trainer's CLI on ResNet-50 with ``--profile-dir`` and
@@ -6207,17 +6210,49 @@ def result_diff(got, ref):
                + [max_err(a, b) for a, b in zip(got["masters"], ref["masters"])])
 
 
-def remat_parity_phase(label, make, batch, policies):
+# the products a "dots_saveable" region saves, by name (any overload: the
+# card's bf16 GEMMs with an fp32 result are mm's and addmm's ``.dtype``)
+GEMM_OPS = ("mm", "addmm", "bmm", "baddbmm", "matmul", "_scaled_mm")
+
+
+def gemm_counter():
+    """A dispatch mode that counts the GEMMs run in its scope, the backward
+    and the recompute included (the autograd engine's threads inherit it);
+    a product that a selective checkpoint saved is not run again, so not
+    counted."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class GemmCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ in GEMM_OPS:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return GemmCount()
+
+
+def remat_parity_phase(label, make, batch, policies, gemms=False):
     """One step at batch 2 under each policy against the ``"none"`` step from
     the same weights, on the kernels. A recompute runs the same kernels on
     the same inputs, so the loss, the gradient arenas and the masters must
     be bitwise the "none" step's. The bound is the run-to-run spread of the
     "none" step itself, measured here by running it twice (0 where every
-    kernel of the step is deterministic)."""
+    kernel of the step is deterministic). With ``gemms`` each step runs
+    under :func:`gemm_counter`: "dots_saveable" must run no more GEMMs than
+    "none" (it saves every product, so its recompute runs none), "full" and
+    "save_boundaries" more (they recompute the blocks' products)."""
+    counted = {}
+
     def run(policy):
         m, state, step = make(policy)
-        res = step_result(m, state, step(*batch))
-        del m, state, step
+        with gemm_counter() if gemms else contextlib.nullcontext() as mode:
+            out = step(*batch)
+        res = step_result(m, state, out)
+        if gemms:
+            counted[policy] = mode.n
+        del m, state, step, out
         torch.cuda.empty_cache()
         return res
 
@@ -6228,9 +6263,17 @@ def remat_parity_phase(label, make, batch, policies):
     if bad:
         raise AssertionError(f"{label}: policies differ from the none step by "
                              f"{bad}, beyond its run-to-run spread {floor}")
+    recomputed = {p: n - counted["none"] for p, n in counted.items()}
+    if gemms and not (recomputed.get("dots_saveable", 0) == 0 and all(
+            recomputed[p] > 0 for p in ("full", "save_boundaries") if p in recomputed)):
+        raise AssertionError(f"{label}: GEMMs run beyond the none step's "
+                             f"{counted['none']}: {recomputed}; dots_saveable must "
+                             f"recompute none, full and save_boundaries some")
     line(label, batch=batch[0].shape[0], none_rerun_max_abs_diff=floor,
          max_abs_diff=json.dumps(diffs),
-         bitwise=all(d == 0.0 for d in diffs.values()) and floor == 0.0)
+         bitwise=all(d == 0.0 for d in diffs.values()) and floor == 0.0,
+         **({"gemms_none": counted["none"],
+             "gemms_recomputed": json.dumps(recomputed)} if gemms else {}))
 
 
 def monitored_run(label, monitor, step, state, batch, counters, expect, entry):
@@ -6335,7 +6378,8 @@ def remat_monitor_phase(amp, gpt, bert, fused_adam, fused_lamb, cfg, bcfg,
     make = lambda policy, c=cfg: make_gpt_trainer(  # noqa: E731
         amp, gpt, fused_adam, params, remat_cfg(c, policy))
     remat_parity_phase("remat_parity", make, gpt.synthetic_batch(
-        cfg, PARITY_BATCH, generator=gen(60), device="cuda"), REMAT_POLICIES[1:])
+        cfg, PARITY_BATCH, generator=gen(60), device="cuda"), REMAT_POLICIES[1:],
+        gemms=True)
     dcfg = dataclasses.replace(cfg, **DROPOUT)
     remat_parity_phase("remat_dropout_parity", lambda p: make(p, dcfg),
                        gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(61),
@@ -6366,6 +6410,11 @@ def remat_monitor_phase(amp, gpt, bert, fused_adam, fused_lamb, cfg, bcfg,
     if not runs["full"]["peak_gb"] < runs["none"]["peak_gb"]:
         raise AssertionError(f"remat: full's peak {runs['full']['peak_gb']} GB is "
                              f"not below none's {runs['none']['peak_gb']} GB")
+    # dots_saveable keeps the products that full drops
+    if not runs["dots_saveable"]["peak_gb"] > runs["full"]["peak_gb"]:
+        raise AssertionError(f"remat: dots_saveable's peak "
+                             f"{runs['dots_saveable']['peak_gb']} GB is not above "
+                             f"full's {runs['full']['peak_gb']} GB")
     report = monitor.perf_report()
     rows = {r["entry"]: r for r in report["entries"]}
     line("roofline", chip=f"'{report['chip']['name']}'",

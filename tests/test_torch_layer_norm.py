@@ -185,13 +185,13 @@ def test_norm_checks_param_shapes():
 
 @pytest.mark.parametrize("impl, want", [(None, "torch"), ("torch", "torch")])
 def test_resolve_impl_cpu(impl, want):
-    assert resolve_impl(impl, torch.zeros(2)) == want
+    assert resolve_impl(impl, torch.zeros(2), op="layer_norm") == want
 
 
 @pytest.mark.parametrize("impl", ["kernel", "pallas", "jnp"])
 def test_resolve_impl_rejects_impossible(impl):
     with pytest.raises(ValueError):
-        resolve_impl(impl, torch.zeros(2))
+        resolve_impl(impl, torch.zeros(2), op="layer_norm")
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

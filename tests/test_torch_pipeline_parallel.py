@@ -148,9 +148,10 @@ def world(tmp_path_factory):
     return tw.run_world(tw.pp_scenario, WORLD, tmp_path_factory.mktemp("pp"), cases)
 
 
+@functools.cache
 def _jax_run(name):
     """JAX's engine on the case's data: (loss, grads stacked by pipe rank,
-    or PipelineGrads parts) and the report."""
+    or PipelineGrads parts) and the report; once a case."""
     tsize, S, kw = _cases()[name]
     V = kw.get("V")
     overlap = dict(overlap_p2p=kw.get("overlap", False))
@@ -436,22 +437,11 @@ def test_errors(world):
 
 @pytest.mark.parametrize("policy", REMAT)
 def test_1f1b_remat_matches_jax(world, policy):
-    """Per-stage remat in the 1F1B engine (S 4) against JAX's 1F1B under
-    the same policy (``tests/test_remat.py:232``), at its bounds, and
+    """Per-stage remat in the 1F1B engine (S 4) against JAX's 1F1B at the
+    bounds of ``tests/test_remat.py:232`` (which holds JAX's remat 1F1B to
+    its plain run, the reference here, shared with the plain case), and
     bitwise the port's no-remat run of the same case."""
-    _, S, kw = _cases()["1f1b_s4"]
-    mesh = Mesh(np.asarray(jax.devices()[:S]), ("pipe",))
-
-    def body(st, inputs, targets):
-        sp = jax.tree.map(lambda v: v[0], st)
-        loss, g = jpp.forward_backward_pipelining_without_interleaving(
-            _stage, _loss, sp, inputs, targets, remat_policy=policy)
-        return loss, jax.tree.map(lambda a: a[None], g)
-
-    f = _shard_map(body, mesh=mesh, in_specs=(P("pipe"), P(), P()),
-                   out_specs=(P(), P("pipe")))
-    jl, jg = jax.jit(f)(jax.tree.map(jnp.asarray, kw["stacked"]),
-                        jnp.asarray(kw["inputs"]), jnp.asarray(kw["targets"]))
+    jl, jg = _jax_run("1f1b_s4")
     for rank in range(WORLD):
         loss, g, _ = world[rank][0][f"1f1b_s4_remat_{policy}"]
         base_loss, base_g, _ = world[rank][0]["1f1b_s4"]

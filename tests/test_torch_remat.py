@@ -2,8 +2,11 @@
 through the GPT, BERT and the pipeline schedules, held against the JAX
 package's ``tests/test_remat.py`` at its own bounds (fp32: loss rtol 1e-6,
 grads rtol 1e-5, atol 1e-6), and the port's remat against its own no-remat
-run, bitwise: a recompute runs the same ops on the same inputs. The 1F1B
-engine's remat cases run in ``tests/test_torch_pipeline_parallel.py``'s
+run, bitwise: a recompute runs the same ops on the same inputs. The JAX
+reference is one run per model without remat, shared by the policies:
+``tests/test_remat.py`` holds JAX's remat steps to that run at the same
+bounds (at these sizes the GPT's are bitwise it, BERT's within 3e-9). The
+1F1B engine's remat cases run in ``tests/test_torch_pipeline_parallel.py``'s
 gloo world (one spawn for the file's cases).
 
 Also the memory ledger's CPU reading (the bytes kept for the backward)
@@ -22,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, os.path.dirname(__file__))
 
@@ -178,14 +182,21 @@ def gpt_none(gpt_model):
     return _port_gpt(tparams, tok, tgt, None)
 
 
-@pytest.mark.parametrize("policy", POLICIES)
-def test_gpt_loss_and_grads_match_jax(gpt_model, gpt_none, policy):
-    """JAX's loss and gradients under the same policy, at JAX's bounds; and
-    bitwise the port's no-remat step."""
-    jparams, tokens, targets, tparams, tok, tgt = gpt_model
-    jcfg = jgpt.GPTConfig(**TINY, dtype=jnp.float32, remat_policy=policy)
-    jloss, jgrads = jax.jit(jax.value_and_grad(
+@pytest.fixture(scope="module")
+def gpt_jax(gpt_model):
+    """JAX's loss and gradients, once for every policy."""
+    jparams, tokens, targets = gpt_model[:3]
+    jcfg = jgpt.GPTConfig(**TINY, dtype=jnp.float32)
+    return jax.jit(jax.value_and_grad(
         lambda p: jgpt.loss_fn(p, tokens, targets, jcfg)))(jparams)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_gpt_loss_and_grads_match_jax(gpt_model, gpt_none, gpt_jax, policy):
+    """JAX's loss and gradients at JAX's bounds; and bitwise the port's
+    no-remat step."""
+    tparams, tok, tgt = gpt_model[3:]
+    jloss, jgrads = gpt_jax
     loss, grads = _port_gpt(tparams, tok, tgt, policy)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_RTOL)
     _assert_close(policy, jgrads, grads)
@@ -252,6 +263,45 @@ def test_gpt_launches_each_policy_repeats(gpt_model, monkeypatch, policy, fwd, n
                       "ln_fwd_torch": norm, "ln_bwd_torch": 5}
 
 
+class _GemmCount(TorchDispatchMode):
+    """Counts the GEMMs dispatched in its scope, the backward's and the
+    recompute's included."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket.__name__ in ("mm", "addmm", "bmm", "baddbmm", "matmul",
+                                            "_scaled_mm"):
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _gemms(gpt_model, policy):
+    tparams, tok, tgt = gpt_model[3:]
+    with _GemmCount() as mode:
+        _port_gpt(tparams, tok, tgt, policy)
+    return mode.n
+
+
+@pytest.fixture(scope="module")
+def gpt_none_gemms(gpt_model):
+    return _gemms(gpt_model, None)
+
+
+@pytest.mark.parametrize("policy, recomputed", [
+    (None, 0), ("full", 6), ("dots_saveable", 0), ("save_boundaries", 6)])
+def test_gpt_gemms_each_policy_recomputes(gpt_model, gpt_none_gemms, policy,
+                                          recomputed):
+    """``dots_saveable`` saves every product, so its backward runs no GEMM
+    beyond the no-remat step's; ``full`` and ``save_boundaries`` run each
+    block's first three again (the recompute stops before the last, whose
+    output no backward needs): 3 a block, two blocks."""
+    n = _gemms(gpt_model, policy)
+    assert n - gpt_none_gemms == recomputed, (n, gpt_none_gemms)
+
+
 def test_memory_ledger_orders_the_policies(gpt_model):
     """The CPU reading (bytes kept for the backward): full <= dots_saveable
     <= none, and save_boundaries < none."""
@@ -276,26 +326,31 @@ def test_memory_ledger_orders_the_policies(gpt_model):
 # ------------------------------------------------------------------ BERT
 
 
-@pytest.mark.parametrize("policy", POLICIES)
-def test_bert_mlm_logits_grads_match_jax(policy):
-    jcfg0 = jbert.BertConfig(**TINY, dtype=jnp.float32)
-    jparams = jbert.init(jax.random.PRNGKey(0), jcfg0)
-    tokens, targets, mlm_mask, _ = jbert.synthetic_batch(jax.random.PRNGKey(1), jcfg0, 2)
+@pytest.fixture(scope="module")
+def bert_model():
+    """JAX's MLM + NSP loss and gradients (once for every policy), and the
+    port's inputs from the same numpy values."""
+    jcfg = jbert.BertConfig(**TINY, dtype=jnp.float32)
+    jparams = jbert.init(jax.random.PRNGKey(0), jcfg)
+    tokens, targets, mlm_mask, _ = jbert.synthetic_batch(jax.random.PRNGKey(1), jcfg, 2)
 
-    def jloss(p, cfg):
-        mlm, nsp = jbert.forward(p, tokens, cfg)
+    def jloss(p):
+        mlm, nsp = jbert.forward(p, tokens, jcfg)
         logp = jax.nn.log_softmax(mlm.astype(jnp.float32), axis=-1)
         nll = -jnp.take_along_axis(logp, targets[..., None], axis=-1)[..., 0]
         return jnp.sum(nll * mlm_mask) / jnp.sum(mlm_mask) + jnp.mean(
             nsp.astype(jnp.float32) ** 2)
 
-    ref = jax.jit(jax.value_and_grad(functools.partial(
-        jloss, cfg=jbert.BertConfig(**TINY, dtype=jnp.float32, remat_policy=policy))))(
-        jparams)
+    ref = jax.jit(jax.value_and_grad(jloss))(jparams)
     tparams = tbert.params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
-    tok = torch.from_numpy(np.array(tokens)).long()
-    tgt = torch.from_numpy(np.array(targets)).long()
-    mask = torch.from_numpy(np.array(mlm_mask))
+    return (ref, tparams, torch.from_numpy(np.array(tokens)).long(),
+            torch.from_numpy(np.array(targets)).long(),
+            torch.from_numpy(np.array(mlm_mask)))
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_bert_mlm_logits_grads_match_jax(bert_model, policy):
+    ref, tparams, tok, tgt, mask = bert_model
 
     def tloss(pol):
         p = _leaf_params(tparams)
@@ -348,16 +403,23 @@ def _pipe_data():
     return stacked, x, y
 
 
-@pytest.mark.parametrize("policy", POLICIES)
-def test_no_pipelining_remat_matches_jax(policy):
+@functools.cache
+def _jax_no_pipelining():
+    """JAX's engine without remat on ``_pipe_data``, once for every policy."""
     stacked, x, y = _pipe_data()
 
     def full_model(st, a):
         return jax.lax.scan(lambda h, sp: (_stage(sp, h), None), a, st)[0]
 
-    jl, jg = jax.jit(functools.partial(
-        jpp.forward_backward_no_pipelining, full_model, _loss, remat_policy=policy))(
+    return jax.jit(functools.partial(
+        jpp.forward_backward_no_pipelining, full_model, _loss))(
         jax.tree.map(jnp.asarray, stacked), jnp.asarray(x), jnp.asarray(y))
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_no_pipelining_remat_matches_jax(policy):
+    stacked, x, y = _pipe_data()
+    jl, jg = _jax_no_pipelining()
 
     def stage(st, a):
         for i in range(S):
