@@ -13,7 +13,7 @@ slice 11, the guarded data-parallel ResNet step; slice 13, amp O1-O4 and
 the DCGAN example):
 
 - ``beforeholiday_tpu_torch.ops``     — LayerNorm/RMSNorm forward and backward
-  (kernels K1/K3, Triton), flash attention forward and backward (K2/K4, CUDA
+  (kernels K1/K3, CUDA C++), flash attention forward and backward (K2/K4, CUDA
   C++), dense/MLP blocks, flat arenas, the unscale, fused-Adam, LAMB,
   global-norm and fused-SGD arena kernels (K5-K10, Triton), the scaled /
   masked / causal softmax family (K11/K12, Triton).

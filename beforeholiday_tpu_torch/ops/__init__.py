@@ -1,6 +1,6 @@
 """Kernel-backed ops — counterpart of ``beforeholiday_tpu/ops``.
 
-* ``normalization`` — LayerNorm / RMSNorm on kernels K1/K3 (Triton).
+* ``normalization`` — LayerNorm / RMSNorm on kernels K1/K3 (CUDA C++).
 * ``attention`` — flash attention on kernels K2/K4 with in-kernel dropout,
   ``self_attention``, and the dropout keep mask on kernel K13 (CUDA C++).
 * ``dense`` — dense and MLP blocks on library GEMMs.

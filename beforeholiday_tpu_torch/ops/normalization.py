@@ -1,24 +1,14 @@
-"""Fused LayerNorm / RMSNorm on kernels K1 (forward, Triton) and K3
-(backward, CUDA C++ in ``csrc/layer_norm_bwd.cu``).
+"""Fused LayerNorm / RMSNorm on kernels K1 (forward) and K3 (backward), both
+CUDA C++ (``csrc/layer_norm_fwd.cu``, ``csrc/layer_norm_bwd.cu``).
 
 K1 replaces ``beforeholiday_tpu/ops/normalization.py:55`` ``_ln_fwd_kernel``
 (launched at ``:112``). It computes the same function: per row the mean and
 variance (or the mean square for RMSNorm) in fp32 whatever the storage dtype,
-then ``xhat * w + b`` written in the dtype the caller chose.
-
-Bound on an H100: bytes. At the serving prefill shape (8192 x 1024 bf16) one
-call must move 33.6 MB (x read once, y written once), 10.0 us at 3.35 TB/s,
-against about 0.1 GFLOP of fp32 arithmetic. The design therefore makes one
-pass over HBM: one program owns a block of whole rows, the full hidden width
-sits in registers (``BLOCK = next_pow2(hidden)``, masked), the two row
-reductions and the affine pass run on that register copy, and each element is
-read once and written once. ``rms`` and the bias are compile-time switches;
-``eps`` is a runtime scalar.
-
-K3 replaces ``_ln_bwd_kernel`` (``:69``, launched by ``_ln_bwd_pallas`` at
-``:134``); its source states its bound and design. :func:`ln_bwd_geometry`
-sizes its persistent grid, the team of warps that owns a row and the stages
-of its ring from the card's SM count.
+then ``xhat * w + b`` written in the dtype the caller chose. K3 replaces
+``_ln_bwd_kernel`` (``:69``, launched by ``_ln_bwd_pallas`` at ``:134``).
+Each source states its bound and design. :func:`ln_fwd_geometry` and
+:func:`ln_bwd_geometry` size their persistent grids, the team of warps that
+owns a row and the stages of their rings from the card's SM count.
 
 The forward and backward are the ``torch.library`` custom ops
 ``beforeholiday::layer_norm_fwd`` and ``layer_norm_bwd`` where autograd
@@ -42,9 +32,17 @@ from beforeholiday_tpu_torch.remat.policies import TAG_NORM_OUT, tag_op
 
 # the dtypes K1 and K3 take, by K3's C interface code
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# widest row K1 keeps in registers (BLOCK elements x ROWS rows per program)
-# and K3 stages in shared memory
+# widest row K1 and K3 stage in shared memory
 _MAX_HIDDEN = 16384
+# shared memory a block of an H100 may use, and what the SM keeps of each
+# resident block for itself
+_SMEM_PER_SM = 228 * 1024
+_SMEM_PER_BLOCK = 227 * 1024
+_SMEM_RESERVED = 1024
+
+
+def _up16(n: int) -> int:
+    return (n + 15) // 16 * 16
 
 
 def ln_fwd_torch(x2d, w, b, eps: float, rms: bool, out_dtype):
@@ -62,45 +60,61 @@ def ln_fwd_torch(x2d, w, b, eps: float, rms: bool, out_dtype):
     return y.to(out_dtype)
 
 
+# K1's blocks: at most 8 warps; a team of 1-8 of them owns a row, each lane
+# units of 8 consecutive elements, at most _LN_FWD_UNITS units a lane (twice
+# that above hidden 8192, at one block an SM); gamma and beta staged as fp32
+_LN_FWD_VEC = 8
+_LN_FWD_UNITS = 4
+_LN_FWD_RED_BYTES = 2 * 8 * 4  # two reductions' cross-warp sums
+_LN_FWD_KEYS = ("team_warps", "nu", "teams", "stages", "blocks", "blocks_per_sm", "smem")
+
+
+def ln_fwd_geometry(rows: int, hidden: int, x_size: int, y_size: int,
+                    sms: int) -> dict:
+    """K1's launch for ``rows`` x ``hidden`` with x of ``x_size`` and y of
+    ``y_size`` bytes an element on a card of ``sms`` SMs: ``team_warps`` (the
+    warps that own a row) and ``nu`` (units of 8 elements a lane), from the
+    width alone, so that a row's bits never depend on the call; ``teams`` a
+    block (fewer for few rows, so that they spread over SMs), ``stages`` of
+    the cp.async ring, the persistent ``blocks`` at ``blocks_per_sm`` and the
+    dynamic shared memory ``smem`` (the cross-warp sums of wider teams, fp32
+    gamma and beta, the ring). The most blocks an SM that still leave two
+    stages win. y leaves from registers, so its size changes no part of the
+    plan. Raises where no plan fits."""
+    return dict(zip(_LN_FWD_KEYS, _ln_fwd_plan(rows, hidden, x_size, y_size, sms)))
+
+
+@functools.lru_cache(maxsize=1024)
+def _ln_fwd_plan(rows, hidden, x_size, y_size, sms):
+    if not 0 < hidden <= _MAX_HIDDEN:
+        raise ValueError(f"K1 takes hidden widths 1..{_MAX_HIDDEN}, got {hidden}")
+    units = -(-hidden // _LN_FWD_VEC)
+    team_warps = next((t for t in (1, 2, 4, 8) if units <= 32 * t * _LN_FWD_UNITS), 8)
+    nu = _LN_FWD_UNITS if units <= 32 * team_warps * _LN_FWD_UNITS else 2 * _LN_FWD_UNITS
+    row_bytes = units * _LN_FWD_VEC * x_size
+    head = (_LN_FWD_RED_BYTES if team_warps > 1 else 0) + 2 * 4 * units * _LN_FWD_VEC
+    for per_sm in ((4, 2, 1) if nu == _LN_FWD_UNITS else (1,)):
+        budget = min(_SMEM_PER_BLOCK, _SMEM_PER_SM // per_sm - _SMEM_RESERVED) - head
+        teams = max(1, min(8 // team_warps, -(-rows // (sms * per_sm))))
+        while teams > 1 and budget // (teams * row_bytes) < 2:
+            teams //= 2
+        stages = min(3, budget // (teams * row_bytes))
+        if stages >= 2:
+            break
+    if stages < 1:
+        raise ValueError(f"K1 has no shared-memory plan for hidden {hidden}")
+    blocks = max(1, min(sms * per_sm, -(-rows // teams)))
+    return team_warps, nu, teams, stages, blocks, per_sm, head + stages * teams * row_bytes
+
+
 @functools.cache
-def _ln_fwd_triton():
-    # ``tl`` is bound as a module global so that the kernel body and its
-    # constexpr annotations resolve it the way Triton looks names up
-    global tl
-    from beforeholiday_tpu_torch._build import triton_cache_env
-
-    triton_cache_env()
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def _ln_fwd(X, W, B, Y, n_rows, n_cols, stride_x, stride_y, eps,
-                RMS: tl.constexpr, HAS_BIAS: tl.constexpr,
-                BLOCK: tl.constexpr, ROWS: tl.constexpr):
-        rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
-        cols = tl.arange(0, BLOCK)
-        cmask = cols < n_cols
-        mask = (rows < n_rows)[:, None] & cmask[None, :]
-        rows64 = rows.to(tl.int64)[:, None]
-        x = tl.load(X + rows64 * stride_x + cols[None, :], mask=mask,
-                    other=0.0).to(tl.float32)
-        if RMS:
-            var = tl.sum(x * x, axis=1) / n_cols
-            xhat = x * tl.rsqrt(var + eps)[:, None]
-        else:
-            mean = tl.sum(x, axis=1) / n_cols
-            xc = tl.where(mask, x - mean[:, None], 0.0)
-            var = tl.sum(xc * xc, axis=1) / n_cols
-            xhat = xc * tl.rsqrt(var + eps)[:, None]
-        w = tl.load(W + cols, mask=cmask, other=0.0).to(tl.float32)
-        y = xhat * w[None, :]
-        if HAS_BIAS:
-            b = tl.load(B + cols, mask=cmask, other=0.0).to(tl.float32)
-            y = y + b[None, :]
-        tl.store(Y + rows64 * stride_y + cols[None, :],
-                 y.to(Y.dtype.element_ty), mask=mask)
-
-    return triton, _ln_fwd
+def _ln_fwd_lib():
+    fn = _build.load("layer_norm_fwd").ln_fwd
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, i, i, ctypes.c_longlong, i, i, i, i, i, i,
+                   ctypes.c_float, i, i, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def ln_fwd_kernel(x2d, w, b, eps: float, rms: bool, out_dtype):
@@ -110,6 +124,8 @@ def ln_fwd_kernel(x2d, w, b, eps: float, rms: bool, out_dtype):
         raise ValueError(f"K1 takes a 2-D CUDA tensor, got {tuple(x2d.shape)} "
                          f"on {x2d.device}")
     rows, hidden = x2d.shape
+    if not 0 < hidden <= _MAX_HIDDEN:
+        raise ValueError(f"hidden {hidden} is outside K1's widths 1..{_MAX_HIDDEN}")
     params = [w] if b is None else [w, b]
     for t in params:
         if t.device != x2d.device or t.shape != (hidden,):
@@ -121,19 +137,21 @@ def ln_fwd_kernel(x2d, w, b, eps: float, rms: bool, out_dtype):
             raise ValueError(f"K1 does not take dtype {dt}")
     if x2d.stride(1) != 1 or any(not t.is_contiguous() for t in params):
         raise ValueError("K1 needs unit-stride rows and contiguous params")
-    triton, kernel = _ln_fwd_triton()
-    block = triton.next_power_of_2(hidden)
-    if block > _MAX_HIDDEN:
-        raise ValueError(f"hidden {hidden} exceeds K1's widest row {_MAX_HIDDEN}")
-    n_rows = max(1, 4096 // block)
-    y = torch.empty((rows, hidden), dtype=out_dtype, device=x2d.device)
+    dev = x2d.device
+    y = torch.empty((rows, hidden), dtype=out_dtype, device=dev)
     if rows:
-        kernel[(triton.cdiv(rows, n_rows),)](
-            x2d, w, w if b is None else b, y, rows, hidden,
-            x2d.stride(0), y.stride(0), float(eps),
-            RMS=rms, HAS_BIAS=b is not None, BLOCK=block, ROWS=n_rows,
-            num_warps=4 if block * n_rows <= 4096 else 8,
-        )
+        team_warps, nu, teams, stages, blocks, _, smem = _ln_fwd_plan(
+            rows, hidden, x2d.element_size(), y.element_size(), sm_count(dev.index))
+        fn = _ln_fwd_lib()
+        with torch.cuda.device(dev):
+            rc = fn(x2d.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+                    y.data_ptr(), rows, hidden, x2d.stride(0), _KERNEL_DTYPES[x2d.dtype],
+                    _KERNEL_DTYPES[w.dtype], _KERNEL_DTYPES[(w if b is None else b).dtype],
+                    _KERNEL_DTYPES[out_dtype], int(rms), int(b is not None), float(eps),
+                    team_warps, nu, teams, stages, blocks, smem,
+                    torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"K1 (layer_norm_fwd) launch failed with CUDA error {rc}")
         ln_fwd_kernel.launches += 1
     return y
 
@@ -166,16 +184,7 @@ def ln_bwd_torch(x2d, w, dy, eps: float, rms: bool):
 # above hidden 8192, at one block an SM)
 _LN_WARPS = 8
 _LN_UNITS = 8
-# shared memory a block of an H100 may use, and what the SM keeps of each
-# resident block for itself
-_SMEM_PER_SM = 228 * 1024
-_SMEM_PER_BLOCK = 227 * 1024
-_SMEM_RESERVED = 1024
 _LN_RED_BYTES = 2 * _LN_WARPS * 4 * 4  # two passes' cross-warp sums
-
-
-def _up16(n: int) -> int:
-    return (n + 15) // 16 * 16
 
 
 def ln_bwd_geometry(rows: int, hidden: int, x_size: int, dy_size: int,

@@ -2,7 +2,9 @@
 """Time one checkout of the PyTorch/CUDA port against another on one NVIDIA
 GPU: K2 and K4 (flash attention forward and backward) at the GPT and BERT
 training shapes, without dropout and at the GPT shape with it, K3
-(LayerNorm backward) at the training shape, K13 (the dropout keep mask) at
+(LayerNorm backward) at the training shape, K1 (LayerNorm forward) at its
+five main-path shapes (16384, 8192 and 4096 rows of 1024 bf16 with fp32
+gamma and beta, 8192 and 32 with bf16 ones), K13 (the dropout keep mask) at
 the dropout steps' four shapes, and the flagship GPT and BERT-Large O5
 training steps at full width (the shapes, batches and optimizers of
 ``chip_smoke.py``), with no dropout, so that any two checkouts of the port
@@ -22,7 +24,8 @@ warm-up steps. With ``--sass`` it also prints K13's instruction mix: the
 SASS of the loop that hashes a thread's patch (``cuobjdump -sass`` on the
 built library), counted by opcode and by pipe, per element; with
 ``--ptxas NAME ...`` the registers, spills and shared memory that ``nvcc
--Xptxas -v`` reports for each kernel of ``csrc/NAME.cu``. With ``--decode``
+-Xptxas -v`` reports for each kernel of ``csrc/NAME.cu`` (registers, stack
+frame and spill bytes, static shared memory). With ``--decode``
 it times the serving engine instead, and nothing else: ``chip_smoke.py``'s
 ``decode_profile`` (the flagship GPT's decode step at the largest decode
 bucket, 32 sequences of about 500 cached tokens: wall ms, tokens/s, device
@@ -102,9 +105,11 @@ def ptxas_usage(build, name):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             fn = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
         if m and fn:
-            usage.setdefault(fn, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            usage.setdefault(fn, {})["stack_frame"] = int(m.group(1))
+            usage[fn]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
         m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", ln)
         if m and fn:
             usage.setdefault(fn, {})["registers"] = int(m.group(1))
@@ -441,8 +446,17 @@ def main():
     x = (torch.randn(16384, 1024, generator=g, device="cuda") * 2 + 0.5).bfloat16()
     dy = torch.randn(16384, 1024, generator=g, device="cuda").bfloat16()
     w = 1 + 0.1 * torch.randn(1024, generator=g, device="cuda")
+    b = 0.1 * torch.randn(1024, generator=g, device="cuda")
     out["k3_train_ms"] = time_ms(lambda: norm.ln_bwd_kernel(x, w, dy, 1e-5, False, True))
-    del x, dy, w
+    # K1 at its five main-path shapes: rows, and whether gamma/beta stay fp32
+    # (amp O5's training steps) or take x's bf16 (the serving engine)
+    for name, n, fp32_w in (("train", 16384, True), ("prefill", 8192, False),
+                            ("tp2_sp", 8192, True), ("tp_world1", 4096, True),
+                            ("decode", 32, False)):
+        pw, pb = (w, b) if fp32_w else (w.bfloat16(), b.bfloat16())
+        out[f"k1_{name}_ms"] = time_ms(
+            lambda: norm.ln_fwd_kernel(x[:n], pw, pb, 1e-5, False, torch.bfloat16))
+    del x, dy, w, b
     key = torch.tensor([1234, 5678], dtype=torch.int64, device="cuda")
     for name, shape in (("gpt_probs", (256, 1024, 1024)),
                         ("gpt_hidden", (16, 1024, 1024)),

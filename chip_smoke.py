@@ -9,11 +9,15 @@ Run from the root of the repository, with no arguments::
 Phases, each printing one line (any failure exits non-zero):
 
 1. device: name, count, and ``nvidia-smi``'s name and power limit;
-2. build: every CUDA source compiled by nvcc (in parallel) plus the Triton
-   compile of K1, from the sources in the checkout (the other Triton
-   kernels compile at their first launch);
-3. K1 (LayerNorm forward, Triton) against its plain version at the engine's
-   and the training step's shapes, timed beside its bound and
+2. build: every CUDA source compiled by nvcc (in parallel), from the
+   sources in the checkout (the Triton kernels compile at their first
+   launch);
+3. K1 (LayerNorm forward, CUDA C++) against its plain version at the
+   engine's and the training step's shapes and at awkward ones (fp16, a
+   strided view, rows not 16-byte aligned, hidden 16384 and 1001), each
+   call twice and bitwise equal, strided views bitwise their contiguous
+   copies, decode's 32 rows bitwise the same rows inside a prefill call, an
+   empty call launching nothing; timed beside its bound and
    ``F.layer_norm``;
 4. K2 (flash-attention forward, CUDA C++) against its plain version at the
    prefill, decode, GPT and BERT training shapes and at lengths off its
@@ -132,8 +136,9 @@ Phases, each printing one line (any failure exits non-zero):
     (the GPT shape with and without dropout, BERT's with ragged lengths,
     head dim 40 on the row kernels; K4 twice, bitwise), fp16 into K2's
     decode and paged modes refused, K10 on ResNet-50's fp16 parameter arena
-    with fp32 momentum, and the launch floor (an empty kernel through the
-    same timing harness); the flagship GPT at O2 (flash and unfused), O1
+    with fp32 momentum, and the launch floors (an empty Triton kernel and an
+    empty CUDA kernel launched through ``ctypes``, through the same timing
+    harness); the flagship GPT at O2 (flash and unfused), O1
     and O4: the parity step at batch 2 (a static scale of 2^10), O2's skip
     step, and the timed and profiled run at batch 16 with its skipped steps
     and final loss scale; ResNet-50 at O2 (parity at batch 2 with cuDNN
@@ -228,7 +233,8 @@ Phases, each printing one line (any failure exits non-zero):
     ``--flight-recorder``: the trace parses and holds CUDA kernels, the
     flight dump holds every printed step);
 24. the total seconds, each phase's wall seconds (``phase_seconds``), the
-    ``kernels`` JSON line (with ``launch_floor_ms``), the card line, and the
+    ``kernels`` JSON line (with ``launch_floor_ms``, the Triton floor, and
+    ``launch_floor_cuda_ms``), the card line, and the
     final ``ok`` line.
 
 ``F.layer_norm``, ``F.scaled_dot_product_attention``, their backwards,
@@ -438,6 +444,8 @@ RESNET_WD = 1e-4
 
 # tolerances (PERF.md explains each)
 BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -8)
+# fp16 outputs: the same one rounding at fp16's unit roundoff (8 times finer)
+FP16_TOL = dict(rtol=2 ** -10, atol=2 ** -11)
 FP32_TOL = dict(rtol=1e-5, atol=2e-5)
 LOGIT_TOL = 0.1
 # unfused against flash loss, relative: about 10 times the larger reading
@@ -573,33 +581,66 @@ def check_softmax_grad(name, dx, ref, y, dy, scale, rtol):
 
 
 def k1_phase(norm):
-    """Check K1 everywhere, time it at the engine's two shapes."""
+    """Check K1 everywhere (each call twice, bitwise equal; decode's 32 rows
+    bitwise the same rows inside a prefill call; an empty call launches
+    nothing), time it at the engine's two shapes and the training step's."""
     g = gen(1)
-    checks = [  # rows, hidden, in dtype, rms, out dtype
-        (16384, 1024, torch.bfloat16, False, torch.bfloat16),
-        (8192, 1024, torch.bfloat16, False, torch.bfloat16),
-        (32, 1024, torch.bfloat16, False, torch.bfloat16),
-        (8192, 1024, torch.float32, False, torch.float32),
-        (8192, 1024, torch.float32, True, torch.float32),
-        (77, 1000, torch.float32, False, torch.float32),
-        (64, 1000, torch.bfloat16, True, torch.float32),
+    checks = [  # rows, hidden, in dtype, rms, out dtype, row stride
+        (16384, 1024, torch.bfloat16, False, torch.bfloat16, 1024),
+        (8192, 1024, torch.bfloat16, False, torch.bfloat16, 1024),
+        (32, 1024, torch.bfloat16, False, torch.bfloat16, 1024),
+        (8192, 1024, torch.float32, False, torch.float32, 1024),
+        (8192, 1024, torch.float32, True, torch.float32, 1024),
+        (77, 1000, torch.float32, False, torch.float32, 1000),
+        (64, 1000, torch.bfloat16, True, torch.float32, 1000),
+        (8192, 1024, torch.float16, False, torch.float16, 1024),
+        (4096, 1024, torch.bfloat16, False, torch.bfloat16, 1536),
+        (4096, 1000, torch.bfloat16, False, torch.bfloat16, 1003),
+        (256, 16384, torch.bfloat16, False, torch.bfloat16, 16384),
+        (256, 16384, torch.float32, True, torch.float32, 16384),
+        (300, 1001, torch.bfloat16, False, torch.bfloat16, 1001),
     ]
     rows_out = {}
-    for rows, hidden, dt, rms, out_dt in checks:
-        x = (torch.randn(rows, hidden, generator=g, device="cuda") * 2 + .5).to(dt)
+    for rows, hidden, dt, rms, out_dt, stride in checks:
+        x = (torch.randn(rows, stride, generator=g, device="cuda") * 2 + .5).to(dt)
+        x = x[:, :hidden]
         # the training step's LayerNorms keep fp32 gamma/beta (amp O5)
         pdt = torch.float32 if rows == 16384 else dt
         w = (1 + .1 * torch.randn(hidden, generator=g, device="cuda")).to(pdt)
         b = None if rms else (.1 * torch.randn(hidden, generator=g, device="cuda")).to(pdt)
         args = (x, w, b, 1e-5, rms, out_dt)
         got = norm.ln_fwd_kernel(*args)
+        again = norm.ln_fwd_kernel(*args)
         ref = norm.ln_fwd_torch(*args)
         torch.cuda.synchronize()
-        tag = f"{rows}x{hidden} {str(dt)[6:]}{' rms' if rms else ''}->{str(out_dt)[6:]}"
-        err = check_close(f"K1 {tag}", got, ref,
-                          BF16_TOL if out_dt == torch.bfloat16 else FP32_TOL)
-        fields = dict(max_abs_err=err)
-        if dt == torch.bfloat16 and hidden == 1024 and not rms:
+        tag = (f"{rows}x{hidden} {str(dt)[6:]}{' rms' if rms else ''}->{str(out_dt)[6:]}"
+               f"{f' stride {stride}' if stride != hidden else ''}")
+        err = check_close(f"K1 {tag}", got, ref, {torch.bfloat16: BF16_TOL,
+                                                  torch.float16: FP16_TOL}.get(out_dt, FP32_TOL))
+        if not torch.equal(got, again):
+            raise AssertionError(f"K1 {tag}: two calls differ")
+        fields = dict(max_abs_err=err, two_calls="bitwise")
+        if stride != hidden:
+            # the strided view bitwise its contiguous copy (another layout,
+            # another path when the stride breaks 16-byte rows)
+            if not torch.equal(norm.ln_fwd_kernel(x.contiguous(), *args[1:]), got):
+                raise AssertionError(f"K1 {tag}: differs from its contiguous copy")
+            fields["contiguous_copy"] = "bitwise"
+        if rows == 8192 and dt == torch.bfloat16:
+            # decode-shape calls of 32 rows: bitwise the rows of the whole call
+            for lo in (0, 4000, 8160):
+                part = norm.ln_fwd_kernel(x[lo:lo + 32], w, b, 1e-5, rms, out_dt)
+                if not torch.equal(part, got[lo:lo + 32]):
+                    raise AssertionError(f"K1 {tag}: rows {lo}..{lo + 31} alone differ "
+                                         "from the same rows in the whole call")
+            fields["rows_alone"] = "bitwise"
+            before = norm.ln_fwd_kernel.launches
+            empty = norm.ln_fwd_kernel(x[:0], w, b, 1e-5, rms, out_dt)
+            if empty.shape != (0, hidden) or norm.ln_fwd_kernel.launches != before:
+                raise AssertionError(f"K1 0x{hidden}: {tuple(empty.shape)}, "
+                                     f"{norm.ln_fwd_kernel.launches - before} launches")
+            fields["empty_call"] = "no launch"
+        if dt == torch.bfloat16 and hidden == stride == 1024 and not rms:
             nbytes = 2 * x.numel() * x.element_size() + 2 * hidden * w.element_size()
             bms, by = bound_ms(nbytes, 8 * x.numel(), torch.float32)
             wl, bl = w.to(dt), b.to(dt)
@@ -2376,8 +2417,11 @@ def serving_phase(infer, params, cfg, norm, attn, card, cache_dtype="float32",
     return eng, launches, {r.rid: r.out for r in fin}
 
 
+# K1's kernel symbol; "_ln_fwd" is the Triton K1 of older checkouts, which
+# chip_ab.py profiles with these groups
+K1_FRAGMENTS = ("ln_fwd_rows", "_ln_fwd")
 # kernel-name fragments -> the layer of the serving path they belong to
-KERNEL_GROUPS = (("K1 layer_norm_fwd", ("_ln_fwd",)),
+KERNEL_GROUPS = (("K1 layer_norm_fwd", K1_FRAGMENTS),
                  ("K2 flash_fwd", ("flash_fwd_",)),
                  ("K2 decode", ("flash_decode_",)),
                  ("gemm", ("gemm", "sm90_", "cutlass", "xmma", "cublas", "nvjet")),
@@ -2425,6 +2469,7 @@ def profile_phase(infer, eng, cfg, label="profile"):
     if busy == 0:
         line(label, device_time="not measured (no CUDA events in the trace)")
         return
+    require_k1(label, groups)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"{label}: " + json.dumps({
         "wall_ms": wall_ms, "device_busy_ms": busy,
@@ -2476,6 +2521,7 @@ def decode_profile(infer, params, cfg, seed=5):
     busy = sum(by_name.values()) / DECODE_CALLS
     if busy == 0:
         raise AssertionError("decode profile: no CUDA events in the trace")
+    require_k1("decode profile", groups)
     per = 1.0 / DECODE_CALLS
     return {"batch": DECODE_BATCH, "mean_len": float(np.mean(state["lens"])),
             "wall_ms_per_call": wall_ms, "tokens_per_s": DECODE_BATCH / wall_ms * 1e3,
@@ -2908,6 +2954,14 @@ def lm_work(m, batch):
                 peak=PEAK_BF16, params=n_params)
 
 
+def require_k1(label, groups):
+    """A profile of a path with LayerNorms must find K1's kernel by its
+    symbol (K1_FRAGMENTS): an empty K1 group means the fragments no longer
+    match what the card ran."""
+    if groups.get("K1 layer_norm_fwd", 1.0) == 0.0:
+        raise AssertionError(f"{label}: no kernel in the trace matched K1's group")
+
+
 def device_ms_by_group(prof, groups, ranges=()):
     """Device time per kernel name (device events only: an op's row repeats
     its kernels' time), grouped by name fragments. The device-side spans of
@@ -2932,7 +2986,7 @@ def device_ms_by_group(prof, groups, ranges=()):
 
 
 GEMM_FRAGMENTS = ("gemm", "sm90_", "cutlass", "xmma", "cublas", "nvjet")
-TRAIN_GROUPS = (("K1 layer_norm_fwd", ("_ln_fwd",)),
+TRAIN_GROUPS = (("K1 layer_norm_fwd", K1_FRAGMENTS),
                 ("K3 layer_norm_bwd", ("ln_bwd",)),
                 ("K2 flash_fwd", ("flash_fwd_",)),
                 ("K4 flash_bwd", ("flash_bwd_",)),
@@ -2947,7 +3001,7 @@ TRAIN_GROUPS = (("K1 layer_norm_fwd", ("_ln_fwd",)),
 # LAMB's per-tensor norms of p and u are plain torch.dot calls (cuBLAS dot
 # and its reduction), listed before the GEMM fragments they share "cublas"
 # with
-BERT_GROUPS = (("K1 layer_norm_fwd", ("_ln_fwd",)),
+BERT_GROUPS = (("K1 layer_norm_fwd", K1_FRAGMENTS),
                ("K3 layer_norm_bwd", ("ln_bwd",)),
                ("K2 flash_fwd", ("flash_fwd_",)),
                ("K4 flash_bwd", ("flash_bwd_",)),
@@ -3021,6 +3075,7 @@ def train_profile(label, step, batch, groups, ranges=None):
     if busy == 0:
         line(label, device_time="not measured (no CUDA events in the trace)")
         return
+    require_k1(label, by_group)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     per = 1.0 / PROFILE_STEPS
     opt_ms = range_kernels_ms(prof, OPT_RANGE)
@@ -4060,10 +4115,15 @@ def k10_half_phase(mt, spec):
 
 
 def launch_floor_phase():
-    """The least time a kernel launch costs the card: an empty Triton kernel
-    of one program, timed by :func:`time_ms` (20 launches, L2 flushed), the
-    harness every row of the kernels line uses. A row near it is a launch,
-    not its work."""
+    """The least time a kernel launch costs the card, through :func:`time_ms`
+    (L2 flushed), the harness every row of the kernels line uses: an empty
+    Triton kernel of one program, and an empty CUDA kernel of one warp
+    launched through ``ctypes`` as K1-K4 are (``csrc/layer_norm_fwd.cu``
+    ``empty_launch``). A row near its route's floor is a launch, not its
+    work. Returns both, Triton's first."""
+    import ctypes
+
+    from beforeholiday_tpu_torch import _build
     from beforeholiday_tpu_torch.ops.multi_tensor import _triton
 
     triton = _triton()
@@ -4075,7 +4135,17 @@ def launch_floor_phase():
     x = torch.zeros(1, device="cuda")
     ms = time_ms(lambda: _empty[(1,)](x))
     line("launch_floor", kernel="'empty Triton kernel, one program'", ms=ms)
-    return ms
+    empty = _build.load("layer_norm_fwd").empty_launch
+    empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        if empty(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("the empty CUDA kernel did not launch")
+
+    cuda_ms = time_ms(launch)
+    line("launch_floor", kernel="'empty CUDA kernel, one warp, through ctypes'",
+         ms=cuda_ms)
+    return ms, cuda_ms
 
 
 def scale_line(label, scaler_state):
@@ -6515,7 +6585,7 @@ def imagenet_monitor_phase(main_amp, tmp):
 
 
 KERNEL_ROWS = (
-    ("layer_norm_fwd", "triton", "beforeholiday_tpu_torch/ops/normalization.py",
+    ("layer_norm_fwd", "cuda", "beforeholiday_tpu_torch/csrc/layer_norm_fwd.cu",
      "beforeholiday_tpu/ops/normalization.py:55"),
     ("flash_fwd", "cuda", "beforeholiday_tpu_torch/csrc/flash_fwd.cu",
      "beforeholiday_tpu/ops/attention.py:152"),
@@ -6589,12 +6659,7 @@ def main():
 
     t0 = time.perf_counter()
     libs = _build.build()
-    t_nvcc = time.perf_counter() - t0
-    x = torch.zeros(8, 1024, device="cuda", dtype=torch.bfloat16)
-    norm.ln_fwd_kernel(x, x[0], x[0], 1e-5, False, torch.bfloat16)
-    torch.cuda.synchronize()
-    line("build", seconds=time.perf_counter() - t0, nvcc_seconds=t_nvcc,
-         libraries=",".join(sorted(libs)))
+    line("build", seconds=time.perf_counter() - t0, libraries=",".join(sorted(libs)))
     PHASE_SECONDS["build"] = time.perf_counter() - t0
 
     cfg = gpt.GPTConfig(**MODEL)
@@ -6636,7 +6701,7 @@ def main():
     rows["flash_fwd"].update(fwd16)
     rows["flash_bwd"].update(bwd16)
     rows["sgd"].update(k10_half_phase(mt, o0_spec))
-    launch_floor = launch_floor_phase()
+    launch_floor, launch_floor_cuda = launch_floor_phase()
     torch.cuda.empty_cache()
     # slice 14: the fp8 tier's parts at the flagship's block GEMM shapes
     o6_gemm_phase(q8)
@@ -7033,7 +7098,8 @@ def main():
                 library_ms=f["library_ms"]))
     line("total", seconds=time.perf_counter() - t_start)
     print("phase_seconds: " + json.dumps(PHASE_SECONDS), flush=True)
-    print(json.dumps({"kernels": kernels, "launch_floor_ms": launch_floor}),
+    print(json.dumps({"kernels": kernels, "launch_floor_ms": launch_floor,
+                      "launch_floor_cuda_ms": launch_floor_cuda}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Kernels K1 (LayerNorm forward, Triton), K3 (LayerNorm backward, CUDA
+"""Kernels K1 and K3 (LayerNorm forward and backward, CUDA
 C++), K2/K4 (flash attention forward/backward with dropout, CUDA C++), K5
 (unscale), K6 (fused Adam), K7 (LAMB stage 1), K8 (trust-ratio update), K9
 (global sum of squares), K10 (fused SGD) and K11/K12 (scaled masked softmax
@@ -54,6 +54,8 @@ pytestmark = pytest.mark.gpu
 # so they may differ by one bf16 ulp (relative 2**-7) where the fp32 values
 # straddle a rounding boundary
 BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -8)
+# fp16 outputs: the same one rounding at fp16's unit roundoff (8 times finer)
+FP16_TOL = dict(rtol=2 ** -10, atol=2 ** -11)
 FP32_TOL = dict(rtol=1e-5, atol=2e-5)
 
 
@@ -72,26 +74,62 @@ def _gen(seed):
 # ------------------------------------------------------------------- K1
 
 
-@pytest.mark.parametrize("rows, hidden, dtype, rms, out_dtype", [
-    (8192, 1024, torch.bfloat16, False, torch.bfloat16),  # prefill
-    (32, 1024, torch.bfloat16, False, torch.bfloat16),    # decode
-    (300, 1024, torch.float32, False, torch.float32),
-    (300, 1024, torch.float32, True, torch.float32),
-    (77, 1000, torch.float32, False, torch.float32),      # odd width
-    (64, 1000, torch.bfloat16, True, torch.float32),      # mixed dtype
+@pytest.mark.parametrize("rows, hidden, dtype, rms, out_dtype, stride", [
+    (8192, 1024, torch.bfloat16, False, torch.bfloat16, 1024),  # prefill
+    (32, 1024, torch.bfloat16, False, torch.bfloat16, 1024),    # decode
+    (300, 1024, torch.float32, False, torch.float32, 1024),
+    (300, 1024, torch.float32, True, torch.float32, 1024),
+    (77, 1000, torch.float32, False, torch.float32, 1000),      # odd width
+    (64, 1000, torch.bfloat16, True, torch.float32, 1000),      # mixed dtype
+    (300, 1024, torch.float16, False, torch.float16, 1024),     # amp O2
+    (300, 1024, torch.bfloat16, False, torch.bfloat16, 1536),   # strided view
+    (300, 1000, torch.bfloat16, False, torch.bfloat16, 1003),   # unaligned rows
+    (40, 16384, torch.bfloat16, False, torch.bfloat16, 16384),  # widest row
+    (40, 16384, torch.float32, True, torch.float32, 16384),
+    (50, 1001, torch.float16, False, torch.float32, 1001),      # not a multiple of 8
 ])
-def test_k1_matches_plain(cuda, rows, hidden, dtype, rms, out_dtype):
+@pytest.mark.parametrize("params", ["fp32", "x's dtype"])
+def test_k1_matches_plain(cuda, rows, hidden, dtype, rms, out_dtype, stride, params):
+    """K1 against its plain version, gamma and beta in fp32 (amp O5's
+    training steps) or in x's dtype (the serving engine), and two calls
+    bitwise equal."""
     g = _gen(0)
-    x = (torch.randn(rows, hidden, generator=g, device=cuda) * 2 + 0.5).to(dtype)
-    w = 1 + 0.1 * torch.randn(hidden, generator=g, device=cuda)
-    b = None if rms else 0.1 * torch.randn(hidden, generator=g, device=cuda)
+    base = (torch.randn(rows, stride, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    x = base[:, :hidden]
+    pdt = torch.float32 if params == "fp32" else dtype
+    w = (1 + 0.1 * torch.randn(hidden, generator=g, device=cuda)).to(pdt)
+    b = None if rms else (0.1 * torch.randn(hidden, generator=g, device=cuda)).to(pdt)
     before = tnorm.ln_fwd_kernel.launches
     got = tnorm.ln_fwd_kernel(x, w, b, 1e-5, rms, out_dtype)
     assert tnorm.ln_fwd_kernel.launches == before + 1
     ref = tnorm.ln_fwd_torch(x, w, b, 1e-5, rms, out_dtype)
+    again = tnorm.ln_fwd_kernel(x, w, b, 1e-5, rms, out_dtype)
     torch.cuda.synchronize()
-    tol = BF16_TOL if out_dtype == torch.bfloat16 else FP32_TOL
+    tol = {torch.bfloat16: BF16_TOL, torch.float16: FP16_TOL}.get(out_dtype, FP32_TOL)
     torch.testing.assert_close(got, ref, **tol)
+    assert torch.equal(got, again)
+
+
+def test_k1_rows_independent_of_the_call(cuda):
+    """A row's bits depend on its values alone: decode's 32 rows alone are
+    bitwise the same rows inside an 8192-row call, an unaligned view the
+    same as its contiguous copy; an empty call launches nothing."""
+    g = _gen(1)
+    x = (torch.randn(8192, 1024, generator=g, device=cuda) * 2 + 0.5).bfloat16()
+    w = 1 + 0.1 * torch.randn(1024, generator=g, device=cuda)
+    b = 0.1 * torch.randn(1024, generator=g, device=cuda)
+    whole = tnorm.ln_fwd_kernel(x, w, b, 1e-5, False, torch.bfloat16)
+    for lo in (0, 4000, 8160):
+        part = tnorm.ln_fwd_kernel(x[lo:lo + 32], w, b, 1e-5, False, torch.bfloat16)
+        assert torch.equal(part, whole[lo:lo + 32])
+    before = tnorm.ln_fwd_kernel.launches
+    empty = tnorm.ln_fwd_kernel(x[:0], w, b, 1e-5, False, torch.bfloat16)
+    assert empty.shape == (0, 1024) and tnorm.ln_fwd_kernel.launches == before
+    # a view whose rows break 16-byte alignment takes plain loads: the same bits
+    odd = (torch.randn(300, 1003, generator=g, device=cuda) * 2 + 0.5).bfloat16()[:, :1000]
+    args = (w[:1000], b[:1000], 1e-5, False, torch.bfloat16)
+    assert torch.equal(tnorm.ln_fwd_kernel(odd, *args),
+                       tnorm.ln_fwd_kernel(odd.contiguous(), *args))
 
 
 def test_k1_public_path_launches(cuda):

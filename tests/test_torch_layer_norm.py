@@ -153,6 +153,78 @@ def test_k3_geometry_fits_an_h100(hidden, x_size, dy_size):
         assert per_sm * (geo["smem"] + 1024) <= 228 * 1024
 
 
+_K1_ROWS = (1, 32, 77, 4096, 16384)
+
+
+@pytest.mark.parametrize("x_size, y_size", [(2, 2), (4, 4), (2, 4), (4, 2)])
+def test_k1_geometry_fits_an_h100_at_every_width(x_size, y_size):
+    """K1's launch from ``ln_fwd_geometry`` at every width 1..16384: every
+    unit of 8 columns has a lane, the team (and a lane's units) follow from
+    the width alone, never from the rows or the dtypes, so a row's bits
+    never depend on the call; the teams fit a block of at most 8 warps,
+    every persistent block has a row to start on and the grid's stride
+    walks every row; the cross-warp sums, fp32 gamma and beta and a ring of
+    at least two stages (one only at the widest fp32 rows) fit the blocks
+    an SM is meant to hold; the output's size changes nothing."""
+    for hidden in range(1, 16385):
+        plans = [tnorm.ln_fwd_geometry(rows, hidden, x_size, y_size, 132)
+                 for rows in _K1_ROWS]
+        team, nu = plans[0]["team_warps"], plans[0]["nu"]
+        assert team in (1, 2, 4, 8) and nu in (4, 8)
+        assert -(-hidden // 8) <= 32 * team * nu
+        for rows, geo in zip(_K1_ROWS, plans):
+            assert (geo["team_warps"], geo["nu"]) == (team, nu)
+            teams, blocks, per_sm = geo["teams"], geo["blocks"], geo["blocks_per_sm"]
+            assert 1 <= teams and team * teams <= 8
+            assert per_sm in ((4, 2, 1) if nu == 4 else (1,))
+            assert 1 <= blocks <= 132 * per_sm
+            assert (blocks - 1) * teams < rows
+            assert 1 <= geo["stages"] <= 3
+            assert geo["stages"] >= 2 or (per_sm == 1 and teams == 1)
+            units = -(-hidden // 8)
+            head = (2 * 8 * 4 if team > 1 else 0) + 2 * 4 * 8 * units
+            ring = geo["stages"] * teams * 8 * units * x_size
+            assert geo["smem"] == head + ring
+            assert geo["smem"] <= 227 * 1024
+            assert per_sm * (geo["smem"] + 1024) <= 228 * 1024
+            assert geo == tnorm.ln_fwd_geometry(rows, hidden, x_size, 6 - y_size, 132)
+        assert [(p["team_warps"], p["nu"]) for p in plans] == [
+            (p["team_warps"], p["nu"])
+            for p in (tnorm.ln_fwd_geometry(rows, hidden, 6 - x_size, y_size, 132)
+                      for rows in _K1_ROWS)]
+
+
+@pytest.mark.parametrize("hidden, team, nu", [
+    (1, 1, 4), (8, 1, 4), (1000, 1, 4), (1024, 1, 4), (1025, 2, 4),
+    (4096, 4, 4), (8192, 8, 4), (8193, 8, 8), (16384, 8, 8)])
+def test_k1_geometry_at_the_paths_widths(hidden, team, nu):
+    """A warp owns a row up to hidden 1024 (reductions by shuffles alone),
+    a team of 2-8 warps wider rows; the training shape runs 8 teams a block,
+    four blocks an SM, three stages; decode's 32 rows spread over 32 SMs,
+    one team a block."""
+    geo = tnorm.ln_fwd_geometry(16384, hidden, 2, 2, 132)
+    assert (geo["team_warps"], geo["nu"]) == (team, nu)
+    if hidden == 1024:
+        params = 2 * 4 * 1024
+        assert geo == dict(team_warps=1, nu=4, teams=8, stages=3, blocks=528,
+                           blocks_per_sm=4, smem=params + 3 * 8 * 2048)
+        assert tnorm.ln_fwd_geometry(32, 1024, 2, 2, 132) == dict(
+            team_warps=1, nu=4, teams=1, stages=3, blocks=32, blocks_per_sm=4,
+            smem=params + 3 * 2048)
+
+
+@pytest.mark.parametrize("hidden", [0, -1, 16385, 32768])
+def test_k1_geometry_refuses_widths_it_cannot_take(hidden):
+    with pytest.raises(ValueError, match="hidden widths"):
+        tnorm.ln_fwd_geometry(32, hidden, 2, 2, 132)
+
+
+def test_k1_wrapper_refuses_a_width_past_its_widest_row():
+    x = torch.zeros(2, 16385)
+    with pytest.raises(ValueError):
+        tnorm.ln_fwd_kernel(x, torch.ones(16385), None, 1e-5, True, torch.float32)
+
+
 def _k3_refusals():
     x, w, _ = (torch.from_numpy(a) for a in _inputs((4, 16)))
     wide = torch.zeros(2, 16385)
