@@ -146,7 +146,8 @@ class AmpModel:
         if not self.scalers:
             self.scalers = (self.scaler,)
 
-    def state_dict(self, scaler_state) -> Dict[str, Any]:
+    def state_dict(self, scaler_state, metrics=None,
+                   optimizer_state=None) -> Dict[str, Any]:
         """Scaler checkpoint, one ``loss_scaler{i}`` entry per loss. Reads
         the scaler state back to the host: call it outside the step.
 
@@ -154,7 +155,14 @@ class AmpModel:
         stand in for a scaler state: its scaler serializes as
         ``loss_scaler{i}`` and its health counters ride along as
         ``health{i}``. The rollback snapshot is not serialized (it is
-        model-sized; ``StepGuard.load_state_dict`` re-seeds it)."""
+        model-sized; ``StepGuard.load_state_dict`` re-seeds it).
+
+        ``metrics`` (the ``monitor`` Metrics dict) serializes under one
+        ``"monitor"`` entry of host numbers; ``optimizer_state`` rides along
+        verbatim under ``"optimizer"`` (a sharded optimizer's own
+        ``state_dict(...)``: ZeRO-3's gathered trees, or its shard beside a
+        ``zero3.shard_manifest``). Loaders that read only the scalers ignore
+        both keys."""
         states = (list(scaler_state) if isinstance(scaler_state, (list, tuple))
                   else [scaler_state])
         if len(states) != len(self.scalers):
@@ -168,6 +176,13 @@ class AmpModel:
                 out[f"health{i}"] = {k: int(v) for k, v in st["health"].items()}
             else:
                 out[f"loss_scaler{i}"] = s.state_dict(st)
+        if metrics is not None:
+            out["monitor"] = {
+                k: (int(v) if not torch.as_tensor(v).is_floating_point()
+                    else float(v))
+                for k, v in metrics.items()}
+        if optimizer_state is not None:
+            out["optimizer"] = optimizer_state
         return out
 
     def load_state_dict(self, state_dict, device=None):
@@ -186,6 +201,25 @@ class AmpModel:
             else:
                 out.append(sstate)
         return out[0] if len(out) == 1 else out
+
+    def load_optimizer_state(self, state_dict):
+        """The ``"optimizer"`` entry :meth:`state_dict` saved, or None: feed
+        it back through that optimizer's ``load_state_dict`` (after
+        ``zero3.reshard_state`` when the world size changed)."""
+        return state_dict.get("optimizer")
+
+    def load_metrics(self, state_dict, monitor=None, device=None):
+        """The monitor Metrics saved by ``state_dict(..., metrics=...)``, or
+        None for a checkpoint without them. ``monitor`` defaults to a fresh
+        ``monitor.TrainMonitor``, whose ``load_state_dict`` zero-fills
+        missing keys and drops unknown ones."""
+        if "monitor" not in state_dict:
+            return None
+        if monitor is None:
+            from beforeholiday_tpu_torch.monitor import TrainMonitor
+
+            monitor = TrainMonitor()
+        return monitor.load_state_dict(state_dict["monitor"], device=device)
 
 
 def initialize(

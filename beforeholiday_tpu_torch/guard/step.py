@@ -24,7 +24,7 @@ Skip reasons are small int codes::
 The ``health`` dict (``consecutive_overflows``, ``skipped_total``,
 ``last_skip_reason``, ``rollbacks_total``, device int32) rides in the guard
 state and is serialized by ``amp.AmpModel.state_dict`` as ``health{i}``.
-``apply_sharded_update`` (the ZeRO-3 triplet) is not ported yet.
+``apply_sharded_update`` guards the ZeRO-3 shard triplet the same way.
 """
 
 from __future__ import annotations
@@ -252,11 +252,68 @@ class StepGuard:
         health["consecutive_overflows"] = consec.to(torch.int32)
         return new_params, new_opt_state, new_state
 
-    def apply_sharded_update(self, *args, **kwargs):
-        """The ZeRO-3 shard triplet's guarded update: not ported yet."""
-        raise NotImplementedError(
-            "StepGuard.apply_sharded_update needs ZeRO-3 (optimizers/zero3.py), "
-            "which is not ported yet")
+    def apply_sharded_update(self, opt, state, grads, gstate,
+                             verdict: Dict[str, torch.Tensor], *, grad_scale=1.0,
+                             extra_found_inf=None, **opt_kw):
+        """:meth:`apply_update` for the ZeRO-3 shard triplet; returns
+        ``(state, gstate)``. ``ZeRO3FusedAdam.step(grads, state)`` folds the
+        params into its state (the ``master``/``exp_avg``/``exp_avg_sq``
+        shards and the step count), so the sentinel screens the updated
+        ``master`` shard and a revert or rollback acts on the whole
+        triplet; the rollback snapshot (``init(state)``) is shard-sized.
+        Order, scale update and health bookkeeping are
+        :meth:`apply_update`'s. The step is in place, so ``check_params``
+        copies the triplet before it."""
+        keys = ("master", "exp_avg", "exp_avg_sq")
+        pre_inf = verdict["grad_overflow"] | verdict["loss_nonfinite"]
+        if extra_found_inf is not None:
+            pre_inf = pre_inf | (torch.as_tensor(extra_found_inf) != 0)
+        before = ([state[k].clone() for k in keys] if self.check_params else None)
+        new_state = opt.step(grads, state, found_inf=pre_inf,
+                             grad_scale=grad_scale, **opt_kw)
+
+        param_bad = torch.zeros_like(pre_inf)
+        if self.check_params:
+            param_bad = _tree_nonfinite(new_state["master"]) & ~pre_inf
+            _select_into(param_bad, before, [new_state[k] for k in keys])
+            new_state["step"] = torch.where(param_bad, state["step"],
+                                            new_state["step"])
+        skip = pre_inf | param_bad
+
+        sstate = self.scaler.update(gstate["scaler"], skip,
+                                    amax=verdict.get("amax"))
+        consec = sstate["consecutive_overflows"]
+        reason_now = torch.where(
+            verdict["loss_nonfinite"], SKIP_LOSS_NONFINITE,
+            torch.where(verdict["grad_overflow"], SKIP_GRAD_OVERFLOW,
+                        SKIP_PARAM_NONFINITE))
+        health = dict(gstate["health"])
+        health["skipped_total"] = health["skipped_total"] + skip.to(torch.int32)
+        health["last_skip_reason"] = torch.where(
+            skip, reason_now, health["last_skip_reason"]).to(torch.int32)
+
+        new_gstate = {"scaler": sstate, "health": health}
+        if self.rollback_after:
+            snapshot = gstate["snapshot"]
+            trigger = (skip & (consec >= self.rollback_after)
+                       & self.scaler.at_min_scale(sstate))
+            _select_into(trigger, [snapshot[k] for k in keys],
+                         [new_state[k] for k in keys])
+            new_state["step"] = torch.where(trigger, snapshot["step"],
+                                            new_state["step"])
+            # the snapshot holds on a skipped step, else takes the new state
+            _select_into(~skip, [new_state[k] for k in keys],
+                         [snapshot[k] for k in keys])
+            snapshot["step"] = torch.where(skip, snapshot["step"], new_state["step"])
+            new_gstate["snapshot"] = snapshot
+            consec = torch.where(trigger, 0, consec).to(torch.int32)
+            new_gstate["scaler"] = {**sstate, "consecutive_overflows": consec}
+            health["rollbacks_total"] = (health["rollbacks_total"]
+                                         + trigger.to(torch.int32))
+            health["last_skip_reason"] = torch.where(
+                trigger, SKIP_ROLLBACK, health["last_skip_reason"]).to(torch.int32)
+        health["consecutive_overflows"] = consec.to(torch.int32)
+        return new_state, new_gstate
 
     # --- checkpointing (host-side: these read values back) -----------------
 

@@ -16,11 +16,17 @@ Leaves under a :data:`STACKED_KEY` key carry a leading layer axis (the
 repo's stacked-layer convention) and get one leaf per layer, so a model that
 reads layer ``i`` as ``w[i]`` never makes autograd build a zero tensor of the
 whole stack for each layer.
+
+ZeRO shards an arena over the data group: :class:`ArenaShard` names one
+rank's TILE-aligned slice and the pieces of tensors it holds (host
+arithmetic on the static offsets), which the sharded per-tensor norms and
+K8's shard mode read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, List, Sequence, Tuple
 
@@ -325,3 +331,80 @@ class _GradPacked(PackedParams):
 
     def unpack(self) -> Any:
         return self._tree
+
+
+# ------------------------------------------------------------ ZeRO shards
+
+
+def segment_ids_of(spec: ArenaSpec, idx: torch.Tensor) -> torch.Tensor:
+    """The owning tensor's index of each arena position in ``idx`` (int64);
+    positions at or past ``spec.total`` map to ``num_tensors``, the padding
+    segment. ``seg[i] = #{j : boundary_j <= idx[i]}`` over the static
+    cumulative sizes, as the JAX function counts it."""
+    cum = torch.tensor(
+        [off + math.prod(s) for off, s in zip(spec.offsets, spec.shapes)],
+        dtype=torch.int64, device=idx.device)
+    return torch.bucketize(idx.to(torch.int64), cum, right=True)
+
+
+@functools.lru_cache(maxsize=256)
+def shard_pieces(spec: ArenaSpec, rank: int, shard: int
+                 ) -> Tuple[Tuple[int, int, int], ...]:
+    """The pieces of ``spec``'s tensors that rank ``rank``'s shard of
+    ``shard`` elements holds (the shard starts at arena offset ``rank *
+    shard``): ``(tensor id, offset in the shard, length)`` in arena order.
+    The tensor ids are the GLOBAL ones; padding is no piece. Host
+    arithmetic on the static offsets, cached per (spec, rank, shard)."""
+    lo, hi = rank * shard, (rank + 1) * shard
+    out = []
+    for t, (off, s) in enumerate(zip(spec.offsets, spec.shapes)):
+        a, b = max(off, lo), min(off + math.prod(s), hi)
+        if a < b:
+            out.append((t, a - lo, b - a))
+    return tuple(out)
+
+
+def tree_flatten_arena(tree: Any, dtype=None):
+    """Flatten a tree of tensors into ``(arena, spec, treedef)``: one new
+    flat buffer padded to :data:`TILE`, leaves in :func:`tree_flatten`
+    order."""
+    leaves, treedef = tree_flatten(tree)
+    if not leaves:
+        raise ValueError("tree_flatten_arena() requires a non-empty tree")
+    flat, spec = flatten(leaves, dtype=dtype)
+    return flat, spec, treedef
+
+
+def tree_unflatten_arena(flat: torch.Tensor, spec: ArenaSpec, treedef,
+                         dtype=None):
+    """Inverse of :func:`tree_flatten_arena`: the tree of views of ``flat``
+    (copies when ``dtype`` casts)."""
+    return tree_unflatten(treedef, unflatten(flat, spec, dtype=dtype))
+
+
+def as_rows(flat: torch.Tensor) -> torch.Tensor:
+    """View a padded flat arena as (rows, LANES)."""
+    if flat.shape[0] % LANES:
+        raise ValueError("arena must be padded to LANES")
+    return flat.view(-1, LANES)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaShard:
+    """Rank ``rank``'s shard of ``shard`` elements of the arena ``spec``
+    describes, starting at arena offset ``rank * shard`` (ZeRO's layout:
+    ``shard * world`` covers the padded arena). What the per-tensor terms
+    of a sharded step are built from: the rank is a host int, so every
+    table is host arithmetic, cached."""
+
+    spec: ArenaSpec
+    rank: int
+    shard: int
+
+    @property
+    def base(self) -> int:
+        return self.rank * self.shard
+
+    def pieces(self) -> Tuple[Tuple[int, int, int], ...]:
+        """:func:`shard_pieces` of this shard."""
+        return shard_pieces(self.spec, self.rank, self.shard)

@@ -51,7 +51,10 @@ Nine kernels, all Triton, all streaming passes over flat arenas:
   spec's offsets (a per-block table of the first tensor and the tensor
   starts inside the block), which saves the coefficient arena's 8 B per
   element. Bound: bytes, 14 B per element with a bf16 copy: 0.56 ms for
-  the BERT-Large arena.
+  the BERT-Large arena. On a ZeRO shard (``shard=``, an ``ArenaShard``)
+  only the table changes: built from the shard's base, it keeps global
+  tensor ids, and positions past the arena's tensors take the padding's
+  ratio 0.
 * K10, :func:`sgd_kernel`, replaces ``_pallas_mt.py:376`` ``_sgd_kernel``
   (launched from ``sgd`` at ``:415``): SGD with the gradient scale, weight
   decay before or after momentum, the momentum buffer seeded with the
@@ -121,7 +124,13 @@ import numpy as np
 import torch
 
 from beforeholiday_tpu_torch.ops._dispatch import resolve_impl
-from beforeholiday_tpu_torch.ops.arena import ArenaSpec, flatten, is_arena, unflatten
+from beforeholiday_tpu_torch.ops.arena import (
+    ArenaShard,
+    ArenaSpec,
+    flatten,
+    is_arena,
+    unflatten,
+)
 
 # elements per Triton program of K5-K8 and K10, and per block of K9's walk
 _BLOCK = 4096
@@ -679,16 +688,54 @@ def per_tensor_sumsq(flat: torch.Tensor, spec: ArenaSpec, segment_ids=None,
                      axis_name=None, num_tensors=None) -> torch.Tensor:
     """Per-tensor sum of squares over the arena (``spec.num_tensors``
     values, fp32): one dot product per tensor's slice, plain PyTorch (the
-    JAX package computes these in jnp, outside any kernel). ZeRO's sharded
-    mode (``segment_ids``/``axis_name``) is not ported."""
-    if segment_ids is not None or axis_name is not None or num_tensors is not None:
-        raise NotImplementedError(
-            "per_tensor_sumsq's sharded mode belongs to ZeRO, not ported yet")
+    JAX package computes these in jnp, outside any kernel).
+
+    ZeRO mode: ``flat`` is one shard of the arena and ``segment_ids`` says
+    which tensor owns each of its elements, either as an
+    :class:`ArenaShard` (the port's form: one dot product per piece of a
+    tensor the shard holds, in arena order, so two calls agree bitwise) or
+    as an id tensor of ``flat``'s length (the JAX form; padding ids are
+    ``num_tensors``, summed by ``scatter_add_``, whose order on the card is
+    not fixed). ``num_tensors`` is then the ORIGINAL tensor count (default
+    ``spec.num_tensors``). With ``axis_name`` the partial sums are summed
+    over that group (one all-reduce, site ``lamb.sharded_norms``)."""
     x = flat.float()
-    return torch.stack([
-        torch.dot(x[off: off + n], x[off: off + n])
-        for off, n in zip(spec.offsets, (math.prod(s) for s in spec.shapes))
-    ])
+    if segment_ids is None:
+        sums = torch.stack([
+            torch.dot(x[off: off + n], x[off: off + n])
+            for off, n in zip(spec.offsets, (math.prod(s) for s in spec.shapes))
+        ])
+    elif isinstance(segment_ids, ArenaShard):
+        sums = _shard_sumsq(x, segment_ids, num_tensors)
+    else:
+        n = spec.num_tensors if num_tensors is None else num_tensors
+        sums = x.new_zeros(n + 1).scatter_add_(
+            0, segment_ids.to(device=x.device, dtype=torch.int64), x * x)[:-1]
+    if axis_name is not None:
+        from beforeholiday_tpu_torch.monitor import comms
+
+        sums = comms.psum(sums, axis_name, site="lamb.sharded_norms")
+    return sums
+
+
+def _shard_sumsq(x: torch.Tensor, seg: ArenaShard, num_tensors=None
+                 ) -> torch.Tensor:
+    """This shard's partial sum of squares of every tensor of ``seg.spec``
+    (0 for a tensor it holds none of), in a fixed order."""
+    n = seg.spec.num_tensors if num_tensors is None else num_tensors
+    pieces = seg.pieces()
+    sums = x.new_zeros(n)
+    if pieces:
+        dots = torch.stack([torch.dot(x[o: o + ln], x[o: o + ln])
+                            for _, o, ln in pieces])
+        sums[_piece_ids(pieces, x.device)] = dots
+    return sums
+
+
+@functools.lru_cache(maxsize=256)
+def _piece_ids(pieces, device: torch.device) -> torch.Tensor:
+    """The tensor ids of a shard's pieces on ``device``, built once."""
+    return torch.tensor([t for t, _, _ in pieces], dtype=torch.int64, device=device)
 
 
 def tensor_parallel_sumsq(sq: torch.Tensor, sharded, axis_name) -> torch.Tensor:
@@ -740,14 +787,37 @@ def _segment_reps(spec: ArenaSpec, device: torch.device) -> torch.Tensor:
     return torch.tensor(sizes + ([pad] if pad else []), device=device)
 
 
+@functools.lru_cache(maxsize=256)
+def _shard_reps(seg: ArenaShard, device: torch.device):
+    """``(ids, reps)`` on ``device``: the tensor id of each piece of the
+    shard then the padding's (``num_tensors``) when the shard ends in
+    padding, and each one's element count."""
+    pieces = seg.pieces()
+    ids = [t for t, _, _ in pieces]
+    reps = [ln for _, _, ln in pieces]
+    covered = sum(reps)
+    if covered < seg.shard:
+        ids.append(seg.spec.num_tensors)
+        reps.append(seg.shard - covered)
+    return (torch.tensor(ids, dtype=torch.int64, device=device),
+            torch.tensor(reps, dtype=torch.int64, device=device))
+
+
 def _segment_coef(values_per_tensor: torch.Tensor, spec: ArenaSpec,
                   segment_ids=None, pad_value: float = 0.0) -> torch.Tensor:
     """A per-tensor value expanded to a per-element arena vector of
     ``spec.padded_total``, ``pad_value`` (0, as the JAX package's) on the
-    padding (what the plain scaled update multiplies by)."""
+    padding (what the plain scaled update multiplies by). ZeRO mode:
+    ``segment_ids`` (an :class:`ArenaShard`, or an id tensor with
+    ``len(values_per_tensor)`` on the padding) gives the shard's vector,
+    indexed by the GLOBAL tensor ids."""
+    if isinstance(segment_ids, ArenaShard):
+        ids, reps = _shard_reps(segment_ids, values_per_tensor.device)
+        ext = torch.cat([values_per_tensor, values_per_tensor.new_full((1,), pad_value)])
+        return torch.repeat_interleave(ext[ids], reps, output_size=segment_ids.shard)
     if segment_ids is not None:
-        raise NotImplementedError(
-            "_segment_coef's segment ids belong to ZeRO, not ported yet")
+        ext = torch.cat([values_per_tensor, values_per_tensor.new_full((1,), pad_value)])
+        return ext[segment_ids.to(device=ext.device, dtype=torch.int64)]
     pad = spec.padded_total - spec.total
     vals = torch.cat([values_per_tensor,
                       values_per_tensor.new_full((1 if pad else 0,), pad_value)])
@@ -889,12 +959,15 @@ def lamb_stage1(g_flat, p_flat, m_flat, v_flat, *, beta1, beta2, beta3,
 # ------------------------------------------------------------------ K8
 
 
-def scaled_update_torch(p, u, ratio, spec: ArenaSpec, *, found_inf, copy_out):
+def scaled_update_torch(p, u, ratio, spec: ArenaSpec, *, found_inf, copy_out,
+                        shard: Optional[ArenaShard] = None):
     """Plain PyTorch version of K8, in place on ``p`` (and ``copy_out``):
     ``p -= coef * u`` with ``coef`` the per-tensor ``ratio`` expanded over
-    the arena (:func:`_segment_coef`), held on ``found_inf``."""
+    the arena (:func:`_segment_coef`), held on ``found_inf``. ``shard``: p
+    and u are that shard of the arena, ``ratio`` still one value per tensor
+    of ``spec`` (global ids)."""
     pf = p.float()
-    p_new = pf - _segment_coef(ratio.float(), spec) * u.float()
+    p_new = pf - _segment_coef(ratio.float(), spec, shard) * u.float()
     if found_inf is not None:
         p_new = torch.where(torch.as_tensor(found_inf, device=p.device) != 0,
                             pf, p_new)
@@ -904,14 +977,22 @@ def scaled_update_torch(p, u, ratio, spec: ArenaSpec, *, found_inf, copy_out):
 
 
 @functools.lru_cache(maxsize=64)
-def _segment_tables(spec: ArenaSpec, device: torch.device):
+def _segment_tables(spec: ArenaSpec, device: torch.device, base: int = 0,
+                    n: Optional[int] = None):
     """K8's per-block lookup for ``spec``'s arena: for block ``b`` of
     ``_BLOCK`` elements, the tensor holding its first element and the count
     of tensor starts inside it; and the starts themselves, with the
     padding's start (``spec.total``, tensor ``num_tensors``) last. Built on
-    the host once per spec and device."""
-    starts = np.array(spec.offsets + (spec.total,), dtype=np.int64)
-    lo = np.arange(-(-spec.padded_total // _BLOCK), dtype=np.int64) * _BLOCK
+    the host once per spec and device.
+
+    Shard mode: the launch covers the ``n`` elements from arena offset
+    ``base`` (a ZeRO shard), so every start is taken relative to ``base``
+    (a tensor that began before the shard starts below 0). The first
+    tensor and every ``STARTS`` index stay GLOBAL ids, and positions past
+    the arena's tensors fall in the padding's segment, ratio 0."""
+    n = spec.padded_total if n is None else n
+    starts = np.array(spec.offsets + (spec.total,), dtype=np.int64) - base
+    lo = np.arange(-(-n // _BLOCK), dtype=np.int64) * _BLOCK
     first = np.searchsorted(starts, lo, side="right") - 1
     span = np.maximum(np.searchsorted(starts, lo + _BLOCK, side="left")
                       - first - 1, 0)
@@ -949,17 +1030,23 @@ def _scaled_update_triton():
     return triton, _scaled_update
 
 
-def scaled_update_kernel(p, u, ratio, spec: ArenaSpec, *, found_inf, copy_out):
+def scaled_update_kernel(p, u, ratio, spec: ArenaSpec, *, found_inf, copy_out,
+                         shard: Optional[ArenaShard] = None):
     """Launch K8 on flat CUDA arenas of ``spec.padded_total`` elements: fp32
     ``p`` updated in place, fp32 ``u``, ``ratio`` one fp32 value per spec
-    tensor, optional ``copy_out`` of any float dtype."""
-    n = spec.padded_total
+    tensor, optional ``copy_out`` of any float dtype. ``shard`` (of
+    ``spec``'s arena): p, u and the copy are that shard's ``shard.shard``
+    elements, ``ratio`` still one value per tensor of ``spec``; only K8's
+    tables change (:func:`_segment_tables` from the shard's base)."""
+    if shard is not None and shard.spec != spec:
+        raise ValueError("K8's shard is of another arena than spec")
+    n = spec.padded_total if shard is None else shard.shard
     arenas = (p, u) + (() if copy_out is None else (copy_out,))
     for t in arenas:
         if not t.is_cuda or t.device != p.device or t.ndim != 1 \
                 or not t.is_contiguous() or t.numel() != n:
             raise ValueError(f"K8 takes 1-D contiguous CUDA arenas of the "
-                             f"spec's {n} elements on one device; got "
+                             f"spec's (or shard's) {n} elements on one device; got "
                              f"{tuple(t.shape)} on {t.device}")
     if not (p.dtype == u.dtype == torch.float32):
         raise ValueError(f"K8 updates fp32 p with fp32 u, got {p.dtype}/{u.dtype}")
@@ -968,7 +1055,8 @@ def scaled_update_kernel(p, u, ratio, spec: ArenaSpec, *, found_inf, copy_out):
                          f"({spec.num_tensors},) on {p.device}, got "
                          f"{tuple(ratio.shape)} on {ratio.device}")
     triton, kernel = _scaled_update_triton()
-    first, span, starts = _segment_tables(spec, p.device)
+    first, span, starts = (_segment_tables(spec, p.device) if shard is None
+                           else _segment_tables(spec, p.device, shard.base, n))
     # the padding's ratio is 0, as _segment_coef makes it
     ratio_ext = torch.cat([ratio.float(), ratio.new_zeros(1, dtype=torch.float32)])
     fi = (torch.zeros(1, dtype=torch.int32, device=p.device) if found_inf is None
@@ -986,15 +1074,18 @@ scaled_update_kernel.launches = 0
 
 def apply_scaled_update(p_flat, u_flat, ratio, spec: ArenaSpec, *,
                         found_inf=None, model_copy=None,
-                        impl: Optional[str] = None):
+                        impl: Optional[str] = None,
+                        shard: Optional[ArenaShard] = None):
     """``p -= ratio[tensor] * u`` over a flat arena, in place (held on
     ``found_inf``); ``model_copy`` receives the new params in its own dtype
     in the same pass. The JAX function takes the expanded per-element
     coefficient arena; this one takes the per-tensor ``ratio`` and the spec
-    (the plain version expands it with :func:`_segment_coef`)."""
+    (the plain version expands it with :func:`_segment_coef`). ``shard``:
+    the arenas are that ZeRO shard of ``spec``'s arena."""
     impl = resolve_impl(impl, p_flat, op="scaled_update")
     fn = scaled_update_kernel if impl == "kernel" else scaled_update_torch
-    fn(p_flat, u_flat, ratio, spec, found_inf=found_inf, copy_out=model_copy)
+    fn(p_flat, u_flat, ratio, spec, found_inf=found_inf, copy_out=model_copy,
+       shard=shard)
     return p_flat if model_copy is None else (p_flat, model_copy)
 
 
@@ -1019,10 +1110,24 @@ def lamb_flat(gf, pf, mf, vf, spec: ArenaSpec, *, lr, beta1: float = 0.9,
     ``axis_name``: their norms are the whole tensors', squares summed over
     the group (JAX's GSPMD sees the whole tensor), and so is their part of
     the own-arena norm. Returns ``(p, m, v)`` or ``(p, m, v, model_copy)``.
-    ZeRO's ``_sharded_norms`` is not ported."""
+
+    ZeRO mode, ``_sharded_norms=(shard, num_tensors, axis_name)``: the
+    arenas are the :class:`ArenaShard` ``shard`` of an arena of
+    ``num_tensors`` tensors (``shard.spec``, which then stands for
+    ``spec``); the trust-ratio norms are the shard's per-tensor partial sums
+    summed over ``axis_name``, indexed by the global tensor ids, and K8 runs
+    on the shard's tables. Pass ``global_grad_norm`` (the shard's own norm
+    is not the model's)."""
+    shard = None
     if _sharded_norms is not None:
-        raise NotImplementedError(
-            "lamb_flat's sharded norms belong to ZeRO, not ported yet")
+        shard, n_tensors, norm_axis = _sharded_norms
+        if not isinstance(shard, ArenaShard):
+            raise TypeError("the port's _sharded_norms carries an ArenaShard "
+                            "(spec, rank, shard), not an id array")
+        if tensor_sharded is not None or global_grad_norm is None:
+            raise ValueError("sharded LAMB takes the global grad norm and no "
+                             "tensor_sharded mask")
+        spec = shard.spec
     impl = resolve_impl(impl, pf, op="lamb")
     if model_copy is None and model_copy_dtype is not None:
         model_copy = torch.empty(pf.shape, dtype=model_copy_dtype,
@@ -1039,17 +1144,21 @@ def lamb_flat(gf, pf, mf, vf, spec: ArenaSpec, *, lr, beta1: float = 0.9,
     # NaN compares false: a NaN norm leaves the divisor at 1, as in JAX
     clipped = torch.where(ggn > max_grad_norm, ggn / max_grad_norm,
                           torch.ones((), device=pf.device))
+    def norms(x):
+        if shard is not None:
+            return torch.sqrt(per_tensor_sumsq(x, spec, shard, norm_axis, n_tensors))
+        return torch.sqrt(tensor_parallel_sumsq(per_tensor_sumsq(x, spec),
+                                                tensor_sharded, axis_name))
+
     # per-tensor norms of p before stage 2 moves it
-    p_norm = torch.sqrt(tensor_parallel_sumsq(per_tensor_sumsq(pf, spec),
-                                              tensor_sharded, axis_name))
+    p_norm = norms(pf)
     u, _, _ = lamb_stage1(gf, pf, mf, vf, beta1=beta1, beta2=beta2,
                           beta3=beta3, bias_correction1=bc1,
                           bias_correction2=bc2, eps=eps,
                           weight_decay=weight_decay,
                           clipped_global_grad_norm=clipped, mode=mode,
                           found_inf=found_inf, impl=impl)
-    u_norm = torch.sqrt(tensor_parallel_sumsq(per_tensor_sumsq(u, spec),
-                                              tensor_sharded, axis_name))
+    u_norm = norms(u)
     lr_t = _device_scalar(lr, pf).reshape(())
     if use_nvlamb or weight_decay != 0.0:
         ratio = torch.where((p_norm != 0.0) & (u_norm != 0.0),
@@ -1057,7 +1166,7 @@ def lamb_flat(gf, pf, mf, vf, spec: ArenaSpec, *, lr, beta1: float = 0.9,
     else:
         ratio = lr_t.expand(p_norm.shape)
     apply_scaled_update(pf, u, ratio.contiguous(), spec, found_inf=found_inf,
-                        model_copy=model_copy, impl=impl)
+                        model_copy=model_copy, impl=impl, shard=shard)
     outs = (pf, mf, vf)
     return outs if model_copy is None else outs + (model_copy,)
 

@@ -1,6 +1,11 @@
 """Fused optimizers — counterpart of ``beforeholiday_tpu/optimizers`` (the
-fused optimizers and the master-weight wrapper)."""
+fused optimizers, the master-weight wrapper, ZeRO-2's sharded optimizers
+and the ZeRO-3 engine)."""
 
+from beforeholiday_tpu_torch.optimizers.distributed_fused import (  # noqa: F401
+    DistributedFusedAdam,
+    DistributedFusedLAMB,
+)
 from beforeholiday_tpu_torch.optimizers.fused import (  # noqa: F401
     FusedAdagrad,
     FusedAdam,
@@ -12,7 +17,13 @@ from beforeholiday_tpu_torch.optimizers.fused import (  # noqa: F401
     MasterWeights,
     supports_flat_step,
 )
+from beforeholiday_tpu_torch.optimizers.zero3 import (  # noqa: F401
+    Zero3Layout,
+    ZeRO3FusedAdam,
+    ZeRO3FusedLAMB,
+)
 
-__all__ = ["FusedAdagrad", "FusedAdam", "FusedLAMB", "FusedLARS",
-           "FusedMixedPrecisionLamb", "FusedNovoGrad", "FusedSGD",
-           "MasterWeights", "supports_flat_step"]
+__all__ = ["DistributedFusedAdam", "DistributedFusedLAMB", "FusedAdagrad",
+           "FusedAdam", "FusedLAMB", "FusedLARS", "FusedMixedPrecisionLamb",
+           "FusedNovoGrad", "FusedSGD", "MasterWeights", "supports_flat_step",
+           "Zero3Layout", "ZeRO3FusedAdam", "ZeRO3FusedLAMB"]

@@ -17,10 +17,14 @@ guarantees hold:
 * **Ledger-visible.** Every collective goes through ``monitor.comms``, so
   per-site ``calls`` count buckets and ``bytes`` the wire payload.
 
-Uncompressed bucketing is bitwise equal to one collective per arena. The
-two-level (slice x intra) engines and the bucketed scatter/gather family
-(ZeRO's) are not ported yet and raise; the chunked gather and
-reduce-scatter of the sequence-parallel mappings are.
+Uncompressed bucketing is bitwise equal to one collective per arena. ZeRO's
+bucketed reduce-scatter and all-gather (:func:`bucketed_psum_scatter`,
+:func:`bucketed_all_gather`) bucket along the shard columns of the
+rank-major ``(world, shard)`` view, so each rank's result stays one
+contiguous shard; the compressed reduce-scatter is an ``all_to_all`` of
+wire-dtype rows and a local fp32 sum in rank order. The chunked gather and
+reduce-scatter of the sequence-parallel mappings are ported too. The
+two-level (slice x intra) engines are not, and raise.
 """
 
 from __future__ import annotations
@@ -44,7 +48,9 @@ __all__ = [
     "BucketedReduce",
     "DEFAULT_BUCKET_BYTES",
     "bucket_slices",
+    "bucketed_all_gather",
     "bucketed_psum",
+    "bucketed_psum_scatter",
     "bucketed_tree_psum",
     "chunked_all_gather",
     "chunked_reduce_scatter",
@@ -62,8 +68,8 @@ DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024
 # unit roundoff of the supported wire dtypes (2^-(mantissa bits + 1))
 _WIRE_EPS = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 
-_TWO_LEVEL = ("the two-level (slice, intra) engines, which come with ZeRO and "
-              "the multi-slice mesh")
+_TWO_LEVEL = ("the two-level (slice, intra) engines, which come in a later "
+              "slice with the multi-slice mesh")
 
 
 def wire_eps(wire_dtype: Any) -> float:
@@ -173,6 +179,124 @@ def bucketed_psum(flat: torch.Tensor, axis_name: Any, *, site: str,
         if result is not view:
             view.copy_(result)
     return out
+
+
+def issue_psum_scatter(flat: torch.Tensor, axis_name: Any, *, site: str,
+                       bucket_bytes: Optional[int] = DEFAULT_BUCKET_BYTES,
+                       compress: bool = False,
+                       wire_dtype: Any = torch.bfloat16) -> List[Tuple]:
+    """Issue every bucket's reduce-scatter of a ``(world * shard,)`` arena
+    (``async_op``, none waited): ``[(received, work, summed)]`` in shard
+    order, the geometry ``bucket_slices(shard, itemsize * world,
+    bucket_bytes)``. Pass each entry to :func:`finish_bucket` for the
+    bucket's piece of this rank's shard; a consumer of one bucket waits on
+    that bucket's work only."""
+    world = static_axis_size(axis_name)
+    total = flat.shape[0]
+    if flat.ndim != 1 or total % world:
+        raise ValueError(
+            f"bucketed_psum_scatter wants a flat arena divisible by the axis "
+            f"size, got shape {tuple(flat.shape)} over world={world}")
+    if not compress and bucket_bytes is None:
+        piece, work = comms.psum_scatter(flat, axis_name, scatter_dimension=0,
+                                         tiled=True, site=site, async_op=True)
+        return [(piece, work, True)]
+    shard = total // world
+    mat = flat.view(world, shard)
+    out = []
+    # a shard column costs world * itemsize wire bytes: budget per column
+    for off, ln in bucket_slices(shard, flat.element_size() * world, bucket_bytes):
+        col = mat[:, off: off + ln]
+        if compress:
+            wire = col.to(wire_dtype)
+            recv, work = comms.all_to_all(
+                wire, axis_name, 0, 0, site=site,
+                logical=comms.logical(wire.shape, flat.dtype), async_op=True)
+            out.append((recv, work, False))
+        else:
+            piece, work = comms.psum_scatter(
+                col.reshape(world * ln), axis_name, scatter_dimension=0,
+                tiled=True, site=site, async_op=True)
+            out.append((piece, work, True))
+    return out
+
+
+def finish_bucket(entry, dtype: torch.dtype) -> torch.Tensor:
+    """Wait on one issued bucket (:func:`issue_psum_scatter`) and return its
+    piece of this rank's shard in ``dtype``: the reduced piece as it is, or
+    the compressed form's received rows summed in fp32 in rank order."""
+    recv, work, summed = entry
+    work.wait()
+    if summed:
+        return recv
+    acc = recv[0].float()
+    for row in recv[1:]:
+        acc = acc + row.float()
+    return acc.to(dtype)
+
+
+def bucketed_psum_scatter(flat: torch.Tensor, axis_name: Any, *, site: str,
+                          bucket_bytes: Optional[int] = DEFAULT_BUCKET_BYTES,
+                          compress: bool = False,
+                          wire_dtype: Any = torch.bfloat16,
+                          concat: bool = True):
+    """Reduce-scatter a ``(world * shard,)`` arena into this rank's
+    ``(shard,)`` piece, as independent per-bucket collectives along the shard
+    columns of the rank-major ``(world, shard)`` view, all issued before the
+    first is waited. Uncompressed it is bitwise one reduce-scatter of the
+    arena. ``compress`` puts each bucket on the wire in ``wire_dtype`` (one
+    ``all_to_all``) and sums the received rows in fp32 in rank order; the
+    result is in ``flat``'s dtype, within ``wire_eps * sum |x|`` of the
+    exact reduce. ``concat=False`` returns the per-bucket pieces in shard
+    order."""
+    if hierarchical_axes(axis_name) is not None:
+        raise NotImplementedError(f"a two-level axis spec needs {_TWO_LEVEL}")
+    pieces = [finish_bucket(e, flat.dtype) for e in issue_psum_scatter(
+        flat, axis_name, site=site, bucket_bytes=bucket_bytes,
+        compress=compress, wire_dtype=wire_dtype)]
+    if not concat:
+        return pieces
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+
+def bucketed_all_gather(shard: torch.Tensor, axis_name: Any, *, site: str,
+                        bucket_bytes: Optional[int] = DEFAULT_BUCKET_BYTES,
+                        logical_dtype: Any = None) -> torch.Tensor:
+    """All-gather every rank's ``(shard,)`` into the rank-major ``(world *
+    shard,)`` arena as independent per-bucket gathers, all issued before the
+    first is waited; concatenating the buckets along the chunk axis of their
+    ``(world, ln)`` views restores rank-major order, bitwise one gather. The
+    caller owns any wire cast: ``logical_dtype`` tells the ledger the
+    uncompressed cost."""
+    if hierarchical_axes(axis_name) is not None:
+        raise NotImplementedError(f"a two-level axis spec needs {_TWO_LEVEL}")
+    if shard.ndim != 1:
+        raise ValueError(
+            f"bucketed_all_gather wants a flat shard, got {tuple(shard.shape)}")
+    world = static_axis_size(axis_name)
+    n = shard.shape[0]
+    slices = bucket_slices(n, shard.element_size(), bucket_bytes)
+
+    def logical(t):
+        return None if logical_dtype is None else comms.logical(t.shape, logical_dtype)
+
+    if len(slices) == 1:
+        full, work = comms.all_gather(shard, axis_name, axis=0, tiled=True,
+                                      site=site, logical=logical(shard),
+                                      async_op=True)
+        work.wait()
+        return full
+    issued = []
+    for off, ln in slices:
+        piece = shard[off: off + ln]
+        issued.append(comms.all_gather(piece, axis_name, axis=0, tiled=True,
+                                       site=site, logical=logical(piece),
+                                       async_op=True))
+    out = torch.empty(world, n, dtype=shard.dtype, device=shard.device)
+    for (off, ln), (g, work) in zip(slices, issued):
+        work.wait()
+        out[:, off: off + ln].copy_(g.view(world, ln))
+    return out.view(world * n)
 
 
 def chunked_all_gather(x: torch.Tensor, axis_name: Any, *, site: str,
@@ -287,7 +411,7 @@ def bucketed_tree_psum(leaves: Sequence[torch.Tensor], axis_name: Any, *,
 
 @dataclasses.dataclass(frozen=True)
 class BucketedReduce:
-    """Bundled bucketing policy, the knob object DDP carries.
+    """Bundled bucketing policy, the knob object DDP and ZeRO carry.
     ``bucket_bytes=None``: one collective per arena; ``compress=True``:
     wire-dtype compression with fp32 accumulation. ``hierarchical`` and the
     per-tier knobs need the two-level engines, which are not ported yet."""
@@ -324,13 +448,16 @@ class BucketedReduce:
                                   wire_dtype=self.wire_dtype)
 
     def psum_scatter(self, flat, *, site: str = "bucketed.psum_scatter"):
-        raise NotImplementedError(
-            "the bucketed reduce-scatter (ZeRO's) is not ported yet")
+        return bucketed_psum_scatter(flat, self.axis_name, site=site,
+                                     bucket_bytes=self.bucket_bytes,
+                                     compress=self.compress,
+                                     wire_dtype=self.wire_dtype)
 
     def all_gather(self, shard, *, site: str = "bucketed.all_gather",
                    logical_dtype: Any = None):
-        raise NotImplementedError(
-            "the bucketed all-gather (ZeRO's) is not ported yet")
+        return bucketed_all_gather(shard, self.axis_name, site=site,
+                                   bucket_bytes=self.bucket_bytes,
+                                   logical_dtype=logical_dtype)
 
     def n_buckets(self, n_elements: int, itemsize: int) -> int:
         return n_buckets(n_elements, itemsize, self.bucket_bytes)

@@ -177,7 +177,7 @@ Phases, each printing one line (any failure exits non-zero):
     against the one-device O5 step, then each schedule timed and profiled
     at batch 16 beside that step's median, launches and host syncs held);
     ``gpt_tp2_card`` (two spawned ranks on the one card over gloo on CUDA
-    tensors, tensor parallel 2, sequence parallel off and on, two O5 steps
+    tensors, tensor parallel 2, sequence parallel off and on, an O5 step
     each at batch 16, against the one-device step; a correctness run: gloo
     stages through the host); and
     the new kernel shapes (``tp_shape`` lines: K1/K3 at 8192 and 4096 rows,
@@ -232,7 +232,24 @@ Phases, each printing one line (any failure exits non-zero):
     ImageNet trainer's CLI on ResNet-50 with ``--profile-dir`` and
     ``--flight-recorder``: the trace parses and holds CUDA kernels, the
     flight dump holds every printed step);
-24. the total seconds, each phase's wall seconds (``phase_seconds``), the
+24. slice 20, ZeRO-2 and ZeRO-3: ``zero_world1`` (NCCL at world 1: the
+    flagship's O5 step on ``DistributedFusedAdam`` bitwise the FusedAdam
+    step, masters, moments and model; ``ZeRO3FusedAdam`` bitwise ZeRO-2
+    under "keep" and "regather" and at prefetch 0, 1 and 2, "regather"
+    with twice the gathers; ``overlap_backward`` bitwise the phased step;
+    the compressed step within its bound; BERT's ``DistributedFusedLAMB``
+    against FusedLAMB; overflowing ZeRO-2 and LAMB steps held bitwise);
+    the timed and profiled runs (``zero2``, ``zero3_keep``,
+    ``zero3_regather``, ``bert_zero2_lamb``: ms, idle share, peak GB,
+    state bytes, collectives and bytes a step from the ledger, beside the
+    O5 FusedAdam and FusedLAMB medians, no port sync);
+    ``zero_two_rank_card`` (two gloo ranks on the card at batch 8 each:
+    ZeRO-2, compressed ZeRO-2 where gloo takes ``all_to_all`` on CUDA
+    tensors, ZeRO-3; the ranks' models bitwise equal, ZeRO-3 bitwise
+    ZeRO-2, ZeRO-2 against one NCCL rank at batch 16, state bytes halved);
+    K6 at the flagship's world-2 shard, K7 and K8 at rank 1's shard of
+    BERT's world-2 arena (K8 on its shard tables);
+25. the total seconds, each phase's wall seconds (``phase_seconds``), the
     ``kernels`` JSON line (with ``launch_floor_ms``, the Triton floor, and
     ``launch_floor_cuda_ms``), the card line, and the
     final ``ok`` line.
@@ -417,6 +434,18 @@ for _p in REMAT_POLICIES:
     STEP_LAUNCHES[f"gpt_remat_{_p}"] = {
         **STEP_LAUNCHES["gpt"], "l2norm": 2,
         **{k: STEP_LAUNCHES["gpt"][k] + v for k, v in _r.items()}}
+# slice 20, ZeRO at world 1: ZeRO-2's step unscales the two gradient
+# arenas (amp's K5), scales the reduce-scattered fp32 shard (one more K5,
+# which gives the shard's overflow flag) and runs one K6 pass on the one
+# shard; ZeRO-3 scales its loss itself, so only the shard's K5 and K6;
+# "regather" recomputes the gather alone (the K1-K4 ops are saved), so its
+# launches are "keep"'s. DistributedFusedLAMB: amp's two unscales, the
+# shard's K5, one K9 (the clip norm), one K7 and one K8 pass
+STEP_LAUNCHES["zero2"] = {**STEP_LAUNCHES["gpt"], "unscale": 3, "adam": 1}
+STEP_LAUNCHES["zero3_keep"] = {**STEP_LAUNCHES["gpt"], "unscale": 1, "adam": 1}
+STEP_LAUNCHES["zero3_regather"] = STEP_LAUNCHES["zero3_keep"]
+STEP_LAUNCHES["bert_zero2_lamb"] = {**STEP_LAUNCHES["bert"], "unscale": 3, "l2norm": 1,
+                                    "lamb_stage1": 1, "scaled_update": 1}
 STEP_LAUNCHES["gpt_tp_pp_1f1b_remat_full"] = {
     **STEP_LAUNCHES["gpt_tp_pp_1f1b"],
     **{k: STEP_LAUNCHES["gpt_tp_pp_1f1b"][k] + 4 * v for k, v in _RECOMPUTE.items()}}
@@ -2450,12 +2479,13 @@ def op_groups_ms(prof, ops):
     return out
 
 
-def profile_phase(infer, eng, cfg, label="profile"):
-    """The same request mix again under torch.profiler: device time by layer
-    and the device's idle share over the run (the timed run above is not
-    profiled, so its wall time carries no profiler cost)."""
+def profile_phase(infer, eng, cfg, label="profile", n_requests=None):
+    """The same request mix again (its first ``n_requests``, default all)
+    under torch.profiler: device time by layer and the device's idle share
+    over the run (the timed run above is not profiled, so its wall time
+    carries no profiler cost)."""
     bat = infer.ContinuousBatcher(eng)
-    for r in serving_requests(infer, cfg):
+    for r in serving_requests(infer, cfg)[:n_requests]:
         bat.submit(r)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -4814,7 +4844,11 @@ def serving_e4m3_phase(infer, params, cfg, attn, norm, card):
                                      cache_dtype="e4m3", label="serving_e4m3")
     # its decode calls' share of K2's launches: the contiguous decode mode
     decode = {"flash_fwd": cfg.n_layers * eng.call_counts["decode"]}
-    profile_phase(infer, eng, cfg, label="serving_e4m3_profile")
+    # ROADMAP A29's cut: the e4m3 mix's trace holds a small kernel a page op
+    # and reading it back took most of this phase, so the profile covers the
+    # mix's first half
+    profile_phase(infer, eng, cfg, label="serving_e4m3_profile",
+                  n_requests=N_REQUESTS // 2)
     del eng
     torch.cuda.empty_cache()
     return launches, decode
@@ -5191,7 +5225,8 @@ def serve_driver_phase(infer, driver, params, cfg, tmp):
 #   address"), so a pipe of more than one rank runs across ranks in the CPU
 #   tests only.
 TP_MICRO = 4  # microbatches of TRAIN_BATCH // TP_MICRO in the world-1 steps
-TP_TWO_RANK_STEPS = 2
+# ROADMAP A29's cut: one step a run (the ranks' checks hold after it)
+TP_TWO_RANK_STEPS = 1
 TP_TWO_RANK_TIMEOUT = 600
 # the O5 step over TP x PP against the one-device O5 step. At one microbatch
 # only the cross entropy's formula differs: the loss agrees to 1e-5 (at world
@@ -5606,8 +5641,9 @@ def gpt_tp2_card_phase(gpt, cfg, layout, refs, tmp):
     the phase's time is a correctness run's, not a speed): the full-width
     flagship at tensor parallel 2, pipe 1, sequence parallel off and on,
     without and with dropout (DROPOUT's rates, each rank drawing its part
-    of the one-device masks through the rank places of K2, K4 and K13), two
-    O5 steps each at batch 16. Each run's reassembled step-1 loss, grads and
+    of the one-device masks through the rank places of K2, K4 and K13),
+    TP_TWO_RANK_STEPS O5 steps each at batch 16. Each run's reassembled
+    step-1 loss, grads and
     masters against the one-device O5 step (``refs[dropout]``, with dropout
     at the same key) at TP_M4_BOUNDS (``layout``: its arenas' layout); the
     overflow flags and losses equal on both ranks; the replicated leaves'
@@ -6584,6 +6620,705 @@ def imagenet_monitor_phase(main_amp, tmp):
          seconds=time.perf_counter() - t0)
 
 
+# ------------------------------------------------- slice 20: ZeRO-2 and ZeRO-3
+
+# the two-rank check: two gloo processes on the one card, the flagship at
+# ZERO_TWO_RANK_BATCH a rank, ZERO_TWO_RANK_STEPS steps each of ZeRO-2 and
+# ZeRO-3, against one NCCL rank at twice the batch
+ZERO_TWO_RANK_BATCH = 8
+ZERO_TWO_RANK_STEPS = 2
+ZERO_TIMEOUT = 600
+# PERF.md's GPT O5 bf16 row: loss relative error, the gradient arenas'
+# relative L2, the masters' largest difference (a gradient sign flip moves
+# Adam's first step by 2 lr)
+ZERO_ROW = dict(loss_rel_err=5e-3, grad_rel_l2=0.05, master_max_abs_err=2 * LR + 1e-6)
+# (param_residency, prefetch) of the ZeRO-3 runs held bitwise to ZeRO-2
+ZERO3_RUNS = (("keep", 1), ("regather", 1), ("keep", 0), ("keep", 2))
+# ZeRO-2's bucket for the overlap and compressed runs (bucketing's default)
+ZERO_BUCKET_BYTES = 4 << 20
+
+
+def zero_gpt_trainer(amp, gpt, params, cfg, impl=None, loss_scale=None,
+                     loss_weight=None, **zkw):
+    """The flagship's O5 step with ZeRO-2 as a user script builds it:
+    ``amp.initialize(..., "O5", arena_native=True)`` with no optimizer,
+    ``DistributedFusedAdam(lr=LR, **zkw)`` on the arena-native params, the
+    grads (born flat, unscaled by K5) through ``scaled_value_and_grad``.
+    ``(m, opt, state, step)``; ``step(tokens, targets)`` returns ``(loss,
+    fp32 grads, found_inf)`` with no host sync."""
+    from beforeholiday_tpu_torch.optimizers import DistributedFusedAdam
+
+    cfg = dataclasses.replace(cfg, attention_impl=impl, norm_impl=impl)
+    m = amp.initialize(lambda p, t: gpt.forward(p, t, cfg), params, None, "O5",
+                       arena_native=True, loss_scale=loss_scale)
+    opt = DistributedFusedAdam(lr=LR, impl=impl, **zkw)
+
+    def loss_fn(p, tok, tgt):
+        value = gpt.loss_fn(p, tok, tgt, cfg, forward_fn=m.apply)
+        return value if loss_weight is None else value * loss_weight
+
+    svag = amp.scaled_value_and_grad(loss_fn, m.scaler, impl=impl)
+    state = {"opt": opt.init(m.params), "scaler": m.scaler.init()}
+
+    def step(tok, tgt):
+        loss, g, fi, state["scaler"] = svag(m.params, state["scaler"], tok, tgt)
+        m.params, state["opt"] = opt.step(m.params, g, state["opt"], found_inf=fi)
+        return loss, g, fi
+
+    return m, opt, state, step
+
+
+def zero3_gpt_trainer(amp, gpt, params, cfg, residency="keep", prefetch=1, **zkw):
+    """The flagship's O5 step with ZeRO-3: the O5 cast tree (bf16, the norm
+    leaves fp32) only seeds the master shard; each step gathers the params
+    (``prefetch``), unbinds the blocks, runs the loss under
+    ``wrap_residency`` and steps on ``master.grad`` with ``grad_scale`` the
+    inverse loss scale. ``(opt, layout, state, step)``; ``step`` returns
+    ``(loss, the grad shard, found_inf)``, the flag read from the step
+    count on the card."""
+    from beforeholiday_tpu_torch.optimizers import ZeRO3FusedAdam, zero3
+
+    m = amp.initialize(lambda p, t: gpt.forward(p, t, cfg), params, None, "O5")
+    opt = ZeRO3FusedAdam(lr=LR, prefetch=prefetch, param_residency=residency, **zkw)
+    layout = zero3.layout_of(m.params)
+    state = {"opt": opt.init(m.params), "scaler": m.scaler.init()}
+    m.params = None  # the shard is the model's one copy
+
+    def scaled_loss(master, tok, tgt):
+        p = opt.gather_params(master, layout)
+        p = {**p, "blocks": {k: v.unbind(0) for k, v in p["blocks"].items()}}
+        return m.scaler.scale_loss(gpt.loss_fn(p, tok, tgt, cfg, forward_fn=m.apply),
+                                   state["scaler"])
+
+    wrapped = opt.wrap_residency(scaled_loss)
+
+    def step(tok, tgt):
+        scale = state["scaler"]["scale"]
+        master = state["opt"]["master"].detach().requires_grad_(True)
+        value = wrapped(master, tok, tgt)
+        value.backward()
+        before = state["opt"]["step"]
+        state["opt"] = opt.step(master.grad, state["opt"], grad_scale=1.0 / scale)
+        return value.detach() / scale, master.grad, state["opt"]["step"] == before
+
+    return opt, layout, state, step
+
+
+def zero_bert_trainer(amp, bert, params, cfg, impl=None, loss_scale=None,
+                      loss_weight=None):
+    """BERT-Large's O5 step with ``DistributedFusedLAMB(lr=1e-3,
+    weight_decay=0.01)`` (ZeRO-2) on the arena-native params, the
+    ``pretrain_loss`` grads through ``scaled_value_and_grad``."""
+    from beforeholiday_tpu_torch.optimizers import DistributedFusedLAMB
+
+    cfg = dataclasses.replace(cfg, attention_impl=impl, norm_impl=impl)
+    m = amp.initialize(lambda p, t: bert.forward(p, t, cfg), params, None, "O5",
+                       arena_native=True, loss_scale=loss_scale)
+    opt = DistributedFusedLAMB(lr=BERT_LR, weight_decay=0.01, impl=impl)
+
+    def loss_fn(p, tok, tgt, mask, nsp, lens):
+        value = bert.pretrain_loss(p.unpack(), tok, tgt, mask, nsp, cfg, seq_lens=lens)
+        return value if loss_weight is None else value * loss_weight
+
+    svag = amp.scaled_value_and_grad(loss_fn, m.scaler, impl=impl)
+    state = {"opt": opt.init(m.params), "scaler": m.scaler.init()}
+
+    def step(*batch):
+        loss, g, fi, state["scaler"] = svag(m.params, state["scaler"], *batch)
+        m.params, state["opt"] = opt.step(m.params, g, state["opt"], found_inf=fi)
+        return loss, g, fi
+
+    return m, opt, state, step
+
+
+def zero_state_bytes(state):
+    return sum(state[k].numel() * state[k].element_size()
+               for k in ("master", "exp_avg", "exp_avg_sq"))
+
+
+def zero_flat(tree):
+    """A tree's leaves, flattened, in tree order, on the host."""
+    from beforeholiday_tpu_torch.ops.arena import tree_flatten
+
+    return [t.reshape(-1).to("cpu", torch.float32, copy=True) for t in tree_flatten(tree)[0]]
+
+
+def zero_full_master(opt, m, state):
+    """The whole packed fp32 master arena (every rank's shard, gathered) cut
+    into the arena-native buckets' segments, on the host."""
+    from beforeholiday_tpu_torch.optimizers.distributed_fused import layout_of_params
+
+    full = opt._gather_full(state["master"])
+    lay = layout_of_params(m.params)
+    return [full[b: b + s.total].to("cpu", copy=True)
+            for b, s in zip(lay.bases, lay.packed.specs)]
+
+
+def zero_world1_parity(amp, gpt, bert, comms, bucketing, params, bparams, cfg, bcfg):
+    """At world 1 over NCCL: ZeRO-2 against the port's FusedAdam O5 step
+    (two steps at batch 2, the static scale of O5): the reduce-scatter over
+    one rank is a copy, /1 and *1.0 are exact, K6 is the same kernel, so
+    masters, moments and the bf16 model are bitwise. ZeRO-3 bitwise ZeRO-2
+    for each of ZERO3_RUNS; ``overlap_backward`` bitwise the phased step;
+    the compressed step's reduce-scatter within ``wire_eps * |g|`` of the
+    exact one on the step's own gradients, its masters within ZERO_ROW's
+    bound a step of the uncompressed step's (a gradient near 0 that the
+    wire's rounding flips moves Adam's step by 2 lr) and its model a bf16
+    rounding of them;
+    BERT's DistributedFusedLAMB against FusedLAMB (two steps at batch 2,
+    ragged lengths) within LAMB_SHARDED_ULPS of 2^-24 (|master| + lr), and
+    3 lr; an overflowing ZeRO-2 step and an overflowing DistributedFusedLAMB
+    step leave masters, moments and step counts bitwise unchanged. Returns
+    the world-1 ZeRO-2 state bytes and the batch-16 reference step."""
+    from beforeholiday_tpu_torch.optimizers import FusedAdam, FusedLAMB
+    from beforeholiday_tpu_torch.optimizers.distributed_fused import layout_of_params
+
+    t0 = time.perf_counter()
+    batch = gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(60), device="cuda")
+    fields = {}
+    # the port's FusedAdam O5 step
+    m, state, step = make_gpt_trainer(amp, gpt, FusedAdam, params, cfg)
+    for _ in range(2):
+        step(*batch)
+    ref = dict(model=[a.clone() for a in m.params.arenas],
+               master=[a.clone() for a in state["opt"]["master"]],
+               m=[b["exp_avg"].clone() for b in state["opt"]["inner"]],
+               v=[b["exp_avg_sq"].clone() for b in state["opt"]["inner"]])
+    del m, state, step
+    # ZeRO-2, phased
+    m, opt, state, step = zero_gpt_trainer(amp, gpt, params, cfg)
+    for _ in range(2):
+        _, g, fi = step(*batch)
+    lay = layout_of_params(m.params)
+    cut = lambda t: [t[b: b + s.total] for b, s in zip(lay.bases, lay.packed.specs)]
+    z = state["opt"]
+    bitwise = dict(
+        model=all(torch.equal(a, b) for a, b in zip(m.params.arenas, ref["model"])),
+        master=all(torch.equal(a, b[: len(a)]) for a, b in zip(cut(z["master"]), ref["master"])),
+        exp_avg=all(torch.equal(a, b[: len(a)]) for a, b in zip(cut(z["exp_avg"]), ref["m"])),
+        exp_avg_sq=all(torch.equal(a, b[: len(a)])
+                       for a, b in zip(cut(z["exp_avg_sq"]), ref["v"])))
+    fields["zero2_vs_fused_adam_bitwise"] = bitwise
+    fields["zero2_vs_fused_adam_max_abs_err"] = max(
+        max_err(a, b[: len(a)]) for a, b in zip(cut(z["master"]), ref["master"]))
+    z2_master = opt.state_dict(m.params, z)["master"]
+    z2_model = m.params.unpack()
+    z2 = dict(master=zero_flat(z2_master), model=zero_flat(z2_model),
+              step=int(z["step"]))
+    # the compressed reduce-scatter on this step's own gradient arena
+    gflat = opt._full_arena(g, lay)
+    exact = bucketing.bucketed_psum_scatter(gflat, "data", site="check.exact",
+                                            bucket_bytes=ZERO_BUCKET_BYTES)
+    wire = bucketing.bucketed_psum_scatter(gflat, "data", site="check.wire",
+                                           bucket_bytes=ZERO_BUCKET_BYTES, compress=True)
+    rs_err = float(((wire - exact).abs()
+                    - bucketing.wire_eps(torch.bfloat16) * gflat.abs()).max())
+    fields["compressed_reduce_scatter_excess_over_bound"] = rs_err
+    del m, opt, state, step, g, gflat, exact, wire, z, ref
+    torch.cuda.empty_cache()
+    failures = [k for k, v in bitwise.items() if not v]
+    if rs_err > 0:
+        failures.append(f"compressed reduce-scatter {rs_err} past wire_eps |g|")
+    # ZeRO-2 overlap_backward, and compressed
+    for name, kw in (("overlap", dict(overlap_backward=True,
+                                      bucket_bytes=ZERO_BUCKET_BYTES)),
+                     ("compressed", dict(compress=True, bucket_bytes=ZERO_BUCKET_BYTES))):
+        m, opt, state, step = zero_gpt_trainer(amp, gpt, params, cfg, **kw)
+        for _ in range(2):
+            step(*batch)
+        got_master = zero_flat(opt.state_dict(m.params, state["opt"])["master"])
+        got_model = zero_flat(m.params.unpack())
+        if name == "overlap":
+            same = (all(torch.equal(a, b) for a, b in zip(got_master, z2["master"]))
+                    and all(torch.equal(a, b) for a, b in zip(got_model, z2["model"])))
+            fields["overlap_bitwise_phased"] = same
+            if not same:
+                failures.append("overlap_backward is not bitwise the phased step")
+        else:
+            err = max(max_err(a, b) for a, b in zip(got_master, z2["master"]))
+            rounding = all(torch.equal(a, b.to(torch.bfloat16).float())
+                           for a, b in zip(got_model, got_master))
+            fields["compressed_master_max_abs_err"] = err
+            fields["compressed_model_is_bf16_of_master"] = rounding
+            if not (err <= 2 * ZERO_ROW["master_max_abs_err"] and rounding):
+                failures.append(f"compressed: masters {err}, model bf16 of master "
+                                f"{rounding}")
+        del m, opt, state, step
+        torch.cuda.empty_cache()
+    # ZeRO-3 bitwise ZeRO-2
+    z3 = {}
+    for residency, prefetch in ZERO3_RUNS:
+        comms.reset_comms_ledger()
+        opt, layout, state, step = zero3_gpt_trainer(amp, gpt, params, cfg, residency,
+                                                     prefetch)
+        for _ in range(2):
+            step(*batch)
+        calls = {r["site"]: r["calls"] for r in comms.comms_records()
+                 if r["site"].startswith("zero3.")}
+        same = (all(torch.equal(a, b) for a, b in zip(
+            zero_flat(opt.state_dict(layout, state["opt"])["master"]), z2["master"]))
+            and all(torch.equal(a, b) for a, b in zip(
+                zero_flat(opt.gather_params(state["opt"]["master"], layout)),
+                z2["model"]))
+            and int(state["opt"]["step"]) == z2["step"])
+        z3[f"{residency}_p{prefetch}"] = dict(bitwise_zero2=same, calls=calls)
+        if not same:
+            failures.append(f"zero3 {residency} prefetch {prefetch} is not bitwise ZeRO-2")
+        del opt, state, step
+        torch.cuda.empty_cache()
+    fields["zero3"] = z3
+    keep, again = z3["keep_p1"]["calls"], z3["regather_p1"]["calls"]
+    if again.get("zero3.gather_params") != 2 * keep.get("zero3.gather_params", 0):
+        failures.append(f"regather's gathers {again} are not twice keep's {keep}")
+    # the skip steps: an overflow changes nothing
+    inf = torch.full((), float("inf"), device="cuda")
+    skips = {}
+    for name, make, b in (
+            ("zero2", lambda: zero_gpt_trainer(amp, gpt, params, cfg,
+                                               loss_scale="dynamic", loss_weight=inf),
+             gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(61), device="cuda")),
+            ("zero2_lamb", lambda: zero_bert_trainer(amp, bert, bparams, bcfg,
+                                                     loss_scale="dynamic",
+                                                     loss_weight=inf),
+             bert_batch(bert, bcfg, PARITY_BATCH, 63, BERT_PARITY_LENS))):
+        m, opt, state, step = make()
+        before = {k: v.clone() for k, v in state["opt"].items()}
+        model = [a.clone() for a in m.params.arenas]
+        _, _, fi = step(*b)
+        torch.cuda.synchronize()
+        held = (bool(fi) and all(torch.equal(before[k], state["opt"][k]) for k in before)
+                and all(torch.equal(a, b_) for a, b_ in zip(model, m.params.arenas)))
+        skips[name] = held
+        if not held:
+            failures.append(f"{name}: an overflowing step changed the state")
+        del m, opt, state, step, before, model
+        torch.cuda.empty_cache()
+    fields["skip_bitwise_held"] = skips
+    # BERT: DistributedFusedLAMB against FusedLAMB
+    bb = bert_batch(bert, bcfg, PARITY_BATCH, 62, BERT_PARITY_LENS)
+    m, state, step = make_bert_trainer(amp, bert, FusedLAMB, bparams, bcfg)
+    for _ in range(2):
+        step(*bb)
+    ref_master = [a.clone() for a in state["opt"]["master"]]
+    del m, state, step
+    m, opt, state, step = zero_bert_trainer(amp, bert, bparams, bcfg)
+    for _ in range(2):
+        step(*bb)
+    lay = layout_of_params(m.params)
+    got = [state["opt"]["master"][b: b + s.total]
+           for b, s in zip(lay.bases, lay.packed.specs)]
+    ulps = max(float(((a - r[: len(a)]).abs() / ((r[: len(a)].abs() + BERT_LR)
+                                                   * 2.0 ** -24)).max())
+               for a, r in zip(got, ref_master))
+    err = max(max_err(a, r[: len(a)]) for a, r in zip(got, ref_master))
+    fields["lamb_vs_fused_lamb"] = dict(max_master_ulps=ulps, bound_ulps=LAMB_SHARDED_ULPS,
+                                        max_abs_err=err, row_3lr=3 * BERT_LR)
+    if not ulps <= LAMB_SHARDED_ULPS:
+        failures.append(f"DistributedFusedLAMB masters {ulps} ulps from FusedLAMB's")
+    del m, opt, state, step, ref_master, got
+    torch.cuda.empty_cache()
+    # the batch-16 reference of the two-rank check, and world 1's state
+    tb = gpt.synthetic_batch(cfg, 2 * ZERO_TWO_RANK_BATCH, generator=gen(70),
+                             device="cuda")
+    m, opt, state, step = zero_gpt_trainer(amp, gpt, params, cfg)
+    loss, g, fi = step(*tb)
+    lay = layout_of_params(m.params)
+    one_rank = dict(loss=loss.item(), grads=[a[: s.total].to("cpu", copy=True)
+                                             for a, s in zip(g.arenas, lay.packed.specs)],
+                    masters=zero_full_master(opt, m, state["opt"]),
+                    state_bytes=zero_state_bytes(state["opt"]))
+    del m, opt, state, step, g
+    torch.cuda.empty_cache()
+    line("zero_world1", backend="nccl", world=1, batch=PARITY_BATCH, steps=2,
+         seconds=time.perf_counter() - t0,
+         **{k: json.dumps(v) for k, v in fields.items()})
+    if failures:
+        raise AssertionError("zero_world1: " + "; ".join(failures))
+    return one_rank
+
+
+def zero_ledger_per_step(prefix, steps):
+    """The ``prefix.*`` ledger rows as collectives and bytes a step."""
+    from beforeholiday_tpu_torch.monitor import comms
+
+    out = {}
+    for r in comms.comms_records():
+        if r["site"].startswith(prefix + "."):
+            row = out.setdefault(r["site"], {"kind": r["kind"], "calls": 0, "bytes": 0})
+            row["calls"] += r["calls"] / steps
+            row["bytes"] += r["bytes"] / steps
+    return out
+
+
+class counted:
+    """A step function that counts its calls (the ledger's steps)."""
+
+    def __init__(self, step):
+        self.step, self.n = step, 0
+
+    def __call__(self, *batch):
+        self.n += 1
+        return self.step(*batch)
+
+
+def zero_training_phases(amp, gpt, bert, comms, params, bparams, cfg, bcfg, counters,
+                         card):
+    """The timed and profiled runs: the flagship at batch 16 on ZeRO-2 and
+    on ZeRO-3 ("keep" and "regather", prefetch 1), BERT-Large at 128 x 128
+    on DistributedFusedLAMB; each with its state bytes and its collectives
+    and bytes a step from the ledger (every step the phase ran), beside the
+    O5 FusedAdam and FusedLAMB medians of this run. Returns the launch
+    counts by run."""
+    batch = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70), device="cuda")
+    bb = bert_batch(bert, bcfg, BERT_BATCH, 71)
+    launches = {}
+    runs = (("zero2", "gpt"), ("zero3_keep", "gpt"), ("zero3_regather", "gpt"),
+            ("bert_zero2_lamb", "bert"))
+    for name, model in runs:
+        comms.reset_comms_ledger()
+        if name == "zero2":
+            m, opt, state, step = zero_gpt_trainer(amp, gpt, params, cfg)
+            work, b = lm_work(m, batch), batch
+        elif model == "gpt":
+            residency = name.split("_")[1]
+            opt, layout, state, step = zero3_gpt_trainer(amp, gpt, params, cfg,
+                                                         residency, 1)
+            work = dict(unit="tokens", units=batch[0].numel(),
+                        flops=6.0 * layout.spec.total * batch[0].numel(),
+                        peak=PEAK_BF16, params=layout.spec.total)
+            b = batch
+        else:
+            m, opt, state, step = zero_bert_trainer(amp, bert, bparams, bcfg)
+            work, b = lm_work(m, bb), bb
+        st = counted(step)
+        label = f"{name}_training"
+        launches[name] = training_phase(
+            label, f"{name}_profile", st, b, counters, STEP_LAUNCHES[name],
+            BERT_GROUPS if model == "bert" else TRAIN_GROUPS, card,
+            seq_len=(bcfg if model == "bert" else cfg).seq_len, world=1,
+            optimizer=f"'{type(opt).__name__}'",
+            state_bytes=zero_state_bytes(state["opt"]),
+            fused_median_ms=MEDIANS.get("bert_training" if model == "bert"
+                                        else "training"), **work)
+        prefix = "zero3" if name.startswith("zero3") else "zero2"
+        line(f"{name}_ledger", steps=st.n,
+             per_step=json.dumps(zero_ledger_per_step(prefix, st.n)))
+        del opt, state, step, st
+        if model != "gpt" or name == "zero2":
+            del m
+        torch.cuda.empty_cache()
+    return launches
+
+
+def gloo_all_to_all_probe(rank):
+    """Does this PyTorch's gloo take ``all_to_all`` on CUDA tensors (the
+    compressed reduce-scatter's exchange)? ``(ok, error)``."""
+    import torch.distributed as dist
+
+    x = torch.arange(4, dtype=torch.float32, device="cuda") + 10 * rank
+    out = torch.empty_like(x)
+    try:
+        dist.all_to_all_single(out, x)
+    except RuntimeError as e:
+        return False, str(e).splitlines()[0][:200]
+    want = [0.0, 1.0, 10.0, 11.0] if rank == 0 else [2.0, 3.0, 12.0, 13.0]
+    ok = torch.tensor([float(out.tolist() == want)], device="cuda")
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    return bool(ok.item()), None
+
+
+def spawn_two(target, args_of, timeout, label):
+    """Two spawned processes of ``target`` (``args_of(rank)``), joined
+    under ``timeout``: their exit codes."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_of(r)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(1.0, timeout - (time.perf_counter() - t0)))
+    if any(p.is_alive() for p in procs):
+        for p in procs:
+            p.kill()
+            p.join(10)
+        raise AssertionError(f"{label}: the world did not finish in {timeout} s; "
+                             "its processes were killed")
+    return [p.exitcode for p in procs]
+
+
+def zero_two_rank_worker(rank, store, out_dir):
+    """One rank of the two-rank ZeRO check (a spawned process): gloo on CUDA
+    tensors, the flagship from the parent's seeded weights, this rank's half
+    of the batch-16 batch; ZERO_TWO_RANK_STEPS steps of ZeRO-2, of ZeRO-3
+    ("keep", prefetch 1) and, where gloo takes ``all_to_all`` on CUDA
+    tensors (:func:`gloo_all_to_all_probe`, first), of compressed ZeRO-2.
+    Rank 0 saves each run's step-1 loss (the ranks' mean), reduced grads
+    (ZeRO-2) and masters, whether the ranks' models were bitwise equal after
+    every step, its state bytes and launch counts."""
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=2)
+        from beforeholiday_tpu_torch import amp
+        from beforeholiday_tpu_torch.contrib import xentropy as xent
+        from beforeholiday_tpu_torch.ops import attention as attn
+        from beforeholiday_tpu_torch.ops import multi_tensor as mt
+        from beforeholiday_tpu_torch.ops import normalization as norm
+        from beforeholiday_tpu_torch.ops import softmax as sm
+        from beforeholiday_tpu_torch.ops.arena import tree_flatten
+        from beforeholiday_tpu_torch.optimizers.distributed_fused import layout_of_params
+        from beforeholiday_tpu_torch.testing import gpt
+
+        cfg = gpt.GPTConfig(**MODEL)
+        params = gpt.init(cfg, gen(0), device="cuda")
+        tok, tgt = gpt.synthetic_batch(cfg, 2 * ZERO_TWO_RANK_BATCH, generator=gen(70),
+                                       device="cuda")
+        B = ZERO_TWO_RANK_BATCH
+        batch = (tok[rank * B:(rank + 1) * B], tgt[rank * B:(rank + 1) * B])
+        counters = launch_counters(norm, attn, mt, sm, xent)
+
+        def same_on_both(tensors):
+            flags = []
+            for t in tensors:
+                other = t.clone()
+                dist.broadcast(other, 0)
+                flags.append(torch.equal(other, t))
+            ok = torch.tensor([float(all(flags))], device="cuda")
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+            return bool(ok.item())
+
+        def mean_loss(loss):
+            lt = loss.detach().float().reshape(1).clone()
+            dist.all_reduce(lt)
+            return float(lt) / 2
+
+        probe, probe_error = gloo_all_to_all_probe(rank)
+        runs = [("zero2", {})] + ([("zero2_compressed", dict(
+            compress=True, bucket_bytes=ZERO_BUCKET_BYTES))] if probe else [])
+        out, t0 = {"probe": (probe, probe_error)}, time.perf_counter()
+        for name, kw in runs + [("zero3", None)]:
+            for fn in counters.values():
+                fn.launches = 0
+            rec = {"ranks_bitwise": []}
+            if kw is None:
+                opt, layout, state, step = zero3_gpt_trainer(amp, gpt, params, cfg)
+            else:
+                m, opt, state, step = zero_gpt_trainer(amp, gpt, params, cfg, **kw)
+            for i in range(ZERO_TWO_RANK_STEPS):
+                loss, g, fi = step(*batch)
+                last = i == ZERO_TWO_RANK_STEPS - 1
+                if kw is not None:
+                    rec["ranks_bitwise"].append(same_on_both(m.params.arenas))
+                elif last:
+                    model = opt.gather_params(state["opt"]["master"], layout)
+                    rec["ranks_bitwise"].append(same_on_both(tree_flatten(model)[0]))
+                    del model
+                rec.setdefault("losses", []).append(mean_loss(loss))
+                rec.setdefault("found_inf", []).append(bool(fi))
+                if i == 0 and kw is not None:
+                    lay = layout_of_params(m.params)
+                    grads = []
+                    for a, s in zip(g.arenas, lay.packed.specs):
+                        red = a[: s.total].clone()
+                        dist.all_reduce(red)
+                        grads.append((red / 2).to("cpu"))
+                    rec["grads"] = grads
+                    rec["masters"] = zero_full_master(opt, m, state["opt"])
+                if last:
+                    # the masters in tree order, whatever the arena's order
+                    lay = (layout.zero_layout() if kw is None
+                           else layout_of_params(m.params))
+                    rec["masters_tree"] = zero_flat(opt._tree_of_arena(
+                        opt._gather_full(state["opt"]["master"]), lay))
+                rec["state_bytes"] = zero_state_bytes(state["opt"])
+            torch.cuda.synchronize()
+            rec["launches"] = {k: fn.launches for k, fn in counters.items() if fn.launches}
+            out[name] = rec
+            del opt, state, step
+            if kw is not None:
+                del m
+            torch.cuda.empty_cache()
+        out["seconds"] = time.perf_counter() - t0
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if rank == 0:
+            torch.save(out, f"{out_dir}/zero_rank0.pt")
+        dist.destroy_process_group()
+    except BaseException:
+        with open(f"{out_dir}/zero_rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def zero_two_rank_card_phase(one_rank, tmp):
+    """Two processes on the one card over gloo on CUDA tensors (a
+    correctness run: gloo stages every collective through the host): ZeRO-2
+    (and, where gloo takes ``all_to_all`` on CUDA tensors, compressed
+    ZeRO-2) and ZeRO-3 at ZERO_TWO_RANK_BATCH a
+    rank: the ranks' models bitwise equal after each step, ZeRO-3 bitwise
+    ZeRO-2, ZeRO-2's step 1 against one NCCL rank at batch 16 (``one_rank``)
+    within ZERO_ROW, each rank's state bytes half of world 1's (to a TILE a
+    state arena). Returns rank 0's launch counts."""
+    from beforeholiday_tpu_torch.ops.arena import TILE
+
+    t0 = time.perf_counter()
+    codes = spawn_two(zero_two_rank_worker, lambda r: (r, f"{tmp}/zero_store", tmp),
+                      ZERO_TIMEOUT, "zero_two_rank_card")
+    if any(codes):
+        errors = [open(f"{tmp}/zero_rank{r}.err").read() for r in range(2)
+                  if os.path.exists(f"{tmp}/zero_rank{r}.err")]
+        raise AssertionError(f"zero_two_rank_card: exit codes {codes}\n"
+                             + "\n".join(errors))
+    res = torch.load(f"{tmp}/zero_rank0.pt")
+    probe, probe_error = res.pop("probe")
+    z2, z3 = res["zero2"], res["zero3"]
+    failures, fields = [], {}
+    errs = step_errors(dict(loss=z2["losses"][0], grads=z2["grads"],
+                            masters=z2["masters"]), one_rank)
+    fields["zero2_vs_one_rank"] = errs
+    if out_of_bounds(errs, ZERO_ROW):
+        failures.append(f"ZeRO-2 against one rank: {out_of_bounds(errs, ZERO_ROW)}")
+    # after the last step: ZeRO-3's masters are ZeRO-2's, bit for bit
+    z3_bitwise = (z3["losses"] == z2["losses"] and all(
+        torch.equal(a, b) for a, b in zip(z3["masters_tree"], z2["masters_tree"])))
+    fields["zero3_bitwise_zero2"] = z3_bitwise
+    if not z3_bitwise:
+        failures.append("two-rank ZeRO-3 is not bitwise two-rank ZeRO-2")
+    for name in [k for k in ("zero2", "zero2_compressed", "zero3") if k in res]:
+        r = res[name]
+        fields[f"{name}_ranks_bitwise"] = r["ranks_bitwise"]
+        if not all(r["ranks_bitwise"]) or any(r["found_inf"]):
+            failures.append(f"{name}: ranks bitwise {r['ranks_bitwise']}, "
+                            f"found_inf {r['found_inf']}")
+    if "zero2_compressed" in res:
+        err = max(max_err(a, b) for a, b in zip(res["zero2_compressed"]["masters_tree"],
+                                                z2["masters_tree"]))
+        fields["compressed_master_max_abs_err"] = err
+        if not err <= ZERO_TWO_RANK_STEPS * ZERO_ROW["master_max_abs_err"]:
+            failures.append(f"compressed two-rank masters {err} from uncompressed")
+    half = abs(2 * z2["state_bytes"] - one_rank["state_bytes"])
+    fields["state_bytes"] = dict(world1=one_rank["state_bytes"], world2=z2["state_bytes"],
+                                 zero3_world2=z3["state_bytes"])
+    if half > 3 * 4 * TILE or z3["state_bytes"] != z2["state_bytes"]:
+        failures.append(f"state bytes a rank not half of world 1's: {fields['state_bytes']}")
+    line("zero_two_rank_card", backend="gloo", world=2, device="'one card'",
+         batch_per_rank=ZERO_TWO_RANK_BATCH, steps=ZERO_TWO_RANK_STEPS,
+         gloo_all_to_all_on_cuda=probe, probe_error=f"'{probe_error}'",
+         bounds=json.dumps(ZERO_ROW),
+         note="'gloo stages every collective through the host: a correctness run, "
+              "not a speed'",
+         rank_seconds=res["seconds"], rank_peak_mem_gb=res["peak_mem_gb"],
+         seconds=time.perf_counter() - t0,
+         one_rank_loss=one_rank["loss"],
+         losses=json.dumps({k: res[k]["losses"] for k in ("zero2", "zero3")}),
+         **{k: json.dumps(v) for k, v in fields.items()})
+    if failures:
+        raise AssertionError("zero_two_rank_card: " + "; ".join(failures))
+    return {k: res[k]["launches"] for k in ("zero2", "zero2_compressed", "zero3")
+            if k in res}
+
+
+def zero_kernel_rows(mt, gpt_spec, bert_spec, launches):
+    """The ZeRO shapes on the ``kernels`` line: K6 on the flagship's world-2
+    shard (no model copy; library ``torch._fused_adamw_`` on the shard),
+    K7 and K8 on rank 1's shard of BERT's world-2 arena (K8 from the
+    shard's tables: the shard starts inside a tensor), each against its
+    plain version with the existing tolerances. ``launches``: the two-rank
+    run's counts (K6), none for BERT (no two-rank BERT run)."""
+    from beforeholiday_tpu_torch.ops.arena import ArenaShard
+    from beforeholiday_tpu_torch.optimizers.distributed_fused import _shard_len
+
+    rows = {"adam": {}, "lamb_stage1": {}, "scaled_update": {}}
+    g = gen(90)
+    # K6 on the GPT's world-2 shard
+    n = _shard_len(gpt_spec.padded_total, 2)
+    grad = 1e-3 * torch.randn(n, generator=g, device="cuda")
+    p = 0.02 * torch.randn(n, generator=g, device="cuda")
+    m = 1e-4 * torch.randn(n, generator=g, device="cuda")
+    v = 1e-8 * torch.rand(n, generator=g, device="cuda")
+    step = torch.full((), 4, dtype=torch.int32, device="cuda")
+    bc1, bc2 = mt._bias_corrections(True, step, 0.9, 0.999)
+    kw = dict(lr=LR, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0,
+              grad_scale=1.0, bc1=bc1, bc2=bc2, adam_w_mode=True,
+              found_inf=torch.zeros((), dtype=torch.bool, device="cuda"), copy_out=None)
+    outs = {}
+    for fn in (mt.adam_kernel, mt.adam_torch):
+        st = (p.clone(), m.clone(), v.clone())
+        fn(grad, *st, **kw)
+        outs[fn] = st
+    torch.cuda.synchronize()
+    err = max(check_close("K6 zero2 shard", a, b, dict(rtol=1e-6, atol=1e-10))
+              for a, b in zip(outs[mt.adam_kernel], outs[mt.adam_torch]))
+    st = (p.clone(), m.clone(), v.clone())
+    steps = [torch.full((), 4.0, device="cuda")]
+    bms, by = bound_ms(28 * n, 20 * n, torch.float32)
+    tag = f"{n} fp32, a world-2 shard, no copy"
+    rows["adam"]["zero2_shard"] = (tag, dict(
+        max_abs_err=err, ms=time_ms(lambda: mt.adam_kernel(grad, *st, **kw)),
+        plain_ms=time_ms(lambda: mt.adam_torch(grad, *st, **kw), iters=5),
+        library_ms=time_ms(lambda: torch._fused_adamw_(
+            [st[0]], [grad], [st[1]], [st[2]], [], steps, lr=LR, beta1=0.9,
+            beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False)),
+        bound_ms=bms, bound_by=by, launches=launches.get("adam", 0)))
+    line("K6", shape=tag, **{k: v_ for k, v_ in rows["adam"]["zero2_shard"][1].items()})
+    del grad, p, m, v, st, outs
+    # K7 and K8 on rank 1's shard of BERT's world-2 arena
+    n = _shard_len(bert_spec.padded_total, 2)
+    seg = ArenaShard(bert_spec, 1, n)
+    grad = 1e-3 * torch.randn(n, generator=g, device="cuda")
+    p = 0.02 * torch.randn(n, generator=g, device="cuda")
+    p[max(bert_spec.total - n, 0):] = 0
+    m = 1e-4 * torch.randn(n, generator=g, device="cuda")
+    v = 1e-8 * torch.rand(n, generator=g, device="cuda")
+    kw7 = dict(bc1=bc1, bc2=bc2, mode=1, clip=torch.full((), 2.5, device="cuda"),
+               found_inf=torch.zeros((), dtype=torch.bool, device="cuda"), **LAMB_HYPER)
+    outs = {}
+    for fn in (mt.lamb_stage1_kernel, mt.lamb_stage1_torch):
+        st = (m.clone(), v.clone())
+        outs[fn] = (fn(grad, p, *st, **kw7), *st)
+    torch.cuda.synchronize()
+    err = max(check_close(f"K7 zero2 shard {nm}", a, b,
+                          dict(rtol=1e-5, atol=1e-6 * float(b.abs().max())))
+              for nm, a, b in zip("umv", outs[mt.lamb_stage1_kernel],
+                                  outs[mt.lamb_stage1_torch]))
+    u = outs[mt.lamb_stage1_kernel][0]
+    st = (m.clone(), v.clone())
+    bms, by = bound_ms(28 * n, 16 * n, torch.float32)
+    tag = f"{n} fp32, rank 1 of BERT's world-2 arena, clip on"
+    rows["lamb_stage1"]["zero2_shard"] = (tag, dict(
+        max_abs_err=err, ms=time_ms(lambda: mt.lamb_stage1_kernel(grad, p, *st, **kw7)),
+        plain_ms=time_ms(lambda: mt.lamb_stage1_torch(grad, p, *st, **kw7), iters=5),
+        library_ms=None, bound_ms=bms, bound_by=by, launches=0))
+    line("K7", shape=tag, **rows["lamb_stage1"]["zero2_shard"][1])
+    ratio = BERT_LR * (0.5 + torch.rand(bert_spec.num_tensors, generator=g, device="cuda"))
+    outs = {}
+    for fn in (mt.scaled_update_kernel, mt.scaled_update_torch):
+        pk = p.clone()
+        fn(pk, u, ratio, bert_spec, found_inf=None, copy_out=None, shard=seg)
+        outs[fn] = pk
+    torch.cuda.synchronize()
+    pk, pr = outs[mt.scaled_update_kernel], outs[mt.scaled_update_torch]
+    err = check_close("K8 zero2 shard", pk, pr,
+                      dict(rtol=1e-6, atol=1e-6 * float(pr.abs().max())))
+    first = mt._segment_tables(bert_spec, pk.device, seg.base, n)[0]
+    pk = p.clone()
+    bms, by = bound_ms(12 * n + 4 * bert_spec.num_tensors, 2 * n, torch.float32)
+    tag = (f"{n} fp32, rank 1 of BERT's world-2 arena from tensor {int(first[0])} "
+           f"of {bert_spec.num_tensors}, shard tables, no copy")
+    rows["scaled_update"]["zero2_shard"] = (tag, dict(
+        max_abs_err=err, ms=time_ms(lambda: mt.scaled_update_kernel(
+            pk, u, ratio, bert_spec, found_inf=None, copy_out=None, shard=seg)),
+        plain_ms=time_ms(lambda: mt.scaled_update_torch(
+            pk, u, ratio, bert_spec, found_inf=None, copy_out=None, shard=seg), iters=5),
+        library_ms=None, bound_ms=bms, bound_by=by, launches=0))
+    line("K8", shape=tag, **rows["scaled_update"]["zero2_shard"][1])
+    return rows
+
+
 KERNEL_ROWS = (
     ("layer_norm_fwd", "cuda", "beforeholiday_tpu_torch/csrc/layer_norm_fwd.cu",
      "beforeholiday_tpu/ops/normalization.py:55"),
@@ -7079,6 +7814,33 @@ def main():
             amp, gpt, bert, FusedAdam, FusedLAMB, cfg, bcfg, counters, card)
     with phase("imagenet_monitor"), tempfile.TemporaryDirectory() as tmp:
         imagenet_monitor_phase(main_amp, tmp)
+        torch.cuda.empty_cache()
+
+    # slice 20: ZeRO-2 and ZeRO-3 at world 1 over NCCL (parity, skips, the
+    # timed runs), then two gloo ranks on the one card; K6, K7 and K8 at
+    # the world-2 shards
+    from beforeholiday_tpu_torch.optimizers.distributed_fused import _packed_layout
+
+    params = gpt.init(cfg, gen(0), device="cuda")
+    with phase("zero_world1"), tempfile.TemporaryDirectory() as tmp:
+        init_nccl(tmp)
+        try:
+            one_rank = zero_world1_parity(amp, gpt, bert, comms, bucketing, params,
+                                          bparams, cfg, bcfg)
+            launches.update(zero_training_phases(amp, gpt, bert, comms, params,
+                                                 bparams, cfg, bcfg, counters, card))
+        finally:
+            dist.destroy_process_group()
+    zero_specs = [_packed_layout(o5_layout(p_)).spec for p_ in (params, bparams)]
+    del params
+    torch.cuda.empty_cache()
+    with phase("zero_two_rank_card"), tempfile.TemporaryDirectory() as tmp:
+        zero_launches = zero_two_rank_card_phase(one_rank, tmp)
+    del one_rank
+    with phase("zero_kernel_rows"):
+        k6 = {"adam": sum(v.get("adam", 0) for v in zero_launches.values())}
+        for kname, r in zero_kernel_rows(mt, *zero_specs, k6).items():
+            rows[kname].update(r)
         torch.cuda.empty_cache()
 
     kernels = []

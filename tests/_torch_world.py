@@ -1188,3 +1188,259 @@ def monitor_scenario(rank, world, losses, gvals, skips, durations):
     skew = {k: _np(v) for k, v in
             monitor.rank_skew(torch.tensor(float(durations[rank])), "data").items()}
     return packed, skew, monitor.comms_records()
+
+
+# ------------------------------------------------------------------- ZeRO
+
+
+def _ttree(np_tree, dtype=None):
+    """A dict of numpy arrays as CPU tensors (``dtype`` casts)."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in np_tree.items()}
+    return out if dtype is None else {k: v.to(dtype) for k, v in out.items()}
+
+
+def _nptree(tree):
+    return {k: _np(v) for k, v in tree.items()}
+
+
+def _rank_grads(g_np, rank):
+    """This rank's row of a dict of rank-stacked (W, ...) arrays."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v[rank])) for k, v in g_np.items()}
+
+
+def _zero_records(prefix):
+    from beforeholiday_tpu_torch.monitor import comms
+
+    return sorted((r["site"], r["kind"], r["dtype"], r["calls"], r["bytes"],
+                   r["logical_bytes"])
+                  for r in comms.comms_records() if r["site"].startswith(prefix))
+
+
+def _zero_opt(kind, kw):
+    from beforeholiday_tpu_torch.optimizers import (
+        DistributedFusedAdam,
+        DistributedFusedLAMB,
+        ZeRO3FusedAdam,
+    )
+
+    return {"adam": DistributedFusedAdam, "lamb": DistributedFusedLAMB,
+            "zero3": ZeRO3FusedAdam}[kind](**kw)
+
+
+def _zero2_case(rank, world, case):
+    """One ZeRO-2 case on this rank (see :func:`zero_scenario`)."""
+    from beforeholiday_tpu_torch.monitor import comms
+    from beforeholiday_tpu_torch.parallel import bucketing
+
+    kind = case["kind"]
+    if kind == "scatter":
+        x = torch.from_numpy(case["x"][rank])
+        got = bucketing.bucketed_psum_scatter(
+            x, "data", site="t.scatter", bucket_bytes=case["bucket_bytes"],
+            compress=case["compress"], concat=case["concat"])
+        return [_np(p) for p in got] if isinstance(got, list) else _np(got)
+    if kind == "gather":
+        s = torch.from_numpy(case["x"][rank])
+        wire = getattr(torch, case.get("wire", "float32"))
+        return _np(bucketing.bucketed_all_gather(
+            s.to(wire), "data", site="t.gather", bucket_bytes=case["bucket_bytes"],
+            logical_dtype=None if wire == torch.float32 else torch.float32).float())
+    opt = _zero_opt(kind, case["kw"])
+    p = _ttree(case["params"], getattr(torch, case.get("dtype", "float32")))
+    state = opt.init(p)
+    comms.reset_comms_ledger()
+    out = {"steps": []}
+    for i, g_np in enumerate(case["grads"]):
+        p, state = opt.step(p, _rank_grads(g_np, rank), state)
+        if i == 0:
+            out["records"] = _zero_records(opt._site_prefix + ".")
+        out["steps"].append(int(state["step"]))
+        if case.get("resume_at") == i + 1:
+            # save, rebuild the state from the checkpoint, go on from it
+            sd = opt.state_dict(p, state)
+            out["gathered"] = {k: (_nptree(v) if isinstance(v, dict) else _np(v))
+                               for k, v in sd.items()}
+            out["local"] = {k: _np(v) for k, v in
+                            opt.state_dict(p, state, gather_on_root=False).items()}
+            state = opt.load_state_dict(p, sd)
+    out["params"] = _nptree(p)
+    out["dtypes"] = {k: str(v.dtype) for k, v in p.items()}
+    out["master"] = _nptree(opt.state_dict(p, state)["master"])
+    return out
+
+
+def zero_scenario(rank, world, cases):
+    """ZeRO-2 cases for ``tests/test_torch_zero.py``, one world: each case
+    a dict with ``kind`` ("scatter", "gather": the bucketed collectives on
+    this rank's row of ``x``; "adam", "lamb": the optimizer from ``kw`` on
+    ``params`` for the rank-stacked ``grads`` of each step, with the first
+    step's ``zero2.*`` ledger and, at ``resume_at``, a state-dict round
+    trip)."""
+    return {name: _zero2_case(rank, world, case) for name, case in cases.items()}
+
+
+def _vdot_loss(tree, grads):
+    """Linear loss: each leaf's cotangent is exactly its ``grads`` entry."""
+    return sum(torch.sum(tree[k].float() * g) for k, g in grads.items())
+
+
+def _zero3_steps(opt, params, g_seq, rank, steps=None):
+    from beforeholiday_tpu_torch.optimizers import zero3
+
+    layout = zero3.layout_of(params)
+    state = opt.init(params)
+    for g_np in g_seq:
+        grads = _rank_grads(g_np, rank)
+        master = state["master"].detach().requires_grad_(True)
+        opt.wrap_residency(lambda m: _vdot_loss(opt.gather_params(m, layout), grads))(
+            master).backward()
+        state = opt.step(master.grad, state)
+        if steps is not None:
+            steps.append(int(state["step"]))
+    return layout, state
+
+
+def _zero3_case(rank, world, case):
+    """One ZeRO-3 case on this rank (see :func:`zero3_scenario`)."""
+    from beforeholiday_tpu_torch.monitor import comms
+    from beforeholiday_tpu_torch.optimizers import DistributedFusedAdam, zero3
+
+    kind = case["kind"]
+    if kind == "gpt":
+        return zero_gpt_o5_scenario(rank, world, *case["args"])
+    params = _ttree(case["params"], getattr(torch, case.get("dtype", "float32")))
+    if kind == "z3":
+        comms.reset_comms_ledger()
+        opt = _zero_opt("zero3", case["kw"])
+        steps = []
+        layout, state = _zero3_steps(opt, params, case["grads"], rank, steps)
+        calls = {r[0]: r[3] for r in _zero_records("zero3.")}
+        p = opt.gather_params(state["master"], layout)
+        # the gathered state dict loads back to this rank's shards, bitwise
+        back = opt.load_state_dict(layout, opt.state_dict(layout, state))
+        roundtrip = all(torch.equal(back[k], state[k]) for k in state)
+        out = dict(params=_nptree(p), master=_np(state["master"]), steps=steps,
+                   roundtrip_bitwise=roundtrip,
+                   calls=calls, exp_avg=_np(state["exp_avg"]),
+                   local={k: _np(v) for k, v in
+                          opt.state_dict(layout, state, gather_on_root=False).items()},
+                   gathered=_nptree(opt.state_dict(layout, state)["master"]))
+        if case.get("z2"):
+            z2 = DistributedFusedAdam(**case["z2"])
+            p2, s2 = params, z2.init(params)
+            for g_np in case["grads"]:
+                p2, s2 = z2.step(p2, _rank_grads(g_np, rank), s2)
+            out["z2_params"], out["z2_master"] = _nptree(p2), _np(s2["master"])
+        return out
+    if kind == "refuse":
+        opt = _zero_opt("zero3", case["kw"])
+        state = opt.init(params)
+        try:
+            opt.step(_rank_grads(case["grads"][0], rank), state)
+        except ValueError as e:
+            return str(e)
+        return None
+    if kind == "load":
+        # a checkpoint's shards for this world (one dict a rank) into fresh
+        # state; then one more step from it
+        opt = _zero_opt("zero3", case["kw"])
+        layout = zero3.layout_of(params)
+        state = opt.load_state_dict(layout, case["shards"][rank])
+        gathered = _nptree(opt.state_dict(layout, state)["master"])
+        grads = _rank_grads(case["grads"][0], rank)
+        master = state["master"].detach().requires_grad_(True)
+        _vdot_loss(opt.gather_params(master, layout), grads).backward()
+        state2 = opt.step(master.grad, state)
+        return dict(gathered=gathered, master=_np(state2["master"]),
+                    step=int(state2["step"]))
+    if kind == "guard":
+        from beforeholiday_tpu_torch import guard as guard_mod
+        from beforeholiday_tpu_torch.amp.scaler import LossScaler
+
+        opt = _zero_opt("zero3", case["kw"])
+        layout = zero3.layout_of(params)
+        state = opt.init(params)
+        g = guard_mod.StepGuard(LossScaler(**case["scaler"]), **case["guard"])
+        gstate = g.init(state, device="cpu")
+        for g_np, bad in zip(case["grads"], case["bad"]):
+            grads = _rank_grads(g_np, rank)
+            master = state["master"].detach().requires_grad_(True)
+            _vdot_loss(opt.gather_params(master, layout), grads).backward()
+            verdict = {"grad_overflow": torch.tensor(bool(bad)),
+                       "loss_nonfinite": torch.tensor(False)}
+            state, gstate = g.apply_sharded_update(opt, state, master.grad, gstate,
+                                                   verdict)
+        return dict(master=_nptree(opt.state_dict(layout, state)["master"]),
+                    step=int(state["step"]), scale=float(gstate["scaler"]["scale"]),
+                    health={k: int(v) for k, v in gstate["health"].items()})
+    raise ValueError(kind)
+
+
+def zero3_scenario(rank, world, cases):
+    """ZeRO-3 cases for ``tests/test_torch_zero3.py``, one world: "z3" (the
+    steps of the linear loss, with ``z2`` the ZeRO-2 run beside them),
+    "refuse" (a step on an unscattered grad tree), "load" (a checkpoint's
+    shards into fresh state, then a step), "guard" (guarded steps with the
+    ``bad`` verdicts), "gpt" (:func:`zero_gpt_o5_scenario`)."""
+    return {name: _zero3_case(rank, world, case) for name, case in cases.items()}
+
+
+def zero_gpt_o5_scenario(rank, world, cfg_kw, np_params, tokens, targets, steps, lr):
+    """The GPT's amp O5 step with ZeRO-2 (``DistributedFusedAdam`` on the
+    arena-native params, the grads through ``scaled_value_and_grad``) and
+    with ZeRO-3 (``ZeRO3FusedAdam``, prefetch 1, "keep" and "regather") on
+    this rank's slice of the batch, as a user script builds them: each
+    ZeRO-2 step's loss, this rank's grads and the gathered masters; whether
+    each ZeRO-3 run's first step gave ZeRO-2's masters and model, bitwise."""
+    from beforeholiday_tpu_torch import amp
+    from beforeholiday_tpu_torch.ops.arena import tree_map
+    from beforeholiday_tpu_torch.optimizers import (
+        DistributedFusedAdam,
+        ZeRO3FusedAdam,
+        zero3,
+    )
+    from beforeholiday_tpu_torch.testing import gpt
+
+    cfg = gpt.GPTConfig(**cfg_kw, dtype=torch.bfloat16)
+    params = gpt.params_from_numpy(np_params, device="cpu")
+    B = tokens.shape[0] // world
+    tok = _tensor(tokens[rank * B:(rank + 1) * B]).long()
+    tgt = _tensor(targets[rank * B:(rank + 1) * B]).long()
+    m = amp.initialize(lambda p, t: gpt.forward(p, t, cfg), params, None, "O5",
+                       arena_native=True)
+    svag = amp.scaled_value_and_grad(
+        lambda p, t, y: gpt.loss_fn(p, t, y, cfg, forward_fn=m.apply), m.scaler)
+    opt = DistributedFusedAdam(lr=lr)
+    cast = tree_map(lambda t: t.detach().clone(), m.params.unpack())  # bf16 kept
+    state, sstate = opt.init(m.params), m.scaler.init(device="cpu")
+    out = {"steps": []}
+    for i in range(steps):
+        loss, g, fi, sstate = svag(m.params, sstate, tok, tgt)
+        m.params, state = opt.step(m.params, g, state, found_inf=fi)
+        out["steps"].append(dict(
+            loss=float(loss), found_inf=bool(fi), grads=_np_tree(g.unpack()),
+            masters=_np_tree(opt.state_dict(m.params, state)["master"])))
+        if i == 0:
+            z2_model = _np_tree(m.params.unpack())
+    # ZeRO-3's first step against ZeRO-2's
+    for residency in ("keep", "regather"):
+        z3 = ZeRO3FusedAdam(lr=lr, prefetch=1, param_residency=residency)
+        layout = zero3.layout_of(cast)
+        st = z3.init(cast)
+
+        def loss3(master):
+            p = z3.gather_params(master, layout)
+            p = {**p, "blocks": {k: v.unbind(0) for k, v in p["blocks"].items()}}
+            return gpt.loss_fn(p, tok, tgt, cfg, forward_fn=m.apply)
+
+        master = st["master"].detach().requires_grad_(True)
+        z3.wrap_residency(loss3)(master).backward()
+        st = z3.step(master.grad, st)
+        got = _np_tree(z3.state_dict(layout, st)["master"])
+        model = _np_tree(z3.gather_params(st["master"], layout))
+        same = all(np.array_equal(a, b) for a, b in zip(
+            _flatten(got)[0], _flatten(out["steps"][0]["masters"])[0]))
+        same_model = all(np.array_equal(a, b) for a, b in zip(
+            _flatten(model)[0], _flatten(z2_model)[0]))
+        out[f"zero3_{residency}_bitwise"] = bool(same and same_model)
+    return out

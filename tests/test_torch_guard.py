@@ -214,8 +214,6 @@ def test_state_dict_round_trip_and_old_checkpoints():
         pair.tg.load_state_dict(sd, device="cpu")
     with pytest.raises(ValueError):
         TGuard(rollback_after=-1)
-    with pytest.raises(NotImplementedError):
-        pair.tg.apply_sharded_update(None, None, None, None, None)
 
 
 def test_amp_state_dict_carries_health():

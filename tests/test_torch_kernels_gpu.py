@@ -971,6 +971,79 @@ def test_k8_matches_plain(cuda, copy, skip):
         assert torch.equal(ck, pk.to(copy))
 
 
+# (world, rank) of AWKWARD's arena (98,304 elements): (3, 0) starts at the
+# arena's start; (3, 1) lies wholly inside the 70,000-element tensor; (3, 2)
+# starts inside it and its block at 78,208 - 65,536 holds the shard's first
+# tensor start; (2, 1) starts inside it and is mostly padding; (4, 3) is all
+# padding
+SHARDS = [(3, 0), (3, 1), (3, 2), (2, 1), (4, 3)]
+
+
+@pytest.mark.parametrize("world, rank", SHARDS)
+def test_k8_shard_mode_matches_plain_and_the_whole_arena(cuda, world, rank):
+    """ZeRO's shard mode: only K8's tables change (built from the shard's
+    base), the ratios stay one per tensor of the whole arena (global ids),
+    positions past the arena's tensors take the padding's ratio 0."""
+    from beforeholiday_tpu_torch.ops.arena import ArenaShard
+    from beforeholiday_tpu_torch.optimizers.distributed_fused import _shard_len
+
+    spec = make_spec(AWKWARD)
+    shard = _shard_len(spec.padded_total, world)
+    g = _gen(18)
+    p = torch.randn(shard * world, generator=g, device=cuda)
+    p[spec.total:] = 0
+    u = torch.randn(shard * world, generator=g, device=cuda)
+    ratio = 1e-3 * (0.5 + torch.rand(spec.num_tensors, generator=g, device=cuda))
+    seg = ArenaShard(spec, rank, shard)
+    lo, hi = rank * shard, (rank + 1) * shard
+    outs = {}
+    for fn in (tmt.scaled_update_kernel, tmt.scaled_update_torch):
+        pk, ck = p[lo:hi].clone(), torch.empty(shard, dtype=torch.bfloat16, device=cuda)
+        fn(pk, u[lo:hi], ratio, spec, found_inf=None, copy_out=ck, shard=seg)
+        outs[fn] = (pk, ck)
+    whole = p[: spec.padded_total].clone()
+    tmt.scaled_update_kernel(whole, u[: spec.padded_total].contiguous(), ratio, spec,
+                             found_inf=None, copy_out=None)
+    torch.cuda.synchronize()
+    (pk, ck), (pr, _) = outs[tmt.scaled_update_kernel], outs[tmt.scaled_update_torch]
+    torch.testing.assert_close(pk, pr, rtol=1e-6, atol=1e-6 * float(pr.abs().max()))
+    assert torch.equal(ck, pk.to(torch.bfloat16))
+    # the same launch's elements as the unsharded K8's, bitwise
+    n = max(0, min(hi, spec.padded_total) - lo)
+    assert torch.equal(pk[:n], whole[lo: lo + n])
+    past = max(spec.total - lo, 0)
+    assert torch.all(pk[past:] == p[lo:hi][past:])  # the padding did not move
+
+
+@pytest.mark.parametrize("world, rank", SHARDS[:3])
+def test_k6_on_a_shard_matches_plain(cuda, world, rank):
+    """K6 on a ZeRO shard (TILE-aligned, no model copy), as ZeRO-2 and
+    ZeRO-3 launch it."""
+    from beforeholiday_tpu_torch.optimizers.distributed_fused import _shard_len
+
+    shard = _shard_len(make_spec(AWKWARD).padded_total, world)
+    g = _gen(19 + rank)
+    grad = torch.randn(shard, generator=g, device=cuda)
+    p = torch.randn(shard, generator=g, device=cuda)
+    m = 0.1 * torch.randn(shard, generator=g, device=cuda)
+    v = 0.01 * torch.rand(shard, generator=g, device=cuda)
+    step = torch.full((), 2, dtype=torch.int32, device=cuda)
+    bc1, bc2 = tmt._bias_corrections(True, step, 0.9, 0.999)
+    kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, bc1=bc1, bc2=bc2,
+              weight_decay=0.01, adam_w_mode=True, grad_scale=1.0,
+              found_inf=torch.zeros((), dtype=torch.bool, device=cuda), copy_out=None)
+    outs = {}
+    for fn in (tmt.adam_kernel, tmt.adam_torch):
+        st = (p.clone(), m.clone(), v.clone())
+        fn(grad, *st, **kw)
+        outs[fn] = st
+    torch.cuda.synchronize()
+    # test_k6_matches_plain's tolerance: an ulp where the compiler contracts
+    # a multiply-add, of the largest term where m's terms cancel
+    for a, b in zip(outs[tmt.adam_kernel], outs[tmt.adam_torch]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
 def test_k8_refuses_a_ratio_per_layer(cuda):
     """One ratio per spec tensor, never per layer view."""
     spec = make_spec(AWKWARD)
