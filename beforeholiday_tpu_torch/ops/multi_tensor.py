@@ -69,6 +69,23 @@ Nine kernels, all Triton, all streaming passes over flat arenas:
   and written 16, copy 2): 0.168 ms for ResNet-50's bf16 arena (25,526,272
   elements); 20 B without a copy (0.153 ms for the O0 list path's
   25,559,040); 16 B with fp16 p (0.122 ms for O3's 25,559,040).
+* K6 and K10 views mode, :func:`adam_views_kernel` and
+  :func:`sgd_views_kernel`: the optimizers' view path (``_step_views``,
+  the pack-free tree-gradient step behind ``step_in_backward``). The
+  parameters, moments and model copy are still the arenas; only the
+  gradients are read where they lie, through a device int64 table of
+  (gradient pointer, element count, arena offset) per leaf and a block ->
+  (leaf, chunk) map, as Apex's ``multi_tensor_apply`` does: one launch an
+  arena, the same per-element arithmetic as the arena launch (so bitwise
+  its result on the same values), and no gradient arena packed. The map is
+  built once per tuple of leaf sizes; the table once per tuple of gradient
+  addresses, so a step whose gradients land where an earlier step's did
+  reuses it, and one whose gradients land elsewhere pays one pinned,
+  non-blocking copy of three int64 a leaf (tree gradients from autograd
+  land at new addresses on most steps). The arena's tail padding, which no
+  leaf covers, is left as it is. Bound: bytes, as the arena launch's less
+  the padding; the gradient loads go one element at a time (Triton cannot
+  prove a table pointer's alignment).
 
 * K16, :func:`axpby_kernel`, replaces ``_pallas_mt.py:195`` ``_axpby_kernel``
   (launched from ``axpby`` at ``:209``): ``out = a * x + b * y`` in fp32,
@@ -98,7 +115,7 @@ Nine kernels, all Triton, all streaming passes over flat arenas:
   ResNet-50's master arena.
 
 Each has its plain PyTorch version beside it (:func:`scale_torch`,
-:func:`adam_torch`, :func:`l2norm_sq_torch`, :func:`lamb_stage1_torch`,
+:func:`adam_torch`, :func:`adam_views_torch`, :func:`sgd_views_torch`, :func:`l2norm_sq_torch`, :func:`lamb_stage1_torch`,
 :func:`scaled_update_torch`, :func:`sgd_torch`, :func:`axpby_torch`,
 :func:`adagrad_torch`, :func:`novograd_torch`), the CPU path and the
 kernels' yardstick on the card. The list APIs (:func:`multi_tensor_scale`,
@@ -488,6 +505,187 @@ def multi_tensor_adam(grads, params, exp_avgs, exp_avg_sqs, *, lr,
               bias_correction=bias_correction, weight_decay=weight_decay,
               grad_scale=grad_scale, found_inf=found_inf, impl=impl)
     return unflatten(pf, spec), unflatten(mf, spec), unflatten(vf, spec)
+
+
+# ------------------------------------------------------ K6/K10 views mode
+
+
+def _check_views(name, gleaves, spec: ArenaSpec, arenas):
+    if len(gleaves) != spec.num_tensors:
+        raise ValueError(f"{name}: {len(gleaves)} gradient leaves for a spec of "
+                         f"{spec.num_tensors} tensors")
+    for g, shape in zip(gleaves, spec.shapes):
+        if g.numel() != math.prod(shape):
+            raise ValueError(f"{name}: a gradient leaf of {g.numel()} elements "
+                             f"where the spec has {tuple(shape)}")
+    for t in arenas:
+        if t is not None and (t.ndim != 1 or t.numel() != spec.padded_total):
+            raise ValueError(f"{name}: arenas must be 1-D of the spec's "
+                             f"{spec.padded_total} elements, got {tuple(t.shape)}")
+
+
+def _to_device(host: torch.Tensor, device: torch.device):
+    """``(device copy, host source)``: a pinned, non-blocking copy to a
+    card (the host never waits), the tensor itself on the CPU."""
+    if device.type == "cpu":
+        return host, host
+    host = host.pin_memory()
+    return host.to(device, non_blocking=True), host
+
+
+@functools.lru_cache(maxsize=64)
+def _views_block_map(counts: Tuple[int, ...], device: torch.device):
+    """The launch's block -> (leaf, chunk) map, int32 pairs, on ``device``
+    (with its pinned source): built once per tuple of leaf sizes."""
+    pairs = [(i, c) for i, n in enumerate(counts) for c in range(-(-n // _BLOCK))]
+    return _to_device(torch.tensor(pairs, dtype=torch.int32).reshape(-1), device)
+
+
+# (gradient addresses, sizes, offsets, device) -> the device table and its
+# pinned source, most recent last
+_VIEWS_TABLES: "dict" = {}
+_VIEWS_TABLES_MAX = 8
+views_tables_built = [0]
+
+
+def _views_table(gleaves, spec: ArenaSpec, device: torch.device) -> torch.Tensor:
+    """The int64 (gradient pointer, element count, arena offset) table of
+    the leaves, on ``device``. Built (one pinned, non-blocking copy) the
+    first time a tuple of addresses is seen; a step whose gradients land
+    where the last ones did reuses it."""
+    counts = tuple(g.numel() for g in gleaves)
+    key = (tuple(g.data_ptr() for g in gleaves), counts, spec.offsets, device)
+    hit = _VIEWS_TABLES.pop(key, None)
+    if hit is None:
+        rows = [(ptr, n, off) for ptr, n, off in zip(key[0], counts, spec.offsets)]
+        hit = _to_device(torch.tensor(rows, dtype=torch.int64).reshape(-1), device)
+        views_tables_built[0] += 1
+        while len(_VIEWS_TABLES) >= _VIEWS_TABLES_MAX:
+            _VIEWS_TABLES.pop(next(iter(_VIEWS_TABLES)))
+    _VIEWS_TABLES[key] = hit
+    return hit[0]
+
+
+def _views_launch_args(name, gleaves, spec, p):
+    """Validate the gradient leaves of a views-mode launch on ``p``'s
+    device; ``(table, block map, number of blocks)``."""
+    for g in gleaves:
+        if not g.is_cuda or g.device != p.device or not g.is_contiguous():
+            raise ValueError(f"{name} reads contiguous CUDA gradient leaves on "
+                             f"the arena's device; got {tuple(g.shape)} on "
+                             f"{g.device} (contiguous {g.is_contiguous()})")
+        if g.dtype != gleaves[0].dtype or not g.is_floating_point():
+            raise ValueError(f"{name} takes one floating gradient dtype a "
+                             f"launch, got {g.dtype} and {gleaves[0].dtype}")
+    counts = tuple(g.numel() for g in gleaves)
+    bmap = _views_block_map(counts, p.device)[0]
+    return _views_table(gleaves, spec, p.device), bmap, bmap.numel() // 2
+
+
+def adam_views_torch(gleaves, p, m, v, spec: ArenaSpec, *, copy_out, **hyper):
+    """Plain PyTorch version of K6's views mode: :func:`adam_torch` leaf by
+    leaf on the arenas' views, in place."""
+    for g, off, shape in zip(gleaves, spec.offsets, spec.shapes):
+        n = math.prod(shape)
+        adam_torch(g.reshape(-1), p[off: off + n], m[off: off + n],
+                   v[off: off + n], copy_out=(None if copy_out is None
+                                              else copy_out[off: off + n]),
+                   **hyper)
+
+
+@functools.cache
+def _adam_views_triton():
+    global tl
+    triton = _triton()
+    import triton.language as tl
+
+    @triton.jit
+    def _adam_views(TAB, BMAP, GT, P, M, V, C, SCAL, FI, beta1, beta2, one_m_b1,
+                    one_m_b2, eps, decay, MODE: tl.constexpr,
+                    HAS_COPY: tl.constexpr, BLOCK: tl.constexpr):
+        b = tl.program_id(0)
+        leaf = tl.load(BMAP + 2 * b).to(tl.int64)
+        chunk = tl.load(BMAP + 2 * b + 1).to(tl.int64)
+        g_ptr = tl.load(TAB + 3 * leaf).to(tl.pointer_type(GT.dtype.element_ty))
+        count = tl.load(TAB + 3 * leaf + 1)
+        base = tl.load(TAB + 3 * leaf + 2)
+        offs = chunk * BLOCK + tl.arange(0, BLOCK)
+        # found_inf masks every load and store: a skipped step touches nothing
+        mask = (offs < count) & (tl.load(FI) == 0)
+        bc1 = tl.load(SCAL)
+        bc2 = tl.load(SCAL + 1)
+        lr = tl.load(SCAL + 2)
+        gs = tl.load(SCAL + 3)
+        g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32) * gs
+        p = tl.load(P + base + offs, mask=mask, other=0.0)
+        m = tl.load(M + base + offs, mask=mask, other=0.0)
+        v = tl.load(V + base + offs, mask=mask, other=0.0)
+        if MODE == 0:
+            g = g + decay * p
+        m_new = beta1 * m + one_m_b1 * g
+        v_new = beta2 * v + one_m_b2 * g * g
+        update = tl.div_rn(tl.div_rn(m_new, bc1),
+                           tl.sqrt_rn(tl.div_rn(v_new, bc2)) + eps)
+        if MODE == 1:
+            update = update + decay * p
+        p_new = p - lr * update
+        tl.store(P + base + offs, p_new, mask=mask)
+        tl.store(M + base + offs, m_new, mask=mask)
+        tl.store(V + base + offs, v_new, mask=mask)
+        if HAS_COPY:
+            tl.store(C + base + offs, p_new.to(C.dtype.element_ty), mask=mask)
+
+    return triton, _adam_views
+
+
+def adam_views_kernel(gleaves, p, m, v, spec: ArenaSpec, *, lr, beta1, beta2, eps,
+                      bc1, bc2, weight_decay, adam_w_mode, grad_scale, found_inf,
+                      copy_out):
+    """Launch K6's views mode: fp32 arenas ``p``, ``m``, ``v`` of ``spec``
+    updated in place from the gradient leaves where they lie (one floating
+    dtype), optional ``copy_out`` arena of any float dtype. One launch."""
+    _check_views("K6 views", gleaves, spec, (p, m, v, copy_out))
+    for t in (p, m, v) + (() if copy_out is None else (copy_out,)):
+        if not t.is_cuda or t.device != p.device or not t.is_contiguous():
+            raise ValueError("K6 views updates contiguous CUDA arenas on one "
+                             f"device; got {t.device}")
+    if not (p.dtype == m.dtype == v.dtype == torch.float32):
+        raise ValueError(f"K6 updates fp32 p/m/v, got {p.dtype}/{m.dtype}/{v.dtype}")
+    table, bmap, blocks = _views_launch_args("K6 views", gleaves, spec, p)
+    triton, kernel = _adam_views_triton()
+    scal = torch.cat([_device_scalar(x, p) for x in (bc1, bc2, lr, grad_scale)])
+    fi = (torch.zeros(1, dtype=torch.int32, device=p.device) if found_inf is None
+          else _device_scalar(found_inf, p, torch.int32))
+    if blocks:
+        kernel[(blocks,)](
+            table, bmap, gleaves[0], p, m, v, p if copy_out is None else copy_out,
+            scal, fi, float(beta1), float(beta2), float(1.0 - beta1),
+            float(1.0 - beta2), float(eps), float(weight_decay),
+            MODE=1 if adam_w_mode else 0, HAS_COPY=copy_out is not None,
+            BLOCK=_BLOCK, num_warps=8)
+        adam_views_kernel.launches += 1
+
+
+adam_views_kernel.launches = 0
+
+
+def adam_views(gleaves, pf, mf, vf, spec: ArenaSpec, *, lr, beta1: float = 0.9,
+               beta2: float = 0.999, eps: float = 1e-8, step=1,
+               adam_w_mode: bool = True, bias_correction: bool = True,
+               weight_decay: float = 0.0, grad_scale=1.0, found_inf=None,
+               model_copy=None, impl: Optional[str] = None):
+    """:func:`adam_flat` with the gradients as a list of leaves laid out by
+    ``spec`` (K6's views mode on CUDA arenas, the plain per-leaf version on
+    CPU ones), IN PLACE on the arenas; returns ``(p, m, v)`` or ``(p, m,
+    v, model_copy)``."""
+    impl = resolve_impl(impl, pf, op="adam_views")
+    bc1, bc2 = _bias_corrections(bias_correction, step, beta1, beta2)
+    fn = adam_views_kernel if impl == "kernel" else adam_views_torch
+    fn(list(gleaves), pf, mf, vf, spec, lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+       bc1=bc1, bc2=bc2, weight_decay=weight_decay, adam_w_mode=adam_w_mode,
+       grad_scale=grad_scale, found_inf=found_inf, copy_out=model_copy)
+    outs = (pf, mf, vf)
+    return outs if model_copy is None else outs + (model_copy,)
 
 
 # ----------------------------------------------------------------- K17
@@ -1252,23 +1450,25 @@ def _sgd_triton():
         gs = tl.load(SCAL + 1)
         g = tl.load(G + offs, mask=mask, other=0.0).to(tl.float32) * gs
         p = tl.load(P + offs, mask=mask, other=0.0).to(tl.float32)
+        # every multiply-add is an explicit fma: the compiler has none left
+        # to contract, so the arena and views modes round alike
         if not WD_AFTER:  # decay folded into the gradient before momentum
-            g = g + decay * p
+            g = tl.fma(decay, p, g)
         if HAS_MOMENTUM:
             first = tl.load(FIRST) != 0
             # the first step seeds the buffer with g and never reads it
             m = tl.load(M + offs, mask=mask & (tl.load(FIRST) == 0), other=0.0)
-            m_new = tl.where(first, g, m * momentum + one_m_damp * g)
+            m_new = tl.where(first, g, tl.fma(m, momentum, one_m_damp * g))
             tl.store(M + offs, m_new, mask=mask)
             if NESTEROV:
-                step = g + momentum * m_new
+                step = tl.fma(momentum, m_new, g)
             else:
                 step = m_new
         else:
             step = g
         if WD_AFTER:
-            step = step + decay * p
-        p_new = p - lr * step
+            step = tl.fma(decay, p, step)
+        p_new = tl.fma(-lr, step, p)
         tl.store(P + offs, p_new.to(P.dtype.element_ty), mask=mask)
         if HAS_COPY:
             tl.store(C + offs, p_new.to(C.dtype.element_ty), mask=mask)
@@ -1337,6 +1537,113 @@ def sgd_flat(gf, pf, mf, *, lr, weight_decay: float = 0.0,
        dampening=dampening, nesterov=nesterov, first_run=first_run,
        wd_after_momentum=wd_after_momentum, scale=scale, found_inf=found_inf,
        copy_out=model_copy)
+    return (pf, mf) if model_copy is None else (pf, mf, model_copy)
+
+
+def sgd_views_torch(gleaves, p, m, spec: ArenaSpec, *, copy_out, **hyper):
+    """Plain PyTorch version of K10's views mode: :func:`sgd_torch` leaf by
+    leaf on the arenas' views, in place."""
+    for g, off, shape in zip(gleaves, spec.offsets, spec.shapes):
+        n = math.prod(shape)
+        sgd_torch(g.reshape(-1), p[off: off + n], m[off: off + n],
+                  copy_out=None if copy_out is None else copy_out[off: off + n],
+                  **hyper)
+
+
+@functools.cache
+def _sgd_views_triton():
+    global tl
+    triton = _triton()
+    import triton.language as tl
+
+    @triton.jit
+    def _sgd_views(TAB, BMAP, GT, P, M, C, SCAL, FI, FIRST, decay, momentum,
+                   one_m_damp, NESTEROV: tl.constexpr, WD_AFTER: tl.constexpr,
+                   HAS_MOMENTUM: tl.constexpr, HAS_COPY: tl.constexpr,
+                   BLOCK: tl.constexpr):
+        b = tl.program_id(0)
+        leaf = tl.load(BMAP + 2 * b).to(tl.int64)
+        chunk = tl.load(BMAP + 2 * b + 1).to(tl.int64)
+        g_ptr = tl.load(TAB + 3 * leaf).to(tl.pointer_type(GT.dtype.element_ty))
+        count = tl.load(TAB + 3 * leaf + 1)
+        base = tl.load(TAB + 3 * leaf + 2)
+        offs = chunk * BLOCK + tl.arange(0, BLOCK)
+        # found_inf masks every load and store: a skipped step touches nothing
+        mask = (offs < count) & (tl.load(FI) == 0)
+        lr = tl.load(SCAL)
+        gs = tl.load(SCAL + 1)
+        g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32) * gs
+        p = tl.load(P + base + offs, mask=mask, other=0.0).to(tl.float32)
+        # the arena launch's explicit fmas, so the two round alike
+        if not WD_AFTER:
+            g = tl.fma(decay, p, g)
+        if HAS_MOMENTUM:
+            first = tl.load(FIRST) != 0
+            m = tl.load(M + base + offs, mask=mask & (tl.load(FIRST) == 0), other=0.0)
+            m_new = tl.where(first, g, tl.fma(m, momentum, one_m_damp * g))
+            tl.store(M + base + offs, m_new, mask=mask)
+            if NESTEROV:
+                step = tl.fma(momentum, m_new, g)
+            else:
+                step = m_new
+        else:
+            step = g
+        if WD_AFTER:
+            step = tl.fma(decay, p, step)
+        p_new = tl.fma(-lr, step, p)
+        tl.store(P + base + offs, p_new.to(P.dtype.element_ty), mask=mask)
+        if HAS_COPY:
+            tl.store(C + base + offs, p_new.to(C.dtype.element_ty), mask=mask)
+
+    return triton, _sgd_views
+
+
+def sgd_views_kernel(gleaves, p, m, spec: ArenaSpec, *, lr, weight_decay, momentum,
+                     dampening, nesterov, first_run, wd_after_momentum, scale,
+                     found_inf, copy_out):
+    """Launch K10's views mode: arenas ``p`` (fp32, bf16 or fp16) and fp32
+    ``m`` of ``spec`` updated in place from the gradient leaves where they
+    lie (one floating dtype), optional ``copy_out`` arena. One launch."""
+    _check_views("K10 views", gleaves, spec, (p, m, copy_out))
+    for t in (p, m) + (() if copy_out is None else (copy_out,)):
+        if not t.is_cuda or t.device != p.device or not t.is_contiguous():
+            raise ValueError("K10 views updates contiguous CUDA arenas on one "
+                             f"device; got {t.device}")
+    if p.dtype not in _HALF_OR_FP32 or m.dtype != torch.float32:
+        raise ValueError(f"K10 updates fp32, bf16 or fp16 p and fp32 m, got "
+                         f"{p.dtype}/{m.dtype}")
+    table, bmap, blocks = _views_launch_args("K10 views", gleaves, spec, p)
+    triton, kernel = _sgd_views_triton()
+    scal = torch.cat([_device_scalar(x, p) for x in (lr, scale)])
+    fi = (torch.zeros(1, dtype=torch.int32, device=p.device) if found_inf is None
+          else _device_scalar(found_inf, p, torch.int32))
+    first = _device_scalar(first_run, p, torch.int32)
+    if blocks:
+        kernel[(blocks,)](
+            table, bmap, gleaves[0], p, m, p if copy_out is None else copy_out,
+            scal, fi, first, float(weight_decay), float(momentum),
+            float(1.0 - dampening), NESTEROV=bool(nesterov),
+            WD_AFTER=bool(wd_after_momentum), HAS_MOMENTUM=momentum != 0.0,
+            HAS_COPY=copy_out is not None, BLOCK=_BLOCK, num_warps=8)
+        sgd_views_kernel.launches += 1
+
+
+sgd_views_kernel.launches = 0
+
+
+def sgd_views(gleaves, pf, mf, spec: ArenaSpec, *, lr, weight_decay: float = 0.0,
+              momentum: float = 0.0, dampening: float = 0.0, nesterov: bool = False,
+              first_run=False, wd_after_momentum: bool = False, scale=1.0,
+              found_inf=None, model_copy=None, impl: Optional[str] = None):
+    """:func:`sgd_flat` with the gradients as a list of leaves laid out by
+    ``spec`` (K10's views mode on CUDA arenas, the plain per-leaf version
+    on CPU ones), IN PLACE; returns ``(p, m)`` or ``(p, m, model_copy)``."""
+    impl = resolve_impl(impl, pf, op="sgd_views")
+    fn = sgd_views_kernel if impl == "kernel" else sgd_views_torch
+    fn(list(gleaves), pf, mf, spec, lr=lr, weight_decay=weight_decay,
+       momentum=momentum, dampening=dampening, nesterov=nesterov,
+       first_run=first_run, wd_after_momentum=wd_after_momentum, scale=scale,
+       found_inf=found_inf, copy_out=model_copy)
     return (pf, mf) if model_copy is None else (pf, mf, model_copy)
 
 

@@ -30,9 +30,16 @@ no per-leaf flatten, and the gathered params land straight in the model
 arenas. The checkpoints (:meth:`_DistributedFused.state_dict`) are trees
 shaped like the params either way.
 
-``hierarchical=True`` and the per-tier compression knobs raise
-``NotImplementedError``: the two-level engines come in a later slice.
-``tuned=True`` raises as ``tune.resolve_trainer_knobs`` does.
+``hierarchical=True`` (a ``(slice, intra)`` ``axis_name``, inside the
+two-level mesh) reduce-scatters the gradients and all-gathers the params
+through the two-level engines (``bucketing.hierarchical_psum_scatter``,
+``hierarchical_all_gather``): only 1/slice_size of the arena crosses DCN
+each way, shard ownership is the flat path's, and uncompressed the step is
+bitwise the flat step over the same spec wherever each tier's sum is.
+``compress_intra``/``compress_dcn`` compress each tier (``None`` takes
+``compress``); any tier compression puts ``wire_dtype`` on both gather
+legs, the masters staying fp32. ``tuned=True`` raises as
+``tune.resolve_trainer_knobs`` does.
 """
 
 from __future__ import annotations
@@ -60,7 +67,11 @@ from beforeholiday_tpu_torch.ops.arena import (
     unflatten,
 )
 from beforeholiday_tpu_torch.parallel import bucketing
-from beforeholiday_tpu_torch.parallel.parallel_state import DATA_AXIS, get_group
+from beforeholiday_tpu_torch.parallel.parallel_state import (
+    DATA_AXIS,
+    get_group,
+    hierarchical_axes,
+)
 from beforeholiday_tpu_torch.tune import UNSET, resolve_trainer_knobs
 
 __all__ = ["DistributedFusedAdam", "DistributedFusedLAMB"]
@@ -141,16 +152,25 @@ class _DistributedFused:
             {"bucket_bytes": bucket_bytes, "compress": compress,
              "overlap_backward": overlap_backward, "hierarchical": hierarchical},
             tuned=tuned, tuning_key=tuning_key, manifest=tuning_manifest)
-        if knobs["hierarchical"] or compress_intra is not None \
-                or compress_dcn is not None:
-            raise NotImplementedError(
-                f"hierarchical ZeRO needs {bucketing._TWO_LEVEL}")
+        if knobs["hierarchical"] and hierarchical_axes(axis_name) is None:
+            raise ValueError(
+                "hierarchical=True needs a (slice, intra) axis spec; got "
+                f"{axis_name!r}")
         self.axis_name = axis_name
         self.grad_average = grad_average
         self.bucket_bytes = knobs["bucket_bytes"]
         self.compress = bool(knobs["compress"])
         self.wire_dtype = wire_dtype
         self.overlap_backward = bool(knobs["overlap_backward"])
+        self.hierarchical = bool(knobs["hierarchical"])
+        self.compress_intra = compress_intra
+        self.compress_dcn = compress_dcn
+
+    def _tier_compress(self) -> Tuple[bool, bool]:
+        """``(compress_intra, compress_dcn)``, each ``compress`` when unset."""
+        ci = self.compress if self.compress_intra is None else self.compress_intra
+        cd = self.compress if self.compress_dcn is None else self.compress_dcn
+        return bool(ci), bool(cd)
 
     # ---- geometry ----------------------------------------------------------
 
@@ -232,9 +252,20 @@ class _DistributedFused:
         gflat = self._full_arena(grads, lay)
         site = f"{self._site_prefix}.reduce_scatter_grads"
         world = self._world()
-        entries = bucketing.issue_psum_scatter(
-            gflat, self.axis_name, site=site, bucket_bytes=self.bucket_bytes,
-            compress=self.compress, wire_dtype=self.wire_dtype)
+        if self.hierarchical:
+            ci, cd = self._tier_compress()
+            # the legs of each bucket wait on each other: the pieces come
+            # back reduced, as entries with nothing left to wait on
+            entries = [(piece, bucketing._DONE, True)
+                       for piece in bucketing.hierarchical_psum_scatter(
+                           gflat, hierarchical_axes(self.axis_name), site=site,
+                           bucket_bytes=self.bucket_bytes, compress_intra=ci,
+                           compress_dcn=cd, wire_dtype=self.wire_dtype,
+                           concat=False)]
+        else:
+            entries = bucketing.issue_psum_scatter(
+                gflat, self.axis_name, site=site, bucket_bytes=self.bucket_bytes,
+                compress=self.compress, wire_dtype=self.wire_dtype)
         if not concat:
             return entries
         pieces = [bucketing.finish_bucket(e, torch.float32) for e in entries]
@@ -260,7 +291,17 @@ class _DistributedFused:
         """The updated params from the master shard: a PackedParams' arenas
         are written in place (and ``params`` returned); a tree comes back as
         a new tree of the leaves' dtypes."""
-        if self.bucket_bytes is None and not self.compress:
+        if self.hierarchical:
+            # each rank ships only its shard over the slice (DCN) tier; any
+            # tier compression puts wire_dtype on both legs
+            wire, logical = master_shard, None
+            if any(self._tier_compress()):
+                wire, logical = master_shard.to(self.wire_dtype), master_shard.dtype
+            full = bucketing.hierarchical_all_gather(
+                wire, hierarchical_axes(self.axis_name),
+                site=f"{self._site_prefix}.gather_params",
+                bucket_bytes=self.bucket_bytes, logical_dtype=logical)
+        elif self.bucket_bytes is None and not self.compress:
             full = self._gather_full(master_shard)
         else:
             wire, logical = master_shard, None

@@ -21,13 +21,25 @@ the list API, as in the JAX package. The step count is a device tensor and
 ``found_inf`` holds it, so a skipped step changes nothing and no value is
 read back to the host.
 
-State is fp32 (the kernels update fp32 arenas). Not ported yet: the view
-path (``_step_views``, ``MasterWeights(arena=True)`` on a tree, so
-``arena_masters``), ``step_in_backward`` and ``state_dtype``.
+State is fp32 (the kernels update fp32 arenas).
+
+The view path: :meth:`FusedAdam.step_flat` and :meth:`FusedSGD.step_flat`
+take the gradients as a list of leaves laid out by the arena's spec (the
+pack-free tree-gradient step, ``_step_views``): K6's or K10's views mode
+reads each leaf where it lies, one launch an arena, and no gradient arena
+is packed. :meth:`_FusedOptimizer.step_in_backward` drives it with the
+backward-time-reduced leaves of ``parallel.overlap``'s hooks: one
+non-finite flag a reduction bucket, folded into ONE device flag that gates
+every update and the step count, so one overflowing bucket skips the whole
+step. :meth:`MasterWeights.step_in_backward` is its amp O5 form over a
+:class:`PackedParams`' dtype arenas. Still to port, each raising with a
+pointer to ``ROADMAP.md``: LAMB's view path, ``state_dtype`` other than
+fp32, and ``MasterWeights(arena=True)`` (``arena_masters``).
 """
 
 from __future__ import annotations
 
+import functools
 import inspect
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -36,13 +48,24 @@ import torch
 from beforeholiday_tpu_torch.ops import multi_tensor as mt
 from beforeholiday_tpu_torch.ops.arena import (
     PackedParams,
+    make_spec,
     tree_flatten,
     tree_map,
     tree_paths,
     tree_unflatten,
+    unflatten,
 )
 
 Mask = Union[None, Any, Callable[[Tuple[Any, ...]], bool]]
+
+_LATER = "not ported yet (ROADMAP.md, queue A item 4)"
+
+
+def _check_state_dtype(state_dtype) -> None:
+    """The port's state is fp32: another ``state_dtype`` raises."""
+    if state_dtype is not None and state_dtype != torch.float32:
+        raise NotImplementedError(
+            f"state_dtype={state_dtype} is {_LATER}: the port keeps fp32 state")
 
 
 def _leaf_flags(mask: Mask, params, name: str = "no_weight_decay_mask"
@@ -137,6 +160,53 @@ class _FusedOptimizer:
             f"{type(self).__name__} has no flat-arena step; use step()"
         )
 
+    def _view_setup(self, flat_params, flat_grads, spec):
+        """The view path's prologue: the gradient leaves and the spec (made
+        from the leaves when not given), checked against the arena."""
+        gleaves = list(flat_grads)
+        if not gleaves:
+            raise ValueError("view-path step_flat needs a non-empty grad list")
+        if spec is None:
+            spec = make_spec(gleaves)
+        if flat_params.shape[0] != spec.padded_total:
+            raise ValueError(
+                f"param arena spans {flat_params.shape[0]} elements but the "
+                f"grad leaf list spans {spec.padded_total} (padded): grads must "
+                "cover exactly the packed parameters")
+        if flat_params.is_cuda:
+            # the views-mode kernels read contiguous leaves (a no-op for them)
+            gleaves = [g.contiguous() for g in gleaves]
+        return gleaves, spec
+
+    def step_in_backward(self, flat_params, grad_leaves, state, *, spec=None,
+                         found_inf=None, grad_scale=1.0, lr=None,
+                         bucket_bytes=None, model_copy=None, **kw):
+        """The view-path step driven by gradients already reduced inside the
+        backward (``parallel.overlap``'s hooks): no post-backward reduction
+        and no gradient pack. One non-finite flag a bucket
+        (``overlap.per_bucket_found_inf``, the reduction's
+        ``partition_leaves(bucket_bytes)`` geometry) is folded with
+        ``found_inf`` into ONE device flag, and that flag gates every
+        element's update and the step count: a non-finite value in any
+        bucket skips the whole step (params, moments, count), never a
+        prefix of it. Returns ``(*step_flat outputs, flag)``; feed the flag
+        to ``StepGuard.apply_update(extra_found_inf=...)`` or the scaler's
+        update so the loss scale backs off as on a phased overflow."""
+        if type(self).step_flat is _FusedOptimizer.step_flat:
+            raise NotImplementedError(
+                f"{type(self).__name__} has no flat-arena step; "
+                "step_in_backward needs the view path")
+        from beforeholiday_tpu_torch.parallel import overlap
+
+        gleaves = list(grad_leaves)
+        flag = overlap.fold_found_inf(
+            overlap.per_bucket_found_inf(gleaves, bucket_bytes=bucket_bytes),
+            found_inf)
+        outs = self.step_flat(flat_params, gleaves, state, spec=spec,
+                              found_inf=flag, grad_scale=grad_scale, lr=lr,
+                              model_copy=model_copy, **kw)
+        return (*outs, flag)
+
 
 class FusedAdam(_FusedOptimizer):
     """Fused Adam/AdamW on kernel K6 (``ops.multi_tensor.adam_flat``).
@@ -146,7 +216,9 @@ class FusedAdam(_FusedOptimizer):
     def __init__(self, lr: float = 1e-3, betas: Tuple[float, float] = (0.9, 0.999),
                  eps: float = 1e-8, *, adam_w_mode: bool = True,
                  weight_decay: float = 0.0, bias_correction: bool = True,
-                 no_weight_decay_mask: Mask = None, impl: Optional[str] = None):
+                 state_dtype=None, no_weight_decay_mask: Mask = None,
+                 impl: Optional[str] = None):
+        _check_state_dtype(state_dtype)
         super().__init__(no_weight_decay_mask=no_weight_decay_mask)
         self.lr, self.betas, self.eps = lr, betas, eps
         self.adam_w_mode = adam_w_mode
@@ -196,8 +268,13 @@ class FusedAdam(_FusedOptimizer):
         """One K6 pass over pre-flattened arenas, in place on ``flat_params``
         and the moments. ``model_copy`` receives the new params in its own
         dtype in the same pass; ``spec`` is accepted and unused (Adam has no
-        per-tensor term). Returns ``(flat_params, state)`` or
-        ``(flat_params, state, model_copy)``."""
+        per-tensor term). ``flat_grads`` may be a list of gradient leaves
+        laid out by ``spec`` (the view path, :meth:`_step_views`). Returns
+        ``(flat_params, state)`` or ``(flat_params, state, model_copy)``."""
+        if isinstance(flat_grads, (list, tuple)):
+            return self._step_views(flat_params, flat_grads, state, spec=spec,
+                                    found_inf=found_inf, grad_scale=grad_scale,
+                                    lr=lr, model_copy=model_copy)
         step_no = self._next_step(state, found_inf)
         outs = mt.adam_flat(
             flat_grads, flat_params, state["exp_avg"], state["exp_avg_sq"],
@@ -207,6 +284,22 @@ class FusedAdam(_FusedOptimizer):
         )
         new_state = {"exp_avg": outs[1], "exp_avg_sq": outs[2], "step": step_no}
         if len(outs) == 3:
+            return outs[0], new_state
+        return outs[0], new_state, outs[3]
+
+    def _step_views(self, flat_params, flat_grads, state, *, spec, found_inf,
+                    grad_scale, lr, model_copy):
+        """The pack-free tree-gradient step: K6's views mode reads each
+        gradient leaf where it lies and updates the arenas in place (and
+        ``model_copy``), bitwise the arena step on the packed gradients."""
+        gleaves, spec = self._view_setup(flat_params, flat_grads, spec)
+        step_no = self._next_step(state, found_inf)
+        outs = mt.adam_views(
+            gleaves, flat_params, state["exp_avg"], state["exp_avg_sq"], spec,
+            step=step_no, weight_decay=self.weight_decay, grad_scale=grad_scale,
+            found_inf=found_inf, model_copy=model_copy, **self._hyper(lr))
+        new_state = {"exp_avg": outs[1], "exp_avg_sq": outs[2], "step": step_no}
+        if model_copy is None:
             return outs[0], new_state
         return outs[0], new_state, outs[3]
 
@@ -227,9 +320,11 @@ class FusedLAMB(_FusedOptimizer):
                  eps: float = 1e-6, *, weight_decay: float = 0.01,
                  bias_correction: bool = True, grad_averaging: bool = True,
                  adam_w_mode: bool = True, max_grad_norm: float = 1.0,
-                 use_nvlamb: bool = False, no_weight_decay_mask: Mask = None,
+                 use_nvlamb: bool = False, state_dtype=None,
+                 no_weight_decay_mask: Mask = None,
                  impl: Optional[str] = None, tensor_sharded: Mask = None,
                  axis_name: str = "tensor"):
+        _check_state_dtype(state_dtype)
         super().__init__(no_weight_decay_mask=no_weight_decay_mask)
         self.lr, self.betas, self.eps = lr, betas, eps
         self.weight_decay = weight_decay
@@ -318,6 +413,10 @@ class FusedLAMB(_FusedOptimizer):
         ``model_copy`` (or a new arena of ``model_copy_dtype``) receives the
         new params in the same pass. Returns ``(flat_params, state)`` or
         ``(flat_params, state, model_copy)``."""
+        if isinstance(flat_grads, (list, tuple)):
+            raise NotImplementedError(
+                f"FusedLAMB's view path (a list of gradient leaves) is {_LATER}; "
+                "pass one flat gradient arena")
         if spec is None:
             raise ValueError("FusedLAMB.step_flat needs the ArenaSpec for its "
                              "per-tensor trust-ratio norms")
@@ -352,10 +451,11 @@ class FusedSGD(_FusedOptimizer):
 
     def __init__(self, lr: float, momentum: float = 0.0, dampening: float = 0.0,
                  *, weight_decay: float = 0.0, nesterov: bool = False,
-                 wd_after_momentum: bool = False,
+                 wd_after_momentum: bool = False, state_dtype=None,
                  no_weight_decay_mask: Mask = None, impl: Optional[str] = None):
         if nesterov and (momentum <= 0 or dampening != 0):
             raise ValueError("Nesterov momentum requires a momentum and zero dampening")
+        _check_state_dtype(state_dtype)
         super().__init__(no_weight_decay_mask=no_weight_decay_mask)
         self.lr, self.momentum, self.dampening = lr, momentum, dampening
         self.weight_decay, self.nesterov = weight_decay, nesterov
@@ -407,18 +507,38 @@ class FusedSGD(_FusedOptimizer):
         arena of ``model_copy_dtype``) receives the new params in the same
         pass; ``spec`` is accepted and unused (SGD has no per-tensor term).
         Returns ``(flat_params, state)`` or ``(flat_params, state,
-        model_copy)``. A list of gradient views (the JAX package's view
-        path, ``_step_views``) is not ported yet."""
+        model_copy)``. ``flat_grads`` may be a list of gradient leaves laid
+        out by ``spec`` (the view path, :meth:`_step_views`)."""
         if isinstance(flat_grads, (list, tuple)):
-            raise NotImplementedError(
-                "FusedSGD's view path (a list of gradient views) is not "
-                "ported yet; pass one flat gradient arena")
+            return self._step_views(flat_params, flat_grads, state, spec=spec,
+                                    found_inf=found_inf, grad_scale=grad_scale,
+                                    lr=lr, model_copy_dtype=model_copy_dtype,
+                                    model_copy=model_copy)
         first_run = state["step"] == 0
         step_no = self._next_step(state, found_inf)
         outs = mt.sgd_flat(
             flat_grads, flat_params, state["momentum_buffer"],
             weight_decay=self.weight_decay, first_run=first_run,
             scale=grad_scale, model_copy_dtype=model_copy_dtype,
+            found_inf=found_inf, model_copy=model_copy, **self._hyper(lr))
+        new_state = {"momentum_buffer": outs[1], "step": step_no}
+        if len(outs) == 2:
+            return outs[0], new_state
+        return outs[0], new_state, outs[2]
+
+    def _step_views(self, flat_params, flat_grads, state, *, spec, found_inf,
+                    grad_scale, lr, model_copy_dtype, model_copy):
+        """The pack-free tree-gradient step on K10's views mode (see
+        :meth:`FusedAdam._step_views`)."""
+        gleaves, spec = self._view_setup(flat_params, flat_grads, spec)
+        first_run = state["step"] == 0
+        step_no = self._next_step(state, found_inf)
+        if model_copy is None and model_copy_dtype is not None:
+            model_copy = torch.zeros(flat_params.shape, dtype=model_copy_dtype,
+                                     device=flat_params.device)
+        outs = mt.sgd_views(
+            gleaves, flat_params, state["momentum_buffer"], spec,
+            weight_decay=self.weight_decay, first_run=first_run, scale=grad_scale,
             found_inf=found_inf, model_copy=model_copy, **self._hyper(lr))
         new_state = {"momentum_buffer": outs[1], "step": step_no}
         if len(outs) == 2:
@@ -435,7 +555,9 @@ class FusedAdagrad(_FusedOptimizer):
 
     def __init__(self, lr: float = 1e-2, eps: float = 1e-10, *,
                  weight_decay: float = 0.0, adagrad_w_mode: bool = False,
-                 no_weight_decay_mask: Mask = None, impl: Optional[str] = None):
+                 state_dtype=None, no_weight_decay_mask: Mask = None,
+                 impl: Optional[str] = None):
+        _check_state_dtype(state_dtype)
         super().__init__(no_weight_decay_mask=no_weight_decay_mask)
         self.lr, self.eps, self.weight_decay = lr, eps, weight_decay
         self.adagrad_w_mode = adagrad_w_mode
@@ -480,8 +602,9 @@ class FusedNovoGrad(_FusedOptimizer):
     def __init__(self, lr: float = 1e-3, betas: Tuple[float, float] = (0.95, 0.98),
                  eps: float = 1e-8, *, weight_decay: float = 0.0,
                  bias_correction: bool = True, grad_averaging: bool = True,
-                 moment_mode: int = 0, no_weight_decay_mask: Mask = None,
-                 impl: Optional[str] = None):
+                 moment_mode: int = 0, state_dtype=None,
+                 no_weight_decay_mask: Mask = None, impl: Optional[str] = None):
+        _check_state_dtype(state_dtype)
         super().__init__(no_weight_decay_mask=no_weight_decay_mask)
         self.lr, self.betas, self.eps = lr, betas, eps
         self.weight_decay = weight_decay
@@ -543,8 +666,9 @@ class FusedLARS(_FusedOptimizer):
     def __init__(self, lr: float, momentum: float = 0.0, dampening: float = 0.0,
                  *, weight_decay: float = 0.0, nesterov: bool = False,
                  trust_coefficient: float = 0.001, epsilon: float = 0.0,
-                 wd_after_momentum: bool = False,
+                 wd_after_momentum: bool = False, state_dtype=None,
                  no_weight_decay_mask: Mask = None, impl: Optional[str] = None):
+        _check_state_dtype(state_dtype)
         super().__init__(no_weight_decay_mask=no_weight_decay_mask)
         self.lr, self.momentum, self.dampening = lr, momentum, dampening
         self.weight_decay, self.nesterov = weight_decay, nesterov
@@ -593,6 +717,42 @@ def supports_flat_step(opt) -> bool:
     )
 
 
+@functools.lru_cache(maxsize=64)
+def _pieces_spec(shapes: Tuple[Tuple[int, ...], ...]):
+    return make_spec(shapes)
+
+
+def _grad_pieces(lay, grads):
+    """Per arena of the packed layout ``lay``: the gradient pieces in arena
+    order and their spec. ``grads`` is a PackedParams of ``lay`` (its
+    arenas' leaf views) or a tree like the params' in which a stacked leaf
+    may come as its per-layer pieces."""
+    if isinstance(grads, PackedParams):
+        if grads.layout != lay:
+            raise ValueError("params/grads PackedParams layouts differ")
+        return [(unflatten(a, spec), spec) for a, spec in zip(grads.arenas, lay.specs)]
+    flat = tree_flatten(grads)[0]
+    shape_of = {i: shape for idx, spec in zip(lay.indices, lay.specs)
+                for i, shape in zip(idx, spec.shapes)}
+    by_leaf, k = [], 0
+    for i in range(lay.n_leaves):
+        shape = tuple(shape_of[i])
+        take = 1
+        if (lay.stacked and lay.stacked[i] and k < len(flat)
+                and tuple(flat[k].shape) != shape):
+            take = shape[0]  # the per-layer pieces of a stacked leaf
+        by_leaf.append(flat[k: k + take])
+        k += take
+    if k != len(flat):
+        raise ValueError(f"grads have {len(flat)} pieces; the params' layout "
+                         f"takes {k}")
+    out = []
+    for idx in lay.indices:
+        pieces = [g for i in idx for g in by_leaf[i]]
+        out.append((pieces, _pieces_spec(tuple(tuple(g.shape) for g in pieces))))
+    return out
+
+
 class MasterWeights:
     """fp32 master-weight optimizer wrapper (amp O2/O5).
 
@@ -605,7 +765,12 @@ class MasterWeights:
     model copy straight into the model arena the forward reads. Any other
     params tree keeps tree-shaped masters and state (the list API)."""
 
-    def __init__(self, inner):
+    def __init__(self, inner, *, arena: bool = False):
+        if arena:
+            raise NotImplementedError(
+                f"MasterWeights(arena=True) (arena_masters over a tree) is "
+                f"{_LATER}; amp.initialize(..., arena_native=True) packs the "
+                "model and its masters into arenas")
         self.inner = inner
 
     def init(self, params):
@@ -688,6 +853,39 @@ class MasterWeights:
             masters.append(outs[0])
             inners.append(outs[1])
         return params, {"inner": tuple(inners), "master": tuple(masters)}
+
+    def step_in_backward(self, params, grads, state, *, found_inf=None,
+                         grad_scale=1.0, bucket_bytes=None, **kw):
+        """The optimizer-in-backward step of an arena-native model: ``grads``
+        are the backward-time-reduced gradients, still carrying
+        ``grad_scale``'s inverse: a :class:`PackedParams` of ``params``'
+        layout, or a tree shaped like ``params.unpack()`` in which a stacked
+        leaf may come as its per-layer pieces (a tuple, as
+        :meth:`PackedParams.grad_leaves` hands the layers out). One
+        non-finite flag a bucket over EVERY arena's pieces
+        (``partition_leaves(bucket_bytes)``) is folded with ``found_inf``
+        into one device flag before any arena updates; then each dtype
+        arena takes the inner optimizer's view-path step (K6's or K10's
+        views mode) with that flag, writing the model arena in the same
+        pass. Returns ``(params, state, flag)``."""
+        from beforeholiday_tpu_torch.parallel import overlap
+
+        if not isinstance(params, PackedParams):
+            raise ValueError("MasterWeights.step_in_backward updates a "
+                             "PackedParams (amp.initialize(..., arena_native=True))")
+        per_arena = _grad_pieces(params.layout, grads)
+        flag = overlap.fold_found_inf(overlap.per_bucket_found_inf(
+            [g for pieces, _ in per_arena for g in pieces],
+            bucket_bytes=bucket_bytes), found_inf)
+        masters, inners = [], []
+        for b, model_arena in enumerate(params.arenas):
+            pieces, spec = per_arena[b]
+            outs = self.inner.step_flat(
+                state["master"][b], pieces, state["inner"][b], spec=spec,
+                found_inf=flag, grad_scale=grad_scale, model_copy=model_arena, **kw)
+            masters.append(outs[0])
+            inners.append(outs[1])
+        return params, {"inner": tuple(inners), "master": tuple(masters)}, flag
 
     def master_params(self, state):
         """The master leaves."""

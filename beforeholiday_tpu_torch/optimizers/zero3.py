@@ -40,6 +40,13 @@ through a temporary file, fsync and an atomic rename, the manifest last.
 The files are the JAX package's, byte for byte in layout: either package
 loads what the other wrote. All host I/O runs between steps.
 
+``hierarchical=True`` swaps both directions for the two-level engines
+(``bucketing.hierarchical_all_gather`` bucket by bucket, the slice tier
+first, and ``hierarchical_psum_scatter`` in the backward), still inside the
+``beforeholiday::zero3_gather`` op, so "zero3_regather" runs the two-level
+gather again rather than serving a saved copy; only 1/slice_size of the
+arena crosses DCN each way.
+
 Ledger sites are ``zero3.*`` (``gather_params``, ``reduce_scatter_grads``,
 ``found_inf``, ``gather_state``).
 """
@@ -73,7 +80,10 @@ from beforeholiday_tpu_torch.optimizers.distributed_fused import (
     _shard_len,
 )
 from beforeholiday_tpu_torch.parallel import bucketing
-from beforeholiday_tpu_torch.parallel.parallel_state import DATA_AXIS
+from beforeholiday_tpu_torch.parallel.parallel_state import (
+    DATA_AXIS,
+    hierarchical_axes,
+)
 from beforeholiday_tpu_torch.remat.policies import ZERO3_GATHERED_TAG, tag_op
 from beforeholiday_tpu_torch.tune import UNSET, resolve_trainer_knobs
 
@@ -187,6 +197,9 @@ class _GatherPlan:
     compress: bool
     scatter_wire: str
     site_prefix: str
+    hierarchical: bool = False
+    compress_intra: bool = False
+    compress_dcn: bool = False
 
 
 # plan key (the op's string argument) -> plan, and back
@@ -220,11 +233,17 @@ def _gather_impl(master_shard: torch.Tensor, plan_key: str) -> List[torch.Tensor
     logical = None if wire.dtype == master_shard.dtype else master_shard.dtype
     slices = bucketing.bucket_slices(shard, wire.element_size(), plan.bucket_bytes)
     dtypes = layout.torch_dtypes
+    axes = hierarchical_axes(plan.axis_name) if plan.hierarchical else None
     if plan.prefetch <= 0 or len(slices) == 1:
         # blocking form: every leaf waits for the whole arena
-        full = bucketing.bucketed_all_gather(
-            wire, plan.axis_name, site=site, bucket_bytes=plan.bucket_bytes,
-            logical_dtype=logical)
+        if axes is not None:
+            full = bucketing.hierarchical_all_gather(
+                wire, axes, site=site, bucket_bytes=plan.bucket_bytes,
+                logical_dtype=logical)
+        else:
+            full = bucketing.bucketed_all_gather(
+                wire, plan.axis_name, site=site, bucket_bytes=plan.bucket_bytes,
+                logical_dtype=logical)
         return [_fresh(p, dt) for p, dt in zip(unflatten(full, spec), dtypes)]
     gathered, works, waited = [], [], set()
 
@@ -238,10 +257,17 @@ def _gather_impl(master_shard: torch.Tensor, plan_key: str) -> List[torch.Tensor
             # at most prefetch + 1 gathers in flight
             wait(k - plan.prefetch - 1)
         piece = wire[off: off + ln]
-        g, work = comms.all_gather(
-            piece, plan.axis_name, axis=0, tiled=True, site=site,
-            logical=None if logical is None else comms.logical(piece.shape, logical),
-            async_op=True)
+        if axes is not None:
+            # the two legs of a bucket wait on each other: it lands gathered
+            g, work = bucketing.hierarchical_all_gather(
+                piece, axes, site=site, bucket_bytes=None,
+                logical_dtype=logical), bucketing._DONE
+        else:
+            g, work = comms.all_gather(
+                piece, plan.axis_name, axis=0, tiled=True, site=site,
+                logical=None if logical is None else comms.logical(piece.shape,
+                                                                   logical),
+                async_op=True)
         gathered.append(g)
         works.append(work)
     leaves = []
@@ -285,10 +311,17 @@ def _gather_backward(ctx, cts):
     for c, off, shape in zip(cts, spec.offsets, spec.shapes):
         if c is not None:
             gflat[off: off + math.prod(shape)].copy_(c.reshape(-1))
-    g = bucketing.bucketed_psum_scatter(
-        gflat, plan.axis_name, site=f"{plan.site_prefix}.reduce_scatter_grads",
-        bucket_bytes=plan.bucket_bytes, compress=plan.compress,
-        wire_dtype=getattr(torch, plan.scatter_wire))
+    site = f"{plan.site_prefix}.reduce_scatter_grads"
+    if plan.hierarchical:
+        g = bucketing.hierarchical_psum_scatter(
+            gflat, hierarchical_axes(plan.axis_name), site=site,
+            bucket_bytes=plan.bucket_bytes, compress_intra=plan.compress_intra,
+            compress_dcn=plan.compress_dcn,
+            wire_dtype=getattr(torch, plan.scatter_wire))
+    else:
+        g = bucketing.bucketed_psum_scatter(
+            gflat, plan.axis_name, site=site, bucket_bytes=plan.bucket_bytes,
+            compress=plan.compress, wire_dtype=getattr(torch, plan.scatter_wire))
     return g, None
 
 
@@ -360,8 +393,8 @@ class ZeRO3FusedAdam(DistributedFusedAdam):
         """The gather's wire dtype: the common leaf dtype when the model is
         dtype-uniform (casting the fp32 master before or after the gather
         is the same cast, so ZeRO-2 parity holds), else fp32; ``compress``
-        forces ``wire_dtype``."""
-        if self.compress:
+        (or, hierarchical, either tier's compression) forces ``wire_dtype``."""
+        if self.compress or (self.hierarchical and any(self._tier_compress())):
             return _dtype_name(self.wire_dtype)
         if len(set(layout.dtypes)) == 1:
             return layout.dtypes[0]
@@ -371,9 +404,14 @@ class ZeRO3FusedAdam(DistributedFusedAdam):
         """The params, transiently, from this rank's master shard (a tree
         shaped as ``layout``). Differentiable: the backward reduce-scatters
         the cotangents into the fp32 grad shard (``zero3.reduce_scatter_grads``)."""
-        plan = _GatherPlan(self.axis_name, layout, self.bucket_bytes, self.prefetch,
+        ci, cd = self._tier_compress()
+        axis = self.axis_name
+        if isinstance(axis, list):  # the plan is a hashable key
+            axis = tuple(axis)
+        plan = _GatherPlan(axis, layout, self.bucket_bytes, self.prefetch,
                            self._gather_wire(layout), self.compress,
-                           _dtype_name(self.wire_dtype), self._site_prefix)
+                           _dtype_name(self.wire_dtype), self._site_prefix,
+                           self.hierarchical, ci, cd)
         leaves = _gather_op(master_shard, _plan_key(plan))
         return tree_unflatten(layout.treedef, list(leaves))
 

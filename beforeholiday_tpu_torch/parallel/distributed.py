@@ -19,8 +19,16 @@ CPU. The reference's knobs keep their meaning:
 
 Every collective is issued ``async_op=True`` and waited before its result
 is read; on NCCL that wait is a stream wait, so a reduction adds no host
-sync. At world size 1 the collectives are issued all the same. The
-two-level ``hierarchical`` reduction is not ported yet and raises.
+sync. At world size 1 the collectives are issued all the same.
+
+``hierarchical=True`` (a ``(slice, intra)`` ``axis_name``, the axes of
+``parallel_state.make_two_level_mesh``, inside ``with mesh:``) reduces each
+bucket with ``bucketing.hierarchical_psum``: the DCN tier carries
+1/slice_size of the flat bytes, and uncompressed the result is bitwise the
+flat bucketed reduce over the same spec wherever each tier's sum is (see
+``bucketing``). ``compress_intra``/``compress_dcn`` compress each tier
+(``None`` takes ``compress``), within
+``bucketing.hierarchical_compression_error_bound``.
 """
 
 from __future__ import annotations
@@ -40,16 +48,10 @@ from beforeholiday_tpu_torch.parallel.parallel_state import (
 )
 from beforeholiday_tpu_torch.tune import UNSET, resolve_trainer_knobs
 
-_TWO_LEVEL = ("hierarchical=True needs the two-level engines, which come with "
-              "ZeRO and the multi-slice mesh, not ported yet")
-
-
 def _check_hierarchical(hierarchical, axis_name):
     if hierarchical and hierarchical_axes(axis_name) is None:
         raise ValueError(
             f"hierarchical=True needs a (slice, intra) axis spec; got {axis_name!r}")
-    if hierarchical:
-        raise NotImplementedError(_TWO_LEVEL)
 
 
 def _grad_fingerprint(grads: Any) -> torch.Tensor:
@@ -105,21 +107,26 @@ def reduce_gradients(
     leaf (per arena). ``bucket_bytes`` splits each arena into ~that many
     bytes a collective (bitwise equal to the default); ``compress=True``
     puts ``wire_dtype`` on the wire with fp32 accumulation, within
-    ``bucketing.compression_error_bound``."""
+    ``bucketing.compression_error_bound``. ``hierarchical=True`` reduces
+    through the two-level engine (see the module docstring)."""
     _check_hierarchical(hierarchical, axis_name)
+    ci = compress if compress_intra is None else compress_intra
+    cd = compress if compress_dcn is None else compress_dcn
     with span("ddp_reduce_gradients"):
         mismatch = None
         if check_consistency:
             mismatch = check_replicated_consistency(
                 grads, axis_name, site="ddp.grad_fingerprint")
-        bucketed = bucket_bytes is not None or compress
+        bucketed = bucket_bytes is not None or compress or hierarchical
         site = "ddp.bucketed_reduce" if bucketed else "ddp.reduce_gradients"
         reduced = overlap._reduce_cotangent(
             grads, axis_name=axis_name, site=site,
             gradient_average=gradient_average,
             gradient_predivide_factor=gradient_predivide_factor,
             allreduce_always_fp32=allreduce_always_fp32,
-            bucket_bytes=bucket_bytes, compress=compress, wire_dtype=wire_dtype)
+            bucket_bytes=bucket_bytes, compress=compress, wire_dtype=wire_dtype,
+            hierarchical=bool(hierarchical), compress_intra=bool(ci),
+            compress_dcn=bool(cd))
         if check_consistency:
             return reduced, mismatch
         return reduced
@@ -139,6 +146,14 @@ class Reducer:
         self.bucket_bytes = bucket_bytes
         self.compress = compress
         self.wire_dtype = wire_dtype
+        self.hierarchical = hierarchical
+        self.compress_intra = compress_intra
+        self.compress_dcn = compress_dcn
+
+    def _tier_knobs(self):
+        return dict(hierarchical=self.hierarchical,
+                    compress_intra=self.compress_intra,
+                    compress_dcn=self.compress_dcn)
 
     def hook(self, tree: Any, *, tag: str = "reducer") -> Any:
         """Backward-time variant of :meth:`reduce` (``overlap.hook_tree``
@@ -146,7 +161,7 @@ class Reducer:
         return overlap.hook_tree(tree, tag=tag, axis_name=self.axis_name,
                                  bucket_bytes=self.bucket_bytes,
                                  compress=self.compress,
-                                 wire_dtype=self.wire_dtype)
+                                 wire_dtype=self.wire_dtype, **self._tier_knobs())
 
     def broadcast_params(self, params: Any) -> Any:
         """Every rank gets rank 0's params, as a masked psum (every rank but
@@ -168,7 +183,7 @@ class Reducer:
                                 gradient_average=average,
                                 bucket_bytes=self.bucket_bytes,
                                 compress=self.compress,
-                                wire_dtype=self.wire_dtype)
+                                wire_dtype=self.wire_dtype, **self._tier_knobs())
 
 
 class DistributedDataParallel:
@@ -205,7 +220,9 @@ class DistributedDataParallel:
         self.compress = knobs["compress"]
         self.wire_dtype = wire_dtype
         self.overlap_backward = knobs["overlap_backward"]
-        self.hierarchical = False
+        self.hierarchical = knobs["hierarchical"]
+        self.compress_intra = compress_intra
+        self.compress_dcn = compress_dcn
 
     def _knobs(self):
         return dict(axis_name=self.axis_name,
@@ -213,7 +230,9 @@ class DistributedDataParallel:
                     gradient_predivide_factor=self.gradient_predivide_factor,
                     allreduce_always_fp32=self.allreduce_always_fp32,
                     bucket_bytes=self.bucket_bytes, compress=self.compress,
-                    wire_dtype=self.wire_dtype)
+                    wire_dtype=self.wire_dtype, hierarchical=self.hierarchical,
+                    compress_intra=self.compress_intra,
+                    compress_dcn=self.compress_dcn)
 
     def reduce(self, grads: Any) -> Any:
         return reduce_gradients(grads, **self._knobs())

@@ -23,13 +23,24 @@ cotangent; the port has two forms of the same boundary:
   reduced when ``backward()`` returns, before K5 reads them.
 
 Every collective books on the ledger under ``site="ddp.overlap_hook:<tag>"``.
-``per_bucket_found_inf`` and ``fold_found_inf`` (the optimizer-in-backward
-path) are not ported yet.
+On a two-level ``(slice, intra)`` spec with ``hierarchical=True`` each
+bucket's reduce is :class:`bucketing.TwoLevelBucket`'s three dependent legs:
+the arena hooks issue the intra-slice reduce-scatter as the bucket's last
+leaf lands, and the callback waits on it and runs the inter-slice and
+gather legs, so the host waits only in the callback (on gloo; on NCCL each
+wait is a stream wait).
+
+:func:`per_bucket_found_inf` and :func:`fold_found_inf` are the
+optimizer-in-backward overflow story: one non-finite flag a bucket of the
+reduction's own geometry (``partition_leaves``), ORed into the ONE device
+flag that gates every update and the step count
+(``optimizers.fused._FusedOptimizer.step_in_backward``), so one overflowing
+bucket skips the whole step, never a prefix of it; no value is read back.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, List, Optional, Sequence
 
 import torch
 from torch.autograd import Variable
@@ -47,10 +58,8 @@ from beforeholiday_tpu_torch.parallel.parallel_state import (
     hierarchical_axes,
 )
 
-__all__ = ["hook_tree", "reduction_hook"]
-
-_TWO_LEVEL = ("hierarchical=True needs the two-level engines, which come with "
-              "ZeRO and the multi-slice mesh")
+__all__ = ["fold_found_inf", "hook_tree", "per_bucket_found_inf",
+           "reduction_hook"]
 
 
 def _scalers(axis_name, gradient_average, gradient_predivide_factor,
@@ -83,15 +92,14 @@ def _reduce_cotangent(ct: Any, *, axis_name: Any, site: str,
                       gradient_predivide_factor: Optional[float],
                       allreduce_always_fp32: bool, bucket_bytes: Optional[int],
                       compress: bool, wire_dtype: Any,
-                      hierarchical: bool = False, **_tier_knobs) -> Any:
+                      hierarchical: bool = False, compress_intra: bool = False,
+                      compress_dcn: bool = False) -> Any:
     """The body of ``distributed.reduce_gradients`` without the tripwire:
-    pre-scale, reduce (one psum per leaf, per arena, bucketed or
-    compressed), post-scale."""
-    if hierarchical:
-        raise NotImplementedError(_TWO_LEVEL)
+    pre-scale, reduce (one psum per leaf, per arena, bucketed, compressed
+    or two-level), post-scale."""
     pre, post = _scalers(axis_name, gradient_average, gradient_predivide_factor,
                          allreduce_always_fp32)
-    bucketed = bucket_bytes is not None or compress
+    bucketed = bucket_bytes is not None or compress or hierarchical
     if isinstance(ct, PackedParams):
         leaves, rebuild = list(ct.arenas), ct.replace_arenas
     else:
@@ -106,6 +114,13 @@ def _reduce_cotangent(ct: Any, *, axis_name: Any, site: str,
             work.wait()
         return rebuild([post(r, g.dtype) for (r, _), g in zip(pending, leaves)])
     if isinstance(ct, PackedParams):
+        if hierarchical:
+            return rebuild([
+                post(bucketing.hierarchical_psum(
+                    pre(a), hierarchical_axes(axis_name), site=site,
+                    bucket_bytes=bucket_bytes, compress_intra=compress_intra,
+                    compress_dcn=compress_dcn, wire_dtype=wire_dtype), a.dtype)
+                for a in leaves])
         return rebuild([
             post(bucketing.bucketed_psum(pre(a), axis_name, site=site,
                                          bucket_bytes=bucket_bytes,
@@ -114,7 +129,9 @@ def _reduce_cotangent(ct: Any, *, axis_name: Any, site: str,
             for a in leaves])
     red = bucketing.bucketed_tree_psum(
         [pre(g) for g in leaves], axis_name, site=site,
-        bucket_bytes=bucket_bytes, compress=compress, wire_dtype=wire_dtype)
+        bucket_bytes=bucket_bytes, compress=compress, wire_dtype=wire_dtype,
+        hierarchical=hierarchical, compress_intra=compress_intra,
+        compress_dcn=compress_dcn)
     return rebuild([post(r, g.dtype) for r, g in zip(red, leaves)])
 
 
@@ -145,8 +162,6 @@ class _ArenaHooks:
     def __init__(self, packed, knobs):
         self.knobs = dict(knobs)
         self.tag = self.knobs.pop("tag")
-        if self.knobs.pop("hierarchical", False):
-            raise NotImplementedError(_TWO_LEVEL)
         self.grads = packed.grads
         k = self.knobs
         self.pre, self.post = _scalers(k["axis_name"], k["gradient_average"],
@@ -172,8 +187,16 @@ class _ArenaHooks:
         b, off, ln = self.buckets[i]
         view = self.grads.arenas[b][off: off + ln]
         k = self.knobs
+        site = f"ddp.overlap_hook:{self.tag}"
+        if k["hierarchical"]:
+            # leg 1 now; the callback runs the dependent legs
+            self.issued[i] = (view, bucketing.TwoLevelBucket(
+                self.pre(view), hierarchical_axes(k["axis_name"]), site=site,
+                compress_intra=k["compress_intra"], compress_dcn=k["compress_dcn"],
+                wire_dtype=k["wire_dtype"]), None)
+            return
         self.issued[i] = (view, *bucketing.issue_bucket(
-            self.pre(view), k["axis_name"], site=f"ddp.overlap_hook:{self.tag}",
+            self.pre(view), k["axis_name"], site=site,
             compress=k["compress"], wire_dtype=k["wire_dtype"]))
 
     def _landed(self, mine):
@@ -191,7 +214,9 @@ class _ArenaHooks:
                 if done is None:
                     self._issue(i)
             for view, result, work in self.issued:
-                if work is not None:
+                if isinstance(result, bucketing.TwoLevelBucket):
+                    result = result.result()
+                elif work is not None:
                     work.wait()
                 view.copy_(self.post(result, view.dtype))
 
@@ -209,15 +234,21 @@ def reduction_hook(tree: Any, *, axis_name: Any = DATA_AXIS, tag: str = "grads",
     params tree (the identity Function), or the packed argument a loss
     function receives from ``amp.scaled_value_and_grad`` at a
     :class:`PackedParams` (the arena hooks; it is returned as is). The
-    scaling knobs are ``reduce_gradients``'."""
-    if hierarchical or hierarchical_axes(axis_name) is not None:
-        raise NotImplementedError(_TWO_LEVEL)
+    scaling knobs are ``reduce_gradients``', the two-level ones
+    included (``None`` tier knobs take ``compress``)."""
+    if hierarchical and hierarchical_axes(axis_name) is None:
+        raise ValueError(
+            f"hierarchical=True needs a (slice, intra) axis spec; got {axis_name!r}")
     knobs = dict(axis_name=axis_name, tag=tag,
                  gradient_average=bool(gradient_average),
                  gradient_predivide_factor=gradient_predivide_factor,
                  allreduce_always_fp32=bool(allreduce_always_fp32),
                  bucket_bytes=bucket_bytes, compress=bool(compress),
-                 wire_dtype=wire_dtype, hierarchical=False)
+                 wire_dtype=wire_dtype, hierarchical=bool(hierarchical),
+                 compress_intra=bool(compress if compress_intra is None
+                                     else compress_intra),
+                 compress_dcn=bool(compress if compress_dcn is None
+                                   else compress_dcn))
     if isinstance(tree, PackedParams):
         if getattr(tree, "grads", None) is None:
             raise ValueError(
@@ -242,3 +273,43 @@ def hook_tree(tree: Any, *, tag: str = "params", **knobs: Any) -> Any:
         return type(tree)(reduction_hook(v, tag=f"{tag}.{i}", **knobs)
                           for i, v in enumerate(tree))
     return reduction_hook(tree, tag=tag, **knobs)
+
+
+# ------------------------------------------------- optimizer-in-backward
+
+
+def per_bucket_found_inf(leaves: Sequence[torch.Tensor], *,
+                         bucket_bytes: Optional[int] = None) -> List[torch.Tensor]:
+    """One device bool a reduction bucket of ``leaves``: True when a leaf
+    of the bucket holds a non-finite value. The buckets are
+    ``bucketing.partition_leaves`` groups, the reduction's own geometry;
+    non-float leaves cannot overflow and count as finite."""
+    leaves = list(leaves)
+    flags = []
+    for group in bucketing.partition_leaves(leaves, bucket_bytes):
+        checks = [torch.isfinite(leaves[i]).all() for i in group
+                  if leaves[i].is_floating_point()]
+        if checks:
+            flags.append(~torch.stack(checks).all())
+        else:
+            flags.append(torch.zeros((), dtype=torch.bool,
+                                     device=leaves[group[0]].device))
+    return flags
+
+
+def fold_found_inf(flags: Sequence[Any], external: Any = None) -> torch.Tensor:
+    """OR the per-bucket flags (and the scaler's ``external`` sentinel) into
+    the ONE device bool that gates the whole step: every update and the
+    step count take the same flag, so either every bucket commits or none
+    does."""
+    flag = None
+    for f in flags:
+        f = torch.as_tensor(f) != 0
+        flag = f if flag is None else flag | f
+    if external is not None:
+        ext = torch.as_tensor(external)
+        ext = ext.to(flag.device) if flag is not None else ext
+        flag = (ext != 0) if flag is None else flag | (ext != 0)
+    if flag is None:
+        return torch.zeros((), dtype=torch.bool)
+    return flag.reshape(())

@@ -17,15 +17,23 @@ A rank is a process here, so the rank getters return this process's
 group-local rank (JAX returns ``axis_index`` inside ``shard_map``, and 0
 outside it). The error paths are the JAX module's: an indivisible world,
 and a virtual pipeline without pp >= 2. ``named_sharding`` and
-``data_parallel_spec`` (GSPMD) have no counterpart; the two-level, MoE and
-elastic mesh carvers (``make_two_level_mesh``, ``make_moe_mesh``,
-``carve_data_mesh``) are not ported yet.
+``data_parallel_spec`` (GSPMD) have no counterpart.
+
+The mesh carvers (:func:`make_two_level_mesh`, :func:`make_moe_mesh`,
+:func:`carve_data_mesh`) install no global state, as in JAX: each returns a
+:class:`Mesh` holding this process's group on each of its axes, and a
+collective resolves the mesh's axis names while the mesh is active (``with
+mesh:``, the counterpart of ``shard_map`` over it). Every rank of the world
+creates every group of a mesh, in one order, whether it is in the mesh or
+not. A two-element spec such as ``("slice", "intra")`` names the pair of
+groups (:func:`get_groups`); one collective over it runs on the mesh's joint
+group, whose ranks are the mesh's in mesh order (:func:`get_group`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch.distributed as dist
@@ -41,6 +49,7 @@ SLICE_AXIS = "slice"
 INTRA_AXIS = "intra"
 HIERARCHICAL_AXES = (SLICE_AXIS, INTRA_AXIS)
 EXPERT_AXIS = "expert"
+MOE_MESH_AXIS_NAMES = (PIPE_AXIS, DATA_AXIS, EXPERT_AXIS, TENSOR_AXIS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,10 +201,8 @@ def hierarchical_axes(axis_name):
 def _base_group(axis_name):
     if isinstance(axis_name, (tuple, list)):
         if len(axis_name) != 1:
-            raise NotImplementedError(
-                f"a collective over several axes ({tuple(axis_name)!r}) is not "
-                "ported yet; the two-level (slice, intra) engines come with "
-                "ZeRO and the multi-slice mesh")
+            hierarchical_axes(axis_name)  # more than two axes: ValueError
+            return _joint_group(tuple(str(a) for a in axis_name))
         axis_name = axis_name[0]
     if not isinstance(axis_name, str):
         return axis_name  # a ProcessGroup
@@ -203,6 +210,9 @@ def _base_group(axis_name):
         raise RuntimeError(
             f"axis {axis_name!r} needs a process group: torch.distributed is "
             "not initialized")
+    mesh = active_mesh()
+    if mesh is not None and axis_name in mesh.axis_names:
+        return mesh.group_of(axis_name)
     if _GLOBAL_STATE is not None:
         try:
             return _GLOBAL_STATE.groups[axis_name]
@@ -212,7 +222,30 @@ def _base_group(axis_name):
         return dist.group.WORLD
     raise RuntimeError(
         f"axis {axis_name!r} is unbound: model parallelism is not "
-        "initialized (only the data axis defaults to the WORLD group)")
+        "initialized and no active mesh names it (only the data axis "
+        "defaults to the WORLD group)")
+
+
+def _joint_group(axes: Tuple[str, ...]):
+    """The one group a collective over several axes runs on: the active
+    mesh's joint group when ``axes`` are all of its axes in mesh order."""
+    mesh = active_mesh()
+    if mesh is None or tuple(a for a in mesh.axis_names if a in axes) != axes \
+            or set(axes) != set(mesh.axis_names):
+        raise ValueError(
+            f"a collective over {axes!r} needs an active mesh whose axes are "
+            f"exactly these, in this order (active: "
+            f"{None if mesh is None else mesh.axis_names!r})")
+    return mesh.joint_group()
+
+
+def get_groups(axis_name: Any):
+    """The groups of a spec, one per axis: a pair for ``("slice",
+    "intra")``, a one-tuple for a flat axis."""
+    axes = hierarchical_axes(axis_name)
+    if axes is None:
+        return (get_group(axis_name),)
+    return tuple(_base_group(a) for a in axes)
 
 
 def get_group(axis_name: Any = DATA_AXIS, axis_index_groups=None):
@@ -237,6 +270,177 @@ def get_group(axis_name: Any = DATA_AXIS, axis_index_groups=None):
             raise ValueError(f"rank {me} is in none of {axis_index_groups!r}")
         _SUBGROUPS[key] = mine
     return _SUBGROUPS[key]
+
+
+# --- meshes carved from the world -----------------------------------------
+
+
+class Mesh:
+    """A set of global ranks laid out on named axes, with this process's
+    group on each axis and the joint group of the whole mesh (every rank of
+    the world created every group, in one order). ``ranks`` holds the global
+    ranks in the mesh's shape, ascending in flat order, so a group's local
+    rank is the mesh index along it. Entering the mesh (``with mesh:``)
+    makes its axis names resolve for every collective of the port, as
+    ``shard_map`` over a JAX mesh binds them; it installs no model-parallel
+    state. A rank outside the mesh holds no group and raises on use."""
+
+    def __init__(self, ranks: np.ndarray, axis_names: Tuple[str, ...]):
+        self.ranks = np.asarray(ranks, dtype=np.int64)
+        self.axis_names = tuple(axis_names)
+        if self.ranks.ndim != len(self.axis_names):
+            raise ValueError(f"ranks of shape {self.ranks.shape} for axes "
+                             f"{self.axis_names!r}")
+        flat = self.ranks.reshape(-1)
+        if flat.size > 1 and not bool(np.all(np.diff(flat) > 0)):
+            raise ValueError("a mesh's ranks must ascend in flat order (a "
+                             "process group orders its members by rank)")
+        me = dist.get_rank()
+        where = np.argwhere(self.ranks == me)
+        self.index = (None if where.size == 0
+                      else dict(zip(self.axis_names, (int(i) for i in where[0]))))
+        self._groups: Dict[str, Any] = {}
+        self._created = []
+        for axis, name in enumerate(self.axis_names):
+            lines = np.moveaxis(self.ranks, axis, -1).reshape(
+                -1, self.ranks.shape[axis])
+            for line in lines:
+                group = dist.new_group([int(r) for r in line])
+                self._created.append(group)
+                if me in line:
+                    self._groups[name] = group
+        self._joint = dist.new_group([int(r) for r in flat])
+        self._created.append(self._joint)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.ranks.shape))
+
+    def _member(self):
+        if self.index is None:
+            raise RuntimeError(
+                f"rank {dist.get_rank()} is not in this mesh (ranks "
+                f"{self.ranks.reshape(-1).tolist()})")
+
+    def group_of(self, axis: str):
+        """This rank's group along ``axis``."""
+        self._member()
+        return self._groups[axis]
+
+    def joint_group(self):
+        """The group of every rank of the mesh, in mesh order."""
+        self._member()
+        return self._joint
+
+    def axis_index(self, axis) -> int:
+        """This rank's index along ``axis``; for a sequence of axes, the
+        flat index over them (``slice * slice_size + intra``)."""
+        self._member()
+        if isinstance(axis, (tuple, list)):
+            idx = 0
+            for a in axis:
+                idx = idx * self.shape[a] + self.index[a]
+            return idx
+        return self.index[axis]
+
+    def __enter__(self):
+        _ACTIVE_MESHES.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _ACTIVE_MESHES.remove(self)
+        return False
+
+    def destroy(self) -> None:
+        """Destroy the mesh's groups (every rank, as with ``new_group``)."""
+        while self in _ACTIVE_MESHES:
+            _ACTIVE_MESHES.remove(self)
+        for group in self._created:
+            if group is not None and group != dist.GroupMember.NON_GROUP_MEMBER:
+                dist.destroy_process_group(group)
+        self._created.clear()
+        self._groups.clear()
+        self._joint = None
+
+
+# the entered meshes, innermost last: process-wide, since the autograd
+# engine runs a CUDA backward (and the overlap hooks in it) on its own thread
+_ACTIVE_MESHES: list = []
+
+
+def active_mesh() -> Optional[Mesh]:
+    """The innermost entered :class:`Mesh`, or None."""
+    return _ACTIVE_MESHES[-1] if _ACTIVE_MESHES else None
+
+
+def _mesh_ranks(ranks: Optional[Sequence[int]]) -> np.ndarray:
+    if not dist.is_initialized():
+        raise RuntimeError("torch.distributed is not initialized: call "
+                           "dist.init_process_group before carving a mesh")
+    if ranks is None:
+        return np.arange(dist.get_world_size())
+    return np.asarray(list(ranks), dtype=np.int64).reshape(-1)
+
+
+def make_two_level_mesh(n_slices: int, slice_size: Optional[int] = None, *,
+                        ranks: Optional[Sequence[int]] = None) -> Mesh:
+    """A ``(slice, intra)`` mesh of ``n_slices`` slices of ``slice_size``
+    ranks, slice-major, so the flat data-parallel rank is ``slice *
+    slice_size + intra``: the order a flat ``(data,)`` mesh over the same
+    ranks has. ``slice_size`` defaults to ``len(ranks) // n_slices``;
+    ``ranks`` to the whole world. Installs no global state."""
+    ranks = _mesh_ranks(ranks)
+    if n_slices < 1:
+        raise ValueError(f"n_slices must be >= 1, got {n_slices}")
+    if slice_size is None:
+        if len(ranks) % n_slices != 0:
+            raise RuntimeError(f"device count ({len(ranks)}) is not divisible "
+                               f"by n_slices ({n_slices})")
+        slice_size = len(ranks) // n_slices
+    world = n_slices * slice_size
+    if len(ranks) < world:
+        raise RuntimeError(f"need {world} devices for a {n_slices}x{slice_size} "
+                           f"mesh, have {len(ranks)}")
+    return Mesh(ranks[:world].reshape(n_slices, slice_size), HIERARCHICAL_AXES)
+
+
+def make_moe_mesh(data: int = 1, tensor: int = 1, pipeline: int = 1,
+                  expert: int = 1, *, ranks: Optional[Sequence[int]] = None
+                  ) -> Mesh:
+    """A data x tensor x pipeline x expert mesh in ``MOE_MESH_AXIS_NAMES``
+    order ``(pipe, data, expert, tensor)``, tensor fastest. Size-1 axes are
+    dropped, as the two-level engines drop size-1 tiers, so a collective
+    over an absent axis fails loudly; an all-ones carve is a one-rank
+    ``(data,)`` mesh. Installs no global state."""
+    ranks = _mesh_ranks(ranks)
+    sizes = {PIPE_AXIS: pipeline, DATA_AXIS: data, EXPERT_AXIS: expert,
+             TENSOR_AXIS: tensor}
+    for name, n in sizes.items():
+        if n < 1:
+            raise ValueError(f"{name} size must be >= 1, got {n}")
+    world = pipeline * data * expert * tensor
+    if len(ranks) < world:
+        raise RuntimeError(
+            f"need {world} devices for a pipe={pipeline} x data={data} x "
+            f"expert={expert} x tensor={tensor} mesh, have {len(ranks)}")
+    kept = [(name, sizes[name]) for name in MOE_MESH_AXIS_NAMES if sizes[name] > 1]
+    if not kept:
+        kept = [(DATA_AXIS, 1)]
+    return Mesh(ranks[:world].reshape([n for _, n in kept]),
+                tuple(name for name, _ in kept))
+
+
+def carve_data_mesh(world: int, *, ranks: Optional[Sequence[int]] = None,
+                    axis_name: str = DATA_AXIS) -> Mesh:
+    """A 1-D ``(axis_name,)`` mesh over the first ``world`` ranks of
+    ``ranks`` (default the whole world), in order: the surviving world an
+    elastic resize builds. Installs no global state."""
+    ranks = _mesh_ranks(ranks)
+    if not 1 <= world <= ranks.size:
+        raise ValueError(f"cannot carve a world-{world} data mesh from "
+                         f"{ranks.size} device(s); world must be in "
+                         "[1, len(devices)]")
+    return Mesh(ranks[:world], (axis_name,))
 
 
 # --- world sizes ------------------------------------------------------------

@@ -243,13 +243,36 @@ Phases, each printing one line (any failure exits non-zero):
     ``zero3_regather``, ``bert_zero2_lamb``: ms, idle share, peak GB,
     state bytes, collectives and bytes a step from the ledger, beside the
     O5 FusedAdam and FusedLAMB medians, no port sync);
-    ``zero_two_rank_card`` (two gloo ranks on the card at batch 8 each:
+    ``zero_two_rank_card`` (two gloo ranks on the card at batch 8 each, the
+    flagship at full width and 2 of its 8 layers since PR 21:
     ZeRO-2, compressed ZeRO-2 where gloo takes ``all_to_all`` on CUDA
     tensors, ZeRO-3; the ranks' models bitwise equal, ZeRO-3 bitwise
     ZeRO-2, ZeRO-2 against one NCCL rank at batch 16, state bytes halved);
     K6 at the flagship's world-2 shard, K7 and K8 at rank 1's shard of
     BERT's world-2 arena (K8 on its shard tables);
-25. the total seconds, each phase's wall seconds (``phase_seconds``), the
+25. slice 21, the two-level (slice x intra) engines and the optimizer in
+    the backward: ``multislice_world1`` (NCCL at world 1 inside
+    ``make_two_level_mesh(1, 1)``: DDP, ZeRO-2 and ZeRO-3 "keep" with
+    ``hierarchical=True`` each bitwise its flat step over the same spec,
+    with the same collectives on the ledger) and ZeRO-2 hierarchical's
+    timed run beside flat ZeRO-2's (``zero2_hier``); the flagship GPT at O5
+    on FusedAdam and ResNet-50 at O5 on FusedSGD with the overlap hooks and
+    ``MasterWeights.step_in_backward`` (``gpt_step_in_backward``,
+    ``resnet_step_in_backward``: bitwise the phased step; an inf in one
+    leaf skips the whole step, every arena, master, moment and count, and
+    the dynamic scale halves), their timed runs (``gpt_oib``,
+    ``resnet_oib``: K6's or K10's views mode, one launch an arena, no
+    unscale) and the views tables each run built; ``multislice_card``
+    (four gloo ranks on the card, a 2 x 2 carve, batch 4 a rank, the flagship
+    at full width and 2 of its 8 layers: ZeRO-2 and
+    ZeRO-3 hierarchical bitwise flat, the DDP reduce too with DCN bytes at
+    half the flat reduce's, the four per-tier compression choices within
+    their bound on a prefix of the step's gradients, the tripwire clean and
+    tripped by rank 3 of slice 1, the 2 x 2 ZeRO-2 step against one NCCL
+    rank at batch 16); K6's and K10's views mode against their plain
+    versions and bitwise against the arena launch (``adam_views``,
+    ``sgd_views``);
+26. the total seconds, each phase's wall seconds (``phase_seconds``), the
     ``kernels`` JSON line (with ``launch_floor_ms``, the Triton floor, and
     ``launch_floor_cuda_ms``), the card line, and the
     final ``ok`` line.
@@ -277,6 +300,7 @@ has its own ``o6_gemm`` lines and no row on the ``kernels`` line.
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -358,7 +382,7 @@ _NO_LAUNCH = {"layer_norm_fwd": 0, "layer_norm_bwd": 0, "flash_fwd": 0,
               "lamb_stage1": 0, "scaled_update": 0, "sgd": 0,
               "softmax_fwd": 0, "softmax_bwd": 0, "dropout_mask": 0,
               "xent_fwd": 0, "xent_bwd": 0, "axpby": 0, "adagrad": 0,
-              "novograd": 0, "paged_decode": 0}
+              "novograd": 0, "paged_decode": 0, "adam_views": 0, "sgd_views": 0}
 _GPT_STEP = {"layer_norm_fwd": 17, "layer_norm_bwd": 17, "unscale": 2,
              "adam": 2}
 _BERT_STEP = {"layer_norm_fwd": 18, "layer_norm_bwd": 18, "unscale": 2,
@@ -446,6 +470,12 @@ STEP_LAUNCHES["zero3_keep"] = {**STEP_LAUNCHES["gpt"], "unscale": 1, "adam": 1}
 STEP_LAUNCHES["zero3_regather"] = STEP_LAUNCHES["zero3_keep"]
 STEP_LAUNCHES["bert_zero2_lamb"] = {**STEP_LAUNCHES["bert"], "unscale": 3, "l2norm": 1,
                                     "lamb_stage1": 1, "scaled_update": 1}
+# slice 21: the optimizer in the backward reads the gradient leaves where
+# they lie, one views-mode launch an arena (bf16 and fp32), no unscale pass
+STEP_LAUNCHES["gpt_oib"] = {**STEP_LAUNCHES["gpt"], "unscale": 0, "adam": 0,
+                            "adam_views": 2}
+STEP_LAUNCHES["resnet_oib"] = {**STEP_LAUNCHES["resnet_o5"], "unscale": 0, "sgd": 0,
+                               "sgd_views": 2}
 STEP_LAUNCHES["gpt_tp_pp_1f1b_remat_full"] = {
     **STEP_LAUNCHES["gpt_tp_pp_1f1b"],
     **{k: STEP_LAUNCHES["gpt_tp_pp_1f1b"][k] + 4 * v for k, v in _RECOMPUTE.items()}}
@@ -2807,7 +2837,8 @@ def launch_counters(norm, attn, mt, sm, xent):
             "xent_fwd": xent.xent_fwd_kernel, "xent_bwd": xent.xent_bwd_kernel,
             "axpby": mt.axpby_kernel, "adagrad": mt.adagrad_kernel,
             "novograd": mt.novograd_kernel,
-            "paged_decode": attn._paged_decode_kernel}
+            "paged_decode": attn._paged_decode_kernel,
+            "adam_views": mt.adam_views_kernel, "sgd_views": mt.sgd_views_kernel}
 
 
 def unfused_vs_flash_phase(label, forward, batch):
@@ -2899,7 +2930,7 @@ def watch_syncs():
 
 def training_phase(label, profile_label, step, batch, counters, expect,
                    groups, card, *, unit, units, flops, peak, fp8_flops=0.0,
-                   ranges=None, **fields):
+                   ranges=None, timed_steps=TIMED_STEPS, profile=True, **fields):
     """2 warm-up and TIMED_STEPS timed steps on one fixed batch, the launch
     counts reset just before the timed steps and read just after, under
     ``set_sync_debug_mode("warn")``; then PROFILE_STEPS steps under
@@ -2907,10 +2938,11 @@ def training_phase(label, profile_label, step, batch, counters, expect,
     step's work, ``peak`` the FLOP/s the MFU is taken against, and
     ``fp8_flops`` the work that runs on the fp8 tensor cores (taken against
     PEAK_FP8); ``fields`` are printed as they are; ``ranges`` (see
-    :func:`train_profile`) adds profiler ranges. The loss must fall: the
-    last timed step's below the loss the first warm-up step returns, which
-    no update of this phase has touched yet. Returns the timed steps'
-    launch counts."""
+    :func:`train_profile`) adds profiler ranges; ``timed_steps`` and
+    ``profile=False`` shorten a run whose time the budget cannot afford.
+    The loss must fall: the last timed step's below the loss the first
+    warm-up step returns, which no update of this phase has touched yet.
+    Returns the timed steps' launch counts."""
     start = step(*batch)[0]
     for _ in range(WARMUP_STEPS - 1):
         step(*batch)
@@ -2922,7 +2954,7 @@ def training_phase(label, profile_label, step, batch, counters, expect,
     events, losses, flags = [], [], []
     with watch_syncs() as (syncs, port_syncs):
         t0 = time.perf_counter()
-        for _ in range(TIMED_STEPS):
+        for _ in range(timed_steps):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -2935,9 +2967,9 @@ def training_phase(label, profile_label, step, batch, counters, expect,
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     for k, per_step in expect.items():
-        if launches[k] != per_step * TIMED_STEPS:
+        if launches[k] != per_step * timed_steps:
             raise AssertionError(f"{label} {k}: {launches[k]} launches in "
-                                 f"{TIMED_STEPS} steps, the model implies "
+                                 f"{timed_steps} steps, the model implies "
                                  f"{per_step} per step")
     if port_syncs:
         raise AssertionError(f"{label}: the port's code synchronized the host: "
@@ -2950,10 +2982,10 @@ def training_phase(label, profile_label, step, batch, counters, expect,
     med = float(np.median(step_ms))
     MEDIANS[label] = med
     mfu = (flops / peak + fp8_flops / PEAK_FP8) / (med / 1e3)
-    line(label, steps=TIMED_STEPS, batch=batch[0].shape[0], **fields,
+    line(label, steps=timed_steps, batch=batch[0].shape[0], **fields,
          **{f"{unit}_per_step": units}, median_step_ms=med,
          min_step_ms=min(step_ms),
-         **{f"{unit}_per_s": units * TIMED_STEPS / wall},
+         **{f"{unit}_per_s": units * timed_steps / wall},
          model_flops_per_step=flops + fp8_flops,
          **({"fp8_flops_per_step": fp8_flops} if fp8_flops else {}), mfu=mfu,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -2962,9 +2994,10 @@ def training_phase(label, profile_label, step, batch, counters, expect,
          skipped_steps=int(torch.stack(flags).sum()),
          host_syncs=sum(syncs.values()), sync_sites=json.dumps(syncs),
          launches_per_step=json.dumps(
-             {k: v // TIMED_STEPS for k, v in launches.items()}),
+             {k: v // timed_steps for k, v in launches.items()}),
          card=f"'{card}'")
-    train_profile(profile_label, step, batch, groups, ranges)
+    if profile:
+        train_profile(profile_label, step, batch, groups, ranges)
     return launches
 
 
@@ -5225,6 +5258,7 @@ def serve_driver_phase(infer, driver, params, cfg, tmp):
 #   address"), so a pipe of more than one rank runs across ranks in the CPU
 #   tests only.
 TP_MICRO = 4  # microbatches of TRAIN_BATCH // TP_MICRO in the world-1 steps
+TP_TIMED_STEPS = 3  # the world-1 TP x PP runs' timed steps
 # ROADMAP A29's cut: one step a run (the ranks' checks hold after it)
 TP_TWO_RANK_STEPS = 1
 TP_TWO_RANK_TIMEOUT = 600
@@ -5534,10 +5568,12 @@ def gpt_tp_pp_world1_phase(amp, gpt, fused_adam, cfg, counters, card, params,
             m, _, step = tp_pp_trainer(amp, gpt, fused_adam, shard, cfg, TP_MICRO,
                                        schedule)
             key = f"gpt_tp_pp_{schedule}"
+            # A29's time budget: 3 timed steps each, only 1F1B profiled
             launches[key] = training_phase(
                 f"{key}_training", f"{key}_profile", step, batches[1], counters,
                 STEP_LAUNCHES[key], TRAIN_GROUPS, card, seq_len=cfg.seq_len,
                 ranges=None if schedule == "none" else pp_slot_ranges,
+                timed_steps=TP_TIMED_STEPS, profile=schedule != "none",
                 schedule=f"'{'forward_backward_no_pipelining' if schedule == 'none' else '1F1B, S 1'}'",
                 micro_batches=TP_MICRO, tensor=1, pipe=1,
                 one_device_o5_median_ms=MEDIANS.get("training"), **lm_work(m, batches[1]))
@@ -6627,6 +6663,16 @@ def imagenet_monitor_phase(main_amp, tmp):
 # ZeRO-3, against one NCCL rank at twice the batch
 ZERO_TWO_RANK_BATCH = 8
 ZERO_TWO_RANK_STEPS = 2
+# the multi-rank checks on the card (two gloo ranks here, four in slice
+# 21's 2 x 2 carve) run the flagship at full width and its depth cut to
+# CARD_LAYERS of 8 (A29's time budget: gloo stages every collective through
+# the host), against one NCCL rank of the same depth
+CARD_LAYERS = 2
+
+
+def card_model():
+    """MODEL with its depth cut to CARD_LAYERS."""
+    return {**MODEL, "n_layers": CARD_LAYERS}
 ZERO_TIMEOUT = 600
 # PERF.md's GPT O5 bf16 row: loss relative error, the gradient arenas'
 # relative L2, the masters' largest difference (a gradient sign flip moves
@@ -6917,10 +6963,13 @@ def zero_world1_parity(amp, gpt, bert, comms, bucketing, params, bparams, cfg, b
         failures.append(f"DistributedFusedLAMB masters {ulps} ulps from FusedLAMB's")
     del m, opt, state, step, ref_master, got
     torch.cuda.empty_cache()
-    # the batch-16 reference of the two-rank check, and world 1's state
+    # the batch-16 reference of the multi-rank checks at their depth
+    # (card_model), and its world-1 state
     tb = gpt.synthetic_batch(cfg, 2 * ZERO_TWO_RANK_BATCH, generator=gen(70),
                              device="cuda")
-    m, opt, state, step = zero_gpt_trainer(amp, gpt, params, cfg)
+    ccfg = gpt.GPTConfig(**card_model())
+    m, opt, state, step = zero_gpt_trainer(amp, gpt, gpt.init(ccfg, gen(0), device="cuda"),
+                                           ccfg)
     loss, g, fi = step(*tb)
     lay = layout_of_params(m.params)
     one_rank = dict(loss=loss.item(), grads=[a[: s.total].to("cpu", copy=True)
@@ -7027,30 +7076,10 @@ def gloo_all_to_all_probe(rank):
     return bool(ok.item()), None
 
 
-def spawn_two(target, args_of, timeout, label):
-    """Two spawned processes of ``target`` (``args_of(rank)``), joined
-    under ``timeout``: their exit codes."""
-    import multiprocessing as mp
-
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=target, args=args_of(r)) for r in range(2)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join(max(1.0, timeout - (time.perf_counter() - t0)))
-    if any(p.is_alive() for p in procs):
-        for p in procs:
-            p.kill()
-            p.join(10)
-        raise AssertionError(f"{label}: the world did not finish in {timeout} s; "
-                             "its processes were killed")
-    return [p.exitcode for p in procs]
-
-
 def zero_two_rank_worker(rank, store, out_dir):
     """One rank of the two-rank ZeRO check (a spawned process): gloo on CUDA
-    tensors, the flagship from the parent's seeded weights, this rank's half
+    tensors, the flagship at CARD_LAYERS layers (full width) from the
+    parent's seeded weights, this rank's half
     of the batch-16 batch; ZERO_TWO_RANK_STEPS steps of ZeRO-2, of ZeRO-3
     ("keep", prefetch 1) and, where gloo takes ``all_to_all`` on CUDA
     tensors (:func:`gloo_all_to_all_probe`, first), of compressed ZeRO-2.
@@ -7074,7 +7103,7 @@ def zero_two_rank_worker(rank, store, out_dir):
         from beforeholiday_tpu_torch.optimizers.distributed_fused import layout_of_params
         from beforeholiday_tpu_torch.testing import gpt
 
-        cfg = gpt.GPTConfig(**MODEL)
+        cfg = gpt.GPTConfig(**card_model())
         params = gpt.init(cfg, gen(0), device="cuda")
         tok, tgt = gpt.synthetic_batch(cfg, 2 * ZERO_TWO_RANK_BATCH, generator=gen(70),
                                        device="cuda")
@@ -7166,8 +7195,9 @@ def zero_two_rank_card_phase(one_rank, tmp):
     from beforeholiday_tpu_torch.ops.arena import TILE
 
     t0 = time.perf_counter()
-    codes = spawn_two(zero_two_rank_worker, lambda r: (r, f"{tmp}/zero_store", tmp),
-                      ZERO_TIMEOUT, "zero_two_rank_card")
+    codes = spawn_ranks(2, zero_two_rank_worker,
+                        lambda r: (r, f"{tmp}/zero_store", tmp), ZERO_TIMEOUT,
+                        "zero_two_rank_card")
     if any(codes):
         errors = [open(f"{tmp}/zero_rank{r}.err").read() for r in range(2)
                   if os.path.exists(f"{tmp}/zero_rank{r}.err")]
@@ -7206,6 +7236,7 @@ def zero_two_rank_card_phase(one_rank, tmp):
     if half > 3 * 4 * TILE or z3["state_bytes"] != z2["state_bytes"]:
         failures.append(f"state bytes a rank not half of world 1's: {fields['state_bytes']}")
     line("zero_two_rank_card", backend="gloo", world=2, device="'one card'",
+         layers=CARD_LAYERS,
          batch_per_rank=ZERO_TWO_RANK_BATCH, steps=ZERO_TWO_RANK_STEPS,
          gloo_all_to_all_on_cuda=probe, probe_error=f"'{probe_error}'",
          bounds=json.dumps(ZERO_ROW),
@@ -7319,6 +7350,663 @@ def zero_kernel_rows(mt, gpt_spec, bert_spec, launches):
     return rows
 
 
+# ------------------------------------------------------------ slice 21
+
+
+# the two-level (slice x intra) spec of parallel_state.make_two_level_mesh
+MS_AX = ("slice", "intra")
+# the 2 x 2 carve on the card: four gloo ranks, batch 4 a rank (the batch
+# 16 of the one-rank reference, ZERO_TWO_RANK_BATCH * 2)
+MS_CARD_BATCH = 4
+MS_CARD_TIMEOUT = 900
+# the per-tier compression check runs on this many leading elements of the
+# step's bf16-bucket gradient arena (an elementwise bound: a prefix of the
+# real gradient is a fair sample, and it keeps gloo's host copies short)
+MS_COMPRESS_ELEMS = 1 << 24
+MS_COMBOS = ((False, False), (True, False), (False, True), (True, True))
+# the optimizer-in-backward runs' reduction buckets (the hooks' and the
+# per-bucket flags' geometry)
+OIB_BUCKET_BYTES = 4 << 20
+
+
+def ddp_gpt_trainer(amp, gpt, fused_adam, params, cfg, ddp):
+    """The flagship's O5 FusedAdam step with DDP's reduce of the
+    still-scaled gradient arenas before K5 (the ImageNet trainer's order),
+    as a user script builds it: ``(m, state, step)``."""
+    m = amp.initialize(lambda p, t: gpt.forward(p, t, cfg), params,
+                       fused_adam(lr=LR), "O5", arena_native=True)
+    svag = amp.scaled_value_and_grad(
+        lambda p, tok, tgt: gpt.loss_fn(p, tok, tgt, cfg, forward_fn=m.apply),
+        m.scaler, reduce_grads=ddp.reduce)
+    state = {"opt": m.optimizer.init(m.params), "scaler": m.scaler.init()}
+
+    def step(tok, tgt):
+        loss, g, fi, state["scaler"] = svag(m.params, state["scaler"], tok, tgt)
+        m.params, state["opt"] = m.optimizer.step(m.params, g, state["opt"],
+                                                  found_inf=fi)
+        return loss, g, fi
+
+    return m, state, step
+
+
+def ledger_calls(kinds=None):
+    """The ledger's collectives (of ``kinds``, default all) as
+    ``{"site:kind": calls}``."""
+    from beforeholiday_tpu_torch.monitor import comms
+
+    out = {}
+    for r in comms.comms_records():
+        if kinds is None or r["kind"] in kinds:
+            key = f"{r['site']}:{r['kind']}"
+            out[key] = out.get(key, 0) + r["calls"]
+    return out
+
+
+# the reductions, whose collectives a degenerate two-level carve issues
+# exactly as the flat spelling does (JAX's contract); the flat gather over
+# the mesh's joint group is kept at size 1, where the two-level gather
+# drops both size-1 tiers, as JAX's does
+REDUCE_KINDS = ("psum", "psum_scatter", "pmax", "pmin", "all_to_all")
+
+
+def multislice_world1_phase(amp, gpt, fused_adam, comms, params, cfg, counters, card):
+    """NCCL at world 1 with a ``("slice", "intra")`` spec on a 1 x 1 carve
+    (``make_two_level_mesh(1, 1)``, entered): DDP, ZeRO-2 and ZeRO-3
+    ("keep") with ``hierarchical=True``, each two steps at batch 2 bitwise
+    its flat step over the same spec, with the same reductions on the
+    ledger (both tiers are size 1, so both spellings drop them; the gathers
+    are reported beside them, see REDUCE_KINDS); then
+    ZeRO-2 hierarchical's timed and profiled run at batch 16 beside the
+    flat ZeRO-2 median of this run. Returns its launch counts."""
+    from beforeholiday_tpu_torch.parallel import DistributedDataParallel
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+
+    t0 = time.perf_counter()
+    batch = gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(60), device="cuda")
+    fields, failures = {}, []
+    mesh = ps.make_two_level_mesh(1, 1)
+    try:
+        with mesh:
+            for engine in ("ddp", "zero2", "zero3_keep"):
+                res = {}
+                for hier in (False, True):
+                    comms.reset_comms_ledger()
+                    if engine == "ddp":
+                        m, state, step = ddp_gpt_trainer(
+                            amp, gpt, fused_adam, params, cfg, DistributedDataParallel(
+                                axis_name=MS_AX, bucket_bytes=DDP_BUCKET_BYTES,
+                                hierarchical=hier))
+                        for _ in range(2):
+                            step(*batch)
+                        out = list(m.params.arenas) + list(state["opt"]["master"])
+                    elif engine == "zero2":
+                        m, opt, state, step = zero_gpt_trainer(
+                            amp, gpt, params, cfg, axis_name=MS_AX,
+                            bucket_bytes=ZERO_BUCKET_BYTES, hierarchical=hier)
+                        for _ in range(2):
+                            step(*batch)
+                        out = list(m.params.arenas) + [state["opt"]["master"]]
+                    else:
+                        opt, layout, state, step = zero3_gpt_trainer(
+                            amp, gpt, params, cfg, "keep", 1, axis_name=MS_AX,
+                            hierarchical=hier)
+                        for _ in range(2):
+                            step(*batch)
+                        out = [state["opt"]["master"]]
+                    torch.cuda.synchronize()
+                    res[hier] = ([t.clone() for t in out], ledger_calls(REDUCE_KINDS),
+                                 ledger_calls(("all_gather",)))
+                    del out, state, step
+                    torch.cuda.empty_cache()
+                same = all(torch.equal(a, b) for a, b in zip(res[False][0], res[True][0]))
+                fields[f"{engine}_bitwise_flat"] = same
+                fields[f"{engine}_reductions"] = res[True][1]
+                fields[f"{engine}_gathers"] = {"flat": res[False][2],
+                                               "hierarchical": res[True][2]}
+                if not same:
+                    failures.append(f"{engine}: hierarchical is not bitwise flat")
+                if res[True][1] != res[False][1]:
+                    failures.append(f"{engine}: reductions {res[True][1]} against "
+                                    f"flat's {res[False][1]}")
+                del res
+                torch.cuda.empty_cache()
+            line("multislice_world1", backend="nccl", world=1, carve="'1 x 1'",
+                 batch=PARITY_BATCH, steps=2, seconds=time.perf_counter() - t0,
+                 **{k: json.dumps(v) for k, v in fields.items()})
+            if failures:
+                raise AssertionError("multislice_world1: " + "; ".join(failures))
+            tb = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70), device="cuda")
+            m, opt, state, step = zero_gpt_trainer(amp, gpt, params, cfg,
+                                                   axis_name=MS_AX, hierarchical=True)
+            launches = training_phase(
+                "zero2_hier_training", "zero2_hier_profile", step, tb, counters,
+                STEP_LAUNCHES["zero2"], TRAIN_GROUPS, card, seq_len=cfg.seq_len,
+                world=1, carve="'1 x 1'", optimizer="'DistributedFusedAdam'",
+                hierarchical=True, flat_zero2_median_ms=MEDIANS.get("zero2_training"),
+                **lm_work(m, tb))
+            del m, opt, state, step
+    finally:
+        mesh.destroy()
+    torch.cuda.empty_cache()
+    return {"zero2_hier": launches}
+
+
+def spawn_ranks(n, target, args_of, timeout, label):
+    """``n`` spawned processes of ``target`` (``args_of(rank)``), joined
+    under ``timeout``: their exit codes."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_of(r)) for r in range(n)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(1.0, timeout - (time.perf_counter() - t0)))
+    if any(p.is_alive() for p in procs):
+        for p in procs:
+            p.kill()
+            p.join(10)
+        raise AssertionError(f"{label}: the world did not finish in {timeout} s; "
+                             "its processes were killed")
+    return [p.exitcode for p in procs]
+
+
+def multislice_card_worker(rank, store, out_dir):
+    """One rank of the 2 x 2 carve on the one card (a spawned process of a
+    gloo world of 4 on CUDA tensors): the flagship at CARD_LAYERS layers
+    (full width) from the parent's seeded weights, this rank's quarter of
+    the batch-16 batch, inside
+    ``make_two_level_mesh(2, 2)``. One step each of ZeRO-2 flat and
+    hierarchical and ZeRO-3 ("keep") flat and hierarchical; on ZeRO-2's
+    step-1 gradients the DDP reduce flat against hierarchical (and its DCN
+    bytes), the four per-tier compression choices on a prefix of them
+    against the exact reduce, and the consistency tripwire, clean and with
+    rank 3 (slice 1) perturbed. Every flag is the AND over the ranks; rank
+    0 saves the results."""
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=4)
+        from beforeholiday_tpu_torch import amp
+        from beforeholiday_tpu_torch.monitor import comms
+        from beforeholiday_tpu_torch.optimizers.distributed_fused import layout_of_params
+        from beforeholiday_tpu_torch.parallel import bucketing, distributed
+        from beforeholiday_tpu_torch.parallel import parallel_state as ps
+        from beforeholiday_tpu_torch.testing import gpt
+
+        t0 = time.perf_counter()
+        cfg = gpt.GPTConfig(**card_model())
+        params = gpt.init(cfg, gen(0), device="cuda")
+        tok, tgt = gpt.synthetic_batch(cfg, 4 * MS_CARD_BATCH, generator=gen(70),
+                                       device="cuda")
+        B = MS_CARD_BATCH
+        batch = (tok[rank * B:(rank + 1) * B], tgt[rank * B:(rank + 1) * B])
+        mesh = ps.make_two_level_mesh(2, 2)
+        out, flags = {}, {}
+
+        def all_ranks(ok):
+            t = torch.tensor([float(ok)], device="cuda")
+            dist.all_reduce(t, op=dist.ReduceOp.MIN)
+            return bool(t.item())
+
+        with mesh:
+            runs = {}
+            for name, hier in (("zero2_flat", False), ("zero2_hier", True)):
+                m, opt, state, step = zero_gpt_trainer(
+                    amp, gpt, params, cfg, axis_name=MS_AX,
+                    bucket_bytes=ZERO_BUCKET_BYTES, hierarchical=hier)
+                loss, g, fi = step(*batch)
+                lay = layout_of_params(m.params)
+                runs[name] = dict(model=[a.clone() for a in m.params.arenas],
+                                  master=state["opt"]["master"].clone(),
+                                  found_inf=bool(fi))
+                if hier:
+                    lt = loss.detach().float().reshape(1).clone()
+                    dist.all_reduce(lt)
+                    out["loss"] = float(lt) / 4
+                    out["masters"] = zero_full_master(opt, m, state["opt"])
+                    grads, model = g, m.params
+                del opt, state, step
+                if not hier:
+                    del m, g
+                torch.cuda.empty_cache()
+            a, b = runs["zero2_flat"], runs["zero2_hier"]
+            flags["zero2_bitwise_flat"] = all_ranks(
+                torch.equal(a["master"], b["master"])
+                and all(torch.equal(x, y) for x, y in zip(a["model"], b["model"])))
+            flags["zero2_no_skip"] = all_ranks(not (a["found_inf"] or b["found_inf"]))
+            z2_master = b["master"]
+            del runs, a, b
+            for name, hier in (("zero3_flat", False), ("zero3_hier", True)):
+                opt, layout, state, step = zero3_gpt_trainer(
+                    amp, gpt, params, cfg, "keep", 1, axis_name=MS_AX, hierarchical=hier)
+                step(*batch)
+                out[f"{name}_master"] = state["opt"]["master"].clone()
+                del opt, layout, state, step
+                torch.cuda.empty_cache()
+            flags["zero3_bitwise_flat"] = all_ranks(torch.equal(
+                out.pop("zero3_flat_master"), out["zero3_hier_master"]))
+            # ZeRO-3's arena is in tree order, ZeRO-2's in packed order: the
+            # shards differ in layout, so ZeRO-3 is held to its own flat step
+            out.pop("zero3_hier_master")
+            del z2_master
+            # the DDP reduce of ZeRO-2's step-1 gradients (unscaled fp32)
+            red = {}
+            for hier in (False, True):
+                comms.reset_comms_ledger()
+                red[hier] = distributed.reduce_gradients(
+                    grads, axis_name=MS_AX, bucket_bytes=DDP_BUCKET_BYTES,
+                    hierarchical=hier)
+                row = next(r for r in comms.comms_summary() if r["subsystem"] == "ddp")
+                out[f"ddp_{'hier' if hier else 'flat'}_tiers"] = {
+                    t: dict(v) for t, v in row["by_tier"].items()}
+            flags["ddp_bitwise_flat"] = all_ranks(all(
+                torch.equal(x, y) for x, y in zip(red[False].arenas, red[True].arenas)))
+            out["grads"] = [x[: s.total].to("cpu", copy=True)
+                            for x, s in zip(red[False].arenas, lay.packed.specs)]
+            del red
+            # per-tier compression on a prefix of the bf16 bucket's gradients
+            x = grads.arenas[0][:MS_COMPRESS_ELEMS].contiguous()
+            exact = bucketing.bucketed_psum(x, MS_AX, site="ms.exact",
+                                            bucket_bytes=DDP_BUCKET_BYTES)
+            sum_abs = bucketing.bucketed_psum(x.abs(), MS_AX, site="ms.abs",
+                                              bucket_bytes=DDP_BUCKET_BYTES)
+            excess = {}
+            for ci, cd in MS_COMBOS:
+                comp = bucketing.hierarchical_psum(
+                    x, MS_AX, site="ms.comp", bucket_bytes=DDP_BUCKET_BYTES,
+                    compress_intra=ci, compress_dcn=cd)
+                bound = bucketing.hierarchical_compression_error_bound(
+                    sum_abs, compress_intra=ci, compress_dcn=cd)
+                excess[f"{int(ci)}{int(cd)}"] = float(((comp - exact).abs() - bound).max())
+                if not (ci or cd):
+                    flags["uncompressed_bitwise"] = all_ranks(torch.equal(comp, exact))
+                del comp, bound
+            flags["compression_within_bound"] = all_ranks(max(excess.values()) <= 0)
+            out["compression_excess_over_bound"] = excess
+            del x, exact, sum_abs, grads
+            # the tripwire on the (replicated) model arenas
+            clean = distributed.check_replicated_consistency(model, MS_AX)
+            bad = model.replace_arenas([t.clone() for t in model.arenas])
+            if rank == 3:
+                bad.arenas[0][0] += 1.0
+            tripped = distributed.check_replicated_consistency(bad, MS_AX)
+            flags["tripwire_clean_passes"] = all_ranks(not bool(clean))
+            flags["tripwire_slice1_trips_every_rank"] = all_ranks(bool(tripped))
+            del bad, model
+        out["flags"] = flags
+        out["seconds"] = time.perf_counter() - t0
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        mesh.destroy()
+        if rank == 0:
+            torch.save(out, f"{out_dir}/ms_rank0.pt")
+        dist.destroy_process_group()
+    except BaseException:
+        with open(f"{out_dir}/ms_rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def multislice_card_phase(one_rank, tmp):
+    """Four processes on the one card over gloo on CUDA tensors, a 2 x 2
+    carve (a correctness run: gloo stages every collective through the
+    host): the flags of :func:`multislice_card_worker` must all hold, the
+    hierarchical reduce's DCN bytes be the flat reduce's / 2, and the 2 x 2
+    ZeRO-2 step (batch 4 a rank) sit within ZERO_ROW of one NCCL rank at
+    batch 16 (``one_rank``, from zero_world1's run)."""
+    t0 = time.perf_counter()
+    codes = spawn_ranks(4, multislice_card_worker,
+                        lambda r: (r, f"{tmp}/ms_store", tmp), MS_CARD_TIMEOUT,
+                        "multislice_card")
+    if any(codes):
+        errors = [open(f"{tmp}/ms_rank{r}.err").read() for r in range(4)
+                  if os.path.exists(f"{tmp}/ms_rank{r}.err")]
+        raise AssertionError(f"multislice_card: exit codes {codes}\n" + "\n".join(errors))
+    res = torch.load(f"{tmp}/ms_rank0.pt")
+    failures = [k for k, v in res["flags"].items() if not v]
+    flat_dcn = res["ddp_flat_tiers"]["dcn"]["bytes"]
+    hier_dcn = res["ddp_hier_tiers"]["dcn"]["bytes"]
+    if flat_dcn != 2 * hier_dcn:
+        failures.append(f"DCN bytes {hier_dcn} are not flat's {flat_dcn} / 2")
+    errs = step_errors(dict(loss=res["loss"], grads=res["grads"],
+                            masters=res["masters"]), one_rank)
+    if out_of_bounds(errs, ZERO_ROW):
+        failures.append(f"2 x 2 ZeRO-2 against one rank: {out_of_bounds(errs, ZERO_ROW)}")
+    line("multislice_card", backend="gloo", world=4, carve="'2 x 2'", layers=CARD_LAYERS,
+         device="'one card'", batch_per_rank=MS_CARD_BATCH, steps=1,
+         note="'gloo stages every collective through the host: a correctness run, "
+              "not a speed'",
+         flags=json.dumps(res["flags"]),
+         ddp_dcn_bytes=json.dumps({"flat": flat_dcn, "hierarchical": hier_dcn}),
+         ddp_tiers=json.dumps({"flat": res["ddp_flat_tiers"],
+                               "hierarchical": res["ddp_hier_tiers"]}),
+         compression_prefix_elements=MS_COMPRESS_ELEMS,
+         compression_excess_over_bound=json.dumps(res["compression_excess_over_bound"]),
+         zero2_vs_one_rank=json.dumps(errs), bounds=json.dumps(ZERO_ROW),
+         rank_seconds=res["seconds"], rank_peak_mem_gb=res["peak_mem_gb"],
+         seconds=time.perf_counter() - t0)
+    if failures:
+        raise AssertionError("multislice_card: " + "; ".join(failures))
+
+
+def oib_gpt_trainer(amp, gpt, fused_adam, params, cfg, loss_scale=None, poison=None):
+    """The flagship's O5 FusedAdam step with the optimizer in the backward,
+    as a user script builds it: the arena-native model's leaves (the
+    blocks unbound per layer) through ``overlap.hook_tree`` (the
+    backward-time reduce over the data axis), the scaled loss's tree
+    gradients, ``MasterWeights.step_in_backward`` (K6's views mode on each
+    arena, one folded flag) with the inverse loss scale, and the scaler's
+    update on the flag. ``poison(grads)`` edits the gradients before the
+    step. ``(m, state, step)``; ``step`` returns ``(loss, grads, flag)``."""
+    from beforeholiday_tpu_torch.amp.frontend import differentiate
+    from beforeholiday_tpu_torch.parallel import overlap
+
+    m = amp.initialize(lambda p, t: gpt.forward(p, t, cfg), params, fused_adam(lr=LR),
+                       "O5", arena_native=True, loss_scale=loss_scale)
+    state = {"opt": m.optimizer.init(m.params), "scaler": m.scaler.init()}
+
+    def step(tok, tgt):
+        sstate = state["scaler"]
+        tree = m.params.unpack()
+        tree = {**tree, "blocks": {k: v.unbind(0) for k, v in tree["blocks"].items()}}
+
+        def objective(p):
+            p = overlap.hook_tree(p, axis_name="data", bucket_bytes=OIB_BUCKET_BYTES)
+            loss = gpt.loss_fn(p, tok, tgt, cfg, forward_fn=m.apply)
+            return m.scaler.scale_loss(loss, sstate), loss
+
+        loss, grads = differentiate(objective, tree)
+        if poison is not None:
+            poison(grads)
+        m.params, state["opt"], flag = m.optimizer.step_in_backward(
+            m.params, grads, state["opt"], grad_scale=1.0 / sstate["scale"],
+            bucket_bytes=OIB_BUCKET_BYTES)
+        state["scaler"] = m.scaler.update(sstate, flag)
+        return loss.detach(), grads, flag
+
+    return m, state, step
+
+
+def oib_resnet_trainer(main_amp, cfg, weights, batch, loss_scale=None, poison=None):
+    """The ImageNet trainer's O5 FusedSGD step with the optimizer in the
+    backward (K10's views mode), built from the trainer's parts as a user
+    script does: the hooked leaves, the scaled loss's tree gradients,
+    ``MasterWeights.step_in_backward`` at the trainer's lr, the scaler's
+    update on the folded flag and the new BN state. ``(tr, step)``;
+    ``step(images, labels)`` returns ``(loss, grads, flag)``."""
+    from beforeholiday_tpu_torch.amp.frontend import differentiate
+    from beforeholiday_tpu_torch.parallel import overlap
+
+    tr = resnet_trainer(main_amp, cfg, weights, "O5", batch,
+                        **({} if loss_scale is None else dict(loss_scale=loss_scale)))
+    m = tr.amp_model
+    mean = torch.from_numpy(main_amp._MEAN).to("cuda")
+    std = torch.from_numpy(main_amp._STD).to("cuda")
+
+    def step(images, labels):
+        sstate = tr.scaler_state
+        x = (images.float() - mean) / std
+
+        def objective(p):
+            p = overlap.hook_tree(p, axis_name="data", bucket_bytes=OIB_BUCKET_BYTES)
+            logits, new_bn = m.apply(p, tr.bn_state, x)
+            loss = main_amp.softmax_cross_entropy(logits, labels)
+            return m.scaler.scale_loss(loss, sstate), (loss, new_bn)
+
+        (loss, new_bn), grads = differentiate(objective, tr.params.unpack())
+        if poison is not None:
+            poison(grads)
+        tr.params, tr.opt_state, flag = m.optimizer.step_in_backward(
+            tr.params, grads, tr.opt_state, grad_scale=1.0 / sstate["scale"],
+            bucket_bytes=OIB_BUCKET_BYTES, lr=RESNET_LR)
+        tr.scaler_state = m.scaler.update(sstate, flag)
+        tr.bn_state = new_bn
+        return loss.detach(), grads, flag
+
+    return tr, step
+
+
+def poison_one_leaf(grads):
+    """An inf in one element of one leaf: one bucket of the step."""
+    from beforeholiday_tpu_torch.ops.arena import tree_flatten
+
+    leaves = tree_flatten(grads)[0]
+    leaves[len(leaves) // 2].view(-1)[0] = float("inf")
+
+
+def oib_parity_and_skip(label, make_phased, make_oib, batch, state_of, scale_of):
+    """Two steps of the phased trainer and of the optimizer-in-backward one
+    from the same weights on ``batch``: model arenas, masters, moments and
+    step counts bitwise (``state_of(handle)`` snapshots them; ``make_*``
+    return ``(handle, step)``). Then the skip: an inf in one leaf's
+    gradient, a dynamic scale: every arena, master, moment and count
+    unchanged, the flag set, the scale (``scale_of(handle)``) halved."""
+    snaps = {}
+    for name, make in (("phased", make_phased), ("oib", make_oib)):
+        tr, step = make()
+        for _ in range(2):
+            _, _, fi = step(*batch)
+        torch.cuda.synchronize()
+        if bool(fi):
+            raise AssertionError(f"{label} ({name}): found_inf set")
+        snaps[name] = state_of(tr)
+        del tr, step
+        torch.cuda.empty_cache()
+    (m1, ms1, mo1, c1), (m2, ms2, mo2, c2) = snaps["phased"], snaps["oib"]
+    bitwise = (all(torch.equal(a, b) for a, b in zip(m1 + ms1 + mo1, m2 + ms2 + mo2))
+               and c1 == c2 == [2] * len(c1))
+    del snaps, m1, ms1, mo1, m2, ms2, mo2
+    torch.cuda.empty_cache()
+    tr, step = make_oib(loss_scale="dynamic", poison=poison_one_leaf)
+    before = state_of(tr)
+    scale = float(scale_of(tr))
+    _, _, flag = step(*batch)
+    torch.cuda.synchronize()
+    after = state_of(tr)
+    held = (bool(flag) and after[3] == before[3]
+            and all(torch.equal(a, b) for a, b in zip(before[0] + before[1] + before[2],
+                                                      after[0] + after[1] + after[2])))
+    new_scale = float(scale_of(tr))
+    del tr, step, before, after
+    torch.cuda.empty_cache()
+    line(label, batch=batch[0].shape[0], steps=2, bitwise_phased=bitwise,
+         skip_held_everything=held, scale_before=scale, scale_after=new_scale)
+    if not (bitwise and held and new_scale < scale):
+        raise AssertionError(f"{label}: bitwise {bitwise}, skip held {held}, scale "
+                             f"{scale} -> {new_scale}")
+
+
+def bucket_pieces(layout, dtype):
+    """The leaf shapes of ``layout``'s ``dtype`` arena in arena order, a
+    stacked leaf as its per-layer pieces (what the optimizer-in-backward
+    runs hand the views mode)."""
+    b = layout.dtypes.index(dtype)
+    out = []
+    for i, shape in zip(layout.indices[b], layout.specs[b].shapes):
+        if layout.stacked and layout.stacked[i]:
+            out += [tuple(shape[1:])] * shape[0]
+        else:
+            out.append(tuple(shape))
+    return out
+
+
+def step_in_backward_phases(amp, gpt, main_amp, fused_adam, params, cfg, rcfg,
+                            rweights, counters, flops_per_image, n_params, card):
+    """NCCL at world 1: the flagship GPT at O5 on FusedAdam and ResNet-50 at
+    O5 on FusedSGD with the overlap hooks and ``step_in_backward`` (K6's and
+    K10's views mode): bitwise the phased step, the whole-step skip and the
+    scale's backoff (:func:`oib_parity_and_skip`), then the timed and
+    profiled runs beside the phased steps' medians, with the views tables
+    built during them. Returns the launch counts by run."""
+    from beforeholiday_tpu_torch.ops import multi_tensor as mt
+
+    launches = {}
+    # the GPT: the phased step is make_gpt_trainer's O5 FusedAdam step
+    gpt_state = lambda t: snapshot(t[0], t[1])  # noqa: E731
+    gpt_scale = lambda t: t[1]["scaler"]["scale"]  # noqa: E731
+
+    def phased_gpt(**kw):
+        m, state, step = make_gpt_trainer(amp, gpt, fused_adam, params, cfg, **kw)
+        return (m, state), step
+
+    def oib_gpt(**kw):
+        m, state, step = oib_gpt_trainer(amp, gpt, fused_adam, params, cfg, **kw)
+        return (m, state), step
+
+    batch = gpt.synthetic_batch(cfg, PARITY_BATCH, generator=gen(60), device="cuda")
+    oib_parity_and_skip("gpt_step_in_backward", phased_gpt, oib_gpt, batch, gpt_state,
+                        gpt_scale)
+    tb = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70), device="cuda")
+    m, _, step = oib_gpt_trainer(amp, gpt, fused_adam, params, cfg)
+    built = mt.views_tables_built[0]
+    launches["gpt_oib"] = training_phase(
+        "gpt_oib_training", "gpt_oib_profile", step, tb, counters,
+        STEP_LAUNCHES["gpt_oib"], TRAIN_GROUPS, card, seq_len=cfg.seq_len,
+        optimizer="'MasterWeights(FusedAdam).step_in_backward'",
+        phased_median_ms=MEDIANS.get("training"), **lm_work(m, tb))
+    line("gpt_oib_views_tables", built=mt.views_tables_built[0] - built,
+         steps=WARMUP_STEPS + TIMED_STEPS + PROFILE_STEPS)
+    del m, step
+    torch.cuda.empty_cache()
+    # ResNet-50: the phased step is the ImageNet trainer's own, cuDNN held
+    # to its deterministic algorithms for the bitwise check
+    def phased_resnet(**kw):
+        tr = resnet_trainer(main_amp, rcfg, rweights, "O5", PARITY_BATCH)
+        return tr, trainer_step(tr)
+
+    def oib_resnet(**kw):
+        return oib_resnet_trainer(main_amp, rcfg, rweights, PARITY_BATCH, **kw)
+
+    images, labels = resnet_batch(rcfg, PARITY_BATCH, 64)
+    torch.backends.cudnn.deterministic = True
+    try:
+        oib_parity_and_skip("resnet_step_in_backward", phased_resnet, oib_resnet,
+                            (images, labels), resnet_state,
+                            lambda tr: tr.scaler_state["scale"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    tr, step = oib_resnet_trainer(main_amp, rcfg, rweights, RESNET_BATCH)
+    built = mt.views_tables_built[0]
+    launches["resnet_oib"] = training_phase(
+        "resnet_oib_training", "resnet_oib_profile", step,
+        resnet_batch(tr.cfg, RESNET_BATCH, 72), counters, STEP_LAUNCHES["resnet_oib"],
+        RESNET_GROUPS, card, unit="images", units=RESNET_BATCH,
+        flops=RESNET_BATCH * flops_per_image, peak=PEAK_BF16, image=RESNET_IMAGE,
+        params=n_params, optimizer="'MasterWeights(FusedSGD).step_in_backward'",
+        phased_median_ms=MEDIANS.get("resnet_training"))
+    line("resnet_oib_views_tables", built=mt.views_tables_built[0] - built,
+         steps=WARMUP_STEPS + TIMED_STEPS + PROFILE_STEPS)
+    del tr, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def views_kernel_rows(mt, gpt_pieces, resnet_pieces, launches):
+    """K6's and K10's views mode at the arenas the optimizer-in-backward
+    runs give them (the flagship's bf16 bucket, per-layer pieces; ResNet-50's
+    bf16 bucket): each launch held against its per-leaf plain version (an
+    fma's ulp) and bitwise against the arena launch on the packed
+    gradients, a skipped step bitwise unchanged; timed beside the plain
+    version and the library call over the leaf lists (``_fused_adamw_`` and
+    ``_fused_sgd_``, fp32 gradients: they take no bf16 gradient beside fp32
+    params). Bound: bytes, the gradient read in bf16 (2 B) and the arenas'
+    elements the leaves cover: 28 B an element for K6 with a bf16 copy
+    (p, m, v read and written 24, copy 2), 20 B for K10 (p and m 16, copy
+    2). Returns the rows."""
+    from beforeholiday_tpu_torch.ops.arena import flatten, make_spec
+
+    rows_out = {"adam_views": {}, "sgd_views": {}}
+    for kname, shapes, tag in (("adam_views", gpt_pieces, "gpt_o5_bf16"),
+                               ("sgd_views", resnet_pieces, "resnet_o5_bf16")):
+        spec = make_spec(shapes)
+        g = gen(81)
+        leaves = [1e-3 * torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+                  for s in shapes]
+        n, total = spec.padded_total, spec.total
+        p = torch.zeros(n, device="cuda")
+        p[:total] = 0.02 * torch.randn(total, generator=g, device="cuda")
+        mom = torch.zeros(n, device="cuda")
+        mom[:total] = 1e-4 * torch.randn(total, generator=g, device="cuda")
+        v = torch.zeros(n, device="cuda")
+        v[:total] = 1e-8 * torch.rand(total, generator=g, device="cuda")
+        step_t = torch.full((), 4, dtype=torch.int32, device="cuda")
+        if kname == "adam_views":
+            bc1, bc2 = mt._bias_corrections(True, step_t, 0.9, 0.999)
+            hyper = dict(lr=LR, beta1=0.9, beta2=0.999, eps=1e-8, bc1=bc1, bc2=bc2,
+                         weight_decay=0.01, adam_w_mode=True, grad_scale=0.5)
+            state = lambda: (p.clone(), mom.clone(), v.clone())  # noqa: E731
+            views, arena, plain = mt.adam_views_kernel, mt.adam_kernel, mt.adam_views_torch
+            nbytes, flops = 28 * total, 20 * total
+        else:
+            hyper = dict(lr=RESNET_LR, weight_decay=RESNET_WD, momentum=0.9,
+                         dampening=0.0, nesterov=False,
+                         first_run=torch.zeros((), dtype=torch.bool, device="cuda"),
+                         wd_after_momentum=False, scale=0.5)
+            state = lambda: (p.clone(), mom.clone())  # noqa: E731
+            views, arena, plain = mt.sgd_views_kernel, mt.sgd_kernel, mt.sgd_views_torch
+            nbytes, flops = 20 * total, 8 * total
+        packed = flatten(leaves)[0]
+        outs = {}
+        for name in ("views", "arena", "plain", "skip"):
+            st = state()
+            cp = torch.zeros(n, dtype=torch.bfloat16, device="cuda")
+            fi = torch.full((), name == "skip", dtype=torch.bool, device="cuda")
+            kw = dict(found_inf=fi, copy_out=cp, **hyper)
+            if name in ("views", "skip"):
+                views(leaves, *st, spec, **kw)
+            elif name == "arena":
+                arena(packed, *st, **kw)
+            else:
+                plain(leaves, *st, spec, **kw)
+            outs[name] = (*st, cp)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(outs["views"], outs["arena"])):
+            raise AssertionError(f"{kname}: not bitwise the arena launch")
+        if not (all(torch.equal(a, b) for a, b in zip(outs["skip"][:-1], state()))
+                and not outs["skip"][-1].any()):
+            raise AssertionError(f"{kname}: a skipped step changed state")
+        # an fma's ulp, of the update where m's two terms nearly cancel (as
+        # test_k6_matches_plain's atol allows)
+        err = max(check_close(f"{kname} {tag}", a, b, dict(rtol=1e-6, atol=1e-9))
+                  for a, b in zip(outs["views"][:-1], outs["plain"][:-1]))
+        del outs
+        st = state()
+        cp = torch.zeros(n, dtype=torch.bfloat16, device="cuda")
+        not_found = torch.zeros((), dtype=torch.bool, device="cuda")
+        kw = dict(found_inf=not_found, copy_out=cp, **hyper)
+        g32 = [t.float() for t in leaves]
+        pv = [p_ for p_ in st[0][:total].split([math.prod(s) for s in shapes])]
+        mv = [m_ for m_ in st[1][:total].split([math.prod(s) for s in shapes])]
+        g32v = [t.reshape(-1) for t in g32]
+        if kname == "adam_views":
+            vv = [v_ for v_ in st[2][:total].split([math.prod(s) for s in shapes])]
+            steps = [torch.full((), 4.0, device="cuda") for _ in shapes]
+            library = lambda: torch._fused_adamw_(  # noqa: E731
+                pv, g32v, mv, vv, [], steps, lr=LR, beta1=0.9, beta2=0.999,
+                weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False)
+        else:
+            library = lambda: torch._fused_sgd_(  # noqa: E731
+                pv, g32v, mv, weight_decay=RESNET_WD, momentum=0.9, lr=RESNET_LR,
+                dampening=0.0, nesterov=False, maximize=False, is_first_step=False)
+        bms, by = bound_ms(nbytes, flops, torch.float32)
+        fields = dict(max_abs_err=err, leaves=len(shapes),
+                      ms=time_ms(lambda: views(leaves, *st, spec, **kw)),
+                      plain_ms=time_ms(lambda: plain(leaves, *st, spec, **kw), iters=3),
+                      library_ms=time_ms(library), bound_ms=bms, bound_by=by,
+                      arena_launch_ms=time_ms(lambda: arena(packed, *st, **kw)))
+        path = "gpt_oib" if kname == "adam_views" else "resnet_oib"
+        fields["launches"] = launches[path][kname]
+        rows_out[kname][path] = (f"{total} {len(shapes)} leaves bf16 g, copy bf16", fields)
+        line(kname, shape=tag, **fields)
+        del st, cp, leaves, packed, g32, g32v, pv, mv
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 KERNEL_ROWS = (
     ("layer_norm_fwd", "cuda", "beforeholiday_tpu_torch/csrc/layer_norm_fwd.cu",
      "beforeholiday_tpu/ops/normalization.py:55"),
@@ -7359,6 +8047,11 @@ KERNEL_ROWS = (
     # K2's decode path in paged mode, reading the engine's pools in place
     ("paged_decode", "cuda", "beforeholiday_tpu_torch/csrc/flash_fwd.cu",
      "beforeholiday_tpu/ops/attention.py:152"),
+    # K6's and K10's views mode: the gradient leaves read where they lie
+    ("adam_views", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
+     "beforeholiday_tpu/ops/_pallas_mt.py:273"),
+    ("sgd_views", "triton", "beforeholiday_tpu_torch/ops/multi_tensor.py",
+     "beforeholiday_tpu/ops/_pallas_mt.py:376"),
 )
 
 
@@ -7453,7 +8146,8 @@ def main():
     with phase("serving"):
         eng, serve_launches, fp32_streams = serving_phase(infer, params, cfg, norm,
                                                           attn, card)
-        profile_phase(infer, eng, cfg)
+        # the profile reads half the mix (A29's time budget)
+        profile_phase(infer, eng, cfg, n_requests=N_REQUESTS // 2)
         del eng
         torch.cuda.empty_cache()
     with phase("decode_profile"):
@@ -7836,11 +8530,41 @@ def main():
     torch.cuda.empty_cache()
     with phase("zero_two_rank_card"), tempfile.TemporaryDirectory() as tmp:
         zero_launches = zero_two_rank_card_phase(one_rank, tmp)
-    del one_rank
     with phase("zero_kernel_rows"):
         k6 = {"adam": sum(v.get("adam", 0) for v in zero_launches.values())}
         for kname, r in zero_kernel_rows(mt, *zero_specs, k6).items():
             rows[kname].update(r)
+        torch.cuda.empty_cache()
+
+    # slice 21: the two-level engines at world 1 on a 1 x 1 carve over NCCL
+    # and as four gloo ranks on the card (a 2 x 2 carve); the optimizer in
+    # the backward on the flagship GPT and ResNet-50 (K6's and K10's views
+    # mode), and those modes' kernel rows
+    params = gpt.init(cfg, gen(0), device="cuda")
+    gpt_pieces = bucket_pieces(o5_layout(params), torch.bfloat16)
+    resnet_pieces = bucket_pieces(o5_layout(rweights[0]), torch.bfloat16)
+    with phase("multislice_world1"), tempfile.TemporaryDirectory() as tmp:
+        init_nccl(tmp)
+        try:
+            launches.update(multislice_world1_phase(amp, gpt, FusedAdam, comms, params,
+                                                    cfg, counters, card))
+        finally:
+            dist.destroy_process_group()
+    with phase("step_in_backward"), tempfile.TemporaryDirectory() as tmp:
+        init_nccl(tmp)
+        try:
+            launches.update(step_in_backward_phases(
+                amp, gpt, main_amp, FusedAdam, params, cfg, rcfg, rweights, counters,
+                flops_per_image, n_params, card))
+        finally:
+            dist.destroy_process_group()
+    del params
+    torch.cuda.empty_cache()
+    with phase("multislice_card"), tempfile.TemporaryDirectory() as tmp:
+        multislice_card_phase(one_rank, tmp)
+    del one_rank
+    with phase("views_kernel_rows"):
+        rows.update(views_kernel_rows(mt, gpt_pieces, resnet_pieces, launches))
         torch.cuda.empty_cache()
 
     kernels = []

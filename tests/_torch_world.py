@@ -1444,3 +1444,307 @@ def zero_gpt_o5_scenario(rank, world, cfg_kw, np_params, tokens, targets, steps,
             _flatten(model)[0], _flatten(z2_model)[0]))
         out[f"zero3_{residency}_bitwise"] = bool(same and same_model)
     return out
+
+
+# ------------------------------------------------------------ two-level DP
+
+
+def _ms_flat_rank(mesh):
+    return mesh.axis_index(("slice", "intra"))
+
+
+def _ms_distinct(tree, r):
+    """Each rank's own copy of a tree: ``x * (1 + 0.125 * flat rank)``, as
+    the JAX tests make per-rank data inside ``shard_map``."""
+    c = 1.0 + 0.125 * r
+    return {k: v * c for k, v in tree.items()}
+
+
+def _ms_tier_bytes(subsystem):
+    from beforeholiday_tpu_torch.monitor import comms
+
+    row = next((r for r in comms.comms_summary() if r["subsystem"] == subsystem),
+               {"by_tier": {}})
+    return {t: dict(v) for t, v in row["by_tier"].items()}
+
+
+def _ms_vdot(params, grads):
+    return sum(torch.sum(params[k] * grads[k]) for k in grads)
+
+
+def _multislice_case(rank, world, mesh, case):
+    """One case of :func:`multislice_scenario` on this rank."""
+    from beforeholiday_tpu_torch import parallel
+    from beforeholiday_tpu_torch.amp.frontend import differentiate
+    from beforeholiday_tpu_torch.monitor import comms
+    from beforeholiday_tpu_torch.ops.arena import PackedParams
+    from beforeholiday_tpu_torch.optimizers import DistributedFusedAdam, ZeRO3FusedAdam, zero3
+    from beforeholiday_tpu_torch.parallel import bucketing, distributed, overlap
+
+    AX = ("slice", "intra")
+    r = _ms_flat_rank(mesh)
+    kind = case["kind"]
+    if kind == "reduce":
+        g = _ms_distinct(_ttree(case["grads"]), r)
+        out = {}
+        for bb in case["bucket_bytes"]:
+            flat = distributed.reduce_gradients(g, axis_name=AX, bucket_bytes=bb)
+            hier = distributed.reduce_gradients(g, axis_name=AX, bucket_bytes=bb,
+                                                hierarchical=True)
+            out[bb] = (_nptree(flat), _nptree(hier))
+        return out
+    if kind == "packed_reduce":
+        # the arena path of reduce_gradients on the packed grads
+        g = PackedParams.pack(_ms_distinct(_ttree(case["grads"]), r))
+        flat = distributed.reduce_gradients(g, axis_name=AX, bucket_bytes=case["bb"])
+        hier = distributed.reduce_gradients(g, axis_name=AX, bucket_bytes=case["bb"],
+                                            hierarchical=True)
+        return ([_np(a) for a in flat.arenas], [_np(a) for a in hier.arenas])
+    if kind == "overlap":
+        p, g = _ttree(case["params"]), _ms_distinct(_ttree(case["grads"]), r)
+        res = {}
+        for name, kw in (("flat", {}), ("hier", dict(hierarchical=True,
+                                                      overlap_backward=True))):
+            ddp = distributed.DistributedDataParallel(axis_name=AX,
+                                                      bucket_bytes=case["bb"], **kw)
+            _, grads = ddp.value_and_grad(lambda pp: _ms_vdot(pp, g))(p)
+            res[name] = _nptree(grads)
+        # the arena hooks: grads born flat, each bucket's three legs issued
+        # as its leaves land, finished in the engine's callback
+        packed = PackedParams.pack(p)
+        for name, hier in (("arena_flat", False), ("arena_hier", True)):
+            def objective(pp, hier=hier):
+                pp = overlap.reduction_hook(pp, axis_name=AX, bucket_bytes=case["bb"],
+                                            hierarchical=hier)
+                loss = _ms_vdot(pp.unpack(), g)
+                return loss, loss
+            _, grads = differentiate(objective, packed)
+            res[name] = _nptree(grads.unpack())
+        return res
+    if kind == "zero2":
+        p, g = _ttree(case["params"]), _ms_distinct(_ttree(case["grads"]), r)
+        res = {}
+        for name, kw in (("flat", {}), ("hier", dict(hierarchical=True))):
+            opt = DistributedFusedAdam(lr=1e-2, weight_decay=0.02, axis_name=AX,
+                                       bucket_bytes=case["bb"], **kw)
+            pp, state = p, opt.init(p)
+            for _ in range(2):
+                pp, state = opt.step(pp, g, state)
+            res[name] = dict(params=_nptree(pp), master=_np(state["master"]),
+                             full=_nptree(opt.state_dict(pp, state)["master"]))
+        # ZeRO-3 hierarchical, both residencies, against the above
+        layout = zero3.layout_of(p)
+        for residency in ("keep", "regather"):
+            comms.reset_comms_ledger()
+            z3 = ZeRO3FusedAdam(lr=1e-2, weight_decay=0.02, axis_name=AX,
+                                bucket_bytes=case["bb"], hierarchical=True,
+                                prefetch=1, param_residency=residency)
+            state = z3.init(p)
+            for _ in range(2):
+                master = state["master"].detach().requires_grad_(True)
+                z3.wrap_residency(lambda m: _ms_vdot(z3.gather_params(m, layout), g))(
+                    master).backward()
+                state = z3.step(master.grad, state)
+            calls = {k: v["calls"] for k, v in _ms_tier_bytes("zero3").items()}
+            res[f"z3_{residency}"] = dict(
+                params=_nptree(z3.gather_params(state["master"], layout)),
+                master=_np(state["master"]), calls=calls)
+        return res
+    if kind == "compress":
+        x = _tensor(case["x"]) * (1.0 + 0.125 * r)
+        exact = bucketing.bucketed_psum(x, AX, site="tms.exact", bucket_bytes=1024)
+        sum_abs = bucketing.bucketed_psum(x.abs(), AX, site="tms.abs",
+                                          bucket_bytes=1024)
+        out = {}
+        for ci, cd in case["combos"]:
+            comp = bucketing.hierarchical_psum(x, AX, site="tms.comp", bucket_bytes=1024,
+                                               compress_intra=ci, compress_dcn=cd)
+            bound = bucketing.hierarchical_compression_error_bound(
+                sum_abs, compress_intra=ci, compress_dcn=cd)
+            out[(ci, cd)] = (_np(comp), _np(exact), _np(bound))
+        return out
+    if kind == "ledger":
+        x = torch.zeros(case["n"])
+        out = {}
+        for name, fn in (
+                ("flat", lambda a: bucketing.bucketed_psum(a, AX, site="tms.x",
+                                                           bucket_bytes=case["bb"])),
+                ("hier", lambda a: bucketing.hierarchical_psum(
+                    a, AX, site="tms.x", bucket_bytes=case["bb"])),
+                ("hier_cdcn", lambda a: bucketing.hierarchical_psum(
+                    a, AX, site="tms.x", bucket_bytes=case["bb"], compress_dcn=True)),
+                ("flat_rs", lambda a: bucketing.bucketed_psum_scatter(
+                    a, AX, site="tms.x", bucket_bytes=case["bb"])),
+                ("hier_rs", lambda a: bucketing.hierarchical_psum_scatter(
+                    a, AX, site="tms.x", bucket_bytes=case["bb"])),
+                ("flat_ag", lambda a: bucketing.bucketed_all_gather(
+                    a[: a.shape[0] // world], AX, site="tms.x",
+                    bucket_bytes=case["bb"])),
+                ("hier_ag", lambda a: bucketing.hierarchical_all_gather(
+                    a[: a.shape[0] // world], AX, site="tms.x",
+                    bucket_bytes=case["bb"]))):
+            comms.reset_comms_ledger()
+            fn(x)
+            out[name] = _ms_tier_bytes("tms")
+        return out
+    if kind == "tripwire":
+        g = _ttree(case["grads"])
+        out = {}
+        for name, bad_rank in (("clean", None), ("perturbed", case["bad_rank"])):
+            gg = {k: (v + 0.5 if r == bad_rank else v) for k, v in g.items()}
+            _, mm = distributed.reduce_gradients(gg, axis_name=AX, hierarchical=True,
+                                                 bucket_bytes=case["bb"],
+                                                 check_consistency=True)
+            out[name] = bool(mm)
+        return out
+    if kind == "collectives":
+        # the ledger's collectives of the flat and the hierarchical reduce,
+        # reduce-scatter and gather (a degenerate carve must emit the flat's)
+        x = _tensor(case["x"]) * (1.0 + 0.125 * r)
+        out = {}
+        for name, fn in (
+                ("psum", lambda hier: (bucketing.hierarchical_psum if hier else
+                                       bucketing.bucketed_psum)(
+                    x, AX, site="tms.c", bucket_bytes=1024)),
+                ("psum_scatter", lambda hier: (
+                    bucketing.hierarchical_psum_scatter if hier
+                    else bucketing.bucketed_psum_scatter)(
+                    x, AX, site="tms.c", bucket_bytes=1024)),
+                ("all_gather", lambda hier: (
+                    bucketing.hierarchical_all_gather if hier
+                    else bucketing.bucketed_all_gather)(
+                    x[: x.shape[0] // world], AX, site="tms.c", bucket_bytes=1024))):
+            for hier in (False, True):
+                comms.reset_comms_ledger()
+                val = fn(hier)
+                kinds = {}
+                for rec in comms.comms_records():
+                    kinds[rec["kind"]] = kinds.get(rec["kind"], 0) + rec["calls"]
+                out[(name, hier)] = (kinds, _np(val))
+        return out
+    if kind == "dcn_knob":
+        x = _tensor(case["x"]) * (1.0 + 0.125 * r)
+        out = {"flat": _np(bucketing.bucketed_psum(x, AX, site="tdcn.flat",
+                                                   bucket_bytes=1024))}
+        for dcn in case["dcn_bytes"]:
+            comms.reset_comms_ledger()
+            out[dcn] = (_np(bucketing.hierarchical_psum(
+                x, AX, site="tdcn.hier", bucket_bytes=1024, bucket_bytes_dcn=dcn)),
+                _ms_tier_bytes("tdcn").get("dcn"))
+        comms.reset_comms_ledger()
+        bucketing.hierarchical_psum(torch.zeros(1000), AX, site="tdf.follow",
+                                    bucket_bytes=1024)
+        out["follow"] = _ms_tier_bytes("tdf").get("dcn")
+        pol = bucketing.BucketedReduce(axis_name=AX, hierarchical=True,
+                                       bucket_bytes=1024, bucket_bytes_dcn=1 << 20)
+        out["policy"] = _np(pol.psum(_tensor(case["x"][:300]), site="tdp.psum"))
+        return out
+    if kind == "mesh":
+        groups = parallel.parallel_state.get_groups(AX)
+        return dict(flat_rank=r, index=mesh.index, shape=mesh.shape,
+                    sizes=[torch.distributed.get_world_size(g) for g in groups],
+                    static=bucketing.static_axis_size(AX),
+                    joint_rank=torch.distributed.get_rank(
+                        parallel.parallel_state.get_group(AX)))
+    raise ValueError(kind)
+
+
+def multislice_scenario(rank, world, n_slices, slice_size, cases):
+    """Two-level cases for ``tests/test_torch_multislice.py``: one
+    ``make_two_level_mesh(n_slices, slice_size)`` over the world, entered,
+    each case of ``cases`` on it (see :func:`_multislice_case`); then the
+    mesh carvers' checks."""
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+
+    mesh = ps.make_two_level_mesh(n_slices, slice_size)
+    with mesh:
+        out = {name: _multislice_case(rank, world, mesh, case)
+               for name, case in cases.items()}
+    errors = {}
+    for name, call in (("zero_slices", lambda: ps.make_two_level_mesh(0)),
+                       ("indivisible", lambda: ps.make_two_level_mesh(3)),
+                       ("too_big", lambda: ps.make_two_level_mesh(world, 2))):
+        try:
+            call()
+            errors[name] = None
+        except (ValueError, RuntimeError) as e:
+            errors[name] = type(e).__name__
+    moe = ps.make_moe_mesh(data=min(world, 2), expert=max(world // 2, 1))
+    ones = ps.make_moe_mesh()
+    carved = ps.carve_data_mesh(max(world // 2, 1))
+    with carved:
+        if carved.index is not None:
+            from beforeholiday_tpu_torch.monitor import comms
+
+            s = comms.psum(torch.ones(1), "data", site="t.carved")
+            carved_sum = float(s)
+        else:
+            carved_sum = None
+    try:
+        ps.carve_data_mesh(world + 1)
+        errors["carve_too_big"] = None
+    except ValueError:
+        errors["carve_too_big"] = "ValueError"
+    out["carvers"] = dict(errors=errors, moe_axes=moe.axis_names,
+                          moe_shape=moe.shape, moe_index=moe.index,
+                          ones_axes=ones.axis_names, ones_shape=ones.shape,
+                          carved_index=carved.index, carved_sum=carved_sum)
+    for m in (mesh, moe, ones, carved):
+        m.destroy()
+    return out
+
+
+# ---------------------------------------------------- optimizer-in-backward
+
+
+def _oib_loss(leaves, x, tgt):
+    h = x
+    for i in range(len(leaves) // 2):
+        h = torch.tanh(h @ leaves[2 * i] + leaves[2 * i + 1])
+    return torch.mean((h - tgt) ** 2)
+
+
+def step_in_backward_scenario(rank, world, leaves_np, x_np, tgt_np, opts):
+    """``tests/test_torch_step_in_backward.py``'s data-parallel step: the
+    arena of ``leaves_np``, this rank's rows of ``x_np``/``tgt_np``; for each
+    optimizer of ``opts`` (name -> (kind, kwargs)) the hooked backward plus
+    ``step_in_backward``, the post-backward ``reduce_gradients`` plus the
+    view-path ``step_flat``, and the same grads packed into an arena plus
+    the arena ``step_flat``."""
+    from beforeholiday_tpu_torch.ops.arena import flatten, unflatten
+    from beforeholiday_tpu_torch.optimizers import FusedAdam, FusedLAMB, FusedSGD
+    from beforeholiday_tpu_torch.parallel import distributed, overlap
+
+    leaves = [_tensor(a) for a in leaves_np]
+    x, tgt = _tensor(x_np[rank: rank + 1]), _tensor(tgt_np[rank: rank + 1])
+    make = {"adam": FusedAdam, "sgd": FusedSGD, "lamb": FusedLAMB}
+
+    def grads(flat, spec, hooked):
+        lv = [v.detach().requires_grad_(True) for v in unflatten(flat, spec)]
+        use = overlap.hook_tree(list(lv), tag="oib", axis_name="data") if hooked else lv
+        return list(torch.autograd.grad(_oib_loss(use, x, tgt), lv))
+
+    out = {}
+    for name, (kind, kw) in opts.items():
+        res = {}
+        for path in ("hooked", "phased", "arena"):
+            flat, spec = flatten(leaves)
+            opt = make[kind](**kw)
+            state = opt.init_flat(flat)
+            try:
+                if path == "hooked":
+                    flat, state, flag = opt.step_in_backward(
+                        flat, grads(flat, spec, True), state, spec=spec)
+                    res["flag"] = bool(flag)
+                else:
+                    g = distributed.reduce_gradients(grads(flat, spec, False),
+                                                     axis_name="data")
+                    if path == "arena":
+                        g = flatten(g)[0]
+                    flat, state = opt.step_flat(flat, g, state, spec=spec)
+            except NotImplementedError as e:
+                res[path] = str(e)
+                continue
+            res[path] = dict(flat=_np(flat), state={k: _np(v) for k, v in state.items()})
+        out[name] = res
+    return out

@@ -45,6 +45,7 @@ from beforeholiday_tpu_torch.optimizers import (
     FusedLAMB,
     FusedLARS,
     FusedNovoGrad,
+    FusedSGD,
 )
 from beforeholiday_tpu_torch.testing import bert, gpt
 
@@ -2265,3 +2266,169 @@ def test_tp_layers_at_world1_are_bitwise_dense(nccl_world1):
     ps.initialize_model_parallel(1, 1)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(got_sp, want)
+
+
+# ------------------------------------------------- K6 and K10 views mode
+
+
+def _views_leaves(cuda, dtype, seed):
+    """AWKWARD's leaves as separate gradient tensors (sizes around the
+    4096-element block), and zero-padded fp32 arenas of their spec."""
+    g = _gen(seed)
+    leaves = [torch.randn(s, generator=g, device=cuda).to(dtype) for s in AWKWARD]
+    spec = make_spec(AWKWARD)
+    n = spec.padded_total
+
+    def arena(scale, rand=torch.randn):
+        a = torch.zeros(n, device=cuda)
+        a[: spec.total] = scale * rand(spec.total, generator=g, device=cuda)
+        return a
+
+    return leaves, spec, arena
+
+
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("copy", [torch.bfloat16, None])
+@pytest.mark.parametrize("skip", [False, True])
+def test_k6_views_mode_bitwise_arena_launch(cuda, gdtype, copy, skip):
+    """K6's views mode reads the leaves where they lie: bitwise the arena
+    launch on the packed gradients (the same per-element arithmetic), the
+    tail padding untouched, and within test_k6_matches_plain's tolerance of
+    the per-leaf plain version; on found_inf nothing moves."""
+    from beforeholiday_tpu_torch.ops.arena import flatten
+
+    leaves, spec, arena = _views_leaves(cuda, gdtype, 31)
+    p, m, v = arena(1.0), arena(0.1), arena(0.01, torch.rand)
+    step = torch.full((), 3, dtype=torch.int32, device=cuda)
+    bc1, bc2 = tmt._bias_corrections(True, step, 0.9, 0.999)
+    kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, bc1=bc1, bc2=bc2,
+              weight_decay=0.01, adam_w_mode=True, grad_scale=0.5,
+              found_inf=torch.tensor(skip, device=cuda))
+    runs = {}
+    for name in ("views", "arena", "plain"):
+        st = (p.clone(), m.clone(), v.clone())
+        c = None if copy is None else torch.zeros(spec.padded_total, dtype=copy,
+                                                  device=cuda)
+        if name == "views":
+            before = tmt.adam_views_kernel.launches
+            tmt.adam_views_kernel(leaves, *st, spec, copy_out=c, **kw)
+            assert tmt.adam_views_kernel.launches == before + 1
+        elif name == "arena":
+            tmt.adam_kernel(flatten(leaves)[0], *st, copy_out=c, **kw)
+        else:
+            tmt.adam_views_torch(leaves, *st, spec, copy_out=c, **kw)
+        runs[name] = st + (() if c is None else (c,))
+    torch.cuda.synchronize()
+    for a, b in zip(runs["views"], runs["arena"]):
+        assert torch.equal(a, b)
+    # p, m and v (the plain version writes the copy even on a skip, where
+    # the kernels mask every store)
+    for a, b in zip(runs["views"][:3], runs["plain"][:3]):
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-6, atol=1e-7)
+    if skip:
+        assert torch.equal(runs["views"][0], p)
+        assert copy is None or not runs["views"][3].any()
+    assert torch.all(runs["views"][0][spec.total:] == 0)
+
+
+@pytest.mark.parametrize("pdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("first_run", [True, False])
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_k10_views_mode_bitwise_arena_launch(cuda, pdtype, first_run, nesterov):
+    """K10's views mode: bitwise the arena launch on the packed gradients
+    (fp32 or bf16 params, the first-step momentum seed, Nesterov), within
+    the plain per-leaf version's fma tolerance."""
+    from beforeholiday_tpu_torch.ops.arena import flatten
+
+    leaves, spec, arena = _views_leaves(cuda, torch.bfloat16, 32)
+    p, mom = arena(1.0).to(pdtype), arena(0.1)
+    kw = dict(lr=0.05, weight_decay=1e-4, momentum=0.9, dampening=0.0,
+              nesterov=nesterov, first_run=torch.tensor(first_run, device=cuda),
+              wd_after_momentum=False, scale=0.25,
+              found_inf=torch.tensor(False, device=cuda))
+    runs = {}
+    for name in ("views", "arena", "plain"):
+        st = (p.clone(), mom.clone())
+        c = torch.zeros(spec.padded_total, dtype=torch.bfloat16, device=cuda)
+        if name == "views":
+            tmt.sgd_views_kernel(leaves, *st, spec, copy_out=c, **kw)
+        elif name == "arena":
+            tmt.sgd_kernel(flatten(leaves)[0], *st, copy_out=c, **kw)
+        else:
+            tmt.sgd_views_torch(leaves, *st, spec, copy_out=c, **kw)
+        runs[name] = st + (c,)
+    torch.cuda.synchronize()
+    for a, b in zip(runs["views"], runs["arena"]):
+        assert torch.equal(a, b)
+    tol = BF16_TOL if pdtype == torch.bfloat16 else dict(rtol=1e-6, atol=1e-7)
+    for a, b in zip(runs["views"], runs["plain"]):
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+def test_views_tables_built_once_per_gradient_addresses(cuda):
+    """The (pointer, count, offset) table is built once per tuple of
+    gradient addresses; the block map once per tuple of sizes."""
+    leaves, spec, arena = _views_leaves(cuda, torch.float32, 33)
+    p, m = arena(1.0), arena(0.1)
+    kw = dict(lr=0.05, weight_decay=0.0, momentum=0.9, dampening=0.0,
+              nesterov=False, first_run=False, wd_after_momentum=False, scale=1.0,
+              found_inf=None, copy_out=None)
+    tmt.sgd_views_kernel(leaves, p, m, spec, **kw)
+    built = tmt.views_tables_built[0]
+    tmt.sgd_views_kernel(leaves, p, m, spec, **kw)
+    assert tmt.views_tables_built[0] == built
+    tmt.sgd_views_kernel([t.clone() for t in leaves], p, m, spec, **kw)
+    assert tmt.views_tables_built[0] == built + 1
+
+
+@pytest.mark.parametrize("what", ["strided", "mixed_dtypes", "cpu_leaf", "count"])
+def test_views_mode_refuses_what_it_does_not_take(cuda, what):
+    leaves, spec, arena = _views_leaves(cuda, torch.float32, 34)
+    p, m = arena(1.0), arena(0.1)
+    if what == "strided":
+        leaves[4] = torch.randn(2 * 70000, device=cuda)[::2]
+    elif what == "mixed_dtypes":
+        leaves[1] = leaves[1].to(torch.bfloat16)
+    elif what == "cpu_leaf":
+        leaves[0] = leaves[0].cpu()
+    else:
+        leaves = leaves[:-1]
+    with pytest.raises(ValueError):
+        tmt.sgd_views_kernel(leaves, p, m, spec, lr=0.05, weight_decay=0.0,
+                             momentum=0.9, dampening=0.0, nesterov=False,
+                             first_run=False, wd_after_momentum=False, scale=1.0,
+                             found_inf=None, copy_out=None)
+
+
+@pytest.mark.parametrize("opt", ["adam", "sgd"])
+def test_step_in_backward_on_the_card_bitwise_arena_step(cuda, opt):
+    """The optimizers' view path on the card (K6/K10 views mode) through
+    step_in_backward: bitwise the arena step on the packed gradients; an
+    inf in one leaf skips every element and the count."""
+    from beforeholiday_tpu_torch.ops.arena import flatten
+
+    leaves, spec, arena = _views_leaves(cuda, torch.bfloat16, 35)
+    make = {"adam": lambda: FusedAdam(lr=1e-3, weight_decay=0.01),
+            "sgd": lambda: FusedSGD(0.05, 0.9)}[opt]
+    p0 = arena(1.0)
+    res = []
+    for views in (True, False):
+        o = make()
+        p = p0.clone()
+        st = o.init_flat(p)
+        if views:
+            p, st, flag = o.step_in_backward(p, leaves, st, spec=spec,
+                                             grad_scale=0.5, bucket_bytes=1 << 16)
+            assert not bool(flag)
+        else:
+            p, st = o.step_flat(p, flatten(leaves)[0], st, spec=spec, grad_scale=0.5)
+        res.append((p, st))
+    (p1, s1), (p2, s2) = res
+    assert torch.equal(p1, p2) and all(torch.equal(s1[k], s2[k]) for k in s1)
+    bad = [t.clone() for t in leaves]
+    bad[3][17] = float("inf")
+    o = make()
+    p = p0.clone()
+    st = o.init_flat(p)
+    p, st, flag = o.step_in_backward(p, bad, st, spec=spec, bucket_bytes=1 << 16)
+    assert bool(flag) and torch.equal(p, p0) and int(st["step"]) == 0

@@ -235,8 +235,10 @@ def test_fused_sgd_flat_step_and_master_weights():
     torch.testing.assert_close(state["master"][0][:n], expect[:n], rtol=1e-6, atol=1e-7)
     assert torch.equal(packed.arenas[0], state["master"][0].to(torch.bfloat16))
     assert int(state["inner"][0]["step"]) == 1
-    with pytest.raises(NotImplementedError):
-        opt.step_flat(state["master"][0], [torch.ones(3)], state["inner"][0])
+    # the view path: a list of gradient leaves must cover the arena
+    with pytest.raises(ValueError, match="cover exactly"):
+        opt.step_flat(state["master"][0], [torch.ones(state["master"][0].numel() + 1)],
+                      state["inner"][0])
 
 
 def test_nesterov_needs_momentum_and_no_dampening():

@@ -21,7 +21,8 @@ host devices with ``impl="jnp"``, as JAX's own ZeRO tests do.
   unsharded ones;
 * ``state_dict`` round trips, gathered and local;
 * the ``zero2.*`` ledger of one step against one JAX trace;
-* the refusals: ``hierarchical``, LAMB with ``overlap_backward``, ``tuned``.
+* the refusals: ``hierarchical`` on a flat axis, LAMB with
+  ``overlap_backward``, ``tuned``.
 """
 
 import functools
@@ -434,10 +435,11 @@ def test_sharded_norms_and_k8_shard_mode_match_unsharded(W, tensors):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # the two-level knobs: hierarchical=True needs a (slice, intra) spec, as
+    # in JAX; a tier's compression knob on a flat axis is kept, as in JAX
+    with pytest.raises(ValueError, match="hierarchical=True needs"):
         DistributedFusedAdam(hierarchical=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        DistributedFusedAdam(compress_dcn=True)
+    assert DistributedFusedAdam(compress_dcn=True)._tier_compress() == (False, True)
     with pytest.raises(NotImplementedError, match="overlap_backward"):
         DistributedFusedLAMB(overlap_backward=True)
     with pytest.raises(NotImplementedError, match="tuned=True"):
