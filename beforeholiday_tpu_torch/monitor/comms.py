@@ -41,6 +41,7 @@ import torch.distributed as dist
 __all__ = [
     "all_gather",
     "all_to_all",
+    "all_to_all_differentiable",
     "comms_records",
     "comms_summary",
     "infer_tier",
@@ -331,18 +332,71 @@ def ppermute_differentiable(x, axis_name, perm, *, site: str, tier=None):
 def all_to_all(x, axis_name, split_axis: int, concat_axis: int, *, site: str,
                tiled: bool = False, logical=None, tier=None,
                async_op: bool = False):
-    """Rank-major exchange along axis 0 (``split_axis == concat_axis ==
-    0``, the form the compressed all-reduce uses): row ``j`` of the result
-    is rank ``j``'s row for this rank."""
-    if split_axis != 0 or concat_axis != 0:
+    """``lax.all_to_all``: ``x`` is split along ``split_axis`` into one
+    chunk a rank, chunk ``j`` goes to rank ``j``, and the chunks received
+    are joined along ``concat_axis`` in rank order.
+
+    ``split_axis == concat_axis == 0`` is the rank-major exchange the
+    compressed all-reduce uses: row ``j`` of the result is rank ``j``'s row
+    for this rank, one ``all_to_all_single`` on ``x`` itself (``async_op``
+    is taken there only). Other axes are ``tiled`` (the split dimension
+    holds ``world`` chunks, the concat dimension grows ``world``-fold, as
+    ``moe.dispatch`` exchanges ``(E, C, D)`` for ``(E / ep, ep * C, D)``):
+    the chunks are laid rank-major in one contiguous buffer, exchanged by
+    one ``all_to_all_single`` and moved into place."""
+    if split_axis == 0 and concat_axis == 0:
+        record("all_to_all", axis_name, x, site=site, logical=logical, tier=tier)
+        group = _group(axis_name)
+        src = x.contiguous()
+        out = torch.empty_like(src)
+        work = dist.all_to_all_single(out, src, group=group, async_op=async_op)
+        return _finish(out, work, async_op)
+    if not tiled or async_op:
         raise NotImplementedError(
-            "all_to_all is ported for split_axis == concat_axis == 0")
+            "all_to_all off axis 0 is ported for tiled=True without async_op")
     record("all_to_all", axis_name, x, site=site, logical=logical, tier=tier)
     group = _group(axis_name)
-    src = x.contiguous()
+    world = _world(group)
+    split_axis %= x.ndim
+    concat_axis %= x.ndim
+    n = x.shape[split_axis]
+    if n % world:
+        raise ValueError(f"all_to_all: dimension {n} of axis {split_axis} is "
+                         f"not divisible by the world size {world}")
+    chunks = x.reshape(*x.shape[:split_axis], world, n // world,
+                       *x.shape[split_axis + 1:])
+    src = chunks.movedim(split_axis, 0).contiguous()  # (world, *chunk)
     out = torch.empty_like(src)
-    work = dist.all_to_all_single(out, src, group=group, async_op=async_op)
-    return _finish(out, work, async_op)
+    dist.all_to_all_single(out, src, group=group)
+    # out[i] is rank i's chunk for this rank: join them along concat_axis
+    joined = out.movedim(0, concat_axis)
+    shape = list(src.shape[1:])
+    shape[concat_axis] *= world
+    return joined.reshape(shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, split_axis, concat_axis, site, tier):
+        ctx.args = (axis_name, split_axis, concat_axis, site, tier)
+        return all_to_all(x, axis_name, split_axis, concat_axis, site=site,
+                          tiled=True, tier=tier)
+
+    @staticmethod
+    def backward(ctx, dy):
+        axis_name, split_axis, concat_axis, site, tier = ctx.args
+        dx = all_to_all(dy, axis_name, concat_axis, split_axis,
+                        site=f"{site}.bwd", tiled=True, tier=tier)
+        return dx, None, None, None, None, None
+
+
+def all_to_all_differentiable(x, axis_name, split_axis: int, concat_axis: int,
+                              *, site: str, tier=None):
+    """The tiled :func:`all_to_all` that autograd differentiates as JAX
+    transposes ``lax.all_to_all``: the cotangent takes the inverse exchange
+    (the two axes swapped), a call booked at ``site + ".bwd"`` (JAX's
+    ledger records only the forward it traced)."""
+    return _AllToAll.apply(x, axis_name, split_axis, concat_axis, site, tier)
 
 
 # ------------------------------------------------------------------- queries

@@ -190,7 +190,14 @@ def _addmm_flops(bias_shape, a_shape, b_shape, *args, out_shape=None,
     return _mm_flops(a_shape, b_shape)
 
 
-_FORMULAS = {torch.ops.aten.mm: _mm_flops, torch.ops.aten.addmm: _addmm_flops}
+def _bmm_flops(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    """2·B·M·N·K, the ``.dtype`` overload too (``moe/experts.py``'s grouped
+    GEMM on the card)."""
+    return 2 * a_shape[0] * a_shape[1] * a_shape[2] * b_shape[2]
+
+
+_FORMULAS = {torch.ops.aten.mm: _mm_flops, torch.ops.aten.addmm: _addmm_flops,
+             torch.ops.aten.bmm: _bmm_flops}
 
 
 def _run_counted(fn: Callable, args, kwargs):

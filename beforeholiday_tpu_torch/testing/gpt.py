@@ -20,9 +20,22 @@ or through :func:`~beforeholiday_tpu_torch.transformer.tensor_parallel.random.dr
 on the unfused path's bf16 probabilities), the attention output from site
 1 and the MLP output from site 2. The hidden sites and the unfused
 probabilities draw their masks from K13. The keys are the port's own, so
-the two packages draw different masks from one seed. The MoE fields of
-:class:`GPTConfig` are accepted for parity but must stay at their defaults:
-that path belongs to a later slice.
+the two packages draw different masks from one seed.
+
+Mixture-of-Experts (``moe_every > 0``): every ``moe_every``-th block's MLP
+is the routed expert layer of ``beforeholiday_tpu_torch.moe``, with one
+routing group per call (the local batch). The layers run in groups of
+``moe_every`` (``moe_every - 1`` dense blocks, then the MoE block), each
+group under ``cfg.remat_policy``, as JAX scans them; the MoE layers' dense
+MLP slots stay in the stacked tree (one tree shape for any ``moe_every``)
+and get zero gradient. ``params["moe"]`` holds the router ``w_router (G, D,
+E)`` and the stacked experts ``(G, E, ...)``; :func:`forward` with
+``return_aux=True`` returns the router's scalars as means over the G MoE
+layers, and :func:`loss_and_aux` adds the weighted router losses. With
+``moe_expert_axis`` / ``moe_tensor_axis`` (inside an entered
+``make_moe_mesh``) each rank holds its experts' shard and the layer
+exchanges tokens over the expert group; the MoE path refuses the tensor
+group of ``initialize_model_parallel``.
 
 ``remat_policy`` names a ``remat`` policy that wraps each block, as JAX
 wraps its scanned block: ``"full"`` recomputes the block in the backward
@@ -76,6 +89,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from beforeholiday_tpu_torch.moe import (
+    MoEConfig,
+    expert_param_specs,
+    init_experts,
+    moe_layer,
+)
 from beforeholiday_tpu_torch.ops import (
     flash_attention,
     fused_dense,
@@ -118,14 +137,6 @@ from beforeholiday_tpu_torch.testing._model_utils import (  # noqa: F401
     vocab_head_matmul as _vocab_head_matmul,
 )
 
-# fields whose non-default values select paths this slice does not port
-_UNPORTED_FIELDS = (
-    "moe_every", "moe_experts",
-    "moe_top_k", "moe_capacity_factor", "moe_aux_weight", "moe_z_weight",
-    "moe_expert_axis", "moe_tensor_axis", "moe_hierarchical",
-)
-
-
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     vocab_size: int = 512
@@ -150,24 +161,22 @@ class GPTConfig:
     dropout_rate: float = 0.0          # embedding + post-attn + post-MLP
     attention_dropout: float = 0.0     # softmax-probs dropout
     remat_policy: Optional[str] = None
+    # every moe_every-th block's MLP is a routed expert layer (0: dense)
     moe_every: int = 0
     moe_experts: int = 4
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 1e-2
     moe_z_weight: float = 1e-3
+    # mesh-axis names moe_layer exchanges over (None: all experts local)
     moe_expert_axis: Optional[str] = None
     moe_tensor_axis: Optional[str] = None
     moe_hierarchical: bool = False
 
     def __post_init__(self):
-        defaults = {f.name: f.default for f in dataclasses.fields(self)}
-        for name in _UNPORTED_FIELDS:
-            if getattr(self, name) != defaults[name]:
-                raise NotImplementedError(
-                    f"GPTConfig.{name}={getattr(self, name)!r} selects a path "
-                    f"that is not ported yet (default {defaults[name]!r})"
-                )
+        if self.moe_every and self.n_layers % self.moe_every:
+            raise ValueError(f"n_layers ({self.n_layers}) must divide by "
+                             f"moe_every ({self.moe_every})")
         if self.d_model % self.n_heads:
             raise ValueError(
                 f"d_model {self.d_model} not divisible by n_heads {self.n_heads}"
@@ -180,6 +189,16 @@ class GPTConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    @property
+    def moe_groups(self) -> int:
+        return self.n_layers // self.moe_every if self.moe_every else 0
+
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(n_experts=self.moe_experts, top_k=self.moe_top_k,
+                         capacity_factor=self.moe_capacity_factor,
+                         aux_weight=self.moe_aux_weight,
+                         z_weight=self.moe_z_weight)
 
 
 def init(cfg: GPTConfig, generator: torch.Generator, device=None) -> dict:
@@ -197,7 +216,7 @@ def init(cfg: GPTConfig, generator: torch.Generator, device=None) -> dict:
 
     init_std = 0.02
     out_std = init_std / math.sqrt(2.0 * L)  # depth-scaled, as Megatron does
-    return {
+    params = {
         "tok_embed": norm((V, D), init_std),
         "pos_embed": norm((S, D), init_std),
         "blocks": {
@@ -217,6 +236,15 @@ def init(cfg: GPTConfig, generator: torch.Generator, device=None) -> dict:
         "lnf_scale": const((D,), 1.0),
         "lnf_bias": const((D,), 0.0),
     }
+    if cfg.moe_every:
+        G = cfg.moe_groups
+        router = norm((G, D, cfg.moe_experts), init_std)
+        groups = [init_experts(generator, cfg.moe_experts, D, Fd,
+                               init_std=init_std, out_std=out_std, device=device)
+                  for _ in range(G)]
+        params["moe"] = {"w_router": router, "experts": {
+            k: torch.stack([g[k] for g in groups]) for k in groups[0]}}
+    return params
 
 
 def param_specs(cfg: GPTConfig) -> dict:
@@ -226,7 +254,7 @@ def param_specs(cfg: GPTConfig) -> dict:
     dim, the embedding its vocab; the rest is replicated. The block leaves
     lead with the layer dim, which the pipe group splits."""
     t = TENSOR
-    return {
+    specs = {
         "tok_embed": (t, None),
         "pos_embed": (None, None),
         "blocks": {
@@ -240,6 +268,12 @@ def param_specs(cfg: GPTConfig) -> dict:
         "lnf_scale": (None,),
         "lnf_bias": (None,),
     }
+    if cfg.moe_every:
+        # the group dim leads; experts replicated (the expert-parallel
+        # placement is the mesh's business), d_ff tensor-sharded as the MLP's
+        specs["moe"] = {"w_router": (None, None, None), "experts": {
+            k: (None, *s) for k, s in expert_param_specs(tensor_axis=t).items()}}
+    return specs
 
 
 def shard_params(params: dict, cfg: GPTConfig, tp_rank: int, tp_size: int,
@@ -325,7 +359,62 @@ def _block(cfg: GPTConfig, x, lp, keys=None):
     return checkpoint_name(x, TAG_BLOCK)
 
 
+def _moe_block(cfg: GPTConfig, x, lp, w_router, experts, keys=None):
+    """A block whose MLP is the routed expert layer: ``_block``'s attention
+    half and dropout sites, the dense MLP slots of ``lp`` unused. Returns
+    ``(x, aux)`` with the layer's router scalars."""
+    x = _attn_sublayer(cfg, x, lp, keys)
+    h = _layernorm(x, lp["ln2_scale"], lp["ln2_bias"], cfg)
+    B, S, D = h.shape
+    # one routing group per rank: every local token competes for the same
+    # expert capacity (GShard's group = the local batch)
+    y, aux = moe_layer(h.reshape(B * S, D), w_router, experts, cfg.moe_cfg(),
+                       expert_axis=cfg.moe_expert_axis,
+                       tensor_axis=cfg.moe_tensor_axis,
+                       hierarchical=cfg.moe_hierarchical)
+    x = x + _drop(cfg, keys, y.reshape(B, S, D), 2, cfg.dropout_rate)
+    return checkpoint_name(x, TAG_BLOCK), aux
+
+
+def _moe_group(cfg: GPTConfig, x, lps, w_router, experts, keys):
+    """One group of ``moe_every`` layers: dense blocks, then the MoE
+    block."""
+    for lp, k in zip(lps[:-1], keys[:-1]):
+        x = _block(cfg, x, lp, k)
+    return _moe_block(cfg, x, lps[-1], w_router, experts, keys[-1])
+
+
 _MOE_AUX_KEYS = ("moe_aux_loss", "moe_z_loss", "moe_drop_fraction")
+
+
+def _zero_moe_aux(device) -> dict:
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in _MOE_AUX_KEYS}
+
+
+def _forward_moe_stack(params: dict, x, cfg: GPTConfig, keys):
+    """The layer stack in groups of ``moe_every``, each group under
+    ``cfg.remat_policy``; returns ``(x, aux)`` with aux the means over the
+    ``moe_groups`` MoE layers."""
+    if _tp_world():
+        raise NotImplementedError(
+            "the MoE blocks do not run on the tensor group of "
+            "initialize_model_parallel; shard the experts' d_ff with "
+            "moe_tensor_axis inside a make_moe_mesh instead")
+    G, every = cfg.moe_groups, cfg.moe_every
+    # one tensor a group: one ``unbind``, whose backward writes each stacked
+    # leaf's gradient once
+    routers = params["moe"]["w_router"].unbind(0)
+    experts = {k: v.unbind(0) for k, v in params["moe"]["experts"].items()}
+    grp = remat_apply(functools.partial(_moe_group, cfg), cfg.remat_policy)
+    aux = _zero_moe_aux(x.device)
+    for g in range(G):
+        layers = range(g * every, (g + 1) * every)
+        x, aux_g = grp(x, [layer_params(params, i) for i in layers],
+                       routers[g], {k: v[g] for k, v in experts.items()},
+                       [keys[i] for i in layers])
+        aux = {k: aux[k] + aux_g[k] for k in _MOE_AUX_KEYS}
+    return x, {k: aux[k] / G for k in _MOE_AUX_KEYS}
 
 
 def embed(params: dict, tokens: torch.Tensor, cfg: GPTConfig,
@@ -352,7 +441,11 @@ def blocks(params: dict, x: torch.Tensor, cfg: GPTConfig, keys=None) -> torch.Te
     """The transformer blocks of ``params["blocks"]`` (stacked leaves or
     tuples of per-layer leaves; a pipeline stage's layers) on the residual
     stream, each under ``cfg.remat_policy``; ``keys``: per-layer site keys
-    (None = eval)."""
+    (None = eval). The dense blocks only: an MoE model runs its stack
+    through :func:`forward`."""
+    if cfg.moe_every:
+        raise NotImplementedError("blocks() runs the dense stack; an MoE "
+                                  "model's stack runs inside forward()")
     n = len(next(iter(params["blocks"].values())))
     keys = [None] * n if keys is None else keys
     blk = remat_apply(functools.partial(_block, cfg), cfg.remat_policy)
@@ -382,14 +475,17 @@ def forward(params: dict, tokens: torch.Tensor, cfg: GPTConfig,
     """tokens (B, S) integer → logits (B, S, V) fp32 (this tensor rank's
     vocab shard under a tensor group). ``dropout_key`` switches the cfg
     dropout sites on (None = eval: identity). ``return_aux=True`` also
-    returns the MoE aux dict, all zeros for the dense model."""
+    returns the MoE aux dict (the router's scalars, means over the MoE
+    layers; all zeros for the dense model)."""
     emb_key, keys = dropout_keys(dropout_key, cfg.n_layers)
     x = embed(params, tokens, cfg, emb_key)
-    logits = head(params, blocks(params, x, cfg, keys), cfg)
+    if cfg.moe_every:
+        x, aux = _forward_moe_stack(params, x, cfg, keys)
+    else:
+        x, aux = blocks(params, x, cfg, keys), None
+    logits = head(params, x, cfg)
     if return_aux:
-        return logits, {k: torch.zeros((), dtype=torch.float32,
-                                       device=logits.device)
-                        for k in _MOE_AUX_KEYS}
+        return logits, (_zero_moe_aux(logits.device) if aux is None else aux)
     return logits
 
 
@@ -407,17 +503,26 @@ def _cross_entropy(logits, targets):
 def loss_and_aux(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
                  cfg: GPTConfig, dropout_key: Optional[torch.Tensor] = None):
     """``(loss, aux)``: the next-token cross entropy (with dropout when a
-    key is given) and the MoE aux dict, all zeros for the dense model."""
+    key is given) plus, with ``moe_every``, the router losses weighted by
+    ``moe_aux_weight`` and ``moe_z_weight``; and the MoE aux dict, all zeros
+    for the dense model."""
     logits, aux = forward(params, tokens, cfg, dropout_key, return_aux=True)
-    return _cross_entropy(logits, targets), aux
+    loss = _cross_entropy(logits, targets)
+    if cfg.moe_every:
+        loss = (loss + cfg.moe_aux_weight * aux["moe_aux_loss"]
+                + cfg.moe_z_weight * aux["moe_z_loss"])
+    return loss, aux
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
             cfg: GPTConfig, forward_fn=None) -> torch.Tensor:
     """Mean next-token cross entropy. ``forward_fn(params, tokens)``
     overrides the plain forward (e.g. an amp-wrapped apply) while keeping
-    one loss definition."""
+    one loss definition. With ``moe_every`` (and no ``forward_fn``) the
+    weighted router losses ride along, as :func:`loss_and_aux` adds them."""
     if forward_fn is None:
+        if cfg.moe_every:
+            return loss_and_aux(params, tokens, targets, cfg)[0]
         logits = forward(params, tokens, cfg)
     else:
         logits = forward_fn(params, tokens)

@@ -272,7 +272,20 @@ Phases, each printing one line (any failure exits non-zero):
     rank at batch 16); K6's and K10's views mode against their plain
     versions and bitwise against the arena launch (``adam_views``,
     ``sgd_views``);
-26. the total seconds, each phase's wall seconds (``phase_seconds``), the
+26. slice 22, Mixture-of-Experts: ``moe_layer_card`` (``moe_layer``
+    against ``dense_oracle`` at the flagship's width, one group of 4096
+    tokens, fp32 and bf16, no (T, E, C) tensor; the drop fraction at
+    capacity factor 1.0 against the analytic count); the flagship GPT with
+    ``moe_every=2`` (4 experts, top-2, capacity factor 1.25) at O5:
+    ``moe_gpt_step_parity`` and ``moe_gpt_skip_step`` (2 layers, batch 2,
+    kernels against the plain path), ``moe_gpt_training`` (8 layers, batch
+    16: K1-K6 launches, no port host sync, MFU from the counted FLOPs), the
+    router's scalars through ``TrainMonitor`` (``moe_gpt_router``) and the
+    profiled split into router, dispatch/combine, experts and the rest
+    (``moe_gpt_profile``); ``moe_ep_card`` (the ``moe_gpt`` example as four
+    gloo ranks on the card, 2 x 2 and 1 x 4, full width at 2 layers, against
+    the one-process all-experts-local reference);
+27. the total seconds, each phase's wall seconds (``phase_seconds``), the
     ``kernels`` JSON line (with ``launch_floor_ms``, the Triton floor, and
     ``launch_floor_cuda_ms``), the card line, and the
     final ``ok`` line.
@@ -299,6 +312,7 @@ has its own ``o6_gemm`` lines and no row on the ``kernels`` line.
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -3103,14 +3117,17 @@ def loss_ops_ms(prof):
     return total
 
 
-def range_kernels_ms(prof, name, fragments=None):
+def range_kernels_ms(prof, name, fragments=None, nested=()):
     """Device ms of the kernels that run inside the device-side spans of the
     profiler range ``name`` (the span of the kernels launched inside it);
-    with ``fragments``, of those whose name holds one of them."""
+    with ``fragments``, of those whose name holds one of them. ``nested``
+    names the ranges opened inside it, whose own device-side spans are not
+    kernels."""
     cuda = torch.autograd.DeviceType.CUDA
     events = [e for e in prof.events() if e.device_type == cuda]
     spans = [(e.time_range.start, e.time_range.end) for e in events if e.name == name]
-    return sum(e.time_range.elapsed_us() for e in events if e.name != name
+    return sum(e.time_range.elapsed_us() for e in events
+               if e.name != name and e.name not in nested
                and (fragments is None or any(f in e.name for f in fragments))
                and any(a <= e.time_range.start < b for a, b in spans)) / 1e3
 
@@ -4877,11 +4894,11 @@ def serving_e4m3_phase(infer, params, cfg, attn, norm, card):
                                      cache_dtype="e4m3", label="serving_e4m3")
     # its decode calls' share of K2's launches: the contiguous decode mode
     decode = {"flash_fwd": cfg.n_layers * eng.call_counts["decode"]}
-    # ROADMAP A29's cut: the e4m3 mix's trace holds a small kernel a page op
+    # ROADMAP A29's cuts: the e4m3 mix's trace holds a small kernel a page op
     # and reading it back took most of this phase, so the profile covers the
-    # mix's first half
+    # mix's first quarter
     profile_phase(infer, eng, cfg, label="serving_e4m3_profile",
-                  n_requests=N_REQUESTS // 2)
+                  n_requests=N_REQUESTS // 4)
     del eng
     torch.cuda.empty_cache()
     return launches, decode
@@ -8007,6 +8024,483 @@ def views_kernel_rows(mt, gpt_pieces, resnet_pieces, launches):
     return rows_out
 
 
+# ------------------------------------------- slice 22: mixture of experts
+
+# the flagship's MoE blocks (bench.py make_gpt_rung plus the JAX defaults and
+# the moe_gpt example's): every second block's MLP a routed layer of 4
+# experts, top-2, capacity factor 1.25; the MoE step launches K1-K6 as the
+# dense step does (the router, the dispatch and the grouped GEMMs are
+# library calls)
+MOE = dict(moe_every=2, moe_experts=4, moe_top_k=2, moe_capacity_factor=1.25)
+STEP_LAUNCHES["moe_gpt"] = dict(STEP_LAUNCHES["gpt"])
+MOE_LAYER_TOKENS = 4096  # moe_layer_card's routing group at the flagship's width
+MOE_LAYER_CF = 8.0  # no drops: moe_layer against dense_oracle
+# the example's step as four gloo ranks on the card: a carve (data, expert),
+# sequences a rank, steps
+MOE_EP_CARVES = ((2, 2), (1, 4))
+MOE_EP_BATCH = 2
+MOE_EP_STEPS = 3
+MOE_EP_TIMEOUT = 900
+# the ranks against the one-process reference: relative L2 of each leaf of
+# the first step's reduced gradients (bf16 activations; the expert GEMMs run
+# at other batch shapes there, and gloo sums in another order) and the
+# relative gap of the mean loss (1.2e-6 measured on an NVIDIA H100 80GB
+# HBM3 at 700.00 W)
+MOE_EP_GRAD_TOL = 1e-2
+MOE_EP_LOSS_TOL = 1e-4
+
+
+def make_moe_gpt_trainer(amp, gpt, fused_adam, params, cfg, impl=None,
+                         loss_scale=None, loss_weight=None):
+    """The MoE GPT's step as a user script builds it: amp O5, arena-native,
+    FusedAdam(lr=LR), the objective ``loss_and_aux``'s (the cross entropy
+    plus the weighted router losses) through the amp-wrapped apply. The
+    step's ``aux`` dict holds the last step's router scalars."""
+    cfg = dataclasses.replace(cfg, attention_impl=impl, norm_impl=impl,
+                              dropout_impl=impl)
+    m = amp.initialize(lambda p, tok, tgt: gpt.loss_and_aux(p, tok, tgt, cfg),
+                       params, fused_adam(lr=LR, impl=impl), "O5",
+                       arena_native=True, loss_scale=loss_scale)
+    seen = {}
+
+    def loss_fn(p, tok, tgt, key):
+        value, seen["aux"] = m.apply(p, tok, tgt)
+        return value if loss_weight is None else value * loss_weight
+
+    state, step = scaled_step(amp, m, loss_fn, impl)
+    step.aux = seen
+    return m, state, step
+
+
+def moe_layer_card_phase(moe):
+    """``moe_layer`` against the port's ``dense_oracle`` at the flagship's
+    width (D 1024, F 4096, 4 experts, top-2), one group of
+    MOE_LAYER_TOKENS tokens at capacity factor MOE_LAYER_CF (no drops), fp32
+    and bf16: bitwise where cuBLAS's batched GEMM gives a row the same bits
+    at C and at T rows, else within fp32's rtol 1e-5 (bf16: one ulp) and the
+    gap printed; at capacity factor 1.0 the drop fraction against the
+    analytic count (expert e keeps min(n1_e, C) first choices and
+    min(n2_e, C - kept1_e) second ones); at the training step's group (16
+    sequences, capacity factor 1.25, bf16) no op of the forward makes a
+    tensor of the dense dispatch's T x E x C elements (every op's output
+    recorded under a dispatch mode) and its peak memory beside that
+    tensor's fp32 bytes."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from beforeholiday_tpu_torch.moe.router import route_compact
+
+    g = gen(80)
+    D, E, T = MODEL["d_model"], MOE["moe_experts"], MOE_LAYER_TOKENS
+    params = moe.init_experts(g, E, D, 4 * D, out_std=0.02 / math.sqrt(2 * MODEL["n_layers"]))
+    w = torch.randn(D, E, generator=g, device="cuda") * 0.02
+    x = torch.randn(T, D, generator=g, device="cuda")
+    cfg = moe.MoEConfig(E, 2, MOE_LAYER_CF)
+    C = cfg.capacity(T)
+    dense_bytes = T * E * C * 4
+    res = {}
+    # (rtol, atol over the largest |ref|): fp32's reordering; bf16 one ulp
+    for name, dt, (rtol, atol) in (("fp32", torch.float32, (1e-5, 1e-6)),
+                                   ("bf16", torch.bfloat16, (2 ** -7, 2 ** -7))):
+        xx = x.to(dt)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y, aux = moe.moe_layer(xx, w, params, cfg)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        ref, _ = moe.dense_oracle(xx, w, params, cfg)
+        if float(aux["moe_drop_fraction"]) != 0.0:
+            raise AssertionError(f"moe_layer_card {name}: tokens dropped at cf {MOE_LAYER_CF}")
+        if not torch.isfinite(y).all() or y.shape != (T, D) or y.dtype != dt:
+            raise AssertionError(f"moe_layer_card {name}: bad output")
+        bitwise = torch.equal(y, ref)
+        err = max_err(y, ref)
+        bound = rtol * ref.float().abs() + atol * float(ref.float().abs().max())
+        if not bitwise and not bool(((y.float() - ref.float()).abs() <= bound).all()):
+            raise AssertionError(f"moe_layer_card {name}: moe_layer vs dense_oracle {err}")
+        res[name] = dict(bitwise=bitwise, max_abs_err=err, peak_extra_bytes=extra,
+                         ms=time_ms(lambda: moe.moe_layer(xx, w, params, cfg)),
+                         oracle_ms=time_ms(lambda: moe.dense_oracle(xx, w, params, cfg)))
+        del y, ref
+    cfg1 = moe.MoEConfig(E, 2, 1.0)
+    C1 = cfg1.capacity(T)
+    r = route_compact(moe.router_logits(x, w), cfg1, C1)
+    e = r.expert.cpu().numpy()
+    n1, n2 = np.bincount(e[0], minlength=E), np.bincount(e[1], minlength=E)
+    kept1 = np.minimum(n1, C1)
+    kept = int(kept1.sum() + np.minimum(n2, C1 - kept1).sum())
+    want = float(np.float32(1.0) - np.float32(kept) / np.float32(2 * T))
+    _, aux1 = moe.moe_layer(x, w, params, cfg1)
+    got = float(aux1["moe_drop_fraction"])
+    if got != want:
+        raise AssertionError(f"moe_layer_card: drop fraction {got}, analytic {want}")
+
+    class Largest(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.numel = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    self.numel = max(self.numel, t.numel())
+            return out
+
+    Tt = TRAIN_BATCH * MODEL["seq_len"]
+    cfg_t = moe.MoEConfig(E, 2, MOE["moe_capacity_factor"])
+    Ct = cfg_t.capacity(Tt)
+    xt = torch.randn(Tt, D, generator=g, device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with Largest() as largest:
+        moe.moe_layer(xt, w, params, cfg_t)
+    torch.cuda.synchronize()
+    train_extra = torch.cuda.max_memory_allocated() - base
+    if largest.numel >= Tt * E * Ct:
+        raise AssertionError(f"moe_layer_card: an op made {largest.numel} elements, "
+                             f"the dense dispatch's T x E x C is {Tt * E * Ct}")
+    line("moe_layer_card", tokens=T, experts=E, d_model=D, d_ff=4 * D, capacity=C,
+         capacity_factor=MOE_LAYER_CF, dense_tec_bytes=dense_bytes,
+         train_group=Tt, train_capacity=Ct, train_tec_elements=Tt * E * Ct,
+         train_largest_op_elements=largest.numel, train_peak_extra_bytes=train_extra,
+         train_tec_fp32_bytes=Tt * E * Ct * 4,
+         results=json.dumps(res), drop_capacity_factor=1.0, drop_capacity=C1,
+         drop_fraction=got, analytic_drop_fraction=want,
+         first_choices=json.dumps(n1.tolist()), second_choices=json.dumps(n2.tolist()))
+
+
+def moe_gpt_step_parity_phase(amp, gpt, fused_adam):
+    """One MoE step at batch 2, the flagship at full width and CARD_LAYERS
+    layers (one MoE group), on the kernels against the plain path: loss,
+    gradient arenas (the ``moe`` leaves in them) and masters at the dense
+    step's rows."""
+    pcfg = gpt.GPTConfig(**card_model(), **MOE)
+    params = gpt.init(pcfg, gen(0), device="cuda")
+    trainer = lambda **kw: make_moe_gpt_trainer(amp, gpt, fused_adam, params, pcfg, **kw)  # noqa: E731
+    step_parity_phase("moe_gpt_step_parity", trainer, gpt.synthetic_batch(
+        pcfg, PARITY_BATCH, generator=gen(60), device="cuda"), 2 * LR + 1e-6,
+        "2 lr: a gradient sign flip")
+    skip_phase("moe_gpt_skip_step", trainer, gpt.synthetic_batch(
+        pcfg, PARITY_BATCH, generator=gen(61), device="cuda"))
+    del params
+    torch.cuda.empty_cache()
+
+
+# the trace spans (profiler ranges) ``moe_layer`` opens around the whole layer and its parts
+MOE_RANGES = ("moe_layer", "moe_router", "moe_dispatch", "moe_experts", "moe_combine")
+
+
+def _kernels_under(evt, fragments=None):
+    """Device ms of the kernels ``evt`` and its CPU children launched (with
+    ``fragments``: of those whose name holds one)."""
+    us = sum(k.duration for k in evt.kernels
+             if fragments is None or any(f in k.name for f in fragments))
+    return us / 1e3 + sum(_kernels_under(c, fragments) for c in evt.cpu_children)
+
+
+def moe_split(prof, names):
+    """Each range's device ms, forward (the kernels inside its device-side
+    spans) and backward: the backward nodes whose sequence numbers the
+    range's forward ops carry, each counted once with its children; with
+    the GEMMs among them apart."""
+    cuda = torch.autograd.DeviceType.CUDA
+    cpu = [e for e in prof.events() if e.device_type != cuda]
+    spans = {n: [(e.time_range.start, e.time_range.end, e.thread)
+                 for e in cpu if e.name == n] for n in names}
+
+    def inside(e, n):
+        return any(a <= e.time_range.start and e.time_range.end <= b and th == e.thread
+                   for a, b, th in spans[n])
+
+    seqs = {n: {e.sequence_nr for e in cpu
+                if getattr(e, "sequence_nr", -1) >= 0 and inside(e, n)} for n in names}
+    out = {}
+    for n in names:
+        # the backward nodes: the same sequence numbers outside every forward
+        # range (the autograd engine runs them later, on its own thread on
+        # the card)
+        chosen = [e for e in cpu if getattr(e, "sequence_nr", -1) in seqs[n]
+                  and not any(inside(e, m) for m in names)]
+        ids = {id(e) for e in chosen}
+
+        def outer(e):
+            p = e.cpu_parent
+            while p is not None:
+                if id(p) in ids:
+                    return False
+                p = p.cpu_parent
+            return True
+
+        top = [e for e in chosen if outer(e)]
+        out[n] = dict(fwd=range_kernels_ms(prof, n, nested=names),
+                      fwd_gemm=range_kernels_ms(prof, n, GEMM_FRAGMENTS, names),
+                      bwd=sum(_kernels_under(e) for e in top),
+                      bwd_gemm=sum(_kernels_under(e, GEMM_FRAGMENTS) for e in top))
+    return out
+
+
+def moe_profile(label, step, batch):
+    """PROFILE_STEPS MoE steps under torch.profiler: busy, idle, the device
+    time by layer, and the MoE layers' split into the router, the dispatch
+    and combine, the expert FFN (its GEMMs apart) and the rest, forward and
+    backward, per step, from the ranges ``moe_layer`` records
+    (MOE_RANGES)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    names = MOE_RANGES
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            step(*batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name, by_group = device_ms_by_group(prof, TRAIN_GROUPS, names)
+    busy = sum(by_name.values())
+    if busy == 0:
+        line(label, device_time="not measured (no CUDA events in the trace)")
+        return
+    require_k1(label, by_group)
+    per = 1.0 / PROFILE_STEPS
+    parts = moe_split(prof, names)
+    inner = [n for n in names if n != "moe_layer"]
+    # the profiler gives a kernel's device span to its innermost range, and
+    # every op of the layer's forward runs inside one of its four parts: the
+    # layer's forward is theirs; its backward comes from the sequence numbers
+    for k in ("fwd", "fwd_gemm"):
+        parts["moe_layer"][k] = sum(parts[n][k] for n in inner)
+    both = {n: (p["fwd"] + p["bwd"]) * per for n, p in parts.items()}
+    experts = parts["moe_experts"]
+    split = {
+        "router": both["moe_router"],
+        "dispatch_combine": both["moe_dispatch"] + both["moe_combine"],
+        "experts": both["moe_experts"],
+        "expert_gemms": (experts["fwd_gemm"] + experts["bwd_gemm"]) * per,
+        # the layer's backward outside its four parts' nodes (should be ~0)
+        "layer_unattributed": both["moe_layer"] - sum(both[n] for n in inner),
+        "rest": busy * per - both["moe_layer"]}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(f"{label}: " + json.dumps({
+        "steps": PROFILE_STEPS, "wall_ms_per_step": wall_ms * per,
+        "device_busy_ms_per_step": busy * per, "idle_share": 1.0 - busy / wall_ms,
+        "moe_split_ms_per_step": split,
+        "moe_parts_ms_per_step": {n: {k: v * per for k, v in p.items()}
+                                  for n, p in parts.items()},
+        "backward_attributed": parts["moe_layer"]["bwd"] > 0,
+        "by_layer_ms_per_step": {k: v * per for k, v in by_group.items()},
+        "top_kernels_ms_per_step": {k[:90]: v * per for k, v in top}}), flush=True)
+
+
+def moe_gpt_training_phase(amp, gpt, fused_adam, monitor, cfg, counters, card):
+    """The flagship GPT with MoE blocks (MOE) at full width, 8 layers,
+    batch 16, amp O5 arena-native FusedAdam: FLOPs a step from the roofline
+    ledger's ``FlopCounterMode`` count (one counted step), then the timed
+    run (``training_phase``: median of TIMED_STEPS after WARMUP_STEPS,
+    tokens/s, MFU against the counted FLOPs, peak GB, K1-K6 launches a
+    step, no port host sync), the router's three scalars through
+    ``TrainMonitor``, and the profiled split (:func:`moe_profile`)."""
+    mcfg = dataclasses.replace(cfg, **MOE)
+    params = gpt.init(mcfg, gen(0), device="cuda")
+    m, _, step = make_moe_gpt_trainer(amp, gpt, fused_adam, params, mcfg)
+    batch = gpt.synthetic_batch(mcfg, TRAIN_BATCH, generator=gen(70), device="cuda")
+    costs = monitor.estimate_costs(step, *batch)
+    work = lm_work(m, batch)
+    tokens = batch[0].numel()
+    launches = training_phase(
+        "moe_gpt_training", "moe_gpt_profile", step, batch, counters,
+        STEP_LAUNCHES["moe_gpt"], TRAIN_GROUPS, card, unit="tokens", units=tokens,
+        flops=costs["flops"], peak=PEAK_BF16, profile=False, seq_len=mcfg.seq_len,
+        params=work["params"], flops_6n=work["flops"],
+        flops_method=f"'{costs['method']}'", moe=f"'{json.dumps(MOE)}'",
+        moe_groups=mcfg.moe_groups, capacity=mcfg.moe_cfg().capacity(tokens))
+    loss, _, _ = step(*batch)
+    mon = monitor.TrainMonitor()
+    aux = {k: v.detach() for k, v in step.aux["aux"].items()}
+    met = mon.unpack_host(mon.pack(mon.update(mon.init(), loss=loss.detach(),
+                                              moe=aux)).cpu())
+    if not all(np.isfinite(met[k]) for k in ("moe_aux_loss", "moe_z_loss",
+                                             "moe_drop_fraction")):
+        raise AssertionError(f"moe_gpt_router: {met}")
+    line("moe_gpt_router", loss=met["loss"], moe_aux_loss=met["moe_aux_loss"],
+         moe_z_loss=met["moe_z_loss"], moe_drop_fraction=met["moe_drop_fraction"],
+         via="'TrainMonitor'")
+    moe_profile("moe_gpt_profile", step, batch)
+    del m, step, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_ep_spec(dp, ep):
+    """The ported example's run (``moe_gpt.train``) at full width and
+    CARD_LAYERS layers (flash attention, bf16 activations over fp32
+    parameters, FusedAdam) on a dp x ep carve."""
+    return dict(model={**card_model(), **MOE}, dp=dp, ep=ep, steps=MOE_EP_STEPS,
+                batch=MOE_EP_BATCH, lr=3e-4, log_every=MOE_EP_STEPS, device="cuda")
+
+
+def moe_ep_leaf_stats(res, ref, ep):
+    """This rank's result of one carve against the reference, leaf by leaf
+    (``ref``: the tree paths and the one-process run's first-step gradients
+    and final parameters, the whole expert stack): the squared L2 of the
+    gradient's difference and of the reference over the part this rank
+    holds (its ``E / ep`` experts of an expert leaf), the parameters'
+    largest difference there, and digests of the gradient and parameter
+    bytes, which every rank holding that part must share."""
+    stats = []
+    for path, g, p, rg, rp in zip(ref["paths"], res["first_grads"], res["params"],
+                                  ref["first_grads"], ref["params"]):
+        rg, rp = rg.numpy(), rp.numpy()
+        if "experts" in path:
+            n = rg.shape[1] // ep
+            cut = slice(res["expert_rank"] * n, (res["expert_rank"] + 1) * n)
+            rg, rp = rg[:, cut], rp[:, cut]
+        d = g.astype(np.float64) - rg
+        stats.append(dict(d2=float(np.vdot(d, d)), r2=float(np.vdot(rg, rg.astype(np.float64))),
+                          param_err=float(np.abs(p - rp).max()),
+                          grad_digest=hashlib.sha1(g.tobytes()).hexdigest(),
+                          param_digest=hashlib.sha1(p.tobytes()).hexdigest()))
+    return stats
+
+
+def moe_ep_card_worker(rank, store, out_dir, carves):
+    """One rank of four gloo ranks on the one card: the example's
+    ``train`` on each carve of ``carves``, compared here with the reference
+    the parent saved (:func:`moe_ep_leaf_stats`); saves the losses, the
+    ledger, the metrics and those statistics."""
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=4)
+        from beforeholiday_tpu_torch.examples.simple.distributed import moe_gpt
+
+        ref = torch.load(f"{out_dir}/moe_ep_ref.pt", mmap=True)
+        out = {}
+        for dp, ep in carves:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = moe_gpt.train(moe_ep_spec(dp, ep))
+            seconds = time.perf_counter() - t0
+            out[(dp, ep)] = dict(
+                losses=res["losses"], ledger=res["ledger"], metrics=res["metrics"],
+                expert_rank=res["expert_rank"], seconds=seconds,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                leaves=moe_ep_leaf_stats(res, ref, ep))
+        dist.destroy_process_group()
+        torch.save(out, f"{out_dir}/moe_ep_rank{rank}.pt")
+    except BaseException:
+        with open(f"{out_dir}/moe_ep_rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def moe_ep_card_phase(tmp):
+    """The ported ``moe_gpt`` example's step as four gloo ranks on the card
+    (a correctness run: gloo stages every exchange through the host), on a
+    2 x 2 and a 1 x 4 (data x expert) carve, held against the one-process
+    reference (every group with all experts local, the groups' losses
+    averaged): each rank's reduced gradients of the first step (the expert
+    stack assembled from the expert ranks; replicated leaves and an expert
+    rank's shard bitwise equal on every rank that holds them) at relative
+    L2 MOE_EP_GRAD_TOL a leaf, where a wrong reduction (the JAX example's
+    mean over the expert group, a missing 1 / ep, a flipped sign) is off by
+    0.5 or more; the mean loss each step at relative MOE_EP_LOSS_TOL; every
+    parameter within 2 lr a step + 1e-6 (Adam's sign flips); the ledger's
+    dispatch and combine calls and bytes exactly."""
+    from beforeholiday_tpu_torch.examples.simple.distributed import moe_gpt
+    from beforeholiday_tpu_torch.ops.arena import tree_paths
+    from beforeholiday_tpu_torch.testing import gpt
+
+    t0 = time.perf_counter()
+    # one reference serves every carve (the same four groups, model and
+    # steps); run first, it compiles every Triton variant the ranks launch
+    # into the shared cache, which the four ranks then load
+    spec = moe_ep_spec(1, 4)
+    ref = moe_gpt.reference_steps(spec)
+    paths = tree_paths(moe_gpt.initial_params(spec, "cpu"))
+    torch.save({"paths": paths,
+                "first_grads": [torch.from_numpy(g) for g in ref["first_grads"]],
+                "params": [torch.from_numpy(p) for p in ref["params"]]},
+               f"{tmp}/moe_ep_ref.pt")
+    ref_losses = ref["losses"]
+    del ref
+    ref_s = time.perf_counter() - t0
+    codes = spawn_ranks(4, moe_ep_card_worker,
+                        lambda r: (r, f"{tmp}/moe_store", tmp, MOE_EP_CARVES),
+                        MOE_EP_TIMEOUT, "moe_ep_card")
+    if any(codes):
+        errors = [open(f"{tmp}/moe_ep_rank{r}.err").read() for r in range(4)
+                  if os.path.exists(f"{tmp}/moe_ep_rank{r}.err")]
+        raise AssertionError(f"moe_ep_card: exit codes {codes}\n" + "\n".join(errors))
+    ranks = [torch.load(f"{tmp}/moe_ep_rank{r}.pt", weights_only=False) for r in range(4)]
+    spawn_s = time.perf_counter() - t0 - ref_s
+    failures = []
+    for dp, ep in MOE_EP_CARVES:
+        spec = moe_ep_spec(dp, ep)
+        res = [r[(dp, ep)] for r in ranks]
+        cfg = gpt.GPTConfig(**spec["model"])
+        loss = np.mean([r["losses"] for r in res], axis=0)
+        loss_err = float(np.max(np.abs(loss - ref_losses) / np.abs(ref_losses)))
+        if not loss_err < MOE_EP_LOSS_TOL:
+            failures.append(f"{dp} x {ep}: losses {loss.tolist()} vs {ref_losses}")
+        grad_rel, worst = {}, 0.0
+        for i, path in enumerate(paths):
+            # the part of the leaf each rank holds: its experts, or all of it
+            held = {}
+            for r in res:
+                st = r["leaves"][i]
+                first = held.setdefault(r["expert_rank"] if "experts" in path else 0, st)
+                if (st["grad_digest"], st["param_digest"]) != (
+                        first["grad_digest"], first["param_digest"]):
+                    failures.append(f"{dp} x {ep}: {path} differs across the ranks "
+                                    "that hold it")
+            d2 = sum(st["d2"] for st in held.values())
+            r2 = sum(st["r2"] for st in held.values())
+            grad_rel[".".join(path)] = math.sqrt(d2 / r2) if r2 else math.sqrt(d2)
+            worst = max([worst] + [st["param_err"] for st in held.values()])
+        worst_grad = max(grad_rel.values())
+        if not worst_grad <= MOE_EP_GRAD_TOL:
+            failures.append(f"{dp} x {ep}: first-step grads, rel L2 {grad_rel}")
+        tol = 2 * spec["lr"] * MOE_EP_STEPS + 1e-6
+        if worst > tol:
+            failures.append(f"{dp} x {ep}: params {worst} > {tol}")
+        C = cfg.moe_cfg().capacity(MOE_EP_BATCH * cfg.seq_len)
+        calls = cfg.moe_groups * MOE_EP_STEPS
+        itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+        payload = cfg.moe_experts * C * cfg.d_model * itemsize * calls
+        ledger = {}
+        for r in res:
+            rows = {x["site"]: (x["calls"], x["bytes"]) for x in r["ledger"]}
+            for site in ("moe.dispatch", "moe.combine", "moe.dispatch.bwd",
+                         "moe.combine.bwd"):
+                if rows.get(site) != (calls, payload):
+                    failures.append(f"{dp} x {ep}: {site} {rows.get(site)} vs "
+                                    f"{(calls, payload)}")
+            ledger = rows
+        line("moe_ep_card", backend="gloo", world=4, carve=f"'{dp} x {ep}'",
+             layers=CARD_LAYERS, device="'one card'", batch_per_rank=MOE_EP_BATCH,
+             steps=MOE_EP_STEPS, note="'gloo stages every exchange through the host: a "
+             "correctness run, not a measurement of NCCL'",
+             losses=json.dumps(loss.tolist()), ref_losses=json.dumps(ref_losses),
+             loss_rel_err=loss_err, loss_tol=MOE_EP_LOSS_TOL,
+             grad_rel_l2=worst_grad, grad_tol=MOE_EP_GRAD_TOL,
+             grad_rel_l2_by_leaf=json.dumps(grad_rel),
+             param_max_abs_err=worst, param_tol=tol,
+             ledger=json.dumps({k: list(v) for k, v in ledger.items()}),
+             rank_seconds=max(r["seconds"] for r in res),
+             rank_step_seconds=max(r["seconds"] for r in res) / MOE_EP_STEPS,
+             rank_peak_mem_gb=max(r["peak_mem_gb"] for r in res),
+             metrics=json.dumps(res[0]["metrics"][-1][1]))
+    torch.cuda.empty_cache()
+    line("moe_ep_card_world", reference_seconds=ref_s, spawned_seconds=spawn_s,
+         seconds=time.perf_counter() - t0)
+    if failures:
+        raise AssertionError("moe_ep_card: " + "; ".join(failures))
+
+
 KERNEL_ROWS = (
     ("layer_norm_fwd", "cuda", "beforeholiday_tpu_torch/csrc/layer_norm_fwd.cu",
      "beforeholiday_tpu/ops/normalization.py:55"),
@@ -8566,6 +9060,22 @@ def main():
     with phase("views_kernel_rows"):
         rows.update(views_kernel_rows(mt, gpt_pieces, resnet_pieces, launches))
         torch.cuda.empty_cache()
+
+    # slice 22: Mixture-of-Experts. moe_layer against dense_oracle at the
+    # flagship's width; the MoE GPT's O5 step on the kernels against the
+    # plain path (2 layers) and its timed, profiled run (8 layers, batch 16);
+    # the moe_gpt example as four gloo ranks on the card
+    from beforeholiday_tpu_torch import monitor, moe
+    with phase("moe_layer_card"):
+        moe_layer_card_phase(moe)
+        torch.cuda.empty_cache()
+    with phase("moe_gpt_step_parity"):
+        moe_gpt_step_parity_phase(amp, gpt, FusedAdam)
+    with phase("moe_gpt_training"):
+        launches["moe_gpt"] = moe_gpt_training_phase(amp, gpt, FusedAdam, monitor, cfg,
+                                                     counters, card)
+    with phase("moe_ep_card"), tempfile.TemporaryDirectory() as tmp:
+        moe_ep_card_phase(tmp)
 
     kernels = []
     for kname, route, source, replaces in KERNEL_ROWS:

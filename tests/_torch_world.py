@@ -1748,3 +1748,111 @@ def step_in_backward_scenario(rank, world, leaves_np, x_np, tgt_np, opts):
             res[path] = dict(flat=_np(flat), state={k: _np(v) for k, v in state.items()})
         out[name] = res
     return out
+
+
+# -------------------------------------------------------- mixture of experts
+
+
+def _moe_grads(layer, x, w, params):
+    """``layer``'s output and aux, and the gradients of ``sum(y^2) + aux + z``
+    w.r.t. (x, the router, the experts)."""
+    x = x.detach().requires_grad_(True)
+    w = w.detach().requires_grad_(True)
+    params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    y, aux = layer(x, w, params)
+    (y.float().square().sum() + aux["moe_aux_loss"] + aux["moe_z_loss"]).backward()
+    return dict(y=_np(y), aux={k: float(v) for k, v in aux.items()}, dx=_np(x.grad),
+                dw=_np(w.grad), dp={k: _np(v.grad) for k, v in params.items()})
+
+
+def _moe_ledger():
+    from beforeholiday_tpu_torch.monitor import comms
+
+    return [r for r in comms.comms_records() if r["site"].startswith("moe.")]
+
+
+def _moe_case(rank, world, case):
+    """One case of :func:`moe_scenario` on this rank."""
+    from beforeholiday_tpu_torch import moe
+    from beforeholiday_tpu_torch.monitor import comms
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+
+    kind = case["kind"]
+    if kind == "a2a":
+        # the differentiable tiled exchange and its inverse, forward and
+        # backward, on this rank's block
+        mesh = ps.make_moe_mesh(expert=world)
+        out = {}
+        with mesh:
+            for name, (s, c) in (("fwd", (0, 1)), ("inv", (1, 0))):
+                x = _tensor(case["x"][name][rank]).requires_grad_(True)
+                comms.reset_comms_ledger()
+                y = comms.all_to_all_differentiable(x, "expert", s, c, site="t.a2a")
+                y.backward(_tensor(case["ct"][name][rank]))
+                out[name] = (_np(y), _np(x.grad), comms.comms_records())
+        mesh.destroy()
+        return out
+    cfg = moe.MoEConfig(**case["cfg"])
+    w = _tensor(case["w"])
+    full = {k: _tensor(v) for k, v in case["params"].items()}
+    T = case["T"]
+    if kind in ("ep", "ep_tp"):
+        ep, tp = case["ep"], case.get("tp", 1)
+        mesh = ps.make_moe_mesh(expert=ep, tensor=tp)
+        with mesh:
+            e = mesh.axis_index("expert")
+            t = mesh.axis_index("tensor") if tp > 1 else 0
+            n = cfg.n_experts // ep
+            local = {k: v[e * n:(e + 1) * n] for k, v in full.items()}
+            if tp > 1:
+                f = full["wi"].shape[-1] // tp
+                cut = slice(t * f, (t + 1) * f)
+                local = {"wi": local["wi"][:, :, cut], "bi": local["bi"][:, cut],
+                         "wo": local["wo"][:, cut, :], "bo": local["bo"]}
+            x = _tensor(case["x"][e * T:(e + 1) * T])
+            C = cfg.capacity(T)
+            comms.reset_comms_ledger()
+            dist_res = _moe_grads(lambda xx, ww, pp: moe.moe_layer(
+                xx, ww, pp, cfg, expert_axis="expert", capacity=C,
+                tensor_axis="tensor" if tp > 1 else None), x, w, local)
+            dist_res["ledger"] = _moe_ledger()
+        mesh.destroy()
+        # the same group with every expert here, as one process computes it
+        here = _moe_grads(lambda xx, ww, pp: moe.moe_layer(
+            xx, ww, pp, cfg, capacity=C, emulate_tensor=tp), x, w, full)
+        return dict(dist=dist_res, local=here, expert_rank=e, tensor_rank=t)
+    if kind == "hier":
+        mesh = ps.make_two_level_mesh(2, world // 2)
+        ax = ("slice", "intra")
+        with mesh:
+            r = mesh.axis_index(ax)
+            n = cfg.n_experts // world
+            local = {k: v[r * n:(r + 1) * n] for k, v in full.items()}
+            x = _tensor(case["x"][r * T:(r + 1) * T])
+            C = cfg.capacity(T)
+            out = {"group": r}
+            for name, hier in (("joint", False), ("hier", True)):
+                comms.reset_comms_ledger()
+                out[name] = _moe_grads(lambda xx, ww, pp: moe.moe_layer(
+                    xx, ww, pp, cfg, expert_axis=ax, capacity=C, hierarchical=hier),
+                    x, w, local)
+                out[name]["ledger"] = _moe_ledger()
+        mesh.destroy()
+        return out
+    raise ValueError(kind)
+
+
+def moe_example_case(rank, world, spec):
+    """The ported ``moe_gpt`` example's :func:`train` on this rank."""
+    from beforeholiday_tpu_torch.examples.simple.distributed import moe_gpt
+
+    return moe_gpt.train(dict(spec, device="cpu"))
+
+
+def moe_scenario(rank, world, cases):
+    """``tests/test_torch_moe_parallel.py``'s cases in one world: each of
+    ``cases`` (name -> case) on its own mesh (see :func:`_moe_case`; the
+    example's carves through :func:`moe_example_case`)."""
+    return {name: (moe_example_case(rank, world, case["spec"])
+                   if case["kind"] == "example" else _moe_case(rank, world, case))
+            for name, case in cases.items()}

@@ -2432,3 +2432,148 @@ def test_step_in_backward_on_the_card_bitwise_arena_step(cuda, opt):
     st = o.init_flat(p)
     p, st, flag = o.step_in_backward(p, bad, st, spec=spec, bucket_bytes=1 << 16)
     assert bool(flag) and torch.equal(p, p0) and int(st["step"]) == 0
+
+
+# ------------------------------------------------- Mixture-of-Experts (slice 22)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_moe_layer_on_the_card_matches_dense_oracle(cuda, dtype):
+    """``moe_layer`` (slots moved by index, the grouped GEMMs on cuBLAS)
+    against the port's ``dense_oracle`` on the card at capacity factor 8
+    (no drops): fp32 rtol 1e-5, atol 1e-6 of the largest value; bf16 one
+    ulp, atol 2^-7 of the largest (a row's GEMM at C rows and at T rows may
+    round apart)."""
+    from beforeholiday_tpu_torch import moe
+
+    g = _gen(90)
+    E, D, F, T = 4, 128, 512, 512
+    params = moe.init_experts(g, E, D, F)
+    w = torch.randn(D, E, generator=g, device=cuda) * 0.1
+    x = torch.randn(T, D, generator=g, device=cuda).to(dtype)
+    cfg = moe.MoEConfig(E, 2, 8.0)
+    y, aux = moe.moe_layer(x, w, params, cfg)
+    ref, aux_ref = moe.dense_oracle(x, w, params, cfg)
+    assert float(aux["moe_drop_fraction"]) == 0.0
+    assert torch.equal(aux["moe_aux_loss"], aux_ref["moe_aux_loss"])
+    rtol, atol = (1e-5, 1e-6) if dtype == torch.float32 else (2 ** -7, 2 ** -7)
+    torch.testing.assert_close(y.float(), ref.float(), rtol=rtol,
+                               atol=atol * float(ref.float().abs().max()))
+
+
+def test_moe_step_kernels_match_plain_path(cuda, monkeypatch):
+    """One O5 arena-native step of a 2-layer bf16 GPT with one MoE block on
+    K1-K6 against the same step with every op on its plain version; the
+    objective ``loss_and_aux``'s. The plain step routes on the kernel
+    step's router logits (their values; the gradient flows through its
+    own), so a token whose top-2 margin sits within the bf16 noise between
+    the kernels and their plain versions takes the same experts on both
+    paths and the gradients hold at the dense step's elementwise bounds.
+    The top-2 choices the plain step's own logits would have changed are
+    counted and reported beside the relative L2 of the gradient arenas."""
+    from beforeholiday_tpu_torch.moe import dispatch
+
+    base = dict(vocab_size=512, seq_len=128, d_model=128, n_heads=4, n_layers=2,
+                dtype=torch.bfloat16, moe_every=2, moe_experts=4)
+    params = gpt.init(gpt.GPTConfig(**base), _gen(0), device=cuda)
+    tok, tgt = gpt.synthetic_batch(gpt.GPTConfig(**base), 2, generator=_gen(1),
+                                   device=cuda)
+    real_logits = dispatch.router_logits
+    logits = {"kernel": [], "torch": []}
+
+    def routed_on(impl):
+        def router_logits(x, w):
+            own = real_logits(x, w)
+            logits[impl].append(own.detach().clone())
+            if impl == "kernel":
+                return own
+            # the kernel step's values exactly (own - own is 0), own's gradient
+            return logits["kernel"][len(logits[impl]) - 1] + (own - own.detach())
+        return router_logits
+
+    res = {}
+    for impl in ("kernel", "torch"):
+        monkeypatch.setattr(dispatch, "router_logits", routed_on(impl))
+        cfg = gpt.GPTConfig(**base, attention_impl=impl, norm_impl=impl)
+        m = amp.initialize(lambda p, a, b, cfg=cfg: gpt.loss_and_aux(p, a, b, cfg), params,
+                           FusedAdam(lr=1e-3, impl=impl), "O5", arena_native=True)
+        svag = amp.scaled_value_and_grad(lambda p, a, b, m=m: m.apply(p, a, b)[0],
+                                         m.scaler, impl=impl)
+        o, s = m.optimizer.init(m.params), m.scaler.init()
+        counters = (tnorm.ln_bwd_kernel, tattn.flash_bwd_kernel, tmt.scale_kernel,
+                    tmt.adam_kernel)
+        before = [fn.launches for fn in counters]
+        loss, g, fi, s = svag(m.params, s, tok, tgt)
+        m.params, o = m.optimizer.step(m.params, g, o, found_inf=fi)
+        torch.cuda.synchronize()
+        launched = [fn.launches - b for fn, b in zip(counters, before)]
+        assert launched == ([5, 2, 2, 2] if impl == "kernel" else [0, 0, 0, 0])
+        res[impl] = (loss, g.arenas, o["master"], m.params.arenas)
+    assert len(logits["kernel"]) == len(logits["torch"]) > 0
+    # (token) rows whose ordered top-2 experts differ between the two paths'
+    # own logits: the choices pinning keeps from flipping
+    flips = sum(int((torch.topk(a, 2).indices != torch.topk(b, 2).indices).any(1).sum())
+                for a, b in zip(logits["kernel"], logits["torch"]))
+    (lk, gk, mk, pk), (lt, gt, mt_, pt) = res["kernel"], res["torch"]
+    rel = [float((a - b).norm() / b.norm()) for a, b in zip(gk, gt)]
+    print(f"moe step: top-2 flips {flips} of {tok.numel()} tokens, "
+          f"grad arenas rel L2 {rel}")
+    torch.testing.assert_close(lk, lt, rtol=2e-3, atol=0)
+    for a, b in zip(gk, gt):
+        torch.testing.assert_close(a, b, rtol=0.05, atol=2e-2 * float(b.abs().max()),
+                                   msg=lambda m: f"{m} (flips {flips}, rel L2 {rel})")
+    for a, b in zip(mk, mt_):
+        torch.testing.assert_close(a, b, rtol=0, atol=2.5e-3)  # up to 2 lr
+    for arena, master in zip(pk, mk):
+        assert torch.equal(arena, master.to(arena.dtype))
+
+
+def _a2a_round_trip_rank(rank, store, out):
+    """A rank of a gloo world of 2 on CUDA tensors: the differentiable
+    tiled exchange (E, C, D) -> (E / 2, 2 C, D), its backward, and the
+    inverse exchange back."""
+    import torch.distributed as dist
+    from beforeholiday_tpu_torch.monitor import comms
+    from beforeholiday_tpu_torch.parallel import parallel_state as ps
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=2)
+    try:
+        mesh = ps.make_moe_mesh(expert=2)
+        with mesh:
+            g = torch.Generator(device="cuda").manual_seed(rank)
+            x = torch.randn(4, 3, 8, generator=g, device="cuda").requires_grad_(True)
+            y = comms.all_to_all_differentiable(x, "expert", 0, 1, site="t.a2a")
+            back = comms.all_to_all(y.detach(), "expert", 1, 0, site="t.a2a", tiled=True)
+            ct = torch.randn(y.shape, generator=g, device="cuda")
+            y.backward(ct)
+            want = comms.all_to_all(ct, "expert", 1, 0, site="t.a2a", tiled=True)
+            ok = (y.is_cuda and y.shape == (2, 6, 8) and torch.equal(back, x.detach())
+                  and torch.equal(x.grad, want))
+        mesh.destroy()
+        torch.save({"ok": bool(ok), "y": y.detach().cpu(), "x": x.detach().cpu()},
+                   f"{out}/a2a{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_all_to_all_round_trip_through_gloo_on_the_card(cuda, tmp_path):
+    """Two gloo ranks on CUDA tensors: the exchange and its inverse restore
+    each rank's tensor bitwise, the backward is the inverse exchange, and
+    rank r's result holds every rank's chunk r in rank order."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_a2a_round_trip_rank,
+                         args=(r, f"{tmp_path}/store", str(tmp_path))) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    assert [p.exitcode for p in procs] == [0, 0]
+    res = [torch.load(f"{tmp_path}/a2a{r}.pt") for r in range(2)]
+    assert all(r["ok"] for r in res)
+    for r in range(2):
+        want = torch.cat([res[s]["x"][2 * r:2 * r + 2] for s in range(2)], dim=1)
+        assert torch.equal(res[r]["y"], want)

@@ -92,20 +92,27 @@ def test_gpt_init_shapes_match_jax(models):
     ("remat_policy", "full"), ("moe_experts", 8),
 ])
 def test_gpt_config_rejects_unported_paths(models, field, value):
-    """The MoE fields select a path not ported yet and raise.
-    ``sequence_parallel`` (slice 15) and ``remat_policy`` (slice 18) are
-    ported: each builds, and the forward is the plain one (without model
-    parallelism SP changes nothing, as in JAX; remat changes only what the
-    backward recomputes)."""
-    if field in ("sequence_parallel", "remat_policy"):
-        _, _, tcfg, tparams = models
-        tokens = torch.from_numpy(np.random.default_rng(6).integers(
-            0, TINY["vocab_size"], (2, 20))).long()
-        got = tgpt.forward(tparams, tokens, tgpt.GPTConfig(**TINY, **{field: value}))
+    """Every field once refused is ported now, and builds.
+    ``sequence_parallel`` (slice 15), ``remat_policy`` (slice 18) and
+    ``moe_experts`` without ``moe_every`` leave the forward the plain one
+    (without model parallelism SP changes nothing, as in JAX; remat changes
+    only what the backward recomputes; the expert count acts only in MoE
+    blocks). ``moe_every`` (slice 22) builds the MoE model, whose stack only
+    ``forward`` runs: the dense stack's ``blocks`` still refuses it."""
+    _, _, tcfg, tparams = models
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, TINY["vocab_size"], (2, 20))).long()
+    cfg = tgpt.GPTConfig(**TINY, **{field: value})
+    if field != "moe_every":
+        got = tgpt.forward(tparams, tokens, cfg)
         assert torch.equal(got, tgpt.forward(tparams, tokens, tcfg))
         return
+    params = tgpt.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    logits, aux = tgpt.forward(params, tokens, cfg, return_aux=True)
+    assert logits.shape == (2, 20, TINY["vocab_size"]) and torch.isfinite(logits).all()
+    assert float(aux["moe_aux_loss"]) > 0.0
     with pytest.raises(NotImplementedError):
-        tgpt.GPTConfig(**TINY, **{field: value})
+        tgpt.blocks(params, tgpt.embed(params, tokens, cfg), cfg)
 
 
 @pytest.mark.parametrize("field", ["dropout_rate", "attention_dropout"])
@@ -462,6 +469,16 @@ SERVING_TIER = ("infer/radix.py", "infer/batching.py", "infer/disagg.py",
 
 def test_scan_covers_the_serving_tier():
     for path in SERVING_TIER:
+        assert f"beforeholiday_tpu_torch/{path}" in PORT_FILES, path
+
+
+# the MoE slice's modules: moe/, the GPT's MoE blocks, the example
+MOE_SLICE = ("moe/__init__.py", "moe/router.py", "moe/experts.py", "moe/dispatch.py",
+             "testing/gpt.py", "examples/simple/distributed/moe_gpt.py")
+
+
+def test_scan_covers_the_moe_slice():
+    for path in MOE_SLICE:
         assert f"beforeholiday_tpu_torch/{path}" in PORT_FILES, path
 
 
