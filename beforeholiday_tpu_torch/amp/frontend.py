@@ -21,8 +21,8 @@ inside ``quantized_compute``, its scalers carry the amax history, and
 :func:`scaled_value_and_grad` derives the step's delayed scales from that
 history, provides them to the forward and backward through
 ``quantized_scope``, and rolls the step's (params, still-scaled grads) amax
-observations back into it. ``tuned=True`` raises ``NotImplementedError``
-(the autotuner is not ported). ``has_state`` models (ResNet's BN running stats)
+observations back into it. ``tuned=True`` resolves ``opt_level`` from the
+autotuner's manifest (``tune``). ``has_state`` models (ResNet's BN running stats)
 pass their state through uncast in both directions, and
 ``scaled_value_and_grad(has_aux=True)`` returns the loss function's aux
 output, and ``reduce_grads`` (DDP's reduction) runs on the still-scaled
@@ -237,6 +237,8 @@ def initialize(
     has_state: bool = False,
     num_losses: int = 1,
     arena_native: bool = False,
+    tuning_key: Any = None,
+    tuning_manifest: Any = None,
 ) -> AmpModel:
     """Apply an opt-level policy to ``(apply_fn, params, optimizer)``.
 
@@ -248,12 +250,28 @@ def initialize(
 
     ``has_state=True`` declares ``apply_fn(params, model_state, *inputs) ->
     (out, new_model_state)``: model buffers such as BN running stats, passed
-    through uncast in both directions."""
+    through uncast in both directions.
+
+    ``tuned=True`` resolves ``opt_level`` from the autotuning manifest
+    (:mod:`beforeholiday_tpu_torch.tune`) under ``tuning_key`` — by default
+    the key of the ``params`` tree's abstract signature. An explicitly
+    passed ``opt_level`` always wins over the manifest; a manifest miss
+    falls back to the O5 default with one structured warning.
+    ``tuning_manifest`` accepts a ``TuningManifest`` or a path (None = the
+    default manifest location)."""
     if tuned:
-        raise NotImplementedError(
-            "tuned=True needs the autotuner (beforeholiday_tpu.tune), which "
-            "is not ported yet; pass opt_level explicitly")
-    if opt_level is None:
+        from beforeholiday_tpu_torch import tune as _tune
+
+        key = tuning_key
+        if key is None:
+            # the params tree is the natural per-model signature here
+            key = _tune.tuning_key(params)
+        resolved = _tune.resolve_trainer_knobs(
+            "amp.initialize", {"opt_level": "O5"},
+            {"opt_level": _tune.UNSET if opt_level is None else opt_level},
+            tuned=True, tuning_key=key, manifest=tuning_manifest)
+        opt_level = resolved["opt_level"]
+    elif opt_level is None:
         opt_level = "O5"
     if opt_level not in opt_levels:
         raise RuntimeError(

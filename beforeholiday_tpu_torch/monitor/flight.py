@@ -20,9 +20,10 @@ Triggers that turn the ring into an artifact:
 * **Preemption notice (opt-in)** — :meth:`arm_preemption_dump` installs a
   SIGTERM handler that dumps the ring plus the last durable checkpoint
   generation (:meth:`note_checkpoint`) and then re-delivers the signal, so
-  the process still dies a signal death. (The reference can hand the notice
-  to a graceful-drain consumer instead, its elastic run loop; the port has
-  no such loop, so it always re-delivers.)
+  the process still dies a signal death. When a graceful consumer is
+  registered for the signal (:func:`register_preemption_consumer`, which
+  ``elastic.PreemptionNotice`` does), the handler hands the notice to it
+  after the dump instead: dump first, then the elastic loop drains.
 * **An SLO breach** — the serving telemetry
   (``infer.telemetry.ServingTelemetry``) dumps the active recorder once
   per breached target.
@@ -61,7 +62,39 @@ logger = get_logger(__name__)
 __all__ = [
     "FlightRecorder",
     "active_flight_recorder",
+    "preemption_consumer",
+    "register_preemption_consumer",
+    "unregister_preemption_consumer",
 ]
+
+# signum -> the graceful-drain consumer an armed preemption dump hands the
+# notice to instead of re-delivering the signal
+_PREEMPTION_CONSUMERS: Dict[int, Any] = {}
+_CONSUMER_LOCK = threading.Lock()
+
+
+def register_preemption_consumer(signum: int, callback) -> None:
+    """Register ``callback(signum)`` as the graceful-drain consumer for
+    ``signum``: an armed preemption dump for that signal dumps the black box
+    and then notifies the consumer instead of re-delivering the signal."""
+    with _CONSUMER_LOCK:
+        _PREEMPTION_CONSUMERS[int(signum)] = callback
+
+
+def unregister_preemption_consumer(signum: int, callback=None) -> None:
+    """Remove the consumer for ``signum`` (with ``callback``, only if it is
+    the registered one, so an uninstall cannot evict a newer notice)."""
+    with _CONSUMER_LOCK:
+        cur = _PREEMPTION_CONSUMERS.get(int(signum))
+        if cur is None or (callback is not None and cur is not callback):
+            return
+        del _PREEMPTION_CONSUMERS[int(signum)]
+
+
+def preemption_consumer(signum: int):
+    """The registered consumer for ``signum`` (None: re-deliver)."""
+    with _CONSUMER_LOCK:
+        return _PREEMPTION_CONSUMERS.get(int(signum))
 
 
 def _counter_totals() -> Dict[str, Any]:
@@ -262,8 +295,11 @@ class FlightRecorder:
         checkpoint generation from :meth:`note_checkpoint`) and then
         RE-DELIVERS the signal under the previous disposition — the process
         still dies a signal death (exit 143 for SIGTERM), so supervisors
-        see the truthful status instead of a masked clean exit. Main thread only
-        (``signal.signal``'s contract); idempotent;
+        see the truthful status instead of a masked clean exit. With a
+        graceful consumer registered for the signal
+        (:func:`register_preemption_consumer`) the handler hands the notice
+        to it after the dump and stays armed for a repeat notice. Main
+        thread only (``signal.signal``'s contract); idempotent;
         :meth:`disarm_preemption_dump` restores."""
         if self._sig_num is not None:
             return self
@@ -279,6 +315,16 @@ class FlightRecorder:
                 logger.exception(
                     "flight-recorder dump failed in preemption handler"
                 )
+            consumer = preemption_consumer(s)
+            if consumer is not None:
+                try:
+                    consumer(s)
+                except Exception:  # noqa: BLE001 — fall through to death
+                    logger.exception(
+                        "graceful preemption consumer failed; re-delivering"
+                    )
+                else:
+                    return
             prev = self._sig_prev
             self._sig_num = None
             self._sig_prev = None

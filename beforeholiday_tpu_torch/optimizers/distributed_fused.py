@@ -38,8 +38,8 @@ each way, shard ownership is the flat path's, and uncompressed the step is
 bitwise the flat step over the same spec wherever each tier's sum is.
 ``compress_intra``/``compress_dcn`` compress each tier (``None`` takes
 ``compress``); any tier compression puts ``wire_dtype`` on both gather
-legs, the masters staying fp32. ``tuned=True`` raises as
-``tune.resolve_trainer_knobs`` does.
+legs, the masters staying fp32. ``tuned=True`` resolves the knobs from the
+tuning manifest as ``tune.resolve_trainer_knobs`` does.
 """
 
 from __future__ import annotations
@@ -151,7 +151,8 @@ class _DistributedFused:
              "hierarchical": False},
             {"bucket_bytes": bucket_bytes, "compress": compress,
              "overlap_backward": overlap_backward, "hierarchical": hierarchical},
-            tuned=tuned, tuning_key=tuning_key, manifest=tuning_manifest)
+            tuned=tuned, tuning_key=tuning_key, manifest=tuning_manifest,
+            context={"two_level": hierarchical_axes(axis_name) is not None})
         if knobs["hierarchical"] and hierarchical_axes(axis_name) is None:
             raise ValueError(
                 "hierarchical=True needs a (slice, intra) axis spec; got "

@@ -49,6 +49,13 @@ arena crosses DCN each way.
 
 Ledger sites are ``zero3.*`` (``gather_params``, ``reduce_scatter_grads``,
 ``found_inf``, ``gather_state``).
+
+Snapshot fences: an asynchronous checkpoint (``elastic.CheckpointManager``)
+copies the state to pinned host memory on a side stream while the next step
+runs. The step updates ``master`` and the moments in place, so
+:meth:`ZeRO3FusedAdam.step` first makes the current stream wait for any copy
+registered on those tensors with :func:`fence_update`; the forward and
+backward before it overlap the copy.
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ import itertools
 import json
 import math
 import os
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -101,6 +109,7 @@ __all__ = [
     "host_rank_range",
     "host_manifest_path",
     "effective_hosts",
+    "fence_update",
 ]
 
 _MANIFEST_NAME = "manifest.json"
@@ -182,6 +191,33 @@ def _stripe_plan(layout: Zero3Layout, shard: int,
             pos += take
         plans.append(tuple(segs))
     return tuple(plans)
+
+
+# ---- snapshot fences ---------------------------------------------------------
+
+# data_ptr of a state tensor -> the CUDA event after which a side-stream read
+# of it (a checkpoint's copy to the host) is done
+_FENCES: Dict[int, Any] = {}
+_FENCES_LOCK = threading.Lock()
+
+
+def fence_update(tensors: Sequence[torch.Tensor], event) -> None:
+    """Make the next :meth:`ZeRO3FusedAdam.step` that updates any of
+    ``tensors`` in place wait (on the device, the host does not block) for
+    ``event``: a CUDA event recorded after another stream read them."""
+    with _FENCES_LOCK:
+        for t in tensors:
+            _FENCES[t.data_ptr()] = event
+
+
+def _await_fences(tensors: Sequence[torch.Tensor]) -> None:
+    if not _FENCES:
+        return
+    with _FENCES_LOCK:
+        pending = [(t, _FENCES.pop(t.data_ptr(), None)) for t in tensors]
+    for t, event in pending:
+        if event is not None:
+            torch.cuda.current_stream(t.device).wait_event(event)
 
 
 # ---- the param gather: a custom op with its own autograd --------------------
@@ -369,7 +405,8 @@ class ZeRO3FusedAdam(DistributedFusedAdam):
             {"bucket_bytes": bucket_bytes, "compress": compress,
              "overlap_backward": overlap_backward, "hierarchical": hierarchical,
              "prefetch": prefetch},
-            tuned=tuned, tuning_key=tuning_key, manifest=tuning_manifest)
+            tuned=tuned, tuning_key=tuning_key, manifest=tuning_manifest,
+            context={"two_level": hierarchical_axes(axis_name) is not None})
         super().__init__(
             lr, betas, eps, adam_w_mode=adam_w_mode, weight_decay=weight_decay,
             bias_correction=bias_correction, axis_name=axis_name,
@@ -451,6 +488,9 @@ class ZeRO3FusedAdam(DistributedFusedAdam):
                 f"(shape {tuple(state['master'].shape)}), got "
                 f"{tuple(getattr(g, 'shape', ()))}; pass the gradient w.r.t. "
                 "gather_params' master_shard input")
+        # a checkpoint's copy of the state to the host must land before the
+        # in-place update
+        _await_fences([state[k] for k in _STATE_KEYS])
         world = self._world()
         if self.grad_average and world > 1:
             g = g / world

@@ -191,8 +191,9 @@ class DistributedDataParallel:
     ``value_and_grad``, or :meth:`reduce` / :meth:`hook` plug into
     ``amp.scaled_value_and_grad``. Grads come back identical on every
     rank. The knobs left :data:`~beforeholiday_tpu_torch.tune.UNSET` take
-    the shipped defaults; ``tuned=True`` (the autotuner) is not ported yet
-    and raises."""
+    the shipped defaults; ``tuned=True`` overlays the tuning manifest's
+    entry for ``tuning_key`` (``tune.resolve_trainer_knobs``: explicit
+    kwargs win, a miss warns once and keeps the defaults)."""
 
     def __init__(self, *, axis_name: Any = DATA_AXIS,
                  gradient_average: bool = True,
@@ -210,7 +211,8 @@ class DistributedDataParallel:
              "overlap_backward": False, "hierarchical": False},
             {"bucket_bytes": bucket_bytes, "compress": compress,
              "overlap_backward": overlap_backward, "hierarchical": hierarchical},
-            tuned=tuned, tuning_key=tuning_key, manifest=tuning_manifest)
+            tuned=tuned, tuning_key=tuning_key, manifest=tuning_manifest,
+            context={"two_level": hierarchical_axes(axis_name) is not None})
         _check_hierarchical(knobs["hierarchical"], axis_name)
         self.axis_name = axis_name
         self.gradient_average = gradient_average

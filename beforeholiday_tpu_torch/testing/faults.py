@@ -11,15 +11,19 @@
   divergence ``check_replicated_consistency`` must flag);
 * :func:`preempt_after`      — raise :class:`SimulatedPreemption` on the n-th
   tick;
-* :func:`kill_rank`          — SIGKILL/SIGTERM a subprocess rank.
+* :func:`kill_rank`          — SIGKILL/SIGTERM a subprocess rank;
+* :func:`hang_rank`          — silence ONE rank's heartbeats on a
+  :class:`~beforeholiday_tpu_torch.elastic.watchdog.HangWatchdog` (the rank
+  that hangs rather than dies);
+* :func:`tear_host_generation` — remove one host's manifest from a durable
+  multi-host checkpoint generation.
 
-``force_probe_failure`` has no counterpart (the port has no probe);
-``hang_rank`` and ``tear_host_generation`` need ``elastic/``, which is not
-ported yet.
+``force_probe_failure`` has no counterpart (the port has no probe).
 """
 
 from __future__ import annotations
 
+import os
 import random
 import signal
 from typing import Any, Callable, Optional
@@ -115,3 +119,40 @@ def kill_rank(proc, *, sig: int = signal.SIGKILL, timeout: float = 30.0) -> int:
     reap it; returns its exit code (minus the signal number on POSIX)."""
     proc.send_signal(sig)
     return proc.wait(timeout=timeout)
+
+
+def hang_rank(watchdog, rank: int, *, after_step: int = 0) -> Callable:
+    """Silence ``rank``'s heartbeats on ``watchdog`` once the step reaches
+    ``after_step``: the rank that hangs rather than dies. Nothing exits and
+    nothing raises; the rank keeps stepping and stops reporting. Installs a
+    suppressor on the watchdog (``HangWatchdog.beat`` consults it) and
+    returns it, so ``watchdog.remove_suppressor(...)`` "un-hangs" the rank."""
+    if not 0 <= rank < watchdog.world:
+        raise ValueError(
+            f"rank {rank} out of range for watchdog world {watchdog.world}")
+    if after_step < 0:
+        raise ValueError(f"after_step must be >= 0, got {after_step}")
+
+    def suppress(r: int, step: int) -> bool:
+        return r == rank and step >= after_step
+
+    watchdog.add_suppressor(suppress)
+    return suppress
+
+
+def tear_host_generation(gen_path: str, host: int) -> str:
+    """Tear ONE host's slice out of a durable multi-host checkpoint
+    generation: remove its host manifest (that host's durability stamp), so
+    the generation is durable on every other host but not on all of them
+    and ``elastic.latest_generation`` falls back to the previous one.
+    Returns the removed path."""
+    from beforeholiday_tpu_torch.optimizers import zero3
+
+    path = zero3.host_manifest_path(gen_path, host)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"no host manifest for host {host} under {gen_path!r}: either the "
+            "generation is single-host (hosts=1 writes none) or it is already "
+            "torn")
+    os.remove(path)
+    return path

@@ -285,7 +285,27 @@ Phases, each printing one line (any failure exits non-zero):
     (``moe_gpt_profile``); ``moe_ep_card`` (the ``moe_gpt`` example as four
     gloo ranks on the card, 2 x 2 and 1 x 4, full width at 2 layers, against
     the one-process all-experts-local reference);
-27. the total seconds, each phase's wall seconds (``phase_seconds``), the
+27. slice 23, elastic training and the autotuner, on the flagship's O5
+    step on ``ZeRO3FusedAdam`` ("keep") under a StepGuard:
+    ``elastic_ckpt_card`` (``ElasticTrainer`` at world 1 over NCCL, batch
+    16, 8 steps with a generation every 2 against the same steps without
+    checkpoints: each step's ms, the ``ckpt`` ledger's stalls per phase and
+    generation, the generation's bytes, K1-K6 launches; losses and final
+    shard bitwise; the newest generation restored and 2 steps on, bitwise
+    the uninterrupted run's); ``tune_card`` (``tune()`` over opt_level, the
+    four remat policies and ZeRO-3 prefetch, 6 trials of 3 CUDA-event-timed
+    steps with costs and memory on each trial's entry; the second search a
+    cache hit with 0 trials; ``amp.initialize(tuned=True)`` and
+    ``ZeRO3FusedAdam(tuned=True)`` resolving the manifest, explicit keywords
+    winning, a miss warning once); ``elastic_kill_card`` (the SIGKILL drill:
+    a spawned child killed with ``faults.kill_rank`` once generation 4 is
+    durable, mid-write of the next if the timing allows; a fresh child
+    restores at world 1 and runs to step 8, bitwise the uninterrupted run);
+    ``elastic_resize_card`` (two gloo ranks, full width at 2 layers: a
+    preemption naming world 1, a hang, a tripwire on a perturbed replica,
+    each continuation bitwise a fresh world-1 restore of its generation,
+    rank 1 leaving each run);
+28. the total seconds, each phase's wall seconds (``phase_seconds``), the
     ``kernels`` JSON line (with ``launch_floor_ms``, the Triton floor, and
     ``launch_floor_cuda_ms``), the card line, and the
     final ``ok`` line.
@@ -3944,9 +3964,9 @@ def ddp_guard_phase(main_amp, amp, guard_mod, faults, parallel, cfg, weights):
 def ddp_training_phases(main_amp, amp, guard_mod, faults, parallel, comms, cfg,
                         weights, counters, flops_per_image, n_params, card):
     """The batch-128 O5 step at world 1 on NCCL with SyncBN and 4 MiB
-    buckets, timed and profiled as the one-device O5 step is: after the
-    gradients, then with the backward-time hooks, then guarded (StepGuard
-    with rollback and the parameter sentinel). Each: one step's collectives
+    buckets, timed as the one-device O5 step is (the first run also
+    profiled): after the gradients, then with the backward-time hooks, then
+    guarded (StepGuard with rollback and the parameter sentinel). Each: one step's collectives
     from the ledger first (held to what one step must issue), then
     ``resnet_training_phase`` (0 host syncs, K5 and K10 launches held).
     Returns each run's launch counts."""
@@ -3976,10 +3996,13 @@ def ddp_training_phases(main_amp, amp, guard_mod, faults, parallel, comms, cfg,
                                           metrics=not guarded)
         del tr, step
         tr, step = make()
+        # A29's time budget: only the plain DDP run is profiled; the
+        # hooks' and the guarded run keep their timed steps and checks
         launches[label] = resnet_training_phase(
             f"{label}_training", f"{label}_profile", tr, step, counters,
             STEP_LAUNCHES["ddp_resnet"], flops_per_image, PEAK_BF16, n_params,
-            card, opt_level="O5", backend="nccl", world=1, sync_bn=True,
+            card, profile=label == "ddp_resnet", opt_level="O5", backend="nccl",
+            world=1, sync_bn=True,
             bucket_bytes=DDP_BUCKET_BYTES,
             overlap_backward=bool(kw.get("overlap_backward")), guarded=guarded,
             collectives_per_step=calls, collective_bytes_per_step=nbytes)
@@ -8549,6 +8572,571 @@ KERNEL_ROWS = (
 )
 
 
+# ---- slice 23: elastic training and the autotuner --------------------------
+
+# the elastic runs: ElasticTrainer's defaults at the flagship, generations
+# every 2 committed steps, the newest 2 kept
+ELASTIC_STEPS = 8
+ELASTIC_EVERY = 2
+ELASTIC_TIMEOUT = 600
+# the two gloo ranks' resize drills: a step takes seconds (gloo stages the
+# gather and the reduce-scatter through the host), so the watchdog's window
+# spans two of them
+RESIZE_BATCH = 8
+RESIZE_HANG_TIMEOUT_S = 2.0
+RESIZE_MAX_STEPS = 24
+# the tuner's card subset of shipped_space(), its budget
+TUNE_KNOBS = ("opt_level", "remat_policy", "prefetch")
+TUNE_TRIALS, TUNE_STEPS, TUNE_ITERS = 6, 3, 1
+
+
+def elastic_gpt_engine(amp, gpt, q8, guard_mod, params, cfg, opt_level="O5",
+                       remat=None, prefetch=1):
+    """The flagship's step on ``ZeRO3FusedAdam`` ("keep") under a StepGuard,
+    as ``ElasticTrainer`` wants it: ``(cast params, layout, opt, guard,
+    make_step)``. ``make_step(mesh, world)`` returns ``step(state, gstate,
+    batch)``: this rank's rows of the global batch, the scaled loss through
+    the gathered params (O6: in the history's fp8 scope, the amax
+    observations into the guard), the flags and observations agreed over
+    the ranks, ``apply_sharded_update`` with the inverse scale; the row is
+    the ranks' mean loss."""
+    from contextlib import nullcontext
+
+    from beforeholiday_tpu_torch.monitor import comms
+    from beforeholiday_tpu_torch.optimizers import ZeRO3FusedAdam, zero3
+
+    mcfg = remat_cfg(cfg, remat) if remat else cfg
+    m = amp.initialize(lambda p, t: gpt.forward(p, t, mcfg), params, None, opt_level)
+    cast, m.params = m.params, None
+    opt = ZeRO3FusedAdam(lr=LR, prefetch=prefetch, param_residency="keep")
+    layout = zero3.layout_of(cast)
+    guard = guard_mod.StepGuard(m.scaler)
+
+    def scaled_loss(master, tok, tgt, sstate):
+        p = opt.gather_params(master, layout)
+        p = {**p, "blocks": {k: v.unbind(0) for k, v in p["blocks"].items()}}
+        return m.scaler.scale_loss(gpt.loss_fn(p, tok, tgt, mcfg, forward_fn=m.apply),
+                                   sstate)
+
+    wrapped = opt.wrap_residency(scaled_loss)
+
+    def make_step(mesh, world):
+        r = mesh.axis_index("data")
+
+        def agree(t, op):
+            return t if world == 1 else op(t, "data", site="elastic.step")
+
+        def step(state, gstate, batch):
+            tok, tgt = batch
+            b = tok.shape[0] // world
+            tok, tgt = tok[r * b:(r + 1) * b], tgt[r * b:(r + 1) * b]
+            sstate = gstate["scaler"]
+            scale = sstate["scale"]
+            sw, sg = m.scaler.quantized_scales(sstate)
+            master = state["master"].detach().requires_grad_(True)
+            with nullcontext() if sw is None else q8.quantized_scope(sw, sg):
+                value = wrapped(master, tok, tgt, sstate)
+                value.backward()
+            g = master.grad
+            verdict = {k: agree(v.to(torch.int32), comms.pmax) > 0
+                       for k, v in guard.check_grads(value.detach(), g).items()}
+            if sw is not None:
+                verdict["amax"] = (agree(q8.amax_of_tree(state["master"]), comms.pmax),
+                                   agree(q8.amax_of_tree(g), comms.pmax))
+            state, gstate = guard.apply_sharded_update(opt, state, g, gstate, verdict,
+                                                       grad_scale=1.0 / scale)
+            loss = agree(value.detach().float() / scale, comms.psum) / world
+            return state, gstate, {"loss": loss}
+
+        return step
+
+    return cast, layout, opt, guard, make_step
+
+
+def elastic_trainer(etr, engine, directory, **kw):
+    cast, layout, opt, guard, make_step = engine
+    return etr.ElasticTrainer(opt, layout, make_step, directory=directory, guard=guard,
+                              **kw)
+
+
+def state_digest(state):
+    """sha256 of the shard triplet and the step count, on the host."""
+    h = hashlib.sha256()
+    for k in ("master", "exp_avg", "exp_avg_sq", "step"):
+        h.update(state[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def stamped(batch, stamps):
+    """``batch_fn`` that books the wall clock at each step's start."""
+    def fn(step):
+        stamps.append(time.perf_counter())
+        return batch
+    return fn
+
+
+def step_ms(stamps, end):
+    """Each step's wall ms from the stamps at the steps' starts; the first
+    step (warm-up) dropped."""
+    edges = stamps + [end]
+    return [1e3 * (b - a) for a, b in zip(edges[1:-1], edges[2:])]
+
+
+def elastic_ckpt_card_phase(etr, amp, gpt, q8, guard_mod, cfg, counters, card, tmp):
+    """``ElasticTrainer`` on the flagship at world 1 over NCCL (O5, ZeRO-3
+    "keep", batch 16): ELASTIC_STEPS steps with a generation every
+    ELASTIC_EVERY (keep 2) against the same steps without checkpoints —
+    each step's wall ms, the ``ckpt`` ledger, the launches; the final shard
+    and every loss bitwise; then the uninterrupted run goes 2 steps further
+    and a fresh trainer restored from the newest generation takes the same
+    2 steps, bitwise. A step's ms runs from one step's start to the next's
+    (the poll, the step, the row read, a submit); the last step ends when
+    ``run`` returns, before the drain. Returns the uninterrupted run's
+    losses and digest at ELASTIC_STEPS (the SIGKILL drill's reference)."""
+    params = gpt.init(cfg, gen(0), device="cuda")
+    engine = elastic_gpt_engine(amp, gpt, q8, guard_mod, params, cfg)
+    del params
+    batch = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70), device="cuda")
+    etr.reset_ckpt_ledger()
+    runs = {}
+    for name, every in (("with_ckpt", ELASTIC_EVERY), ("without", 0)):
+        stamps = []
+        tr = elastic_trainer(etr, engine, f"{tmp}/{name}", checkpoint_every=every, keep=2)
+        tr.init(engine[0])
+        for fn in counters.values():
+            fn.launches = 0
+        rows = tr.run(ELASTIC_STEPS, stamped(batch, stamps))
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        if every:
+            tr._manager.wait()  # the last generations land (booked "wait")
+        runs[name] = dict(ms=step_ms(stamps, end), losses=[r["loss"] for r in rows],
+                          digest=state_digest(tr.state), trainer=tr,
+                          launches={k: fn.launches for k, fn in counters.items()
+                                    if fn.launches})
+        if every:
+            tr.close()
+            runs[name]["trainer"] = None
+            summary = etr.ckpt_summary()
+    a, b = runs["with_ckpt"], runs["without"]
+    if a["losses"] != b["losses"] or a["digest"] != b["digest"]:
+        raise AssertionError(f"elastic_ckpt_card: checkpointing changed the run: "
+                             f"{a['losses']} vs {b['losses']}")
+    if a["launches"].get("adam") != ELASTIC_STEPS or a["launches"] != b["launches"]:
+        raise AssertionError(f"elastic_ckpt_card: launches {a['launches']} vs "
+                             f"{b['launches']}")
+    gens = [s for s, _, d in etr.list_generations(f"{tmp}/with_ckpt") if d]
+    if gens != [ELASTIC_STEPS - ELASTIC_EVERY, ELASTIC_STEPS]:
+        raise AssertionError(f"elastic_ckpt_card: durable generations {gens}")
+    reference = dict(losses=b["losses"], digest=b["digest"])
+    # 2 more steps: the uninterrupted run against a restore of the newest
+    tail = b["trainer"].run(2, lambda s: batch)
+    b_digest = state_digest(b["trainer"].state)
+    b["trainer"].close()
+    del b["trainer"]
+    tr = elastic_trainer(etr, engine, f"{tmp}/with_ckpt", checkpoint_every=0)
+    t0 = time.perf_counter()
+    resumed = tr.restore(world=1)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    again = tr.run(2, lambda s: batch)
+    if resumed != ELASTIC_STEPS or [r["loss"] for r in again] != [r["loss"] for r in tail] \
+            or state_digest(tr.state) != b_digest:
+        raise AssertionError("elastic_ckpt_card: the restored generation did not "
+                             "continue bitwise")
+    tr.close()
+    del tr, engine
+    torch.cuda.empty_cache()
+    phases = {r["phase"]: (r["calls"], round(r["seconds"], 4)) for r in summary["phases"]}
+    n = summary["generations"]
+    submits = [i % ELASTIC_EVERY == 0 for i in range(2, ELASTIC_STEPS + 1)]
+    line("elastic_ckpt_card", steps=ELASTIC_STEPS, every=ELASTIC_EVERY,
+         median_ms_with_ckpt=float(np.median(a["ms"])),
+         median_ms_without=float(np.median(b["ms"])),
+         median_ms_between_generations=float(np.median(
+             [x for x, sub in zip(a["ms"], submits) if not sub])),
+         ckpt_step_ms=[round(x, 2) for x, sub in zip(a["ms"], submits) if sub],
+         generations=n, generation_bytes=summary["bytes"] // max(1, n),
+         exposed_s_per_generation=summary["exposed_s"] / max(1, n),
+         write_s_per_generation=phases.get("write", (0, 0.0))[1] / max(1, n),
+         serialize_s_per_generation=phases.get("serialize", (0, 0.0))[1] / max(1, n),
+         hidden_fraction=summary["hidden_fraction"], phases=json.dumps(phases),
+         restore_s=restore_s, launches=json.dumps(a["launches"]),
+         bitwise="losses,shard,restore+2", card=f"'{card}'")
+    return reference
+
+
+class _Proc:
+    """The ``subprocess.Popen`` surface ``faults.kill_rank`` drives, over a
+    ``multiprocessing`` process."""
+
+    def __init__(self, proc):
+        self.proc = proc
+
+    def send_signal(self, sig):
+        os.kill(self.proc.pid, sig)
+
+    def wait(self, timeout=None):
+        self.proc.join(timeout)
+        return self.proc.exitcode
+
+
+def elastic_kill_child(mode, directory, out):
+    """A spawned process of the SIGKILL drill: one NCCL rank on the card and
+    the flagship's elastic run. ``train`` runs ELASTIC_STEPS steps with a
+    generation every ELASTIC_EVERY (it is killed on the way); ``resume``
+    restores the newest durable generation at world 1 and runs to
+    ELASTIC_STEPS without writing generations, then saves its losses, the
+    digest of its shard and the restore's and a reshard's seconds."""
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        os.makedirs(f"{out}/{mode}_store")
+        init_nccl(f"{out}/{mode}_store")
+        from beforeholiday_tpu_torch import amp, elastic as etr, guard as guard_mod
+        from beforeholiday_tpu_torch.ops import quantized as q8
+        from beforeholiday_tpu_torch.optimizers import zero3
+        from beforeholiday_tpu_torch.testing import gpt
+
+        cfg = gpt.GPTConfig(**MODEL)
+        engine = elastic_gpt_engine(amp, gpt, q8, guard_mod,
+                                    gpt.init(cfg, gen(0), device="cuda"), cfg)
+        batch = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70), device="cuda")
+        tr = elastic_trainer(etr, engine, directory, keep=2,
+                             checkpoint_every=ELASTIC_EVERY if mode == "train" else 0)
+        if mode == "train":
+            tr.init(engine[0])
+            tr.run(ELASTIC_STEPS, lambda s: batch)
+            tr._manager.wait()
+            time.sleep(ELASTIC_TIMEOUT)  # the parent kills it first
+            raise AssertionError("the training child was meant to be killed")
+        t0 = time.perf_counter()
+        resumed = tr.restore(world=1)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        manifest, shards = zero3.load_shard_files(etr.latest_generation(directory)[1])
+        t0 = time.perf_counter()
+        zero3.reshard_state(shards, manifest, 1)
+        reshard_s = time.perf_counter() - t0
+        rows = tr.run(ELASTIC_STEPS - resumed, lambda s: batch)
+        torch.save(dict(resumed=resumed, losses=[r["loss"] for r in rows],
+                        digest=state_digest(tr.state), restore_s=restore_s,
+                        reshard_s=reshard_s), f"{out}/resume.pt")
+        tr.close()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(f"{out}/{mode}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def elastic_kill_card_phase(etr, faults, reference, card, tmp):
+    """The SIGKILL drill: a spawned child trains the flagship's elastic run;
+    once generation 4 is durable the parent waits (a while) for the next
+    generation's directory to appear and SIGKILLs the child with
+    ``faults.kill_rank``, mid-write if the timing allows. A fresh child
+    restores at world 1 and runs to ELASTIC_STEPS: its losses and final
+    shard bitwise ``elastic_ckpt_card``'s uninterrupted run."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    directory = f"{tmp}/kill"
+    os.makedirs(directory)
+    child = ctx.Process(target=elastic_kill_child, args=("train", directory, tmp))
+    t0 = time.perf_counter()
+    child.start()
+    first, nxt = 4, 4 + ELASTIC_EVERY
+    while True:
+        latest = etr.latest_generation(directory)
+        if latest is not None and latest[0] >= first:
+            break
+        if not child.is_alive() or time.perf_counter() - t0 > ELASTIC_TIMEOUT:
+            raise AssertionError(f"elastic_kill_card: the child ended or stalled "
+                                 f"before generation {first} (exit {child.exitcode})")
+        time.sleep(0.01)
+    torn_dir = etr.generation_dir(directory, nxt)
+    deadline = time.perf_counter() + 30
+    while not os.path.isdir(torn_dir) and time.perf_counter() < deadline \
+            and child.is_alive():
+        time.sleep(0.002)
+    code = faults.kill_rank(_Proc(child))
+    mid_write = os.path.isdir(torn_dir) and not os.path.exists(f"{torn_dir}/manifest.json")
+    if code != -9:
+        raise AssertionError(f"elastic_kill_card: the child exited {code}, not by SIGKILL")
+    gens = [(s, d) for s, _, d in etr.list_generations(directory)]
+    codes = spawn_ranks(1, elastic_kill_child, lambda r: ("resume", directory, tmp),
+                        ELASTIC_TIMEOUT, "elastic_kill_card")
+    if codes != [0]:
+        err = f"{tmp}/resume.err"
+        raise AssertionError("elastic_kill_card: the resumed child failed:\n" + (
+            open(err).read() if os.path.exists(err) else str(codes)))
+    res = torch.load(f"{tmp}/resume.pt")
+    want = reference["losses"][res["resumed"]:]
+    ok = res["losses"] == want and res["digest"] == reference["digest"]
+    if not ok:
+        raise AssertionError(f"elastic_kill_card: resumed at {res['resumed']}, losses "
+                             f"{res['losses']} vs {want}, digest "
+                             f"{res['digest'] == reference['digest']}")
+    line("elastic_kill_card", killed_exit=code, generations_at_kill=json.dumps(gens),
+         mid_write=mid_write, resumed_from=res["resumed"],
+         restore_s=res["restore_s"], reshard_s=res["reshard_s"],
+         bitwise="losses,shard", seconds=time.perf_counter() - t0, card=f"'{card}'")
+
+
+def elastic_resize_worker(rank, store, out_dir, tmp):
+    """One of two gloo ranks on the card: the flagship at full width and 2
+    of its 8 layers, batch RESIZE_BATCH a rank, three elastic runs from a
+    fresh start — a preemption naming world 1, a hang (``hang_rank`` silences
+    rank 1's beats while it keeps stepping), a tripwire (a replicated value
+    perturbed on rank 1). Rank 0 holds each continuation against a fresh
+    world-1 trainer restored from a copy of the generation the run resumed
+    from: losses and final shard bitwise; rank 1 leaves every run."""
+    import shutil
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=2)
+        from beforeholiday_tpu_torch import amp, elastic as etr, guard as guard_mod
+        from beforeholiday_tpu_torch.ops import quantized as q8
+        from beforeholiday_tpu_torch.parallel import check_replicated_consistency
+        from beforeholiday_tpu_torch.testing import faults, gpt
+
+        cfg = gpt.GPTConfig(**card_model())
+        engine = elastic_gpt_engine(amp, gpt, q8, guard_mod,
+                                    gpt.init(cfg, gen(0), device="cuda"), cfg)
+        batch = gpt.synthetic_batch(cfg, 2 * RESIZE_BATCH, generator=gen(70),
+                                    device="cuda")
+        cast, layout, opt, guard, make_step = engine
+        calls = {"n": 0}
+
+        def tripped(mesh, world):
+            inner = make_step(mesh, world)
+
+            def step(state, gstate, b):
+                calls["n"] += 1
+                state, gstate, row = inner(state, gstate, b)
+                seen = {"loss": row["loss"]}
+                if calls["n"] == 3:
+                    seen = faults.perturb_rank_grads(seen, "data", rank=1)
+                row["mismatch"] = check_replicated_consistency(seen, "data",
+                                                               site="elastic.tripwire")
+                return state, gstate, row
+
+            return step
+
+        out = {}
+        for name in ("preemption", "hang", "tripwire"):
+            calls["n"] = 0
+            d = f"{tmp}/{name}"
+            kw, preemption = {}, None
+            if name == "preemption":
+                preemption = faults.preempt_after(3, surviving_world=1)
+            if name == "hang":
+                wd = etr.HangWatchdog(2, hang_timeout_s=RESIZE_HANG_TIMEOUT_S,
+                                      poll_interval_s=0.05)
+                faults.hang_rank(wd, 1, after_step=2)
+                kw["watchdog"] = wd.start()
+            step_factory = tripped if name == "tripwire" else make_step
+            tr = etr.ElasticTrainer(opt, layout, step_factory, directory=f"{d}/live",
+                                    guard=guard, checkpoint_every=ELASTIC_EVERY, keep=8,
+                                    **kw)
+            t0 = time.perf_counter()
+            tr.init(cast)
+            # a step at a time until the event (the hang's step is the
+            # watchdog's to pick), then 2 more on the survivor
+            while not tr.events and tr.global_step < RESIZE_MAX_STEPS:
+                tr.run(1, lambda s: batch, preemption=preemption)
+            if not tr.retired:
+                tr.run(2, lambda s: batch)
+            if name == "hang":
+                wd.stop()
+            rec = {"events": [dataclasses.asdict(e) for e in tr.events],
+                   "retired": tr.retired, "seconds": time.perf_counter() - t0}
+            if not tr.retired:
+                tr._manager.wait()
+                ev = tr.events[-1]
+                tail = [r["loss"] for r in tr.history if r["step"] > ev.resumed_from
+                        and r["world"] == 1]
+                final = {k: v.clone() for k, v in tr.state.items()}
+                shutil.copytree(etr.generation_dir(f"{d}/live", ev.resumed_from),
+                                etr.generation_dir(f"{d}/ref", ev.resumed_from))
+            tr.close()
+            ref = etr.ElasticTrainer(opt, layout, make_step, directory=f"{d}/ref",
+                                     guard=guard, checkpoint_every=0)
+            if not tr.retired:
+                ref.restore(world=1)
+                again = [r["loss"] for r in ref.run(len(tail), lambda s: batch)]
+                rec["bitwise"] = (again == tail and all(
+                    torch.equal(final[k], ref.state[k]) for k in final))
+                rec["tail"] = tail
+            ref.close()
+            out[name] = rec
+            del tr, ref
+            torch.cuda.empty_cache()
+        torch.save(out, f"{out_dir}/resize_rank{rank}.pt")
+        dist.destroy_process_group()
+    except BaseException:
+        with open(f"{out_dir}/resize_rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def elastic_resize_card_phase(card, tmp):
+    """Two gloo ranks on the card (:func:`elastic_resize_worker`): each
+    ResizeEvent with its stall, rank 0's continuations bitwise their fresh
+    world-1 restores, rank 1 gone from every run."""
+    codes = spawn_ranks(2, elastic_resize_worker,
+                        lambda r: (r, f"{tmp}/resize_store", tmp, f"{tmp}/runs"),
+                        ELASTIC_TIMEOUT, "elastic_resize_card")
+    if codes != [0, 0]:
+        errs = [open(f"{tmp}/resize_rank{r}.err").read() for r in range(2)
+                if os.path.exists(f"{tmp}/resize_rank{r}.err")]
+        raise AssertionError(f"elastic_resize_card: exit codes {codes}\n" + "\n".join(errs))
+    res = [torch.load(f"{tmp}/resize_rank{r}.pt") for r in range(2)]
+    for name, rec in res[0].items():
+        other = res[1][name]
+        want = {"preemption": "preemption", "hang": "hang", "tripwire": "tripwire"}[name]
+        evs = rec["events"]
+        same = [{k: v for k, v in e.items() if k != "stall_s"} for e in evs] == \
+            [{k: v for k, v in e.items() if k != "stall_s"} for e in other["events"]]
+        if [e["reason"] for e in evs] != [want] or evs[0]["new_world"] != 1 \
+                or rec["retired"] or not rec["bitwise"] or not other["retired"] \
+                or not same:
+            raise AssertionError(f"elastic_resize_card {name}: {rec} / rank 1 {other}")
+        e = evs[0]
+        line("elastic_resize_card", run=name, reason=e["reason"], at_step=e["at_step"],
+             worlds=f"{e['old_world']}->{e['new_world']}", resumed_from=e["resumed_from"],
+             stall_s=e["stall_s"], continued_steps=len(rec["tail"]),
+             run_seconds=rec["seconds"], rank1="left", bitwise="losses,shard",
+             card=f"'{card}'")
+
+
+def tune_card_phase(amp, gpt, q8, guard_mod, tune, monitor, cfg, card, tmp):
+    """``tune()`` over ``shipped_space()``'s TUNE_KNOBS (opt_level O5/O6, the
+    four remat policies, ZeRO-3 prefetch) on the flagship's ZeRO-3 step at
+    world 1 over NCCL: TUNE_TRIALS trials of TUNE_STEPS steps, each warmed
+    up, its costs and memory registered under the trial's entry
+    (``measure_costs``, ``measure_memory``), its steps timed with CUDA
+    events and one synchronize. Then the same key again is a cache hit with
+    0 trials; ``amp.initialize(tuned=True)`` and ``ZeRO3FusedAdam(tuned=
+    True)`` take the manifest's ``opt_level`` and ``prefetch``, an explicit
+    keyword wins, and a manifest miss warns once and keeps the defaults."""
+    import logging
+
+    from beforeholiday_tpu_torch.optimizers import ZeRO3FusedAdam
+    from beforeholiday_tpu_torch.parallel.parallel_state import carve_data_mesh
+    from beforeholiday_tpu_torch.utils.logging import reset_warn_once
+
+    params = gpt.init(cfg, gen(0), device="cuda")
+    tok, tgt = gpt.synthetic_batch(cfg, TRAIN_BATCH, generator=gen(70), device="cuda")
+    mesh = carve_data_mesh(1)
+    space = tune.shipped_space().subset(TUNE_KNOBS)
+    monitor.reset_roofline_ledger()
+    monitor.reset_memory_ledger()
+
+    def trial(config, steps, entry):
+        cast, layout, opt, guard, make_step = elastic_gpt_engine(
+            amp, gpt, q8, guard_mod, params, cfg, opt_level=config["opt_level"],
+            remat=None if config["remat_policy"] == "none" else config["remat_policy"],
+            prefetch=config["prefetch"])
+        with mesh:
+            step = make_step(mesh, 1)
+            box = {"state": opt.init(cast)}
+            box["gstate"] = guard.init(box["state"])
+            del cast
+
+            def one(state, gstate, tok, tgt):
+                box["state"], box["gstate"], row = step(state, gstate, (tok, tgt))
+                return row["loss"]
+
+            def go():
+                return one(box["state"], box["gstate"], tok, tgt)
+
+            go()  # warm-up: the first step allocates, the second settles
+            go()
+            monitor.measure_costs(one, box["state"], box["gstate"], tok, tgt, entry=entry)
+            monitor.measure_memory(one, box["state"], box["gstate"], tok, tgt, entry=entry)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(steps):
+                go()
+            end.record()
+            end.synchronize()
+        del box, step, opt, guard
+        torch.cuda.empty_cache()
+        return start.elapsed_time(end) / 1e3
+
+    key = tune.tuning_key(params)
+    path = f"{tmp}/tune-manifest.json"
+    t0 = time.perf_counter()
+    res = tune.tune(trial, space, key, manifest=path, max_trials=TUNE_TRIALS,
+                    steps_per_trial=TUNE_STEPS, iters=TUNE_ITERS)
+    search_s = time.perf_counter() - t0
+    for rec in res.records:
+        line("tune_trial", entry=rec.entry, config=json.dumps(rec.config),
+             ms_per_step=None if rec.cost_s is None else 1e3 * rec.cost_s,
+             steps=rec.steps, peak_temp_bytes=rec.evidence.get("peak_temp_bytes"),
+             bound=rec.evidence.get("bound"), pruned=rec.pruned, card=f"'{card}'")
+    again = tune.tune(trial, space, key, manifest=path, max_trials=TUNE_TRIALS)
+    if res.trials != TUNE_TRIALS or res.cache_hit or not again.cache_hit \
+            or again.trials != 0 or again.config != res.config:
+        raise AssertionError(f"tune_card: {res.trials} trials, then hit "
+                             f"{again.cache_hit} with {again.trials} trials")
+    # the constructors resolve the manifest's entry; explicit keywords win
+    fn = lambda p, t: gpt.forward(p, t, cfg)  # noqa: E731
+    m = amp.initialize(fn, params, None, tuned=True, tuning_manifest=path)
+    z3 = ZeRO3FusedAdam(lr=LR, tuned=True, tuning_key=key, tuning_manifest=path)
+    explicit = (amp.initialize(fn, params, None, "O5", tuned=True,
+                               tuning_manifest=path).policy.opt_level,
+                ZeRO3FusedAdam(lr=LR, prefetch=0, tuned=True, tuning_key=key,
+                               tuning_manifest=path).prefetch)
+    reset_warn_once(("tune.resolve", "amp.initialize"))
+    reset_warn_once(("tune.resolve", "zero3"))
+    seen = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    handler = Capture()
+    logging.getLogger("beforeholiday_tpu_torch").addHandler(handler)
+    try:
+        missing = f"{tmp}/missing.json"
+        miss = [amp.initialize(fn, params, None, tuned=True,
+                               tuning_manifest=missing).policy.opt_level
+                for _ in range(2)]
+        miss += [ZeRO3FusedAdam(lr=LR, tuned=True, tuning_key=key,
+                                tuning_manifest=missing).prefetch for _ in range(2)]
+    finally:
+        logging.getLogger("beforeholiday_tpu_torch").removeHandler(handler)
+    warned = len([s for s in seen if "no manifest entry" in s])
+    ok = (m.policy.opt_level == res.config["opt_level"]
+          and z3.prefetch == res.config["prefetch"] and explicit == ("O5", 0)
+          and miss == ["O5", "O5", 1, 1] and warned == 2)
+    if not ok:
+        raise AssertionError(f"tune_card: resolved {m.policy.opt_level}/{z3.prefetch} "
+                             f"for {res.config}, explicit {explicit}, miss {miss}, "
+                             f"{warned} warnings")
+    resolved = f"amp:{m.policy.opt_level},zero3_prefetch:{z3.prefetch}"
+    mesh.destroy()
+    del m, z3, params
+    torch.cuda.empty_cache()
+    line("tune_card", winner=json.dumps(res.config),
+         ms_per_step=None if res.cost_s is None else 1e3 * res.cost_s,
+         trials=res.trials, search_s=search_s, key=key.digest,
+         chip=f"'{key.chip[0]}'", second_run="cache_hit,0_trials",
+         resolved=resolved,
+         explicit_wins=True, miss="O5,prefetch_1,warned_once_a_site", card=f"'{card}'")
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -9076,6 +9664,26 @@ def main():
                                                      counters, card)
     with phase("moe_ep_card"), tempfile.TemporaryDirectory() as tmp:
         moe_ep_card_phase(tmp)
+
+    # slice 23: elastic training and the autotuner on the flagship's ZeRO-3
+    # step. NCCL at world 1 for the async checkpoints and the tuner; the
+    # SIGKILL drill in spawned children; two gloo ranks for the resizes. The
+    # generations live in temporary directories the phases delete
+    from beforeholiday_tpu_torch import elastic as etr, tune
+    with tempfile.TemporaryDirectory() as tmp:
+        init_nccl(tmp)
+        try:
+            with phase("elastic_ckpt_card"):
+                reference = elastic_ckpt_card_phase(etr, amp, gpt, q8, guard_mod, cfg,
+                                                    counters, card, tmp)
+            with phase("tune_card"):
+                tune_card_phase(amp, gpt, q8, guard_mod, tune, monitor, cfg, card, tmp)
+        finally:
+            dist.destroy_process_group()
+    with phase("elastic_kill_card"), tempfile.TemporaryDirectory() as tmp:
+        elastic_kill_card_phase(etr, faults, reference, card, tmp)
+    with phase("elastic_resize_card"), tempfile.TemporaryDirectory() as tmp:
+        elastic_resize_card_phase(card, tmp)
 
     kernels = []
     for kname, route, source, replaces in KERNEL_ROWS:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import os
 import pickle
 import time
@@ -30,13 +31,15 @@ import torch.distributed as dist
 
 def run_world(fn, world: int, tmp_path, *args, timeout: float = 300.0):
     """``[fn(rank, world, *args) for rank in range(world)]``, each rank in
-    its own process of one gloo world."""
+    its own process of one gloo world (``fn`` a function of this module or
+    of another module beside it)."""
     ctx = mp.get_context("spawn")
     base = os.path.join(str(tmp_path), f"world_{uuid.uuid4().hex[:8]}")
     os.makedirs(base)
     store = os.path.join(base, "store")
+    name = f"{fn.__module__}:{fn.__name__}"
     procs = [ctx.Process(target=_entry,
-                         args=(fn.__name__, rank, world, store, base, args),
+                         args=(name, rank, world, store, base, args),
                          daemon=True)
              for rank in range(world)]
     for p in procs:
@@ -73,7 +76,8 @@ def _entry(name, rank, world, store, base, args):
         dist.init_process_group("gloo", init_method=f"file://{store}",
                                 rank=rank, world_size=world)
         try:
-            out = globals()[name](rank, world, *args)
+            module, fn = name.split(":")
+            out = getattr(importlib.import_module(module), fn)(rank, world, *args)
         finally:
             from beforeholiday_tpu_torch.parallel import parallel_state
 

@@ -2577,3 +2577,44 @@ def test_all_to_all_round_trip_through_gloo_on_the_card(cuda, tmp_path):
     for r in range(2):
         want = torch.cat([res[s]["x"][2 * r:2 * r + 2] for s in range(2)], dim=1)
         assert torch.equal(res[r]["y"], want)
+
+
+def test_snapshot_submitted_before_a_step_holds_the_state_before_it(nccl_world1,
+                                                                    tmp_path):
+    """An async checkpoint copies the ZeRO-3 shard to pinned host buffers on
+    a side stream while K6 updates it in place: each generation submitted
+    before a step holds the state from before that step (the step waits for
+    the copy), and the steps' results are bitwise those of a run that never
+    checkpointed. The buffers are reused across generations."""
+    from beforeholiday_tpu_torch.elastic import CheckpointManager
+    from beforeholiday_tpu_torch.optimizers import ZeRO3FusedAdam, zero3
+
+    g = _gen(5)
+    # a 256 MB fp32 arena: its copy to the host takes milliseconds, while
+    # the step launched right after the submit would overtake it
+    params = {"w": torch.randn(8192, 8192, generator=g, device="cuda")}
+    layout = zero3.layout_of(params)
+    grads = [torch.randn(layout.spec.padded_total, generator=g, device="cuda")
+             for _ in range(4)]
+    opt = ZeRO3FusedAdam(lr=1e-2)
+    ref = opt.init(params)
+    state = opt.init(params)
+    assert state["master"].is_cuda
+    want = []
+    with CheckpointManager(str(tmp_path), zero3.shard_manifest(layout, 1), rank=0,
+                           token="t", queue_depth=2, keep=4) as mgr:
+        for i, gr in enumerate(grads):
+            want.append({k: v.cpu() for k, v in state.items()})
+            mgr.submit(i, state)
+            state = opt.step(gr, state)
+            ref = opt.step(gr, ref)
+        mgr.wait()
+        assert len(mgr._buffers) == 2 and all(
+            b["master"].is_pinned() for b in mgr._buffers.values())
+    assert not zero3._FENCES
+    for i, w in enumerate(want):
+        manifest, shards = zero3.load_shard_files(f"{tmp_path}/gen_{i:08d}")
+        for k in ("master", "exp_avg", "exp_avg_sq", "step"):
+            assert np.array_equal(shards[0][k], w[k].numpy()), (i, k)
+    for k in ("master", "exp_avg", "exp_avg_sq", "step"):
+        assert torch.equal(state[k], ref[k])

@@ -482,6 +482,19 @@ def test_scan_covers_the_moe_slice():
         assert f"beforeholiday_tpu_torch/{path}" in PORT_FILES, path
 
 
+# the elastic and tune slice: elastic/, tune/, the faults, the example
+ELASTIC_TUNE_SLICE = (
+    "elastic/__init__.py", "elastic/checkpoint.py", "elastic/signals.py",
+    "elastic/trainer.py", "elastic/watchdog.py", "tune/__init__.py",
+    "tune/space.py", "tune/manifest.py", "tune/signature.py", "tune/search.py",
+    "testing/faults.py", "examples/simple/distributed/elastic_training.py")
+
+
+def test_scan_covers_the_elastic_and_tune_slice():
+    for path in ELASTIC_TUNE_SLICE:
+        assert f"beforeholiday_tpu_torch/{path}" in PORT_FILES, path
+
+
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_port_never_imports_jax_or_the_jax_package(path):
     tree = ast.parse((REPO / path).read_text(), filename=path)
